@@ -102,6 +102,63 @@ def test_torch_cuda_attention_core(gen, dtype, b, s, heads, hd, seq_len):
            reference.attention_core(qkv, **kw))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", [(37, 200), (9, 1024), (1, 1280)])
+def test_torch_cuda_layernorm_stats(gen, dtype, rows, d):
+    from vit_tpu_torch import ops
+
+    x = _rnd(gen, dtype, rows, d, std=2.0, mean=0.5)
+    x[0] = _rnd(gen, dtype, d, std=0.5, mean=100.0)  # large mean
+    got, want = ops.layernorm_stats(x, impl="cuda"), ops.layernorm_stats(
+        x, impl="torch")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (rows, 1) and g.dtype == torch.float32
+        assert ((g - w).abs() <= 1e-5 * (1 + w.abs())).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(37, 200, 100), (130, 1024, 3072),
+                                   (5, 24, 9)])
+def test_torch_cuda_fused_linear_ragged(gen, dtype, m, k, n):
+    """Every flag combination; K=200 with LN is the zero-fill trap."""
+    from vit_tpu_torch import ops
+
+    x = _rnd(gen, dtype, m, k, std=1.5, mean=0.3)
+    w = _rnd(gen, dtype, k, n, std=0.05)
+    b = _rnd(gen, dtype, n, std=0.1)
+    g = _rnd(gen, dtype, k, std=0.1, mean=1.0)
+    beta = _rnd(gen, dtype, k, std=0.2)
+    r = _rnd(gen, dtype, m, n)
+    for bias, act, ln, res in ((None, None, False, None),
+                               (b, None, True, None), (b, "gelu", True, None),
+                               (b, None, False, r), (b, "gelu", True, r),
+                               (None, None, True, r)):
+        kw = dict(ln_scale=g if ln else None, ln_bias=beta if ln else None,
+                  residual=res)
+        _close(ops.fused_linear(x, w, bias, act, impl="cuda", **kw),
+               ops.fused_linear(x, w, bias, act, impl="torch", **kw))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("b,heads,s,seq_len", [
+    (2, 3, 197, 197), (1, 2, 592, 577), (1, 2, 1000, 1000), (3, 1, 40, 33)])
+def test_torch_cuda_flash_attention(gen, dtype, hd, b, heads, s, seq_len):
+    """Contiguous operands and strided views of a packed QKV buffer."""
+    from vit_tpu_torch import ops
+
+    kw = dict(scale=hd ** -0.5, seq_len=seq_len)
+    q, k, v = (_rnd(gen, dtype, b, heads, s, hd) for _ in range(3))
+    _close(ops.flash_attention(q, k, v, impl="cuda", **kw),
+           ops.flash_attention(q, k, v, impl="torch", **kw))
+    qkv = _rnd(gen, dtype, b * s, 3 * heads * hd)
+    q, k, v = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    got = ops.flash_attention(q, k, v, impl="cuda", **kw)
+    assert got.transpose(1, 2).is_contiguous()  # a (B, S, H, d) buffer
+    _close(got, ops.flash_attention(q, k, v, impl="torch", **kw))
+
+
 def test_torch_cuda_wrappers_check_inputs(gen):
     from vit_tpu_torch import ops
 
@@ -131,7 +188,31 @@ def test_torch_cuda_forward_counts_and_matches_plain(gen):
     got = vit.forward(params, px, cfg)
     torch.cuda.synchronize()
     assert launch_counts() == {"layernorm": 3, "matmul": 6, "attention": 2,
-                               "mlp_block": 2}
+                               "mlp_block": 2, "layernorm_stats": 0,
+                               "fused_linear": 0, "flash_attention": 0}
     want = vit.forward(params, px, cfg, impl="torch")
     assert launch_counts()["matmul"] == 6  # the plain path launches nothing
     _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_torch_cuda_composed_forward_counts_and_matches_plain(gen, dtype):
+    """A narrow L/16-384 geometry (592 padded tokens): the attention half
+    is composed in both dtypes, the MLP half too in bf16 (D % 128)."""
+    from vit_tpu_torch.config import ViTConfig
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = ViTConfig(image_size=384, patch_size=16, hidden_dim=64,
+                    num_heads=2, num_layers=2, mlp_dim=128, dtype=dtype)
+    params = vit.init_params(cfg, generator=gen, device="cuda")
+    px = torch.randn((2, 3, 384, 384), generator=gen, device="cuda")
+    reset_launch_counts()
+    got = vit.forward(params, px, cfg)
+    torch.cuda.synchronize()
+    mlp_mega = dtype == torch.float32
+    assert launch_counts() == {
+        "layernorm": 1, "matmul": 1, "attention": 0,
+        "mlp_block": 2 if mlp_mega else 0, "layernorm_stats": 2 if mlp_mega
+        else 4, "fused_linear": 4 if mlp_mega else 8, "flash_attention": 2}
+    _close(got, vit.forward(params, px, cfg, impl="torch"))

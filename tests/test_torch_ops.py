@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from vit_tpu.ops import reference as jax_ref
+from vit_tpu.ops.pallas import attention as pallas_attention
 from vit_tpu.ops.pallas import block as pallas_block
 from vit_tpu.ops.pallas import layernorm as pallas_layernorm
 from vit_tpu.ops.pallas import matmul as pallas_matmul
@@ -160,6 +161,103 @@ def test_torch_patch_embed_matches_reference(dtype):
            dtype)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", [96, 128])
+def test_torch_layernorm_stats_matches_pallas(dtype, d):
+    """Row 0 has mean 100 and std 0.5: a one-pass E[x²] - mean² variance
+    would lose about three digits of rstd there."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((3, 11, d)) * 2 + 0.5
+    x[0, 0] = 100 + 0.5 * rng.standard_normal(d)
+    jx, tx = _pair(x, dtype)
+    jmu, jrs = pallas_layernorm.layernorm_stats(jx, eps=1e-12, interpret=True)
+    mu, rstd = ops.layernorm_stats(tx, eps=1e-12)
+    assert mu.shape == rstd.shape == (33, 1)
+    assert mu.dtype == rstd.dtype == torch.float32
+    # fp32 outputs in both dtypes: held to the fp32 bar, relative to size.
+    for got, want in ((mu, jmu), (rstd, jrs)):
+        want = np.asarray(want)
+        assert (np.abs(got.numpy() - want) <= 1e-5 * (1 + np.abs(want))).all()
+    assert abs(float(rstd[0, 0]) - float(jrs[0, 0])) <= 1e-4
+
+
+FUSED_FLAGS = {  # (bias, activation, ln, residual)
+    "none": (False, None, False, False),
+    "ln": (True, None, True, False),
+    "ln_gelu": (True, "gelu", True, False),
+    "residual": (True, None, False, True),
+    "all": (True, "gelu", True, True),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("flags", list(FUSED_FLAGS))
+@pytest.mark.parametrize("k", [128, 200])
+def test_torch_fused_linear_matches_pallas(dtype, flags, k):
+    """Ragged M (2*17) and N (100); K=200 with LN is the zero-fill trap: a
+    zero-padded x column would normalise to beta - mu*rstd*gamma, not 0."""
+    has_bias, act, has_ln, has_res = FUSED_FLAGS[flags]
+    rng = np.random.default_rng(8)
+    arrays = (rng.standard_normal((2, 17, k)) * 1.5 + 0.3,
+              0.08 * rng.standard_normal((k, 100)),
+              0.1 * rng.standard_normal(100),
+              1 + 0.1 * rng.standard_normal(k), 0.2 * rng.standard_normal(k),
+              rng.standard_normal((2, 17, 100)))
+    (jx, tx), (jw, tw), (jb, tb), (jg, tg), (jbe, tbe), (jr, tr) = (
+        _pair(a, dtype) for a in arrays)
+    want = pallas_matmul.fused_linear(
+        jx, jw, jb if has_bias else None, act,
+        ln_scale=jg if has_ln else None, ln_bias=jbe if has_ln else None,
+        eps=1e-12, residual=jr if has_res else None, interpret=True)
+    got = ops.fused_linear(
+        tx, tw, tb if has_bias else None, act,
+        ln_scale=tg if has_ln else None, ln_bias=tbe if has_ln else None,
+        eps=1e-12, residual=tr if has_res else None)
+    assert got.dtype == tx.dtype
+    _close(got, want, dtype)
+
+
+#: (S, seq_len, force_online) of each regime of the Pallas flash kernel.
+FLASH_REGIMES = {
+    "group3d": (197, None, False),  # attention.py:246, unaligned S
+    "rows": (208, 197, False),      # attention.py:246, aligned S
+    "qtile": (800, 790, False),     # attention.py:277, S > 768
+    "online": (800, 790, True),     # attention.py:311
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("regime", list(FLASH_REGIMES))
+def test_torch_flash_attention_matches_pallas(dtype, hd, regime):
+    """The port's one kernel takes all three regimes; its plain version is
+    held to each of the Pallas kernels."""
+    s, seq_len, online = FLASH_REGIMES[regime]
+    rng = np.random.default_rng(9)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng.standard_normal((1, 2, s, hd)), dtype) for _ in range(3))
+    want = pallas_attention.flash_attention(
+        jq, jk, jv, scale=hd ** -0.5, seq_len=seq_len, force_online=online,
+        interpret=True)
+    got = ops.flash_attention(tq, tk, tv, scale=hd ** -0.5, seq_len=seq_len)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_torch_flash_attention_takes_packed_qkv_views(dtype):
+    """q, k and v as strided (B, H, S, d) views of a packed (B*S, 3D)
+    buffer, as the model's composed route passes them."""
+    rng = np.random.default_rng(10)
+    b, s, heads, hd, seq_len = 2, 48, 2, 80, 40
+    jqkv, tqkv = _pair(rng.standard_normal((b * s, 3 * heads * hd)), dtype)
+    q, k, v = tqkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    assert not q.is_contiguous()
+    jq, jk, jv = jqkv.reshape(b, s, 3, heads, hd).transpose(2, 0, 3, 1, 4)
+    want = pallas_attention.flash_attention(jq, jk, jv, seq_len=seq_len,
+                                            interpret=True)
+    _close(ops.flash_attention(q, k, v, seq_len=seq_len), want, dtype)
+
+
 def test_torch_cuda_impl_on_a_cpu_tensor_raises():
     """No hidden fallback: asking for the kernel on a CPU tensor raises."""
     x = torch.zeros(2, 4, 128)
@@ -173,6 +271,9 @@ def test_torch_cuda_impl_on_a_cpu_tensor_raises():
         lambda: ops.attn_block(x, v, v, torch.ones(128, 384),
                                torch.ones(384), w, v, num_heads=2,
                                impl="cuda"),
+        lambda: ops.layernorm_stats(x, impl="cuda"),
+        lambda: ops.fused_linear(x, w, v, ln_scale=v, ln_bias=v, impl="cuda"),
+        lambda: ops.flash_attention(x[None], x[None], x[None], impl="cuda"),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA tensor"):
@@ -196,6 +297,30 @@ def test_torch_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         block.attention_core(torch.zeros(8, 384), batch=2, num_heads=2,
                              scale=0.1, seq_len=3)
+    assert launch_counts() == before
+
+
+def test_torch_new_kernel_wrappers_refuse_cpu_tensors():
+    """The wrappers of layernorm_stats, fused_linear and flash_attention
+    check the device before building or counting."""
+    from vit_tpu_torch.ops.cuda import attention as k_attention
+    from vit_tpu_torch.ops.cuda import launch_counts
+    from vit_tpu_torch.ops.cuda import layernorm as k_layernorm
+    from vit_tpu_torch.ops.cuda import matmul as k_matmul
+
+    before = launch_counts()
+    x, v, w = torch.zeros(4, 128), torch.ones(128), torch.ones(128, 8)
+    q = torch.zeros(1, 2, 16, 64)
+    calls = [
+        lambda: k_layernorm.layernorm_stats(x),
+        lambda: k_matmul.fused_linear(x, w),
+        lambda: k_matmul.fused_linear(x, w, ln_scale=v, ln_bias=v),
+        lambda: k_attention.flash_attention(q, q, q),
+        lambda: k_attention.flash_attention(q.transpose(1, 2), q, q),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
     assert launch_counts() == before
 
 

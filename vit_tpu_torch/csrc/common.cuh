@@ -54,16 +54,13 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// One row of layernorm, computed by one warp: fp32 mean, biased variance
-// from the centred values, rsqrt(var + eps), then scale and bias in fp32
-// (vit_tpu/ops/pallas/layernorm.py:_layernorm_kernel). Writes
-// out[i] = from_f32<O>(...) for i < d.
-template <typename T, typename O>
-__device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
-                                              const T* __restrict__ g,
-                                              const T* __restrict__ b,
-                                              O* __restrict__ out, int d,
-                                              float eps, int lane) {
+// The fp32 mean and rsqrt(var + eps) of one row of d values, computed by
+// one warp: the variance is the centred, biased sum((x - mean)^2) / d of a
+// second pass (vit_tpu/ops/pallas/layernorm.py:_stats_kernel). Every lane
+// returns the same pair.
+template <typename T>
+__device__ __forceinline__ float2 row_stats(const T* __restrict__ x, int d,
+                                            float eps, int lane) {
   float s = 0.f;
   for (int i = lane; i < d; i += 32) s += to_f32(x[i]);
   const float mean = warp_sum(s) / d;
@@ -72,9 +69,21 @@ __device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
     const float c = to_f32(x[i]) - mean;
     ss += c * c;
   }
-  const float rstd = rsqrtf(warp_sum(ss) / d + eps);
+  return make_float2(mean, rsqrtf(warp_sum(ss) / d + eps));
+}
+
+// One row of layernorm, computed by one warp: row_stats, then scale and
+// bias in fp32 (vit_tpu/ops/pallas/layernorm.py:_layernorm_kernel). Writes
+// out[i] = from_f32<O>(...) for i < d.
+template <typename T, typename O>
+__device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
+                                              const T* __restrict__ g,
+                                              const T* __restrict__ b,
+                                              O* __restrict__ out, int d,
+                                              float eps, int lane) {
+  const float2 st = row_stats(x, d, eps, lane);
   for (int i = lane; i < d; i += 32) {
-    const float c = (to_f32(x[i]) - mean) * rstd;
+    const float c = (to_f32(x[i]) - st.x) * st.y;
     out[i] = from_f32<O>(c * to_f32(g[i]) + to_f32(b[i]));
   }
 }

@@ -1,4 +1,4 @@
-// K1: row layernorm.
+// K1: row layernorm, and K5: its row statistics alone.
 //
 // Replaces vit_tpu/ops/pallas/layernorm.py:layernorm (_layernorm_kernel):
 // per row of D values, fp32 mean and biased variance, rsqrt(var + eps) with
@@ -8,6 +8,14 @@
 // warp owns one row and reduces it with shuffles, so no shared memory and no
 // block-wide barrier are needed; the row is re-read from L1 for the second
 // and third pass rather than held in registers, which keeps any D legal.
+//
+// K5 replaces vit_tpu/ops/pallas/layernorm.py:layernorm_stats
+// (_stats_kernel): the fp32 mean and rsqrt(var + eps) of each row, written
+// as two (M, 1) fp32 vectors for the LN prologue of fused_linear (K6,
+// csrc/matmul.cu). Bound by reading M*D*bytes once (the writes are 8 bytes
+// a row); the same one-warp-a-row layout as K1. The variance is the
+// centred, biased sum((x - mean)^2) / D of a second pass over the row, not
+// E[x^2] - mean^2, which loses digits on rows whose mean is large.
 
 #include "common.cuh"
 
@@ -26,6 +34,21 @@ __global__ void __launch_bounds__(kLnThreads)
   if (row >= rows) return;
   const size_t off = static_cast<size_t>(row) * d;
   layernorm_row<T, T>(x + off, g, b, out + off, d, eps, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLnThreads)
+    layernorm_stats_kernel(const T* __restrict__ x, float* __restrict__ mu,
+                           float* __restrict__ rstd, int rows, int d,
+                           float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnRowsPerBlock + threadIdx.x / 32;
+  if (row >= rows) return;
+  const float2 st = row_stats(x + static_cast<size_t>(row) * d, d, eps, lane);
+  if (lane == 0) {
+    mu[row] = st.x;
+    rstd[row] = st.y;
+  }
 }
 
 }  // namespace vit
@@ -51,6 +74,29 @@ extern "C" int vit_layernorm(const void* x, const void* g, const void* b,
     layernorm_kernel<bf16><<<grid, kLnThreads, 0, st>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(g),
         static_cast<const bf16*>(b), static_cast<bf16*>(out), rows, d, eps);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+extern "C" int vit_layernorm_stats(const void* x, void* mu, void* rstd,
+                                   int rows, int d, float eps, int dtype,
+                                   int device, void* stream) {
+  using namespace vit;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  if (rows <= 0 || d <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) {
+    layernorm_stats_kernel<float><<<grid, kLnThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<float*>(mu),
+        static_cast<float*>(rstd), rows, d, eps);
+  } else if (dtype == kBF16) {
+    layernorm_stats_kernel<bf16><<<grid, kLnThreads, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<float*>(mu),
+        static_cast<float*>(rstd), rows, d, eps);
   } else {
     return cudaErrorInvalidValue;
   }

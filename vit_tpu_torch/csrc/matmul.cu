@@ -20,6 +20,20 @@
 // Ragged M, N and K are masked: tiles are zero-filled past the edges in
 // shared memory and the epilogue stores only inside (M, N). K is not padded
 // in device memory.
+//
+// K6, fused_linear, is the same two kernels with an LN prologue
+// (template flag LN). Replaces vit_tpu/ops/pallas/matmul.py:fused_linear
+// (_fused_linear_kernel, _fused_linear_kernel_nk1): act(LN(x) @ W + b) +
+// residual, with the row stats mu and rstd computed beforehand by K5
+// (csrc/layernorm.cu), as JAX computes them with layernorm_stats. Each
+// element of an A tile is normalised as it is staged into shared memory,
+// ((x - mu) * rstd) * gamma + beta in fp32, rounded to the tensor's type --
+// so LN(x) never reaches device memory and costs no extra pass over it.
+// The zero-fill of a ragged K edge comes after the normalisation, not
+// before: a zero x would normalise to beta - mu*rstd*gamma, not to zero
+// (JAX gets its zeros by zero-padding gamma and beta, matmul.py:363-365).
+// Without LN, the fused_linear wrapper launches K2, which has the same
+// residual epilogue.
 
 #include <mma.h>
 
@@ -49,6 +63,20 @@ struct Epilogue {
   }
 };
 
+// The LN prologue of K6 on element (row, col) of x, in fp32.
+template <typename T>
+struct LnPrologue {
+  const float* mu;    // (M,) row means
+  const float* rstd;  // (M,) rsqrt(var + eps)
+  const T* gamma;     // (K,)
+  const T* beta;      // (K,)
+
+  __device__ __forceinline__ float apply(float x, float m, float rs,
+                                         int col) const {
+    return (x - m) * rs * to_f32(gamma[col]) + to_f32(beta[col]);
+  }
+};
+
 // ---------------------------------------------------------------- bf16 --
 
 constexpr int kBM = 64, kBN = 128, kBK = 32;
@@ -58,31 +86,54 @@ constexpr int kLdB = kBN + 8;  // 272 B
 // Stage the ROWS x COLS tile at (r0, c0) of a row-major R x C matrix with
 // leading dimension ld into shared memory (leading dimension lds), zeros
 // outside the matrix. A chunk of 8 values moves as one 16-byte load when it
-// lies wholly inside and `vec` says the rows are 16-byte aligned.
-template <int ROWS, int COLS>
+// lies wholly inside and `vec` says the rows are 16-byte aligned. With LN,
+// every value inside the matrix is normalised by `ln` (rows are rows of x,
+// columns are K) before it is stored; values outside stay exact zeros.
+template <int ROWS, int COLS, bool LN>
 __device__ __forceinline__ void load_tile(bf16* __restrict__ dst, int lds,
                                           const bf16* __restrict__ src,
                                           int ld, int r0, int c0, int R,
-                                          int C, bool vec) {
+                                          int C, bool vec,
+                                          const LnPrologue<bf16>& ln) {
   constexpr int kChunks = ROWS * COLS / 8;
   for (int ch = threadIdx.x; ch < kChunks; ch += kMmThreads) {
     const int r = ch / (COLS / 8), c = (ch % (COLS / 8)) * 8;
     const int gr = r0 + r, gc = c0 + c;
     bf16* d = dst + r * lds + c;
     const bf16* s = src + static_cast<size_t>(gr) * ld + gc;
+    float m = 0.f, rs = 0.f;
+    if (LN && gr < R) {
+      m = ln.mu[gr];
+      rs = ln.rstd[gr];
+    }
     if (vec && gr < R && gc + 8 <= C) {
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+      uint4 u = *reinterpret_cast<const uint4*>(s);
+      if (LN) {
+        bf16* e = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          e[i] = from_f32<bf16>(ln.apply(to_f32(e[i]), m, rs, gc + i));
+      }
+      *reinterpret_cast<uint4*>(d) = u;
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        d[e] = (gr < R && gc + e < C) ? s[e] : __float2bfloat16_rn(0.f);
+      for (int e = 0; e < 8; ++e) {
+        bf16 v = __float2bfloat16_rn(0.f);
+        if (gr < R && gc + e < C) {
+          v = s[e];
+          if (LN) v = from_f32<bf16>(ln.apply(to_f32(v), m, rs, gc + e));
+        }
+        d[e] = v;
+      }
     }
   }
 }
 
+template <bool LN>
 __global__ void __launch_bounds__(kMmThreads)
     matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                       Epilogue<bf16> ep, int k, bool vec_x, bool vec_w) {
+                       Epilogue<bf16> ep, LnPrologue<bf16> ln, int k,
+                       bool vec_x, bool vec_w) {
   __shared__ __align__(128) bf16 As[kBM * kLdA];
   __shared__ __align__(128) bf16 Bs[kBK * kLdB];
   __shared__ __align__(128) float Cs[kMmThreads / 32][16 * 16];
@@ -98,8 +149,8 @@ __global__ void __launch_bounds__(kMmThreads)
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   for (int k0 = 0; k0 < k; k0 += kBK) {
-    load_tile<kBM, kBK>(As, kLdA, x, k, m0, k0, ep.m, k, vec_x);
-    load_tile<kBK, kBN>(Bs, kLdB, w, ep.n, k0, n0, k, ep.n, vec_w);
+    load_tile<kBM, kBK, LN>(As, kLdA, x, k, m0, k0, ep.m, k, vec_x, ln);
+    load_tile<kBK, kBN, false>(Bs, kLdB, w, ep.n, k0, n0, k, ep.n, vec_w, ln);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
@@ -140,10 +191,11 @@ __global__ void __launch_bounds__(kMmThreads)
 
 constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
 
+template <bool LN>
 __global__ void __launch_bounds__(kMmThreads)
     matmul_f32_kernel(const float* __restrict__ x,
                       const float* __restrict__ w, Epilogue<float> ep,
-                      int k) {
+                      LnPrologue<float> ln, int k) {
   __shared__ float As[kFBK][kFBM + 4];  // transposed: As[kk][row]
   __shared__ float Bs[kFBK][kFBN];
 
@@ -155,8 +207,12 @@ __global__ void __launch_bounds__(kMmThreads)
     for (int e = threadIdx.x; e < kFBM * kFBK; e += kMmThreads) {
       const int r = e / kFBK, c = e % kFBK;
       const int gr = m0 + r, gc = k0 + c;
-      As[c][r] = (gr < ep.m && gc < k) ? x[static_cast<size_t>(gr) * k + gc]
-                                       : 0.f;
+      float v = 0.f;
+      if (gr < ep.m && gc < k) {
+        v = x[static_cast<size_t>(gr) * k + gc];
+        if (LN) v = ln.apply(v, ln.mu[gr], ln.rstd[gr], gc);
+      }
+      As[c][r] = v;
     }
     for (int e = threadIdx.x; e < kFBK * kFBN; e += kMmThreads) {
       const int r = e / kFBN, c = e % kFBN;
@@ -191,35 +247,64 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-}  // namespace vit
-
-extern "C" int vit_matmul(const void* x, const void* w, const void* bias,
-                          const void* residual, void* out, int m, int n, int k,
-                          int gelu_act, int dtype, int device, void* stream) {
-  using namespace vit;
+// K2 (LN false) or K6 (LN true) on the current stream.
+template <bool LN>
+int launch_gemm(const void* x, const void* w, const void* bias,
+                const void* residual, const float* mu, const float* rstd,
+                const void* gamma, const void* beta, void* out, int m, int n,
+                int k, int gelu_act, int dtype, int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   if (m <= 0 || n <= 0 || k <= 0) return cudaErrorInvalidValue;
+  if (LN && !(mu && rstd && gamma && beta)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
     Epilogue<float> ep{static_cast<const float*>(bias),
                        static_cast<const float*>(residual),
                        static_cast<float*>(out), m, n, gelu_act};
+    LnPrologue<float> ln{mu, rstd, static_cast<const float*>(gamma),
+                         static_cast<const float*>(beta)};
     const dim3 grid((n + kFBN - 1) / kFBN, (m + kFBM - 1) / kFBM);
-    matmul_f32_kernel<<<grid, kMmThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), ep, k);
+    matmul_f32_kernel<LN><<<grid, kMmThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), ep, ln,
+        k);
   } else if (dtype == kBF16) {
     Epilogue<bf16> ep{static_cast<const bf16*>(bias),
                       static_cast<const bf16*>(residual),
                       static_cast<bf16*>(out), m, n, gelu_act};
+    LnPrologue<bf16> ln{mu, rstd, static_cast<const bf16*>(gamma),
+                        static_cast<const bf16*>(beta)};
     const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
     const bool vec_x = aligned16(x) && k % 8 == 0;
     const bool vec_w = aligned16(w) && n % 8 == 0;
-    matmul_bf16_kernel<<<grid, kMmThreads, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), ep, k,
+    matmul_bf16_kernel<LN><<<grid, kMmThreads, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), ep, ln, k,
         vec_x, vec_w);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+}  // namespace vit
+
+extern "C" int vit_matmul(const void* x, const void* w, const void* bias,
+                          const void* residual, void* out, int m, int n, int k,
+                          int gelu_act, int dtype, int device, void* stream) {
+  return vit::launch_gemm<false>(x, w, bias, residual, nullptr, nullptr,
+                                 nullptr, nullptr, out, m, n, k, gelu_act,
+                                 dtype, device, stream);
+}
+
+// K6: K2 with the LN prologue; mu, rstd, gamma and beta must all be set.
+extern "C" int vit_fused_linear(const void* x, const void* w,
+                                const void* bias, const void* residual,
+                                const void* mu, const void* rstd,
+                                const void* gamma, const void* beta,
+                                void* out, int m, int n, int k, int gelu_act,
+                                int dtype, int device, void* stream) {
+  return vit::launch_gemm<true>(x, w, bias, residual,
+                                static_cast<const float*>(mu),
+                                static_cast<const float*>(rstd), gamma, beta,
+                                out, m, n, k, gelu_act, dtype, device, stream);
 }

@@ -8,11 +8,11 @@ QKV.
 
 Every batch size takes the JAX package's throughput route
 (``vit_tpu/models/vit.py:301-365``): composed embed, zero-pad the tokens to
-a multiple of 16 (197 -> 208 for B/16), per layer ``attn_block`` then
-``mlp_block``, final ``layernorm``, slice back to the real tokens, then
-pool or classify. Padded keys are masked inside attention and every other
-op is row-wise, so the pad rows never touch the real ones. With CUDA
-tensors each op runs its hand-written kernel; with CPU tensors (or
+a multiple of 16 (197 -> 208 for B/16, 577 -> 592 for L/16-384), one
+:func:`encoder_block` a layer, final ``layernorm``, slice back to the real
+tokens, then pool or classify. Padded keys are masked inside attention and
+every other op is row-wise, so the pad rows never touch the real ones. With
+CUDA tensors each op runs its hand-written kernel; with CPU tensors (or
 ``impl="torch"``) its plain PyTorch version.
 """
 
@@ -97,21 +97,62 @@ def _padded_seq(cfg: ViTConfig) -> int:
     return -(-cfg.seq_len // 16) * 16
 
 
-def _encoder_layer(x: torch.Tensor, enc: Params, i: int, cfg: ViTConfig,
-                   impl: str | None) -> torch.Tensor:
-    """Layer ``i`` of the stacked encoder: ``attn_block`` then ``mlp_block``
-    on the padded ``(B, sp, D)`` activation."""
+def _layer(enc: Params, i: int) -> Params:
+    """Layer ``i``'s params as views of the stacked encoder tensors."""
+    return {name: {k: t[i] for k, t in p.items()} for name, p in enc.items()}
+
+
+def encoder_block(x: torch.Tensor, lp: Params, cfg: ViTConfig, *,
+                  impl: str | None = None,
+                  seq_len: int | None = None) -> torch.Tensor:
+    """One pre-LN encoder layer on the padded ``(B, S, D)`` activation, the
+    ``fused=True, attention="flash"`` route of
+    ``vit_tpu/models/vit.py:encoder_block``. ``lp`` holds this layer's
+    params; keys at index >= ``seq_len`` are masked.
+
+    Each half runs its mega-kernel where :func:`ops.attn_plan` or
+    :func:`ops.mlp_plan` says it fits, and is composed otherwise:
+    attention as ``fused_linear`` (LN prologue) -> ``flash_attention`` ->
+    ``fused_linear`` (+ residual), the MLP as ``fused_linear`` (LN, GELU)
+    -> ``fused_linear`` (+ residual). The plans read geometry and dtype
+    only, so every device takes the same route."""
+    b, s, d = x.shape
+    if seq_len is None:
+        seq_len = s
+    nh, hd = cfg.num_heads, cfg.head_dim
     eps = cfg.layernorm_eps
-    x = ops.attn_block(
-        x, enc["ln1"]["scale"][i], enc["ln1"]["bias"][i],
-        enc["qkv"]["kernel"][i], enc["qkv"]["bias"][i],
-        enc["out"]["kernel"][i], enc["out"]["bias"][i],
-        num_heads=cfg.num_heads, scale=cfg.head_dim ** -0.5,
-        seq_len=cfg.seq_len, eps=eps, impl=impl)
-    return ops.mlp_block(
-        x, enc["ln2"]["scale"][i], enc["ln2"]["bias"][i],
-        enc["fc1"]["kernel"][i], enc["fc1"]["bias"][i],
-        enc["fc2"]["kernel"][i], enc["fc2"]["bias"][i], eps=eps, impl=impl)
+    ln1, ln2 = lp["ln1"], lp["ln2"]
+
+    if ops.attn_plan(b, s, d, nh, x.dtype):
+        x = ops.attn_block(
+            x, ln1["scale"], ln1["bias"], lp["qkv"]["kernel"],
+            lp["qkv"]["bias"], lp["out"]["kernel"], lp["out"]["bias"],
+            num_heads=nh, scale=hd ** -0.5, seq_len=seq_len, eps=eps,
+            impl=impl)
+    else:
+        xf = x.reshape(b * s, d)
+        qkv = ops.fused_linear(xf, lp["qkv"]["kernel"], lp["qkv"]["bias"],
+                               ln_scale=ln1["scale"], ln_bias=ln1["bias"],
+                               eps=eps, impl=impl)
+        # Strided (B, H, S, hd) views of the packed [q|k|v] columns.
+        q, k, v = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        ctx = ops.flash_attention(q, k, v, scale=hd ** -0.5,
+                                  seq_len=seq_len, impl=impl)
+        # The kernel's context is a (B, S, H, hd) buffer: this is a view.
+        ctx = ctx.transpose(1, 2).reshape(b * s, d)
+        x = ops.fused_linear(ctx, lp["out"]["kernel"], lp["out"]["bias"],
+                             residual=xf, impl=impl).view(b, s, d)
+
+    if ops.mlp_plan(d, cfg.mlp_dim, x.dtype):
+        return ops.mlp_block(
+            x, ln2["scale"], ln2["bias"], lp["fc1"]["kernel"],
+            lp["fc1"]["bias"], lp["fc2"]["kernel"], lp["fc2"]["bias"],
+            eps=eps, impl=impl)
+    h = ops.fused_linear(x, lp["fc1"]["kernel"], lp["fc1"]["bias"], "gelu",
+                         ln_scale=ln2["scale"], ln_bias=ln2["bias"], eps=eps,
+                         impl=impl)
+    return ops.fused_linear(h, lp["fc2"]["kernel"], lp["fc2"]["bias"],
+                            residual=x, impl=impl)
 
 
 def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
@@ -125,7 +166,8 @@ def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
     s, sp = cfg.seq_len, _padded_seq(cfg)
     x = F.pad(embed(params, pixels, cfg, impl=impl), (0, 0, 0, sp - s))
     for i in range(cfg.num_layers):
-        x = _encoder_layer(x, params["encoder"], i, cfg, impl)
+        x = encoder_block(x, _layer(params["encoder"], i), cfg, impl=impl,
+                          seq_len=s)
     x = ops.layernorm(x, params["ln_final"]["scale"],
                       params["ln_final"]["bias"], eps=cfg.layernorm_eps,
                       impl=impl)
@@ -160,7 +202,8 @@ def forward_with_intermediates(params: Params, pixels: torch.Tensor,
     hiddens = [x]
     x = F.pad(x, (0, 0, 0, sp - s))
     for i in range(cfg.num_layers):
-        x = _encoder_layer(x, params["encoder"], i, cfg, impl)
+        x = encoder_block(x, _layer(params["encoder"], i), cfg, impl=impl,
+                          seq_len=s)
         hiddens.append(x[:, :s])
     final = ops.layernorm(x, params["ln_final"]["scale"],
                           params["ln_final"]["bias"], eps=cfg.layernorm_eps,

@@ -13,7 +13,8 @@ The counts show that a run went through the kernels:
 from __future__ import annotations
 
 #: The kernels, by the name their wrapper counts launches under.
-KERNELS = ("layernorm", "matmul", "attention", "mlp_block")
+KERNELS = ("layernorm", "matmul", "attention", "mlp_block", "layernorm_stats",
+           "fused_linear", "flash_attention")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

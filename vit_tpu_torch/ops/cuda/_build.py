@@ -1,10 +1,12 @@
 """Build and load the kernel library (counterpart of
 ``vit_tpu/ops/pallas/common.py``: what every kernel shares).
 
-``nvcc`` compiles every ``vit_tpu_torch/csrc/*.cu`` into one shared library
-with a plain C interface, which is loaded with ``ctypes``. The library is
-named by a hash of the sources and flags, so a change to any source
-rebuilds it; it lives under ``build/vit_tpu_torch/`` at the repository root.
+``nvcc`` compiles every ``vit_tpu_torch/csrc/*.cu`` into an object file,
+one process a source, all started together, then links them into one
+shared library with a plain C interface, which is loaded with ``ctypes``.
+The library is named by a hash of the sources and flags, so a change to any
+source rebuilds it; it lives under ``build/vit_tpu_torch/`` at the
+repository root.
 Nothing is built when the package is imported: the first kernel call
 builds, so the package imports on a machine without ``nvcc``.
 
@@ -29,22 +31,31 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "vit_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: Dtype codes of the C interface (``csrc/common.cuh``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: Arguments of each entry point before the common (dtype, device, stream).
 _SIGNATURES = {
     # x, scale, bias, out, rows, d, eps
     "vit_layernorm": (_P, _P, _P, _P, _I, _I, _F),
+    # x, mu, rstd, rows, d, eps
+    "vit_layernorm_stats": (_P, _P, _P, _I, _I, _F),
     # x, w, bias, residual, out, m, n, k, gelu
     "vit_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I),
+    # x, w, bias, residual, mu, rstd, gamma, beta, out, m, n, k, gelu
+    "vit_fused_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     # x, ln_scale, ln_bias, w1, b1, w2, b2, out, m, d, mlp, eps
     "vit_mlp_block": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F),
     # qkv, out, batch, seq, d, heads, seq_len, scale
     "vit_attention": (_P, _P, _I, _I, _I, _I, _I, _F),
+    # q, k, v, out, (b, h, s) element strides of q, k, v and out, batch,
+    # heads, seq, head_dim, seq_len, scale
+    "vit_flash_attention": (_P, _P, _P, _P, *(_L,) * 12, _I, _I, _I, _I, _I,
+                            _F),
 }
 
 _lock = threading.Lock()
@@ -75,27 +86,42 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the library unless a build of these sources exists; returns
-    its path. The compiler's output (``-Xptxas=-v``: registers, shared
-    memory and spills of each kernel) is kept beside it as ``.log``."""
+    its path. Every source compiles in its own ``nvcc`` process, all at
+    once; the compiler's output (``-Xptxas=-v``: registers, shared memory
+    and spills of each kernel) is kept beside the library as ``.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so",
-                                     delete=False) as tmp:
-        tmp_path = Path(tmp.name)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp_path), *cu],
-            capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-8000:]}")
-        os.replace(tmp_path, out)
-    finally:
-        tmp_path.unlink(missing_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / f"{src.stem}.o"
+            objs.append(str(obj))
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                 str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for name, proc in procs:
+            text = proc.communicate()[0]
+            log.append(f"== {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{text[-4000:]}")
+        lib = Path(tmp) / out.name
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *objs],
+                capture_output=True, text=True)
+            log.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode}):\n"
+                              f"{link.stderr[-4000:]}")
+        out.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(lib, out)
     return out
 
 
@@ -131,9 +157,11 @@ def launch(name: str, *args, like: torch.Tensor) -> None:
 
 
 def check_tensor(t: torch.Tensor, name: str, like: torch.Tensor,
-                 shape: tuple[int, ...] | None = None) -> None:
-    """Raise unless ``t`` is a contiguous tensor on ``like``'s CUDA device
-    with ``like``'s dtype (float32 or bfloat16) and, if given, ``shape``."""
+                 shape: tuple[int, ...] | None = None, *,
+                 contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a tensor on ``like``'s CUDA device with
+    ``like``'s dtype (float32 or bfloat16), ``shape`` if given, and, unless
+    ``contiguous`` is False, contiguous."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if not t.is_cuda:
@@ -147,5 +175,5 @@ def check_tensor(t: torch.Tensor, name: str, like: torch.Tensor,
         raise ValueError(f"{name} dtype {t.dtype} != {like.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

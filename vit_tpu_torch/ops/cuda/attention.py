@@ -1,0 +1,49 @@
+"""Flash-attention kernel K7 (``csrc/flash_attention.cu``), the counterpart
+of ``vit_tpu/ops/pallas/attention.py:flash_attention`` in all three of its
+regimes. The kernel reads q, k and v through their strides, so the heads of
+a packed ``(B*S, 3D)`` QKV buffer go in as views, and writes a
+``(B, S, H, d)`` buffer that is returned as a ``(B, H, S, d)`` view: the
+model reads it back as ``(B*S, D)`` with no copy."""
+
+from __future__ import annotations
+
+import torch
+
+from vit_tpu_torch.ops.cuda import _build, count_launch
+
+#: Largest head_dim the kernel takes; it must also be a multiple of 16.
+MAX_HEAD_DIM = 128
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None,
+                    seq_len: int | None = None) -> torch.Tensor:
+    """``softmax(q kᵀ · scale) v`` over CUDA tensors ``(B, H, S, d)``, keys
+    at index >= ``seq_len`` masked. Each operand may be any strided view
+    whose last dim is contiguous."""
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _build.check_tensor(t, name, q, contiguous=False)
+        if t.dim() != 4 or t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} is not the "
+                             f"(B, H, S, d) shape of q {tuple(q.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dim")
+    b, h, s, d = q.shape
+    if d % 16 or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be a multiple of 16 up to "
+                         f"{MAX_HEAD_DIM}")
+    if scale is None:
+        scale = d ** -0.5
+    if seq_len is None:
+        seq_len = s
+    if not 0 < seq_len <= s:
+        raise ValueError(f"seq_len {seq_len} outside (0, {s}]")
+    if b * h == 0:
+        raise ValueError(f"flash_attention of an empty batch {tuple(q.shape)}")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    out = out.permute(0, 2, 1, 3)
+    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    _build.launch("vit_flash_attention", q, k, v, out, *strides, b, h, s, d,
+                  seq_len, float(scale), like=q)
+    count_launch("flash_attention")
+    return out

@@ -15,7 +15,10 @@ tier, so that a kernel and its plain version agree to the sum order:
   (``vit_tpu/ops/pallas/block.py:685-691``);
 - ``mlp_block`` seeds its fp32 accumulator with ``x + b2``
   (``block.py:77-78``) and rounds the GELU hidden to the input dtype
-  before the second product (``block.py:86``).
+  before the second product (``block.py:86``);
+- ``fused_linear`` normalises x with the fp32 row stats of
+  ``layernorm_stats`` and rounds it to the input dtype before the product
+  (``vit_tpu/ops/pallas/matmul.py:250-257``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,17 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     return (normed * _f32(scale) + _f32(bias)).to(x.dtype)
 
 
+def layernorm_stats(x: torch.Tensor, *,
+                    eps: float = 1e-12) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row mean and ``rsqrt(var + eps)`` of ``(..., D)`` as two ``(M, 1)``
+    fp32 tensors (rows flattened), with the centred, biased variance of
+    ``vit_tpu/ops/pallas/layernorm.py:_stats_kernel``."""
+    x32 = _f32(x).reshape(-1, x.shape[-1])
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return mean, torch.rsqrt(var + eps)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
            activation: str | None = None,
            residual: torch.Tensor | None = None) -> torch.Tensor:
@@ -61,6 +75,24 @@ def matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     if residual is not None:
         out = out + _f32(residual)
     return out.to(x.dtype)
+
+
+def fused_linear(x: torch.Tensor, w: torch.Tensor,
+                 bias: torch.Tensor | None = None,
+                 activation: str | None = None, *,
+                 ln_scale: torch.Tensor | None = None,
+                 ln_bias: torch.Tensor | None = None, eps: float = 1e-12,
+                 residual: torch.Tensor | None = None) -> torch.Tensor:
+    """``act(LN(x) @ w + bias) + residual``: :func:`matmul` on
+    ``((x - mu) * rstd * ln_scale + ln_bias)`` computed in fp32 from
+    :func:`layernorm_stats` and rounded to ``x.dtype``
+    (``vit_tpu/ops/pallas/matmul.py:_fused_linear_kernel``)."""
+    if ln_scale is not None:
+        mu, rstd = layernorm_stats(x, eps=eps)
+        xn = (_f32(x).reshape(mu.shape[0], -1) - mu) * rstd
+        xn = xn * _f32(ln_scale) + _f32(ln_bias)
+        x = xn.to(x.dtype).reshape(x.shape)
+    return matmul(x, w, bias, activation, residual)
 
 
 def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -99,6 +131,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = p.sum(dim=-1, keepdim=True)
     ctx = torch.matmul(_f32(p.to(q.dtype)), _f32(v)) / l
     return ctx.to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None,
+                    seq_len: int | None = None) -> torch.Tensor:
+    """:func:`attention` under the JAX op's name; ``q``, ``k`` and ``v`` may
+    be strided ``(B, H, S, d)`` views, such as the heads of a packed QKV
+    buffer. The plain version of ``csrc/flash_attention.cu``, which takes
+    its softmax relative to a running max instead of the row max."""
+    return attention(q, k, v, scale=scale, seq_len=seq_len)
 
 
 def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
