@@ -9,35 +9,51 @@ without printing the final ``ok`` line:
 1. device: the card's name and power limit (``nvidia-smi``), CUDA, TF32 off;
 2. build: compile the hand-written kernels from ``vit_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version, in fp32 and bf16, at the
-   ViT-B/16 path's shapes (bs=32) and at the ViT-L/16-384 path's shapes
-   (bs=8: 8 x 592 = 4736 rows, D=1024, 16 heads of 64);
+   ViT-B/16 path's shapes (bs=32), at the ViT-L/16-384 path's shapes
+   (bs=8: 8 x 592 = 4736 rows, D=1024, 16 heads of 64), ``embed_fused`` at
+   B/16 (bs=4), H/14 (bs=2, K=588) and L/16-384 (bs=4, phase 7's bucket),
+   and both forms of ``encoder_stack``
+   as whole 12-layer B/16 encoders at bs=1 and bs=2 (197 of 208 tokens);
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
-   exact per-forward launch counts;
+   exact per-forward launch counts; the same weights through
+   ``encoder_stack_fused`` directly;
 5. B/16 serving: a bf16 B/16 ``Predictor`` with a 1000-class head answers
    requests of 1, 5, 32 and 37 images, with exact launch counts -- the
-   first main path (every layer on the two half-block mega-kernels);
+   first main path: bs=1 buckets take ``encoder_stack_fused`` and the
+   head, bs=32 buckets every layer on the two half-block mega-kernels;
 6. L/16-384 fp32 at full depth (24 layers, bs=2) through the kernels
-   against ``impl="torch"``, with exact launch counts: every layer's
-   attention half is composed (layernorm_stats + fused_linear ->
-   flash_attention -> fused_linear), its MLP half is ``mlp_block``;
+   against ``impl="torch"``, with exact launch counts: ``embed_fused``,
+   then every layer's attention half composed (layernorm_stats +
+   fused_linear -> flash_attention -> fused_linear), its MLP half
+   ``mlp_block``;
 7. L/16-384 serving: a bf16 ``Predictor(buckets=(4, 8))`` with a
    1000-class head answers 3, 8 and 11 images, with exact launch counts --
-   the second main path;
+   the second main path (bucket 4 embeds through ``embed_fused``);
 8. H/14 at 4 layers in bf16 (attention mega, MLP composed) and fp32
    (attention composed at head_dim 80, MLP mega) against ``impl="torch"``;
-9. timings (CUDA events, median of 20 after warm-up): each kernel against
-   its plain version, and the bf16 forwards (B/16 at bs=32, L/16-384 at
-   bs=8) through the kernels and through ``impl="torch"``.
+9. DeiT-B/16 bf16 at bs=1, full depth, against ``impl="torch"``: composed
+   embed, ``encoder_stack``, final LN -- the third main path;
+10. L/16 bf16 at bs=1, full depth, against ``impl="torch"``: one
+    ``encoder_stack_fused`` at D=1024 -- the fourth main path;
+11. timings (CUDA events, median of 20 after warm-up): each kernel against
+    its plain version; the bf16 forwards of B/16 at bs=32 and L/16-384 at
+    bs=8 through the kernels and through ``impl="torch"``; and B/16 at bs=1
+    and 2 and L/16 at bs=1 through the stack route, the per-layer kernel
+    route (the stack plans patched off) and ``impl="torch"``, each with its
+    device idle share; and one B/16 layer's launches at bs=1, stand-ins
+    for K9's phases (K9's own phases are not timed).
 
 The last three lines of standard output are the kernels JSON line (the
-launches of both serving runs, error vs the plain version, kernel and plain
-times), the card's ``nvidia-smi`` name and power limit, and the result line
-``{"ok": true, "device": {...}}``. Imports only torch, numpy and the port.
+launches of the four main paths, error vs the plain version, kernel and
+plain times), the card's ``nvidia-smi`` name and power limit, and the
+result line ``{"ok": true, "device": {...}}``. Imports only torch, numpy
+and the port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -48,25 +64,32 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: Per-forward launches of each kernel of B/16 with a classifier head
-#: (12 LN1 + final LN; patch projection + 12 QKV + 12 out-proj + head).
+#: Per-forward launches of each kernel of B/16 with a classifier head on
+#: the per-layer route (12 LN1 + final LN; patch projection + 12 QKV + 12
+#: out-proj + head).
 PER_FORWARD = {"layernorm": 13, "matmul": 26, "attention": 12, "mlp_block": 12}
-#: The same for L/16-384 without a head: 24 composed attention halves
+#: B/16 with a head on the stack route (bf16, bs <= 2): one launch for
+#: embed, encoder and final LN, then the head.
+PER_FORWARD_STACK = {"encoder_stack_fused": 1, "matmul": 1}
+#: The encoder and final LN of L/16-384: 24 composed attention halves
 #: (layernorm_stats + fused_linear, flash_attention, fused_linear) and 24
-#: mlp_block; final LN; patch projection.
-PER_FORWARD_L16_384 = {"layernorm": 1, "matmul": 1, "mlp_block": 24,
-                       "layernorm_stats": 24, "fused_linear": 48,
-                       "flash_attention": 24}
-#: H/14 at 4 layers without its head (pooling="cls"), per dtype: in bf16
-#: the attention half is attn_block and the MLP half composed; in fp32 the
-#: other way round.
+#: mlp_block. The embedding adds ``embed_fused`` at bs <= 4, the patch
+#: projection ``matmul`` above.
+L16_384_ENCODER = {"layernorm": 1, "mlp_block": 24, "layernorm_stats": 24,
+                   "fused_linear": 48, "flash_attention": 24}
+#: H/14 at 4 layers without its head (pooling="cls") at bs=2, per dtype:
+#: ``embed_fused``, then in bf16 the attention half is attn_block and the
+#: MLP half composed; in fp32 the other way round.
 PER_FORWARD_H14_4 = {
-    "bfloat16": {"layernorm": 5, "matmul": 9, "attention": 4,
-                 "layernorm_stats": 4, "fused_linear": 8},
-    "float32": {"layernorm": 1, "matmul": 1, "mlp_block": 4,
+    "bfloat16": {"embed_fused": 1, "layernorm": 5, "matmul": 8,
+                 "attention": 4, "layernorm_stats": 4, "fused_linear": 8},
+    "float32": {"embed_fused": 1, "layernorm": 1, "mlp_block": 4,
                 "layernorm_stats": 4, "fused_linear": 8,
                 "flash_attention": 4},
 }
+#: DeiT-B/16 bf16 at bs=1: two prefix tokens, so no fold: the composed
+#: embed (patch projection), one encoder_stack, the final LN.
+PER_FORWARD_DEIT_STACK = {"matmul": 1, "encoder_stack": 1, "layernorm": 1}
 #: Where each kernel's source is and which TPU kernel it replaces.
 KERNEL_SOURCES = {
     "layernorm": ("vit_tpu_torch/csrc/layernorm.cu",
@@ -83,7 +106,15 @@ KERNEL_SOURCES = {
                      "vit_tpu/ops/pallas/matmul.py:388"),
     "flash_attention": ("vit_tpu_torch/csrc/flash_attention.cu",
                         "vit_tpu/ops/pallas/attention.py:311"),
+    "embed_fused": ("vit_tpu_torch/csrc/embed.cu",
+                    "vit_tpu/ops/pallas/patch_embed.py:96"),
+    "encoder_stack": ("vit_tpu_torch/csrc/encoder_stack.cu",
+                      "vit_tpu/ops/pallas/block.py:2203"),
+    "encoder_stack_fused": ("vit_tpu_torch/csrc/encoder_stack.cu",
+                            "vit_tpu/ops/pallas/block.py:2331"),
 }
+#: Kernels that run a whole encoder: held to the model bars.
+WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused")
 FP32_BAR = 1e-4       # max|diff|: only the fp32 sum order differs
 BF16_REL_BAR = 2e-2   # |diff| <= bar * (1 + |ref|): about two bf16 ulps
 BF16_MEAN_BAR = 3e-3  # mean|diff|
@@ -136,7 +167,8 @@ def compare(torch, got, want, dtype, *, fp32_bar=FP32_BAR,
 
 
 def compare_model(torch, got, want, dtype) -> dict:
-    """A whole forward through the kernels against ``impl="torch"``."""
+    """A whole forward (or encoder) through the kernels against
+    ``impl="torch"``."""
     return compare(torch, got, want, dtype, fp32_bar=GOLDEN_BAR,
                    bf16_bar=MODEL_BF16_REL_BAR, mean_bar=MODEL_BF16_MEAN_BAR)
 
@@ -146,8 +178,19 @@ def expect_counts(counts: dict, per_forward: dict, n: int = 1) -> dict:
     return {k: per_forward.get(k, 0) * n for k in counts}
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``iters`` runs (CUDA events)."""
+def add_counts(*parts: dict) -> dict:
+    """The sum of several ``expect_counts`` results."""
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def check_counts(label: str, counts: dict, expect: dict) -> None:
+    if counts != expect:
+        raise AssertionError(f"{label} launch counts {counts} != {expect}")
+
+
+def event_times(torch, fn, iters: int = 20, warmup: int = 3) -> list:
+    """The time of each of ``iters`` calls of ``fn`` after ``warmup``
+    (CUDA events around one call, host launch cost included)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -160,7 +203,26 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
+
+
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median time of ``fn`` over ``iters`` calls (CUDA events)."""
+    return float(np.median(event_times(torch, fn, iters, warmup)))
+
+
+@contextlib.contextmanager
+def per_layer_route():
+    """Turn the stack route off (``ops.stack_plan``, ``stack_fused_plan``),
+    so that the model runs one encoder_block a layer."""
+    from vit_tpu_torch import ops
+    saved = ops.stack_plan, ops.stack_fused_plan
+    ops.stack_plan = lambda *a: False
+    ops.stack_fused_plan = lambda *a: False
+    try:
+        yield
+    finally:
+        ops.stack_plan, ops.stack_fused_plan = saved
 
 
 def _rnd_fn(torch, dtype, seed: int):
@@ -257,6 +319,149 @@ def kernel_cases_l16_384(torch, dtype):
     ]
 
 
+def kernel_cases_small_batch(torch, dtype):
+    """(kernel, label, run(impl)) of the small-batch route: K8 at the B/16
+    embedding (bs=4: 196 patches of 768 into 208 rows), the H/14 one
+    (bs=2: 256 patches of 588 into 272 rows of 1280) and, last, the
+    L/16-384 one of phase 7's bucket 4 (576 patches of 768 into 592 rows
+    of 1024), whose bf16 time the kernels line reports; K9 in both forms
+    as the whole 12-layer B/16 encoder at bs=1 and bs=2, 197 of 208
+    tokens, with the random B/16 weights of ``init_params``."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.config import VARIANTS
+    from vit_tpu_torch.models.vit import fold_base, init_params
+
+    rnd = _rnd_fn(torch, dtype, 5)
+    cases = []
+    for b, n, k, d, sp in ((4, 196, 768, 768, 208), (2, 256, 588, 1280, 272),
+                           (4, 576, 768, 1024, 592)):
+        args = (rnd(b, n, k), rnd(k, d, std=0.03), rnd(d, std=0.1), rnd(d),
+                rnd(n, d))
+        cases.append(("embed_fused", f"({b},{n},{k})@({k},{d}) -> "
+                      f"({b},{sp},{d})",
+                      lambda impl, a=args, sp=sp: ops.embed_fused(
+                          *a, sp, impl=impl)))
+    cfg = VARIANTS["B/16"].replace(dtype=dtype)
+    p = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(
+        6), device="cuda")
+    base = fold_base(p, cfg)
+    kw = dict(num_heads=12, scale=64 ** -0.5, seq_len=197,
+              eps=cfg.layernorm_eps)
+    for b in (1, 2):
+        x = rnd(b, 208, 768)
+        x[:, 197:] = 0
+        patches = rnd(b, 196, 768)
+        cases.append(("encoder_stack", f"B/16 12 layers ({b},208,768)",
+                      lambda impl, x=x: ops.encoder_stack(
+                          x, p["encoder"], impl=impl, **kw)))
+        cases.append(("encoder_stack_fused",
+                      f"B/16 embed + 12 layers + LN, patches ({b},196,768)",
+                      lambda impl, pt=patches: ops.encoder_stack_fused(
+                          pt, p["encoder"], p["embeddings"]["patch_embed"][
+                              "kernel"], base, p["ln_final"], sp=208,
+                          impl=impl, **kw)))
+    return cases
+
+
+def device_ms(torch, fn, iters: int = 20) -> tuple[float, dict]:
+    """Device time of ``fn``'s kernels per call, from ``torch.profiler``
+    (CUPTI): the sum over kernels, and the time of each kernel by name.
+    Unlike :func:`time_ms` it leaves out the host's time between
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us > 0:
+            by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + (
+                us / iters / 1e3)
+    return sum(by_name.values()), by_name
+
+
+def layer_breakdown(torch) -> dict:
+    """bf16 times of one B/16 layer's launches at bs=1 (208 rows): CUDA
+    events around one call (host launch cost included) and device time
+    (profiler). K2 runs the tile loop of K9's GEMM phases, one tile a
+    block, so each stands for a phase of K9; the attention core for its
+    attention phase; mlp_block is the per-layer route's MLP half."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import block as cuda_block
+
+    rnd = _rnd_fn(torch, torch.bfloat16, 8)
+    m, d, mlp, heads = 208, 768, 3072, 12
+    x, h, qkv = rnd(m, d), rnd(m, mlp), rnd(m, 3 * d)
+    g, beta = rnd(d, std=0.1, mean=1.0), rnd(d, std=0.05)
+    w_dd, w_dq = rnd(d, d, std=0.04), rnd(d, 3 * d, std=0.04)
+    w_dm, w_md = rnd(d, mlp, std=0.03), rnd(mlp, d, std=0.03)
+    b_d, b_q, b_m = rnd(d), rnd(3 * d), rnd(mlp)
+    cases = {
+        "qkv (208,768)@(768,2304)": lambda: ops.matmul(x, w_dq, b_q),
+        "attention core b=1": lambda: cuda_block.attention_core(
+            qkv, batch=1, num_heads=heads, scale=64 ** -0.5, seq_len=197),
+        "out-proj (208,768)@(768,768)+res": lambda: ops.matmul(
+            x, w_dd, b_d, residual=x),
+        "fc1 (208,768)@(768,3072)+gelu": lambda: ops.matmul(x, w_dm, b_m,
+                                                            "gelu"),
+        "fc2 (208,3072)@(3072,768)+res": lambda: ops.matmul(
+            h, w_md, b_d, residual=x),
+        "mlp_block (208,768) mlp 3072": lambda: ops.mlp_block(
+            x, g, beta, w_dm, b_m, w_md, b_d),
+    }
+    return {label: {"event_ms": time_ms(torch, fn),
+                    "device_ms": device_ms(torch, fn)[0]}
+            for label, fn in cases.items()}
+
+
+def route_times(torch, forward, params, cfg, bs: int, gen) -> dict:
+    """bf16 forward ms and images/s at ``bs`` through the stack route, the
+    per-layer kernel route and ``impl="torch"``, with each route's device
+    busy time and idle share, and each kernel route's launches for one
+    forward. Each forward gets the fold's base rows built once, as
+    ``Predictor`` passes them."""
+    from vit_tpu_torch.models.vit import fold_base
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    xb = torch.randn((bs, 3, cfg.image_size, cfg.image_size), generator=gen,
+                     device="cuda").to(cfg.dtype)
+    base = fold_base(params, cfg)
+    res = {}
+    with torch.inference_mode():
+        for route in ("stack", "layers", "plain"):
+            ctx = (per_layer_route() if route == "layers"
+                   else contextlib.nullcontext())
+            impl = "torch" if route == "plain" else None
+
+            def fwd():
+                return forward(params, xb, cfg, impl=impl, base=base)
+            with ctx:
+                if route != "plain":
+                    reset_launch_counts()
+                    fwd()
+                    res[f"{route}_launches"] = {
+                        k: v for k, v in launch_counts().items() if v}
+                times = event_times(torch, fwd)
+                busy, by_name = device_ms(torch, fwd)
+            ms = float(np.median(times))
+            res[f"{route}_ms"] = ms
+            res[f"{route}_images_per_s"] = bs * 1e3 / ms
+            # The share of a forward's event time with no kernel running:
+            # the profiler's mean busy time per call over the mean event
+            # time of the same number of calls, unclamped.
+            res[f"{route}_mean_ms"] = float(np.mean(times))
+            res[f"{route}_device_busy_ms"] = busy
+            res[f"{route}_idle_share"] = 1 - busy / float(np.mean(times))
+            if route == "stack":
+                res["stack_kernels_ms"] = by_name
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "vit_tpu_torch")):
         raise SystemExit("vit_tpu_torch/ not found beside chip_smoke.py: "
@@ -275,8 +480,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    from vit_tpu_torch import ops
     from vit_tpu_torch.config import VARIANTS
-    from vit_tpu_torch.models.vit import forward, init_params
+    from vit_tpu_torch.models.vit import fold_base, forward, init_params
     from vit_tpu_torch.ops.cuda import (_build, launch_counts,
                                         reset_launch_counts)
     from vit_tpu_torch.serving import Predictor
@@ -297,13 +503,15 @@ def main() -> int:
     # -- 3. each kernel vs its plain version -------------------------------
     errors: dict[str, float] = {}
     timing_cases = []
-    for cases in (kernel_cases, kernel_cases_l16_384):
+    for cases in (kernel_cases, kernel_cases_l16_384,
+                  kernel_cases_small_batch):
         for dtype in (torch.float32, torch.bfloat16):
             for name, label, run in cases(torch, dtype):
                 got = run("cuda")
                 want = run("torch")
                 torch.cuda.synchronize()
-                res = compare(torch, got, want, dtype)
+                bars = compare_model if name in WHOLE_ENCODER else compare
+                res = bars(torch, got, want, dtype)
                 log(f"[kernel] {name} {label} {dtype}: {res}")
                 if dtype == torch.bfloat16:
                     errors[name] = max(errors.get(name, 0.0),
@@ -324,10 +532,9 @@ def main() -> int:
     got = forward(params32, px, cfg32)
     torch.cuda.synchronize()
     counts = launch_counts()
-    expect = expect_counts(counts, dict(PER_FORWARD,
-                                        matmul=PER_FORWARD["matmul"] - 1))
-    if counts != expect:
-        raise AssertionError(f"golden launch counts {counts} != {expect}")
+    # fp32 at bs=2: embed_fused, then the per-layer route; no head.
+    check_counts("golden", counts, expect_counts(
+        counts, dict(PER_FORWARD, matmul=24, embed_fused=1)))
     gdiff = float((got.float() - want).abs().max())
     plain_diff = float((forward(params32, px, cfg32, impl="torch").float()
                         - want).abs().max())
@@ -335,7 +542,17 @@ def main() -> int:
         f"launches {counts}")
     if not gdiff < GOLDEN_BAR:
         raise AssertionError(f"golden max|diff| {gdiff} >= {GOLDEN_BAR}")
-    del params32, sd
+    stack_out = ops.encoder_stack_fused(
+        ops.patchify(px, cfg32.patch_size), params32["encoder"],
+        params32["embeddings"]["patch_embed"]["kernel"],
+        fold_base(params32, cfg32), params32["ln_final"], num_heads=12,
+        sp=208, scale=64 ** -0.5, seq_len=197, eps=cfg32.layernorm_eps)
+    kdiff = float((stack_out[:, :197].float() - want).abs().max())
+    log(f"[golden] encoder_stack_fused (fp32, bs=2) max|diff| {kdiff:.3e}")
+    if not kdiff < GOLDEN_BAR:
+        raise AssertionError(f"encoder_stack_fused golden max|diff| {kdiff} "
+                             f">= {GOLDEN_BAR}")
+    del params32, sd, stack_out
 
     # -- 5. B/16 serving: the first main path ------------------------------
     cfg = VARIANTS["B/16"].replace(dtype=torch.bfloat16, num_classes=1000)
@@ -353,27 +570,33 @@ def main() -> int:
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     main_counts = {"B/16 serving": launch_counts()}
-    n_fwd = sum(len(pred._plan(n)) for n in sizes)
-    expect = expect_counts(main_counts["B/16 serving"], PER_FORWARD, n_fwd)
-    if main_counts["B/16 serving"] != expect:
-        raise AssertionError(f"serving launch counts "
-                             f"{main_counts['B/16 serving']} != {expect}")
+    plans = [b for n in sizes for b in pred._plan(n)]
+    counts = main_counts["B/16 serving"]
+    check_counts("B/16 serving", counts, add_counts(
+        expect_counts(counts, PER_FORWARD_STACK, plans.count(1)),
+        expect_counts(counts, PER_FORWARD, plans.count(32))))
     log(f"[serve] {sizes} in {serve_s:.3f} s (host clock, first calls); "
-        f"{n_fwd} bucket forwards; launches {main_counts['B/16 serving']}")
+        f"{len(plans)} bucket forwards ({plans.count(1)} of bs=1 on the "
+        f"stack route); launches {counts}")
     with torch.inference_mode():
         for n, req, ans in zip(sizes, requests, answers):
             if tuple(ans.shape) != (n, 1000):
                 raise AssertionError(f"request {n}: shape {tuple(ans.shape)}")
-            res = compare(torch, ans, forward(params, req.to(cfg.dtype), cfg),
-                          torch.bfloat16)
-            log(f"[serve] request {n} vs forward: {res}")
+            # A request of n images runs other buckets, and so other
+            # routes, than one forward at bs=n: the model bar.
+            res = compare_model(torch, ans, forward(
+                params, req.to(cfg.dtype), cfg), torch.bfloat16)
+            log(f"[serve] request {n} vs forward at bs={n}: {res}")
+        ones = torch.cat([forward(params, requests[1][i:i + 1].to(cfg.dtype),
+                                  cfg) for i in range(5)])
+        if not torch.equal(answers[1], ones):
+            raise AssertionError("request of 5 != five bs=1 forwards")
+        log("[serve] request of 5 == five bs=1 forwards, bit for bit")
         padded = torch.cat([requests[1], requests[1].new_zeros(3, 3, 224, 224)])
         bucket8 = forward(params, padded.to(cfg.dtype), cfg)[:5]
-        if not torch.equal(answers[1], bucket8):
-            raise AssertionError("request of 5 != rows 0-4 of the bucket-8 "
-                                 "forward")
-        log("[serve] request of 5 == rows 0-4 of the bucket-8 forward, "
-            "bit for bit")
+        res = compare_model(torch, answers[1], bucket8, torch.bfloat16)
+        log(f"[serve] request of 5 (stack route) vs rows 0-4 of the "
+            f"bucket-8 forward (per-layer route): {res}")
     del requests, answers
 
     # -- 6. L/16-384 fp32, full depth, against impl="torch" ----------------
@@ -386,10 +609,8 @@ def main() -> int:
         got = forward(p_l32, px, cfg_l32)
         torch.cuda.synchronize()
         counts = launch_counts()
-        expect = expect_counts(counts, PER_FORWARD_L16_384)
-        if counts != expect:
-            raise AssertionError(f"L/16-384 fp32 launch counts {counts} != "
-                                 f"{expect}")
+        check_counts("L/16-384 fp32", counts, expect_counts(
+            counts, dict(L16_384_ENCODER, embed_fused=1)))
         want = forward(p_l32, px, cfg_l32, impl="torch")
         res = compare_model(torch, got, want, torch.float32)
         log(f"[l16-384 fp32] bs=2, 24 layers, kernels vs impl=torch: {res}; "
@@ -412,14 +633,17 @@ def main() -> int:
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     main_counts["L/16-384 serving"] = counts = launch_counts()
-    n_fwd = sum(len(pred_l._plan(n)) for n in sizes_l)
-    expect = expect_counts(counts, dict(PER_FORWARD_L16_384, matmul=2),
-                           n_fwd)
-    if n_fwd != 4 or counts != expect:
-        raise AssertionError(f"L/16-384 serving: {n_fwd} forwards, launch "
-                             f"counts {counts} != {expect}")
+    plans = [b for n in sizes_l for b in pred_l._plan(n)]
+    if sorted(plans) != [4, 4, 8, 8]:
+        raise AssertionError(f"L/16-384 serving plans {plans}")
+    # Bucket 4 embeds through embed_fused; bucket 8 through the patch
+    # projection. Each adds the head's matmul.
+    check_counts("L/16-384 serving", counts, add_counts(
+        expect_counts(counts, dict(L16_384_ENCODER, embed_fused=1, matmul=1),
+                      2),
+        expect_counts(counts, dict(L16_384_ENCODER, matmul=2), 2)))
     log(f"[serve l16-384] {sizes_l} in {serve_s:.3f} s (host clock, first "
-        f"calls); {n_fwd} bucket forwards; launches {counts}")
+        f"calls); {len(plans)} bucket forwards; launches {counts}")
     with torch.inference_mode():
         for n, req, ans in zip(sizes_l, requests, answers):
             if tuple(ans.shape) != (n, 1000):
@@ -449,10 +673,8 @@ def main() -> int:
             torch.cuda.synchronize()
             counts = launch_counts()
             dname = str(dtype).replace("torch.", "")
-            expect = expect_counts(counts, PER_FORWARD_H14_4[dname])
-            if counts != expect:
-                raise AssertionError(f"H/14 {dname} launch counts {counts} "
-                                     f"!= {expect}")
+            check_counts(f"H/14 {dname}", counts,
+                         expect_counts(counts, PER_FORWARD_H14_4[dname]))
             res = compare_model(torch, got,
                                 forward(p_h, px, cfg_h, impl="torch"), dtype)
             log(f"[h14 {dname}] bs=2, 4 layers, kernels vs impl=torch: "
@@ -460,7 +682,28 @@ def main() -> int:
             del p_h
     torch.cuda.empty_cache()
 
-    # -- 9. timings --------------------------------------------------------
+    # -- 9, 10. DeiT-B/16 and L/16 bf16 at bs=1: the stack at full depth ---
+    small = {}
+    with torch.inference_mode():
+        for tag, variant, per_forward in (
+                ("DeiT-B/16 bs=1", "DeiT-B/16", PER_FORWARD_DEIT_STACK),
+                ("L/16 bs=1", "L/16", {"encoder_stack_fused": 1})):
+            c = VARIANTS[variant].replace(dtype=torch.bfloat16)
+            p = init_params(c, generator=torch.Generator(
+                device="cuda").manual_seed(7), device="cuda")
+            px = torch.randn((1, 3, 224, 224), generator=gen, device="cuda")
+            reset_launch_counts()
+            got = forward(p, px, c)
+            torch.cuda.synchronize()
+            main_counts[tag] = counts = launch_counts()
+            check_counts(tag, counts, expect_counts(counts, per_forward))
+            res = compare_model(torch, got, forward(p, px, c, impl="torch"),
+                                torch.bfloat16)
+            log(f"[{tag}] bf16, {c.num_layers} layers, kernels vs "
+                f"impl=torch: {res}; launches {counts}")
+            small[tag] = (c, p)
+
+    # -- 11. timings -------------------------------------------------------
     timings = []
     for name, label, dtype, run in timing_cases:
         ms = time_ms(torch, lambda: run("cuda"))
@@ -481,6 +724,12 @@ def main() -> int:
         e2e[f"plain_forward_{tag}_bf16_bs{bs}_ms"] = plain_ms
         e2e[f"plain_forward_{tag}_bf16_bs{bs}_images_per_s"] = (
             bs * 1e3 / plain_ms)
+    c_l16, p_l16 = small["L/16 bs=1"]
+    for tag, c, p, bs in (("b16", cfg, params, 1), ("b16", cfg, params, 2),
+                          ("l16", c_l16, p_l16, 1)):
+        e2e[f"routes_{tag}_bf16_bs{bs}"] = route_times(torch, forward, p, c,
+                                                       bs, gen)
+    e2e["b16_bs1_layer_kernels_ms"] = layer_breakdown(torch)
     log(json.dumps({"timings": timings, "end_to_end": e2e, "card": smi,
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
 

@@ -28,6 +28,12 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _counts(**named):
+    """Expected launch counts: ``named``, 0 for every other kernel."""
+    from vit_tpu_torch.ops.cuda import KERNELS
+    return {k: named.get(k, 0) for k in KERNELS}
+
+
 def _rnd(gen, dtype, *shape, std=1.0, mean=0.0):
     t = torch.randn(shape, generator=gen, device="cuda") * std + mean
     return t.to(dtype)
@@ -187,11 +193,11 @@ def test_torch_cuda_forward_counts_and_matches_plain(gen):
     reset_launch_counts()
     got = vit.forward(params, px, cfg)
     torch.cuda.synchronize()
-    assert launch_counts() == {"layernorm": 3, "matmul": 6, "attention": 2,
-                               "mlp_block": 2, "layernorm_stats": 0,
-                               "fused_linear": 0, "flash_attention": 0}
+    # bs=3 embeds through embed_fused; the head is the fifth matmul.
+    assert launch_counts() == _counts(layernorm=3, matmul=5, attention=2,
+                                      mlp_block=2, embed_fused=1)
     want = vit.forward(params, px, cfg, impl="torch")
-    assert launch_counts()["matmul"] == 6  # the plain path launches nothing
+    assert launch_counts()["matmul"] == 5  # the plain path launches nothing
     _close(got, want)
 
 
@@ -211,8 +217,134 @@ def test_torch_cuda_composed_forward_counts_and_matches_plain(gen, dtype):
     got = vit.forward(params, px, cfg)
     torch.cuda.synchronize()
     mlp_mega = dtype == torch.float32
-    assert launch_counts() == {
-        "layernorm": 1, "matmul": 1, "attention": 0,
-        "mlp_block": 2 if mlp_mega else 0, "layernorm_stats": 2 if mlp_mega
-        else 4, "fused_linear": 4 if mlp_mega else 8, "flash_attention": 2}
+    assert launch_counts() == _counts(
+        layernorm=1, matmul=1, mlp_block=2 if mlp_mega else 0,
+        layernorm_stats=2 if mlp_mega else 4,
+        fused_linear=4 if mlp_mega else 8, flash_attention=2)
     _close(got, vit.forward(params, px, cfg, impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,d", [(588, 1280), (3072, 768)])
+@pytest.mark.parametrize("b", [1, 3, 4])
+def test_torch_cuda_embed_fused_ragged(gen, dtype, k, d, b):
+    """K8 at H/14's (K=588) and B/32's (K=3072) patch lengths, 49 patches
+    padded to 64 rows."""
+    from vit_tpu_torch import ops
+
+    n, sp = 49, 64
+    args = (_rnd(gen, dtype, b, n, k), _rnd(gen, dtype, k, d, std=0.03),
+            _rnd(gen, dtype, d, std=0.1), _rnd(gen, dtype, d),
+            _rnd(gen, dtype, n, d))
+    got = ops.embed_fused(*args, sp, impl="cuda")
+    _close(got, ops.embed_fused(*args, sp, impl="torch"))
+    assert not got[:, n + 1:].any()
+
+
+def _stack_inputs(gen, dtype, b, *, d=128, heads=2, mlp=256, layers=2,
+                  n=16, k=192, sp=32):
+    """Random stacked encoder weights and the inputs of both K9 forms."""
+    enc = {
+        "ln1": {"scale": _rnd(gen, dtype, layers, d, std=0.1, mean=1.0),
+                "bias": _rnd(gen, dtype, layers, d, std=0.05)},
+        "qkv": {"kernel": _rnd(gen, dtype, layers, d, 3 * d, std=0.06),
+                "bias": _rnd(gen, dtype, layers, 3 * d, std=0.02)},
+        "out": {"kernel": _rnd(gen, dtype, layers, d, d, std=0.06),
+                "bias": _rnd(gen, dtype, layers, d, std=0.02)},
+        "ln2": {"scale": _rnd(gen, dtype, layers, d, std=0.1, mean=1.0),
+                "bias": _rnd(gen, dtype, layers, d, std=0.05)},
+        "fc1": {"kernel": _rnd(gen, dtype, layers, d, mlp, std=0.06),
+                "bias": _rnd(gen, dtype, layers, mlp, std=0.02)},
+        "fc2": {"kernel": _rnd(gen, dtype, layers, mlp, d, std=0.04),
+                "bias": _rnd(gen, dtype, layers, d, std=0.02)},
+    }
+    x = _rnd(gen, dtype, b, sp, d)
+    x[:, n + 1:] = 0
+    patches = _rnd(gen, dtype, b, n, k)
+    wemb = _rnd(gen, dtype, k, d, std=0.05)
+    base = _rnd(gen, dtype, sp, d)
+    base[n + 1:] = 0
+    lnf = {"scale": _rnd(gen, dtype, d, std=0.1, mean=1.0),
+           "bias": _rnd(gen, dtype, d, std=0.05)}
+    return enc, x, patches, wemb, base, lnf
+
+
+def _close_model(got, want):
+    """A whole encoder: fp32 to 1e-4; bf16 to the model bar of
+    chip_smoke.py, 5e-2 * (1 + |ref|), since a sum-order difference that
+    flips a bf16 rounding carries into the next layer."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    bar = 1e-4 if got.dtype == torch.float32 else 5e-2 * (1 + w.abs())
+    assert ((g - w).abs() <= bar).all(), (g - w).abs().max()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 2, 3])
+def test_torch_cuda_encoder_stack(gen, dtype, b):
+    """Both forms of K9 against their plain versions at a narrow width,
+    17 real tokens of 32; two calls agree bit for bit."""
+    from vit_tpu_torch import ops
+
+    enc, x, patches, wemb, base, lnf = _stack_inputs(gen, dtype, b)
+    kw = dict(num_heads=2, scale=64 ** -0.5, seq_len=17)
+    x0 = x.clone()
+    got = ops.encoder_stack(x, enc, impl="cuda", **kw)
+    _close_model(got, ops.encoder_stack(x, enc, impl="torch", **kw))
+    assert torch.equal(got, ops.encoder_stack(x, enc, impl="cuda", **kw))
+    assert torch.equal(x, x0)  # the kernel does not write its input
+    fkw = dict(kw, sp=32)
+    got = ops.encoder_stack_fused(patches, enc, wemb, base, lnf, impl="cuda",
+                                  **fkw)
+    _close_model(got, ops.encoder_stack_fused(patches, enc, wemb, base, lnf,
+                                              impl="torch", **fkw))
+    assert torch.equal(got, ops.encoder_stack_fused(
+        patches, enc, wemb, base, lnf, impl="cuda", **fkw))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_torch_cuda_stack_forward_counts_and_matches_plain(gen, dtype,
+                                                           monkeypatch):
+    """The tiny config with the stack plans patched on: one
+    encoder_stack_fused launch and the head's matmul."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.config import ViTConfig
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    monkeypatch.setattr(ops, "stack_plan", lambda *a: True)
+    monkeypatch.setattr(ops, "stack_fused_plan", lambda *a: True)
+    cfg = ViTConfig(image_size=32, patch_size=8, hidden_dim=128, num_heads=2,
+                    num_layers=2, mlp_dim=256, num_classes=10, dtype=dtype)
+    params = vit.init_params(cfg, generator=gen, device="cuda")
+    px = torch.randn((2, 3, 32, 32), generator=gen, device="cuda")
+    reset_launch_counts()
+    got = vit.forward(params, px, cfg)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(encoder_stack_fused=1, matmul=1)
+    _close_model(got, vit.forward(params, px, cfg, impl="torch"))
+
+
+def test_torch_cuda_stack_wrappers_check_inputs(gen):
+    from vit_tpu_torch import ops
+
+    enc, x, patches, wemb, base, lnf = _stack_inputs(gen, torch.float32, 1)
+    kw = dict(num_heads=2, seq_len=17)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.encoder_stack(x.to(torch.bfloat16), enc, impl="cuda", **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.encoder_stack(x.transpose(1, 2).contiguous().transpose(1, 2),
+                          enc, impl="cuda", **kw)
+    with pytest.raises(ValueError, match="head_dim"):
+        # 256-wide heads at 208 tokens overflow the attention routine.
+        wide, xw = _stack_inputs(gen, torch.float32, 1, d=512, mlp=128,
+                                 layers=1, sp=208)[:2]
+        ops.encoder_stack(xw, wide, num_heads=2, impl="cuda")
+    with pytest.raises(ValueError, match="cpu"):
+        ops.encoder_stack_fused(patches, enc, wemb.cpu(), base, lnf, sp=32,
+                                impl="cuda", **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.embed_fused(patches, wemb.t().contiguous().t(), lnf["bias"],
+                        lnf["bias"], base[1:17], 32, impl="cuda")

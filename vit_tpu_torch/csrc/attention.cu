@@ -9,125 +9,29 @@
 // third: it takes the (B*S, 3D) [q|k|v] buffer that the QKV GEMM wrote,
 // head h at columns h*d of each third -- exactly the layout _attn_core
 // slices -- so no head transposes are made, and writes the context into a
-// (B*S, D) buffer at the head's columns.
-//
-// Per query row, with _attn_core's rounding points:
-//   s = (q . k) * scale in fp32, keys at index >= seq_len set to -inf;
-//   p = exp(s - max), l = sum(p), both fp32;
-//   ctx = (p rounded to the tensor's type) @ v in fp32, then / l;
-//   ctx is stored in the tensor's type.
+// (B*S, D) buffer at the head's columns. The block's work, with
+// _attn_core's rounding points, is the device routine attention_tile
+// (attention_core.cuh), which K9 shares.
 //
 // Bound on the card: neither memory (each block reads its head's K and V,
 // 2*S*d values) nor the tensor cores -- it is plain FFMA over shared memory,
-// 4*B*H*S*S*d flops, about 4.3 GFLOP a layer at B/16 bs=32. A 64-row query
-// tile keeps the fp32 scores (64 x S) and the head's K, V and Q in shared
-// memory: 113 KB at S=208, d=64 in bf16, 173 KB in fp32. Moving QK^T and PV
-// onto the tensor cores and fusing LN+QKV before and the out-projection
+// 4*B*H*S*S*d flops, about 4.3 GFLOP a layer at B/16 bs=32. Moving QK^T and
+// PV onto the tensor cores and fusing LN+QKV before and the out-projection
 // after (FlashAttention-2 on Hopper) is later work.
 
-#include <math.h>
-
-#include "common.cuh"
+#include "attention_core.cuh"
 
 namespace vit {
 
-constexpr int kAttnQT = 64;  // query rows a block
-constexpr int kAttnThreads = 256;
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block on Hopper
-
-// K rows are padded by one 4-byte word so that threads reading consecutive
-// keys hit consecutive banks.
-template <typename T>
-__host__ __device__ inline int attn_ldk(int dh) {
-  return dh + 4 / static_cast<int>(sizeof(T));
-}
-
-template <typename T>
-__host__ __device__ inline size_t attn_t_bytes(int s, int dh) {
-  const size_t elems = static_cast<size_t>(s) * attn_ldk<T>(dh) +
-                       static_cast<size_t>(s) * dh +
-                       static_cast<size_t>(kAttnQT) * dh;
-  return (elems * sizeof(T) + 15) / 16 * 16;
-}
-
-template <typename T>
-inline size_t attention_smem(int s, int dh) {
-  return attn_t_bytes<T>(s, dh) +
-         (static_cast<size_t>(kAttnQT) * s + kAttnQT) * sizeof(float);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
     attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int s,
                      int d, int dh, float scale, int seq_len) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ldk = attn_ldk<T>(dh);
-  T* ks = reinterpret_cast<T*>(smem);      // s x ldk
-  T* vs = ks + static_cast<size_t>(s) * ldk;  // s x dh
-  T* qs = vs + static_cast<size_t>(s) * dh;   // kAttnQT x dh
-  float* sc = reinterpret_cast<float*>(smem + attn_t_bytes<T>(s, dh));
-  float* lsum = sc + static_cast<size_t>(kAttnQT) * s;
-
-  const int img = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * kAttnQT;
-  const size_t ld = 3 * static_cast<size_t>(d);
-  const T* base = qkv + static_cast<size_t>(img) * s * ld +
-                  static_cast<size_t>(h) * dh;
-
-  for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
-    const int j = e / dh, c = e % dh;
-    ks[j * ldk + c] = base[j * ld + d + c];
-    vs[e] = base[j * ld + 2 * d + c];
-  }
-  for (int e = threadIdx.x; e < kAttnQT * dh; e += kAttnThreads) {
-    const int i = e / dh, c = e % dh;
-    qs[e] = q0 + i < s ? base[(q0 + i) * ld + c] : from_f32<T>(0.f);
-  }
-  __syncthreads();
-
-  // Scores, fp32, masked keys at -inf.
-  for (int e = threadIdx.x; e < kAttnQT * s; e += kAttnThreads) {
-    const int i = e / s, j = e % s;
-    float v = -INFINITY;
-    if (j < seq_len) {
-      const T* qi = qs + i * dh;
-      const T* kj = ks + j * ldk;
-      float acc = 0.f;
-      for (int c = 0; c < dh; ++c) acc = fmaf(to_f32(qi[c]), to_f32(kj[c]), acc);
-      v = acc * scale;
-    }
-    sc[e] = v;
-  }
-  __syncthreads();
-
-  // Softmax numerators, one warp a row: p = exp(s - max) rounded to T in
-  // place, l = sum of the unrounded p.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < kAttnQT; i += kAttnThreads / 32) {
-    float* row = sc + static_cast<size_t>(i) * s;
-    float mx = -INFINITY;
-    for (int j = lane; j < s; j += 32) mx = fmaxf(mx, row[j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < s; j += 32) {
-      const float p = expf(row[j] - mx);
-      sum += p;
-      row[j] = to_f32(from_f32<T>(p));
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) lsum[i] = sum;
-  }
-  __syncthreads();
-
-  // Context: (p @ v) / l; masked keys have p == 0 and are skipped.
-  for (int e = threadIdx.x; e < kAttnQT * dh; e += kAttnThreads) {
-    const int i = e / dh, c = e % dh;
-    if (q0 + i >= s) continue;
-    const float* p = sc + static_cast<size_t>(i) * s;
-    float acc = 0.f;
-    for (int j = 0; j < seq_len; ++j) acc = fmaf(p[j], to_f32(vs[j * dh + c]), acc);
-    out[(static_cast<size_t>(img) * s + q0 + i) * d +
-        static_cast<size_t>(h) * dh + c] = from_f32<T>(acc / lsum[i]);
-  }
+  attention_tile<T>(qkv, out, s, d, dh, scale, seq_len, blockIdx.x,
+                    blockIdx.y, blockIdx.z * kAttnQT, smem);
 }
 
 template <typename T>

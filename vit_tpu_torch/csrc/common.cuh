@@ -74,11 +74,12 @@ __device__ __forceinline__ float2 row_stats(const T* __restrict__ x, int d,
 
 // One row of layernorm, computed by one warp: row_stats, then scale and
 // bias in fp32 (vit_tpu/ops/pallas/layernorm.py:_layernorm_kernel). Writes
-// out[i] = from_f32<O>(...) for i < d.
-template <typename T, typename O>
+// out[i] = from_f32<O>(...) for i < d. The scale and bias may have another
+// type than x (K9's final LN reads an fp32 row with bf16 parameters).
+template <typename T, typename O, typename G = T>
 __device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
-                                              const T* __restrict__ g,
-                                              const T* __restrict__ b,
+                                              const G* __restrict__ g,
+                                              const G* __restrict__ b,
                                               O* __restrict__ out, int d,
                                               float eps, int lane) {
   const float2 st = row_stats(x, d, eps, lane);

@@ -1,0 +1,359 @@
+// K9: the whole pre-LN encoder in one launch -- a cooperative persistent
+// kernel -- plain, or with the patch embed and the final LN folded in.
+//
+// Replaces vit_tpu/ops/pallas/block.py:encoder_stack (_encoder_stack_kernel,
+// block.py:1926-2000) and, with FOLD, encoder_stack_fused (the same kernel
+// with n_tok and fold_ln, block.py:1905-1922, 1994-1998): the small-batch
+// route, where the TPU kept the activation, the packed QKV and an fp32 MLP
+// accumulator in VMEM for the whole run and walked a sequential (L, T) grid
+// while the weights streamed in.
+//
+// On Hopper that scratch goes to device memory, where it stays in the 50 MB
+// L2 (B/16 bs=2: activation 0.64 MB, QKV 1.9 MB, MLP hidden 2.6 MB), and the
+// sequential grid becomes a persistent cooperative kernel: as many blocks
+// as fit at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor; one an SM
+// at sp=208), launched with cudaLaunchCooperativeKernel. Each phase of a
+// layer is a loop over work tiles strided by gridDim.x, and a grid-wide
+// barrier (cooperative_groups::this_grid().sync()) separates the phases.
+// Every block reaches every barrier, with or without a tile in the phase.
+// Per layer:
+//   1. LN1 + QKV GEMM tiles (gemm_tile.cuh). Each tile recomputes its rows'
+//      LN stats from the activation, as the Pallas kernel recomputes LN1 per
+//      chunk, into shared memory; K6's LN prologue normalises while staging.
+//   2. Attention, one work item per (image, head, 64-query tile): the
+//      attention-core routine of K4 (attention_core.cuh), whose row-max
+//      softmax is _encoder_stack_kernel's (block.py:1953-1968).
+//   3. Out-projection + bout + residual, in place on the activation.
+//   4. LN2 + fc1 + GELU into the hidden buffer, in the tensor's type.
+//   5. fc2 with the fp32 sum seeded with x + b2 (block.py:1981-1982), cast
+//      back into the activation.
+// FOLD adds phase 0, the patch projection with the fold's rounding (a):
+// (patches @ wemb) in fp32 plus base[1+i] upcast, one cast (block.py:
+// 1916-1919); row 0 of each image is base[0], its pad rows base[1+n:]. And
+// the last layer's phase 5 writes its fp32 sum unrounded, which a last
+// phase normalises with the final LN and casts once, rounding point (b)
+// (block.py:1996-1997).
+//
+// fp32 multiplies in true fp32 (FFMA, no TF32), as K2. Every sum is taken
+// in a fixed order -- no split-K, no atomics -- so two calls agree bit for
+// bit. The kernel reads its inputs and writes only the scratch and output
+// buffers that the wrapper (vit_tpu_torch/ops/cuda/stack.py) allocates.
+//
+// Bound on the card: at bs <= 2 the weight stream. B/16 bf16 reads
+// 12 x 14.16 MB = 170 MB of weights, a floor of about 51 us at 3.35 TB/s.
+// This first version is far from it: about 5.2 ms at B/16 bs=1 in bf16 on
+// an NVIDIA H100 80GB HBM3 at 700 W, some 100 times the floor. Nothing is
+// pipelined, so each GEMM tile is a serial loop of dependent 32-deep K
+// steps (24 for K=768, 96 for fc2's K=3072) at memory latency, and the
+// out-projection and fc2 phases have only 24 tiles a layer at bs=1 for 132
+// SMs. wgmma, TMA weight streaming, prefetching the next layer's tiles
+// during the attention phase and split-K (fixed-order) for the narrow
+// phases are later work.
+
+#include <cooperative_groups.h>
+
+#include "attention_core.cuh"
+#include "gemm_tile.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace vit {
+
+static_assert(kAttnThreads == kMmThreads, "one block size for all phases");
+
+constexpr size_t kStackMaxSmem = 232448;  // 227 KB a block on Hopper
+
+template <typename T>
+struct StackArgs {
+  T* x;          // (m, D) working activation: the output without FOLD
+  T* qkv;        // (m, 3D) packed [q|k|v]
+  T* ctx;        // (m, D) attention context
+  T* hid;        // (m, mlp) GELU hidden
+  float* acc;    // (m, D) the last layer's fp32 MLP sum (FOLD)
+  T* out;        // (m, D) the final LN's output (FOLD)
+  // The encoder's weights, stacked along a leading num_layers axis.
+  const T *ln1_g, *ln1_b, *wqkv, *bqkv, *wout, *bout;
+  const T *ln2_g, *ln2_b, *w1, *b1, *w2, *b2;
+  // FOLD: patches (b*n_tok, pd), wemb (pd, D), base (sp, D), final LN.
+  const T *patches, *wemb, *base, *lnf_g, *lnf_b;
+  int b, sp, d, mlp, heads, layers, seq_len, n_tok, pd;
+  float scale, eps;
+};
+
+// round(act(acc + bias)) into out (ld n): the QKV and fc1 phases.
+template <typename T>
+struct BiasAct {
+  const T* bias;
+  T* out;
+  int n;
+  bool gelu_act;
+
+  __device__ __forceinline__ void store(int row, int col, float acc) const {
+    float v = acc + to_f32(bias[col]);
+    if (gelu_act) v = gelu(v);
+    out[static_cast<size_t>(row) * n + col] = from_f32<T>(v);
+  }
+};
+
+// x = round(acc + bias + x), in place: the out-projection (block.py:
+// 1973-1975). Each element is read and written by the thread that owns it.
+template <typename T>
+struct AddResidual {
+  const T* bias;
+  T* x;
+  int n;
+
+  __device__ __forceinline__ void store(int row, int col, float acc) const {
+    const size_t idx = static_cast<size_t>(row) * n + col;
+    x[idx] = from_f32<T>(acc + to_f32(bias[col]) + to_f32(x[idx]));
+  }
+};
+
+// fc2: the sum seeded with x + b2, as the Pallas accumulator is; rounded
+// back into x, or kept in fp32 in acc32 (FOLD's last layer).
+template <typename T>
+struct SeededResidual {
+  const T* bias;
+  T* x;
+  float* acc32;
+  int n;
+
+  __device__ __forceinline__ void store(int row, int col, float acc) const {
+    const size_t idx = static_cast<size_t>(row) * n + col;
+    const float v = (to_f32(x[idx]) + to_f32(bias[col])) + acc;
+    if (acc32)
+      acc32[idx] = v;
+    else
+      x[idx] = from_f32<T>(v);
+  }
+};
+
+// FOLD's patch projection: patch row g*n_tok + i is token row g*sp + 1 + i,
+// round(acc + base[1 + i]) once.
+template <typename T>
+struct EmbedBase {
+  const T* base;
+  T* x;
+  int n_tok, sp, d;
+
+  __device__ __forceinline__ void store(int row, int col, float acc) const {
+    const int g = row / n_tok, i = row % n_tok;
+    x[(static_cast<size_t>(g) * sp + 1 + i) * d + col] = from_f32<T>(
+        acc + to_f32(base[static_cast<size_t>(1 + i) * d + col]));
+  }
+};
+
+// Dynamic shared memory: the larger of a GEMM phase's (the tile routine's
+// buffers, then a tile's LN mean and rstd) and an attention tile's.
+template <typename T>
+inline size_t stack_smem(int sp, int dh) {
+  const size_t gemm =
+      sizeof(typename Gemm<T>::Smem) + 2 * Gemm<T>::BM * sizeof(float);
+  const size_t attn = attention_smem<T>(sp, dh);
+  return attn > gemm ? attn : gemm;
+}
+
+// One GEMM phase: every (BM x BN) tile of x (m, k) @ w (k, n), strided over
+// the grid. With LN, a tile first computes its rows' LN stats into shared
+// memory, then normalises x with ln_g, ln_b while staging it.
+template <bool LN, typename T, typename Ep>
+__device__ __forceinline__ void gemm_phase(const T* x, const T* w, int m,
+                                           int n, int k, const T* ln_g,
+                                           const T* ln_b, float eps,
+                                           const Ep& ep,
+                                           unsigned char* smem) {
+  auto& sm = *reinterpret_cast<typename Gemm<T>::Smem*>(smem);
+  float* mu = reinterpret_cast<float*>(smem + sizeof(typename Gemm<T>::Smem));
+  float* rstd = mu + Gemm<T>::BM;
+  const bool vec_x = aligned16(x) && k % 8 == 0;
+  const bool vec_w = aligned16(w) && n % 8 == 0;
+  const int tn = (n + Gemm<T>::BN - 1) / Gemm<T>::BN;
+  const int tiles = (m + Gemm<T>::BM - 1) / Gemm<T>::BM * tn;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t / tn * Gemm<T>::BM, n0 = t % tn * Gemm<T>::BN;
+    if (LN) {
+      __syncthreads();  // the previous tile's readers of the stats are done
+      for (int r = warp; r < Gemm<T>::BM; r += kMmThreads / 32) {
+        if (m0 + r >= m) continue;
+        const float2 st =
+            row_stats(x + static_cast<size_t>(m0 + r) * k, k, eps, lane);
+        if (lane == 0) {
+          mu[r] = st.x;
+          rstd[r] = st.y;
+        }
+      }
+      // gemm_tile synchronises the block before it stages x.
+    }
+    gemm_tile<LN>(x, w, m, n, k, m0, n0, vec_x, vec_w,
+                  LnPrologue<T>{mu, rstd, ln_g, ln_b, m0}, ep, sm);
+  }
+}
+
+template <typename T, bool FOLD>
+__global__ void __launch_bounds__(kMmThreads, 1)
+    encoder_stack_kernel(StackArgs<T> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int D = a.d, m = a.b * a.sp, dh = D / a.heads;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (FOLD) {
+    // Phase 0: the patch rows, then row 0 and the pad rows from base.
+    gemm_phase<false>(a.patches, a.wemb, a.b * a.n_tok, D, a.pd,
+                      static_cast<const T*>(nullptr),
+                      static_cast<const T*>(nullptr), a.eps,
+                      EmbedBase<T>{a.base, a.x, a.n_tok, a.sp, D}, smem);
+    const int extra = a.sp - a.n_tok;  // row 0, rows n_tok+1 .. sp-1
+    const size_t total = static_cast<size_t>(a.b) * extra * D;
+    for (size_t e = static_cast<size_t>(blockIdx.x) * kMmThreads +
+                    threadIdx.x;
+         e < total; e += static_cast<size_t>(gridDim.x) * kMmThreads) {
+      const int c = static_cast<int>(e % D);
+      const int r = static_cast<int>(e / D);
+      const int g = r / extra, j = r % extra;
+      const int row = j == 0 ? 0 : a.n_tok + j;
+      a.x[(static_cast<size_t>(g) * a.sp + row) * D + c] =
+          a.base[static_cast<size_t>(row) * D + c];
+    }
+    grid.sync();
+  }
+
+  const int q_tiles = (a.sp + kAttnQT - 1) / kAttnQT;
+  for (int l = 0; l < a.layers; ++l) {
+    const size_t lv = static_cast<size_t>(l) * D;
+    // 1. LN1 + QKV.
+    gemm_phase<true>(a.x, a.wqkv + lv * 3 * D, m, 3 * D, D, a.ln1_g + lv,
+                     a.ln1_b + lv, a.eps,
+                     BiasAct<T>{a.bqkv + lv * 3, a.qkv, 3 * D, false}, smem);
+    grid.sync();
+    // 2. Attention.
+    for (int t = blockIdx.x; t < a.b * a.heads * q_tiles; t += gridDim.x) {
+      const int img = t / (a.heads * q_tiles);
+      const int h = t / q_tiles % a.heads;
+      attention_tile<T>(a.qkv, a.ctx, a.sp, D, dh, a.scale, a.seq_len, img,
+                        h, t % q_tiles * kAttnQT, smem);
+    }
+    grid.sync();
+    // 3. Out-projection + bout + residual, in place.
+    gemm_phase<false>(a.ctx, a.wout + lv * D, m, D, D,
+                      static_cast<const T*>(nullptr),
+                      static_cast<const T*>(nullptr), a.eps,
+                      AddResidual<T>{a.bout + lv, a.x, D}, smem);
+    grid.sync();
+    // 4. LN2 + fc1 + GELU.
+    const size_t lm = static_cast<size_t>(l) * a.mlp;
+    gemm_phase<true>(a.x, a.w1 + lm * D, m, a.mlp, D, a.ln2_g + lv,
+                     a.ln2_b + lv, a.eps,
+                     BiasAct<T>{a.b1 + lm, a.hid, a.mlp, true}, smem);
+    grid.sync();
+    // 5. fc2, seeded with x + b2.
+    const bool last = FOLD && l == a.layers - 1;
+    gemm_phase<false>(a.hid, a.w2 + lm * D, m, D, a.mlp,
+                      static_cast<const T*>(nullptr),
+                      static_cast<const T*>(nullptr), a.eps,
+                      SeededResidual<T>{a.b2 + lv, a.x,
+                                        last ? a.acc : nullptr, D},
+                      smem);
+    grid.sync();
+  }
+
+  if (FOLD) {
+    // The final LN over the fp32 sum, one warp a row, cast once.
+    const int warps = gridDim.x * (kMmThreads / 32);
+    for (int r = blockIdx.x * (kMmThreads / 32) + warp; r < m; r += warps)
+      layernorm_row<float, T>(a.acc + static_cast<size_t>(r) * D, a.lnf_g,
+                              a.lnf_b, a.out + static_cast<size_t>(r) * D, D,
+                              a.eps, lane);
+  }
+}
+
+template <typename T, bool FOLD>
+cudaError_t launch_stack(StackArgs<T> a, int device, cudaStream_t st) {
+  auto kernel = encoder_stack_kernel<T, FOLD>;
+  const size_t smem = stack_smem<T>(a.sp, a.d / a.heads);
+  if (smem > kStackMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kMmThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(per_sm * sms), dim3(kMmThreads),
+                                    params, smem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_stack_typed(void* x, void* qkv, void* ctx, void* hid,
+                               float* acc, void* out,
+                               const void* const* w, const void* patches,
+                               const void* wemb, const void* base,
+                               const void* lnf_g, const void* lnf_b, int b,
+                               int sp, int d, int mlp, int heads, int layers,
+                               int seq_len, int n_tok, int pd, float scale,
+                               float eps, int fold, int device,
+                               cudaStream_t st) {
+  auto c = [](const void* p) { return static_cast<const T*>(p); };
+  StackArgs<T> a{static_cast<T*>(x), static_cast<T*>(qkv),
+                 static_cast<T*>(ctx), static_cast<T*>(hid), acc,
+                 static_cast<T*>(out),
+                 c(w[0]), c(w[1]), c(w[2]), c(w[3]), c(w[4]), c(w[5]),
+                 c(w[6]), c(w[7]), c(w[8]), c(w[9]), c(w[10]), c(w[11]),
+                 c(patches), c(wemb), c(base), c(lnf_g), c(lnf_b),
+                 b, sp, d, mlp, heads, layers, seq_len, n_tok, pd,
+                 scale, eps};
+  return fold ? launch_stack<T, true>(a, device, st)
+              : launch_stack<T, false>(a, device, st);
+}
+
+}  // namespace vit
+
+// x (b*sp, d): the working activation, holding the input without fold and
+// the output after the launch; qkv (b*sp, 3d), ctx (b*sp, d), hid
+// (b*sp, mlp): scratch; acc (b*sp, d) fp32 and out (b*sp, d): fold only.
+// The twelve stacked weight tensors in the order ln1 scale, ln1 bias, qkv
+// kernel, qkv bias, out kernel, out bias, ln2 scale, ln2 bias, fc1 kernel,
+// fc1 bias, fc2 kernel, fc2 bias. With fold, patches (b*n_tok, pd), wemb
+// (pd, d), base (sp, d) and the final LN's scale and bias.
+extern "C" int vit_encoder_stack(
+    void* x, void* qkv, void* ctx, void* hid, void* acc, void* out,
+    const void* ln1_g, const void* ln1_b, const void* wqkv, const void* bqkv,
+    const void* wout, const void* bout, const void* ln2_g, const void* ln2_b,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    const void* patches, const void* wemb, const void* base,
+    const void* lnf_g, const void* lnf_b, int b, int sp, int d, int mlp,
+    int heads, int layers, int seq_len, int n_tok, int pd, float scale,
+    float eps, int fold, int dtype, int device, void* stream) {
+  using namespace vit;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  if (b <= 0 || sp <= 0 || d <= 0 || mlp <= 0 || heads <= 0 || d % heads ||
+      layers <= 0 || seq_len <= 0 || seq_len > sp ||
+      (fold && (n_tok <= 0 || pd <= 0 || sp < n_tok + 1 || !acc || !out ||
+                !patches || !wemb || !base || !lnf_g || !lnf_b)))
+    return cudaErrorInvalidValue;
+  const void* w[12] = {ln1_g, ln1_b, wqkv, bqkv, wout, bout,
+                       ln2_g, ln2_b, w1,   b1,   w2,   b2};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* acc32 = static_cast<float*>(acc);
+  if (dtype == kF32)
+    return launch_stack_typed<float>(x, qkv, ctx, hid, acc32, out, w, patches,
+                                     wemb, base, lnf_g, lnf_b, b, sp, d, mlp,
+                                     heads, layers, seq_len, n_tok, pd, scale,
+                                     eps, fold, device, st);
+  if (dtype == kBF16)
+    return launch_stack_typed<bf16>(x, qkv, ctx, hid, acc32, out, w, patches,
+                                    wemb, base, lnf_g, lnf_b, b, sp, d, mlp,
+                                    heads, layers, seq_len, n_tok, pd, scale,
+                                    eps, fold, device, st);
+  return cudaErrorInvalidValue;
+}

@@ -6,14 +6,25 @@ stacked along a leading ``num_layers`` axis (layer l's weights are the
 contiguous view ``w[l]``, so no per-layer copy is made), fused ``(D, 3D)``
 QKV.
 
-Every batch size takes the JAX package's throughput route
-(``vit_tpu/models/vit.py:301-365``): composed embed, zero-pad the tokens to
-a multiple of 16 (197 -> 208 for B/16, 577 -> 592 for L/16-384), one
-:func:`encoder_block` a layer, final ``layernorm``, slice back to the real
-tokens, then pool or classify. Padded keys are masked inside attention and
-every other op is row-wise, so the pad rows never touch the real ones. With
-CUDA tensors each op runs its hand-written kernel; with CPU tensors (or
-``impl="torch"``) its plain PyTorch version.
+:func:`forward` routes as ``vit_tpu/models/vit.py:forward`` does. The
+encoder always runs at a token count padded to a multiple of 16 (197 -> 208
+for B/16, 577 -> 592 for L/16-384); the pad is sliced off after the final
+``layernorm``, then the tail pools or classifies. By batch size:
+
+- ``ops.stack_fused_plan`` (bf16 B/16-class widths at batch <= 2, L/16 at
+  batch 1): patch embed, the whole encoder and the final LN are one
+  ``encoder_stack_fused`` kernel;
+- otherwise the embedding is ``embed_fused`` where ``ops.embed_fused_ok``
+  (one prefix token, batch <= 4), else composed and zero-padded; then the
+  encoder is one ``encoder_stack`` kernel where ``ops.stack_plan`` (DeiT-B/16
+  bf16 at batch <= 2), else one :func:`encoder_block` a layer, the
+  throughput route; then the final ``layernorm``.
+
+Padded keys are masked inside attention and every other op is row-wise, so
+the pad rows never touch the real ones. With CUDA tensors each op runs its
+hand-written kernel; with CPU tensors (or ``impl="torch"``) its plain
+PyTorch version. The plans read geometry and dtype only, so both take the
+same route.
 """
 
 from __future__ import annotations
@@ -72,29 +83,62 @@ def init_params(cfg: ViTConfig, *, generator: torch.Generator,
     return params
 
 
+def _check_pixels(pixels: torch.Tensor, cfg: ViTConfig) -> None:
+    if tuple(pixels.shape[1:]) != (cfg.num_channels, cfg.image_size,
+                                   cfg.image_size) or pixels.dim() != 4:
+        raise ValueError(f"pixels {tuple(pixels.shape)} do not match {cfg}")
+
+
 def embed(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
-          impl: str | None = None) -> torch.Tensor:
+          impl: str | None = None, sp: int | None = None) -> torch.Tensor:
     """Patch embed + prefix tokens + position embeddings:
     ``(B, C, H, W) -> (B, seq_len, D)`` in ``cfg.dtype``. The projection is
     rounded to the dtype first, then the prefix rows are concatenated and
-    the positions added in the dtype (``vit_tpu/models/vit.py:115-120``)."""
-    b, c, h, w = pixels.shape
-    if (c, h, w) != (cfg.num_channels, cfg.image_size, cfg.image_size):
-        raise ValueError(f"pixels {tuple(pixels.shape)} do not match {cfg}")
+    the positions added in the dtype (``vit_tpu/models/vit.py:115-120``).
+
+    With ``sp``, the result is ``(B, sp, D)`` with zero pad rows: one
+    ``embed_fused`` call where ``ops.embed_fused_ok`` takes the geometry
+    (``vit_tpu/models/vit.py:104-114``), else the composed embedding
+    padded; the numbers are the same."""
+    _check_pixels(pixels, cfg)
+    b = pixels.shape[0]
     e = params["embeddings"]
     dt = cfg.dtype
+    if sp is not None and ops.embed_fused_ok(
+            b, cfg.num_patches, cfg.hidden_dim, sp, cfg.num_prefix_tokens):
+        pos = e["position_embeddings"].reshape(cfg.seq_len, cfg.hidden_dim)
+        cls_row = (e["cls_token"].reshape(cfg.hidden_dim).to(dt)
+                   + pos[0].to(dt))
+        return ops.embed_fused(
+            ops.patchify(pixels.to(dt), cfg.patch_size),
+            e["patch_embed"]["kernel"], e["patch_embed"]["bias"], cls_row,
+            pos[1:], sp, impl=impl)
     x = ops.patch_embed(pixels.to(dt), e["patch_embed"]["kernel"],
                         e["patch_embed"]["bias"], cfg.patch_size, impl=impl)
     cls = e["cls_token"].to(dt).expand(b, cfg.num_prefix_tokens,
                                        cfg.hidden_dim)
-    x = torch.cat([cls, x], dim=1)
-    return x + e["position_embeddings"].to(dt)
+    x = torch.cat([cls, x], dim=1) + e["position_embeddings"].to(dt)
+    if sp is not None and sp != cfg.seq_len:
+        x = F.pad(x, (0, 0, 0, sp - cfg.seq_len))
+    return x
 
 
 def _padded_seq(cfg: ViTConfig) -> int:
     """Encoder token count: the real count rounded up to a multiple of 16
     (197 -> 208 for B/16), as on the JAX package's kernel route."""
     return -(-cfg.seq_len // 16) * 16
+
+
+def fold_base(params: Params, cfg: ViTConfig) -> torch.Tensor:
+    """The ``(sp, D)`` rows ``[cls + pos0 | pos + bias | 0]`` in
+    ``cfg.dtype`` that ``encoder_stack_fused`` adds to the patch rows, each
+    sum rounded to the dtype (``vit_tpu/models/vit.py:290-295``)."""
+    e = params["embeddings"]
+    s, d, dt = cfg.seq_len, cfg.hidden_dim, cfg.dtype
+    pos = e["position_embeddings"].reshape(s, d).to(dt)
+    return torch.cat([e["cls_token"].reshape(1, d).to(dt) + pos[:1],
+                      pos[1:] + e["patch_embed"]["bias"].to(dt),
+                      pos.new_zeros((_padded_seq(cfg) - s, d))])
 
 
 def _layer(enc: Params, i: int) -> Params:
@@ -156,18 +200,42 @@ def encoder_block(x: torch.Tensor, lp: Params, cfg: ViTConfig, *,
 
 
 def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
-            impl: str | None = None) -> torch.Tensor:
+            impl: str | None = None,
+            base: torch.Tensor | None = None) -> torch.Tensor:
     """Full ViT forward. Returns, per ``cfg``:
 
     - hidden states (B, seq_len, D) -- ``pooling="none"``, no classes;
     - pooled embedding (B, D)       -- ``pooling="cls" | "mean"``;
     - logits (B, num_classes)       -- ``num_classes > 0``.
+
+    The route depends on the batch size; the module docstring gives it.
+    ``base`` is :func:`fold_base` of ``params``, for a caller that serves
+    fixed params and builds it once (``Predictor`` does); the fused route
+    builds it when it is None.
     """
     s, sp = cfg.seq_len, _padded_seq(cfg)
-    x = F.pad(embed(params, pixels, cfg, impl=impl), (0, 0, 0, sp - s))
-    for i in range(cfg.num_layers):
-        x = encoder_block(x, _layer(params["encoder"], i), cfg, impl=impl,
-                          seq_len=s)
+    b = pixels.shape[0]
+    d, nh = cfg.hidden_dim, cfg.num_heads
+    geometry = (b, sp, d, cfg.mlp_dim, nh, cfg.dtype)
+    eps = cfg.layernorm_eps
+    if ops.stack_fused_plan(*geometry, cfg.num_prefix_tokens):
+        _check_pixels(pixels, cfg)
+        x = ops.encoder_stack_fused(
+            ops.patchify(pixels.to(cfg.dtype), cfg.patch_size),
+            params["encoder"], params["embeddings"]["patch_embed"]["kernel"],
+            fold_base(params, cfg) if base is None else base,
+            params["ln_final"], num_heads=nh, sp=sp,
+            scale=cfg.head_dim ** -0.5, seq_len=s, eps=eps, impl=impl)
+        return _forward_tail(x, params, cfg, s, sp, impl)
+    x = embed(params, pixels, cfg, impl=impl, sp=sp)
+    if ops.stack_plan(*geometry):
+        x = ops.encoder_stack(x, params["encoder"], num_heads=nh,
+                              scale=cfg.head_dim ** -0.5, seq_len=s, eps=eps,
+                              impl=impl)
+    else:
+        for i in range(cfg.num_layers):
+            x = encoder_block(x, _layer(params["encoder"], i), cfg,
+                              impl=impl, seq_len=s)
     x = ops.layernorm(x, params["ln_final"]["scale"],
                       params["ln_final"]["bias"], eps=cfg.layernorm_eps,
                       impl=impl)

@@ -6,9 +6,11 @@ for a CUDA tensor and the plain PyTorch version for a CPU tensor.
 
 :func:`attn_plan` and :func:`mlp_plan` say whether a half-block
 mega-kernel takes a geometry; the model routes each half of a layer by
-them (``vit_tpu_torch/models/vit.py:encoder_block``). They read geometry
-and dtype only, never the device, so the plain versions on the CPU walk
-the same op sequence as the kernels on the card.
+them (``vit_tpu_torch/models/vit.py:encoder_block``). :func:`stack_plan`,
+:func:`stack_fused_plan` and :func:`embed_fused_ok` pick the small-batch
+route (``vit_tpu_torch/models/vit.py:forward``). They read geometry and
+dtype only, never the device, so the plain versions on the CPU walk the
+same op sequence as the kernels on the card.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from vit_tpu_torch.ops.reference import patchify
 __all__ = [
     "layernorm", "layernorm_stats", "matmul", "fused_linear", "patchify",
     "patch_embed", "flash_attention", "attn_block", "mlp_block", "attn_plan",
-    "mlp_plan", "resolve_impl", "reference",
+    "mlp_plan", "embed_fused", "embed_fused_ok", "encoder_stack",
+    "encoder_stack_fused", "stack_plan", "stack_fused_plan", "resolve_impl",
+    "reference",
 ]
 
 
@@ -124,3 +128,81 @@ def mlp_plan(hidden: int, mlp: int, dtype: torch.dtype) -> bool:
         return (hidden % 128 == 0 and mlp % 128 == 0
                 and hidden <= MLP_BF16_MAX_D)
     return hidden <= MLP_F32_MAX_D
+
+
+def embed_fused(patches, w, bias, cls_row, pos, sp, *, impl=None):
+    """Patch projection + CLS row + positions + zero pad to ``sp`` rows in
+    one kernel (K8): ``(B, N, K) -> (B, sp, D)``."""
+    if resolve_impl(impl, patches) == "torch":
+        return reference.embed_fused(patches, w, bias, cls_row, pos, sp)
+    from vit_tpu_torch.ops.cuda import embed as _k
+    return _k.embed_fused(patches, w, bias, cls_row, pos, sp)
+
+
+def encoder_stack(x, enc, *, num_heads, scale=None, seq_len=None, eps=1e-12,
+                  impl=None):
+    """The whole stacked encoder on ``x`` (B, sp, D) in one kernel (K9)."""
+    if resolve_impl(impl, x) == "torch":
+        return reference.encoder_stack(x, enc, num_heads=num_heads,
+                                       scale=scale, seq_len=seq_len, eps=eps)
+    from vit_tpu_torch.ops.cuda import stack as _k
+    return _k.encoder_stack(x, enc, num_heads=num_heads, scale=scale,
+                            seq_len=seq_len, eps=eps)
+
+
+def encoder_stack_fused(patches, enc, wemb, base, lnf, *, num_heads, sp,
+                        scale=None, seq_len=None, eps=1e-12, impl=None):
+    """Patch embed + the whole encoder + the final LN in one kernel (K9,
+    embed and final LN folded): ``(B, N, K) -> (B, sp, D)``."""
+    if resolve_impl(impl, patches) == "torch":
+        return reference.encoder_stack_fused(
+            patches, enc, wemb, base, lnf, num_heads=num_heads, sp=sp,
+            scale=scale, seq_len=seq_len, eps=eps)
+    from vit_tpu_torch.ops.cuda import stack as _k
+    return _k.encoder_stack_fused(patches, enc, wemb, base, lnf,
+                                  num_heads=num_heads, sp=sp, scale=scale,
+                                  seq_len=seq_len, eps=eps)
+
+
+def embed_fused_ok(b: int, n: int, d: int, sp: int,
+                   num_prefix_tokens: int) -> bool:
+    """Whether the model embeds through :func:`embed_fused` (counterpart of
+    ``vit_tpu.ops.embed_fused_ok`` and the gate around it in
+    ``vit_tpu/models/vit.py:embed``): one prefix token, D a multiple of
+    128, a padded token count (``sp > n + 1``) and a batch of at most 4,
+    the bound JAX measured its gain under. JAX's VMEM model, the one
+    reader of the patch length and the dtype there, is dropped: it accepts
+    every variant in both dtypes, and the port's kernel keeps nothing
+    resident, so it takes any patch length."""
+    return (num_prefix_tokens == 1 and d % 128 == 0 and sp > n + 1
+            and b <= 4)
+
+
+def stack_plan(b: int, sp: int, d: int, mlp: int, num_heads: int,
+               dtype: torch.dtype) -> bool:
+    """Whether the model runs the whole encoder as :func:`encoder_stack`.
+
+    This mirrors where the JAX package took the stack on the TPU, not a
+    measurement on the H100: its untuned rule, bf16 B/16-class widths
+    (D=768, MLP 3072) at batch <= 2 (``vit_tpu/ops/pallas/block.py:
+    2083-2103``), and the one other ``encstack`` row of its tuned table,
+    L/16 at 208 tokens and batch 1. The kernel's attention phase is the
+    attention core's routine, so :func:`attn_plan` must take the geometry
+    too (a 768-wide model at 384 px, 592 tokens, it does not)."""
+    if dtype != torch.bfloat16 or d % num_heads or not attn_plan(
+            b, sp, d, num_heads, dtype):
+        return False
+    return ((d, mlp) == (768, 3072) and b <= 2) or (
+        (sp, d, mlp) == (208, 1024, 4096) and b == 1)
+
+
+def stack_fused_plan(b: int, sp: int, d: int, mlp: int, num_heads: int,
+                     dtype: torch.dtype, num_prefix_tokens: int) -> bool:
+    """Whether the model runs patch embed, encoder and final LN as
+    :func:`encoder_stack_fused`: :func:`stack_plan` and one prefix token
+    (the fold writes one CLS row an image). JAX's VMEM model, which
+    refuses the fold for L/16 at batch 1 (the resident patches and embed
+    weight overflow the TPU's 28 MB budget), is dropped: the kernel keeps
+    nothing resident."""
+    return num_prefix_tokens == 1 and stack_plan(b, sp, d, mlp, num_heads,
+                                                 dtype)

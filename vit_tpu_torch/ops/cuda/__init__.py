@@ -14,7 +14,8 @@ from __future__ import annotations
 
 #: The kernels, by the name their wrapper counts launches under.
 KERNELS = ("layernorm", "matmul", "attention", "mlp_block", "layernorm_stats",
-           "fused_linear", "flash_attention")
+           "fused_linear", "flash_attention", "embed_fused", "encoder_stack",
+           "encoder_stack_fused")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

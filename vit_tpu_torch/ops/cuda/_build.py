@@ -56,6 +56,12 @@ _SIGNATURES = {
     # heads, seq, head_dim, seq_len, scale
     "vit_flash_attention": (_P, _P, _P, _P, *(_L,) * 12, _I, _I, _I, _I, _I,
                             _F),
+    # patches, w, bias, cls_row, pos, out, b, n, k, d, sp
+    "vit_embed_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
+    # x, qkv, ctx, hid, acc, out, the 12 stacked encoder tensors, patches,
+    # wemb, base, final-LN scale and bias, b, sp, d, mlp, heads, layers,
+    # seq_len, n_tok, pd, scale, eps, fold
+    "vit_encoder_stack": (*(_P,) * 23, *(_I,) * 9, _F, _F, _I),
 }
 
 _lock = threading.Lock()

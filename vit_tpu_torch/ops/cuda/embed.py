@@ -1,0 +1,40 @@
+"""Fused embedding kernel K8 (``csrc/embed.cu``), the counterpart of
+``vit_tpu/ops/pallas/patch_embed.py:embed_fused``: K2's GEMM over the patch
+rows with an epilogue that writes the padded token matrix directly."""
+
+from __future__ import annotations
+
+import torch
+
+from vit_tpu_torch.ops.cuda import _build, count_launch
+
+
+def embed_fused(patches: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                cls_row: torch.Tensor, pos: torch.Tensor,
+                sp: int) -> torch.Tensor:
+    """``(B, N, K)`` CUDA patches -> ``(B, sp, D)`` tokens: row 0
+    ``cls_row``, rows 1..N ``(patches @ w + bias)`` rounded, plus ``pos``,
+    the rest zeros. ``w`` (K, D), ``bias`` and ``cls_row`` (D,), ``pos``
+    (N, D)."""
+    _build.check_tensor(patches, "patches", patches)
+    if patches.dim() != 3:
+        raise ValueError(f"patches shape {tuple(patches.shape)} is not "
+                         "(B, N, K)")
+    b, n, k = patches.shape
+    if w.dim() != 2 or w.shape[0] != k:
+        raise ValueError(f"w shape {tuple(w.shape)} does not take K={k}")
+    d = w.shape[1]
+    for t, name, shape in ((w, "w", (k, d)), (bias, "bias", (d,)),
+                           (cls_row, "cls_row", (d,)), (pos, "pos", (n, d))):
+        _build.check_tensor(t, name, patches, shape)
+    if b * n * k * d == 0:
+        raise ValueError(f"embed_fused of an empty operand "
+                         f"{tuple(patches.shape)} @ {tuple(w.shape)}")
+    if sp < n + 1:
+        raise ValueError(f"sp={sp} has no room for {n} patches and the CLS "
+                         "row")
+    out = torch.empty((b, sp, d), dtype=patches.dtype, device=patches.device)
+    _build.launch("vit_embed_fused", patches, w, bias, cls_row, pos, out, b,
+                  n, k, d, sp, like=patches)
+    count_launch("embed_fused")
+    return out

@@ -1,0 +1,137 @@
+"""Whole-encoder kernel K9 (``csrc/encoder_stack.cu``) in its two forms,
+the counterparts of ``vit_tpu/ops/pallas/block.py:encoder_stack`` and
+``encoder_stack_fused``: one cooperative persistent launch runs every
+layer, and with the fold also the patch embed and the final LN.
+
+The wrapper allocates every buffer the kernel writes (the working
+activation, the packed QKV, the context, the MLP hidden, and for the fold
+the fp32 sum and the output) with ``torch.empty``; the kernel never writes
+its inputs. If the card cannot hold the whole grid at once, the cooperative
+launch is refused and the wrapper raises: there is no fallback to the
+per-layer route. The two forms count their launches apart.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vit_tpu_torch.ops.cuda import _build, count_launch
+from vit_tpu_torch.ops.cuda.block import MAX_SMEM, attention_smem_bytes
+
+#: The stacked encoder tensors in the kernel's argument order, with each
+#: one's shape after the leading num_layers axis (D model width, M MLP).
+_WEIGHTS = (("ln1", "scale", "D"), ("ln1", "bias", "D"),
+            ("qkv", "kernel", "D,3D"), ("qkv", "bias", "3D"),
+            ("out", "kernel", "D,D"), ("out", "bias", "D"),
+            ("ln2", "scale", "D"), ("ln2", "bias", "D"),
+            ("fc1", "kernel", "D,M"), ("fc1", "bias", "M"),
+            ("fc2", "kernel", "M,D"), ("fc2", "bias", "D"))
+
+
+def _weights(enc, d: int, like: torch.Tensor):
+    """The twelve stacked tensors, checked; returns them, the number of
+    layers and the MLP width."""
+    fc1 = enc["fc1"]["kernel"]
+    if fc1.dim() != 3 or fc1.shape[1] != d:
+        raise ValueError(f"fc1 kernel shape {tuple(fc1.shape)} does not take "
+                         f"D={d}")
+    layers, mlp = fc1.shape[0], fc1.shape[2]
+    if layers == 0:
+        raise ValueError("encoder_stack of an encoder without layers")
+    sizes = {"D": d, "3D": 3 * d, "M": mlp}
+    out = []
+    for group, name, dims in _WEIGHTS:
+        t = enc[group][name]
+        shape = (layers, *(sizes[s] for s in dims.split(",")))
+        _build.check_tensor(t, f"{group}.{name}", like, shape)
+        out.append(t)
+    return out, layers, mlp
+
+
+def _check_attention(sp: int, d: int, num_heads: int,
+                     like: torch.Tensor) -> int:
+    """Raise unless the attention routine takes ``num_heads`` heads of D
+    at ``sp`` tokens; returns the head width."""
+    if num_heads <= 0 or d % num_heads:
+        raise ValueError(f"D={d} not divisible by {num_heads} heads")
+    hd = d // num_heads
+    smem = attention_smem_bytes(sp, hd, like.element_size())
+    if smem > MAX_SMEM:
+        raise ValueError(f"the attention routine does not take head_dim {hd} "
+                         f"at {sp} tokens: {smem} B of shared memory, more "
+                         f"than {MAX_SMEM}")
+    return hd
+
+
+def _scratch(m: int, d: int, mlp: int, like: torch.Tensor):
+    """The packed QKV, context and MLP hidden buffers."""
+    kw = dict(dtype=like.dtype, device=like.device)
+    return (torch.empty((m, 3 * d), **kw), torch.empty((m, d), **kw),
+            torch.empty((m, mlp), **kw))
+
+
+def encoder_stack(x: torch.Tensor, enc, *, num_heads: int,
+                  scale: float | None = None, seq_len: int | None = None,
+                  eps: float = 1e-12) -> torch.Tensor:
+    """Every layer of the stacked encoder ``enc`` on a CUDA tensor ``x``
+    (B, sp, D), one launch; keys at index >= ``seq_len`` are masked."""
+    _build.check_tensor(x, "x", x)
+    if x.dim() != 3 or x.numel() == 0:
+        raise ValueError(f"x shape {tuple(x.shape)} is not (B, sp, D)")
+    b, sp, d = x.shape
+    weights, layers, mlp = _weights(enc, d, x)
+    hd = _check_attention(sp, d, num_heads, x)
+    seq_len = sp if seq_len is None else seq_len
+    if not 0 < seq_len <= sp:
+        raise ValueError(f"seq_len {seq_len} outside (0, {sp}]")
+    work = x.clone()  # the kernel updates the activation in place
+    _build.launch("vit_encoder_stack", work, *_scratch(b * sp, d, mlp, x),
+                  None, None, *weights, None, None, None, None, None, b, sp,
+                  d, mlp, num_heads, layers, seq_len, 0, 0,
+                  float(hd ** -0.5 if scale is None else scale), float(eps),
+                  0, like=x)
+    count_launch("encoder_stack")
+    return work
+
+
+def encoder_stack_fused(patches: torch.Tensor, enc, wemb: torch.Tensor,
+                        base: torch.Tensor, lnf, *, num_heads: int, sp: int,
+                        scale: float | None = None,
+                        seq_len: int | None = None,
+                        eps: float = 1e-12) -> torch.Tensor:
+    """Patch embed, every layer and the final LN on CUDA ``patches``
+    (B, N, K), one launch: returns (B, sp, D), pad rows included. ``wemb``
+    (K, D); ``base`` (sp, D) the rows ``[cls + pos0 | pos + bias | 0]``;
+    ``lnf`` the final LN's ``{scale, bias}``."""
+    _build.check_tensor(patches, "patches", patches)
+    if patches.dim() != 3 or patches.numel() == 0:
+        raise ValueError(f"patches shape {tuple(patches.shape)} is not "
+                         "(B, N, K)")
+    b, n, k = patches.shape
+    if wemb.dim() != 2 or wemb.shape[0] != k:
+        raise ValueError(f"wemb shape {tuple(wemb.shape)} does not take "
+                         f"K={k}")
+    d = wemb.shape[1]
+    if sp < n + 1:
+        raise ValueError(f"sp={sp} has no room for {n} patches and the CLS "
+                         "row")
+    for t, name, shape in ((wemb, "wemb", (k, d)), (base, "base", (sp, d)),
+                           (lnf["scale"], "lnf.scale", (d,)),
+                           (lnf["bias"], "lnf.bias", (d,))):
+        _build.check_tensor(t, name, patches, shape)
+    weights, layers, mlp = _weights(enc, d, patches)
+    hd = _check_attention(sp, d, num_heads, patches)
+    seq_len = n + 1 if seq_len is None else seq_len
+    if not 0 < seq_len <= sp:
+        raise ValueError(f"seq_len {seq_len} outside (0, {sp}]")
+    m = b * sp
+    work = torch.empty((m, d), dtype=patches.dtype, device=patches.device)
+    acc = torch.empty((m, d), dtype=torch.float32, device=patches.device)
+    out = torch.empty((b, sp, d), dtype=patches.dtype, device=patches.device)
+    _build.launch("vit_encoder_stack", work, *_scratch(m, d, mlp, patches),
+                  acc, out, *weights, patches, wemb, base, lnf["scale"],
+                  lnf["bias"], b, sp, d, mlp, num_heads, layers, seq_len, n,
+                  k, float(hd ** -0.5 if scale is None else scale),
+                  float(eps), 1, like=patches)
+    count_launch("encoder_stack_fused")
+    return out

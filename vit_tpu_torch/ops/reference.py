@@ -18,7 +18,10 @@ tier, so that a kernel and its plain version agree to the sum order:
   before the second product (``block.py:86``);
 - ``fused_linear`` normalises x with the fp32 row stats of
   ``layernorm_stats`` and rounds it to the input dtype before the product
-  (``vit_tpu/ops/pallas/matmul.py:250-257``).
+  (``vit_tpu/ops/pallas/matmul.py:250-257``);
+- ``encoder_stack_fused`` rounds the patch rows and the last layer's MLP
+  sum once fewer than the composed route, as its kernel does (its
+  docstring says where).
 """
 
 from __future__ import annotations
@@ -176,11 +179,105 @@ def attn_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
     return matmul(ctx, wout, bout, residual=xf).reshape(b, s, d)
 
 
+def _mlp_acc(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
+             eps: float) -> torch.Tensor:
+    """:func:`mlp_block` before its final cast: the fp32 accumulator."""
+    h = matmul(layernorm(x, ln_scale, ln_bias, eps=eps), w1, b1, "gelu")
+    acc = _f32(x) + _f32(b2)
+    return acc + torch.matmul(_f32(h), _f32(w2))
+
+
 def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
               eps: float = 1e-12) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))`` with the Pallas kernel's rounding: LN
     and the GELU hidden in the input dtype, the fp32 accumulator seeded
     with ``x + b2``."""
-    h = matmul(layernorm(x, ln_scale, ln_bias, eps=eps), w1, b1, "gelu")
-    acc = _f32(x) + _f32(b2)
-    return (acc + torch.matmul(_f32(h), _f32(w2))).to(x.dtype)
+    return _mlp_acc(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                    eps=eps).to(x.dtype)
+
+
+def embed_fused(patches: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                cls_row: torch.Tensor, pos: torch.Tensor,
+                sp: int) -> torch.Tensor:
+    """Patch projection + CLS row + positions + zero pad to ``sp`` rows:
+    ``(B, N, K) -> (B, sp, D)`` with the rounding of
+    ``vit_tpu/ops/pallas/patch_embed.py:_embed_kernel``: ``z = patches @ w
+    + bias`` in fp32, cast to the dtype, then ``[0 | z | 0] + [cls_row |
+    pos | 0]`` in the dtype. ``cls_row`` (D,) already holds ``pos[0]``;
+    ``pos`` is (N, D). The same numbers as the composed embed + pad."""
+    b, n, _ = patches.shape
+    d = w.shape[1]
+    if sp < n + 1:
+        raise ValueError(f"sp={sp} has no room for {n} patches and the CLS row")
+    dt = patches.dtype
+    z = matmul(patches, w, bias)
+    base = torch.cat([cls_row.reshape(1, d).to(dt), pos.to(dt),
+                      pos.new_zeros((sp - 1 - n, d), dtype=dt)])
+    return torch.nn.functional.pad(z, (0, 0, 1, sp - 1 - n)) + base
+
+
+def _layer_args(enc, i: int):
+    """Layer ``i``'s (attn_block, mlp_block) weights from the stacked
+    encoder params, as views."""
+    attn = (enc["ln1"]["scale"][i], enc["ln1"]["bias"][i],
+            enc["qkv"]["kernel"][i], enc["qkv"]["bias"][i],
+            enc["out"]["kernel"][i], enc["out"]["bias"][i])
+    mlp = (enc["ln2"]["scale"][i], enc["ln2"]["bias"][i],
+           enc["fc1"]["kernel"][i], enc["fc1"]["bias"][i],
+           enc["fc2"]["kernel"][i], enc["fc2"]["bias"][i])
+    return attn, mlp
+
+
+def encoder_stack(x: torch.Tensor, enc, *, num_heads: int,
+                  scale: float | None = None, seq_len: int | None = None,
+                  eps: float = 1e-12) -> torch.Tensor:
+    """The whole stacked encoder on ``x`` (B, sp, D), after
+    ``vit_tpu/ops/pallas/block.py:_encoder_stack_kernel``: each layer is
+    :func:`attn_block` then :func:`mlp_block`, which already round where
+    that kernel rounds (LN, q/k/v, p and the context in the dtype; the
+    context divided by the fp32 row sum after PV; the MLP accumulator
+    seeded with ``x + b2``)."""
+    for i in range(enc["qkv"]["kernel"].shape[0]):
+        attn, mlp = _layer_args(enc, i)
+        x = attn_block(x, *attn, num_heads=num_heads, scale=scale,
+                       seq_len=seq_len, eps=eps)
+        x = mlp_block(x, *mlp, eps=eps)
+    return x
+
+
+def encoder_stack_fused(patches: torch.Tensor, enc, wemb: torch.Tensor,
+                        base: torch.Tensor, lnf, *, num_heads: int, sp: int,
+                        scale: float | None = None,
+                        seq_len: int | None = None,
+                        eps: float = 1e-12) -> torch.Tensor:
+    """Patch embed + :func:`encoder_stack` + the final LN: ``patches``
+    (B, N, K) -> (B, sp, D), pad rows included
+    (``vit_tpu/ops/pallas/block.py:encoder_stack_fused``). ``base`` (sp, D)
+    holds ``[cls + pos0 | pos + bias | 0]`` rounded to the dtype; ``lnf``
+    is the final LN's ``{scale, bias}``. Two rounding points differ from
+    the composed route, as in the kernel (``block.py:1909-1922, 1994-1998``):
+
+    - (a) a patch row is ``patches @ wemb`` in fp32 plus ``base`` upcast,
+      cast once (the composed route rounds ``z + bias`` first, then adds
+      ``pos`` in the dtype);
+    - (b) the last layer's MLP sum is not rounded: the final LN reads the
+      fp32 accumulator and casts once.
+    """
+    b, n, _ = patches.shape
+    d = wemb.shape[1]
+    if sp < n + 1:
+        raise ValueError(f"sp={sp} has no room for {n} patches and the CLS row")
+    dt = patches.dtype
+    rows = (torch.matmul(_f32(patches), _f32(wemb))
+            + _f32(base[1:1 + n])).to(dt)
+    x = torch.cat([base[:1].expand(b, 1, d), rows,
+                   base[1 + n:].expand(b, sp - 1 - n, d)], dim=1)
+    layers = enc["qkv"]["kernel"].shape[0]
+    for i in range(layers):
+        attn, mlp = _layer_args(enc, i)
+        x = attn_block(x, *attn, num_heads=num_heads, scale=scale,
+                       seq_len=seq_len, eps=eps)
+        if i < layers - 1:
+            x = mlp_block(x, *mlp, eps=eps)
+    acc = _mlp_acc(x, *mlp, eps=eps)
+    return layernorm(acc, lnf["scale"], lnf["bias"], eps=eps).to(dt)

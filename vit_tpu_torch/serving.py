@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from vit_tpu_torch.config import ViTConfig
-from vit_tpu_torch.models.vit import Params, make_forward
+from vit_tpu_torch.models.vit import Params, fold_base, make_forward
 from vit_tpu_torch.weights.convert import to_device
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
@@ -39,6 +39,9 @@ class Predictor:
         self.buckets = tuple(sorted(set(buckets)))
         self.params = to_device(params, self.device)
         self._fwd = make_forward(cfg)
+        # The fused route's base rows depend on the params only.
+        self._base = (fold_base(self.params, cfg)
+                      if cfg.num_prefix_tokens == 1 else None)
 
     def _plan(self, n: int) -> list[int]:
         """Decompose n onto buckets, largest-first; the tail rounds up to
@@ -65,7 +68,8 @@ class Predictor:
             images = torch.cat([images, pad])
         outs, off = [], 0
         for b in plan:
-            outs.append(self._fwd(self.params, images[off:off + b]))
+            outs.append(self._fwd(self.params, images[off:off + b],
+                                  base=self._base))
             off += b
         out = outs[0] if len(outs) == 1 else torch.cat(outs)
         return out[:n]
