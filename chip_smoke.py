@@ -12,16 +12,25 @@ without printing the final ``ok`` line:
    ViT-B/16 path's shapes (bs=32), at the ViT-L/16-384 path's shapes
    (bs=8: 8 x 592 = 4736 rows, D=1024, 16 heads of 64), ``embed_fused`` at
    B/16 (bs=4), H/14 (bs=2, K=588) and L/16-384 (bs=4, phase 7's bucket),
-   and both forms of ``encoder_stack``
-   as whole 12-layer B/16 encoders at bs=1 and bs=2 (197 of 208 tokens);
+   both forms of ``encoder_stack`` as whole 12-layer B/16 encoders at bs=1
+   and bs=2 (197 of 208 tokens); the int8 kernels at B/16 bs=32, L/16-384
+   bs=8 (K7's fp32 output at 592 tokens) and H/14 bs=2 (D=1280, MLP 5120),
+   ``matmul_i8`` bit for bit, and ``encoder_stack_q`` as the whole B/16 and
+   L/16 encoders at bs=1;
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
    exact per-forward launch counts; the same weights through
-   ``encoder_stack_fused`` directly;
+   ``encoder_stack_fused`` directly; and through the int8 tier, within rel
+   5e-2 and corr 0.999 of the float forward and as accurate as its plain
+   version;
 5. B/16 serving: a bf16 B/16 ``Predictor`` with a 1000-class head answers
    requests of 1, 5, 32 and 37 images, with exact launch counts -- the
    first main path: bs=1 buckets take ``encoder_stack_fused`` and the
    head, bs=32 buckets every layer on the two half-block mega-kernels;
+   5b. the same requests through ``Predictor(quant=True)``, the int8 main
+   path: 11 bs=1 forwards on ``encoder_stack_q``, 2 bs=32 on the per-layer
+   int8 route, exact launch counts, every request equal to its bucket
+   forwards bit for bit;
 6. L/16-384 fp32 at full depth (24 layers, bs=2) through the kernels
    against ``impl="torch"``, with exact launch counts: ``embed_fused``,
    then every layer's attention half composed (layernorm_stats +
@@ -30,6 +39,9 @@ without printing the final ``ok`` line:
 7. L/16-384 serving: a bf16 ``Predictor(buckets=(4, 8))`` with a
    1000-class head answers 3, 8 and 11 images, with exact launch counts --
    the second main path (bucket 4 embeds through ``embed_fused``);
+   7b. L/16-384 int8 bf16 at bs=8, full depth, and 7c. H/14 int8 at 4
+   layers in both dtypes, each as accurate against the float forward as
+   its plain version (``check_int8_forward``);
 8. H/14 at 4 layers in bf16 (attention mega, MLP composed) and fp32
    (attention composed at head_dim 80, MLP mega) against ``impl="torch"``;
 9. DeiT-B/16 bf16 at bs=1, full depth, against ``impl="torch"``: composed
@@ -37,18 +49,22 @@ without printing the final ``ok`` line:
 10. L/16 bf16 at bs=1, full depth, against ``impl="torch"``: one
     ``encoder_stack_fused`` at D=1024 -- the fourth main path;
 11. timings (CUDA events, median of 20 after warm-up): each kernel against
-    its plain version; the bf16 forwards of B/16 at bs=32 and L/16-384 at
-    bs=8 through the kernels and through ``impl="torch"``; and B/16 at bs=1
-    and 2 and L/16 at bs=1 through the stack route, the per-layer kernel
-    route (the stack plans patched off) and ``impl="torch"``, each with its
-    device idle share; and one B/16 layer's launches at bs=1, stand-ins
-    for K9's phases (K9's own phases are not timed).
+    its plain version and, where one PyTorch call computes the same
+    function, that call (``library_ms``, a yardstick the port never
+    calls); the bf16 forwards of B/16 at bs=32 and L/16-384 at bs=8
+    through the kernels and through ``impl="torch"``; B/16 at bs=1 and 2
+    and L/16 at bs=1 through the stack route, the per-layer kernel route
+    (the stack plans patched off) and ``impl="torch"``, each with its
+    device idle share; one B/16 layer's launches at bs=1, stand-ins for
+    K9's phases; and the int8 forward against the bf16 kernel forward at
+    B/16 bs=32 and bs=1 and L/16-384 bs=8, in turns, with device times.
 
-The last three lines of standard output are the kernels JSON line (the
-launches of the four main paths, error vs the plain version, kernel and
-plain times), the card's ``nvidia-smi`` name and power limit, and the
-result line ``{"ok": true, "device": {...}}``. Imports only torch, numpy
-and the port.
+The last three lines of standard output are the kernels JSON line (each
+kernel's launches on the main paths, error vs the plain version, kernel,
+plain and library times, and its bound: the larger of its bytes over the
+memory rate and its operations over the peak rate of their type), the
+card's ``nvidia-smi`` name and power limit, and the result line
+``{"ok": true, "device": {...}}``. Imports only torch, numpy and the port.
 """
 
 from __future__ import annotations
@@ -90,6 +106,15 @@ PER_FORWARD_H14_4 = {
 #: DeiT-B/16 bf16 at bs=1: two prefix tokens, so no fold: the composed
 #: embed (patch projection), one encoder_stack, the final LN.
 PER_FORWARD_DEIT_STACK = {"matmul": 1, "encoder_stack": 1, "layernorm": 1}
+#: One layer of the int8 per-layer route: attn_block_q's five launches
+#: (quantize_rows, matmul_i8, flash_attention with an fp32 output,
+#: quantize_rows, matmul_i8) and mlp_block_i8dot.
+Q_LAYER = {"quantize_rows": 2, "matmul_i8": 2, "flash_attention": 1,
+           "mlp_block_i8dot": 1}
+#: B/16 bf16 with a head on the int8 stack route (bs=1): embed_fused, one
+#: encoder_stack_q, the final LN, the head.
+PER_FORWARD_Q_STACK = {"embed_fused": 1, "encoder_stack_q": 1,
+                       "layernorm": 1, "matmul": 1}
 #: Where each kernel's source is and which TPU kernel it replaces.
 KERNEL_SOURCES = {
     "layernorm": ("vit_tpu_torch/csrc/layernorm.cu",
@@ -112,9 +137,23 @@ KERNEL_SOURCES = {
                       "vit_tpu/ops/pallas/block.py:2203"),
     "encoder_stack_fused": ("vit_tpu_torch/csrc/encoder_stack.cu",
                             "vit_tpu/ops/pallas/block.py:2331"),
+    # K10 and K11 are four of the five launches of attn_block_q (B11).
+    "quantize_rows": ("vit_tpu_torch/csrc/layernorm.cu",
+                      "vit_tpu/ops/pallas/block.py:1385"),
+    "matmul_i8": ("vit_tpu_torch/csrc/matmul.cu",
+                  "vit_tpu/ops/pallas/block.py:1385"),
+    "mlp_block_i8dot": ("vit_tpu_torch/csrc/mlp_block_i8.cu",
+                        "vit_tpu/ops/pallas/block.py:591"),
+    "encoder_stack_q": ("vit_tpu_torch/csrc/encoder_stack.cu",
+                        "vit_tpu/ops/pallas/block.py:2558"),
 }
 #: Kernels that run a whole encoder: held to the model bars.
-WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused")
+WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused", "encoder_stack_q")
+#: Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense): device
+#: memory bytes/s, and operations/s by the type the work runs in (bf16 and
+#: int8 on the tensor cores, fp32 on the FFMA units, no TF32).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 FP32_BAR = 1e-4       # max|diff|: only the fp32 sum order differs
 BF16_REL_BAR = 2e-2   # |diff| <= bar * (1 + |ref|): about two bf16 ulps
 BF16_MEAN_BAR = 3e-3  # mean|diff|
@@ -171,6 +210,102 @@ def compare_model(torch, got, want, dtype) -> dict:
     ``impl="torch"``."""
     return compare(torch, got, want, dtype, fp32_bar=GOLDEN_BAR,
                    bf16_bar=MODEL_BF16_REL_BAR, mean_bar=MODEL_BF16_MEAN_BAR)
+
+
+def compare_exact(torch, got, want, dtype) -> dict:
+    """Bit for bit (K11, and K10 without LN)."""
+    for g, w in zip(got, want) if isinstance(got, tuple) else [(got, want)]:
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError("not equal bit for bit")
+    return {"max_abs_err": 0.0, "mean_abs_err": 0.0}
+
+
+def compare_codes(torch, got, want, dtype) -> dict:
+    """K10 with LN: the LN sum orders differ, so at most 0.1% of codes may
+    flip, by one; the scales agree to 1e-5. The error is that of the
+    dequantized rows, codes times scale."""
+    (q, a), (qw, aw) = got, want
+    flips = (q.int() - qw.int()).abs()
+    share = float((flips > 0).float().mean())
+    arel = float(((a - aw).abs() / aw).max())
+    deq = (q.float() * a - qw.float() * aw).abs()
+    res = {"max_abs_err": float(deq.max()), "mean_abs_err": float(deq.mean()),
+           "max_code_flip": int(flips.max()), "flip_share": share,
+           "scale_rel": arel}
+    if res["max_code_flip"] > 1 or share > 1e-3 or arel > 1e-5:
+        raise AssertionError(f"quantize_rows outside its bar: {res}")
+    return res
+
+
+def compare_i8(torch, got, want, dtype) -> dict:
+    """An int8 kernel that quantizes activations inside (K12,
+    attn_block_q): the bf16 model bars in both dtypes. Where the LN sum
+    orders differ, an activation code can flip at a .5 boundary (K10 flips
+    about one in 10^6); the flip moves the following product by one
+    quantization step, and a bf16 rounding of the result may flip with it,
+    as a sum-order difference carries through a whole bf16 forward."""
+    return compare_model(torch, got, want, torch.bfloat16)
+
+
+def compare_rel(torch, got, want, dtype) -> dict:
+    """A whole bf16 encoder on int8 weights (K9): relative norm <= 2e-2,
+    the int8 tier's kernel-vs-plain bar; fp32 the model bar. Over 24 bf16
+    layers the residual stream grows (mean |x| near 2 at L/16) and its
+    rounding differences grow with it past the absolute model bars;
+    :func:`kernel_cases_stack_q` also holds the kernel to be as close to
+    an fp32 run of the same weights as its plain version."""
+    if dtype == torch.float32:
+        return compare_model(torch, got, want, dtype)
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        raise AssertionError("shape or non-finite values")
+    diff = (g - w).abs()
+    res = {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+           "rel": float((g - w).norm() / w.norm())}
+    if not res["rel"] <= 2e-2:
+        raise AssertionError(f"outside the relative bar: {res}")
+    return res
+
+
+def compare_bf16(torch, got, want, dtype) -> dict:
+    """K7's fp32 output of bf16 inputs: the kernel bf16 bars."""
+    return compare(torch, got, want, torch.bfloat16)
+
+
+def case(name: str, label: str, run, work: tuple, *, library=None,
+         check=None, primary: bool = True) -> dict:
+    """A kernel case: ``run(impl)``; ``work`` = (bytes, operations, type)
+    for its bound; ``library`` one PyTorch call of the same function, timed
+    as a yardstick only; ``check(torch, got, want, dtype)`` its bar;
+    ``primary`` whether the kernels line may report it."""
+    if check is None:
+        check = compare_model if name in WHOLE_ENCODER else compare
+    return {"name": name, "label": label, "run": run, "work": work,
+            "library": library, "check": check, "primary": primary}
+
+
+def gemm_work(m: int, k: int, n: int, e: int, kind: str, *,
+              out_e: int | None = None, residual: bool = False) -> tuple:
+    """(bytes, operations, type) of (m, k) @ (k, n) + bias: each input read
+    once, the output written once."""
+    out_e = e if out_e is None else out_e
+    return ((m * k + k * n + n) * e + m * n * out_e * (2 if residual else 1),
+            2 * m * k * n, kind)
+
+
+def attention_ops(b: int, heads: int, s: int, seq_len: int, hd: int) -> int:
+    """QK^T and PV over the real keys for every query row."""
+    return 4 * b * heads * s * seq_len * hd
+
+
+def bound(work: tuple) -> tuple[float, str]:
+    """The least time (ms) the card could take for ``work``, and what sets
+    it: its bytes at the memory rate or its operations at the peak rate of
+    their type."""
+    nbytes, ops, kind = work
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def expect_counts(counts: dict, per_forward: dict, n: int = 1) -> dict:
@@ -234,16 +369,33 @@ def _rnd_fn(torch, dtype, seed: int):
     return rnd
 
 
+def _kind(torch, dtype) -> str:
+    """The peak-rate type of a float kernel's products in ``dtype``."""
+    return "bf16" if dtype == torch.bfloat16 else "fp32"
+
+
+def _sdpa(torch, q, k, v, scale, seq_len):
+    """One PyTorch call of masked attention (keys >= seq_len masked): the
+    yardstick of K4's core and K7, used nowhere in the port."""
+    import torch.nn.functional as F
+    keep = torch.arange(k.shape[-2], device=k.device) < seq_len
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=keep[None, :],
+                                          scale=scale)
+
+
 def kernel_cases(torch, dtype):
-    """(kernel, label, run(impl)) at the B/16 path's shapes: bs=32 is
-    M = 32*208 = 6656 rows (6272 = 32*196 for the patch rows)."""
+    """Kernel cases at the B/16 path's shapes: bs=32 is M = 32*208 = 6656
+    rows (6272 = 32*196 for the patch rows)."""
+    import torch.nn.functional as F
+
     from vit_tpu_torch import ops
     from vit_tpu_torch.ops import reference
     from vit_tpu_torch.ops.cuda import block as cuda_block
 
     rnd = _rnd_fn(torch, dtype, 0)
+    e, kind = dtype.itemsize, _kind(torch, dtype)
     b, sp, s, d, mlp, heads = 32, 208, 197, 768, 3072, 12
-    m = b * sp
+    m, hd = b * sp, d // heads
     x = rnd(m, d)
     g, beta = rnd(d, std=0.1, mean=1.0), rnd(d, std=0.05)
     w_dd, b_d = rnd(d, d, std=0.04), rnd(d, std=0.02)
@@ -253,7 +405,8 @@ def kernel_cases(torch, dtype):
     patches = rnd(32 * 196, d)
     qkv = rnd(m, 3 * d)
     x3 = x.reshape(b, sp, d)
-    scale = (d // heads) ** -0.5
+    scale = hd ** -0.5
+    q, k, v = qkv.view(b, sp, 3, heads, hd).permute(2, 0, 3, 1, 4)
 
     def attn_core(impl):
         if impl == "torch":
@@ -262,35 +415,50 @@ def kernel_cases(torch, dtype):
         return cuda_block.attention_core(qkv, batch=b, num_heads=heads,
                                          scale=scale, seq_len=s)
 
+    att_ops = attention_ops(b, heads, sp, s, hd)
     return [
-        ("layernorm", f"({m},{d})",
-         lambda impl: ops.layernorm(x, g, beta, impl=impl)),
-        ("matmul", f"({32 * 196},{d})@({d},{d})+bias",
-         lambda impl: ops.matmul(patches, w_dd, b_d, impl=impl)),
-        ("matmul", f"({m},{d})@({d},{3 * d})+bias",
-         lambda impl: ops.matmul(x, wqkv, bqkv, impl=impl)),
-        ("matmul", f"({m},{d})@({d},{mlp})+bias+gelu",
-         lambda impl: ops.matmul(x, w_dm, b_m, "gelu", impl=impl)),
-        ("matmul", f"({m},{d})@({d},{d})+bias+residual",
-         lambda impl: ops.matmul(x, w_dd, b_d, residual=x, impl=impl)),
-        ("mlp_block", f"({m},{d}) mlp {mlp}",
-         lambda impl: ops.mlp_block(x, g, beta, w_dm, b_m, w_md, b_d,
-                                    impl=impl)),
-        ("attention", f"qkv ({m},{3 * d}) heads {heads} seq_len {s}",
-         attn_core),
-        ("attn_block", f"({b},{sp},{d}) seq_len {s}",
-         lambda impl: ops.attn_block(x3, g, beta, wqkv, bqkv, w_dd, b_d,
-                                     num_heads=heads, seq_len=s, impl=impl)),
+        case("layernorm", f"({m},{d})",
+             lambda impl: ops.layernorm(x, g, beta, impl=impl),
+             (2 * m * d * e + 2 * d * e, 8 * m * d, "fp32"),
+             library=lambda: F.layer_norm(x, (d,), g, beta, 1e-12)),
+        case("matmul", f"({32 * 196},{d})@({d},{d})+bias",
+             lambda impl: ops.matmul(patches, w_dd, b_d, impl=impl),
+             gemm_work(32 * 196, d, d, e, kind), primary=False),
+        case("matmul", f"({m},{d})@({d},{mlp})+bias+gelu",
+             lambda impl: ops.matmul(x, w_dm, b_m, "gelu", impl=impl),
+             gemm_work(m, d, mlp, e, kind), primary=False),
+        case("matmul", f"({m},{d})@({d},{d})+bias+residual",
+             lambda impl: ops.matmul(x, w_dd, b_d, residual=x, impl=impl),
+             gemm_work(m, d, d, e, kind, residual=True), primary=False),
+        case("matmul", f"({m},{d})@({d},{3 * d})+bias",
+             lambda impl: ops.matmul(x, wqkv, bqkv, impl=impl),
+             gemm_work(m, d, 3 * d, e, kind),
+             library=lambda: torch.addmm(bqkv, x, wqkv)),
+        case("mlp_block", f"({m},{d}) mlp {mlp}",
+             lambda impl: ops.mlp_block(x, g, beta, w_dm, b_m, w_md, b_d,
+                                        impl=impl),
+             ((2 * m * d + 2 * d * mlp + mlp + 3 * d) * e, 4 * m * d * mlp,
+              kind)),
+        case("attention", f"qkv ({m},{3 * d}) heads {heads} seq_len {s}",
+             attn_core, (4 * m * d * e, att_ops, kind),
+             library=lambda: _sdpa(torch, q, k, v, scale, s)),
+        case("attn_block", f"({b},{sp},{d}) seq_len {s}",
+             lambda impl: ops.attn_block(x3, g, beta, wqkv, bqkv, w_dd, b_d,
+                                         num_heads=heads, seq_len=s,
+                                         impl=impl),
+             ((2 * m * d + 4 * d * d + 6 * d) * e,
+              2 * m * d * 4 * d + att_ops, kind)),
     ]
 
 
 def kernel_cases_l16_384(torch, dtype):
-    """(kernel, label, run(impl)) at the L/16-384 path's shapes: bs=8 is
-    M = 8*592 = 4736 rows, D=1024, MLP 4096, 16 heads of 64, 577 real
-    tokens. Attention reads q, k and v as views of a packed QKV buffer."""
+    """Kernel cases at the L/16-384 path's shapes: bs=8 is M = 8*592 =
+    4736 rows, D=1024, MLP 4096, 16 heads of 64, 577 real tokens.
+    Attention reads q, k and v as views of a packed QKV buffer."""
     from vit_tpu_torch import ops
 
     rnd = _rnd_fn(torch, dtype, 1)
+    e, kind = dtype.itemsize, _kind(torch, dtype)
     b, sp, s, d, mlp, heads = 8, 592, 577, 1024, 4096, 16
     hd, m = d // heads, b * sp
     x = rnd(m, d, std=1.5, mean=0.2)
@@ -302,48 +470,72 @@ def kernel_cases_l16_384(torch, dtype):
     qkv = rnd(m, 3 * d)
     q, k, v = qkv.view(b, sp, 3, heads, hd).permute(2, 0, 3, 1, 4)
     return [
-        ("layernorm_stats", f"({m},{d})",
-         lambda impl: ops.layernorm_stats(x, impl=impl)),
-        ("fused_linear", f"({m},{d})@({d},{d})+bias+residual",
-         lambda impl: ops.fused_linear(x, w_dd, b_d, residual=x, impl=impl)),
-        ("fused_linear", f"LN ({m},{d})@({d},{3 * d})+bias",
-         lambda impl: ops.fused_linear(x, wqkv, bqkv, ln_scale=g,
-                                       ln_bias=beta, impl=impl)),
-        ("flash_attention", f"packed qkv B={b} H={heads} S={sp} "
-         f"seq_len {s} d={hd}",
-         lambda impl: ops.flash_attention(q, k, v, scale=hd ** -0.5,
-                                          seq_len=s, impl=impl)),
-        ("mlp_block", f"({m},{d}) mlp {mlp}",
-         lambda impl: ops.mlp_block(x, g, beta, w_dm, b_m, w_md, b_d,
-                                    impl=impl)),
+        case("layernorm_stats", f"({m},{d})",
+             lambda impl: ops.layernorm_stats(x, impl=impl),
+             (m * d * e + 8 * m, 5 * m * d, "fp32")),
+        case("fused_linear", f"({m},{d})@({d},{d})+bias+residual",
+             lambda impl: ops.fused_linear(x, w_dd, b_d, residual=x,
+                                           impl=impl),
+             gemm_work(m, d, d, e, kind, residual=True), primary=False),
+        case("fused_linear", f"LN ({m},{d})@({d},{3 * d})+bias",
+             lambda impl: ops.fused_linear(x, wqkv, bqkv, ln_scale=g,
+                                           ln_bias=beta, impl=impl),
+             gemm_work(m, d, 3 * d, e, kind)),
+        case("flash_attention", f"packed qkv B={b} H={heads} S={sp} "
+             f"seq_len {s} d={hd}",
+             lambda impl: ops.flash_attention(q, k, v, scale=hd ** -0.5,
+                                              seq_len=s, impl=impl),
+             (4 * m * d * e, attention_ops(b, heads, sp, s, hd), kind),
+             library=lambda: _sdpa(torch, q, k, v, hd ** -0.5, s)),
+        case("mlp_block", f"({m},{d}) mlp {mlp}",
+             lambda impl: ops.mlp_block(x, g, beta, w_dm, b_m, w_md, b_d,
+                                        impl=impl),
+             ((2 * m * d + 2 * d * mlp + mlp + 3 * d) * e, 4 * m * d * mlp,
+              kind), primary=False),
     ]
 
 
+def _stack_work(b, sp, s, d, mlp, heads, layers, e, kind, w_e=None):
+    """(bytes, operations, type) of a whole encoder: weights once (int8
+    projections with their fp32 scales when ``w_e`` is 1), the activation
+    in and out."""
+    w_e = e if w_e is None else w_e
+    proj = layers * (4 * d * d + 2 * d * mlp)
+    vecs = layers * (8 * d + mlp) * e
+    scales = layers * (5 * d + mlp) * 4 if w_e == 1 else 0
+    m = b * sp
+    ops = layers * (8 * m * d * d + 4 * m * d * mlp
+                    + attention_ops(b, heads, sp, s, d // heads))
+    return (proj * w_e + vecs + scales + 2 * m * d * e, ops, kind)
+
+
 def kernel_cases_small_batch(torch, dtype):
-    """(kernel, label, run(impl)) of the small-batch route: K8 at the B/16
-    embedding (bs=4: 196 patches of 768 into 208 rows), the H/14 one
-    (bs=2: 256 patches of 588 into 272 rows of 1280) and, last, the
-    L/16-384 one of phase 7's bucket 4 (576 patches of 768 into 592 rows
-    of 1024), whose bf16 time the kernels line reports; K9 in both forms
-    as the whole 12-layer B/16 encoder at bs=1 and bs=2, 197 of 208
-    tokens, with the random B/16 weights of ``init_params``."""
+    """Kernel cases of the small-batch route: K8 at the B/16 embedding
+    (bs=4: 196 patches of 768 into 208 rows), the H/14 one (bs=2: 256
+    patches of 588 into 272 rows of 1280) and, last, the L/16-384 one of
+    phase 7's bucket 4 (576 patches of 768 into 592 rows of 1024), whose
+    bf16 time the kernels line reports; K9 in both forms as the whole
+    12-layer B/16 encoder at bs=1 and bs=2, 197 of 208 tokens, with the
+    random B/16 weights of ``init_params``."""
     from vit_tpu_torch import ops
     from vit_tpu_torch.config import VARIANTS
     from vit_tpu_torch.models.vit import fold_base, init_params
 
     rnd = _rnd_fn(torch, dtype, 5)
+    e, kind = dtype.itemsize, _kind(torch, dtype)
     cases = []
     for b, n, k, d, sp in ((4, 196, 768, 768, 208), (2, 256, 588, 1280, 272),
                            (4, 576, 768, 1024, 592)):
         args = (rnd(b, n, k), rnd(k, d, std=0.03), rnd(d, std=0.1), rnd(d),
                 rnd(n, d))
-        cases.append(("embed_fused", f"({b},{n},{k})@({k},{d}) -> "
-                      f"({b},{sp},{d})",
-                      lambda impl, a=args, sp=sp: ops.embed_fused(
-                          *a, sp, impl=impl)))
+        cases.append(case(
+            "embed_fused", f"({b},{n},{k})@({k},{d}) -> ({b},{sp},{d})",
+            lambda impl, a=args, sp=sp: ops.embed_fused(*a, sp, impl=impl),
+            ((b * n * k + k * d + n * d + 2 * d + b * sp * d) * e,
+             2 * b * n * k * d, kind)))
     cfg = VARIANTS["B/16"].replace(dtype=dtype)
     p = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(
-        6), device="cuda")
+        6))
     base = fold_base(p, cfg)
     kw = dict(num_heads=12, scale=64 ** -0.5, seq_len=197,
               eps=cfg.layernorm_eps)
@@ -351,15 +543,175 @@ def kernel_cases_small_batch(torch, dtype):
         x = rnd(b, 208, 768)
         x[:, 197:] = 0
         patches = rnd(b, 196, 768)
-        cases.append(("encoder_stack", f"B/16 12 layers ({b},208,768)",
-                      lambda impl, x=x: ops.encoder_stack(
-                          x, p["encoder"], impl=impl, **kw)))
-        cases.append(("encoder_stack_fused",
-                      f"B/16 embed + 12 layers + LN, patches ({b},196,768)",
-                      lambda impl, pt=patches: ops.encoder_stack_fused(
-                          pt, p["encoder"], p["embeddings"]["patch_embed"][
-                              "kernel"], base, p["ln_final"], sp=208,
-                          impl=impl, **kw)))
+        work = _stack_work(b, 208, 197, 768, 3072, 12, 12, e, kind)
+        cases.append(case("encoder_stack", f"B/16 12 layers ({b},208,768)",
+                          lambda impl, x=x: ops.encoder_stack(
+                              x, p["encoder"], impl=impl, **kw),
+                          work, primary=b == 1))
+        nbytes, ops_, _ = work
+        cases.append(case(
+            "encoder_stack_fused",
+            f"B/16 embed + 12 layers + LN, patches ({b},196,768)",
+            lambda impl, pt=patches: ops.encoder_stack_fused(
+                pt, p["encoder"], p["embeddings"]["patch_embed"]["kernel"],
+                base, p["ln_final"], sp=208, impl=impl, **kw),
+            (nbytes + (b * 196 * 768 + 768 * 768 + 208 * 768) * e,
+             ops_ + 2 * b * 196 * 768 * 768, kind), primary=b == 1))
+    return cases
+
+
+def kernel_cases_int8(torch, dtype):
+    """The int8 kernels at the main paths' shapes: B/16 bs=32 (M=6656,
+    D=768, MLP 3072; K11's QKV case is the one the kernels line reports,
+    with ``torch._int_mm`` as its yardstick), L/16-384 bs=8 (attention at
+    592 tokens through K7 with an fp32 output) and H/14 bs=2 (D=1280, MLP
+    5120, fc2's K=5120); ``attn_block_q`` whole at B/16 and L/16-384."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.quant import quantize_weight
+
+    rnd = _rnd_fn(torch, dtype, 9)
+    e = dtype.itemsize
+    cases = []
+
+    def qw(*shape, std):
+        return quantize_weight(rnd(*shape, std=std))
+
+    for tag, b, sp, s, d, mlp, heads in (("B/16", 32, 208, 197, 768, 3072, 12),
+                                         ("L/16-384", 8, 592, 577, 1024,
+                                          4096, 16),
+                                         ("H/14", 2, 272, 257, 1280, 5120,
+                                          16)):
+        m, hd = b * sp, d // heads
+        main = tag == "B/16"
+        x = rnd(m, d, std=1.5, mean=0.2)
+        g, beta = rnd(d, std=0.1, mean=1.0), rnd(d, std=0.05)
+        wqkv, wout = qw(d, 3 * d, std=0.04), qw(d, d, std=0.04)
+        w1, w2 = qw(d, mlp, std=0.03), qw(mlp, d, std=0.03)
+        bqkv, b_d, b_m = rnd(3 * d, std=0.02), rnd(d, std=0.02), rnd(mlp)
+        xq, ax = ops.quantize_rows(x, ln_scale=g, ln_bias=beta, impl="torch")
+        ctx = torch.randn((m, d), device="cuda")
+        cq, ac = ops.quantize_rows(ctx, impl="torch")
+        hq, ah = ops.quantize_rows(torch.randn((m, mlp), device="cuda"),
+                                   impl="torch")
+        qkv = rnd(m, 3 * d)
+        q, k, v = qkv.view(b, sp, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        x3 = x.reshape(b, sp, d)
+        att_ops = attention_ops(b, heads, sp, s, hd)
+        if tag != "L/16-384":
+            cases += [
+                case("quantize_rows", f"{tag} LN ({m},{d})",
+                     lambda impl, x=x, g=g, beta=beta: ops.quantize_rows(
+                         x, ln_scale=g, ln_bias=beta, impl=impl),
+                     (m * d * (e + 1) + 4 * m + 2 * d * e, 10 * m * d,
+                      "fp32"), check=compare_codes, primary=main),
+                case("quantize_rows", f"{tag} fp32 context ({m},{d})",
+                     lambda impl, c=ctx: ops.quantize_rows(c, impl=impl),
+                     (m * d * 5 + 4 * m, 3 * m * d, "fp32"),
+                     check=compare_exact, primary=False),
+                case("matmul_i8", f"{tag} ({m},{mlp})@({mlp},{d})"
+                     "+bias+residual",
+                     lambda impl, a=(hq, ah, w2, b_d, x): ops.matmul_i8(
+                         a[0], a[1], a[2]["q"], a[2]["scale"], a[3],
+                         residual=a[4], out_dtype=dtype, impl=impl),
+                     gemm_work(m, mlp, d, 1, "int8", out_e=e, residual=True),
+                     library=lambda a=(hq, w2): torch._int_mm(a[0],
+                                                              a[1]["q"]),
+                     check=compare_exact, primary=False),
+                case("matmul_i8", f"{tag} ({m},{d})@({d},{d})+bias+residual",
+                     lambda impl, a=(cq, ac, wout, b_d, x): ops.matmul_i8(
+                         a[0], a[1], a[2]["q"], a[2]["scale"], a[3],
+                         residual=a[4], out_dtype=dtype, impl=impl),
+                     gemm_work(m, d, d, 1, "int8", out_e=e, residual=True),
+                     library=lambda a=(cq, wout): torch._int_mm(a[0],
+                                                                a[1]["q"]),
+                     check=compare_exact, primary=False),
+                case("matmul_i8", f"{tag} ({m},{d})@({d},{3 * d})+bias",
+                     lambda impl, a=(xq, ax, wqkv, bqkv): ops.matmul_i8(
+                         a[0], a[1], a[2]["q"], a[2]["scale"], a[3],
+                         out_dtype=dtype, impl=impl),
+                     gemm_work(m, d, 3 * d, 1, "int8", out_e=e),
+                     library=lambda a=(xq, wqkv): torch._int_mm(a[0],
+                                                                a[1]["q"]),
+                     check=compare_exact, primary=main),
+                case("mlp_block_i8dot", f"{tag} ({m},{d}) mlp {mlp}",
+                     lambda impl, a=(x, g, beta, w1, b_m, w2, b_d):
+                     ops.mlp_block_i8dot(
+                         a[0], a[1], a[2], a[3]["q"], a[3]["scale"], a[4],
+                         a[5]["q"], a[5]["scale"], a[6], impl=impl),
+                     ((2 * m * d + mlp + 3 * d) * e + 2 * d * mlp
+                      + 4 * (mlp + d), 4 * m * d * mlp, "int8"),
+                     check=compare_i8, primary=main),
+            ]
+        if tag != "H/14":
+            cases += [
+                case("flash_attention", f"{tag} fp32 output, packed qkv "
+                     f"B={b} H={heads} S={sp} seq_len {s} d={hd}",
+                     lambda impl, a=(q, k, v, hd, s): ops.flash_attention(
+                         a[0], a[1], a[2], scale=a[3] ** -0.5, seq_len=a[4],
+                         out_dtype=torch.float32, impl=impl),
+                     (3 * m * d * e + 4 * m * d, att_ops, _kind(torch, dtype)),
+                     library=lambda a=(q, k, v, hd, s): _sdpa(
+                         torch, a[0], a[1], a[2], a[3] ** -0.5, a[4]),
+                     check=compare_bf16, primary=False),
+                case("attn_block_q", f"{tag} ({b},{sp},{d}) seq_len {s}",
+                     lambda impl, a=(x3, g, beta, wqkv, bqkv, wout, b_d,
+                                     heads, s): ops.attn_block_q(
+                         a[0], a[1], a[2], a[3]["q"], a[3]["scale"], a[4],
+                         a[5]["q"], a[5]["scale"], a[6], num_heads=a[7],
+                         seq_len=a[8], impl=impl),
+                     (2 * m * d * e + 4 * d * d + 16 * d + 4 * d * e,
+                      8 * m * d * d + att_ops, "int8"), check=compare_i8),
+            ]
+    return cases
+
+
+def kernel_cases_stack_q(torch, dtype):
+    """K9 on int8 weights as the whole L/16 (24 layers) and B/16 (12
+    layers, the one the kernels line reports) encoders at bs=1, 197 of 208
+    tokens, the int8 stack route's geometries, with the random weights of
+    ``init_params`` quantized in fp32. Besides its bar, each case holds
+    the kernel to be as close to the fp32 plain run of the same int8
+    weights as the plain version in ``dtype`` is: the rounding of ``dtype``
+    is all that may separate kernel and plain."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.config import VARIANTS
+    from vit_tpu_torch.models.vit import init_params
+    from vit_tpu_torch.quant import quantize_params
+
+    rnd = _rnd_fn(torch, dtype, 10)
+    cases = []
+    for variant in ("L/16", "B/16"):
+        cfg = VARIANTS[variant]
+        d, heads = cfg.hidden_dim, cfg.num_heads
+        q32 = quantize_params(init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(11)))["encoder"]
+        qenc = {name: {k: v if k == "kernel" else v.to(dtype)
+                       for k, v in p.items()} for name, p in q32.items()}
+        x = rnd(1, 208, d)
+        x[:, 197:] = 0
+        kw = dict(num_heads=heads, scale=cfg.head_dim ** -0.5, seq_len=197,
+                  eps=1e-12)
+
+        def check(torch, got, want, dtype, x=x, q32=q32, kw=kw):
+            res = compare_rel(torch, got, want, dtype)
+            truth = ops.encoder_stack_q(x.float(), q32, impl="torch", **kw)
+            res["kernels_vs_fp32_rel"] = rel_corr(torch, got, truth)[0]
+            res["plain_vs_fp32_rel"] = rel_corr(torch, want, truth)[0]
+            # In fp32 the plain run is the truth itself: the kernel may
+            # differ from it by its fp32 sum order.
+            if (res["kernels_vs_fp32_rel"]
+                    > 1.25 * res["plain_vs_fp32_rel"] + 1e-4):
+                raise AssertionError(f"encoder_stack_q less accurate than "
+                                     f"its plain version: {res}")
+            return res
+        cases.append(case(
+            "encoder_stack_q", f"{variant} {cfg.num_layers} layers "
+            f"(1,208,{d})",
+            lambda impl, x=x, qenc=qenc, kw=kw: ops.encoder_stack_q(
+                x, qenc, impl=impl, **kw),
+            _stack_work(1, 208, 197, d, cfg.mlp_dim, heads, cfg.num_layers,
+                        dtype.itemsize, _kind(torch, dtype), w_e=1),
+            check=check, primary=variant == "B/16"))
     return cases
 
 
@@ -462,6 +814,72 @@ def route_times(torch, forward, params, cfg, bs: int, gen) -> dict:
     return res
 
 
+def per_layer_q(layers: int, **extra) -> dict:
+    """Per-forward launches of the int8 per-layer route: ``layers`` times
+    :data:`Q_LAYER`, plus ``extra``."""
+    out = {k: v * layers for k, v in Q_LAYER.items()}
+    for k, v in extra.items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+def rel_corr(torch, got, want) -> tuple[float, float]:
+    """Relative norm of the difference and the correlation, in float64."""
+    g, w = got.double().flatten(), want.double().flatten()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite values")
+    rel = float((g - w).norm() / w.norm())
+    corr = float(torch.corrcoef(torch.stack([g, w]))[0, 1])
+    return rel, corr
+
+
+def check_rel(label: str, rel: float, bar: float) -> None:
+    if not rel <= bar:
+        raise AssertionError(f"{label}: relative error {rel} > {bar}")
+
+
+def check_int8_forward(torch, label: str, kern, plain, flt, *,
+                       absolute: bool) -> dict:
+    """An int8 forward through the kernels (``kern``) and its plain version
+    (``plain``), both against the float forward of the same weights
+    (``flt``). Dynamic activation quantization amplifies any difference:
+    a value that moves by d flips codes with a probability of about d over
+    the quantization step, and each flip moves the next product by a whole
+    step, so after a few layers two evaluations of the same int8 model
+    differ by about the step itself, as much as either differs from the
+    float model. So the kernels are held to be as accurate as the plain
+    version: their error against the float forward at most 1.25 times the
+    plain version's, and the two within 5e-2 of each other; with
+    ``absolute``, also within rel 5e-2 and corr 0.999 of the float forward
+    (``tests/test_quant.py:95-96``)."""
+    rel_kp, _ = rel_corr(torch, kern, plain)
+    rel_k, corr_k = rel_corr(torch, kern, flt)
+    rel_p, corr_p = rel_corr(torch, plain, flt)
+    res = {"kernels_vs_plain_rel": rel_kp, "kernels_vs_float_rel": rel_k,
+           "kernels_vs_float_corr": corr_k, "plain_vs_float_rel": rel_p,
+           "plain_vs_float_corr": corr_p}
+    log(f"[{label}] {res}")
+    check_rel(f"{label} kernels vs plain", rel_kp, 5e-2)
+    check_rel(f"{label} kernels vs float", rel_k, 1.25 * rel_p)
+    if absolute:
+        check_rel(f"{label} kernels vs float", rel_k, 5e-2)
+        if not corr_k > 0.999:
+            raise AssertionError(f"{label}: correlation {corr_k} <= 0.999")
+    return res
+
+
+def forward_stats(torch, fn) -> dict:
+    """A forward's event time (median and mean of 20) and the card's busy
+    time per call (profiler), with the idle share and the device time of
+    each kernel per call."""
+    times = event_times(torch, fn)
+    busy, by_name = device_ms(torch, fn)
+    mean = float(np.mean(times))
+    return {"ms": float(np.median(times)), "mean_ms": mean,
+            "device_busy_ms": busy, "idle_share": 1 - busy / mean,
+            "kernels_ms": by_name}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "vit_tpu_torch")):
         raise SystemExit("vit_tpu_torch/ not found beside chip_smoke.py: "
@@ -504,19 +922,19 @@ def main() -> int:
     errors: dict[str, float] = {}
     timing_cases = []
     for cases in (kernel_cases, kernel_cases_l16_384,
-                  kernel_cases_small_batch):
+                  kernel_cases_small_batch, kernel_cases_int8,
+                  kernel_cases_stack_q):
         for dtype in (torch.float32, torch.bfloat16):
-            for name, label, run in cases(torch, dtype):
-                got = run("cuda")
-                want = run("torch")
+            for c in cases(torch, dtype):
+                got = c["run"]("cuda")
+                want = c["run"]("torch")
                 torch.cuda.synchronize()
-                bars = compare_model if name in WHOLE_ENCODER else compare
-                res = bars(torch, got, want, dtype)
-                log(f"[kernel] {name} {label} {dtype}: {res}")
+                res = c["check"](torch, got, want, dtype)
+                log(f"[kernel] {c['name']} {c['label']} {dtype}: {res}")
                 if dtype == torch.bfloat16:
-                    errors[name] = max(errors.get(name, 0.0),
-                                       res["max_abs_err"])
-                timing_cases.append((name, label, dtype, run))
+                    errors[c["name"]] = max(errors.get(c["name"], 0.0),
+                                            res["max_abs_err"])
+                timing_cases.append((c, dtype))
             del got, want
     torch.cuda.empty_cache()
 
@@ -552,7 +970,25 @@ def main() -> int:
     if not kdiff < GOLDEN_BAR:
         raise AssertionError(f"encoder_stack_fused golden max|diff| {kdiff} "
                              f">= {GOLDEN_BAR}")
-    del params32, sd, stack_out
+    # The int8 tier on the same weights: kernels against the kernels' float
+    # forward (the bars of tests/test_quant.py:95-96) and against its own
+    # plain version.
+    from vit_tpu_torch.quant import forward_quant, quantize_params
+    with torch.inference_mode():
+        q32 = quantize_params(params32)
+        reset_launch_counts()
+        gq = forward_quant(q32, px, cfg32)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        # fp32 at bs=2: embed_fused, the per-layer int8 route, final LN.
+        check_counts("golden int8", counts, expect_counts(
+            counts, per_layer_q(12, embed_fused=1, layernorm=1)))
+        check_int8_forward(torch, "golden int8 fp32 bs=2", gq, forward_quant(
+            q32, px, cfg32, impl="torch"), got, absolute=True)
+        rel_g, corr_g = rel_corr(torch, gq, want)
+    log(f"[golden int8] vs the recording: rel {rel_g:.3e}, corr "
+        f"{corr_g:.6f}; launches {counts}")
+    del params32, sd, stack_out, q32
 
     # -- 5. B/16 serving: the first main path ------------------------------
     cfg = VARIANTS["B/16"].replace(dtype=torch.bfloat16, num_classes=1000)
@@ -597,6 +1033,57 @@ def main() -> int:
         res = compare_model(torch, answers[1], bucket8, torch.bfloat16)
         log(f"[serve] request of 5 (stack route) vs rows 0-4 of the "
             f"bucket-8 forward (per-layer route): {res}")
+    del requests, answers
+
+    # -- 5b. B/16 int8 serving: the int8 main path ------------------------
+    pred_q = Predictor(params, cfg, buckets=(1, 8, 32), quant=True)
+    # The int8 phases draw from their own generator, so that the inputs of
+    # the float phases stay those of the runs recorded before them.
+    gen_q = torch.Generator(device="cuda").manual_seed(21)
+    requests = [torch.randn((n, 3, 224, 224), generator=gen_q, device="cuda")
+                for n in sizes]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = [pred_q(r) for r in requests]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    main_counts["B/16 int8 serving"] = counts = launch_counts()
+    plans = [b for n in sizes for b in pred_q._plan(n)]
+    if (plans.count(1), plans.count(32)) != (11, 2):
+        raise AssertionError(f"B/16 int8 serving plans {plans}")
+    check_counts("B/16 int8 serving", counts, add_counts(
+        expect_counts(counts, PER_FORWARD_Q_STACK, 11),
+        expect_counts(counts, per_layer_q(12, matmul=2, layernorm=1), 2)))
+    log(f"[serve int8] {sizes} in {serve_s:.3f} s (host clock, first "
+        f"calls); 11 bs=1 forwards on encoder_stack_q, 2 bs=32 on the "
+        f"per-layer int8 route; launches {counts}")
+    qp = pred_q.params
+    with torch.inference_mode():
+        for n, req, ans in zip(sizes, requests, answers):
+            if tuple(ans.shape) != (n, 1000):
+                raise AssertionError(f"int8 request {n}: shape "
+                                     f"{tuple(ans.shape)}")
+            # The same buckets one by one: every kernel is deterministic.
+            off, parts = 0, []
+            for b in pred_q._plan(n):
+                chunk = req[off:off + b].to(cfg.dtype)
+                if chunk.shape[0] < b:
+                    chunk = torch.cat([chunk, chunk.new_zeros(
+                        (b - chunk.shape[0], *chunk.shape[1:]))])
+                parts.append(forward_quant(qp, chunk, cfg))
+                off += b
+            if not torch.equal(ans, torch.cat(parts)[:n]):
+                raise AssertionError(f"int8 request {n} != its bucket "
+                                     "forwards")
+        log("[serve int8] every request == its bucket forwards, bit for "
+            "bit (the request of 5: five bs=1 forwards)")
+        for bs, req in ((1, requests[0]), (32, requests[2])):
+            xb = req.to(cfg.dtype)
+            check_int8_forward(
+                torch, f"serve int8 bs={bs} logits", forward_quant(qp, xb, cfg),
+                forward_quant(qp, xb, cfg, impl="torch"),
+                forward(params, xb, cfg), absolute=True)
     del requests, answers
 
     # -- 6. L/16-384 fp32, full depth, against impl="torch" ----------------
@@ -661,6 +1148,44 @@ def main() -> int:
             "forward, bit for bit")
     del requests, answers, pred_l
 
+    # -- 7b. L/16-384 int8 bf16 at bs=8, full depth ------------------------
+    with torch.inference_mode():
+        q_l = quantize_params(p_l)
+        px = torch.randn((8, 3, 384, 384), generator=gen_q,
+                         device="cuda").to(cfg_l.dtype)
+        reset_launch_counts()
+        got = forward_quant(q_l, px, cfg_l)
+        torch.cuda.synchronize()
+        main_counts["L/16-384 int8 bs=8"] = counts = launch_counts()
+        # bs=8: the patch projection and the head on matmul.
+        check_counts("L/16-384 int8", counts, expect_counts(
+            counts, per_layer_q(24, matmul=2, layernorm=1)))
+        log(f"[l16-384 int8] bf16 bs=8, 24 layers; launches {counts}")
+        check_int8_forward(torch, "l16-384 int8 bf16 bs=8 logits", got,
+                           forward_quant(q_l, px, cfg_l, impl="torch"),
+                           forward(p_l, px, cfg_l), absolute=False)
+
+    # -- 7c. H/14 int8 at 4 layers, both dtypes ----------------------------
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            cfg_h = VARIANTS["H/14"].replace(num_layers=4, dtype=dtype)
+            p_h = init_params(cfg_h, generator=torch.Generator(
+                device="cuda").manual_seed(12))
+            q_h = quantize_params(p_h)
+            px = torch.randn((2, 3, 224, 224), generator=gen_q, device="cuda")
+            reset_launch_counts()
+            got = forward_quant(q_h, px, cfg_h)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            dname = str(dtype).replace("torch.", "")
+            check_counts(f"H/14 int8 {dname}", counts, expect_counts(
+                counts, per_layer_q(4, embed_fused=1, layernorm=1)))
+            log(f"[h14 int8 {dname}] bs=2, 4 layers; launches {counts}")
+            check_int8_forward(torch, f"h14 int8 {dname} bs=2 pooled", got,
+                               forward_quant(q_h, px, cfg_h, impl="torch"),
+                               forward(p_h, px, cfg_h), absolute=False)
+            del p_h, q_h
+
     # -- 8. H/14 at 4 layers, both dtypes, against impl="torch" ------------
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
@@ -705,12 +1230,22 @@ def main() -> int:
 
     # -- 11. timings -------------------------------------------------------
     timings = []
-    for name, label, dtype, run in timing_cases:
-        ms = time_ms(torch, lambda: run("cuda"))
-        plain = time_ms(torch, lambda: run("torch"))
-        timings.append({"kernel": name, "shape": label,
+    for c, dtype in timing_cases:
+        ms = time_ms(torch, lambda: c["run"]("cuda"))
+        plain = time_ms(torch, lambda: c["run"]("torch"))
+        library = None
+        if c["library"] is not None:
+            try:
+                library = time_ms(torch, c["library"])
+            except RuntimeError as err:  # a yardstick only; say why
+                log(f"[timing] {c['name']} {c['label']}: library call "
+                    f"failed: {err}")
+        bound_ms, bound_by = bound(c["work"])
+        timings.append({"kernel": c["name"], "shape": c["label"],
                         "dtype": str(dtype).replace("torch.", ""),
-                        "ms": ms, "plain_ms": plain})
+                        "ms": ms, "plain_ms": plain, "library_ms": library,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "primary": c["primary"]})
     e2e = {}
     for tag, c, p, bs in (("b16", cfg, params, 32),
                           ("l16_384", cfg_l, p_l, 8)):
@@ -730,21 +1265,43 @@ def main() -> int:
         e2e[f"routes_{tag}_bf16_bs{bs}"] = route_times(torch, forward, p, c,
                                                        bs, gen)
     e2e["b16_bs1_layer_kernels_ms"] = layer_breakdown(torch)
+    # The int8 tier against the bf16 kernel forward on the same weights and
+    # inputs, in turns (float, int8, int8, float).
+    for tag, c, fp, qpar, bs in (("b16", cfg, params, qp, 32),
+                                 ("b16", cfg, params, qp, 1),
+                                 ("l16_384", cfg_l, p_l, q_l, 8)):
+        xb = torch.randn((bs, 3, c.image_size, c.image_size), generator=gen,
+                         device="cuda").to(c.dtype)
+        base = fold_base(fp, c)
+        with torch.inference_mode():
+            def f_fwd():
+                return forward(fp, xb, c, base=base)
+
+            def q_fwd():
+                return forward_quant(qpar, xb, c)
+            runs = [forward_stats(torch, fn)
+                    for fn in (f_fwd, q_fwd, q_fwd, f_fwd)]
+        e2e[f"int8_vs_bf16_{tag}_bs{bs}"] = {
+            "bf16": [runs[0], runs[3]], "int8": [runs[1], runs[2]],
+            "int8_images_per_s": bs * 1e3 / runs[1]["ms"],
+            "bf16_images_per_s": bs * 1e3 / runs[0]["ms"]}
     log(json.dumps({"timings": timings, "end_to_end": e2e, "card": smi,
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        # The bf16 timing of the last case that stands for the kernel.
-        t = next(t for t in reversed(timings)
-                 if t["kernel"] == name and t["dtype"] == "bfloat16")
+        # The bf16 timing of the last primary case of the kernel.
+        t = next(t for t in reversed(timings) if t["kernel"] == name
+                 and t["dtype"] == "bfloat16" and t["primary"])
         by_path = {path: c[name] for path, c in main_counts.items()}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
                         "max_abs_err": errors[name], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "shape": t["shape"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"], "shape": t["shape"],
                         "dtype": "bfloat16"})
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched by a main path: "

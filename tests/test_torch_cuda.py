@@ -2,7 +2,8 @@
 
 These tests need an NVIDIA Hopper GPU and ``nvcc``; without a card they
 skip. They cover what ``chip_smoke.py`` does not: ragged M, N and K, widths
-other than B/16's, and the launch counts of a small forward. The file
+other than B/16's, and the launch counts of a small forward, float and
+int8. The file
 imports no JAX, so on a machine without it run it alone:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_cuda.py
@@ -348,3 +349,193 @@ def test_torch_cuda_stack_wrappers_check_inputs(gen):
     with pytest.raises(ValueError, match="contiguous"):
         ops.embed_fused(patches, wemb.t().contiguous().t(), lnf["bias"],
                         lnf["bias"], base[1:17], 32, impl="cuda")
+
+
+# ------------------------------------------------------------------ int8 --
+#
+# K11 and K10 without LN agree with their plain versions bit for bit (exact
+# int32 sums, the same epilogue order); K10 with LN flips at most 0.1% of
+# codes, by one, where the two LN sum orders differ; K12 and K9 on int8
+# weights meet the bf16 bars in both dtypes (a flipped code moves a value by
+# one quantization step, more than the fp32 bar).
+
+
+def _quant_weight(gen, *shape, std=0.05):
+    from vit_tpu_torch.quant import quantize_weight
+    return quantize_weight(_rnd(gen, torch.float32, *shape, std=std))
+
+
+def _close_bf16_bars(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    diff = (g - w).abs()
+    assert (diff <= 2e-2 * (1 + w.abs())).all(), diff.max()
+    assert diff.mean() <= 3e-3, diff.mean()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", [(5, 100), (37, 768), (3, 1280)])
+@pytest.mark.parametrize("ln", [False, True])
+def test_torch_cuda_quantize_rows(gen, dtype, rows, d, ln):
+    from vit_tpu_torch import ops
+
+    x = _rnd(gen, dtype, rows, d, std=2.0, mean=0.5)
+    x[0] = 0  # a zero row: scale 1e-12 / 127, codes 0
+    kw = {}
+    if ln:
+        kw = dict(ln_scale=_rnd(gen, dtype, d, std=0.1, mean=1.0),
+                  ln_bias=_rnd(gen, dtype, d, std=0.05))
+    (q, a), (qw, aw) = (ops.quantize_rows(x, impl=impl, **kw)
+                        for impl in ("cuda", "torch"))
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and a.shape == (rows, 1)
+    if not ln:
+        assert torch.equal(q, qw) and torch.equal(a, aw)
+        return
+    assert ((a - aw).abs() <= 1e-5 * aw).all()
+    flips = (q.int() - qw.int()).abs()
+    assert flips.max() <= 1 and flips.float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(37, 588, 100), (1, 768, 2304),
+                                   (130, 24, 9), (64, 5120, 1280)])
+def test_torch_cuda_matmul_i8_bit_exact(gen, dtype, m, k, n):
+    """Ragged M, N and K; fc2's K=5120 sums exceed fp32's 2^24."""
+    from vit_tpu_torch import ops
+
+    xq, ax = ops.quantize_rows(_rnd(gen, dtype, m, k), impl="torch")
+    w = _quant_weight(gen, k, n)
+    b = _rnd(gen, dtype, n, std=0.1)
+    r = _rnd(gen, dtype, m, n)
+    for bias, act, res in ((None, None, None), (b, None, None),
+                           (b, None, r), (b, "gelu", None)):
+        args = (xq, ax, w["q"], w["scale"], bias, act)
+        kw = dict(residual=res, out_dtype=dtype)
+        got = ops.matmul_i8(*args, impl="cuda", **kw)
+        want = ops.matmul_i8(*args, impl="torch", **kw)
+        if act is None:
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        else:
+            _close(got, want)
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("b,heads,s,seq_len", [(2, 3, 208, 197),
+                                               (1, 2, 592, 577)])
+def test_torch_cuda_flash_attention_fp32_output(gen, hd, b, heads, s,
+                                                seq_len):
+    """bf16 q, k, v from a packed buffer, an fp32 context."""
+    from vit_tpu_torch import ops
+
+    qkv = _rnd(gen, torch.bfloat16, b * s, 3 * heads * hd)
+    q, k, v = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    kw = dict(scale=hd ** -0.5, seq_len=seq_len, out_dtype=torch.float32)
+    got = ops.flash_attention(q, k, v, impl="cuda", **kw)
+    assert got.dtype == torch.float32 and got.transpose(1, 2).is_contiguous()
+    _close_bf16_bars(got, ops.flash_attention(q, k, v, impl="torch", **kw))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d,mlp", [(33, 128, 512), (70, 768, 1024),
+                                     (17, 1280, 512), (5, 1024, 1536)])
+def test_torch_cuda_mlp_block_i8dot(gen, dtype, m, d, mlp):
+    from vit_tpu_torch import ops
+
+    w1, w2 = _quant_weight(gen, d, mlp), _quant_weight(gen, mlp, d)
+    args = (_rnd(gen, dtype, m, d), _rnd(gen, dtype, d, std=0.1, mean=1.0),
+            _rnd(gen, dtype, d, std=0.05), w1["q"], w1["scale"],
+            _rnd(gen, dtype, mlp, std=0.02), w2["q"], w2["scale"],
+            _rnd(gen, dtype, d, std=0.02))
+    _close_bf16_bars(ops.mlp_block_i8dot(*args, impl="cuda"),
+                     ops.mlp_block_i8dot(*args, impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_torch_cuda_attn_block_q(gen, dtype):
+    """The five launches against the plain version, 17 of 32 tokens."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    b, s, d, heads = 3, 32, 128, 2
+    wqkv, wout = _quant_weight(gen, d, 3 * d), _quant_weight(gen, d, d)
+    args = (_rnd(gen, dtype, b, s, d), _rnd(gen, dtype, d, std=0.1, mean=1.0),
+            _rnd(gen, dtype, d, std=0.05), wqkv["q"], wqkv["scale"],
+            _rnd(gen, dtype, 3 * d, std=0.02), wout["q"], wout["scale"],
+            _rnd(gen, dtype, d, std=0.02))
+    reset_launch_counts()
+    got = ops.attn_block_q(*args, num_heads=heads, seq_len=17)
+    assert launch_counts() == _counts(quantize_rows=2, matmul_i8=2,
+                                      flash_attention=1)
+    want = ops.attn_block_q(*args, num_heads=heads, seq_len=17, impl="torch")
+    _close_bf16_bars(got[:, :17], want[:, :17])
+
+
+def _quantized(enc):
+    from vit_tpu_torch.quant import quantize_params
+    return quantize_params({"encoder": enc})["encoder"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 2, 3])
+def test_torch_cuda_encoder_stack_q(gen, dtype, b):
+    """K9 on int8 weights against its plain version: fp32 to 1e-4 (weight
+    only, so only the sum order differs), bf16 to the model bar; two calls
+    agree bit for bit and the input is not written."""
+    from vit_tpu_torch import ops
+
+    enc, x = _stack_inputs(gen, dtype, b)[:2]
+    qenc = _quantized(enc)
+    kw = dict(num_heads=2, scale=64 ** -0.5, seq_len=17)
+    x0 = x.clone()
+    got = ops.encoder_stack_q(x, qenc, impl="cuda", **kw)
+    _close_model(got, ops.encoder_stack_q(x, qenc, impl="torch", **kw))
+    assert torch.equal(got, ops.encoder_stack_q(x, qenc, impl="cuda", **kw))
+    assert torch.equal(x, x0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", ["stack", "layers"])
+def test_torch_cuda_forward_quant_counts_and_matches_plain(gen, dtype, route,
+                                                           monkeypatch):
+    from vit_tpu_torch import ops, quant
+    from vit_tpu_torch.config import ViTConfig
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    monkeypatch.setattr(ops, "stack_q_plan", lambda *a: route == "stack")
+    cfg = ViTConfig(image_size=32, patch_size=8, hidden_dim=128, num_heads=2,
+                    num_layers=2, mlp_dim=512, num_classes=10, dtype=dtype)
+    qp = quant.quantize_params(vit.init_params(cfg, generator=gen))
+    px = torch.randn((3, 3, 32, 32), generator=gen, device="cuda")
+    reset_launch_counts()
+    got = quant.forward_quant(qp, px, cfg)
+    torch.cuda.synchronize()
+    assert launch_counts() == (
+        _counts(embed_fused=1, encoder_stack_q=1, layernorm=1, matmul=1)
+        if route == "stack" else
+        _counts(embed_fused=1, quantize_rows=4, matmul_i8=4,
+                flash_attention=2, mlp_block_i8dot=2, layernorm=1, matmul=1))
+    _close_bf16_bars(got, quant.forward_quant(qp, px, cfg, impl="torch"))
+
+
+def test_torch_cuda_int8_wrappers_check_inputs(gen):
+    from vit_tpu_torch import ops
+
+    x = _rnd(gen, torch.float32, 4, 128)
+    xq, ax = ops.quantize_rows(x)
+    w = _quant_weight(gen, 128, 512)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.matmul_i8(xq, ax, w["q"].float(), w["scale"], out_dtype=x.dtype)
+    with pytest.raises(ValueError, match="shape"):
+        ops.matmul_i8(xq, ax[:2], w["q"], w["scale"], out_dtype=x.dtype)
+    v = _rnd(gen, torch.float32, 128)
+    with pytest.raises(ValueError, match="quant group"):
+        w2 = _quant_weight(gen, 256, 128)
+        ops.mlp_block_i8dot(x, v, v, _quant_weight(gen, 128, 256)["q"],
+                            _rnd(gen, torch.float32, 256), _rnd(
+                                gen, torch.float32, 256), w2["q"],
+                            w2["scale"], v)

@@ -42,7 +42,8 @@ def _models(dtype="float32", **kw):
     jparams = jax.tree.map(
         lambda a: a + jnp.asarray(0.05 * rng.standard_normal(a.shape), a.dtype),
         jparams)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg,
+                                device="cpu")
     return jcfg, jparams, tcfg, tparams
 
 
@@ -133,7 +134,8 @@ def test_torch_golden_b16():
     fx = np.load(FIXTURE)
     cfg = ViTConfig()
     params = params_from_state_dict(
-        synthetic_hf_state_dict(cfg, seed=int(fx["weights_seed"])), cfg)
+        synthetic_hf_state_dict(cfg, seed=int(fx["weights_seed"])), cfg,
+        device="cpu")
     px = torch.from_numpy(golden_pixels(cfg, seed=int(fx["pixels_seed"])))
     with torch.inference_mode():
         final, hiddens = vit.forward_with_intermediates(params, px, cfg)
@@ -162,8 +164,10 @@ def test_torch_init_params_layout_and_seed():
     tcfg = ViTConfig(**TINY, num_classes=10, dtype=torch.bfloat16)
     jshapes = jax.tree.map(lambda a: a.shape, jax_vit.init_params(
         jax.random.key(0), jcfg))
-    a = vit.init_params(tcfg, generator=torch.Generator().manual_seed(3))
-    b = vit.init_params(tcfg, generator=torch.Generator().manual_seed(3))
+    a = vit.init_params(tcfg, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
+    b = vit.init_params(tcfg, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
 
     def walk(t, j, u):
         assert sorted(t) == sorted(j)

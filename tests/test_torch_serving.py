@@ -20,9 +20,10 @@ TINY = dict(image_size=32, patch_size=8, hidden_dim=128, num_heads=2,
 def predictors():
     jcfg, tcfg = JaxConfig(**TINY), ViTConfig(**TINY)
     jparams = jax_vit.init_params(jax.random.key(0), jcfg)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg,
+                                device="cpu")
     return (JaxPredictor(jparams, jcfg, buckets=(1, 2, 4)),
-            Predictor(tparams, tcfg, buckets=(1, 2, 4)))
+            Predictor(tparams, tcfg, buckets=(1, 2, 4), device="cpu"))
 
 
 @pytest.mark.parametrize("n", [1, 3, 7])
@@ -40,7 +41,7 @@ def test_torch_predictor_matches_jax(predictors, n):
 def test_torch_plan_decomposition_matches_jax(predictors, buckets):
     jpred, pred = predictors
     jp = JaxPredictor(jpred.params, jpred.cfg, buckets=buckets)
-    p = Predictor(pred.params, pred.cfg, buckets=buckets)
+    p = Predictor(pred.params, pred.cfg, buckets=buckets, device="cpu")
     assert p.buckets == jp.buckets
     for n in range(1, 40):
         assert p._plan(n) == jp._plan(n), n
@@ -49,7 +50,7 @@ def test_torch_plan_decomposition_matches_jax(predictors, buckets):
 def test_torch_padding_images_do_not_leak(predictors):
     """A tail padded up to a bucket gives the rows it would alone."""
     _, pred = predictors
-    p = Predictor(pred.params, pred.cfg, buckets=(4,))
+    p = Predictor(pred.params, pred.cfg, buckets=(4,), device="cpu")
     px = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (5, 3, 32, 32)).astype(np.float32))
     assert p._plan(5) == [4, 4]
@@ -62,6 +63,6 @@ def test_torch_padding_images_do_not_leak(predictors):
 def test_torch_predictor_rejects_bad_input(predictors):
     _, pred = predictors
     with pytest.raises(ValueError, match="positive"):
-        Predictor(pred.params, pred.cfg, buckets=(0, 2))
+        Predictor(pred.params, pred.cfg, buckets=(0, 2), device="cpu")
     with pytest.raises(ValueError, match="empty"):
         pred(np.zeros((0, 3, 32, 32), np.float32))

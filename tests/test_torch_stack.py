@@ -52,7 +52,7 @@ def _models(dtype, **kw):
         lambda a: a + jnp.asarray(0.05 * rng.standard_normal(a.shape), a.dtype),
         jparams)
     return jcfg, jparams, tcfg, params_from_numpy(
-        jax.tree.map(np.asarray, jparams), tcfg)
+        jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
 
 
 def _pair(a: np.ndarray, dtype: str):

@@ -59,8 +59,8 @@ def test_torch_params_from_state_dict_equals_converted_jax(dtype, num_classes):
                      dtype=getattr(torch, dtype))
     want = convert.params_from_numpy(
         jax.tree.map(np.asarray, jax_hf.params_from_state_dict(sd, jcfg)),
-        tcfg)
-    got = hf.params_from_state_dict(sd, tcfg)
+        tcfg, device="cpu")
+    got = hf.params_from_state_dict(sd, tcfg, device="cpu")
     got_leaves, want_leaves = dict(_leaves(got)), dict(_leaves(want))
     assert sorted(got_leaves) == sorted(want_leaves)  # JAX sorts dict keys
     for name, w in want_leaves.items():
@@ -79,9 +79,10 @@ def test_torch_state_dict_from_torch_tensors_and_prefix():
     import like numpy arrays without it."""
     sd = _state_dict()
     cfg = ViTConfig(**TINY)
-    want = hf.params_from_state_dict(sd, cfg)
+    want = hf.params_from_state_dict(sd, cfg, device="cpu")
     got = hf.params_from_state_dict(
-        {f"vit.{k}": torch.from_numpy(v) for k, v in sd.items()}, cfg)
+        {f"vit.{k}": torch.from_numpy(v) for k, v in sd.items()}, cfg,
+        device="cpu")
     for (name, g), (_, w) in zip(_leaves(got), _leaves(want)):
         assert torch.equal(g, w), name
 
@@ -90,7 +91,7 @@ def test_torch_missing_tensor_raises():
     sd = _state_dict()
     del sd["encoder.layer.1.output.dense.bias"]
     with pytest.raises(KeyError, match="missing expected tensor"):
-        hf.params_from_state_dict(sd, ViTConfig(**TINY))
+        hf.params_from_state_dict(sd, ViTConfig(**TINY), device="cpu")
     with pytest.raises(KeyError, match="missing expected tensor"):
         jax_hf.params_from_state_dict(sd, JaxConfig(**TINY))
 
@@ -101,7 +102,7 @@ def test_torch_extra_tensor_raises():
         (4,), np.float32)
     sd["pooler.dense.weight"] = np.ones((4,), np.float32)  # knowingly skipped
     with pytest.raises(KeyError, match="rope") as err:
-        hf.params_from_state_dict(sd, ViTConfig(**TINY))
+        hf.params_from_state_dict(sd, ViTConfig(**TINY), device="cpu")
     assert "pooler" not in str(err.value)
     with pytest.raises(KeyError, match="rope"):
         jax_hf.params_from_state_dict(sd, JaxConfig(**TINY))
@@ -112,13 +113,13 @@ def test_torch_all_zero_layer_raises():
     sd["encoder.layer.1.intermediate.dense.weight"] = np.zeros_like(
         sd["encoder.layer.1.intermediate.dense.weight"])
     with pytest.raises(ValueError, match=r"fc1.kernel layer 1 is all zeros"):
-        hf.params_from_state_dict(sd, ViTConfig(**TINY))
+        hf.params_from_state_dict(sd, ViTConfig(**TINY), device="cpu")
     with pytest.raises(ValueError, match="layer 1 is all zeros"):
         jax_hf.params_from_state_dict(sd, JaxConfig(**TINY))
     # Zero biases are legitimate (fresh models zero them).
     sd = _state_dict()
     sd["encoder.layer.1.intermediate.dense.bias"][:] = 0
-    hf.params_from_state_dict(sd, ViTConfig(**TINY))
+    hf.params_from_state_dict(sd, ViTConfig(**TINY), device="cpu")
 
 
 def test_torch_params_from_numpy_keeps_bfloat16_bits():
@@ -128,6 +129,7 @@ def test_torch_params_from_numpy_keeps_bfloat16_bits():
     a = np.random.default_rng(0).standard_normal((5, 7)).astype(
         ml_dtypes.bfloat16)
     cfg = ViTConfig(**TINY, dtype=torch.bfloat16)
-    got = convert.params_from_numpy({"w": {"kernel": a}}, cfg)["w"]["kernel"]
+    got = convert.params_from_numpy({"w": {"kernel": a}}, cfg,
+                                    device="cpu")["w"]["kernel"]
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), a.astype(np.float32))

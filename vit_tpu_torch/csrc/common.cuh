@@ -28,6 +28,9 @@ using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(signed char v) {
+  return static_cast<float>(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -36,6 +39,10 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ signed char from_f32<signed char>(float v) {
+  return static_cast<signed char>(__float2int_rn(v));
 }
 
 // Exact erf-form GELU: 0.5 * x * (1 + erf(x / sqrt(2))).
@@ -87,6 +94,56 @@ __device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
     const float c = (to_f32(x[i]) - st.x) * st.y;
     out[i] = from_f32<O>(c * to_f32(g[i]) + to_f32(b[i]));
   }
+}
+
+// ---------------------------------------------------------------- int8 --
+// The int8 tier's rounding, written so that a kernel agrees with its plain
+// PyTorch version bit for bit where their fp32 inputs do: round half to
+// even (rintf; CUDA's roundf rounds half away from zero, jnp.round does
+// not), a true division (multiplying by 127 / max flips codes), and every
+// dequantization as __fmul_rn / __fadd_rn in JAX's order, which nvcc may
+// not contract into an FMA.
+
+// The scale of a row whose largest magnitude is amax: max(amax, 1e-12) /
+// 127 (vit_tpu/ops/pallas/block.py:533-534).
+__device__ __forceinline__ float quant_scale(float amax) {
+  return __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
+}
+
+// round(v / a), saturated at +-127 (a guard that never binds).
+__device__ __forceinline__ signed char quant_code(float v, float a) {
+  const float r = fminf(fmaxf(rintf(__fdiv_rn(v, a)), -127.f), 127.f);
+  return static_cast<signed char>(__float2int_rn(r));
+}
+
+// (acc * a) * s, the dequantization of an int32 sum.
+__device__ __forceinline__ float dequant(int acc, float a, float s) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), a), s);
+}
+
+// One row of d values quantized by one warp, optionally after an fp32 LN
+// that is not rounded to the tensor's type (vit_tpu/ops/pallas/block.py:
+// _ln32): the absmax over the row, the scale, then store(i, code) for each
+// element. The row is read again for each pass rather than held, so any d
+// is legal. Every lane returns the scale. Without LN, g and b are null.
+template <typename T, typename G, typename Store>
+__device__ __forceinline__ float quantize_row(const T* __restrict__ x,
+                                              const G* g, const G* b, int d,
+                                              float eps, int lane,
+                                              const Store& store) {
+  float2 st = make_float2(0.f, 1.f);
+  if (g) st = row_stats(x, d, eps, lane);
+  auto value = [&](int i) {
+    const float v = to_f32(x[i]);
+    if (!g) return v;
+    const float c = __fmul_rn(__fsub_rn(v, st.x), st.y);
+    return __fadd_rn(__fmul_rn(c, to_f32(g[i])), to_f32(b[i]));
+  };
+  float m = 0.f;
+  for (int i = lane; i < d; i += 32) m = fmaxf(m, fabsf(value(i)));
+  const float a = quant_scale(warp_max(m));
+  for (int i = lane; i < d; i += 32) store(i, quant_code(value(i), a));
+  return a;
 }
 
 // Make `device` current for this library's runtime; its launches then go to

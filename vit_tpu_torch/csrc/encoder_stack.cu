@@ -34,6 +34,22 @@
 // phase normalises with the final LN and casts once, rounding point (b)
 // (block.py:1996-1997).
 //
+// With int8 weights the same kernel replaces vit_tpu/ops/pallas/block.py:
+// encoder_stack_q (_encoder_stack_q_kernel, block.py:2400-2508), the int8
+// tier's small-batch route: weight-only quantization, so activations stay
+// in the tensor's type and every weight tile arrives as int8 and is
+// converted, exactly, as it is staged into shared memory (gemm_tile.cuh);
+// each phase's epilogue applies the per-column fp32 scale before the bias,
+// (acc * s) + b, in JAX's order (block.py:2445, 2483, 2497, 2502). fc2's
+// sum is scaled once over the whole K, where JAX scales each mt chunk: the
+// fp32 sum order differs, nothing else. There is no FOLD form: the TPU
+// has none for int8. Its bound at B/16 bs=1 is the int8 weight stream,
+// 12 x 7.08 MB = 84.9 MB, about 25 us at 3.35 TB/s, half of the float
+// kernel's (its bf16 products on the tensor cores take 37 us at peak).
+// This first version is far from it: 5.47 ms in bf16 at B/16 bs=1 on an
+// NVIDIA H100 80GB HBM3 at 700 W, as slow as the float kernel (5.32 ms),
+// since the unpipelined tile loop, not the weight stream, sets the time.
+//
 // fp32 multiplies in true fp32 (FFMA, no TF32), as K2. Every sum is taken
 // in a fixed order -- no split-K, no atomics -- so two calls agree bit for
 // bit. The kernel reads its inputs and writes only the scratch and output
@@ -63,7 +79,7 @@ static_assert(kAttnThreads == kMmThreads, "one block size for all phases");
 
 constexpr size_t kStackMaxSmem = 232448;  // 227 KB a block on Hopper
 
-template <typename T>
+template <typename T, typename W = T>
 struct StackArgs {
   T* x;          // (m, D) working activation: the output without FOLD
   T* qkv;        // (m, 3D) packed [q|k|v]
@@ -71,14 +87,30 @@ struct StackArgs {
   T* hid;        // (m, mlp) GELU hidden
   float* acc;    // (m, D) the last layer's fp32 MLP sum (FOLD)
   T* out;        // (m, D) the final LN's output (FOLD)
-  // The encoder's weights, stacked along a leading num_layers axis.
-  const T *ln1_g, *ln1_b, *wqkv, *bqkv, *wout, *bout;
-  const T *ln2_g, *ln2_b, *w1, *b1, *w2, *b2;
+  // The encoder's weights, stacked along a leading num_layers axis; the
+  // projections in W (the tensor's type, or int8).
+  const T *ln1_g, *ln1_b;
+  const W* wqkv;
+  const T* bqkv;
+  const W* wout;
+  const T *bout, *ln2_g, *ln2_b;
+  const W* w1;
+  const T* b1;
+  const W* w2;
+  const T* b2;
   // FOLD: patches (b*n_tok, pd), wemb (pd, D), base (sp, D), final LN.
   const T *patches, *wemb, *base, *lnf_g, *lnf_b;
   int b, sp, d, mlp, heads, layers, seq_len, n_tok, pd;
   float scale, eps;
+  // int8 weights: the per-column fp32 scales, stacked; null for float.
+  const float *sqkv, *sout, *s1, *s2;
 };
+
+// (acc * ws[col]) + bias with int8 weights, acc + bias without.
+__device__ __forceinline__ float scaled_bias(float acc, const float* ws,
+                                             int col, float bias) {
+  return ws ? __fadd_rn(__fmul_rn(acc, ws[col]), bias) : acc + bias;
+}
 
 // round(act(acc + bias)) into out (ld n): the QKV and fc1 phases.
 template <typename T>
@@ -87,9 +119,10 @@ struct BiasAct {
   T* out;
   int n;
   bool gelu_act;
+  const float* ws;  // int8 weights' column scales, or null
 
   __device__ __forceinline__ void store(int row, int col, float acc) const {
-    float v = acc + to_f32(bias[col]);
+    float v = scaled_bias(acc, ws, col, to_f32(bias[col]));
     if (gelu_act) v = gelu(v);
     out[static_cast<size_t>(row) * n + col] = from_f32<T>(v);
   }
@@ -102,10 +135,12 @@ struct AddResidual {
   const T* bias;
   T* x;
   int n;
+  const float* ws;
 
   __device__ __forceinline__ void store(int row, int col, float acc) const {
     const size_t idx = static_cast<size_t>(row) * n + col;
-    x[idx] = from_f32<T>(acc + to_f32(bias[col]) + to_f32(x[idx]));
+    x[idx] = from_f32<T>(scaled_bias(acc, ws, col, to_f32(bias[col])) +
+                         to_f32(x[idx]));
   }
 };
 
@@ -117,10 +152,12 @@ struct SeededResidual {
   T* x;
   float* acc32;
   int n;
+  const float* ws;
 
   __device__ __forceinline__ void store(int row, int col, float acc) const {
     const size_t idx = static_cast<size_t>(row) * n + col;
-    const float v = (to_f32(x[idx]) + to_f32(bias[col])) + acc;
+    const float y = ws ? __fmul_rn(acc, ws[col]) : acc;
+    const float v = (to_f32(x[idx]) + to_f32(bias[col])) + y;
     if (acc32)
       acc32[idx] = v;
     else
@@ -156,8 +193,8 @@ inline size_t stack_smem(int sp, int dh) {
 // One GEMM phase: every (BM x BN) tile of x (m, k) @ w (k, n), strided over
 // the grid. With LN, a tile first computes its rows' LN stats into shared
 // memory, then normalises x with ln_g, ln_b while staging it.
-template <bool LN, typename T, typename Ep>
-__device__ __forceinline__ void gemm_phase(const T* x, const T* w, int m,
+template <bool LN, typename T, typename W, typename Ep>
+__device__ __forceinline__ void gemm_phase(const T* x, const W* w, int m,
                                            int n, int k, const T* ln_g,
                                            const T* ln_b, float eps,
                                            const Ep& ep,
@@ -166,7 +203,7 @@ __device__ __forceinline__ void gemm_phase(const T* x, const T* w, int m,
   float* mu = reinterpret_cast<float*>(smem + sizeof(typename Gemm<T>::Smem));
   float* rstd = mu + Gemm<T>::BM;
   const bool vec_x = aligned16(x) && k % 8 == 0;
-  const bool vec_w = aligned16(w) && n % 8 == 0;
+  const bool vec_w = vec_ok<T, W>(w, n);
   const int tn = (n + Gemm<T>::BN - 1) / Gemm<T>::BN;
   const int tiles = (m + Gemm<T>::BM - 1) / Gemm<T>::BM * tn;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -190,9 +227,15 @@ __device__ __forceinline__ void gemm_phase(const T* x, const T* w, int m,
   }
 }
 
-template <typename T, bool FOLD>
+// A layer's slice of a stacked scale vector, or null for float weights.
+__device__ __forceinline__ const float* layer_scales(const float* s,
+                                                     size_t off) {
+  return s ? s + off : nullptr;
+}
+
+template <typename T, typename W, bool FOLD>
 __global__ void __launch_bounds__(kMmThreads, 1)
-    encoder_stack_kernel(StackArgs<T> a) {
+    encoder_stack_kernel(StackArgs<T, W> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const int D = a.d, m = a.b * a.sp, dh = D / a.heads;
@@ -225,7 +268,9 @@ __global__ void __launch_bounds__(kMmThreads, 1)
     // 1. LN1 + QKV.
     gemm_phase<true>(a.x, a.wqkv + lv * 3 * D, m, 3 * D, D, a.ln1_g + lv,
                      a.ln1_b + lv, a.eps,
-                     BiasAct<T>{a.bqkv + lv * 3, a.qkv, 3 * D, false}, smem);
+                     BiasAct<T>{a.bqkv + lv * 3, a.qkv, 3 * D, false,
+                                layer_scales(a.sqkv, lv * 3)},
+                     smem);
     grid.sync();
     // 2. Attention.
     for (int t = blockIdx.x; t < a.b * a.heads * q_tiles; t += gridDim.x) {
@@ -239,13 +284,17 @@ __global__ void __launch_bounds__(kMmThreads, 1)
     gemm_phase<false>(a.ctx, a.wout + lv * D, m, D, D,
                       static_cast<const T*>(nullptr),
                       static_cast<const T*>(nullptr), a.eps,
-                      AddResidual<T>{a.bout + lv, a.x, D}, smem);
+                      AddResidual<T>{a.bout + lv, a.x, D,
+                                     layer_scales(a.sout, lv)},
+                      smem);
     grid.sync();
     // 4. LN2 + fc1 + GELU.
     const size_t lm = static_cast<size_t>(l) * a.mlp;
     gemm_phase<true>(a.x, a.w1 + lm * D, m, a.mlp, D, a.ln2_g + lv,
                      a.ln2_b + lv, a.eps,
-                     BiasAct<T>{a.b1 + lm, a.hid, a.mlp, true}, smem);
+                     BiasAct<T>{a.b1 + lm, a.hid, a.mlp, true,
+                                layer_scales(a.s1, lm)},
+                     smem);
     grid.sync();
     // 5. fc2, seeded with x + b2.
     const bool last = FOLD && l == a.layers - 1;
@@ -253,7 +302,8 @@ __global__ void __launch_bounds__(kMmThreads, 1)
                       static_cast<const T*>(nullptr),
                       static_cast<const T*>(nullptr), a.eps,
                       SeededResidual<T>{a.b2 + lv, a.x,
-                                        last ? a.acc : nullptr, D},
+                                        last ? a.acc : nullptr, D,
+                                        layer_scales(a.s2, lv)},
                       smem);
     grid.sync();
   }
@@ -268,9 +318,9 @@ __global__ void __launch_bounds__(kMmThreads, 1)
   }
 }
 
-template <typename T, bool FOLD>
-cudaError_t launch_stack(StackArgs<T> a, int device, cudaStream_t st) {
-  auto kernel = encoder_stack_kernel<T, FOLD>;
+template <typename T, typename W, bool FOLD>
+cudaError_t launch_stack(StackArgs<T, W> a, int device, cudaStream_t st) {
+  auto kernel = encoder_stack_kernel<T, W, FOLD>;
   const size_t smem = stack_smem<T>(a.sp, a.d / a.heads);
   if (smem > kStackMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -311,8 +361,32 @@ cudaError_t launch_stack_typed(void* x, void* qkv, void* ctx, void* hid,
                  c(patches), c(wemb), c(base), c(lnf_g), c(lnf_b),
                  b, sp, d, mlp, heads, layers, seq_len, n_tok, pd,
                  scale, eps};
-  return fold ? launch_stack<T, true>(a, device, st)
-              : launch_stack<T, false>(a, device, st);
+  return fold ? launch_stack<T, T, true>(a, device, st)
+              : launch_stack<T, T, false>(a, device, st);
+}
+
+// K9 on int8 weights: w holds the twelve stacked tensors as in
+// launch_stack_typed (the four projections int8), sc the four stacked
+// fp32 column scales (qkv, out, fc1, fc2).
+template <typename T>
+cudaError_t launch_stack_q(void* x, void* qkv, void* ctx, void* hid,
+                           const void* const* w, const void* const* sc, int b,
+                           int sp, int d, int mlp, int heads, int layers,
+                           int seq_len, float scale, float eps, int device,
+                           cudaStream_t st) {
+  using W = signed char;
+  auto c = [](const void* p) { return static_cast<const T*>(p); };
+  auto q = [](const void* p) { return static_cast<const W*>(p); };
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  StackArgs<T, W> a{static_cast<T*>(x), static_cast<T*>(qkv),
+                    static_cast<T*>(ctx), static_cast<T*>(hid), nullptr,
+                    nullptr,
+                    c(w[0]), c(w[1]), q(w[2]), c(w[3]), q(w[4]), c(w[5]),
+                    c(w[6]), c(w[7]), q(w[8]), c(w[9]), q(w[10]), c(w[11]),
+                    nullptr, nullptr, nullptr, nullptr, nullptr,
+                    b, sp, d, mlp, heads, layers, seq_len, 0, 0, scale, eps,
+                    f(sc[0]), f(sc[1]), f(sc[2]), f(sc[3])};
+  return launch_stack<T, W, false>(a, device, st);
 }
 
 }  // namespace vit
@@ -355,5 +429,39 @@ extern "C" int vit_encoder_stack(
                                     wemb, base, lnf_g, lnf_b, b, sp, d, mlp,
                                     heads, layers, seq_len, n_tok, pd, scale,
                                     eps, fold, device, st);
+  return cudaErrorInvalidValue;
+}
+
+// K9 on int8 weights (encoder_stack_q): x (b*sp, d) the working activation,
+// holding the input and, after the launch, the output; qkv, ctx and hid
+// scratch as for vit_encoder_stack; the twelve stacked tensors in
+// vit_encoder_stack's order with the qkv, out, fc1 and fc2 kernels int8;
+// then their fp32 column scales (L, 3d), (L, d), (L, mlp), (L, d).
+extern "C" int vit_encoder_stack_q(
+    void* x, void* qkv, void* ctx, void* hid, const void* ln1_g,
+    const void* ln1_b, const void* wqkv, const void* bqkv, const void* wout,
+    const void* bout, const void* ln2_g, const void* ln2_b, const void* w1,
+    const void* b1, const void* w2, const void* b2, const void* sqkv,
+    const void* sout, const void* s1, const void* s2, int b, int sp, int d,
+    int mlp, int heads, int layers, int seq_len, float scale, float eps,
+    int dtype, int device, void* stream) {
+  using namespace vit;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  if (b <= 0 || sp <= 0 || d <= 0 || mlp <= 0 || heads <= 0 || d % heads ||
+      layers <= 0 || seq_len <= 0 || seq_len > sp || !sqkv || !sout || !s1 ||
+      !s2)
+    return cudaErrorInvalidValue;
+  const void* w[12] = {ln1_g, ln1_b, wqkv, bqkv, wout, bout,
+                       ln2_g, ln2_b, w1,   b1,   w2,   b2};
+  const void* sc[4] = {sqkv, sout, s1, s2};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_stack_q<float>(x, qkv, ctx, hid, w, sc, b, sp, d, mlp,
+                                 heads, layers, seq_len, scale, eps, device,
+                                 st);
+  if (dtype == kBF16)
+    return launch_stack_q<bf16>(x, qkv, ctx, hid, w, sc, b, sp, d, mlp, heads,
+                                layers, seq_len, scale, eps, device, st);
   return cudaErrorInvalidValue;
 }

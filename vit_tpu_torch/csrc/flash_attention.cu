@@ -41,6 +41,11 @@
 // pipelined (no cp.async, TMA or wgmma): the FA2-on-Hopper shape is later
 // work.
 //
+// The output is the input's type, or fp32 (out_f32): the int8 tier's
+// attention keeps its context in fp32 for the quantization that follows
+// (vit_tpu/ops/pallas/block.py:_attn_q_core, :1249-1250), the third of
+// attn_block_q's five launches on Hopper. Only the final store changes.
+//
 // head_dim: any multiple of 16 up to 128 (64 for L/16-384, 80 for H/14).
 // Above 48 KB the dynamic shared memory is enabled with
 // cudaFuncSetAttribute. Query rows past S (the last tile's pad) are computed
@@ -158,7 +163,7 @@ __device__ __forceinline__ void load_rows_bf16(bf16* __restrict__ dst,
   }
 }
 
-template <int HD>
+template <int HD, typename O>
 __global__ void __launch_bounds__(kFaThreadsBf16)
     flash_bf16_kernel(FaArgs a) {
   constexpr int LDH = fa_ldh<HD>(), NF = HD / 16;
@@ -258,8 +263,8 @@ __global__ void __launch_bounds__(kFaThreadsBf16)
     }
   }
 
-  // ctx = acc / l, one cast, stored through the output strides.
-  bf16* og = static_cast<bf16*>(a.out) + b * a.so.b + h * a.so.h;
+  // ctx = acc / l, one cast to O, stored through the output strides.
+  O* og = static_cast<O*>(a.out) + b * a.so.b + h * a.so.h;
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     wmma::store_matrix_sync(tile, acc[j], 16, wmma::mem_row_major);
@@ -267,7 +272,7 @@ __global__ void __launch_bounds__(kFaThreadsBf16)
     for (int e = lane; e < 256; e += 32) {
       const int r = e / 16, row = q0 + warp * 16 + r;
       if (row < a.s)
-        og[row * a.so.s + j * 16 + e % 16] = from_f32<bf16>(tile[e] / lw[r]);
+        og[row * a.so.s + j * 16 + e % 16] = from_f32<O>(tile[e] / lw[r]);
     }
     __syncwarp();
   }
@@ -409,12 +414,16 @@ cudaError_t launch_fa(K kernel, size_t smem, int threads, int bh,
 }
 
 template <int HD>
-cudaError_t launch_flash(const FaArgs& a, int bh, int dtype, cudaStream_t st) {
+cudaError_t launch_flash(const FaArgs& a, int bh, int dtype, bool out_f32,
+                         cudaStream_t st) {
   if (dtype == kF32)
     return launch_fa(flash_f32_kernel<HD>, fa_f32_smem<HD>(), kFaThreadsF32,
                      bh, a, st);
-  return launch_fa(flash_bf16_kernel<HD>, fa_bf16_smem<HD>(), kFaThreadsBf16,
-                   bh, a, st);
+  if (out_f32)
+    return launch_fa(flash_bf16_kernel<HD, float>, fa_bf16_smem<HD>(),
+                     kFaThreadsBf16, bh, a, st);
+  return launch_fa(flash_bf16_kernel<HD, bf16>, fa_bf16_smem<HD>(),
+                   kFaThreadsBf16, bh, a, st);
 }
 
 inline bool aligned16_ptr(const void* p) {
@@ -433,8 +442,8 @@ extern "C" int vit_flash_attention(
     long long sq_h, long long sq_s, long long sk_b, long long sk_h,
     long long sk_s, long long sv_b, long long sv_h, long long sv_s,
     long long so_b, long long so_h, long long so_s, int batch, int heads,
-    int s, int hd, int seq_len, float scale, int dtype, int device,
-    void* stream) {
+    int s, int hd, int seq_len, float scale, int out_f32, int dtype,
+    int device, void* stream) {
   using namespace vit;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
@@ -452,14 +461,14 @@ extern "C" int vit_flash_attention(
   auto st = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
   switch (hd / 16) {
-    case 1: return launch_flash<16>(a, bh, dtype, st);
-    case 2: return launch_flash<32>(a, bh, dtype, st);
-    case 3: return launch_flash<48>(a, bh, dtype, st);
-    case 4: return launch_flash<64>(a, bh, dtype, st);
-    case 5: return launch_flash<80>(a, bh, dtype, st);
-    case 6: return launch_flash<96>(a, bh, dtype, st);
-    case 7: return launch_flash<112>(a, bh, dtype, st);
-    case 8: return launch_flash<128>(a, bh, dtype, st);
+    case 1: return launch_flash<16>(a, bh, dtype, out_f32, st);
+    case 2: return launch_flash<32>(a, bh, dtype, out_f32, st);
+    case 3: return launch_flash<48>(a, bh, dtype, out_f32, st);
+    case 4: return launch_flash<64>(a, bh, dtype, out_f32, st);
+    case 5: return launch_flash<80>(a, bh, dtype, out_f32, st);
+    case 6: return launch_flash<96>(a, bh, dtype, out_f32, st);
+    case 7: return launch_flash<112>(a, bh, dtype, out_f32, st);
+    case 8: return launch_flash<128>(a, bh, dtype, out_f32, st);
     default: return cudaErrorInvalidValue;
   }
 }

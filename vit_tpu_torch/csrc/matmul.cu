@@ -23,6 +23,20 @@
 // (gemm_tile.cuh), so LN(x) never reaches device memory and costs no extra
 // pass over it. Without LN, the fused_linear wrapper launches K2, which has
 // the same residual epilogue.
+//
+// K11, matmul_i8: xq (M, K) int8 @ wq (K, N) int8 with exact int32 sums,
+// then in fp32 (acc * ax[row]) * wscale[col], + bias, GELU, + residual, one
+// cast to bf16 or fp32. It is the int8 projection of the int8 tier: the
+// second and fifth launches of attn_block_q on Hopper (the QKV and
+// out-projection dots of vit_tpu/ops/pallas/block.py:_attn_q_core,
+// :1226-1231 and :1255-1258, with the + bout + x of _attn_q_kernel :1275-
+// 1276), and the product of vit_tpu/quant.py:int8_matmul. The same tile
+// loop as K2 (gemm_tile.cuh) on s8 wmma fragments, K staged 64 deep, one
+// block a 64x128 tile. Bound on the card: compute at B/16 bs=32's QKV
+// (2*6656*768*2304 = 23.6 GOP, 11.9 us at 1,979 TOP/s), device memory at
+// its out-projection (26 MB in all, 7.8 us at 3.35 TB/s). The epilogue
+// follows the plain version's order with __fmul_rn / __fadd_rn, so the two
+// agree bit for bit without GELU.
 
 #include "gemm_tile.cuh"
 
@@ -45,6 +59,38 @@ struct Epilogue {
   }
 };
 
+// K11's epilogue: bias, residual and out in O (bf16 or fp32); ax (M,) and
+// wscale (N,) fp32.
+template <typename O>
+struct I8Epilogue {
+  const float* ax;
+  const float* wscale;
+  const O* bias;      // (N,) or null
+  const O* residual;  // (M, N) or null
+  O* out;             // (M, N)
+  int m, n, gelu_act;
+
+  __device__ __forceinline__ void store(int row, int col, int acc) const {
+    float v = dequant(acc, ax[row], wscale[col]);
+    if (bias) v = __fadd_rn(v, to_f32(bias[col]));
+    if (gelu_act) v = gelu(v);
+    const size_t idx = static_cast<size_t>(row) * n + col;
+    if (residual) v = __fadd_rn(v, to_f32(residual[idx]));
+    out[idx] = from_f32<O>(v);
+  }
+};
+
+template <typename O>
+__global__ void __launch_bounds__(kMmThreads)
+    matmul_i8_kernel(const signed char* __restrict__ xq,
+                     const signed char* __restrict__ wq, I8Epilogue<O> ep,
+                     int k, bool vec_x, bool vec_w) {
+  __shared__ GemmSmemI8 sm;
+  gemm_tile<false>(xq, wq, ep.m, ep.n, k, blockIdx.y * kBM,
+                   blockIdx.x * kBN, vec_x, vec_w, LnPrologue<signed char>{},
+                   ep, sm);
+}
+
 template <bool LN>
 __global__ void __launch_bounds__(kMmThreads)
     matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
@@ -66,6 +112,21 @@ __global__ void __launch_bounds__(kMmThreads)
 }
 
 // K2 (LN false) or K6 (LN true) on the current stream.
+template <typename O>
+int launch_matmul_i8(const signed char* xq, const float* ax,
+                     const signed char* wq, const float* wscale,
+                     const void* bias, const void* residual, void* out, int m,
+                     int n, int k, int gelu_act, cudaStream_t st) {
+  I8Epilogue<O> ep{ax, wscale, static_cast<const O*>(bias),
+                   static_cast<const O*>(residual), static_cast<O*>(out), m,
+                   n, gelu_act};
+  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  matmul_i8_kernel<O><<<grid, kMmThreads, 0, st>>>(
+      xq, wq, ep, k, vec_ok<signed char, signed char>(xq, k),
+      vec_ok<signed char, signed char>(wq, n));
+  return cudaGetLastError();
+}
+
 template <bool LN>
 int launch_gemm(const void* x, const void* w, const void* bias,
                 const void* residual, const float* mu, const float* rstd,
@@ -125,4 +186,30 @@ extern "C" int vit_fused_linear(const void* x, const void* w,
                                 static_cast<const float*>(mu),
                                 static_cast<const float*>(rstd), gamma, beta,
                                 out, m, n, k, gelu_act, dtype, device, stream);
+}
+
+// K11: xq (m, k) int8, ax (m,) fp32, wq (k, n) int8, wscale (n,) fp32; bias
+// (n,), residual (m, n) and out (m, n) in the dtype (bias and residual may
+// be null).
+extern "C" int vit_matmul_i8(const void* xq, const void* ax, const void* wq,
+                             const void* wscale, const void* bias,
+                             const void* residual, void* out, int m, int n,
+                             int k, int gelu_act, int dtype, int device,
+                             void* stream) {
+  using namespace vit;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  if (m <= 0 || n <= 0 || k <= 0) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* x8 = static_cast<const signed char*>(xq);
+  auto* w8 = static_cast<const signed char*>(wq);
+  auto* a = static_cast<const float*>(ax);
+  auto* s = static_cast<const float*>(wscale);
+  if (dtype == kF32)
+    return launch_matmul_i8<float>(x8, a, w8, s, bias, residual, out, m, n,
+                                   k, gelu_act, st);
+  if (dtype == kBF16)
+    return launch_matmul_i8<bf16>(x8, a, w8, s, bias, residual, out, m, n, k,
+                                  gelu_act, st);
+  return cudaErrorInvalidValue;
 }

@@ -41,7 +41,7 @@ from vit_tpu_torch.weights.convert import Params, to_device
 
 
 def init_params(cfg: ViTConfig, *, generator: torch.Generator,
-                device: torch.device | str = "cpu") -> Params:
+                device: torch.device | str = "cuda") -> Params:
     """Random params (HF-style truncated normal, std 0.02, cut at 2 std),
     drawn in fp32 on ``generator``'s device, returned in ``cfg.dtype`` on
     ``device``. Encoder tensors are stacked along ``num_layers``."""

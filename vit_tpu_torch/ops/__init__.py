@@ -8,9 +8,10 @@ for a CUDA tensor and the plain PyTorch version for a CPU tensor.
 mega-kernel takes a geometry; the model routes each half of a layer by
 them (``vit_tpu_torch/models/vit.py:encoder_block``). :func:`stack_plan`,
 :func:`stack_fused_plan` and :func:`embed_fused_ok` pick the small-batch
-route (``vit_tpu_torch/models/vit.py:forward``). They read geometry and
-dtype only, never the device, so the plain versions on the CPU walk the
-same op sequence as the kernels on the card.
+route (``vit_tpu_torch/models/vit.py:forward``); :func:`stack_q_plan`
+the int8 tier's (``vit_tpu_torch/quant.py:forward_quant``). They read
+geometry and dtype only, never the device, so the plain versions on the
+CPU walk the same op sequence as the kernels on the card.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ __all__ = [
     "layernorm", "layernorm_stats", "matmul", "fused_linear", "patchify",
     "patch_embed", "flash_attention", "attn_block", "mlp_block", "attn_plan",
     "mlp_plan", "embed_fused", "embed_fused_ok", "encoder_stack",
-    "encoder_stack_fused", "stack_plan", "stack_fused_plan", "resolve_impl",
-    "reference",
+    "encoder_stack_fused", "stack_plan", "stack_fused_plan", "quantize_rows",
+    "matmul_i8", "attn_block_q", "mlp_block_i8dot", "encoder_stack_q",
+    "stack_q_plan", "resolve_impl", "reference",
 ]
 
 
@@ -68,14 +70,17 @@ def fused_linear(x, w, bias=None, activation=None, *, ln_scale=None,
                            ln_bias=ln_bias, eps=eps, residual=residual)
 
 
-def flash_attention(q, k, v, *, scale=None, seq_len=None, impl=None):
+def flash_attention(q, k, v, *, scale=None, seq_len=None, out_dtype=None,
+                    impl=None):
     """Softmax attention in (B, H, S, d) layout, keys at index >= ``seq_len``
-    masked (kernel K7). ``q``, ``k`` and ``v`` may be strided views."""
+    masked (kernel K7). ``q``, ``k`` and ``v`` may be strided views; the
+    result is in ``out_dtype`` (default ``q.dtype``, or fp32)."""
     if resolve_impl(impl, q) == "torch":
         return reference.flash_attention(q, k, v, scale=scale,
-                                         seq_len=seq_len)
+                                         seq_len=seq_len, out_dtype=out_dtype)
     from vit_tpu_torch.ops.cuda import attention as _k
-    return _k.flash_attention(q, k, v, scale=scale, seq_len=seq_len)
+    return _k.flash_attention(q, k, v, scale=scale, seq_len=seq_len,
+                              out_dtype=out_dtype)
 
 
 def patch_embed(x, w, bias, patch_size, *, impl=None):
@@ -206,3 +211,77 @@ def stack_fused_plan(b: int, sp: int, d: int, mlp: int, num_heads: int,
     nothing resident."""
     return num_prefix_tokens == 1 and stack_plan(b, sp, d, mlp, num_heads,
                                                  dtype)
+
+
+# ------------------------------------------------------------------ int8 --
+
+def quantize_rows(x, *, ln_scale=None, ln_bias=None, eps=1e-12, impl=None):
+    """Per-row symmetric int8 of ``x`` (..., D), optionally after an fp32
+    LN: ``(xq (M, D) int8, ax (M, 1) fp32)`` (kernel K10)."""
+    if resolve_impl(impl, x) == "torch":
+        return reference.quantize_rows(x, ln_scale=ln_scale, ln_bias=ln_bias,
+                                       eps=eps)
+    from vit_tpu_torch.ops.cuda import quant as _k
+    return _k.quantize_rows(x, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
+
+
+def matmul_i8(xq, ax, wq, wscale, bias=None, activation=None, *,
+              residual=None, out_dtype, impl=None):
+    """``(xq @ wq) * ax * wscale`` + bias, GELU, + residual, the product
+    s8 x s8 -> s32 (kernel K11)."""
+    if resolve_impl(impl, xq) == "torch":
+        return reference.matmul_i8(xq, ax, wq, wscale, bias, activation,
+                                   residual=residual, out_dtype=out_dtype)
+    from vit_tpu_torch.ops.cuda import quant as _k
+    return _k.matmul_i8(xq, ax, wq, wscale, bias, activation,
+                        residual=residual, out_dtype=out_dtype)
+
+
+def attn_block_q(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q, sout, bout,
+                 *, num_heads, scale=None, seq_len=None, eps=1e-12,
+                 impl=None):
+    """``x + proj(MHA(LN(x)))`` with int8 projections (five launches: K10,
+    K11, K7 with an fp32 output, K10, K11)."""
+    args = (x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q, sout, bout)
+    kw = dict(num_heads=num_heads, scale=scale, seq_len=seq_len, eps=eps)
+    if resolve_impl(impl, x) == "torch":
+        return reference.attn_block_q(*args, **kw)
+    from vit_tpu_torch.ops.cuda import quant as _k
+    return _k.attn_block_q(*args, **kw)
+
+
+def mlp_block_i8dot(x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, *,
+                    eps=1e-12, impl=None):
+    """``x + fc2(gelu(fc1(LN(x))))`` with both products s8 x s8 -> s32 and
+    the hidden requantized every 512 columns, one kernel (K12)."""
+    args = (x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2)
+    if resolve_impl(impl, x) == "torch":
+        return reference.mlp_block_i8dot(*args, eps=eps)
+    from vit_tpu_torch.ops.cuda import quant as _k
+    return _k.mlp_block_i8dot(*args, eps=eps)
+
+
+def encoder_stack_q(x, enc, *, num_heads, scale=None, seq_len=None,
+                    eps=1e-12, impl=None):
+    """The whole encoder on weight-only int8 weights in one kernel (K9 with
+    int8 weight tiles)."""
+    if resolve_impl(impl, x) == "torch":
+        return reference.encoder_stack_q(x, enc, num_heads=num_heads,
+                                         scale=scale, seq_len=seq_len,
+                                         eps=eps)
+    from vit_tpu_torch.ops.cuda import stack as _k
+    return _k.encoder_stack_q(x, enc, num_heads=num_heads, scale=scale,
+                              seq_len=seq_len, eps=eps)
+
+
+def stack_q_plan(b: int, sp: int, d: int, mlp: int, num_heads: int,
+                 dtype: torch.dtype) -> bool:
+    """Whether ``forward_quant`` runs the whole encoder as
+    :func:`encoder_stack_q` (counterpart of
+    ``vit_tpu/ops/pallas/block.py:encoder_stack_plan_q``). It mirrors where
+    the JAX package took the int8 stack on the TPU, not a measurement on
+    the H100: its tuned ``encstackq`` rows pin 208 tokens at batch 1 to the
+    stack and at batch 2 to the per-layer route; other geometries fall
+    back to the float rule, :func:`stack_plan`."""
+    return stack_plan(b, sp, d, mlp, num_heads, dtype) and not (
+        b == 2 and sp == 208)

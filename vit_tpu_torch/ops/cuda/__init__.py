@@ -15,7 +15,8 @@ from __future__ import annotations
 #: The kernels, by the name their wrapper counts launches under.
 KERNELS = ("layernorm", "matmul", "attention", "mlp_block", "layernorm_stats",
            "fused_linear", "flash_attention", "embed_fused", "encoder_stack",
-           "encoder_stack_fused")
+           "encoder_stack_fused", "quantize_rows", "matmul_i8",
+           "mlp_block_i8dot", "encoder_stack_q")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

@@ -53,15 +53,24 @@ _SIGNATURES = {
     # qkv, out, batch, seq, d, heads, seq_len, scale
     "vit_attention": (_P, _P, _I, _I, _I, _I, _I, _F),
     # q, k, v, out, (b, h, s) element strides of q, k, v and out, batch,
-    # heads, seq, head_dim, seq_len, scale
+    # heads, seq, head_dim, seq_len, scale, out_f32
     "vit_flash_attention": (_P, _P, _P, _P, *(_L,) * 12, _I, _I, _I, _I, _I,
-                            _F),
+                            _F, _I),
     # patches, w, bias, cls_row, pos, out, b, n, k, d, sp
     "vit_embed_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     # x, qkv, ctx, hid, acc, out, the 12 stacked encoder tensors, patches,
     # wemb, base, final-LN scale and bias, b, sp, d, mlp, heads, layers,
     # seq_len, n_tok, pd, scale, eps, fold
     "vit_encoder_stack": (*(_P,) * 23, *(_I,) * 9, _F, _F, _I),
+    # x, ln scale, ln bias (or two nulls), q, ax, rows, d, eps
+    "vit_quantize_rows": (_P, _P, _P, _P, _P, _I, _I, _F),
+    # xq, ax, wq, wscale, bias, residual, out, m, n, k, gelu
+    "vit_matmul_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
+    # x, ln scale, ln bias, w1, s1, b1, w2, s2, b2, out, m, d, mlp, eps
+    "vit_mlp_block_i8": (*(_P,) * 10, _I, _I, _I, _F),
+    # x, qkv, ctx, hid, the 12 stacked encoder tensors, the 4 stacked
+    # scales, b, sp, d, mlp, heads, layers, seq_len, scale, eps
+    "vit_encoder_stack_q": (*(_P,) * 20, *(_I,) * 7, _F, _F),
 }
 
 _lock = threading.Lock()
@@ -164,20 +173,24 @@ def launch(name: str, *args, like: torch.Tensor) -> None:
 
 def check_tensor(t: torch.Tensor, name: str, like: torch.Tensor,
                  shape: tuple[int, ...] | None = None, *,
-                 contiguous: bool = True) -> None:
+                 contiguous: bool = True,
+                 dtype: torch.dtype | None = None) -> None:
     """Raise unless ``t`` is a tensor on ``like``'s CUDA device with
-    ``like``'s dtype (float32 or bfloat16), ``shape`` if given, and, unless
-    ``contiguous`` is False, contiguous."""
+    ``like``'s dtype (float32 or bfloat16) or, if given, ``dtype``,
+    ``shape`` if given, and, unless ``contiguous`` is False, contiguous."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got one on {t.device}")
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, expected {like.device}")
-    if t.dtype not in DTYPE_CODES:
+    if dtype is not None:
+        if t.dtype != dtype:
+            raise ValueError(f"{name} dtype {t.dtype} != {dtype}")
+    elif t.dtype not in DTYPE_CODES:
         raise ValueError(f"{name} dtype {t.dtype} not supported "
                          f"(float32 or bfloat16)")
-    if t.dtype != like.dtype:
+    elif t.dtype != like.dtype:
         raise ValueError(f"{name} dtype {t.dtype} != {like.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")

@@ -3,7 +3,9 @@ of ``vit_tpu/ops/pallas/attention.py:flash_attention`` in all three of its
 regimes. The kernel reads q, k and v through their strides, so the heads of
 a packed ``(B*S, 3D)`` QKV buffer go in as views, and writes a
 ``(B, S, H, d)`` buffer that is returned as a ``(B, H, S, d)`` view: the
-model reads it back as ``(B*S, D)`` with no copy."""
+model reads it back as ``(B*S, D)`` with no copy. The buffer is in the
+inputs' dtype or, for the int8 tier's attention, fp32; both count as
+``flash_attention`` launches."""
 
 from __future__ import annotations
 
@@ -16,11 +18,12 @@ MAX_HEAD_DIM = 128
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float | None = None,
-                    seq_len: int | None = None) -> torch.Tensor:
+                    scale: float | None = None, seq_len: int | None = None,
+                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``softmax(q kᵀ · scale) v`` over CUDA tensors ``(B, H, S, d)``, keys
-    at index >= ``seq_len`` masked. Each operand may be any strided view
-    whose last dim is contiguous."""
+    at index >= ``seq_len`` masked, in ``out_dtype`` (``q.dtype`` or
+    fp32). Each operand may be any strided view whose last dim is
+    contiguous."""
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _build.check_tensor(t, name, q, contiguous=False)
         if t.dim() != 4 or t.shape != q.shape:
@@ -40,10 +43,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"seq_len {seq_len} outside (0, {s}]")
     if b * h == 0:
         raise ValueError(f"flash_attention of an empty batch {tuple(q.shape)}")
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype} must be {q.dtype} or "
+                         "torch.float32")
+    out = torch.empty((b, s, h, d), dtype=out_dtype, device=q.device)
     out = out.permute(0, 2, 1, 3)
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     _build.launch("vit_flash_attention", q, k, v, out, *strides, b, h, s, d,
-                  seq_len, float(scale), like=q)
+                  seq_len, float(scale), int(out_dtype == torch.float32),
+                  like=q)
     count_launch("flash_attention")
     return out

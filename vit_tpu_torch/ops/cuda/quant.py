@@ -1,0 +1,151 @@
+"""The int8 tier's kernels: K10 ``quantize_rows`` (``csrc/layernorm.cu``),
+K11 ``matmul_i8`` (``csrc/matmul.cu``), K12 ``mlp_block_i8dot``
+(``csrc/mlp_block_i8.cu``), and ``attn_block_q`` as five launches
+(counterparts of ``vit_tpu/ops/pallas/block.py:attn_block_q`` and
+``mlp_block_i8dot``).
+
+``attn_block_q`` is one Pallas kernel on the TPU; on Hopper it is K10 with
+LN1, K11 into the packed ``(B*S, 3D)`` q|k|v in the dtype, K7 on the heads'
+strided views with an fp32 ``(B, S, H, d)`` output (a ``(B*S, D)`` view),
+K10 over each whole context row, and K11 with ``+ bout + x``. K7 and not
+the attention core, because the core keeps a head's whole K and V in one
+block's shared memory and cannot take L/16-384's 592 tokens; K7 streams
+them. Its softmax is taken relative to a running max, where the Pallas
+kernel takes the row max: in bf16 that moves where ``p`` is rounded, by at
+most one ulp of ``p``.
+
+Weights are int8 with fp32 per-output-channel scales; activations,
+biases, LN params and outputs are in the model's dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vit_tpu_torch.ops.cuda import _build, count_launch
+from vit_tpu_torch.ops.cuda.attention import flash_attention
+from vit_tpu_torch.ops.reference import MLP_GROUP
+
+#: Largest model width K12 takes (H/14).
+MLP_I8_MAX_D = 1280
+
+_I8, _F32 = torch.int8, torch.float32
+
+
+def quantize_rows(x: torch.Tensor, *, ln_scale: torch.Tensor | None = None,
+                  ln_bias: torch.Tensor | None = None,
+                  eps: float = 1e-12) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 of a CUDA tensor ``x`` (..., D), optionally after an
+    fp32 LN: ``(xq (M, D) int8, ax (M, 1) fp32)``."""
+    _build.check_tensor(x, "x", x)
+    d = x.shape[-1]
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        raise ValueError(f"quantize_rows of an empty tensor {tuple(x.shape)}")
+    if (ln_scale is None) != (ln_bias is None):
+        raise ValueError("ln_scale and ln_bias go together")
+    if ln_scale is not None:
+        _build.check_tensor(ln_scale, "ln_scale", x, (d,))
+        _build.check_tensor(ln_bias, "ln_bias", x, (d,))
+    xq = torch.empty((rows, d), dtype=_I8, device=x.device)
+    ax = torch.empty((rows, 1), dtype=_F32, device=x.device)
+    _build.launch("vit_quantize_rows", x, ln_scale, ln_bias, xq, ax, rows, d,
+                  float(eps), like=x)
+    count_launch("quantize_rows")
+    return xq, ax
+
+
+def matmul_i8(xq: torch.Tensor, ax: torch.Tensor, wq: torch.Tensor,
+              wscale: torch.Tensor, bias: torch.Tensor | None = None,
+              activation: str | None = None, *,
+              residual: torch.Tensor | None = None,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """``xq (M, K) int8 @ wq (K, N) int8`` on CUDA tensors, exact int32
+    sums, then ``(acc * ax) * wscale``, ``+ bias``, GELU, ``+ residual`` in
+    fp32, one cast to ``out_dtype``; ``bias`` and ``residual`` (M, N) are
+    in ``out_dtype``."""
+    if activation not in (None, "gelu"):
+        raise ValueError(f"unknown activation {activation!r}")
+    if out_dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"out_dtype {out_dtype} not supported")
+    _build.check_tensor(xq, "xq", xq, dtype=_I8)
+    if xq.dim() != 2 or wq.dim() != 2 or wq.shape[0] != xq.shape[1]:
+        raise ValueError(f"matmul_i8 shapes {tuple(xq.shape)} @ "
+                         f"{tuple(wq.shape)}")
+    (m, k), n = xq.shape, wq.shape[1]
+    if m == 0 or n == 0 or k == 0:
+        raise ValueError(f"matmul_i8 of an empty operand {tuple(xq.shape)} "
+                         f"@ {tuple(wq.shape)}")
+    _build.check_tensor(ax, "ax", xq, (m, 1), dtype=_F32)
+    _build.check_tensor(wq, "wq", xq, (k, n), dtype=_I8)
+    _build.check_tensor(wscale, "wscale", xq, (n,), dtype=_F32)
+    if bias is not None:
+        _build.check_tensor(bias, "bias", xq, (n,), dtype=out_dtype)
+    if residual is not None:
+        _build.check_tensor(residual, "residual", xq, (m, n), dtype=out_dtype)
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    _build.launch("vit_matmul_i8", xq, ax, wq, wscale, bias, residual, out,
+                  m, n, k, int(activation == "gelu"), like=out)
+    count_launch("matmul_i8")
+    return out
+
+
+def attn_block_q(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
+                 wout_q, sout, bout, *, num_heads: int,
+                 scale: float | None = None, seq_len: int | None = None,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """``x + proj(MHA(LN(x)))`` with int8 projections for a CUDA tensor
+    ``x`` (B, S, D), S already padded (keys at index >= ``seq_len`` are
+    masked): five launches, the module docstring's."""
+    _build.check_tensor(x, "x", x)
+    if x.dim() != 3:
+        raise ValueError(f"x shape {tuple(x.shape)} is not (B, S, D)")
+    b, s, d = x.shape
+    if num_heads <= 0 or d % num_heads:
+        raise ValueError(f"D={d} not divisible by {num_heads} heads")
+    hd = d // num_heads
+    xf = x.reshape(b * s, d)
+    xq, ax = quantize_rows(xf, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
+    qkv = matmul_i8(xq, ax, wqkv_q, sqkv, bqkv, out_dtype=x.dtype)
+    q, k, v = qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    ctx = flash_attention(q, k, v, scale=hd ** -0.5 if scale is None
+                          else scale, seq_len=seq_len, out_dtype=_F32)
+    # The kernel's context is a (B, S, H, hd) buffer: this is a view.
+    cq, ac = quantize_rows(ctx.transpose(1, 2).reshape(b * s, d))
+    return matmul_i8(cq, ac, wout_q, sout, bout, residual=xf,
+                     out_dtype=x.dtype).view(b, s, d)
+
+
+def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
+                    b2, *, eps: float = 1e-12) -> torch.Tensor:
+    """``x + fc2(gelu(fc1(LN(x))))`` with both products in int8 on a CUDA
+    tensor ``x`` (..., D), one kernel. ``w1q`` (D, mlp) and ``w2q``
+    (mlp, D) int8, ``s1`` (mlp,) and ``s2`` (D,) fp32; D a multiple of 128
+    up to 1280, mlp a multiple of 512."""
+    _build.check_tensor(x, "x", x)
+    d = x.shape[-1]
+    if w1q.dim() != 2 or w1q.shape[0] != d:
+        raise ValueError(f"w1q shape {tuple(w1q.shape)} does not take D={d}")
+    mlp = w1q.shape[1]
+    if d % 128 or d > MLP_I8_MAX_D or mlp % MLP_GROUP:
+        raise ValueError(f"mlp_block_i8dot needs D a multiple of 128 up to "
+                         f"{MLP_I8_MAX_D} and mlp a multiple of the quant "
+                         f"group {MLP_GROUP}; got D={d}, mlp={mlp}")
+    for t, name, shape, dt in (
+            (ln_scale, "ln_scale", (d,), None), (ln_bias, "ln_bias", (d,), None),
+            (w1q, "w1q", (d, mlp), _I8), (s1, "s1", (mlp,), _F32),
+            (b1, "b1", (mlp,), None), (w2q, "w2q", (mlp, d), _I8),
+            (s2, "s2", (d,), _F32), (b2, "b2", (d,), None)):
+        _build.check_tensor(t, name, x, shape, dtype=dt)
+    for t, name in ((w1q, "w1q"), (w2q, "w2q")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    m = x.numel() // d
+    if m == 0:
+        raise ValueError(f"mlp_block_i8dot of an empty tensor "
+                         f"{tuple(x.shape)}")
+    out = torch.empty_like(x)
+    _build.launch("vit_mlp_block_i8", x, ln_scale, ln_bias, w1q, s1, b1, w2q,
+                  s2, b2, out, m, d, mlp, float(eps), like=x)
+    count_launch("mlp_block_i8dot")
+    return out

@@ -9,6 +9,11 @@ the fp32 sum and the output) with ``torch.empty``; the kernel never writes
 its inputs. If the card cannot hold the whole grid at once, the cooperative
 launch is refused and the wrapper raises: there is no fallback to the
 per-layer route. The two forms count their launches apart.
+
+:func:`encoder_stack_q` runs the same kernel on weight-only int8 weights
+(``vit_tpu/ops/pallas/block.py:encoder_stack_q``): the four projections
+int8 with fp32 per-column scales, everything else in the dtype. It counts
+as ``encoder_stack_q``.
 """
 
 from __future__ import annotations
@@ -28,10 +33,16 @@ _WEIGHTS = (("ln1", "scale", "D"), ("ln1", "bias", "D"),
             ("fc2", "kernel", "M,D"), ("fc2", "bias", "D"))
 
 
-def _weights(enc, d: int, like: torch.Tensor):
+def _weights(enc, d: int, like: torch.Tensor, *, quantized: bool = False):
     """The twelve stacked tensors, checked; returns them, the number of
-    layers and the MLP width."""
-    fc1 = enc["fc1"]["kernel"]
+    layers and the MLP width. With ``quantized``, each projection's
+    ``kernel`` is ``{"q": int8, "scale": fp32}``: its ``q`` takes the
+    kernel's place and the four scales follow the twelve."""
+    def kernel(group):
+        k = enc[group]["kernel"]
+        return k["q"] if quantized else k
+
+    fc1 = kernel("fc1")
     if fc1.dim() != 3 or fc1.shape[1] != d:
         raise ValueError(f"fc1 kernel shape {tuple(fc1.shape)} does not take "
                          f"D={d}")
@@ -39,13 +50,22 @@ def _weights(enc, d: int, like: torch.Tensor):
     if layers == 0:
         raise ValueError("encoder_stack of an encoder without layers")
     sizes = {"D": d, "3D": 3 * d, "M": mlp}
-    out = []
+    out, scales = [], []
     for group, name, dims in _WEIGHTS:
+        dims = [sizes[s] for s in dims.split(",")]
+        if name == "kernel" and quantized:
+            q, sc = kernel(group), enc[group]["kernel"]["scale"]
+            _build.check_tensor(q, f"{group}.kernel.q", like,
+                                (layers, *dims), dtype=torch.int8)
+            _build.check_tensor(sc, f"{group}.kernel.scale", like,
+                                (layers, dims[-1]), dtype=torch.float32)
+            out.append(q)
+            scales.append(sc)
+            continue
         t = enc[group][name]
-        shape = (layers, *(sizes[s] for s in dims.split(",")))
-        _build.check_tensor(t, f"{group}.{name}", like, shape)
+        _build.check_tensor(t, f"{group}.{name}", like, (layers, *dims))
         out.append(t)
-    return out, layers, mlp
+    return out + scales, layers, mlp
 
 
 def _check_attention(sp: int, d: int, num_heads: int,
@@ -135,3 +155,27 @@ def encoder_stack_fused(patches: torch.Tensor, enc, wemb: torch.Tensor,
                   float(eps), 1, like=patches)
     count_launch("encoder_stack_fused")
     return out
+
+
+def encoder_stack_q(x: torch.Tensor, enc, *, num_heads: int,
+                    scale: float | None = None, seq_len: int | None = None,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """Every layer of the weight-only int8 encoder ``enc`` on a CUDA tensor
+    ``x`` (B, sp, D), one launch of K9 on int8 weight tiles; keys at index
+    >= ``seq_len`` are masked."""
+    _build.check_tensor(x, "x", x)
+    if x.dim() != 3 or x.numel() == 0:
+        raise ValueError(f"x shape {tuple(x.shape)} is not (B, sp, D)")
+    b, sp, d = x.shape
+    weights, layers, mlp = _weights(enc, d, x, quantized=True)
+    hd = _check_attention(sp, d, num_heads, x)
+    seq_len = sp if seq_len is None else seq_len
+    if not 0 < seq_len <= sp:
+        raise ValueError(f"seq_len {seq_len} outside (0, {sp}]")
+    work = x.clone()  # the kernel updates the activation in place
+    _build.launch("vit_encoder_stack_q", work, *_scratch(b * sp, d, mlp, x),
+                  *weights, b, sp, d, mlp, num_heads, layers, seq_len,
+                  float(hd ** -0.5 if scale is None else scale), float(eps),
+                  like=x)
+    count_launch("encoder_stack_q")
+    return work

@@ -21,7 +21,9 @@ tier, so that a kernel and its plain version agree to the sum order:
   (``vit_tpu/ops/pallas/matmul.py:250-257``);
 - ``encoder_stack_fused`` rounds the patch rows and the last layer's MLP
   sum once fewer than the composed route, as its kernel does (its
-  docstring says where).
+  docstring says where);
+- the int8 kernels (end of the module) quantize fp32 values: the LN
+  output and the attention context are not rounded to the dtype first.
 """
 
 from __future__ import annotations
@@ -62,13 +64,20 @@ def layernorm_stats(x: torch.Tensor, *,
 
 def matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
            activation: str | None = None,
-           residual: torch.Tensor | None = None) -> torch.Tensor:
+           residual: torch.Tensor | None = None, *,
+           wscale: torch.Tensor | None = None) -> torch.Tensor:
     """``(..., K) @ (K, N)`` in fp32, then ``+ bias``, then GELU, then
     ``+ residual`` (all fp32), rounded once to ``x.dtype``. ``w`` is
-    ``(in, out)``, the transpose of ``nn.Linear``'s layout."""
+    ``(in, out)``, the transpose of ``nn.Linear``'s layout. With
+    ``wscale`` (N,) fp32, ``w`` holds int8 codes of a weight-only quantized
+    weight and the product is scaled per column before the bias:
+    ``(x @ w) * wscale + bias``, the order of
+    ``vit_tpu/ops/pallas/block.py:_encoder_stack_q_kernel``."""
     if x.shape[-1] != w.shape[0]:
         raise ValueError(f"matmul shapes {tuple(x.shape)} @ {tuple(w.shape)}")
     out = torch.matmul(_f32(x), _f32(w))
+    if wscale is not None:
+        out = out * wscale
     if bias is not None:
         out = out + _f32(bias)
     if activation == "gelu":
@@ -119,11 +128,13 @@ def patch_embed(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              scale: float | None = None,
-              seq_len: int | None = None) -> torch.Tensor:
+              scale: float | None = None, seq_len: int | None = None,
+              out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Softmax attention in (B, H, S, d) layout with the Pallas kernel's
     rounding: fp32 scores, keys at index >= ``seq_len`` set to -inf,
-    ``p = exp(s - max)``, ``ctx = (p in dtype) @ v / rowsum(p)``."""
+    ``p = exp(s - max)``, ``ctx = (p in dtype) @ v / rowsum(p)``, cast to
+    ``out_dtype`` (default ``q.dtype``; the int8 attention keeps it fp32,
+    ``block.py:1249-1250``)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.matmul(_f32(q), _f32(k).transpose(-1, -2)) * scale
@@ -133,17 +144,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     ctx = torch.matmul(_f32(p.to(q.dtype)), _f32(v)) / l
-    return ctx.to(q.dtype)
+    return ctx.to(out_dtype or q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float | None = None,
-                    seq_len: int | None = None) -> torch.Tensor:
+                    scale: float | None = None, seq_len: int | None = None,
+                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """:func:`attention` under the JAX op's name; ``q``, ``k`` and ``v`` may
     be strided ``(B, H, S, d)`` views, such as the heads of a packed QKV
     buffer. The plain version of ``csrc/flash_attention.cu``, which takes
     its softmax relative to a running max instead of the row max."""
-    return attention(q, k, v, scale=scale, seq_len=seq_len)
+    return attention(q, k, v, scale=scale, seq_len=seq_len,
+                     out_dtype=out_dtype)
 
 
 def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
@@ -281,3 +293,167 @@ def encoder_stack_fused(patches: torch.Tensor, enc, wemb: torch.Tensor,
             x = mlp_block(x, *mlp, eps=eps)
     acc = _mlp_acc(x, *mlp, eps=eps)
     return layernorm(acc, lnf["scale"], lnf["bias"], eps=eps).to(dt)
+
+
+# ------------------------------------------------------------------ int8 --
+#
+# The int8 tier's kernels with the Pallas kernels' rounding points. Integer
+# products are exact: they run in float64, which holds every int8 x int8
+# sum of up to 2^38 terms exactly (fc2 at H/14 reaches 5120 * 127^2, above
+# fp32's 2^24), then round once to fp32, as ``acc.astype(f32)`` does.
+
+QMAX = 127.0
+#: Hidden columns per requantization group of ``mlp_block_i8dot``: the
+#: ``ct`` of every ``mlpblocki8`` row of the JAX package's tuned table.
+MLP_GROUP = 512
+
+
+def div_qmax(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` as a true division on every device: PyTorch's CUDA
+    kernels multiply by the reciprocal of a Python-scalar divisor, which
+    rounds differently, so the divisor is a tensor."""
+    return t / t.new_tensor(QMAX)
+
+
+def _quantize_f32(x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 of an fp32 ``(M, D)``, the Pallas kernels'
+    order (``block.py:533-536``): ``ax = max(max|x|, 1e-12) / 127``, then
+    ``round(x / ax)`` half to even, saturated at +-127 (a guard that never
+    binds)."""
+    ax = div_qmax(x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12))
+    xq = torch.round(x32 / ax).clamp(-QMAX, QMAX).to(torch.int8)
+    return xq, ax
+
+
+def _ln32(x32: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
+    """LN of an fp32 row block, left in fp32 (``block.py:_ln32``)."""
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + eps) * _f32(scale) + _f32(bias)
+
+
+def quantize_rows(x: torch.Tensor, *, ln_scale: torch.Tensor | None = None,
+                  ln_bias: torch.Tensor | None = None,
+                  eps: float = 1e-12) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows of ``x`` (..., D), optionally layer-normalised in fp32 first (not
+    rounded to the dtype), quantized to int8: ``(xq (M, D) int8, ax (M, 1)
+    fp32)`` with ``xq * ax ~ x``."""
+    x32 = _f32(x).reshape(-1, x.shape[-1])
+    if ln_scale is not None:
+        x32 = _ln32(x32, ln_scale, ln_bias, eps)
+    return _quantize_f32(x32)
+
+
+def _int_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The exact int8 x int8 sums, rounded once to fp32."""
+    return torch.matmul(xq.to(torch.float64), wq.to(torch.float64)).to(
+        torch.float32)
+
+
+def matmul_i8(xq: torch.Tensor, ax: torch.Tensor, wq: torch.Tensor,
+              wscale: torch.Tensor, bias: torch.Tensor | None = None,
+              activation: str | None = None, *,
+              residual: torch.Tensor | None = None,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """``xq (M, K) int8 @ wq (K, N) int8``, exact, then in fp32
+    ``(acc * ax) * wscale``, ``+ bias``, GELU, ``+ residual``, one cast to
+    ``out_dtype`` (``block.py:1229-1231, 1258, 1275-1276``)."""
+    if xq.shape[-1] != wq.shape[0]:
+        raise ValueError(f"matmul_i8 shapes {tuple(xq.shape)} @ "
+                         f"{tuple(wq.shape)}")
+    out = _int_product(xq, wq) * ax * wscale
+    if bias is not None:
+        out = out + _f32(bias)
+    if activation == "gelu":
+        out = gelu(out)
+    elif activation is not None:
+        raise ValueError(f"unknown activation {activation!r}")
+    if residual is not None:
+        out = out + _f32(residual).reshape(out.shape)
+    return out.to(out_dtype)
+
+
+def attn_block_q(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
+                 wout_q, sout, bout, *, num_heads: int,
+                 scale: float | None = None, seq_len: int | None = None,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """``x + proj(MHA(LN(x)))`` with int8 projections, after
+    ``vit_tpu/ops/pallas/block.py:_attn_q_kernel``: LN in fp32, quantized
+    per row; q/k/v rounded to the dtype; the per-head attention with ``p``
+    rounded to the dtype and the fp32 context left unrounded; the context
+    quantized per row over all heads; the out-projection with ``+ bout +
+    x`` in fp32 and one cast."""
+    b, s, d = x.shape
+    hd = d // num_heads
+    if scale is None:
+        scale = hd ** -0.5
+    xf = x.reshape(b * s, d)
+    xq, ax = quantize_rows(xf, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
+    qkv = matmul_i8(xq, ax, wqkv_q, sqkv, bqkv, out_dtype=x.dtype)
+    q, k, v = qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    ctx = attention(q, k, v, scale=scale, seq_len=seq_len,
+                    out_dtype=torch.float32)
+    cq, ac = quantize_rows(ctx.permute(0, 2, 1, 3).reshape(b * s, d))
+    return matmul_i8(cq, ac, wout_q, sout, bout, residual=xf,
+                     out_dtype=x.dtype).reshape(b, s, d)
+
+
+def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
+                    b2, *, eps: float = 1e-12,
+                    group: int = MLP_GROUP) -> torch.Tensor:
+    """``x + fc2(gelu(fc1(LN(x))))`` with both products in int8, after
+    ``vit_tpu/ops/pallas/block.py:_mlp_i8dot_kernel``: LN in fp32 quantized
+    per row; the fp32 sum seeded with ``x + b2``; for each ``group`` hidden
+    columns ``h = gelu((acc1 * ax) * s1 + b1)``, quantized per row over the
+    group, and ``acc += (acc2 * ah) * s2``; one cast."""
+    d = x.shape[-1]
+    mlp = w1q.shape[1]
+    if mlp % group:
+        raise ValueError(f"mlp {mlp} is not a multiple of the quant group "
+                         f"{group}")
+    xf = x.reshape(-1, d)
+    xq, ax = quantize_rows(xf, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
+    acc = _f32(xf) + _f32(b2)
+    for c0 in range(0, mlp, group):
+        cols = slice(c0, c0 + group)
+        h = _int_product(xq, w1q[:, cols]) * ax * s1[cols]
+        hq, ah = _quantize_f32(gelu(h + _f32(b1[cols])))
+        acc = acc + _int_product(hq, w2q[cols]) * ah * s2
+    return acc.to(x.dtype).reshape(x.shape)
+
+
+def encoder_stack_q(x: torch.Tensor, enc, *, num_heads: int,
+                    scale: float | None = None, seq_len: int | None = None,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """The whole encoder on weight-only int8 ``enc`` (each projection's
+    ``kernel`` is ``{"q", "scale"}``), after
+    ``vit_tpu/ops/pallas/block.py:_encoder_stack_q_kernel``: the float
+    stack's rounding points (LN, q/k/v, the context and the GELU hidden in
+    the dtype), each product scaled per column before its bias. The fc2 sum
+    is scaled once over the whole K, where JAX scales each ``mt`` chunk:
+    only the fp32 sum order differs."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    for i in range(enc["qkv"]["kernel"]["q"].shape[0]):
+        def w(name):
+            k = enc[name]["kernel"]
+            return k["q"][i], enc[name]["bias"][i], k["scale"][i]
+
+        wq, bq, sq = w("qkv")
+        qkv = matmul(layernorm(xf, enc["ln1"]["scale"][i],
+                               enc["ln1"]["bias"][i], eps=eps),
+                     wq, bq, wscale=sq)
+        ctx = attention_core(qkv, batch=b, num_heads=num_heads,
+                             scale=(d // num_heads) ** -0.5
+                             if scale is None else scale,
+                             seq_len=s if seq_len is None else seq_len)
+        wo, bo, so = w("out")
+        xf = matmul(ctx, wo, bo, residual=xf, wscale=so)
+        w1, b1, s1 = w("fc1")
+        h = matmul(layernorm(xf, enc["ln2"]["scale"][i],
+                             enc["ln2"]["bias"][i], eps=eps),
+                   w1, b1, "gelu", wscale=s1)
+        w2, b2, s2 = w("fc2")
+        acc = _f32(xf) + _f32(b2)
+        xf = (acc + torch.matmul(_f32(h), _f32(w2)) * s2).to(x.dtype)
+    return xf.reshape(b, s, d)

@@ -5,11 +5,15 @@ A request of any size is decomposed onto the bucket batch sizes,
 largest first; the tail is padded with zero images up to the smallest
 bucket that fits and the pad rows are sliced off the result. Padding is
 exact for ViT: images do not attend to each other. Each bucket runs the
-model's forward, so a server only ever runs the bucket shapes.
+model's forward, so a server only ever runs the bucket shapes. With
+``quant=True`` the params are quantized once, at construction, and every
+bucket runs the int8 tier's ``forward_quant`` (``vit_tpu/serving.py:
+56-71``). The device is the card unless the caller names another.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 
 from vit_tpu_torch.config import ViTConfig
 from vit_tpu_torch.models.vit import Params, fold_base, make_forward
+from vit_tpu_torch.quant import make_forward_quant, quantize_params
 from vit_tpu_torch.weights.convert import to_device
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
@@ -25,23 +30,32 @@ DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 class Predictor:
     """Forward passes over a set of batch buckets on one device.
 
-    >>> pred = Predictor(params, cfg, buckets=(1, 8, 32), device="cuda")
+    >>> pred = Predictor(params, cfg, buckets=(1, 8, 32))  # on the card
     >>> out = pred(images)         # any leading batch size
     """
 
     def __init__(self, params: Params, cfg: ViTConfig,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, *,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda", quant: bool = False):
         if not buckets or any(b <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive, got {buckets!r}")
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Predictor serves on the card by default and "
+                               "no CUDA device is available; pass "
+                               "device='cpu' to serve on the CPU")
         self.buckets = tuple(sorted(set(buckets)))
         self.params = to_device(params, self.device)
-        self._fwd = make_forward(cfg)
-        # The fused route's base rows depend on the params only.
-        self._base = (fold_base(self.params, cfg)
-                      if cfg.num_prefix_tokens == 1 else None)
+        if quant:
+            self.params = quantize_params(self.params)
+            self._fwd = make_forward_quant(cfg)
+        elif cfg.num_prefix_tokens == 1:
+            # The fused route's base rows depend on the params only.
+            self._fwd = functools.partial(make_forward(cfg),
+                                          base=fold_base(self.params, cfg))
+        else:
+            self._fwd = make_forward(cfg)
 
     def _plan(self, n: int) -> list[int]:
         """Decompose n onto buckets, largest-first; the tail rounds up to
@@ -68,8 +82,7 @@ class Predictor:
             images = torch.cat([images, pad])
         outs, off = [], 0
         for b in plan:
-            outs.append(self._fwd(self.params, images[off:off + b],
-                                  base=self._base))
+            outs.append(self._fwd(self.params, images[off:off + b]))
             off += b
         out = outs[0] if len(outs) == 1 else torch.cat(outs)
         return out[:n]

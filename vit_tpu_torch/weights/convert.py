@@ -4,7 +4,9 @@
 leaves converted to numpy arrays (``jax.tree.map(np.asarray, params)``)
 and returns the port's dict of tensors, so one set of weights feeds both
 packages. The two layouts are the same nested dict; only the array type
-changes. Nothing here imports JAX.
+changes. A quantized projection's ``kernel`` (``vit_tpu/quant.py:
+quantize_params``: ``{"q": int8, "scale": fp32}``) keeps both types.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -33,12 +35,32 @@ def _from_numpy(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _is_quantized(node: Any) -> bool:
+    """A quantized weight, told apart by its shape (``{"q", "scale"}``),
+    not by the key name: the LayerNorm params also hold a ``"scale"``."""
+    return isinstance(node, dict) and set(node) == {"q", "scale"}
+
+
 def params_from_numpy(tree: Params, cfg: ViTConfig,
-                      device: torch.device | str = "cpu") -> Params:
-    """The port's params from a nested dict of numpy arrays, in
-    ``cfg.dtype`` on ``device``."""
-    return tree_map(
-        lambda a: _from_numpy(a).to(device=device, dtype=cfg.dtype), tree)
+                      device: torch.device | str = "cuda") -> Params:
+    """The port's params from a nested dict of numpy arrays, on ``device``:
+    every leaf in ``cfg.dtype``, except the int8 codes and fp32 scales of a
+    quantized weight."""
+    out: Params = {}
+    for k, v in tree.items():
+        if _is_quantized(v):
+            q = _from_numpy(v["q"])
+            if q.dtype != torch.int8:
+                raise ValueError(f"quantized weight {k!r} holds {q.dtype}, "
+                                 "not int8")
+            out[k] = {"q": q.to(device),
+                      "scale": _from_numpy(v["scale"]).to(
+                          device=device, dtype=torch.float32)}
+        elif isinstance(v, dict):
+            out[k] = params_from_numpy(v, cfg, device)
+        else:
+            out[k] = _from_numpy(v).to(device=device, dtype=cfg.dtype)
+    return out
 
 
 def to_device(params: Params, device: torch.device | str) -> Params:

@@ -63,7 +63,7 @@ def config_from_hf(hf_config: Any, **overrides) -> ViTConfig:
 
 
 def params_from_state_dict(sd: Mapping[str, Any], cfg: ViTConfig, *,
-                           device: torch.device | str = "cpu") -> Params:
+                           device: torch.device | str = "cuda") -> Params:
     """Map an HF ``ViTModel`` (or ``ViTForImageClassification``) state dict
     to the port's params dict, with full coverage accounting.
 
