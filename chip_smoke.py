@@ -16,7 +16,9 @@ without printing the final ``ok`` line:
    and bs=2 (197 of 208 tokens); the int8 kernels at B/16 bs=32, L/16-384
    bs=8 (K7's fp32 output at 592 tokens) and H/14 bs=2 (D=1280, MLP 5120),
    ``matmul_i8`` bit for bit, and ``encoder_stack_q`` as the whole B/16 and
-   L/16 encoders at bs=1;
+   L/16 encoders at bs=1; K13 ``flash_attention_bwd`` at B/16 bs=32 in
+   both dtypes, L/16-384 bs=2 (592 tokens) in bf16 and H/14 bs=2 (d=80)
+   in fp32;
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
    exact per-forward launch counts; the same weights through
@@ -57,7 +59,16 @@ without printing the final ``ok`` line:
     (the stack plans patched off) and ``impl="torch"``, each with its
     device idle share; one B/16 layer's launches at bs=1, stand-ins for
     K9's phases; and the int8 forward against the bf16 kernel forward at
-    B/16 bs=32 and bs=1 and L/16-384 bs=8, in turns, with device times.
+    B/16 bs=32 and bs=1 and L/16-384 bs=8, in turns, with device times;
+12. training, the fifth main path (``vit_tpu_torch/train.py``): K13 twice
+    bit for bit; one ``make_train_step`` step through the kernels, each
+    with its exact launch counts and every parameter's gradient held to
+    ``impl="torch"`` (``TRAIN_F32_BAR``, ``TRAIN_BF16_REL_BAR``), at B/16
+    fp32 bs=32 (then two more AdamW steps on the batch: the loss falls),
+    B/16 bf16 at bs=32, 2 (the fold's forward, the per-layer remat
+    backward) and 4 (``embed_fused``), and L/16-384 bf16 bs=2 at 4 layers
+    (composed attention, K13 at 592 tokens); the step's ms, images/s and
+    device idle share at B/16 bs=32, kernels and plain, in both dtypes.
 
 The last three lines of standard output are the kernels JSON line (each
 kernel's launches on the main paths, error vs the plain version, kernel,
@@ -146,6 +157,8 @@ KERNEL_SOURCES = {
                         "vit_tpu/ops/pallas/block.py:591"),
     "encoder_stack_q": ("vit_tpu_torch/csrc/encoder_stack.cu",
                         "vit_tpu/ops/pallas/block.py:2558"),
+    "flash_attention_bwd": ("vit_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "vit_tpu/ops/pallas/vjp.py:406"),
 }
 #: Kernels that run a whole encoder: held to the model bars.
 WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused", "encoder_stack_q")
@@ -164,6 +177,17 @@ GOLDEN_BAR = 1e-3     # tests/test_golden.py:58; every fp32 forward
 #: (tests/test_torch_model.py's bar against the JAX XLA tier).
 MODEL_BF16_REL_BAR = 5e-2
 MODEL_BF16_MEAN_BAR = 1e-2
+#: A training step's gradients through the kernels against PyTorch's
+#: autograd of the plain ops, per parameter tensor. fp32: max|diff| <=
+#: 1e-3 max|ref|, the golden bar scaled to the tensor, for sum orders
+#: through 12 layers of remat and K13 (a tensor's largest entries set the
+#: scale: the key third of each QKV bias has a gradient of round-off, zero
+#: in exact arithmetic). bf16: relative norm <= 5e-2, the model bar: the
+#: kernel route rounds where JAX's VJPs round (dh, dw and the GELU'd
+#: gradient in bf16), autograd where the plain forward casts, and the
+#: differences compound over 12 layers.
+TRAIN_F32_BAR = 1e-3
+TRAIN_BF16_REL_BAR = 5e-2
 
 
 def log(msg: str) -> None:
@@ -381,6 +405,55 @@ def _sdpa(torch, q, k, v, scale, seq_len):
     keep = torch.arange(k.shape[-2], device=k.device) < seq_len
     return F.scaled_dot_product_attention(q, k, v, attn_mask=keep[None, :],
                                           scale=scale)
+
+
+def _sdpa_bwd(torch, q, k, v, g, scale, seq_len):
+    """The backward of one masked SDPA call, K13's yardstick: the first call
+    (a warm-up) builds the forward's graph; each call runs
+    ``torch.autograd.grad`` of it for ``g``."""
+    state = {}
+
+    def run():
+        if not state:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            with torch.enable_grad():
+                state["out"] = _sdpa(torch, *leaves, scale, seq_len)
+            state["leaves"] = leaves
+        return torch.autograd.grad(state["out"], state["leaves"], g,
+                                   retain_graph=True)
+    return run
+
+
+def kernel_cases_train(torch, dtype):
+    """K13, the flash-attention backward, at the training path's shapes:
+    B/16 bs=32 (384 heads, 197 of 208 tokens, d=64) in both dtypes, the
+    case the kernels line reports in bf16; L/16-384 bs=2 (32 heads, 577 of
+    592) in bf16; H/14 bs=2 (32 heads, 257 of 272, d=80) in fp32. q, k and
+    v are views of a packed QKV buffer, g a (B, S, H, d) buffer's view, as
+    the training step gives them. Bound: JAX's cost estimate
+    (``vjp.py:414-417``), 10*B*H*S^2*d operations and the four inputs and
+    three outputs once."""
+    from vit_tpu_torch import ops
+
+    rnd = _rnd_fn(torch, dtype, 13)
+    shapes = [("B/16", 32, 12, 208, 197, 64)]
+    shapes.append(("L/16-384", 2, 16, 592, 577, 64) if dtype == torch.bfloat16
+                  else ("H/14", 2, 16, 272, 257, 80))
+    cases = []
+    for tag, b, h, s, seq_len, hd in shapes:
+        qkv = rnd(b * s, 3 * h * hd)
+        q, k, v = qkv.view(b, s, 3, h, hd).permute(2, 0, 3, 1, 4)
+        g = rnd(b, s, h, hd).transpose(1, 2)
+        args = (q, k, v, g, hd ** -0.5, seq_len)
+        cases.append(case(
+            "flash_attention_bwd",
+            f"{tag} B={b} H={h} S={s} seq_len {seq_len} d={hd}",
+            lambda impl, a=args: ops.flash_attention_bwd(
+                *a[:4], scale=a[4], seq_len=a[5], impl=impl),
+            (7 * b * h * s * hd * dtype.itemsize, 10 * b * h * s * s * hd,
+             _kind(torch, dtype)),
+            library=_sdpa_bwd(torch, *args), primary=tag == "B/16"))
+    return cases
 
 
 def kernel_cases(torch, dtype):
@@ -880,6 +953,178 @@ def forward_stats(torch, fn) -> dict:
             "kernels_ms": by_name}
 
 
+def train_step_counts(forward: dict, layers: int, *, attn_remat: bool = True,
+                      embed_dw: int = 1) -> dict:
+    """One training step's launches: the forward's (``forward``), then the
+    backward's. The head: dx and dw on K2. Each layer's MLP half (K3 in the
+    forward) recomputes fc1 (K5 + K6) and fc2 (K2, counted as
+    ``fused_linear``) and runs five products on K2 (fc2 dw, dh; fc1's
+    pre-activation, dw, dh). Its attention half runs K13 once and four
+    products (out-projection dw, dh; QKV dw, dh); where the forward ran the
+    mega-kernel (``attn_remat``) it first recomputes QKV (K5 + K6), K7 and
+    the out-projection (K2 as ``fused_linear``). ``embed_dw``: the patch
+    projection's dw on K2 (none on the fold, whose remat is torch ops)."""
+    out = dict(forward)
+    bwd = {"layernorm_stats": layers, "fused_linear": 2 * layers,
+           "matmul": 9 * layers + 2 + embed_dw, "flash_attention_bwd": layers}
+    if attn_remat:
+        bwd["layernorm_stats"] += layers
+        bwd["fused_linear"] += 2 * layers
+        bwd["flash_attention"] = layers
+    for k, v in bwd.items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+def train_grads(torch, params, cfg, px, labels, impl):
+    """The loss and every parameter's gradient (``tree_leaves`` order)."""
+    from vit_tpu_torch.train import cross_entropy_loss
+    from vit_tpu_torch.weights.convert import tree_leaves
+
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    loss = cross_entropy_loss(params, px, labels, cfg, impl=impl)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def check_train_grads(torch, label: str, got, want, dtype) -> float:
+    """Every parameter has a finite, nonzero gradient within the training
+    bar of the plain tier's; returns the worst ratio to the bar."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None or not bool(torch.isfinite(g).all()) or not bool(
+                g.abs().max() > 0):
+            raise AssertionError(f"{label}: parameter {i} has no usable "
+                                 "gradient")
+        g, w = g.float(), w.float()
+        if dtype == torch.float32:
+            r = float((g - w).abs().max() / w.abs().max()) / TRAIN_F32_BAR
+        else:
+            r = float((g - w).norm() / w.norm()) / TRAIN_BF16_REL_BAR
+        worst = max(worst, r)
+        if r > 1:
+            raise AssertionError(f"{label}: parameter {i} {tuple(g.shape)} "
+                                 f"at {r:.3f} of its bar")
+    return worst
+
+
+def train_phase(torch, main_counts: dict) -> dict:
+    """Phase 12: the training step (``vit_tpu_torch/train.py``) through the
+    kernels, against ``impl="torch"``, with exact launch counts; the loss
+    of 3 AdamW steps on one batch; the step's times."""
+    from vit_tpu_torch.config import VARIANTS
+    from vit_tpu_torch.models.vit import init_params
+    from vit_tpu_torch.ops import reference
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.train import make_optimizer, make_train_step
+    from vit_tpu_torch.weights.convert import tree_leaves
+
+    res = {}
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    # K13 twice on one input: bit for bit (no atomics).
+    c = kernel_cases_train(torch, torch.bfloat16)[0]
+    first, again = c["run"]("cuda"), c["run"]("cuda")
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("flash_attention_bwd is not deterministic")
+    dk, dv = reference.split_qkv_grad(first)[1:]
+    if dk[:, :, 197:].any() or dv[:, :, 197:].any():
+        raise AssertionError("flash_attention_bwd: masked keys have "
+                             "nonzero dk or dv")
+    log("[train] flash_attention_bwd: two calls equal bit for bit; masked "
+        "keys get zero dk, dv")
+    del first, again
+
+    b16 = dict(PER_FORWARD)
+    cases = (
+        # (tag, variant, dtype, layers, bs, forward launches, attn remat,
+        #  patch projection dw on K2)
+        ("B/16 fp32 bs=32", "B/16", torch.float32, 12, 32, b16, True, 1),
+        ("B/16 bf16 bs=32", "B/16", torch.bfloat16, 12, 32, b16, True, 1),
+        ("B/16 bf16 bs=2", "B/16", torch.bfloat16, 12, 2,
+         PER_FORWARD_STACK, True, 0),
+        ("B/16 bf16 bs=4", "B/16", torch.bfloat16, 12, 4,
+         dict(b16, embed_fused=1, matmul=25), True, 1),
+        ("L/16-384 bf16 bs=2, 4 layers", "L/16-384", torch.bfloat16, 4, 2,
+         {"embed_fused": 1, "layernorm_stats": 4, "fused_linear": 8,
+          "flash_attention": 4, "mlp_block": 4, "layernorm": 1, "matmul": 1},
+         False, 1),
+    )
+    for tag, variant, dtype, layers, bs, fwd, remat, embed_dw in cases:
+        cfg = VARIANTS[variant].replace(dtype=dtype, num_classes=1000,
+                                        num_layers=layers)
+        params = init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(32), device="cuda")
+        px = torch.randn((bs, 3, cfg.image_size, cfg.image_size),
+                         generator=gen, device="cuda")
+        labels = torch.randint(0, 1000, (bs,), generator=gen, device="cuda")
+        want_loss, want = train_grads(torch, params, cfg, px, labels, "torch")
+        init_fn, step_fn = make_train_step(cfg, make_optimizer(1e-4, 0.05))
+        opt = init_fn(params)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        params, opt, loss = step_fn(params, opt, px, labels)
+        torch.cuda.synchronize()
+        main_counts[f"{tag} train step"] = counts = launch_counts()
+        check_counts(f"{tag} train step", counts, expect_counts(
+            counts, train_step_counts(fwd, layers, attn_remat=remat,
+                                      embed_dw=embed_dw)))
+        got = [t.grad for t in tree_leaves(params)]
+        worst = check_train_grads(torch, tag, got, want, dtype)
+        dl = abs(float(loss) - float(want_loss))
+        bar = 1e-4 if dtype == torch.float32 else MODEL_BF16_REL_BAR * (
+            1 + abs(float(want_loss)))
+        if not dl <= bar:
+            raise AssertionError(f"{tag}: loss {float(loss)} vs "
+                                 f"{float(want_loss)}")
+        entry = {"loss": float(loss), "plain_loss": float(want_loss),
+                 "worst_grad_vs_bar": worst}
+        if tag == "B/16 fp32 bs=32":
+            # Two more AdamW steps on the same batch: the loss falls.
+            losses = [float(loss)]
+            for _ in range(2):
+                params, opt, loss = step_fn(params, opt, px, labels)
+                losses.append(float(loss))
+            if not (np.isfinite(losses).all() and losses[2] < losses[0]):
+                raise AssertionError(f"{tag}: losses {losses} do not fall")
+            entry["losses_3_steps"] = losses
+        log(f"[train] {tag}: {entry}; launches {counts}")
+        res[tag] = entry
+        del params, opt, got, want
+        torch.cuda.empty_cache()
+
+    # The step's times at B/16 bs=32, kernels and plain, in each dtype.
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = VARIANTS["B/16"].replace(dtype=dtype, num_classes=1000)
+        px = torch.randn((32, 3, 224, 224), generator=gen, device="cuda")
+        labels = torch.randint(0, 1000, (32,), generator=gen, device="cuda")
+        dname = str(dtype).replace("torch.", "")
+        for impl in (None, "torch"):
+            params = init_params(cfg, generator=torch.Generator(
+                device="cuda").manual_seed(33), device="cuda")
+            init_fn, step_fn = make_train_step(cfg,
+                                               make_optimizer(1e-4, 0.05),
+                                               impl=impl)
+            opt = init_fn(params)
+
+            def step():
+                return step_fn(params, opt, px, labels)
+            times = event_times(torch, step, iters=10, warmup=2)
+            busy, by_name = device_ms(torch, step, iters=3)
+            mean = float(np.mean(times))
+            ms = float(np.median(times))
+            tier = "kernels" if impl is None else "plain"
+            res[f"step_b16_{dname}_bs32_{tier}"] = {
+                "ms": ms, "images_per_s": 32e3 / ms, "mean_ms": mean,
+                "device_busy_ms": busy, "idle_share": 1 - busy / mean,
+                "kernels_ms": dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:8])}
+            log(f"[train] B/16 {dname} bs=32 step, {tier}: {ms:.2f} ms "
+                f"({32e3 / ms:.1f} images/s), idle {1 - busy / mean:.3f}")
+            del params, opt
+            torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "vit_tpu_torch")):
         raise SystemExit("vit_tpu_torch/ not found beside chip_smoke.py: "
@@ -923,7 +1168,7 @@ def main() -> int:
     timing_cases = []
     for cases in (kernel_cases, kernel_cases_l16_384,
                   kernel_cases_small_batch, kernel_cases_int8,
-                  kernel_cases_stack_q):
+                  kernel_cases_stack_q, kernel_cases_train):
         for dtype in (torch.float32, torch.bfloat16):
             for c in cases(torch, dtype):
                 got = c["run"]("cuda")
@@ -1285,6 +1530,8 @@ def main() -> int:
             "bf16": [runs[0], runs[3]], "int8": [runs[1], runs[2]],
             "int8_images_per_s": bs * 1e3 / runs[1]["ms"],
             "bf16_images_per_s": bs * 1e3 / runs[0]["ms"]}
+    # -- 12. training: the fifth main path ----------------------------------
+    e2e["training"] = train_phase(torch, main_counts)
     log(json.dumps({"timings": timings, "end_to_end": e2e, "card": smi,
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
 

@@ -539,3 +539,99 @@ def test_torch_cuda_int8_wrappers_check_inputs(gen):
                             _rnd(gen, torch.float32, 256), _rnd(
                                 gen, torch.float32, 256), w2["q"],
                             w2["scale"], v)
+
+
+# ------------------------------------------------ training (K13, Functions)
+
+def _split_qkv_grad(dqkv):
+    from vit_tpu_torch.ops import reference
+    return reference.split_qkv_grad(dqkv)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,heads,s,seq_len,hd", [
+    (1, 2, 1, 1, 16), (2, 3, 17, 17, 64), (1, 2, 65, 60, 80),
+    (2, 4, 208, 197, 64), (1, 2, 592, 577, 64), (1, 2, 208, 197, 128),
+    (3, 1, 65, 65, 128), (1, 3, 40, 33, 16)])
+def test_torch_cuda_flash_attention_bwd(gen, dtype, b, heads, s, seq_len, hd):
+    """K13 against its plain version, contiguous operands and strided views
+    of a packed QKV buffer with g a (B, S, H, d) buffer's view; two calls
+    agree bit for bit."""
+    from vit_tpu_torch import ops
+
+    kw = dict(scale=hd ** -0.5, seq_len=seq_len)
+    q, k, v, g = (_rnd(gen, dtype, b, heads, s, hd) for _ in range(4))
+    got = ops.flash_attention_bwd(q, k, v, g, impl="cuda", **kw)
+    assert got.shape == (b, s, 3, heads, hd) and got.is_contiguous()
+    _close(got, ops.flash_attention_bwd(q, k, v, g, impl="torch", **kw))
+    qkv = _rnd(gen, dtype, b * s, 3 * heads * hd)
+    q, k, v = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    g = _rnd(gen, dtype, b, s, heads, hd).transpose(1, 2)
+    got = ops.flash_attention_bwd(q, k, v, g, impl="cuda", **kw)
+    _close(got, ops.flash_attention_bwd(q, k, v, g, impl="torch", **kw))
+    again = ops.flash_attention_bwd(q, k, v, g, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _, dk, dv = _split_qkv_grad(got)
+    assert not dk[:, :, seq_len:].any() and not dv[:, :, seq_len:].any()
+
+
+def _grads(fn, args, g):
+    leaves = [a.detach().requires_grad_() for a in args]
+    torch.autograd.backward(fn(*leaves), g)
+    return [t.grad for t in leaves]
+
+
+def _close_grads(got, want, dtype):
+    """Per tensor: fp32 max|diff| <= 1e-3 max|ref| (the backward's sum
+    orders, through a remat chain); bf16 relative norm <= 2e-2 (the
+    kernel route rounds where JAX's VJPs round, PyTorch's autograd of the
+    plain ops where the forward casts)."""
+    torch.cuda.synchronize()
+    for gt, w in zip(got, want):
+        assert gt is not None and torch.isfinite(gt).all()
+        gt, w = gt.float(), w.float()
+        if dtype == torch.float32:
+            assert (gt - w).abs().max() <= 1e-3 * w.abs().max()
+        else:
+            assert (gt - w).norm() <= 2e-2 * w.norm()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_torch_cuda_block_backwards_match_plain(gen, dtype):
+    """``AttnBlock`` (208 tokens, 197 real) and ``MlpBlock`` backward
+    through the kernels against PyTorch's autograd of the plain ops, with
+    the launches of one backward: the remat forward (K5 + K6, K7, K2;
+    K5 + K6, K2) and its products on K2, K13 once."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    b, s, d, mlp, heads = 2, 208, 256, 512, 4
+    x = _rnd(gen, dtype, b, s, d)
+    ln = (_rnd(gen, dtype, d, std=0.1, mean=1.0),
+          _rnd(gen, dtype, d, std=0.05))
+    attn = (*ln, _rnd(gen, dtype, d, 3 * d, std=0.05),
+            _rnd(gen, dtype, 3 * d, std=0.02),
+            _rnd(gen, dtype, d, d, std=0.05),
+            _rnd(gen, dtype, d, std=0.02))
+    mlpw = (*ln, _rnd(gen, dtype, d, mlp, std=0.05), _rnd(gen, dtype, mlp),
+            _rnd(gen, dtype, mlp, d, std=0.05), _rnd(gen, dtype, d))
+    g = _rnd(gen, dtype, b, s, d)
+
+    def attn_fn(impl):
+        return lambda *a: ops.attn_block(*a, num_heads=heads, seq_len=197,
+                                         impl=impl)
+
+    def mlp_fn(impl):
+        return lambda *a: ops.mlp_block(*a, impl=impl)
+    for fn, args, expect in (
+            (attn_fn, (x, *attn), dict(
+                layernorm=1, matmul=6, attention=1, layernorm_stats=1,
+                fused_linear=2, flash_attention=1, flash_attention_bwd=1)),
+            (mlp_fn, (x, *mlpw), dict(mlp_block=1, layernorm_stats=1,
+                                      fused_linear=2, matmul=5))):
+        reset_launch_counts()
+        got = _grads(fn(None), args, g)
+        torch.cuda.synchronize()
+        assert launch_counts() == _counts(**expect)
+        _close_grads(got, _grads(fn("torch"), args, g), dtype)

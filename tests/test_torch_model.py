@@ -118,7 +118,7 @@ def test_torch_padded_rows_are_finite():
     x = torch.nn.functional.pad(x, (0, 0, 0, vit._padded_seq(tcfg) - 17))
     assert x.shape[1] == 32
     for i in range(tcfg.num_layers):
-        x = vit.encoder_block(x, vit._layer(tparams["encoder"], i), tcfg,
+        x = vit.encoder_block(x, vit._layers(tparams["encoder"])[i], tcfg,
                               seq_len=17)
         assert torch.isfinite(x).all(), i
 

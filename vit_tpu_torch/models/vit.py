@@ -141,9 +141,16 @@ def fold_base(params: Params, cfg: ViTConfig) -> torch.Tensor:
                       pos.new_zeros((_padded_seq(cfg) - s, d))])
 
 
-def _layer(enc: Params, i: int) -> Params:
-    """Layer ``i``'s params as views of the stacked encoder tensors."""
-    return {name: {k: t[i] for k, t in p.items()} for name, p in enc.items()}
+def _layers(enc: Params) -> list[Params]:
+    """Every layer's params as views of the stacked encoder tensors, each
+    tensor unbound once: a backward then stacks each tensor's per-layer
+    gradients once, where indexing ``t[i]`` a layer at a time would
+    zero-fill a whole ``(L, ...)`` gradient for every layer."""
+    unbound = {name: {k: t.unbind(0) for k, t in p.items()}
+               for name, p in enc.items()}
+    return [{name: {k: ts[i] for k, ts in p.items()}
+             for name, p in unbound.items()}
+            for i in range(enc["qkv"]["kernel"].shape[0])]
 
 
 def encoder_block(x: torch.Tensor, lp: Params, cfg: ViTConfig, *,
@@ -233,9 +240,8 @@ def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
                               scale=cfg.head_dim ** -0.5, seq_len=s, eps=eps,
                               impl=impl)
     else:
-        for i in range(cfg.num_layers):
-            x = encoder_block(x, _layer(params["encoder"], i), cfg,
-                              impl=impl, seq_len=s)
+        for lp in _layers(params["encoder"]):
+            x = encoder_block(x, lp, cfg, impl=impl, seq_len=s)
     x = ops.layernorm(x, params["ln_final"]["scale"],
                       params["ln_final"]["bias"], eps=cfg.layernorm_eps,
                       impl=impl)
@@ -269,9 +275,8 @@ def forward_with_intermediates(params: Params, pixels: torch.Tensor,
     x = embed(params, pixels, cfg, impl=impl)
     hiddens = [x]
     x = F.pad(x, (0, 0, 0, sp - s))
-    for i in range(cfg.num_layers):
-        x = encoder_block(x, _layer(params["encoder"], i), cfg, impl=impl,
-                          seq_len=s)
+    for lp in _layers(params["encoder"]):
+        x = encoder_block(x, lp, cfg, impl=impl, seq_len=s)
         hiddens.append(x[:, :s])
     final = ops.layernorm(x, params["ln_final"]["scale"],
                           params["ln_final"]["bias"], eps=cfg.layernorm_eps,

@@ -4,6 +4,13 @@ Every op takes ``impl="torch" | "cuda" | None`` (see
 :mod:`vit_tpu_torch.ops.dispatch`): ``None`` runs the hand-written kernel
 for a CUDA tensor and the plain PyTorch version for a CPU tensor.
 
+The float ops are differentiable. With ``impl="torch"`` PyTorch's autograd
+differentiates the plain versions (the oracle); otherwise each op is a
+``torch.autograd.Function`` of :mod:`vit_tpu_torch.ops.autograd`, whose
+backward is JAX's custom VJP for the op (``vit_tpu/ops/pallas/vjp.py``)
+with its kernel slots filled by device. The int8 ops and
+``layernorm_stats`` are not differentiable, as in JAX.
+
 :func:`attn_plan` and :func:`mlp_plan` say whether a half-block
 mega-kernel takes a geometry; the model routes each half of a layer by
 them (``vit_tpu_torch/models/vit.py:encoder_block``). :func:`stack_plan`,
@@ -18,14 +25,15 @@ from __future__ import annotations
 
 import torch
 
-from vit_tpu_torch.ops import reference
-from vit_tpu_torch.ops.dispatch import resolve_impl
+from vit_tpu_torch.ops import autograd, reference
+from vit_tpu_torch.ops.dispatch import check_impl, kernel_fn, resolve_impl
 from vit_tpu_torch.ops.reference import patchify
 
 __all__ = [
     "layernorm", "layernorm_stats", "matmul", "fused_linear", "patchify",
-    "patch_embed", "flash_attention", "attn_block", "mlp_block", "attn_plan",
-    "mlp_plan", "embed_fused", "embed_fused_ok", "encoder_stack",
+    "patch_embed", "flash_attention", "flash_attention_bwd", "attn_block",
+    "mlp_block", "attn_plan", "mlp_plan", "embed_fused", "embed_fused_ok",
+    "encoder_stack",
     "encoder_stack_fused", "stack_plan", "stack_fused_plan", "quantize_rows",
     "matmul_i8", "attn_block_q", "mlp_block_i8dot", "encoder_stack_q",
     "stack_q_plan", "resolve_impl", "reference",
@@ -34,53 +42,62 @@ __all__ = [
 
 def layernorm(x, scale, bias, *, eps=1e-12, impl=None):
     """Row layernorm over the last dim (kernel K1)."""
-    if resolve_impl(impl, x) == "torch":
+    if check_impl(impl) == "torch":
         return reference.layernorm(x, scale, bias, eps=eps)
-    from vit_tpu_torch.ops.cuda import layernorm as _k
-    return _k.layernorm(x, scale, bias, eps=eps)
+    return autograd.run(autograd.LayerNorm, x, scale, bias, eps, impl)
 
 
 def layernorm_stats(x, *, eps=1e-12, impl=None):
     """Row mean and ``rsqrt(var + eps)`` as two ``(M, 1)`` fp32 tensors
     (kernel K5)."""
-    if resolve_impl(impl, x) == "torch":
-        return reference.layernorm_stats(x, eps=eps)
-    from vit_tpu_torch.ops.cuda import layernorm as _k
-    return _k.layernorm_stats(x, eps=eps)
+    return kernel_fn("layernorm_stats", impl, x)(x, eps=eps)
 
 
 def matmul(x, w, bias=None, activation=None, *, residual=None, impl=None):
     """``(..., K) @ (K, N)`` + bias, GELU, + residual (kernel K2)."""
-    if resolve_impl(impl, x) == "torch":
+    if check_impl(impl) == "torch":
         return reference.matmul(x, w, bias, activation, residual)
-    from vit_tpu_torch.ops.cuda import matmul as _k
-    return _k.matmul(x, w, bias, activation, residual)
+    return autograd.run(autograd.Linear, x, w, bias, residual, activation,
+                        impl)
 
 
 def fused_linear(x, w, bias=None, activation=None, *, ln_scale=None,
                  ln_bias=None, eps=1e-12, residual=None, impl=None):
     """``act(LN(x) @ w + bias) + residual`` (K5 then K6 with LN; K2
     without)."""
-    if resolve_impl(impl, x) == "torch":
+    if check_impl(impl) == "torch":
         return reference.fused_linear(x, w, bias, activation,
                                       ln_scale=ln_scale, ln_bias=ln_bias,
                                       eps=eps, residual=residual)
-    from vit_tpu_torch.ops.cuda import matmul as _k
-    return _k.fused_linear(x, w, bias, activation, ln_scale=ln_scale,
-                           ln_bias=ln_bias, eps=eps, residual=residual)
+    return autograd.run(autograd.FusedLinear, x, w, bias, ln_scale, ln_bias,
+                        residual, activation, eps, impl)
 
 
 def flash_attention(q, k, v, *, scale=None, seq_len=None, out_dtype=None,
                     impl=None):
     """Softmax attention in (B, H, S, d) layout, keys at index >= ``seq_len``
     masked (kernel K7). ``q``, ``k`` and ``v`` may be strided views; the
-    result is in ``out_dtype`` (default ``q.dtype``, or fp32)."""
-    if resolve_impl(impl, q) == "torch":
+    result is in ``out_dtype`` (default ``q.dtype``, or fp32). An fp32
+    result of lower-precision inputs (the int8 tier's) is not
+    differentiable."""
+    if check_impl(impl) == "torch":
         return reference.flash_attention(q, k, v, scale=scale,
                                          seq_len=seq_len, out_dtype=out_dtype)
-    from vit_tpu_torch.ops.cuda import attention as _k
-    return _k.flash_attention(q, k, v, scale=scale, seq_len=seq_len,
-                              out_dtype=out_dtype)
+    if out_dtype not in (None, q.dtype):
+        return kernel_fn("flash_attention", impl, q)(
+            q, k, v, scale=scale, seq_len=seq_len, out_dtype=out_dtype)
+    return autograd.run(
+        autograd.Attention, q, k, v,
+        q.shape[-1] ** -0.5 if scale is None else scale,
+        q.shape[2] if seq_len is None else seq_len, impl)
+
+
+def flash_attention_bwd(q, k, v, g, *, scale=None, seq_len=None, impl=None):
+    """The gradients of :func:`flash_attention` for the output gradient
+    ``g`` (kernel K13, two launches): the packed ``(B, S, 3, H, d)`` buffer
+    ``[dq | dk | dv]`` (``reference.split_qkv_grad`` splits it)."""
+    return kernel_fn("flash_attention_bwd", impl, q)(q, k, v, g, scale=scale,
+                                                     seq_len=seq_len)
 
 
 def patch_embed(x, w, bias, patch_size, *, impl=None):
@@ -92,25 +109,27 @@ def patch_embed(x, w, bias, patch_size, *, impl=None):
 
 def mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps=1e-12, impl=None):
     """``x + fc2(gelu(fc1(LN(x))))``, one kernel (K3)."""
-    if resolve_impl(impl, x) == "torch":
+    if check_impl(impl) == "torch":
         return reference.mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2,
                                    eps=eps)
-    from vit_tpu_torch.ops.cuda import block as _k
-    return _k.mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps)
+    return autograd.run(autograd.MlpBlock, x, ln_scale, ln_bias, w1, b1, w2,
+                        b2, eps, impl)
 
 
 def attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *, num_heads,
                scale=None, seq_len=None, eps=1e-12, impl=None):
     """``x + proj(MHA(LN(x)))`` for ``x`` (B, S, D) (K4: K1, K2, the
     attention core, K2)."""
-    if resolve_impl(impl, x) == "torch":
+    if check_impl(impl) == "torch":
         return reference.attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wout,
                                     bout, num_heads=num_heads, scale=scale,
                                     seq_len=seq_len, eps=eps)
-    from vit_tpu_torch.ops.cuda import block as _k
-    return _k.attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
-                         num_heads=num_heads, scale=scale, seq_len=seq_len,
-                         eps=eps)
+    b, s, d = x.shape
+    return autograd.run(
+        autograd.AttnBlock, x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+        num_heads,
+        (d // num_heads) ** -0.5 if scale is None else scale,
+        s if seq_len is None else seq_len, eps, impl)
 
 
 def attn_plan(batch: int, seq_pad: int, hidden: int, num_heads: int,
@@ -138,35 +157,41 @@ def mlp_plan(hidden: int, mlp: int, dtype: torch.dtype) -> bool:
 def embed_fused(patches, w, bias, cls_row, pos, sp, *, impl=None):
     """Patch projection + CLS row + positions + zero pad to ``sp`` rows in
     one kernel (K8): ``(B, N, K) -> (B, sp, D)``."""
-    if resolve_impl(impl, patches) == "torch":
+    if check_impl(impl) == "torch":
         return reference.embed_fused(patches, w, bias, cls_row, pos, sp)
-    from vit_tpu_torch.ops.cuda import embed as _k
-    return _k.embed_fused(patches, w, bias, cls_row, pos, sp)
+    return autograd.run(autograd.EmbedFused, patches, w, bias, cls_row, pos,
+                        sp, impl)
 
 
 def encoder_stack(x, enc, *, num_heads, scale=None, seq_len=None, eps=1e-12,
                   impl=None):
     """The whole stacked encoder on ``x`` (B, sp, D) in one kernel (K9)."""
-    if resolve_impl(impl, x) == "torch":
+    if check_impl(impl) == "torch":
         return reference.encoder_stack(x, enc, num_heads=num_heads,
                                        scale=scale, seq_len=seq_len, eps=eps)
-    from vit_tpu_torch.ops.cuda import stack as _k
-    return _k.encoder_stack(x, enc, num_heads=num_heads, scale=scale,
-                            seq_len=seq_len, eps=eps)
+    b, s, d = x.shape
+    return autograd.run(
+        autograd.EncoderStack, x, num_heads,
+        (d // num_heads) ** -0.5 if scale is None else scale,
+        s if seq_len is None else seq_len, eps, impl,
+        *autograd.enc_leaves(enc))
 
 
 def encoder_stack_fused(patches, enc, wemb, base, lnf, *, num_heads, sp,
                         scale=None, seq_len=None, eps=1e-12, impl=None):
     """Patch embed + the whole encoder + the final LN in one kernel (K9,
     embed and final LN folded): ``(B, N, K) -> (B, sp, D)``."""
-    if resolve_impl(impl, patches) == "torch":
+    if check_impl(impl) == "torch":
         return reference.encoder_stack_fused(
             patches, enc, wemb, base, lnf, num_heads=num_heads, sp=sp,
             scale=scale, seq_len=seq_len, eps=eps)
-    from vit_tpu_torch.ops.cuda import stack as _k
-    return _k.encoder_stack_fused(patches, enc, wemb, base, lnf,
-                                  num_heads=num_heads, sp=sp, scale=scale,
-                                  seq_len=seq_len, eps=eps)
+    d = wemb.shape[1]
+    return autograd.run(
+        autograd.EncoderStackFused, patches, wemb, base, lnf["scale"],
+        lnf["bias"], num_heads, sp,
+        (d // num_heads) ** -0.5 if scale is None else scale,
+        patches.shape[1] + 1 if seq_len is None else seq_len, eps, impl,
+        *autograd.enc_leaves(enc))
 
 
 def embed_fused_ok(b: int, n: int, d: int, sp: int,
@@ -218,23 +243,17 @@ def stack_fused_plan(b: int, sp: int, d: int, mlp: int, num_heads: int,
 def quantize_rows(x, *, ln_scale=None, ln_bias=None, eps=1e-12, impl=None):
     """Per-row symmetric int8 of ``x`` (..., D), optionally after an fp32
     LN: ``(xq (M, D) int8, ax (M, 1) fp32)`` (kernel K10)."""
-    if resolve_impl(impl, x) == "torch":
-        return reference.quantize_rows(x, ln_scale=ln_scale, ln_bias=ln_bias,
-                                       eps=eps)
-    from vit_tpu_torch.ops.cuda import quant as _k
-    return _k.quantize_rows(x, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
+    return kernel_fn("quantize_rows", impl, x)(
+        x, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
 
 
 def matmul_i8(xq, ax, wq, wscale, bias=None, activation=None, *,
               residual=None, out_dtype, impl=None):
     """``(xq @ wq) * ax * wscale`` + bias, GELU, + residual, the product
     s8 x s8 -> s32 (kernel K11)."""
-    if resolve_impl(impl, xq) == "torch":
-        return reference.matmul_i8(xq, ax, wq, wscale, bias, activation,
-                                   residual=residual, out_dtype=out_dtype)
-    from vit_tpu_torch.ops.cuda import quant as _k
-    return _k.matmul_i8(xq, ax, wq, wscale, bias, activation,
-                        residual=residual, out_dtype=out_dtype)
+    return kernel_fn("matmul_i8", impl, xq)(
+        xq, ax, wq, wscale, bias, activation, residual=residual,
+        out_dtype=out_dtype)
 
 
 def attn_block_q(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q, sout, bout,
@@ -242,36 +261,25 @@ def attn_block_q(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q, sout, bout,
                  impl=None):
     """``x + proj(MHA(LN(x)))`` with int8 projections (five launches: K10,
     K11, K7 with an fp32 output, K10, K11)."""
-    args = (x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q, sout, bout)
-    kw = dict(num_heads=num_heads, scale=scale, seq_len=seq_len, eps=eps)
-    if resolve_impl(impl, x) == "torch":
-        return reference.attn_block_q(*args, **kw)
-    from vit_tpu_torch.ops.cuda import quant as _k
-    return _k.attn_block_q(*args, **kw)
+    return kernel_fn("attn_block_q", impl, x)(
+        x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q, sout, bout,
+        num_heads=num_heads, scale=scale, seq_len=seq_len, eps=eps)
 
 
 def mlp_block_i8dot(x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, *,
                     eps=1e-12, impl=None):
     """``x + fc2(gelu(fc1(LN(x))))`` with both products s8 x s8 -> s32 and
     the hidden requantized every 512 columns, one kernel (K12)."""
-    args = (x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2)
-    if resolve_impl(impl, x) == "torch":
-        return reference.mlp_block_i8dot(*args, eps=eps)
-    from vit_tpu_torch.ops.cuda import quant as _k
-    return _k.mlp_block_i8dot(*args, eps=eps)
+    return kernel_fn("mlp_block_i8dot", impl, x)(
+        x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps=eps)
 
 
 def encoder_stack_q(x, enc, *, num_heads, scale=None, seq_len=None,
                     eps=1e-12, impl=None):
     """The whole encoder on weight-only int8 weights in one kernel (K9 with
     int8 weight tiles)."""
-    if resolve_impl(impl, x) == "torch":
-        return reference.encoder_stack_q(x, enc, num_heads=num_heads,
-                                         scale=scale, seq_len=seq_len,
-                                         eps=eps)
-    from vit_tpu_torch.ops.cuda import stack as _k
-    return _k.encoder_stack_q(x, enc, num_heads=num_heads, scale=scale,
-                              seq_len=seq_len, eps=eps)
+    return kernel_fn("encoder_stack_q", impl, x)(
+        x, enc, num_heads=num_heads, scale=scale, seq_len=seq_len, eps=eps)
 
 
 def stack_q_plan(b: int, sp: int, d: int, mlp: int, num_heads: int,

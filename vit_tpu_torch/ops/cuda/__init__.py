@@ -16,7 +16,7 @@ from __future__ import annotations
 KERNELS = ("layernorm", "matmul", "attention", "mlp_block", "layernorm_stats",
            "fused_linear", "flash_attention", "embed_fused", "encoder_stack",
            "encoder_stack_fused", "quantize_rows", "matmul_i8",
-           "mlp_block_i8dot", "encoder_stack_q")
+           "mlp_block_i8dot", "encoder_stack_q", "flash_attention_bwd")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

@@ -56,6 +56,11 @@ _SIGNATURES = {
     # heads, seq, head_dim, seq_len, scale, out_f32
     "vit_flash_attention": (_P, _P, _P, _P, *(_L,) * 12, _I, _I, _I, _I, _I,
                             _F, _I),
+    # q, k, v, g, dq, dk, dv, (b, h, s) element strides of each of the
+    # seven, the (3, B*H, S) fp32 stats scratch, batch, heads, seq,
+    # head_dim, seq_len, scale
+    "vit_flash_attention_bwd": (*(_P,) * 7, *(_L,) * 21, _P, _I, _I, _I, _I,
+                                _I, _F),
     # patches, w, bias, cls_row, pos, out, b, n, k, d, sp
     "vit_embed_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     # x, qkv, ctx, hid, acc, out, the 12 stacked encoder tensors, patches,

@@ -5,7 +5,9 @@ a packed ``(B*S, 3D)`` QKV buffer go in as views, and writes a
 ``(B, S, H, d)`` buffer that is returned as a ``(B, H, S, d)`` view: the
 model reads it back as ``(B*S, D)`` with no copy. The buffer is in the
 inputs' dtype or, for the int8 tier's attention, fp32; both count as
-``flash_attention`` launches."""
+``flash_attention`` launches. Its backward is K13
+(:func:`flash_attention_bwd`), the counterpart of
+``vit_tpu/ops/pallas/vjp.py:_attention_bwd``."""
 
 from __future__ import annotations
 
@@ -54,4 +56,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   seq_len, float(scale), int(out_dtype == torch.float32),
                   like=q)
     count_launch("flash_attention")
+    return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, *, scale: float | None = None,
+                        seq_len: int | None = None) -> torch.Tensor:
+    """The gradients of :func:`flash_attention` (K13,
+    ``csrc/flash_attention_bwd.cu``) for the output gradient ``g``, all four
+    CUDA tensors ``(B, H, S, d)`` in one dtype, each any strided view whose
+    last dim is contiguous. Returns the packed ``(B, S, 3, H, d)`` buffer
+    ``[dq | dk | dv]`` in that dtype. One call is two launches (query-major
+    for dq, key-major for dk and dv, with a ``(3, B*H, S)`` fp32 scratch of
+    the rows' softmax stats between them), counted once as
+    ``flash_attention_bwd``."""
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (g, "g")):
+        _build.check_tensor(t, name, q, contiguous=False)
+        if t.dim() != 4 or t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} is not the "
+                             f"(B, H, S, d) shape of q {tuple(q.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dim")
+    b, h, s, d = q.shape
+    if d % 16 or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be a multiple of 16 up to "
+                         f"{MAX_HEAD_DIM}")
+    if scale is None:
+        scale = d ** -0.5
+    if seq_len is None:
+        seq_len = s
+    if not 0 < seq_len <= s:
+        raise ValueError(f"seq_len {seq_len} outside (0, {s}]")
+    if b * h == 0:
+        raise ValueError(f"flash_attention_bwd of an empty batch "
+                         f"{tuple(q.shape)}")
+    out = torch.empty((b, s, 3, h, d), dtype=q.dtype, device=q.device)
+    grads = out.permute(2, 0, 3, 1, 4).unbind(0)
+    stats = torch.empty((3, b * h, s), dtype=torch.float32, device=q.device)
+    strides = [st for t in (q, k, v, g, *grads) for st in t.stride()[:3]]
+    _build.launch("vit_flash_attention_bwd", q, k, v, g, *grads, *strides,
+                  stats, b, h, s, d, seq_len, float(scale), like=q)
+    count_launch("flash_attention_bwd")
     return out

@@ -40,6 +40,36 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.erf(x * (2.0 ** -0.5)))
 
 
+_INV_SQRT_2PI = 0.3989422804014327
+
+
+def gelu_grad(z: torch.Tensor) -> torch.Tensor:
+    """d/dz of the erf-form GELU: ``Phi(z) + z phi(z)``
+    (``vit_tpu/ops/pallas/vjp.py:gelu_grad``)."""
+    phi = _INV_SQRT_2PI * torch.exp(-0.5 * z * z)
+    return 0.5 * (1.0 + torch.erf(z * (2.0 ** -0.5))) + z * phi
+
+
+def layernorm_grad(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
+                   eps: float = 1e-12):
+    """The layernorm backward in fp32 (``vit_tpu/ops/pallas/vjp.py:
+    179-195``): for rows ``x`` (..., D) and the output gradient ``g``,
+    ``(dx in x.dtype, dscale, dbias)``, the last two fp32 sums over the
+    rows, left in fp32 for the caller to cast."""
+    d = x.shape[-1]
+    x32 = _f32(x).reshape(-1, d)
+    g32 = _f32(g).reshape(-1, d)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * rstd
+    dxhat = g32 * _f32(scale)
+    dx = rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    return (dx.to(x.dtype).reshape(x.shape), (g32 * xhat).sum(dim=0),
+            g32.sum(dim=0))
+
+
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
               eps: float = 1e-12) -> torch.Tensor:
     """Row layernorm over the last dim: fp32 stats, biased variance, eps
@@ -156,6 +186,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     its softmax relative to a running max instead of the row max."""
     return attention(q, k, v, scale=scale, seq_len=seq_len,
                      out_dtype=out_dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, *, scale: float | None = None,
+                        seq_len: int | None = None) -> torch.Tensor:
+    """The gradients of :func:`flash_attention` for the output gradient
+    ``g``, with the rounding of ``vit_tpu/ops/pallas/vjp.py:
+    _flash_bwd_group_kernel``: ``p = exp(s - rowmax) / rowsum`` in fp32 from
+    the fp32 scores (keys >= ``seq_len`` at -inf), ``dv = (p in dtype)^T
+    g``, ``dp = g v^T``, ``ds = p * (dp - rowsum(dp * p))``, ``dq = (ds in
+    dtype) k * scale`` and ``dk = (ds in dtype)^T q * scale``, each product
+    summed in fp32 and cast once to ``q.dtype``.
+
+    Returns the packed ``(B, S, 3, H, d)`` buffer ``[dq | dk | dv]`` that a
+    ``(B*S, 3D)`` QKV projection's gradient is (:func:`split_qkv_grad` gives
+    the three ``(B, H, S, d)`` views), as the kernel writes it."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dt = q.dtype
+    s = torch.matmul(_f32(q), _f32(k).transpose(-1, -2)) * scale
+    if seq_len is not None and seq_len != k.shape[-2]:
+        keep = torch.arange(k.shape[-2], device=k.device) < seq_len
+        s = s.masked_fill(~keep, float("-inf"))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.matmul(_f32(p.to(dt)).transpose(-1, -2), _f32(g))
+    dp = torch.matmul(_f32(g), _f32(v).transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = _f32(ds.to(dt))
+    dq = torch.matmul(ds, _f32(k)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), _f32(q)) * scale
+    return torch.stack([t.to(dt).transpose(1, 2) for t in (dq, dk, dv)], 2)
+
+
+def split_qkv_grad(dqkv: torch.Tensor):
+    """``(dq, dk, dv)``, each a ``(B, H, S, d)`` view of the packed
+    ``(B, S, 3, H, d)`` buffer of :func:`flash_attention_bwd`."""
+    return dqkv.permute(2, 0, 3, 1, 4).unbind(0)
 
 
 def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
