@@ -431,8 +431,9 @@ def kernel_cases_train(torch, dtype):
     592) in bf16; H/14 bs=2 (32 heads, 257 of 272, d=80) in fp32. q, k and
     v are views of a packed QKV buffer, g a (B, S, H, d) buffer's view, as
     the training step gives them. Bound: JAX's cost estimate
-    (``vjp.py:414-417``), 10*B*H*S^2*d operations and the four inputs and
-    three outputs once."""
+    (``vjp.py:414-417``) over the keys this run's data keeps, 10*B*H*S*
+    seq_len*d operations (every query row, the real keys; the masked keys'
+    dk and dv are zeros), and the four inputs and three outputs once."""
     from vit_tpu_torch import ops
 
     rnd = _rnd_fn(torch, dtype, 13)
@@ -450,8 +451,8 @@ def kernel_cases_train(torch, dtype):
             f"{tag} B={b} H={h} S={s} seq_len {seq_len} d={hd}",
             lambda impl, a=args: ops.flash_attention_bwd(
                 *a[:4], scale=a[4], seq_len=a[5], impl=impl),
-            (7 * b * h * s * hd * dtype.itemsize, 10 * b * h * s * s * hd,
-             _kind(torch, dtype)),
+            (7 * b * h * s * hd * dtype.itemsize,
+             10 * b * h * s * seq_len * hd, _kind(torch, dtype)),
             library=_sdpa_bwd(torch, *args), primary=tag == "B/16"))
     return cases
 
@@ -1026,7 +1027,7 @@ def train_phase(torch, main_counts: dict) -> dict:
     torch.cuda.synchronize()
     if not torch.equal(first, again):
         raise AssertionError("flash_attention_bwd is not deterministic")
-    dk, dv = reference.split_qkv_grad(first)[1:]
+    dk, dv = reference.split_qkv(first)[1:]
     if dk[:, :, 197:].any() or dv[:, :, 197:].any():
         raise AssertionError("flash_attention_bwd: masked keys have "
                              "nonzero dk or dv")

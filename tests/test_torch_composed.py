@@ -130,12 +130,13 @@ def test_torch_composed_forward_with_intermediates_per_layer(monkeypatch):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_torch_composed_route_op_counts(dtype, monkeypatch):
     """At the narrow L/16-384 geometry each layer composes its attention
-    (fused_linear with LN, flash_attention, fused_linear + residual); the
-    MLP half is the fp32 kernel in fp32 and composed in bf16 (D % 128)."""
+    (fused_linear with LN, flash attention over the packed QKV buffer,
+    fused_linear + residual); the MLP half is the fp32 kernel in fp32 and
+    composed in bf16 (D % 128)."""
     _, _, tcfg, tparams = _models(NARROW_L16_384, dtype)
     calls = {}
-    for name in ("fused_linear", "flash_attention", "attn_block",
-                 "mlp_block", "layernorm_stats"):
+    for name in ("fused_linear", "flash_attention", "flash_attention_qkv",
+                 "attn_block", "mlp_block", "layernorm_stats"):
         def spy(*a, _name=name, _fn=getattr(ops, name), **k):
             calls[_name] = calls.get(_name, 0) + 1
             return _fn(*a, **k)
@@ -144,7 +145,7 @@ def test_torch_composed_route_op_counts(dtype, monkeypatch):
     layers = tcfg.num_layers
     mlp_mega = dtype == "float32"
     assert calls == {"fused_linear": layers * (2 if mlp_mega else 4),
-                     "flash_attention": layers,
+                     "flash_attention_qkv": layers,
                      **({"mlp_block": layers} if mlp_mega else {})}
 
 

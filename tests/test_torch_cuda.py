@@ -543,21 +543,18 @@ def test_torch_cuda_int8_wrappers_check_inputs(gen):
 
 # ------------------------------------------------ training (K13, Functions)
 
-def _split_qkv_grad(dqkv):
-    from vit_tpu_torch.ops import reference
-    return reference.split_qkv_grad(dqkv)
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,heads,s,seq_len,hd", [
     (1, 2, 1, 1, 16), (2, 3, 17, 17, 64), (1, 2, 65, 60, 80),
     (2, 4, 208, 197, 64), (1, 2, 592, 577, 64), (1, 2, 208, 197, 128),
-    (3, 1, 65, 65, 128), (1, 3, 40, 33, 16)])
+    (3, 1, 65, 65, 128), (1, 3, 40, 33, 16), (1, 2, 816, 800, 64)])
 def test_torch_cuda_flash_attention_bwd(gen, dtype, b, heads, s, seq_len, hd):
     """K13 against its plain version, contiguous operands and strided views
     of a packed QKV buffer with g a (B, S, H, d) buffer's view; two calls
-    agree bit for bit."""
+    agree bit for bit. 816 tokens is past the 768 where JAX leaves its
+    kernel: K13 takes every S."""
     from vit_tpu_torch import ops
+    from vit_tpu_torch.ops import reference
 
     kw = dict(scale=hd ** -0.5, seq_len=seq_len)
     q, k, v, g = (_rnd(gen, dtype, b, heads, s, hd) for _ in range(4))
@@ -572,7 +569,7 @@ def test_torch_cuda_flash_attention_bwd(gen, dtype, b, heads, s, seq_len, hd):
     again = ops.flash_attention_bwd(q, k, v, g, impl="cuda", **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
-    _, dk, dv = _split_qkv_grad(got)
+    _, dk, dv = reference.split_qkv(got)
     assert not dk[:, :, seq_len:].any() and not dv[:, :, seq_len:].any()
 
 

@@ -104,7 +104,7 @@ def test_torch_flash_attention_bwd_matches_pallas(dtype, seq_len):
         *(jnp.asarray(a, jdt) for a in (q, k, v)))
     want = vjp_fn(jnp.asarray(g, jdt))
     tdt = getattr(torch, dtype)
-    got = reference.split_qkv_grad(reference.flash_attention_bwd(
+    got = reference.split_qkv(reference.flash_attention_bwd(
         *(_t(a, tdt) for a in (q, k, v, g)), seq_len=seq_len))
     for gt, w in zip(got, want):
         assert gt.dtype == tdt
@@ -122,7 +122,7 @@ def test_torch_flash_attention_bwd_zero_for_masked_keys():
     q, k, v, g = (_t(rng.standard_normal((2, 3, 20, 16))) for _ in range(4))
     dqkv = reference.flash_attention_bwd(q, k, v, g, seq_len=13)
     assert dqkv.shape == (2, 20, 3, 3, 16)
-    _, dk, dv = reference.split_qkv_grad(dqkv)
+    _, dk, dv = reference.split_qkv(dqkv)
     assert not dk[:, :, 13:].any() and not dv[:, :, 13:].any()
     assert dk[:, :, :13].abs().min() > 0
 
@@ -178,8 +178,15 @@ def _op_cases():
             lambda q, k, v: jax_ops.flash_attention(q, k, v, seq_len=27,
                                                     impl="xla"),
             [(1, 2, 32, 16)] * 3),
-        # Beyond 768 padded tokens the backward is autograd of the plain
-        # attention, JAX's rule by shape (vjp.py:378-385).
+        "attention_qkv": (
+            lambda qkv: ops.flash_attention_qkv(qkv, seq_len=27),
+            lambda qkv: jax_ops.flash_attention(
+                *(jnp.swapaxes(qkv[:, :, i], 1, 2) for i in range(3)),
+                seq_len=27, impl="xla"),
+            [(2, 32, 3, 2, 16)]),
+        # Beyond 768 padded tokens JAX differentiates a jnp chain
+        # (vjp.py:378-385); the port keeps K13, whose plain version is
+        # the same function.
         "attention_long": (
             lambda q, k, v: ops.flash_attention(q, k, v),
             lambda q, k, v: jax_ops.flash_attention(q, k, v, impl="xla"),
@@ -280,7 +287,7 @@ def test_torch_every_param_gets_a_gradient(route, monkeypatch):
         monkeypatch.setattr(ops, "stack_plan", lambda *a: True)
         monkeypatch.setattr(ops, "stack_fused_plan",
                             lambda *a: route == "stack_fused")
-    marker = {"layers": "attn_block", "composed": "flash_attention",
+    marker = {"layers": "attn_block", "composed": "flash_attention_qkv",
               "embed_fused": "embed_fused", "stack": "encoder_stack",
               "stack_fused": "encoder_stack_fused"}[route]
     calls = _spy(monkeypatch, marker)

@@ -32,11 +32,14 @@
 // 4 x N/16 register block each. Accumulators live in shared memory. Not
 // pipelined (no cp.async, TMA or wgmma): that is later work.
 //
-// Bound on the card: 10*B*H*S^2*d operations (JAX's cost estimate,
-// vjp.py:414-417), the four inputs read and three outputs written once
-// (7*B*H*S*d elements); compute-bound in both types at B/16 (bf16 10.7 us,
-// fp32 159 us at bs=32). This kernel does 10 products of 64x64xd per tile
-// pair (three score passes and two dp passes in (a)), twice the minimum.
+// Bound on the card: 10*B*H*S*seq_len*d operations (JAX's cost estimate,
+// vjp.py:414-417, over the real keys), the four inputs read and three
+// outputs written once (7*B*H*S*d elements). At B/16 bs=32 (384 heads, 197
+// of 208 tokens, d=64) it is bytes-bound in bf16 (71.6 MB, 21.4 us at
+// 3.35 TB/s; the 1.0e10 operations take 10.2 us) and operations-bound in
+// fp32 (150.3 us at 67 TFLOP/s). This kernel does 10 products of 64x64xd
+// per tile pair (three score passes and two dp passes in (a)), twice the
+// minimum.
 //
 // head_dim: any multiple of 16 up to 128. Query rows past S are loaded as
 // zeros and not stored.

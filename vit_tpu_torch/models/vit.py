@@ -185,10 +185,11 @@ def encoder_block(x: torch.Tensor, lp: Params, cfg: ViTConfig, *,
         qkv = ops.fused_linear(xf, lp["qkv"]["kernel"], lp["qkv"]["bias"],
                                ln_scale=ln1["scale"], ln_bias=ln1["bias"],
                                eps=eps, impl=impl)
-        # Strided (B, H, S, hd) views of the packed [q|k|v] columns.
-        q, k, v = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        ctx = ops.flash_attention(q, k, v, scale=hd ** -0.5,
-                                  seq_len=seq_len, impl=impl)
+        # The kernels read the heads as strided views of the packed
+        # [q|k|v] columns; the backward writes the packed gradient.
+        ctx = ops.flash_attention_qkv(qkv.view(b, s, 3, nh, hd),
+                                      scale=hd ** -0.5, seq_len=seq_len,
+                                      impl=impl)
         # The kernel's context is a (B, S, H, hd) buffer: this is a view.
         ctx = ctx.transpose(1, 2).reshape(b * s, d)
         x = ops.fused_linear(ctx, lp["out"]["kernel"], lp["out"]["bias"],

@@ -31,7 +31,8 @@ from vit_tpu_torch.ops.reference import patchify
 
 __all__ = [
     "layernorm", "layernorm_stats", "matmul", "fused_linear", "patchify",
-    "patch_embed", "flash_attention", "flash_attention_bwd", "attn_block",
+    "patch_embed", "flash_attention", "flash_attention_qkv",
+    "flash_attention_bwd", "attn_block",
     "mlp_block", "attn_plan", "mlp_plan", "embed_fused", "embed_fused_ok",
     "encoder_stack",
     "encoder_stack_fused", "stack_plan", "stack_fused_plan", "quantize_rows",
@@ -79,23 +80,38 @@ def flash_attention(q, k, v, *, scale=None, seq_len=None, out_dtype=None,
     masked (kernel K7). ``q``, ``k`` and ``v`` may be strided views; the
     result is in ``out_dtype`` (default ``q.dtype``, or fp32). An fp32
     result of lower-precision inputs (the int8 tier's) is not
-    differentiable."""
+    differentiable. Where a gradient is wanted, q, k and v are packed into
+    one buffer for :func:`flash_attention_qkv`; a caller that holds the
+    packed QKV projection calls that directly."""
     if check_impl(impl) == "torch":
         return reference.flash_attention(q, k, v, scale=scale,
                                          seq_len=seq_len, out_dtype=out_dtype)
-    if out_dtype not in (None, q.dtype):
-        return kernel_fn("flash_attention", impl, q)(
-            q, k, v, scale=scale, seq_len=seq_len, out_dtype=out_dtype)
+    if (out_dtype in (None, q.dtype) and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)], 2)
+        return flash_attention_qkv(qkv, scale=scale, seq_len=seq_len,
+                                   impl=impl)
+    return kernel_fn("flash_attention", impl, q)(
+        q, k, v, scale=scale, seq_len=seq_len, out_dtype=out_dtype)
+
+
+def flash_attention_qkv(qkv, *, scale=None, seq_len=None, impl=None):
+    """:func:`flash_attention` over the heads of a packed ``(B, S, 3, H, d)``
+    QKV buffer, returning ``(B, H, S, d)``; differentiable, its backward on
+    K13, whose packed gradient is the buffer's as it stands."""
+    if check_impl(impl) == "torch":
+        return reference.flash_attention(*reference.split_qkv(qkv),
+                                         scale=scale, seq_len=seq_len)
     return autograd.run(
-        autograd.Attention, q, k, v,
-        q.shape[-1] ** -0.5 if scale is None else scale,
-        q.shape[2] if seq_len is None else seq_len, impl)
+        autograd.Attention, qkv,
+        qkv.shape[-1] ** -0.5 if scale is None else scale,
+        qkv.shape[1] if seq_len is None else seq_len, impl)
 
 
 def flash_attention_bwd(q, k, v, g, *, scale=None, seq_len=None, impl=None):
     """The gradients of :func:`flash_attention` for the output gradient
     ``g`` (kernel K13, two launches): the packed ``(B, S, 3, H, d)`` buffer
-    ``[dq | dk | dv]`` (``reference.split_qkv_grad`` splits it)."""
+    ``[dq | dk | dv]`` (``reference.split_qkv`` splits it)."""
     return kernel_fn("flash_attention_bwd", impl, q)(q, k, v, g, scale=scale,
                                                      seq_len=seq_len)
 

@@ -11,8 +11,9 @@ composition of JAX's custom VJP for that op:
 - the elementwise and reduction glue (GELU and layernorm backward, bias
   and embedding row sums) is torch ops in fp32, as JAX's is jnp;
 - the attention backward is its own kernel, K13 ``flash_attention_bwd``,
-  up to 768 padded tokens; beyond, autograd of the plain attention, JAX's
-  own rule by shape (``vjp.py:378-385``);
+  at every sequence length: its shared memory does not grow with S, so
+  JAX's switch to a jnp chain above 768 padded tokens (``vjp.py:378-385``),
+  a VMEM limit of the TPU, has no counterpart here;
 - the mega-kernels (``mlp_block``, ``attn_block``, both ``encoder_stack``
   forms) save only their inputs and recompute through the composed
   differentiable chain (``_mlp_composed``, ``_attn_composed``, the
@@ -31,9 +32,6 @@ import torch
 from vit_tpu_torch.ops import reference
 from vit_tpu_torch.ops.dispatch import kernel_fn
 
-#: Longest padded sequence whose attention backward runs on K13
-#: (``vjp.py:378``); every ``VARIANTS`` entry is below it (L/16-384: 592).
-FLASH_BWD_MAX_SEQ = 768
 #: The stacked encoder leaves, in the order the stack Functions take them.
 ENC_LEAVES = (("ln1", "scale"), ("ln1", "bias"), ("qkv", "kernel"),
               ("qkv", "bias"), ("out", "kernel"), ("out", "bias"),
@@ -176,68 +174,29 @@ class LayerNorm(torch.autograd.Function):
 
 # -------------------------------------------------------------- attention --
 
-def _heads(qkv: torch.Tensor, batch: int, num_heads: int):
-    """q, k, v as ``(B, H, S, d)`` views of a packed ``(B*S, 3D)`` buffer."""
-    rows, three_d = qkv.shape
-    hd = three_d // (3 * num_heads)
-    return qkv.view(batch, rows // batch, 3, num_heads, hd).permute(
-        2, 0, 3, 1, 4).unbind(0)
-
-
-def _attention_grad(impl, q, k, v, g, scale, seq_len) -> torch.Tensor:
-    """The packed ``(B, S, 3, H, d)`` gradient ``[dq | dk | dv]``: K13 up to
-    :data:`FLASH_BWD_MAX_SEQ` padded tokens, else autograd of the plain
-    attention."""
-    if -(-q.shape[2] // 16) * 16 <= FLASH_BWD_MAX_SEQ:
-        g = g if g.stride(-1) == 1 else g.contiguous()
-        return kernel_fn("flash_attention_bwd", impl, q)(
-            q, k, v, g, scale=scale, seq_len=seq_len)
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = reference.flash_attention(*leaves, scale=scale, seq_len=seq_len)
-        grads = torch.autograd.grad(out, leaves, g)
-    return torch.stack([t.transpose(1, 2) for t in grads], 2)
-
-
 class Attention(torch.autograd.Function):
-    """Masked softmax attention of ``(B, H, S, d)`` q, k, v on K7
-    (``vjp.py:attention``); the gradients are views of K13's packed
-    buffer."""
+    """Masked softmax attention over the heads of a packed
+    ``(B, S, 3, H, d)`` QKV buffer (``vjp.py:attention``): K7 on strided
+    ``(B, H, S, d)`` views forward, K13 backward. K13 writes the packed
+    gradient ``[dq | dk | dv]``, so it is the buffer's gradient as it
+    stands: the QKV ``FusedLinear`` takes it with no concatenation."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, seq_len, impl):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale, ctx.seq_len, ctx.impl = scale, seq_len, impl
-        return kernel_fn("flash_attention", impl, q)(q, k, v, scale=scale,
-                                                     seq_len=seq_len)
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        dqkv = _attention_grad(ctx.impl, q, k, v, g, ctx.scale, ctx.seq_len)
-        return (*reference.split_qkv_grad(dqkv), None, None, None)
-
-
-class AttentionQKV(torch.autograd.Function):
-    """:class:`Attention` over the heads of a packed ``(B*S, 3D)`` QKV
-    projection: K13's packed buffer is the projection's gradient as it
-    stands, so the QKV ``FusedLinear`` takes it with no concatenation."""
-
-    @staticmethod
-    def forward(ctx, qkv, batch, num_heads, scale, seq_len, impl):
+    def forward(ctx, qkv, scale, seq_len, impl):
         ctx.save_for_backward(qkv)
-        ctx.geometry = (batch, num_heads, scale, seq_len, impl)
-        q, k, v = _heads(qkv, batch, num_heads)
+        ctx.scale, ctx.seq_len, ctx.impl = scale, seq_len, impl
+        q, k, v = reference.split_qkv(qkv)
         return kernel_fn("flash_attention", impl, q)(q, k, v, scale=scale,
                                                      seq_len=seq_len)
 
     @staticmethod
     def backward(ctx, g):
         (qkv,) = ctx.saved_tensors
-        batch, num_heads, scale, seq_len, impl = ctx.geometry
-        q, k, v = _heads(qkv, batch, num_heads)
-        dqkv = _attention_grad(impl, q, k, v, g, scale, seq_len)
-        return dqkv.view(qkv.shape), None, None, None, None, None
+        q, k, v = reference.split_qkv(qkv)
+        g = g if g.stride(-1) == 1 else g.contiguous()
+        dqkv = kernel_fn("flash_attention_bwd", ctx.impl, q)(
+            q, k, v, g, scale=ctx.scale, seq_len=ctx.seq_len)
+        return dqkv, None, None, None
 
 
 # -------------------------------------------------- mega-kernels (remat) --
@@ -258,7 +217,8 @@ def _attn_composed(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, num_heads,
     xf = x.reshape(b * s, d)
     qkv = FusedLinear.apply(xf, wqkv, bqkv, ln_scale, ln_bias, None, None,
                             eps, impl)
-    ctx = AttentionQKV.apply(qkv, b, num_heads, scale, seq_len, impl)
+    ctx = Attention.apply(qkv.view(b, s, 3, num_heads, d // num_heads),
+                          scale, seq_len, impl)
     ctx = _c(ctx.transpose(1, 2).reshape(b * s, d))
     return FusedLinear.apply(ctx, wout, bout, None, None, xf, None, eps,
                              impl).view(b, s, d)

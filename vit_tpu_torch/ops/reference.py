@@ -200,8 +200,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     summed in fp32 and cast once to ``q.dtype``.
 
     Returns the packed ``(B, S, 3, H, d)`` buffer ``[dq | dk | dv]`` that a
-    ``(B*S, 3D)`` QKV projection's gradient is (:func:`split_qkv_grad` gives
-    the three ``(B, H, S, d)`` views), as the kernel writes it."""
+    ``(B*S, 3D)`` QKV projection's gradient is (:func:`split_qkv` gives the
+    three ``(B, H, S, d)`` views), as the kernel writes it."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     dt = q.dtype
@@ -220,10 +220,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack([t.to(dt).transpose(1, 2) for t in (dq, dk, dv)], 2)
 
 
-def split_qkv_grad(dqkv: torch.Tensor):
-    """``(dq, dk, dv)``, each a ``(B, H, S, d)`` view of the packed
-    ``(B, S, 3, H, d)`` buffer of :func:`flash_attention_bwd`."""
-    return dqkv.permute(2, 0, 3, 1, 4).unbind(0)
+def split_qkv(qkv: torch.Tensor):
+    """The three ``(B, H, S, d)`` views of a packed ``(B, S, 3, H, d)``
+    buffer: q, k and v of a QKV projection, or ``(dq, dk, dv)`` of
+    :func:`flash_attention_bwd`."""
+    return qkv.permute(2, 0, 3, 1, 4).unbind(0)
 
 
 def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
