@@ -18,13 +18,17 @@ without printing the final ``ok`` line:
    ``matmul_i8`` bit for bit, and ``encoder_stack_q`` as the whole B/16 and
    L/16 encoders at bs=1; K13 ``flash_attention_bwd`` at B/16 bs=32 in
    both dtypes, L/16-384 bs=2 (592 tokens) in bf16 and H/14 bs=2 (d=80)
-   in fp32;
+   in fp32; the reference op chain at B/16 bs=32's unfused shapes: K14
+   ``add`` bit for bit, K15 ``softmax``, K16 ``matmul3`` (scores and
+   context), and K17 ``mlp_block_q`` there and, in bf16, at L/16-384 bs=8
+   and H/14 bs=2;
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
    exact per-forward launch counts; the same weights through
-   ``encoder_stack_fused`` directly; and through the int8 tier, within rel
-   5e-2 and corr 0.999 of the float forward and as accurate as its plain
-   version;
+   ``encoder_stack_fused`` directly and through ``attention="unfused",
+   fused=False``; and through the int8 tier, with K12 and with the
+   weight-only K17 (``int8_dot=False``), each within rel 5e-2 and corr
+   0.999 of the float forward and as accurate as its plain version;
 5. B/16 serving: a bf16 B/16 ``Predictor`` with a 1000-class head answers
    requests of 1, 5, 32 and 37 images, with exact launch counts -- the
    first main path: bs=1 buckets take ``encoder_stack_fused`` and the
@@ -58,17 +62,27 @@ without printing the final ``ok`` line:
     and L/16 at bs=1 through the stack route, the per-layer kernel route
     (the stack plans patched off) and ``impl="torch"``, each with its
     device idle share; one B/16 layer's launches at bs=1, stand-ins for
-    K9's phases; and the int8 forward against the bf16 kernel forward at
+    K9's phases; the int8 forward against the bf16 kernel forward at
     B/16 bs=32 and bs=1 and L/16-384 bs=8, in turns, with device times;
+    the B/16 bs=32 bf16 forward on each ``(attention, fused)`` route; and
+    the int8 forward with K12 and with K17 at B/16 bs=32 and L/16-384
+    bs=8, in turns;
 12. training, the fifth main path (``vit_tpu_torch/train.py``): K13 twice
     bit for bit; one ``make_train_step`` step through the kernels, each
     with its exact launch counts and every parameter's gradient held to
     ``impl="torch"`` (``TRAIN_F32_BAR``, ``TRAIN_BF16_REL_BAR``), at B/16
     fp32 bs=32 (then two more AdamW steps on the batch: the loss falls),
     B/16 bf16 at bs=32, 2 (the fold's forward, the per-layer remat
-    backward) and 4 (``embed_fused``), and L/16-384 bf16 bs=2 at 4 layers
-    (composed attention, K13 at 592 tokens); the step's ms, images/s and
-    device idle share at B/16 bs=32, kernels and plain, in both dtypes.
+    backward) and 4 (``embed_fused``), L/16-384 bf16 bs=2 at 4 layers
+    (composed attention, K13 at 592 tokens), and on the unfused route
+    (K16 in the backward) at B/16 bf16 bs=32 and fp32 bs=8; the step's
+    ms, images/s and device idle share at B/16 bs=32, kernels and plain,
+    in both dtypes;
+13. the other forward modes (``forward_modes_phase``): B/16 bf16 bs=32 at
+    full depth on (unfused, fused=False), (unfused, True) and (flash,
+    False) against ``impl="torch"``; ``Predictor(attention="unfused")``
+    and ``Predictor(quant=True, int8_dot=False)`` serving requests of 1,
+    5 and 32; ``forward_quant(int8_dot=False)`` at L/16-384 bf16 bs=8.
 
 The last three lines of standard output are the kernels JSON line (each
 kernel's launches on the main paths, error vs the plain version, kernel,
@@ -159,6 +173,16 @@ KERNEL_SOURCES = {
                         "vit_tpu/ops/pallas/block.py:2558"),
     "flash_attention_bwd": ("vit_tpu_torch/csrc/flash_attention_bwd.cu",
                             "vit_tpu/ops/pallas/vjp.py:406"),
+    "add": ("vit_tpu_torch/csrc/elementwise.cu",
+            "vit_tpu/ops/pallas/add.py:35"),
+    "softmax": ("vit_tpu_torch/csrc/elementwise.cu",
+                "vit_tpu/ops/pallas/softmax.py:39"),
+    # K16 replaces both pallas_calls of matmul3: the group kernel (:105)
+    # and the general one (:130).
+    "matmul3": ("vit_tpu_torch/csrc/matmul3.cu",
+                "vit_tpu/ops/pallas/matmul3.py:105"),
+    "mlp_block_q": ("vit_tpu_torch/csrc/mlp_block_q.cu",
+                    "vit_tpu/ops/pallas/block.py:416"),
 }
 #: Kernels that run a whole encoder: held to the model bars.
 WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused", "encoder_stack_q")
@@ -340,6 +364,38 @@ def expect_counts(counts: dict, per_forward: dict, n: int = 1) -> dict:
 def add_counts(*parts: dict) -> dict:
     """The sum of several ``expect_counts`` results."""
     return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def route_counts(attention: str, fused: bool, layers: int = 12, *,
+                 head: bool = True, embed_fused: bool = False) -> dict:
+    """Per-forward launches of a B/16-shaped model on a composed route of
+    ``encoder_block`` (``attention``, ``fused``): each linear is K5 + K6
+    (``fused_linear`` counts K2's launches without LN too) with ``fused``,
+    K1 -> K2 -> K14 without; attention is K7, or K16 -> K15 -> K16
+    ``unfused``. Then the final LN, the patch projection on K2 (or
+    ``embed_fused``) and the head."""
+    out = {"layernorm": 1, "matmul": int(head) + int(not embed_fused)}
+    if embed_fused:
+        out["embed_fused"] = 1
+    if fused:
+        out.update(layernorm_stats=2 * layers, fused_linear=4 * layers)
+    else:
+        out["layernorm"] += 2 * layers
+        out["matmul"] += 4 * layers
+        out["add"] = 2 * layers
+    if attention == "unfused":
+        out.update(matmul3=2 * layers, softmax=layers)
+    else:
+        out["flash_attention"] = layers
+    return out
+
+
+def q_weight_only(counts: dict) -> dict:
+    """An int8 route's launches with the weight-only K17 in place of K12
+    (``int8_dot=False``)."""
+    out = dict(counts)
+    out["mlp_block_q"] = out.pop("mlp_block_i8dot", 0)
+    return out
 
 
 def check_counts(label: str, counts: dict, expect: dict) -> None:
@@ -789,6 +845,69 @@ def kernel_cases_stack_q(torch, dtype):
     return cases
 
 
+def kernel_cases_chain(torch, dtype):
+    """The reference op chain's kernels at B/16 bs=32's unfused shapes (197
+    real tokens, no padding): K14 on the (6304, 768) residual, bit for bit;
+    K15 on the 384*197 score rows of 197; K16 on the scores (384, 197, 64)
+    @ (384, 64, 197) * 1/8, the case the kernels line reports, and the
+    context (384, 197, 197) @ (384, 197, 64); K17 at the int8 per-layer
+    route's B/16 bs=32 MLP (6656 x 768, MLP 3072), and in bf16 at
+    L/16-384 bs=8 (4736 x 1024, 4096) and H/14 bs=2 (544 x 1280, 5120).
+    Library yardsticks (the port calls none): ``torch.add``,
+    ``torch.softmax``, ``torch.baddbmm`` with ``alpha=scale``; none for
+    K17."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.quant import quantize_weight
+
+    rnd = _rnd_fn(torch, dtype, 14)
+    e, kind = dtype.itemsize, _kind(torch, dtype)
+    m, d, bh, s, hd = 32 * 197, 768, 384, 197, 64
+    x, r = rnd(m, d, std=1.5), rnd(m, d)
+    scores = rnd(bh, s, s, std=3.0)
+    probs = torch.softmax(scores.float(), -1).to(dtype)
+    q, kt, v = rnd(bh, s, hd), rnd(bh, hd, s), rnd(bh, s, hd)
+
+    def bmm_work(b, mm, k, n):
+        return ((b * mm * k + b * k * n + b * mm * n) * e, 2 * b * mm * n * k,
+                kind)
+
+    def baddbmm(a, b, scale):
+        out = a.new_empty((a.shape[0], a.shape[1], b.shape[2]))
+        return lambda: torch.baddbmm(out, a, b, beta=0, alpha=scale)
+    cases = [
+        case("add", f"({m},{d})", lambda impl: ops.add(x, r, impl=impl),
+             (3 * m * d * e, m * d, "fp32"),
+             library=lambda: torch.add(x, r), check=compare_exact),
+        case("softmax", f"({bh},{s},{s})",
+             lambda impl: ops.softmax(scores, impl=impl),
+             (2 * bh * s * s * e, 5 * bh * s * s, "fp32"),
+             library=lambda: torch.softmax(scores, -1)),
+        case("matmul3", f"context ({bh},{s},{s})@({bh},{s},{hd})",
+             lambda impl: ops.matmul3(probs, v, impl=impl),
+             bmm_work(bh, s, s, hd), library=baddbmm(probs, v, 1.0),
+             primary=False),
+        case("matmul3", f"scores ({bh},{s},{hd})@({bh},{hd},{s})*0.125",
+             lambda impl: ops.matmul3(q, kt, scale=0.125, impl=impl),
+             bmm_work(bh, s, hd, s), library=baddbmm(q, kt, 0.125)),
+    ]
+    shapes = [("H/14 bs=2", 544, 1280, 5120),
+              ("L/16-384 bs=8", 4736, 1024, 4096)] if dtype == torch.bfloat16 \
+        else []
+    for tag, mm, dd, mlp in shapes + [("B/16 bs=32", 6656, 768, 3072)]:
+        w1 = quantize_weight(rnd(dd, mlp, std=0.03))
+        w2 = quantize_weight(rnd(mlp, dd, std=0.03))
+        args = (rnd(mm, dd, std=1.5, mean=0.2), rnd(dd, std=0.1, mean=1.0),
+                rnd(dd, std=0.05), w1["q"], w1["scale"], rnd(mlp, std=0.02),
+                w2["q"], w2["scale"], rnd(dd, std=0.02))
+        cases.append(case(
+            "mlp_block_q", f"{tag} ({mm},{dd}) mlp {mlp}",
+            lambda impl, a=args: ops.mlp_block_q(*a, impl=impl),
+            ((2 * mm * dd + mlp + 3 * dd) * e + 2 * dd * mlp
+             + 4 * (mlp + dd), 4 * mm * dd * mlp, kind),
+            primary=tag == "B/16 bs=32"))
+    return cases
+
+
 def device_ms(torch, fn, iters: int = 20) -> tuple[float, dict]:
     """Device time of ``fn``'s kernels per call, from ``torch.profiler``
     (CUPTI): the sum over kernels, and the time of each kernel by name.
@@ -977,13 +1096,27 @@ def train_step_counts(forward: dict, layers: int, *, attn_remat: bool = True,
     return out
 
 
-def train_grads(torch, params, cfg, px, labels, impl):
+def train_step_counts_unfused(layers: int) -> dict:
+    """One training step on the unfused route (``attention="unfused"``):
+    the forward's launches (:func:`route_counts`), then the backward's,
+    with no remat, since no mega-kernel ran: nine products a layer on K2
+    (the four linears' dw and dh, fc1's pre-activation), two K16 launches
+    for each of the two matmul3 (dx, dy), the head's dx and dw and the
+    patch projection's dw on K2."""
+    out = route_counts("unfused", True, layers)
+    out["matmul"] += 9 * layers + 3
+    out["matmul3"] += 4 * layers
+    return out
+
+
+def train_grads(torch, params, cfg, px, labels, impl, attention="flash"):
     """The loss and every parameter's gradient (``tree_leaves`` order)."""
     from vit_tpu_torch.train import cross_entropy_loss
     from vit_tpu_torch.weights.convert import tree_leaves
 
     leaves = [t.requires_grad_() for t in tree_leaves(params)]
-    loss = cross_entropy_loss(params, px, labels, cfg, impl=impl)
+    loss = cross_entropy_loss(params, px, labels, cfg, impl=impl,
+                              attention=attention)
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
@@ -1010,8 +1143,9 @@ def check_train_grads(torch, label: str, got, want, dtype) -> float:
 
 def train_phase(torch, main_counts: dict) -> dict:
     """Phase 12: the training step (``vit_tpu_torch/train.py``) through the
-    kernels, against ``impl="torch"``, with exact launch counts; the loss
-    of 3 AdamW steps on one batch; the step's times."""
+    kernels, on the flash and the unfused route, against ``impl="torch"``,
+    with exact launch counts; the loss of 3 AdamW steps on one batch; the
+    step's times."""
     from vit_tpu_torch.config import VARIANTS
     from vit_tpu_torch.models.vit import init_params
     from vit_tpu_torch.ops import reference
@@ -1037,20 +1171,27 @@ def train_phase(torch, main_counts: dict) -> dict:
 
     b16 = dict(PER_FORWARD)
     cases = (
-        # (tag, variant, dtype, layers, bs, forward launches, attn remat,
-        #  patch projection dw on K2)
-        ("B/16 fp32 bs=32", "B/16", torch.float32, 12, 32, b16, True, 1),
-        ("B/16 bf16 bs=32", "B/16", torch.bfloat16, 12, 32, b16, True, 1),
-        ("B/16 bf16 bs=2", "B/16", torch.bfloat16, 12, 2,
-         PER_FORWARD_STACK, True, 0),
-        ("B/16 bf16 bs=4", "B/16", torch.bfloat16, 12, 4,
-         dict(b16, embed_fused=1, matmul=25), True, 1),
+        # (tag, variant, dtype, layers, bs, attention, the step's launches:
+        #  the forward's, attention remat, patch projection dw on K2)
+        ("B/16 fp32 bs=32", "B/16", torch.float32, 12, 32, "flash",
+         train_step_counts(b16, 12)),
+        ("B/16 bf16 bs=32", "B/16", torch.bfloat16, 12, 32, "flash",
+         train_step_counts(b16, 12)),
+        ("B/16 bf16 bs=2", "B/16", torch.bfloat16, 12, 2, "flash",
+         train_step_counts(PER_FORWARD_STACK, 12, embed_dw=0)),
+        ("B/16 bf16 bs=4", "B/16", torch.bfloat16, 12, 4, "flash",
+         train_step_counts(dict(b16, embed_fused=1, matmul=25), 12)),
         ("L/16-384 bf16 bs=2, 4 layers", "L/16-384", torch.bfloat16, 4, 2,
-         {"embed_fused": 1, "layernorm_stats": 4, "fused_linear": 8,
-          "flash_attention": 4, "mlp_block": 4, "layernorm": 1, "matmul": 1},
-         False, 1),
+         "flash", train_step_counts(
+             {"embed_fused": 1, "layernorm_stats": 4, "fused_linear": 8,
+              "flash_attention": 4, "mlp_block": 4, "layernorm": 1,
+              "matmul": 1}, 4, attn_remat=False)),
+        ("B/16 unfused bf16 bs=32", "B/16", torch.bfloat16, 12, 32,
+         "unfused", train_step_counts_unfused(12)),
+        ("B/16 unfused fp32 bs=8", "B/16", torch.float32, 12, 8, "unfused",
+         train_step_counts_unfused(12)),
     )
-    for tag, variant, dtype, layers, bs, fwd, remat, embed_dw in cases:
+    for tag, variant, dtype, layers, bs, attention, step_counts in cases:
         cfg = VARIANTS[variant].replace(dtype=dtype, num_classes=1000,
                                         num_layers=layers)
         params = init_params(cfg, generator=torch.Generator(
@@ -1058,17 +1199,18 @@ def train_phase(torch, main_counts: dict) -> dict:
         px = torch.randn((bs, 3, cfg.image_size, cfg.image_size),
                          generator=gen, device="cuda")
         labels = torch.randint(0, 1000, (bs,), generator=gen, device="cuda")
-        want_loss, want = train_grads(torch, params, cfg, px, labels, "torch")
-        init_fn, step_fn = make_train_step(cfg, make_optimizer(1e-4, 0.05))
+        want_loss, want = train_grads(torch, params, cfg, px, labels, "torch",
+                                      attention)
+        init_fn, step_fn = make_train_step(cfg, make_optimizer(1e-4, 0.05),
+                                           attention=attention)
         opt = init_fn(params)
         torch.cuda.synchronize()
         reset_launch_counts()
         params, opt, loss = step_fn(params, opt, px, labels)
         torch.cuda.synchronize()
         main_counts[f"{tag} train step"] = counts = launch_counts()
-        check_counts(f"{tag} train step", counts, expect_counts(
-            counts, train_step_counts(fwd, layers, attn_remat=remat,
-                                      embed_dw=embed_dw)))
+        check_counts(f"{tag} train step", counts,
+                     expect_counts(counts, step_counts))
         got = [t.grad for t in tree_leaves(params)]
         worst = check_train_grads(torch, tag, got, want, dtype)
         dl = abs(float(loss) - float(want_loss))
@@ -1126,6 +1268,111 @@ def train_phase(torch, main_counts: dict) -> dict:
     return res
 
 
+def bucket_forwards(torch, pred, fwd, req):
+    """``req`` through ``fwd`` one bucket at a time as ``pred`` plans it,
+    the tail padded with zero images: what ``pred(req)`` must equal bit for
+    bit (every kernel is deterministic)."""
+    off, parts = 0, []
+    for b in pred._plan(req.shape[0]):
+        chunk = req[off:off + b].to(pred.cfg.dtype)
+        if chunk.shape[0] < b:
+            chunk = torch.cat([chunk, chunk.new_zeros(
+                (b - chunk.shape[0], *chunk.shape[1:]))])
+        parts.append(fwd(chunk))
+        off += b
+    return torch.cat(parts)[:req.shape[0]]
+
+
+def forward_modes_phase(torch, main_counts: dict, cfg, params, cfg_l, p_l,
+                        q_l) -> None:
+    """Phase 13: the JAX package's other forward modes through the kernels.
+    B/16 bf16 at bs=32, full depth, on each of (``attention``, ``fused``)
+    = (unfused, False), (unfused, True), (flash, False) against
+    ``impl="torch"`` at the model bars; ``Predictor(attention="unfused")``
+    and ``Predictor(quant=True, int8_dot=False)`` answering requests of 1,
+    5 and 32, each request equal to its bucket forwards bit for bit; the
+    weight-only int8 MLP at L/16-384 bf16 bs=8, as accurate as its plain
+    version. Exact launch counts throughout."""
+    from vit_tpu_torch.models.vit import forward
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.quant import forward_quant
+    from vit_tpu_torch.serving import Predictor
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    xb = torch.randn((32, 3, 224, 224), generator=gen,
+                     device="cuda").to(cfg.dtype)
+    with torch.inference_mode():
+        for attention, fused in (("unfused", False), ("unfused", True),
+                                 ("flash", False)):
+            tag = f"B/16 bf16 bs=32 {attention} fused={fused}"
+            reset_launch_counts()
+            got = forward(params, xb, cfg, attention=attention, fused=fused)
+            torch.cuda.synchronize()
+            main_counts[tag] = counts = launch_counts()
+            check_counts(tag, counts, expect_counts(
+                counts, route_counts(attention, fused)))
+            res = compare_model(torch, got, forward(
+                params, xb, cfg, attention=attention, fused=fused,
+                impl="torch"), torch.bfloat16)
+            log(f"[modes] {tag}, kernels vs impl=torch: {res}; launches "
+                f"{counts}")
+
+    sizes = (1, 5, 32)
+    requests = [torch.randn((n, 3, 224, 224), generator=gen, device="cuda")
+                for n in sizes]
+    pred_u = Predictor(params, cfg, buckets=(1, 8, 32), attention="unfused")
+    pred_w = Predictor(params, cfg, buckets=(1, 8, 32), quant=True,
+                       int8_dot=False)
+    # bs=1 takes the int8 stack route (weight-only already), bs=32 the
+    # per-layer route with K17.
+    weight_only = {1: PER_FORWARD_Q_STACK,
+                   32: q_weight_only(per_layer_q(12, matmul=2, layernorm=1))}
+    for tag, pred, fwd, per_bucket in (
+            ("B/16 unfused serving", pred_u,
+             lambda x: forward(params, x, cfg, attention="unfused"),
+             lambda b: route_counts("unfused", True)),
+            ("B/16 int8 int8_dot=False serving", pred_w,
+             lambda x: forward_quant(pred_w.params, x, cfg, int8_dot=False),
+             weight_only.__getitem__)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        answers = [pred(r) for r in requests]
+        torch.cuda.synchronize()
+        main_counts[tag] = counts = launch_counts()
+        plans = [b for n in sizes for b in pred._plan(n)]
+        if sorted(plans) != [1] * 6 + [32]:
+            raise AssertionError(f"{tag} plans {plans}")
+        check_counts(tag, counts, add_counts(
+            *(expect_counts(counts, per_bucket(b)) for b in plans)))
+        with torch.inference_mode():
+            for n, req, ans in zip(sizes, requests, answers):
+                if tuple(ans.shape) != (n, 1000):
+                    raise AssertionError(f"{tag} request {n}: shape "
+                                         f"{tuple(ans.shape)}")
+                if not torch.equal(ans, bucket_forwards(torch, pred, fwd,
+                                                        req)):
+                    raise AssertionError(f"{tag} request {n} != its bucket "
+                                         "forwards")
+        log(f"[modes] {tag}: requests {sizes} == their bucket forwards, bit "
+            f"for bit; launches {counts}")
+    del pred_u, pred_w
+
+    with torch.inference_mode():
+        px = torch.randn((8, 3, 384, 384), generator=gen,
+                         device="cuda").to(cfg_l.dtype)
+        reset_launch_counts()
+        got = forward_quant(q_l, px, cfg_l, int8_dot=False)
+        torch.cuda.synchronize()
+        tag = "L/16-384 int8 int8_dot=False bs=8"
+        main_counts[tag] = counts = launch_counts()
+        check_counts(tag, counts, expect_counts(counts, q_weight_only(
+            per_layer_q(24, matmul=2, layernorm=1))))
+        log(f"[modes] {tag}, 24 layers; launches {counts}")
+        check_int8_forward(torch, f"{tag} logits", got, forward_quant(
+            q_l, px, cfg_l, impl="torch", int8_dot=False),
+            forward(p_l, px, cfg_l), absolute=False)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "vit_tpu_torch")):
         raise SystemExit("vit_tpu_torch/ not found beside chip_smoke.py: "
@@ -1169,7 +1416,8 @@ def main() -> int:
     timing_cases = []
     for cases in (kernel_cases, kernel_cases_l16_384,
                   kernel_cases_small_batch, kernel_cases_int8,
-                  kernel_cases_stack_q, kernel_cases_train):
+                  kernel_cases_stack_q, kernel_cases_train,
+                  kernel_cases_chain):
         for dtype in (torch.float32, torch.bfloat16):
             for c in cases(torch, dtype):
                 got = c["run"]("cuda")
@@ -1216,6 +1464,21 @@ def main() -> int:
     if not kdiff < GOLDEN_BAR:
         raise AssertionError(f"encoder_stack_fused golden max|diff| {kdiff} "
                              f">= {GOLDEN_BAR}")
+    # The reference op chain: K1 -> K2 -> K14 for every linear, K16 -> K15
+    # -> K16 for attention, at the real 197 tokens.
+    reset_launch_counts()
+    chain = forward(params32, px, cfg32, attention="unfused", fused=False)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_counts("golden unfused chain", counts, expect_counts(
+        counts, route_counts("unfused", False, head=False)))
+    cdiff = float((chain.float() - want).abs().max())
+    log(f"[golden] attention='unfused', fused=False max|diff| {cdiff:.3e}; "
+        f"launches {counts}")
+    if not cdiff < GOLDEN_BAR:
+        raise AssertionError(f"unfused chain golden max|diff| {cdiff} >= "
+                             f"{GOLDEN_BAR}")
+    del chain
     # The int8 tier on the same weights: kernels against the kernels' float
     # forward (the bars of tests/test_quant.py:95-96) and against its own
     # plain version.
@@ -1232,8 +1495,22 @@ def main() -> int:
         check_int8_forward(torch, "golden int8 fp32 bs=2", gq, forward_quant(
             q32, px, cfg32, impl="torch"), got, absolute=True)
         rel_g, corr_g = rel_corr(torch, gq, want)
-    log(f"[golden int8] vs the recording: rel {rel_g:.3e}, corr "
-        f"{corr_g:.6f}; launches {counts}")
+        log(f"[golden int8] vs the recording: rel {rel_g:.3e}, corr "
+            f"{corr_g:.6f}; launches {counts}")
+        # The weight-only MLP (int8_dot=False): K17 in place of K12.
+        reset_launch_counts()
+        gw = forward_quant(q32, px, cfg32, int8_dot=False)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check_counts("golden int8 weight-only MLP", counts, expect_counts(
+            counts, q_weight_only(per_layer_q(12, embed_fused=1,
+                                              layernorm=1))))
+        check_int8_forward(torch, "golden int8 int8_dot=False fp32 bs=2", gw,
+                           forward_quant(q32, px, cfg32, impl="torch",
+                                         int8_dot=False), got, absolute=True)
+        rel_g, corr_g = rel_corr(torch, gw, want)
+    log(f"[golden int8 int8_dot=False] vs the recording: rel {rel_g:.3e}, "
+        f"corr {corr_g:.6f}; launches {counts}")
     del params32, sd, stack_out, q32
 
     # -- 5. B/16 serving: the first main path ------------------------------
@@ -1311,15 +1588,8 @@ def main() -> int:
                 raise AssertionError(f"int8 request {n}: shape "
                                      f"{tuple(ans.shape)}")
             # The same buckets one by one: every kernel is deterministic.
-            off, parts = 0, []
-            for b in pred_q._plan(n):
-                chunk = req[off:off + b].to(cfg.dtype)
-                if chunk.shape[0] < b:
-                    chunk = torch.cat([chunk, chunk.new_zeros(
-                        (b - chunk.shape[0], *chunk.shape[1:]))])
-                parts.append(forward_quant(qp, chunk, cfg))
-                off += b
-            if not torch.equal(ans, torch.cat(parts)[:n]):
+            if not torch.equal(ans, bucket_forwards(
+                    torch, pred_q, lambda x: forward_quant(qp, x, cfg), req)):
                 raise AssertionError(f"int8 request {n} != its bucket "
                                      "forwards")
         log("[serve int8] every request == its bucket forwards, bit for "
@@ -1531,8 +1801,35 @@ def main() -> int:
             "bf16": [runs[0], runs[3]], "int8": [runs[1], runs[2]],
             "int8_images_per_s": bs * 1e3 / runs[1]["ms"],
             "bf16_images_per_s": bs * 1e3 / runs[0]["ms"]}
+    # The JAX package's forward modes at B/16 bf16 bs=32, the default
+    # route first; the int8 forward with K12 and with the weight-only K17,
+    # in turns (int8_dot, weight-only, weight-only, int8_dot).
+    xb = torch.randn((32, 3, 224, 224), generator=gen,
+                     device="cuda").to(cfg.dtype)
+    with torch.inference_mode():
+        e2e["forward_modes_b16_bf16_bs32"] = {
+            f"{a}_{'fused' if f else 'chain'}": forward_stats(
+                torch, lambda a=a, f=f: forward(params, xb, cfg, attention=a,
+                                                fused=f))
+            for a, f in (("flash", True), ("unfused", False),
+                         ("unfused", True), ("flash", False))}
+    for tag, c, qpar, bs in (("b16", cfg, qp, 32), ("l16_384", cfg_l, q_l, 8)):
+        xb = torch.randn((bs, 3, c.image_size, c.image_size), generator=gen,
+                         device="cuda").to(c.dtype)
+        with torch.inference_mode():
+            def i8dot():
+                return forward_quant(qpar, xb, c)
+
+            def wonly():
+                return forward_quant(qpar, xb, c, int8_dot=False)
+            runs = [forward_stats(torch, fn)
+                    for fn in (i8dot, wonly, wonly, i8dot)]
+        e2e[f"int8_dot_vs_weight_only_{tag}_bs{bs}"] = {
+            "int8_dot": [runs[0], runs[3]], "weight_only": [runs[1], runs[2]]}
     # -- 12. training: the fifth main path ----------------------------------
     e2e["training"] = train_phase(torch, main_counts)
+    # -- 13. the other forward modes ----------------------------------------
+    forward_modes_phase(torch, main_counts, cfg, params, cfg_l, p_l, q_l)
     log(json.dumps({"timings": timings, "end_to_end": e2e, "card": smi,
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
 

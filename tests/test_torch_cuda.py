@@ -632,3 +632,146 @@ def test_torch_cuda_block_backwards_match_plain(gen, dtype):
         torch.cuda.synchronize()
         assert launch_counts() == _counts(**expect)
         _close_grads(got, _grads(fn("torch"), args, g), dtype)
+
+
+# ------------------------------------ the reference op chain (K14-K17) --
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 7, 4099, 6304 * 768 + 3])
+def test_torch_cuda_add_bit_exact(gen, dtype, n):
+    """K14 at counts that are no multiple of 8 (the scalar tail), and on
+    views whose offset breaks 16-byte alignment (the scalar path)."""
+    from vit_tpu_torch import ops
+
+    x, y = _rnd(gen, dtype, n + 1), _rnd(gen, dtype, n + 1)
+    for a, b in ((x[:n], y[:n]), (x[1:], y[1:]), (x[1:], y[:n])):
+        got = ops.add(a, b, impl="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.add(a, b, impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 197, 1000, 4097])
+def test_torch_cuda_softmax(gen, dtype, d):
+    """One warp a row up to 1024 wide, one block a row above; a row with a
+    large offset."""
+    from vit_tpu_torch import ops
+
+    x = _rnd(gen, dtype, 3, 37, d, std=4.0)
+    x[0, 0] += 80
+    got = ops.softmax(x, impl="cuda")
+    _close(got, ops.softmax(x, impl="torch"))
+    assert ((got.float().sum(-1) - 1).abs() <= 1e-2).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,m,k,n", [(24, 197, 64, 197), (24, 197, 197, 64),
+                                     (3, 70, 33, 129), (1, 1, 5, 1),
+                                     (2, 300, 200, 260)])
+@pytest.mark.parametrize("scale", [None, 0.125])
+def test_torch_cuda_matmul3_ragged(gen, dtype, b, m, k, n, scale):
+    """K16 at the unfused attention's shapes (K = 64 and 197) and ragged
+    ones; two calls agree bit for bit."""
+    from vit_tpu_torch import ops
+
+    x, y = _rnd(gen, dtype, b, m, k), _rnd(gen, dtype, b, k, n, std=0.3)
+    got = ops.matmul3(x, y, scale=scale, impl="cuda")
+    _close(got, ops.matmul3(x, y, scale=scale, impl="torch"))
+    again = ops.matmul3(x, y, scale=scale, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [768, 1024, 1280])
+@pytest.mark.parametrize("m", [1, 17, 6656])
+def test_torch_cuda_mlp_block_q(gen, dtype, d, m):
+    """K17 at every VARIANTS width (mlp 1024: two chunks; 4*D at 17 rows);
+    nothing is quantized but the weights, so the kernel bars hold."""
+    from vit_tpu_torch import ops
+
+    for mlp in ((1024, 4 * d) if m == 17 else (1024,)):
+        w1, w2 = _quant_weight(gen, d, mlp), _quant_weight(gen, mlp, d)
+        args = (_rnd(gen, dtype, m, d), _rnd(gen, dtype, d, std=0.1, mean=1.0),
+                _rnd(gen, dtype, d, std=0.05), w1["q"], w1["scale"],
+                _rnd(gen, dtype, mlp, std=0.02), w2["q"], w2["scale"],
+                _rnd(gen, dtype, d, std=0.02))
+        _close(ops.mlp_block_q(*args, impl="cuda"),
+               ops.mlp_block_q(*args, impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_torch_cuda_matmul3_backward_counts(gen, dtype):
+    """``Matmul3``'s backward is two K16 launches; ``Softmax``'s and
+    ``Add``'s launch nothing."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    x, y = _rnd(gen, dtype, 6, 197, 64), _rnd(gen, dtype, 6, 64, 197)
+    g = _rnd(gen, dtype, 6, 197, 197)
+
+    def chain(impl):
+        return lambda x, y: ops.add(ops.softmax(ops.matmul3(
+            x, y, scale=0.125, impl=impl), impl=impl), g, impl=impl)
+    reset_launch_counts()
+    got = _grads(chain(None), (x, y), g)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(matmul3=3, softmax=1, add=1)
+    _close_grads(got, _grads(chain("torch"), (x, y), g), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("attention,fused", [("unfused", True),
+                                             ("unfused", False),
+                                             ("flash", False)])
+@pytest.mark.parametrize("b", [1, 3])
+def test_torch_cuda_route_counts_and_matches_plain(gen, dtype, attention,
+                                                   fused, b):
+    """The tiny config on the unfused and ``fused=False`` routes: exact
+    launch counts (17 tokens, bs=1 and 3: the flash chain embeds through
+    K8, the unfused routes through the patch projection) and the model
+    bars."""
+    from vit_tpu_torch.config import ViTConfig
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = ViTConfig(image_size=32, patch_size=8, hidden_dim=128, num_heads=2,
+                    num_layers=2, mlp_dim=256, num_classes=10, dtype=dtype)
+    params = vit.init_params(cfg, generator=gen, device="cuda")
+    px = torch.randn((b, 3, 32, 32), generator=gen, device="cuda")
+    reset_launch_counts()
+    got = vit.forward(params, px, cfg, attention=attention, fused=fused)
+    torch.cuda.synchronize()
+    attn = (dict(matmul3=4, softmax=2) if attention == "unfused"
+            else dict(flash_attention=2, embed_fused=1))
+    embed = int(attention == "unfused")
+    chain = (dict(layernorm=5, matmul=8 + embed + 1, add=4) if not fused
+             else dict(layernorm=1, layernorm_stats=4, fused_linear=8,
+                       matmul=embed + 1))
+    assert launch_counts() == _counts(**attn, **chain)
+    _close_model(got, vit.forward(params, px, cfg, attention=attention,
+                                  fused=fused, impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_torch_cuda_forward_quant_weight_only_counts(gen, dtype, monkeypatch):
+    """``forward_quant(int8_dot=False)`` on the per-layer route: K17 in
+    place of K12, the bf16 bars against the plain version."""
+    from vit_tpu_torch import ops, quant
+    from vit_tpu_torch.config import ViTConfig
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    monkeypatch.setattr(ops, "stack_q_plan", lambda *a: False)
+    cfg = ViTConfig(image_size=32, patch_size=8, hidden_dim=128, num_heads=2,
+                    num_layers=2, mlp_dim=512, num_classes=10, dtype=dtype)
+    qp = quant.quantize_params(vit.init_params(cfg, generator=gen))
+    px = torch.randn((3, 3, 32, 32), generator=gen, device="cuda")
+    reset_launch_counts()
+    got = quant.forward_quant(qp, px, cfg, int8_dot=False)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(
+        embed_fused=1, quantize_rows=4, matmul_i8=4, flash_attention=2,
+        mlp_block_q=2, layernorm=1, matmul=1)
+    _close_bf16_bars(got, quant.forward_quant(qp, px, cfg, int8_dot=False,
+                                              impl="torch"))

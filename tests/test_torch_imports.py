@@ -43,6 +43,8 @@ def test_torch_port_import_loads_no_jax():
         "import vit_tpu_torch.quant, vit_tpu_torch.ops.cuda.quant\n"
         "import vit_tpu_torch.ops.cuda.stack\n"
         "import vit_tpu_torch.train, vit_tpu_torch.ops.autograd\n"
+        "import vit_tpu_torch.ops.cuda.elementwise\n"
+        "import vit_tpu_torch.ops.cuda.matmul3\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vit_tpu'))\n"
         "print(bad)\n"

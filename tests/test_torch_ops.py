@@ -16,10 +16,13 @@ import pytest
 import torch
 
 from vit_tpu.ops import reference as jax_ref
+from vit_tpu.ops.pallas import add as pallas_add
 from vit_tpu.ops.pallas import attention as pallas_attention
 from vit_tpu.ops.pallas import block as pallas_block
 from vit_tpu.ops.pallas import layernorm as pallas_layernorm
 from vit_tpu.ops.pallas import matmul as pallas_matmul
+from vit_tpu.ops.pallas import matmul3 as pallas_matmul3
+from vit_tpu.ops.pallas import softmax as pallas_softmax
 from vit_tpu_torch import ops
 from vit_tpu_torch.ops import reference
 
@@ -258,6 +261,61 @@ def test_torch_flash_attention_takes_packed_qkv_views(dtype):
     _close(ops.flash_attention(q, k, v, seq_len=seq_len), want, dtype)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_torch_add_bit_equal_to_pallas(dtype):
+    """The residual add of the ``fused=False`` chain: one rounding of the
+    fp32 sum, the same bits as the Pallas kernel."""
+    rng = np.random.default_rng(11)
+    (jx, tx), (jy, ty) = (_pair(rng.standard_normal((2, 17, 96)) * 3, dtype)
+                          for _ in range(2))
+    want = pallas_add.add(jx, jy, interpret=True)
+    got = ops.add(tx, ty)
+    assert got.dtype == tx.dtype
+    np.testing.assert_array_equal(
+        got.float().numpy(), np.asarray(jnp.asarray(want, jnp.float32)))
+    with pytest.raises(ValueError, match="add of"):
+        ops.add(tx, ty[:1])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", [1, 17, 197, 300])
+def test_torch_softmax_matches_pallas(dtype, d):
+    """Ragged widths, one row of a large constant offset."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 5, d)) * 4
+    x[0, 0] += 80
+    jx, tx = _pair(x, dtype)
+    want = pallas_softmax.softmax(jx, interpret=True)
+    got = ops.softmax(tx)
+    assert got.dtype == tx.dtype
+    _close(got, want, dtype)
+
+
+#: (x shape, y shape) of each path of the Pallas matmul3.
+MATMUL3_PATHS = {
+    "group": ((6, 197, 64), (6, 64, 197)),      # matmul3.py:105
+    "general": ((2, 300, 200), (2, 200, 260)),  # matmul3.py:130
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("path", list(MATMUL3_PATHS))
+@pytest.mark.parametrize("scale", [None, 0.125])
+def test_torch_matmul3_matches_pallas(dtype, path, scale):
+    """Both pallas_calls of the Pallas matmul3 compute the port's one
+    function: the unfused attention's scores and context."""
+    xs, ys = MATMUL3_PATHS[path]
+    rng = np.random.default_rng(13)
+    (jx, tx), (jy, ty) = (_pair(0.3 * rng.standard_normal(s), dtype)
+                          for s in (xs, ys))
+    want = pallas_matmul3.matmul3(jx, jy, scale=scale, interpret=True)
+    got = ops.matmul3(tx, ty, scale=scale)
+    assert got.shape == (xs[0], xs[1], ys[2]) and got.dtype == tx.dtype
+    _close(got, want, dtype)
+    with pytest.raises(ValueError, match="matmul3 shapes"):
+        ops.matmul3(tx, ty[:1])
+
+
 def test_torch_cuda_impl_on_a_cpu_tensor_raises():
     """No hidden fallback: asking for the kernel on a CPU tensor raises."""
     x = torch.zeros(2, 4, 128)
@@ -274,6 +332,9 @@ def test_torch_cuda_impl_on_a_cpu_tensor_raises():
         lambda: ops.layernorm_stats(x, impl="cuda"),
         lambda: ops.fused_linear(x, w, v, ln_scale=v, ln_bias=v, impl="cuda"),
         lambda: ops.flash_attention(x[None], x[None], x[None], impl="cuda"),
+        lambda: ops.add(x, x, impl="cuda"),
+        lambda: ops.softmax(x, impl="cuda"),
+        lambda: ops.matmul3(x, x.transpose(1, 2), impl="cuda"),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA tensor"):
@@ -319,6 +380,22 @@ def test_torch_new_kernel_wrappers_refuse_cpu_tensors():
         lambda: k_attention.flash_attention(q.transpose(1, 2), q, q),
     ]
     for call in calls:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    assert launch_counts() == before
+
+
+def test_torch_reference_chain_wrappers_refuse_cpu_tensors():
+    """The wrappers of K14-K16 check the device before building or
+    counting."""
+    from vit_tpu_torch.ops.cuda import elementwise, launch_counts
+    from vit_tpu_torch.ops.cuda import matmul3 as k_matmul3
+
+    before = launch_counts()
+    x = torch.zeros(2, 4, 8)
+    for call in (lambda: elementwise.add(x, x),
+                 lambda: elementwise.softmax(x),
+                 lambda: k_matmul3.matmul3(x, x.transpose(1, 2).contiguous())):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
     assert launch_counts() == before

@@ -188,6 +188,26 @@ def test_torch_mlp_block_i8dot_matches_pallas(dtype, mlp, monkeypatch,
     _close(got, want, dtype, f"mlp_block_i8dot mlp={mlp}", capsys)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mlp", [512, 1024])
+def test_torch_mlp_block_q_matches_pallas(dtype, mlp, monkeypatch, capsys):
+    """The weight-only int8 MLP, JAX's plan pinned to chunks of 512 hidden
+    columns (the port's chunk): one and two chunks. Nothing is quantized
+    but the weights, so only the sum order differs: fp32 to 2e-5."""
+    monkeypatch.setenv("VIT_TPU_MLP_PLAN", "0,1,512")
+    rng = np.random.default_rng(7)
+    d = 128
+    jx, tx = _pair(rng.standard_normal((2, 16, d)), dtype)
+    w = _block_weights(rng, d, mlp, dtype)
+    want = jax_block.mlp_block_q(jx, *w["j"]["mlp"], interpret=True)
+    got = ops.mlp_block_q(tx, *w["t"]["mlp"])
+    assert got.shape == tx.shape and got.dtype == tx.dtype
+    _close(got, want, dtype, f"mlp_block_q mlp={mlp}", capsys,
+           {"float32": 2e-5, "bfloat16": 2e-2})
+    if dtype == "float32":
+        assert np.abs(_np(got) - _np(want)).max() <= 2e-5
+
+
 def test_torch_mlp_block_i8dot_needs_whole_groups():
     rng = np.random.default_rng(6)
     w = _block_weights(rng, 128, 256, "float32")["t"]["mlp"]
@@ -256,6 +276,51 @@ def test_torch_forward_quant_matches_jax_pallas(dtype, route, monkeypatch,
            FORWARD_REL_BAR)
     assert _rel(got, xla, f"forward_quant {route} {dtype} vs xla",
                 capsys) < 2e-2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_torch_forward_quant_weight_only_mlp_matches_jax(dtype, monkeypatch,
+                                                         capsys):
+    """``int8_dot=False`` on the per-layer route against JAX
+    ``forward_quant(impl="pallas")`` with ``VIT_TPU_INT8_DOT=0`` (its
+    weight-only ``mlp_block_q``), set inside this test only."""
+    monkeypatch.setenv("VIT_TPU_MLP_PLAN", "0,1,512")
+    monkeypatch.setenv("VIT_TPU_STACK_PLAN", "8,8")
+    monkeypatch.setenv("VIT_TPU_INT8_DOT", "0")
+    monkeypatch.setattr(ops, "stack_q_plan", lambda *a: False)
+    jcfg, _, jq, tcfg, tq = _models(dtype)
+    px = np.random.default_rng(8).standard_normal(
+        (2, 3, 32, 32)).astype(np.float32)
+    want = jax_quant.forward_quant(jq, jnp.asarray(px, jcfg.dtype), jcfg,
+                                   impl="pallas")
+    calls = _spy(monkeypatch, ROUTE_OPS + ("mlp_block_q",))
+    got = quant.forward_quant(tq, torch.from_numpy(px), tcfg, int8_dot=False)
+    assert calls == {"embed_fused": 1, "attn_block_q": 2, "mlp_block_q": 2,
+                     "layernorm": 1}
+    assert got.shape == (2, tcfg.seq_len, 128) and got.dtype == tcfg.dtype
+    _close(got, want, dtype, "forward_quant int8_dot=False vs pallas", capsys,
+           FORWARD_REL_BAR)
+    dot = quant.forward_quant(tq, torch.from_numpy(px), tcfg)
+    assert not torch.equal(got, dot)  # another MLP kernel ran
+
+
+def test_torch_quant_predictor_weight_only_mlp():
+    """``Predictor(quant=True, int8_dot=False)``: a request of 5 on buckets
+    (1, 4) equals its bucket forwards of ``forward_quant(int8_dot=False)``
+    bit for bit."""
+    _, _, _, tcfg, _ = _models("float32", num_classes=8)
+    params = vit.init_params(tcfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    pred = Predictor(params, tcfg, buckets=(1, 4), device="cpu", quant=True,
+                     int8_dot=False)
+    px = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (5, 3, 32, 32)).astype(np.float32))
+    out = pred(px)
+    qp = quant.quantize_params(params)
+    fwd = quant.make_forward_quant(tcfg, int8_dot=False)
+    assert torch.equal(out, torch.cat([fwd(qp, px[:4]), fwd(qp, px[4:])]))
+    assert not torch.equal(out, Predictor(params, tcfg, buckets=(1, 4),
+                                          device="cpu", quant=True)(px))
 
 
 def test_torch_forward_quant_close_to_float_forward(capsys):

@@ -358,6 +358,11 @@ def _at(tree, path):
 
 
 def test_torch_train_steps_match_jax():
+    """fp32: the step's composition (loss, gradients, AdamW) against JAX's.
+    The fp32 case stands for bf16 here: the bf16 gradients are held by the
+    route tests (and on the card by ``chip_smoke.py`` phase 12), and the
+    bf16 optimizer update, which differs from optax's by design, by
+    :func:`test_torch_bf16_adamw_step_within_an_ulp_of_optax`."""
     jcfg, jparams, tcfg, tparams = _models()
     batches = [_batch(seed=s) for s in (2, 3, 4)]
     want = _jax_steps(jcfg, jparams, batches, 1e-3, 0.05)
@@ -369,6 +374,43 @@ def test_torch_train_steps_match_jax():
                                      torch.from_numpy(lb))
         assert abs(float(loss) - wloss) <= 1e-5
     _close_params(tparams, wparams, 1e-3, 3)
+
+
+def test_torch_bf16_adamw_step_within_an_ulp_of_optax():
+    """``make_optimizer`` on one bf16 tensor against ``optax.adamw`` on the
+    same weight and three bf16 gradients. The two are not bit-equal, by
+    design: torch rounds the decayed parameter, then the Adam step (two
+    bf16 roundings), and keeps fp32-rounded moments; optax keeps its
+    moments and bias corrections in bf16 and rounds once in
+    ``apply_updates``. So each element is held to ``lr * steps`` plus one
+    bf16 ulp of the pre-step weight from optax's (Adam moves no element
+    further than ``lr`` a step), and the mean step size to 1% of optax's
+    (ROADMAP queue C, deliberate differences)."""
+    import optax
+
+    lr, wd, steps = 1e-3, 0.05, 3
+    rng = np.random.default_rng(7)
+    w0 = (0.02 * rng.standard_normal((256, 256))).astype(np.float32)
+    grads = [(1e-3 * rng.standard_normal(w0.shape)).astype(np.float32)
+             for _ in range(steps)]
+    opt = optax.adamw(lr, weight_decay=wd)
+    jw = jnp.asarray(w0, jnp.bfloat16)
+    state = opt.init(jw)
+    for g in grads:
+        upd, state = opt.update(jnp.asarray(g, jnp.bfloat16), state, jw)
+        jw = optax.apply_updates(jw, upd)
+    want = _np(jw)
+    tw = _t(w0, torch.bfloat16, grad=True)
+    topt = make_optimizer(lr, wd)([tw])
+    for g in grads:
+        tw.grad = _t(g, torch.bfloat16)
+        topt.step()
+    got = tw.detach().float().numpy()
+    start = _t(w0, torch.bfloat16).float().numpy()
+    ulp = np.spacing(np.abs(start).astype(np.float32)) * 2 ** 16
+    assert (np.abs(got - want) <= lr * steps + ulp).all()
+    ratio = np.abs(got - start).mean() / np.abs(want - start).mean()
+    assert abs(ratio - 1) <= 1e-2, ratio
 
 
 def test_torch_adamw_state_from_numpy_continues_a_jax_run():

@@ -6,10 +6,14 @@ stacked along a leading ``num_layers`` axis (layer l's weights are the
 contiguous view ``w[l]``, so no per-layer copy is made), fused ``(D, 3D)``
 QKV.
 
-:func:`forward` routes as ``vit_tpu/models/vit.py:forward`` does. The
-encoder always runs at a token count padded to a multiple of 16 (197 -> 208
-for B/16, 577 -> 592 for L/16-384); the pad is sliced off after the final
-``layernorm``, then the tail pools or classifies. By batch size:
+:func:`forward` routes as ``vit_tpu/models/vit.py:forward`` does, by
+``attention="flash" | "unfused"`` and ``fused`` (:func:`encoder_block`
+says what each runs) and, on the default ``("flash", True)``, by batch
+size. The flash route runs the encoder at a token count padded to a
+multiple of 16 (197 -> 208 for B/16, 577 -> 592 for L/16-384), the unfused
+route at the real count; the pad is sliced off after the final
+``layernorm``, then the tail pools or classifies. The default route, by
+batch size:
 
 - ``ops.stack_fused_plan`` (bf16 B/16-class widths at batch <= 2, L/16 at
   batch 1): patch embed, the whole encoder and the final LN are one
@@ -123,9 +127,18 @@ def embed(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
     return x
 
 
-def _padded_seq(cfg: ViTConfig) -> int:
-    """Encoder token count: the real count rounded up to a multiple of 16
-    (197 -> 208 for B/16), as on the JAX package's kernel route."""
+ATTENTIONS = ("flash", "unfused")
+
+
+def _padded_seq(cfg: ViTConfig, attention: str = "flash") -> int:
+    """Encoder token count: on the flash route the real count rounded up to
+    a multiple of 16 (197 -> 208 for B/16), the real count on the unfused
+    route, as on the JAX package's kernel tier
+    (``vit_tpu/models/vit.py:_padded_seq``)."""
+    if attention not in ATTENTIONS:
+        raise ValueError(f"unknown attention mode {attention!r}")
+    if attention == "unfused":
+        return cfg.seq_len
     return -(-cfg.seq_len // 16) * 16
 
 
@@ -154,27 +167,47 @@ def _layers(enc: Params) -> list[Params]:
 
 
 def encoder_block(x: torch.Tensor, lp: Params, cfg: ViTConfig, *,
-                  impl: str | None = None,
+                  impl: str | None = None, attention: str = "flash",
+                  fused: bool = True,
                   seq_len: int | None = None) -> torch.Tensor:
-    """One pre-LN encoder layer on the padded ``(B, S, D)`` activation, the
-    ``fused=True, attention="flash"`` route of
+    """One pre-LN encoder layer on the ``(B, S, D)`` activation, after
     ``vit_tpu/models/vit.py:encoder_block``. ``lp`` holds this layer's
-    params; keys at index >= ``seq_len`` are masked.
+    params; keys at index >= ``seq_len`` are masked (flash only: the
+    unfused route takes no padded tokens, as JAX asserts).
 
-    Each half runs its mega-kernel where :func:`ops.attn_plan` or
-    :func:`ops.mlp_plan` says it fits, and is composed otherwise:
-    attention as ``fused_linear`` (LN prologue) -> ``flash_attention`` ->
-    ``fused_linear`` (+ residual), the MLP as ``fused_linear`` (LN, GELU)
-    -> ``fused_linear`` (+ residual). The plans read geometry and dtype
-    only, so every device takes the same route."""
+    With ``fused=True`` and ``attention="flash"`` each half runs its
+    mega-kernel where :func:`ops.attn_plan` or :func:`ops.mlp_plan` says it
+    fits; the plans read geometry and dtype only, so every device takes the
+    same route. Otherwise the half is composed: each linear is
+    ``fused_linear`` (the LN prologue, the residual in its epilogue) with
+    ``fused=True``, and ``layernorm`` -> ``matmul`` -> ``add`` with
+    ``fused=False``; attention is ``flash_attention`` over the packed QKV
+    buffer, or with ``attention="unfused"`` the reference's chain over
+    (B*H, S, d): ``matmul3(q, kᵀ) * d**-0.5`` -> ``softmax`` ->
+    ``matmul3(p, v)``."""
+    if attention not in ATTENTIONS:
+        raise ValueError(f"unknown attention mode {attention!r}")
     b, s, d = x.shape
     if seq_len is None:
         seq_len = s
     nh, hd = cfg.num_heads, cfg.head_dim
     eps = cfg.layernorm_eps
-    ln1, ln2 = lp["ln1"], lp["ln2"]
+    mega = fused and attention == "flash"
 
-    if ops.attn_plan(b, s, d, nh, x.dtype):
+    def lin(inp, p, act=None, ln=None, res=None):
+        if fused:
+            return ops.fused_linear(
+                inp, p["kernel"], p["bias"], act,
+                ln_scale=ln["scale"] if ln else None,
+                ln_bias=ln["bias"] if ln else None, eps=eps, residual=res,
+                impl=impl)
+        h = ops.layernorm(inp, ln["scale"], ln["bias"], eps=eps,
+                          impl=impl) if ln else inp
+        out = ops.matmul(h, p["kernel"], p["bias"], act, impl=impl)
+        return ops.add(out, res, impl=impl) if res is not None else out
+
+    if mega and ops.attn_plan(b, s, d, nh, x.dtype):
+        ln1 = lp["ln1"]
         x = ops.attn_block(
             x, ln1["scale"], ln1["bias"], lp["qkv"]["kernel"],
             lp["qkv"]["bias"], lp["out"]["kernel"], lp["out"]["bias"],
@@ -182,33 +215,46 @@ def encoder_block(x: torch.Tensor, lp: Params, cfg: ViTConfig, *,
             impl=impl)
     else:
         xf = x.reshape(b * s, d)
-        qkv = ops.fused_linear(xf, lp["qkv"]["kernel"], lp["qkv"]["bias"],
-                               ln_scale=ln1["scale"], ln_bias=ln1["bias"],
-                               eps=eps, impl=impl)
-        # The kernels read the heads as strided views of the packed
-        # [q|k|v] columns; the backward writes the packed gradient.
-        ctx = ops.flash_attention_qkv(qkv.view(b, s, 3, nh, hd),
-                                      scale=hd ** -0.5, seq_len=seq_len,
-                                      impl=impl)
-        # The kernel's context is a (B, S, H, hd) buffer: this is a view.
-        ctx = ctx.transpose(1, 2).reshape(b * s, d)
-        x = ops.fused_linear(ctx, lp["out"]["kernel"], lp["out"]["bias"],
-                             residual=xf, impl=impl).view(b, s, d)
+        qkv = lin(xf, lp["qkv"], ln=lp["ln1"])
+        if attention == "flash":
+            # The kernels read the heads as strided views of the packed
+            # [q|k|v] columns; the backward writes the packed gradient.
+            ctx = ops.flash_attention_qkv(qkv.view(b, s, 3, nh, hd),
+                                          scale=hd ** -0.5, seq_len=seq_len,
+                                          impl=impl)
+            # The kernel's context is a (B, S, H, hd) buffer: a view.
+            ctx = ctx.transpose(1, 2).reshape(b * s, d)
+        else:
+            if seq_len != s:
+                raise ValueError(f"unfused attention takes no padded tokens "
+                                 f"({seq_len} real of {s})")
+            # K16 takes row-major operands: q, kᵀ and v are copied
+            # contiguous over (B*H, S, d), as XLA materialises them (at
+            # B=1 a reshape alone would return a strided view).
+            heads = qkv.view(b, s, 3, nh, hd)
+            q = heads[:, :, 0].transpose(1, 2).contiguous().view(b * nh, s, hd)
+            kt = heads[:, :, 1].permute(0, 2, 3, 1).contiguous().view(
+                b * nh, hd, s)
+            v = heads[:, :, 2].transpose(1, 2).contiguous().view(b * nh, s, hd)
+            scores = ops.matmul3(q, kt, scale=hd ** -0.5, impl=impl)
+            probs = ops.softmax(scores, impl=impl)
+            ctx = ops.matmul3(probs, v, impl=impl).view(b, nh, s, hd)
+            ctx = ctx.transpose(1, 2).reshape(b * s, d)
+        x = lin(ctx, lp["out"], res=xf).view(b, s, d)
 
-    if ops.mlp_plan(d, cfg.mlp_dim, x.dtype):
+    if mega and ops.mlp_plan(d, cfg.mlp_dim, x.dtype):
+        ln2 = lp["ln2"]
         return ops.mlp_block(
             x, ln2["scale"], ln2["bias"], lp["fc1"]["kernel"],
             lp["fc1"]["bias"], lp["fc2"]["kernel"], lp["fc2"]["bias"],
             eps=eps, impl=impl)
-    h = ops.fused_linear(x, lp["fc1"]["kernel"], lp["fc1"]["bias"], "gelu",
-                         ln_scale=ln2["scale"], ln_bias=ln2["bias"], eps=eps,
-                         impl=impl)
-    return ops.fused_linear(h, lp["fc2"]["kernel"], lp["fc2"]["bias"],
-                            residual=x, impl=impl)
+    h = lin(x, lp["fc1"], act="gelu", ln=lp["ln2"])
+    return lin(h, lp["fc2"], res=x)
 
 
 def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
-            impl: str | None = None,
+            impl: str | None = None, attention: str = "flash",
+            fused: bool = True,
             base: torch.Tensor | None = None) -> torch.Tensor:
     """Full ViT forward. Returns, per ``cfg``:
 
@@ -216,17 +262,21 @@ def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
     - pooled embedding (B, D)       -- ``pooling="cls" | "mean"``;
     - logits (B, num_classes)       -- ``num_classes > 0``.
 
-    The route depends on the batch size; the module docstring gives it.
-    ``base`` is :func:`fold_base` of ``params``, for a caller that serves
-    fixed params and builds it once (``Predictor`` does); the fused route
-    builds it when it is None.
+    ``attention`` and ``fused`` pick :func:`encoder_block`'s route, as in
+    ``vit_tpu/models/vit.py:forward``; the stack plans apply only to
+    ``("flash", True)``, the default, whose route depends on the batch size
+    (the module docstring gives it). ``attention="unfused"`` runs at the
+    real token count. ``base`` is :func:`fold_base` of ``params``, for a
+    caller that serves fixed params and builds it once (``Predictor``
+    does); the fused route builds it when it is None.
     """
-    s, sp = cfg.seq_len, _padded_seq(cfg)
+    s, sp = cfg.seq_len, _padded_seq(cfg, attention)
     b = pixels.shape[0]
     d, nh = cfg.hidden_dim, cfg.num_heads
     geometry = (b, sp, d, cfg.mlp_dim, nh, cfg.dtype)
     eps = cfg.layernorm_eps
-    if ops.stack_fused_plan(*geometry, cfg.num_prefix_tokens):
+    stack = fused and attention == "flash"
+    if stack and ops.stack_fused_plan(*geometry, cfg.num_prefix_tokens):
         _check_pixels(pixels, cfg)
         x = ops.encoder_stack_fused(
             ops.patchify(pixels.to(cfg.dtype), cfg.patch_size),
@@ -236,13 +286,14 @@ def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
             scale=cfg.head_dim ** -0.5, seq_len=s, eps=eps, impl=impl)
         return _forward_tail(x, params, cfg, s, sp, impl)
     x = embed(params, pixels, cfg, impl=impl, sp=sp)
-    if ops.stack_plan(*geometry):
+    if stack and ops.stack_plan(*geometry):
         x = ops.encoder_stack(x, params["encoder"], num_heads=nh,
                               scale=cfg.head_dim ** -0.5, seq_len=s, eps=eps,
                               impl=impl)
     else:
         for lp in _layers(params["encoder"]):
-            x = encoder_block(x, lp, cfg, impl=impl, seq_len=s)
+            x = encoder_block(x, lp, cfg, impl=impl, attention=attention,
+                              fused=fused, seq_len=s)
     x = ops.layernorm(x, params["ln_final"]["scale"],
                       params["ln_final"]["bias"], eps=cfg.layernorm_eps,
                       impl=impl)
@@ -267,17 +318,21 @@ def _forward_tail(x: torch.Tensor, params: Params, cfg: ViTConfig, s: int,
 
 
 def forward_with_intermediates(params: Params, pixels: torch.Tensor,
-                               cfg: ViTConfig, *, impl: str | None = None):
+                               cfg: ViTConfig, *, impl: str | None = None,
+                               attention: str = "flash", fused: bool = True):
     """Forward that also returns every layer's hidden states: ``(final,
     hiddens)`` with ``hiddens`` the embedding output followed by each
     encoder layer's output (pre-final-LN), each (B, seq_len, D) -- the
-    convention of HF ``output_hidden_states=True``."""
-    s, sp = cfg.seq_len, _padded_seq(cfg)
+    convention of HF ``output_hidden_states=True``. One
+    :func:`encoder_block` a layer on the route of ``attention`` and
+    ``fused``."""
+    s, sp = cfg.seq_len, _padded_seq(cfg, attention)
     x = embed(params, pixels, cfg, impl=impl)
     hiddens = [x]
     x = F.pad(x, (0, 0, 0, sp - s))
     for lp in _layers(params["encoder"]):
-        x = encoder_block(x, lp, cfg, impl=impl, seq_len=s)
+        x = encoder_block(x, lp, cfg, impl=impl, attention=attention,
+                          fused=fused, seq_len=s)
         hiddens.append(x[:, :s])
     final = ops.layernorm(x, params["ln_final"]["scale"],
                           params["ln_final"]["bias"], eps=cfg.layernorm_eps,
@@ -285,9 +340,11 @@ def forward_with_intermediates(params: Params, pixels: torch.Tensor,
     return final[:, :s], hiddens
 
 
-def make_forward(cfg: ViTConfig, *, impl: str | None = None):
-    """:func:`forward` with the config and implementation bound."""
-    return functools.partial(forward, cfg=cfg, impl=impl)
+def make_forward(cfg: ViTConfig, *, impl: str | None = None,
+                 attention: str = "flash", fused: bool = True):
+    """:func:`forward` with the config, implementation and route bound."""
+    return functools.partial(forward, cfg=cfg, impl=impl, attention=attention,
+                             fused=fused)
 
 
 class ViT(nn.Module):

@@ -31,13 +31,13 @@ from vit_tpu_torch.ops.reference import patchify
 
 __all__ = [
     "layernorm", "layernorm_stats", "matmul", "fused_linear", "patchify",
-    "patch_embed", "flash_attention", "flash_attention_qkv",
-    "flash_attention_bwd", "attn_block",
+    "patch_embed", "add", "softmax", "matmul3", "flash_attention",
+    "flash_attention_qkv", "flash_attention_bwd", "attn_block",
     "mlp_block", "attn_plan", "mlp_plan", "embed_fused", "embed_fused_ok",
     "encoder_stack",
     "encoder_stack_fused", "stack_plan", "stack_fused_plan", "quantize_rows",
-    "matmul_i8", "attn_block_q", "mlp_block_i8dot", "encoder_stack_q",
-    "stack_q_plan", "resolve_impl", "reference",
+    "matmul_i8", "attn_block_q", "mlp_block_i8dot", "mlp_block_q",
+    "encoder_stack_q", "stack_q_plan", "resolve_impl", "reference",
 ]
 
 
@@ -72,6 +72,30 @@ def fused_linear(x, w, bias=None, activation=None, *, ln_scale=None,
                                       eps=eps, residual=residual)
     return autograd.run(autograd.FusedLinear, x, w, bias, ln_scale, ln_bias,
                         residual, activation, eps, impl)
+
+
+def add(x, y, *, impl=None):
+    """``x + y`` of one shape and dtype (kernel K14): the residual of the
+    ``fused=False`` chain."""
+    if check_impl(impl) == "torch":
+        return reference.add(x, y)
+    return autograd.run(autograd.Add, x, y, impl)
+
+
+def softmax(x, *, impl=None):
+    """Row softmax over the last dim in fp32, cast once (kernel K15)."""
+    if check_impl(impl) == "torch":
+        return reference.softmax(x)
+    return autograd.run(autograd.Softmax, x, impl)
+
+
+def matmul3(x, y, *, scale=None, impl=None):
+    """``(B, M, K) @ (B, K, N)`` times ``scale`` (kernel K16): the unfused
+    attention's scores and context. The kernel takes contiguous operands;
+    its backward copies the transposes it needs."""
+    if check_impl(impl) == "torch":
+        return reference.matmul3(x, y, scale=scale)
+    return autograd.run(autograd.Matmul3, x, y, scale, impl)
 
 
 def flash_attention(q, k, v, *, scale=None, seq_len=None, out_dtype=None,
@@ -287,6 +311,14 @@ def mlp_block_i8dot(x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, *,
     """``x + fc2(gelu(fc1(LN(x))))`` with both products s8 x s8 -> s32 and
     the hidden requantized every 512 columns, one kernel (K12)."""
     return kernel_fn("mlp_block_i8dot", impl, x)(
+        x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps=eps)
+
+
+def mlp_block_q(x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, *,
+                eps=1e-12, impl=None):
+    """``x + fc2(gelu(fc1(LN(x))))`` on weight-only int8 weights, the
+    activations in float, one kernel (K17)."""
+    return kernel_fn("mlp_block_q", impl, x)(
         x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps=eps)
 
 

@@ -8,8 +8,9 @@ composition of JAX's custom VJP for that op:
   rematerialised pre-activation on K2 (``matmul``), operands that are
   transposes or slices copied contiguous first, as XLA copies them before
   an opaque ``pallas_call``;
-- the elementwise and reduction glue (GELU and layernorm backward, bias
-  and embedding row sums) is torch ops in fp32, as JAX's is jnp;
+- the elementwise and reduction glue (GELU, layernorm and softmax
+  backward, bias and embedding row sums) is torch ops in fp32, as JAX's
+  is jnp; ``matmul3``'s two products run on K16, as JAX's run its kernel;
 - the attention backward is its own kernel, K13 ``flash_attention_bwd``,
   at every sequence length: its shared memory does not grow with S, so
   JAX's switch to a jnp chain above 768 padded tokens (``vjp.py:378-385``),
@@ -170,6 +171,60 @@ class LayerNorm(torch.autograd.Function):
         x, scale = ctx.saved_tensors
         dx, dscale, dbias = reference.layernorm_grad(x, scale, g, eps=ctx.eps)
         return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None, None
+
+
+# ----------------------------------------------- the reference op chain --
+
+class Matmul3(torch.autograd.Function):
+    """``(x @ y) * scale`` over a batch on K16 (``vjp.py:matmul3``); the
+    backward is two K16 launches, ``dx = (g @ yᵀ) * scale`` and ``dy =
+    (xᵀ @ g) * scale``, the transposes copied contiguous first."""
+
+    @staticmethod
+    def forward(ctx, x, y, scale, impl):
+        ctx.save_for_backward(x, y)
+        ctx.scale, ctx.impl = scale, impl
+        return kernel_fn("matmul3", impl, x)(x, y, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        mm3 = kernel_fn("matmul3", ctx.impl, x)
+        g = _c(g)
+        dx = mm3(g, _c(y.transpose(1, 2)), scale=ctx.scale) if need[0] else None
+        dy = mm3(_c(x.transpose(1, 2)), g, scale=ctx.scale) if need[1] else None
+        return dx, dy, None, None
+
+
+class Softmax(torch.autograd.Function):
+    """Row softmax on K15 (``vjp.py:softmax``); the backward ``p (g -
+    Σ g p)`` in fp32 torch ops, cast, as JAX's is jnp."""
+
+    @staticmethod
+    def forward(ctx, x, impl):
+        p = kernel_fn("softmax", impl, x)(x)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        g32, p32 = g.float(), p.float()
+        dx = p32 * (g32 - (g32 * p32).sum(dim=-1, keepdim=True))
+        return dx.to(p.dtype), None
+
+
+class Add(torch.autograd.Function):
+    """``x + y`` on K14 (``vjp.py:add``); the backward is ``(g, g)``."""
+
+    @staticmethod
+    def forward(ctx, x, y, impl):
+        return kernel_fn("add", impl, x)(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g, None
 
 
 # -------------------------------------------------------------- attention --

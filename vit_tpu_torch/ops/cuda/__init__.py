@@ -16,7 +16,8 @@ from __future__ import annotations
 KERNELS = ("layernorm", "matmul", "attention", "mlp_block", "layernorm_stats",
            "fused_linear", "flash_attention", "embed_fused", "encoder_stack",
            "encoder_stack_fused", "quantize_rows", "matmul_i8",
-           "mlp_block_i8dot", "encoder_stack_q", "flash_attention_bwd")
+           "mlp_block_i8dot", "encoder_stack_q", "flash_attention_bwd",
+           "add", "softmax", "matmul3", "mlp_block_q")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

@@ -76,6 +76,14 @@ _SIGNATURES = {
     # x, qkv, ctx, hid, the 12 stacked encoder tensors, the 4 stacked
     # scales, b, sp, d, mlp, heads, layers, seq_len, scale, eps
     "vit_encoder_stack_q": (*(_P,) * 20, *(_I,) * 7, _F, _F),
+    # x, y, out, n
+    "vit_add": (_P, _P, _P, _L),
+    # x, out, rows, d
+    "vit_softmax": (_P, _P, _I, _I),
+    # x, y, out, b, m, n, k, scale
+    "vit_matmul3": (_P, _P, _P, _I, _I, _I, _I, _F),
+    # x, ln scale, ln bias, w1, s1, b1, w2, s2, b2, out, m, d, mlp, eps
+    "vit_mlp_block_q": (*(_P,) * 10, _I, _I, _I, _F),
 }
 
 _lock = threading.Lock()

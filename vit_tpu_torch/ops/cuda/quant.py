@@ -1,8 +1,9 @@
 """The int8 tier's kernels: K10 ``quantize_rows`` (``csrc/layernorm.cu``),
 K11 ``matmul_i8`` (``csrc/matmul.cu``), K12 ``mlp_block_i8dot``
-(``csrc/mlp_block_i8.cu``), and ``attn_block_q`` as five launches
-(counterparts of ``vit_tpu/ops/pallas/block.py:attn_block_q`` and
-``mlp_block_i8dot``).
+(``csrc/mlp_block_i8.cu``), K17 ``mlp_block_q`` (``csrc/mlp_block_q.cu``)
+and ``attn_block_q`` as five launches (counterparts of
+``vit_tpu/ops/pallas/block.py:attn_block_q``, ``mlp_block_i8dot`` and
+``mlp_block_q``).
 
 ``attn_block_q`` is one Pallas kernel on the TPU; on Hopper it is K10 with
 LN1, K11 into the packed ``(B*S, 3D)`` q|k|v in the dtype, K7 on the heads'
@@ -116,19 +117,17 @@ def attn_block_q(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
                      out_dtype=x.dtype).view(b, s, d)
 
 
-def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
-                    b2, *, eps: float = 1e-12) -> torch.Tensor:
-    """``x + fc2(gelu(fc1(LN(x))))`` with both products in int8 on a CUDA
-    tensor ``x`` (..., D), one kernel. ``w1q`` (D, mlp) and ``w2q``
-    (mlp, D) int8, ``s1`` (mlp,) and ``s2`` (D,) fp32; D a multiple of 128
-    up to 1280, mlp a multiple of 512."""
+def _int8_mlp(kernel: str, entry: str, x: torch.Tensor, ln_scale, ln_bias,
+              w1q, s1, b1, w2q, s2, b2, eps: float) -> torch.Tensor:
+    """Check the operands of an int8-weight MLP kernel (K12 or K17), launch
+    C entry point ``entry`` and count a launch of ``kernel``."""
     _build.check_tensor(x, "x", x)
     d = x.shape[-1]
     if w1q.dim() != 2 or w1q.shape[0] != d:
         raise ValueError(f"w1q shape {tuple(w1q.shape)} does not take D={d}")
     mlp = w1q.shape[1]
     if d % 128 or d > MLP_I8_MAX_D or mlp % MLP_GROUP:
-        raise ValueError(f"mlp_block_i8dot needs D a multiple of 128 up to "
+        raise ValueError(f"{kernel} needs D a multiple of 128 up to "
                          f"{MLP_I8_MAX_D} and mlp a multiple of the quant "
                          f"group {MLP_GROUP}; got D={d}, mlp={mlp}")
     for t, name, shape, dt in (
@@ -142,10 +141,30 @@ def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
             raise ValueError(f"{name} must be 16-byte aligned")
     m = x.numel() // d
     if m == 0:
-        raise ValueError(f"mlp_block_i8dot of an empty tensor "
-                         f"{tuple(x.shape)}")
+        raise ValueError(f"{kernel} of an empty tensor {tuple(x.shape)}")
     out = torch.empty_like(x)
-    _build.launch("vit_mlp_block_i8", x, ln_scale, ln_bias, w1q, s1, b1, w2q,
-                  s2, b2, out, m, d, mlp, float(eps), like=x)
-    count_launch("mlp_block_i8dot")
+    _build.launch(entry, x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, out,
+                  m, d, mlp, float(eps), like=x)
+    count_launch(kernel)
     return out
+
+
+def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
+                    b2, *, eps: float = 1e-12) -> torch.Tensor:
+    """``x + fc2(gelu(fc1(LN(x))))`` with both products in int8 on a CUDA
+    tensor ``x`` (..., D), one kernel. ``w1q`` (D, mlp) and ``w2q``
+    (mlp, D) int8, ``s1`` (mlp,) and ``s2`` (D,) fp32; D a multiple of 128
+    up to 1280, mlp a multiple of 512."""
+    return _int8_mlp("mlp_block_i8dot", "vit_mlp_block_i8", x, ln_scale,
+                     ln_bias, w1q, s1, b1, w2q, s2, b2, eps)
+
+
+def mlp_block_q(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2,
+                *, eps: float = 1e-12) -> torch.Tensor:
+    """``x + fc2(gelu(fc1(LN(x))))`` on weight-only int8 weights for a CUDA
+    tensor ``x`` (..., D), one kernel (K17, ``csrc/mlp_block_q.cu``): the
+    activations stay in ``x``'s dtype, the weights are converted to it as
+    they are staged. The operands and limits of :func:`mlp_block_i8dot`
+    (mlp a multiple of 512: K17's chunk)."""
+    return _int8_mlp("mlp_block_q", "vit_mlp_block_q", x, ln_scale, ln_bias,
+                     w1q, s1, b1, w2q, s2, b2, eps)

@@ -23,7 +23,9 @@ tier, so that a kernel and its plain version agree to the sum order:
   sum once fewer than the composed route, as its kernel does (its
   docstring says where);
 - the int8 kernels (end of the module) quantize fp32 values: the LN
-  output and the attention context are not rounded to the dtype first.
+  output and the attention context are not rounded to the dtype first;
+  the weight-only ``mlp_block_q`` quantizes nothing and rounds where
+  ``mlp_block`` does.
 """
 
 from __future__ import annotations
@@ -116,6 +118,39 @@ def matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
         raise ValueError(f"unknown activation {activation!r}")
     if residual is not None:
         out = out + _f32(residual)
+    return out.to(x.dtype)
+
+
+def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y`` of two tensors of one shape and dtype, no broadcasting
+    (``vit_tpu/ops/pallas/add.py:add``): one rounding to the dtype."""
+    if x.shape != y.shape or x.dtype != y.dtype:
+        raise ValueError(f"add of {tuple(x.shape)} {x.dtype} and "
+                         f"{tuple(y.shape)} {y.dtype}")
+    return x + y
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last dim in fp32, cast once to the input dtype
+    (``vit_tpu/ops/pallas/softmax.py:_softmax_kernel``): the row max
+    subtracted, ``exp``, divided by the row sum."""
+    x32 = _f32(x)
+    e = torch.exp(x32 - x32.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
+
+
+def matmul3(x: torch.Tensor, y: torch.Tensor, *,
+            scale: float | None = None) -> torch.Tensor:
+    """``(B, M, K) @ (B, K, N)`` summed in fp32, times ``scale``, cast once
+    to ``x.dtype`` (``vit_tpu/ops/pallas/matmul3.py``: both its group and
+    its general kernel compute this)."""
+    if (x.dim() != 3 or y.dim() != 3 or x.shape[0] != y.shape[0]
+            or x.shape[2] != y.shape[1]):
+        raise ValueError(f"matmul3 shapes {tuple(x.shape)} @ "
+                         f"{tuple(y.shape)}")
+    out = torch.matmul(_f32(x), _f32(y))
+    if scale is not None:
+        out = out * scale
     return out.to(x.dtype)
 
 
@@ -488,6 +523,27 @@ def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
         h = _int_product(xq, w1q[:, cols]) * ax * s1[cols]
         hq, ah = _quantize_f32(gelu(h + _f32(b1[cols])))
         acc = acc + _int_product(hq, w2q[cols]) * ah * s2
+    return acc.to(x.dtype).reshape(x.shape)
+
+
+def mlp_block_q(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
+                b2, *, eps: float = 1e-12) -> torch.Tensor:
+    """``x + fc2(gelu(fc1(LN(x))))`` on weight-only int8 weights, after
+    ``vit_tpu/ops/pallas/block.py:_mlp_q_kernel``: LN in fp32, rounded to
+    the dtype; for each :data:`MLP_GROUP` hidden columns ``h = gelu((xn @
+    w1) * s1 + b1)`` in fp32, rounded to the dtype, and ``acc += (h @ w2) *
+    s2`` on an fp32 accumulator seeded with ``x + b2``; one cast. The
+    activations are never quantized. JAX scales fc2 per chunk of its
+    plan's ``ct``; the port's chunk is fixed (its kernel's), which changes
+    only the fp32 sum order."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    xn = layernorm(xf, ln_scale, ln_bias, eps=eps)
+    acc = _f32(xf) + _f32(b2)
+    for c0 in range(0, w1q.shape[1], MLP_GROUP):
+        cols = slice(c0, c0 + MLP_GROUP)
+        h = matmul(xn, w1q[:, cols], b1[cols], "gelu", wscale=s1[cols])
+        acc = acc + torch.matmul(_f32(h), _f32(w2q[cols])) * s2
     return acc.to(x.dtype).reshape(x.shape)
 
 

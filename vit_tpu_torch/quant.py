@@ -11,8 +11,9 @@ and the head stay in float.
 "pallas")`` does: the embedding through the float tier's ``embed`` (so
 ``embed_fused`` at batch <= 4), then the whole encoder as one
 ``encoder_stack_q`` where ``ops.stack_q_plan`` says so (weight-only int8,
-activations in float), else ``attn_block_q`` then ``mlp_block_i8dot`` for
-each layer; then the final LN, the slice and the tail. With CUDA tensors
+activations in float), else ``attn_block_q`` then ``mlp_block_i8dot`` (or,
+with ``int8_dot=False``, the weight-only ``mlp_block_q``) for each layer;
+then the final LN, the slice and the tail. With CUDA tensors
 each op runs its hand-written kernel, with CPU tensors (or
 ``impl="torch"``) its plain version.
 
@@ -127,16 +128,22 @@ def smooth_params(params: Params, cfg: ViTConfig, pixels: torch.Tensor,
 
 
 def forward_quant(qparams: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
-                  impl: str | None = None) -> torch.Tensor:
+                  impl: str | None = None,
+                  int8_dot: bool = True) -> torch.Tensor:
     """ViT forward on :func:`quantize_params` weights, with the contract of
     ``vit_tpu_torch.models.vit.forward`` (hidden states, pooled embedding
     or logits per ``cfg``); the route is the module docstring's.
 
-    The hidden's quant group of ``mlp_block_i8dot`` is fixed at 512
-    columns, so ``cfg.mlp_dim`` must be a multiple of 512 (every
-    ``VARIANTS`` entry is). The head runs on the float ``matmul`` kernel
-    and rounds once, where JAX's ``pooled @ kernel + bias`` rounds the
-    product to the dtype before adding the bias."""
+    ``int8_dot=False`` is JAX's ``VIT_TPU_INT8_DOT=0``: the per-layer
+    route's MLP half runs the weight-only ``mlp_block_q`` (activations in
+    float) in place of ``mlp_block_i8dot``; the stack route is weight-only
+    already and does not change.
+
+    The hidden's quant group of ``mlp_block_i8dot`` (and the chunk of
+    ``mlp_block_q``) is fixed at 512 columns, so ``cfg.mlp_dim`` must be a
+    multiple of 512 (every ``VARIANTS`` entry is). The head runs on the
+    float ``matmul`` kernel and rounds once, where JAX's ``pooled @ kernel
+    + bias`` rounds the product to the dtype before adding the bias."""
     if cfg.mlp_dim % ref.MLP_GROUP:
         raise ValueError(f"mlp_dim {cfg.mlp_dim} is not a multiple of the "
                          f"int8 MLP's quant group {ref.MLP_GROUP}")
@@ -149,6 +156,7 @@ def forward_quant(qparams: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
     if ops.stack_q_plan(b, sp, d, cfg.mlp_dim, nh, cfg.dtype):
         x = ops.encoder_stack_q(x, enc, **kw)
     else:
+        mlp_half = ops.mlp_block_i8dot if int8_dot else ops.mlp_block_q
         for i in range(cfg.num_layers):
             lp = tree_map(lambda t: t[i], enc)
             kq, ko = lp["qkv"]["kernel"], lp["out"]["kernel"]
@@ -157,7 +165,7 @@ def forward_quant(qparams: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
                 kq["scale"], lp["qkv"]["bias"], ko["q"], ko["scale"],
                 lp["out"]["bias"], **kw)
             k1, k2 = lp["fc1"]["kernel"], lp["fc2"]["kernel"]
-            x = ops.mlp_block_i8dot(
+            x = mlp_half(
                 x, lp["ln2"]["scale"], lp["ln2"]["bias"], k1["q"],
                 k1["scale"], lp["fc1"]["bias"], k2["q"], k2["scale"],
                 lp["fc2"]["bias"], eps=cfg.layernorm_eps, impl=impl)
@@ -167,6 +175,9 @@ def forward_quant(qparams: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
     return _forward_tail(x, qparams, cfg, s, sp, impl)
 
 
-def make_forward_quant(cfg: ViTConfig, *, impl: str | None = None):
-    """:func:`forward_quant` with the config and implementation bound."""
-    return functools.partial(forward_quant, cfg=cfg, impl=impl)
+def make_forward_quant(cfg: ViTConfig, *, impl: str | None = None,
+                       int8_dot: bool = True):
+    """:func:`forward_quant` with the config, implementation and MLP kernel
+    bound."""
+    return functools.partial(forward_quant, cfg=cfg, impl=impl,
+                             int8_dot=int8_dot)

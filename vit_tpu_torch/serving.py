@@ -5,10 +5,12 @@ A request of any size is decomposed onto the bucket batch sizes,
 largest first; the tail is padded with zero images up to the smallest
 bucket that fits and the pad rows are sliced off the result. Padding is
 exact for ViT: images do not attend to each other. Each bucket runs the
-model's forward, so a server only ever runs the bucket shapes. With
+model's forward, so a server only ever runs the bucket shapes;
+``attention=`` picks its route (``vit_tpu/serving.py:52-74``). With
 ``quant=True`` the params are quantized once, at construction, and every
 bucket runs the int8 tier's ``forward_quant`` (``vit_tpu/serving.py:
-56-71``). The device is the card unless the caller names another.
+56-71``), with ``int8_dot=False`` on the weight-only MLP kernel. The
+device is the card unless the caller names another.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ class Predictor:
 
     def __init__(self, params: Params, cfg: ViTConfig,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, *,
-                 device: torch.device | str = "cuda", quant: bool = False):
+                 device: torch.device | str = "cuda", quant: bool = False,
+                 attention: str = "flash", int8_dot: bool = True):
         if not buckets or any(b <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive, got {buckets!r}")
         self.cfg = cfg
@@ -49,13 +52,13 @@ class Predictor:
         self.params = to_device(params, self.device)
         if quant:
             self.params = quantize_params(self.params)
-            self._fwd = make_forward_quant(cfg)
-        elif cfg.num_prefix_tokens == 1:
+            self._fwd = make_forward_quant(cfg, int8_dot=int8_dot)
+        elif attention == "flash" and cfg.num_prefix_tokens == 1:
             # The fused route's base rows depend on the params only.
             self._fwd = functools.partial(make_forward(cfg),
                                           base=fold_base(self.params, cfg))
         else:
-            self._fwd = make_forward(cfg)
+            self._fwd = make_forward(cfg, attention=attention)
 
     def _plan(self, n: int) -> list[int]:
         """Decompose n onto buckets, largest-first; the tail rounds up to

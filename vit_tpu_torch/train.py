@@ -27,13 +27,16 @@ Optimizer = Callable[[list], torch.optim.Optimizer]
 
 def cross_entropy_loss(params: Params, pixels: torch.Tensor,
                        labels: torch.Tensor, cfg: ViTConfig, *,
-                       impl: str | None = None) -> torch.Tensor:
+                       impl: str | None = None,
+                       attention: str = "flash") -> torch.Tensor:
     """Mean softmax cross-entropy over a batch of integer labels: the
-    log-softmax of the logits in fp32, the mean negative log-likelihood."""
+    log-softmax of the logits in fp32, the mean negative log-likelihood.
+    ``attention`` picks the forward's route, as in
+    ``vit_tpu/train.py:cross_entropy_loss``."""
     if not cfg.num_classes:
         raise ValueError("training needs a classification head "
                          "(num_classes > 0)")
-    logits = forward(params, pixels, cfg, impl=impl)
+    logits = forward(params, pixels, cfg, impl=impl, attention=attention)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, labels.long()[:, None]).mean()
 
@@ -50,7 +53,7 @@ def make_optimizer(learning_rate: float = 1e-4,
 
 
 def make_train_step(cfg: ViTConfig, optimizer: Optimizer | None = None, *,
-                    impl: str | None = None,
+                    impl: str | None = None, attention: str = "flash",
                     device: torch.device | str = "cuda"):
     """Returns ``(init_fn, step_fn)``.
 
@@ -61,6 +64,7 @@ def make_train_step(cfg: ViTConfig, optimizer: Optimizer | None = None, *,
     loss and its gradients and one optimizer step. It updates ``params``
     and ``opt_state`` in place and returns them, where JAX's step returns
     new ones; ``loss`` is the batch's loss before the step, detached.
+    ``attention`` picks the forward's route, as JAX's does.
     """
     make = optimizer or make_optimizer()
     device = torch.device(device)
@@ -78,7 +82,8 @@ def make_train_step(cfg: ViTConfig, optimizer: Optimizer | None = None, *,
                 pixels: torch.Tensor, labels: torch.Tensor):
         opt_state.zero_grad(set_to_none=True)
         loss = cross_entropy_loss(params, pixels.to(device),
-                                  labels.to(device), cfg, impl=impl)
+                                  labels.to(device), cfg, impl=impl,
+                                  attention=attention)
         loss.backward()
         opt_state.step()
         return params, opt_state, loss.detach()
