@@ -82,7 +82,22 @@ without printing the final ``ok`` line:
     full depth on (unfused, fused=False), (unfused, True) and (flash,
     False) against ``impl="torch"``; ``Predictor(attention="unfused")``
     and ``Predictor(quant=True, int8_dot=False)`` serving requests of 1,
-    5 and 32; ``forward_quant(int8_dot=False)`` at L/16-384 bf16 bs=8.
+    5 and 32; ``forward_quant(int8_dot=False)`` at L/16-384 bf16 bs=8;
+14. tensor and batch parallelism (``tp_phase``): the shard forms (B16
+    ``attn_block_partial``, B17 ``attn_block_q_partial``, K3 / K12 / K17
+    with ``partial_out=True``) are checked and timed with the other
+    kernels in phases 3 and 11 (``kernel_cases_tp``: B/16 bs=8 in both
+    dtypes, L/16-384 bs=2 and H/14 bs=2 in bf16, over model=2 and 4; B/16
+    bs=32 over model=2, the case the kernels line reports); here, the
+    shards' sums plus bias and residual against the whole-block kernels,
+    then two ranks spawned on the card (this script with ``--tp-rank``,
+    gloo over a ``file://`` store): ``make_tp_forward`` at B/16 bf16 bs=8
+    (12 layers: float, int8 with K12 and with K17) and H/14 bf16 bs=2 (4
+    layers),
+    ``Predictor(mesh=make_mesh(data=1, model=2))`` on requests of 1, 5
+    and 8, a DP forward and one DP train step at B/16 bf16 bs=8 over
+    data=2, with exact launch counts, held to the single-device forwards
+    and train step.
 
 The last three lines of standard output are the kernels JSON line (each
 kernel's launches on the main paths, error vs the plain version, kernel,
@@ -183,6 +198,19 @@ KERNEL_SOURCES = {
                 "vit_tpu/ops/pallas/matmul3.py:105"),
     "mlp_block_q": ("vit_tpu_torch/csrc/mlp_block_q.cu",
                     "vit_tpu/ops/pallas/block.py:416"),
+    # The tensor-parallel shard forms: K3, K12 and K17 with partial_out=True
+    # (the same pallas_calls), and B16 / B17, composed in their wrappers of
+    # K1, K2 and the attention core or K7 (B16), K10, K11 and K7 (B17).
+    "mlp_block_partial": ("vit_tpu_torch/csrc/mlp_block.cu",
+                          "vit_tpu/ops/pallas/block.py:218"),
+    "mlp_block_i8dot_partial": ("vit_tpu_torch/csrc/mlp_block_i8.cu",
+                                "vit_tpu/ops/pallas/block.py:591"),
+    "mlp_block_q_partial": ("vit_tpu_torch/csrc/mlp_block_q.cu",
+                            "vit_tpu/ops/pallas/block.py:416"),
+    "attn_block_partial": ("vit_tpu_torch/ops/cuda/block.py",
+                           "vit_tpu/ops/pallas/block.py:1054"),
+    "attn_block_q_partial": ("vit_tpu_torch/ops/cuda/quant.py",
+                             "vit_tpu/ops/pallas/block.py:1483"),
 }
 #: Kernels that run a whole encoder: held to the model bars.
 WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused", "encoder_stack_q")
@@ -908,6 +936,101 @@ def kernel_cases_chain(torch, dtype):
     return cases
 
 
+#: The shard geometries of phase 14's kernel cases: (tag, batch, padded
+#: and real tokens, D, heads, MLP, model axes, dtypes). B/16 bs=32 over
+#: model=2 is the case the kernels line reports.
+TP_SHAPES = (
+    ("B/16 bs=8", 8, 208, 197, 768, 12, 3072, (2, 4), ("fp32", "bf16")),
+    ("L/16-384 bs=2", 2, 592, 577, 1024, 16, 4096, (2, 4), ("bf16",)),
+    ("H/14 bs=2", 2, 272, 257, 1280, 16, 5120, (2, 4), ("bf16",)),
+    ("B/16 bs=32", 32, 208, 197, 768, 12, 3072, (2,), ("bf16",)),
+)
+
+
+def kernel_cases_tp(torch, dtype):
+    """Phase 14's kernels alone: one shard of each tensor-parallel partial
+    at the main paths' shapes over model=2 and 4 (:data:`TP_SHAPES`):
+    B16 ``attn_block_partial`` (the attention core; at L/16-384's 592
+    tokens K7), B17 ``attn_block_q_partial``, K3 ``mlp_block`` with
+    ``partial_out=True`` where ``mlp_plan`` takes the shard (not at H/14
+    in bf16, D=1280), and K12 / K17 with it where the shard's MLP columns
+    are whole 512-column groups. Bound: the shard's bytes once, its
+    products at the peak of their type (int8 for the int8 projections, as
+    ``attn_block_q``'s case counts them)."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.quant import quantize_weight
+    from vit_tpu_torch.parallel.tp import mlp_q_plan
+
+    rnd = _rnd_fn(torch, dtype, 51)
+    e, kind = dtype.itemsize, _kind(torch, dtype)
+    cases = []
+    for tag, b, sp, s, d, heads, mlp, models, dts in TP_SHAPES:
+        if kind not in dts:
+            continue
+        m_rows, hd = b * sp, d // heads
+        x = rnd(b, sp, d, std=1.5, mean=0.2)
+        x[:, s:] = 0
+        g, beta = rnd(d, std=0.1, mean=1.0), rnd(d, std=0.05)
+        for model in models:
+            hl, dl, ml = heads // model, d // model, mlp // model
+            lbl = f"{tag} model={model} shard"
+            main = tag == "B/16 bs=32"
+            wqkv, bqkv = rnd(d, 3 * dl, std=0.04), rnd(3 * dl, std=0.02)
+            wout, b_d = rnd(dl, d, std=0.04), rnd(d, std=0.02)
+            qqkv, qout = (quantize_weight(rnd(d, 3 * dl, std=0.04)),
+                          quantize_weight(rnd(dl, d, std=0.04)))
+            att_ops = attention_ops(b, hl, sp, s, hd)
+            cases += [
+                case("attn_block_partial",
+                     f"{lbl} ({b},{sp},{d}) dl={dl} seq_len {s}",
+                     lambda impl, a=(x, g, beta, wqkv, bqkv, wout, hl, s):
+                     ops.attn_block_partial(*a[:6], num_heads=a[6],
+                                            seq_len=a[7], impl=impl),
+                     ((2 * m_rows * d + 4 * d * dl + 3 * dl + 2 * d) * e,
+                      8 * m_rows * d * dl + att_ops, kind), primary=main),
+                case("attn_block_q_partial",
+                     f"{lbl} ({b},{sp},{d}) dl={dl} seq_len {s}",
+                     lambda impl, a=(x, g, beta, qqkv, bqkv, qout, hl, s):
+                     ops.attn_block_q_partial(
+                         a[0], a[1], a[2], a[3]["q"], a[3]["scale"], a[4],
+                         a[5]["q"], a[5]["scale"], num_heads=a[6],
+                         seq_len=a[7], impl=impl),
+                     (2 * m_rows * d * e + 4 * d * dl + 4 * (3 * dl + d)
+                      + (3 * dl + 2 * d) * e, 8 * m_rows * d * dl + att_ops,
+                      "int8"), check=compare_i8, primary=main),
+            ]
+            w1, b_m = rnd(d, ml, std=0.03), rnd(ml, std=0.02)
+            w2 = rnd(ml, d, std=0.03)
+            mlp_work = ((2 * m_rows * d + 2 * d * ml + ml + 2 * d) * e,
+                        4 * m_rows * d * ml)
+            if ops.mlp_plan(d, ml, dtype):
+                cases.append(case(
+                    "mlp_block_partial", f"{lbl} ({m_rows},{d}) mlp {ml}",
+                    lambda impl, a=(x, g, beta, w1, b_m, w2, b_d):
+                    ops.mlp_block(*a, partial_out=True, impl=impl),
+                    (*mlp_work, kind), primary=main))
+            if mlp_q_plan(d, ml):
+                q1, q2 = (quantize_weight(rnd(d, ml, std=0.03)),
+                          quantize_weight(rnd(ml, d, std=0.03)))
+                args = (x, g, beta, q1["q"], q1["scale"], b_m, q2["q"],
+                        q2["scale"], b_d)
+                work = ((2 * m_rows * d + ml + 2 * d) * e + 2 * d * ml
+                        + 4 * (ml + d), 4 * m_rows * d * ml)
+                cases += [
+                    case("mlp_block_i8dot_partial",
+                         f"{lbl} ({m_rows},{d}) mlp {ml}",
+                         lambda impl, a=args: ops.mlp_block_i8dot(
+                             *a, partial_out=True, impl=impl),
+                         (*work, "int8"), check=compare_i8, primary=main),
+                    case("mlp_block_q_partial",
+                         f"{lbl} ({m_rows},{d}) mlp {ml}",
+                         lambda impl, a=args: ops.mlp_block_q(
+                             *a, partial_out=True, impl=impl),
+                         (*work, kind), primary=main),
+                ]
+    return cases
+
+
 def device_ms(torch, fn, iters: int = 20) -> tuple[float, dict]:
     """Device time of ``fn``'s kernels per call, from ``torch.profiler``
     (CUPTI): the sum over kernels, and the time of each kernel by name.
@@ -1373,7 +1496,356 @@ def forward_modes_phase(torch, main_counts: dict, cfg, params, cfg_l, p_l,
             forward(p_l, px, cfg_l), absolute=False)
 
 
+def tp_counts(layers: int, *, quant: bool = False, mlp_mega: bool = True,
+              head: bool = True, int8_dot: bool = True) -> dict:
+    """Per-forward launches of ``make_tp_forward`` on one rank: the patch
+    projection (the embedding takes no ``sp``, as JAX's), each layer's
+    attention partial (B16: K1, K2, the core, K2; B17: K10, K11, K7, K10,
+    K11) and MLP partial (K3 / K12 with ``partial_out``, else composed: K1,
+    K2, K2 / K10, K11, K10, K11; K17 for K12 without ``int8_dot``), the
+    final LN and the head."""
+    out = {"matmul": 1 + int(head), "layernorm": 1}
+    if quant:
+        out.update(quantize_rows=2 * layers, matmul_i8=2 * layers,
+                   flash_attention=layers, attn_block_q_partial=layers)
+        if mlp_mega:
+            out["mlp_block_i8dot_partial" if int8_dot
+                else "mlp_block_q_partial"] = layers
+        else:
+            out["quantize_rows"] += 2 * layers
+            out["matmul_i8"] += 2 * layers
+        return out
+    out.update(attention=layers, attn_block_partial=layers)
+    out["layernorm"] += layers
+    out["matmul"] += 2 * layers
+    if mlp_mega:
+        out["mlp_block_partial"] = layers
+    else:
+        out["layernorm"] += layers
+        out["matmul"] += 2 * layers
+    return out
+
+
+#: Phase 14's two ranks: the models they build from these seeds, so that
+#: the parent builds the same ones for the single-device references.
+TP_SEEDS = {"b16": 61, "h14": 62, "pixels": 63, "train": 64}
+
+
+def _tp_models(torch, tag: str):
+    """(config, params) of phase 14's models: B/16 bf16 with a 1000-class
+    head, and H/14 bf16 at 4 layers (``pooling="cls"``)."""
+    from vit_tpu_torch.config import VARIANTS
+    from vit_tpu_torch.models.vit import init_params
+
+    cfg = (VARIANTS["B/16"].replace(dtype=torch.bfloat16, num_classes=1000)
+           if tag == "b16" else
+           VARIANTS["H/14"].replace(dtype=torch.bfloat16, num_layers=4))
+    return cfg, init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(TP_SEEDS[tag]), device="cuda")
+
+
+def _tp_inputs(torch):
+    """Phase 14's inputs, the same in every process: B/16 pixels at bs=8,
+    H/14 at bs=2, serving requests of 1, 5 and 8, training labels."""
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEEDS["pixels"])
+    px = {"b16": torch.randn((8, 3, 224, 224), generator=gen, device="cuda"),
+          "h14": torch.randn((2, 3, 224, 224), generator=gen, device="cuda"),
+          "requests": [torch.randn((n, 3, 224, 224), generator=gen,
+                                   device="cuda") for n in (1, 5, 8)],
+          "labels": torch.randint(0, 1000, (8,), generator=gen,
+                                  device="cuda")}
+    return px
+
+
+def tp_rank_main(rank: int, world: int, store: str, out_dir: str) -> int:
+    """One of phase 14's two ranks on the one card (``chip_smoke.py
+    --tp-rank``): gloo over a ``file://`` store, a data=1 x model=2 mesh
+    for tensor parallelism and a data=2 x model=1 mesh for batch
+    parallelism, both on ``cuda:0``. Runs the TP forward at B/16 bf16 bs=8
+    (12 layers: float, int8 with K12 and with K17) and H/14 bf16 bs=2 (4
+    layers), TP serving
+    of requests 1, 5 and 8 (each held here to its bucket forwards, bit for
+    bit), a DP forward and one DP train step at B/16 bf16 bs=8, each with
+    its launch counts; writes the outputs and counts to ``out_dir`` for
+    the parent, which holds them to the single-device forwards."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.parallel import (make_mesh, make_tp_forward,
+                                        prepare_tp_params)
+    from vit_tpu_torch.quant import quantize_params
+    from vit_tpu_torch.serving import Predictor
+    from vit_tpu_torch.train import make_optimizer, make_train_step
+
+    dist_backend = dist.get_backend()
+    log(f"[tp rank {rank}] backend {dist_backend}, world {world}, "
+        f"{torch.cuda.get_device_name(0)}")
+    tp_mesh = make_mesh(1, 2, device="cuda:0")
+    dp_mesh = make_mesh(2, 1, device="cuda:0")
+    counts, outs, times = {}, {}, {}
+
+    def counted(tag, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[tag] = launch_counts()
+        return out
+
+    inputs = _tp_inputs(torch)
+    cfg, params = _tp_models(torch, "b16")
+    cfg_h, p_h = _tp_models(torch, "h14")
+    with torch.inference_mode():
+        for tag, c, p, px, q, dot in (
+                ("b16", cfg, params, inputs["b16"], False, True),
+                ("b16_int8", cfg, params, inputs["b16"], True, True),
+                ("b16_int8_weight_only", cfg, params, inputs["b16"], True,
+                 False),
+                ("h14", cfg_h, p_h, inputs["h14"], False, True)):
+            tp = prepare_tp_params(quantize_params(p) if q else p, c, tp_mesh)
+            fn = make_tp_forward(c, tp_mesh, quant=q, int8_dot=dot)
+            outs[tag] = counted(f"TP {tag}", lambda: fn(tp, px)).cpu()
+            # Host clock around synchronised forwards (both ranks in step).
+            t = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn(tp, px)
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            times[f"TP {tag}"] = float(np.median(t))
+            del tp
+        pred = Predictor(params, cfg, buckets=(1, 8), mesh=tp_mesh)
+        answers = counted("TP serving", lambda: [
+            pred(r) for r in inputs["requests"]])
+        fn = make_tp_forward(cfg, tp_mesh)
+        for r, a in zip(inputs["requests"], answers):
+            if not torch.equal(a, bucket_forwards(
+                    torch, pred, lambda x: fn(pred.params, x), r)):
+                raise AssertionError(f"TP serving request {r.shape[0]} != "
+                                     "its bucket forwards")
+        outs["serving"] = [a.cpu() for a in answers]
+        del pred
+        pred_dp = Predictor(params, cfg, buckets=(8,), mesh=dp_mesh)
+        outs["dp_forward"] = counted(
+            "DP forward", lambda: pred_dp(inputs["b16"])).cpu()
+        del pred_dp
+    _, tparams = _tp_models(torch, "b16")
+    init_fn, step_fn = make_train_step(cfg, make_optimizer(1e-4, 0.05),
+                                       mesh=dp_mesh)
+    opt = init_fn(tparams)
+    _, _, loss = counted("DP train step", lambda: step_fn(
+        tparams, opt, inputs["b16"], inputs["labels"]))
+    from vit_tpu_torch.weights.convert import tree_leaves
+    outs["dp_loss"] = loss.cpu()
+    if rank == 0:
+        outs["dp_grads"] = [t.grad.cpu() for t in tree_leaves(tparams)]
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save(outs, os.path.join(out_dir, f"rank{rank}.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"counts": counts, "backend": dist_backend,
+                   "ms": times}, f)
+    log(f"[tp rank {rank}] done")
+    return 0
+
+
+def tp_phase(torch, main_counts: dict) -> dict:
+    """Phase 14, tensor and batch parallelism on the one card: (a) the
+    shards' partial sums plus bias and residual against the whole-block
+    kernels (model bars) at B/16 bf16 bs=8 over model=2 and 4; (b) two
+    ranks spawned with gloo (:func:`tp_rank_main`), their exact launch
+    counts, and their outputs held to the single-device forwards: the TP
+    forwards at the model bar, the int8 one as accurate against the float
+    forward as the single-device int8 forward, serving requests at the
+    model bar, the DP forward likewise, the DP train step's gradients at
+    the training bar. A rank's failure fails the phase."""
+    import shutil
+    import tempfile
+
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.models.vit import forward
+    from vit_tpu_torch.parallel import Mesh, prepare_tp_params
+    from vit_tpu_torch.quant import forward_quant, quantize_params
+
+    res = {}
+    t0 = time.perf_counter()
+    # (a) One B/16 layer's shards summed against the whole block.
+    cfg, params = _tp_models(torch, "b16")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lp = {k: {kk: vv[0] for kk, vv in v.items()}
+          for k, v in params["encoder"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(65)
+    x = (torch.randn((8, 208, 768), generator=gen, device="cuda")
+         * 1.5).to(torch.bfloat16)
+    x[:, 197:] = 0
+    with torch.inference_mode():
+        whole_a = ops.attn_block(x, lp["ln1"]["scale"], lp["ln1"]["bias"],
+                                 lp["qkv"]["kernel"], lp["qkv"]["bias"],
+                                 lp["out"]["kernel"], lp["out"]["bias"],
+                                 num_heads=12, seq_len=197)
+        whole_m = ops.mlp_block(x, lp["ln2"]["scale"], lp["ln2"]["bias"],
+                                lp["fc1"]["kernel"], lp["fc1"]["bias"],
+                                lp["fc2"]["kernel"], lp["fc2"]["bias"])
+        for model in (2, 4):
+            shards = [prepare_tp_params(params, cfg, Mesh(1, model, r, dev))
+                      for r in range(model)]
+            pa = pm = None
+            for sh in shards:
+                s = {k: {kk: vv[0] for kk, vv in v.items()}
+                     for k, v in sh["encoder"].items()}
+                a = ops.attn_block_partial(
+                    x, s["ln1"]["scale"], s["ln1"]["bias"],
+                    s["qkv"]["kernel"], s["qkv"]["bias"], s["out"]["kernel"],
+                    num_heads=12 // model, seq_len=197)
+                m = ops.mlp_block(x, s["ln2"]["scale"], s["ln2"]["bias"],
+                                  s["fc1"]["kernel"], s["fc1"]["bias"],
+                                  s["fc2"]["kernel"], s["fc2"]["bias"],
+                                  partial_out=True)
+                pa, pm = (a, m) if pa is None else (pa + a, pm + m)
+            for half, got, want in (
+                    ("attention", x + pa + lp["out"]["bias"], whole_a),
+                    ("MLP", x + pm + lp["fc2"]["bias"], whole_m)):
+                r = compare_model(torch, got[:, :197], want[:, :197],
+                                  torch.bfloat16)
+                res[f"shard_sum_{half}_model{model}"] = r
+                log(f"[tp] B/16 bf16 bs=8 {half}: {model} shards summed + "
+                    f"bias + x vs the whole block: {r}")
+            del shards
+    del params, lp
+
+    # (b) Two ranks on the one card.
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_",
+                            dir=os.path.join(HERE, "build"))
+    try:
+        procs = []
+        for r in range(2):
+            logf = open(os.path.join(work, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--tp-rank", str(r), "--world", "2", "--store",
+                 os.path.join(work, "store"), "--out", work],
+                stdout=logf, stderr=subprocess.STDOUT, cwd=HERE), logf))
+        failed, deadline = [], time.monotonic() + 300
+        for r, (p, logf) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            logf.close()
+            text = open(os.path.join(work, f"rank{r}.log")).read()
+            log("\n".join(f"  {line}" for line in text.splitlines()[-8:]))
+            if rc != 0:
+                failed.append(f"rank {r}: {rc}\n{text[-3000:]}")
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if failed:
+            raise AssertionError("a tensor-parallel rank failed: "
+                                 + "\n".join(failed))
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        info = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["ranks_s"] = time.perf_counter() - t0
+    res["rank_ms"] = [inf["ms"] for inf in info]
+    log(f"[tp] two ranks on one card, backend {info[0]['backend']}: done "
+        f"({res['ranks_s']:.1f} s with (a)); forward ms (host clock, median "
+        f"of 5) {res['rank_ms']}")
+
+    expect = {
+        "TP b16": tp_counts(12), "TP b16_int8": tp_counts(12, quant=True),
+        "TP b16_int8_weight_only": tp_counts(12, quant=True,
+                                             int8_dot=False),
+        "TP h14": tp_counts(4, mlp_mega=False, head=False),
+        # Requests 1, 5, 8 on buckets (1, 8): six bs=1 and one bs=8.
+        "TP serving": {k: 7 * v for k, v in tp_counts(12).items()},
+        # bs=4 a rank: embed_fused, the per-layer route, the head.
+        "DP forward": dict(PER_FORWARD, embed_fused=1, matmul=25),
+        "DP train step": train_step_counts(
+            dict(PER_FORWARD, embed_fused=1, matmul=25), 12)}
+    for r, inf in enumerate(info):
+        for tag, want in expect.items():
+            got = inf["counts"][tag]
+            check_counts(f"rank {r} {tag}", got, expect_counts(got, want))
+            main_counts[f"rank {r} {tag}"] = got
+    for key in ("b16", "b16_int8", "b16_int8_weight_only", "h14",
+                "dp_forward", "dp_loss"):
+        if not torch.equal(ranks[0][key], ranks[1][key]):
+            raise AssertionError(f"the ranks' {key} differ")
+    cfg, params = _tp_models(torch, "b16")
+    cfg_h, p_h = _tp_models(torch, "h14")
+    inputs = _tp_inputs(torch)
+    with torch.inference_mode():
+        px = inputs["b16"].to(cfg.dtype)
+        flt = forward(params, px, cfg)
+        t = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            forward(params, px, cfg)
+            torch.cuda.synchronize()
+            t.append((time.perf_counter() - t1) * 1e3)
+        res["single_device_b16_bs8_ms"] = float(np.median(t))
+        for key, want in (("b16", flt),
+                          ("h14", forward(p_h, inputs["h14"].to(cfg.dtype),
+                                          cfg_h)),
+                          ("dp_forward", flt)):
+            r = compare_model(torch, ranks[0][key].cuda(), want,
+                              torch.bfloat16)
+            res[key] = r
+            log(f"[tp] {key} vs the single-device forward: {r}")
+        qparams = quantize_params(params)
+        for key, dot in (("b16_int8", True), ("b16_int8_weight_only", False)):
+            res[key] = check_int8_forward(
+                torch, f"tp {key} B/16 bf16 bs=8 logits",
+                ranks[0][key].cuda(),
+                forward_quant(qparams, px, cfg, int8_dot=dot), flt,
+                absolute=False)
+        for n, req, ans in zip((1, 5, 8), inputs["requests"],
+                               ranks[0]["serving"]):
+            if tuple(ans.shape) != (n, 1000):
+                raise AssertionError(f"TP request {n}: {tuple(ans.shape)}")
+            r = compare_model(torch, ans.cuda(), forward(
+                params, req.to(cfg.dtype), cfg), torch.bfloat16)
+            log(f"[tp] serving request {n} vs forward at bs={n}: {r}")
+    del params
+    _, tparams = _tp_models(torch, "b16")
+    want_loss, want = train_grads(torch, tparams, cfg, inputs["b16"],
+                                  inputs["labels"], None)
+    got = [g.cuda() for g in ranks[0]["dp_grads"]]
+    worst = check_train_grads(torch, "DP train step", got, want,
+                              torch.bfloat16)
+    dl = abs(float(ranks[0]["dp_loss"]) - float(want_loss))
+    if not dl <= MODEL_BF16_REL_BAR * (1 + abs(float(want_loss))):
+        raise AssertionError(f"DP loss {float(ranks[0]['dp_loss'])} vs "
+                             f"{float(want_loss)}")
+    res["dp_train"] = {"loss": float(ranks[0]["dp_loss"]),
+                       "single_loss": float(want_loss),
+                       "worst_grad_vs_bar": worst}
+    log(f"[tp] DP train step (2 ranks x 4 images) vs one step on the 8: "
+        f"{res['dp_train']}")
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
+    if "--tp-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return tp_rank_main(int(args["--tp-rank"]), int(args["--world"]),
+                            args["--store"], args["--out"])
     if not os.path.isdir(os.path.join(HERE, "vit_tpu_torch")):
         raise SystemExit("vit_tpu_torch/ not found beside chip_smoke.py: "
                          "run it from a checkout of the repository")
@@ -1417,7 +1889,7 @@ def main() -> int:
     for cases in (kernel_cases, kernel_cases_l16_384,
                   kernel_cases_small_batch, kernel_cases_int8,
                   kernel_cases_stack_q, kernel_cases_train,
-                  kernel_cases_chain):
+                  kernel_cases_chain, kernel_cases_tp):
         for dtype in (torch.float32, torch.bfloat16):
             for c in cases(torch, dtype):
                 got = c["run"]("cuda")
@@ -1830,6 +2302,10 @@ def main() -> int:
     e2e["training"] = train_phase(torch, main_counts)
     # -- 13. the other forward modes ----------------------------------------
     forward_modes_phase(torch, main_counts, cfg, params, cfg_l, p_l, q_l)
+    # -- 14. tensor and batch parallelism: two ranks on the card -----------
+    del params, p_l, q_l, qp, pred, pred_q, small
+    torch.cuda.empty_cache()
+    e2e["tensor_parallel"] = tp_phase(torch, main_counts)
     log(json.dumps({"timings": timings, "end_to_end": e2e, "card": smi,
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
 

@@ -775,3 +775,132 @@ def test_torch_cuda_forward_quant_weight_only_counts(gen, dtype, monkeypatch):
         mlp_block_q=2, layernorm=1, matmul=1)
     _close_bf16_bars(got, quant.forward_quant(qp, px, cfg, int8_dot=False,
                                               impl="torch"))
+
+
+# --------------------------------------------- tensor-parallel partials --
+
+@pytest.mark.parametrize("dtype,m,d,mlp", [
+    (torch.bfloat16, 33, 128, 256), (torch.bfloat16, 70, 768, 768),
+    (torch.float32, 33, 100, 200), (torch.float32, 17, 768, 1536)])
+def test_torch_cuda_mlp_block_partial(gen, dtype, m, d, mlp):
+    """K3 with ``partial_out=True``: no residual, ``b2`` not read; counted
+    as ``mlp_block_partial``."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    args = [_rnd(gen, dtype, m, d), _rnd(gen, dtype, d, std=0.1, mean=1.0),
+            _rnd(gen, dtype, d, std=0.05), _rnd(gen, dtype, d, mlp, std=0.05),
+            _rnd(gen, dtype, mlp, std=0.02), _rnd(gen, dtype, mlp, d, std=0.05),
+            _rnd(gen, dtype, d, std=0.02)]
+    reset_launch_counts()
+    got = ops.mlp_block(*args, partial_out=True, impl="cuda")
+    assert launch_counts() == _counts(mlp_block_partial=1)
+    _close(got, ops.mlp_block(*args, partial_out=True, impl="torch"))
+    args[-1] = torch.full_like(args[-1], float("nan"))
+    assert torch.equal(ops.mlp_block(*args, partial_out=True, impl="cuda"),
+                       got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["mlp_block_i8dot", "mlp_block_q"])
+@pytest.mark.parametrize("m,d,mlp", [(33, 128, 512), (17, 1280, 1024)])
+def test_torch_cuda_int8_mlp_partial(gen, dtype, kernel, m, d, mlp):
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    w1, w2 = _quant_weight(gen, d, mlp), _quant_weight(gen, mlp, d)
+    args = (_rnd(gen, dtype, m, d), _rnd(gen, dtype, d, std=0.1, mean=1.0),
+            _rnd(gen, dtype, d, std=0.05), w1["q"], w1["scale"],
+            _rnd(gen, dtype, mlp, std=0.02), w2["q"], w2["scale"],
+            torch.full((d,), float("nan"), dtype=dtype, device="cuda"))
+    reset_launch_counts()
+    got = getattr(ops, kernel)(*args, partial_out=True, impl="cuda")
+    assert launch_counts() == _counts(**{f"{kernel}_partial": 1})
+    want = getattr(ops, kernel)(*args, partial_out=True, impl="torch")
+    (_close_bf16_bars if kernel == "mlp_block_i8dot" else _close)(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,seq_len,d,heads,hd", [
+    (3, 32, 17, 256, 2, 64), (1, 272, 257, 640, 4, 80),
+    (1, 592, 577, 256, 2, 64)])
+def test_torch_cuda_attn_block_partial(gen, dtype, b, s, seq_len, d, heads,
+                                       hd):
+    """B16 on one shard (``heads`` local heads of ``hd``): K1, K2, the
+    attention core, K2; where the core's shared memory refuses the length
+    (592 tokens; 272 at hd=80 in fp32) K7 takes its place."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    dl = heads * hd
+    args = (_rnd(gen, dtype, b, s, d), _rnd(gen, dtype, d, std=0.1, mean=1.0),
+            _rnd(gen, dtype, d, std=0.05), _rnd(gen, dtype, d, 3 * dl,
+                                                std=0.05),
+            _rnd(gen, dtype, 3 * dl, std=0.02), _rnd(gen, dtype, dl, d,
+                                                     std=0.05))
+    reset_launch_counts()
+    got = ops.attn_block_partial(*args, num_heads=heads, seq_len=seq_len)
+    core = ({"attention": 1} if ops.attn_plan(b, s, dl, heads, dtype)
+            else {"flash_attention": 1})
+    assert ("attention" in core) == (s < 592 and (dtype == torch.bfloat16
+                                                  or hd == 64))
+    assert launch_counts() == _counts(layernorm=1, matmul=2,
+                                      attn_block_partial=1, **core)
+    want = ops.attn_block_partial(*args, num_heads=heads, seq_len=seq_len,
+                                  impl="torch")
+    _close(got[:, :seq_len], want[:, :seq_len])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_torch_cuda_attn_block_q_partial(gen, dtype):
+    """B17 on one shard of 2 heads (dl=128) at D=256, 17 of 32 tokens."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    b, s, d, heads, dl = 3, 32, 256, 2, 128
+    wqkv, wout = _quant_weight(gen, d, 3 * dl), _quant_weight(gen, dl, d)
+    args = (_rnd(gen, dtype, b, s, d), _rnd(gen, dtype, d, std=0.1, mean=1.0),
+            _rnd(gen, dtype, d, std=0.05), wqkv["q"], wqkv["scale"],
+            _rnd(gen, dtype, 3 * dl, std=0.02), wout["q"], wout["scale"])
+    reset_launch_counts()
+    got = ops.attn_block_q_partial(*args, num_heads=heads, seq_len=17)
+    assert launch_counts() == _counts(quantize_rows=2, matmul_i8=2,
+                                      flash_attention=1,
+                                      attn_block_q_partial=1)
+    want = ops.attn_block_q_partial(*args, num_heads=heads, seq_len=17,
+                                    impl="torch")
+    _close_bf16_bars(got[:, :17], want[:, :17])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("quant", [False, True])
+def test_torch_cuda_tp_forward_one_rank(gen, dtype, quant):
+    """``make_tp_forward`` on a mesh of one rank (no process group): the
+    partial kernels with the bias and residual added after them, launch
+    counts exact, held to its plain version at the model bar."""
+    from vit_tpu_torch import parallel, quant as q
+    from vit_tpu_torch.config import ViTConfig
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = ViTConfig(image_size=32, patch_size=8, hidden_dim=256, num_heads=4,
+                    num_layers=2, mlp_dim=512, num_classes=10, dtype=dtype)
+    params = vit.init_params(cfg, generator=gen)
+    if quant:
+        params = q.quantize_params(params)
+    mesh = parallel.make_mesh(1, 1)
+    tp = parallel.prepare_tp_params(params, cfg, mesh)
+    px = torch.randn((3, 3, 32, 32), generator=gen, device="cuda")
+    fn = parallel.make_tp_forward(cfg, mesh, quant=quant)
+    reset_launch_counts()
+    got = fn(tp, px)
+    torch.cuda.synchronize()
+    attn = (dict(quantize_rows=4, matmul_i8=4, flash_attention=2,
+                 attn_block_q_partial=2, mlp_block_i8dot_partial=2,
+                 layernorm=1, matmul=2) if quant else
+            dict(layernorm=3, matmul=6, attention=2, attn_block_partial=2,
+                 mlp_block_partial=2))
+    assert launch_counts() == _counts(**attn)
+    want = parallel.make_tp_forward(cfg, mesh, quant=quant, impl="torch")(
+        tp, px)
+    (_close_bf16_bars if quant else _close_model)(got, want)

@@ -45,6 +45,7 @@ def test_torch_port_import_loads_no_jax():
         "import vit_tpu_torch.train, vit_tpu_torch.ops.autograd\n"
         "import vit_tpu_torch.ops.cuda.elementwise\n"
         "import vit_tpu_torch.ops.cuda.matmul3\n"
+        "import vit_tpu_torch.parallel, vit_tpu_torch.parallel.tp\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vit_tpu'))\n"
         "print(bad)\n"

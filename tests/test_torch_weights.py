@@ -133,3 +133,51 @@ def test_torch_params_from_numpy_keeps_bfloat16_bits():
                                     device="cpu")["w"]["kernel"]
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), a.astype(np.float32))
+
+
+@pytest.mark.parametrize("head", [False, True])
+def test_torch_params_from_hf_matches_jax(head):
+    """``params_from_hf`` on a random-init ``ViTModel`` (no head: 0
+    classes, though its config says 2 labels) and a
+    ``ViTForImageClassification`` (5 labels) infers the config and imports
+    the weights exactly as JAX's ``params_from_hf`` does."""
+    import transformers
+
+    hf_cfg = transformers.ViTConfig(
+        image_size=32, patch_size=8, hidden_size=128, num_attention_heads=2,
+        num_hidden_layers=2, intermediate_size=256, num_labels=5 if head else 2)
+    torch.manual_seed(0)
+    model = (transformers.ViTForImageClassification(hf_cfg) if head
+             else transformers.ViTModel(hf_cfg, add_pooling_layer=True))
+    want_tree = jax_hf.params_from_hf(model)
+    got = hf.params_from_hf(model, device="cpu")
+    assert ("classifier" in got) == head
+    if head:
+        assert got["classifier"]["kernel"].shape == (128, 5)
+    cfg = hf.config_from_hf(hf_cfg, num_classes=5 if head else 0)
+    want = convert.params_from_numpy(jax.tree.map(np.asarray, want_tree), cfg,
+                                     device="cpu")
+    got_leaves, want_leaves = dict(_leaves(got)), dict(_leaves(want))
+    assert sorted(got_leaves) == sorted(want_leaves)
+    for name, w in want_leaves.items():
+        assert torch.equal(got_leaves[name], w), name
+    # An explicit config is taken as given.
+    cfg_bf16 = cfg.replace(dtype=torch.bfloat16)
+    got_bf16 = hf.params_from_hf(model, cfg_bf16, device="cpu")
+    assert got_bf16["ln_final"]["scale"].dtype == torch.bfloat16
+
+
+def test_torch_weights_import_loads_no_transformers():
+    """``params_from_hf`` takes the model object: importing the weights
+    package does not load ``transformers``."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = ("import sys, vit_tpu_torch.weights\n"
+            "from vit_tpu_torch.weights import params_from_hf\n"
+            "sys.exit('transformers' in sys.modules)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -11,6 +11,12 @@
 // acc += h @ W2[chunk, :]. The stacked form needs no launcher of its own:
 // layer l's weights are the contiguous view w[l].
 //
+// With `partial` set it is the tensor-parallel shard form (mlp_block's
+// partial_out=True, block.py:77-78, 199-202): w1 and w2 hold this shard's
+// MLP columns, the accumulator starts at zero and b2 is not read, so the
+// result is fc2_s(gelu(fc1_s(LN(x)))) in x's type, for the caller to
+// all-reduce and add x + b2 to once.
+//
 // Bound on the card: compute (4*M*D*mlp flops) and the weights. Every row
 // block re-reads all of W1 and W2 (9.4 MB in bf16 for B/16) from the 50 MB
 // L2, straight into tensor-core fragments, without staging them in shared
@@ -60,7 +66,7 @@ __global__ void __launch_bounds__(kMlpThreads, 1)
                     const bf16* __restrict__ b, const bf16* __restrict__ w1,
                     const bf16* __restrict__ b1, const bf16* __restrict__ w2,
                     const bf16* __restrict__ b2, bf16* __restrict__ out, int m,
-                    int mlp, float eps) {
+                    int mlp, float eps, int partial) {
   constexpr int D = NT * 128;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xn = reinterpret_cast<bf16*>(smem);
@@ -80,7 +86,7 @@ __global__ void __launch_bounds__(kMlpThreads, 1)
   }
 
   // acc[i][j]: rows [16i, 16i+16), columns [(warp*NT + j)*16, +16),
-  // seeded with x + b2 through the warp's shared tile.
+  // seeded with x + b2 (zero for a partial) through the warp's shared tile.
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NT];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -89,9 +95,9 @@ __global__ void __launch_bounds__(kMlpThreads, 1)
       const int c0 = (warp * NT + j) * 16;
       for (int e = lane; e < 256; e += 32) {
         const int r = m0 + i * 16 + e / 16, c = c0 + e % 16;
-        tile[e] = r < m ? to_f32(x[static_cast<size_t>(r) * D + c]) +
-                              to_f32(b2[c])
-                        : 0.f;
+        tile[e] = r < m && !partial
+                      ? to_f32(x[static_cast<size_t>(r) * D + c]) + to_f32(b2[c])
+                      : 0.f;
       }
       __syncwarp();
       wmma::load_matrix_sync(acc[i][j], tile, 16, wmma::mem_row_major);
@@ -163,15 +169,15 @@ template <int NT>
 cudaError_t launch_mlp_bf16(const bf16* x, const bf16* g, const bf16* b,
                             const bf16* w1, const bf16* b1, const bf16* w2,
                             const bf16* b2, bf16* out, int m, int mlp,
-                            float eps, cudaStream_t st) {
+                            float eps, int partial, cudaStream_t st) {
   const size_t smem = mlp_bf16_smem(NT * 128);
   cudaError_t err = cudaFuncSetAttribute(
       mlp_bf16_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((m + kMlpBM - 1) / kMlpBM);
-  mlp_bf16_kernel<NT><<<grid, kMlpThreads, smem, st>>>(x, g, b, w1, b1, w2,
-                                                      b2, out, m, mlp, eps);
+  mlp_bf16_kernel<NT><<<grid, kMlpThreads, smem, st>>>(
+      x, g, b, w1, b1, w2, b2, out, m, mlp, eps, partial);
   return cudaGetLastError();
 }
 
@@ -190,7 +196,7 @@ __global__ void __launch_bounds__(kMlpThreads)
                    const float* __restrict__ b, const float* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ w2,
                    const float* __restrict__ b2, float* __restrict__ out,
-                   int m, int d, int mlp, float eps) {
+                   int m, int d, int mlp, float eps, int partial) {
   extern __shared__ __align__(16) float smf[];
   float* xn = smf;                 // kMlpFBM x d
   float* hs = smf + kMlpFBM * d;   // kMlpFBM x kMlpFCT
@@ -212,7 +218,7 @@ __global__ void __launch_bounds__(kMlpThreads)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int n = t + j * kMlpThreads;
-      acc[r][j] = (m0 + r < m && n < d)
+      acc[r][j] = (m0 + r < m && n < d && !partial)
                       ? x[static_cast<size_t>(m0 + r) * d + n] + b2[n]
                       : 0.f;
     }
@@ -265,15 +271,15 @@ template <int NJ>
 cudaError_t launch_mlp_f32(const float* x, const float* g, const float* b,
                            const float* w1, const float* b1, const float* w2,
                            const float* b2, float* out, int m, int d, int mlp,
-                           float eps, cudaStream_t st) {
+                           float eps, int partial, cudaStream_t st) {
   const size_t smem = mlp_f32_smem(d);
   cudaError_t err = cudaFuncSetAttribute(
       mlp_f32_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((m + kMlpFBM - 1) / kMlpFBM);
-  mlp_f32_kernel<NJ><<<grid, kMlpThreads, smem, st>>>(x, g, b, w1, b1, w2, b2,
-                                                     out, m, d, mlp, eps);
+  mlp_f32_kernel<NJ><<<grid, kMlpThreads, smem, st>>>(
+      x, g, b, w1, b1, w2, b2, out, m, d, mlp, eps, partial);
   return cudaGetLastError();
 }
 
@@ -282,7 +288,8 @@ cudaError_t launch_mlp_f32(const float* x, const float* g, const float* b,
 extern "C" int vit_mlp_block(const void* x, const void* g, const void* b,
                              const void* w1, const void* b1, const void* w2,
                              const void* b2, void* out, int m, int d, int mlp,
-                             float eps, int dtype, int device, void* stream) {
+                             float eps, int partial, int dtype, int device,
+                             void* stream) {
   using namespace vit;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
@@ -297,7 +304,7 @@ extern "C" int vit_mlp_block(const void* x, const void* g, const void* b,
         static_cast<const bf16*>(b), static_cast<const bf16*>(w1),         \
         static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),        \
         static_cast<const bf16*>(b2), static_cast<bf16*>(out), m, mlp, eps, \
-        st);
+        partial, st);
     switch (d / 128) {
       VIT_MLP_BF16(1)
       VIT_MLP_BF16(2)
@@ -320,7 +327,7 @@ extern "C" int vit_mlp_block(const void* x, const void* g, const void* b,
         static_cast<const float*>(b), static_cast<const float*>(w1),        \
         static_cast<const float*>(b1), static_cast<const float*>(w2),       \
         static_cast<const float*>(b2), static_cast<float*>(out), m, d, mlp, \
-        eps, st);
+        eps, partial, st);
     switch ((d + kMlpThreads - 1) / kMlpThreads) {
       VIT_MLP_F32(1)
       VIT_MLP_F32(2)

@@ -15,6 +15,10 @@
 // table; the plan there moves it with the batch, the port fixes it, so mlp
 // must be a multiple of 512 (every VARIANTS entry is).
 //
+// With `partial` set it is the tensor-parallel shard form
+// (mlp_block_i8dot's partial_out=True, block.py:537-539): this shard's MLP
+// columns, the accumulator seeded with zero, b2 not read.
+//
 // Layout: 16 rows a block, 256 threads, D = NT * 128 up to 1280 (H/14).
 // Shared memory holds the fp32 accumulator (16 x D), the group's hidden
 // (16 x 512 fp32, first its int32 fc1 sums), xq and hq as int8 16-column
@@ -86,7 +90,8 @@ __global__ void __launch_bounds__(kI8Threads, 1)
                   const float* __restrict__ s1, const T* __restrict__ b1,
                   const signed char* __restrict__ w2,
                   const float* __restrict__ s2, const T* __restrict__ b2,
-                  T* __restrict__ out, int m, int mlp, float eps) {
+                  T* __restrict__ out, int m, int mlp, float eps,
+                  int partial) {
   constexpr int D = NT * 128;
   extern __shared__ __align__(128) unsigned char smem[];
   float* acc = reinterpret_cast<float*>(smem);  // kI8BM x D
@@ -101,7 +106,8 @@ __global__ void __launch_bounds__(kI8Threads, 1)
   int* tile = tiles + warp * 256;
   const int m0 = blockIdx.x * kI8BM;
 
-  // LN, the per-row quantization, and the accumulator seeded with x + b2.
+  // LN, the per-row quantization, and the accumulator seeded with x + b2
+  // (with zero for a partial).
   for (int r = warp; r < kI8BM; r += kI8Warps) {
     const int row = m0 + r;
     if (row < m) {
@@ -111,7 +117,8 @@ __global__ void __launch_bounds__(kI8Threads, 1)
           [&](int i, signed char c) { xq[slice_off(r, i)] = c; });
       if (lane == 0) ax[r] = a;
       for (int i = lane; i < D; i += 32)
-        acc[r * D + i] = __fadd_rn(to_f32(xr[i]), to_f32(b2[i]));
+        acc[r * D + i] =
+            partial ? 0.f : __fadd_rn(to_f32(xr[i]), to_f32(b2[i]));
     } else {
       for (int i = lane; i < D; i += 32) {
         xq[slice_off(r, i)] = 0;
@@ -218,7 +225,7 @@ template <typename T, int NT>
 cudaError_t launch_mlp_i8(const void* x, const void* g, const void* b,
                           const void* w1, const void* s1, const void* b1,
                           const void* w2, const void* s2, const void* b2,
-                          void* out, int m, int mlp, float eps,
+                          void* out, int m, int mlp, float eps, int partial,
                           cudaStream_t st) {
   auto kernel = mlp_i8_kernel<T, NT>;
   const size_t smem = mlp_i8_smem(NT * 128);
@@ -232,7 +239,7 @@ cudaError_t launch_mlp_i8(const void* x, const void* g, const void* b,
       static_cast<const T*>(b), static_cast<const signed char*>(w1),
       static_cast<const float*>(s1), static_cast<const T*>(b1),
       static_cast<const signed char*>(w2), static_cast<const float*>(s2),
-      static_cast<const T*>(b2), static_cast<T*>(out), m, mlp, eps);
+      static_cast<const T*>(b2), static_cast<T*>(out), m, mlp, eps, partial);
   return cudaGetLastError();
 }
 
@@ -241,12 +248,13 @@ cudaError_t launch_mlp_i8_typed(int nt, const void* x, const void* g,
                                 const void* b, const void* w1, const void* s1,
                                 const void* b1, const void* w2,
                                 const void* s2, const void* b2, void* out,
-                                int m, int mlp, float eps, cudaStream_t st) {
+                                int m, int mlp, float eps, int partial,
+                                cudaStream_t st) {
   switch (nt) {
 #define VIT_MLP_I8(NT)                                                      \
   case NT:                                                                  \
     return launch_mlp_i8<T, NT>(x, g, b, w1, s1, b1, w2, s2, b2, out, m, mlp, \
-                                eps, st);
+                                eps, partial, st);
     VIT_MLP_I8(1)
     VIT_MLP_I8(2)
     VIT_MLP_I8(3)
@@ -268,12 +276,14 @@ cudaError_t launch_mlp_i8_typed(int nt, const void* x, const void* g,
 // x (m, d), LN scale and bias (d,), b1 (mlp,), b2 (d,) and out (m, d) in the
 // dtype; w1 (d, mlp) and w2 (mlp, d) int8, 16-byte aligned; s1 (mlp,) and
 // s2 (d,) fp32. d a multiple of 128 up to 1280, mlp a multiple of 512.
+// partial != 0: the accumulator starts at zero and b2 is not read.
 extern "C" int vit_mlp_block_i8(const void* x, const void* g, const void* b,
                                 const void* w1, const void* s1,
                                 const void* b1, const void* w2,
                                 const void* s2, const void* b2, void* out,
-                                int m, int d, int mlp, float eps, int dtype,
-                                int device, void* stream) {
+                                int m, int d, int mlp, float eps,
+                                int partial, int dtype, int device,
+                                void* stream) {
   using namespace vit;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
@@ -283,9 +293,9 @@ extern "C" int vit_mlp_block_i8(const void* x, const void* g, const void* b,
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return launch_mlp_i8_typed<float>(d / 128, x, g, b, w1, s1, b1, w2, s2,
-                                      b2, out, m, mlp, eps, st);
+                                      b2, out, m, mlp, eps, partial, st);
   if (dtype == kBF16)
     return launch_mlp_i8_typed<bf16>(d / 128, x, g, b, w1, s1, b1, w2, s2, b2,
-                                     out, m, mlp, eps, st);
+                                     out, m, mlp, eps, partial, st);
   return cudaErrorInvalidValue;
 }

@@ -14,6 +14,9 @@
 // exactly, as they are staged (as gemm_tile.cuh converts K9's int8 weights).
 // JAX scales fc2 per chunk of its plan's ct; the port's chunk is fixed at
 // 512 (reference.mlp_block_q's chunk), which moves only the fp32 sum order.
+// With `partial` set it is the tensor-parallel shard form (mlp_block_q's
+// partial_out=True, block.py:362-365): this shard's MLP columns, the
+// accumulator seeded with zero, b2 not read.
 //
 // Layout, after K12 (mlp_block_i8.cu): 16 rows a block, 256 threads, D a
 // multiple of 128 up to 1280 (H/14), mlp a multiple of 512.
@@ -96,7 +99,7 @@ __global__ void __launch_bounds__(kQThreads, 1)
                       const signed char* __restrict__ w2,
                       const float* __restrict__ s2,
                       const bf16* __restrict__ b2, bf16* __restrict__ out,
-                      int m, int mlp, float eps) {
+                      int m, int mlp, float eps, int partial) {
   constexpr int D = NT * 128;
   extern __shared__ __align__(128) unsigned char smem[];
   float* acc = reinterpret_cast<float*>(smem);             // kQBM x D
@@ -109,14 +112,16 @@ __global__ void __launch_bounds__(kQThreads, 1)
   float* tile = tiles + warp * 256;
   const int m0 = blockIdx.x * kQBM;
 
-  // LN rounded to bf16, and the accumulator seeded with x + b2.
+  // LN rounded to bf16, and the accumulator seeded with x + b2 (with zero
+  // for a partial).
   for (int r = warp; r < kQBM; r += kQWarps) {
     const int row = m0 + r;
     if (row < m) {
       const bf16* xr = x + static_cast<size_t>(row) * D;
       layernorm_row<bf16, bf16>(xr, g, b, xn + r * D, D, eps, lane);
       for (int i = lane; i < D; i += 32)
-        acc[r * D + i] = __fadd_rn(to_f32(xr[i]), to_f32(b2[i]));
+        acc[r * D + i] =
+            partial ? 0.f : __fadd_rn(to_f32(xr[i]), to_f32(b2[i]));
     } else {
       for (int i = lane; i < D; i += 32) {
         xn[r * D + i] = from_f32<bf16>(0.f);
@@ -200,7 +205,7 @@ cudaError_t launch_mlp_q_bf16(const void* x, const void* g, const void* b,
                               const void* w1, const void* s1, const void* b1,
                               const void* w2, const void* s2, const void* b2,
                               void* out, int m, int mlp, float eps,
-                              cudaStream_t st) {
+                              int partial, cudaStream_t st) {
   auto kernel = mlp_q_bf16_kernel<NT>;
   const size_t smem = mlp_q_bf16_smem(NT * 128);
   cudaError_t err = cudaFuncSetAttribute(
@@ -212,7 +217,8 @@ cudaError_t launch_mlp_q_bf16(const void* x, const void* g, const void* b,
       static_cast<const bf16*>(b), static_cast<const signed char*>(w1),
       static_cast<const float*>(s1), static_cast<const bf16*>(b1),
       static_cast<const signed char*>(w2), static_cast<const float*>(s2),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(out), m, mlp, eps);
+      static_cast<const bf16*>(b2), static_cast<bf16*>(out), m, mlp, eps,
+      partial);
   return cudaGetLastError();
 }
 
@@ -232,7 +238,7 @@ __global__ void __launch_bounds__(kQThreads, 1)
                      const signed char* __restrict__ w2,
                      const float* __restrict__ s2,
                      const float* __restrict__ b2, float* __restrict__ out,
-                     int m, int d, int mlp, float eps) {
+                     int m, int d, int mlp, float eps, int partial) {
   extern __shared__ __align__(16) float smq[];
   float* acc = smq;               // kQBM x d
   float* xn = acc + kQBM * d;     // kQBM x d
@@ -245,7 +251,8 @@ __global__ void __launch_bounds__(kQThreads, 1)
     if (row < m) {
       const float* xr = x + static_cast<size_t>(row) * d;
       layernorm_row<float, float>(xr, g, b, xn + r * d, d, eps, lane);
-      for (int i = lane; i < d; i += 32) acc[r * d + i] = __fadd_rn(xr[i], b2[i]);
+      for (int i = lane; i < d; i += 32)
+        acc[r * d + i] = partial ? 0.f : __fadd_rn(xr[i], b2[i]);
     } else {
       for (int i = lane; i < d; i += 32) xn[r * d + i] = acc[r * d + i] = 0.f;
     }
@@ -318,7 +325,7 @@ cudaError_t launch_mlp_q_f32(const void* x, const void* g, const void* b,
                              const void* w1, const void* s1, const void* b1,
                              const void* w2, const void* s2, const void* b2,
                              void* out, int m, int d, int mlp, float eps,
-                             cudaStream_t st) {
+                             int partial, cudaStream_t st) {
   auto kernel = mlp_q_f32_kernel<NJ>;
   const size_t smem = mlp_q_f32_smem(d);
   cudaError_t err = cudaFuncSetAttribute(
@@ -331,7 +338,7 @@ cudaError_t launch_mlp_q_f32(const void* x, const void* g, const void* b,
       static_cast<const float*>(s1), static_cast<const float*>(b1),
       static_cast<const signed char*>(w2), static_cast<const float*>(s2),
       static_cast<const float*>(b2), static_cast<float*>(out), m, d, mlp,
-      eps);
+      eps, partial);
   return cudaGetLastError();
 }
 
@@ -340,11 +347,13 @@ cudaError_t launch_mlp_q_f32(const void* x, const void* g, const void* b,
 // x (m, d), LN scale and bias (d,), b1 (mlp,), b2 (d,) and out (m, d) in the
 // dtype; w1 (d, mlp) and w2 (mlp, d) int8, 16-byte aligned; s1 (mlp,) and
 // s2 (d,) fp32. d a multiple of 128 up to 1280, mlp a multiple of 512.
+// partial != 0: the accumulator starts at zero and b2 is not read.
 extern "C" int vit_mlp_block_q(const void* x, const void* g, const void* b,
                                const void* w1, const void* s1, const void* b1,
                                const void* w2, const void* s2, const void* b2,
                                void* out, int m, int d, int mlp, float eps,
-                               int dtype, int device, void* stream) {
+                               int partial, int dtype, int device,
+                               void* stream) {
   using namespace vit;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
@@ -357,7 +366,7 @@ extern "C" int vit_mlp_block_q(const void* x, const void* g, const void* b,
 #define VIT_MLP_Q_BF16(NT)                                                    \
   case NT:                                                                    \
     return launch_mlp_q_bf16<NT>(x, g, b, w1, s1, b1, w2, s2, b2, out, m, mlp, \
-                                 eps, st);
+                                 eps, partial, st);
       VIT_MLP_Q_BF16(1)
       VIT_MLP_Q_BF16(2)
       VIT_MLP_Q_BF16(3)
@@ -378,7 +387,7 @@ extern "C" int vit_mlp_block_q(const void* x, const void* g, const void* b,
 #define VIT_MLP_Q_F32(NJ)                                                     \
   case NJ:                                                                    \
     return launch_mlp_q_f32<NJ>(x, g, b, w1, s1, b1, w2, s2, b2, out, m, d,   \
-                                mlp, eps, st);
+                                mlp, eps, partial, st);
       VIT_MLP_Q_F32(1)
       VIT_MLP_Q_F32(2)
       VIT_MLP_Q_F32(3)

@@ -9,7 +9,10 @@ differentiates the plain versions (the oracle); otherwise each op is a
 ``torch.autograd.Function`` of :mod:`vit_tpu_torch.ops.autograd`, whose
 backward is JAX's custom VJP for the op (``vit_tpu/ops/pallas/vjp.py``)
 with its kernel slots filled by device. The int8 ops and
-``layernorm_stats`` are not differentiable, as in JAX.
+``layernorm_stats`` are not differentiable, as in JAX, and neither are the
+tensor-parallel shard forms (``attn_block_partial``,
+``attn_block_q_partial``, ``partial_out=True``): JAX defines no VJP for
+them, so they run under ``torch.no_grad``.
 
 :func:`attn_plan` and :func:`mlp_plan` say whether a half-block
 mega-kernel takes a geometry; the model routes each half of a layer by
@@ -37,7 +40,8 @@ __all__ = [
     "encoder_stack",
     "encoder_stack_fused", "stack_plan", "stack_fused_plan", "quantize_rows",
     "matmul_i8", "attn_block_q", "mlp_block_i8dot", "mlp_block_q",
-    "encoder_stack_q", "stack_q_plan", "resolve_impl", "reference",
+    "encoder_stack_q", "stack_q_plan", "attn_block_partial",
+    "attn_block_q_partial", "resolve_impl", "reference",
 ]
 
 
@@ -147,8 +151,16 @@ def patch_embed(x, w, bias, patch_size, *, impl=None):
     return matmul(patchify(x, patch_size), w, bias, impl=impl)
 
 
-def mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps=1e-12, impl=None):
-    """``x + fc2(gelu(fc1(LN(x))))``, one kernel (K3)."""
+def mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps=1e-12,
+              partial_out=False, impl=None):
+    """``x + fc2(gelu(fc1(LN(x))))``, one kernel (K3). ``partial_out=True``
+    is the tensor-parallel shard form (``w1``/``w2`` this shard's MLP
+    columns, no residual, ``b2`` ignored), not differentiable."""
+    if partial_out:
+        with torch.no_grad():
+            return kernel_fn("mlp_block", impl, x)(
+                x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps,
+                partial_out=True)
     if check_impl(impl) == "torch":
         return reference.mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2,
                                    eps=eps)
@@ -170,6 +182,19 @@ def attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *, num_heads,
         num_heads,
         (d // num_heads) ** -0.5 if scale is None else scale,
         s if seq_len is None else seq_len, eps, impl)
+
+
+@torch.no_grad()
+def attn_block_partial(x, ln_scale, ln_bias, wqkv, bqkv, wout, *, num_heads,
+                       scale=None, seq_len=None, eps=1e-12, impl=None):
+    """``proj_s(MHA_s(LN(x)))``, one tensor-parallel shard's attention half
+    (B16): ``num_heads`` the shard's heads, ``wqkv`` (D, 3*dl) its
+    head-major ``[q_s|k_s|v_s]`` columns, ``wout`` (dl, D) its rows; no
+    bias, no residual, a partial sum in ``x.dtype`` (K1, K2, the attention
+    core or, where :func:`attn_plan` refuses the length, K7, then K2)."""
+    return kernel_fn("attn_block_partial", impl, x)(
+        x, ln_scale, ln_bias, wqkv, bqkv, wout, num_heads=num_heads,
+        scale=scale, seq_len=seq_len, eps=eps)
 
 
 def attn_plan(batch: int, seq_pad: int, hidden: int, num_heads: int,
@@ -306,20 +331,36 @@ def attn_block_q(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q, sout, bout,
         num_heads=num_heads, scale=scale, seq_len=seq_len, eps=eps)
 
 
+@torch.no_grad()
+def attn_block_q_partial(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q,
+                         sout, *, num_heads, scale=None, seq_len=None,
+                         eps=1e-12, impl=None):
+    """:func:`attn_block_partial` with int8 projections (B17; five
+    launches: K10, K11, K7 with an fp32 output, K10 over the shard's
+    ``dl`` context columns, K11 with no bias and no residual)."""
+    return kernel_fn("attn_block_q_partial", impl, x)(
+        x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q, sout,
+        num_heads=num_heads, scale=scale, seq_len=seq_len, eps=eps)
+
+
 def mlp_block_i8dot(x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, *,
-                    eps=1e-12, impl=None):
+                    eps=1e-12, partial_out=False, impl=None):
     """``x + fc2(gelu(fc1(LN(x))))`` with both products s8 x s8 -> s32 and
-    the hidden requantized every 512 columns, one kernel (K12)."""
+    the hidden requantized every 512 columns, one kernel (K12);
+    ``partial_out`` as in :func:`mlp_block`."""
     return kernel_fn("mlp_block_i8dot", impl, x)(
-        x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps=eps)
+        x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps=eps,
+        partial_out=partial_out)
 
 
 def mlp_block_q(x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, *,
-                eps=1e-12, impl=None):
+                eps=1e-12, partial_out=False, impl=None):
     """``x + fc2(gelu(fc1(LN(x))))`` on weight-only int8 weights, the
-    activations in float, one kernel (K17)."""
+    activations in float, one kernel (K17); ``partial_out`` as in
+    :func:`mlp_block`."""
     return kernel_fn("mlp_block_q", impl, x)(
-        x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps=eps)
+        x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, eps=eps,
+        partial_out=partial_out)
 
 
 def encoder_stack_q(x, enc, *, num_heads, scale=None, seq_len=None,

@@ -48,8 +48,8 @@ _SIGNATURES = {
     "vit_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I),
     # x, w, bias, residual, mu, rstd, gamma, beta, out, m, n, k, gelu
     "vit_fused_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
-    # x, ln_scale, ln_bias, w1, b1, w2, b2, out, m, d, mlp, eps
-    "vit_mlp_block": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F),
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, out, m, d, mlp, eps, partial
+    "vit_mlp_block": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I),
     # qkv, out, batch, seq, d, heads, seq_len, scale
     "vit_attention": (_P, _P, _I, _I, _I, _I, _I, _F),
     # q, k, v, out, (b, h, s) element strides of q, k, v and out, batch,
@@ -71,8 +71,9 @@ _SIGNATURES = {
     "vit_quantize_rows": (_P, _P, _P, _P, _P, _I, _I, _F),
     # xq, ax, wq, wscale, bias, residual, out, m, n, k, gelu
     "vit_matmul_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
-    # x, ln scale, ln bias, w1, s1, b1, w2, s2, b2, out, m, d, mlp, eps
-    "vit_mlp_block_i8": (*(_P,) * 10, _I, _I, _I, _F),
+    # x, ln scale, ln bias, w1, s1, b1, w2, s2, b2, out, m, d, mlp, eps,
+    # partial
+    "vit_mlp_block_i8": (*(_P,) * 10, _I, _I, _I, _F, _I),
     # x, qkv, ctx, hid, the 12 stacked encoder tensors, the 4 stacked
     # scales, b, sp, d, mlp, heads, layers, seq_len, scale, eps
     "vit_encoder_stack_q": (*(_P,) * 20, *(_I,) * 7, _F, _F),
@@ -82,8 +83,9 @@ _SIGNATURES = {
     "vit_softmax": (_P, _P, _I, _I),
     # x, y, out, b, m, n, k, scale
     "vit_matmul3": (_P, _P, _P, _I, _I, _I, _I, _F),
-    # x, ln scale, ln bias, w1, s1, b1, w2, s2, b2, out, m, d, mlp, eps
-    "vit_mlp_block_q": (*(_P,) * 10, _I, _I, _I, _F),
+    # x, ln scale, ln bias, w1, s1, b1, w2, s2, b2, out, m, d, mlp, eps,
+    # partial
+    "vit_mlp_block_q": (*(_P,) * 10, _I, _I, _I, _F, _I),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,7 @@
 """Transformer half-block kernels: K3 ``mlp_block`` (``csrc/mlp_block.cu``)
-and K4 ``attn_block`` (counterparts of ``vit_tpu/ops/pallas/block.py``).
+and K4 ``attn_block`` (counterparts of ``vit_tpu/ops/pallas/block.py``),
+and their tensor-parallel shard forms: K3 with ``partial_out=True`` and B16
+``attn_block_partial``.
 
 ``mlp_block`` is one kernel, as on the TPU: the (M, mlp) hidden never
 reaches device memory.
@@ -11,6 +13,16 @@ reaches device memory.
 reading each head's q, k and v straight from that buffer, and K2
 ``ctx @ Wout + bout + x`` with the residual added in fp32. Every rounding
 point of ``_attn_core`` (``block.py:647-699``) is kept.
+
+``attn_block_partial`` (B16, ``block.py:1018`` ``attn_block_partial``,
+``pallas_call`` :1054) is the same four launches on one shard's heads: K1,
+K2 into a ``(B*S, 3*dl)`` ``[q_s|k_s|v_s]`` buffer, the attention core (or,
+where its shared memory refuses the length, K7 over the buffer's head
+views, as the model's composed route does), and K2 ``ctx @ Wout_s`` with no
+bias and no residual. Like all of K4 it is bound by its products and the
+attention core; its output is a partial sum in ``x.dtype``, which the
+caller all-reduces over the model group
+(``vit_tpu_torch/parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -33,9 +45,12 @@ MLP_F32_MAX_D = 1536
 
 
 def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
-              eps: float = 1e-12) -> torch.Tensor:
+              eps: float = 1e-12, partial_out: bool = False) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))`` on CUDA tensors in one kernel.
-    ``x`` (..., D); ``w1`` (D, mlp); ``w2`` (mlp, D)."""
+    ``x`` (..., D); ``w1`` (D, mlp); ``w2`` (mlp, D). ``partial_out=True``:
+    the tensor-parallel shard form, ``fc2(gelu(fc1(LN(x))))`` with the
+    accumulator seeded with zero, ``b2`` not read; it counts as
+    ``mlp_block_partial``."""
     _build.check_tensor(x, "x", x)
     d = x.shape[-1]
     if w1.dim() != 2 or w1.shape[0] != d:
@@ -62,8 +77,8 @@ def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
         raise ValueError(f"mlp_block of an empty tensor {tuple(x.shape)}")
     out = torch.empty_like(x)
     _build.launch("vit_mlp_block", x, ln_scale, ln_bias, w1, b1, w2, b2, out,
-                  m, d, mlp, float(eps), like=x)
-    count_launch("mlp_block")
+                  m, d, mlp, float(eps), int(partial_out), like=x)
+    count_launch("mlp_block_partial" if partial_out else "mlp_block")
     return out
 
 
@@ -119,3 +134,43 @@ def attn_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
     ctx = attention_core(qkv, batch=b, num_heads=num_heads, scale=scale,
                          seq_len=seq_len)
     return matmul(ctx, wout, bout, residual=xf).reshape(b, s, d)
+
+
+def attn_block_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout,
+                       *, num_heads: int, scale: float | None = None,
+                       seq_len: int | None = None,
+                       eps: float = 1e-12) -> torch.Tensor:
+    """``proj_s(MHA_s(LN(x)))`` for a CUDA tensor ``x`` (B, S, D), S already
+    padded: one tensor-parallel shard's attention half, with ``num_heads``
+    the shard's heads, ``wqkv`` (D, 3*dl) its head-major ``[q_s|k_s|v_s]``
+    columns, ``bqkv`` (3*dl,) and ``wout`` (dl, D) its rows. No bias and no
+    residual; the result is in ``x.dtype``."""
+    from vit_tpu_torch.ops.cuda.attention import flash_attention
+
+    _build.check_tensor(x, "x", x)
+    if x.dim() != 3:
+        raise ValueError(f"x shape {tuple(x.shape)} is not (B, S, D)")
+    b, s, d = x.shape
+    if wqkv.dim() != 2 or wqkv.shape[1] % 3:
+        raise ValueError(f"wqkv shape {tuple(wqkv.shape)} is not (D, 3*dl)")
+    dl = wqkv.shape[1] // 3
+    if num_heads <= 0 or dl % num_heads:
+        raise ValueError(f"dl={dl} not divisible by {num_heads} heads")
+    hd = dl // num_heads
+    if scale is None:
+        scale = hd ** -0.5
+    if seq_len is None:
+        seq_len = s
+    xf = x.reshape(b * s, d)
+    qkv = matmul(layernorm(xf, ln_scale, ln_bias, eps=eps), wqkv, bqkv)
+    if attention_smem_bytes(s, hd, x.element_size()) <= MAX_SMEM:
+        ctx = attention_core(qkv, batch=b, num_heads=num_heads, scale=scale,
+                             seq_len=seq_len)
+    else:
+        q, k, v = qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+        # The kernel's context is a (B, S, H, hd) buffer: this is a view.
+        ctx = flash_attention(q, k, v, scale=scale, seq_len=seq_len
+                              ).transpose(1, 2).reshape(b * s, dl)
+    out = matmul(ctx, wout).reshape(b, s, d)
+    count_launch("attn_block_partial")
+    return out

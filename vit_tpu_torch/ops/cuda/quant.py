@@ -3,7 +3,12 @@ K11 ``matmul_i8`` (``csrc/matmul.cu``), K12 ``mlp_block_i8dot``
 (``csrc/mlp_block_i8.cu``), K17 ``mlp_block_q`` (``csrc/mlp_block_q.cu``)
 and ``attn_block_q`` as five launches (counterparts of
 ``vit_tpu/ops/pallas/block.py:attn_block_q``, ``mlp_block_i8dot`` and
-``mlp_block_q``).
+``mlp_block_q``); and their tensor-parallel shard forms: K12 and K17 with
+``partial_out=True``, and B17 ``attn_block_q_partial``
+(``block.py:1443``, ``pallas_call`` :1483), ``attn_block_q``'s five
+launches on one shard's heads with no bias and no residual in the last
+K11: each shard quantizes its context rows over its own ``dl`` columns, as
+JAX's partial kernel does.
 
 ``attn_block_q`` is one Pallas kernel on the TPU; on Hopper it is K10 with
 LN1, K11 into the packed ``(B*S, 3D)`` q|k|v in the dtype, K7 on the heads'
@@ -117,10 +122,46 @@ def attn_block_q(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
                      out_dtype=x.dtype).view(b, s, d)
 
 
+def attn_block_q_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv,
+                         bqkv, wout_q, sout, *, num_heads: int,
+                         scale: float | None = None,
+                         seq_len: int | None = None,
+                         eps: float = 1e-12) -> torch.Tensor:
+    """``proj_s(MHA_s(LN(x)))`` with int8 projections for a CUDA tensor
+    ``x`` (B, S, D), S already padded: one tensor-parallel shard's
+    attention half, ``num_heads`` its heads, ``wqkv_q`` (D, 3*dl) int8 its
+    head-major ``[q_s|k_s|v_s]`` columns with ``sqkv`` (3*dl,) fp32 and
+    ``bqkv`` (3*dl,), ``wout_q`` (dl, D) int8 its rows with the whole
+    ``sout`` (D,). No bias and no residual; the result is in ``x.dtype``."""
+    _build.check_tensor(x, "x", x)
+    if x.dim() != 3:
+        raise ValueError(f"x shape {tuple(x.shape)} is not (B, S, D)")
+    b, s, d = x.shape
+    if wqkv_q.dim() != 2 or wqkv_q.shape[1] % 3:
+        raise ValueError(f"wqkv_q shape {tuple(wqkv_q.shape)} is not "
+                         "(D, 3*dl)")
+    dl = wqkv_q.shape[1] // 3
+    if num_heads <= 0 or dl % num_heads:
+        raise ValueError(f"dl={dl} not divisible by {num_heads} heads")
+    hd = dl // num_heads
+    xf = x.reshape(b * s, d)
+    xq, ax = quantize_rows(xf, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
+    qkv = matmul_i8(xq, ax, wqkv_q, sqkv, bqkv, out_dtype=x.dtype)
+    q, k, v = qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    ctx = flash_attention(q, k, v, scale=hd ** -0.5 if scale is None
+                          else scale, seq_len=seq_len, out_dtype=_F32)
+    cq, ac = quantize_rows(ctx.transpose(1, 2).reshape(b * s, dl))
+    out = matmul_i8(cq, ac, wout_q, sout, out_dtype=x.dtype).view(b, s, d)
+    count_launch("attn_block_q_partial")
+    return out
+
+
 def _int8_mlp(kernel: str, entry: str, x: torch.Tensor, ln_scale, ln_bias,
-              w1q, s1, b1, w2q, s2, b2, eps: float) -> torch.Tensor:
+              w1q, s1, b1, w2q, s2, b2, eps: float,
+              partial_out: bool) -> torch.Tensor:
     """Check the operands of an int8-weight MLP kernel (K12 or K17), launch
-    C entry point ``entry`` and count a launch of ``kernel``."""
+    C entry point ``entry`` and count a launch of ``kernel`` (of
+    ``kernel + "_partial"`` with ``partial_out``)."""
     _build.check_tensor(x, "x", x)
     d = x.shape[-1]
     if w1q.dim() != 2 or w1q.shape[0] != d:
@@ -144,27 +185,30 @@ def _int8_mlp(kernel: str, entry: str, x: torch.Tensor, ln_scale, ln_bias,
         raise ValueError(f"{kernel} of an empty tensor {tuple(x.shape)}")
     out = torch.empty_like(x)
     _build.launch(entry, x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, out,
-                  m, d, mlp, float(eps), like=x)
-    count_launch(kernel)
+                  m, d, mlp, float(eps), int(partial_out), like=x)
+    count_launch(kernel + "_partial" if partial_out else kernel)
     return out
 
 
 def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
-                    b2, *, eps: float = 1e-12) -> torch.Tensor:
+                    b2, *, eps: float = 1e-12,
+                    partial_out: bool = False) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))`` with both products in int8 on a CUDA
     tensor ``x`` (..., D), one kernel. ``w1q`` (D, mlp) and ``w2q``
     (mlp, D) int8, ``s1`` (mlp,) and ``s2`` (D,) fp32; D a multiple of 128
-    up to 1280, mlp a multiple of 512."""
+    up to 1280, mlp a multiple of 512. ``partial_out=True``: the shard
+    form, accumulator seeded with zero, ``b2`` not read."""
     return _int8_mlp("mlp_block_i8dot", "vit_mlp_block_i8", x, ln_scale,
-                     ln_bias, w1q, s1, b1, w2q, s2, b2, eps)
+                     ln_bias, w1q, s1, b1, w2q, s2, b2, eps, partial_out)
 
 
 def mlp_block_q(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2,
-                *, eps: float = 1e-12) -> torch.Tensor:
+                *, eps: float = 1e-12,
+                partial_out: bool = False) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))`` on weight-only int8 weights for a CUDA
     tensor ``x`` (..., D), one kernel (K17, ``csrc/mlp_block_q.cu``): the
     activations stay in ``x``'s dtype, the weights are converted to it as
     they are staged. The operands and limits of :func:`mlp_block_i8dot`
-    (mlp a multiple of 512: K17's chunk)."""
+    (mlp a multiple of 512: K17's chunk); ``partial_out`` as there."""
     return _int8_mlp("mlp_block_q", "vit_mlp_block_q", x, ln_scale, ln_bias,
-                     w1q, s1, b1, w2q, s2, b2, eps)
+                     w1q, s1, b1, w2q, s2, b2, eps, partial_out)

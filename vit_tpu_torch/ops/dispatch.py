@@ -55,7 +55,8 @@ _CUDA_MODULES = {
     "quantize_rows": "quant", "matmul_i8": "quant", "attn_block_q": "quant",
     "mlp_block_i8dot": "quant", "encoder_stack_q": "stack",
     "add": "elementwise", "softmax": "elementwise", "matmul3": "matmul3",
-    "mlp_block_q": "quant",
+    "mlp_block_q": "quant", "attn_block_partial": "block",
+    "attn_block_q_partial": "quant",
 }
 
 

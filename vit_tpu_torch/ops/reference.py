@@ -14,8 +14,13 @@ tier, so that a kernel and its plain version agree to the sum order:
   input dtype, by ``v`` and divides by the fp32 row sum afterwards
   (``vit_tpu/ops/pallas/block.py:685-691``);
 - ``mlp_block`` seeds its fp32 accumulator with ``x + b2``
-  (``block.py:77-78``) and rounds the GELU hidden to the input dtype
-  before the second product (``block.py:86``);
+  (``block.py:77-78``; with zero in the tensor-parallel ``partial_out``
+  form) and rounds the GELU hidden to the input dtype before the second
+  product (``block.py:86``);
+- the tensor-parallel attention partials (``attn_block_partial``,
+  ``attn_block_q_partial``) round where the whole blocks do and end in
+  ``x.dtype`` with no bias and no residual (``block.py:697-698, 1067,
+  1497``);
 - ``fused_linear`` normalises x with the fp32 row stats of
   ``layernorm_stats`` and rounds it to the input dtype before the product
   (``vit_tpu/ops/pallas/matmul.py:250-257``);
@@ -296,20 +301,45 @@ def attn_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
 
 
 def _mlp_acc(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
-             eps: float) -> torch.Tensor:
+             eps: float, partial_out: bool = False) -> torch.Tensor:
     """:func:`mlp_block` before its final cast: the fp32 accumulator."""
     h = matmul(layernorm(x, ln_scale, ln_bias, eps=eps), w1, b1, "gelu")
-    acc = _f32(x) + _f32(b2)
-    return acc + torch.matmul(_f32(h), _f32(w2))
+    prod = torch.matmul(_f32(h), _f32(w2))
+    return prod if partial_out else _f32(x) + _f32(b2) + prod
 
 
 def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
-              eps: float = 1e-12) -> torch.Tensor:
+              eps: float = 1e-12, partial_out: bool = False) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))`` with the Pallas kernel's rounding: LN
     and the GELU hidden in the input dtype, the fp32 accumulator seeded
-    with ``x + b2``."""
-    return _mlp_acc(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                    eps=eps).to(x.dtype)
+    with ``x + b2``. ``partial_out=True`` is the tensor-parallel shard form
+    (``block.py:199-202``): ``w1``/``w2`` hold this shard's MLP columns,
+    the accumulator starts at zero and ``b2`` is ignored."""
+    return _mlp_acc(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps,
+                    partial_out=partial_out).to(x.dtype)
+
+
+def attn_block_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout,
+                       *, num_heads: int, scale: float | None = None,
+                       seq_len: int | None = None,
+                       eps: float = 1e-12) -> torch.Tensor:
+    """``proj_s(MHA_s(LN(x)))``, one tensor-parallel shard's attention half
+    (``vit_tpu/ops/pallas/block.py:_attn_partial_kernel``): ``num_heads``
+    is the shard's head count, ``wqkv`` (D, 3*dl) its head-major
+    ``[q_s|k_s|v_s]`` columns, ``wout`` (dl, D) its rows. The rounding of
+    :func:`attn_block`; the fp32 product is cast to ``x.dtype`` with no
+    bias and no residual."""
+    b, s, d = x.shape
+    dl = wqkv.shape[1] // 3
+    if scale is None:
+        scale = (dl // num_heads) ** -0.5
+    if seq_len is None:
+        seq_len = s
+    xf = x.reshape(b * s, d)
+    qkv = matmul(layernorm(xf, ln_scale, ln_bias, eps=eps), wqkv, bqkv)
+    ctx = attention_core(qkv, batch=b, num_heads=num_heads, scale=scale,
+                         seq_len=seq_len)
+    return matmul(ctx, wout).reshape(b, s, d)
 
 
 def embed_fused(patches: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -502,14 +532,42 @@ def attn_block_q(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
                      out_dtype=x.dtype).reshape(b, s, d)
 
 
+def attn_block_q_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv,
+                         bqkv, wout_q, sout, *, num_heads: int,
+                         scale: float | None = None,
+                         seq_len: int | None = None,
+                         eps: float = 1e-12) -> torch.Tensor:
+    """One tensor-parallel shard's int8 attention half, after
+    ``vit_tpu/ops/pallas/block.py:_attn_q_partial_kernel``: the rounding
+    of :func:`attn_block_q` on the shard's heads, the context rows
+    quantized over the shard's ``dl`` columns, and the out-projection
+    ``(acc * ac) * sout`` cast to ``x.dtype`` with no bias and no
+    residual."""
+    b, s, d = x.shape
+    dl = wqkv_q.shape[1] // 3
+    hd = dl // num_heads
+    if scale is None:
+        scale = hd ** -0.5
+    xf = x.reshape(b * s, d)
+    xq, ax = quantize_rows(xf, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
+    qkv = matmul_i8(xq, ax, wqkv_q, sqkv, bqkv, out_dtype=x.dtype)
+    q, k, v = qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    ctx = attention(q, k, v, scale=scale, seq_len=seq_len,
+                    out_dtype=torch.float32)
+    cq, ac = quantize_rows(ctx.permute(0, 2, 1, 3).reshape(b * s, dl))
+    return matmul_i8(cq, ac, wout_q, sout,
+                     out_dtype=x.dtype).reshape(b, s, d)
+
+
 def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
-                    b2, *, eps: float = 1e-12,
-                    group: int = MLP_GROUP) -> torch.Tensor:
+                    b2, *, eps: float = 1e-12, group: int = MLP_GROUP,
+                    partial_out: bool = False) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))`` with both products in int8, after
     ``vit_tpu/ops/pallas/block.py:_mlp_i8dot_kernel``: LN in fp32 quantized
-    per row; the fp32 sum seeded with ``x + b2``; for each ``group`` hidden
-    columns ``h = gelu((acc1 * ax) * s1 + b1)``, quantized per row over the
-    group, and ``acc += (acc2 * ah) * s2``; one cast."""
+    per row; the fp32 sum seeded with ``x + b2`` (with zero for
+    ``partial_out``, ``b2`` ignored); for each ``group`` hidden columns ``h
+    = gelu((acc1 * ax) * s1 + b1)``, quantized per row over the group, and
+    ``acc += (acc2 * ah) * s2``; one cast."""
     d = x.shape[-1]
     mlp = w1q.shape[1]
     if mlp % group:
@@ -517,7 +575,7 @@ def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
                          f"{group}")
     xf = x.reshape(-1, d)
     xq, ax = quantize_rows(xf, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
-    acc = _f32(xf) + _f32(b2)
+    acc = torch.zeros_like(_f32(xf)) if partial_out else _f32(xf) + _f32(b2)
     for c0 in range(0, mlp, group):
         cols = slice(c0, c0 + group)
         h = _int_product(xq, w1q[:, cols]) * ax * s1[cols]
@@ -527,7 +585,8 @@ def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
 
 
 def mlp_block_q(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
-                b2, *, eps: float = 1e-12) -> torch.Tensor:
+                b2, *, eps: float = 1e-12,
+                partial_out: bool = False) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))`` on weight-only int8 weights, after
     ``vit_tpu/ops/pallas/block.py:_mlp_q_kernel``: LN in fp32, rounded to
     the dtype; for each :data:`MLP_GROUP` hidden columns ``h = gelu((xn @
@@ -535,11 +594,11 @@ def mlp_block_q(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,
     s2`` on an fp32 accumulator seeded with ``x + b2``; one cast. The
     activations are never quantized. JAX scales fc2 per chunk of its
     plan's ``ct``; the port's chunk is fixed (its kernel's), which changes
-    only the fp32 sum order."""
+    only the fp32 sum order. ``partial_out`` as in :func:`mlp_block_i8dot`."""
     d = x.shape[-1]
     xf = x.reshape(-1, d)
     xn = layernorm(xf, ln_scale, ln_bias, eps=eps)
-    acc = _f32(xf) + _f32(b2)
+    acc = torch.zeros_like(_f32(xf)) if partial_out else _f32(xf) + _f32(b2)
     for c0 in range(0, w1q.shape[1], MLP_GROUP):
         cols = slice(c0, c0 + MLP_GROUP)
         h = matmul(xn, w1q[:, cols], b1[cols], "gelu", wscale=s1[cols])

@@ -7,7 +7,11 @@ kernel tier through the ``torch.autograd.Function``\\ s of
 :mod:`vit_tpu_torch.ops.autograd` (JAX's custom VJPs). The optimizer is
 ``torch.optim.AdamW`` with optax's ``adamw`` defaults.
 
-No ``mesh=``: batch data parallelism comes with the port's parallel layer.
+``mesh=`` (``vit_tpu_torch.parallel.make_mesh`` with ``model == 1``) is
+batch data parallelism, as JAX's on the kernel tier (``vit_tpu/train.py:
+70-85``): each rank takes its rows of the batch, and the loss and every
+gradient are averaged over the data group before the optimizer step, so
+the replicated params stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from vit_tpu_torch import parallel
 from vit_tpu_torch.config import ViTConfig
 from vit_tpu_torch.models.vit import forward
 from vit_tpu_torch.weights.convert import Params, tree_leaves
@@ -54,7 +59,8 @@ def make_optimizer(learning_rate: float = 1e-4,
 
 def make_train_step(cfg: ViTConfig, optimizer: Optimizer | None = None, *,
                     impl: str | None = None, attention: str = "flash",
-                    device: torch.device | str = "cuda"):
+                    device: torch.device | str | None = None,
+                    mesh: parallel.Mesh | None = None):
     """Returns ``(init_fn, step_fn)``.
 
     ``init_fn(params) -> opt_state``: the optimizer over the params'
@@ -65,9 +71,24 @@ def make_train_step(cfg: ViTConfig, optimizer: Optimizer | None = None, *,
     and ``opt_state`` in place and returns them, where JAX's step returns
     new ones; ``loss`` is the batch's loss before the step, detached.
     ``attention`` picks the forward's route, as JAX's does.
+
+    With ``mesh`` (``model == 1``; the device is ``mesh.device``) every
+    rank of the mesh calls ``step_fn`` with the same whole batch, a
+    multiple of 'data' in size, and runs its rows; the loss and the
+    gradients are then summed over the data group and divided by its size
+    (equal shards: the mean of per-shard means is the batch mean), and
+    every rank takes the same optimizer step on its replica of the params.
     """
     make = optimizer or make_optimizer()
-    device = torch.device(device)
+    if mesh is not None:
+        if mesh.model != 1:
+            raise ValueError("the train step shards the batch only "
+                             f"(model must be 1, got {mesh.model})")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
+    device = torch.device(device or "cuda")
 
     def init_fn(params: Params) -> torch.optim.Optimizer:
         leaves = tree_leaves(params)
@@ -81,11 +102,19 @@ def make_train_step(cfg: ViTConfig, optimizer: Optimizer | None = None, *,
     def step_fn(params: Params, opt_state: torch.optim.Optimizer,
                 pixels: torch.Tensor, labels: torch.Tensor):
         opt_state.zero_grad(set_to_none=True)
+        if mesh is not None:
+            pixels = parallel.batch_shard(pixels, mesh)
+            labels = parallel.batch_shard(labels, mesh)
         loss = cross_entropy_loss(params, pixels.to(device),
                                   labels.to(device), cfg, impl=impl,
                                   attention=attention)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None and mesh.data_group is not None:
+            for t in tree_leaves(params):
+                parallel.all_reduce(t.grad, mesh.data_group).div_(mesh.data)
+            parallel.all_reduce(loss, mesh.data_group).div_(mesh.data)
         opt_state.step()
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return init_fn, step_fn

@@ -156,6 +156,23 @@ def params_from_state_dict(sd: Mapping[str, Any], cfg: ViTConfig, *,
     return params
 
 
+def params_from_hf(hf_model: Any, cfg: ViTConfig | None = None, *,
+                   device: torch.device | str = "cuda") -> Params:
+    """Import from a live ``transformers`` model object (``ViTModel`` or
+    ``ViTForImageClassification``; DeiT's likewise), as
+    ``vit_tpu/weights/hf.py:params_from_hf``: without ``cfg`` the config
+    comes from the model's, with ``num_labels`` classes where the model
+    has a ``classifier`` and none otherwise. ``transformers`` is never
+    imported here: the caller hands the model in."""
+    if cfg is None:
+        hf_cfg = hf_model.config
+        num_classes = getattr(hf_cfg, "num_labels", 0)
+        if not hasattr(hf_model, "classifier"):
+            num_classes = 0
+        cfg = config_from_hf(hf_cfg, num_classes=num_classes)
+    return params_from_state_dict(hf_model.state_dict(), cfg, device=device)
+
+
 def _leaves(tree: Params, prefix: str = ""):
     for k, v in tree.items():
         name = f"{prefix}{k}"
