@@ -88,7 +88,8 @@ without printing the final ``ok`` line:
     with ``partial_out=True``) are checked and timed with the other
     kernels in phases 3 and 11 (``kernel_cases_tp``: B/16 bs=8 in both
     dtypes, L/16-384 bs=2 and H/14 bs=2 in bf16, over model=2 and 4; B/16
-    bs=32 over model=2, the case the kernels line reports); here, the
+    bs=32 over model=2, the case the kernels line reports for K3 / K12 /
+    K17's forms; B16 and B17 are timed as blocks, like K4); here, the
     shards' sums plus bias and residual against the whole-block kernels,
     then two ranks spawned on the card (this script with ``--tp-rank``,
     gloo over a ``file://`` store): ``make_tp_forward`` at B/16 bf16 bs=8
@@ -198,19 +199,16 @@ KERNEL_SOURCES = {
                 "vit_tpu/ops/pallas/matmul3.py:105"),
     "mlp_block_q": ("vit_tpu_torch/csrc/mlp_block_q.cu",
                     "vit_tpu/ops/pallas/block.py:416"),
-    # The tensor-parallel shard forms: K3, K12 and K17 with partial_out=True
-    # (the same pallas_calls), and B16 / B17, composed in their wrappers of
-    # K1, K2 and the attention core or K7 (B16), K10, K11 and K7 (B17).
+    # The tensor-parallel shard forms of K3, K12 and K17, partial_out=True
+    # (the same pallas_calls). B16 and B17 (block.py:1054, :1483) are K1,
+    # K2 and the attention core or K7, and K10, K11 and K7: their kernels
+    # count their launches, and phase 11 times each block whole.
     "mlp_block_partial": ("vit_tpu_torch/csrc/mlp_block.cu",
                           "vit_tpu/ops/pallas/block.py:218"),
     "mlp_block_i8dot_partial": ("vit_tpu_torch/csrc/mlp_block_i8.cu",
                                 "vit_tpu/ops/pallas/block.py:591"),
     "mlp_block_q_partial": ("vit_tpu_torch/csrc/mlp_block_q.cu",
                             "vit_tpu/ops/pallas/block.py:416"),
-    "attn_block_partial": ("vit_tpu_torch/ops/cuda/block.py",
-                           "vit_tpu/ops/pallas/block.py:1054"),
-    "attn_block_q_partial": ("vit_tpu_torch/ops/cuda/quant.py",
-                             "vit_tpu/ops/pallas/block.py:1483"),
 }
 #: Kernels that run a whole encoder: held to the model bars.
 WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused", "encoder_stack_q")
@@ -949,17 +947,17 @@ TP_SHAPES = (
 
 def kernel_cases_tp(torch, dtype):
     """Phase 14's kernels alone: one shard of each tensor-parallel partial
-    at the main paths' shapes over model=2 and 4 (:data:`TP_SHAPES`):
-    B16 ``attn_block_partial`` (the attention core; at L/16-384's 592
-    tokens K7), B17 ``attn_block_q_partial``, K3 ``mlp_block`` with
-    ``partial_out=True`` where ``mlp_plan`` takes the shard (not at H/14
-    in bf16, D=1280), and K12 / K17 with it where the shard's MLP columns
-    are whole 512-column groups. Bound: the shard's bytes once, its
-    products at the peak of their type (int8 for the int8 projections, as
-    ``attn_block_q``'s case counts them)."""
+    at the main paths' shapes over model=2 and 4 (:data:`TP_SHAPES`): K3
+    ``mlp_block`` with ``partial_out=True`` where ``mlp_plan`` takes the
+    shard (not at H/14 in bf16, D=1280), K12 / K17 with it where
+    ``mlp_q_plan`` does (whole 512-column groups), and, as blocks timed
+    whole like ``attn_block``'s case, B16 ``attn_block_partial`` (the
+    attention core; at L/16-384's 592 tokens K7) and B17
+    ``attn_block_q_partial``, which count no launches of their own. Bound:
+    the shard's bytes once, its products at the peak of their type (int8
+    for the int8 projections, as ``attn_block_q``'s case counts them)."""
     from vit_tpu_torch import ops
     from vit_tpu_torch.quant import quantize_weight
-    from vit_tpu_torch.parallel.tp import mlp_q_plan
 
     rnd = _rnd_fn(torch, dtype, 51)
     e, kind = dtype.itemsize, _kind(torch, dtype)
@@ -1009,7 +1007,7 @@ def kernel_cases_tp(torch, dtype):
                     lambda impl, a=(x, g, beta, w1, b_m, w2, b_d):
                     ops.mlp_block(*a, partial_out=True, impl=impl),
                     (*mlp_work, kind), primary=main))
-            if mlp_q_plan(d, ml):
+            if ops.mlp_q_plan(d, ml):
                 q1, q2 = (quantize_weight(rnd(d, ml, std=0.03)),
                           quantize_weight(rnd(ml, d, std=0.03)))
                 args = (x, g, beta, q1["q"], q1["scale"], b_m, q2["q"],
@@ -1507,7 +1505,7 @@ def tp_counts(layers: int, *, quant: bool = False, mlp_mega: bool = True,
     out = {"matmul": 1 + int(head), "layernorm": 1}
     if quant:
         out.update(quantize_rows=2 * layers, matmul_i8=2 * layers,
-                   flash_attention=layers, attn_block_q_partial=layers)
+                   flash_attention=layers)
         if mlp_mega:
             out["mlp_block_i8dot_partial" if int8_dot
                 else "mlp_block_q_partial"] = layers
@@ -1515,7 +1513,7 @@ def tp_counts(layers: int, *, quant: bool = False, mlp_mega: bool = True,
             out["quantize_rows"] += 2 * layers
             out["matmul_i8"] += 2 * layers
         return out
-    out.update(attention=layers, attn_block_partial=layers)
+    out["attention"] = layers
     out["layernorm"] += layers
     out["matmul"] += 2 * layers
     if mlp_mega:

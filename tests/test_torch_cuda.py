@@ -827,8 +827,9 @@ def test_torch_cuda_int8_mlp_partial(gen, dtype, kernel, m, d, mlp):
 def test_torch_cuda_attn_block_partial(gen, dtype, b, s, seq_len, d, heads,
                                        hd):
     """B16 on one shard (``heads`` local heads of ``hd``): K1, K2, the
-    attention core, K2; where the core's shared memory refuses the length
-    (592 tokens; 272 at hd=80 in fp32) K7 takes its place."""
+    attention core, K2, with no count of its own; where the core's shared
+    memory refuses the length (592 tokens; 272 at hd=80 in fp32) K7 takes
+    its place."""
     from vit_tpu_torch import ops
     from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
@@ -844,8 +845,7 @@ def test_torch_cuda_attn_block_partial(gen, dtype, b, s, seq_len, d, heads,
             else {"flash_attention": 1})
     assert ("attention" in core) == (s < 592 and (dtype == torch.bfloat16
                                                   or hd == 64))
-    assert launch_counts() == _counts(layernorm=1, matmul=2,
-                                      attn_block_partial=1, **core)
+    assert launch_counts() == _counts(layernorm=1, matmul=2, **core)
     want = ops.attn_block_partial(*args, num_heads=heads, seq_len=seq_len,
                                   impl="torch")
     _close(got[:, :seq_len], want[:, :seq_len])
@@ -865,26 +865,28 @@ def test_torch_cuda_attn_block_q_partial(gen, dtype):
     reset_launch_counts()
     got = ops.attn_block_q_partial(*args, num_heads=heads, seq_len=17)
     assert launch_counts() == _counts(quantize_rows=2, matmul_i8=2,
-                                      flash_attention=1,
-                                      attn_block_q_partial=1)
+                                      flash_attention=1)
     want = ops.attn_block_q_partial(*args, num_heads=heads, seq_len=17,
                                     impl="torch")
     _close_bf16_bars(got[:, :17], want[:, :17])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("quant", [False, True])
-def test_torch_cuda_tp_forward_one_rank(gen, dtype, quant):
+@pytest.mark.parametrize("tier", ["float", "int8", "int8_composed"])
+def test_torch_cuda_tp_forward_one_rank(gen, dtype, tier):
     """``make_tp_forward`` on a mesh of one rank (no process group): the
     partial kernels with the bias and residual added after them, launch
-    counts exact, held to its plain version at the model bar."""
+    counts exact, held to its plain version at the model bar. At D=64 the
+    int8 MLP half is composed (K10, K11, K10, K11), as JAX composes it."""
     from vit_tpu_torch import parallel, quant as q
     from vit_tpu_torch.config import ViTConfig
     from vit_tpu_torch.models import vit
     from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
-    cfg = ViTConfig(image_size=32, patch_size=8, hidden_dim=256, num_heads=4,
-                    num_layers=2, mlp_dim=512, num_classes=10, dtype=dtype)
+    quant = tier != "float"
+    d = 64 if tier == "int8_composed" else 256
+    cfg = ViTConfig(image_size=32, patch_size=8, hidden_dim=d, num_heads=4,
+                    num_layers=2, mlp_dim=2 * d, num_classes=10, dtype=dtype)
     params = vit.init_params(cfg, generator=gen)
     if quant:
         params = q.quantize_params(params)
@@ -895,12 +897,13 @@ def test_torch_cuda_tp_forward_one_rank(gen, dtype, quant):
     reset_launch_counts()
     got = fn(tp, px)
     torch.cuda.synchronize()
-    attn = (dict(quantize_rows=4, matmul_i8=4, flash_attention=2,
-                 attn_block_q_partial=2, mlp_block_i8dot_partial=2,
-                 layernorm=1, matmul=2) if quant else
-            dict(layernorm=3, matmul=6, attention=2, attn_block_partial=2,
-                 mlp_block_partial=2))
-    assert launch_counts() == _counts(**attn)
+    want = {"float": dict(layernorm=3, matmul=6, attention=2,
+                          mlp_block_partial=2),
+            "int8": dict(quantize_rows=4, matmul_i8=4, flash_attention=2,
+                         mlp_block_i8dot_partial=2, layernorm=1, matmul=2),
+            "int8_composed": dict(quantize_rows=8, matmul_i8=8,
+                                  flash_attention=2, layernorm=1, matmul=2)}
+    assert launch_counts() == _counts(**want[tier])
     want = parallel.make_tp_forward(cfg, mesh, quant=quant, impl="torch")(
         tp, px)
     (_close_bf16_bars if quant else _close_model)(got, want)

@@ -328,8 +328,10 @@ def test_torch_tp_gates_take_the_partials_where_jax_composes(tier,
     128 == 0 and 128-column MLP shards) and JAX composes in jnp; the port
     runs B16/B17 at every width, K3's partial where ``ops.mlp_plan`` takes
     the shard (fp32 up to D=1536), and the int8 MLP half composed on K10
-    and K11 (64 is not a multiple of the int8 MLP's 512-column group). One
-    rank's route, traced with its collectives switched off."""
+    and K11 as JAX composes it (D=64 and 64 MLP columns: no 128-column
+    tiles, so no int8 MLP plan on either side; each quantizes the hidden
+    per row over the shard's columns). One rank's route, traced with its
+    collectives switched off."""
     assert jax_block.attn_block_partial_plan(2, 16, 64, 32, 4) is None
     assert jax_block.mlp_block_plan(32, 64, 64, 4) is None
     _, _, cfg, params = _models(TINY, seed=8)
@@ -347,6 +349,36 @@ def test_torch_tp_gates_take_the_partials_where_jax_composes(tier,
                      if tier == "float" else
                      {"attn_block_q_partial": 2, "quantize_rows": 4,
                       "matmul_i8": 4})
+
+
+#: Shards whose MLP columns are multiples of 128 but not whole 512-column
+#: quant groups: (config, model axis, rows of JAX's MLP plan).
+PARTIAL_GROUPS = {"B/16 model=4": ("B/16", 4, 8 * 208),
+                  "H/14 model=4": ("H/14", 4, 2 * 272),
+                  "kernel model=2": (KERNEL, 2, 2 * 16)}
+
+
+@pytest.mark.parametrize("name", list(PARTIAL_GROUPS))
+def test_torch_int8_tp_refuses_a_shard_of_partial_quant_groups(name):
+    """B/16 and H/14 over model=4 (768 and 1280 MLP columns a shard) and
+    the kernel geometry over model=2 (256): JAX's int8 MLP plan takes the
+    shard and quantizes the hidden per chunk of its ``ct``, never 512
+    there, which the port's fixed group cannot match, so the int8
+    ``make_tp_forward`` raises; the float one and the int8 one over
+    model=2 at B/16 (1536 columns, three groups) do not."""
+    from vit_tpu_torch.config import VARIANTS
+
+    geometry, model, rows = PARTIAL_GROUPS[name]
+    cfg = (VARIANTS[geometry] if isinstance(geometry, str)
+           else ViTConfig(**geometry))
+    mlp_l = cfg.mlp_dim // model
+    plan = jax_block.mlp_block_plan_i8(rows, cfg.hidden_dim, mlp_l, 4)
+    assert plan is not None and plan[2] != 512 and mlp_l % 128 == 0
+    mesh = Mesh(1, model, 0, CPU)
+    with pytest.raises(ValueError, match="not whole quant groups"):
+        parallel.make_tp_forward(cfg, mesh, quant=True)
+    parallel.make_tp_forward(cfg, mesh)
+    parallel.make_tp_forward(VARIANTS["B/16"], Mesh(1, 2, 0, CPU), quant=True)
 
 
 def test_torch_make_tp_forward_refuses_an_uneven_split():

@@ -16,7 +16,10 @@ them, so they run under ``torch.no_grad``.
 
 :func:`attn_plan` and :func:`mlp_plan` say whether a half-block
 mega-kernel takes a geometry; the model routes each half of a layer by
-them (``vit_tpu_torch/models/vit.py:encoder_block``). :func:`stack_plan`,
+them (``vit_tpu_torch/models/vit.py:encoder_block``), and the attention
+halves choose between the attention core and K7 by :func:`attn_plan`.
+:func:`mlp_q_plan` says whether the int8 MLP kernels take one
+(``quant.py``, ``parallel/tp.py``). :func:`stack_plan`,
 :func:`stack_fused_plan` and :func:`embed_fused_ok` pick the small-batch
 route (``vit_tpu_torch/models/vit.py:forward``); :func:`stack_q_plan`
 the int8 tier's (``vit_tpu_torch/quant.py:forward_quant``). They read
@@ -36,7 +39,8 @@ __all__ = [
     "layernorm", "layernorm_stats", "matmul", "fused_linear", "patchify",
     "patch_embed", "add", "softmax", "matmul3", "flash_attention",
     "flash_attention_qkv", "flash_attention_bwd", "attn_block",
-    "mlp_block", "attn_plan", "mlp_plan", "embed_fused", "embed_fused_ok",
+    "mlp_block", "attn_plan", "mlp_plan", "mlp_q_plan", "embed_fused",
+    "embed_fused_ok",
     "encoder_stack",
     "encoder_stack_fused", "stack_plan", "stack_fused_plan", "quantize_rows",
     "matmul_i8", "attn_block_q", "mlp_block_i8dot", "mlp_block_q",
@@ -217,6 +221,15 @@ def mlp_plan(hidden: int, mlp: int, dtype: torch.dtype) -> bool:
         return (hidden % 128 == 0 and mlp % 128 == 0
                 and hidden <= MLP_BF16_MAX_D)
     return hidden <= MLP_F32_MAX_D
+
+
+def mlp_q_plan(hidden: int, mlp: int) -> bool:
+    """Whether the int8 MLP kernels (K12 ``mlp_block_i8dot``, K17
+    ``mlp_block_q``) take this geometry: D a multiple of 128 up to 1280 and
+    ``mlp`` whole :data:`reference.MLP_GROUP`-column quant groups."""
+    from vit_tpu_torch.ops.cuda.quant import MLP_I8_MAX_D
+    return (hidden % 128 == 0 and hidden <= MLP_I8_MAX_D
+            and mlp % reference.MLP_GROUP == 0)
 
 
 def embed_fused(patches, w, bias, cls_row, pos, sp, *, impl=None):

@@ -6,10 +6,10 @@ stream through the ``ctypes``-loaded library (:mod:`._build`), raises if
 the launch reports an error, and only then adds one to its launch count.
 The kernels are built from the repository's sources on first use.
 
-The shard forms of the tensor-parallel path count apart from their
-whole-block forms (``mlp_block_partial`` and so on); the composed B16 and
-B17 ``attn_block*_partial`` count once a call, besides the launches they
-are made of.
+The shard forms of the tensor-parallel path's one-kernel MLPs count apart
+from their whole-block forms (``mlp_block_partial`` and so on). A block
+made of several launches (``attn_block``, ``attn_block_q`` and their
+shard forms) has no count of its own: its kernels count theirs.
 
 The counts show that a run went through the kernels:
 :func:`reset_launch_counts` before it, :func:`launch_counts` after.
@@ -23,8 +23,7 @@ KERNELS = ("layernorm", "matmul", "attention", "mlp_block", "layernorm_stats",
            "encoder_stack_fused", "quantize_rows", "matmul_i8",
            "mlp_block_i8dot", "encoder_stack_q", "flash_attention_bwd",
            "add", "softmax", "matmul3", "mlp_block_q", "mlp_block_partial",
-           "mlp_block_i8dot_partial", "mlp_block_q_partial",
-           "attn_block_partial", "attn_block_q_partial")
+           "mlp_block_i8dot_partial", "mlp_block_q_partial")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

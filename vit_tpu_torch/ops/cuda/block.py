@@ -12,17 +12,17 @@ reaches device memory.
 ``(B*S, 3D)`` buffer, the attention-core kernel (``csrc/attention.cu``)
 reading each head's q, k and v straight from that buffer, and K2
 ``ctx @ Wout + bout + x`` with the residual added in fp32. Every rounding
-point of ``_attn_core`` (``block.py:647-699``) is kept.
+point of ``_attn_core`` (``block.py:647-699``) is kept. Where the core's
+shared memory refuses the length (``ops.attn_plan``), K7 over the buffer's
+head views takes its place, as the model's composed route does.
 
 ``attn_block_partial`` (B16, ``block.py:1018`` ``attn_block_partial``,
-``pallas_call`` :1054) is the same four launches on one shard's heads: K1,
-K2 into a ``(B*S, 3*dl)`` ``[q_s|k_s|v_s]`` buffer, the attention core (or,
-where its shared memory refuses the length, K7 over the buffer's head
-views, as the model's composed route does), and K2 ``ctx @ Wout_s`` with no
-bias and no residual. Like all of K4 it is bound by its products and the
-attention core; its output is a partial sum in ``x.dtype``, which the
-caller all-reduces over the model group
-(``vit_tpu_torch/parallel/tp.py``).
+``pallas_call`` :1054) is the same four launches on one shard's heads: the
+buffer is ``(B*S, 3*dl)`` ``[q_s|k_s|v_s]`` and the last K2 ``ctx @
+Wout_s`` has no bias and no residual. Its output is a partial sum in
+``x.dtype``, which the caller all-reduces over the model group
+(``vit_tpu_torch/parallel/tp.py``). Neither block counts launches of its
+own: each of its kernels counts its launch.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from vit_tpu_torch.ops.cuda import _build, count_launch
+from vit_tpu_torch.ops.cuda.attention import flash_attention
 from vit_tpu_torch.ops.cuda.layernorm import layernorm
 from vit_tpu_torch.ops.cuda.matmul import matmul
 
@@ -118,34 +119,16 @@ def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
     return out
 
 
-def attn_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
-               num_heads: int, scale: float | None = None,
-               seq_len: int | None = None, eps: float = 1e-12) -> torch.Tensor:
-    """``x + proj(MHA(LN(x)))`` for a CUDA tensor ``x`` (B, S, D) with S
-    already padded (keys at index >= ``seq_len`` are masked; query rows
-    past it are computed and left for the caller to slice off)."""
-    b, s, d = x.shape
-    if scale is None:
-        scale = (d // num_heads) ** -0.5
-    if seq_len is None:
-        seq_len = s
-    xf = x.reshape(b * s, d)
-    qkv = matmul(layernorm(xf, ln_scale, ln_bias, eps=eps), wqkv, bqkv)
-    ctx = attention_core(qkv, batch=b, num_heads=num_heads, scale=scale,
-                         seq_len=seq_len)
-    return matmul(ctx, wout, bout, residual=xf).reshape(b, s, d)
-
-
-def attn_block_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout,
-                       *, num_heads: int, scale: float | None = None,
-                       seq_len: int | None = None,
-                       eps: float = 1e-12) -> torch.Tensor:
-    """``proj_s(MHA_s(LN(x)))`` for a CUDA tensor ``x`` (B, S, D), S already
-    padded: one tensor-parallel shard's attention half, with ``num_heads``
-    the shard's heads, ``wqkv`` (D, 3*dl) its head-major ``[q_s|k_s|v_s]``
-    columns, ``bqkv`` (3*dl,) and ``wout`` (dl, D) its rows. No bias and no
-    residual; the result is in ``x.dtype``."""
-    from vit_tpu_torch.ops.cuda.attention import flash_attention
+def _attn_half(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+               *, num_heads: int, scale: float | None, seq_len: int | None,
+               eps: float, residual: bool) -> torch.Tensor:
+    """The launches of both attention halves on a CUDA tensor ``x``
+    (B, S, D), S already padded: K1, K2 into the packed ``(B*S, 3*dl)``
+    ``[q|k|v]`` buffer (dl from ``wqkv``), the attention core or, where
+    :func:`vit_tpu_torch.ops.attn_plan` refuses the length, K7 over the
+    buffer's head views, then K2 ``ctx @ wout`` (``+ bout``, ``+ x`` with
+    ``residual``)."""
+    from vit_tpu_torch.ops import attn_plan
 
     _build.check_tensor(x, "x", x)
     if x.dim() != 3:
@@ -163,7 +146,7 @@ def attn_block_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout,
         seq_len = s
     xf = x.reshape(b * s, d)
     qkv = matmul(layernorm(xf, ln_scale, ln_bias, eps=eps), wqkv, bqkv)
-    if attention_smem_bytes(s, hd, x.element_size()) <= MAX_SMEM:
+    if attn_plan(b, s, dl, num_heads, x.dtype):
         ctx = attention_core(qkv, batch=b, num_heads=num_heads, scale=scale,
                              seq_len=seq_len)
     else:
@@ -171,6 +154,30 @@ def attn_block_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout,
         # The kernel's context is a (B, S, H, hd) buffer: this is a view.
         ctx = flash_attention(q, k, v, scale=scale, seq_len=seq_len
                               ).transpose(1, 2).reshape(b * s, dl)
-    out = matmul(ctx, wout).reshape(b, s, d)
-    count_launch("attn_block_partial")
-    return out
+    return matmul(ctx, wout, bout, residual=xf if residual else None
+                  ).reshape(b, s, d)
+
+
+def attn_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
+               num_heads: int, scale: float | None = None,
+               seq_len: int | None = None, eps: float = 1e-12) -> torch.Tensor:
+    """``x + proj(MHA(LN(x)))`` for a CUDA tensor ``x`` (B, S, D) with S
+    already padded (keys at index >= ``seq_len`` are masked; query rows
+    past it are computed and left for the caller to slice off)."""
+    return _attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+                      num_heads=num_heads, scale=scale, seq_len=seq_len,
+                      eps=eps, residual=True)
+
+
+def attn_block_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout,
+                       *, num_heads: int, scale: float | None = None,
+                       seq_len: int | None = None,
+                       eps: float = 1e-12) -> torch.Tensor:
+    """``proj_s(MHA_s(LN(x)))`` for a CUDA tensor ``x`` (B, S, D), S already
+    padded: one tensor-parallel shard's attention half, with ``num_heads``
+    the shard's heads, ``wqkv`` (D, 3*dl) its head-major ``[q_s|k_s|v_s]``
+    columns, ``bqkv`` (3*dl,) and ``wout`` (dl, D) its rows. No bias and no
+    residual; the result is in ``x.dtype``."""
+    return _attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout, None,
+                      num_heads=num_heads, scale=scale, seq_len=seq_len,
+                      eps=eps, residual=False)

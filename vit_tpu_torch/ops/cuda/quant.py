@@ -8,7 +8,8 @@ and ``attn_block_q`` as five launches (counterparts of
 (``block.py:1443``, ``pallas_call`` :1483), ``attn_block_q``'s five
 launches on one shard's heads with no bias and no residual in the last
 K11: each shard quantizes its context rows over its own ``dl`` columns, as
-JAX's partial kernel does.
+JAX's partial kernel does. Neither attention half counts launches of its
+own: each of its kernels counts its launch.
 
 ``attn_block_q`` is one Pallas kernel on the TPU; on Hopper it is K10 with
 LN1, K11 into the packed ``(B*S, 3D)`` q|k|v in the dtype, K7 on the heads'
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from vit_tpu_torch.ops import mlp_q_plan
 from vit_tpu_torch.ops.cuda import _build, count_launch
 from vit_tpu_torch.ops.cuda.attention import flash_attention
 from vit_tpu_torch.ops.reference import MLP_GROUP
@@ -96,43 +98,14 @@ def matmul_i8(xq: torch.Tensor, ax: torch.Tensor, wq: torch.Tensor,
     return out
 
 
-def attn_block_q(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
-                 wout_q, sout, bout, *, num_heads: int,
-                 scale: float | None = None, seq_len: int | None = None,
-                 eps: float = 1e-12) -> torch.Tensor:
-    """``x + proj(MHA(LN(x)))`` with int8 projections for a CUDA tensor
-    ``x`` (B, S, D), S already padded (keys at index >= ``seq_len`` are
-    masked): five launches, the module docstring's."""
-    _build.check_tensor(x, "x", x)
-    if x.dim() != 3:
-        raise ValueError(f"x shape {tuple(x.shape)} is not (B, S, D)")
-    b, s, d = x.shape
-    if num_heads <= 0 or d % num_heads:
-        raise ValueError(f"D={d} not divisible by {num_heads} heads")
-    hd = d // num_heads
-    xf = x.reshape(b * s, d)
-    xq, ax = quantize_rows(xf, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
-    qkv = matmul_i8(xq, ax, wqkv_q, sqkv, bqkv, out_dtype=x.dtype)
-    q, k, v = qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    ctx = flash_attention(q, k, v, scale=hd ** -0.5 if scale is None
-                          else scale, seq_len=seq_len, out_dtype=_F32)
-    # The kernel's context is a (B, S, H, hd) buffer: this is a view.
-    cq, ac = quantize_rows(ctx.transpose(1, 2).reshape(b * s, d))
-    return matmul_i8(cq, ac, wout_q, sout, bout, residual=xf,
-                     out_dtype=x.dtype).view(b, s, d)
-
-
-def attn_block_q_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv,
-                         bqkv, wout_q, sout, *, num_heads: int,
-                         scale: float | None = None,
-                         seq_len: int | None = None,
-                         eps: float = 1e-12) -> torch.Tensor:
-    """``proj_s(MHA_s(LN(x)))`` with int8 projections for a CUDA tensor
-    ``x`` (B, S, D), S already padded: one tensor-parallel shard's
-    attention half, ``num_heads`` its heads, ``wqkv_q`` (D, 3*dl) int8 its
-    head-major ``[q_s|k_s|v_s]`` columns with ``sqkv`` (3*dl,) fp32 and
-    ``bqkv`` (3*dl,), ``wout_q`` (dl, D) int8 its rows with the whole
-    ``sout`` (D,). No bias and no residual; the result is in ``x.dtype``."""
+def _attn_q_half(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
+                 wout_q, sout, bout, *, num_heads: int, scale: float | None,
+                 seq_len: int | None, eps: float,
+                 residual: bool) -> torch.Tensor:
+    """The five launches of both int8 attention halves on a CUDA tensor
+    ``x`` (B, S, D), S already padded (the module docstring's), dl from
+    ``wqkv_q``: the context rows are quantized over their dl columns, and
+    the last K11 adds ``bout`` and, with ``residual``, ``x``."""
     _build.check_tensor(x, "x", x)
     if x.dim() != 3:
         raise ValueError(f"x shape {tuple(x.shape)} is not (B, S, D)")
@@ -150,10 +123,39 @@ def attn_block_q_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv,
     q, k, v = qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     ctx = flash_attention(q, k, v, scale=hd ** -0.5 if scale is None
                           else scale, seq_len=seq_len, out_dtype=_F32)
+    # The kernel's context is a (B, S, H, hd) buffer: this is a view.
     cq, ac = quantize_rows(ctx.transpose(1, 2).reshape(b * s, dl))
-    out = matmul_i8(cq, ac, wout_q, sout, out_dtype=x.dtype).view(b, s, d)
-    count_launch("attn_block_q_partial")
-    return out
+    return matmul_i8(cq, ac, wout_q, sout, bout,
+                     residual=xf if residual else None,
+                     out_dtype=x.dtype).view(b, s, d)
+
+
+def attn_block_q(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
+                 wout_q, sout, bout, *, num_heads: int,
+                 scale: float | None = None, seq_len: int | None = None,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """``x + proj(MHA(LN(x)))`` with int8 projections for a CUDA tensor
+    ``x`` (B, S, D), S already padded (keys at index >= ``seq_len`` are
+    masked): five launches, the module docstring's."""
+    return _attn_q_half(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q,
+                        sout, bout, num_heads=num_heads, scale=scale,
+                        seq_len=seq_len, eps=eps, residual=True)
+
+
+def attn_block_q_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv,
+                         bqkv, wout_q, sout, *, num_heads: int,
+                         scale: float | None = None,
+                         seq_len: int | None = None,
+                         eps: float = 1e-12) -> torch.Tensor:
+    """``proj_s(MHA_s(LN(x)))`` with int8 projections for a CUDA tensor
+    ``x`` (B, S, D), S already padded: one tensor-parallel shard's
+    attention half, ``num_heads`` its heads, ``wqkv_q`` (D, 3*dl) int8 its
+    head-major ``[q_s|k_s|v_s]`` columns with ``sqkv`` (3*dl,) fp32 and
+    ``bqkv`` (3*dl,), ``wout_q`` (dl, D) int8 its rows with the whole
+    ``sout`` (D,). No bias and no residual; the result is in ``x.dtype``."""
+    return _attn_q_half(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q,
+                        sout, None, num_heads=num_heads, scale=scale,
+                        seq_len=seq_len, eps=eps, residual=False)
 
 
 def _int8_mlp(kernel: str, entry: str, x: torch.Tensor, ln_scale, ln_bias,
@@ -167,7 +169,7 @@ def _int8_mlp(kernel: str, entry: str, x: torch.Tensor, ln_scale, ln_bias,
     if w1q.dim() != 2 or w1q.shape[0] != d:
         raise ValueError(f"w1q shape {tuple(w1q.shape)} does not take D={d}")
     mlp = w1q.shape[1]
-    if d % 128 or d > MLP_I8_MAX_D or mlp % MLP_GROUP:
+    if not mlp_q_plan(d, mlp):
         raise ValueError(f"{kernel} needs D a multiple of 128 up to "
                          f"{MLP_I8_MAX_D} and mlp a multiple of the quant "
                          f"group {MLP_GROUP}; got D={d}, mlp={mlp}")

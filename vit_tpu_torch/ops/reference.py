@@ -281,23 +281,36 @@ def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
     return ctx.permute(0, 2, 1, 3).reshape(rows, d)
 
 
-def attn_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
-               num_heads: int, scale: float | None = None,
-               seq_len: int | None = None, eps: float = 1e-12) -> torch.Tensor:
-    """``x + proj(MHA(LN(x)))`` for ``x`` (B, S, D) with every rounding point
-    of ``vit_tpu/ops/pallas/block.py:_attn_core``: LN, q/k/v and the
-    concatenated context are rounded to the input dtype; the output
-    projection adds ``bout`` and the residual in fp32 before one cast."""
+def _attn_half(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
+               num_heads: int, scale: float | None, seq_len: int | None,
+               eps: float, residual: bool) -> torch.Tensor:
+    """Both attention halves for ``x`` (B, S, D), dl from ``wqkv``, with
+    every rounding point of ``vit_tpu/ops/pallas/block.py:_attn_core``: LN,
+    q/k/v and the concatenated context are rounded to the input dtype; the
+    output projection adds ``bout`` and, with ``residual``, ``x`` in fp32
+    before one cast."""
     b, s, d = x.shape
+    dl = wqkv.shape[1] // 3
     if scale is None:
-        scale = (d // num_heads) ** -0.5
+        scale = (dl // num_heads) ** -0.5
     if seq_len is None:
         seq_len = s
     xf = x.reshape(b * s, d)
     qkv = matmul(layernorm(xf, ln_scale, ln_bias, eps=eps), wqkv, bqkv)
     ctx = attention_core(qkv, batch=b, num_heads=num_heads, scale=scale,
                          seq_len=seq_len)
-    return matmul(ctx, wout, bout, residual=xf).reshape(b, s, d)
+    return matmul(ctx, wout, bout,
+                  residual=xf if residual else None).reshape(b, s, d)
+
+
+def attn_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
+               num_heads: int, scale: float | None = None,
+               seq_len: int | None = None, eps: float = 1e-12) -> torch.Tensor:
+    """``x + proj(MHA(LN(x)))`` for ``x`` (B, S, D), rounded as
+    :func:`_attn_half` says."""
+    return _attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+                      num_heads=num_heads, scale=scale, seq_len=seq_len,
+                      eps=eps, residual=True)
 
 
 def _mlp_acc(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
@@ -329,17 +342,9 @@ def attn_block_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout,
     ``[q_s|k_s|v_s]`` columns, ``wout`` (dl, D) its rows. The rounding of
     :func:`attn_block`; the fp32 product is cast to ``x.dtype`` with no
     bias and no residual."""
-    b, s, d = x.shape
-    dl = wqkv.shape[1] // 3
-    if scale is None:
-        scale = (dl // num_heads) ** -0.5
-    if seq_len is None:
-        seq_len = s
-    xf = x.reshape(b * s, d)
-    qkv = matmul(layernorm(xf, ln_scale, ln_bias, eps=eps), wqkv, bqkv)
-    ctx = attention_core(qkv, batch=b, num_heads=num_heads, scale=scale,
-                         seq_len=seq_len)
-    return matmul(ctx, wout).reshape(b, s, d)
+    return _attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout, None,
+                      num_heads=num_heads, scale=scale, seq_len=seq_len,
+                      eps=eps, residual=False)
 
 
 def embed_fused(patches: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -507,42 +512,17 @@ def matmul_i8(xq: torch.Tensor, ax: torch.Tensor, wq: torch.Tensor,
     return out.to(out_dtype)
 
 
-def attn_block_q(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
-                 wout_q, sout, bout, *, num_heads: int,
-                 scale: float | None = None, seq_len: int | None = None,
-                 eps: float = 1e-12) -> torch.Tensor:
-    """``x + proj(MHA(LN(x)))`` with int8 projections, after
-    ``vit_tpu/ops/pallas/block.py:_attn_q_kernel``: LN in fp32, quantized
-    per row; q/k/v rounded to the dtype; the per-head attention with ``p``
-    rounded to the dtype and the fp32 context left unrounded; the context
-    quantized per row over all heads; the out-projection with ``+ bout +
-    x`` in fp32 and one cast."""
-    b, s, d = x.shape
-    hd = d // num_heads
-    if scale is None:
-        scale = hd ** -0.5
-    xf = x.reshape(b * s, d)
-    xq, ax = quantize_rows(xf, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps)
-    qkv = matmul_i8(xq, ax, wqkv_q, sqkv, bqkv, out_dtype=x.dtype)
-    q, k, v = qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    ctx = attention(q, k, v, scale=scale, seq_len=seq_len,
-                    out_dtype=torch.float32)
-    cq, ac = quantize_rows(ctx.permute(0, 2, 1, 3).reshape(b * s, d))
-    return matmul_i8(cq, ac, wout_q, sout, bout, residual=xf,
-                     out_dtype=x.dtype).reshape(b, s, d)
-
-
-def attn_block_q_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv,
-                         bqkv, wout_q, sout, *, num_heads: int,
-                         scale: float | None = None,
-                         seq_len: int | None = None,
-                         eps: float = 1e-12) -> torch.Tensor:
-    """One tensor-parallel shard's int8 attention half, after
-    ``vit_tpu/ops/pallas/block.py:_attn_q_partial_kernel``: the rounding
-    of :func:`attn_block_q` on the shard's heads, the context rows
-    quantized over the shard's ``dl`` columns, and the out-projection
-    ``(acc * ac) * sout`` cast to ``x.dtype`` with no bias and no
-    residual."""
+def _attn_q_half(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
+                 wout_q, sout, bout, *, num_heads: int, scale: float | None,
+                 seq_len: int | None, eps: float,
+                 residual: bool) -> torch.Tensor:
+    """Both int8 attention halves for ``x`` (B, S, D), dl from ``wqkv_q``,
+    after ``vit_tpu/ops/pallas/block.py:_attn_q_kernel`` and
+    ``_attn_q_partial_kernel``: LN in fp32, quantized per row; q/k/v
+    rounded to the dtype; the per-head attention with ``p`` rounded to the
+    dtype and the fp32 context left unrounded; the context quantized per
+    row over its dl columns; the out-projection ``(acc * ac) * sout`` with
+    ``+ bout`` and, with ``residual``, ``+ x`` in fp32 and one cast."""
     b, s, d = x.shape
     dl = wqkv_q.shape[1] // 3
     hd = dl // num_heads
@@ -555,8 +535,34 @@ def attn_block_q_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv,
     ctx = attention(q, k, v, scale=scale, seq_len=seq_len,
                     out_dtype=torch.float32)
     cq, ac = quantize_rows(ctx.permute(0, 2, 1, 3).reshape(b * s, dl))
-    return matmul_i8(cq, ac, wout_q, sout,
+    return matmul_i8(cq, ac, wout_q, sout, bout,
+                     residual=xf if residual else None,
                      out_dtype=x.dtype).reshape(b, s, d)
+
+
+def attn_block_q(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
+                 wout_q, sout, bout, *, num_heads: int,
+                 scale: float | None = None, seq_len: int | None = None,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """``x + proj(MHA(LN(x)))`` with int8 projections, rounded as
+    :func:`_attn_q_half` says (the context quantized over all heads)."""
+    return _attn_q_half(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q,
+                        sout, bout, num_heads=num_heads, scale=scale,
+                        seq_len=seq_len, eps=eps, residual=True)
+
+
+def attn_block_q_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv,
+                         bqkv, wout_q, sout, *, num_heads: int,
+                         scale: float | None = None,
+                         seq_len: int | None = None,
+                         eps: float = 1e-12) -> torch.Tensor:
+    """One tensor-parallel shard's int8 attention half: the rounding of
+    :func:`attn_block_q` on the shard's heads, the context rows quantized
+    over the shard's ``dl`` columns, the out-projection cast to
+    ``x.dtype`` with no bias and no residual."""
+    return _attn_q_half(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q,
+                        sout, None, num_heads=num_heads, scale=scale,
+                        seq_len=seq_len, eps=eps, residual=False)
 
 
 def mlp_block_i8dot(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2,

@@ -24,15 +24,20 @@ answer.
 Where a shard's widths do not fit a mega-kernel, that half is composed from
 the port's kernels, never plain torch on the card: ``ops.mlp_plan`` at
 ``(D, mlp/model)`` gates K3, and the float MLP half otherwise runs
-``layernorm`` -> ``matmul(gelu)`` -> ``matmul`` (K1, K2, K2); the int8 MLP
-kernels need ``mlp/model`` a multiple of their 512-column group
-(:func:`mlp_q_plan`), and otherwise the half runs ``quantize_rows`` (with
-LN) -> ``matmul_i8(gelu)`` -> ``quantize_rows`` -> ``matmul_i8`` (K10,
-K11, K10, K11), the hidden quantized per row over all of its shard's
-columns. The attention partials take every width: B16's core gives way to
-K7 where its shared memory refuses the length, as the model's composed
-route does. JAX's gates differ (its partial kernels need ``dl % 128 ==
-0``); ROADMAP C lists the difference.
+``layernorm`` -> ``matmul(gelu)`` -> ``matmul`` (K1, K2, K2). The int8 MLP
+kernels run where ``ops.mlp_q_plan`` takes the shard (``mlp/model`` whole
+512-column quant groups). Where D or ``mlp/model`` is not a multiple of
+128, JAX has no int8 MLP plan and composes, quantizing the hidden per row
+over all of the shard's columns; the port does the same on its kernels:
+``quantize_rows`` (with LN) -> ``matmul_i8(gelu)`` -> ``quantize_rows`` ->
+``matmul_i8`` (K10, K11, K10, K11). Between the two, JAX's kernel
+quantizes the hidden per chunk of its plan's ``ct``, which the port's
+fixed group cannot match, so :func:`make_tp_forward` raises (B/16 and
+H/14 over model=4: 768 and 1280 columns a shard). The attention partials
+take every width: the attention core gives way to K7 where
+``ops.attn_plan`` refuses the length, as the model's composed route does.
+JAX's gates differ (its partial kernels need ``dl % 128 == 0``); ROADMAP
+C lists the difference.
 
 Layout precondition, as in JAX: the packed ``(D, 3D)`` QKV kernel is
 ``[q|k|v]``, so a contiguous column slice would mix projections;
@@ -83,15 +88,6 @@ def prepare_tp_params(params: Params, cfg: ViTConfig, mesh: Mesh) -> Params:
     return shard_params(repack_qkv_headmajor(params, mesh.model), cfg, mesh)
 
 
-def mlp_q_plan(hidden: int, mlp: int) -> bool:
-    """Whether the int8 MLP kernels (K12, K17) take a shard of ``mlp``
-    hidden columns: D a multiple of 128 up to 1280 and ``mlp`` a multiple
-    of their 512-column quant group."""
-    from vit_tpu_torch.ops.cuda.quant import MLP_I8_MAX_D
-    return (hidden % 128 == 0 and hidden <= MLP_I8_MAX_D
-            and mlp % ops.reference.MLP_GROUP == 0)
-
-
 def make_tp_forward(cfg: ViTConfig, mesh: Mesh, *, impl: str | None = None,
                     quant: bool = False, int8_dot: bool = True):
     """The DP x TP forward on the kernel tier: ``fn(tp_params, pixels)``
@@ -104,13 +100,24 @@ def make_tp_forward(cfg: ViTConfig, mesh: Mesh, *, impl: str | None = None,
     activation-quant noise: each shard quantizes its context rows over its
     own columns). Runs under ``torch.no_grad``; the collectives are the
     module docstring's. ``int8_dot=False`` takes the weight-only int8 MLP
-    (K17)."""
+    (K17). With ``quant=True``, a shard of ``mlp/model`` MLP columns that
+    is a multiple of 128 but not of the 512-column quant group raises (the
+    module docstring says why)."""
     m = mesh.model
     if cfg.num_heads % m or cfg.mlp_dim % m:
         raise ValueError(f"{cfg.num_heads} heads and MLP {cfg.mlp_dim} must "
                          f"split over model={m}")
     nh_l, d = cfg.num_heads // m, cfg.hidden_dim
     mlp_l = cfg.mlp_dim // m
+    mega = (ops.mlp_q_plan(d, mlp_l) if quant
+            else ops.mlp_plan(d, mlp_l, cfg.dtype))
+    if quant and not mega and not (d % 128 or mlp_l % 128):
+        raise ValueError(
+            f"int8 tensor parallelism at D={d} over model={m}: a shard's "
+            f"{mlp_l} MLP columns are not whole quant groups of "
+            f"{ops.reference.MLP_GROUP}, and JAX's int8 MLP kernel quantizes "
+            "them in chunks of its plan's width, which the port cannot "
+            "match; choose a model axis that leaves whole groups")
     s, sp = cfg.seq_len, _padded_seq(cfg)
     eps = cfg.layernorm_eps
     kw = dict(num_heads=nh_l, scale=cfg.head_dim ** -0.5, seq_len=s, eps=eps,
@@ -126,7 +133,7 @@ def make_tp_forward(cfg: ViTConfig, mesh: Mesh, *, impl: str | None = None,
         return ops.attn_block_partial(x, ln["scale"], ln["bias"], k,
                                       lp["qkv"]["bias"], o, **kw)
 
-    def mlp_partial(x, lp, mega):
+    def mlp_partial(x, lp):
         ln, b1 = lp["ln2"], lp["fc1"]["bias"]
         k1, k2, b2 = lp["fc1"]["kernel"], lp["fc2"]["kernel"], lp["fc2"]["bias"]
         if quant and mega:
@@ -152,14 +159,12 @@ def make_tp_forward(cfg: ViTConfig, mesh: Mesh, *, impl: str | None = None,
     def fn(tp_params: Params, pixels: torch.Tensor) -> torch.Tensor:
         x = embed(tp_params, batch_shard(pixels, mesh), cfg, impl=impl)
         x = F.pad(x, (0, 0, 0, sp - s))
-        mega = (mlp_q_plan(d, mlp_l) if quant
-                else ops.mlp_plan(d, mlp_l, x.dtype))
         enc = tp_params["encoder"]
         for i in range(cfg.num_layers):
             lp = tree_map(lambda t: t[i], enc)
             y = all_reduce(attn_partial(x, lp), mesh.model_group)
             x = x + y + lp["out"]["bias"]
-            z = all_reduce(mlp_partial(x, lp, mega), mesh.model_group)
+            z = all_reduce(mlp_partial(x, lp), mesh.model_group)
             x = x + z + lp["fc2"]["bias"]
         x = ops.layernorm(x, tp_params["ln_final"]["scale"],
                           tp_params["ln_final"]["bias"], eps=eps, impl=impl)

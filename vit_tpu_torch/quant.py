@@ -140,13 +140,17 @@ def forward_quant(qparams: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
     already and does not change.
 
     The hidden's quant group of ``mlp_block_i8dot`` (and the chunk of
-    ``mlp_block_q``) is fixed at 512 columns, so ``cfg.mlp_dim`` must be a
-    multiple of 512 (every ``VARIANTS`` entry is). The head runs on the
-    float ``matmul`` kernel and rounds once, where JAX's ``pooled @ kernel
-    + bias`` rounds the product to the dtype before adding the bias."""
-    if cfg.mlp_dim % ref.MLP_GROUP:
-        raise ValueError(f"mlp_dim {cfg.mlp_dim} is not a multiple of the "
-                         f"int8 MLP's quant group {ref.MLP_GROUP}")
+    ``mlp_block_q``) is fixed at 512 columns, so the geometry must be one
+    that ``ops.mlp_q_plan`` takes: ``cfg.mlp_dim`` a multiple of 512 and D
+    a multiple of 128 up to 1280 (every ``VARIANTS`` entry). The head runs
+    on the float ``matmul`` kernel and rounds once, where JAX's ``pooled @
+    kernel + bias`` rounds the product to the dtype before adding the
+    bias."""
+    if not ops.mlp_q_plan(cfg.hidden_dim, cfg.mlp_dim):
+        raise ValueError(f"the int8 MLP kernels take D a multiple of 128 up "
+                         f"to 1280 and mlp_dim a multiple of their quant "
+                         f"group {ref.MLP_GROUP}; got D={cfg.hidden_dim}, "
+                         f"mlp_dim={cfg.mlp_dim}")
     s, sp = cfg.seq_len, _padded_seq(cfg)
     x = embed(qparams, pixels, cfg, impl=impl, sp=sp)
     b, d, nh = x.shape[0], cfg.hidden_dim, cfg.num_heads
