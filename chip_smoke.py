@@ -98,7 +98,21 @@ without printing the final ``ok`` line:
     ``Predictor(mesh=make_mesh(data=1, model=2))`` on requests of 1, 5
     and 8, a DP forward and one DP train step at B/16 bf16 bs=8 over
     data=2, with exact launch counts, held to the single-device forwards
-    and train step.
+    and train step;
+15. the full-layer route (``layer_phase``; ``layer_block=True``: K1, K2,
+    the attention core and K18 a layer, the activation between the halves
+    kept in fp32) and the last standalone kernels. K18, the whole
+    ``layer_block``, K19 ``patchify`` (bit for bit), K20 ``print_if`` and
+    K21 ``minimal_matmul`` are checked in phase 3 and timed in phase 11
+    (``kernel_cases_layer``). Here, through the entry points: the golden
+    fp32 B/16 bs=2 (< 1e-3); B/16 bf16 bs=32 at full depth against
+    ``impl="torch"`` and the default route, in turns with its times and
+    idle share, and one layer's ``layer_block`` against K4 + K3;
+    ``Predictor(layer_block=True)`` serving 1, 5, 32 and 37 images; L/16
+    bf16 bs=8 at 4 layers; one B/16 bf16 bs=32 train step; K20's printed
+    lines at grids (2,) and (3, 4), captured from the process's standard
+    output; ``ops.patchify`` and the minimal matmul example's ``main``.
+    Exact launch counts throughout.
 
 The last three lines of standard output are the kernels JSON line (each
 kernel's launches on the main paths, error vs the plain version, kernel,
@@ -125,6 +139,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: the per-layer route (12 LN1 + final LN; patch projection + 12 QKV + 12
 #: out-proj + head).
 PER_FORWARD = {"layernorm": 13, "matmul": 26, "attention": 12, "mlp_block": 12}
+#: One layer on the layer route (``layer_block=True``): K1, the QKV on K2,
+#: the attention core, K18 -- in place of the out-projection's K2 and K3.
+LAYER_ROUTE = {"layernorm": 1, "matmul": 1, "attention": 1, "layer_block": 1}
 #: B/16 with a head on the stack route (bf16, bs <= 2): one launch for
 #: embed, encoder and final LN, then the head.
 PER_FORWARD_STACK = {"encoder_stack_fused": 1, "matmul": 1}
@@ -209,6 +226,16 @@ KERNEL_SOURCES = {
                                 "vit_tpu/ops/pallas/block.py:591"),
     "mlp_block_q_partial": ("vit_tpu_torch/csrc/mlp_block_q.cu",
                             "vit_tpu/ops/pallas/block.py:416"),
+    # K18 is the last of layer_block's four launches (K1, K2 and the
+    # attention core count theirs), as K4's core is of attn_block's.
+    "layer_block": ("vit_tpu_torch/csrc/layer_block.cu",
+                    "vit_tpu/ops/pallas/block.py:1805"),
+    "patchify": ("vit_tpu_torch/csrc/patching.cu",
+                 "vit_tpu/ops/pallas/patching.py:67"),
+    # The Pallas kernel that calls vit_tpu/ops/pallas/debug.py:print_if.
+    "print_if": ("vit_tpu_torch/csrc/debug.cu", "tests/test_ops_pallas.py:248"),
+    "minimal_matmul": ("vit_tpu_torch/csrc/minimal_matmul.cu",
+                       "examples/minimal_pallas_matmul.py:50"),
 }
 #: Kernels that run a whole encoder: held to the model bars.
 WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused", "encoder_stack_q")
@@ -1029,6 +1056,87 @@ def kernel_cases_tp(torch, dtype):
     return cases
 
 
+def kernel_cases_layer(torch, dtype):
+    """Phase 15's kernels alone. K18 (``layer_tail``: the out-projection,
+    LN2 and the MLP from the attention context, y kept in fp32) at B/16
+    bs=32 (6656 x 768, MLP 3072), the case the kernels line reports, and in
+    bf16 at L/16 bs=8 (1664 x 1024, 4096); the whole ``layer_block`` (K1,
+    K2, the core, K18) at B/16 bs=32, held to the model bars (the MLP half
+    carries the attention half's rounding flips), timed as a block like
+    K4. K19 ``patchify`` bit for bit at B/16 bs=32, H/14 bs=2 (P=14) and
+    L/16-384 bs=8, against ``F.unfold`` (the port never calls it). K20 at
+    the JAX test's (16, 128) over a grid of 2 with a condition no block
+    meets, so that nothing prints while it is timed (phase 15 checks the
+    printing). K21 at the example's (256, 384) @ (384, 512), against
+    ``torch.matmul``. No PyTorch call computes K18, K20 or the layer."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.examples import minimal_matmul
+    from vit_tpu_torch.ops import debug, reference
+    from vit_tpu_torch.ops.cuda import block as cuda_block
+
+    rnd = _rnd_fn(torch, dtype, 15)
+    e, kind = dtype.itemsize, _kind(torch, dtype)
+    cases = []
+    shapes = [("B/16 bs=32", 32, 768, 3072, 12)]
+    if dtype == torch.bfloat16:
+        shapes.append(("L/16 bs=8", 8, 1024, 4096, 16))
+    for tag, b, d, mlp, heads in shapes:
+        m = b * 208
+        tail = (rnd(m, d), rnd(m, d, std=1.5), rnd(d, d, std=0.03),
+                rnd(d, std=0.02), rnd(d, std=0.1, mean=1.0),
+                rnd(d, std=0.05), rnd(d, mlp, std=0.03), rnd(mlp, std=0.02),
+                rnd(mlp, d, std=0.03), rnd(d, std=0.02))
+
+        def run(impl, a=tail):
+            fn = reference.layer_tail if impl == "torch" \
+                else cuda_block.layer_tail
+            return fn(*a)
+        cases.append(case(
+            "layer_block", f"K18 {tag} ({m},{d}) mlp {mlp}", run,
+            ((3 * m * d + d * d + 2 * d * mlp + mlp + 5 * d) * e,
+             2 * m * d * (d + 2 * mlp), kind), primary=tag == "B/16 bs=32"))
+    b, sp, s, d, mlp, heads = 32, 208, 197, 768, 3072, 12
+    m = b * sp
+    layer = (rnd(b, sp, d, std=1.5), rnd(d, std=0.1, mean=1.0),
+             rnd(d, std=0.05), rnd(d, 3 * d, std=0.04), rnd(3 * d, std=0.02),
+             rnd(d, d, std=0.03), rnd(d, std=0.02), rnd(d, std=0.1, mean=1.0),
+             rnd(d, std=0.05), rnd(d, mlp, std=0.03), rnd(mlp, std=0.02),
+             rnd(mlp, d, std=0.03), rnd(d, std=0.02))
+    cases.append(case(
+        "full_layer", f"layer_block ({b},{sp},{d}) mlp {mlp} seq_len {s}",
+        lambda impl: ops.layer_block(*layer, num_heads=heads, seq_len=s,
+                                     impl=impl),
+        ((2 * m * d + 4 * d * d + 2 * d * mlp + mlp + 10 * d) * e,
+         2 * m * d * (4 * d + 2 * mlp)
+         + attention_ops(b, heads, sp, s, d // heads), kind),
+        check=compare_model))
+    for tag, shape, p in (("B/16 bs=32", (32, 3, 224, 224), 16),
+                          ("H/14 bs=2", (2, 3, 224, 224), 14),
+                          ("L/16-384 bs=8", (8, 3, 384, 384), 16)):
+        img = rnd(*shape)
+        cases.append(case(
+            "patchify", f"{tag} {shape} P={p}",
+            lambda impl, x=img, p=p: ops.patchify(x, p, impl=impl),
+            (2 * img.numel() * e, 0, "fp32"),
+            library=lambda x=img, p=p: F.unfold(
+                x, p, stride=p).transpose(1, 2).contiguous(),
+            check=compare_exact, primary=tag == "B/16 bs=32"))
+    small = rnd(16, 128)
+    cases.append(case(
+        "print_if", "(16,128) grid (2,), no block matching",
+        lambda impl: debug.print_if_smoke(small, "=9", grid=(2,), impl=impl),
+        (2 * small.numel() * e, small.numel(), "fp32"), check=compare_exact))
+    x, w = rnd(256, 384, std=0.1), rnd(384, 512, std=0.1)
+    cases.append(case(
+        "minimal_matmul", "(256,384)@(384,512)",
+        lambda impl: minimal_matmul.matmul(x, w, impl=impl),
+        ((256 * 384 + 384 * 512 + 256 * 512) * e, 2 * 256 * 384 * 512,
+         "fp32"), library=lambda: torch.matmul(x, w)))
+    return cases
+
+
 def device_ms(torch, fn, iters: int = 20) -> tuple[float, dict]:
     """Device time of ``fn``'s kernels per call, from ``torch.profiler``
     (CUPTI): the sum over kernels, and the time of each kernel by name.
@@ -1230,14 +1338,15 @@ def train_step_counts_unfused(layers: int) -> dict:
     return out
 
 
-def train_grads(torch, params, cfg, px, labels, impl, attention="flash"):
+def train_grads(torch, params, cfg, px, labels, impl, attention="flash",
+                layer_block=False):
     """The loss and every parameter's gradient (``tree_leaves`` order)."""
     from vit_tpu_torch.train import cross_entropy_loss
     from vit_tpu_torch.weights.convert import tree_leaves
 
     leaves = [t.requires_grad_() for t in tree_leaves(params)]
     loss = cross_entropy_loss(params, px, labels, cfg, impl=impl,
-                              attention=attention)
+                              attention=attention, layer_block=layer_block)
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
@@ -1839,6 +1948,274 @@ def tp_phase(torch, main_counts: dict) -> dict:
     return res
 
 
+def layer_route_counts(layers: int, *, head: bool = True,
+                       embed_fused: bool = False) -> dict:
+    """Per-forward launches of a model on the layer route: ``layers`` times
+    :data:`LAYER_ROUTE`, the final LN, the patch projection on K2 (or
+    ``embed_fused``) and the head."""
+    out = {k: v * layers for k, v in LAYER_ROUTE.items()}
+    out["layernorm"] += 1
+    out["matmul"] += int(head) + int(not embed_fused)
+    if embed_fused:
+        out["embed_fused"] = 1
+    return out
+
+
+def capture_stdout(torch, fn):
+    """``fn()``, then synchronise, and what the process wrote to its
+    standard output meanwhile (file descriptor 1: the device's printf lands
+    there at the synchronisation, through C's stdio, flushed here)."""
+    import ctypes
+    import tempfile
+
+    libc = ctypes.CDLL(None)
+    sys.stdout.flush()
+    libc.fflush(None)
+    saved = os.dup(1)
+    with tempfile.TemporaryFile() as tmp:
+        os.dup2(tmp.fileno(), 1)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            libc.fflush(None)
+        finally:
+            os.dup2(saved, 1)
+            os.close(saved)
+        tmp.seek(0)
+        return out, tmp.read().decode()
+
+
+def layer_phase(torch, main_counts: dict) -> dict:
+    """Phase 15: the full-layer route (``layer_block=True``: K1, K2, the
+    attention core and K18 a layer, the activation between the halves in
+    fp32) and the standalone kernels, each through the entry point a user
+    calls, with exact launch counts: the golden fp32 B/16 bs=2; B/16 bf16
+    bs=32 at full depth against ``impl="torch"`` and the default route, in
+    turns with its times and idle share, and one layer's ``layer_block``
+    against K4 + K3 on the same inputs; ``Predictor(layer_block=True)`` on
+    buckets (1, 8, 32) (bs=1 stays on the stack route); L/16 bf16 bs=8 at
+    4 layers; one B/16 bf16 bs=32 train step; K20's printed lines at grids
+    (2,) and (3, 4); ``ops.patchify`` at B/16 bs=32; the minimal matmul
+    example's ``main``."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.config import VARIANTS
+    from vit_tpu_torch.examples import minimal_matmul
+    from vit_tpu_torch.models.vit import forward, init_params
+    from vit_tpu_torch.ops import debug
+    from vit_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                        reset_launch_counts)
+    from vit_tpu_torch.serving import Predictor
+    from vit_tpu_torch.train import make_optimizer, make_train_step
+    from vit_tpu_torch.weights.convert import tree_leaves
+    from vit_tpu_torch.weights.hf import params_from_state_dict
+    from vit_tpu_torch.weights.synthetic import (golden_pixels,
+                                                 synthetic_hf_state_dict)
+
+    zero = dict.fromkeys(KERNELS, 0)
+    res = {}
+    gen = torch.Generator(device="cuda").manual_seed(71)
+
+    def counted(tag, fn, expect):
+        """``fn()`` with the counts set to 0 before and read after, held
+        to ``expect`` (every kernel)."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        main_counts[tag] = counts = launch_counts()
+        check_counts(tag, counts, expect)
+        return out
+
+    # The golden weights through the layer route, fp32 bs=2: embed_fused,
+    # then one layer_block a layer.
+    fx = np.load(os.path.join(HERE, "tests", "fixtures", "golden_b16.npz"))
+    cfg32 = VARIANTS["B/16"]
+    params32 = params_from_state_dict(synthetic_hf_state_dict(
+        cfg32, seed=int(fx["weights_seed"])), cfg32, device="cuda")
+    px = torch.from_numpy(
+        golden_pixels(cfg32, seed=int(fx["pixels_seed"]))).cuda()
+    with torch.inference_mode():
+        got = counted("B/16 golden layer route",
+                      lambda: forward(params32, px, cfg32, layer_block=True),
+                      expect_counts(zero, layer_route_counts(
+                          12, head=False, embed_fused=True)))
+    gdiff = float((got.float() - torch.from_numpy(
+        fx["final_hidden"]).cuda()).abs().max())
+    log(f"[layer] golden fp32 bs=2 through layer_block max|diff| "
+        f"{gdiff:.3e}")
+    if not gdiff < GOLDEN_BAR:
+        raise AssertionError(f"layer route golden max|diff| {gdiff} >= "
+                             f"{GOLDEN_BAR}")
+    res["golden_max_abs_diff"] = gdiff
+    del params32
+
+    # B/16 bf16 bs=32, full depth: against impl="torch" and the default
+    # route; times in turns (default, layer, layer, default).
+    cfg = VARIANTS["B/16"].replace(dtype=torch.bfloat16, num_classes=1000)
+    params = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(72), device="cuda")
+    xb = torch.randn((32, 3, 224, 224), generator=gen,
+                     device="cuda").to(cfg.dtype)
+    with torch.inference_mode():
+        def layer_fwd():
+            return forward(params, xb, cfg, layer_block=True)
+
+        def default_fwd():
+            return forward(params, xb, cfg)
+        got = counted("B/16 bf16 bs=32 layer route", layer_fwd,
+                      expect_counts(zero, layer_route_counts(12)))
+        vs_plain = compare_model(torch, got, forward(
+            params, xb, cfg, layer_block=True, impl="torch"), torch.bfloat16)
+        vs_default = compare_model(torch, got, default_fwd(), torch.bfloat16)
+        runs = [forward_stats(torch, fn) for fn in (
+            default_fwd, layer_fwd, layer_fwd, default_fwd)]
+        for r in runs:
+            r["kernels_ms"] = dict(sorted(r["kernels_ms"].items(),
+                                          key=lambda kv: -kv[1])[:6])
+        res["b16_bf16_bs32"] = {"vs_plain": vs_plain,
+                                "vs_default_route": vs_default,
+                                "default": [runs[0], runs[3]],
+                                "layer": [runs[1], runs[2]]}
+        log(f"[layer] B/16 bf16 bs=32, 12 layers: vs impl=torch {vs_plain}, "
+            f"vs the default route {vs_default}; ms default "
+            f"{runs[0]['ms']:.3f}/{runs[3]['ms']:.3f}, layer "
+            f"{runs[1]['ms']:.3f}/{runs[2]['ms']:.3f}; idle default "
+            f"{runs[0]['idle_share']:.3f}, layer {runs[1]['idle_share']:.3f}")
+        # One layer's block against K4's block + K3 on the same inputs.
+        lp = {n: {k: t[0] for k, t in p.items()}
+              for n, p in params["encoder"].items()}
+        attn = (lp["ln1"]["scale"], lp["ln1"]["bias"], lp["qkv"]["kernel"],
+                lp["qkv"]["bias"], lp["out"]["kernel"], lp["out"]["bias"])
+        mlp = (lp["ln2"]["scale"], lp["ln2"]["bias"], lp["fc1"]["kernel"],
+               lp["fc1"]["bias"], lp["fc2"]["kernel"], lp["fc2"]["bias"])
+        x3 = torch.randn((32, 208, 768), generator=gen,
+                         device="cuda").to(cfg.dtype)
+        kw = dict(num_heads=12, seq_len=197)
+
+        def block():
+            return ops.layer_block(x3, *attn, *mlp, **kw)
+
+        def pair():
+            return ops.mlp_block(ops.attn_block(x3, *attn, **kw), *mlp)
+        t = [time_ms(torch, fn) for fn in (pair, block, block, pair)]
+        res["one_layer_ms"] = {"layer_block": [t[1], t[2]],
+                               "attn_block_plus_mlp_block": [t[0], t[3]]}
+        log(f"[layer] one B/16 bs=32 layer: layer_block {t[1]:.4f}/"
+            f"{t[2]:.4f} ms, attn_block + mlp_block {t[0]:.4f}/{t[3]:.4f}")
+
+    # Serving: bs=1 buckets stay on the stack route, bs=32 take the layer
+    # route; every request equals its bucket forwards bit for bit.
+    pred = Predictor(params, cfg, buckets=(1, 8, 32), layer_block=True)
+    sizes = (1, 5, 32, 37)
+    requests = [torch.randn((n, 3, 224, 224), generator=gen, device="cuda")
+                for n in sizes]
+    plans = [b for n in sizes for b in pred._plan(n)]
+    if (plans.count(1), plans.count(32)) != (11, 2):
+        raise AssertionError(f"layer route serving plans {plans}")
+    answers = counted("B/16 layer route serving",
+                      lambda: [pred(r) for r in requests],
+                      add_counts(expect_counts(zero, PER_FORWARD_STACK, 11),
+                                 expect_counts(zero, layer_route_counts(12),
+                                               2)))
+    with torch.inference_mode():
+        for n, req, ans in zip(sizes, requests, answers):
+            if tuple(ans.shape) != (n, 1000) or not torch.equal(
+                    ans, bucket_forwards(torch, pred, lambda x: forward(
+                        pred.params, x, cfg, layer_block=True), req)):
+                raise AssertionError(f"layer route request {n} != its "
+                                     "bucket forwards")
+    log("[layer] Predictor(layer_block=True): requests (1, 5, 32, 37) == "
+        "their bucket forwards, bit for bit")
+    del pred, requests, answers
+
+    # L/16 bf16 bs=8 at 4 layers (D=1024), no head.
+    cfg_l = VARIANTS["L/16"].replace(dtype=torch.bfloat16, num_layers=4)
+    p_l = init_params(cfg_l, generator=torch.Generator(
+        device="cuda").manual_seed(73), device="cuda")
+    px = torch.randn((8, 3, 224, 224), generator=gen, device="cuda")
+    with torch.inference_mode():
+        got = counted("L/16 bf16 bs=8 layer route",
+                      lambda: forward(p_l, px, cfg_l, layer_block=True),
+                      expect_counts(zero, layer_route_counts(4, head=False)))
+        res["l16_bf16_bs8_4_layers_vs_plain"] = r = compare_model(
+            torch, got, forward(p_l, px, cfg_l, layer_block=True,
+                                impl="torch"), torch.bfloat16)
+    log(f"[layer] L/16 bf16 bs=8, 4 layers, vs impl=torch: {r}")
+    del p_l
+
+    # One train step, B/16 bf16 bs=32: the forward swap above, and the
+    # per-layer route's backward.
+    cfg_t = VARIANTS["B/16"].replace(dtype=torch.bfloat16, num_classes=1000)
+    params_t = init_params(cfg_t, generator=torch.Generator(
+        device="cuda").manual_seed(74), device="cuda")
+    px = torch.randn((32, 3, 224, 224), generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (32,), generator=gen, device="cuda")
+    want_loss, want = train_grads(torch, params_t, cfg_t, px, labels,
+                                  "torch", layer_block=True)
+    init_fn, step_fn = make_train_step(cfg_t, make_optimizer(1e-4, 0.05),
+                                       layer_block=True)
+    opt = init_fn(params_t)
+    _, _, loss = counted(
+        "B/16 bf16 bs=32 layer route train step",
+        lambda: step_fn(params_t, opt, px, labels),
+        expect_counts(zero, train_step_counts(layer_route_counts(12), 12)))
+    worst = check_train_grads(torch, "layer route train step",
+                              [t.grad for t in tree_leaves(params_t)], want,
+                              torch.bfloat16)
+    if not abs(float(loss) - float(want_loss)) <= MODEL_BF16_REL_BAR * (
+            1 + abs(float(want_loss))):
+        raise AssertionError(f"layer route train step: loss {float(loss)} "
+                             f"vs {float(want_loss)}")
+    res["train_step_b16_bf16_bs32"] = {
+        "loss": float(loss), "plain_loss": float(want_loss),
+        "worst_grad_vs_bar": worst}
+    log(f"[layer] train step B/16 bf16 bs=32: loss {float(loss):.6f} "
+        f"(plain {float(want_loss):.6f}), worst gradient {worst:.3f} of its "
+        "bar")
+    del params_t, opt, want, params
+    torch.cuda.empty_cache()
+
+    # K20: exactly the matching blocks print their tile's sum (integer
+    # values: exact fp32 sums in any order); the copy is bit for bit.
+    printed = {}
+
+    def print_cases():
+        outs = []
+        for grid, conds, shape in (((2,), "=0", (16, 128)),
+                                   ((3, 4), "=1,>1", (24, 512))):
+            x = torch.randint(-3, 4, shape, generator=gen,
+                              device="cuda").float()
+            out, text = capture_stdout(torch, lambda: debug.print_if_smoke(
+                x, conds, grid=grid))
+            lines = sorted(ln for ln in text.splitlines()
+                           if ln.startswith("block ("))
+            want_lines = sorted(debug.print_if_lines(x.cpu(), conds,
+                                                     grid=grid))
+            if lines != want_lines or not torch.equal(out, x):
+                raise AssertionError(f"print_if grid {grid} {conds!r}: "
+                                     f"printed {lines}, want {want_lines}")
+            printed[f"{grid} {conds}"] = lines
+            outs.append(out)
+        return outs
+    counted("print_if", print_cases, expect_counts(zero, {"print_if": 2}))
+    log(f"[layer] print_if: exactly the matching blocks printed {printed}")
+    res["print_if_lines"] = printed
+
+    img = torch.randn((32, 3, 224, 224), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    got = counted("ops.patchify B/16 bs=32", lambda: ops.patchify(img, 16),
+                  expect_counts(zero, {"patchify": 1}))
+    if not torch.equal(got, ops.reference.patchify(img, 16)):
+        raise AssertionError("ops.patchify != the layout copy")
+    rc = counted("minimal_matmul example", lambda: minimal_matmul.main([]),
+                 expect_counts(zero, {"minimal_matmul": 1}))
+    if rc != 0:
+        raise AssertionError("the minimal matmul example failed")
+    log("[layer] ops.patchify bit for bit at B/16 bs=32; the minimal matmul "
+        "example passed")
+    return res
+
+
 def main() -> int:
     if "--tp-rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
@@ -1887,7 +2264,7 @@ def main() -> int:
     for cases in (kernel_cases, kernel_cases_l16_384,
                   kernel_cases_small_batch, kernel_cases_int8,
                   kernel_cases_stack_q, kernel_cases_train,
-                  kernel_cases_chain, kernel_cases_tp):
+                  kernel_cases_chain, kernel_cases_tp, kernel_cases_layer):
         for dtype in (torch.float32, torch.bfloat16):
             for c in cases(torch, dtype):
                 got = c["run"]("cuda")
@@ -1925,7 +2302,7 @@ def main() -> int:
     if not gdiff < GOLDEN_BAR:
         raise AssertionError(f"golden max|diff| {gdiff} >= {GOLDEN_BAR}")
     stack_out = ops.encoder_stack_fused(
-        ops.patchify(px, cfg32.patch_size), params32["encoder"],
+        ops.reference.patchify(px, cfg32.patch_size), params32["encoder"],
         params32["embeddings"]["patch_embed"]["kernel"],
         fold_base(params32, cfg32), params32["ln_final"], num_heads=12,
         sp=208, scale=64 ** -0.5, seq_len=197, eps=cfg32.layernorm_eps)
@@ -2304,6 +2681,8 @@ def main() -> int:
     del params, p_l, q_l, qp, pred, pred_q, small
     torch.cuda.empty_cache()
     e2e["tensor_parallel"] = tp_phase(torch, main_counts)
+    # -- 15. the full-layer route and the standalone kernels ---------------
+    e2e["layer_route"] = layer_phase(torch, main_counts)
     log(json.dumps({"timings": timings, "end_to_end": e2e, "card": smi,
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
 

@@ -907,3 +907,174 @@ def test_torch_cuda_tp_forward_one_rank(gen, dtype, tier):
     want = parallel.make_tp_forward(cfg, mesh, quant=quant, impl="torch")(
         tp, px)
     (_close_bf16_bars if quant else _close_model)(got, want)
+
+
+# ------------------------------- the full layer and the standalone kernels --
+
+def _layer_args(gen, dtype, b, s, d, mlp, seq_len):
+    """x (B, S, D) with the rows from seq_len on zeroed, then the twelve
+    weights of a layer."""
+    x = _rnd(gen, dtype, b, s, d)
+    x[:, seq_len:] = 0
+    ln = lambda: (_rnd(gen, dtype, d, std=0.1, mean=1.0),  # noqa: E731
+                  _rnd(gen, dtype, d, std=0.05))
+    return (x, *ln(), _rnd(gen, dtype, d, 3 * d, std=0.05),
+            _rnd(gen, dtype, 3 * d, std=0.02), _rnd(gen, dtype, d, d, std=0.05),
+            _rnd(gen, dtype, d, std=0.02), *ln(),
+            _rnd(gen, dtype, d, mlp, std=0.05), _rnd(gen, dtype, mlp, std=0.02),
+            _rnd(gen, dtype, mlp, d, std=0.05), _rnd(gen, dtype, d, std=0.02))
+
+
+@pytest.mark.parametrize("dtype,b,s,seq_len,d,heads,mlp", [
+    (torch.bfloat16, 3, 48, 37, 768, 12, 512),
+    (torch.bfloat16, 1, 208, 197, 1024, 16, 1024),
+    (torch.bfloat16, 1, 592, 577, 256, 4, 256),
+    (torch.float32, 1, 40, 33, 1280, 16, 520),
+    (torch.float32, 3, 48, 37, 768, 12, 3072)])
+def test_torch_cuda_layer_block(gen, dtype, b, s, seq_len, d, heads, mlp):
+    """K18 after the attention launches, against the plain version, at
+    rows that are not whole blocks (M = 144, 208, 592, 40), masked keys, and
+    D = 768 and 1024 in bf16 and 1280 in fp32 (mlp not a multiple of 128).
+    Counts: K1, K2, the attention core (K7 where its shared memory refuses
+    592 tokens), K18 as ``layer_block``."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    args = _layer_args(gen, dtype, b, s, d, mlp, seq_len)
+    kw = dict(num_heads=heads, seq_len=seq_len)
+    reset_launch_counts()
+    got = ops.layer_block(*args, **kw, impl="cuda")
+    torch.cuda.synchronize()
+    core = "flash_attention" if s == 592 else "attention"
+    assert launch_counts() == _counts(layernorm=1, matmul=1, layer_block=1,
+                                      **{core: 1})
+    (_close if dtype == torch.float32 else _close_bf16_bars)(
+        got, ops.layer_block(*args, **kw, impl="torch"))
+
+
+def test_torch_cuda_layer_block_checks_inputs(gen):
+    """Shapes K18 does not take raise before any launch."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    wide = _layer_args(gen, torch.bfloat16, 1, 32, 1152, 256, 32)
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ops.layer_block(*wide, num_heads=8)
+    ragged = _layer_args(gen, torch.bfloat16, 1, 32, 128, 200, 32)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        ops.layer_block(*ragged, num_heads=2)
+    mixed = list(_layer_args(gen, torch.float32, 1, 32, 128, 256, 32))
+    mixed[5] = mixed[5].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.layer_block(*mixed, num_heads=2)
+    assert launch_counts() == _counts()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_torch_cuda_layer_route_forward_and_step(gen, dtype):
+    """``forward(layer_block=True)`` at a narrow B/16 geometry (bs=3, 208
+    tokens): per layer K1, K2, the core and K18 in place of the
+    out-projection's K2 and K3; one train step's gradients against the
+    plain tier's, with the backward of the per-layer route."""
+    from vit_tpu_torch.config import ViTConfig
+    from vit_tpu_torch.models import vit
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.train import cross_entropy_loss
+    from vit_tpu_torch.weights.convert import tree_leaves
+
+    cfg = ViTConfig(image_size=224, patch_size=16, hidden_dim=256,
+                    num_heads=4, num_layers=2, mlp_dim=512, num_classes=10,
+                    dtype=dtype)
+    params = vit.init_params(cfg, generator=gen)
+    px = torch.randn((5, 3, 224, 224), generator=gen, device="cuda")
+    with torch.inference_mode():
+        reset_launch_counts()
+        got = vit.forward(params, px, cfg, layer_block=True)
+        torch.cuda.synchronize()
+        assert launch_counts() == _counts(layernorm=3, matmul=4, attention=2,
+                                          layer_block=2)
+        _close_model(got, vit.forward(params, px, cfg, layer_block=True,
+                                      impl="torch"))
+    labels = torch.randint(0, 10, (5,), generator=gen, device="cuda")
+    grads = {}
+    for impl in (None, "torch"):
+        leaves = [t.requires_grad_() for t in tree_leaves(params)]
+        loss = cross_entropy_loss(params, px, labels, cfg, impl=impl,
+                                  layer_block=True)
+        grads[impl] = torch.autograd.grad(loss, leaves)
+    _close_grads(grads[None], grads["torch"], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,p", [((2, 3, 80, 80), 16),
+                                     ((1, 3, 224, 224), 14),
+                                     ((2, 1, 48, 80), 16),
+                                     ((32, 3, 224, 224), 16)])
+def test_torch_cuda_patchify_bit_exact(gen, dtype, shape, p):
+    """K19, bit for bit with the layout copy, at a ragged W/P (5 patches a
+    row), H/14's 16x16 patches of 14, one channel with H != W, and B/16
+    bs=32."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops import reference
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    x = _rnd(gen, dtype, *shape)
+    reset_launch_counts()
+    got = ops.patchify(x, p)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(patchify=1)
+    assert torch.equal(got, reference.patchify(x, p))
+    with pytest.raises(ValueError, match="not divisible"):
+        ops.patchify(x, p + 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.patchify(x.transpose(2, 3), p)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,conds", [((2,), "=0"), ((3, 4), "=1,>1"),
+                                        ((3, 4), "!=1,,<=0"), ((2,), "")])
+def test_torch_cuda_print_if_prints_the_matching_blocks(gen, capfd, dtype,
+                                                        grid, conds):
+    """K20: the copy is bit for bit, and exactly the blocks whose index
+    satisfies ``conds`` print their tile's sum (device printf reaches the
+    process's stdout at the synchronisation; block order is the device's,
+    so the lines are compared sorted). Integer values keep the fp32 sums
+    exact in any order."""
+    import ctypes
+
+    from vit_tpu_torch.ops import debug
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    x = torch.randint(-3, 4, (24, 512), generator=gen, device="cuda").to(
+        dtype)
+    capfd.readouterr()
+    reset_launch_counts()
+    out = debug.print_if_smoke(x, conds, grid=grid)
+    torch.cuda.synchronize()
+    ctypes.CDLL(None).fflush(None)
+    printed = [ln for ln in capfd.readouterr().out.splitlines()
+               if ln.startswith("block (")]
+    assert launch_counts() == _counts(print_if=1)
+    assert torch.equal(out, x)
+    assert sorted(printed) == sorted(debug.print_if_lines(x.cpu(), conds,
+                                                          grid=grid))
+    with pytest.raises(ValueError, match="tile"):
+        debug.print_if_smoke(x, grid=(5,))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(256, 384, 512), (128, 1024, 384)])
+def test_torch_cuda_minimal_matmul(gen, dtype, m, k, n):
+    from vit_tpu_torch.examples import minimal_matmul
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    x, w = _rnd(gen, dtype, m, k, std=0.1), _rnd(gen, dtype, k, n, std=0.1)
+    reset_launch_counts()
+    got = minimal_matmul.matmul(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(minimal_matmul=1)
+    _close(got, minimal_matmul.matmul_plain(x, w))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        minimal_matmul.matmul(x[:, :100].contiguous(), w[:100])
+    assert minimal_matmul.main([]) == 0

@@ -46,6 +46,9 @@ def test_torch_port_import_loads_no_jax():
         "import vit_tpu_torch.ops.cuda.elementwise\n"
         "import vit_tpu_torch.ops.cuda.matmul3\n"
         "import vit_tpu_torch.parallel, vit_tpu_torch.parallel.tp\n"
+        "import vit_tpu_torch.ops.cuda.patching, vit_tpu_torch.ops.debug\n"
+        "import vit_tpu_torch.ops.cuda.debug\n"
+        "import vit_tpu_torch.examples.minimal_matmul\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vit_tpu'))\n"
         "print(bad)\n"

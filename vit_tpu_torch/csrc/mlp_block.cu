@@ -24,39 +24,24 @@
 // first kernel and is the first thing to change: stage W tiles with TMA and
 // run wgmma on them.
 //
-// bf16: 32 rows a block, eight warps. The fp32 accumulator (32 x D) lives in
-// wmma fragments spread over the warps' registers (warp w owns columns
-// [w*D/8, (w+1)*D/8)); shared memory holds xn (32 x D bf16), one fp32
-// pre-activation chunk (32 x 128) and its bf16 copy: 80 KB at D=768, so the
-// launch sets cudaFuncAttributeMaxDynamicSharedMemorySize. D and mlp must be
-// multiples of 128, D at most 1024; rows are masked.
-//
-// fp32: true fp32 FFMA (no TF32), 16 rows a block. Thread t owns hidden
-// column c0+t of each 256-wide chunk for the fc1 product and output columns
-// t, t+256, ... for the accumulator, which stays in registers; xn
+// The chunk loop is shared with K18 (mlp_tile.cuh, which gives the layouts).
+// bf16: 32 rows a block, eight warps; shared memory holds xn (32 x D bf16),
+// the chunk buffers and a per-warp 16 x 16 fp32 tile for seeding and
+// storing the accumulator fragments: 80 KB at D=768, so the launch sets
+// cudaFuncAttributeMaxDynamicSharedMemorySize. D and mlp must be multiples
+// of 128, D at most 1024; rows are masked. fp32: 16 rows a block; xn
 // (16 x D fp32) and the chunk (16 x 256) sit in shared memory. D at most
 // 1536; rows, D and mlp are masked.
 
-#include <mma.h>
-
-#include "common.cuh"
+#include "mlp_tile.cuh"
 
 namespace vit {
 
-using namespace nvcuda;
-
-constexpr int kMlpThreads = 256;
-constexpr int kMlpWarps = kMlpThreads / 32;
-
 // ---------------------------------------------------------------- bf16 --
-
-constexpr int kMlpBM = 32;   // rows a block
-constexpr int kMlpCT = 128;  // MLP columns a chunk
 
 inline size_t mlp_bf16_smem(int d) {
   return static_cast<size_t>(kMlpBM) * d * sizeof(bf16)  // xn
-         + kMlpBM * kMlpCT * sizeof(float)               // pre-activation
-         + kMlpBM * kMlpCT * sizeof(bf16)                // h in bf16
+         + kMlpChunkBytes                                // hpre, hb
          + kMlpWarps * 256 * sizeof(float);              // per-warp tile
 }
 
@@ -87,7 +72,7 @@ __global__ void __launch_bounds__(kMlpThreads, 1)
 
   // acc[i][j]: rows [16i, 16i+16), columns [(warp*NT + j)*16, +16),
   // seeded with x + b2 (zero for a partial) through the warp's shared tile.
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NT];
+  MlpFrag acc[2][NT];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -105,49 +90,7 @@ __global__ void __launch_bounds__(kMlpThreads, 1)
     }
   __syncthreads();  // xn complete
 
-  for (int c0 = 0; c0 < mlp; c0 += kMlpCT) {
-    // fc1: warp w computes chunk columns [16w, 16w+16) for all 32 rows.
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> h[2];
-    wmma::fill_fragment(h[0], 0.f);
-    wmma::fill_fragment(h[1], 0.f);
-    const bf16* w1c = w1 + c0 + warp * 16;
-    for (int k = 0; k < D; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> wb;
-      wmma::load_matrix_sync(wb, w1c + static_cast<size_t>(k) * mlp, mlp);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, xn + i * 16 * D + k, D);
-        wmma::mma_sync(h[i], a, wb, h[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::store_matrix_sync(hpre + i * 16 * kMlpCT + warp * 16, h[i],
-                              kMlpCT, wmma::mem_row_major);
-    __syncthreads();  // pre-activation chunk complete; the previous
-                      // chunk's fc2 reads of hb are done too
-    for (int e = threadIdx.x; e < kMlpBM * kMlpCT; e += kMlpThreads)
-      hb[e] = from_f32<bf16>(gelu(hpre[e] + to_f32(b1[c0 + e % kMlpCT])));
-    __syncthreads();  // h complete
-
-    // fc2: acc += h (32 x 128) @ W2[c0:c0+128, warp's columns].
-#pragma unroll 2
-    for (int kk = 0; kk < kMlpCT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], hb + i * 16 * kMlpCT + kk, kMlpCT);
-      const bf16* w2r = w2 + static_cast<size_t>(c0 + kk) * D;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> wb;
-        wmma::load_matrix_sync(wb, w2r + (warp * NT + j) * 16, D);
-        wmma::mma_sync(acc[0][j], a[0], wb, acc[0][j]);
-        wmma::mma_sync(acc[1][j], a[1], wb, acc[1][j]);
-      }
-    }
-  }
+  mlp_chunks_bf16<NT>(xn, hpre, hb, w1, b1, w2, mlp, acc);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -182,9 +125,6 @@ cudaError_t launch_mlp_bf16(const bf16* x, const bf16* g, const bf16* b,
 }
 
 // ---------------------------------------------------------------- fp32 --
-
-constexpr int kMlpFBM = 16;   // rows a block
-constexpr int kMlpFCT = 256;  // MLP columns a chunk (one a thread)
 
 inline size_t mlp_f32_smem(int d) {
   return (static_cast<size_t>(kMlpFBM) * d + kMlpFBM * kMlpFCT) * sizeof(float);
@@ -224,39 +164,7 @@ __global__ void __launch_bounds__(kMlpThreads)
     }
   __syncthreads();  // xn complete
 
-  for (int c0 = 0; c0 < mlp; c0 += kMlpFCT) {
-    const int c = c0 + t;
-    float a[kMlpFBM];
-#pragma unroll
-    for (int r = 0; r < kMlpFBM; ++r) a[r] = 0.f;
-    if (c < mlp) {
-      for (int k = 0; k < d; ++k) {
-        const float wv = w1[static_cast<size_t>(k) * mlp + c];
-#pragma unroll
-        for (int r = 0; r < kMlpFBM; ++r) a[r] = fmaf(xn[r * d + k], wv, a[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kMlpFBM; ++r)
-      hs[r * kMlpFCT + t] = c < mlp ? gelu(a[r] + b1[c]) : 0.f;
-    __syncthreads();  // chunk complete
-
-    const int cn = min(kMlpFCT, mlp - c0);
-    for (int cc = 0; cc < cn; ++cc) {
-      const float* w2r = w2 + static_cast<size_t>(c0 + cc) * d;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = t + j * kMlpThreads;
-        if (n < d) {
-          const float wv = w2r[n];
-#pragma unroll
-          for (int r = 0; r < kMlpFBM; ++r)
-            acc[r][j] = fmaf(hs[r * kMlpFCT + cc], wv, acc[r][j]);
-        }
-      }
-    }
-    __syncthreads();  // the next chunk overwrites hs
-  }
+  mlp_chunks_f32<NJ>(xn, hs, w1, b1, w2, d, mlp, acc);
 
 #pragma unroll
   for (int r = 0; r < kMlpFBM; ++r)

@@ -22,7 +22,9 @@ batch size:
   (one prefix token, batch <= 4), else composed and zero-padded; then the
   encoder is one ``encoder_stack`` kernel where ``ops.stack_plan`` (DeiT-B/16
   bf16 at batch <= 2), else one :func:`encoder_block` a layer, the
-  throughput route; then the final ``layernorm``.
+  throughput route (with ``layer_block=True``, one full-layer
+  ``layer_block`` a layer where ``ops.layer_plan`` takes the geometry);
+  then the final ``layernorm``.
 
 Padded keys are masked inside attention and every other op is row-wise, so
 the pad rows never touch the real ones. With CUDA tensors each op runs its
@@ -114,7 +116,7 @@ def embed(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
         cls_row = (e["cls_token"].reshape(cfg.hidden_dim).to(dt)
                    + pos[0].to(dt))
         return ops.embed_fused(
-            ops.patchify(pixels.to(dt), cfg.patch_size),
+            ops.reference.patchify(pixels.to(dt), cfg.patch_size),
             e["patch_embed"]["kernel"], e["patch_embed"]["bias"], cls_row,
             pos[1:], sp, impl=impl)
     x = ops.patch_embed(pixels.to(dt), e["patch_embed"]["kernel"],
@@ -168,8 +170,8 @@ def _layers(enc: Params) -> list[Params]:
 
 def encoder_block(x: torch.Tensor, lp: Params, cfg: ViTConfig, *,
                   impl: str | None = None, attention: str = "flash",
-                  fused: bool = True,
-                  seq_len: int | None = None) -> torch.Tensor:
+                  fused: bool = True, seq_len: int | None = None,
+                  layer_block: bool = False) -> torch.Tensor:
     """One pre-LN encoder layer on the ``(B, S, D)`` activation, after
     ``vit_tpu/models/vit.py:encoder_block``. ``lp`` holds this layer's
     params; keys at index >= ``seq_len`` are masked (flash only: the
@@ -184,7 +186,13 @@ def encoder_block(x: torch.Tensor, lp: Params, cfg: ViTConfig, *,
     ``fused=False``; attention is ``flash_attention`` over the packed QKV
     buffer, or with ``attention="unfused"`` the reference's chain over
     (B*H, S, d): ``matmul3(q, kᵀ) * d**-0.5`` -> ``softmax`` ->
-    ``matmul3(p, v)``."""
+    ``matmul3(p, v)``.
+
+    ``layer_block=True`` (the counterpart of setting JAX's
+    ``VIT_TPU_LAYER_PLAN``) runs the whole layer as :func:`ops.layer_block`
+    where the mega-kernels apply and :func:`ops.layer_plan` takes the
+    geometry: the activation between the halves then stays fp32, where the
+    two half kernels round it to the dtype."""
     if attention not in ATTENTIONS:
         raise ValueError(f"unknown attention mode {attention!r}")
     b, s, d = x.shape
@@ -193,6 +201,15 @@ def encoder_block(x: torch.Tensor, lp: Params, cfg: ViTConfig, *,
     nh, hd = cfg.num_heads, cfg.head_dim
     eps = cfg.layernorm_eps
     mega = fused and attention == "flash"
+    if layer_block and mega and ops.layer_plan(b, s, d, cfg.mlp_dim, nh,
+                                                x.dtype):
+        return ops.layer_block(
+            x, lp["ln1"]["scale"], lp["ln1"]["bias"], lp["qkv"]["kernel"],
+            lp["qkv"]["bias"], lp["out"]["kernel"], lp["out"]["bias"],
+            lp["ln2"]["scale"], lp["ln2"]["bias"], lp["fc1"]["kernel"],
+            lp["fc1"]["bias"], lp["fc2"]["kernel"], lp["fc2"]["bias"],
+            num_heads=nh, scale=hd ** -0.5, seq_len=seq_len, eps=eps,
+            impl=impl)
 
     def lin(inp, p, act=None, ln=None, res=None):
         if fused:
@@ -254,8 +271,8 @@ def encoder_block(x: torch.Tensor, lp: Params, cfg: ViTConfig, *,
 
 def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
             impl: str | None = None, attention: str = "flash",
-            fused: bool = True,
-            base: torch.Tensor | None = None) -> torch.Tensor:
+            fused: bool = True, base: torch.Tensor | None = None,
+            layer_block: bool = False) -> torch.Tensor:
     """Full ViT forward. Returns, per ``cfg``:
 
     - hidden states (B, seq_len, D) -- ``pooling="none"``, no classes;
@@ -268,7 +285,9 @@ def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
     (the module docstring gives it). ``attention="unfused"`` runs at the
     real token count. ``base`` is :func:`fold_base` of ``params``, for a
     caller that serves fixed params and builds it once (``Predictor``
-    does); the fused route builds it when it is None.
+    does); the fused route builds it when it is None. ``layer_block=True``
+    asks :func:`encoder_block` for the full-layer kernel on the per-layer
+    route; the stack routes still come first, as in JAX.
     """
     s, sp = cfg.seq_len, _padded_seq(cfg, attention)
     b = pixels.shape[0]
@@ -279,7 +298,7 @@ def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
     if stack and ops.stack_fused_plan(*geometry, cfg.num_prefix_tokens):
         _check_pixels(pixels, cfg)
         x = ops.encoder_stack_fused(
-            ops.patchify(pixels.to(cfg.dtype), cfg.patch_size),
+            ops.reference.patchify(pixels.to(cfg.dtype), cfg.patch_size),
             params["encoder"], params["embeddings"]["patch_embed"]["kernel"],
             fold_base(params, cfg) if base is None else base,
             params["ln_final"], num_heads=nh, sp=sp,
@@ -293,7 +312,7 @@ def forward(params: Params, pixels: torch.Tensor, cfg: ViTConfig, *,
     else:
         for lp in _layers(params["encoder"]):
             x = encoder_block(x, lp, cfg, impl=impl, attention=attention,
-                              fused=fused, seq_len=s)
+                              fused=fused, seq_len=s, layer_block=layer_block)
     x = ops.layernorm(x, params["ln_final"]["scale"],
                       params["ln_final"]["bias"], eps=cfg.layernorm_eps,
                       impl=impl)
@@ -319,20 +338,21 @@ def _forward_tail(x: torch.Tensor, params: Params, cfg: ViTConfig, s: int,
 
 def forward_with_intermediates(params: Params, pixels: torch.Tensor,
                                cfg: ViTConfig, *, impl: str | None = None,
-                               attention: str = "flash", fused: bool = True):
+                               attention: str = "flash", fused: bool = True,
+                               layer_block: bool = False):
     """Forward that also returns every layer's hidden states: ``(final,
     hiddens)`` with ``hiddens`` the embedding output followed by each
     encoder layer's output (pre-final-LN), each (B, seq_len, D) -- the
     convention of HF ``output_hidden_states=True``. One
-    :func:`encoder_block` a layer on the route of ``attention`` and
-    ``fused``."""
+    :func:`encoder_block` a layer on the route of ``attention``, ``fused``
+    and ``layer_block``."""
     s, sp = cfg.seq_len, _padded_seq(cfg, attention)
     x = embed(params, pixels, cfg, impl=impl)
     hiddens = [x]
     x = F.pad(x, (0, 0, 0, sp - s))
     for lp in _layers(params["encoder"]):
         x = encoder_block(x, lp, cfg, impl=impl, attention=attention,
-                          fused=fused, seq_len=s)
+                          fused=fused, seq_len=s, layer_block=layer_block)
         hiddens.append(x[:, :s])
     final = ops.layernorm(x, params["ln_final"]["scale"],
                           params["ln_final"]["bias"], eps=cfg.layernorm_eps,
@@ -341,10 +361,11 @@ def forward_with_intermediates(params: Params, pixels: torch.Tensor,
 
 
 def make_forward(cfg: ViTConfig, *, impl: str | None = None,
-                 attention: str = "flash", fused: bool = True):
+                 attention: str = "flash", fused: bool = True,
+                 layer_block: bool = False):
     """:func:`forward` with the config, implementation and route bound."""
     return functools.partial(forward, cfg=cfg, impl=impl, attention=attention,
-                             fused=fused)
+                             fused=fused, layer_block=layer_block)
 
 
 class ViT(nn.Module):

@@ -18,6 +18,8 @@ them, so they run under ``torch.no_grad``.
 mega-kernel takes a geometry; the model routes each half of a layer by
 them (``vit_tpu_torch/models/vit.py:encoder_block``), and the attention
 halves choose between the attention core and K7 by :func:`attn_plan`.
+:func:`layer_plan` says whether the full-layer kernel takes a geometry,
+where the model is asked for it (``layer_block=True``).
 :func:`mlp_q_plan` says whether the int8 MLP kernels take one
 (``quant.py``, ``parallel/tp.py``). :func:`stack_plan`,
 :func:`stack_fused_plan` and :func:`embed_fused_ok` pick the small-batch
@@ -33,13 +35,13 @@ import torch
 
 from vit_tpu_torch.ops import autograd, reference
 from vit_tpu_torch.ops.dispatch import check_impl, kernel_fn, resolve_impl
-from vit_tpu_torch.ops.reference import patchify
 
 __all__ = [
     "layernorm", "layernorm_stats", "matmul", "fused_linear", "patchify",
     "patch_embed", "add", "softmax", "matmul3", "flash_attention",
     "flash_attention_qkv", "flash_attention_bwd", "attn_block",
-    "mlp_block", "attn_plan", "mlp_plan", "mlp_q_plan", "embed_fused",
+    "mlp_block", "layer_block", "attn_plan", "mlp_plan", "layer_plan",
+    "mlp_q_plan", "embed_fused",
     "embed_fused_ok",
     "encoder_stack",
     "encoder_stack_fused", "stack_plan", "stack_fused_plan", "quantize_rows",
@@ -148,11 +150,21 @@ def flash_attention_bwd(q, k, v, g, *, scale=None, seq_len=None, impl=None):
                                                      seq_len=seq_len)
 
 
+@torch.no_grad()
+def patchify(x, patch_size, *, impl=None):
+    """``(B, C, H, W) -> (B, (H/P)*(W/P), C*P*P)`` in (c, kh, kw) order
+    (kernel K19), bit for bit. Not differentiable, as JAX's Pallas
+    ``patchify`` is not. The models leave the unfold to the layout copy
+    ``reference.patchify``, as JAX's leave it to XLA
+    (``vit_tpu/models/vit.py:108, 287``)."""
+    return kernel_fn("patchify", impl, x)(x, patch_size)
+
+
 def patch_embed(x, w, bias, patch_size, *, impl=None):
     """Patch-embedding convolution as unfold + matmul, as on the JAX Pallas
-    tier (``vit_tpu/ops/pallas/patch_embed.py:30-44``): the unfold is a
-    layout copy, the projection runs on K2."""
-    return matmul(patchify(x, patch_size), w, bias, impl=impl)
+    tier (``vit_tpu/ops/pallas/patch_embed.py:30-44``): the unfold is the
+    layout copy ``reference.patchify``, the projection runs on K2."""
+    return matmul(reference.patchify(x, patch_size), w, bias, impl=impl)
 
 
 def mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps=1e-12,
@@ -184,6 +196,26 @@ def attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *, num_heads,
     return autograd.run(
         autograd.AttnBlock, x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
         num_heads,
+        (d // num_heads) ** -0.5 if scale is None else scale,
+        s if seq_len is None else seq_len, eps, impl)
+
+
+def layer_block(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
+                ln2_bias, w1, b1, w2, b2, *, num_heads, scale=None,
+                seq_len=None, eps=1e-12, impl=None):
+    """A full encoder layer, :func:`attn_block` then :func:`mlp_block` with
+    the activation between them kept in fp32 (B18: K1, K2, the attention
+    core or K7, then K18). Its backward recomputes through the two composed
+    halves (``vit_tpu/ops/pallas/vjp.py:layer_block``)."""
+    if check_impl(impl) == "torch":
+        return reference.layer_block(
+            x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
+            ln2_bias, w1, b1, w2, b2, num_heads=num_heads, scale=scale,
+            seq_len=seq_len, eps=eps)
+    b, s, d = x.shape
+    return autograd.run(
+        autograd.LayerBlock, x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
+        ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
         (d // num_heads) ** -0.5 if scale is None else scale,
         s if seq_len is None else seq_len, eps, impl)
 
@@ -221,6 +253,21 @@ def mlp_plan(hidden: int, mlp: int, dtype: torch.dtype) -> bool:
         return (hidden % 128 == 0 and mlp % 128 == 0
                 and hidden <= MLP_BF16_MAX_D)
     return hidden <= MLP_F32_MAX_D
+
+
+def layer_plan(batch: int, seq_pad: int, hidden: int, mlp: int,
+               num_heads: int, dtype: torch.dtype) -> bool:
+    """Whether :func:`layer_block` takes this geometry (counterpart of
+    ``vit_tpu.ops.layer_plan``): both half plans (:func:`attn_plan`,
+    :func:`mlp_plan`, whose width limits K18 shares) with D and mlp
+    multiples of 128. It reads the port's own kernel limits, not JAX's
+    22 MB VMEM budget (``block.py:1744-1753``), which refuses B/16 fp32 and
+    L/16 bf16; K18 takes both. The batch does not matter to the port's
+    kernels. JAX's plan is opt-in; the model's ``layer_block=True`` is the
+    opt-in (ROADMAP C)."""
+    return (hidden % 128 == 0 and mlp % 128 == 0 and hidden % num_heads == 0
+            and attn_plan(batch, seq_pad, hidden, num_heads, dtype)
+            and mlp_plan(hidden, mlp, dtype))
 
 
 def mlp_q_plan(hidden: int, mlp: int) -> bool:

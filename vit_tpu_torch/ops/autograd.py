@@ -15,10 +15,10 @@ composition of JAX's custom VJP for that op:
   at every sequence length: its shared memory does not grow with S, so
   JAX's switch to a jnp chain above 768 padded tokens (``vjp.py:378-385``),
   a VMEM limit of the TPU, has no counterpart here;
-- the mega-kernels (``mlp_block``, ``attn_block``, both ``encoder_stack``
-  forms) save only their inputs and recompute through the composed
-  differentiable chain (``_mlp_composed``, ``_attn_composed``, the
-  per-layer loop), whose forward runs K5 + K6, K7 and K2 again.
+- the mega-kernels (``mlp_block``, ``attn_block``, ``layer_block``, both
+  ``encoder_stack`` forms) save only their inputs and recompute through
+  the composed differentiable chain (``_mlp_composed``, ``_attn_composed``,
+  the per-layer loop), whose forward runs K5 + K6, K7 and K2 again.
 
 Every kernel slot is filled by :func:`~vit_tpu_torch.ops.dispatch.kernel_fn`:
 the CUDA wrapper for a CUDA tensor, the plain version for a CPU tensor, so
@@ -341,6 +341,36 @@ class AttnBlock(torch.autograd.Function):
     def backward(ctx, g):
         grads = _remat(lambda *a: _attn_composed(*a, *ctx.args),
                        ctx.saved_tensors, ctx.needs_input_grad[:7], g)
+        return (*grads, None, None, None, None, None)
+
+
+class LayerBlock(torch.autograd.Function):
+    """A full encoder layer on K1, K2, the attention core and K18
+    (``vjp.py:layer_block``); the backward recomputes through
+    ``_attn_composed`` then ``_mlp_composed`` (``vjp.py:609-643``), the
+    per-layer route's backward."""
+
+    @staticmethod
+    def forward(ctx, x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
+                ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, scale, seq_len,
+                eps, impl):
+        ctx.save_for_backward(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
+                              ln2_scale, ln2_bias, w1, b1, w2, b2)
+        ctx.args = (num_heads, scale, seq_len, eps, impl)
+        return kernel_fn("layer_block", impl, x)(
+            x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
+            ln2_bias, w1, b1, w2, b2, num_heads=num_heads, scale=scale,
+            seq_len=seq_len, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, scale, seq_len, eps, impl = ctx.args
+
+        def chain(x, *p):
+            y = _attn_composed(x, *p[:6], num_heads, scale, seq_len, eps,
+                               impl)
+            return _mlp_composed(y, *p[6:], eps, impl)
+        grads = _remat(chain, ctx.saved_tensors, ctx.needs_input_grad[:13], g)
         return (*grads, None, None, None, None, None)
 
 

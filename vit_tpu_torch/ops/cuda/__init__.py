@@ -9,7 +9,9 @@ The kernels are built from the repository's sources on first use.
 The shard forms of the tensor-parallel path's one-kernel MLPs count apart
 from their whole-block forms (``mlp_block_partial`` and so on). A block
 made of several launches (``attn_block``, ``attn_block_q`` and their
-shard forms) has no count of its own: its kernels count theirs.
+shard forms) has no count of its own: its kernels count theirs;
+``layer_block`` counts its last launch, K18, and its first three count as
+``attn_block``'s do.
 
 The counts show that a run went through the kernels:
 :func:`reset_launch_counts` before it, :func:`launch_counts` after.
@@ -23,7 +25,8 @@ KERNELS = ("layernorm", "matmul", "attention", "mlp_block", "layernorm_stats",
            "encoder_stack_fused", "quantize_rows", "matmul_i8",
            "mlp_block_i8dot", "encoder_stack_q", "flash_attention_bwd",
            "add", "softmax", "matmul3", "mlp_block_q", "mlp_block_partial",
-           "mlp_block_i8dot_partial", "mlp_block_q_partial")
+           "mlp_block_i8dot_partial", "mlp_block_q_partial", "layer_block",
+           "patchify", "print_if", "minimal_matmul")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

@@ -86,6 +86,15 @@ _SIGNATURES = {
     # x, ln scale, ln bias, w1, s1, b1, w2, s2, b2, out, m, d, mlp, eps,
     # partial
     "vit_mlp_block_q": (*(_P,) * 10, _I, _I, _I, _F, _I),
+    # ctx, x, wout, bout, ln2 scale, ln2 bias, w1, b1, w2, b2, out, m, d,
+    # mlp, eps
+    "vit_layer_block": (*(_P,) * 11, _I, _I, _I, _F),
+    # x, out, b, c, h, w, p
+    "vit_patchify": (_P, _P, _I, _I, _I, _I, _I),
+    # x, out, rows, cols, grid x, grid y, then (op, rhs) for axes 0, 1, 2
+    "vit_print_if_smoke": (_P, _P, *(_I,) * 10),
+    # x, w, out, m, n, k
+    "vit_minimal_matmul": (_P, _P, _P, _I, _I, _I),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
-"""Transformer half-block kernels: K3 ``mlp_block`` (``csrc/mlp_block.cu``)
-and K4 ``attn_block`` (counterparts of ``vit_tpu/ops/pallas/block.py``),
-and their tensor-parallel shard forms: K3 with ``partial_out=True`` and B16
-``attn_block_partial``.
+"""Transformer block kernels: K3 ``mlp_block`` (``csrc/mlp_block.cu``), K4
+``attn_block`` and the full layer ``layer_block`` (K18,
+``csrc/layer_block.cu``) (counterparts of ``vit_tpu/ops/pallas/block.py``),
+and the half blocks' tensor-parallel shard forms: K3 with
+``partial_out=True`` and B16 ``attn_block_partial``.
 
 ``mlp_block`` is one kernel, as on the TPU: the (M, mlp) hidden never
 reaches device memory.
@@ -23,6 +24,12 @@ Wout_s`` has no bias and no residual. Its output is a partial sum in
 ``x.dtype``, which the caller all-reduces over the model group
 (``vit_tpu_torch/parallel/tp.py``). Neither block counts launches of its
 own: each of its kernels counts its launch.
+
+``layer_block`` (B18, ``block.py:1687-1832``) is ``attn_block``'s first
+three launches, then K18 on the context: the out-projection, LN2 and the
+MLP with the sum between the halves kept in fp32 in shared memory, where
+the pair ``attn_block`` -> ``mlp_block`` rounds it to the dtype in device
+memory. K18 counts as ``layer_block``.
 """
 
 from __future__ import annotations
@@ -119,26 +126,32 @@ def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
     return out
 
 
-def _attn_half(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
-               *, num_heads: int, scale: float | None, seq_len: int | None,
-               eps: float, residual: bool) -> torch.Tensor:
-    """The launches of both attention halves on a CUDA tensor ``x``
-    (B, S, D), S already padded: K1, K2 into the packed ``(B*S, 3*dl)``
-    ``[q|k|v]`` buffer (dl from ``wqkv``), the attention core or, where
-    :func:`vit_tpu_torch.ops.attn_plan` refuses the length, K7 over the
-    buffer's head views, then K2 ``ctx @ wout`` (``+ bout``, ``+ x`` with
-    ``residual``)."""
-    from vit_tpu_torch.ops import attn_plan
-
+def _check_attn(x: torch.Tensor, wqkv: torch.Tensor, num_heads: int) -> int:
+    """Check ``x`` (B, S, D) and ``wqkv`` (D, 3*dl); return dl."""
     _build.check_tensor(x, "x", x)
     if x.dim() != 3:
         raise ValueError(f"x shape {tuple(x.shape)} is not (B, S, D)")
-    b, s, d = x.shape
     if wqkv.dim() != 2 or wqkv.shape[1] % 3:
         raise ValueError(f"wqkv shape {tuple(wqkv.shape)} is not (D, 3*dl)")
     dl = wqkv.shape[1] // 3
     if num_heads <= 0 or dl % num_heads:
         raise ValueError(f"dl={dl} not divisible by {num_heads} heads")
+    return dl
+
+
+def _attn_ctx(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, *,
+              num_heads: int, scale: float | None, seq_len: int | None,
+              eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first three launches of an attention half on a CUDA tensor ``x``
+    (B, S, D), S already padded: K1, K2 into the packed ``(B*S, 3*dl)``
+    ``[q|k|v]`` buffer (dl from ``wqkv``), then the attention core or,
+    where :func:`vit_tpu_torch.ops.attn_plan` refuses the length, K7 over
+    the buffer's head views. Returns ``(x (B*S, D), the (B*S, dl)
+    context)``."""
+    from vit_tpu_torch.ops import attn_plan
+
+    dl = _check_attn(x, wqkv, num_heads)
+    b, s, d = x.shape
     hd = dl // num_heads
     if scale is None:
         scale = hd ** -0.5
@@ -154,8 +167,18 @@ def _attn_half(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
         # The kernel's context is a (B, S, H, hd) buffer: this is a view.
         ctx = flash_attention(q, k, v, scale=scale, seq_len=seq_len
                               ).transpose(1, 2).reshape(b * s, dl)
+    return xf, ctx
+
+
+def _attn_half(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+               *, num_heads: int, scale: float | None, seq_len: int | None,
+               eps: float, residual: bool) -> torch.Tensor:
+    """The launches of both attention halves: :func:`_attn_ctx`, then K2
+    ``ctx @ wout`` (``+ bout``, ``+ x`` with ``residual``)."""
+    xf, ctx = _attn_ctx(x, ln_scale, ln_bias, wqkv, bqkv, num_heads=num_heads,
+                        scale=scale, seq_len=seq_len, eps=eps)
     return matmul(ctx, wout, bout, residual=xf if residual else None
-                  ).reshape(b, s, d)
+                  ).reshape(x.shape)
 
 
 def attn_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
@@ -181,3 +204,86 @@ def attn_block_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout,
     return _attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout, None,
                       num_heads=num_heads, scale=scale, seq_len=seq_len,
                       eps=eps, residual=False)
+
+
+def _check_tail(x: torch.Tensor, wout, bout, ln2_scale, ln2_bias, w1, b1,
+                w2, b2) -> int:
+    """Check K18's operands for the input rows ``x`` (..., D); return
+    mlp."""
+    d = x.shape[-1]
+    # K18's width limits are K3's: its bf16 fragments are K3's, and in fp32
+    # its ctx, y and chunk rows fill 208 KB of shared memory at D=1536.
+    if w1.dim() != 2 or w1.shape[0] != d:
+        raise ValueError(f"w1 shape {tuple(w1.shape)} does not take D={d}")
+    mlp = w1.shape[1]
+    for t, name, shape in (
+            (wout, "wout", (d, d)), (bout, "bout", (d,)),
+            (ln2_scale, "ln2_scale", (d,)), (ln2_bias, "ln2_bias", (d,)),
+            (w1, "w1", (d, mlp)), (b1, "b1", (mlp,)), (w2, "w2", (mlp, d)),
+            (b2, "b2", (d,))):
+        _build.check_tensor(t, name, x, shape)
+    if x.dtype == torch.bfloat16:
+        if d % 128 or mlp % 128 or d > MLP_BF16_MAX_D:
+            raise ValueError(f"bf16 layer_block needs D and mlp multiples of "
+                             f"128 and D <= {MLP_BF16_MAX_D}; got D={d}, "
+                             f"mlp={mlp}")
+        for t, name in ((wout, "wout"), (w1, "w1"), (w2, "w2")):
+            if t.data_ptr() % 32:
+                raise ValueError(f"{name} must be 32-byte aligned for the "
+                                 "tensor-core loads")
+    elif d > MLP_F32_MAX_D:
+        raise ValueError(f"fp32 layer_block needs D <= {MLP_F32_MAX_D}, "
+                         f"got {d}")
+    return mlp
+
+
+def layer_tail(ctx: torch.Tensor, x: torch.Tensor, wout, bout, ln2_scale,
+               ln2_bias, w1, b1, w2, b2, *,
+               eps: float = 1e-12) -> torch.Tensor:
+    """K18 alone on CUDA tensors: from the attention context ``ctx`` (M, D)
+    and the layer's input rows ``x`` (M, D), ``y = ctx @ wout + bout + x``
+    kept in fp32, then ``y + b2 + fc2(gelu(fc1(LN2 y)))``, cast once.
+    Counted as ``layer_block``."""
+    _build.check_tensor(x, "x", x)
+    if x.dim() != 2:
+        raise ValueError(f"x shape {tuple(x.shape)} is not (M, D)")
+    _build.check_tensor(ctx, "ctx", x, tuple(x.shape))
+    if x.dtype == torch.bfloat16 and ctx.data_ptr() % 16:
+        raise ValueError("ctx must be 16-byte aligned for the row loads")
+    mlp = _check_tail(x, wout, bout, ln2_scale, ln2_bias, w1, b1, w2, b2)
+    m, d = x.shape
+    if m == 0:
+        raise ValueError("layer_block of an empty tensor")
+    out = torch.empty_like(x)
+    _build.launch("vit_layer_block", ctx, x, wout, bout, ln2_scale, ln2_bias,
+                  w1, b1, w2, b2, out, m, d, mlp, float(eps), like=x)
+    count_launch("layer_block")
+    return out
+
+
+def layer_block(x: torch.Tensor, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
+                ln2_scale, ln2_bias, w1, b1, w2, b2, *, num_heads: int,
+                scale: float | None = None, seq_len: int | None = None,
+                eps: float = 1e-12) -> torch.Tensor:
+    """A full encoder layer on a CUDA tensor ``x`` (B, S, D), S already
+    padded, in four launches: :func:`_attn_ctx`'s three (K1, K2, the
+    attention core or K7), then K18 (:func:`layer_tail`), which runs the
+    out-projection and the MLP half with the activation between them in
+    fp32 on chip. Only K18 counts as ``layer_block``. Every operand is
+    checked before the first launch."""
+    dl = _check_attn(x, wqkv, num_heads)
+    d = x.shape[-1]
+    if dl != d:
+        raise ValueError(f"wqkv shape {tuple(wqkv.shape)} is not (D, 3D) "
+                         f"for D={d}")
+    for t, name, shape in ((ln1_scale, "ln1_scale", (d,)),
+                           (ln1_bias, "ln1_bias", (d,)),
+                           (wqkv, "wqkv", (d, 3 * d)),
+                           (bqkv, "bqkv", (3 * d,))):
+        _build.check_tensor(t, name, x, shape)
+    _check_tail(x, wout, bout, ln2_scale, ln2_bias, w1, b1, w2, b2)
+    xf, ctx = _attn_ctx(x, ln1_scale, ln1_bias, wqkv, bqkv,
+                        num_heads=num_heads, scale=scale, seq_len=seq_len,
+                        eps=eps)
+    return layer_tail(ctx, xf, wout, bout, ln2_scale, ln2_bias, w1, b1, w2,
+                      b2, eps=eps).reshape(x.shape)

@@ -56,7 +56,8 @@ _CUDA_MODULES = {
     "mlp_block_i8dot": "quant", "encoder_stack_q": "stack",
     "add": "elementwise", "softmax": "elementwise", "matmul3": "matmul3",
     "mlp_block_q": "quant", "attn_block_partial": "block",
-    "attn_block_q_partial": "quant",
+    "attn_block_q_partial": "quant", "layer_block": "block",
+    "patchify": "patching",
 }
 
 

@@ -13,6 +13,9 @@ tier, so that a kernel and its plain version agree to the sum order:
 - ``attention`` multiplies the unnormalised probabilities, rounded to the
   input dtype, by ``v`` and divides by the fp32 row sum afterwards
   (``vit_tpu/ops/pallas/block.py:685-691``);
+- ``layer_block`` keeps the sum between its halves in fp32: LN2 reads it
+  unrounded and the MLP accumulator starts at it plus ``b2``
+  (``block.py:1701-1720``);
 - ``mlp_block`` seeds its fp32 accumulator with ``x + b2``
   (``block.py:77-78``; with zero in the tensor-parallel ``partial_out``
   form) and rounds the GELU hidden to the input dtype before the second
@@ -281,14 +284,12 @@ def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
     return ctx.permute(0, 2, 1, 3).reshape(rows, d)
 
 
-def _attn_half(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
-               num_heads: int, scale: float | None, seq_len: int | None,
-               eps: float, residual: bool) -> torch.Tensor:
-    """Both attention halves for ``x`` (B, S, D), dl from ``wqkv``, with
-    every rounding point of ``vit_tpu/ops/pallas/block.py:_attn_core``: LN,
-    q/k/v and the concatenated context are rounded to the input dtype; the
-    output projection adds ``bout`` and, with ``residual``, ``x`` in fp32
-    before one cast."""
+def _attn_ctx(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, *,
+              num_heads: int, scale: float | None, seq_len: int | None,
+              eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(x (B*S, D), the (B*S, dl) context)`` for ``x`` (B, S, D), dl from
+    ``wqkv``, rounded as ``vit_tpu/ops/pallas/block.py:_attn_core`` rounds:
+    LN, q/k/v and the concatenated context in the input dtype."""
     b, s, d = x.shape
     dl = wqkv.shape[1] // 3
     if scale is None:
@@ -297,10 +298,20 @@ def _attn_half(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
         seq_len = s
     xf = x.reshape(b * s, d)
     qkv = matmul(layernorm(xf, ln_scale, ln_bias, eps=eps), wqkv, bqkv)
-    ctx = attention_core(qkv, batch=b, num_heads=num_heads, scale=scale,
-                         seq_len=seq_len)
+    return xf, attention_core(qkv, batch=b, num_heads=num_heads, scale=scale,
+                              seq_len=seq_len)
+
+
+def _attn_half(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
+               num_heads: int, scale: float | None, seq_len: int | None,
+               eps: float, residual: bool) -> torch.Tensor:
+    """Both attention halves for ``x`` (B, S, D): :func:`_attn_ctx`, then
+    the output projection adds ``bout`` and, with ``residual``, ``x`` in
+    fp32 before one cast."""
+    xf, ctx = _attn_ctx(x, ln_scale, ln_bias, wqkv, bqkv, num_heads=num_heads,
+                        scale=scale, seq_len=seq_len, eps=eps)
     return matmul(ctx, wout, bout,
-                  residual=xf if residual else None).reshape(b, s, d)
+                  residual=xf if residual else None).reshape(x.shape)
 
 
 def attn_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
@@ -330,6 +341,38 @@ def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
     the accumulator starts at zero and ``b2`` is ignored."""
     return _mlp_acc(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps,
                     partial_out=partial_out).to(x.dtype)
+
+
+def layer_block(x: torch.Tensor, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
+                ln2_scale, ln2_bias, w1, b1, w2, b2, *, num_heads: int,
+                scale: float | None = None, seq_len: int | None = None,
+                eps: float = 1e-12) -> torch.Tensor:
+    """A full encoder layer on ``x`` (B, S, D), ``y = x + proj(MHA(LN1 x))``
+    then ``y + fc2(gelu(fc1(LN2 y)))``, with the rounding of
+    ``vit_tpu/ops/pallas/block.py:_layer_kernel`` (:1701-1720): the
+    attention half rounds as :func:`attn_block` does up to the context, but
+    its sum ``y = ctx @ wout + bout + x`` stays fp32. LN2 reads it
+    unrounded (its output rounded to the dtype), the MLP accumulator starts
+    at ``y + b2`` and the result is cast once. The pair :func:`attn_block`
+    -> :func:`mlp_block` rounds ``y`` to the dtype in between."""
+    xf, ctx = _attn_ctx(x, ln1_scale, ln1_bias, wqkv, bqkv,
+                        num_heads=num_heads, scale=scale, seq_len=seq_len,
+                        eps=eps)
+    return layer_tail(ctx, xf, wout, bout, ln2_scale, ln2_bias, w1, b1, w2,
+                      b2, eps=eps).reshape(x.shape)
+
+
+def layer_tail(ctx: torch.Tensor, x: torch.Tensor, wout, bout, ln2_scale,
+               ln2_bias, w1, b1, w2, b2, *, eps: float = 1e-12) -> torch.Tensor:
+    """The rest of :func:`layer_block` from the attention context ``ctx``
+    (M, D) and the layer's input rows ``x`` (M, D): ``y = ctx @ wout + bout
+    + x`` in fp32, then ``y + b2 + fc2(gelu(fc1(LN2 y)))`` with LN2 rounded
+    to the dtype and one cast at the end. The plain version of K18
+    (``csrc/layer_block.cu``)."""
+    y32 = torch.matmul(_f32(ctx), _f32(wout)) + _f32(bout) + _f32(x)
+    h = matmul(layernorm(y32, ln2_scale, ln2_bias, eps=eps).to(x.dtype), w1,
+               b1, "gelu")
+    return (y32 + _f32(b2) + torch.matmul(_f32(h), _f32(w2))).to(x.dtype)
 
 
 def attn_block_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv, wout,

@@ -6,7 +6,10 @@ largest first; the tail is padded with zero images up to the smallest
 bucket that fits and the pad rows are sliced off the result. Padding is
 exact for ViT: images do not attend to each other. Each bucket runs the
 model's forward, so a server only ever runs the bucket shapes;
-``attention=`` picks its route (``vit_tpu/serving.py:52-74``). With
+``attention=`` picks its route (``vit_tpu/serving.py:52-74``), and
+``layer_block=True`` the full-layer kernel on the per-layer route (JAX's
+``VIT_TPU_LAYER_PLAN``; the float tier on one device or batch-parallel
+only). With
 ``quant=True`` the params are quantized once, at construction, and every
 bucket runs the int8 tier's ``forward_quant`` (``vit_tpu/serving.py:
 56-71``), with ``int8_dot=False`` on the weight-only MLP kernel. The
@@ -53,9 +56,14 @@ class Predictor:
                  buckets: Sequence[int] = DEFAULT_BUCKETS, *,
                  device: torch.device | str | None = None,
                  quant: bool = False, attention: str = "flash",
-                 int8_dot: bool = True, mesh: parallel.Mesh | None = None):
+                 int8_dot: bool = True, mesh: parallel.Mesh | None = None,
+                 layer_block: bool = False):
         if not buckets or any(b <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive, got {buckets!r}")
+        if layer_block and (quant or (mesh is not None and mesh.model > 1)):
+            raise ValueError("layer_block=True runs the float forward on one "
+                             "device or batch-parallel, not quant=True or "
+                             "a tensor-parallel mesh")
         self.cfg = cfg
         self.mesh = mesh
         if mesh is not None and device is not None and (
@@ -87,10 +95,12 @@ class Predictor:
             self._fwd = make_forward_quant(cfg, int8_dot=int8_dot)
         elif attention == "flash" and cfg.num_prefix_tokens == 1:
             # The fused route's base rows depend on the params only.
-            self._fwd = functools.partial(make_forward(cfg),
-                                          base=fold_base(self.params, cfg))
+            self._fwd = functools.partial(
+                make_forward(cfg, layer_block=layer_block),
+                base=fold_base(self.params, cfg))
         else:
-            self._fwd = make_forward(cfg, attention=attention)
+            self._fwd = make_forward(cfg, attention=attention,
+                                     layer_block=layer_block)
         if mesh is not None and mesh.data > 1:
             # Batch parallelism: each rank runs its rows of the bucket.
             local = self._fwd

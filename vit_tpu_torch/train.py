@@ -32,16 +32,18 @@ Optimizer = Callable[[list], torch.optim.Optimizer]
 
 def cross_entropy_loss(params: Params, pixels: torch.Tensor,
                        labels: torch.Tensor, cfg: ViTConfig, *,
-                       impl: str | None = None,
-                       attention: str = "flash") -> torch.Tensor:
+                       impl: str | None = None, attention: str = "flash",
+                       layer_block: bool = False) -> torch.Tensor:
     """Mean softmax cross-entropy over a batch of integer labels: the
     log-softmax of the logits in fp32, the mean negative log-likelihood.
     ``attention`` picks the forward's route, as in
-    ``vit_tpu/train.py:cross_entropy_loss``."""
+    ``vit_tpu/train.py:cross_entropy_loss``; ``layer_block=True`` its
+    full-layer kernel (JAX's ``VIT_TPU_LAYER_PLAN``)."""
     if not cfg.num_classes:
         raise ValueError("training needs a classification head "
                          "(num_classes > 0)")
-    logits = forward(params, pixels, cfg, impl=impl, attention=attention)
+    logits = forward(params, pixels, cfg, impl=impl, attention=attention,
+                     layer_block=layer_block)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, labels.long()[:, None]).mean()
 
@@ -60,7 +62,8 @@ def make_optimizer(learning_rate: float = 1e-4,
 def make_train_step(cfg: ViTConfig, optimizer: Optimizer | None = None, *,
                     impl: str | None = None, attention: str = "flash",
                     device: torch.device | str | None = None,
-                    mesh: parallel.Mesh | None = None):
+                    mesh: parallel.Mesh | None = None,
+                    layer_block: bool = False):
     """Returns ``(init_fn, step_fn)``.
 
     ``init_fn(params) -> opt_state``: the optimizer over the params'
@@ -70,7 +73,8 @@ def make_train_step(cfg: ViTConfig, optimizer: Optimizer | None = None, *,
     loss and its gradients and one optimizer step. It updates ``params``
     and ``opt_state`` in place and returns them, where JAX's step returns
     new ones; ``loss`` is the batch's loss before the step, detached.
-    ``attention`` picks the forward's route, as JAX's does.
+    ``attention`` and ``layer_block`` pick the forward's route, as JAX's
+    ``attention`` and ``VIT_TPU_LAYER_PLAN`` do.
 
     With ``mesh`` (``model == 1``; the device is ``mesh.device``) every
     rank of the mesh calls ``step_fn`` with the same whole batch, a
@@ -107,7 +111,8 @@ def make_train_step(cfg: ViTConfig, optimizer: Optimizer | None = None, *,
             labels = parallel.batch_shard(labels, mesh)
         loss = cross_entropy_loss(params, pixels.to(device),
                                   labels.to(device), cfg, impl=impl,
-                                  attention=attention)
+                                  attention=attention,
+                                  layer_block=layer_block)
         loss.backward()
         loss = loss.detach()
         if mesh is not None and mesh.data_group is not None:
