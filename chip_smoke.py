@@ -1133,7 +1133,7 @@ def kernel_cases_layer(torch, dtype):
         "minimal_matmul", "(256,384)@(384,512)",
         lambda impl: minimal_matmul.matmul(x, w, impl=impl),
         ((256 * 384 + 384 * 512 + 256 * 512) * e, 2 * 256 * 384 * 512,
-         "fp32"), library=lambda: torch.matmul(x, w)))
+         kind), library=lambda: torch.matmul(x, w)))
     return cases
 
 
@@ -1989,8 +1989,10 @@ def layer_phase(torch, main_counts: dict) -> dict:
     """Phase 15: the full-layer route (``layer_block=True``: K1, K2, the
     attention core and K18 a layer, the activation between the halves in
     fp32) and the standalone kernels, each through the entry point a user
-    calls, with exact launch counts: the golden fp32 B/16 bs=2; B/16 bf16
-    bs=32 at full depth against ``impl="torch"`` and the default route, in
+    calls, with exact launch counts: the golden fp32 B/16 bs=2; K18's
+    rounding point (bf16, the CPU pin's seed-5 inputs: the K18 route within
+    the kernel mean bar of the plain layer, the y-rounding pair outside
+    it); B/16 bf16 bs=32 at full depth against ``impl="torch"`` and the default route, in
     turns with its times and idle share, and one layer's ``layer_block``
     against K4 + K3 on the same inputs; ``Predictor(layer_block=True)`` on
     buckets (1, 8, 32) (bs=1 stays on the stack route); L/16 bf16 bs=8 at
@@ -2048,6 +2050,37 @@ def layer_phase(torch, main_counts: dict) -> dict:
                              f"{GOLDEN_BAR}")
     res["golden_max_abs_diff"] = gdiff
     del params32
+
+    # K18's rounding point, at the CPU pin's inputs (tests/test_block.py's
+    # _layer_inputs, seed 5, seq_len 27, bf16): over the real rows the kernel
+    # route is within the mean bar of the plain layer_block, and the plain
+    # pair attn_block -> mlp_block, which rounds y between the halves, is
+    # not.
+    rng = np.random.default_rng(5)
+    b, s, d, mlp, seq_len = 2, 32, 256, 512, 27
+    arr = lambda *sh, sc=0.1: (  # noqa: E731
+        rng.standard_normal(sh) * sc).astype(np.float32)
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    x[:, seq_len:] = 0
+    args = [torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (
+        x, arr(d, sc=0.5) + 1, arr(d), arr(d, 3 * d), arr(3 * d),
+        arr(d, d), arr(d), arr(d, sc=0.5) + 1, arr(d), arr(d, mlp),
+        arr(mlp), arr(mlp, d), arr(d))]
+    kw = dict(num_heads=4, seq_len=seq_len)
+    want = ops.reference.layer_block(*args, **kw)[:, :seq_len].float()
+    got = ops.layer_block(*args, **kw, impl="cuda")[:, :seq_len].float()
+    pair = ops.reference.mlp_block(ops.reference.attn_block(
+        *args[:7], **kw), *args[7:])[:, :seq_len].float()
+    d_got = float((got - want).abs().mean())
+    d_pair = float((pair - want).abs().mean())
+    log(f"[layer] rounding point, bf16 seed 5: mean|diff| vs the plain "
+        f"layer_block: K18 route {d_got:.3e}, rounded pair {d_pair:.3e} "
+        f"(bar {BF16_MEAN_BAR})")
+    if not d_got <= BF16_MEAN_BAR < d_pair:
+        raise AssertionError(f"layer_block rounding point: K18 route "
+                             f"{d_got}, pair {d_pair}")
+    res["rounding_point_mean_abs_diff"] = {"k18_route": d_got,
+                                           "rounded_pair": d_pair}
 
     # B/16 bf16 bs=32, full depth: against impl="torch" and the default
     # route; times in turns (default, layer, layer, default).

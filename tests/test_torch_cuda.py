@@ -952,6 +952,40 @@ def test_torch_cuda_layer_block(gen, dtype, b, s, seq_len, d, heads, mlp):
         got, ops.layer_block(*args, **kw, impl="torch"))
 
 
+def test_torch_cuda_layer_block_keeps_y_in_fp32(gen):
+    """K18's rounding point, at the CPU pin's inputs
+    (``tests/test_torch_layer.py:test_torch_layer_block_keeps_y_in_fp32``:
+    ``tests/test_block.py:_layer_inputs`` at seed 5, seq_len 27, bf16).
+    Over the real rows the kernel route sits within the mean bar of the
+    plain ``layer_block``, and the plain pair ``attn_block`` ->
+    ``mlp_block``, which rounds y to bf16 between the halves, sits outside
+    it. A K18 that rounded y before LN2 or the accumulator seed would land
+    with the pair."""
+    import numpy as np
+
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops import reference
+
+    rng = np.random.default_rng(5)
+    b, s, d, mlp, seq_len = 2, 32, 256, 512, 27
+    arr = lambda *sh, sc=0.1: (  # noqa: E731
+        rng.standard_normal(sh) * sc).astype(np.float32)
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    x[:, seq_len:] = 0
+    args = [torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (
+        x, arr(d, sc=0.5) + 1, arr(d), arr(d, 3 * d), arr(3 * d),
+        arr(d, d), arr(d), arr(d, sc=0.5) + 1, arr(d), arr(d, mlp),
+        arr(mlp), arr(mlp, d), arr(d))]
+    kw = dict(num_heads=4, seq_len=seq_len)
+    want = reference.layer_block(*args, **kw)[:, :seq_len].float()
+    got = ops.layer_block(*args, **kw, impl="cuda")[:, :seq_len].float()
+    pair = reference.mlp_block(reference.attn_block(*args[:7], **kw),
+                               *args[7:])[:, :seq_len].float()
+    d_got = (got - want).abs().mean().item()
+    d_pair = (pair - want).abs().mean().item()
+    assert d_got <= 3e-3 < d_pair, (d_got, d_pair)
+
+
 def test_torch_cuda_layer_block_checks_inputs(gen):
     """Shapes K18 does not take raise before any launch."""
     from vit_tpu_torch import ops

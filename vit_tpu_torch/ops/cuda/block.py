@@ -52,6 +52,38 @@ MLP_BF16_MAX_D = 1024
 MLP_F32_MAX_D = 1536
 
 
+def _check_mlp(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,
+               what: str, ln: str = "ln") -> int:
+    """Check the MLP half's operands for the rows ``x`` (..., D) against
+    K3's limits (``what`` names the caller in the errors, ``ln`` its norm's
+    weights); return mlp."""
+    d = x.shape[-1]
+    if w1.dim() != 2 or w1.shape[0] != d:
+        raise ValueError(f"w1 shape {tuple(w1.shape)} does not take D={d}")
+    mlp = w1.shape[1]
+    for t, name, shape in ((ln_scale, f"{ln}_scale", (d,)),
+                           (ln_bias, f"{ln}_bias", (d,)), (w1, "w1", (d, mlp)),
+                           (b1, "b1", (mlp,)), (w2, "w2", (mlp, d)),
+                           (b2, "b2", (d,))):
+        _build.check_tensor(t, name, x, shape)
+    if x.dtype == torch.bfloat16:
+        if d % 128 or mlp % 128 or d > MLP_BF16_MAX_D:
+            raise ValueError(f"bf16 {what} needs D and mlp multiples of 128 "
+                             f"and D <= {MLP_BF16_MAX_D}; got D={d}, "
+                             f"mlp={mlp}")
+        _check_aligned(w1, "w1")
+        _check_aligned(w2, "w2")
+    elif d > MLP_F32_MAX_D:
+        raise ValueError(f"fp32 {what} needs D <= {MLP_F32_MAX_D}, got {d}")
+    return mlp
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 32:
+        raise ValueError(f"{name} must be 32-byte aligned for the tensor-core "
+                         "loads")
+
+
 def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
               eps: float = 1e-12, partial_out: bool = False) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))`` on CUDA tensors in one kernel.
@@ -60,26 +92,8 @@ def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
     accumulator seeded with zero, ``b2`` not read; it counts as
     ``mlp_block_partial``."""
     _build.check_tensor(x, "x", x)
+    mlp = _check_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, "mlp_block")
     d = x.shape[-1]
-    if w1.dim() != 2 or w1.shape[0] != d:
-        raise ValueError(f"w1 shape {tuple(w1.shape)} does not take D={d}")
-    mlp = w1.shape[1]
-    for t, name, shape in ((ln_scale, "ln_scale", (d,)),
-                           (ln_bias, "ln_bias", (d,)), (w1, "w1", (d, mlp)),
-                           (b1, "b1", (mlp,)), (w2, "w2", (mlp, d)),
-                           (b2, "b2", (d,))):
-        _build.check_tensor(t, name, x, shape)
-    if x.dtype == torch.bfloat16:
-        if d % 128 or mlp % 128 or d > MLP_BF16_MAX_D:
-            raise ValueError(f"bf16 mlp_block needs D and mlp multiples of "
-                             f"128 and D <= {MLP_BF16_MAX_D}; got D={d}, "
-                             f"mlp={mlp}")
-        for t, name in ((w1, "w1"), (w2, "w2")):
-            if t.data_ptr() % 32:
-                raise ValueError(f"{name} must be 32-byte aligned for the "
-                                 "tensor-core loads")
-    elif d > MLP_F32_MAX_D:
-        raise ValueError(f"fp32 mlp_block needs D <= {MLP_F32_MAX_D}, got {d}")
     m = x.numel() // d
     if m == 0:
         raise ValueError(f"mlp_block of an empty tensor {tuple(x.shape)}")
@@ -210,30 +224,15 @@ def _check_tail(x: torch.Tensor, wout, bout, ln2_scale, ln2_bias, w1, b1,
                 w2, b2) -> int:
     """Check K18's operands for the input rows ``x`` (..., D); return
     mlp."""
-    d = x.shape[-1]
     # K18's width limits are K3's: its bf16 fragments are K3's, and in fp32
     # its ctx, y and chunk rows fill 208 KB of shared memory at D=1536.
-    if w1.dim() != 2 or w1.shape[0] != d:
-        raise ValueError(f"w1 shape {tuple(w1.shape)} does not take D={d}")
-    mlp = w1.shape[1]
-    for t, name, shape in (
-            (wout, "wout", (d, d)), (bout, "bout", (d,)),
-            (ln2_scale, "ln2_scale", (d,)), (ln2_bias, "ln2_bias", (d,)),
-            (w1, "w1", (d, mlp)), (b1, "b1", (mlp,)), (w2, "w2", (mlp, d)),
-            (b2, "b2", (d,))):
-        _build.check_tensor(t, name, x, shape)
+    mlp = _check_mlp(x, ln2_scale, ln2_bias, w1, b1, w2, b2, "layer_block",
+                     ln="ln2")
+    d = x.shape[-1]
+    _build.check_tensor(wout, "wout", x, (d, d))
+    _build.check_tensor(bout, "bout", x, (d,))
     if x.dtype == torch.bfloat16:
-        if d % 128 or mlp % 128 or d > MLP_BF16_MAX_D:
-            raise ValueError(f"bf16 layer_block needs D and mlp multiples of "
-                             f"128 and D <= {MLP_BF16_MAX_D}; got D={d}, "
-                             f"mlp={mlp}")
-        for t, name in ((wout, "wout"), (w1, "w1"), (w2, "w2")):
-            if t.data_ptr() % 32:
-                raise ValueError(f"{name} must be 32-byte aligned for the "
-                                 "tensor-core loads")
-    elif d > MLP_F32_MAX_D:
-        raise ValueError(f"fp32 layer_block needs D <= {MLP_F32_MAX_D}, "
-                         f"got {d}")
+        _check_aligned(wout, "wout")
     return mlp
 
 
