@@ -112,7 +112,19 @@ without printing the final ``ok`` line:
     bf16 bs=8 at 4 layers; one B/16 bf16 bs=32 train step; K20's printed
     lines at grids (2,) and (3, 4), captured from the process's standard
     output; ``ops.patchify`` and the minimal matmul example's ``main``.
-    Exact launch counts throughout.
+    Exact launch counts throughout;
+16. the probes (``probe_phase``; ``vit_tpu_torch/tools/``): K22
+    ``dot_probe``, K23 ``attn_core_probe`` and K24 ``encstack_probe`` are
+    checked in phase 3 and timed in phase 11 (``kernel_cases_probes``: K22
+    int8 bit for bit and bf16 at (1664, 768) @ (768, 3072); K23's ``full``
+    core and the block in every mode at B/16 bs=32, bf16 and the fp32 modes
+    that fit; K24's ``dma`` over 12 B/16 layers at bs=1, the other variants
+    cut to 2 layers). Here, through the probes' entry points with exact
+    launch counts: the int8 probe's ``run``; the attention block in every
+    mode at B/16 bs=32 bf16 against its plain version, then each mode's
+    event ms and the core launch's device ms; every encoder variant at the
+    JAX probe's four cases (2 layers) against its plain version, then each
+    timed at 12 layers for b = 1, 2, 3.
 
 The last three lines of standard output are the kernels JSON line (each
 kernel's launches on the main paths, error vs the plain version, kernel,
@@ -236,6 +248,14 @@ KERNEL_SOURCES = {
     "print_if": ("vit_tpu_torch/csrc/debug.cu", "tests/test_ops_pallas.py:248"),
     "minimal_matmul": ("vit_tpu_torch/csrc/minimal_matmul.cu",
                        "examples/minimal_pallas_matmul.py:50"),
+    # The probes' kernels (phase 16). K23 also replaces _probe_t's two
+    # pallas_calls (tools/attn_core_probe.py:432, :447): tcore and xcore.
+    "dot_probe": ("vit_tpu_torch/csrc/dot_probe.cu",
+                  "tools/int8_probe.py:43"),
+    "attn_core_probe": ("vit_tpu_torch/csrc/attn_core_probe.cu",
+                        "tools/attn_core_probe.py:389"),
+    "encstack_probe": ("vit_tpu_torch/csrc/encstack_probe.cu",
+                       "tools/encstack_minrepro.py:216"),
 }
 #: Kernels that run a whole encoder: held to the model bars.
 WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused", "encoder_stack_q")
@@ -1961,6 +1981,302 @@ def layer_route_counts(layers: int, *, head: bool = True,
     return out
 
 
+#: Phase 16's attention geometry: B/16 at bs=32 (the JAX probe's default),
+#: and its encoder geometry: B/16 with the JAX probe's cases; the checks
+#: run the encoder cut to PROBE_CHECK_LAYERS layers (the stripped variants
+#: compound over layers, nosm to inf by the twelfth), the timings at 12.
+PROBE_ATTN = dict(batch=32, sp=208, seq_len=197, d=768, heads=12, group=4)
+PROBE_CHECK_LAYERS = 2
+
+
+def compare_norm(torch, got, want, dtype) -> dict:
+    """A probe's output held in relative norm: 1e-5 in fp32 (sum orders)
+    and 2e-2 in bf16 (the whole-encoder bar of ``compare_rel``). K24's
+    variants, and K9 as ``full``, are whole encoders on the probe's
+    weights (N(0, 0.05), unit LN, zero biases), whose residual stream
+    grows (|x| up to 19 after two layers): one bf16 ulp at that scale is
+    past the elementwise model bar at the stream's small elements (and
+    lnqkv's QKV rounds its LN output to bf16 where the JAX kernel does
+    not). K23's modes whose context is not divided by the row sum
+    (``attn_core_probe.UNNORMALIZED``) give outputs up to ~200 times the
+    normalised block's, and an fp32 sum-order difference that flips a
+    bf16 rounding of that context moves them by more than the elementwise
+    bar."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        raise AssertionError("shape or non-finite values")
+    diff = (g - w).abs()
+    res = {"max_abs_err": float(diff.max()),
+           "mean_abs_err": float(diff.mean()),
+           "rel": float((g - w).norm() / w.norm())}
+    if not res["rel"] <= (1e-5 if dtype == torch.float32 else 2e-2):
+        raise AssertionError(f"outside the relative bar: {res}")
+    return res
+
+
+def probe_check(mode: str, step: float):
+    """The bar of K23's block in ``mode``."""
+    from vit_tpu_torch.tools import attn_core_probe as acp
+    if mode == "qcore":
+        return compare_qcore(step)
+    return compare_norm if mode in acp.UNNORMALIZED else compare
+
+
+def compare_qcore(step: float):
+    """qcore's block against its plain version: the kernel bars plus one
+    int8 step of its codes (``attn_core_probe.qcore_step``), where a code
+    at a .5 boundary rounds the other way in another sum order."""
+    def check(torch, got, want, dtype):
+        g, w = got.float(), want.float()
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError("shape or non-finite values")
+        diff = (g - w).abs()
+        res = {"max_abs_err": float(diff.max()),
+               "mean_abs_err": float(diff.mean()), "step": step}
+        if dtype == torch.float32:
+            ok = res["max_abs_err"] <= FP32_BAR + step
+        else:
+            ok = (bool((diff <= BF16_REL_BAR * (1 + w.abs()) + step).all())
+                  and res["mean_abs_err"] <= BF16_MEAN_BAR)
+        if not ok:
+            raise AssertionError(f"qcore outside its bar: {res}")
+        return res
+    return check
+
+
+def kernel_cases_probes(torch, dtype):
+    """The probes' kernels alone. K22 ``dot_probe`` at the int8 probe's
+    (1664, 768) @ (768, 3072): int8 bit for bit against the plain version
+    (the case the kernels line reports; yardstick ``torch._int_mm``), bf16
+    and fp32 to fp32 (yardstick ``torch.matmul``, which returns the input
+    type). K23: the ``full`` core alone on B/16 bs=32's packed QKV (the case
+    the kernels line reports: K4's core in K23's source; yardstick SDPA),
+    then the whole block in every mode in bf16 and in every mode that fits
+    in fp32 (not wide). K24: ``dma`` over B/16's 12 layers at bs=1 (the
+    case the kernels line reports: the weight stream, x back bit for bit),
+    each other variant at bs=1 cut to PROBE_CHECK_LAYERS layers."""
+    from vit_tpu_torch.ops import reference
+    from vit_tpu_torch.tools import attn_core_probe as acp
+    from vit_tpu_torch.tools import encstack_minrepro as em
+    from vit_tpu_torch.tools import int8_probe
+
+    rnd = _rnd_fn(torch, dtype, 16)
+    e, kind = dtype.itemsize, _kind(torch, dtype)
+    cases = []
+    m, k, n = int8_probe.TIMED_SHAPE
+    if dtype == torch.bfloat16:
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        cases.append(case(
+            "dot_probe", f"int8 ({m},{k})@({k},{n}) -> int32",
+            lambda impl: int8_probe.dot(xq, wq, impl=impl),
+            ((m * k + k * n) + 4 * m * n, 2 * m * k * n, "int8"),
+            library=lambda: torch._int_mm(xq, wq), check=compare_exact))
+    xf, wf = rnd(m, k), rnd(k, n, std=0.05)
+    cases.append(case(
+        "dot_probe", f"{dtype} ({m},{k})@({k},{n}) -> fp32",
+        lambda impl: int8_probe.dot(xf, wf, impl=impl),
+        ((m * k + k * n) * e + 4 * m * n, 2 * m * k * n, kind),
+        library=lambda: torch.matmul(xf, wf), primary=False))
+
+    a = PROBE_ATTN
+    b, sp, s, d, heads = a["batch"], a["sp"], a["seq_len"], a["d"], a["heads"]
+    bm, hd = b * sp, d // heads
+    qkv = rnd(bm, 3 * d)
+    q, kk, v = qkv.view(b, sp, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    att_ops = attention_ops(b, heads, sp, s, hd)
+
+    def core_full(impl):
+        if impl == "torch":
+            return reference.attention_core(qkv, batch=b, num_heads=heads,
+                                            scale=hd ** -0.5, seq_len=s)
+        out = torch.empty((bm, d), dtype=dtype, device="cuda")
+        return acp.core_launch("full", qkv, None, out, b=b, sp=sp, d=d,
+                         heads=heads, seq_len=s, scale=hd ** -0.5)
+    cases.append(case(
+        "attn_core_probe", f"core full, qkv ({bm},{3 * d}) heads {heads} "
+        f"seq_len {s}", core_full, (4 * bm * d * e, att_ops, kind),
+        library=lambda: _sdpa(torch, q, kk, v, hd ** -0.5, s)))
+    x, *w = acp.make_inputs(b, sp, d, s, dtype, "cuda", seed=16)
+    wt = (w[2].t().contiguous(), w[4].t().contiguous())
+    xt = x.reshape(bm, d).t().contiguous()
+    step = acp.qcore_step(x, *w[:5], num_heads=heads)
+    block_work = ((2 * bm * d + 4 * d * d + 6 * d) * e,
+                  2 * bm * d * 4 * d + att_ops, kind)
+    for mode in acp.MODES:
+        if dtype == torch.float32 and mode == "wide":
+            continue  # a wide fp32 core tile does not fit at 208 tokens
+        xin = xt if mode == "xcore" else x
+        cases.append(case(
+            "attn_core_probe", f"block {mode} ({b},{sp},{d})",
+            lambda impl, mode=mode, xin=xin: acp.probe(
+                mode, xin, *w, num_heads=heads, seq_len=s, group=a["group"],
+                shape=(b, sp, d), weights_t=wt, impl=impl),
+            block_work, primary=False, check=probe_check(mode, step)))
+
+    d, mlp, sp = 768, 3072, 208
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for variant in em.VARIANTS:
+        layers = 12 if variant == "dma" else PROBE_CHECK_LAYERS
+        x = (torch.randn((sp, d), generator=gen, device="cuda") * 0.05).to(
+            dtype)
+        ws = [(torch.randn(sh, generator=gen, device="cuda") * 0.05).to(dtype)
+              for sh in ((layers, d, 3 * d), (layers, d, d),
+                         (layers, d, mlp), (layers, mlp, d))]
+        fn = em.make_variant
+        kw = dict(b=1, sp=sp, d=d, mlp=mlp, L=layers, cq=768, mt=512,
+                  dtype=dtype)
+        if variant == "dma":
+            nw = layers * (4 * d * d + 2 * d * mlp)
+            work = (nw * e + 2 * sp * d * e, nw, "fp32")
+        else:
+            work = _stack_work(1, sp, sp, d, mlp, 12, layers, e, kind)
+        cases.append(case(
+            "encstack_probe", f"{variant} B/16 bs=1, {layers} layers",
+            lambda impl, v=variant, kw=kw, x=x, ws=ws: fn(
+                v, impl=impl, **kw)(x, *ws), work,
+            primary=variant == "dma",
+            check=compare_exact if variant == "dma" else compare_norm))
+    return cases
+
+
+def probe_phase(torch, main_counts: dict) -> dict:
+    """Phase 16: the three probes through their entry points
+    (``vit_tpu_torch/tools/``), each with exact launch counts: the int8
+    probe's ``run`` (K22 on the 128 x 128 int8 dot, bit for bit, K12 at
+    d=128, mlp=512, the int8 and bf16 dots timed); the attention block in
+    every mode at B/16 bs=32 bf16, each held to its plain version, then
+    timed (event ms, nominal-FLOP rate, the core launch's and the block's
+    device ms; three rounds over the modes in turn, medians); K4's core
+    against K23's ``full`` core, bit for bit and in turns; every variant
+    of the encoder probe at the JAX probe's four cases (b = 2, 2, 3, 1;
+    (cq, mt) change no launch), cut to PROBE_CHECK_LAYERS layers and held
+    to its plain version (``dma`` bit for bit), then each timed at 12
+    layers for b = 1, 2, 3 (three rounds; ``@flat`` is the same launch and
+    is not timed twice)."""
+    from vit_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                        reset_launch_counts)
+    from vit_tpu_torch.tools import attn_core_probe as acp
+    from vit_tpu_torch.tools import encstack_minrepro as em
+    from vit_tpu_torch.tools import int8_probe
+
+    zero = dict.fromkeys(KERNELS, 0)
+    res = {}
+
+    def counted(tag, fn, expect):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        main_counts[tag] = counts = launch_counts()
+        check_counts(tag, counts, expect_counts(zero, expect))
+        return out
+
+    warmup, reps = 2, 10
+    got = counted("int8 probe", lambda: int8_probe.run(
+        "cuda", warmup=warmup, reps=reps),
+        {"dot_probe": 2 + 2 * (warmup + reps), "mlp_block_i8dot": 1})
+    if not (got["int8_dot"] and got["mlp_block_i8dot"]):
+        raise AssertionError(f"int8 probe: {got}")
+    res["int8_probe"] = got
+    log(f"[probes] int8 probe: {got}")
+
+    a = PROBE_ATTN
+    b, sp, s, d, heads = a["batch"], a["sp"], a["seq_len"], a["d"], a["heads"]
+    x, *w = acp.make_inputs(b, sp, d, s, torch.bfloat16, "cuda")
+    wt = (w[2].t().contiguous(), w[4].t().contiguous())
+    xt = x.reshape(b * sp, d).t().contiguous()
+    kw = dict(num_heads=heads, seq_len=s, group=a["group"], shape=(b, sp, d))
+    step = acp.qcore_step(x, *w[:5], num_heads=heads)
+    outs = counted(
+        "attention probe B/16 bs=32 bf16, every mode",
+        lambda: {m: acp.probe(m, xt if m == "xcore" else x, *w,
+                              weights_t=wt, **kw) for m in acp.MODES},
+        add_counts(*(expect_counts(zero, acp.launches(m))
+                     for m in acp.MODES)))
+    errs = {}
+    for mode, out in outs.items():
+        want = acp.probe_plain(mode, xt if mode == "xcore" else x, *w, **kw)
+        errs[mode] = probe_check(mode, step)(
+            torch, out, want, torch.bfloat16)["max_abs_err"]
+    del outs
+    log(f"[probes] attention block vs plain, bf16 B/16 bs=32, max|diff| by "
+        f"mode: {errs}")
+    timed = acp.run(tuple(acp.MODES), dtype=torch.bfloat16, warmup=3,
+                    reps=20, rounds=3, **a)
+    res["attention_modes_bf16_b16_bs32"] = timed["modes"]
+    # K23's full core against K4's on the same packed QKV, in turns (K4,
+    # K23, K23, K4), device ms: on the probe's (its K2 output) and on
+    # N(0, 1) values.
+    from vit_tpu_torch.ops import reference
+    from vit_tpu_torch.ops.cuda import block as cuda_block
+    xn = reference.layernorm(x.reshape(b * sp, d), w[0], w[1])
+    qkvs = {"probe": reference.matmul(xn, w[2], w[3]),
+            "normal": torch.randn((b * sp, 3 * d), generator=torch.Generator(
+                device="cuda").manual_seed(19), device="cuda").to(
+                    torch.bfloat16)}
+    turns = {}
+    for tag, qkv in qkvs.items():
+        out = torch.empty((b * sp, d), dtype=torch.bfloat16, device="cuda")
+        core = dict(batch=b, num_heads=heads, scale=(d // heads) ** -0.5,
+                    seq_len=s)
+        runs = {"k4": lambda: cuda_block.attention_core(qkv, **core),
+                "k23": lambda: acp.core_launch(
+                    "full", qkv, None, out, b=b, sp=sp, d=d, heads=heads,
+                    seq_len=s, scale=core["scale"])}
+        if not torch.equal(runs["k4"](), runs["k23"]()):
+            raise AssertionError(f"K23 full core != K4's core on {tag}")
+        turns[tag] = [(k, device_ms(torch, runs[k])[0])
+                      for k in ("k4", "k23", "k23", "k4")]
+    res["core_k4_vs_k23_device_ms"] = turns
+    log(f"[probes] K4 core vs K23 full core, device ms in turns: {turns}")
+
+    cases = [tuple(map(int, c.split(","))) for c in em.DEFAULT_CASES]
+    variants = em.VARIANTS + ("full",)
+    d, mlp = 768, 3072
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    def stack_inputs(b, layers):
+        x = (torch.randn((b * sp, d), generator=gen, device="cuda")
+             * 0.05).to(torch.bfloat16)
+        return x, [(torch.randn(sh, generator=gen, device="cuda") * 0.05).to(
+            torch.bfloat16) for sh in ((layers, d, 3 * d), (layers, d, d),
+                                       (layers, d, mlp), (layers, mlp, d))]
+    inputs = {c: stack_inputs(c[0], PROBE_CHECK_LAYERS) for c in cases}
+
+    def run_variants():
+        return {(c, v): em.make_variant(
+            v + ("" if v == "full" else "@flat"), b=c[0], sp=sp, d=d,
+            mlp=mlp, L=PROBE_CHECK_LAYERS, cq=c[1], mt=c[2],
+            dtype=torch.bfloat16)(inputs[c][0], *inputs[c][1])
+            for c in cases for v in variants}
+    outs = counted("encoder probe B/16 bf16, every variant and case",
+                   run_variants,
+                   {"encstack_probe": len(cases) * len(em.VARIANTS),
+                    "encoder_stack": len(cases)})
+    rels = {}
+    for (c, v), out in outs.items():
+        x, ws = inputs[c]
+        if v == "dma":
+            compare_exact(torch, out, x, torch.bfloat16)
+            continue
+        want = (em.full_encoder(x, *ws, b=c[0], sp=sp, heads=12,
+                                impl="torch") if v == "full"
+                else em.variant_plain(v, x, *ws, b=c[0], sp=sp, heads=12))
+        rels[f"{c} {v}"] = compare_norm(
+            torch, out, want, torch.bfloat16)["max_abs_err"]
+    del outs, inputs
+    log(f"[probes] encoder probe vs plain, bf16 B/16 at "
+        f"{PROBE_CHECK_LAYERS} layers, max|diff|: {rels}")
+    res["encoder_variants_bf16_b16"] = em.run(
+        [f"{b},768,768" for b in (1, 2, 3)], variants, sp=sp, d=d, mlp=mlp,
+        heads=12, L=12, dtype=torch.bfloat16, reps=10, rounds=3)["rows"]
+    return res
+
+
 def capture_stdout(torch, fn):
     """``fn()``, then synchronise, and what the process wrote to its
     standard output meanwhile (file descriptor 1: the device's printf lands
@@ -2297,7 +2613,8 @@ def main() -> int:
     for cases in (kernel_cases, kernel_cases_l16_384,
                   kernel_cases_small_batch, kernel_cases_int8,
                   kernel_cases_stack_q, kernel_cases_train,
-                  kernel_cases_chain, kernel_cases_tp, kernel_cases_layer):
+                  kernel_cases_chain, kernel_cases_tp, kernel_cases_layer,
+                  kernel_cases_probes):
         for dtype in (torch.float32, torch.bfloat16):
             for c in cases(torch, dtype):
                 got = c["run"]("cuda")
@@ -2716,6 +3033,8 @@ def main() -> int:
     e2e["tensor_parallel"] = tp_phase(torch, main_counts)
     # -- 15. the full-layer route and the standalone kernels ---------------
     e2e["layer_route"] = layer_phase(torch, main_counts)
+    # -- 16. the probes ------------------------------------------------------
+    e2e["probes"] = probe_phase(torch, main_counts)
     log(json.dumps({"timings": timings, "end_to_end": e2e, "card": smi,
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
 

@@ -1112,3 +1112,144 @@ def test_torch_cuda_minimal_matmul(gen, dtype, m, k, n):
     with pytest.raises(ValueError, match="multiple of 128"):
         minimal_matmul.matmul(x[:, :100].contiguous(), w[:100])
     assert minimal_matmul.main([]) == 0
+
+
+# ---------------------------------------------------------------- probes --
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (37, 200, 72),
+                                   (1664, 768, 3072)])
+def test_torch_cuda_dot_probe(gen, dtype, m, k, n):
+    """K22: int8 sums exact (bit for bit); bf16 and fp32 in fp32."""
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.tools import int8_probe
+
+    if dtype == torch.int8:
+        x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    else:
+        x, w = _rnd(gen, dtype, m, k), _rnd(gen, dtype, k, n, std=0.05)
+    reset_launch_counts()
+    got = int8_probe.dot(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(dot_probe=1)
+    want = int8_probe.dot_plain(x, w)
+    if dtype == torch.int8:
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_torch_cuda_int8_probe_main(gen):
+    from vit_tpu_torch.tools import int8_probe
+    assert int8_probe.main(["--warmup", "1", "--reps", "3"]) == 0
+
+
+def _probe_bar(got, want, dtype, step=0.0):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    diff = (g - w).abs()
+    if dtype == torch.float32:
+        assert diff.max() <= 1e-4 + step, diff.max()
+    else:
+        assert (diff <= 2e-2 * (1 + w.abs()) + step).all(), diff.max()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", [
+    "full", "maskonly", "nosm", "mxu", "divonly", "recip", "sumonly",
+    "bf16div", "alldiv", "mxudiv", "addmask", "vsum", "qcore", "wide", "kt",
+    "projonly", "tcore", "xcore"])
+def test_torch_cuda_attn_core_probe(gen, dtype, mode):
+    """K23 in every mode at a ragged geometry (B=3, 40 tokens of which 33
+    real, D=128, 4 heads of 32; wide pairs them to 64) against the plain
+    version, with the mode's exact launches. qcore: within one int8 step
+    of its codes (``attn_core_probe.qcore_step``)."""
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.tools import attn_core_probe as acp
+
+    b, sp, seq, d, heads = 3, 40, 33, 128, 4
+    x, *w = acp.make_inputs(b, sp, d, seq, dtype, "cuda", seed=3)
+    if mode == "xcore":
+        x = x.reshape(b * sp, d).t().contiguous()
+    kw = dict(num_heads=heads, seq_len=seq, group=3, shape=(b, sp, d))
+    reset_launch_counts()
+    got = acp.probe(mode, x, *w, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(**acp.launches(mode))
+    step = 0.0
+    if mode == "qcore":
+        step = acp.qcore_step(x, *w[:5], num_heads=heads)
+    _probe_bar(got, acp.probe_plain(mode, x, *w, **kw), dtype, step)
+
+
+def test_torch_cuda_attn_core_probe_refuses_fp32_wide_at_208(gen):
+    from vit_tpu_torch.tools import attn_core_probe as acp
+
+    x, *w = acp.make_inputs(1, 208, 768, 197, torch.float32, "cuda")
+    with pytest.raises(ValueError, match="shared"):
+        acp.probe("wide", x, *w, num_heads=12, seq_len=197)
+
+
+def test_torch_cuda_attn_core_probe_main(gen):
+    from vit_tpu_torch.tools import attn_core_probe as acp
+    assert acp.main(["--batch", "4", "--group", "2", "--modes", "full",
+                     "xcore", "projonly", "--warmup", "1", "--reps", "2"]) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", ["dma", "scratch", "rows", "nodots",
+                                     "lnqkv", "nosm", "core"])
+def test_torch_cuda_encstack_probe(gen, dtype, variant):
+    """K24 in every variant at b=3, 24 tokens, D=128, MLP 256, 2 layers,
+    against the plain version: ``dma`` returns x bit for bit; the others
+    within the whole-encoder bars (fp32 relative 1e-5, bf16 relative
+    2e-2: lnqkv's QKV rounds the LN output to bf16 where JAX's does not)."""
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.tools import encstack_minrepro as em
+
+    b, sp, d, mlp, L = 3, 24, 128, 256, 2
+    x = _rnd(gen, dtype, b * sp, d, std=0.05)
+    ws = [_rnd(gen, dtype, *s, std=0.05) for s in
+          ((L, d, 3 * d), (L, d, d), (L, d, mlp), (L, mlp, d))]
+    fn = em.make_variant(variant + "@flat", b=b, sp=sp, d=d, mlp=mlp, L=L,
+                         cq=128, mt=128, dtype=dtype, heads=4)
+    reset_launch_counts()
+    got = fn(x, *ws)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(encstack_probe=1)
+    if variant == "dma":
+        assert torch.equal(got, x)
+        return
+    want = em.variant_plain(variant, x, *ws, b=b, sp=sp, heads=4)
+    assert torch.isfinite(got.float()).all()
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel <= (1e-5 if dtype == torch.float32 else 2e-2), rel
+
+
+def test_torch_cuda_encstack_probe_full_is_k9(gen):
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.tools import encstack_minrepro as em
+
+    b, sp, d, mlp, L = 2, 32, 128, 256, 2
+    x = _rnd(gen, torch.bfloat16, b * sp, d, std=0.05)
+    ws = [_rnd(gen, torch.bfloat16, *s, std=0.05) for s in
+          ((L, d, 3 * d), (L, d, d), (L, d, mlp), (L, mlp, d))]
+    fn = em.make_variant("full", b=b, sp=sp, d=d, mlp=mlp, L=L, cq=128,
+                         mt=128, dtype=torch.bfloat16, heads=4)
+    reset_launch_counts()
+    got = fn(x, *ws)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(encoder_stack=1)
+    want = em.full_encoder(x, *ws, b=b, sp=sp, heads=4, impl="torch")
+    _close(got, want)
+
+
+def test_torch_cuda_encstack_minrepro_main(gen):
+    from vit_tpu_torch.tools import encstack_minrepro as em
+    assert em.main(["--cases", "1,768,512", "--variants", "dma", "core@flat",
+                    "full", "-L", "2", "--reps", "2"]) == 0

@@ -49,6 +49,10 @@ def test_torch_port_import_loads_no_jax():
         "import vit_tpu_torch.ops.cuda.patching, vit_tpu_torch.ops.debug\n"
         "import vit_tpu_torch.ops.cuda.debug\n"
         "import vit_tpu_torch.examples.minimal_matmul\n"
+        "import vit_tpu_torch.utils, vit_tpu_torch.utils.profiling\n"
+        "import vit_tpu_torch.tools.int8_probe\n"
+        "import vit_tpu_torch.tools.attn_core_probe\n"
+        "import vit_tpu_torch.tools.encstack_minrepro\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vit_tpu'))\n"
         "print(bad)\n"

@@ -4,7 +4,9 @@
 // layout vit_tpu/ops/pallas/block.py:_attn_core slices) and writing the
 // context into a (B*S, D) buffer at the head's columns. K4's attention
 // kernel (attention.cu) runs one tile a block; K9 (encoder_stack.cu) walks
-// the tiles of its attention phase with it.
+// the tiles of its attention phase with it; the attention probe K23
+// (attn_core_probe.cu) runs it in each of its modes, a template parameter
+// whose default, kAttnFull, is the core that K4 and K9 instantiate.
 //
 // Per query row, with _attn_core's rounding points:
 //   s = (q . k) * scale in fp32, keys at index >= seq_len set to -inf;
@@ -52,48 +54,193 @@ inline size_t attention_smem(int s, int dh) {
          (static_cast<size_t>(kAttnQT) * s + kAttnQT) * sizeof(float);
 }
 
+// The modes of the attention probe K23 (csrc/attn_core_probe.cu), a
+// compile-time parameter of attention_tile. kAttnFull is K4's and K9's
+// core, and the only mode they instantiate; each other mode changes the
+// tile where tools/attn_core_probe.py's _core_kernel changes the core
+// (vit_tpu_torch/tools/attn_core_probe.py gives each mode's function).
+enum AttnMode : int {
+  kAttnFull = 0,
+  kAttnMaskOnly = 1,    // l = 1
+  kAttnNoSm = 2,        // no mask, l = 1
+  kAttnMxu = 3,         // no mask, no max or exp: p = s, l = 1
+  kAttnDivOnly = 4,     // no mask
+  kAttnRecip = 5,       // no mask, ctx * (1 / l)
+  kAttnSumOnly = 6,     // no mask, ctx + 1e-30 * l
+  kAttnBf16Div = 7,     // no mask, round(ctx) / round(l)
+  kAttnAllDiv = 8,      // as kAttnRecip: a tile holds one head, no concat
+  kAttnMxuDiv = 9,      // as kAttnRecip
+  kAttnAddMask = 10,    // every key scored, the mask added as a row
+  kAttnVsum = 11,       // l = the sum of the rounded p
+  kAttnQcore = 12,      // int8 codes: q per row, k and v per head
+  kAttnWide = 13,       // no mask, round(p / l) @ v; the caller pairs heads
+  kAttnKt = 14,         // k from a transposed (D, ldt) buffer
+  kAttnHeadMajor = 15,  // q, k, v from a (3D, ldt) buffer, ctx to (D, ldt)
+};
+
+// Modes whose keys at index >= seq_len get p = 0.
+__host__ __device__ constexpr bool attn_masked(int mode) {
+  return mode == kAttnFull || mode == kAttnMaskOnly ||
+         mode == kAttnAddMask || mode == kAttnVsum || mode == kAttnQcore ||
+         mode == kAttnKt || mode == kAttnHeadMajor;
+}
+
+// Modes that score every key (the others skip the masked ones).
+__host__ __device__ constexpr bool attn_all_keys(int mode) {
+  return !attn_masked(mode) || mode == kAttnAddMask;
+}
+
+// Modes whose context is not divided by a row sum.
+__host__ __device__ constexpr bool attn_unit_sum(int mode) {
+  return mode == kAttnMaskOnly || mode == kAttnNoSm || mode == kAttnMxu ||
+         mode == kAttnWide;
+}
+
+// A context element from its fp32 sum acc and the row sum l, as MODE
+// combines them; ap points at the row's p scale (kAttnQcore only), av is
+// the head's v scale.
+template <typename T, int MODE>
+__device__ __forceinline__ float attn_combine(float acc, float l,
+                                              const float* ap, float av) {
+  if constexpr (MODE == kAttnRecip || MODE == kAttnAllDiv ||
+                MODE == kAttnMxuDiv || MODE == kAttnAddMask ||
+                MODE == kAttnHeadMajor)
+    return acc * (1.f / l);
+  else if constexpr (MODE == kAttnSumOnly)
+    return __fadd_rn(acc, __fmul_rn(1e-30f, l));
+  else if constexpr (MODE == kAttnBf16Div)
+    return to_f32(from_f32<T>(acc)) / to_f32(from_f32<T>(l));
+  else if constexpr (MODE == kAttnQcore)
+    return __fdiv_rn(__fmul_rn(acc, __fmul_rn(*ap, av)), l);
+  else
+    return acc / l;
+}
+
 // Query rows q0 .. q0+63 of head h of image img; s is the padded sequence,
 // d the model width, dh the head width. Called by all kAttnThreads threads
 // of the block; it synchronises the block and uses attention_smem<T>(s, dh)
-// bytes of `smem`.
-template <typename T>
+// bytes of `smem` (K23's modes kAttnQcore and later: kAttnQT floats more).
+// tbuf and ldt serve kAttnKt (kT, (D, ldt)) and kAttnHeadMajor ([qT|kT|vT],
+// (3D, ldt), out (D, ldt)): ldt is the buffer's token count, B*S.
+template <typename T, int MODE = kAttnFull>
 __device__ __forceinline__ void attention_tile(const T* qkv, T* out, int s,
                                                int d, int dh, float scale,
                                                int seq_len, int img, int h,
-                                               int q0, unsigned char* smem) {
+                                               int q0, unsigned char* smem,
+                                               const T* tbuf = nullptr,
+                                               int ldt = 0) {
   const int ldk = attn_ldk<T>(dh);
   T* ks = reinterpret_cast<T*>(smem);         // s x ldk
   T* vs = ks + static_cast<size_t>(s) * ldk;  // s x dh
   T* qs = vs + static_cast<size_t>(s) * dh;   // kAttnQT x dh
   float* sc = reinterpret_cast<float*>(smem + attn_t_bytes<T>(s, dh));
   float* lsum = sc + static_cast<size_t>(kAttnQT) * s;
+  float* aux = lsum + kAttnQT;  // kAttnQcore: the rows' q, then p, scales
 
   const size_t ld = 3 * static_cast<size_t>(d);
   const T* base = qkv + static_cast<size_t>(img) * s * ld +
                   static_cast<size_t>(h) * dh;
 
   __syncthreads();  // the previous tile's readers of smem are done
-  for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
-    const int j = e / dh, c = e % dh;
-    ks[j * ldk + c] = base[j * ld + d + c];
-    vs[e] = base[j * ld + 2 * d + c];
-  }
-  for (int e = threadIdx.x; e < kAttnQT * dh; e += kAttnThreads) {
-    const int i = e / dh, c = e % dh;
-    qs[e] = q0 + i < s ? base[(q0 + i) * ld + c] : from_f32<T>(0.f);
+  if constexpr (MODE == kAttnHeadMajor) {
+    // Feature-major rows, tokens contiguous: neighbouring threads read
+    // neighbouring tokens.
+    const T* col0 = tbuf + static_cast<size_t>(h) * dh * ldt +
+                    static_cast<size_t>(img) * s;
+    for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
+      const int c = e / s, j = e % s;
+      const T* col = col0 + static_cast<size_t>(c) * ldt + j;
+      ks[j * ldk + c] = col[static_cast<size_t>(d) * ldt];
+      vs[j * dh + c] = col[2 * static_cast<size_t>(d) * ldt];
+    }
+    for (int e = threadIdx.x; e < kAttnQT * dh; e += kAttnThreads) {
+      const int c = e / kAttnQT, i = e % kAttnQT;
+      qs[i * dh + c] = q0 + i < s
+                           ? col0[static_cast<size_t>(c) * ldt + q0 + i]
+                           : from_f32<T>(0.f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
+      const int j = e / dh, c = e % dh;
+      if constexpr (MODE != kAttnKt) ks[j * ldk + c] = base[j * ld + d + c];
+      vs[e] = base[j * ld + 2 * d + c];
+    }
+    if constexpr (MODE == kAttnKt) {
+      const T* col0 = tbuf + static_cast<size_t>(h) * dh * ldt +
+                      static_cast<size_t>(img) * s;
+      for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
+        const int c = e / s, j = e % s;
+        ks[j * ldk + c] = col0[static_cast<size_t>(c) * ldt + j];
+      }
+    }
+    for (int e = threadIdx.x; e < kAttnQT * dh; e += kAttnThreads) {
+      const int i = e / dh, c = e % dh;
+      qs[e] = q0 + i < s ? base[(q0 + i) * ld + c] : from_f32<T>(0.f);
+    }
   }
   __syncthreads();
+
+  // kAttnQcore: k and v to codes with one scale a head over all s rows, q
+  // with one a row (tools/attn_core_probe.py:170-176), each code stored in
+  // place, exactly, as a value of T. The dots below then sum products of
+  // integers below 2^24 in fp32: the int32 sums, exactly.
+  float av = 0.f, qk_scale = scale;
+  if constexpr (MODE == kAttnQcore) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    constexpr int kWarps = kAttnThreads / 32;
+    float mk = 0.f, mv = 0.f;
+    for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
+      mk = fmaxf(mk, fabsf(to_f32(ks[(e / dh) * ldk + e % dh])));
+      mv = fmaxf(mv, fabsf(to_f32(vs[e])));
+    }
+    mk = warp_max(mk);
+    mv = warp_max(mv);
+    if (lane == 0) {
+      sc[warp] = mk;
+      sc[kWarps + warp] = mv;
+    }
+    __syncthreads();
+    mk = 0.f;
+    mv = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      mk = fmaxf(mk, sc[w]);
+      mv = fmaxf(mv, sc[kWarps + w]);
+    }
+    const float ak = quant_scale(mk);
+    av = quant_scale(mv);
+    qk_scale = __fmul_rn(ak, scale);
+    for (int i = warp; i < kAttnQT; i += kWarps) {
+      T* qi = qs + i * dh;
+      float m = 0.f;
+      for (int c = lane; c < dh; c += 32) m = fmaxf(m, fabsf(to_f32(qi[c])));
+      const float a = quant_scale(warp_max(m));
+      for (int c = lane; c < dh; c += 32)
+        qi[c] = from_f32<T>(static_cast<float>(quant_code(to_f32(qi[c]), a)));
+      if (lane == 0) aux[i] = a;
+    }
+    for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
+      T* k = ks + (e / dh) * ldk + e % dh;
+      *k = from_f32<T>(static_cast<float>(quant_code(to_f32(*k), ak)));
+      vs[e] = from_f32<T>(static_cast<float>(quant_code(to_f32(vs[e]), av)));
+    }
+    __syncthreads();
+  }
 
   // Scores, fp32, masked keys at -inf.
   for (int e = threadIdx.x; e < kAttnQT * s; e += kAttnThreads) {
     const int i = e / s, j = e % s;
     float v = -INFINITY;
-    if (j < seq_len) {
+    if (attn_all_keys(MODE) || j < seq_len) {
       const T* qi = qs + i * dh;
       const T* kj = ks + j * ldk;
       float acc = 0.f;
       for (int c = 0; c < dh; ++c) acc = fmaf(to_f32(qi[c]), to_f32(kj[c]), acc);
-      v = acc * scale;
+      if constexpr (MODE == kAttnQcore)
+        v = __fmul_rn(acc, __fmul_rn(aux[i], qk_scale));
+      else
+        v = acc * scale;
+      if constexpr (MODE == kAttnAddMask)
+        v = v + (j < seq_len ? 0.f : -INFINITY);
     }
     sc[e] = v;
   }
@@ -104,29 +251,59 @@ __device__ __forceinline__ void attention_tile(const T* qkv, T* out, int s,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i = warp; i < kAttnQT; i += kAttnThreads / 32) {
     float* row = sc + static_cast<size_t>(i) * s;
+    if constexpr (MODE == kAttnMxu) {
+      for (int j = lane; j < s; j += 32) row[j] = to_f32(from_f32<T>(row[j]));
+      if (lane == 0) lsum[i] = 1.f;
+      continue;
+    }
     float mx = -INFINITY;
     for (int j = lane; j < s; j += 32) mx = fmaxf(mx, row[j]);
     mx = warp_max(mx);
     float sum = 0.f;
     for (int j = lane; j < s; j += 32) {
       const float p = expf(row[j] - mx);
-      sum += p;
-      row[j] = to_f32(from_f32<T>(p));
+      if constexpr (MODE == kAttnVsum)
+        sum += to_f32(from_f32<T>(p));
+      else
+        sum += p;
+      if constexpr (MODE == kAttnWide || MODE == kAttnQcore)
+        row[j] = p;
+      else
+        row[j] = to_f32(from_f32<T>(p));
     }
     sum = warp_sum(sum);
-    if (lane == 0) lsum[i] = sum;
+    if constexpr (MODE == kAttnWide) {
+      for (int j = lane; j < s; j += 32)
+        row[j] = to_f32(from_f32<T>(row[j] / sum));
+    }
+    if constexpr (MODE == kAttnQcore) {
+      float pm = 0.f;
+      for (int j = lane; j < s; j += 32) pm = fmaxf(pm, row[j]);
+      const float ap = quant_scale(warp_max(pm));
+      for (int j = lane; j < s; j += 32)
+        row[j] = static_cast<float>(quant_code(row[j], ap));
+      if (lane == 0) aux[i] = ap;
+    }
+    if (lane == 0) lsum[i] = attn_unit_sum(MODE) ? 1.f : sum;
   }
   __syncthreads();
 
   // Context: (p @ v) / l; masked keys have p == 0 and are skipped.
   for (int e = threadIdx.x; e < kAttnQT * dh; e += kAttnThreads) {
-    const int i = e / dh, c = e % dh;
+    const int i = MODE == kAttnHeadMajor ? e % kAttnQT : e / dh;
+    const int c = MODE == kAttnHeadMajor ? e / kAttnQT : e % dh;
     if (q0 + i >= s) continue;
     const float* p = sc + static_cast<size_t>(i) * s;
     float acc = 0.f;
-    for (int j = 0; j < seq_len; ++j) acc = fmaf(p[j], to_f32(vs[j * dh + c]), acc);
-    out[(static_cast<size_t>(img) * s + q0 + i) * d +
-        static_cast<size_t>(h) * dh + c] = from_f32<T>(acc / lsum[i]);
+    for (int j = 0; j < (attn_masked(MODE) ? seq_len : s); ++j)
+      acc = fmaf(p[j], to_f32(vs[j * dh + c]), acc);
+    const T v = from_f32<T>(attn_combine<T, MODE>(acc, lsum[i], aux + i, av));
+    if constexpr (MODE == kAttnHeadMajor)
+      out[(static_cast<size_t>(h) * dh + c) * ldt +
+          static_cast<size_t>(img) * s + q0 + i] = v;
+    else
+      out[(static_cast<size_t>(img) * s + q0 + i) * d +
+          static_cast<size_t>(h) * dh + c] = v;
   }
 }
 

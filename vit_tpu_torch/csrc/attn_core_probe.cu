@@ -1,0 +1,337 @@
+// K23: the attention-core probe. It takes the attention block apart the
+// way tools/attn_core_probe.py does on the TPU: the same block in 18 modes,
+// each switching one ingredient of the core off or laying the data out
+// another way, so that the time of each ingredient shows.
+//
+// Replaces tools/attn_core_probe.py:probe (_core_kernel, pallas_call :389)
+// and _probe_t (_tcore_kernel :432, _xcore_kernel :447). The TPU kernel is
+// the whole block in one grid step per `group` images; on Hopper the block
+// is K4's four launches (vit_tpu_torch/ops/cuda/block.py: an image's QKV
+// does not fit one SM), and the core is attention_tile
+// (attention_core.cuh) with the mode as a template parameter: kAttnFull is
+// K4's core instruction for instruction, the other modes change only what
+// the mode names (vit_tpu_torch/tools/attn_core_probe.py has each mode's
+// function and launches). A work item is (image, head, 64 queries),
+// whatever the TPU's `group`.
+//
+// What the layout modes need beyond K4, each in this file:
+// - kt: the K projection written transposed, (D, B*S) -- the QKV GEMM's
+//   epilogue stores the k third there (kEpSplitKT), and the core reads k
+//   from it, tokens contiguous;
+// - tcore: every projection transposed, [qT|kT|vT] (3D, B*S)
+//   (kEpAllT), the core head-major (kAttnHeadMajor: reads that buffer,
+//   writes the context (D, B*S)), and the out-projection as WoutT @ ctxT,
+//   its fp32 sum rounded, then transposed back as bout and x are added
+//   (kEpOutT) -- the TPU kernel's one transpose in and one out;
+// - xcore: activations (D, B*S) in and out: a column LN (col_layernorm),
+//   the QKV projection WqkvT @ xnT with a bias per row (kEpRowBias), the
+//   head-major core, and WoutT @ ctxT + bout + x per row (kEpOutX);
+// - projonly: the QKV GEMM stores q apart, contiguous (kEpSplitQ), for the
+//   out-projection to read as the context: no core launch.
+// Each GEMM is K2's tile loop (gemm_tile.cuh) with an epilogue of its own.
+//
+// Bound on the card, as K4's core: neither memory nor the tensor cores.
+// The core is plain FFMA over shared memory, 4*B*H*S*S*d operations, 4.3
+// GFLOP at B/16 bs=32 (64 us at fp32's 67 TFLOP/s); the block adds K1 and
+// two K2 GEMMs (21.3 GFLOP of bf16 products). The probe exists to show
+// which of the core's ingredients costs the time before that core is
+// rewritten for the tensor cores.
+
+#include "attention_core.cuh"
+#include "gemm_tile.cuh"
+
+namespace vit {
+
+constexpr size_t kProbeMaxSmem = 232448;  // 227 KB a block on Hopper
+
+// Shared memory of one core tile in the probe: K4's, and one float a query
+// row more for kAttnQcore's scales.
+template <typename T>
+inline size_t probe_smem(int s, int dh) {
+  return attention_smem<T>(s, dh) + kAttnQT * sizeof(float);
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kAttnThreads)
+    attn_probe_kernel(const T* __restrict__ qkv, const T* __restrict__ tbuf,
+                      T* __restrict__ out, int s, int d, int dh, float scale,
+                      int seq_len, int ldt) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  attention_tile<T, MODE>(qkv, out, s, d, dh, scale, seq_len, blockIdx.x,
+                          blockIdx.y, blockIdx.z * kAttnQT, smem, tbuf, ldt);
+}
+
+template <typename T, int MODE>
+cudaError_t launch_probe_core(const T* qkv, const T* tbuf, T* out, int batch,
+                              int s, int d, int heads, int seq_len, int ldt,
+                              float scale, cudaStream_t st) {
+  const int dh = d / heads;
+  const size_t smem = probe_smem<T>(s, dh);
+  if (smem > kProbeMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_probe_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch, heads, (s + kAttnQT - 1) / kAttnQT);
+  attn_probe_kernel<T, MODE><<<grid, kAttnThreads, smem, st>>>(
+      qkv, tbuf, out, s, d, dh, scale, seq_len, ldt);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_probe_core_mode(int mode, const T* qkv, const T* tbuf,
+                                   T* out, int batch, int s, int d, int heads,
+                                   int seq_len, int ldt, float scale,
+                                   cudaStream_t st) {
+#define VIT_PROBE_MODE(M)                                                   \
+  case M:                                                                   \
+    return launch_probe_core<T, M>(qkv, tbuf, out, batch, s, d, heads,      \
+                                   seq_len, ldt, scale, st);
+  switch (mode) {
+    VIT_PROBE_MODE(kAttnFull)
+    VIT_PROBE_MODE(kAttnMaskOnly)
+    VIT_PROBE_MODE(kAttnNoSm)
+    VIT_PROBE_MODE(kAttnMxu)
+    VIT_PROBE_MODE(kAttnDivOnly)
+    VIT_PROBE_MODE(kAttnRecip)
+    VIT_PROBE_MODE(kAttnSumOnly)
+    VIT_PROBE_MODE(kAttnBf16Div)
+    VIT_PROBE_MODE(kAttnAllDiv)
+    VIT_PROBE_MODE(kAttnMxuDiv)
+    VIT_PROBE_MODE(kAttnAddMask)
+    VIT_PROBE_MODE(kAttnVsum)
+    VIT_PROBE_MODE(kAttnQcore)
+    VIT_PROBE_MODE(kAttnWide)
+    VIT_PROBE_MODE(kAttnKt)
+    VIT_PROBE_MODE(kAttnHeadMajor)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef VIT_PROBE_MODE
+}
+
+// The probe's GEMM epilogues; m, n are the GEMM's rows and columns, d the
+// model width.
+enum ProbeEp : int {
+  kEpSplitQ = 0,   // qkv row-major, the q third into alt (m, d)
+  kEpSplitKT = 1,  // qkv row-major, the k third transposed into alt (d, m)
+  kEpAllT = 2,     // all of qkv transposed: out (n, m)
+  kEpRowBias = 3,  // out (m, n), the bias per row
+  kEpOutX = 4,     // out (m, n) = acc + bias[row] + res (m, n)
+  kEpOutT = 5,     // out (n, m) = round(acc) + bias[row] + res (n, m)
+};
+
+template <typename T, int EP>
+struct ProbeEpilogue {
+  const T* bias;
+  const T* res;
+  T* out;
+  T* alt;
+  int m, n, d;
+
+  __device__ __forceinline__ void store(int row, int col, float acc) const {
+    if constexpr (EP == kEpSplitQ || EP == kEpSplitKT || EP == kEpAllT) {
+      const T v = from_f32<T>(acc + to_f32(bias[col]));
+      if constexpr (EP == kEpAllT) {
+        out[static_cast<size_t>(col) * m + row] = v;
+      } else if (EP == kEpSplitQ && col < d) {
+        alt[static_cast<size_t>(row) * d + col] = v;
+      } else if (EP == kEpSplitKT && col >= d && col < 2 * d) {
+        alt[static_cast<size_t>(col - d) * m + row] = v;
+      } else {
+        out[static_cast<size_t>(row) * n + col] = v;
+      }
+    } else if constexpr (EP == kEpRowBias) {
+      out[static_cast<size_t>(row) * n + col] =
+          from_f32<T>(acc + to_f32(bias[row]));
+    } else if constexpr (EP == kEpOutX) {
+      const size_t idx = static_cast<size_t>(row) * n + col;
+      out[idx] = from_f32<T>((acc + to_f32(bias[row])) + to_f32(res[idx]));
+    } else {
+      const size_t idx = static_cast<size_t>(col) * m + row;
+      out[idx] = from_f32<T>((to_f32(from_f32<T>(acc)) + to_f32(bias[row])) +
+                             to_f32(res[idx]));
+    }
+  }
+};
+
+template <typename T, int EP>
+__global__ void __launch_bounds__(kMmThreads)
+    probe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                      ProbeEpilogue<T, EP> ep, int k, bool vec_x,
+                      bool vec_w) {
+  __shared__ typename Gemm<T>::Smem sm;
+  gemm_tile<false>(x, w, ep.m, ep.n, k, blockIdx.y * Gemm<T>::BM,
+                   blockIdx.x * Gemm<T>::BN, vec_x, vec_w, LnPrologue<T>{},
+                   ep, sm);
+}
+
+template <typename T, int EP>
+cudaError_t launch_probe_gemm(const T* x, const T* w, const T* bias,
+                              const T* res, T* out, T* alt, int m, int n,
+                              int k, int d, cudaStream_t st) {
+  const dim3 grid((n + Gemm<T>::BN - 1) / Gemm<T>::BN,
+                  (m + Gemm<T>::BM - 1) / Gemm<T>::BM);
+  probe_gemm_kernel<T, EP><<<grid, kMmThreads, 0, st>>>(
+      x, w, ProbeEpilogue<T, EP>{bias, res, out, alt, m, n, d}, k,
+      aligned16(x) && k % 8 == 0, aligned16(w) && n % 8 == 0);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_probe_gemm_ep(int ep, const T* x, const T* w,
+                                 const T* bias, const T* res, T* out, T* alt,
+                                 int m, int n, int k, int d,
+                                 cudaStream_t st) {
+  switch (ep) {
+    case kEpSplitQ:
+      return launch_probe_gemm<T, kEpSplitQ>(x, w, bias, res, out, alt, m, n,
+                                             k, d, st);
+    case kEpSplitKT:
+      return launch_probe_gemm<T, kEpSplitKT>(x, w, bias, res, out, alt, m,
+                                              n, k, d, st);
+    case kEpAllT:
+      return launch_probe_gemm<T, kEpAllT>(x, w, bias, res, out, alt, m, n,
+                                           k, d, st);
+    case kEpRowBias:
+      return launch_probe_gemm<T, kEpRowBias>(x, w, bias, res, out, alt, m,
+                                              n, k, d, st);
+    case kEpOutX:
+      return launch_probe_gemm<T, kEpOutX>(x, w, bias, res, out, alt, m, n,
+                                           k, d, st);
+    case kEpOutT:
+      return launch_probe_gemm<T, kEpOutT>(x, w, bias, res, out, alt, m, n,
+                                           k, d, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// xcore's LN over the columns of x (d, m): 32 columns a block, 8 warps
+// striding the rows; fp32 mean and centred variance of each column, then
+// ((x - mean) * rstd) * g[row] + b[row], rounded to T
+// (tools/attn_core_probe.py:364-366).
+constexpr int kColLnCols = 32, kColLnRows = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kColLnCols * kColLnRows)
+    col_layernorm_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         const T* __restrict__ b, T* __restrict__ out, int d,
+                         int m, float eps) {
+  __shared__ float red[kColLnRows][kColLnCols + 1];
+  const int tx = threadIdx.x % kColLnCols, ty = threadIdx.x / kColLnCols;
+  const int col = blockIdx.x * kColLnCols + tx;
+  const bool in = col < m;
+  float s = 0.f;
+  if (in)
+    for (int r = ty; r < d; r += kColLnRows)
+      s += to_f32(x[static_cast<size_t>(r) * m + col]);
+  red[ty][tx] = s;
+  __syncthreads();
+  float tot = 0.f;
+  for (int i = 0; i < kColLnRows; ++i) tot += red[i][tx];
+  const float mean = tot / d;
+  __syncthreads();
+  float ss = 0.f;
+  if (in)
+    for (int r = ty; r < d; r += kColLnRows) {
+      const float c = to_f32(x[static_cast<size_t>(r) * m + col]) - mean;
+      ss += c * c;
+    }
+  red[ty][tx] = ss;
+  __syncthreads();
+  float var = 0.f;
+  for (int i = 0; i < kColLnRows; ++i) var += red[i][tx];
+  const float rstd = rsqrtf(var / d + eps);
+  if (in)
+    for (int r = ty; r < d; r += kColLnRows) {
+      const size_t idx = static_cast<size_t>(r) * m + col;
+      const float c = (to_f32(x[idx]) - mean) * rstd;
+      out[idx] = from_f32<T>(c * to_f32(g[r]) + to_f32(b[r]));
+    }
+}
+
+}  // namespace vit
+
+// The core in mode `mode` (AttnMode): qkv the packed (B*S, 3D) buffer (all
+// modes but kAttnHeadMajor), tbuf kT (D, ldt) for kAttnKt or [qT|kT|vT]
+// (3D, ldt) for kAttnHeadMajor, out (B*S, D) or, head-major, (D, ldt).
+// heads is the number of work-item heads (kAttnWide: pairs of heads).
+extern "C" int vit_attn_probe_core(const void* qkv, const void* tbuf,
+                                   void* out, int batch, int s, int d,
+                                   int heads, int seq_len, int ldt,
+                                   float scale, int mode, int dtype,
+                                   int device, void* stream) {
+  using namespace vit;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  const bool needs_t = mode == kAttnKt || mode == kAttnHeadMajor;
+  if (batch <= 0 || s <= 0 || heads <= 0 || d % heads || seq_len <= 0 ||
+      seq_len > s || heads > 65535 || (needs_t && (!tbuf || ldt < batch * s)) ||
+      (mode != kAttnHeadMajor && !qkv))
+    return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_probe_core_mode<float>(
+        mode, static_cast<const float*>(qkv), static_cast<const float*>(tbuf),
+        static_cast<float*>(out), batch, s, d, heads, seq_len, ldt, scale, st);
+  if (dtype == kBF16)
+    return launch_probe_core_mode<bf16>(
+        mode, static_cast<const bf16*>(qkv), static_cast<const bf16*>(tbuf),
+        static_cast<bf16*>(out), batch, s, d, heads, seq_len, ldt, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// x (m, k) @ w (k, n) with epilogue `ep` (ProbeEp): bias (n,) or, per row,
+// (m,); res the residual of kEpOutX / kEpOutT; alt the split buffer of
+// kEpSplitQ / kEpSplitKT; d the model width.
+extern "C" int vit_attn_probe_gemm(const void* x, const void* w,
+                                   const void* bias, const void* res,
+                                   void* out, void* alt, int m, int n, int k,
+                                   int d, int ep, int dtype, int device,
+                                   void* stream) {
+  using namespace vit;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  if (m <= 0 || n <= 0 || k <= 0 || !bias ||
+      ((ep == kEpSplitQ || ep == kEpSplitKT) && (!alt || n != 3 * d)) ||
+      ((ep == kEpOutX || ep == kEpOutT) && !res))
+    return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_probe_gemm_ep<float>(
+        ep, static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(bias), static_cast<const float*>(res),
+        static_cast<float*>(out), static_cast<float*>(alt), m, n, k, d, st);
+  if (dtype == kBF16)
+    return launch_probe_gemm_ep<bf16>(
+        ep, static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
+        static_cast<bf16*>(out), static_cast<bf16*>(alt), m, n, k, d, st);
+  return cudaErrorInvalidValue;
+}
+
+// xcore's column LN: x and out (d, m), g and b (d,).
+extern "C" int vit_attn_probe_colln(const void* x, const void* g,
+                                    const void* b, void* out, int d, int m,
+                                    float eps, int dtype, int device,
+                                    void* stream) {
+  using namespace vit;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  if (d <= 0 || m <= 0) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((m + kColLnCols - 1) / kColLnCols);
+  const int threads = kColLnCols * kColLnRows;
+  if (dtype == kF32)
+    col_layernorm_kernel<float><<<grid, threads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g),
+        static_cast<const float*>(b), static_cast<float*>(out), d, m, eps);
+  else if (dtype == kBF16)
+    col_layernorm_kernel<bf16><<<grid, threads, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+        static_cast<const bf16*>(b), static_cast<bf16*>(out), d, m, eps);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}

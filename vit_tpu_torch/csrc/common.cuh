@@ -22,7 +22,8 @@
 
 namespace vit {
 
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// kI8: int8 inputs, where a kernel takes them as its type (K22).
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 using bf16 = __nv_bfloat16;
 

@@ -16,7 +16,9 @@
 // layer is a loop over work tiles strided by gridDim.x, and a grid-wide
 // barrier (cooperative_groups::this_grid().sync()) separates the phases.
 // Every block reaches every barrier, with or without a tile in the phase.
-// Per layer:
+// The phase routines (gemm_phase, the persistent launch) are in
+// stack_phase.cuh, which K9's probe K24 (encstack_probe.cu) shares. Per
+// layer:
 //   1. LN1 + QKV GEMM tiles (gemm_tile.cuh). Each tile recomputes its rows'
 //      LN stats from the activation, as the Pallas kernel recomputes LN1 per
 //      chunk, into shared memory; K6's LN prologue normalises while staging.
@@ -68,16 +70,11 @@
 
 #include <cooperative_groups.h>
 
-#include "attention_core.cuh"
-#include "gemm_tile.cuh"
+#include "stack_phase.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace vit {
-
-static_assert(kAttnThreads == kMmThreads, "one block size for all phases");
-
-constexpr size_t kStackMaxSmem = 232448;  // 227 KB a block on Hopper
 
 template <typename T, typename W = T>
 struct StackArgs {
@@ -180,53 +177,6 @@ struct EmbedBase {
   }
 };
 
-// Dynamic shared memory: the larger of a GEMM phase's (the tile routine's
-// buffers, then a tile's LN mean and rstd) and an attention tile's.
-template <typename T>
-inline size_t stack_smem(int sp, int dh) {
-  const size_t gemm =
-      sizeof(typename Gemm<T>::Smem) + 2 * Gemm<T>::BM * sizeof(float);
-  const size_t attn = attention_smem<T>(sp, dh);
-  return attn > gemm ? attn : gemm;
-}
-
-// One GEMM phase: every (BM x BN) tile of x (m, k) @ w (k, n), strided over
-// the grid. With LN, a tile first computes its rows' LN stats into shared
-// memory, then normalises x with ln_g, ln_b while staging it.
-template <bool LN, typename T, typename W, typename Ep>
-__device__ __forceinline__ void gemm_phase(const T* x, const W* w, int m,
-                                           int n, int k, const T* ln_g,
-                                           const T* ln_b, float eps,
-                                           const Ep& ep,
-                                           unsigned char* smem) {
-  auto& sm = *reinterpret_cast<typename Gemm<T>::Smem*>(smem);
-  float* mu = reinterpret_cast<float*>(smem + sizeof(typename Gemm<T>::Smem));
-  float* rstd = mu + Gemm<T>::BM;
-  const bool vec_x = aligned16(x) && k % 8 == 0;
-  const bool vec_w = vec_ok<T, W>(w, n);
-  const int tn = (n + Gemm<T>::BN - 1) / Gemm<T>::BN;
-  const int tiles = (m + Gemm<T>::BM - 1) / Gemm<T>::BM * tn;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = t / tn * Gemm<T>::BM, n0 = t % tn * Gemm<T>::BN;
-    if (LN) {
-      __syncthreads();  // the previous tile's readers of the stats are done
-      for (int r = warp; r < Gemm<T>::BM; r += kMmThreads / 32) {
-        if (m0 + r >= m) continue;
-        const float2 st =
-            row_stats(x + static_cast<size_t>(m0 + r) * k, k, eps, lane);
-        if (lane == 0) {
-          mu[r] = st.x;
-          rstd[r] = st.y;
-        }
-      }
-      // gemm_tile synchronises the block before it stages x.
-    }
-    gemm_tile<LN>(x, w, m, n, k, m0, n0, vec_x, vec_w,
-                  LnPrologue<T>{mu, rstd, ln_g, ln_b, m0}, ep, sm);
-  }
-}
-
 // A layer's slice of a stacked scale vector, or null for float weights.
 __device__ __forceinline__ const float* layer_scales(const float* s,
                                                      size_t off) {
@@ -322,24 +272,10 @@ template <typename T, typename W, bool FOLD>
 cudaError_t launch_stack(StackArgs<T, W> a, int device, cudaStream_t st) {
   auto kernel = encoder_stack_kernel<T, W, FOLD>;
   const size_t smem = stack_smem<T>(a.sp, a.d / a.heads);
-  if (smem > kStackMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  int grid = 0;
+  cudaError_t err = persistent_grid(kernel, smem, device, &grid);
   if (err != cudaSuccess) return err;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kMmThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(per_sm * sms), dim3(kMmThreads),
-                                    params, smem, st);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_persistent(kernel, a, smem, grid, st);
 }
 
 template <typename T>

@@ -11,7 +11,8 @@ from their whole-block forms (``mlp_block_partial`` and so on). A block
 made of several launches (``attn_block``, ``attn_block_q`` and their
 shard forms) has no count of its own: its kernels count theirs;
 ``layer_block`` counts its last launch, K18, and its first three count as
-``attn_block``'s do.
+``attn_block``'s do. The probes' kernels (K22-K24, ``vit_tpu_torch/tools/``)
+count every launch from their sources under their own names.
 
 The counts show that a run went through the kernels:
 :func:`reset_launch_counts` before it, :func:`launch_counts` after.
@@ -26,7 +27,8 @@ KERNELS = ("layernorm", "matmul", "attention", "mlp_block", "layernorm_stats",
            "mlp_block_i8dot", "encoder_stack_q", "flash_attention_bwd",
            "add", "softmax", "matmul3", "mlp_block_q", "mlp_block_partial",
            "mlp_block_i8dot_partial", "mlp_block_q_partial", "layer_block",
-           "patchify", "print_if", "minimal_matmul")
+           "patchify", "print_if", "minimal_matmul", "dot_probe",
+           "attn_core_probe", "encstack_probe")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

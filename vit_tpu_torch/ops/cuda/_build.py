@@ -35,6 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: Dtype codes of the C interface (``csrc/common.cuh``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: The codes :func:`launch` passes: also int8, for a kernel whose inputs
+#: are int8 (K22).
+_LAUNCH_CODES = {**DTYPE_CODES, torch.int8: 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -95,6 +98,18 @@ _SIGNATURES = {
     "vit_print_if_smoke": (_P, _P, *(_I,) * 10),
     # x, w, out, m, n, k
     "vit_minimal_matmul": (_P, _P, _P, _I, _I, _I),
+    # x, w, out, m, n, k
+    "vit_dot_probe": (_P, _P, _P, _I, _I, _I),
+    # qkv, tbuf, out, batch, s, d, heads, seq_len, ldt, scale, mode
+    "vit_attn_probe_core": (_P, _P, _P, *(_I,) * 6, _F, _I),
+    # x, w, bias, res, out, alt, m, n, k, d, epilogue
+    "vit_attn_probe_gemm": (*(_P,) * 6, *(_I,) * 5),
+    # x, g, b, out, d, m, eps
+    "vit_attn_probe_colln": (_P, _P, _P, _P, _I, _I, _F),
+    # x, qkv, ctx, hid, acc, sink, sink_len, wqkv, wout, w1, w2, ones,
+    # zeros, b, sp, d, mlp, heads, layers, scale, eps, variant
+    "vit_encstack_probe": (*(_P,) * 6, _I, *(_P,) * 6, *(_I,) * 6, _F, _F,
+                           _I),
 }
 
 _lock = threading.Lock()
@@ -189,7 +204,7 @@ def launch(name: str, *args, like: torch.Tensor) -> None:
     dev = like.device.index if like.device.index is not None \
         else torch.cuda.current_device()
     stream = torch.cuda.current_stream(like.device).cuda_stream
-    rc = getattr(lib, name)(*conv, DTYPE_CODES[like.dtype], dev, stream)
+    rc = getattr(lib, name)(*conv, _LAUNCH_CODES[like.dtype], dev, stream)
     if rc != 0:
         msg = lib.vit_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
