@@ -138,6 +138,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1159,23 +1160,15 @@ def kernel_cases_layer(torch, dtype):
 
 def device_ms(torch, fn, iters: int = 20) -> tuple[float, dict]:
     """Device time of ``fn``'s kernels per call, from ``torch.profiler``
-    (CUPTI): the sum over kernels, and the time of each kernel by name.
-    Unlike :func:`time_ms` it leaves out the host's time between
-    launches."""
-    from torch.profiler import ProfilerActivity, profile
+    (CUPTI; ``utils.profiling.kernel_times``: a launch's time over the
+    records kept, times its launches a call): the sum over kernels, and
+    the time of each kernel by name. Unlike :func:`time_ms` it leaves out
+    the host's time between launches."""
+    from vit_tpu_torch.utils.profiling import kernel_times
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us > 0:
-            by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + (
-                us / iters / 1e3)
+    for key, (ms, n) in kernel_times(fn, iters).items():
+        by_name[key[:60]] = by_name.get(key[:60], 0.0) + ms * n
     return sum(by_name.values()), by_name
 
 
@@ -1982,11 +1975,41 @@ def layer_route_counts(layers: int, *, head: bool = True,
 
 
 #: Phase 16's attention geometry: B/16 at bs=32 (the JAX probe's default),
-#: and its encoder geometry: B/16 with the JAX probe's cases; the checks
-#: run the encoder cut to PROBE_CHECK_LAYERS layers (the stripped variants
-#: compound over layers, nosm to inf by the twelfth), the timings at 12.
+#: and its encoder geometry: B/16 with the JAX probe's cases at 12 layers.
+#: The stripped variants compound over the layers (no LN, an MLP sum never
+#: reset). Two have attention on that unnormalised stream: nosm's
+#: unnormalised scores leave bf16's range (NaN from the fifth layer on
+#: this phase's weights), and core's activations grow ~8x a layer (3e9 by
+#: the twelfth), so that a sum-order difference flips the softmax's
+#: winners: the kernel and the plain version part, relative 0.03 at four
+#: layers, 0.28 at five, 1.2 at twelve (bf16; this phase's log on an
+#: NVIDIA H100 80GB HBM3, 700 W). Those two are held to their plain
+#: version at ATTN_CHECK_LAYERS layers, core's output is checked finite
+#: at 12, and both are logged by depth.
 PROBE_ATTN = dict(batch=32, sp=208, seq_len=197, d=768, heads=12, group=4)
-PROBE_CHECK_LAYERS = 2
+ATTN_CHECK_LAYERS = 2
+
+
+def probe_check_layers(variant: str) -> int:
+    """The depth at which phase 16 holds a K24 variant to its plain
+    version."""
+    return ATTN_CHECK_LAYERS if variant in ("nosm", "core") else 12
+
+
+def compare_dma(ws):
+    """The bar of K24's ``dma`` on the weights ``ws``: x back bit for bit,
+    and the kernel's (L, 4) weight sums within 1e-5 x each tensor's summed
+    magnitudes of the plain fp32 sums
+    (``encstack_minrepro.check_weight_sums``). ``got`` = (x out, the
+    closure's ``weight_sums``), ``want`` = (x out, the plain sums)."""
+    from vit_tpu_torch.tools import encstack_minrepro as em
+
+    def check(torch, got, want, dtype):
+        (out, sums), (x, _) = got, want
+        compare_exact(torch, out, x, dtype)
+        err = em.check_weight_sums(sums(), *ws)
+        return {"max_abs_err": err, "mean_abs_err": err}
+    return check
 
 
 def compare_norm(torch, got, want, dtype) -> dict:
@@ -2053,8 +2076,10 @@ def kernel_cases_probes(torch, dtype):
     the kernels line reports: K4's core in K23's source; yardstick SDPA),
     then the whole block in every mode in bf16 and in every mode that fits
     in fp32 (not wide). K24: ``dma`` over B/16's 12 layers at bs=1 (the
-    case the kernels line reports: the weight stream, x back bit for bit),
-    each other variant at bs=1 cut to PROBE_CHECK_LAYERS layers."""
+    case the kernels line reports: the weight stream; x back bit for bit,
+    the weight sums it streamed held to the plain sums), each other
+    variant at bs=1 and the depth of :func:`probe_check_layers`. Each
+    variant's closures are made once, outside the timed calls."""
     from vit_tpu_torch.ops import reference
     from vit_tpu_torch.tools import attn_core_probe as acp
     from vit_tpu_torch.tools import encstack_minrepro as em
@@ -2120,26 +2145,36 @@ def kernel_cases_probes(torch, dtype):
     d, mlp, sp = 768, 3072, 208
     gen = torch.Generator(device="cuda").manual_seed(17)
     for variant in em.VARIANTS:
-        layers = 12 if variant == "dma" else PROBE_CHECK_LAYERS
+        layers = probe_check_layers(variant)
         x = (torch.randn((sp, d), generator=gen, device="cuda") * 0.05).to(
             dtype)
         ws = [(torch.randn(sh, generator=gen, device="cuda") * 0.05).to(dtype)
               for sh in ((layers, d, 3 * d), (layers, d, d),
                          (layers, d, mlp), (layers, mlp, d))]
-        fn = em.make_variant
-        kw = dict(b=1, sp=sp, d=d, mlp=mlp, L=layers, cq=768, mt=512,
-                  dtype=dtype)
+        fns = {impl: em.make_variant(variant, b=1, sp=sp, d=d, mlp=mlp,
+                                     L=layers, cq=768, mt=512, dtype=dtype,
+                                     impl=impl)
+               for impl in ("cuda", "torch")}
         if variant == "dma":
             nw = layers * (4 * d * d + 2 * d * mlp)
             work = (nw * e + 2 * sp * d * e, nw, "fp32")
+
+            def run(impl, fns=fns, x=x, ws=ws):
+                # The plain version streams and sums the weights here; the
+                # kernel's sums are in its sink, read by the check.
+                out = fns[impl](x, *ws)
+                if impl == "torch":
+                    return out, fns[impl].weight_sums()
+                return out, fns[impl].weight_sums
         else:
             work = _stack_work(1, sp, sp, d, mlp, 12, layers, e, kind)
+
+            def run(impl, fns=fns, x=x, ws=ws):
+                return fns[impl](x, *ws)
         cases.append(case(
-            "encstack_probe", f"{variant} B/16 bs=1, {layers} layers",
-            lambda impl, v=variant, kw=kw, x=x, ws=ws: fn(
-                v, impl=impl, **kw)(x, *ws), work,
-            primary=variant == "dma",
-            check=compare_exact if variant == "dma" else compare_norm))
+            "encstack_probe", f"{variant} B/16 bs=1, {layers} layers", run,
+            work, primary=variant == "dma",
+            check=compare_dma(ws) if variant == "dma" else compare_norm))
     return cases
 
 
@@ -2149,14 +2184,16 @@ def probe_phase(torch, main_counts: dict) -> dict:
     probe's ``run`` (K22 on the 128 x 128 int8 dot, bit for bit, K12 at
     d=128, mlp=512, the int8 and bf16 dots timed); the attention block in
     every mode at B/16 bs=32 bf16, each held to its plain version, then
-    timed (event ms, nominal-FLOP rate, the core launch's and the block's
-    device ms; three rounds over the modes in turn, medians); K4's core
-    against K23's ``full`` core, bit for bit and in turns; every variant
-    of the encoder probe at the JAX probe's four cases (b = 2, 2, 3, 1;
-    (cq, mt) change no launch), cut to PROBE_CHECK_LAYERS layers and held
-    to its plain version (``dma`` bit for bit), then each timed at 12
-    layers for b = 1, 2, 3 (three rounds; ``@flat`` is the same launch and
-    is not timed twice)."""
+    timed (event and pipelined ms of the block and of the core alone,
+    nominal-FLOP rate, the core launch's profiler ms; the probe's rounds
+    over the modes in turn, medians); K4's core against K23's ``full`` core,
+    bit for bit and in turns; every variant of the encoder probe at the
+    JAX probe's four cases (b = 2, 2, 3, 1; (cq, mt) change no launch), at
+    12 layers (nosm and core at ATTN_CHECK_LAYERS) and held to its plain
+    version (``dma``: x bit for bit and its weight sums), nosm and core by
+    depth,
+    then each timed at 12 layers for b = 1, 2, 3 (the probe's rounds;
+    ``@flat`` is the same launch and is not timed twice)."""
     from vit_tpu_torch.ops.cuda import (KERNELS, launch_counts,
                                         reset_launch_counts)
     from vit_tpu_torch.tools import attn_core_probe as acp
@@ -2206,11 +2243,13 @@ def probe_phase(torch, main_counts: dict) -> dict:
     log(f"[probes] attention block vs plain, bf16 B/16 bs=32, max|diff| by "
         f"mode: {errs}")
     timed = acp.run(tuple(acp.MODES), dtype=torch.bfloat16, warmup=3,
-                    reps=20, rounds=3, **a)
+                    reps=20, **a)
     res["attention_modes_bf16_b16_bs32"] = timed["modes"]
     # K23's full core against K4's on the same packed QKV, in turns (K4,
-    # K23, K23, K4), device ms: on the probe's (its K2 output) and on
-    # N(0, 1) values.
+    # K23, K23, K4): event ms, pipelined ms and the profiler's ms a
+    # launch, on the probe's (its K2 output) and on N(0, 1) values.
+    from vit_tpu_torch.utils.profiling import launch_ms
+    from vit_tpu_torch.utils.timing import pipelined_ms
     from vit_tpu_torch.ops import reference
     from vit_tpu_torch.ops.cuda import block as cuda_block
     xn = reference.layernorm(x.reshape(b * sp, d), w[0], w[1])
@@ -2229,10 +2268,13 @@ def probe_phase(torch, main_counts: dict) -> dict:
                     seq_len=s, scale=core["scale"])}
         if not torch.equal(runs["k4"](), runs["k23"]()):
             raise AssertionError(f"K23 full core != K4's core on {tag}")
-        turns[tag] = [(k, device_ms(torch, runs[k])[0])
+        names = {"k4": "attention_kernel", "k23": "attn_probe_kernel"}
+        turns[tag] = [(k, time_ms(torch, runs[k]), pipelined_ms(runs[k]),
+                       launch_ms(runs[k], names[k]))
                       for k in ("k4", "k23", "k23", "k4")]
-    res["core_k4_vs_k23_device_ms"] = turns
-    log(f"[probes] K4 core vs K23 full core, device ms in turns: {turns}")
+    res["core_k4_vs_k23_ms_pipelined_device"] = turns
+    log(f"[probes] K4 core vs K23 full core, (event ms, pipelined ms, "
+        f"profiler ms) in turns: {turns}")
 
     cases = [tuple(map(int, c.split(","))) for c in em.DEFAULT_CASES]
     variants = em.VARIANTS + ("full",)
@@ -2245,35 +2287,69 @@ def probe_phase(torch, main_counts: dict) -> dict:
         return x, [(torch.randn(sh, generator=gen, device="cuda") * 0.05).to(
             torch.bfloat16) for sh in ((layers, d, 3 * d), (layers, d, d),
                                        (layers, d, mlp), (layers, mlp, d))]
-    inputs = {c: stack_inputs(c[0], PROBE_CHECK_LAYERS) for c in cases}
+    inputs = {c: stack_inputs(c[0], 12) for c in cases}
+
+    def variant_call(c, v, impl=None):
+        """The variant on case c's inputs at its check depth (the weights'
+        first layers), through ``impl``; returns (x, weights, closure)."""
+        L = probe_check_layers(v)
+        x, ws = inputs[c][0], [w[:L] for w in inputs[c][1]]
+        fn = em.make_variant(v + ("" if v == "full" else "@flat"), b=c[0],
+                             sp=sp, d=d, mlp=mlp, L=L, cq=c[1], mt=c[2],
+                             dtype=torch.bfloat16, impl=impl)
+        return x, ws, fn
 
     def run_variants():
-        return {(c, v): em.make_variant(
-            v + ("" if v == "full" else "@flat"), b=c[0], sp=sp, d=d,
-            mlp=mlp, L=PROBE_CHECK_LAYERS, cq=c[1], mt=c[2],
-            dtype=torch.bfloat16)(inputs[c][0], *inputs[c][1])
-            for c in cases for v in variants}
+        outs = {}
+        for c in cases:
+            for v in variants:
+                x, ws, fn = variant_call(c, v)
+                outs[c, v] = fn(x, *ws), fn
+        return outs
     outs = counted("encoder probe B/16 bf16, every variant and case",
                    run_variants,
                    {"encstack_probe": len(cases) * len(em.VARIANTS),
                     "encoder_stack": len(cases)})
     rels = {}
-    for (c, v), out in outs.items():
-        x, ws = inputs[c]
+    for (c, v), (out, fn) in outs.items():
+        x, ws, _ = variant_call(c, v)
         if v == "dma":
             compare_exact(torch, out, x, torch.bfloat16)
+            rels[f"{c} dma sums"] = em.check_weight_sums(fn.weight_sums(),
+                                                         *ws)
             continue
         want = (em.full_encoder(x, *ws, b=c[0], sp=sp, heads=12,
                                 impl="torch") if v == "full"
                 else em.variant_plain(v, x, *ws, b=c[0], sp=sp, heads=12))
-        rels[f"{c} {v}"] = compare_norm(
+        rels[f"{c} {v} L={len(ws[0])}"] = compare_norm(
             torch, out, want, torch.bfloat16)["max_abs_err"]
-    del outs, inputs
-    log(f"[probes] encoder probe vs plain, bf16 B/16 at "
-        f"{PROBE_CHECK_LAYERS} layers, max|diff|: {rels}")
+    del outs
+    log(f"[probes] encoder probe vs plain, bf16 B/16, every variant at 12 "
+        f"layers but nosm and core at {ATTN_CHECK_LAYERS}, max|diff|: {rels}")
+    # nosm and core by depth (b=1): max|x| of the kernel's output and its
+    # relative distance from the plain version; core finite at 12.
+    x, ws = inputs[cases[-1]]
+    by_depth = {}
+    for v in ("nosm", "core"):
+        for L in range(1, 13):
+            fn = em.make_variant(v, b=1, sp=sp, d=d, mlp=mlp, L=L, cq=768,
+                                 mt=512, dtype=torch.bfloat16)
+            out = fn(x, *(w[:L] for w in ws)).float()
+            plain = em.variant_plain(v, x, *(w[:L] for w in ws), b=1,
+                                     sp=sp, heads=12).float()
+            top = float(out.abs().max())
+            rel = float((out - plain).norm() / plain.norm())
+            by_depth[f"{v} L={L}"] = tuple(
+                t if math.isfinite(t) else repr(t) for t in (top, rel))
+            if v == "core" and L == 12 and not math.isfinite(top):
+                raise AssertionError("core at 12 layers: non-finite output")
+    res["nosm_core_max_abs_rel_by_layers"] = by_depth
+    log(f"[probes] nosm and core at b=1, (max|x|, rel to plain) by "
+        f"layers: {by_depth}")
+    del inputs
     res["encoder_variants_bf16_b16"] = em.run(
         [f"{b},768,768" for b in (1, 2, 3)], variants, sp=sp, d=d, mlp=mlp,
-        heads=12, L=12, dtype=torch.bfloat16, reps=10, rounds=3)["rows"]
+        heads=12, L=12, dtype=torch.bfloat16, reps=10)["rows"]
     return res
 
 

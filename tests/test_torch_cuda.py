@@ -1195,6 +1195,54 @@ def test_torch_cuda_attn_core_probe_refuses_fp32_wide_at_208(gen):
         acp.probe("wide", x, *w, num_heads=12, seq_len=197)
 
 
+@pytest.mark.parametrize("mode", ["full", "kt", "tcore", "xcore",
+                                  "projonly"])
+def test_torch_cuda_attn_core_probe_core_only(gen, mode):
+    """``core_only`` replays the block's core launch alone: one K23 launch
+    a call, whose output is the context the block's core made."""
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.tools import attn_core_probe as acp
+
+    b, sp, seq, d, heads = 2, 40, 33, 128, 4
+    x, *w = acp.make_inputs(b, sp, d, seq, torch.bfloat16, "cuda", seed=5)
+    if mode == "xcore":
+        x = x.reshape(b * sp, d).t().contiguous()
+    kw = dict(num_heads=heads, seq_len=seq, group=1, shape=(b, sp, d))
+    seen = []
+
+    def record(*args, **kwargs):
+        seen.append(acp.core_launch(*args, **kwargs).clone())
+        return seen[-1]
+    acp.probe(mode, x, *w, launch_core=record, **kw)
+    call = acp.core_only(mode, x, *w, **kw)
+    if mode == "projonly":
+        assert call is None and not seen
+        return
+    reset_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(attn_core_probe=1)
+    assert torch.equal(got, seen[0])
+
+
+def test_torch_cuda_kernel_times(gen):
+    """``kernel_times`` on a call of two launches of one kernel and one of
+    another: their launches a call and a positive time a launch;
+    ``launch_ms`` and ``pipelined_ms`` on the same call."""
+    from vit_tpu_torch.utils.profiling import kernel_times
+
+    a = _rnd(gen, torch.float32, 1024, 1024)
+
+    def fn():
+        return torch.exp(a), torch.exp(a), torch.sin(a)
+    got = kernel_times(fn, 5)
+    assert sorted(n for _, n in got.values()) == [1, 2], got
+    assert all(ms > 0 for ms, _ in got.values())
+    from vit_tpu_torch.utils.profiling import launch_ms
+    from vit_tpu_torch.utils.timing import pipelined_ms
+    assert launch_ms(fn, "exp") > 0 and pipelined_ms(fn) > 0
+
+
 def test_torch_cuda_attn_core_probe_main(gen):
     from vit_tpu_torch.tools import attn_core_probe as acp
     assert acp.main(["--batch", "4", "--group", "2", "--modes", "full",
@@ -1206,9 +1254,10 @@ def test_torch_cuda_attn_core_probe_main(gen):
                                      "lnqkv", "nosm", "core"])
 def test_torch_cuda_encstack_probe(gen, dtype, variant):
     """K24 in every variant at b=3, 24 tokens, D=128, MLP 256, 2 layers,
-    against the plain version: ``dma`` returns x bit for bit; the others
-    within the whole-encoder bars (fp32 relative 1e-5, bf16 relative
-    2e-2: lnqkv's QKV rounds the LN output to bf16 where JAX's does not)."""
+    against the plain version: ``dma`` returns x bit for bit and the
+    weight sums it streamed (``check_weight_sums``); the others within
+    the whole-encoder bars (fp32 relative 1e-5, bf16 relative 2e-2:
+    lnqkv's QKV rounds the LN output to bf16 where JAX's does not)."""
     from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from vit_tpu_torch.tools import encstack_minrepro as em
 
@@ -1224,6 +1273,10 @@ def test_torch_cuda_encstack_probe(gen, dtype, variant):
     assert launch_counts() == _counts(encstack_probe=1)
     if variant == "dma":
         assert torch.equal(got, x)
+        em.check_weight_sums(fn.weight_sums(), *ws)
+        with pytest.raises(AssertionError, match="weight sums"):
+            em.check_weight_sums(fn.weight_sums(), ws[0], ws[1], ws[2],
+                                 ws[3] * 0.99)
         return
     want = em.variant_plain(variant, x, *ws, b=b, sp=sp, heads=4)
     assert torch.isfinite(got.float()).all()

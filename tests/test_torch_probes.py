@@ -326,6 +326,29 @@ def test_torch_encstack_full_matches_pallas_encoder_stack(monkeypatch):
     _close(got, want.reshape(SB * SSP, d), "float32")
 
 
+def test_torch_encstack_dma_weight_sums():
+    """``dma``'s kept sums: a (layer, tensor) table equal to numpy's
+    float64 sums within the check's bar, which fails a stream that skips
+    one layer of one tensor or a 64th of a tensor."""
+    _, (x, *ws) = _stack_inputs()
+    fn = encstack_minrepro.make_variant(
+        "dma", b=SB, sp=SSP, d=SD, mlp=SMLP, L=SL, cq=64, mt=64,
+        dtype=torch.float32, heads=SHEADS)
+    with pytest.raises(RuntimeError, match="no dma call"):
+        fn.weight_sums()
+    assert torch.equal(fn(x, *ws), x)
+    got = fn.weight_sums()
+    want = np.stack([w.double().numpy().sum((1, 2)) for w in ws], 1)
+    np.testing.assert_allclose(got.double().numpy(), want, rtol=0,
+                               atol=1e-5)
+    assert encstack_minrepro.check_weight_sums(got, *ws) <= 1e-5
+    for bad in (got * torch.tensor([[1.0], [0.0]]),  # layer 1 skipped
+                got - torch.stack([w[:, :, ::64].float().sum((1, 2))
+                                   for w in ws], 1)):
+        with pytest.raises(AssertionError, match="weight sums"):
+            encstack_minrepro.check_weight_sums(bad, *ws)
+
+
 def test_torch_encstack_variant_checks():
     with pytest.raises(ValueError, match="unknown variant"):
         encstack_minrepro.parse_variant("full@flat")

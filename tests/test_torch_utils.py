@@ -4,13 +4,16 @@ tests of ``tests/test_utils.py`` on ``timed``, ``do_bench`` and
 times come from the host clock; on a card, from CUDA events."""
 
 import logging
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 from vit_tpu_torch.utils import do_bench, tensor_info, timed
-from vit_tpu_torch.utils.profiling import deterministic, trace
-from vit_tpu_torch.utils.timing import benchmark_sweep
+from vit_tpu_torch.utils import profiling
+from vit_tpu_torch.utils.profiling import (deterministic, kernel_times,
+                                           launch_ms, trace)
+from vit_tpu_torch.utils.timing import benchmark_sweep, pipelined_ms
 
 
 def test_torch_tensor_info_logs_shapes(caplog):
@@ -80,3 +83,55 @@ def test_torch_deterministic_sets_and_restores():
     with pytest.raises(RuntimeError), deterministic():
         raise RuntimeError("restored on the way out")
     assert torch.are_deterministic_algorithms_enabled() == before[0]
+
+
+def test_torch_pipelined_ms_on_the_cpu():
+    """Off the card the calls are timed one by one, on the host clock."""
+    assert pipelined_ms(lambda: torch.ones((8,)) + 1, warmup=1, reps=5) > 0
+
+
+def _fake_profiler(monkeypatch, *windows):
+    """``torch.profiler.profile`` replaced by windows of (kernel, total
+    us, records), one a profile in turn, and no card to synchronise."""
+    import torch.profiler
+
+    windows = iter(windows)
+
+    class Profile:
+        def __init__(self, activities):
+            self.events = next(windows)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [SimpleNamespace(key=k, self_device_time_total=us, count=n)
+                    for k, us, n in self.events]
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(profiling.torch.cuda, "synchronize", lambda: None)
+
+
+def test_torch_kernel_times_divides_by_the_records(monkeypatch):
+    """A launch's time is the total over the records kept; the launches a
+    call are the records over the calls rounded (records the profiler
+    missed), where that is at least one, and as they stand below."""
+    _fake_profiler(monkeypatch, [("core", 8000.0, 8), ("gemm", 380.0, 19),
+                                 ("lazy", 60.0, 3), ("idle", 0.0, 10)])
+    got = kernel_times(lambda: None, 10)
+    assert got["core"] == (1.0, 1) and got["gemm"] == (0.02, 2)
+    assert got["lazy"] == (pytest.approx(0.02), pytest.approx(0.3))
+    assert "idle" not in got
+    assert sum(ms * n for ms, n in got.values()) == pytest.approx(1.046)
+
+
+def test_torch_launch_ms_takes_the_first_window_that_kept_the_kernel(
+        monkeypatch):
+    _fake_profiler(monkeypatch, [("copy", 50.0, 10)],
+                   [("copy", 50.0, 10), ("void stack_kernel<bf16>", 700.0, 2)],
+                   [("copy", 50.0, 10)], [("copy", 50.0, 10)],
+                   [("copy", 50.0, 10)])
+    assert launch_ms(lambda: None, "stack_kernel", 10) == 0.35
+    assert launch_ms(lambda: None, "stack_kernel", 10) is None

@@ -10,9 +10,11 @@
 // kept and the bodies stripped. The variants, per layer (phases 1-5 as in
 // encoder_stack.cu: QKV, attention, out-projection, fc1, fc2):
 //   dma      every weight byte of the layer read once and summed, nothing
-//            else: x comes back unchanged. The sums are dead stores; the
-//            kernel still writes them (to `sink`, a buffer the wrapper
-//            keeps), or nvcc would drop the reads being timed.
+//            else: x comes back unchanged. The JAX kernel's sums are dead
+//            stores; here each block writes its sum of each (layer, weight
+//            tensor) to `sink`, a buffer the wrapper keeps, so nvcc keeps
+//            the reads being timed and the wrapper can hold the stream to
+//            the weights' sums.
 //   scratch  QKV (x @ Wqkv, no LN, no bias), then in the attention phase
 //            x += round(q * 0.001) over all rows, b times (the JAX
 //            kernel's b attention steps each touch the whole scratch), then
@@ -72,7 +74,7 @@ struct ProbeStackArgs {
   T* ctx;        // (m, D) attention context (or q's copy)
   T* hid;        // (m, mlp) fc1 output
   float* acc;    // (m, D) the running fp32 MLP sum
-  float* sink;   // dma: one dead sum a thread
+  float* sink;   // dma: (grid, layers, 4) block sums of the weights
   const T *wqkv, *wout, *w1, *w2;  // stacked along a leading layers axis
   const T *ones, *zeros;           // (D,): the LN's unit scale, zero bias
   int b, sp, d, mlp, heads, layers;
@@ -158,6 +160,23 @@ __device__ __forceinline__ float stream_sum(const T* __restrict__ w,
   return s;
 }
 
+// dma's phase: the block's part of the sum of n values of w, written to
+// sink[slot] by its thread 0. red: kMmThreads / 32 floats of shared memory.
+template <typename T>
+__device__ __forceinline__ void stream_phase(const T* __restrict__ w,
+                                             size_t n, float* sink,
+                                             size_t slot, float* red) {
+  const float s = warp_sum(stream_sum(w, n));
+  __syncthreads();  // red is free: the last phase's reads are done
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int i = 0; i < kMmThreads / 32; ++i) t += red[i];
+    sink[slot] = t;
+  }
+}
+
 template <typename T, int V>
 __global__ void __launch_bounds__(kMmThreads, 1)
     encstack_probe_kernel(ProbeStackArgs<T> a) {
@@ -169,7 +188,7 @@ __global__ void __launch_bounds__(kMmThreads, 1)
   const size_t threads = static_cast<size_t>(gridDim.x) * kMmThreads;
   const size_t md = static_cast<size_t>(m) * D;
   constexpr bool kLnQkv = V == kVarLnqkv;
-  float dead = 0.f;
+  float* red = reinterpret_cast<float*>(smem);  // dma's block sums
 
   // The accumulator is zeroed once; phase 5 of layer 0 first reads it,
   // four grid barriers later.
@@ -184,9 +203,11 @@ __global__ void __launch_bounds__(kMmThreads, 1)
     const size_t lq = static_cast<size_t>(l) * D * 3 * D;
     const size_t lo = static_cast<size_t>(l) * D * D;
     const size_t lm = static_cast<size_t>(l) * D * a.mlp;
+    const size_t slot = (static_cast<size_t>(blockIdx.x) * a.layers + l) * 4;
     // 1. QKV.
     if constexpr (V == kVarDma)
-      dead += stream_sum(a.wqkv + lq, static_cast<size_t>(D) * 3 * D);
+      stream_phase(a.wqkv + lq, static_cast<size_t>(D) * 3 * D, a.sink,
+                   slot + 0, red);
     else
       gemm_phase<kLnQkv>(a.x, a.wqkv + lq, m, 3 * D, D, a.ones, a.zeros,
                          a.eps, StoreRounded<T>{a.qkv, 3 * D, false}, smem);
@@ -217,7 +238,8 @@ __global__ void __launch_bounds__(kMmThreads, 1)
     grid.sync();
     // 3. Out-projection.
     if constexpr (V == kVarDma)
-      dead += stream_sum(a.wout + lo, static_cast<size_t>(D) * D);
+      stream_phase(a.wout + lo, static_cast<size_t>(D) * D, a.sink,
+                   slot + 1, red);
     else if constexpr (V == kVarNodots || V == kVarLnqkv)
       gemm_phase<true>(a.ctx, a.wout + lo, m, D, D, a.ones, a.zeros, a.eps,
                        AddRounded<T>{a.x, D}, smem);
@@ -227,20 +249,21 @@ __global__ void __launch_bounds__(kMmThreads, 1)
     grid.sync();
     // 4. fc1.
     if constexpr (V == kVarDma)
-      dead += stream_sum(a.w1 + lm, static_cast<size_t>(D) * a.mlp);
+      stream_phase(a.w1 + lm, static_cast<size_t>(D) * a.mlp, a.sink,
+                   slot + 2, red);
     else
       gemm_phase<kLnQkv>(a.x, a.w1 + lm, m, a.mlp, D, a.ones, a.zeros, a.eps,
                          StoreRounded<T>{a.hid, a.mlp, kLnQkv}, smem);
     grid.sync();
     // 5. fc2 into the running accumulator.
     if constexpr (V == kVarDma)
-      dead += stream_sum(a.w2 + lm, static_cast<size_t>(a.mlp) * D);
+      stream_phase(a.w2 + lm, static_cast<size_t>(a.mlp) * D, a.sink,
+                   slot + 3, red);
     else
       gemm_phase<false>(a.hid, a.w2 + lm, m, D, a.mlp, a.ones, a.zeros,
                         a.eps, Accumulate<T>{a.acc, a.x, D}, smem);
     grid.sync();
   }
-  if constexpr (V == kVarDma) a.sink[tid] = dead;
 }
 
 template <typename T, int V>
@@ -251,7 +274,7 @@ cudaError_t launch_encstack_probe(ProbeStackArgs<T> a, int sink_len,
   int grid = 0;
   cudaError_t err = persistent_grid(kernel, smem, device, &grid);
   if (err != cudaSuccess) return err;
-  if (static_cast<long long>(grid) * kMmThreads > sink_len)
+  if (static_cast<long long>(grid) * a.layers * 4 > sink_len)
     return cudaErrorInvalidValue;
   return launch_persistent(kernel, a, smem, grid, st);
 }
@@ -302,10 +325,11 @@ cudaError_t launch_encstack_probe_typed(void* x, void* qkv, void* ctx,
 
 // x (b*sp, d): the working activation, holding the input and, after the
 // launch, the output; qkv (b*sp, 3d), ctx (b*sp, d), hid (b*sp, mlp) and
-// acc (b*sp, d) fp32 scratch; sink (sink_len,) fp32, one float a thread
-// of the grid; the stacked weights wqkv (L, d, 3d), wout (L, d, d), w1
-// (L, d, mlp), w2 (L, mlp, d); ones and zeros (d,); variant a
-// StackProbeVariant.
+// acc (b*sp, d) fp32 scratch; sink (sink_len,) fp32, zeroed by the
+// caller, at least (grid, L, 4): dma's block sums of wqkv, wout, w1 and w2
+// of each layer (the rows past the grid stay zero); the stacked weights
+// wqkv (L, d, 3d), wout (L, d, d), w1 (L, d, mlp), w2 (L, mlp, d); ones
+// and zeros (d,); variant a StackProbeVariant.
 extern "C" int vit_encstack_probe(void* x, void* qkv, void* ctx, void* hid,
                                   void* acc, void* sink, int sink_len,
                                   const void* wqkv, const void* wout,

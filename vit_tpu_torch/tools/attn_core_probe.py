@@ -45,14 +45,17 @@ kept for its check (the batch must be a multiple of it). In fp32 a core
 tile at 208 tokens fits shared memory at head width 64, not at ``wide``'s
 128: fp32 ``wide`` runs only at a length that fits.
 
-For each mode it prints the block's time by CUDA events (median of the
-calls, :func:`vit_tpu_torch.utils.timing.do_bench`), the nominal-FLOP rate
-of the JAX probe, and the device time of the core launch alone from
-``torch.profiler``, then one JSON line. With ``--rounds`` the modes are
-timed in turn that many times and the medians reported: on an NVIDIA
-H100 80GB HBM3 at 700 W the core's device time on the same inputs read
-from 0.70 to 1.07 ms from one measurement to the next. ``--device cpu`` runs the plain
-versions once and times nothing::
+For each mode it prints the block's time by CUDA events around each call
+(median, :func:`vit_tpu_torch.utils.timing.do_bench`, host launch cost
+included), the nominal-FLOP rate of the JAX probe, the block's pipelined
+time (calls queued back to back: its device time,
+:func:`vit_tpu_torch.utils.timing.pipelined_ms`), and the same two for
+the core launch alone on the inputs the block gives it
+(:func:`core_only`), beside the core launch's device time from
+``torch.profiler`` (:func:`vit_tpu_torch.utils.profiling.launch_ms`: over
+the records kept), then one JSON line. The modes are timed in turn ROUNDS
+times and the medians reported. ``--device cpu`` runs the plain versions
+once and times nothing::
 
     python -m vit_tpu_torch.tools.attn_core_probe --batch 32 --group 4 \\
         --modes full nosm mxu wide projonly
@@ -79,6 +82,9 @@ MODES = {"full": 0, "maskonly": 1, "nosm": 2, "mxu": 3, "divonly": 4,
          "projonly": None, "tcore": 15, "xcore": 15}
 #: The JAX probe's default modes.
 DEFAULT_MODES = ("full", "nosm", "mxu", "wide", "projonly")
+#: Rounds over every mode on the card; medians reported (one round's
+#: reading of a launch moves by several per cent).
+ROUNDS = 3
 #: Modes whose keys at index >= seq_len are masked.
 MASKED = ("full", "maskonly", "addmask", "vsum", "qcore", "kt", "tcore",
           "xcore")
@@ -317,12 +323,15 @@ def _gemm(x, w, bias, ep: int, *, out_shape, res=None, alt=None, d: int):
 
 def probe(mode: str, x, g1, be1, wqkv, bqkv, wout, bout, *, num_heads: int,
           seq_len: int, group: int = 1, shape=None, eps: float = 1e-12,
-          weights_t=None, impl: str | None = None) -> torch.Tensor:
+          weights_t=None, impl: str | None = None,
+          launch_core=None) -> torch.Tensor:
     """The block in ``mode``: on CUDA tensors through the kernels (K1, K2
     and K23, :func:`launches`), on CPU tensors :func:`probe_plain`. x is
     (B, SP, D), or (D, B*SP) for xcore. ``weights_t`` = ``(wqkv.T, wout.T)``
     contiguous, for tcore and xcore (made here if not given: the JAX probe
-    transposes them on the host)."""
+    transposes them on the host). ``launch_core`` stands in for
+    :func:`core_launch` (:func:`core_only` records the core's inputs
+    through it)."""
     b, sp, d = shape if shape is not None else x.shape
     if resolve_impl(impl, x) == "torch":
         return probe_plain(mode, x, g1, be1, wqkv, bqkv, wout, bout,
@@ -331,6 +340,8 @@ def probe(mode: str, x, g1, be1, wqkv, bqkv, wout, bout, *, num_heads: int,
     from vit_tpu_torch.ops.cuda import _build, count_launch
     from vit_tpu_torch.ops.cuda.layernorm import layernorm
     from vit_tpu_torch.ops.cuda.matmul import matmul
+
+    launch_core = launch_core or core_launch
 
     _check(mode, x, b=b, sp=sp, d=d, num_heads=num_heads, seq_len=seq_len,
            group=group)
@@ -359,7 +370,7 @@ def probe(mode: str, x, g1, be1, wqkv, bqkv, wout, bout, *, num_heads: int,
             xf = x.reshape(m, d)
             qkv_t = _gemm(layernorm(xf, g1, be1, eps=eps), wqkv, bqkv,
                           EP_ALL_T, out_shape=(3 * d, m), d=d)
-        ctx_t = core_launch(mode, None, qkv_t, torch.empty((d, m), **kw),
+        ctx_t = launch_core(mode, None, qkv_t, torch.empty((d, m), **kw),
                             **core)
         if mode == "xcore":
             return _gemm(wout_t, ctx_t, bout, EP_OUT_X, out_shape=(d, m),
@@ -375,46 +386,43 @@ def probe(mode: str, x, g1, be1, wqkv, bqkv, wout, bout, *, num_heads: int,
         k_t = torch.empty((d, m), **kw)
         qkv = _gemm(xn, wqkv, bqkv, EP_SPLIT_KT, out_shape=(m, 3 * d),
                     alt=k_t, d=d)
-        ctx = core_launch(mode, qkv, k_t, torch.empty((m, d), **kw),
+        ctx = launch_core(mode, qkv, k_t, torch.empty((m, d), **kw),
                           **core)
     else:
         qkv = matmul(xn, wqkv, bqkv)
-        ctx = core_launch(mode, qkv, None, torch.empty((m, d), **kw),
+        ctx = launch_core(mode, qkv, None, torch.empty((m, d), **kw),
                           **core)
     return matmul(ctx, wout, bout, residual=xf).reshape(b, sp, d)
 
 
-def core_device_ms(fn, iters: int = 10) -> tuple[float | None, float]:
-    """Device ms a call of the core launch (None where there is none) and
-    of all of ``fn``'s kernels, from ``torch.profiler`` over ``iters``
-    calls after one."""
-    from torch.profiler import ProfilerActivity, profile
+def core_only(mode: str, x, *weights, **kw):
+    """A call of the K23 core launch alone, ``fn() -> ctx``, on the inputs
+    the block in ``mode`` gives it (the block runs once here to make them);
+    None for projonly, which launches no core. ``weights`` and ``kw`` are
+    :func:`probe`'s."""
+    from functools import partial
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    core, total = 0.0, 0.0
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        total += us
-        if "attn_probe_kernel" in e.key:
-            core += us
-    return (core / iters / 1e3 if core else None), total / iters / 1e3
+    got = {}
+
+    def record(*args, **kwargs):
+        got["call"] = partial(core_launch, *args, **kwargs)
+        return got["call"]()
+    probe(mode, x, *weights, launch_core=record, **kw)
+    return got.get("call")
 
 
 def run(modes=DEFAULT_MODES, *, batch: int = 32, sp: int = 208,
         seq_len: int = 197, d: int = 768, heads: int = 12, group: int = 4,
         dtype: torch.dtype = torch.bfloat16, device: str = "cuda",
-        warmup: int = 5, reps: int = 20, rounds: int = 1) -> dict:
+        warmup: int = 5, reps: int = 20) -> dict:
     """The block in each of ``modes`` on the JAX probe's inputs; on the
-    card each is timed ``rounds`` times, the modes in turn within a round
-    (event ms of the block, its nominal-FLOP rate, the core launch's and
-    the block's device ms), and each number is the median over the rounds.
-    Returns what :func:`main` prints."""
-    from vit_tpu_torch.utils.timing import do_bench
+    card each is timed ROUNDS times, the modes in turn within a round (the
+    block's event ms, its nominal-FLOP rate and its pipelined ms; the core
+    launch alone by events and pipelined, and its device ms from the
+    profiler), and each number is the median over the rounds. Returns what
+    :func:`main` prints."""
+    from vit_tpu_torch.utils.profiling import launch_ms
+    from vit_tpu_torch.utils.timing import do_bench, pipelined_ms
 
     require_device(device)
     on_card = device.startswith("cuda")
@@ -423,36 +431,49 @@ def run(modes=DEFAULT_MODES, *, batch: int = 32, sp: int = 208,
     weights_t = (weights[2].t().contiguous(), weights[4].t().contiguous())
     xt = x.reshape(batch * sp, d).t().contiguous()
     tflop = nominal_flops(batch, sp, d) / 1e12
+    kw = dict(num_heads=heads, seq_len=seq_len, group=group,
+              shape=(batch, sp, d), weights_t=weights_t)
     blocks = {}
     for mode in modes:
-        def block(mode=mode):
-            return probe(mode, xt if mode == "xcore" else x, *weights,
-                         num_heads=heads, seq_len=seq_len, group=group,
-                         shape=(batch, sp, d), weights_t=weights_t)
+        xin = xt if mode == "xcore" else x
+
+        def block(mode=mode, xin=xin):
+            return probe(mode, xin, *weights, **kw)
         if not bool(torch.isfinite(block().float()).all()):
             raise RuntimeError(f"{mode}: non-finite output")
         if not on_card:
             print(f"{mode:10s} ran on the CPU (plain version)", flush=True)
-        blocks[mode] = block
-    samples = {mode: [] for mode in modes}
-    for _ in range(rounds if on_card else 0):
-        for mode, block in blocks.items():
-            ms = do_bench(block, warmup=warmup, reps=reps)[0]
-            samples[mode].append((ms, *core_device_ms(block)))
+            continue
+        blocks[mode] = (block, core_only(mode, xin, *weights, **kw))
+    samples = {mode: [] for mode in blocks}
+    for _ in range(ROUNDS):
+        for mode, (block, core) in blocks.items():
+            samples[mode].append((
+                do_bench(block, warmup=warmup, reps=reps)[0],
+                pipelined_ms(block, warmup=warmup, reps=reps),
+                *((do_bench(core, warmup=warmup, reps=reps)[0],
+                   pipelined_ms(core, warmup=warmup, reps=reps),
+                   launch_ms(block, "attn_probe_kernel"))
+                  if core is not None else (None, None, None))))
     rows = {}
     for mode, got in samples.items():
-        if not got:
-            continue
-        ms, core, dev = (float(np.median(v)) if None not in v else None
-                         for v in zip(*got))
+        ms, pipe, core_ms, core_pipe, core_dev = (
+            float(np.median(kept)) if kept else None
+            for kept in ([t for t in v if t is not None]
+                         for v in zip(*got)))
         rows[mode] = {"ms": ms, "tflops": tflop / (ms / 1e3),
-                      "core_device_ms": core, "device_ms": dev,
-                      "core_device_ms_rounds": [g[1] for g in got]}
-        shown = "no core launch" if core is None else f"{core:.4f}"
-        print(f"{mode:10s} {ms:.4f} ms   {tflop / (ms / 1e3):6.1f} TF/s "
-              f"(nominal-FLOP rate)   core device ms {shown}   block device "
-              f"ms {dev:.4f}", flush=True)
-    return {"modes": rows, "shape": [batch, sp, d], "rounds": rounds,
+                      "pipelined_ms": pipe, "core_ms": core_ms,
+                      "core_pipelined_ms": core_pipe,
+                      "core_device_ms": core_dev,
+                      "core_pipelined_ms_rounds": [g[3] for g in got]}
+        shown = ("no core launch" if core_ms is None else
+                 f"{core_ms:.4f} (pipelined {core_pipe:.4f}, profiler "
+                 + ("none kept" if core_dev is None else f"{core_dev:.4f}")
+                 + ")")
+        print(f"{mode:10s} {ms:.4f} ms (pipelined {pipe:.4f})  "
+              f"{tflop / (ms / 1e3):6.1f} TF/s (nominal-FLOP rate)   core "
+              f"ms {shown}", flush=True)
+    return {"modes": rows, "shape": [batch, sp, d], "rounds": ROUNDS,
             "dtype": str(dtype).replace("torch.", ""), "device": device,
             "card": card_line() if on_card else None}
 
@@ -472,14 +493,12 @@ def main(argv: list[str] | None = None) -> int:
                          "versions, not timed)")
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--rounds", type=int, default=1,
-                    help="times over every mode, in turn; medians reported")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.modes, batch=args.batch, sp=args.sp,
                          seq_len=args.seq_len, d=args.D, heads=args.heads,
                          group=args.group, dtype=getattr(torch, args.dtype),
                          device=args.device, warmup=args.warmup,
-                         reps=args.reps, rounds=args.rounds)))
+                         reps=args.reps)))
     return 0
 
 

@@ -11,9 +11,11 @@ variant's ingredients, as the JAX probe's ``make_variant``
 (``tools/encstack_minrepro.py:54-248``) does on the TPU:
 
 =======  ================================================================
-dma      every weight byte read once and summed into dead stores; x
-         comes back unchanged. K9's weight stream alone: the number to
-         hold against the bound
+dma      every weight byte read once and summed; x comes back
+         unchanged. K9's weight stream alone: the number to hold against
+         the bound. JAX's sums are dead stores; here they are kept, a sum
+         a layer and weight tensor (``fn.weight_sums()``), and held to
+         :func:`weight_sums_plain`
 scratch  x @ Wqkv into the QKV buffer; ``x += round(q * 0.001)`` over
          all rows, b times; fc1, fc2 into an fp32 sum zeroed once and
          never again (each layer's x is the running sum)
@@ -32,9 +34,13 @@ same launch. ``(cq, mt)`` are JAX's QKV and MLP chunk widths: they change
 only the order of the fp32 sums, so the port keeps K9's tiles and reports
 the pair as given.
 
-For each case and variant it prints the time (CUDA events, median of the
-calls) and the time a layer, then one JSON line. ``--device cpu`` runs the
-plain versions once and times nothing::
+For each case and variant it prints the time (CUDA events around each
+call, median, host launch cost included), the time a layer, the pipelined
+time (calls queued back to back: the launch's device time) and the
+launch's device time from ``torch.profiler`` (over the records kept),
+each the median of ROUNDS rounds over the cases and variants in turn,
+then one JSON line. ``--device cpu`` runs the plain versions once and
+times nothing::
 
     python -m vit_tpu_torch.tools.encstack_minrepro --variants dma core full
 """
@@ -57,6 +63,9 @@ VARIANTS = ("dma", "scratch", "rows", "nodots", "lnqkv", "nosm", "core")
 #: The JAX probe's default cases (b, cq, mt) and variants.
 DEFAULT_CASES = ("2,768,768", "2,768,512", "3,768,768", "1,768,512")
 DEFAULT_VARIANTS = ("dma", "scratch", "rows", "nodots", "full")
+#: Rounds over every case and variant on the card; medians reported (a
+#: launch's reading moves from one round to the next).
+ROUNDS = 3
 
 
 def parse_variant(variant: str) -> str:
@@ -138,9 +147,61 @@ def variant_plain(variant: str, x, wqkv, wout, w1, w2, *, b: int, sp: int,
     return xcur
 
 
-def _stack_kernel(variant: str, x, wqkv, wout, w1, w2, *, b, sp, heads,
-                  eps):
-    """One K24 launch (counted as ``encstack_probe``)."""
+def weight_sums_plain(wqkv, wout, w1, w2) -> torch.Tensor:
+    """(L, 4) fp32: the sum of each layer's wqkv, wout, w1 and w2, what
+    ``dma`` streams."""
+    return torch.stack([w.float().sum((1, 2)) for w in (wqkv, wout, w1, w2)],
+                       1)
+
+
+def check_weight_sums(got, wqkv, wout, w1, w2, rtol: float = 1e-5) -> float:
+    """Hold ``dma``'s (L, 4) sums to :func:`weight_sums_plain`: each within
+    ``rtol`` of the sum of the tensor's magnitudes (fp32 sums in another
+    order differ by ~1e-7 of it; a tensor or a layer skipped, or a 64th of
+    a tensor, moves a sum by far more). Returns max|diff|."""
+    want = weight_sums_plain(wqkv, wout, w1, w2).to(got.device)
+    mags = torch.stack([w.float().abs().sum((1, 2))
+                        for w in (wqkv, wout, w1, w2)], 1).to(got.device)
+    diff = (got.float() - want).abs()
+    if tuple(got.shape) != tuple(want.shape) or not bool(
+            (diff <= rtol * mags).all()):
+        raise AssertionError(f"dma's weight sums are off: max|diff| "
+                             f"{float(diff.max())}, bar {rtol} x sum|w|")
+    return float(diff.max())
+
+
+#: Threads a block of K24 (``kMmThreads``).
+STACK_THREADS = 256
+
+
+class _Scratch:
+    """K24's buffers for one ``make_variant`` closure, made at its first
+    launch on a card and kept, so that a timed call holds the launch alone:
+    the QKV, context, hidden and fp32 accumulator buffers, the LN's unit
+    scale and zero bias, and ``dma``'s sink, zeroed once, (blocks, L, 4)
+    block sums with a row for every block the card can hold (at most 2048
+    threads an SM)."""
+
+    def __init__(self, x, *, L: int, mlp: int):
+        m, d = x.shape
+        kw = dict(dtype=x.dtype, device=x.device)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        self.device = x.device
+        self.qkv = torch.empty((m, 3 * d), **kw)
+        self.ctx = torch.empty((m, d), **kw)
+        self.hid = torch.empty((m, mlp), **kw)
+        self.acc = torch.empty((m, d), **f32)
+        self.ones, self.zeros = torch.ones(d, **kw), torch.zeros(d, **kw)
+        blocks = torch.cuda.get_device_properties(
+            x.device).multi_processor_count * 2048 // STACK_THREADS
+        self.sink = torch.zeros((blocks, L, 4), **f32)
+
+
+def _stack_kernel(variant: str, x, wqkv, wout, w1, w2, scratch: _Scratch, *,
+                  b, sp, heads, eps):
+    """One K24 launch (counted as ``encstack_probe``) with the buffers of
+    ``scratch``. ``dma`` leaves x alone and returns it; the others return
+    a new tensor."""
     from vit_tpu_torch.ops.cuda import _build, count_launch
     from vit_tpu_torch.ops.cuda.block import MAX_SMEM, attention_smem_bytes
 
@@ -155,17 +216,12 @@ def _stack_kernel(variant: str, x, wqkv, wout, w1, w2, *, b, sp, heads,
     if smem > MAX_SMEM:
         raise ValueError(f"the attention routine does not take head_dim "
                          f"{d // heads} at {sp} tokens ({smem} B)")
-    kw = dict(dtype=x.dtype, device=x.device)
-    work = x.clone()  # the kernel updates the activation in place
-    # One dead sum a thread of the grid: at most 2048 threads an SM.
-    sink_len = torch.cuda.get_device_properties(
-        x.device).multi_processor_count * 2048
-    _build.launch("vit_encstack_probe", work, torch.empty((m, 3 * d), **kw),
-                  torch.empty((m, d), **kw), torch.empty((m, mlp), **kw),
-                  torch.empty((m, d), dtype=torch.float32, device=x.device),
-                  torch.empty(sink_len, dtype=torch.float32, device=x.device),
-                  sink_len, wqkv, wout, w1, w2, torch.ones(d, **kw),
-                  torch.zeros(d, **kw), b, sp, d, mlp, heads, L,
+    # The kernel updates the activation in place; dma never writes it.
+    work = x if variant == "dma" else x.clone()
+    s = scratch
+    _build.launch("vit_encstack_probe", work, s.qkv, s.ctx, s.hid, s.acc,
+                  s.sink, s.sink.numel(), wqkv, wout, w1, w2, s.ones,
+                  s.zeros, b, sp, d, mlp, heads, L,
                   float((d // heads) ** -0.5), float(eps),
                   VARIANTS.index(variant), like=x)
     count_launch("encstack_probe")
@@ -199,13 +255,17 @@ def make_variant(variant: str, *, b: int, sp: int, d: int, mlp: int, L: int,
     included, each other with or without ``@flat``) on x (b*sp, d) and the
     stacked weights, through K24 (K9 for full) on CUDA tensors and the plain
     versions on CPU tensors. ``cq`` and ``mt`` are checked as JAX's chunk
-    widths and do not change the launch."""
+    widths and do not change the launch. After a ``dma`` call,
+    ``fn.weight_sums()`` is its (L, 4) fp32 sums of the weights (the
+    kernel's sink, or :func:`weight_sums_plain` on the CPU)."""
     base = parse_variant(variant)
     if (3 * d) % cq or mlp % mt:
         raise ValueError(f"cq={cq} must divide 3d={3 * d} and mt={mt} must "
                          f"divide mlp={mlp}")
     if d % heads:
         raise ValueError(f"d={d} not divisible by {heads} heads")
+
+    state: dict = {}
 
     def fn(x, wqkv, wout, w1, w2):
         if tuple(x.shape) != (b * sp, d) or x.dtype != dtype:
@@ -218,22 +278,37 @@ def make_variant(variant: str, *, b: int, sp: int, d: int, mlp: int, L: int,
             return full_encoder(x, wqkv, wout, w1, w2, b=b, sp=sp,
                                 heads=heads, impl=impl)
         if resolve_impl(impl, x) == "torch":
+            if base == "dma":
+                state["sums"] = lambda: weight_sums_plain(wqkv, wout, w1, w2)
             return variant_plain(base, x, wqkv, wout, w1, w2, b=b, sp=sp,
                                  heads=heads, eps=eps)
-        return _stack_kernel(base, x, wqkv, wout, w1, w2, b=b, sp=sp,
-                             heads=heads, eps=eps)
+        scratch = state.get("scratch")
+        if scratch is None or scratch.device != x.device:
+            scratch = state["scratch"] = _Scratch(x, L=L, mlp=mlp)
+        if base == "dma":
+            state["sums"] = lambda: scratch.sink.sum(0)
+        return _stack_kernel(base, x, wqkv, wout, w1, w2, scratch, b=b,
+                             sp=sp, heads=heads, eps=eps)
+
+    def weight_sums() -> torch.Tensor:
+        if "sums" not in state:
+            raise RuntimeError("weight_sums: no dma call yet")
+        return state["sums"]()
+    fn.weight_sums = weight_sums
     return fn
 
 
 def run(cases=DEFAULT_CASES, variants=DEFAULT_VARIANTS, *, sp: int = 208,
         d: int = 768, mlp: int = 3072, heads: int = 12, L: int = 12,
         dtype: torch.dtype = torch.bfloat16, device: str = "cuda",
-        reps: int = 10, rounds: int = 1) -> dict:
+        reps: int = 10) -> dict:
     """Each variant of each ``"b,cq,mt"`` case on the JAX probe's inputs;
-    on the card each is timed ``rounds`` times, the variants in turn within
-    a round (CUDA events, median of ``reps`` calls), and the median over
-    the rounds reported. Returns what :func:`main` prints."""
-    from vit_tpu_torch.utils.timing import do_bench
+    on the card each is timed ROUNDS times, the variants in turn within a
+    round (CUDA events, median of ``reps`` calls; pipelined; the launch's
+    device ms from the profiler), and the medians over the rounds
+    reported. Returns what :func:`main` prints."""
+    from vit_tpu_torch.utils.profiling import launch_ms
+    from vit_tpu_torch.utils.timing import do_bench, pipelined_ms
 
     require_device(device)
     on_card = device.startswith("cuda")
@@ -254,20 +329,29 @@ def run(cases=DEFAULT_CASES, variants=DEFAULT_VARIANTS, *, sp: int = 208,
             runs.append(((b, cq, mt, variant),
                          lambda fn=fn, x=x, w=weights: fn(x, *w)))
     samples = {key: [] for key, _ in runs}
-    for _ in range(rounds if on_card else 0):
+    for _ in range(ROUNDS if on_card else 0):
         for key, call in runs:
-            samples[key].append(do_bench(call, warmup=2, reps=reps)[0])
+            kernel = ("encoder_stack_kernel" if key[3] == "full"
+                      else "encstack_probe_kernel")
+            samples[key].append((do_bench(call, warmup=2, reps=reps)[0],
+                                 pipelined_ms(call, warmup=2, reps=reps),
+                                 launch_ms(call, kernel, 5)))
     rows = []
     for (b, cq, mt, variant), got in samples.items():
         if not got:
             continue
-        ms = float(np.median(got))
+        ms, pipe = (float(np.median(v)) for v in list(zip(*got))[:2])
+        kept = [g[2] for g in got if g[2] is not None]
+        dev = float(np.median(kept)) if kept else None
         rows.append({"b": b, "cq": cq, "mt": mt, "variant": variant,
                      "ms": ms, "us_per_layer": ms / L * 1e3,
-                     "ms_rounds": got})
+                     "pipelined_ms": pipe, "device_ms": dev,
+                     "ms_rounds": [g[0] for g in got]})
+        shown = "none kept" if dev is None else f"{dev:.4f}"
         print(f"b={b} cq={cq} mt={mt} {variant}: {ms:.4f} ms "
-              f"({ms / L * 1e3:.1f} us/layer)", flush=True)
-    return {"rows": rows, "layers": L, "rounds": rounds,
+              f"({ms / L * 1e3:.1f} us/layer; pipelined {pipe:.4f} ms, "
+              f"profiler {shown})", flush=True)
+    return {"rows": rows, "layers": L, "rounds": ROUNDS,
             "dtype": str(dtype).replace("torch.", ""), "device": device,
             "card": card_line() if on_card else None}
 
@@ -287,15 +371,11 @@ def main(argv: list[str] | None = None) -> int:
                     help="cuda (the kernels, the default) or cpu (the plain "
                          "versions, not timed)")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--rounds", type=int, default=1,
-                    help="times over every case and variant, in turn; "
-                         "medians reported")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.cases, args.variants, sp=args.sp, d=args.d,
                          mlp=args.mlp, heads=args.heads, L=args.L,
                          dtype=getattr(torch, args.dtype),
-                         device=args.device, reps=args.reps,
-                         rounds=args.rounds)))
+                         device=args.device, reps=args.reps)))
     return 0
 
 

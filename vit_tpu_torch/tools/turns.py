@@ -7,7 +7,8 @@ B/16 bs=32 bf16 forward of this checkout and of ``--other`` in turns
 (other, this, this, other), each run in its own process that builds that
 checkout's kernels into the checkout's own ``build/``. Each time is the
 median of CUDA-event times of single calls after warm-up, beside the
-profiler's device time. It prints one line a run and a JSON line::
+profiler's device time (each launch's time over the records kept). It
+prints one line a run and a JSON line::
 
     git archive <parent> | tar -x -C build/parent    # a listed directory
     python -m vit_tpu_torch.tools.turns --other build/parent
@@ -54,12 +55,26 @@ def times(fn, iters=50, warmup=5):
         b.record()
         b.synchronize()
         out.append(a.elapsed_time(b))
+    return {"ms": float(np.median(out)), "device_ms": device_ms(fn)}
+
+
+def device_ms(fn, iters=20):
+    # Each kernel's time over the records kept, times its launches a call
+    # (utils.profiling.kernel_times, which the other checkout may not
+    # have): the profiler misses records at a window's start, so the
+    # launches a call are count / iters rounded, where that is >= 1.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
+        for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    dev = sum(e.self_device_time_total for e in prof.key_averages())
-    return {"ms": float(np.median(out)), "device_ms": dev / 20 / 1e3}
+    dev = 0.0
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            n = round(e.count / iters)
+            if n < 1:
+                n = e.count / iters
+            dev += e.self_device_time_total / e.count * n
+    return dev / 1e3
 
 
 cfg = VARIANTS["B/16"].replace(dtype=torch.bfloat16, num_classes=1000)

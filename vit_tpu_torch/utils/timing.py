@@ -65,6 +65,27 @@ def do_bench(fn: Callable, *, warmup: int = 10, reps: int = 30,
     return tuple(float(np.quantile(times, q)) for q in quantiles)
 
 
+def pipelined_ms(fn: Callable, *, warmup: int = 3, reps: int = 20) -> float:
+    """The median time of a call when calls are queued back to back: CUDA
+    events recorded between consecutive calls, with no synchronisation, so
+    that the card runs the calls without waiting on the host and each
+    interval is a call's device time (its kernels and the gaps between
+    them), as long as the host queues a call faster than the card runs it.
+    Where the result is not on a card, the median of :func:`do_bench`."""
+    if not _on_card(fn()):
+        return do_bench(fn, warmup=warmup, reps=reps)[0]
+    for _ in range(warmup):
+        fn()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for e in events[1:]:
+        fn()
+        e.record()
+    events[-1].synchronize()
+    return float(np.median([a.elapsed_time(b)
+                            for a, b in zip(events, events[1:])]))
+
+
 def benchmark_sweep(make_fns: Callable[[int], dict[str, Callable]],
                     sizes: Iterable[int], *, warmup: int = 10,
                     reps: int = 30):
