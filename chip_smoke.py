@@ -57,7 +57,9 @@ without printing the final ``ok`` line:
 11. timings (CUDA events, median of 20 after warm-up): each kernel against
     its plain version and, where one PyTorch call computes the same
     function, that call (``library_ms``, a yardstick the port never
-    calls); the bf16 forwards of B/16 at bs=32 and L/16-384 at bs=8
+    calls); K4's core and K13 (``PIPELINED``) also pipelined, calls queued
+    back to back (the device time), beside SDPA timed the same way; the
+    bf16 forwards of B/16 at bs=32 and L/16-384 at bs=8
     through the kernels and through ``impl="torch"``; B/16 at bs=1 and 2
     and L/16 at bs=1 through the stack route, the per-layer kernel route
     (the stack plans patched off) and ``impl="torch"``, each with its
@@ -122,8 +124,10 @@ without printing the final ``ok`` line:
     cut to 2 layers). Here, through the probes' entry points with exact
     launch counts: the int8 probe's ``run``; the attention block in every
     mode at B/16 bs=32 bf16 against its plain version, then each mode's
-    event ms and the core launch's device ms; every encoder variant at the
-    JAX probe's four cases (2 layers) against its plain version, then each
+    event ms and the core launch's device ms; K4's bf16 core (on the
+    tensor cores) against K23's ``full`` core (the FFMA tile) at the bf16
+    kernel bar, then the two in turns; every encoder variant at the JAX
+    probe's four cases (2 layers) against its plain version, then each
     timed at 12 layers for b = 1, 2, 3.
 
 The last three lines of standard output are the kernels JSON line (each
@@ -186,6 +190,9 @@ Q_LAYER = {"quantize_rows": 2, "matmul_i8": 2, "flash_attention": 1,
 #: encoder_stack_q, the final LN, the head.
 PER_FORWARD_Q_STACK = {"embed_fused": 1, "encoder_stack_q": 1,
                        "layernorm": 1, "matmul": 1}
+#: Kernels whose primary case phase 11 also times pipelined (calls queued
+#: back to back: the device time), beside SDPA timed the same way.
+PIPELINED = ("attention", "flash_attention_bwd")
 #: Where each kernel's source is and which TPU kernel it replaces.
 KERNEL_SOURCES = {
     "layernorm": ("vit_tpu_torch/csrc/layernorm.cu",
@@ -2073,7 +2080,8 @@ def kernel_cases_probes(torch, dtype):
     (the case the kernels line reports; yardstick ``torch._int_mm``), bf16
     and fp32 to fp32 (yardstick ``torch.matmul``, which returns the input
     type). K23: the ``full`` core alone on B/16 bs=32's packed QKV (the case
-    the kernels line reports: K4's core in K23's source; yardstick SDPA),
+    the kernels line reports: the FFMA tile, K4's fp32 core and its bf16
+    core before the tensor cores; yardstick SDPA),
     then the whole block in every mode in bf16 and in every mode that fits
     in fp32 (not wide). K24: ``dma`` over B/16's 12 layers at bs=1 (the
     case the kernels line reports: the weight stream; x back bit for bit,
@@ -2186,8 +2194,9 @@ def probe_phase(torch, main_counts: dict) -> dict:
     every mode at B/16 bs=32 bf16, each held to its plain version, then
     timed (event and pipelined ms of the block and of the core alone,
     nominal-FLOP rate, the core launch's profiler ms; the probe's rounds
-    over the modes in turn, medians); K4's core against K23's ``full`` core,
-    bit for bit and in turns; every variant of the encoder probe at the
+    over the modes in turn, medians); K4's core (bf16 on the tensor cores)
+    against K23's ``full`` core (the FFMA tile K4 ran before) at the bf16
+    kernel bar, the two in turns; every variant of the encoder probe at the
     JAX probe's four cases (b = 2, 2, 3, 1; (cq, mt) change no launch), at
     12 layers (nosm and core at ATTN_CHECK_LAYERS) and held to its plain
     version (``dma``: x bit for bit and its weight sums), nosm and core by
@@ -2257,7 +2266,7 @@ def probe_phase(torch, main_counts: dict) -> dict:
             "normal": torch.randn((b * sp, 3 * d), generator=torch.Generator(
                 device="cuda").manual_seed(19), device="cuda").to(
                     torch.bfloat16)}
-    turns = {}
+    turns, core_errs = {}, {}
     for tag, qkv in qkvs.items():
         out = torch.empty((b * sp, d), dtype=torch.bfloat16, device="cuda")
         core = dict(batch=b, num_heads=heads, scale=(d // heads) ** -0.5,
@@ -2266,15 +2275,17 @@ def probe_phase(torch, main_counts: dict) -> dict:
                 "k23": lambda: acp.core_launch(
                     "full", qkv, None, out, b=b, sp=sp, d=d, heads=heads,
                     seq_len=s, scale=core["scale"])}
-        if not torch.equal(runs["k4"](), runs["k23"]()):
-            raise AssertionError(f"K23 full core != K4's core on {tag}")
+        # The two sum in different orders: the bf16 kernel bar.
+        core_errs[tag] = compare(torch, runs["k4"](), runs["k23"](),
+                                 torch.bfloat16)
         names = {"k4": "attention_kernel", "k23": "attn_probe_kernel"}
         turns[tag] = [(k, time_ms(torch, runs[k]), pipelined_ms(runs[k]),
                        launch_ms(runs[k], names[k]))
                       for k in ("k4", "k23", "k23", "k4")]
     res["core_k4_vs_k23_ms_pipelined_device"] = turns
-    log(f"[probes] K4 core vs K23 full core, (event ms, pipelined ms, "
-        f"profiler ms) in turns: {turns}")
+    res["core_k4_vs_k23_full_err"] = core_errs
+    log(f"[probes] K4 core vs K23 full core: {core_errs}; (event ms, "
+        f"pipelined ms, profiler ms) in turns: {turns}")
 
     cases = [tuple(map(int, c.split(","))) for c in em.DEFAULT_CASES]
     variants = em.VARIANTS + ("full",)
@@ -3018,6 +3029,7 @@ def main() -> int:
             small[tag] = (c, p)
 
     # -- 11. timings -------------------------------------------------------
+    from vit_tpu_torch.utils.timing import pipelined_ms
     timings = []
     for c, dtype in timing_cases:
         ms = time_ms(torch, lambda: c["run"]("cuda"))
@@ -3035,6 +3047,16 @@ def main() -> int:
                         "ms": ms, "plain_ms": plain, "library_ms": library,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "primary": c["primary"]})
+        if c["name"] in PIPELINED and c["primary"]:
+            # The device time of back-to-back calls, kernel and SDPA alike.
+            timings[-1]["pipelined_ms"] = pipelined_ms(
+                lambda: c["run"]("cuda"))
+            timings[-1]["library_pipelined_ms"] = (
+                None if library is None else pipelined_ms(c["library"]))
+            log(f"[timing] {c['name']} {c['label']} {dtype}: {ms:.4f} ms "
+                f"events, {timings[-1]['pipelined_ms']:.4f} pipelined; "
+                f"library {library} events, "
+                f"{timings[-1]['library_pipelined_ms']} pipelined")
     e2e = {}
     for tag, c, p, bs in (("b16", cfg, params, 32),
                           ("l16_384", cfg_l, p_l, 8)):
@@ -3129,6 +3151,9 @@ def main() -> int:
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"], "shape": t["shape"],
                         "dtype": "bfloat16"})
+        if name in PIPELINED:
+            kernels[-1].update(pipelined_ms=t["pipelined_ms"],
+                               library_pipelined_ms=t["library_pipelined_ms"])
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched by a main path: "
                              f"{kernels}")

@@ -109,6 +109,46 @@ def test_torch_cuda_attention_core(gen, dtype, b, s, heads, hd, seq_len):
            reference.attention_core(qkv, **kw))
 
 
+@pytest.mark.parametrize("b,s,heads,hd,seq_len", [
+    (2, 197, 3, 64, 197), (3, 16, 2, 64, 16), (1, 434, 2, 64, 430),
+    (2, 80, 2, 20, 71), (1, 96, 2, 40, 90), (1, 64, 1, 272, 50)])
+def test_torch_cuda_attention_core_bf16_geometries(gen, b, s, heads, hd,
+                                                   seq_len):
+    """The bf16 core on the tensor cores at geometries the FFMA tile did
+    not meet in the cases above: S = 197 unpadded, S = 16, S = 434 (the
+    longest ``ops.attn_plan`` admits in bf16 at d=64), head widths that
+    are not multiples of 16 (20 is not one of 8: element copies), and one
+    wider than 128 (q and the context in blocks of 128 columns); two calls
+    agree bit for bit."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops import reference
+    from vit_tpu_torch.ops.cuda import block
+
+    assert ops.attn_plan(b, s, heads * hd, heads, torch.bfloat16)
+    qkv = _rnd(gen, torch.bfloat16, b * s, 3 * heads * hd)
+    kw = dict(batch=b, num_heads=heads, scale=hd ** -0.5, seq_len=seq_len)
+    got = block.attention_core(qkv, **kw)
+    _close(got, reference.attention_core(qkv, **kw))
+    assert torch.equal(got, block.attention_core(qkv, **kw))
+
+
+def test_torch_cuda_attention_core_bf16_vs_ffma_core(gen):
+    """K4's bf16 core (mma.sync) against K23's ``full`` core, the FFMA tile
+    that K4 ran before, at B/16 widths (208 tokens, 197 real, 12 heads of
+    64): the kernel bar, since the two sum in different orders."""
+    from vit_tpu_torch.ops.cuda import block
+    from vit_tpu_torch.tools import attn_core_probe as acp
+
+    b, sp, s, d, heads = 2, 208, 197, 768, 12
+    qkv = _rnd(gen, torch.bfloat16, b * sp, 3 * d)
+    out = torch.empty((b * sp, d), dtype=torch.bfloat16, device="cuda")
+    kw = dict(batch=b, num_heads=heads, scale=(d // heads) ** -0.5,
+              seq_len=s)
+    ffma = acp.core_launch("full", qkv, None, out, b=b, sp=sp, d=d,
+                           heads=heads, seq_len=s, scale=kw["scale"])
+    _close(block.attention_core(qkv, **kw), ffma)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,d", [(37, 200), (9, 1024), (1, 1280)])
 def test_torch_cuda_layernorm_stats(gen, dtype, rows, d):
@@ -547,7 +587,8 @@ def test_torch_cuda_int8_wrappers_check_inputs(gen):
 @pytest.mark.parametrize("b,heads,s,seq_len,hd", [
     (1, 2, 1, 1, 16), (2, 3, 17, 17, 64), (1, 2, 65, 60, 80),
     (2, 4, 208, 197, 64), (1, 2, 592, 577, 64), (1, 2, 208, 197, 128),
-    (3, 1, 65, 65, 128), (1, 3, 40, 33, 16), (1, 2, 816, 800, 64)])
+    (3, 1, 65, 65, 128), (1, 3, 40, 33, 16), (1, 2, 816, 800, 64),
+    (2, 2, 100, 71, 32)])
 def test_torch_cuda_flash_attention_bwd(gen, dtype, b, heads, s, seq_len, hd):
     """K13 against its plain version, contiguous operands and strided views
     of a packed QKV buffer with g a (B, S, H, d) buffer's view; two calls

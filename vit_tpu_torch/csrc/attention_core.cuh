@@ -1,12 +1,13 @@
-// The attention core as a device routine: masked softmax attention for one
-// (image, head, 64-query tile), reading q, k and v straight from a packed
-// (B*S, 3D) [q|k|v] buffer (head h at columns h*d of each third -- the
-// layout vit_tpu/ops/pallas/block.py:_attn_core slices) and writing the
-// context into a (B*S, D) buffer at the head's columns. K4's attention
-// kernel (attention.cu) runs one tile a block; K9 (encoder_stack.cu) walks
-// the tiles of its attention phase with it; the attention probe K23
-// (attn_core_probe.cu) runs it in each of its modes, a template parameter
-// whose default, kAttnFull, is the core that K4 and K9 instantiate.
+// The FFMA attention core as a device routine: masked softmax attention for
+// one (image, head, 64-query tile), reading q, k and v straight from a
+// packed (B*S, 3D) [q|k|v] buffer (head h at columns h*d of each third --
+// the layout vit_tpu/ops/pallas/block.py:_attn_core slices) and writing the
+// context into a (B*S, D) buffer at the head's columns. It serves K4's fp32
+// core (attention.cu; K4's bf16 core is attention_tile_mma in
+// attention_mma.cuh, on the tensor cores), K9's attention phase
+// (encoder_stack.cu, both dtypes) and the attention probe K23
+// (attn_core_probe.cu) in each of its modes, a template parameter whose
+// default, kAttnFull, is the core that K4's fp32 and K9 instantiate.
 //
 // Per query row, with _attn_core's rounding points:
 //   s = (q . k) * scale in fp32, keys at index >= seq_len set to -inf;
@@ -18,7 +19,11 @@
 //
 // A 64-row query tile keeps the fp32 scores (64 x S) and the head's K, V
 // and Q in shared memory: 113 KB at S=208, d=64 in bf16, 173 KB in fp32.
-// The math is plain FFMA over shared memory.
+// The math is plain FFMA over shared memory, which bounds it by
+// operations: 4*S*seq_len*d a head (in fp32 at B/16 bs=32, 4.0 GFLOP:
+// 0.060 ms at 67 TFLOP/s). The fp32 path may not use the tensor cores (the
+// Pallas fp32 dots run at HIGHEST: no TF32); moving K9's bf16 attention
+// phase onto attention_tile_mma is K9's own redesign.
 
 #pragma once
 
@@ -55,8 +60,8 @@ inline size_t attention_smem(int s, int dh) {
 }
 
 // The modes of the attention probe K23 (csrc/attn_core_probe.cu), a
-// compile-time parameter of attention_tile. kAttnFull is K4's and K9's
-// core, and the only mode they instantiate; each other mode changes the
+// compile-time parameter of attention_tile. kAttnFull is K4's fp32 and
+// K9's core, and the only mode they instantiate; each other mode changes the
 // tile where tools/attn_core_probe.py's _core_kernel changes the core
 // (vit_tpu_torch/tools/attn_core_probe.py gives each mode's function).
 enum AttnMode : int {

@@ -9,7 +9,9 @@
 // is K4's four launches (vit_tpu_torch/ops/cuda/block.py: an image's QKV
 // does not fit one SM), and the core is attention_tile
 // (attention_core.cuh) with the mode as a template parameter: kAttnFull is
-// K4's core instruction for instruction, the other modes change only what
+// the FFMA tile of K4's fp32 core and K9's attention phase instruction for
+// instruction (K4's bf16 core runs on the tensor cores, attention_mma.cuh,
+// with the same rounding points), the other modes change only what
 // the mode names (vit_tpu_torch/tools/attn_core_probe.py has each mode's
 // function and launches). A work item is (image, head, 64 queries),
 // whatever the TPU's `group`.
@@ -30,12 +32,12 @@
 //   out-projection to read as the context: no core launch.
 // Each GEMM is K2's tile loop (gemm_tile.cuh) with an epilogue of its own.
 //
-// Bound on the card, as K4's core: neither memory nor the tensor cores.
+// Bound on the card, as the FFMA tile: neither memory nor the tensor cores.
 // The core is plain FFMA over shared memory, 4*B*H*S*S*d operations, 4.3
 // GFLOP at B/16 bs=32 (64 us at fp32's 67 TFLOP/s); the block adds K1 and
 // two K2 GEMMs (21.3 GFLOP of bf16 products). The probe exists to show
-// which of the core's ingredients costs the time before that core is
-// rewritten for the tensor cores.
+// which of the core's ingredients costs the time; it showed the two dot
+// loops, which K4's bf16 core now runs on mma.sync.
 
 #include "attention_core.cuh"
 #include "gemm_tile.cuh"

@@ -235,10 +235,12 @@ def attn_block_partial(x, ln_scale, ln_bias, wqkv, bqkv, wout, *, num_heads,
 
 def attn_plan(batch: int, seq_pad: int, hidden: int, num_heads: int,
               dtype: torch.dtype) -> bool:
-    """Whether ``attn_block`` takes this geometry: its attention core keeps
-    a head's whole K, V and score rows in one block's shared memory. The
-    batch does not matter to the port's kernels (counterpart of
-    ``vit_tpu.ops.attn_plan``)."""
+    """Whether ``attn_block`` takes this geometry: the FFMA attention core
+    keeps a head's whole K, V and score rows in one block's shared memory.
+    The bf16 core on the tensor cores needs less at every geometry this
+    admits (``ops/cuda/block.py:attention_mma_smem_bytes``), so the gate
+    stays the FFMA tile's in both dtypes. The batch does not matter to the
+    port's kernels (counterpart of ``vit_tpu.ops.attn_plan``)."""
     from vit_tpu_torch.ops.cuda.block import MAX_SMEM, attention_smem_bytes
     return attention_smem_bytes(seq_pad, hidden // num_heads,
                                 dtype.itemsize) <= MAX_SMEM

@@ -105,13 +105,26 @@ def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
 
 
 def attention_smem_bytes(seq: int, head_dim: int, itemsize: int) -> int:
-    """Dynamic shared memory of one attention-core block: K (rows padded by
-    one 4-byte word), V and the query tile in the input dtype, then the
-    fp32 scores and row sums (``csrc/attention.cu:attention_smem``)."""
+    """Dynamic shared memory of one FFMA attention-core tile (the fp32
+    core, K9's attention phase, K23): K (rows padded by one 4-byte word),
+    V and the query tile in the input dtype, then the fp32 scores and row
+    sums (``csrc/attention_core.cuh:attention_smem``). The gate
+    :func:`vit_tpu_torch.ops.attn_plan` reads it in both dtypes."""
     pad = 4 // itemsize
     elems = seq * (head_dim + pad) + seq * head_dim + ATTN_QT * head_dim
     t = -(-elems * itemsize // 16) * 16
     return t + (ATTN_QT * seq + ATTN_QT) * 4
+
+
+def attention_mma_smem_bytes(seq: int, head_dim: int) -> int:
+    """Dynamic shared memory of one bf16 attention-core block on the tensor
+    cores: K and V, ``seq`` rounded up to 16 rows, each row the head width
+    rounded up to 16 columns plus 8 of padding
+    (``csrc/attention_mma.cuh:attention_mma_smem``). It is below
+    :func:`attention_smem_bytes` at every geometry that
+    :func:`vit_tpu_torch.ops.attn_plan` admits in bf16."""
+    rows = -(-seq // 16) * 16
+    return 2 * rows * (-(-head_dim // 16) * 16 + 8) * 2
 
 
 def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
@@ -129,7 +142,9 @@ def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
         raise ValueError(f"D={d} not divisible by {num_heads} heads")
     if not 0 < seq_len <= s:
         raise ValueError(f"seq_len {seq_len} outside (0, {s}]")
-    smem = attention_smem_bytes(s, d // num_heads, qkv.element_size())
+    hd = d // num_heads
+    smem = (attention_mma_smem_bytes(s, hd) if qkv.dtype == torch.bfloat16
+            else attention_smem_bytes(s, hd, qkv.element_size()))
     if smem > MAX_SMEM:
         raise ValueError(f"attention core needs {smem} B of shared memory "
                          f"at S={s}, more than {MAX_SMEM}")

@@ -4,9 +4,13 @@
 The block is the port's ``attn_block``: K1 (LN1), K2 into the packed
 ``(B*S, 3D)`` QKV buffer, the core, K2 with ``bout`` and the residual. The
 core is K23 ``attn_core_probe`` (``vit_tpu_torch/csrc/attn_core_probe.cu``):
-``attention_core.cuh``'s tile with the mode as a template parameter, so
-``full`` is K4's core instruction for instruction. Each mode switches one
-ingredient off, or lays the data out another way, as the JAX probe's
+``attention_core.cuh``'s FFMA tile with the mode as a template
+parameter, so ``full`` is K4's fp32 core (and K9's attention phase)
+instruction for instruction; K4's bf16 core runs on the tensor cores
+(``attention_mma.cuh``) with the same rounding points, and
+``chip_smoke.py`` holds it to ``full`` at the bf16 kernel bar. Each mode
+switches one ingredient off, or lays the data out another way, as the JAX
+probe's
 ``_core_kernel`` (``tools/attn_core_probe.py:67-290``) and ``_tcore_body``
 (``:293-331``) do:
 

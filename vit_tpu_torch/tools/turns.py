@@ -2,13 +2,16 @@
 
 A change to a kernel's source must leave the kernels that share it
 compiled as before: this script times K4's attention core (B/16 bs=32,
-bf16), K9 (``ops.encoder_stack``, B/16 bs=1, bf16, 12 layers) and the
-B/16 bs=32 bf16 forward of this checkout and of ``--other`` in turns
-(other, this, this, other), each run in its own process that builds that
-checkout's kernels into the checkout's own ``build/``. Each time is the
-median of CUDA-event times of single calls after warm-up, beside the
-profiler's device time (each launch's time over the records kept). It
-prints one line a run and a JSON line::
+bf16), K9 (``ops.encoder_stack``, B/16 bs=1, bf16, 12 layers), K13
+(``ops.flash_attention_bwd``, B/16 bs=32, 384 heads, 197 of 208 keys, in
+bf16 and fp32), the B/16 bs=32 bf16 forward and the B/16 bs=32 bf16 train
+step of this checkout and of ``--other`` in turns (other, this, this,
+other), each run in its own process that builds that checkout's kernels
+into the checkout's own ``build/``. Each time is the median of CUDA-event
+times of single calls after warm-up, beside the pipelined time (calls
+queued back to back between two events: the device time where the host
+keeps ahead) and the profiler's device time (each launch's time over the
+records kept). It prints one line a run and a JSON line::
 
     git archive <parent> | tar -x -C build/parent    # a listed directory
     python -m vit_tpu_torch.tools.turns --other build/parent
@@ -35,6 +38,8 @@ from vit_tpu_torch import ops
 from vit_tpu_torch.config import VARIANTS
 from vit_tpu_torch.models.vit import forward, init_params
 from vit_tpu_torch.ops.cuda import _build, block
+from vit_tpu_torch.train import make_optimizer, make_train_step
+from vit_tpu_torch.utils.timing import pipelined_ms
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -55,7 +60,8 @@ def times(fn, iters=50, warmup=5):
         b.record()
         b.synchronize()
         out.append(a.elapsed_time(b))
-    return {"ms": float(np.median(out)), "device_ms": device_ms(fn)}
+    return {"ms": float(np.median(out)), "pipelined_ms": pipelined_ms(fn),
+            "device_ms": device_ms(fn)}
 
 
 def device_ms(fn, iters=20):
@@ -92,6 +98,20 @@ with torch.inference_mode():
     res["encoder_stack"] = times(lambda: ops.encoder_stack(
         x1, params["encoder"], num_heads=12, seq_len=197))
     res["forward"] = times(lambda: forward(params, px, cfg), iters=20)
+    for dt in (torch.bfloat16, torch.float32):
+        buf = torch.randn((32 * 208, 3 * 768), generator=gen,
+                          device="cuda").to(dt)
+        q, k, v = buf.view(32, 208, 3, 12, 64).permute(2, 0, 3, 1, 4)
+        g = torch.randn((32, 208, 12, 64), generator=gen,
+                        device="cuda").to(dt).transpose(1, 2)
+        res["attention_bwd_" + str(dt)[6:]] = times(
+            lambda: ops.flash_attention_bwd(q, k, v, g, scale=64 ** -0.5,
+                                            seq_len=197))
+labels = torch.randint(0, 1000, (32,), generator=gen, device="cuda")
+init_fn, step_fn = make_train_step(cfg, make_optimizer(1e-4, 0.05))
+opt = init_fn(params)
+res["train_step"] = times(lambda: step_fn(params, opt, px, labels),
+                          iters=10, warmup=2)
 print(json.dumps(res))
 """
 
