@@ -21,7 +21,8 @@ without printing the final ``ok`` line:
    in fp32; the reference op chain at B/16 bs=32's unfused shapes: K14
    ``add`` bit for bit, K15 ``softmax``, K16 ``matmul3`` (scores and
    context), and K17 ``mlp_block_q`` there and, in bf16, at L/16-384 bs=8
-   and H/14 bs=2;
+   and H/14 bs=2; K2 also at the training backward's two products of the
+   QKV, on the views it passes (``g @ w.t()``, ``x.t() @ g``);
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
    exact per-forward launch counts; the same weights through
@@ -33,6 +34,8 @@ without printing the final ``ok`` line:
    requests of 1, 5, 32 and 37 images, with exact launch counts -- the
    first main path: bs=1 buckets take ``encoder_stack_fused`` and the
    head, bs=32 buckets every layer on the two half-block mega-kernels;
+   every K2 call takes the ``wgmma`` tile (``gemm_path``, recorded by
+   ``gemm_paths``);
    5b. the same requests through ``Predictor(quant=True)``, the int8 main
    path: 11 bs=1 forwards on ``encoder_stack_q``, 2 bs=32 on the per-layer
    int8 route, exact launch counts, every request equal to its bucket
@@ -57,8 +60,9 @@ without printing the final ``ok`` line:
 11. timings (CUDA events, median of 20 after warm-up): each kernel against
     its plain version and, where one PyTorch call computes the same
     function, that call (``library_ms``, a yardstick the port never
-    calls); K4's core and K13 (``PIPELINED``) also pipelined, calls queued
-    back to back (the device time), beside SDPA timed the same way; the
+    calls); K4's core, K13 and every K2 case (``PIPELINED``) also
+    pipelined, calls queued back to back (the device time), beside the
+    library call timed the same way (fp32 ``addmm`` without TF32); the
     bf16 forwards of B/16 at bs=32 and L/16-384 at bs=8
     through the kernels and through ``impl="torch"``; B/16 at bs=1 and 2
     and L/16 at bs=1 through the stack route, the per-layer kernel route
@@ -77,7 +81,8 @@ without printing the final ``ok`` line:
     B/16 bf16 at bs=32, 2 (the fold's forward, the per-layer remat
     backward) and 4 (``embed_fused``), L/16-384 bf16 bs=2 at 4 layers
     (composed attention, K13 at 592 tokens), and on the unfused route
-    (K16 in the backward) at B/16 bf16 bs=32 and fp32 bs=8; the step's
+    (K16 in the backward) at B/16 bf16 bs=32 and fp32 bs=8, every bf16
+    step's K2 calls on the ``wgmma`` tile (``gemm_paths``); the step's
     ms, images/s and device idle share at B/16 bs=32, kernels and plain,
     in both dtypes;
 13. the other forward modes (``forward_modes_phase``): B/16 bf16 bs=32 at
@@ -191,13 +196,16 @@ Q_LAYER = {"quantize_rows": 2, "matmul_i8": 2, "flash_attention": 1,
 PER_FORWARD_Q_STACK = {"embed_fused": 1, "encoder_stack_q": 1,
                        "layernorm": 1, "matmul": 1}
 #: Kernels whose primary case phase 11 also times pipelined (calls queued
-#: back to back: the device time), beside SDPA timed the same way.
-PIPELINED = ("attention", "flash_attention_bwd")
+#: back to back: the device time), beside the library call timed the same
+#: way; K2's every case.
+PIPELINED = ("attention", "flash_attention_bwd", "matmul")
 #: Where each kernel's source is and which TPU kernel it replaces.
 KERNEL_SOURCES = {
     "layernorm": ("vit_tpu_torch/csrc/layernorm.cu",
                   "vit_tpu/ops/pallas/layernorm.py:80"),
-    "matmul": ("vit_tpu_torch/csrc/matmul.cu",
+    # K2's bf16 kernel (the kernels line's case); matmul.cu launches its
+    # other tiles.
+    "matmul": ("vit_tpu_torch/csrc/gemm_wgmma.cuh",
                "vit_tpu/ops/pallas/matmul.py:212"),
     "attention": ("vit_tpu_torch/csrc/attention.cu",
                   "vit_tpu/ops/pallas/block.py:892"),
@@ -414,12 +422,13 @@ def case(name: str, label: str, run, work: tuple, *, library=None,
 
 
 def gemm_work(m: int, k: int, n: int, e: int, kind: str, *,
-              out_e: int | None = None, residual: bool = False) -> tuple:
-    """(bytes, operations, type) of (m, k) @ (k, n) + bias: each input read
-    once, the output written once."""
+              out_e: int | None = None, residual: bool = False,
+              bias: bool = True) -> tuple:
+    """(bytes, operations, type) of (m, k) @ (k, n) (+ bias): each input
+    read once, the output written once."""
     out_e = e if out_e is None else out_e
-    return ((m * k + k * n + n) * e + m * n * out_e * (2 if residual else 1),
-            2 * m * k * n, kind)
+    return ((m * k + k * n + n * bias) * e
+            + m * n * out_e * (2 if residual else 1), 2 * m * k * n, kind)
 
 
 def attention_ops(b: int, heads: int, s: int, seq_len: int, hd: int) -> int:
@@ -482,6 +491,39 @@ def q_weight_only(counts: dict) -> dict:
 def check_counts(label: str, counts: dict, expect: dict) -> None:
     if counts != expect:
         raise AssertionError(f"{label} launch counts {counts} != {expect}")
+
+
+@contextlib.contextmanager
+def gemm_paths():
+    """Record K2's tile choices inside the block: each call of
+    ``ops.cuda.matmul.gemm_path``, its shape and transposes and the tile it
+    named."""
+    from vit_tpu_torch.ops.cuda import matmul as cuda_matmul
+    choose, records = cuda_matmul.gemm_path, []
+
+    def spy(*args):
+        path = choose(*args)
+        records.append((args[:3], args[4:6], path))
+        return path
+    cuda_matmul.gemm_path = spy
+    try:
+        yield records
+    finally:
+        cuda_matmul.gemm_path = choose
+
+
+def check_gemm_paths(label: str, records: list, counts: dict) -> None:
+    """Every K2 call of a bf16 path took the wgmma tile: a tile choice for
+    each K2 launch (``fused_linear`` without LN is K2 too), all
+    ``"wgmma"``."""
+    other = [r for r in records if r[2] != "wgmma"]
+    if len(records) < counts["matmul"] or other:
+        raise AssertionError(f"{label}: {len(records)} K2 tile choices for "
+                             f"{counts['matmul']} matmul launches; not "
+                             f"wgmma: {other[:5]}")
+    shapes = sorted({r[:2] for r in records})
+    log(f"[gemm_path] {label}: {len(records)} K2 calls, all on the wgmma "
+        f"tile; (m, n, k), (trans_a, trans_b): {shapes}")
 
 
 def event_times(torch, fn, iters: int = 20, warmup: int = 3) -> list:
@@ -615,6 +657,10 @@ def kernel_cases(torch, dtype):
     wqkv, bqkv = rnd(d, 3 * d, std=0.04), rnd(3 * d, std=0.02)
     patches = rnd(32 * 196, d)
     qkv = rnd(m, 3 * d)
+    # The QKV's output gradient at a gradient's scale: the fp32 bar is
+    # absolute, and x.t() @ g sums K = 6656 products (unit g would put its
+    # outputs near 80, where fp32 sum orders differ by ~1e-3).
+    gf = rnd(m, 3 * d, std=0.01)
     x3 = x.reshape(b, sp, d)
     scale = hd ** -0.5
     q, k, v = qkv.view(b, sp, 3, heads, hd).permute(2, 0, 3, 1, 4)
@@ -634,13 +680,24 @@ def kernel_cases(torch, dtype):
              library=lambda: F.layer_norm(x, (d,), g, beta, 1e-12)),
         case("matmul", f"({32 * 196},{d})@({d},{d})+bias",
              lambda impl: ops.matmul(patches, w_dd, b_d, impl=impl),
-             gemm_work(32 * 196, d, d, e, kind), primary=False),
+             gemm_work(32 * 196, d, d, e, kind),
+             library=lambda: torch.addmm(b_d, patches, w_dd), primary=False),
         case("matmul", f"({m},{d})@({d},{mlp})+bias+gelu",
              lambda impl: ops.matmul(x, w_dm, b_m, "gelu", impl=impl),
              gemm_work(m, d, mlp, e, kind), primary=False),
         case("matmul", f"({m},{d})@({d},{d})+bias+residual",
              lambda impl: ops.matmul(x, w_dd, b_d, residual=x, impl=impl),
              gemm_work(m, d, d, e, kind, residual=True), primary=False),
+        # The training backward's two products of the QKV, on the views
+        # it hands K2 (the wgmma tile reads them where they lie).
+        case("matmul", f"g ({m},{3 * d}) @ w.t() ({3 * d},{d})",
+             lambda impl: ops.matmul(gf, wqkv.t(), impl=impl),
+             gemm_work(m, 3 * d, d, e, kind, bias=False),
+             library=lambda: torch.matmul(gf, wqkv.t()), primary=False),
+        case("matmul", f"x.t() ({d},{m}) @ g ({m},{3 * d})",
+             lambda impl: ops.matmul(x.t(), gf, impl=impl),
+             gemm_work(d, m, 3 * d, e, kind, bias=False),
+             library=lambda: torch.matmul(x.t(), gf), primary=False),
         case("matmul", f"({m},{d})@({d},{3 * d})+bias",
              lambda impl: ops.matmul(x, wqkv, bqkv, impl=impl),
              gemm_work(m, d, 3 * d, e, kind),
@@ -1456,11 +1513,14 @@ def train_phase(torch, main_counts: dict) -> dict:
         opt = init_fn(params)
         torch.cuda.synchronize()
         reset_launch_counts()
-        params, opt, loss = step_fn(params, opt, px, labels)
-        torch.cuda.synchronize()
+        with gemm_paths() as k2_paths:
+            params, opt, loss = step_fn(params, opt, px, labels)
+            torch.cuda.synchronize()
         main_counts[f"{tag} train step"] = counts = launch_counts()
         check_counts(f"{tag} train step", counts,
                      expect_counts(counts, step_counts))
+        if dtype == torch.bfloat16:
+            check_gemm_paths(f"{tag} train step", k2_paths, counts)
         got = [t.grad for t in tree_leaves(params)]
         worst = check_train_grads(torch, tag, got, want, dtype)
         dl = abs(float(loss) - float(want_loss))
@@ -2809,10 +2869,12 @@ def main() -> int:
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    answers = [pred(r) for r in requests]
-    torch.cuda.synchronize()
+    with gemm_paths() as k2_paths:
+        answers = [pred(r) for r in requests]
+        torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     main_counts = {"B/16 serving": launch_counts()}
+    check_gemm_paths("B/16 serving", k2_paths, main_counts["B/16 serving"])
     plans = [b for n in sizes for b in pred._plan(n)]
     counts = main_counts["B/16 serving"]
     check_counts("B/16 serving", counts, add_counts(
@@ -3047,16 +3109,29 @@ def main() -> int:
                         "ms": ms, "plain_ms": plain, "library_ms": library,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "primary": c["primary"]})
-        if c["name"] in PIPELINED and c["primary"]:
-            # The device time of back-to-back calls, kernel and SDPA alike.
+        if c["name"] in PIPELINED and (c["primary"] or c["name"] == "matmul"):
+            # The device time of back-to-back calls, kernel and library
+            # call alike.
             timings[-1]["pipelined_ms"] = pipelined_ms(
                 lambda: c["run"]("cuda"))
             timings[-1]["library_pipelined_ms"] = (
                 None if library is None else pipelined_ms(c["library"]))
+            if c["name"] == "matmul":
+                # K2's wrapper takes longer on the host than its kernel on
+                # the card at most of these shapes, so pipelined calls
+                # wait on the host: the profiler's device time too.
+                timings[-1]["device_ms"] = device_ms(
+                    torch, lambda: c["run"]("cuda"))[0]
+                timings[-1]["library_device_ms"] = (
+                    None if library is None
+                    else device_ms(torch, c["library"])[0])
             log(f"[timing] {c['name']} {c['label']} {dtype}: {ms:.4f} ms "
-                f"events, {timings[-1]['pipelined_ms']:.4f} pipelined; "
-                f"library {library} events, "
-                f"{timings[-1]['library_pipelined_ms']} pipelined")
+                f"events, {timings[-1]['pipelined_ms']:.4f} pipelined, "
+                f"device {timings[-1].get('device_ms')}; plain "
+                f"{plain:.4f}; library {library} events, "
+                f"{timings[-1]['library_pipelined_ms']} pipelined, device "
+                f"{timings[-1].get('library_device_ms')}; bound "
+                f"{bound_ms:.4f} ({bound_by})")
     e2e = {}
     for tag, c, p, bs in (("b16", cfg, params, 32),
                           ("l16_384", cfg_l, p_l, 8)):

@@ -69,6 +69,86 @@ def test_torch_cuda_matmul_ragged(gen, dtype, m, k, n):
                ops.matmul(x, w, bias, act, residual=res, impl="torch"))
 
 
+def _k2_path(x, w):
+    from vit_tpu_torch.ops.cuda import matmul as cuda_matmul
+
+    return cuda_matmul.gemm_path(
+        x.shape[0], w.shape[1], x.shape[1], x.dtype,
+        cuda_matmul._transposed(x), cuda_matmul._transposed(w),
+        (x.data_ptr(), w.data_ptr()), (tuple(x.stride()), tuple(w.stride())))
+
+
+def _k2_operand(gen, dtype, rows, cols, trans, std=1.0):
+    """A (rows, cols) operand: contiguous, or the .t() view of a
+    contiguous (cols, rows) matrix."""
+    if trans:
+        return _rnd(gen, dtype, cols, rows, std=std).t()
+    return _rnd(gen, dtype, rows, cols, std=std)
+
+
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+@pytest.mark.parametrize("m,k,n,paths", [
+    # ragged against 128 x 128 tiles and K steps of 64
+    (200, 72, 136, ("wgmma", "wgmma")),
+    # 36 tiles: fewer than the 132 SMs
+    (768, 6656, 768, ("wgmma", "wgmma")),
+    # x.t() has rows of 130 elements: TMA needs multiples of 8
+    (130, 24, 16, ("wgmma", "wmma")),
+    # rows of 588 (x, w.t()), 100 (w) or 37 (x.t()): the wrapper copies
+    (37, 588, 100, ("wmma", "wmma"))])
+def test_torch_cuda_matmul_bf16_tiles(gen, trans_a, trans_b, m, k, n, paths):
+    """K2 in bf16 on the tile gemm_path picks (``paths``: without and with
+    trans_a), with operands given as .t() views, every epilogue of
+    test_torch_cuda_matmul_ragged, at the kernel bar (mean <= 3e-3 too);
+    two calls equal bit for bit."""
+    from vit_tpu_torch import ops
+
+    dt = torch.bfloat16
+    x = _k2_operand(gen, dt, m, k, trans_a)
+    w = _k2_operand(gen, dt, k, n, trans_b, std=0.05)
+    assert _k2_path(x, w) == paths[trans_a]
+    b = _rnd(gen, dt, n, std=0.1)
+    r = _rnd(gen, dt, m, n)
+    for bias, act, res in ((None, None, None), (b, None, None),
+                           (b, "gelu", None), (b, None, r),
+                           (None, "gelu", r)):
+        got = ops.matmul(x, w, bias, act, residual=res, impl="cuda")
+        want = ops.matmul(x, w, bias, act, residual=res, impl="torch")
+        _close(got, want)
+        assert (got.float() - want.float()).abs().mean() <= 3e-3
+        again = ops.matmul(x, w, bias, act, residual=res, impl="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape,n", [((2, 256, 588), 1280),
+                                     ((2, 196, 768), 768)])
+def test_torch_cuda_matmul_bf16_batched_input(gen, shape, n):
+    """A (B, N, K) x, as the patch projection gives it: H/14's rows of 588
+    take wmma, B/16's of 768 the wgmma tile."""
+    from vit_tpu_torch import ops
+
+    x = _rnd(gen, torch.bfloat16, *shape)
+    w = _rnd(gen, torch.bfloat16, shape[-1], n, std=0.05)
+    b = _rnd(gen, torch.bfloat16, n, std=0.1)
+    got = ops.matmul(x, w, b, impl="cuda")
+    want = ops.matmul(x, w, b, impl="torch")
+    _close(got, want)
+    assert (got.float() - want.float()).abs().mean() <= 3e-3
+
+
+def test_torch_cuda_matmul_fp32_transposed_views(gen):
+    """fp32 runs on the FFMA tile, which reads contiguous operands: the
+    wrapper copies a .t() view for it."""
+    from vit_tpu_torch import ops
+
+    x = _k2_operand(gen, torch.float32, 96, 200, True)
+    w = _k2_operand(gen, torch.float32, 200, 72, True, std=0.05)
+    assert _k2_path(x, w) == "ffma"
+    _close(ops.matmul(x, w, impl="cuda"), ops.matmul(x, w, impl="torch"))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,d", [(5, 100), (9, 768), (1, 1280)])
 def test_torch_cuda_layernorm(gen, dtype, rows, d):
@@ -213,8 +293,8 @@ def test_torch_cuda_wrappers_check_inputs(gen):
     v = _rnd(gen, torch.float32, 64)
     with pytest.raises(ValueError, match="dtype"):
         ops.layernorm(x, v.to(torch.bfloat16), v)
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.matmul(x, _rnd(gen, torch.float32, 8, 64).t())
+    with pytest.raises(ValueError, match="contiguous"):  # not a .t() view
+        ops.matmul(x, _rnd(gen, torch.float32, 64, 16)[:, ::2])
     with pytest.raises(ValueError, match="multiples of 128"):
         ops.mlp_block(x.to(torch.bfloat16), *(t.to(torch.bfloat16) for t in (
             v, v, _rnd(gen, torch.float32, 64, 128), _rnd(gen, torch.float32, 128),

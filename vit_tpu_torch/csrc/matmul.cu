@@ -8,11 +8,18 @@
 // _attn_core does (vit_tpu/ops/pallas/block.py:694-699).
 //
 // Bound on the card: at the slice's shapes (M = 6656, K and N of 768 to
-// 3072) the products are compute-bound. The tile loop -- wmma bf16 64x128
-// tiles, true-fp32 FFMA 64x64 tiles, ragged edges masked, not pipelined --
-// is the device routine of gemm_tile.cuh, which K8 and K9 share; the two
-// kernels here launch one block a tile. Pipelining the loads (cp.async or
-// TMA) and moving to wgmma is the first thing a later PR should change.
+// 3072) the products are compute-bound. Two tiles, chosen by the wrapper
+// (ops/cuda/matmul.py:gemm_path) from shape and alignment alone:
+// - bf16 where TMA can read both operands (16-byte-aligned bases, row
+//   strides a multiple of 8 elements): the persistent 128 x 128 wgmma
+//   tile fed by TMA of gemm_wgmma.cuh, launched by matmul_wgmma.cu, which
+//   also reads an operand given as the transpose of a contiguous matrix
+//   (trans_a: x is the view of a (k, m) matrix; trans_b: w is the view of
+//   an (n, k) one);
+// - otherwise the device routine of gemm_tile.cuh, which K6, K8, K9 and
+//   K11 share: wmma bf16 64x128 tiles or true-fp32 FFMA 64x64 tiles,
+//   ragged edges masked, not pipelined, one block a tile; its operands
+//   are contiguous.
 //
 // K6, fused_linear, is the same two kernels with an LN prologue
 // (template flag LN). Replaces vit_tpu/ops/pallas/matmul.py:fused_linear
@@ -165,14 +172,36 @@ int launch_gemm(const void* x, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
+// K2 on the wgmma tile (csrc/matmul_wgmma.cu, its own unit, so that the
+// kernels here compile as they did before it).
+cudaError_t launch_wgmma(const void* x, const void* w, const void* bias,
+                         const void* residual, void* out, int m, int n, int k,
+                         int gelu_act, int trans_a, int trans_b, int device,
+                         cudaStream_t st);
+
 }  // namespace vit
 
+// K2. tile 0: gemm_tile.cuh's tile (bf16 wmma or fp32 FFMA; no transposed
+// operand); tile 1: the bf16 wgmma tile, with trans_a (x is the view of a
+// contiguous (k, m) matrix) and trans_b (w is the view of a contiguous
+// (n, k) matrix).
 extern "C" int vit_matmul(const void* x, const void* w, const void* bias,
                           const void* residual, void* out, int m, int n, int k,
-                          int gelu_act, int dtype, int device, void* stream) {
-  return vit::launch_gemm<false>(x, w, bias, residual, nullptr, nullptr,
-                                 nullptr, nullptr, out, m, n, k, gelu_act,
-                                 dtype, device, stream);
+                          int gelu_act, int trans_a, int trans_b, int tile,
+                          int dtype, int device, void* stream) {
+  using namespace vit;
+  if (tile == 0) {
+    if (trans_a || trans_b) return cudaErrorInvalidValue;
+    return launch_gemm<false>(x, w, bias, residual, nullptr, nullptr, nullptr,
+                              nullptr, out, m, n, k, gelu_act, dtype, device,
+                              stream);
+  }
+  if (tile != 1 || dtype != kBF16) return cudaErrorInvalidValue;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  if (m <= 0 || n <= 0 || k <= 0) return cudaErrorInvalidValue;
+  return launch_wgmma(x, w, bias, residual, out, m, n, k, gelu_act, trans_a,
+                      trans_b, device, static_cast<cudaStream_t>(stream));
 }
 
 // K6: K2 with the LN prologue; mu, rstd, gamma and beta must all be set.

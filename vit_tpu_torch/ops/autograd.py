@@ -5,9 +5,10 @@ Each Function runs its kernel in ``forward`` and, in ``backward``, the
 composition of JAX's custom VJP for that op:
 
 - the products run on the forward kernels: every ``dx``, ``dw`` and
-  rematerialised pre-activation on K2 (``matmul``), operands that are
-  transposes or slices copied contiguous first, as XLA copies them before
-  an opaque ``pallas_call``;
+  rematerialised pre-activation on K2 (``matmul``), which takes the
+  transposes ``x.t()`` and ``w.t()`` as views (its bf16 ``wgmma`` tile
+  reads them in place; for its other tiles the wrapper copies them, as
+  XLA copies them before an opaque ``pallas_call``);
 - the elementwise and reduction glue (GELU, layernorm and softmax
   backward, bias and embedding row sums) is torch ops in fp32, as JAX's
   is jnp; ``matmul3``'s two products run on K16, as JAX's run its kernel;
@@ -61,8 +62,9 @@ def _c(t: torch.Tensor) -> torch.Tensor:
 
 
 def _mm(impl, x, w, bias=None, activation=None):
-    """K2 on contiguous copies of its operands."""
-    return kernel_fn("matmul", impl, x)(_c(x), _c(w), bias, activation)
+    """K2 on its operands as they come: a transpose goes as the view it
+    is, and the wrapper reads it in place or copies it, by tile."""
+    return kernel_fn("matmul", impl, x)(x, w, bias, activation)
 
 
 def _row_sum(gf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

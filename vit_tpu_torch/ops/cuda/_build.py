@@ -47,8 +47,9 @@ _SIGNATURES = {
     "vit_layernorm": (_P, _P, _P, _P, _I, _I, _F),
     # x, mu, rstd, rows, d, eps
     "vit_layernorm_stats": (_P, _P, _P, _I, _I, _F),
-    # x, w, bias, residual, out, m, n, k, gelu
-    "vit_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I),
+    # x, w, bias, residual, out, m, n, k, gelu, trans_a, trans_b, tile
+    # (0: gemm_tile.cuh's, 1: gemm_wgmma.cuh's)
+    "vit_matmul": (_P, _P, _P, _P, _P, *(_I,) * 7),
     # x, w, bias, residual, mu, rstd, gamma, beta, out, m, n, k, gelu
     "vit_fused_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     # x, ln_scale, ln_bias, w1, b1, w2, b2, out, m, d, mlp, eps, partial

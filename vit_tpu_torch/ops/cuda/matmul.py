@@ -2,7 +2,14 @@
 the counterparts of ``vit_tpu/ops/pallas/matmul.py:matmul`` and
 ``fused_linear``. K2 has one extension: an optional residual added in fp32
 before the single cast, which the split ``attn_block`` needs to keep
-``_attn_core``'s rounding."""
+``_attn_core``'s rounding.
+
+K2 runs on one of two tiles, which :func:`gemm_path` picks from shape and
+alignment alone: the bf16 ``wgmma`` tile fed by TMA
+(``csrc/gemm_wgmma.cuh``), which reads an operand given as the transpose of
+a contiguous matrix where it lies, or ``gemm_tile.cuh``'s tile (bf16
+``wmma``, true-fp32 FFMA), which reads contiguous operands only: the
+wrapper copies a transposed operand for it."""
 
 from __future__ import annotations
 
@@ -11,18 +18,52 @@ import torch
 from vit_tpu_torch.ops.cuda import _build, count_launch
 from vit_tpu_torch.ops.cuda.layernorm import layernorm_stats
 
+#: The C interface's tile code of each :func:`gemm_path` result.
+TILES = {"ffma": 0, "wmma": 0, "wgmma": 1}
+
+
+def gemm_path(m: int, n: int, k: int, dtype: torch.dtype, trans_a: bool,
+              trans_b: bool, ptrs: tuple[int, int],
+              strides: tuple[tuple[int, ...], tuple[int, ...]]) -> str:
+    """The tile K2 runs ``(m, k) @ (k, n)`` on: ``"ffma"`` in fp32 (true
+    fp32, as JAX's ``Precision.HIGHEST``); in bf16 ``"wgmma"`` where TMA
+    can read both operands -- each base (``ptrs``, bytes) 16-byte aligned,
+    each operand's row stride in its storage a multiple of 8 elements --
+    else ``"wmma"``. ``strides`` are the two 2-D operands' strides as
+    given; with ``trans_a`` x is the view of a contiguous (k, m) matrix,
+    whose rows are ``strides[0][1]`` apart, with ``trans_b`` w that of an
+    (n, k) one."""
+    if dtype == torch.float32:
+        return "ffma"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"K2 takes float32 or bfloat16, not {dtype}")
+    if min(m, n, k) <= 0:
+        raise ValueError(f"matmul of an empty operand ({m}, {k}) @ ({k}, {n})")
+    lda = strides[0][1] if trans_a else strides[0][0]
+    ldb = strides[1][1] if trans_b else strides[1][0]
+    if all(p % 16 == 0 for p in ptrs) and lda % 8 == 0 and ldb % 8 == 0:
+        return "wgmma"
+    return "wmma"
+
+
+def _transposed(t: torch.Tensor) -> bool:
+    """Whether ``t`` is the ``.t()`` view of a contiguous 2-D matrix (and
+    not itself contiguous)."""
+    return t.dim() == 2 and not t.is_contiguous() and t.t().is_contiguous()
+
 
 def _check(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
            activation: str | None, residual: torch.Tensor | None):
-    """Check the operands of a GEMM; return ``(m, n, k, out_shape)``."""
+    """Check the operands of a GEMM; return ``(m, n, k, out_shape)``. x and
+    w are contiguous or transposed views of contiguous 2-D matrices."""
     if activation not in (None, "gelu"):
         raise ValueError(f"unknown activation {activation!r}")
-    _build.check_tensor(x, "x", x)
+    _build.check_tensor(x, "x", x, contiguous=not _transposed(x))
     k = x.shape[-1]
     if w.dim() != 2 or w.shape[0] != k:
         raise ValueError(f"matmul shapes {tuple(x.shape)} @ {tuple(w.shape)}")
     n = w.shape[1]
-    _build.check_tensor(w, "w", x, (k, n))
+    _build.check_tensor(w, "w", x, (k, n), contiguous=not _transposed(w))
     if bias is not None:
         _build.check_tensor(bias, "bias", x, (n,))
     out_shape = (*x.shape[:-1], n)
@@ -35,16 +76,31 @@ def _check(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     return m, n, k, out_shape
 
 
+def _k2(x, w, bias, residual, out, m, n, k, gelu: int) -> None:
+    """Launch K2 on the tile :func:`gemm_path` picks; a transposed operand
+    goes as it lies to the wgmma tile, as a contiguous copy to the other.
+    An (..., K) x goes as its (m, K) view, so that its row stride is K."""
+    ta, tb = _transposed(x), _transposed(w)
+    if not ta:
+        x = x.reshape(m, k)
+    path = gemm_path(m, n, k, x.dtype, ta, tb, (x.data_ptr(), w.data_ptr()),
+                     (tuple(x.stride()), tuple(w.stride())))
+    if path != "wgmma":
+        x, w, ta, tb = x.contiguous(), w.contiguous(), False, False
+    _build.launch("vit_matmul", x, w, bias, residual, out, m, n, k, gelu,
+                  int(ta), int(tb), TILES[path], like=x)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
            activation: str | None = None,
            residual: torch.Tensor | None = None) -> torch.Tensor:
     """``(..., K) @ (K, N)`` on CUDA tensors, fp32 accumulation, then
     ``+ bias``, GELU and ``+ residual`` in fp32, one cast to ``x.dtype``.
-    ``residual`` has the output's shape ``(..., N)``."""
+    ``residual`` has the output's shape ``(..., N)``. x (2-D) and w may be
+    ``.t()`` views of contiguous matrices."""
     m, n, k, out_shape = _check(x, w, bias, activation, residual)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    _build.launch("vit_matmul", x, w, bias, residual, out, m, n, k,
-                  int(activation == "gelu"), like=x)
+    _k2(x, w, bias, residual, out, m, n, k, int(activation == "gelu"))
     count_launch("matmul")
     return out
 
@@ -65,11 +121,11 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     gelu = int(activation == "gelu")
     if ln_scale is None:
-        _build.launch("vit_matmul", x, w, bias, residual, out, m, n, k, gelu,
-                      like=x)
+        _k2(x, w, bias, residual, out, m, n, k, gelu)
     else:
         _build.check_tensor(ln_scale, "ln_scale", x, (k,))
         _build.check_tensor(ln_bias, "ln_bias", x, (k,))
+        x, w = x.contiguous(), w.contiguous()
         mu, rstd = layernorm_stats(x, eps=eps)
         _build.launch("vit_fused_linear", x, w, bias, residual, mu, rstd,
                       ln_scale, ln_bias, out, m, n, k, gelu, like=x)
