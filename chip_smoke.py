@@ -410,15 +410,44 @@ def compare_bf16(torch, got, want, dtype) -> dict:
 
 
 def case(name: str, label: str, run, work: tuple, *, library=None,
-         check=None, primary: bool = True) -> dict:
+         check=None, primary: bool = True, faults=None) -> dict:
     """A kernel case: ``run(impl)``; ``work`` = (bytes, operations, type)
     for its bound; ``library`` one PyTorch call of the same function, timed
     as a yardstick only; ``check(torch, got, want, dtype)`` its bar;
-    ``primary`` whether the kernels line may report it."""
+    ``primary`` whether the kernels line may report it; ``faults`` planted
+    faults, ``{what: fn}`` with ``fn()`` a wrong kernel output that the bar
+    must refuse against the plain version."""
     if check is None:
         check = compare_model if name in WHOLE_ENCODER else compare
     return {"name": name, "label": label, "run": run, "work": work,
-            "library": library, "check": check, "primary": primary}
+            "library": library, "check": check, "primary": primary,
+            "faults": faults or {}}
+
+
+def gemm_faults(torch, run, a, k_axis: int) -> dict:
+    """Two planted faults of a K2 case whose kernel is ``run(a)``: the
+    output scaled by 0.85, and one K step of 64 (the wgmma tile's) left
+    out, made by zeroing K indices 1024-1087 of the operand ``a`` along
+    ``k_axis``."""
+    def skip_step():
+        cut = a.clone()
+        cut.narrow(k_axis, 1024, 64).zero_()
+        return run(cut)
+    return {"output * 0.85": lambda: run(a) * 0.85,
+            "one K step of 64 skipped": skip_step}
+
+
+def check_faults(torch, c: dict, want, dtype) -> None:
+    """Raise unless ``c``'s bar refuses each of its planted faults."""
+    for what, fault in c["faults"].items():
+        try:
+            res = c["check"](torch, fault(), want, dtype)
+        except AssertionError as err:
+            log(f"[kernel] {c['name']} {c['label']} {dtype}: planted fault "
+                f"({what}) refused: {err}")
+            continue
+        raise AssertionError(f"{c['name']} {c['label']} {dtype}: the bar "
+                             f"passed a planted fault ({what}): {res}")
 
 
 def gemm_work(m: int, k: int, n: int, e: int, kind: str, *,
@@ -657,10 +686,12 @@ def kernel_cases(torch, dtype):
     wqkv, bqkv = rnd(d, 3 * d, std=0.04), rnd(3 * d, std=0.02)
     patches = rnd(32 * 196, d)
     qkv = rnd(m, 3 * d)
-    # The QKV's output gradient at a gradient's scale: the fp32 bar is
-    # absolute, and x.t() @ g sums K = 6656 products (unit g would put its
-    # outputs near 80, where fp32 sum orders differ by ~1e-3).
-    gf = rnd(m, 3 * d, std=0.01)
+    # The QKV's output gradient, at a scale for each backward product:
+    # unit for g @ w.t() (outputs near 1.9 over K = 2304); 0.01 for
+    # x.t() @ g, whose K = 6656 sums would reach 80 with unit g, where fp32
+    # sum orders differ by ~1e-3 against the absolute 1e-4 bar (0.01 puts
+    # them near 0.8). Each case also holds its bar to two planted faults.
+    gu, gf = rnd(m, 3 * d), rnd(m, 3 * d, std=0.01)
     x3 = x.reshape(b, sp, d)
     scale = hd ** -0.5
     q, k, v = qkv.view(b, sp, 3, heads, hd).permute(2, 0, 3, 1, 4)
@@ -691,13 +722,17 @@ def kernel_cases(torch, dtype):
         # The training backward's two products of the QKV, on the views
         # it hands K2 (the wgmma tile reads them where they lie).
         case("matmul", f"g ({m},{3 * d}) @ w.t() ({3 * d},{d})",
-             lambda impl: ops.matmul(gf, wqkv.t(), impl=impl),
+             lambda impl: ops.matmul(gu, wqkv.t(), impl=impl),
              gemm_work(m, 3 * d, d, e, kind, bias=False),
-             library=lambda: torch.matmul(gf, wqkv.t()), primary=False),
+             library=lambda: torch.matmul(gu, wqkv.t()), primary=False,
+             faults=gemm_faults(torch, lambda a: ops.matmul(a, wqkv.t()),
+                                gu, 1)),
         case("matmul", f"x.t() ({d},{m}) @ g ({m},{3 * d})",
              lambda impl: ops.matmul(x.t(), gf, impl=impl),
              gemm_work(d, m, 3 * d, e, kind, bias=False),
-             library=lambda: torch.matmul(x.t(), gf), primary=False),
+             library=lambda: torch.matmul(x.t(), gf), primary=False,
+             faults=gemm_faults(torch, lambda a: ops.matmul(a.t(), gf),
+                                x, 0)),
         case("matmul", f"({m},{d})@({d},{3 * d})+bias",
              lambda impl: ops.matmul(x, wqkv, bqkv, impl=impl),
              gemm_work(m, d, 3 * d, e, kind),
@@ -2769,6 +2804,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 res = c["check"](torch, got, want, dtype)
                 log(f"[kernel] {c['name']} {c['label']} {dtype}: {res}")
+                check_faults(torch, c, want, dtype)
                 if dtype == torch.bfloat16:
                     errors[c["name"]] = max(errors.get(c["name"], 0.0),
                                             res["max_abs_err"])

@@ -72,10 +72,7 @@ def test_torch_cuda_matmul_ragged(gen, dtype, m, k, n):
 def _k2_path(x, w):
     from vit_tpu_torch.ops.cuda import matmul as cuda_matmul
 
-    return cuda_matmul.gemm_path(
-        x.shape[0], w.shape[1], x.shape[1], x.dtype,
-        cuda_matmul._transposed(x), cuda_matmul._transposed(w),
-        (x.data_ptr(), w.data_ptr()), (tuple(x.stride()), tuple(w.stride())))
+    return cuda_matmul.k2_operands(x, w, *x.shape)[-1]
 
 
 def _k2_operand(gen, dtype, rows, cols, trans, std=1.0):

@@ -155,44 +155,61 @@ def test_k2_tile_schedule_covers_each_tile_once(m, n, bn):
 
 def k2_calls(cfg, b: int):
     """Every K2 call of ``cfg``'s forward and train step at batch ``b`` as
-    (m, n, k, trans_a, trans_b, strides): each linear (m, k) @ (k, n) --
-    the patch projection, QKV, out-projection, fc1, fc2 and a 1000-class
-    head -- forward, with its backward's ``g @ w.t()`` and ``x.t() @ g``
-    (the GELU'd linear's rematerialised pre-activation is its forward
-    again). The operands are whole allocations, so their bases are
-    aligned; the strides are those of the views the backward passes."""
+    ``(patches, x, w)``, bf16 operands on the meta device: each linear
+    (m, k) @ (k, n) -- the patch projection (``patches``), QKV,
+    out-projection, fc1, fc2 and a 1000-class head -- forward, with its
+    backward's ``g @ w.t()`` and ``x.t() @ g`` (the GELU'd linear's
+    rematerialised pre-activation is its forward again). The operands are
+    whole allocations, so their bases are aligned, and the backward's are
+    the views it passes: at b = 1 the head's ``x.t()`` is a (768, 1)
+    column, which PyTorch also calls contiguous."""
     d, mlp = cfg.hidden_dim, cfg.mlp_dim
     sp = -(-cfg.seq_len // 16) * 16
     rows = b * sp
     linears = [(b * cfg.num_patches, cfg.patch_dim, d), (rows, d, 3 * d),
                (rows, d, d), (rows, d, mlp), (rows, mlp, d), (b, d, CLASSES)]
     calls = []
-    for m, k, n in linears:
-        calls.append((m, n, k, False, False, ((k, 1), (n, 1))))
-        calls.append((m, k, n, False, True, ((n, 1), (1, n))))  # g @ w.t()
-        calls.append((k, n, m, True, False, ((1, k), (n, 1))))  # x.t() @ g
+    for i, (m, k, n) in enumerate(linears):
+        x, w, g = (torch.empty(shape, dtype=torch.bfloat16, device="meta")
+                   for shape in ((m, k), (k, n), (m, n)))
+        calls += [(i == 0, x, w), (False, g, w.t()), (i == 0, x.t(), g)]
     return calls
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_gemm_path_takes_wgmma_on_every_main_path_call(variant):
     """bf16: every K2 call of every variant's forward and train step at
-    batches 1-256 takes the wgmma tile, but H/14's patch projection and
-    its weight gradient, whose patches have rows of 14*14*3 = 588
-    elements, not a multiple of 8 (TMA needs 16-byte row strides): those
-    take wmma, with the transposed operand copied by the wrapper. Its
-    input gradient ``g @ w.t()`` reads w's 588 rows of 1280 and takes
-    wgmma; only its output is 588 wide."""
+    batches 1-256 takes the wgmma tile, as the wrapper picks it
+    (``k2_operands``), but H/14's patch projection and its weight
+    gradient, whose patches have rows of 14*14*3 = 588 elements, not a
+    multiple of 8 (TMA needs 16-byte row strides): those take wmma, with
+    the transposed operand copied by the wrapper. Its input gradient
+    ``g @ w.t()`` reads w's 588 rows of 1280 and takes wgmma; only its
+    output is 588 wide. fp32 takes the FFMA tile."""
     cfg = VARIANTS[variant]
     for b in BATCHES:
-        for m, n, k, ta, tb, strides in k2_calls(cfg, b):
-            path = cuda_matmul.gemm_path(m, n, k, torch.bfloat16, ta, tb,
-                                         (0, 0), strides)
-            unaligned = cfg.patch_dim % 8 != 0 and cfg.patch_dim in strides[0]
+        for patches, x, w in k2_calls(cfg, b):
+            m, k = x.shape
+            *_, path = cuda_matmul.k2_operands(x, w, m, k)
+            unaligned = patches and cfg.patch_dim % 8 != 0
             assert path == ("wmma" if unaligned else "wgmma"), (
-                variant, b, m, n, k, ta, tb)
-            assert cuda_matmul.gemm_path(m, n, k, torch.float32, ta, tb,
-                                         (0, 0), strides) == "ffma"
+                variant, b, tuple(x.shape), tuple(w.shape))
+            *_, path = cuda_matmul.k2_operands(x.float(), w.float(), m, k)
+            assert path == "ffma"
+
+
+def test_one_row_x_transposed_takes_wgmma():
+    """At batch 1 the head's weight gradient reads ``x.t()`` of a (1, 768)
+    x: a (768, 1) column that PyTorch calls contiguous both ways. K2 reads
+    it as the transpose of the one row, in place, on the wgmma tile; a
+    column of 37 rows takes wmma as the (37, 1) matrix it also is."""
+    for r, path, ta in ((768, "wgmma", True), (37, "wmma", False)):
+        x = torch.empty((1, r), dtype=torch.bfloat16, device="meta").t()
+        g = torch.empty((1, CLASSES), dtype=torch.bfloat16, device="meta")
+        assert x.is_contiguous() and cuda_matmul._transposed(x)
+        xs, _, got_ta, tb, got = cuda_matmul.k2_operands(x, g, r, 1)
+        assert (got, got_ta, tb) == (path, ta, False)
+        assert xs.data_ptr() == x.data_ptr()
 
 
 @pytest.mark.parametrize("ptrs,strides,trans,path", [
@@ -214,7 +231,9 @@ def test_gemm_path_by_alignment(ptrs, strides, trans, path):
     ((2, 256, 588), (588, 1280), False, 0, (0, 0)),  # H/14's patches
     ((2, 196, 768), (768, 768), False, 1, (0, 0)),   # B/16's patches
     ((768, 104), (104, 96), True, 1, (1, 0)),   # x.t() of a (104, 768)
-    ((36, 64), (64, 96), True, 0, (0, 0))])     # x.t() with rows of 36
+    ((36, 64), (64, 96), True, 0, (0, 0)),      # x.t() with rows of 36
+    ((768, 1), (1, 96), True, 1, (1, 0)),       # x.t() of a (1, 768) x
+    ((768, 1), (1, 96), False, 1, (1, 0))])     # a (768, 1) column
 def test_k2_wrapper_launches_the_tile_gemm_path_picks(monkeypatch, shape,
                                                       wshape, view, tile,
                                                       flags):

@@ -135,3 +135,23 @@ def test_torch_launch_ms_takes_the_first_window_that_kept_the_kernel(
                    [("copy", 50.0, 10)])
     assert launch_ms(lambda: None, "stack_kernel", 10) == 0.35
     assert launch_ms(lambda: None, "stack_kernel", 10) is None
+
+
+def test_torch_turns_times_chip_smoke_cases():
+    """``tools/turns.py`` takes its kernel cases from ``chip_smoke.py``'s
+    builders by name, so the two cannot drift apart: every builder it names
+    exists there, with a float dtype, and its worker compiles."""
+    import importlib.util
+    from pathlib import Path
+
+    from vit_tpu_torch.tools import turns
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    compile(turns.WORKER, "turns-worker", "exec")
+    for builder, dtype, name, label, library in turns.CASES.values():
+        assert callable(getattr(smoke, builder)), builder
+        assert dtype in ("bfloat16", "float32") and name and label
+        assert isinstance(library, bool)

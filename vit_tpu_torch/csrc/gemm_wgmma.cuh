@@ -66,6 +66,15 @@ constexpr int kBM = 128;       // two consumer warpgroups of 64 rows
 constexpr int kBK = 64;        // one 128-byte swizzle row of bf16
 constexpr int kThreads = 384;  // consumers 0-255, producer 256-383
 constexpr int kAtom = 8192;    // a 64 x 64 bf16 box
+// Registers a thread after setmaxnreg: the producer's warpgroup gives its
+// share back, the consumers' take it. setmaxnreg.inc waits until the
+// block's pool holds kPoolRegs, so the launcher refuses a build whose
+// kernel got fewer than kPoolRegs / kThreads registers a thread (the
+// launch bound's 168) instead of launching a block that never starts.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kPoolRegs = 256 * kConsumerRegs + 128 * kProducerRegs;
+static_assert(kPoolRegs <= 65536, "one block an SM: 64K registers");
 // A deadlock of the pipeline traps (a launch error) after about 10 s
 // instead of hanging the card.
 constexpr long long kWaitCycles = 20000000000LL;
@@ -293,7 +302,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wgi = threadIdx.x / 128;
   if (wgi == 2) {
     // ---- producer ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (threadIdx.x == 256) {
       int s = 0;
       uint32_t ph = 0;
@@ -326,7 +335,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumers ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
     float d[64];
     bf16* cs = reinterpret_cast<bf16*>(smem + kCOff) + wgi * 64 * kLdc;
     int s = 0;

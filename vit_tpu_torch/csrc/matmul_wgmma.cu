@@ -54,8 +54,8 @@ bool tensor_map(CUtensorMap* map, const void* p, int rows, int cols, int ld,
 }
 
 // Per device: its SM count, and whether each wgmma kernel may use kSmem
-// bytes of shared memory (set once: the host cost of a launch counts at
-// K2's smaller shapes).
+// bytes of shared memory and got the registers its setmaxnreg split needs
+// (set once: the host cost of a launch counts at K2's smaller shapes).
 constexpr int kMaxDevices = 64;
 
 template <int TA, int TB>
@@ -70,6 +70,13 @@ cudaError_t launch_wgmma_tile(const CUtensorMap& ma, const CUtensorMap& mb,
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmem);
     if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr{};
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    // Fewer registers than the split needs: setmaxnreg.inc would wait
+    // forever, so refuse the launch.
+    if (attr.numRegs * wg::kThreads < wg::kPoolRegs)
+      return cudaErrorLaunchOutOfResources;
     int count = 0;
     err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
                                  device);

@@ -47,9 +47,13 @@ def gemm_path(m: int, n: int, k: int, dtype: torch.dtype, trans_a: bool,
 
 
 def _transposed(t: torch.Tensor) -> bool:
-    """Whether ``t`` is the ``.t()`` view of a contiguous 2-D matrix (and
-    not itself contiguous)."""
-    return t.dim() == 2 and not t.is_contiguous() and t.t().is_contiguous()
+    """Whether K2 reads ``t`` as the ``.t()`` view of a contiguous 2-D
+    matrix: ``t`` is one and not itself contiguous, or it is both, which
+    only a column (r, 1) with r > 1 or a row can be. Such a column (``x.t()``
+    of a one-row x) is read as its transpose's one row: as an (r, 1) matrix
+    its rows would be 1 element apart, which TMA cannot read."""
+    return (t.dim() == 2 and t.t().is_contiguous()
+            and (not t.is_contiguous() or t.shape[1] < t.shape[0]))
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
@@ -76,17 +80,26 @@ def _check(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     return m, n, k, out_shape
 
 
-def _k2(x, w, bias, residual, out, m, n, k, gelu: int) -> None:
-    """Launch K2 on the tile :func:`gemm_path` picks; a transposed operand
-    goes as it lies to the wgmma tile, as a contiguous copy to the other.
-    An (..., K) x goes as its (m, K) view, so that its row stride is K."""
+def k2_operands(x: torch.Tensor, w: torch.Tensor, m: int, k: int):
+    """What K2 launches for ``x @ w``: ``(x, w, trans_a, trans_b, path)``
+    with ``path`` from :func:`gemm_path`. A transposed operand goes as it
+    lies to the wgmma tile, as a contiguous copy to the other; an (..., K)
+    x goes as its (m, K) view. :func:`gemm_path` sees the row strides the
+    launcher reads the operands with: K, N, or with a transpose M, K."""
     ta, tb = _transposed(x), _transposed(w)
     if not ta:
         x = x.reshape(m, k)
+    n = w.shape[1]
     path = gemm_path(m, n, k, x.dtype, ta, tb, (x.data_ptr(), w.data_ptr()),
-                     (tuple(x.stride()), tuple(w.stride())))
+                     ((1, m) if ta else (k, 1), (1, k) if tb else (n, 1)))
     if path != "wgmma":
         x, w, ta, tb = x.contiguous(), w.contiguous(), False, False
+    return x, w, ta, tb, path
+
+
+def _k2(x, w, bias, residual, out, m, n, k, gelu: int) -> None:
+    """Launch K2 on the tile :func:`gemm_path` picks (:func:`k2_operands`)."""
+    x, w, ta, tb, path = k2_operands(x, w, m, k)
     _build.launch("vit_matmul", x, w, bias, residual, out, m, n, k, gelu,
                   int(ta), int(tb), TILES[path], like=x)
 

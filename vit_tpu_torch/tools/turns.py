@@ -1,25 +1,26 @@
 """Time the same kernels of two checkouts of the port in turns on one card.
 
 A change to a kernel's source must leave the kernels that share it
-compiled as before: this script times K2 (``ops.cuda.matmul.matmul``,
-B/16 bs=32: the QKV 6656x768 @ 768x2304 + bias in bf16 and fp32, beside
-``torch.addmm``; the weight gradient ``x.t() @ g`` 768x6656 @ 6656x2304
-in bf16, as each checkout's backward runs it: the view where the wrapper
-takes one, else a contiguous copy first), K4's attention core (B/16
-bs=32, bf16), K6 (LN 4736x1024 @ 1024x3072), K8 (``embed_fused``,
-L/16-384 bs=4), K9 (``ops.encoder_stack``, B/16 bs=1, bf16, 12 layers),
-K11 (``matmul_i8``, the QKV), K13 (``ops.flash_attention_bwd``, B/16
-bs=32, 384 heads, 197 of 208 keys, in bf16 and fp32), K16 (``matmul3``,
-the scores and the context), K22 (``int8_probe.dot``, int8 and bf16), the
-B/16 bs=32 bf16 forward on the default route and on ``(flash,
-fused=False)`` and the B/16 bs=32 bf16 train step of this checkout and of
-``--other`` in turns (other, this, this, other), each run in its own
-process that builds that checkout's kernels into the checkout's own
-``build/``. Each time is the median of CUDA-event
-times of single calls after warm-up, beside the pipelined time (calls
-queued back to back between two events: the device time where the host
-keeps ahead) and the profiler's device time (each launch's time over the
-records kept). It prints one line a run and a JSON line::
+compiled as before: this script times the kernel cases of ``CASES``,
+taken by name and label from this checkout's ``chip_smoke.py`` (its
+``kernel_cases*`` builders, the same inputs for both trees): K2 at B/16
+bs=32 (the QKV 6656x768 @ 768x2304 + bias in bf16 and fp32, the backward's
+``g @ w.t()`` and ``x.t() @ g``, each beside its ``torch`` call), K4's
+bf16 attention core, K6 (LN 4736x1024 @ 1024x3072), K8 (``embed_fused``,
+L/16-384 bs=4), K9 (``ops.encoder_stack``, B/16 bs=1, 12 layers), K11
+(``matmul_i8``, the QKV), K13 (``ops.flash_attention_bwd``, B/16 bs=32 in
+bf16 and fp32), K16 (``matmul3``, the scores and the context) and K22
+(``int8_probe.dot``, int8 and bf16); then the B/16 bs=32 bf16 forward on
+the default route and on ``(flash, fused=False)`` and the B/16 bs=32 bf16
+train step. A checkout whose K2 reads no transposed view (no
+``ops.cuda.matmul.gemm_path``) gets contiguous copies first, as its
+backward made them. Trees run in turns (other, this, this, other), each
+in its own process that builds that checkout's kernels into the
+checkout's own ``build/``. Each time is the median of CUDA-event times of
+single calls after warm-up, beside the pipelined time (calls queued back
+to back between two events: the device time where the host keeps ahead)
+and the profiler's device time (each launch's time over the records
+kept). It prints one line a run and a JSON line::
 
     git archive <parent> | tar -x -C build/parent    # a listed directory
     python -m vit_tpu_torch.tools.turns --other build/parent
@@ -34,27 +35,66 @@ import subprocess
 import sys
 from pathlib import Path
 
-#: Run in a fresh process with the checkout's root as argv[1]; prints one
-#: JSON line. It uses only what every checkout of the port has.
+#: The kernel cases timed: key -> (``chip_smoke`` builder, dtype, case
+#: name, a part of its label, whether to time its library call too).
+CASES = {
+    "k2_qkv_bfloat16": ("kernel_cases", "bfloat16", "matmul",
+                        "(6656,768)@(768,2304)+bias", True),
+    "k2_qkv_float32": ("kernel_cases", "float32", "matmul",
+                       "(6656,768)@(768,2304)+bias", True),
+    "k2_g_wt": ("kernel_cases", "bfloat16", "matmul", "@ w.t()", True),
+    "k2_xt_g": ("kernel_cases", "bfloat16", "matmul", "x.t() (", True),
+    "core": ("kernel_cases", "bfloat16", "attention", "qkv", False),
+    "fused_linear_ln": ("kernel_cases_l16_384", "bfloat16", "fused_linear",
+                        "LN ", False),
+    "embed_fused": ("kernel_cases_small_batch", "bfloat16", "embed_fused",
+                    "(4,576,768)", False),
+    "encoder_stack": ("kernel_cases_small_batch", "bfloat16",
+                      "encoder_stack", "(1,208,768)", False),
+    "matmul_i8": ("kernel_cases_int8", "bfloat16", "matmul_i8",
+                  "(6656,768)@(768,2304)+bias", False),
+    "matmul3_scores": ("kernel_cases_chain", "bfloat16", "matmul3",
+                       "scores", False),
+    "matmul3_context": ("kernel_cases_chain", "bfloat16", "matmul3",
+                        "context", False),
+    "dot_probe_int8": ("kernel_cases_probes", "bfloat16", "dot_probe",
+                       "int8", False),
+    "dot_probe_bf16": ("kernel_cases_probes", "bfloat16", "dot_probe",
+                       "bfloat16", False),
+    "attention_bwd_bfloat16": ("kernel_cases_train", "bfloat16",
+                               "flash_attention_bwd", "B/16", False),
+    "attention_bwd_float32": ("kernel_cases_train", "float32",
+                              "flash_attention_bwd", "B/16", False),
+}
+
+#: Run in a fresh process with the checkout's root, this checkout's
+#: ``chip_smoke.py`` and ``CASES`` as arguments; prints one JSON line. It
+#: uses only what every checkout of the port has.
 WORKER = r"""
-import json, sys
+import importlib.util, json, sys
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
-from vit_tpu_torch import ops
 from vit_tpu_torch.config import VARIANTS
 from vit_tpu_torch.models.vit import forward, init_params
-from vit_tpu_torch.ops.cuda import _build, block
+from vit_tpu_torch.ops.cuda import _build
 from vit_tpu_torch.ops.cuda import matmul as cuda_matmul
-from vit_tpu_torch.tools import int8_probe
 from vit_tpu_torch.train import make_optimizer, make_train_step
 from vit_tpu_torch.utils.timing import pipelined_ms
 
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build()
-gen = torch.Generator(device="cuda").manual_seed(0)
+if not hasattr(cuda_matmul, "gemm_path"):
+    # This checkout's K2 reads contiguous operands only; its backward
+    # copied a transposed one first, so the copy is timed with the call.
+    k2 = cuda_matmul.matmul
+    cuda_matmul.matmul = lambda x, w, *a, **kw: k2(
+        x.contiguous(), w.contiguous(), *a, **kw)
 
 
 def times(fn, iters=50, warmup=5):
@@ -93,78 +133,31 @@ def device_ms(fn, iters=20):
     return dev / 1e3
 
 
+res = {}
+wanted = json.loads(sys.argv[3])
+groups = {}
+for key, (builder, dt, name, label, library) in wanted.items():
+    groups.setdefault((builder, dt), []).append((key, name, label, library))
+with torch.inference_mode():
+    for (builder, dt), picks in groups.items():
+        cases = getattr(smoke, builder)(torch, getattr(torch, dt))
+        for key, name, label, library in picks:
+            (c,) = [c for c in cases
+                    if c["name"] == name and label in c["label"]]
+            res[key] = times(lambda: c["run"]("cuda"))
+            if library:
+                res[key + "_library"] = times(c["library"])
+        del cases
+        torch.cuda.empty_cache()
+gen = torch.Generator(device="cuda").manual_seed(0)
 cfg = VARIANTS["B/16"].replace(dtype=torch.bfloat16, num_classes=1000)
 params = init_params(cfg, generator=gen, device="cuda")
-qkv = torch.randn((32 * 208, 3 * 768), generator=gen,
-                  device="cuda").to(torch.bfloat16)
-x1 = torch.randn((1, 208, 768), generator=gen,
-                 device="cuda").to(torch.bfloat16)
 px = torch.randn((32, 3, 224, 224), generator=gen,
                  device="cuda").to(torch.bfloat16)
-res = {}
-
-
-def rnd(*shape, dt=torch.bfloat16, std=1.0):
-    return (torch.randn(shape, generator=gen, device="cuda") * std).to(dt)
-
-
 with torch.inference_mode():
-    for dt in (torch.bfloat16, torch.float32):
-        tag = str(dt)[6:]
-        x, w = rnd(6656, 768, dt=dt), rnd(768, 2304, dt=dt, std=0.04)
-        bias = rnd(2304, dt=dt, std=0.02)
-        res["k2_qkv_" + tag] = times(lambda: cuda_matmul.matmul(x, w, bias))
-        res["addmm_qkv_" + tag] = times(lambda: torch.addmm(bias, x, w))
-    # The weight gradient as the checkout's backward hands it to K2: the
-    # view x.t() where the wrapper reads one (gemm_path), else a copy.
-    x, gf = rnd(6656, 768), rnd(6656, 2304)
-    views = hasattr(cuda_matmul, "gemm_path")
-    res["k2_xt_g"] = times(lambda: cuda_matmul.matmul(
-        x.t() if views else x.t().contiguous(), gf))
-    res["matmul_xt_g"] = times(lambda: torch.matmul(x.t(), gf))
-    xl, wl = rnd(4736, 1024, std=1.5), rnd(1024, 3072, std=0.03)
-    gl, bl = rnd(1024, std=0.1) + 1, rnd(1024, std=0.05)
-    b3 = rnd(3072, std=0.02)
-    res["fused_linear_ln"] = times(lambda: ops.fused_linear(
-        xl, wl, b3, ln_scale=gl, ln_bias=bl))
-    pe, we = rnd(4, 576, 768), rnd(768, 1024, std=0.03)
-    be, ce, pos = rnd(1024, std=0.02), rnd(1024), rnd(576, 1024)
-    res["embed_fused"] = times(lambda: ops.embed_fused(pe, we, be, ce, pos,
-                                                       592))
-    xq, ax = ops.quantize_rows(rnd(6656, 768))
-    wq = torch.randint(-127, 128, (768, 2304), generator=gen, device="cuda",
-                       dtype=torch.int8)
-    ws = torch.rand((2304,), generator=gen, device="cuda") * 1e-3
-    bq = rnd(2304, std=0.02)
-    res["matmul_i8"] = times(lambda: ops.matmul_i8(
-        xq, ax, wq, ws, bq, out_dtype=torch.bfloat16))
-    qh, kt = rnd(384, 197, 64), rnd(384, 64, 197)
-    ph, vh = rnd(384, 197, 197), rnd(384, 197, 64)
-    res["matmul3_scores"] = times(lambda: ops.matmul3(qh, kt, scale=0.125))
-    res["matmul3_context"] = times(lambda: ops.matmul3(ph, vh))
-    xd = torch.randint(-127, 128, (1664, 768), generator=gen, device="cuda",
-                       dtype=torch.int8)
-    wd = torch.randint(-127, 128, (768, 3072), generator=gen, device="cuda",
-                       dtype=torch.int8)
-    res["dot_probe_int8"] = times(lambda: int8_probe.dot(xd, wd))
-    xb, wb = rnd(1664, 768), rnd(768, 3072, std=0.03)
-    res["dot_probe_bf16"] = times(lambda: int8_probe.dot(xb, wb))
-    res["core"] = times(lambda: block.attention_core(
-        qkv, batch=32, num_heads=12, scale=64 ** -0.5, seq_len=197))
-    res["encoder_stack"] = times(lambda: ops.encoder_stack(
-        x1, params["encoder"], num_heads=12, seq_len=197))
     res["forward"] = times(lambda: forward(params, px, cfg), iters=20)
     res["forward_flash_chain"] = times(
         lambda: forward(params, px, cfg, fused=False), iters=20)
-    for dt in (torch.bfloat16, torch.float32):
-        buf = torch.randn((32 * 208, 3 * 768), generator=gen,
-                          device="cuda").to(dt)
-        q, k, v = buf.view(32, 208, 3, 12, 64).permute(2, 0, 3, 1, 4)
-        g = torch.randn((32, 208, 12, 64), generator=gen,
-                        device="cuda").to(dt).transpose(1, 2)
-        res["attention_bwd_" + str(dt)[6:]] = times(
-            lambda: ops.flash_attention_bwd(q, k, v, g, scale=64 ** -0.5,
-                                            seq_len=197))
 labels = torch.randint(0, 1000, (32,), generator=gen, device="cuda")
 init_fn, step_fn = make_train_step(cfg, make_optimizer(1e-4, 0.05))
 opt = init_fn(params)
@@ -178,7 +171,8 @@ HERE = Path(__file__).resolve().parents[2]
 
 def run_tree(root: Path, timeout: int) -> dict:
     """The worker's timings for the checkout at ``root``."""
-    proc = subprocess.run([sys.executable, "-c", WORKER, str(root)],
+    proc = subprocess.run([sys.executable, "-c", WORKER, str(root),
+                           str(HERE / "chip_smoke.py"), json.dumps(CASES)],
                           cwd=root, capture_output=True, text=True,
                           timeout=timeout,
                           env={**os.environ, "PYTHONPATH": str(root)})
