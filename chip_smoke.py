@@ -19,10 +19,15 @@ without printing the final ``ok`` line:
    L/16 encoders at bs=1; K13 ``flash_attention_bwd`` at B/16 bs=32 in
    both dtypes, L/16-384 bs=2 (592 tokens) in bf16 and H/14 bs=2 (d=80)
    in fp32; the reference op chain at B/16 bs=32's unfused shapes: K14
-   ``add`` bit for bit, K15 ``softmax``, K16 ``matmul3`` (scores and
-   context), and K17 ``mlp_block_q`` there and, in bf16, at L/16-384 bs=8
-   and H/14 bs=2; K2 also at the training backward's two products of the
-   QKV, on the views it passes (``g @ w.t()``, ``x.t() @ g``);
+   ``add`` bit for bit, K15 ``softmax``, K16 ``matmul3`` (scores,
+   context, and the scores at 200 tokens, whose rows are aligned), and
+   K17 ``mlp_block_q`` there and, in bf16, at L/16-384 bs=8 and H/14
+   bs=2; K2 also at the training backward's two products of the QKV, on
+   the views it passes (``g @ w.t()``, ``x.t() @ g``); K7 also at B/16
+   bs=32 on packed QKV views. The bars of K2's backward cases, of K7's
+   three cases and of K16's scores and context are each held to two
+   planted faults (``gemm_faults``, ``flash_faults``), which they must
+   refuse;
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
    exact per-forward launch counts; the same weights through
@@ -60,9 +65,11 @@ without printing the final ``ok`` line:
 11. timings (CUDA events, median of 20 after warm-up): each kernel against
     its plain version and, where one PyTorch call computes the same
     function, that call (``library_ms``, a yardstick the port never
-    calls); K4's core, K13 and every K2 case (``PIPELINED``) also
-    pipelined, calls queued back to back (the device time), beside the
-    library call timed the same way (fp32 ``addmm`` without TF32); the
+    calls); K4's core, K13 and every case of K2, K7 and K16
+    (``PIPELINED``) also pipelined, calls queued back to back (the device
+    time where the host keeps ahead), and K2's, K7's and K16's on the card
+    (``DEVICE_TIMED``: the profiler's device time), beside the library
+    call timed the same way (fp32 ``addmm`` without TF32); the
     bf16 forwards of B/16 at bs=32 and L/16-384 at bs=8
     through the kernels and through ``impl="torch"``; B/16 at bs=1 and 2
     and L/16 at bs=1 through the stack route, the per-layer kernel route
@@ -197,8 +204,13 @@ PER_FORWARD_Q_STACK = {"embed_fused": 1, "encoder_stack_q": 1,
                        "layernorm": 1, "matmul": 1}
 #: Kernels whose primary case phase 11 also times pipelined (calls queued
 #: back to back: the device time), beside the library call timed the same
-#: way; K2's every case.
-PIPELINED = ("attention", "flash_attention_bwd", "matmul")
+#: way; every case of K2, K7 and K16.
+PIPELINED = ("attention", "flash_attention_bwd", "matmul", "flash_attention",
+             "matmul3")
+#: Kernels each of whose cases phase 11 also times on the card (the
+#: profiler's device time), beside the library call: their wrappers' host
+#: time can exceed the kernel, and then pipelined calls wait on the host.
+DEVICE_TIMED = ("matmul", "flash_attention", "matmul3")
 #: Where each kernel's source is and which TPU kernel it replaces.
 KERNEL_SOURCES = {
     "layernorm": ("vit_tpu_torch/csrc/layernorm.cu",
@@ -424,17 +436,26 @@ def case(name: str, label: str, run, work: tuple, *, library=None,
             "faults": faults or {}}
 
 
-def gemm_faults(torch, run, a, k_axis: int) -> dict:
-    """Two planted faults of a K2 case whose kernel is ``run(a)``: the
-    output scaled by 0.85, and one K step of 64 (the wgmma tile's) left
-    out, made by zeroing K indices 1024-1087 of the operand ``a`` along
-    ``k_axis``."""
+def gemm_faults(torch, run, a, k_axis: int, start: int = 1024,
+                width: int = 64) -> dict:
+    """Two planted faults of a GEMM case whose kernel is ``run(a)``: the
+    output scaled by 0.85, and one K step left out, made by zeroing K
+    indices ``start`` .. ``start + width - 1`` of the operand ``a`` along
+    ``k_axis`` (by default one 64-deep step of K2's wgmma tile)."""
     def skip_step():
         cut = a.clone()
-        cut.narrow(k_axis, 1024, 64).zero_()
+        cut.narrow(k_axis, start, width).zero_()
         return run(cut)
     return {"output * 0.85": lambda: run(a) * 0.85,
-            "one K step of 64 skipped": skip_step}
+            f"K {start}-{start + width - 1} skipped": skip_step}
+
+
+def flash_faults(run, seq_len: int) -> dict:
+    """Two planted faults of a K7 case whose kernel is ``run(seq_len)``:
+    the output scaled by 0.85, and the last 16 real keys masked (one
+    16-key fragment of a key tile dropped)."""
+    return {"output * 0.85": lambda: run(seq_len) * 0.85,
+            "last 16 real keys dropped": lambda: run(seq_len - 16)}
 
 
 def check_faults(torch, c: dict, want, dtype) -> None:
@@ -745,6 +766,16 @@ def kernel_cases(torch, dtype):
         case("attention", f"qkv ({m},{3 * d}) heads {heads} seq_len {s}",
              attn_core, (4 * m * d * e, att_ops, kind),
              library=lambda: _sdpa(torch, q, k, v, scale, s)),
+        # K7 at the (flash, fused=False) route's shape: the heads of the
+        # packed QKV buffer as views.
+        case("flash_attention", f"packed qkv B={b} H={heads} S={sp} "
+             f"seq_len {s} d={hd}",
+             lambda impl: ops.flash_attention(q, k, v, scale=scale,
+                                              seq_len=s, impl=impl),
+             (4 * m * d * e, att_ops, kind),
+             library=lambda: _sdpa(torch, q, k, v, scale, s), primary=False,
+             faults=flash_faults(lambda n: ops.flash_attention(
+                 q, k, v, scale=scale, seq_len=n), s)),
         case("attn_block", f"({b},{sp},{d}) seq_len {s}",
              lambda impl: ops.attn_block(x3, g, beta, wqkv, bqkv, w_dd, b_d,
                                          num_heads=heads, seq_len=s,
@@ -789,7 +820,9 @@ def kernel_cases_l16_384(torch, dtype):
              lambda impl: ops.flash_attention(q, k, v, scale=hd ** -0.5,
                                               seq_len=s, impl=impl),
              (4 * m * d * e, attention_ops(b, heads, sp, s, hd), kind),
-             library=lambda: _sdpa(torch, q, k, v, hd ** -0.5, s)),
+             library=lambda: _sdpa(torch, q, k, v, hd ** -0.5, s),
+             faults=flash_faults(lambda n: ops.flash_attention(
+                 q, k, v, scale=hd ** -0.5, seq_len=n), s)),
         case("mlp_block", f"({m},{d}) mlp {mlp}",
              lambda impl: ops.mlp_block(x, g, beta, w_dm, b_m, w_md, b_d,
                                         impl=impl),
@@ -955,7 +988,11 @@ def kernel_cases_int8(torch, dtype):
                      (3 * m * d * e + 4 * m * d, att_ops, _kind(torch, dtype)),
                      library=lambda a=(q, k, v, hd, s): _sdpa(
                          torch, a[0], a[1], a[2], a[3] ** -0.5, a[4]),
-                     check=compare_bf16, primary=False),
+                     check=compare_bf16, primary=False,
+                     faults=flash_faults(
+                         lambda n, a=(q, k, v, hd): ops.flash_attention(
+                             a[0], a[1], a[2], scale=a[3] ** -0.5, seq_len=n,
+                             out_dtype=torch.float32), s)),
                 case("attn_block_q", f"{tag} ({b},{sp},{d}) seq_len {s}",
                      lambda impl, a=(x3, g, beta, wqkv, bqkv, wout, b_d,
                                      heads, s): ops.attn_block_q(
@@ -1022,10 +1059,11 @@ def kernel_cases_chain(torch, dtype):
     """The reference op chain's kernels at B/16 bs=32's unfused shapes (197
     real tokens, no padding): K14 on the (6304, 768) residual, bit for bit;
     K15 on the 384*197 score rows of 197; K16 on the scores (384, 197, 64)
-    @ (384, 64, 197) * 1/8, the case the kernels line reports, and the
-    context (384, 197, 197) @ (384, 197, 64); K17 at the int8 per-layer
-    route's B/16 bs=32 MLP (6656 x 768, MLP 3072), and in bf16 at
-    L/16-384 bs=8 (4736 x 1024, 4096) and H/14 bs=2 (544 x 1280, 5120).
+    @ (384, 64, 197) * 1/8, the case the kernels line reports, the context
+    (384, 197, 197) @ (384, 197, 64), and the scores at 200 tokens (rows
+    16-byte aligned); K17 at the int8 per-layer route's B/16 bs=32 MLP
+    (6656 x 768, MLP 3072), and in bf16 at L/16-384 bs=8 (4736 x 1024,
+    4096) and H/14 bs=2 (544 x 1280, 5120).
     Library yardsticks (the port calls none): ``torch.add``,
     ``torch.softmax``, ``torch.baddbmm`` with ``alpha=scale``; none for
     K17."""
@@ -1039,6 +1077,7 @@ def kernel_cases_chain(torch, dtype):
     scores = rnd(bh, s, s, std=3.0)
     probs = torch.softmax(scores.float(), -1).to(dtype)
     q, kt, v = rnd(bh, s, hd), rnd(bh, hd, s), rnd(bh, s, hd)
+    q200, kt200 = rnd(bh, 200, hd), rnd(bh, hd, 200)
 
     def bmm_work(b, mm, k, n):
         return ((b * mm * k + b * k * n + b * mm * n) * e, 2 * b * mm * n * k,
@@ -1055,13 +1094,26 @@ def kernel_cases_chain(torch, dtype):
              lambda impl: ops.softmax(scores, impl=impl),
              (2 * bh * s * s * e, 5 * bh * s * s, "fp32"),
              library=lambda: torch.softmax(scores, -1)),
+        # Each K16 case's bar refuses two planted faults: the output x
+        # 0.85, and one K step of the mma.sync tile left out (the
+        # context's second 64-deep step; the scores' K = 64 is one step,
+        # so a k16 slice of it).
         case("matmul3", f"context ({bh},{s},{s})@({bh},{s},{hd})",
              lambda impl: ops.matmul3(probs, v, impl=impl),
              bmm_work(bh, s, s, hd), library=baddbmm(probs, v, 1.0),
-             primary=False),
+             primary=False, faults=gemm_faults(
+                 torch, lambda a: ops.matmul3(a, v), probs, 2, 64, 64)),
         case("matmul3", f"scores ({bh},{s},{hd})@({bh},{hd},{s})*0.125",
              lambda impl: ops.matmul3(q, kt, scale=0.125, impl=impl),
-             bmm_work(bh, s, hd, s), library=baddbmm(q, kt, 0.125)),
+             bmm_work(bh, s, hd, s), library=baddbmm(q, kt, 0.125),
+             faults=gemm_faults(torch, lambda a: ops.matmul3(
+                 a, kt, scale=0.125), q, 2, 16, 16)),
+        # The same product at 200 tokens, where every row of k^T and of
+        # the output is 16-byte aligned: what the 197-token rows cost.
+        case("matmul3", f"aligned ({bh},200,{hd})@({bh},{hd},200)*0.125",
+             lambda impl: ops.matmul3(q200, kt200, scale=0.125, impl=impl),
+             bmm_work(bh, 200, hd, 200), library=baddbmm(q200, kt200, 0.125),
+             primary=False),
     ]
     shapes = [("H/14 bs=2", 544, 1280, 5120),
               ("L/16-384 bs=8", 4736, 1024, 4096)] if dtype == torch.bfloat16 \
@@ -1266,8 +1318,11 @@ def device_ms(torch, fn, iters: int = 20) -> tuple[float, dict]:
     from vit_tpu_torch.utils.profiling import kernel_times
 
     by_name = {}
-    for key, (ms, n) in kernel_times(fn, iters).items():
-        by_name[key[:60]] = by_name.get(key[:60], 0.0) + ms * n
+    for _ in range(3):  # a window whose records were all lost is retried
+        for key, (ms, n) in kernel_times(fn, iters).items():
+            by_name[key[:60]] = by_name.get(key[:60], 0.0) + ms * n
+        if by_name:
+            break
     return sum(by_name.values()), by_name
 
 
@@ -3145,22 +3200,24 @@ def main() -> int:
                         "ms": ms, "plain_ms": plain, "library_ms": library,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "primary": c["primary"]})
-        if c["name"] in PIPELINED and (c["primary"] or c["name"] == "matmul"):
+        if c["name"] in PIPELINED and (c["primary"]
+                                       or c["name"] in DEVICE_TIMED):
             # The device time of back-to-back calls, kernel and library
             # call alike.
             timings[-1]["pipelined_ms"] = pipelined_ms(
                 lambda: c["run"]("cuda"))
             timings[-1]["library_pipelined_ms"] = (
                 None if library is None else pipelined_ms(c["library"]))
-            if c["name"] == "matmul":
+            if c["name"] in DEVICE_TIMED:
                 # K2's wrapper takes longer on the host than its kernel on
                 # the card at most of these shapes, so pipelined calls
                 # wait on the host: the profiler's device time too.
+                # None where the profiler kept no record of the kernel.
                 timings[-1]["device_ms"] = device_ms(
-                    torch, lambda: c["run"]("cuda"))[0]
+                    torch, lambda: c["run"]("cuda"))[0] or None
                 timings[-1]["library_device_ms"] = (
                     None if library is None
-                    else device_ms(torch, c["library"])[0])
+                    else device_ms(torch, c["library"])[0] or None)
             log(f"[timing] {c['name']} {c['label']} {dtype}: {ms:.4f} ms "
                 f"events, {timings[-1]['pipelined_ms']:.4f} pipelined, "
                 f"device {timings[-1].get('device_ms')}; plain "
@@ -3265,6 +3322,9 @@ def main() -> int:
         if name in PIPELINED:
             kernels[-1].update(pipelined_ms=t["pipelined_ms"],
                                library_pipelined_ms=t["library_pipelined_ms"])
+        if name in DEVICE_TIMED:
+            kernels[-1].update(device_ms=t["device_ms"],
+                               library_device_ms=t["library_device_ms"])
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched by a main path: "
                              f"{kernels}")

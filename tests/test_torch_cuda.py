@@ -283,6 +283,61 @@ def test_torch_cuda_flash_attention(gen, dtype, hd, b, heads, s, seq_len):
     _close(got, ops.flash_attention(q, k, v, impl="torch", **kw))
 
 
+@pytest.mark.parametrize("out_f32", [False, True])
+@pytest.mark.parametrize("hd", [16, 80, 128])
+@pytest.mark.parametrize("b,heads,s,seq_len", [
+    (2, 3, 150, 141),   # S not a multiple of 64; seq_len inside a fragment
+    (1, 2, 208, 197),   # B/16: the last tile holds one 16-key group
+    (3, 1, 70, 70)])
+def test_torch_cuda_flash_attention_bf16_tiles(gen, out_f32, hd, b, heads,
+                                               s, seq_len):
+    """K7's bf16 tile on mma.sync: packed QKV views (cp.async staging) and
+    the same views one element off 16-byte alignment (element staging),
+    bf16 or fp32 out, at the kernel bars (mean <= 3e-3 too); two calls
+    equal bit for bit."""
+    from vit_tpu_torch import ops
+
+    dt = torch.bfloat16
+    kw = dict(scale=hd ** -0.5, seq_len=seq_len,
+              out_dtype=torch.float32 if out_f32 else None)
+    flat = _rnd(gen, dt, b * s * 3 * heads * hd + 1)
+    for off in (0, 1):  # off 1: every row 2 bytes past a 16-byte boundary
+        qkv = flat[off:off + b * s * 3 * heads * hd]
+        q, k, v = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        got = ops.flash_attention(q, k, v, impl="cuda", **kw)
+        _close_bf16_bars(got, ops.flash_attention(q, k, v, impl="torch",
+                                                  **kw))
+        again = ops.flash_attention(q, k, v, impl="cuda", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("b,m,k,n", [
+    (3, 37, 16, 37),     # odd M and N: batch bases 2 mod 16 bytes apart
+    (5, 37, 37, 16),     # odd K: x rows 74 bytes
+    (2, 197, 197, 64),   # the context
+    (2, 197, 64, 197),   # the scores
+    (3, 129, 5, 67),     # K < 16
+    (2, 65, 200, 131)])  # four K steps, the last ragged
+@pytest.mark.parametrize("scale", [None, 1.0, 0.125])
+def test_torch_cuda_matmul3_bf16_tiles(gen, b, m, k, n, scale):
+    """K16's bf16 tile on mma.sync at ragged sizes whose rows and batches
+    are only 2-byte aligned (realigned staging and output words), at the
+    kernel bars (mean <= 3e-3 too); ``scale=1`` equals no scale bit for
+    bit; two calls equal bit for bit."""
+    from vit_tpu_torch import ops
+
+    dt = torch.bfloat16
+    x, y = _rnd(gen, dt, b, m, k), _rnd(gen, dt, b, k, n, std=0.3)
+    got = ops.matmul3(x, y, scale=scale, impl="cuda")
+    _close_bf16_bars(got, ops.matmul3(x, y, scale=scale, impl="torch"))
+    again = ops.matmul3(x, y, scale=scale, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if scale == 1.0:
+        assert torch.equal(got, ops.matmul3(x, y, impl="cuda"))
+
+
 def test_torch_cuda_wrappers_check_inputs(gen):
     from vit_tpu_torch import ops
 

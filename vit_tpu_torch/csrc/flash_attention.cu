@@ -11,16 +11,17 @@
 // whole K, V and fp32 score rows in shared memory, 313,920 B in bf16 at
 // L/16-384's 592 tokens, over the 232,448 B a block may use.
 //
-// Design: grid (B*H, ceil(S/64)); a block owns a 64-row query tile of one
-// (image, head), keeps it in shared memory, and streams K and V through
-// shared memory in 64-key tiles, so its shared memory does not grow with S.
-// Scores, the running max m and the running sum l are fp32, with the
-// online-softmax recurrence of _flash_kernel (attention.py:68-77):
+// Design: grid (B*H, ceil(S/rows)); a block owns a query tile of one (image,
+// head) (rows: 128 in bf16, 64 in fp32) and streams K and V through shared
+// memory in 64-key tiles, so its shared memory does not grow with S. Scores,
+// the running max m and the running sum l are fp32, with the online-softmax
+// recurrence of _flash_kernel (attention.py:68-77):
 //   m' = max(m, rowmax(s));  alpha = exp(m - m');  p = exp(s - m');
 //   l' = l * alpha + rowsum(p);  acc' = acc * alpha + (p in T) @ v;
-// and ctx = acc / l is cast to T once at the end. l sums the fp32 p, and p
-// is rounded to T only for the PV product (attention.py:73,76). Tiles that
-// start at or past seq_len hold only masked keys and are skipped.
+// and ctx = acc / l is cast to T once at the end. s = (q . k) * scale is
+// rounded before the max, l sums the fp32 p, and p is rounded to T only
+// for the PV product (attention.py:73,76). Tiles that start at or past
+// seq_len hold only masked keys and are skipped.
 //
 // The p of this kernel is relative to the running max, the p of the plain
 // version (vit_tpu_torch/ops/reference.py:attention) to the row max -- the
@@ -28,18 +29,31 @@
 // fp32 that changes only the sum order; in bf16 it moves where p is rounded,
 // by at most one bf16 ulp of p, inside the bf16 bar.
 //
-// Bound on the card: compute, 4*B*H*S*S*d flops (11.5 GFLOP a layer at
-// L/16-384 bs=8); each block reads its head's K and V once per 64 queries.
-// bf16 runs QK^T and PV on the tensor cores through nvcuda::wmma 16x16x16
-// with fp32 accumulate, four warps of 16 query rows each; a warp owns its
-// rows' scores, softmax and accumulator, so only the K/V tile loads need
-// the block's barrier. The accumulator's rows are rescaled by alpha through
-// a per-warp 16x16 shared tile (the wmma fragment's element order is not
-// specified). fp32 multiplies in true fp32 on FFMA (no TF32; the JAX kernel
-// runs fp32 at Precision.HIGHEST), 256 threads, each with a 4x4 block of the
-// 64x64 score tile and 1/256 of the 64 x d accumulator in registers. Not
-// pipelined (no cp.async, TMA or wgmma): the FA2-on-Hopper shape is later
-// work.
+// Bound on the card: bytes, q, k, v read and the context written once,
+// against 4*B*H*S*seq_len*d operations over the real keys: at L/16-384
+// bs=8, 38.8 MB (11.6 us at 3.35 TB/s) against 11.2 GFLOP (11.3 us at the
+// bf16 peak); at B/16 bs=32 (197 of 208 keys), 40.9 MB (12.2 us) against
+// 4.0 GFLOP. Each block reads its head's K and V once per query tile,
+// from L2.
+//
+// bf16: FlashAttention-2's shape on mma.sync (mma_frag.cuh), the walk of
+// K13's launch (a) pass 1 (flash_attention_bwd.cu) with p rounded once. Eight
+// warps of 16 query rows (a 128-row query tile: each K and V tile staged
+// serves twice the rows of a 64-row one, so the blocks stage half as many
+// tiles from L2: faster on the card than four warps); a warp's q rows go
+// into A fragments in registers once; K and V tiles stream through a ring of
+// three buffers with cp.async (rows padded by 16 bytes: conflict-free
+// ldmatrix), two tiles ahead, so their copies overlap this tile's products,
+// behind one barrier a tile. s = q k^T lands in C fragments, the row max and
+// sum reduce over the quad of lanes holding a row, the accumulator is
+// rescaled by alpha in registers, p is packed from its C fragments as the A
+// operand of p v (v through ldmatrix.trans), and ctx = o / l leaves from
+// registers, two columns a store. 16-key groups past seq_len in the last tile
+// are not multiplied (B/16's 197 keys: 3 of its 16 groups). Operands that
+// fail 16-byte alignment (vec false) are staged by element copies in the same
+// kernel. fp32 multiplies in true fp32 on FFMA (no TF32; the JAX kernel runs
+// fp32 at Precision.HIGHEST), 256 threads, each with a 4x4 block of the 64x64
+// score tile and 1/256 of the 64 x d accumulator in registers, not pipelined.
 //
 // The output is the input's type, or fp32 (out_f32): the int8 tier's
 // attention keeps its context in fp32 for the quantization that follows
@@ -53,13 +67,10 @@
 // is never masked.
 
 #include <math.h>
-#include <mma.h>
 
 #include "flash_tiles.cuh"
 
 namespace vit {
-
-using namespace nvcuda;
 
 struct FaArgs {
   const void* q;
@@ -74,136 +85,167 @@ struct FaArgs {
 
 // ---------------------------------------------------------------- bf16 --
 
-constexpr int kFaThreadsBf16 = 128;  // four warps, 16 query rows each
-constexpr int kFaLds = kFaBK + 4;    // fp32 score rows
-constexpr int kFaLdp = kFaBK + 8;    // bf16 p rows
+constexpr int kFaThreadsBf16 = 256;  // eight warps of 16 query rows
+constexpr int kFaBQBf16 = 128;       // query rows a block
+constexpr int kFaStages = 3;         // K/V tiles in flight: two ahead
 
-template <int HD>
-__host__ __device__ constexpr int fa_ldh() {
-  return HD + 8;  // bf16 q/k/v rows: 16-byte aligned, shifted banks
-}
-
+// Dynamic shared memory of a bf16 launch: a ring of kFaStages [k | v]
+// buffers, 64-row tiles of HD + 8 columns; the query tile is staged once
+// in the last buffer (tests/test_torch_flash_tiles.py holds it under the
+// 227 KB a block may use at every head width).
 template <int HD>
 constexpr size_t fa_bf16_smem() {
-  return 3 * kFaBQ * fa_ldh<HD>() * sizeof(bf16)  // q, k, v tiles
-         + kFaBQ * kFaLds * sizeof(float)         // scores
-         + kFaBQ * kFaLdp * sizeof(bf16)          // p
-         + 4 * 256 * sizeof(float)                // per-warp 16x16 tile
-         + 3 * kFaBQ * sizeof(float);             // m, l, alpha
+  return 2 * kFaStages * kFaBK * (HD + 8) * sizeof(bf16);
+}
+
+// Two neighbouring outputs in one store: bf16x2 or float2.
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
 }
 
 template <int HD, typename O>
 __global__ void __launch_bounds__(kFaThreadsBf16)
     flash_bf16_kernel(FaArgs a) {
-  constexpr int LDH = fa_ldh<HD>(), NF = HD / 16;
+  constexpr int LD = HD + 8, TILE = kFaBK * LD;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kFaBQ * LDH;
-  bf16* vs = ks + kFaBK * LDH;
-  float* ss = reinterpret_cast<float*>(vs + kFaBK * LDH);
-  bf16* ps = reinterpret_cast<bf16*>(ss + kFaBQ * kFaLds);
-  float* tiles = reinterpret_cast<float*>(ps + kFaBQ * kFaLdp);
-  float* ms = tiles + 4 * 256;
-  float* ls = ms + kFaBQ;
-  float* as = ls + kFaBQ;
+  bf16* kv = reinterpret_cast<bf16*>(smem);  // the ring of [k | v]
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lane = threadIdx.x % 32, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x / 32);  // the warp's rows in the tile
   const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int q0 = blockIdx.y * kFaBQ;
-  const bf16* qg = head_ptr<bf16>(a.q, a.sq, b, h);
+  const int q0 = blockIdx.y * kFaBQBf16;
   const bf16* kg = head_ptr<bf16>(a.k, a.sk, b, h);
   const bf16* vg = head_ptr<bf16>(a.v, a.sv, b, h);
+  const int n = (a.seq_len + kFaBK - 1) / kFaBK;  // tiles holding real keys
+  const float scale = a.scale;
 
-  load_rows_bf16<HD>(qs, LDH, qg, a.sq.s, q0, a.s, a.vec);
-  if (threadIdx.x < kFaBQ) {
-    ms[threadIdx.x] = -INFINITY;
-    ls[threadIdx.x] = 0.f;
-  }
-
-  // This warp's rows [16 * warp, 16 * warp + 16) of everything below.
-  const bf16* qw = qs + warp * 16 * LDH;
-  float* sw = ss + warp * 16 * kFaLds;
-  bf16* pw = ps + warp * 16 * kFaLdp;
-  float* tile = tiles + warp * 256;
-  float *mw = ms + warp * 16, *lw = ls + warp * 16, *aw = as + warp * 16;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
+  // Key tile `it` into buffer it % kFaStages; one cp.async group a tile,
+  // empty past the end.
+  auto prefetch = [&](int it) {
+    if (it < n) {
+      bf16* buf = kv + 2 * TILE * (it % kFaStages);
+      stage_tile<HD>(buf, kg, a.sk.s, it * kFaBK, a.s, a.vec);
+      stage_tile<HD>(buf + TILE, vg, a.sv.s, it * kFaBK, a.s, a.vec);
+    }
+    cp_async_commit();
+  };
+  bf16* qs = kv + 2 * TILE * (kFaStages - 1);  // 128 rows: k and v tiles
+  const bf16* qg = head_ptr<bf16>(a.q, a.sq, b, h);
+  stage_tile<HD>(qs, qg, a.sq.s, q0, a.s, a.vec);
+  stage_tile<HD>(qs + TILE, qg, a.sq.s, q0 + kFaBK, a.s, a.vec);
 #pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.f);
+  for (int i = 0; i < kFaStages - 1; ++i) prefetch(i);
+  cp_async_wait<kFaStages - 2>();  // q and key tile 0
+  __syncthreads();
+  // The warp's q rows as A fragments, held for the whole walk (the loop's
+  // first barrier keeps key tile 2 off q until every warp has them).
+  uint32_t qf[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldmatrix_a(qf[kk], qs, LD, r0, 16 * kk, lane);
 
-  const int n_tiles = (a.seq_len + kFaBK - 1) / kFaBK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kFaBK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows_bf16<HD>(ks, LDH, kg, a.sk.s, k0, a.s, a.vec);
-    load_rows_bf16<HD>(vs, LDH, vg, a.sv.s, k0, a.s, a.vec);
+  // The lane's rows are r0 + lane/4 (r = 0) and r0 + lane/4 + 8 (r = 1);
+  // its columns of C tile j are keys (or context columns) 8j + 2t, + 1.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  for (int it = 0; it < n; ++it) {
+    // One barrier a tile: tile it has landed for every thread, and every
+    // warp is done with tile it - 1, whose buffer the next copy takes.
+    cp_async_wait<kFaStages - 2>();
     __syncthreads();
-
-    // Scores of the warp's 16 rows against the 64 keys, fp32.
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[4];
+    prefetch(it + kFaStages - 1);
+    const bf16* ks = kv + 2 * TILE * (it % kFaStages);
+    const bf16* vs = ks + TILE;
+    const int k0 = it * kFaBK;
+    // Keys of this tile in 16-key groups that hold a real key: the groups
+    // past them (the last tile's) are masked, and their products skipped.
+    const int kend = min(a.seq_len - k0, kFaBK);
+    float sc[kFaBK / 8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(sf[j], 0.f);
+    for (int j = 0; j < kFaBK / 8; ++j)
 #pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa;
-      wmma::load_matrix_sync(qa, qw + kk, LDH);
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, ks + j * 16 * LDH + kk, LDH);
-        wmma::mma_sync(sf[j], qa, kb, sf[j]);
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int g = 0; g < kFaBK; g += 16) {
+        if (g >= kend) break;
+        uint32_t bk[4];
+        ldmatrix_b_kmajor(bk, ks, LD, g, 16 * kk, lane);
+        mma_bf16(sc[g / 8], qf[kk], bk[0], bk[1]);
+        mma_bf16(sc[g / 8 + 1], qf[kk], bk[2], bk[3]);
       }
+    // s = (q . k) * scale, rounded before the max and the subtraction;
+    // keys at or past seq_len (only in the last tile) at -inf.
+#pragma unroll
+    for (int j = 0; j < kFaBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = __fmul_rn(sc[j][e], scale);
+    if (kend < kFaBK) {
+#pragma unroll
+      for (int j = 0; j < kFaBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + 2 * t + (e & 1) >= kend) sc[j][e] = -INFINITY;
     }
+    float mt[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(sw + j * 16, sf[j], kFaLds, wmma::mem_row_major);
-    __syncwarp();
-
-    for (int r = 0; r < 16; ++r) {
-      const float alpha = softmax_row(sw + r * kFaLds, pw + r * kFaLdp, k0,
-                                      a.seq_len, a.scale, mw + r, lw + r,
-                                      lane);
-      if (lane == 0) aw[r] = alpha;
+    for (int j = 0; j < kFaBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], sc[j][e]);
+    quad_reduce(mt, [](float x, float y) { return fmaxf(x, y); });
+    // m' = max(m, rowmax(s)); alpha = exp(m - m'); p = exp(s - m'). m' is
+    // -inf only while every key so far is masked; exp(-inf - -inf) would
+    // be NaN, so such a row subtracts 0 and gets p = alpha = 0.
+    float base[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      base[r] = mt[r] == -INFINITY ? 0.f : mt[r];
+      alpha[r] = expf(m[r] - base[r]);
+      m[r] = mt[r];
+      l[r] *= alpha[r];
     }
-    __syncwarp();
-
-    // acc *= alpha, row by row, through the warp's shared tile.
+    // l sums the unrounded p (a quad's four partial sums, added at the
+    // end); p is rounded to bf16 only as the A operand of p v.
 #pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::store_matrix_sync(tile, acc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) tile[e] *= aw[e / 16];
-      __syncwarp();
-      wmma::load_matrix_sync(acc[j], tile, 16, wmma::mem_row_major);
-      __syncwarp();
-    }
-
-    // acc += p (bf16) @ v.
+    for (int j = 0; j < kFaBK / 8; ++j)
 #pragma unroll
-    for (int kk = 0; kk < kFaBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, pw + kk, kFaLdp);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, vs + kk * LDH + j * 16, LDH);
-        wmma::mma_sync(acc[j], pa, vb, acc[j]);
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = expf(sc[j][e] - base[e >> 1]);
+        l[e >> 1] += sc[j][e];
       }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < kFaBK / 16; ++kk) {
+      if (16 * kk >= kend) break;
+      uint32_t pa[4];
+      pack_a(pa, sc[2 * kk], sc[2 * kk + 1]);
+      mma_ab<HD>(o, pa, vs, 16 * kk, LD, lane);
     }
   }
+  quad_reduce(l, [](float x, float y) { return x + y; });
 
-  // ctx = acc / l, one cast to O, stored through the output strides.
+  // ctx = o / l, one cast to O, two columns a store through the output
+  // strides (the wrapper's (B, S, H, d) buffer: even strides).
   O* og = static_cast<O*>(a.out) + b * a.so.b + h * a.so.h;
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(tile, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e / 16, row = q0 + warp * 16 + r;
-      if (row < a.s)
-        og[row * a.so.s + j * 16 + e % 16] = from_f32<O>(tile[e] / lw[r]);
-    }
-    __syncwarp();
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + lane / 4 + 8 * r;
+    if (row >= a.s) continue;
+    O* orow = og + row * a.so.s + 2 * t;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      store2(orow + 8 * j, o[j][2 * r] / l[r], o[j][2 * r + 1] / l[r]);
   }
 }
 
@@ -331,13 +373,13 @@ __global__ void __launch_bounds__(kFaThreadsF32)
 // ---------------------------------------------------------------- launch --
 
 template <typename K>
-cudaError_t launch_fa(K kernel, size_t smem, int threads, int bh,
+cudaError_t launch_fa(K kernel, size_t smem, int threads, int rows, int bh,
                       const FaArgs& a, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (a.s + kFaBQ - 1) / kFaBQ);
+  const dim3 grid(bh, (a.s + rows - 1) / rows);
   kernel<<<grid, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
@@ -347,12 +389,12 @@ cudaError_t launch_flash(const FaArgs& a, int bh, int dtype, bool out_f32,
                          cudaStream_t st) {
   if (dtype == kF32)
     return launch_fa(flash_f32_kernel<HD>, fa_f32_smem<HD>(), kFaThreadsF32,
-                     bh, a, st);
+                     kFaBQ, bh, a, st);
   if (out_f32)
     return launch_fa(flash_bf16_kernel<HD, float>, fa_bf16_smem<HD>(),
-                     kFaThreadsBf16, bh, a, st);
+                     kFaThreadsBf16, kFaBQBf16, bh, a, st);
   return launch_fa(flash_bf16_kernel<HD, bf16>, fa_bf16_smem<HD>(),
-                   kFaThreadsBf16, bh, a, st);
+                   kFaThreadsBf16, kFaBQBf16, bh, a, st);
 }
 
 }  // namespace vit

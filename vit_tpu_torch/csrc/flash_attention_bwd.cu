@@ -108,15 +108,6 @@ constexpr size_t bwd_mma_smem(bool dkv) {
          (dkv ? 2 * 3 * kFaBQ * sizeof(float) : 0);
 }
 
-// Rows [r0, r0 + 64) of a (S, HD) bf16 matrix (row stride ld) into a tile
-// of row stride HD + 8; rows at or past s zero.
-template <int HD>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           long long ld, int r0, int s,
-                                           bool vec) {
-  stage_rows(dst, HD + 8, src + r0 * ld, ld, kFaBQ, s - r0, HD, HD, vec);
-}
-
 // c (16 x N at columns n0 of b's rows) += a[r0 .. r0+15, 0 .. K) b^T for
 // two row-major tiles of stride ld: the warp's rows of a against N rows of
 // b (s = q k^T, dp = g v^T, and their transposes).
@@ -138,21 +129,6 @@ __device__ __forceinline__ void mma_abt(float (&c)[N / 8][4], const bf16* a,
   }
 }
 
-// c (16 x N) += a (a 16 x 16 A fragment) b[k0 .. k0+15, 0 .. N), b a
-// row-major tile of stride ld read through ldmatrix.trans.
-template <int N>
-__device__ __forceinline__ void mma_ab(float (&c)[N / 8][4],
-                                       const uint32_t (&a)[4], const bf16* b,
-                                       int k0, int ld, int lane) {
-#pragma unroll
-  for (int n = 0; n < N; n += 16) {
-    uint32_t bf[4];
-    ldmatrix_b_rowmajor(bf, b, ld, k0, n, lane);
-    mma_bf16(c[n / 8], a, bf[0], bf[1]);
-    mma_bf16(c[n / 8 + 1], a, bf[2], bf[3]);
-  }
-}
-
 // The A fragment of two C tiles in bf16 (hi) and the bf16 rounding of what
 // that rounding left (lo): hi + lo carries each value to about 2^-17.
 __device__ __forceinline__ void pack_a_split(uint32_t (&hi)[4],
@@ -167,16 +143,6 @@ __device__ __forceinline__ void pack_a_split(uint32_t (&hi)[4],
   }
   pack_a(hi, c0, c1);
   pack_a(lo, r0, r1);
-}
-
-// v[r] = op over the four lanes of a quad, the lanes holding one row.
-template <typename F>
-__device__ __forceinline__ void quad_reduce(float (&v)[2], F op) {
-#pragma unroll
-  for (int m = 1; m <= 2; m <<= 1)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      v[r] = op(v[r], __shfl_xor_sync(0xffffffffu, v[r], m));
 }
 
 // ------------------------------------------------------ (a) query-major --

@@ -1,13 +1,15 @@
 // What the flash-attention kernels share: K7 (flash_attention.cu) and its
 // backward K13 (flash_attention_bwd.cu). Operands are (B, H, S, d) tensors
 // read and written through explicit element strides with d contiguous, in
-// tiles of 64 rows.
+// tiles of 64 rows; in bf16 both stage them with cp.async and run their
+// products on mma.sync fragments (mma_frag.cuh).
 
 #pragma once
 
 #include <math.h>
 
 #include "common.cuh"
+#include "mma_frag.cuh"
 
 namespace vit {
 
@@ -55,30 +57,40 @@ __device__ __forceinline__ float softmax_row(const float* row, P* prow,
   return alpha;
 }
 
-// Copy rows [r0, r0 + 64) of a (S, HD) bf16 matrix with row stride ld into
-// shared memory (row stride ldd); rows at or past s are zero.
+// Rows [r0, r0 + 64) of a (S, HD) bf16 matrix (row stride ld) into a tile
+// of row stride HD + 8 (the 16-byte pad keeps ldmatrix conflict-free);
+// rows at or past s zero. vec: cp.async, to be committed and waited for by
+// the caller; otherwise element copies.
 template <int HD>
-__device__ __forceinline__ void load_rows_bf16(bf16* __restrict__ dst,
-                                               int ldd,
-                                               const bf16* __restrict__ src,
-                                               long long ld, int r0, int s,
-                                               bool vec) {
-  constexpr int kRowChunks = HD / 8;
-  for (int ch = threadIdx.x; ch < kFaBQ * kRowChunks; ch += blockDim.x) {
-    const int r = ch / kRowChunks, c = (ch % kRowChunks) * 8;
-    bf16* d = dst + r * ldd + c;
-    const int gr = r0 + r;
-    if (gr < s) {
-      const bf16* p = src + gr * ld + c;
-      if (vec) {
-        *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(p);
-      } else {
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
+                                           long long ld, int r0, int s,
+                                           bool vec) {
+  stage_rows(dst, HD + 8, src + r0 * ld, ld, kFaBQ, s - r0, HD, HD, vec);
+}
+
+// v[r] = op over the four lanes of a quad, the lanes holding one row of a
+// C fragment.
+template <typename F>
+__device__ __forceinline__ void quad_reduce(float (&v)[2], F op) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) d[e] = p[e];
-      }
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-    }
+  for (int m = 1; m <= 2; m <<= 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      v[r] = op(v[r], __shfl_xor_sync(0xffffffffu, v[r], m));
+}
+
+// c (16 x N) += a (a 16 x 16 A fragment) b[k0 .. k0+15, 0 .. N), b a
+// row-major tile of stride ld read through ldmatrix.trans.
+template <int N>
+__device__ __forceinline__ void mma_ab(float (&c)[N / 8][4],
+                                       const uint32_t (&a)[4], const bf16* b,
+                                       int k0, int ld, int lane) {
+#pragma unroll
+  for (int n = 0; n < N; n += 16) {
+    uint32_t bf[4];
+    ldmatrix_b_rowmajor(bf, b, ld, k0, n, lane);
+    mma_bf16(c[n / 8], a, bf[0], bf[1]);
+    mma_bf16(c[n / 8 + 1], a, bf[2], bf[3]);
   }
 }
 

@@ -1,25 +1,28 @@
 """Time the same kernels of two checkouts of the port in turns on one card.
 
 A change to a kernel's source must leave the kernels that share it
-compiled as before: this script times the kernel cases of ``CASES``,
-taken by name and label from this checkout's ``chip_smoke.py`` (its
+compiled as before: this script times the kernel cases of ``CASES``, taken
+by name and label from this checkout's ``chip_smoke.py`` (its
 ``kernel_cases*`` builders, the same inputs for both trees): K2 at B/16
 bs=32 (the QKV 6656x768 @ 768x2304 + bias in bf16 and fp32, the backward's
 ``g @ w.t()`` and ``x.t() @ g``, each beside its ``torch`` call), K4's
-bf16 attention core, K6 (LN 4736x1024 @ 1024x3072), K8 (``embed_fused``,
-L/16-384 bs=4), K9 (``ops.encoder_stack``, B/16 bs=1, 12 layers), K11
-(``matmul_i8``, the QKV), K13 (``ops.flash_attention_bwd``, B/16 bs=32 in
-bf16 and fp32), K16 (``matmul3``, the scores and the context) and K22
-(``int8_probe.dot``, int8 and bf16); then the B/16 bs=32 bf16 forward on
-the default route and on ``(flash, fused=False)`` and the B/16 bs=32 bf16
-train step. A checkout whose K2 reads no transposed view (no
-``ops.cuda.matmul.gemm_path``) gets contiguous copies first, as its
-backward made them. Trees run in turns (other, this, this, other), each
-in its own process that builds that checkout's kernels into the
-checkout's own ``build/``. Each time is the median of CUDA-event times of
-single calls after warm-up, beside the pipelined time (calls queued back
-to back between two events: the device time where the host keeps ahead)
-and the profiler's device time (each launch's time over the records
+bf16 attention core, K6 (LN 4736x1024 @ 1024x3072), K7 (B/16 bs=32 and
+L/16-384 bs=8 on packed QKV views, each beside SDPA, and the int8 tier's
+fp32-output B/16 shape), K8 (``embed_fused``, L/16-384 bs=4), K9
+(``ops.encoder_stack``, B/16 bs=1, 12 layers), K11 (``matmul_i8``, the
+QKV), K13 (``ops.flash_attention_bwd``, B/16 bs=32 in bf16 and fp32), K16
+(``matmul3``, the scores, the context and the scores at 200 tokens, each
+beside ``baddbmm``) and K22 (``int8_probe.dot``, int8 and bf16); then the
+B/16 bs=32 bf16 forward on the default route, on ``(flash, fused=False)``
+and on ``(unfused, fused=False)``, the int8 forward (``forward_quant``)
+and the B/16 bs=32 bf16 train step. A checkout whose K2 reads no
+transposed view (no ``ops.cuda.matmul.gemm_path``) gets contiguous copies
+first, as its backward made them. Trees run in turns (other, this, this,
+other), each in its own process that builds that checkout's kernels into
+the checkout's own ``build/``. Each time is the median of CUDA-event times
+of single calls after warm-up, beside the pipelined time (calls queued
+back to back between two events: the device time where the host keeps
+ahead) and the profiler's device time (each launch's time over the records
 kept). It prints one line a run and a JSON line::
 
     git archive <parent> | tar -x -C build/parent    # a listed directory
@@ -53,10 +56,18 @@ CASES = {
                       "encoder_stack", "(1,208,768)", False),
     "matmul_i8": ("kernel_cases_int8", "bfloat16", "matmul_i8",
                   "(6656,768)@(768,2304)+bias", False),
+    "flash_b16": ("kernel_cases", "bfloat16", "flash_attention", "S=208",
+                  True),
+    "flash_l16_384": ("kernel_cases_l16_384", "bfloat16", "flash_attention",
+                      "S=592", True),
+    "flash_int8_b16": ("kernel_cases_int8", "bfloat16", "flash_attention",
+                       "B/16 fp32 output", False),
     "matmul3_scores": ("kernel_cases_chain", "bfloat16", "matmul3",
-                       "scores", False),
+                       "scores", True),
     "matmul3_context": ("kernel_cases_chain", "bfloat16", "matmul3",
-                        "context", False),
+                        "context", True),
+    "matmul3_aligned": ("kernel_cases_chain", "bfloat16", "matmul3",
+                        "aligned", True),
     "dot_probe_int8": ("kernel_cases_probes", "bfloat16", "dot_probe",
                        "int8", False),
     "dot_probe_bf16": ("kernel_cases_probes", "bfloat16", "dot_probe",
@@ -80,6 +91,7 @@ from vit_tpu_torch.config import VARIANTS
 from vit_tpu_torch.models.vit import forward, init_params
 from vit_tpu_torch.ops.cuda import _build
 from vit_tpu_torch.ops.cuda import matmul as cuda_matmul
+from vit_tpu_torch.quant import forward_quant, quantize_params
 from vit_tpu_torch.train import make_optimizer, make_train_step
 from vit_tpu_torch.utils.timing import pipelined_ms
 
@@ -118,19 +130,24 @@ def device_ms(fn, iters=20):
     # Each kernel's time over the records kept, times its launches a call
     # (utils.profiling.kernel_times, which the other checkout may not
     # have): the profiler misses records at a window's start, so the
-    # launches a call are count / iters rounded, where that is >= 1.
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = 0.0
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0:
-            n = round(e.count / iters)
-            if n < 1:
-                n = e.count / iters
-            dev += e.self_device_time_total / e.count * n
-    return dev / 1e3
+    # launches a call are count / iters rounded, where that is >= 1. A
+    # window with no record at all is taken again, twice at most; then
+    # None.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = 0.0
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                n = round(e.count / iters)
+                if n < 1:
+                    n = e.count / iters
+                dev += e.self_device_time_total / e.count * n
+        if dev > 0:
+            return dev / 1e3
+    return None
 
 
 res = {}
@@ -154,10 +171,17 @@ cfg = VARIANTS["B/16"].replace(dtype=torch.bfloat16, num_classes=1000)
 params = init_params(cfg, generator=gen, device="cuda")
 px = torch.randn((32, 3, 224, 224), generator=gen,
                  device="cuda").to(torch.bfloat16)
+qparams = quantize_params(params)
 with torch.inference_mode():
     res["forward"] = times(lambda: forward(params, px, cfg), iters=20)
     res["forward_flash_chain"] = times(
         lambda: forward(params, px, cfg, fused=False), iters=20)
+    res["forward_unfused_chain"] = times(
+        lambda: forward(params, px, cfg, attention="unfused", fused=False),
+        iters=20)
+    res["forward_int8"] = times(lambda: forward_quant(qparams, px, cfg),
+                                iters=20)
+del qparams
 labels = torch.randint(0, 1000, (32,), generator=gen, device="cuda")
 init_fn, step_fn = make_train_step(cfg, make_optimizer(1e-4, 0.05))
 opt = init_fn(params)
@@ -197,7 +221,7 @@ def main(argv: list[str] | None = None) -> int:
         got = run_tree(root, args.timeout)
         runs.append({"tree": tag, **got})
         print(f"{tag:5s} " + "  ".join(
-            f"{k} {v['ms']:.4f} ms (device {v['device_ms']:.4f})"
+            f"{k} {v['ms']:.4f} ms (device {v['device_ms']})"
             for k, v in got.items()), flush=True)
     from vit_tpu_torch.tools import card_line
     print(json.dumps({"turns": runs, "card": card_line()}))
