@@ -25,9 +25,10 @@ without printing the final ``ok`` line:
    bs=2; K2 also at the training backward's two products of the QKV, on
    the views it passes (``g @ w.t()``, ``x.t() @ g``); K7 also at B/16
    bs=32 on packed QKV views. The bars of K2's backward cases, of K7's
-   three cases and of K16's scores and context are each held to two
-   planted faults (``gemm_faults``, ``flash_faults``), which they must
-   refuse;
+   three cases, of K16's scores and context and of K3's cases (B/16
+   bs=32, L/16-384 bs=8, every shard form) are each held to two planted
+   faults (``gemm_faults``, ``flash_faults``, ``mlp_faults``), which they
+   must refuse;
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
    exact per-forward launch counts; the same weights through
@@ -65,11 +66,13 @@ without printing the final ``ok`` line:
 11. timings (CUDA events, median of 20 after warm-up): each kernel against
     its plain version and, where one PyTorch call computes the same
     function, that call (``library_ms``, a yardstick the port never
-    calls); K4's core, K13 and every case of K2, K7 and K16
-    (``PIPELINED``) also pipelined, calls queued back to back (the device
-    time where the host keeps ahead), and K2's, K7's and K16's on the card
-    (``DEVICE_TIMED``: the profiler's device time), beside the library
-    call timed the same way (fp32 ``addmm`` without TF32); the
+    calls); K4's core, K13 and every case of K1, K2, K3, K7, K11, K14,
+    K15 and K16 (``PIPELINED``) also pipelined, calls queued back to back
+    (the device time where the host keeps ahead), and those of K1, K2,
+    K3, K7, K11, K14, K15 and K16 on the card (``DEVICE_TIMED``: the
+    profiler's device time), beside the library
+    call timed the same way (fp32 ``addmm`` without TF32) and, for K3,
+    beside the same MLP as K1 -> K2 -> K2 (``composed_ms``); the
     bf16 forwards of B/16 at bs=32 and L/16-384 at bs=8
     through the kernels and through ``impl="torch"``; B/16 at bs=1 and 2
     and L/16 at bs=1 through the stack route, the per-layer kernel route
@@ -204,13 +207,17 @@ PER_FORWARD_Q_STACK = {"embed_fused": 1, "encoder_stack_q": 1,
                        "layernorm": 1, "matmul": 1}
 #: Kernels whose primary case phase 11 also times pipelined (calls queued
 #: back to back: the device time), beside the library call timed the same
-#: way; every case of K2, K7 and K16.
+#: way; every case of those in DEVICE_TIMED.
 PIPELINED = ("attention", "flash_attention_bwd", "matmul", "flash_attention",
-             "matmul3")
+             "matmul3", "mlp_block", "mlp_block_partial", "layernorm",
+             "softmax", "add", "matmul_i8")
 #: Kernels each of whose cases phase 11 also times on the card (the
 #: profiler's device time), beside the library call: their wrappers' host
 #: time can exceed the kernel, and then pipelined calls wait on the host.
-DEVICE_TIMED = ("matmul", "flash_attention", "matmul3")
+#: K1, K15, K14 and K11 are here for their library calls' card times.
+DEVICE_TIMED = ("matmul", "flash_attention", "matmul3", "mlp_block",
+                "mlp_block_partial", "layernorm", "softmax", "add",
+                "matmul_i8")
 #: Where each kernel's source is and which TPU kernel it replaces.
 KERNEL_SOURCES = {
     "layernorm": ("vit_tpu_torch/csrc/layernorm.cu",
@@ -422,18 +429,21 @@ def compare_bf16(torch, got, want, dtype) -> dict:
 
 
 def case(name: str, label: str, run, work: tuple, *, library=None,
-         check=None, primary: bool = True, faults=None) -> dict:
+         check=None, primary: bool = True, faults=None,
+         composed=None) -> dict:
     """A kernel case: ``run(impl)``; ``work`` = (bytes, operations, type)
     for its bound; ``library`` one PyTorch call of the same function, timed
     as a yardstick only; ``check(torch, got, want, dtype)`` its bar;
     ``primary`` whether the kernels line may report it; ``faults`` planted
     faults, ``{what: fn}`` with ``fn()`` a wrong kernel output that the bar
-    must refuse against the plain version."""
+    must refuse against the plain version; ``composed`` the same function
+    as a chain of the port's other kernels, timed beside it as a second
+    yardstick."""
     if check is None:
         check = compare_model if name in WHOLE_ENCODER else compare
     return {"name": name, "label": label, "run": run, "work": work,
             "library": library, "check": check, "primary": primary,
-            "faults": faults or {}}
+            "faults": faults or {}, "composed": composed}
 
 
 def gemm_faults(torch, run, a, k_axis: int, start: int = 1024,
@@ -448,6 +458,39 @@ def gemm_faults(torch, run, a, k_axis: int, start: int = 1024,
         return run(cut)
     return {"output * 0.85": lambda: run(a) * 0.85,
             f"K {start}-{start + width - 1} skipped": skip_step}
+
+
+def mlp_faults(torch, run, x, b2, w2, *, partial: bool) -> dict:
+    """Two planted faults of a K3 case whose kernel is ``run(w2,
+    partial_out)``: the MLP's output (the partial form's) scaled by 0.85,
+    which the whole form adds to x + b2 in fp32 and casts; and one
+    64-column hidden chunk skipped (the columns one block of a cluster
+    computes of a 128-column chunk), made by zeroing rows mlp/2 ..
+    mlp/2 + 63 of ``w2``."""
+    start = w2.shape[0] // 2
+
+    def scaled():
+        out = run(w2, True).float() * 0.85
+        if not partial:
+            out = out + x.float() + b2.float()
+        return out.to(x.dtype)
+
+    def skip_chunk():
+        cut = w2.clone()
+        cut[start:start + 64].zero_()
+        return run(cut, partial)
+    return {"MLP output * 0.85": scaled,
+            f"hidden {start}-{start + 63} skipped": skip_chunk}
+
+
+def mlp_chain(ops, x, g, beta, w1, b1, w2, b2, *, partial: bool = False):
+    """K3's function as three of the port's kernels: K1, K2 with bias and
+    GELU, K2 with bias and residual (the ``(flash, fused=False)`` route's
+    MLP), with the hidden in device memory."""
+    h = ops.matmul(ops.layernorm(x, g, beta), w1, b1, "gelu")
+    if partial:
+        return ops.matmul(h, w2)
+    return ops.matmul(h, w2, b2, residual=x)
 
 
 def flash_faults(run, seq_len: int) -> dict:
@@ -758,11 +801,18 @@ def kernel_cases(torch, dtype):
              lambda impl: ops.matmul(x, wqkv, bqkv, impl=impl),
              gemm_work(m, d, 3 * d, e, kind),
              library=lambda: torch.addmm(bqkv, x, wqkv)),
+        # K3's bar refuses two planted faults; its second yardstick is the
+        # same MLP as K1 -> K2 -> K2.
         case("mlp_block", f"({m},{d}) mlp {mlp}",
              lambda impl: ops.mlp_block(x, g, beta, w_dm, b_m, w_md, b_d,
                                         impl=impl),
              ((2 * m * d + 2 * d * mlp + mlp + 3 * d) * e, 4 * m * d * mlp,
-              kind)),
+              kind),
+             faults=mlp_faults(torch, lambda w, p: ops.mlp_block(
+                 x, g, beta, w_dm, b_m, w, b_d, partial_out=p), x, b_d, w_md,
+                 partial=False),
+             composed=lambda: mlp_chain(ops, x, g, beta, w_dm, b_m, w_md,
+                                        b_d)),
         case("attention", f"qkv ({m},{3 * d}) heads {heads} seq_len {s}",
              attn_core, (4 * m * d * e, att_ops, kind),
              library=lambda: _sdpa(torch, q, k, v, scale, s)),
@@ -827,7 +877,12 @@ def kernel_cases_l16_384(torch, dtype):
              lambda impl: ops.mlp_block(x, g, beta, w_dm, b_m, w_md, b_d,
                                         impl=impl),
              ((2 * m * d + 2 * d * mlp + mlp + 3 * d) * e, 4 * m * d * mlp,
-              kind), primary=False),
+              kind), primary=False,
+             faults=mlp_faults(torch, lambda w, p: ops.mlp_block(
+                 x, g, beta, w_dm, b_m, w, b_d, partial_out=p), x, b_d, w_md,
+                 partial=False),
+             composed=lambda: mlp_chain(ops, x, g, beta, w_dm, b_m, w_md,
+                                        b_d)),
     ]
 
 
@@ -1201,11 +1256,17 @@ def kernel_cases_tp(torch, dtype):
             mlp_work = ((2 * m_rows * d + 2 * d * ml + ml + 2 * d) * e,
                         4 * m_rows * d * ml)
             if ops.mlp_plan(d, ml, dtype):
+                a = (x, g, beta, w1, b_m, w2, b_d)
                 cases.append(case(
                     "mlp_block_partial", f"{lbl} ({m_rows},{d}) mlp {ml}",
-                    lambda impl, a=(x, g, beta, w1, b_m, w2, b_d):
-                    ops.mlp_block(*a, partial_out=True, impl=impl),
-                    (*mlp_work, kind), primary=main))
+                    lambda impl, a=a: ops.mlp_block(*a, partial_out=True,
+                                                    impl=impl),
+                    (*mlp_work, kind), primary=main,
+                    faults=mlp_faults(
+                        torch, lambda w, p, a=a: ops.mlp_block(
+                            *a[:5], w, a[6], partial_out=p), x, b_d, w2,
+                        partial=True),
+                    composed=lambda a=a: mlp_chain(ops, *a, partial=True)))
             if ops.mlp_q_plan(d, ml):
                 q1, q2 = (quantize_weight(rnd(d, ml, std=0.03)),
                           quantize_weight(rnd(ml, d, std=0.03)))
@@ -3200,6 +3261,11 @@ def main() -> int:
                         "ms": ms, "plain_ms": plain, "library_ms": library,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "primary": c["primary"]})
+        if c["composed"] is not None:
+            # K3 beside the same MLP as three of the port's kernels.
+            timings[-1]["composed_ms"] = time_ms(torch, c["composed"])
+            timings[-1]["composed_device_ms"] = (
+                device_ms(torch, c["composed"])[0] or None)
         if c["name"] in PIPELINED and (c["primary"]
                                        or c["name"] in DEVICE_TIMED):
             # The device time of back-to-back calls, kernel and library
@@ -3223,7 +3289,9 @@ def main() -> int:
                 f"device {timings[-1].get('device_ms')}; plain "
                 f"{plain:.4f}; library {library} events, "
                 f"{timings[-1]['library_pipelined_ms']} pipelined, device "
-                f"{timings[-1].get('library_device_ms')}; bound "
+                f"{timings[-1].get('library_device_ms')}; composed "
+                f"{timings[-1].get('composed_ms')} events, device "
+                f"{timings[-1].get('composed_device_ms')}; bound "
                 f"{bound_ms:.4f} ({bound_by})")
     e2e = {}
     for tag, c, p, bs in (("b16", cfg, params, 32),
@@ -3325,6 +3393,9 @@ def main() -> int:
         if name in DEVICE_TIMED:
             kernels[-1].update(device_ms=t["device_ms"],
                                library_device_ms=t["library_device_ms"])
+        if "composed_ms" in t:
+            kernels[-1].update(composed_ms=t["composed_ms"],
+                               composed_device_ms=t["composed_device_ms"])
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched by a main path: "
                              f"{kernels}")

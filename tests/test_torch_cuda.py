@@ -172,6 +172,34 @@ def test_torch_cuda_mlp_block(gen, dtype, m, d, mlp):
            ops.mlp_block(*args, impl="torch"))
 
 
+@pytest.mark.parametrize("m,d,mlp,partial", [
+    (200, 768, 3072, False), (70, 1024, 4096, False), (70, 768, 1536, True)])
+def test_torch_cuda_mlp_block_bf16_tiles(gen, m, d, mlp, partial):
+    """K3's bf16 ``wgmma`` tile (``csrc/mlp_wgmma.cuh``) at real widths:
+    B/16's (three ragged 64-row clusters), L/16's (four boxes a
+    warpgroup) and B/16's shard form over model=2, at the kernel bar with
+    mean <= 3e-3; two calls bit for bit; rows 0-32 the same bits in an
+    M = 33 call as in the M-row call (no sum runs over rows)."""
+    from vit_tpu_torch import ops
+
+    args = (_rnd(gen, torch.bfloat16, m, d, std=1.5, mean=0.2),
+            _rnd(gen, torch.bfloat16, d, std=0.1, mean=1.0),
+            _rnd(gen, torch.bfloat16, d, std=0.05),
+            _rnd(gen, torch.bfloat16, d, mlp, std=0.03),
+            _rnd(gen, torch.bfloat16, mlp, std=0.02),
+            _rnd(gen, torch.bfloat16, mlp, d, std=0.03),
+            _rnd(gen, torch.bfloat16, d, std=0.02))
+    got = ops.mlp_block(*args, partial_out=partial, impl="cuda")
+    _close_bf16_bars(got, ops.mlp_block(*args, partial_out=partial,
+                                        impl="torch"))
+    again = ops.mlp_block(*args, partial_out=partial, impl="cuda")
+    head = ops.mlp_block(args[0][:33], *args[1:], partial_out=partial,
+                         impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(head, got[:33])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,heads,hd,seq_len", [
     (2, 32, 2, 64, 17), (3, 80, 4, 16, 80), (2, 48, 3, 80, 40),

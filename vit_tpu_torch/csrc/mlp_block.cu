@@ -3,13 +3,13 @@
 // and the (M, mlp) hidden never reaches device memory.
 //
 // Replaces vit_tpu/ops/pallas/block.py:mlp_block and mlp_block_stacked
-// (_mlp_kernel, block.py:49-93). As there, a block owns a tile of rows: it
-// writes LN(x) into shared memory in the tensor's type (xn_ref,
-// block.py:74), seeds an fp32 accumulator with x + b2 (block.py:77-78),
-// then walks the MLP columns in chunks: h = gelu(xn @ W1[:, chunk] + b1),
-// rounded to the tensor's type in shared memory (block.py:86), and
-// acc += h @ W2[chunk, :]. The stacked form needs no launcher of its own:
-// layer l's weights are the contiguous view w[l].
+// (_mlp_kernel, block.py:49-93). As there, LN(x) is rounded to the
+// tensor's type (xn_ref, block.py:74), an fp32 accumulator is seeded with
+// x + b2 (block.py:77-78), and the MLP columns are walked in chunks: h =
+// gelu(xn @ W1[:, chunk] + b1), rounded to the tensor's type (block.py:86),
+// and acc += h @ W2[chunk, :], chunk after chunk in order. The stacked
+// form needs no launcher of its own: layer l's weights are the contiguous
+// view w[l].
 //
 // With `partial` set it is the tensor-parallel shard form (mlp_block's
 // partial_out=True, block.py:77-78, 199-202): w1 and w2 hold this shard's
@@ -17,110 +17,69 @@
 // result is fc2_s(gelu(fc1_s(LN(x)))) in x's type, for the caller to
 // all-reduce and add x + b2 to once.
 //
-// Bound on the card: compute (4*M*D*mlp flops) and the weights. Every row
-// block re-reads all of W1 and W2 (9.4 MB in bf16 for B/16) from the 50 MB
-// L2, straight into tensor-core fragments, without staging them in shared
-// memory or overlapping the loads with the math. That is acceptable for a
-// first kernel and is the first thing to change: stage W tiles with TMA and
-// run wgmma on them.
+// bf16: the wgmma tile of mlp_wgmma.cuh (a cluster of two blocks a 64-row
+// tile, TMA-fed weights, h exchanged through distributed shared memory;
+// see there). D and mlp must be multiples of 128, D at most 1024; rows are
+// masked. W1 and W2 are read through TMA tensor maps, so their rows (mlp
+// and D elements) must be 16-byte multiples and their bases 16-byte
+// aligned (the wrapper checks 32). Bound on the card: the tensor cores,
+// 4*M*D*mlp operations.
 //
-// The chunk loop is shared with K18 (mlp_tile.cuh, which gives the layouts).
-// bf16: 32 rows a block, eight warps; shared memory holds xn (32 x D bf16),
-// the chunk buffers and a per-warp 16 x 16 fp32 tile for seeding and
-// storing the accumulator fragments: 80 KB at D=768, so the launch sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize. D and mlp must be multiples
-// of 128, D at most 1024; rows are masked. fp32: 16 rows a block; xn
-// (16 x D fp32) and the chunk (16 x 256) sit in shared memory. D at most
-// 1536; rows, D and mlp are masked.
+// fp32: true fp32 FFMA (no TF32), the chunk loop of mlp_tile.cuh (shared
+// with K18), 16 rows a block; xn (16 x D fp32) and the chunk (16 x 256) sit
+// in shared memory. D at most 1536; rows, D and mlp are masked.
 
 #include "mlp_tile.cuh"
+#include "mlp_wgmma.cuh"
 
 namespace vit {
 
 // ---------------------------------------------------------------- bf16 --
 
-inline size_t mlp_bf16_smem(int d) {
-  return static_cast<size_t>(kMlpBM) * d * sizeof(bf16)  // xn
-         + kMlpChunkBytes                                // hpre, hb
-         + kMlpWarps * 256 * sizeof(float);              // per-warp tile
-}
+// Defined in matmul_wgmma.cu: a bf16 tensor map with 128-byte swizzle over
+// a rows x cols row-major matrix, boxes of box_cols x box_rows.
+bool tensor_map(CUtensorMap* map, const void* p, int rows, int cols, int ld,
+                int box_cols, int box_rows);
 
-template <int NT>  // D = NT * 128: each warp owns NT 16-wide column tiles
-__global__ void __launch_bounds__(kMlpThreads, 1)
-    mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                    const bf16* __restrict__ b, const bf16* __restrict__ w1,
-                    const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                    const bf16* __restrict__ b2, bf16* __restrict__ out, int m,
-                    int mlp, float eps, int partial) {
-  constexpr int D = NT * 128;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xn = reinterpret_cast<bf16*>(smem);
-  float* hpre = reinterpret_cast<float*>(xn + kMlpBM * D);
-  bf16* hb = reinterpret_cast<bf16*>(hpre + kMlpBM * kMlpCT);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* tile = reinterpret_cast<float*>(hb + kMlpBM * kMlpCT) + warp * 256;
-  const int m0 = blockIdx.x * kMlpBM;
+constexpr int kMlpMaxDevices = 64;
 
-  for (int r = warp; r < kMlpBM; r += kMlpWarps) {
-    if (m0 + r < m) {
-      layernorm_row<bf16, bf16>(x + static_cast<size_t>(m0 + r) * D, g, b,
-                                xn + r * D, D, eps, lane);
-    } else {
-      for (int i = lane; i < D; i += 32) xn[r * D + i] = __float2bfloat16_rn(0.f);
-    }
-  }
-
-  // acc[i][j]: rows [16i, 16i+16), columns [(warp*NT + j)*16, +16),
-  // seeded with x + b2 (zero for a partial) through the warp's shared tile.
-  MlpFrag acc[2][NT];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c0 = (warp * NT + j) * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int r = m0 + i * 16 + e / 16, c = c0 + e % 16;
-        tile[e] = r < m && !partial
-                      ? to_f32(x[static_cast<size_t>(r) * D + c]) + to_f32(b2[c])
-                      : 0.f;
-      }
-      __syncwarp();
-      wmma::load_matrix_sync(acc[i][j], tile, 16, wmma::mem_row_major);
-      __syncwarp();
-    }
-  __syncthreads();  // xn complete
-
-  mlp_chunks_bf16<NT>(xn, hpre, hb, w1, b1, w2, mlp, acc);
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      wmma::store_matrix_sync(tile, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int c0 = (warp * NT + j) * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int r = m0 + i * 16 + e / 16;
-        if (r < m)
-          out[static_cast<size_t>(r) * D + c0 + e % 16] = from_f32<bf16>(tile[e]);
-      }
-      __syncwarp();
-    }
-}
-
-template <int NT>
+template <int T>  // D = 128 T
 cudaError_t launch_mlp_bf16(const bf16* x, const bf16* g, const bf16* b,
                             const bf16* w1, const bf16* b1, const bf16* w2,
                             const bf16* b2, bf16* out, int m, int mlp,
-                            float eps, int partial, cudaStream_t st) {
-  const size_t smem = mlp_bf16_smem(NT * 128);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_bf16_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((m + kMlpBM - 1) / kMlpBM);
-  mlp_bf16_kernel<NT><<<grid, kMlpThreads, smem, st>>>(
-      x, g, b, w1, b1, w2, b2, out, m, mlp, eps, partial);
+                            float eps, int partial, int device,
+                            cudaStream_t st) {
+  using C = mw::Cfg<T>;
+  auto kernel = mw::mlp_bf16_wgmma<T>;
+  // Per device, once: the shared-memory limit, and whether the kernel got
+  // the registers its setmaxnreg split needs (setmaxnreg.inc would wait
+  // forever otherwise, so the launch is refused).
+  static bool ready[kMlpMaxDevices];
+  if (device < 0 || device >= kMlpMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr{};
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * mw::kThreads < mw::kPoolRegs)
+      return cudaErrorLaunchOutOfResources;
+    ready[device] = true;
+  }
+  CUtensorMap m1, m2;
+  // W1 (D, mlp) in boxes of 64 MLP columns x 64 rows; W2 (mlp, D) in boxes
+  // of 64 output columns x KS2 hidden rows.
+  if (!tensor_map(&m1, w1, C::D, mlp, mlp, 64, 64) ||
+      !tensor_map(&m2, w2, mlp, C::D, C::D, 64, C::KS2))
+    return cudaErrorInvalidValue;
+  auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const mw::MlpArgs args{x, g, b, b1, b2, out, m, mlp, eps, partial,
+                         a16(x) && a16(g) && a16(b)};
+  const dim3 grid(2 * ((m + mw::kBM - 1) / mw::kBM));
+  kernel<<<grid, mw::kThreads, C::kSmem, st>>>(m1, m2, args);
   return cudaGetLastError();
 }
 
@@ -212,7 +171,7 @@ extern "C" int vit_mlp_block(const void* x, const void* g, const void* b,
         static_cast<const bf16*>(b), static_cast<const bf16*>(w1),         \
         static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),        \
         static_cast<const bf16*>(b2), static_cast<bf16*>(out), m, mlp, eps, \
-        partial, st);
+        partial, device, st);
     switch (d / 128) {
       VIT_MLP_BF16(1)
       VIT_MLP_BF16(2)

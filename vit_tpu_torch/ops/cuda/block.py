@@ -45,8 +45,9 @@ from vit_tpu_torch.ops.cuda.matmul import matmul
 MAX_SMEM = 232448
 #: Query rows per attention-core block (``csrc/attention.cu``).
 ATTN_QT = 64
-#: Largest hidden width the bf16 ``mlp_block`` kernel keeps in registers
-#: (``csrc/mlp_block.cu``: D/128 accumulator column tiles per warp).
+#: Largest hidden width of the bf16 ``mlp_block`` kernel
+#: (``csrc/mlp_wgmma.cuh``: LN(x) of its 64 rows, 128 KB of shared memory
+#: at 1024, beside the h buffers and the weight rings).
 MLP_BF16_MAX_D = 1024
 #: Largest hidden width of the fp32 ``mlp_block`` kernel.
 MLP_F32_MAX_D = 1536

@@ -12,7 +12,9 @@ fp32-output B/16 shape), K8 (``embed_fused``, L/16-384 bs=4), K9
 (``ops.encoder_stack``, B/16 bs=1, 12 layers), K11 (``matmul_i8``, the
 QKV), K13 (``ops.flash_attention_bwd``, B/16 bs=32 in bf16 and fp32), K16
 (``matmul3``, the scores, the context and the scores at 200 tokens, each
-beside ``baddbmm``) and K22 (``int8_probe.dot``, int8 and bf16); then the
+beside ``baddbmm``), K22 (``int8_probe.dot``, int8 and bf16), K3 (B/16
+bs=32, L/16-384 bs=8 and the B/16 bs=32 shard over model=2, each beside
+the case's composed K1 -> K2 -> K2 chain) and K18; then the
 B/16 bs=32 bf16 forward on the default route, on ``(flash, fused=False)``
 and on ``(unfused, fused=False)``, the int8 forward (``forward_quant``)
 and the B/16 bs=32 bf16 train step. A checkout whose K2 reads no
@@ -76,6 +78,17 @@ CASES = {
                                "flash_attention_bwd", "B/16", False),
     "attention_bwd_float32": ("kernel_cases_train", "float32",
                               "flash_attention_bwd", "B/16", False),
+    # K3 in bf16 at B/16 bs=32 and L/16-384 bs=8, and its shard form at
+    # B/16 bs=32 over model=2, each beside the same MLP as K1 -> K2 -> K2
+    # (the case's composed chain); K18, which shares K3's old chunk loop.
+    "mlp_b16": ("kernel_cases", "bfloat16", "mlp_block", "(6656,768)",
+                False),
+    "mlp_l16_384": ("kernel_cases_l16_384", "bfloat16", "mlp_block",
+                    "(4736,1024)", False),
+    "mlp_partial_b16": ("kernel_cases_tp", "bfloat16", "mlp_block_partial",
+                        "B/16 bs=32 model=2", False),
+    "layer_block_k18": ("kernel_cases_layer", "bfloat16", "layer_block",
+                        "K18 B/16", False),
 }
 
 #: Run in a fresh process with the checkout's root, this checkout's
@@ -164,6 +177,8 @@ with torch.inference_mode():
             res[key] = times(lambda: c["run"]("cuda"))
             if library:
                 res[key + "_library"] = times(c["library"])
+            if c.get("composed") is not None:
+                res[key + "_composed"] = times(c["composed"])
         del cases
         torch.cuda.empty_cache()
 gen = torch.Generator(device="cuda").manual_seed(0)
