@@ -245,9 +245,9 @@ KERNEL_SOURCES = {
     # K10 and K11 are four of the five launches of attn_block_q (B11).
     "quantize_rows": ("vit_tpu_torch/csrc/layernorm.cu",
                       "vit_tpu/ops/pallas/block.py:1385"),
-    "matmul_i8": ("vit_tpu_torch/csrc/matmul.cu",
+    "matmul_i8": ("vit_tpu_torch/csrc/matmul_i8_wgmma.cu",
                   "vit_tpu/ops/pallas/block.py:1385"),
-    "mlp_block_i8dot": ("vit_tpu_torch/csrc/mlp_block_i8.cu",
+    "mlp_block_i8dot": ("vit_tpu_torch/csrc/mlp_i8_wgmma.cuh",
                         "vit_tpu/ops/pallas/block.py:591"),
     "encoder_stack_q": ("vit_tpu_torch/csrc/encoder_stack.cu",
                         "vit_tpu/ops/pallas/block.py:2558"),
@@ -269,7 +269,7 @@ KERNEL_SOURCES = {
     # count their launches, and phase 11 times each block whole.
     "mlp_block_partial": ("vit_tpu_torch/csrc/mlp_block.cu",
                           "vit_tpu/ops/pallas/block.py:218"),
-    "mlp_block_i8dot_partial": ("vit_tpu_torch/csrc/mlp_block_i8.cu",
+    "mlp_block_i8dot_partial": ("vit_tpu_torch/csrc/mlp_i8_wgmma.cuh",
                                 "vit_tpu/ops/pallas/block.py:591"),
     "mlp_block_q_partial": ("vit_tpu_torch/csrc/mlp_block_q.cu",
                             "vit_tpu/ops/pallas/block.py:416"),
@@ -460,13 +460,15 @@ def gemm_faults(torch, run, a, k_axis: int, start: int = 1024,
             f"K {start}-{start + width - 1} skipped": skip_step}
 
 
-def mlp_faults(torch, run, x, b2, w2, *, partial: bool) -> dict:
-    """Two planted faults of a K3 case whose kernel is ``run(w2,
+def mlp_faults(torch, run, x, b2, w2, *, partial: bool,
+               width: int = 64) -> dict:
+    """Two planted faults of a K3 or K12 case whose kernel is ``run(w2,
     partial_out)``: the MLP's output (the partial form's) scaled by 0.85,
-    which the whole form adds to x + b2 in fp32 and casts; and one
-    64-column hidden chunk skipped (the columns one block of a cluster
-    computes of a 128-column chunk), made by zeroing rows mlp/2 ..
-    mlp/2 + 63 of ``w2``."""
+    which the whole form adds to x + b2 in fp32 and casts; and ``width``
+    hidden columns skipped, made by zeroing rows mlp/2 .. mlp/2 + width - 1
+    of ``w2``: for K3 one 64-column chunk (the columns one block of a
+    cluster computes of a 128-column chunk), for K12 one 512-column quant
+    group (``w2`` its int8 codes)."""
     start = w2.shape[0] // 2
 
     def scaled():
@@ -477,10 +479,10 @@ def mlp_faults(torch, run, x, b2, w2, *, partial: bool) -> dict:
 
     def skip_chunk():
         cut = w2.clone()
-        cut[start:start + 64].zero_()
+        cut[start:start + width].zero_()
         return run(cut, partial)
     return {"MLP output * 0.85": scaled,
-            f"hidden {start}-{start + 63} skipped": skip_chunk}
+            f"hidden {start}-{start + width - 1} skipped": skip_chunk}
 
 
 def mlp_chain(ops, x, g, beta, w1, b1, w2, b2, *, partial: bool = False):
@@ -491,6 +493,34 @@ def mlp_chain(ops, x, g, beta, w1, b1, w2, b2, *, partial: bool = False):
     if partial:
         return ops.matmul(h, w2)
     return ops.matmul(h, w2, b2, residual=x)
+
+
+def mlp_chain_i8(ops, x, g, beta, w1q, s1, b1, w2q, s2, b2, *,
+                 partial: bool = False):
+    """K12's work as four of the port's kernels: K10 with LN, K11 with bias
+    and GELU, K10, K11 with bias and residual (none in the partial form),
+    the hidden in device memory, rounded to the dtype and quantized per row
+    over the whole hidden: a timing reference only."""
+    xf = x.reshape(-1, x.shape[-1])
+    xq, ax = ops.quantize_rows(xf, ln_scale=g, ln_bias=beta)
+    h = ops.matmul_i8(xq, ax, w1q, s1, b1, "gelu", out_dtype=x.dtype)
+    hq, ah = ops.quantize_rows(h)
+    if partial:
+        out = ops.matmul_i8(hq, ah, w2q, s2, out_dtype=x.dtype)
+    else:
+        out = ops.matmul_i8(hq, ah, w2q, s2, b2, residual=xf,
+                            out_dtype=x.dtype)
+    return out.view(x.shape)
+
+
+def int_mm_layouts(torch, xq, wq) -> dict:
+    """``torch._int_mm`` of ``xq @ wq`` with the weight as K11 reads it,
+    N-major, and K-major: ``wt.t()`` of an (N, K) copy made once, here,
+    outside the timed call. Phase 11 reports the faster as K11's library
+    time."""
+    wt = wq.t().contiguous()
+    return {"N-major": lambda: torch._int_mm(xq, wq),
+            "K-major": lambda: torch._int_mm(xq, wt.t())}
 
 
 def flash_faults(run, seq_len: int) -> dict:
@@ -1005,25 +1035,24 @@ def kernel_cases_int8(torch, dtype):
                          a[0], a[1], a[2]["q"], a[2]["scale"], a[3],
                          residual=a[4], out_dtype=dtype, impl=impl),
                      gemm_work(m, mlp, d, 1, "int8", out_e=e, residual=True),
-                     library=lambda a=(hq, w2): torch._int_mm(a[0],
-                                                              a[1]["q"]),
+                     library=int_mm_layouts(torch, hq, w2["q"]),
                      check=compare_exact, primary=False),
                 case("matmul_i8", f"{tag} ({m},{d})@({d},{d})+bias+residual",
                      lambda impl, a=(cq, ac, wout, b_d, x): ops.matmul_i8(
                          a[0], a[1], a[2]["q"], a[2]["scale"], a[3],
                          residual=a[4], out_dtype=dtype, impl=impl),
                      gemm_work(m, d, d, 1, "int8", out_e=e, residual=True),
-                     library=lambda a=(cq, wout): torch._int_mm(a[0],
-                                                                a[1]["q"]),
+                     library=int_mm_layouts(torch, cq, wout["q"]),
                      check=compare_exact, primary=False),
                 case("matmul_i8", f"{tag} ({m},{d})@({d},{3 * d})+bias",
                      lambda impl, a=(xq, ax, wqkv, bqkv): ops.matmul_i8(
                          a[0], a[1], a[2]["q"], a[2]["scale"], a[3],
                          out_dtype=dtype, impl=impl),
                      gemm_work(m, d, 3 * d, 1, "int8", out_e=e),
-                     library=lambda a=(xq, wqkv): torch._int_mm(a[0],
-                                                                a[1]["q"]),
+                     library=int_mm_layouts(torch, xq, wqkv["q"]),
                      check=compare_exact, primary=main),
+                # K12's bar refuses two planted faults; its second
+                # yardstick is the same MLP as K10 -> K11 -> K10 -> K11.
                 case("mlp_block_i8dot", f"{tag} ({m},{d}) mlp {mlp}",
                      lambda impl, a=(x, g, beta, w1, b_m, w2, b_d):
                      ops.mlp_block_i8dot(
@@ -1031,7 +1060,18 @@ def kernel_cases_int8(torch, dtype):
                          a[5]["q"], a[5]["scale"], a[6], impl=impl),
                      ((2 * m * d + mlp + 3 * d) * e + 2 * d * mlp
                       + 4 * (mlp + d), 4 * m * d * mlp, "int8"),
-                     check=compare_i8, primary=main),
+                     check=compare_i8, primary=main,
+                     faults=mlp_faults(
+                         torch, lambda w, p, a=(x, g, beta, w1, b_m, w2, b_d):
+                         ops.mlp_block_i8dot(
+                             a[0], a[1], a[2], a[3]["q"], a[3]["scale"],
+                             a[4], w, a[5]["scale"], a[6], partial_out=p),
+                         x, b_d, w2["q"], partial=False,
+                         width=ops.reference.MLP_GROUP),
+                     composed=lambda a=(x, g, beta, w1, b_m, w2, b_d):
+                     mlp_chain_i8(ops, a[0], a[1], a[2], a[3]["q"],
+                                  a[3]["scale"], a[4], a[5]["q"],
+                                  a[5]["scale"], a[6])),
             ]
         if tag != "H/14":
             cases += [
@@ -1279,7 +1319,14 @@ def kernel_cases_tp(torch, dtype):
                          f"{lbl} ({m_rows},{d}) mlp {ml}",
                          lambda impl, a=args: ops.mlp_block_i8dot(
                              *a, partial_out=True, impl=impl),
-                         (*work, "int8"), check=compare_i8, primary=main),
+                         (*work, "int8"), check=compare_i8, primary=main,
+                         faults=mlp_faults(
+                             torch, lambda w, p, a=args: ops.mlp_block_i8dot(
+                                 *a[:6], w, *a[7:], partial_out=p), x, b_d,
+                             q2["q"], partial=True,
+                             width=ops.reference.MLP_GROUP),
+                         composed=lambda a=args: mlp_chain_i8(
+                             ops, *a, partial=True)),
                     case("mlp_block_q_partial",
                          f"{lbl} ({m_rows},{d}) mlp {ml}",
                          lambda impl, a=args: ops.mlp_block_q(
@@ -3249,18 +3296,30 @@ def main() -> int:
         ms = time_ms(torch, lambda: c["run"]("cuda"))
         plain = time_ms(torch, lambda: c["run"]("torch"))
         library = None
-        if c["library"] is not None:
+        lib_fn = c["library"]
+        layouts = {}
+        if lib_fn is not None:
             try:
-                library = time_ms(torch, c["library"])
+                if isinstance(lib_fn, dict):
+                    # One call in several operand layouts: the faster is
+                    # the yardstick.
+                    layouts = {k: time_ms(torch, f) for k, f in lib_fn.items()}
+                    best = min(layouts, key=layouts.get)
+                    library, lib_fn = layouts[best], lib_fn[best]
+                else:
+                    library = time_ms(torch, lib_fn)
             except RuntimeError as err:  # a yardstick only; say why
                 log(f"[timing] {c['name']} {c['label']}: library call "
                     f"failed: {err}")
+                lib_fn = None
         bound_ms, bound_by = bound(c["work"])
         timings.append({"kernel": c["name"], "shape": c["label"],
                         "dtype": str(dtype).replace("torch.", ""),
                         "ms": ms, "plain_ms": plain, "library_ms": library,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "primary": c["primary"]})
+        if layouts:
+            timings[-1]["library_layouts_ms"] = layouts
         if c["composed"] is not None:
             # K3 beside the same MLP as three of the port's kernels.
             timings[-1]["composed_ms"] = time_ms(torch, c["composed"])
@@ -3273,7 +3332,7 @@ def main() -> int:
             timings[-1]["pipelined_ms"] = pipelined_ms(
                 lambda: c["run"]("cuda"))
             timings[-1]["library_pipelined_ms"] = (
-                None if library is None else pipelined_ms(c["library"]))
+                None if library is None else pipelined_ms(lib_fn))
             if c["name"] in DEVICE_TIMED:
                 # K2's wrapper takes longer on the host than its kernel on
                 # the card at most of these shapes, so pipelined calls
@@ -3283,7 +3342,7 @@ def main() -> int:
                     torch, lambda: c["run"]("cuda"))[0] or None
                 timings[-1]["library_device_ms"] = (
                     None if library is None
-                    else device_ms(torch, c["library"])[0] or None)
+                    else device_ms(torch, lib_fn)[0] or None)
             log(f"[timing] {c['name']} {c['label']} {dtype}: {ms:.4f} ms "
                 f"events, {timings[-1]['pipelined_ms']:.4f} pipelined, "
                 f"device {timings[-1].get('device_ms')}; plain "

@@ -623,6 +623,77 @@ def test_torch_cuda_matmul_i8_bit_exact(gen, dtype, m, k, n):
             _close(got, want)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n,path", [
+    (6656, 768, 2304, "wgmma"),  # B/16 bs=32's QKV: the panel kept
+    (200, 272, 144, "wgmma"),    # ragged M, K and N against the tile
+    (70, 5120, 1280, "wgmma"),   # H/14's fc2: the panel streamed
+    (33, 384, 48, "wgmma"),      # the model=2 shard's out-projection
+    (37, 600, 100, "wmma"),      # N not a multiple of 16
+    (130, 24, 200, "wmma"),      # K under 32, not a multiple of 16
+])
+def test_torch_cuda_matmul_i8_tiles(gen, dtype, m, k, n, path):
+    """K11 on the tile :func:`i8_path` picks by shape: bit for bit with its
+    plain version without GELU (every epilogue), two calls bit for bit,
+    rows independent of M."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda.quant import i8_path
+
+    xq, ax = ops.quantize_rows(_rnd(gen, dtype, m, k), impl="torch")
+    w = _quant_weight(gen, k, n)
+    assert i8_path(m, n, k, (xq.data_ptr(), w["q"].data_ptr())) == path
+    b = _rnd(gen, dtype, n, std=0.1)
+    r = _rnd(gen, dtype, m, n)
+    for bias, res in ((None, None), (b, None), (b, r)):
+        args = (xq, ax, w["q"], w["scale"], bias)
+        kw = dict(residual=res, out_dtype=dtype)
+        got = ops.matmul_i8(*args, impl="cuda", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.matmul_i8(*args, impl="torch", **kw))
+        assert torch.equal(ops.matmul_i8(*args, impl="cuda", **kw), got)
+    part = ops.matmul_i8(xq[:m // 2 + 1], ax[:m // 2 + 1], w["q"],
+                         w["scale"], b, out_dtype=dtype, impl="cuda")
+    full = ops.matmul_i8(xq, ax, w["q"], w["scale"], b, out_dtype=dtype,
+                         impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(part, full[:m // 2 + 1])
+    _close(ops.matmul_i8(xq, ax, w["q"], w["scale"], b, "gelu",
+                         out_dtype=dtype, impl="cuda"),
+           ops.matmul_i8(xq, ax, w["q"], w["scale"], b, "gelu",
+                         out_dtype=dtype, impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d,mlp,partial", [
+    (6656, 768, 3072, False),   # B/16 bs=32
+    (544, 1280, 5120, False),   # H/14 bs=2: two passes, one W1 slot
+    (6656, 768, 1536, True),    # the model=2 shard
+    (97, 384, 1024, False),     # ragged M, an odd box count
+])
+def test_torch_cuda_mlp_block_i8dot_tiles(gen, dtype, m, d, mlp, partial):
+    """K12's s8 wgmma tile at the main paths' widths: the bf16 bars
+    against its plain version, two calls bit for bit, rows 0-32 of an
+    M = 33 call equal to those of the full call."""
+    from vit_tpu_torch import ops
+
+    w1, w2 = _quant_weight(gen, d, mlp, std=0.03), _quant_weight(
+        gen, mlp, d, std=0.03)
+    args = [_rnd(gen, dtype, m, d, std=1.5, mean=0.2),
+            _rnd(gen, dtype, d, std=0.1, mean=1.0),
+            _rnd(gen, dtype, d, std=0.05), w1["q"], w1["scale"],
+            _rnd(gen, dtype, mlp, std=0.02), w2["q"], w2["scale"],
+            _rnd(gen, dtype, d, std=0.02)]
+    got = ops.mlp_block_i8dot(*args, partial_out=partial, impl="cuda")
+    _close_bf16_bars(got, ops.mlp_block_i8dot(*args, partial_out=partial,
+                                              impl="torch"))
+    assert torch.equal(ops.mlp_block_i8dot(*args, partial_out=partial,
+                                           impl="cuda"), got)
+    args[0] = args[0][:33]
+    part = ops.mlp_block_i8dot(*args, partial_out=partial, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(part, got[:33])
+
+
 @pytest.mark.parametrize("hd", [64, 80])
 @pytest.mark.parametrize("b,heads,s,seq_len", [(2, 3, 208, 197),
                                                (1, 2, 592, 577)])

@@ -34,23 +34,37 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map over the rows x cols row-major matrix at p with
-// leading dimension ld, boxes of box_cols x box_rows, 128-byte swizzle,
-// zeros outside the matrix.
-bool tensor_map(CUtensorMap* map, const void* p, int rows, int cols, int ld,
-                int box_cols, int box_rows) {
+// A 2-D tensor map of `type` (elements of `elem` bytes) over the rows x
+// cols row-major matrix at p with leading dimension ld (elements), boxes of
+// box_cols x box_rows, 128-byte swizzle, zeros outside the matrix.
+static bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       size_t elem, const void* p, int rows, int cols, int ld,
+                       int box_cols, int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(bf16)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
-            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  return fn(map, type, 2, const_cast<void*>(p), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 map (K2, K3) and the int8 one (K11, K12) of encode_map.
+bool tensor_map(CUtensorMap* map, const void* p, int rows, int cols, int ld,
+                int box_cols, int box_rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), p,
+                    rows, cols, ld, box_cols, box_rows);
+}
+
+bool tensor_map_i8(CUtensorMap* map, const void* p, int rows, int cols,
+                   int ld, int box_cols, int box_rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p, rows, cols, ld,
+                    box_cols, box_rows);
 }
 
 // Per device: its SM count, and whether each wgmma kernel may use kSmem

@@ -75,6 +75,8 @@ _SIGNATURES = {
     "vit_quantize_rows": (_P, _P, _P, _P, _P, _I, _I, _F),
     # xq, ax, wq, wscale, bias, residual, out, m, n, k, gelu
     "vit_matmul_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
+    # the same on the s8 wgmma tile (matmul_i8_wgmma.cu)
+    "vit_matmul_i8_wgmma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     # x, ln scale, ln bias, w1, s1, b1, w2, s2, b2, out, m, d, mlp, eps,
     # partial
     "vit_mlp_block_i8": (*(_P,) * 10, _I, _I, _I, _F, _I),

@@ -1,6 +1,7 @@
 """The int8 tier's kernels: K10 ``quantize_rows`` (``csrc/layernorm.cu``),
-K11 ``matmul_i8`` (``csrc/matmul.cu``), K12 ``mlp_block_i8dot``
-(``csrc/mlp_block_i8.cu``), K17 ``mlp_block_q`` (``csrc/mlp_block_q.cu``)
+K11 ``matmul_i8`` (``csrc/matmul_i8_wgmma.cu``, or ``csrc/matmul.cu`` where
+:func:`i8_path` says), K12 ``mlp_block_i8dot`` (``csrc/mlp_block_i8.cu`` on
+``csrc/mlp_i8_wgmma.cuh``), K17 ``mlp_block_q`` (``csrc/mlp_block_q.cu``)
 and ``attn_block_q`` as five launches (counterparts of
 ``vit_tpu/ops/pallas/block.py:attn_block_q``, ``mlp_block_i8dot`` and
 ``mlp_block_q``); and their tensor-parallel shard forms: K12 and K17 with
@@ -63,6 +64,24 @@ def quantize_rows(x: torch.Tensor, *, ln_scale: torch.Tensor | None = None,
     return xq, ax
 
 
+#: The C entry point of each :func:`i8_path` result.
+I8_ENTRIES = {"wgmma": "vit_matmul_i8_wgmma", "wmma": "vit_matmul_i8"}
+
+
+def i8_path(m: int, n: int, k: int, ptrs: tuple[int, int]) -> str:
+    """The tile K11 runs ``(m, k) @ (k, n)`` on, from shape and alignment
+    alone: ``"wgmma"`` (the s8 ``wgmma`` tile fed by TMA) where TMA can
+    read both operands -- xq's and wq's bases (``ptrs``, bytes) 16-byte
+    aligned, K and N multiples of 16 -- else ``"wmma"``
+    (``gemm_tile.cuh``'s int8 tile)."""
+    if min(m, n, k) <= 0:
+        raise ValueError(f"matmul_i8 of an empty operand ({m}, {k}) @ "
+                         f"({k}, {n})")
+    if all(p % 16 == 0 for p in ptrs) and k % 16 == 0 and n % 16 == 0:
+        return "wgmma"
+    return "wmma"
+
+
 def matmul_i8(xq: torch.Tensor, ax: torch.Tensor, wq: torch.Tensor,
               wscale: torch.Tensor, bias: torch.Tensor | None = None,
               activation: str | None = None, *,
@@ -71,7 +90,8 @@ def matmul_i8(xq: torch.Tensor, ax: torch.Tensor, wq: torch.Tensor,
     """``xq (M, K) int8 @ wq (K, N) int8`` on CUDA tensors, exact int32
     sums, then ``(acc * ax) * wscale``, ``+ bias``, GELU, ``+ residual`` in
     fp32, one cast to ``out_dtype``; ``bias`` and ``residual`` (M, N) are
-    in ``out_dtype``."""
+    in ``out_dtype``. ``wq`` is read where it lies, on the tile
+    :func:`i8_path` picks."""
     if activation not in (None, "gelu"):
         raise ValueError(f"unknown activation {activation!r}")
     if out_dtype not in _build.DTYPE_CODES:
@@ -92,7 +112,8 @@ def matmul_i8(xq: torch.Tensor, ax: torch.Tensor, wq: torch.Tensor,
     if residual is not None:
         _build.check_tensor(residual, "residual", xq, (m, n), dtype=out_dtype)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    _build.launch("vit_matmul_i8", xq, ax, wq, wscale, bias, residual, out,
+    path = i8_path(m, n, k, (xq.data_ptr(), wq.data_ptr()))
+    _build.launch(I8_ENTRIES[path], xq, ax, wq, wscale, bias, residual, out,
                   m, n, k, int(activation == "gelu"), like=out)
     count_launch("matmul_i8")
     return out

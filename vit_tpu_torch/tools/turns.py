@@ -10,13 +10,16 @@ bf16 attention core, K6 (LN 4736x1024 @ 1024x3072), K7 (B/16 bs=32 and
 L/16-384 bs=8 on packed QKV views, each beside SDPA, and the int8 tier's
 fp32-output B/16 shape), K8 (``embed_fused``, L/16-384 bs=4), K9
 (``ops.encoder_stack``, B/16 bs=1, 12 layers), K11 (``matmul_i8``, the
-QKV), K13 (``ops.flash_attention_bwd``, B/16 bs=32 in bf16 and fp32), K16
+QKV), K12 (``mlp_block_i8dot`` at B/16 bs=32 and H/14 bs=2, each beside
+its composed K10 -> K11 -> K10 -> K11 chain), K13
+(``ops.flash_attention_bwd``, B/16 bs=32 in bf16 and fp32), K16
 (``matmul3``, the scores, the context and the scores at 200 tokens, each
 beside ``baddbmm``), K22 (``int8_probe.dot``, int8 and bf16), K3 (B/16
 bs=32, L/16-384 bs=8 and the B/16 bs=32 shard over model=2, each beside
 the case's composed K1 -> K2 -> K2 chain) and K18; then the
 B/16 bs=32 bf16 forward on the default route, on ``(flash, fused=False)``
-and on ``(unfused, fused=False)``, the int8 forward (``forward_quant``)
+and on ``(unfused, fused=False)``, the int8 forward (``forward_quant``;
+also at L/16-384 bs=8)
 and the B/16 bs=32 bf16 train step. A checkout whose K2 reads no
 transposed view (no ``ops.cuda.matmul.gemm_path``) gets contiguous copies
 first, as its backward made them. Trees run in turns (other, this, this,
@@ -25,7 +28,9 @@ the checkout's own ``build/``. Each time is the median of CUDA-event times
 of single calls after warm-up, beside the pipelined time (calls queued
 back to back between two events: the device time where the host keeps
 ahead) and the profiler's device time (each launch's time over the records
-kept). It prints one line a run and a JSON line::
+kept). Each kernel case's output is hashed too, and the last lines say
+which cases gave the same bits in both trees. It prints one line a run
+and a JSON line::
 
     git archive <parent> | tar -x -C build/parent    # a listed directory
     python -m vit_tpu_torch.tools.turns --other build/parent
@@ -89,13 +94,19 @@ CASES = {
                         "B/16 bs=32 model=2", False),
     "layer_block_k18": ("kernel_cases_layer", "bfloat16", "layer_block",
                         "K18 B/16", False),
+    # K12 at B/16 bs=32 and H/14 bs=2 (D = 1280), each beside the same MLP
+    # as K10 -> K11 -> K10 -> K11 (the case's composed chain).
+    "mlp_i8_b16": ("kernel_cases_int8", "bfloat16", "mlp_block_i8dot",
+                   "B/16 (6656,768)", False),
+    "mlp_i8_h14": ("kernel_cases_int8", "bfloat16", "mlp_block_i8dot",
+                   "H/14 (544,1280)", False),
 }
 
 #: Run in a fresh process with the checkout's root, this checkout's
 #: ``chip_smoke.py`` and ``CASES`` as arguments; prints one JSON line. It
 #: uses only what every checkout of the port has.
 WORKER = r"""
-import importlib.util, json, sys
+import hashlib, importlib.util, json, sys
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
@@ -175,6 +186,12 @@ with torch.inference_mode():
             (c,) = [c for c in cases
                     if c["name"] == name and label in c["label"]]
             res[key] = times(lambda: c["run"]("cuda"))
+            # The output's bytes, to hold the two trees bit for bit.
+            out = c["run"]("cuda")
+            outs = out if isinstance(out, tuple) else (out,)
+            res[key]["sha256"] = hashlib.sha256(b"".join(
+                o.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                for o in outs)).hexdigest()[:16]
             if library:
                 res[key + "_library"] = times(c["library"])
             if c.get("composed") is not None:
@@ -197,6 +214,17 @@ with torch.inference_mode():
     res["forward_int8"] = times(lambda: forward_quant(qparams, px, cfg),
                                 iters=20)
 del qparams
+# The int8 forward at L/16-384 bs=8 (24 layers, D = 1024: K12 in two
+# passes).
+cfg_l = VARIANTS["L/16-384"].replace(dtype=torch.bfloat16, num_classes=1000)
+q_l = quantize_params(init_params(cfg_l, generator=gen, device="cuda"))
+px_l = torch.randn((8, 3, cfg_l.image_size, cfg_l.image_size),
+                   generator=gen, device="cuda").to(torch.bfloat16)
+with torch.inference_mode():
+    res["forward_int8_l16_384_bs8"] = times(
+        lambda: forward_quant(q_l, px_l, cfg_l), iters=10)
+del q_l, px_l
+torch.cuda.empty_cache()
 labels = torch.randint(0, 1000, (32,), generator=gen, device="cuda")
 init_fn, step_fn = make_train_step(cfg, make_optimizer(1e-4, 0.05))
 opt = init_fn(params)
@@ -238,8 +266,15 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{tag:5s} " + "  ".join(
             f"{k} {v['ms']:.4f} ms (device {v['device_ms']})"
             for k, v in got.items()), flush=True)
+    # Which kernel cases give the same bits in both trees.
+    same = {k: len({r[k]["sha256"] for r in runs}) == 1
+            for k in runs[0] if "sha256" in runs[0][k]}
+    print("bit for bit with the other tree: " + ", ".join(
+        f"{k} {'same' if v else 'DIFFERS'}" for k, v in same.items()),
+        flush=True)
     from vit_tpu_torch.tools import card_line
-    print(json.dumps({"turns": runs, "card": card_line()}))
+    print(json.dumps({"turns": runs, "bit_for_bit": same,
+                      "card": card_line()}))
     return 0
 
 
