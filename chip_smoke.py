@@ -25,10 +25,12 @@ without printing the final ``ok`` line:
    bs=2; K2 also at the training backward's two products of the QKV, on
    the views it passes (``g @ w.t()``, ``x.t() @ g``); K7 also at B/16
    bs=32 on packed QKV views. The bars of K2's backward cases, of K7's
-   three cases, of K16's scores and context and of K3's cases (B/16
-   bs=32, L/16-384 bs=8, every shard form) are each held to two planted
-   faults (``gemm_faults``, ``flash_faults``, ``mlp_faults``), which they
-   must refuse;
+   three cases, of K16's scores and context, of K3's, K12's and K17's
+   cases (B/16 bs=32, L/16-384 bs=8, H/14 bs=2, every shard form) are
+   each held to two planted faults (``gemm_faults``, ``flash_faults``,
+   ``mlp_faults``, ``mlp_q_faults``), and each of K9's three forms to a
+   zeroed K slice of one layer's fc2 (``stack_faults``), which they must
+   refuse;
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
    exact per-forward launch counts; the same weights through
@@ -72,7 +74,9 @@ without printing the final ``ok`` line:
     K3, K7, K11, K14, K15 and K16 on the card (``DEVICE_TIMED``: the
     profiler's device time), beside the library
     call timed the same way (fp32 ``addmm`` without TF32) and, for K3,
-    beside the same MLP as K1 -> K2 -> K2 (``composed_ms``); the
+    beside the same MLP as K1 -> K2 -> K2 (``composed_ms``; K12 beside
+    K10 -> K11 -> K10 -> K11, K17 beside K3 on the dequantized weights,
+    K9 at bs=1 beside K24's ``dma``, its weight stream alone); the
     bf16 forwards of B/16 at bs=32 and L/16-384 at bs=8
     through the kernels and through ``impl="torch"``; B/16 at bs=1 and 2
     and L/16 at bs=1 through the stack route, the per-layer kernel route
@@ -261,7 +265,7 @@ KERNEL_SOURCES = {
     # and the general one (:130).
     "matmul3": ("vit_tpu_torch/csrc/matmul3.cu",
                 "vit_tpu/ops/pallas/matmul3.py:105"),
-    "mlp_block_q": ("vit_tpu_torch/csrc/mlp_block_q.cu",
+    "mlp_block_q": ("vit_tpu_torch/csrc/mlp_q_wgmma.cuh",
                     "vit_tpu/ops/pallas/block.py:416"),
     # The tensor-parallel shard forms of K3, K12 and K17, partial_out=True
     # (the same pallas_calls). B16 and B17 (block.py:1054, :1483) are K1,
@@ -271,7 +275,7 @@ KERNEL_SOURCES = {
                           "vit_tpu/ops/pallas/block.py:218"),
     "mlp_block_i8dot_partial": ("vit_tpu_torch/csrc/mlp_i8_wgmma.cuh",
                                 "vit_tpu/ops/pallas/block.py:591"),
-    "mlp_block_q_partial": ("vit_tpu_torch/csrc/mlp_block_q.cu",
+    "mlp_block_q_partial": ("vit_tpu_torch/csrc/mlp_q_wgmma.cuh",
                             "vit_tpu/ops/pallas/block.py:416"),
     # K18 is the last of layer_block's four launches (K1, K2 and the
     # attention core count theirs), as K4's core is of attn_block's.
@@ -483,6 +487,64 @@ def mlp_faults(torch, run, x, b2, w2, *, partial: bool,
         return run(cut, partial)
     return {"MLP output * 0.85": scaled,
             f"hidden {start}-{start + width - 1} skipped": skip_chunk}
+
+
+def mlp_q_faults(torch, ops, args, *, partial: bool) -> dict:
+    """K17's two planted faults (``mlp_faults`` with one 512-column quant
+    group of ``w2q`` zeroed) for the case ``ops.mlp_block_q(*args)``."""
+    x, b2, w2q = args[0], args[8], args[6]
+    return mlp_faults(
+        torch, lambda w, p, a=args: ops.mlp_block_q(
+            *a[:6], w, *a[7:], partial_out=p), x, b2, w2q, partial=partial,
+        width=ops.reference.MLP_GROUP)
+
+
+def mlp_q_beside_k3(torch, ops, args, *, partial: bool = False):
+    """K3 on the same MLP with the weights dequantized to the tensor's type
+    (made once, here): K17's bf16 yardstick at its shape, or None where K3
+    does not take the width."""
+    x, g, beta, w1q, s1, b1, w2q, s2, b2 = args
+    d, mlp = w1q.shape
+    if not ops.mlp_plan(d, mlp, x.dtype):
+        return None
+    w1 = (w1q.float() * s1).to(x.dtype)
+    w2 = (w2q.float() * s2).to(x.dtype)
+    return lambda: ops.mlp_block(x, g, beta, w1, b1, w2, b2,
+                                 partial_out=partial)
+
+
+def stack_faults(torch, run, enc, *, layer: int = 5, start: int = 1536,
+                 width: int = 512, quantized: bool = False) -> dict:
+    """A planted fault of a K9 case whose kernel is ``run(enc)``: the K
+    slice ``start`` .. ``start + width - 1`` of layer ``layer``'s fc2
+    weight zeroed (``q``'s codes for int8), one slice of fc2's split over
+    K at B/16 bs=1: each form's bar must refuse it."""
+    def cut():
+        fc2 = dict(enc["fc2"])
+        if quantized:
+            q = fc2["kernel"]["q"].clone()
+            q[layer, start:start + width].zero_()
+            fc2["kernel"] = {**fc2["kernel"], "q": q}
+        else:
+            w = fc2["kernel"].clone()
+            w[layer, start:start + width].zero_()
+            fc2["kernel"] = w
+        return run({**enc, "fc2": fc2})
+    return {f"layer {layer} fc2 K {start}-{start + width - 1} zeroed": cut}
+
+
+def stack_dma(torch, enc, b: int, dtype):
+    """K24's ``dma`` variant on the stacked weights of ``enc`` at b images
+    of 208 tokens: K9's weight stream alone on the same grid, K9's floor
+    beside it (a closure over its scratch, made at the first call)."""
+    from vit_tpu_torch.tools import encstack_minrepro as em
+    d = enc["qkv"]["kernel"].shape[1]
+    L, mlp = enc["fc1"]["kernel"].shape[0], enc["fc1"]["kernel"].shape[2]
+    fn = em.make_variant("dma@flat", b=b, sp=208, d=d, mlp=mlp, L=L,
+                         cq=128, mt=128, dtype=dtype, heads=d // 64)
+    x = torch.zeros((b * 208, d), dtype=dtype, device="cuda")
+    ws = [enc[n]["kernel"] for n in ("qkv", "out", "fc1", "fc2")]
+    return lambda: fn(x, *ws)
 
 
 def mlp_chain(ops, x, g, beta, w1, b1, w2, b2, *, partial: bool = False):
@@ -965,19 +1027,31 @@ def kernel_cases_small_batch(torch, dtype):
         x[:, 197:] = 0
         patches = rnd(b, 196, 768)
         work = _stack_work(b, 208, 197, 768, 3072, 12, 12, e, kind)
+        # Each form's bar refuses a zeroed K slice of one layer's fc2; at
+        # bs=1 each is timed beside K24's dma, its weight stream alone.
+        dma = stack_dma(torch, p["encoder"], b, dtype) if b == 1 else None
         cases.append(case("encoder_stack", f"B/16 12 layers ({b},208,768)",
                           lambda impl, x=x: ops.encoder_stack(
                               x, p["encoder"], impl=impl, **kw),
-                          work, primary=b == 1))
+                          work, primary=b == 1,
+                          faults=stack_faults(
+                              torch, lambda enc, x=x: ops.encoder_stack(
+                                  x, enc, **kw), p["encoder"]),
+                          composed=dma))
         nbytes, ops_, _ = work
+
+        def fused(enc, impl=None, pt=patches):
+            return ops.encoder_stack_fused(
+                pt, enc, p["embeddings"]["patch_embed"]["kernel"], base,
+                p["ln_final"], sp=208, impl=impl, **kw)
         cases.append(case(
             "encoder_stack_fused",
             f"B/16 embed + 12 layers + LN, patches ({b},196,768)",
-            lambda impl, pt=patches: ops.encoder_stack_fused(
-                pt, p["encoder"], p["embeddings"]["patch_embed"]["kernel"],
-                base, p["ln_final"], sp=208, impl=impl, **kw),
+            lambda impl, f=fused: f(p["encoder"], impl),
             (nbytes + (b * 196 * 768 + 768 * 768 + 208 * 768) * e,
-             ops_ + 2 * b * 196 * 768 * 768, kind), primary=b == 1))
+             ops_ + 2 * b * 196 * 768 * 768, kind), primary=b == 1,
+            faults=stack_faults(torch, fused, p["encoder"]),
+            composed=dma))
     return cases
 
 
@@ -1146,7 +1220,10 @@ def kernel_cases_stack_q(torch, dtype):
                 x, qenc, impl=impl, **kw),
             _stack_work(1, 208, 197, d, cfg.mlp_dim, heads, cfg.num_layers,
                         dtype.itemsize, _kind(torch, dtype), w_e=1),
-            check=check, primary=variant == "B/16"))
+            check=check, primary=variant == "B/16",
+            faults=stack_faults(
+                torch, lambda enc, x=x, kw=kw: ops.encoder_stack_q(
+                    x, enc, **kw), qenc, quantized=True)))
     return cases
 
 
@@ -1219,12 +1296,16 @@ def kernel_cases_chain(torch, dtype):
         args = (rnd(mm, dd, std=1.5, mean=0.2), rnd(dd, std=0.1, mean=1.0),
                 rnd(dd, std=0.05), w1["q"], w1["scale"], rnd(mlp, std=0.02),
                 w2["q"], w2["scale"], rnd(dd, std=0.02))
+        # K17's bar refuses two planted faults; it is timed beside K3 on
+        # the dequantized weights where K3 takes the width.
         cases.append(case(
             "mlp_block_q", f"{tag} ({mm},{dd}) mlp {mlp}",
             lambda impl, a=args: ops.mlp_block_q(*a, impl=impl),
             ((2 * mm * dd + mlp + 3 * dd) * e + 2 * dd * mlp
              + 4 * (mlp + dd), 4 * mm * dd * mlp, kind),
-            primary=tag == "B/16 bs=32"))
+            primary=tag == "B/16 bs=32",
+            faults=mlp_q_faults(torch, ops, args, partial=False),
+            composed=mlp_q_beside_k3(torch, ops, args)))
     return cases
 
 
@@ -1331,7 +1412,10 @@ def kernel_cases_tp(torch, dtype):
                          f"{lbl} ({m_rows},{d}) mlp {ml}",
                          lambda impl, a=args: ops.mlp_block_q(
                              *a, partial_out=True, impl=impl),
-                         (*work, kind), primary=main),
+                         (*work, kind), primary=main,
+                         faults=mlp_q_faults(torch, ops, args, partial=True),
+                         composed=mlp_q_beside_k3(torch, ops, args,
+                                                  partial=True)),
                 ]
     return cases
 

@@ -443,20 +443,22 @@ def test_torch_cuda_embed_fused_ragged(gen, dtype, k, d, b):
 
 
 def _stack_inputs(gen, dtype, b, *, d=128, heads=2, mlp=256, layers=2,
-                  n=16, k=192, sp=32):
-    """Random stacked encoder weights and the inputs of both K9 forms."""
+                  n=16, k=192, sp=32, wstd=1.0):
+    """Random stacked encoder weights and the inputs of both K9 forms; the
+    projections' spreads are scaled by ``wstd``."""
     enc = {
         "ln1": {"scale": _rnd(gen, dtype, layers, d, std=0.1, mean=1.0),
                 "bias": _rnd(gen, dtype, layers, d, std=0.05)},
-        "qkv": {"kernel": _rnd(gen, dtype, layers, d, 3 * d, std=0.06),
+        "qkv": {"kernel": _rnd(gen, dtype, layers, d, 3 * d,
+                               std=0.06 * wstd),
                 "bias": _rnd(gen, dtype, layers, 3 * d, std=0.02)},
-        "out": {"kernel": _rnd(gen, dtype, layers, d, d, std=0.06),
+        "out": {"kernel": _rnd(gen, dtype, layers, d, d, std=0.06 * wstd),
                 "bias": _rnd(gen, dtype, layers, d, std=0.02)},
         "ln2": {"scale": _rnd(gen, dtype, layers, d, std=0.1, mean=1.0),
                 "bias": _rnd(gen, dtype, layers, d, std=0.05)},
-        "fc1": {"kernel": _rnd(gen, dtype, layers, d, mlp, std=0.06),
+        "fc1": {"kernel": _rnd(gen, dtype, layers, d, mlp, std=0.06 * wstd),
                 "bias": _rnd(gen, dtype, layers, mlp, std=0.02)},
-        "fc2": {"kernel": _rnd(gen, dtype, layers, mlp, d, std=0.04),
+        "fc2": {"kernel": _rnd(gen, dtype, layers, mlp, d, std=0.04 * wstd),
                 "bias": _rnd(gen, dtype, layers, d, std=0.02)},
     }
     x = _rnd(gen, dtype, b, sp, d)
@@ -970,6 +972,68 @@ def test_torch_cuda_mlp_block_q(gen, dtype, d, m):
                 _rnd(gen, dtype, d, std=0.02))
         _close(ops.mlp_block_q(*args, impl="cuda"),
                ops.mlp_block_q(*args, impl="torch"))
+
+
+@pytest.mark.parametrize("m,d,mlp,partial", [
+    (200, 768, 3072, False), (70, 1024, 4096, False), (33, 1280, 1024, False),
+    (70, 768, 1536, True)])
+def test_torch_cuda_mlp_block_q_bf16_tiles(gen, m, d, mlp, partial):
+    """K17's bf16 ``wgmma`` tile (``csrc/mlp_q_wgmma.cuh``) at real widths:
+    B/16's (two passes, ragged 64-row clusters), L/16's (two passes, four
+    boxes a block each), H/14's (three passes, one W2 slot) and B/16's
+    shard form over model=2, at the kernel bar with mean <= 3e-3; two calls
+    bit for bit; rows 0-32 the same bits in an M = 33 call as in the M-row
+    call (no sum runs over rows)."""
+    from vit_tpu_torch import ops
+
+    w1, w2 = _quant_weight(gen, d, mlp, std=0.03), _quant_weight(
+        gen, mlp, d, std=0.03)
+    args = (_rnd(gen, torch.bfloat16, m, d, std=1.5, mean=0.2),
+            _rnd(gen, torch.bfloat16, d, std=0.1, mean=1.0),
+            _rnd(gen, torch.bfloat16, d, std=0.05), w1["q"], w1["scale"],
+            _rnd(gen, torch.bfloat16, mlp, std=0.02), w2["q"], w2["scale"],
+            _rnd(gen, torch.bfloat16, d, std=0.02))
+    got = ops.mlp_block_q(*args, partial_out=partial, impl="cuda")
+    _close_bf16_bars(got, ops.mlp_block_q(*args, partial_out=partial,
+                                          impl="torch"))
+    again = ops.mlp_block_q(*args, partial_out=partial, impl="cuda")
+    head = ops.mlp_block_q(args[0][:33], *args[1:], partial_out=partial,
+                           impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(head, got[:33])
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_torch_cuda_encoder_stack_bf16_wgmma(gen, b):
+    """K9's three forms on the bf16 ``wgmma`` phases (``csrc/
+    stack_wgmma.cuh``) at B/16's width and token count, two layers: 197
+    real tokens of 208 (the out-projection and fc2 split over K five and
+    three ways at b = 1, 2), against their plain versions at the model bar;
+    two calls bit for bit. The projections' spreads are those of the
+    128-wide cases scaled by sqrt(128 / 768), so that the activations are
+    as large as there (at the 128-wide spreads the parent's K9 missed the
+    model bar too)."""
+    from vit_tpu_torch import ops
+
+    enc, x, patches, wemb, base, lnf = _stack_inputs(
+        gen, torch.bfloat16, b, d=768, heads=12, mlp=3072, layers=2,
+        n=196, k=768, sp=208, wstd=(128 / 768) ** 0.5)
+    kw = dict(num_heads=12, seq_len=197)
+    got = ops.encoder_stack(x, enc, impl="cuda", **kw)
+    _close_model(got, ops.encoder_stack(x, enc, impl="torch", **kw))
+    assert torch.equal(got, ops.encoder_stack(x, enc, impl="cuda", **kw))
+    fkw = dict(kw, sp=208)
+    got = ops.encoder_stack_fused(patches, enc, wemb, base, lnf, impl="cuda",
+                                  **fkw)
+    _close_model(got, ops.encoder_stack_fused(patches, enc, wemb, base, lnf,
+                                              impl="torch", **fkw))
+    assert torch.equal(got, ops.encoder_stack_fused(
+        patches, enc, wemb, base, lnf, impl="cuda", **fkw))
+    qenc = _quantized(enc)
+    got = ops.encoder_stack_q(x, qenc, impl="cuda", **kw)
+    _close_model(got, ops.encoder_stack_q(x, qenc, impl="torch", **kw))
+    assert torch.equal(got, ops.encoder_stack_q(x, qenc, impl="cuda", **kw))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -16,19 +16,24 @@
 // layer is a loop over work tiles strided by gridDim.x, and a grid-wide
 // barrier (cooperative_groups::this_grid().sync()) separates the phases.
 // Every block reaches every barrier, with or without a tile in the phase.
-// The phase routines (gemm_phase, the persistent launch) are in
-// stack_phase.cuh, which K9's probe K24 (encstack_probe.cu) shares. Per
-// layer:
-//   1. LN1 + QKV GEMM tiles (gemm_tile.cuh). Each tile recomputes its rows'
-//      LN stats from the activation, as the Pallas kernel recomputes LN1 per
-//      chunk, into shared memory; K6's LN prologue normalises while staging.
+// The phase routines (stack_phase, the persistent launch) are in
+// stack_phase.cuh, which K9's probe K24 (encstack_probe.cu) shares. In bf16
+// the GEMM phases run on stack_wgmma.cuh (wgmma fed by TMA from tensor maps
+// over the stacked weights, LN(x) written to shared memory before the
+// products, 64 x 128 items, the out-projection and fc2 split over K in a
+// fixed order; see there); in fp32 on gemm_tile.cuh's FFMA tile, where K6's
+// LN prologue normalises while staging. Per layer:
+//   1. LN1 + QKV. Each item recomputes its rows' LN from the activation,
+//      as the Pallas kernel recomputes LN1 per chunk.
 //   2. Attention, one work item per (image, head, 64-query tile): the
 //      attention-core routine of K4 (attention_core.cuh), whose row-max
 //      softmax is _encoder_stack_kernel's (block.py:1953-1968).
-//   3. Out-projection + bout + residual, in place on the activation.
+//   3. Out-projection + bout + residual, in place on the activation (bf16:
+//      split over K into the workspace, then the slices' sum with the
+//      epilogue after one more barrier).
 //   4. LN2 + fc1 + GELU into the hidden buffer, in the tensor's type.
 //   5. fc2 with the fp32 sum seeded with x + b2 (block.py:1981-1982), cast
-//      back into the activation.
+//      back into the activation (bf16: split over K as in 3).
 // FOLD adds phase 0, the patch projection with the fold's rounding (a):
 // (patches @ wemb) in fp32 plus base[1+i] upcast, one cast (block.py:
 // 1916-1919); row 0 of each image is base[0], its pad rows base[1+n:]. And
@@ -40,33 +45,31 @@
 // encoder_stack_q (_encoder_stack_q_kernel, block.py:2400-2508), the int8
 // tier's small-batch route: weight-only quantization, so activations stay
 // in the tensor's type and every weight tile arrives as int8 and is
-// converted, exactly, as it is staged into shared memory (gemm_tile.cuh);
-// each phase's epilogue applies the per-column fp32 scale before the bias,
-// (acc * s) + b, in JAX's order (block.py:2445, 2483, 2497, 2502). fc2's
-// sum is scaled once over the whole K, where JAX scales each mt chunk: the
-// fp32 sum order differs, nothing else. There is no FOLD form: the TPU
-// has none for int8. Its bound at B/16 bs=1 is the int8 weight stream,
-// 12 x 7.08 MB = 84.9 MB, about 25 us at 3.35 TB/s, half of the float
-// kernel's (its bf16 products on the tensor cores take 37 us at peak).
-// This first version is far from it: 5.47 ms in bf16 at B/16 bs=1 on an
-// NVIDIA H100 80GB HBM3 at 700 W, as slow as the float kernel (5.32 ms),
-// since the unpipelined tile loop, not the weight stream, sets the time.
+// converted, exactly, on chip (bf16: q_convert.cuh on each raw TMA box;
+// fp32: as gemm_tile.cuh stages it); each phase's epilogue applies the
+// per-column fp32 scale before the bias, (acc * s) + b, in JAX's order
+// (block.py:2445, 2483, 2497, 2502). fc2's sum is scaled once over the
+// whole K, where JAX scales each mt chunk: the fp32 sum order differs,
+// nothing else. There is no FOLD form: the TPU has none for int8. Its
+// bound at B/16 bs=1 is the int8 weight stream, 12 x 7.08 MB = 84.9 MB,
+// about 25 us at 3.35 TB/s, half of the float kernel's (its bf16 products
+// on the tensor cores take 37 us at peak).
 //
 // fp32 multiplies in true fp32 (FFMA, no TF32), as K2. Every sum is taken
-// in a fixed order -- no split-K, no atomics -- so two calls agree bit for
-// bit. The kernel reads its inputs and writes only the scratch and output
-// buffers that the wrapper (vit_tpu_torch/ops/cuda/stack.py) allocates.
+// in a fixed order -- bf16's split-K adds its slices in ascending order, no
+// atomics -- so two calls agree bit for bit. The kernel reads its inputs
+// and writes only the scratch and output buffers that the wrapper
+// (vit_tpu_torch/ops/cuda/stack.py) allocates; in bf16 the packed QKV
+// buffer is sized to hold the split-K workspace too.
 //
 // Bound on the card: at bs <= 2 the weight stream. B/16 bf16 reads
 // 12 x 14.16 MB = 170 MB of weights, a floor of about 51 us at 3.35 TB/s.
-// This first version is far from it: about 5.2 ms at B/16 bs=1 in bf16 on
-// an NVIDIA H100 80GB HBM3 at 700 W, some 100 times the floor. Nothing is
-// pipelined, so each GEMM tile is a serial loop of dependent 32-deep K
-// steps (24 for K=768, 96 for fc2's K=3072) at memory latency, and the
-// out-projection and fc2 phases have only 24 tiles a layer at bs=1 for 132
-// SMs. wgmma, TMA weight streaming, prefetching the next layer's tiles
-// during the attention phase and split-K (fixed-order) for the narrow
-// phases are later work.
+// On an NVIDIA H100 80GB HBM3 at 700 W this kernel takes 2.00 ms at B/16
+// bs=1 in bf16 on the card (2.21 with FOLD, 2.17 on int8 weights; times of
+// queued calls, tools/turns.py), some 40 times the floor: about half is
+// the attention phase (the FFMA core, tools/stack_ablate.py), most of the
+// rest the GEMM phases' LN prologues and their reads of each weight slab
+// from L2 once per 64-row tile.
 
 #include <cooperative_groups.h>
 
@@ -101,6 +104,10 @@ struct StackArgs {
   float scale, eps;
   // int8 weights: the per-column fp32 scales, stacked; null for float.
   const float *sqkv, *sout, *s1, *s2;
+  // bf16: the phases' tensor maps, and the split-K workspace (the qkv
+  // buffer, read as fp32).
+  sw::Maps maps;
+  float* ws;
 };
 
 // (acc * ws[col]) + bias with int8 weights, acc + bias without.
@@ -185,11 +192,12 @@ __device__ __forceinline__ const float* layer_scales(const float* s,
 
 template <typename T, typename W, bool FOLD>
 __global__ void __launch_bounds__(kMmThreads, 1)
-    encoder_stack_kernel(StackArgs<T, W> a) {
+    encoder_stack_kernel(const __grid_constant__ StackArgs<T, W> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const int D = a.d, m = a.b * a.sp, dh = D / a.heads;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const sw::Maps& mp = a.maps;
 
   if (FOLD) {
     // Phase 0: the patch rows, then row 0 and the pad rows from base.
@@ -215,13 +223,13 @@ __global__ void __launch_bounds__(kMmThreads, 1)
   const int q_tiles = (a.sp + kAttnQT - 1) / kAttnQT;
   for (int l = 0; l < a.layers; ++l) {
     const size_t lv = static_cast<size_t>(l) * D;
+    const size_t lm = static_cast<size_t>(l) * a.mlp;
     // 1. LN1 + QKV.
-    gemm_phase<true>(a.x, a.wqkv + lv * 3 * D, m, 3 * D, D, a.ln1_g + lv,
-                     a.ln1_b + lv, a.eps,
-                     BiasAct<T>{a.bqkv + lv * 3, a.qkv, 3 * D, false,
-                                layer_scales(a.sqkv, lv * 3)},
-                     smem);
-    grid.sync();
+    stack_phase<true>(grid, smem, a.x, a.wqkv + lv * 3 * D, nullptr,
+                      &mp.wqkv, l * D, m, 3 * D, D, a.ln1_g + lv,
+                      a.ln1_b + lv, a.eps, nullptr,
+                      BiasAct<T>{a.bqkv + lv * 3, a.qkv, 3 * D, false,
+                                 layer_scales(a.sqkv, lv * 3)});
     // 2. Attention.
     for (int t = blockIdx.x; t < a.b * a.heads * q_tiles; t += gridDim.x) {
       const int img = t / (a.heads * q_tiles);
@@ -229,33 +237,31 @@ __global__ void __launch_bounds__(kMmThreads, 1)
       attention_tile<T>(a.qkv, a.ctx, a.sp, D, dh, a.scale, a.seq_len, img,
                         h, t % q_tiles * kAttnQT, smem);
     }
+    sw::fence_proxy_async();  // the context is read by TMA next
     grid.sync();
-    // 3. Out-projection + bout + residual, in place.
-    gemm_phase<false>(a.ctx, a.wout + lv * D, m, D, D,
-                      static_cast<const T*>(nullptr),
-                      static_cast<const T*>(nullptr), a.eps,
-                      AddResidual<T>{a.bout + lv, a.x, D,
-                                     layer_scales(a.sout, lv)},
-                      smem);
-    grid.sync();
+    // 3. Out-projection + bout + residual, in place (split over K into
+    // the workspace: the QKV buffer is read no more this layer).
+    stack_phase<false>(grid, smem, a.ctx, a.wout + lv * D, &mp.ctx,
+                       &mp.wout, l * D, m, D, D,
+                       static_cast<const T*>(nullptr),
+                       static_cast<const T*>(nullptr), a.eps, a.ws,
+                       AddResidual<T>{a.bout + lv, a.x, D,
+                                      layer_scales(a.sout, lv)});
     // 4. LN2 + fc1 + GELU.
-    const size_t lm = static_cast<size_t>(l) * a.mlp;
-    gemm_phase<true>(a.x, a.w1 + lm * D, m, a.mlp, D, a.ln2_g + lv,
-                     a.ln2_b + lv, a.eps,
-                     BiasAct<T>{a.b1 + lm, a.hid, a.mlp, true,
-                                layer_scales(a.s1, lm)},
-                     smem);
-    grid.sync();
+    stack_phase<true>(grid, smem, a.x, a.w1 + lm * D, nullptr, &mp.w1,
+                      l * D, m, a.mlp, D, a.ln2_g + lv, a.ln2_b + lv, a.eps,
+                      nullptr,
+                      BiasAct<T>{a.b1 + lm, a.hid, a.mlp, true,
+                                 layer_scales(a.s1, lm)});
     // 5. fc2, seeded with x + b2.
     const bool last = FOLD && l == a.layers - 1;
-    gemm_phase<false>(a.hid, a.w2 + lm * D, m, D, a.mlp,
-                      static_cast<const T*>(nullptr),
-                      static_cast<const T*>(nullptr), a.eps,
-                      SeededResidual<T>{a.b2 + lv, a.x,
-                                        last ? a.acc : nullptr, D,
-                                        layer_scales(a.s2, lv)},
-                      smem);
-    grid.sync();
+    stack_phase<false>(grid, smem, a.hid, a.w2 + lm * D, &mp.hid, &mp.w2,
+                       l * a.mlp, m, D, a.mlp,
+                       static_cast<const T*>(nullptr),
+                       static_cast<const T*>(nullptr), a.eps, a.ws,
+                       SeededResidual<T>{a.b2 + lv, a.x,
+                                         last ? a.acc : nullptr, D,
+                                         layer_scales(a.s2, lv)});
   }
 
   if (FOLD) {
@@ -271,7 +277,21 @@ __global__ void __launch_bounds__(kMmThreads, 1)
 template <typename T, typename W, bool FOLD>
 cudaError_t launch_stack(StackArgs<T, W> a, int device, cudaStream_t st) {
   auto kernel = encoder_stack_kernel<T, W, FOLD>;
-  const size_t smem = stack_smem<T>(a.sp, a.d / a.heads);
+  const size_t smem = stack_smem_all<T, W>(a.sp, a.d / a.heads, a.d);
+  if (smem == 0) return cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<T, bf16>) {
+    // The wgmma phases: D and mlp whole 64-column steps, the activation
+    // 16-byte aligned (LN reads 16-byte chunks), every map encoded.
+    const int m = a.b * a.sp, L = a.layers, d = a.d, mlp = a.mlp;
+    if (mlp % 64 || !aligned16(a.x) || !a.ws) return cudaErrorInvalidValue;
+    sw::Maps& mp = a.maps;
+    if (!act_map(&mp.ctx, a.ctx, m, d) || !act_map(&mp.hid, a.hid, m, mlp) ||
+        !weight_map<W>(&mp.wqkv, a.wqkv, L * d, 3 * d) ||
+        !weight_map<W>(&mp.wout, a.wout, L * d, d) ||
+        !weight_map<W>(&mp.w1, a.w1, L * d, mlp) ||
+        !weight_map<W>(&mp.w2, a.w2, L * mlp, d))
+      return cudaErrorInvalidValue;
+  }
   int grid = 0;
   cudaError_t err = persistent_grid(kernel, smem, device, &grid);
   if (err != cudaSuccess) return err;
@@ -297,6 +317,7 @@ cudaError_t launch_stack_typed(void* x, void* qkv, void* ctx, void* hid,
                  c(patches), c(wemb), c(base), c(lnf_g), c(lnf_b),
                  b, sp, d, mlp, heads, layers, seq_len, n_tok, pd,
                  scale, eps};
+  a.ws = static_cast<float*>(qkv);
   return fold ? launch_stack<T, T, true>(a, device, st)
               : launch_stack<T, T, false>(a, device, st);
 }
@@ -322,13 +343,15 @@ cudaError_t launch_stack_q(void* x, void* qkv, void* ctx, void* hid,
                     nullptr, nullptr, nullptr, nullptr, nullptr,
                     b, sp, d, mlp, heads, layers, seq_len, 0, 0, scale, eps,
                     f(sc[0]), f(sc[1]), f(sc[2]), f(sc[3])};
+  a.ws = static_cast<float*>(qkv);
   return launch_stack<T, W, false>(a, device, st);
 }
 
 }  // namespace vit
 
 // x (b*sp, d): the working activation, holding the input without fold and
-// the output after the launch; qkv (b*sp, 3d), ctx (b*sp, d), hid
+// the output after the launch; qkv (b*sp, 3d; in bf16 at least 16 b*sp*d
+// elements, its bytes the split-K workspace too), ctx (b*sp, d), hid
 // (b*sp, mlp): scratch; acc (b*sp, d) fp32 and out (b*sp, d): fold only.
 // The twelve stacked weight tensors in the order ln1 scale, ln1 bias, qkv
 // kernel, qkv bias, out kernel, out bias, ln2 scale, ln2 bias, fc1 kernel,

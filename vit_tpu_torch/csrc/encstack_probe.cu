@@ -1,9 +1,8 @@
 // K24: the whole-encoder probe. K9's cooperative persistent grid, its
 // tiling and its five grid-synchronised phases a layer, with each phase's
 // body stripped down to a variant's ingredients, so that the time of each
-// ingredient shows: K9 takes 5.03 ms at B/16 bs=1 bf16 on an NVIDIA H100
-// 80GB HBM3 at 700 W, against a 51 us weight-stream bound, and this probe
-// says where the rest goes.
+// ingredient shows against K9's 51 us weight-stream bound at B/16 bs=1
+// (K9's own times are in PERF.md section 6).
 //
 // Replaces tools/encstack_minrepro.py:make_variant (pallas_call :216), the
 // TPU's bisect of the same kernel with its grid, BlockSpecs and scratch
@@ -35,14 +34,16 @@
 // the weights across the layer boundary. A persistent kernel already walks
 // the layers in one loop, so `@flat` is the same launch here.
 //
-// The GEMM phases are K9's (stack_phase.cuh: gemm_phase over gemm_tile's
-// tiles, K6's LN prologue), whose tiles do not depend on JAX's (cq, mt)
-// chunking: the pair changes only the order of the fp32 sums. JAX's dots
-// here run in fp32 on fp32 operands (no precision=, so true fp32 on the
-// CPU); on the card the products are those of the tensor's type, whose
-// bf16 products are exact in fp32 -- except lnqkv's QKV, where the JAX
-// kernel feeds the fp32 LN output unrounded and K6's prologue rounds it to
-// the type.
+// The GEMM phases are K9's (stack_phase.cuh: in bf16 the wgmma phases of
+// stack_wgmma.cuh, LN(x) written to shared memory before the products, the
+// out-projection and fc2 split over K into the QKV buffer; in fp32
+// gemm_tile's tiles with K6's LN prologue), whose tiles do not depend on
+// JAX's (cq, mt) chunking: the pair changes only the order of the fp32
+// sums. JAX's dots here run in fp32 on fp32 operands (no precision=, so
+// true fp32 on the CPU); on the card the products are those of the
+// tensor's type, whose bf16 products are exact in fp32 -- except lnqkv's
+// QKV, where the JAX kernel feeds the fp32 LN output unrounded and the LN
+// prologue rounds it to the type.
 //
 // Bound on the card: the weight stream at bs <= 2, as K9: B/16 bf16 reads
 // 12 x 14.16 MB = 170 MB, 51 us at 3.35 TB/s. `dma` is that stream alone:
@@ -79,6 +80,9 @@ struct ProbeStackArgs {
   const T *ones, *zeros;           // (D,): the LN's unit scale, zero bias
   int b, sp, d, mlp, heads, layers;
   float scale, eps;
+  // bf16: the GEMM phases' tensor maps and split-K workspace (K9's).
+  sw::Maps maps;
+  float* ws;
 };
 
 // out = round(act(acc)): the QKV and fc1 phases.
@@ -179,7 +183,7 @@ __device__ __forceinline__ void stream_phase(const T* __restrict__ w,
 
 template <typename T, int V>
 __global__ void __launch_bounds__(kMmThreads, 1)
-    encstack_probe_kernel(ProbeStackArgs<T> a) {
+    encstack_probe_kernel(const __grid_constant__ ProbeStackArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const int D = a.d, m = a.b * a.sp, dh = D / a.heads;
@@ -199,19 +203,23 @@ __global__ void __launch_bounds__(kMmThreads, 1)
   const float c001 = to_f32(from_f32<T>(0.001f));
   const int q_tiles = (a.sp + kAttnQT - 1) / kAttnQT;
 
+  const sw::Maps& mp = a.maps;
+  const T* none = nullptr;
   for (int l = 0; l < a.layers; ++l) {
     const size_t lq = static_cast<size_t>(l) * D * 3 * D;
     const size_t lo = static_cast<size_t>(l) * D * D;
     const size_t lm = static_cast<size_t>(l) * D * a.mlp;
     const size_t slot = (static_cast<size_t>(blockIdx.x) * a.layers + l) * 4;
     // 1. QKV.
-    if constexpr (V == kVarDma)
+    if constexpr (V == kVarDma) {
       stream_phase(a.wqkv + lq, static_cast<size_t>(D) * 3 * D, a.sink,
                    slot + 0, red);
-    else
-      gemm_phase<kLnQkv>(a.x, a.wqkv + lq, m, 3 * D, D, a.ones, a.zeros,
-                         a.eps, StoreRounded<T>{a.qkv, 3 * D, false}, smem);
-    grid.sync();
+      grid.sync();
+    } else {
+      stack_phase<kLnQkv>(grid, smem, a.x, a.wqkv + lq, &mp.x, &mp.wqkv,
+                          l * D, m, 3 * D, D, a.ones, a.zeros, a.eps,
+                          nullptr, StoreRounded<T>{a.qkv, 3 * D, false});
+    }
     // 2. Attention.
     if constexpr (V == kVarScratch || V == kVarRows) {
       const int reps = V == kVarScratch ? a.b : 1;
@@ -235,34 +243,45 @@ __global__ void __launch_bounds__(kMmThreads, 1)
                                  img, h, t % q_tiles * kAttnQT, smem);
       }
     }
+    sw::fence_proxy_async();  // x or the context is read by TMA next
     grid.sync();
-    // 3. Out-projection.
-    if constexpr (V == kVarDma)
+    // 3. Out-projection (the QKV buffer, read no more this layer, is the
+    // split-K workspace).
+    if constexpr (V == kVarDma) {
       stream_phase(a.wout + lo, static_cast<size_t>(D) * D, a.sink,
                    slot + 1, red);
-    else if constexpr (V == kVarNodots || V == kVarLnqkv)
-      gemm_phase<true>(a.ctx, a.wout + lo, m, D, D, a.ones, a.zeros, a.eps,
-                       AddRounded<T>{a.x, D}, smem);
-    else if constexpr (V == kVarNosm || V == kVarCore)
-      gemm_phase<false>(a.ctx, a.wout + lo, m, D, D, a.ones, a.zeros, a.eps,
-                        AddRounded<T>{a.x, D}, smem);
-    grid.sync();
+      grid.sync();
+    } else if constexpr (V == kVarNodots || V == kVarLnqkv) {
+      stack_phase<true>(grid, smem, a.ctx, a.wout + lo, &mp.ctx, &mp.wout,
+                        l * D, m, D, D, a.ones, a.zeros, a.eps, nullptr,
+                        AddRounded<T>{a.x, D});
+    } else if constexpr (V == kVarNosm || V == kVarCore) {
+      stack_phase<false>(grid, smem, a.ctx, a.wout + lo, &mp.ctx, &mp.wout,
+                         l * D, m, D, D, none, none, a.eps, a.ws,
+                         AddRounded<T>{a.x, D});
+    } else {
+      grid.sync();
+    }
     // 4. fc1.
-    if constexpr (V == kVarDma)
+    if constexpr (V == kVarDma) {
       stream_phase(a.w1 + lm, static_cast<size_t>(D) * a.mlp, a.sink,
                    slot + 2, red);
-    else
-      gemm_phase<kLnQkv>(a.x, a.w1 + lm, m, a.mlp, D, a.ones, a.zeros, a.eps,
-                         StoreRounded<T>{a.hid, a.mlp, kLnQkv}, smem);
-    grid.sync();
+      grid.sync();
+    } else {
+      stack_phase<kLnQkv>(grid, smem, a.x, a.w1 + lm, &mp.x, &mp.w1, l * D,
+                          m, a.mlp, D, a.ones, a.zeros, a.eps, nullptr,
+                          StoreRounded<T>{a.hid, a.mlp, kLnQkv});
+    }
     // 5. fc2 into the running accumulator.
-    if constexpr (V == kVarDma)
+    if constexpr (V == kVarDma) {
       stream_phase(a.w2 + lm, static_cast<size_t>(a.mlp) * D, a.sink,
                    slot + 3, red);
-    else
-      gemm_phase<false>(a.hid, a.w2 + lm, m, D, a.mlp, a.ones, a.zeros,
-                        a.eps, Accumulate<T>{a.acc, a.x, D}, smem);
-    grid.sync();
+      grid.sync();
+    } else {
+      stack_phase<false>(grid, smem, a.hid, a.w2 + lm, &mp.hid, &mp.w2,
+                         l * a.mlp, m, D, a.mlp, none, none, a.eps, a.ws,
+                         Accumulate<T>{a.acc, a.x, D});
+    }
   }
 }
 
@@ -270,7 +289,22 @@ template <typename T, int V>
 cudaError_t launch_encstack_probe(ProbeStackArgs<T> a, int sink_len,
                                   int device, cudaStream_t st) {
   auto kernel = encstack_probe_kernel<T, V>;
-  const size_t smem = stack_smem<T>(a.sp, a.d / a.heads);
+  const size_t smem = stack_smem_all<T, T>(a.sp, a.d / a.heads, a.d);
+  if (smem == 0) return cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<T, bf16>) {
+    // K9's conditions and maps, and x's map for the phases without LN.
+    const int m = a.b * a.sp, L = a.layers, d = a.d, mlp = a.mlp;
+    if (mlp % 64 || !aligned16(a.x) || !aligned16(a.ctx) || !a.ws)
+      return cudaErrorInvalidValue;
+    sw::Maps& mp = a.maps;
+    if (!act_map(&mp.x, a.x, m, d) || !act_map(&mp.ctx, a.ctx, m, d) ||
+        !act_map(&mp.hid, a.hid, m, mlp) ||
+        !weight_map<T>(&mp.wqkv, a.wqkv, L * d, 3 * d) ||
+        !weight_map<T>(&mp.wout, a.wout, L * d, d) ||
+        !weight_map<T>(&mp.w1, a.w1, L * d, mlp) ||
+        !weight_map<T>(&mp.w2, a.w2, L * mlp, d))
+      return cudaErrorInvalidValue;
+  }
   int grid = 0;
   cudaError_t err = persistent_grid(kernel, smem, device, &grid);
   if (err != cudaSuccess) return err;
@@ -318,13 +352,15 @@ cudaError_t launch_encstack_probe_typed(void* x, void* qkv, void* ctx,
                       static_cast<T*>(ctx), static_cast<T*>(hid), acc, sink,
                       c(wqkv), c(wout), c(w1), c(w2), c(ones), c(zeros),
                       b, sp, d, mlp, heads, layers, scale, eps};
+  a.ws = static_cast<float*>(qkv);
   return launch_encstack_probe_variant<T>(variant, a, sink_len, device, st);
 }
 
 }  // namespace vit
 
 // x (b*sp, d): the working activation, holding the input and, after the
-// launch, the output; qkv (b*sp, 3d), ctx (b*sp, d), hid (b*sp, mlp) and
+// launch, the output; qkv (b*sp, 3d; in bf16 at least 16 b*sp*d elements,
+// its bytes the split-K workspace too), ctx (b*sp, d), hid (b*sp, mlp) and
 // acc (b*sp, d) fp32 scratch; sink (sink_len,) fp32, zeroed by the
 // caller, at least (grid, L, 4): dma's block sums of wqkv, wout, w1 and w2
 // of each layer (the rows past the grid stay zero); the stacked weights

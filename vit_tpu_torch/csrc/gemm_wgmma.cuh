@@ -138,6 +138,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Whether the phase of parity `parity` of the barrier has completed, tried
+// once (a producer that must not wait on a slot others still hold).
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // Load the box at coordinates (c0 innermost, c1) of `map` into shared
 // memory at `dst`, completing `bytes` of the barrier's transaction count.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,

@@ -36,10 +36,13 @@ EncodeTiledFn encode_tiled() {
 
 // A 2-D tensor map of `type` (elements of `elem` bytes) over the rows x
 // cols row-major matrix at p with leading dimension ld (elements), boxes of
-// box_cols x box_rows, 128-byte swizzle, zeros outside the matrix.
+// box_cols x box_rows, 128-byte swizzle (or none), zeros outside the
+// matrix.
 static bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
                        size_t elem, const void* p, int rows, int cols, int ld,
-                       int box_cols, int box_rows) {
+                       int box_cols, int box_rows,
+                       CUtensorMapSwizzle swizzle =
+                           CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
@@ -49,8 +52,8 @@ static bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(p), dims, strides, box,
-            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -65,6 +68,14 @@ bool tensor_map_i8(CUtensorMap* map, const void* p, int rows, int cols,
                    int ld, int box_cols, int box_rows) {
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p, rows, cols, ld,
                     box_cols, box_rows);
+}
+
+// The int8 map without swizzle (K17's raw boxes: dense rows of box_cols
+// bytes).
+bool tensor_map_i8_dense(CUtensorMap* map, const void* p, int rows, int cols,
+                         int ld, int box_cols, int box_rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p, rows, cols, ld,
+                    box_cols, box_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // Per device: its SM count, and whether each wgmma kernel may use kSmem

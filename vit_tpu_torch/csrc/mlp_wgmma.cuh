@@ -340,16 +340,16 @@ __device__ __forceinline__ void wgmma_ss<192>(float (&d)[96], uint64_t da,
 #undef VIT_MW_F8
 
 // LN(x) of the block's 64 rows into shared memory as D/64 swizzled boxes
-// (rows past m are zeros), by every warp of the block: each lane holds
-// 16-byte chunks lane, lane + 32, ... of the row; fp32 mean, then the
-// centred biased variance (layernorm.py:_stats_kernel), then
+// (rows past m are zeros), by every warp of the block (NT threads): each
+// lane holds 16-byte chunks lane, lane + 32, ... of the row; fp32 mean,
+// then the centred biased variance (layernorm.py:_stats_kernel), then
 // (x - mean) * rstd * g + b rounded to bf16.
-template <int T>
+template <int T, int NT = kThreads>
 __device__ __forceinline__ void ln_rows(const MlpArgs& a, uint8_t* xn,
                                         int m0) {
   constexpr int D = 128 * T, NCH = D / 8, PER = (NCH + 31) / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kBM; r += kThreads / 32) {
+  for (int r = warp; r < kBM; r += NT / 32) {
     const int gr = m0 + r;
     uint4 out[PER];
     if (gr < a.m) {

@@ -1,12 +1,20 @@
 // K9's phase routines, shared by K9 (encoder_stack.cu) and its probe K24
 // (encstack_probe.cu): the shared memory of a persistent block, one GEMM
 // phase (every tile of a product strided over the grid, with K6's LN
-// prologue), and the cooperative launch of a persistent grid.
+// prologue) on gemm_tile.cuh's tile for fp32 and FOLD's patch projection,
+// stack_phase for either type (bf16 on stack_wgmma.cuh's wgmma phases), the
+// tensor maps of the bf16 phases, and the cooperative launch of a
+// persistent grid.
 
 #pragma once
 
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
 #include "attention_core.cuh"
 #include "gemm_tile.cuh"
+#include "stack_wgmma.cuh"
 
 namespace vit {
 
@@ -59,6 +67,73 @@ __device__ __forceinline__ void gemm_phase(const T* x, const W* w, int m,
     gemm_tile<LN>(x, w, m, n, k, m0, n0, vec_x, vec_w,
                   LnPrologue<T>{mu, rstd, ln_g, ln_b, m0}, ep, sm);
   }
+}
+
+// One GEMM phase of K9 or K24 and the grid barrier after it: act(LN(x) @ w)
+// with LN, else x @ w, w the layer's (k, n) slice of a stacked weight,
+// whose first row in the stacked (L*k, n) map is w_row0. fp32 runs
+// gemm_phase (x and w read directly); bf16 runs the wgmma phase (the maps
+// map_x over x and map_w over the stacked weight), split over K when a
+// workspace `ws` is given, whose slices reduce_phase sums after a second
+// barrier.
+template <bool LN, typename T, typename W, typename Ep>
+__device__ __forceinline__ void stack_phase(
+    cooperative_groups::grid_group& grid, unsigned char* smem, const T* x,
+    const W* w, const CUtensorMap* map_x, const CUtensorMap* map_w,
+    int w_row0, int m, int n, int k, const T* ln_g, const T* ln_b, float eps,
+    float* ws, const Ep& ep) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    uint8_t* sm = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
+    sw::wgmma_phase<LN, W>(sm, map_x, x, ln_g, ln_b, eps, map_w, w_row0, m,
+                           n, k, ws, ep);
+    if (!LN && ws) {
+      const int splits = sw::phase_splits(m, n, k);
+      if (splits > 1) {
+        grid.sync();
+        sw::reduce_phase(ws, splits, m, n, ep);
+      }
+    }
+  } else {
+    gemm_phase<LN>(x, w, m, n, k, ln_g, ln_b, eps, ep, smem);
+  }
+  grid.sync();
+}
+
+// The dynamic shared memory of K9 or K24: stack_smem, and for bf16 the
+// wgmma phases' (Layout), 0 where the wgmma phases do not take D.
+template <typename T, typename W>
+inline size_t stack_smem_all(int sp, int dh, int d) {
+  const size_t base = stack_smem<T>(sp, dh);
+  if constexpr (!std::is_same_v<T, bf16>) {
+    return base;
+  } else {
+    if (!sw::Layout<W>::fits(d)) return 0;
+    const size_t ph = sw::Layout<W>::kSmem;
+    return ph > base ? ph : base;
+  }
+}
+
+// Defined in matmul_wgmma.cu: a bf16 or int8 tensor map with 128-byte
+// swizzle over a rows x cols row-major matrix, boxes of box_cols x
+// box_rows.
+bool tensor_map(CUtensorMap* map, const void* p, int rows, int cols, int ld,
+                int box_cols, int box_rows);
+bool tensor_map_i8(CUtensorMap* map, const void* p, int rows, int cols,
+                   int ld, int box_cols, int box_rows);
+
+// A bf16 phase's map over the (rows, cols) activation at p (64 x 64
+// boxes), or over a stacked weight of rows L*K (bf16 64 x 64, int8 128 x
+// 64); false if cuTensorMapEncodeTiled refuses it.
+inline bool act_map(CUtensorMap* map, const void* p, int rows, int cols) {
+  return tensor_map(map, p, rows, cols, cols, 64, 64);
+}
+template <typename W>
+inline bool weight_map(CUtensorMap* map, const void* p, int rows, int cols) {
+  if constexpr (sizeof(W) == 1)
+    return tensor_map_i8(map, p, rows, cols, cols, 128, 64);
+  else
+    return tensor_map(map, p, rows, cols, cols, 64, 64);
 }
 
 // The grid of a cooperative persistent kernel: as many blocks of

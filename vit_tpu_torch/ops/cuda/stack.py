@@ -83,10 +83,27 @@ def _check_attention(sp: int, d: int, num_heads: int,
     return hd
 
 
+#: Slices of K the bf16 kernel may split the out-projection and fc2 into
+#: (``csrc/stack_wgmma.cuh``: ``kMaxSplits``). Their fp32 sums go to the
+#: packed QKV buffer, which no phase reads then, so it is sized for them.
+MAX_SPLITS = 8
+
+
+def qkv_buffer(m: int, d: int, like: torch.Tensor) -> torch.Tensor:
+    """The packed QKV scratch, (m, 3d) at its start; in bf16 with room for
+    the split-K workspace of the wgmma phases, ``MAX_SPLITS`` fp32 slices
+    of (m, d)."""
+    n = 3 * m * d
+    if like.dtype == torch.bfloat16:
+        n = max(n, MAX_SPLITS * m * d * 2)
+    return torch.empty(n, dtype=like.dtype, device=like.device)
+
+
 def _scratch(m: int, d: int, mlp: int, like: torch.Tensor):
-    """The packed QKV, context and MLP hidden buffers."""
+    """The packed QKV (with its workspace), context and MLP hidden
+    buffers."""
     kw = dict(dtype=like.dtype, device=like.device)
-    return (torch.empty((m, 3 * d), **kw), torch.empty((m, d), **kw),
+    return (qkv_buffer(m, d, like), torch.empty((m, d), **kw),
             torch.empty((m, mlp), **kw))
 
 

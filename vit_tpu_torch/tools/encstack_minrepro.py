@@ -187,7 +187,8 @@ class _Scratch:
         kw = dict(dtype=x.dtype, device=x.device)
         f32 = dict(dtype=torch.float32, device=x.device)
         self.device = x.device
-        self.qkv = torch.empty((m, 3 * d), **kw)
+        from vit_tpu_torch.ops.cuda.stack import qkv_buffer
+        self.qkv = qkv_buffer(m, d, x)
         self.ctx = torch.empty((m, d), **kw)
         self.hid = torch.empty((m, mlp), **kw)
         self.acc = torch.empty((m, d), **f32)

@@ -104,15 +104,18 @@ print(json.dumps(res))
 """
 
 
-def make_variant(name: str) -> Path:
-    """The variant's tree under ``OUT``, its sources edited; raises if a
+def make_variant(name: str, variants: dict | None = None,
+                 out: Path = OUT) -> Path:
+    """The variant's tree under ``out``, its sources edited by
+    ``variants[name]`` (this module's ``VARIANTS`` by default); raises if a
     substitution matches nothing (the sources moved on)."""
-    root = OUT / name
+    variants = VARIANTS if variants is None else variants
+    root = out / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(HERE / "vit_tpu_torch", root / "vit_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     csrc = root / "vit_tpu_torch" / "csrc"
-    for glob, pattern, repl in VARIANTS[name]:
+    for glob, pattern, repl in variants[name]:
         hits = 0
         for path in csrc.glob(glob):
             text, n = re.subn(pattern, repl, path.read_text(), flags=re.M)
@@ -123,13 +126,13 @@ def make_variant(name: str) -> Path:
     return root
 
 
-def main(argv: list[str] | None = None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
-                    choices=list(VARIANTS))
-    args = ap.parse_args(argv)
-    names = ["base"] + [v for v in args.variants if v != "base"]
-    roots = {n: make_variant(n) for n in names}
+def run_variants(names: list[str], variants: dict, out: Path,
+                 worker: str) -> list[dict]:
+    """Build every variant's tree at once, then run ``worker`` (a script
+    that prints a JSON line of times) in each, ``base`` first and last;
+    prints a line a run and returns the runs."""
+    names = ["base"] + [v for v in names if v != "base"]
+    roots = {n: make_variant(n, variants, out) for n in names}
     # Every variant's kernels build at once, one process a tree.
     builds = {n: subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
@@ -140,15 +143,24 @@ def main(argv: list[str] | None = None) -> int:
             raise SystemExit(f"variant {n}: the build failed")
     runs = []
     for n in names + ["base"]:
-        out = subprocess.run([sys.executable, "-c", WORKER, str(roots[n])],
+        res = subprocess.run([sys.executable, "-c", worker, str(roots[n])],
                              cwd=roots[n], capture_output=True, text=True,
                              timeout=600)
-        if out.returncode != 0:
-            raise SystemExit(f"variant {n}: {out.stderr[-3000:]}")
-        got = json.loads(out.stdout.strip().splitlines()[-1])
+        if res.returncode != 0:
+            raise SystemExit(f"variant {n}: {res.stderr[-3000:]}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
         runs.append({"variant": n, **got})
         print(f"{n:16s} " + "  ".join(f"{k} {v:.4f} ms" for k, v in
                                       got.items()), flush=True)
+    return runs
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
+                    choices=list(VARIANTS))
+    args = ap.parse_args(argv)
+    runs = run_variants(args.variants, VARIANTS, OUT, WORKER)
     from vit_tpu_torch.tools import card_line
     print(json.dumps({"ablation": runs, "card": card_line()}))
     return 0

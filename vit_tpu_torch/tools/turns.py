@@ -8,19 +8,22 @@ bs=32 (the QKV 6656x768 @ 768x2304 + bias in bf16 and fp32, the backward's
 ``g @ w.t()`` and ``x.t() @ g``, each beside its ``torch`` call), K4's
 bf16 attention core, K6 (LN 4736x1024 @ 1024x3072), K7 (B/16 bs=32 and
 L/16-384 bs=8 on packed QKV views, each beside SDPA, and the int8 tier's
-fp32-output B/16 shape), K8 (``embed_fused``, L/16-384 bs=4), K9
-(``ops.encoder_stack``, B/16 bs=1, 12 layers), K11 (``matmul_i8``, the
+fp32-output B/16 shape), K8 (``embed_fused``, L/16-384 bs=4), K9 (its
+three forms at B/16 bs=1, 12 layers; the fused one beside K24's ``dma``),
+K11 (``matmul_i8``, the
 QKV), K12 (``mlp_block_i8dot`` at B/16 bs=32 and H/14 bs=2, each beside
 its composed K10 -> K11 -> K10 -> K11 chain), K13
 (``ops.flash_attention_bwd``, B/16 bs=32 in bf16 and fp32), K16
 (``matmul3``, the scores, the context and the scores at 200 tokens, each
 beside ``baddbmm``), K22 (``int8_probe.dot``, int8 and bf16), K3 (B/16
 bs=32, L/16-384 bs=8 and the B/16 bs=32 shard over model=2, each beside
-the case's composed K1 -> K2 -> K2 chain) and K18; then the
-B/16 bs=32 bf16 forward on the default route, on ``(flash, fused=False)``
-and on ``(unfused, fused=False)``, the int8 forward (``forward_quant``;
-also at L/16-384 bs=8)
-and the B/16 bs=32 bf16 train step. A checkout whose K2 reads no
+the case's composed K1 -> K2 -> K2 chain), K17 (``mlp_block_q`` at B/16
+bs=32 and its shard over model=2, each beside K3 on the dequantized
+weights) and K18; then the B/16 bs=32 bf16 forward on the default route,
+on ``(flash, fused=False)`` and on ``(unfused, fused=False)``, the int8
+forward (``forward_quant``; also with ``int8_dot=False`` and at L/16-384
+bs=8), the B/16 bs=1 forwards in bf16 and int8 (the stack route, K9) and
+the B/16 bs=32 bf16 train step. A checkout whose K2 reads no
 transposed view (no ``ops.cuda.matmul.gemm_path``) gets contiguous copies
 first, as its backward made them. Trees run in turns (other, this, this,
 other), each in its own process that builds that checkout's kernels into
@@ -100,6 +103,19 @@ CASES = {
                    "B/16 (6656,768)", False),
     "mlp_i8_h14": ("kernel_cases_int8", "bfloat16", "mlp_block_i8dot",
                    "H/14 (544,1280)", False),
+    # K17 at B/16 bs=32 and its shard form over model=2, each beside K3 on
+    # the dequantized weights (the case's composed yardstick); K9's fused
+    # and int8 forms at B/16 bs=1 (the float form is "encoder_stack"), the
+    # fused one beside K24's dma, K9's weight stream alone.
+    "mlp_q_b16": ("kernel_cases_chain", "bfloat16", "mlp_block_q",
+                  "B/16 bs=32", False),
+    "mlp_q_partial_b16": ("kernel_cases_tp", "bfloat16",
+                          "mlp_block_q_partial", "B/16 bs=32 model=2",
+                          False),
+    "encoder_stack_fused": ("kernel_cases_small_batch", "bfloat16",
+                            "encoder_stack_fused", "(1,196,768)", False),
+    "encoder_stack_q": ("kernel_cases_stack_q", "bfloat16",
+                        "encoder_stack_q", "B/16 12 layers", False),
 }
 
 #: Run in a fresh process with the checkout's root, this checkout's
@@ -213,6 +229,14 @@ with torch.inference_mode():
         iters=20)
     res["forward_int8"] = times(lambda: forward_quant(qparams, px, cfg),
                                 iters=20)
+    # K17's route (int8_dot=False) at bs=32, and the stack route at bs=1
+    # (K9: encoder_stack_fused in bf16, encoder_stack_q in int8).
+    res["forward_int8_nodot"] = times(
+        lambda: forward_quant(qparams, px, cfg, int8_dot=False), iters=20)
+    res["forward_bs1"] = times(lambda: forward(params, px[:1], cfg),
+                               iters=20)
+    res["forward_int8_bs1"] = times(
+        lambda: forward_quant(qparams, px[:1], cfg), iters=20)
 del qparams
 # The int8 forward at L/16-384 bs=8 (24 layers, D = 1024: K12 in two
 # passes).
