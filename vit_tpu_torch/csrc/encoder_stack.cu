@@ -19,12 +19,13 @@
 // The phase routines (stack_phase, the persistent launch) are in
 // stack_phase.cuh, which K9's probe K24 (encstack_probe.cu) shares. In bf16
 // the GEMM phases run on stack_wgmma.cuh (wgmma fed by TMA from tensor maps
-// over the stacked weights, LN(x) written to shared memory before the
+// over the stacked weights, LN(x) written once a phase before the
 // products, 64 x 128 items, the out-projection and fc2 split over K in a
 // fixed order; see there); in fp32 on gemm_tile.cuh's FFMA tile, where K6's
 // LN prologue normalises while staging. Per layer:
-//   1. LN1 + QKV. Each item recomputes its rows' LN from the activation,
-//      as the Pallas kernel recomputes LN1 per chunk.
+//   1. LN1 + QKV (bf16: LN1 of every row once, into the context buffer,
+//      then the products read it; the Pallas kernel recomputed LN1 per
+//      chunk).
 //   2. Attention, one work item per (image, head, 64-query tile): the
 //      attention-core routine of K4 (attention_core.cuh), whose row-max
 //      softmax is _encoder_stack_kernel's (block.py:1953-1968).
@@ -64,12 +65,12 @@
 //
 // Bound on the card: at bs <= 2 the weight stream. B/16 bf16 reads
 // 12 x 14.16 MB = 170 MB of weights, a floor of about 51 us at 3.35 TB/s.
-// On an NVIDIA H100 80GB HBM3 at 700 W this kernel takes 2.00 ms at B/16
-// bs=1 in bf16 on the card (2.21 with FOLD, 2.17 on int8 weights; times of
-// queued calls, tools/turns.py), some 40 times the floor: about half is
-// the attention phase (the FFMA core, tools/stack_ablate.py), most of the
-// rest the GEMM phases' LN prologues and their reads of each weight slab
-// from L2 once per 64-row tile.
+// On an NVIDIA H100 80GB HBM3 at 700 W this kernel takes 1.86 ms at B/16
+// bs=1 in bf16 on the card (1.93 with FOLD, 1.90 on int8 weights; times
+// of queued calls, tools/turns.py), some 36 times the floor: 55% is the
+// attention phase (the FFMA core, tools/stack_ablate.py), most of the
+// rest the GEMM phases' reads of each weight slab from L2 once per
+// 64-row tile, their split-K reductions and the LN passes.
 
 #include <cooperative_groups.h>
 
@@ -225,9 +226,10 @@ __global__ void __launch_bounds__(kMmThreads, 1)
     const size_t lv = static_cast<size_t>(l) * D;
     const size_t lm = static_cast<size_t>(l) * a.mlp;
     // 1. LN1 + QKV.
-    stack_phase<true>(grid, smem, a.x, a.wqkv + lv * 3 * D, nullptr,
+    // (bf16: LN(x) into the context buffer, free until the attention.)
+    stack_phase<true>(grid, smem, a.x, a.wqkv + lv * 3 * D, &mp.ctx,
                       &mp.wqkv, l * D, m, 3 * D, D, a.ln1_g + lv,
-                      a.ln1_b + lv, a.eps, nullptr,
+                      a.ln1_b + lv, a.eps, a.ctx, nullptr,
                       BiasAct<T>{a.bqkv + lv * 3, a.qkv, 3 * D, false,
                                  layer_scales(a.sqkv, lv * 3)});
     // 2. Attention.
@@ -244,13 +246,13 @@ __global__ void __launch_bounds__(kMmThreads, 1)
     stack_phase<false>(grid, smem, a.ctx, a.wout + lv * D, &mp.ctx,
                        &mp.wout, l * D, m, D, D,
                        static_cast<const T*>(nullptr),
-                       static_cast<const T*>(nullptr), a.eps, a.ws,
+                       static_cast<const T*>(nullptr), a.eps, nullptr, a.ws,
                        AddResidual<T>{a.bout + lv, a.x, D,
                                       layer_scales(a.sout, lv)});
     // 4. LN2 + fc1 + GELU.
-    stack_phase<true>(grid, smem, a.x, a.w1 + lm * D, nullptr, &mp.w1,
+    stack_phase<true>(grid, smem, a.x, a.w1 + lm * D, &mp.ctx, &mp.w1,
                       l * D, m, a.mlp, D, a.ln2_g + lv, a.ln2_b + lv, a.eps,
-                      nullptr,
+                      a.ctx, nullptr,
                       BiasAct<T>{a.b1 + lm, a.hid, a.mlp, true,
                                  layer_scales(a.s1, lm)});
     // 5. fc2, seeded with x + b2.
@@ -258,7 +260,7 @@ __global__ void __launch_bounds__(kMmThreads, 1)
     stack_phase<false>(grid, smem, a.hid, a.w2 + lm * D, &mp.hid, &mp.w2,
                        l * a.mlp, m, D, a.mlp,
                        static_cast<const T*>(nullptr),
-                       static_cast<const T*>(nullptr), a.eps, a.ws,
+                       static_cast<const T*>(nullptr), a.eps, nullptr, a.ws,
                        SeededResidual<T>{a.b2 + lv, a.x,
                                          last ? a.acc : nullptr, D,
                                          layer_scales(a.s2, lv)});

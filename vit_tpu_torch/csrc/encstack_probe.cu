@@ -35,15 +35,15 @@
 // the layers in one loop, so `@flat` is the same launch here.
 //
 // The GEMM phases are K9's (stack_phase.cuh: in bf16 the wgmma phases of
-// stack_wgmma.cuh, LN(x) written to shared memory before the products, the
-// out-projection and fc2 split over K into the QKV buffer; in fp32
-// gemm_tile's tiles with K6's LN prologue), whose tiles do not depend on
-// JAX's (cq, mt) chunking: the pair changes only the order of the fp32
-// sums. JAX's dots here run in fp32 on fp32 operands (no precision=, so
-// true fp32 on the CPU); on the card the products are those of the
-// tensor's type, whose bf16 products are exact in fp32 -- except lnqkv's
-// QKV, where the JAX kernel feeds the fp32 LN output unrounded and the LN
-// prologue rounds it to the type.
+// stack_wgmma.cuh, LN(x) written once a phase into the context buffer
+// before the products, the out-projection and fc2 split over K into the
+// QKV buffer; in fp32 gemm_tile's tiles with K6's LN prologue), whose
+// tiles do not depend on JAX's (cq, mt) chunking: the pair changes only
+// the order of the fp32 sums. JAX's dots here run in fp32 on fp32
+// operands (no precision=, so true fp32 on the CPU); on the card the
+// products are those of the tensor's type, whose bf16 products are exact
+// in fp32 -- except lnqkv's QKV, where the JAX kernel feeds the fp32 LN
+// output unrounded and the port rounds it to the type.
 //
 // Bound on the card: the weight stream at bs <= 2, as K9: B/16 bf16 reads
 // 12 x 14.16 MB = 170 MB, 51 us at 3.35 TB/s. `dma` is that stream alone:
@@ -216,9 +216,12 @@ __global__ void __launch_bounds__(kMmThreads, 1)
                    slot + 0, red);
       grid.sync();
     } else {
-      stack_phase<kLnQkv>(grid, smem, a.x, a.wqkv + lq, &mp.x, &mp.wqkv,
-                          l * D, m, 3 * D, D, a.ones, a.zeros, a.eps,
-                          nullptr, StoreRounded<T>{a.qkv, 3 * D, false});
+      // With LN, LN(x) goes to the context buffer (free until phase 2).
+      stack_phase<kLnQkv>(grid, smem, a.x, a.wqkv + lq,
+                          kLnQkv ? &mp.ctx : &mp.x, &mp.wqkv, l * D, m,
+                          3 * D, D, a.ones, a.zeros, a.eps,
+                          kLnQkv ? a.ctx : nullptr, nullptr,
+                          StoreRounded<T>{a.qkv, 3 * D, false});
     }
     // 2. Attention.
     if constexpr (V == kVarScratch || V == kVarRows) {
@@ -252,12 +255,13 @@ __global__ void __launch_bounds__(kMmThreads, 1)
                    slot + 1, red);
       grid.sync();
     } else if constexpr (V == kVarNodots || V == kVarLnqkv) {
+      // LN(q) in place in the context buffer, read no more after this.
       stack_phase<true>(grid, smem, a.ctx, a.wout + lo, &mp.ctx, &mp.wout,
-                        l * D, m, D, D, a.ones, a.zeros, a.eps, nullptr,
-                        AddRounded<T>{a.x, D});
+                        l * D, m, D, D, a.ones, a.zeros, a.eps, a.ctx,
+                        nullptr, AddRounded<T>{a.x, D});
     } else if constexpr (V == kVarNosm || V == kVarCore) {
       stack_phase<false>(grid, smem, a.ctx, a.wout + lo, &mp.ctx, &mp.wout,
-                         l * D, m, D, D, none, none, a.eps, a.ws,
+                         l * D, m, D, D, none, none, a.eps, nullptr, a.ws,
                          AddRounded<T>{a.x, D});
     } else {
       grid.sync();
@@ -268,8 +272,10 @@ __global__ void __launch_bounds__(kMmThreads, 1)
                    slot + 2, red);
       grid.sync();
     } else {
-      stack_phase<kLnQkv>(grid, smem, a.x, a.w1 + lm, &mp.x, &mp.w1, l * D,
-                          m, a.mlp, D, a.ones, a.zeros, a.eps, nullptr,
+      stack_phase<kLnQkv>(grid, smem, a.x, a.w1 + lm,
+                          kLnQkv ? &mp.ctx : &mp.x, &mp.w1, l * D, m, a.mlp,
+                          D, a.ones, a.zeros, a.eps,
+                          kLnQkv ? a.ctx : nullptr, nullptr,
                           StoreRounded<T>{a.hid, a.mlp, kLnQkv});
     }
     // 5. fc2 into the running accumulator.
@@ -279,8 +285,8 @@ __global__ void __launch_bounds__(kMmThreads, 1)
       grid.sync();
     } else {
       stack_phase<false>(grid, smem, a.hid, a.w2 + lm, &mp.hid, &mp.w2,
-                         l * a.mlp, m, D, a.mlp, none, none, a.eps, a.ws,
-                         Accumulate<T>{a.acc, a.x, D});
+                         l * a.mlp, m, D, a.mlp, none, none, a.eps, nullptr,
+                         a.ws, Accumulate<T>{a.acc, a.x, D});
     }
   }
 }

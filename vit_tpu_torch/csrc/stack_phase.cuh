@@ -2,9 +2,9 @@
 // (encstack_probe.cu): the shared memory of a persistent block, one GEMM
 // phase (every tile of a product strided over the grid, with K6's LN
 // prologue) on gemm_tile.cuh's tile for fp32 and FOLD's patch projection,
-// stack_phase for either type (bf16 on stack_wgmma.cuh's wgmma phases), the
-// tensor maps of the bf16 phases, and the cooperative launch of a
-// persistent grid.
+// stack_phase for either type (bf16 on stack_wgmma.cuh's LN pass and wgmma
+// phases), the tensor maps of the bf16 phases, and the cooperative launch
+// of a persistent grid.
 
 #pragma once
 
@@ -72,22 +72,32 @@ __device__ __forceinline__ void gemm_phase(const T* x, const W* w, int m,
 // One GEMM phase of K9 or K24 and the grid barrier after it: act(LN(x) @ w)
 // with LN, else x @ w, w the layer's (k, n) slice of a stacked weight,
 // whose first row in the stacked (L*k, n) map is w_row0. fp32 runs
-// gemm_phase (x and w read directly); bf16 runs the wgmma phase (the maps
-// map_x over x and map_w over the stacked weight), split over K when a
-// workspace `ws` is given, whose slices reduce_phase sums after a second
-// barrier.
+// gemm_phase (x and w read directly, K6's LN prologue). bf16 runs the
+// wgmma phase on map_a over its A operand: without LN that is x; with LN,
+// ln_pass first writes LN(x) into xn (map_a's buffer; it may be x) and a
+// grid barrier follows (xn takes nullptr without LN, so it does not take
+// part in deducing T). A workspace `ws` splits the phase over K, and
+// reduce_phase sums the slices after a second barrier.
+template <typename T>
+struct NoDeduce {
+  using type = T;
+};
+
 template <bool LN, typename T, typename W, typename Ep>
 __device__ __forceinline__ void stack_phase(
     cooperative_groups::grid_group& grid, unsigned char* smem, const T* x,
-    const W* w, const CUtensorMap* map_x, const CUtensorMap* map_w,
+    const W* w, const CUtensorMap* map_a, const CUtensorMap* map_w,
     int w_row0, int m, int n, int k, const T* ln_g, const T* ln_b, float eps,
-    float* ws, const Ep& ep) {
+    typename NoDeduce<T>::type* xn, float* ws, const Ep& ep) {
   if constexpr (std::is_same_v<T, bf16>) {
     uint8_t* sm = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
-    sw::wgmma_phase<LN, W>(sm, map_x, x, ln_g, ln_b, eps, map_w, w_row0, m,
-                           n, k, ws, ep);
-    if (!LN && ws) {
+    if (LN) {
+      sw::ln_pass(x, xn, m, k, ln_g, ln_b, eps);
+      grid.sync();
+    }
+    sw::wgmma_phase<W>(sm, map_a, map_w, w_row0, m, n, k, ws, ep);
+    if (ws) {
       const int splits = sw::phase_splits(m, n, k);
       if (splits > 1) {
         grid.sync();
@@ -101,14 +111,15 @@ __device__ __forceinline__ void stack_phase(
 }
 
 // The dynamic shared memory of K9 or K24: stack_smem, and for bf16 the
-// wgmma phases' (Layout), 0 where the wgmma phases do not take D.
+// wgmma phases' (all 227 KB), 0 where they do not take D (whole 64-column
+// steps, the LN pass's 2048 at most).
 template <typename T, typename W>
 inline size_t stack_smem_all(int sp, int dh, int d) {
   const size_t base = stack_smem<T>(sp, dh);
   if constexpr (!std::is_same_v<T, bf16>) {
     return base;
   } else {
-    if (!sw::Layout<W>::fits(d)) return 0;
+    if (d % 64 || d > sw::kMaxK) return 0;
     const size_t ph = sw::Layout<W>::kSmem;
     return ph > base ? ph : base;
   }

@@ -1,6 +1,6 @@
 // K9's bf16 GEMM phases on Hopper's tensor cores (encoder_stack.cu, and
 // its probe K24, encstack_probe.cu): one phase is every tile of
-// act(LN(x) @ W) or of x @ W over a grid of persistent blocks, on bf16
+// LN(x) @ W or x @ W over a grid of persistent blocks, on bf16
 // wgmma fed by TMA from tensor maps over the stacked (L*K, N) weights. It
 // replaces gemm_tile.cuh's unpipelined wmma loop in those phases; FOLD's
 // patch projection (phase 0) and the fp32 kernel keep gemm_tile.cuh.
@@ -21,25 +21,26 @@
 // no phase reads then); after a grid barrier, reduce_phase adds the S
 // slices of each element in ascending order, ((p0 + p1) + p2) + ..., and
 // hands the sum to the phase's epilogue. No atomics: two calls give the
-// same bits, and a row's result does not depend on M. Phases with LN, and
-// any phase given no workspace, run whole (S = 1) and store directly.
+// same bits, and a row's result does not depend on M. A phase given no
+// workspace runs whole (S = 1) and stores directly.
 //
-// LN prologue (QKV and fc1): before the products, all 256 threads write
-// LN(x) of the item's 64 rows into shared memory as bf16 in the K-major,
-// 128-byte-swizzled layout of the A operand (K/64 boxes of 64 rows x 128
-// bytes, as K3's ln_rows writes it): fp32 mean, centred variance,
-// ((x - mean) * rstd) * g + b rounded to bf16 (K6's prologue's arithmetic,
-// rows past M zeros). Then the K loop reads A from there. Without LN, A
-// arrives by TMA with the weights.
+// LN (QKV and fc1): before the products, ln_pass writes LN(x) of every row
+// once, in bf16, into a buffer no phase reads then (K9's context buffer),
+// with layernorm_row's arithmetic (fp32 mean, centred variance, ((x -
+// mean) * rstd) * g + b rounded to bf16); after a grid barrier the phase
+// reads it by TMA into the swizzled A layout, as it reads any A, so
+// nothing is normalised while staged. (A first form wrote LN(x) of each
+// item's 64 rows into shared memory, as K3 does: 18 to 32 items share a
+// row tile, and an item's prologue took twice its 12 K-steps; the pass
+// and its barrier take a tenth of that.)
 //
 // Pipeline. The kernel's block is 256 threads, which the attention phase
 // uses whole, so there is no producer warpgroup: thread 0 keeps a ring of
-// up to 12 stages (the A box, 8 KB, without LN; the B boxes, 16 KB, or the
-// raw int8 box, 8 KB) full ahead of the consumers: 8 stages in the LN
-// phases at D = 768, 9 without. Before each K step it issues every step
-// whose stage both warpgroups have released, without waiting, and waits
-// only for the step its warpgroup takes now; an item's first stages go
-// before its LN prologue. Each warpgroup waits for its stage, issues four
+// up to 12 stages (the A box, 8 KB, and the B boxes, 16 KB, or the raw
+// int8 box, 8 KB) full ahead of the consumers: 9 stages in bf16, 12 with
+// int8 weights. Before each K step it issues every step whose stage both
+// warpgroups have released, without waiting, and waits only for the step
+// its warpgroup takes now. Each warpgroup waits for its stage, issues four
 // m64n64k16 with A K-major and B MN-major (the transpose bit: W read where
 // it lies), waits for them (K3's finding: a group left in flight
 // serialised ptxas's wgmma) and releases the stage. The barriers are
@@ -54,12 +55,10 @@
 // caller's epilogue does (JAX's order).
 //
 // Bound on the card: the weight stream at bs <= 2 (encoder_stack.cu). What
-// the phases still leave (B/16 bs=1 on an H100, clock64 counters of block
-// 0): an LN phase's item spends about twice as long in its LN prologue as
-// in its 12 K-steps, and each item reads its weight slab and its 64 rows
+// the phases still leave: each item reads its weight slab and its 64 rows
 // from L2 (the slab four to seven times over, once per row tile, and the
-// rows once per column tile); the split phases add a reduction pass and a
-// grid barrier.
+// rows once per column tile); the LN and split phases add a pass and a
+// grid barrier each.
 
 #pragma once
 
@@ -89,41 +88,35 @@ constexpr int kThreads = 256;  // the kernel's block
 constexpr int kBox = 8192;     // 64 x 64 bf16
 constexpr int kMaxStages = 12;
 constexpr int kMaxSplits = 8;
-constexpr int kMaxD = 1024;    // LN(x) of 64 rows fits with a ring
 constexpr int kSmemMax = 232448;
 constexpr int kBarBytes = 2 * kMaxStages * 8;
 
 // The tensor maps of a launch (encoded on the host; unused in fp32): the
-// A operands of the phases without LN, and the stacked weights.
+// A operands (x, the context, which also holds LN(x), the hidden), and the
+// stacked weights.
 struct Maps {
   CUtensorMap x, ctx, hid;     // (m, D), (m, D), (m, mlp) bf16, 64 x 64
   CUtensorMap wqkv, wout, w1, w2;  // (L*K, N): bf16 64 x 64, int8 128 x 64
 };
 
-// Shared memory of a phase (bytes from the 1024-aligned base): with LN,
-// LN(x) of the item's rows (ln_k = K columns); for int8 weights the bf16 B
-// buffer the warpgroups convert into (16 KB); the ring, as many stages as
-// the block's 227 KB hold, up to 12; the barriers. A stage is the A box
-// (8 KB, without LN) and the weight boxes (bf16 16 KB, or the raw int8
-// box, 8 KB). The kernel takes all 227 KB, so every phase finds its
-// layout there.
+// Shared memory of a phase (bytes from the 1024-aligned base): for int8
+// weights the bf16 B buffer the warpgroups convert into (16 KB); the ring,
+// as many stages as the block's 227 KB hold, up to 12, a stage the A box
+// (8 KB) and the weight boxes (bf16 16 KB, or the raw int8 box, 8 KB); the
+// barriers. The kernel takes all 227 KB.
 template <typename W>
 struct Layout {
   static constexpr bool kI8 = sizeof(W) == 1;
-  int conv, ring, stage, stages, bars;  // LN(x) at the base
-  __host__ __device__ explicit Layout(int ln_k) {
-    conv = kBM * ln_k * 2;
-    ring = conv + (kI8 ? 2 * kBox : 0);
-    stage = (ln_k ? 0 : kBox) + (kI8 ? kBox : 2 * kBox);
-    const int s = (kSmemMax - 1024 - kBarBytes - ring) / stage;
-    stages = s < kMaxStages ? s : kMaxStages;
-    bars = ring + stages * stage;
-  }
+  static constexpr int kConv = 0;
+  static constexpr int kRing = kI8 ? 2 * kBox : 0;
+  static constexpr int kStage = kBox + (kI8 ? kBox : 2 * kBox);
+  static constexpr int kStagesFit = (kSmemMax - 1024 - kBarBytes - kRing) /
+                                    kStage;
+  static constexpr int kStages =
+      kStagesFit < kMaxStages ? kStagesFit : kMaxStages;
+  static constexpr int kBars = kRing + kStages * kStage;
   static constexpr int kSmem = kSmemMax;
-  // Whether the LN phases of width d fit with two stages at least.
-  __host__ __device__ static bool fits(int d) {
-    return d % 64 == 0 && d <= kMaxD && Layout(d).stages >= 2;
-  }
+  static_assert(kStages >= 2, "two stages at least");
 };
 
 // One phase's shape: M, N, K, the tiles and the split.
@@ -152,142 +145,93 @@ struct Geo {
   }
 };
 
-// LN of rows [m0, m0 + 64) of x (m, k) into the swizzled A boxes at dst,
-// by the block's 8 warps, each 8 rows in two batches of 4: each lane holds
-// 16-byte chunks lane, lane + 32, ... of a row (k <= kMaxD: four at most)
-// and the same chunks of g and b, loaded once for the 8 rows; a batch's
-// loads are all issued before its first row is reduced, so that a warp
-// waits for L2 twice and not once a row. (Reading g and b an element at a
-// time in each row cost K9 a sixth of its time at B/16 bs=1.) The
-// arithmetic is warp_sum's and layernorm_row's: the fp32 mean, the
-// centred biased variance, ((x - mean) * rstd) * g + b rounded to bf16.
-__device__ __forceinline__ void ln_tile(const bf16* x, int m, int k, int m0,
-                                        const bf16* g, const bf16* b,
-                                        float eps, uint8_t* dst) {
-  constexpr int PER = kMaxD / 8 / 32, RB = 4;
-  const int nch = k / 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float gv[PER][8], bv[PER][8];
-#pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    const int ch = lane + 32 * p;
-    uint4 gr = make_uint4(0, 0, 0, 0), br = gr;
-    if (ch < nch) {
-      gr = *reinterpret_cast<const uint4*>(g + 8 * ch);
-      br = *reinterpret_cast<const uint4*>(b + 8 * ch);
-    }
-    const bf16* gh = reinterpret_cast<const bf16*>(&gr);
-    const bf16* bh = reinterpret_cast<const bf16*>(&br);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      gv[p][e] = to_f32(gh[e]);
-      bv[p][e] = to_f32(bh[e]);
-    }
-  }
-  for (int r0 = warp; r0 < kBM; r0 += RB * (kThreads / 32)) {
-    uint4 raw[RB][PER];
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      const int gr = m0 + r0 + i * (kThreads / 32);
-#pragma unroll
-      for (int p = 0; p < PER; ++p) {
-        const int ch = lane + 32 * p;
-        raw[i][p] = make_uint4(0, 0, 0, 0);
-        if (ch < nch && gr < m)
-          raw[i][p] = *reinterpret_cast<const uint4*>(
-              x + static_cast<size_t>(gr) * k + 8 * ch);
-      }
-    }
-    // The batch's four rows reduced side by side (their shuffles
-    // interleaved): a row's chain of two warp sums is latency, and four
-    // rows one after the other took four times as long.
-    auto val = [&](int i, int p, int e) {
-      return to_f32(reinterpret_cast<const bf16*>(&raw[i][p])[e]);
-    };
-    float mean[RB], rstd[RB];
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      float s = 0.f;
-#pragma unroll
-      for (int p = 0; p < PER; ++p)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) s += val(i, p, e);  // zeros past k
-      mean[i] = s;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-      for (int i = 0; i < RB; ++i)
-        mean[i] += __shfl_xor_sync(0xffffffffu, mean[i], o);
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      mean[i] = mean[i] / k;
-      float ss = 0.f;
-#pragma unroll
-      for (int p = 0; p < PER; ++p) {
-        if (lane + 32 * p < nch) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float c = val(i, p, e) - mean[i];
-            ss += c * c;
-          }
-        }
-      }
-      rstd[i] = ss;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-      for (int i = 0; i < RB; ++i)
-        rstd[i] += __shfl_xor_sync(0xffffffffu, rstd[i], o);
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      rstd[i] = rsqrtf(rstd[i] / k + eps);
-      const int r = r0 + i * (kThreads / 32), gr = m0 + r;
-#pragma unroll
-      for (int p = 0; p < PER; ++p) {
-        const int ch = lane + 32 * p;
-        if (ch >= nch) continue;
-        uint32_t o[4] = {0, 0, 0, 0};
-        if (gr < m) {
-#pragma unroll
-          for (int e = 0; e < 8; e += 2) {
-            const __nv_bfloat162 y = __floats2bfloat162_rn(
-                (val(i, p, e) - mean[i]) * rstd[i] * gv[p][e] + bv[p][e],
-                (val(i, p, e + 1) - mean[i]) * rstd[i] * gv[p][e + 1] +
-                    bv[p][e + 1]);
-            o[e / 2] = *reinterpret_cast<const uint32_t*>(&y);
-          }
-        }
-        *reinterpret_cast<uint4*>(dst + (ch / 8) * kBox + r * 128 +
-                                  (((ch % 8) ^ (r % 8)) * 16)) =
-            make_uint4(o[0], o[1], o[2], o[3]);
-      }
-    }
-  }
-}
-
 // Order this thread's generic accesses to shared and global memory before
 // the async proxy's (TMA, wgmma) that follow a barrier.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async;" ::: "memory");
 }
 
-// One GEMM phase: act(LN(x) @ W) with LN, else a @ W with a through map_a;
-// W the K rows from w_row0 of the stacked map_w. Every element inside
-// (m, n) goes to ep.store(row, col, sum) once, or, split, to ws as a slice
-// for reduce_phase. All 256 threads of every block call it together.
-template <bool LN, typename W, typename Ep>
+// LN of the m rows of x (m, k) into xn, rounded to bf16, a row a warp over
+// the grid, with layernorm_row's arithmetic (fp32 mean, centred variance,
+// ((x - mean) * rstd) * g + b). A lane holds 16-byte chunks lane, lane +
+// 32, ... of its row (k a multiple of 8 up to kMaxK), so the row is read
+// once; xn may be x itself (the row is in registers before it is written).
+// The phase that reads xn by TMA follows a grid barrier.
+constexpr int kMaxK = 2048;
+__device__ __forceinline__ void ln_pass(const bf16* x, bf16* xn, int m,
+                                        int k, const bf16* g, const bf16* b,
+                                        float eps) {
+  constexpr int PER = kMaxK / 8 / 32;
+  const int warps = gridDim.x * (kThreads / 32), lane = threadIdx.x % 32;
+  const int nch = k / 8;
+  for (int r = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; r < m;
+       r += warps) {
+    const bf16* xr = x + static_cast<size_t>(r) * k;
+    bf16* outr = xn + static_cast<size_t>(r) * k;
+    float v[PER][8];
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int ch = lane + 32 * p;
+      uint4 raw = make_uint4(0, 0, 0, 0);
+      if (ch < nch) raw = *reinterpret_cast<const uint4*>(xr + 8 * ch);
+      const bf16* h = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[p][e] = to_f32(h[e]);
+        s += v[p][e];  // zeros past k
+      }
+    }
+    const float mean = warp_sum(s) / k;
+    float ss = 0.f;
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      if (lane + 32 * p < nch) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float c = v[p][e] - mean;
+          ss += c * c;
+        }
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(ss) / k + eps);
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int ch = lane + 32 * p;
+      if (ch >= nch) continue;
+      const uint4 gr = *reinterpret_cast<const uint4*>(g + 8 * ch);
+      const uint4 br = *reinterpret_cast<const uint4*>(b + 8 * ch);
+      const bf16* gh = reinterpret_cast<const bf16*>(&gr);
+      const bf16* bh = reinterpret_cast<const bf16*>(&br);
+      uint32_t o[4];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        const __nv_bfloat162 y = __floats2bfloat162_rn(
+            (v[p][e] - mean) * rstd * to_f32(gh[e]) + to_f32(bh[e]),
+            (v[p][e + 1] - mean) * rstd * to_f32(gh[e + 1]) +
+                to_f32(bh[e + 1]));
+        o[e / 2] = *reinterpret_cast<const uint32_t*>(&y);
+      }
+      *reinterpret_cast<uint4*>(outr + 8 * ch) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  }
+  fence_proxy_async();  // TMA reads xn next
+}
+
+// One GEMM phase: a @ W, a through map_a, W the K rows from w_row0 of the
+// stacked map_w. Every element inside (m, n) goes to ep.store(row, col,
+// sum) once, or, split, to ws as a slice for reduce_phase. All 256 threads
+// of every block call it together.
+template <typename W, typename Ep>
 __device__ __forceinline__ void wgmma_phase(
-    uint8_t* sm, const CUtensorMap* map_a, const bf16* x, const bf16* ln_g,
-    const bf16* ln_b, float eps, const CUtensorMap* map_w, int w_row0, int m,
-    int n, int k, float* ws, const Ep& ep) {
+    uint8_t* sm, const CUtensorMap* map_a, const CUtensorMap* map_w,
+    int w_row0, int m, int n, int k, float* ws, const Ep& ep) {
   using L = Layout<W>;
-  const L lay(LN ? k : 0);
   const uint32_t base = smem_u32(sm);
-  const uint32_t full0 = base + lay.bars, empty0 = full0 + 8 * kMaxStages;
-  const int S = lay.stages;
-  const Geo geo(m, n, k, !LN && ws != nullptr);
+  const uint32_t full0 = base + L::kBars, empty0 = full0 + 8 * kMaxStages;
+  constexpr int S = L::kStages;
+  const Geo geo(m, n, k, ws != nullptr);
   const int wgi = threadIdx.x / 128, t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
 
@@ -323,12 +267,12 @@ __device__ __forceinline__ void wgmma_phase(
       if (!wait && !wg::mbar_try(empty0 + 8 * st, parity)) return;
       mbar_wait(empty0 + 8 * st, parity);
       const uint32_t full = full0 + 8 * st;
-      const uint32_t sa = base + lay.ring + st * lay.stage;
-      const uint32_t sb = sa + (LN ? 0 : kBox);
-      // A (8 KB) without LN; B as two bf16 boxes, or one raw int8 box of
-      // 64 x 128 codes (8 KB).
-      mbar_expect_tx(full, (LN ? 0 : kBox) + (L::kI8 ? kBox : 2 * kBox));
-      if (!LN) tma_load(sa, map_a, full, p_kb * kBK, rt * kBM);
+      const uint32_t sa = base + L::kRing + st * L::kStage;
+      const uint32_t sb = sa + kBox;
+      // A (8 KB); B as two bf16 boxes, or one raw int8 box of 64 x 128
+      // codes (8 KB).
+      mbar_expect_tx(full, L::kStage);
+      tma_load(sa, map_a, full, p_kb * kBK, rt * kBM);
       const int wr = w_row0 + p_kb * kBK;
       if constexpr (L::kI8) {
         tma_load(sb, map_w, full, nt * kBN, wr);
@@ -350,15 +294,6 @@ __device__ __forceinline__ void wgmma_phase(
     int rt, nt, s, lo, hi;
     geo.item(i, rt, nt, s, lo, hi);
     const int m0 = rt * kBM, n0 = nt * kBN;
-    if constexpr (LN) {
-      if (threadIdx.x == 0) produce(nc + S, false);
-      __syncwarp();
-      __syncthreads();  // the previous item's readers of LN(x) are done
-      ln_tile(x, m, k, m0, ln_g, ln_b, eps, sm);
-      // wgmma reads LN(x) through the async proxy.
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      __syncthreads();
-    }
     float acc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] = 0.f;
@@ -370,10 +305,10 @@ __device__ __forceinline__ void wgmma_phase(
       __syncwarp();
       const int st = nc % S;
       mbar_wait(full0 + 8 * st, (nc / S) & 1);
-      const uint32_t sa = base + lay.ring + st * lay.stage;
-      const uint32_t wbox = sa + (LN ? 0 : kBox);  // the weight boxes
+      const uint32_t sa = base + L::kRing + st * L::kStage;
+      const uint32_t wbox = sa + kBox;  // the weight boxes
       const uint32_t sb =
-          (L::kI8 ? base + lay.conv : wbox) + wgi * kBox;  // this wg's B
+          (L::kI8 ? base + L::kConv : wbox) + wgi * kBox;  // this wg's B
       if constexpr (L::kI8) {
         // This warpgroup's 64 columns of the raw box into its half of the
         // conversion buffer (free: its previous wgmma has completed).
@@ -388,7 +323,7 @@ __device__ __forceinline__ void wgmma_phase(
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         asm volatile("bar.sync %0, 128;" ::"r"(1 + wgi) : "memory");
       }
-      const uint32_t xa = LN ? base + kb * kBox : sa;
+      const uint32_t xa = sa;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)

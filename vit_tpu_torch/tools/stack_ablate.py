@@ -9,17 +9,19 @@ than its own duration where it overlaps other work). The variants:
 
 - ``no_attention``: K9's attention phase computes nothing (its barrier
   stays);
-- ``no_gemm``: K9's bf16 GEMM phases do nothing (the barriers, the
-  split-K reductions, FOLD's phase 0 and the final LN stay);
+- ``no_gemm``: K9's bf16 GEMM phases do nothing (the LN passes, the
+  barriers, the split-K reductions, FOLD's phase 0 and the final LN
+  stay);
 - ``no_mma``: K9's GEMM phases issue no ``wgmma`` (the TMA ring, the LN
-  prologue and the epilogues stay);
-- ``no_ln``: K9's LN prologue is not written (the products read stale
-  shared memory);
+  pass and the epilogues stay);
+- ``no_ln``: K9's LN pass writes nothing (the products read the stale
+  context buffer; its barrier stays);
 - ``no_reduce``: K9's split-K reductions and their barriers are skipped;
 - ``no_fence``: K9's global proxy fences (around the phases, after the
   attention) are empty;
-- ``only_barriers``: K9 without its attention, GEMM phases and split-K
-  reductions: its grid barriers, FOLD's phase 0 and the final LN;
+- ``only_barriers``: K9 without its attention, LN passes, GEMM phases
+  and split-K reductions: its grid barriers, FOLD's phase 0 and the
+  final LN;
 - ``no_split``: K9's out-projection and fc2 run whole (S = 1), stored
   directly;
 - ``no_convert``: K17's warpgroups convert nothing (they still take and
@@ -52,12 +54,12 @@ VARIANTS = {
     "base": [],
     "no_attention": [("encoder_stack.cu", r"^(\s*)attention_tile<T>\(",
                       r"\1if (a.b < 0) attention_tile<T>(")],
-    "no_gemm": [("stack_phase.cuh", r"^(\s*)sw::wgmma_phase<LN, W>\(",
-                 r"\1if (m < 0) sw::wgmma_phase<LN, W>(")],
+    "no_gemm": [("stack_phase.cuh", r"^(\s*)sw::wgmma_phase<W>\(",
+                 r"\1if (m < 0) sw::wgmma_phase<W>(")],
     "no_mma": [("stack_wgmma.cuh", r"^(\s*)mw::wgmma_ss<64>\(acc,",
                 r"\1if (m < 0) mw::wgmma_ss<64>(acc,")],
-    "no_ln": [("stack_wgmma.cuh", r"^(\s*)ln_tile\(x, m, k, m0,",
-               r"\1if (m < 0) ln_tile(x, m, k, m0,")],
+    "no_ln": [("stack_phase.cuh", r"^(\s*)sw::ln_pass\(",
+               r"\1if (m < 0) sw::ln_pass(")],
     "no_reduce": [("stack_phase.cuh", r"if \(splits > 1\) \{",
                    "if (splits < 0) {")],
     "no_fence": [("stack_wgmma.cuh", r'asm volatile\("fence\.proxy\.async;"',
@@ -65,8 +67,10 @@ VARIANTS = {
     "only_barriers": [
         ("encoder_stack.cu", r"^(\s*)attention_tile<T>\(",
          r"\1if (a.b < 0) attention_tile<T>("),
-        ("stack_phase.cuh", r"^(\s*)sw::wgmma_phase<LN, W>\(",
-         r"\1if (m < 0) sw::wgmma_phase<LN, W>("),
+        ("stack_phase.cuh", r"^(\s*)sw::wgmma_phase<W>\(",
+         r"\1if (m < 0) sw::wgmma_phase<W>("),
+        ("stack_phase.cuh", r"^(\s*)sw::ln_pass\(",
+         r"\1if (m < 0) sw::ln_pass("),
         ("stack_phase.cuh", r"if \(splits > 1\) \{", "if (splits < 0) {")],
     "no_split": [("stack_wgmma.cuh",
                   r"int s = split \? static_cast<int>\(gridDim.x\) / tiles",
