@@ -464,6 +464,24 @@ def gemm_faults(torch, run, a, k_axis: int, start: int = 1024,
             f"K {start}-{start + width - 1} skipped": skip_step}
 
 
+def k6_case(torch, ops, x, w, bias, g, beta, e, kind, *,
+            primary: bool = True) -> dict:
+    """K6 with LN, ``act(LN(x) @ w + bias)``: its bar holds to
+    ``gemm_faults`` (one 64-deep K step skipped by zeroing rows 512-575 of
+    w, where the LN stats stay as they are), and it is timed beside the
+    same function as K1 -> K2, two of the port's kernels."""
+    m, k = x.shape
+    n = w.shape[1]
+    return case(
+        "fused_linear", f"LN ({m},{k})@({k},{n})+bias",
+        lambda impl: ops.fused_linear(x, w, bias, ln_scale=g, ln_bias=beta,
+                                      impl=impl),
+        gemm_work(m, k, n, e, kind), primary=primary,
+        faults=gemm_faults(torch, lambda wt: ops.fused_linear(
+            x, wt, bias, ln_scale=g, ln_bias=beta), w, 0, start=512),
+        composed=lambda: ops.matmul(ops.layernorm(x, g, beta), w, bias))
+
+
 def mlp_faults(torch, run, x, b2, w2, *, partial: bool,
                width: int = 64) -> dict:
     """Two planted faults of a K3 or K12 case whose kernel is ``run(w2,
@@ -515,10 +533,16 @@ def mlp_q_beside_k3(torch, ops, args, *, partial: bool = False):
 
 def stack_faults(torch, run, enc, *, layer: int = 5, start: int = 1536,
                  width: int = 512, quantized: bool = False) -> dict:
-    """A planted fault of a K9 case whose kernel is ``run(enc)``: the K
-    slice ``start`` .. ``start + width - 1`` of layer ``layer``'s fc2
-    weight zeroed (``q``'s codes for int8), one slice of fc2's split over
-    K at B/16 bs=1: each form's bar must refuse it."""
+    """Two planted faults of a K9 case whose kernel is ``run(enc)`` and
+    whose plain version is ``run(enc, "torch")``, each of which its bar
+    must refuse: the K slice ``start`` .. ``start + width - 1`` of layer
+    ``layer``'s fc2 weight zeroed (``q``'s codes for int8), one slice of
+    fc2's split over K at B/16 bs=1, through the kernel; and an attention
+    phase that writes one query tile's context one tile off: rows 64-127
+    of every head's context taking rows 128-191's, in every layer,
+    planted in the plain version's ``reference.attention_core`` (the
+    kernel's phase cannot be reached from outside). One head's tile in
+    one layer moves the output less than the model bar at these weights."""
     def cut():
         fc2 = dict(enc["fc2"])
         if quantized:
@@ -530,7 +554,25 @@ def stack_faults(torch, run, enc, *, layer: int = 5, start: int = 1536,
             w[layer, start:start + width].zero_()
             fc2["kernel"] = w
         return run({**enc, "fc2": fc2})
-    return {f"layer {layer} fc2 K {start}-{start + width - 1} zeroed": cut}
+
+    def shifted():
+        from vit_tpu_torch.ops import reference
+        core = reference.attention_core
+
+        def faulty(qkv, *, batch, num_heads, scale, seq_len):
+            out = core(qkv, batch=batch, num_heads=num_heads, scale=scale,
+                       seq_len=seq_len)
+            o = out.view(batch, qkv.shape[0] // batch, -1)
+            o[:, 64:128] = o[:, 128:192].clone()
+            return out
+        reference.attention_core = faulty
+        try:
+            return run(enc, "torch")
+        finally:
+            reference.attention_core = core
+    return {f"layer {layer} fc2 K {start}-{start + width - 1} zeroed": cut,
+            "query tile 1's context written from tile 2, every layer":
+                shifted}
 
 
 def stack_dma(torch, enc, b: int, dtype):
@@ -893,6 +935,9 @@ def kernel_cases(torch, dtype):
              lambda impl: ops.matmul(x, wqkv, bqkv, impl=impl),
              gemm_work(m, d, 3 * d, e, kind),
              library=lambda: torch.addmm(bqkv, x, wqkv)),
+        # K6 at the B/16 train step's LN1 + QKV (its forward and remat),
+        # beside K1 -> K2 on the same operands.
+        k6_case(torch, ops, x, wqkv, bqkv, g, beta, e, kind, primary=False),
         # K3's bar refuses two planted faults; its second yardstick is the
         # same MLP as K1 -> K2 -> K2.
         case("mlp_block", f"({m},{d}) mlp {mlp}",
@@ -953,10 +998,7 @@ def kernel_cases_l16_384(torch, dtype):
              lambda impl: ops.fused_linear(x, w_dd, b_d, residual=x,
                                            impl=impl),
              gemm_work(m, d, d, e, kind, residual=True), primary=False),
-        case("fused_linear", f"LN ({m},{d})@({d},{3 * d})+bias",
-             lambda impl: ops.fused_linear(x, wqkv, bqkv, ln_scale=g,
-                                           ln_bias=beta, impl=impl),
-             gemm_work(m, d, 3 * d, e, kind)),
+        k6_case(torch, ops, x, wqkv, bqkv, g, beta, e, kind),
         case("flash_attention", f"packed qkv B={b} H={heads} S={sp} "
              f"seq_len {s} d={hd}",
              lambda impl: ops.flash_attention(q, k, v, scale=hd ** -0.5,
@@ -1027,16 +1069,18 @@ def kernel_cases_small_batch(torch, dtype):
         x[:, 197:] = 0
         patches = rnd(b, 196, 768)
         work = _stack_work(b, 208, 197, 768, 3072, 12, 12, e, kind)
-        # Each form's bar refuses a zeroed K slice of one layer's fc2; at
-        # bs=1 each is timed beside K24's dma, its weight stream alone.
+        # Each form's bar refuses a zeroed K slice of one layer's fc2 and
+        # a query tile's context written one tile off; at bs=1 each is
+        # timed beside K24's dma, its weight stream alone.
         dma = stack_dma(torch, p["encoder"], b, dtype) if b == 1 else None
         cases.append(case("encoder_stack", f"B/16 12 layers ({b},208,768)",
                           lambda impl, x=x: ops.encoder_stack(
                               x, p["encoder"], impl=impl, **kw),
                           work, primary=b == 1,
                           faults=stack_faults(
-                              torch, lambda enc, x=x: ops.encoder_stack(
-                                  x, enc, **kw), p["encoder"]),
+                              torch, lambda enc, impl=None, x=x:
+                              ops.encoder_stack(x, enc, impl=impl, **kw),
+                              p["encoder"]),
                           composed=dma))
         nbytes, ops_, _ = work
 
@@ -1222,8 +1266,9 @@ def kernel_cases_stack_q(torch, dtype):
                         dtype.itemsize, _kind(torch, dtype), w_e=1),
             check=check, primary=variant == "B/16",
             faults=stack_faults(
-                torch, lambda enc, x=x, kw=kw: ops.encoder_stack_q(
-                    x, enc, **kw), qenc, quantized=True)))
+                torch, lambda enc, impl=None, x=x, kw=kw:
+                ops.encoder_stack_q(x, enc, impl=impl, **kw), qenc,
+                quantized=True)))
     return cases
 
 

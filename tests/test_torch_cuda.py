@@ -269,12 +269,22 @@ def test_torch_cuda_layernorm_stats(gen, dtype, rows, d):
         assert ((g - w).abs() <= 1e-5 * (1 + w.abs())).all()
 
 
+#: The bf16 tile K6 runs each case of test_torch_cuda_fused_linear_ragged
+#: on (``gemm_path``'s rule: N = 100 and 9 are not multiples of 8).
+K6_TILES = {(37, 200, 100): "wmma", (130, 1024, 3072): "wgmma",
+            (5, 24, 9): "wmma", (300, 520, 264): "wgmma"}
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,k,n", [(37, 200, 100), (130, 1024, 3072),
-                                   (5, 24, 9)])
+                                   (5, 24, 9), (300, 520, 264)])
 def test_torch_cuda_fused_linear_ragged(gen, dtype, m, k, n):
-    """Every flag combination; K=200 with LN is the zero-fill trap."""
+    """Every flag combination; K=200 and 520 with LN are the zero-fill
+    trap (K ends inside a 64-deep step). bf16 runs on both tiles: each
+    case asserts the one ``vit_fused_linear`` picks, which is
+    ``gemm_path``'s; with LN two calls agree bit for bit."""
     from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import matmul as cuda_matmul
 
     x = _rnd(gen, dtype, m, k, std=1.5, mean=0.3)
     w = _rnd(gen, dtype, k, n, std=0.05)
@@ -282,14 +292,21 @@ def test_torch_cuda_fused_linear_ragged(gen, dtype, m, k, n):
     g = _rnd(gen, dtype, k, std=0.1, mean=1.0)
     beta = _rnd(gen, dtype, k, std=0.2)
     r = _rnd(gen, dtype, m, n)
+    tile = K6_TILES[m, k, n] if dtype == torch.bfloat16 else "ffma"
+    assert cuda_matmul.fused_linear_tile(x, w) == tile
+    assert cuda_matmul.fused_linear_path(x, w) == tile
     for bias, act, ln, res in ((None, None, False, None),
                                (b, None, True, None), (b, "gelu", True, None),
                                (b, None, False, r), (b, "gelu", True, r),
                                (None, None, True, r)):
         kw = dict(ln_scale=g if ln else None, ln_bias=beta if ln else None,
                   residual=res)
-        _close(ops.fused_linear(x, w, bias, act, impl="cuda", **kw),
-               ops.fused_linear(x, w, bias, act, impl="torch", **kw))
+        got = ops.fused_linear(x, w, bias, act, impl="cuda", **kw)
+        _close(got, ops.fused_linear(x, w, bias, act, impl="torch", **kw))
+        if ln:
+            again = ops.fused_linear(x, w, bias, act, impl="cuda", **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -505,6 +522,86 @@ def test_torch_cuda_encoder_stack(gen, dtype, b):
                                               impl="torch", **fkw))
     assert torch.equal(got, ops.encoder_stack_fused(
         patches, enc, wemb, base, lnf, impl="cuda", **fkw))
+
+
+@pytest.mark.parametrize("heads,sp,seq_len", [
+    (12, 416, 401),  # two 60 KB regions do not fit: 128-row tiles
+    (24, 208, 197),  # head width 32: the core's two-step form
+    (8, 208, 197),   # 96: the eight-step form, two steps skipped
+    (6, 208, 197)])  # 128: the eight-step form
+def test_torch_cuda_encoder_stack_attention_geometries(gen, heads, sp,
+                                                       seq_len):
+    """K9's bf16 attention phase (``attention_phase`` on the tensor-core
+    core) at D = 768 beyond B/16's geometry, two layers, b = 1: the whole
+    block on 128-row tiles where two halves' regions do not fit, and the
+    2-, 4- and 8-step forms of the core; against the plain version at the
+    model bar, two calls bit for bit."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda.stack import attention_groups
+
+    assert attention_groups(sp, 768 // heads) == (1 if sp == 416 else 2)
+    enc, x = _stack_inputs(gen, torch.bfloat16, 1, d=768, heads=heads,
+                           mlp=3072, layers=2, n=sp - 1, k=768, sp=sp,
+                           wstd=(128 / 768) ** 0.5)[:2]
+    kw = dict(num_heads=heads, seq_len=seq_len)
+    got = ops.encoder_stack(x, enc, impl="cuda", **kw)
+    _close_model(got, ops.encoder_stack(x, enc, impl="torch", **kw))
+    assert torch.equal(got, ops.encoder_stack(x, enc, impl="cuda", **kw))
+
+
+def _f32_tree(t):
+    if isinstance(t, dict):
+        return {k: _f32_tree(v) for k, v in t.items()}
+    return t if t.dtype in (torch.int8, torch.float32) else t.float()
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_torch_cuda_encoder_stack_unscaled_weights_vs_fp32(gen, b):
+    """K9's three forms at B/16's width and 208 tokens, two layers, with
+    the 128-wide cases' weight spreads unscaled (``wstd=1``: std 0.06 at a
+    fan-in of 768, where test_torch_cuda_encoder_stack_bf16_wgmma scales
+    them): each form, and its plain version in bf16, held to an fp32 plain
+    run of the same weights and inputs. The kernel may be no further from
+    fp32 than its plain version (1.25x its relative distance + 1e-4, as
+    ``chip_smoke.py`` holds K9 on int8 weights); the distances print with
+    ``-s``."""
+    from vit_tpu_torch import ops
+
+    enc, x, patches, wemb, base, lnf = _stack_inputs(
+        gen, torch.bfloat16, b, d=768, heads=12, mlp=3072, layers=2, n=196,
+        k=768, sp=208)
+    kw = dict(num_heads=12, seq_len=197)
+    fkw = dict(kw, sp=208)
+    qenc = _quantized(enc)
+    forms = {
+        "encoder_stack": lambda e, impl, f32=False: ops.encoder_stack(
+            x.float() if f32 else x, e, impl=impl, **kw),
+        "encoder_stack_fused": lambda e, impl, f32=False:
+            ops.encoder_stack_fused(
+                *((patches.float(), e, wemb.float(), base.float(),
+                   _f32_tree(lnf)) if f32 else
+                  (patches, e, wemb, base, lnf)), impl=impl, **fkw),
+        "encoder_stack_q": lambda e, impl, f32=False: ops.encoder_stack_q(
+            x.float() if f32 else x, e, impl=impl, **kw)}
+    for name, run in forms.items():
+        weights = qenc if name == "encoder_stack_q" else enc
+        truth = run(_f32_tree(weights), "torch", True)
+        got = run(weights, "cuda")
+        plain = run(weights, "torch")
+        torch.cuda.synchronize()
+        kd, pd = _rel(got, truth), _rel(plain, truth)
+        km = float((got.float() - truth).abs().max())
+        pm = float((plain.float() - truth).abs().max())
+        print(f"C2 b={b} {name}: kernel vs fp32 rel {kd:.6g} max {km:.6g}; "
+              f"plain vs fp32 rel {pd:.6g} max {pm:.6g}; "
+              f"kernel vs plain max "
+              f"{float((got.float() - plain.float()).abs().max()):.6g}")
+        assert torch.isfinite(got.float()).all()
+        assert kd <= 1.25 * pd + 1e-4, (name, kd, pd)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -334,3 +334,194 @@ def test_backward_hands_k2_transposed_views(monkeypatch, fn):
             (xo.data_ptr(), wo.data_ptr()),
             (tuple(xo.stride()), tuple(wo.stride())))
         assert path == "wgmma"
+
+
+# ------------------------------------------------------------------ K6 --
+#
+# K6 ``fused_linear`` in bf16 on the same tile (``gemm_wgmma.cuh`` with
+# ``kLnSmem``): x's raw box arrives by TMA (zeros past M and K), each
+# consumer warpgroup normalises its 64 rows of it in place in fp32 with
+# the rows' mu and rstd (K5's) and the step's gamma and beta, rounded to
+# bf16, and ``wgmma`` reads it by descriptor as K2 reads x; columns past K
+# are exact zeros.
+
+K6_KB = 64  # kBK: one K step, one 128-byte box row of bf16
+
+
+def k6_a_box(x, mu, rstd, gamma, beta, m0: int, k0: int) -> torch.Tensor:
+    """The A values of K6's K step at (m0, k0), as the kernel hands them
+    to wgmma: TMA's box of x (zeros past M and K) normalised in fp32,
+    ``((x - mu) * rstd) * gamma + beta``, rounded to bf16; rows past M take
+    mu = rstd = 0; columns past K are set to zero (gamma and beta are not
+    read there)."""
+    m, k = x.shape
+    rows = min(BM, m - m0)
+    mt, rt = torch.zeros(BM), torch.zeros(BM)
+    mt[:rows], rt[:rows] = mu[m0:m0 + rows], rstd[m0:m0 + rows]
+    raw = _box(x, m0, k0, BM, K6_KB).float()
+    cols = torch.arange(k0, k0 + K6_KB)
+    inside = cols < k
+    g, b = torch.zeros(K6_KB), torch.zeros(K6_KB)
+    g[inside] = gamma[cols[inside]].float()
+    b[inside] = beta[cols[inside]].float()
+    a = (raw - mt[:, None]) * rt[:, None] * g + b
+    a[:, ~inside] = 0.0
+    return a.to(torch.bfloat16)
+
+
+def k6_tiles(x, w, gamma, beta, bias=None, activation=None, residual=None,
+             *, eps=1e-12) -> torch.Tensor:
+    """K6's walk on x (M, K) and w (K, N), contiguous bf16: K5's stats,
+    then :func:`k2_tiles`'s tiles and k16 slices with A from
+    :func:`k6_a_box`."""
+    m, k = x.shape
+    n = w.shape[1]
+    mu, rstd = reference.layernorm_stats(x, eps=eps)
+    mu, rstd = mu.reshape(-1), rstd.reshape(-1)
+    out = torch.empty((m, n), dtype=x.dtype)
+    written = torch.zeros((m, n), dtype=torch.int32)
+    for tiles in tile_schedule(m, n, 128):
+        for m0, n0 in tiles:
+            acc = torch.zeros((BM, 128), dtype=torch.float32)
+            for k0 in range(0, k, K6_KB):
+                a = k6_a_box(x, mu, rstd, gamma, beta, m0, k0)
+                wb = _box(w, k0, n0, K6_KB, 128)
+                for kk in range(0, K6_KB, K16):
+                    acc += a[:, kk:kk + K16].float() @ wb[kk:kk + K16].float()
+            rows, cols = min(BM, m - m0), min(128, n - n0)
+            v = acc[:rows, :cols]
+            if bias is not None:
+                v = v + bias[n0:n0 + cols].float()
+            if activation == "gelu":
+                v = reference.gelu(v)
+            if residual is not None:
+                v = v + residual[m0:m0 + rows, n0:n0 + cols].float()
+            out[m0:m0 + rows, n0:n0 + cols] = v.to(x.dtype)
+            written[m0:m0 + rows, n0:n0 + cols] += 1
+    assert (written == 1).all()
+    return out
+
+
+def _k6_inputs(m, k, n, seed=21, beta_std=0.2):
+    rng = np.random.default_rng(seed)
+    arrays = {"x": 0.3 + 1.5 * rng.standard_normal((m, k)),
+              "w": 0.05 * rng.standard_normal((k, n)),
+              "bias": 0.1 * rng.standard_normal(n),
+              "gamma": 1.0 + 0.1 * rng.standard_normal(k),
+              "beta": beta_std * rng.standard_normal(k),
+              "res": rng.standard_normal((m, n))}
+    tens = {name: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+            for name, a in arrays.items()}
+    return arrays, tens
+
+
+@pytest.mark.parametrize("m,k,n", [(200, 72, 136), (37, 200, 264),
+                                   (130, 520, 96)])
+@pytest.mark.parametrize("epilogue", ["bias", "bias_gelu", "bias_residual",
+                                      "gelu_residual"])
+def test_k6_tiles_match_reference_and_pallas(m, k, n, epilogue):
+    """Ragged M, N and K (K not a multiple of 64; multiples of 8, as the
+    wgmma tile takes them), with and without GELU and a residual, against
+    ``reference.fused_linear`` and JAX's Pallas ``fused_linear`` in
+    interpret mode, at the kernel bar."""
+    arrays, t = _k6_inputs(m, k, n)
+    act = "gelu" if "gelu" in epilogue else None
+    bias = t["bias"] if "bias" in epilogue else None
+    res = t["res"] if "residual" in epilogue else None
+    got = k6_tiles(t["x"], t["w"], t["gamma"], t["beta"], bias, act, res)
+    _close(got, reference.fused_linear(
+        t["x"], t["w"], bias, act, ln_scale=t["gamma"], ln_bias=t["beta"],
+        residual=res), "bfloat16")
+
+    def j(name):
+        return jnp.asarray(t[name].float().numpy(), jnp.bfloat16)
+    want = pallas_matmul.fused_linear(
+        j("x"), j("w"), None if bias is None else j("bias"), act,
+        ln_scale=j("gamma"), ln_bias=j("beta"),
+        residual=None if res is None else j("res"), interpret=True)
+    _close(got, want, "bfloat16")
+
+
+def test_k6_columns_past_k_are_zeros():
+    """K = 200 ends inside the fourth 64-deep step. TMA fills x's box with
+    zeros past K, and a zero would normalise to ``beta - mu * rstd *
+    gamma`` with any gamma and beta there (``gemm_tile.cuh`` zero-fills
+    after normalising for this reason); the kernel sets the A values past K
+    to 0 and reads no gamma or beta there. The walk holds the bar with a
+    large beta, and the last step's A values past K are 0 at every row,
+    the rows past M included, so no NaN or inf can reach the products."""
+    arrays, t = _k6_inputs(130, 200, 264, beta_std=3.0)
+    _close(k6_tiles(t["x"], t["w"], t["gamma"], t["beta"], t["bias"]),
+           reference.fused_linear(t["x"], t["w"], t["bias"],
+                                  ln_scale=t["gamma"], ln_bias=t["beta"]),
+           "bfloat16")
+    mu, rstd = (s.reshape(-1) for s in reference.layernorm_stats(t["x"]))
+    for m0 in (0, 128):  # rows 130-255 of the second tile are past M
+        a = k6_a_box(t["x"], mu, rstd, t["gamma"], t["beta"], m0, 192)
+        assert (a[:, 8:] == 0).all() and torch.isfinite(a.float()).all()
+        assert (a[:min(BM, 130 - m0), :8] != 0).any()
+
+
+def ln_box_chunks(t: int) -> list:
+    """The 16-byte chunks thread ``t`` of a consumer warpgroup normalises
+    in place in ``ln_box``: (row, chunk column, byte address in the
+    warpgroup's half of the A box) for rows t / 8 + 16i, i = 0..3, chunk
+    column c = t % 8, at ``row * 128 + ((c ^ (row % 8)) << 4)`` (TMA's
+    128-byte swizzle)."""
+    c = t % 8
+    return [(r, c, r * 128 + ((c ^ (r & 7)) << 4))
+            for r in (t // 8 + 16 * i for i in range(4))]
+
+
+def test_k6_ln_box_covers_the_box_once_without_bank_conflicts():
+    """Design kept (the in-place normalise pass): the warpgroup's 128
+    threads normalise every 16-byte chunk of its 64 x 64 half of x's box
+    exactly once; each address holds the chunk TMA wrote there (decoded
+    back through the swizzle: row ``addr // 128``, chunk ``((addr % 128)
+    >> 4) ^ (row % 8)``), so LN's row (the thread's mu[i], rs[i] of row
+    t / 8 + 16i) and columns (k0 + 8c ..) are that chunk's; each group of
+    eight neighbouring threads (a 16-byte access's phase) reads and writes
+    one row's eight chunks, 128 bytes on distinct banks."""
+    seen = {}
+    for t in range(128):
+        for i, (r, c, addr) in enumerate(ln_box_chunks(t)):
+            row = addr // 128
+            assert (row, ((addr % 128) >> 4) ^ (row & 7)) == (r, c)
+            assert r == t // 8 + 16 * i  # the row of mu[i], rs[i]
+            seen[r, c] = seen.get((r, c), 0) + 1
+    assert len(seen) == 64 * 8 and set(seen.values()) == {1}
+    for t0 in range(0, 128, 8):
+        for i in range(4):
+            offs = {ln_box_chunks(t)[i][2] % 128 for t in range(t0, t0 + 8)}
+            rows = {ln_box_chunks(t)[i][0] for t in range(t0, t0 + 8)}
+            assert offs == set(range(0, 128, 16)) and len(rows) == 1
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_k6_takes_wgmma_on_every_composed_route_call(variant):
+    """Every K6 call of the composed route (LN1 + QKV, LN2 + fc1 + GELU,
+    contiguous whole allocations) at batches 1-256 takes the wgmma tile,
+    the tile ``gemm_path`` gives K2 on the same operands; fp32 the FFMA
+    tile."""
+    cfg = VARIANTS[variant]
+    d, mlp = cfg.hidden_dim, cfg.mlp_dim
+    sp = -(-cfg.seq_len // 16) * 16
+    for b in BATCHES:
+        for n in (3 * d, mlp):
+            x = torch.empty((b * sp, d), dtype=torch.bfloat16, device="meta")
+            w = torch.empty((d, n), dtype=torch.bfloat16, device="meta")
+            assert cuda_matmul.fused_linear_path(x, w) == "wgmma"
+            assert cuda_matmul.fused_linear_path(x.float(),
+                                                 w.float()) == "ffma"
+
+
+@pytest.mark.parametrize("offset,k,n,path", [
+    (0, 768, 2304, "wgmma"), (2, 768, 2304, "wmma"), (0, 200, 264, "wgmma"),
+    (0, 588, 1280, "wmma"), (0, 768, 100, "wmma")])
+def test_fused_linear_path_by_alignment(offset, k, n, path):
+    """K6 takes wgmma where TMA reads x and w: bases 16-byte aligned, K and
+    N multiples of 8 (x at ``offset`` bytes into its storage)."""
+    buf = torch.zeros(37 * k + 8, dtype=torch.bfloat16)
+    x = buf[offset // 2:offset // 2 + 37 * k].view(37, k)
+    w = torch.zeros((k, n), dtype=torch.bfloat16)
+    assert cuda_matmul.fused_linear_path(x, w) == path

@@ -22,11 +22,17 @@ file (not in the package), byte for byte where it is layout:
   h exchange) under random interleavings, which must neither deadlock nor
   reuse a buffer early;
 - K9's tiling (items of 64 rows x 128 columns, the split of K in the
-  out-projection and fc2, slices added in a fixed order) against
-  ``reference.encoder_stack`` / ``encoder_stack_q`` and JAX's Pallas kernels
-  at two layers; the split counts at the B/16 and L/16 stack shapes;
+  out-projection and fc2, slices added in a fixed order) and its bf16
+  attention phase (``csrc/encoder_stack.cu:attention_phase`` on K4's
+  tensor-core core, ``csrc/attention_mma.cuh``: the query tiles of a
+  block's two 128-thread halves, each tile's two passes over 64-key
+  chunks in the core's sum order) against ``reference.encoder_stack`` /
+  ``encoder_stack_q`` and JAX's Pallas kernels at two layers; the split
+  counts at the B/16 and L/16 stack shapes; the attention tiles' cover of
+  every (image, head, query row);
 - the shared-memory budgets: K17 at every width ``ops.mlp_q_plan`` admits
-  (D up to 1280), K9's ring.
+  (D up to 1280), K9's ring, and K9's attention regions beside the ring's
+  barriers at every geometry the stack gates admit.
 """
 
 import re
@@ -41,8 +47,10 @@ import vit_tpu.ops as jax_ops
 from vit_tpu.ops.pallas import block as jax_block
 from vit_tpu_torch import ops
 from vit_tpu_torch.ops import reference
+from vit_tpu_torch.ops.cuda.block import MAX_SMEM, attention_smem_bytes
 from vit_tpu_torch.ops.cuda.quant import MLP_I8_MAX_D
-from vit_tpu_torch.ops.cuda.stack import MAX_SPLITS
+from vit_tpu_torch.ops.cuda.stack import (MAX_SPLITS, attention_groups,
+                                          attention_region_bytes)
 from vit_tpu_torch.quant import quantize_params, quantize_weight
 
 CSRC = Path(__file__).resolve().parents[1] / "vit_tpu_torch" / "csrc"
@@ -732,10 +740,84 @@ def _split_matmul(a, w, split: bool, grid: int):
     return total
 
 
+K9_GRID = 132  # one persistent block an SM at K9's 227 KB
+ATTN_CHUNK = 64  # keys a chunk of the core's two passes
+
+
+def k9_attention_tiles(b: int, heads: int, sp: int, groups: int,
+                       grid: int = K9_GRID) -> dict:
+    """``attention_phase``'s walk: (block, group) -> its tiles (image,
+    head, first row, rows). A group of 256 / groups threads takes tiles of
+    16 rows a warp; group g of block i takes tiles i + g * grid, then steps
+    by groups * grid."""
+    qt = 256 // groups // 2
+    q_tiles = -(-sp // qt)
+    tiles = b * heads * q_tiles
+    return {(i, g): [(t // (heads * q_tiles), t // q_tiles % heads,
+                      t % q_tiles * qt, qt)
+                     for t in range(i + g * grid, tiles, groups * grid)]
+            for i in range(grid) for g in range(groups)}
+
+
+def mma_core_rows(qkv, img, h, q0, rows, *, sp, d, dh, scale, seq_len):
+    """``attention_tile_mma`` on rows q0 .. q0 + rows - 1 (those below sp)
+    of head h of image img of the packed bf16 (b*sp, 3d) qkv: s = (q . k)
+    * scale in fp32, keys >= seq_len at -inf, the row max over all keys;
+    then per 64-key chunk and 16-key group p = exp(s - max), each lane's
+    share of l (keys 8j + 2t, + 1 of lane t of a quad) in order, the
+    context += (p in bf16) @ v in fp32; l = (l0 + l1) + (l2 + l3) across
+    the quad; the context / l rounded to bf16."""
+    r1 = min(q0 + rows, sp)
+    base = img * sp
+    q = qkv[base + q0:base + r1, h * dh:(h + 1) * dh].float()
+    k = qkv[base:base + seq_len, d + h * dh:d + (h + 1) * dh].float()
+    v = qkv[base:base + seq_len, 2 * d + h * dh:2 * d + (h + 1) * dh].float()
+    kend = -(-seq_len // 16) * 16
+    k = torch.nn.functional.pad(k, (0, 0, 0, kend - seq_len))
+    v = torch.nn.functional.pad(v, (0, 0, 0, kend - seq_len))
+    s = (q @ k.t()) * scale
+    s[:, seq_len:] = float("-inf")
+    mx = s.amax(-1, keepdim=True)
+    lanes = torch.zeros((r1 - q0, 4))
+    ctx = torch.zeros((r1 - q0, dh))
+    for k0 in range(0, kend, ATTN_CHUNK):
+        for g0 in range(k0, min(k0 + ATTN_CHUNK, kend), 16):
+            p = torch.exp(s[:, g0:g0 + 16] - mx)
+            for j in range(2):
+                for e in range(2):
+                    for t in range(4):
+                        lanes[:, t] += p[:, 8 * j + 2 * t + e]
+            ctx += p.to(torch.bfloat16).float() @ v[g0:g0 + 16]
+    l = (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
+    return (ctx / l[:, None]).to(torch.bfloat16)
+
+
+def k9_attention(qkv, *, batch, num_heads, scale, seq_len):
+    """K9's bf16 attention phase on the packed (b*sp, 3d) qkv: every tile
+    of :func:`k9_attention_tiles` through :func:`mma_core_rows`, each
+    context row written once; returns (b*sp, d)."""
+    m, d = qkv.shape[0], qkv.shape[1] // 3
+    sp, dh = m // batch, d // num_heads
+    groups = attention_groups(sp, dh)
+    out = torch.empty((m, d), dtype=torch.bfloat16)
+    written = torch.zeros((m, num_heads), dtype=torch.int32)
+    for tiles in k9_attention_tiles(batch, num_heads, sp, groups).values():
+        for img, h, q0, rows in tiles:
+            r1 = min(q0 + rows, sp)
+            out[img * sp + q0:img * sp + r1, h * dh:(h + 1) * dh] = \
+                mma_core_rows(qkv, img, h, q0, rows, sp=sp, d=d, dh=dh,
+                              scale=scale, seq_len=seq_len)
+            written[img * sp + q0:img * sp + r1, h] += 1
+    assert (written == 1).all()
+    return out
+
+
 def k9_model(x, enc, *, num_heads, scale, seq_len, grid=132, quantized=False):
-    """K9's layer loop with its GEMM phases as modelled: LN rounded to the
+    """K9's layer loop with its phases as modelled: LN rounded to the
     dtype before the products, the out-projection and fc2 split over K,
-    the epilogues of ``encoder_stack.cu`` (scale before bias)."""
+    the epilogues of ``encoder_stack.cu`` (scale before bias); in bf16 the
+    attention phase of :func:`k9_attention`, in fp32 the FFMA tile's
+    function, ``reference.attention_core``."""
     b, sp, d = x.shape
     dt = x.dtype
     xf = x.reshape(b * sp, d)
@@ -755,8 +837,10 @@ def k9_model(x, enc, *, num_heads, scale, seq_len, grid=132, quantized=False):
         xn = reference.layernorm(xf, enc["ln1"]["scale"][i],
                                  enc["ln1"]["bias"][i], eps=EPS)
         qkv = scaled(_split_matmul(xn, wq, False, grid), sq, bq).to(dt)
-        ctx = reference.attention_core(qkv, batch=b, num_heads=num_heads,
-                                       scale=scale, seq_len=seq_len)
+        attention = (k9_attention if dt == torch.bfloat16
+                     else reference.attention_core)
+        ctx = attention(qkv, batch=b, num_heads=num_heads, scale=scale,
+                        seq_len=seq_len)
         wo, so, bo = w("out", i)
         xf = (scaled(_split_matmul(ctx, wo, True, grid), so, bo)
               + xf.float()).to(dt)
@@ -824,7 +908,9 @@ def test_k9_phases_match_reference(dtype, b, grid):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k9_phases_match_pallas(dtype):
     """The float stack against JAX's Pallas ``encoder_stack`` (interpret
-    mode) and the int8 one against ``encoder_stack_q``, b = 1."""
+    mode) and the int8 one against ``encoder_stack_q``, b = 1; in bf16 the
+    attention phase in the tensor-core core's order (:func:`k9_attention`),
+    within the bf16 model bar."""
     enc, x = _k9_inputs(dtype, 1, seed=3)
     kw = dict(num_heads=2, scale=64 ** -0.5, seq_len=17)
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
@@ -878,3 +964,75 @@ def test_k9_budgets_fit(i8):
     assert stages == (12 if i8 else 9)
     assert ring % 1024 == 0 and stage % 1024 == 0
     assert ring + stages * stage + K9_BAR + 1024 <= SMEM_MAX
+
+
+@pytest.mark.parametrize("heads,b", [(12, 1), (12, 2), (16, 1), (16, 2)])
+@pytest.mark.parametrize("groups", [2, 1])
+def test_k9_attention_tiles_cover_every_row_once(heads, b, groups):
+    """B/16 (12 heads) and L/16 (16 heads) at 208 tokens, b = 1 and 2, on
+    132 blocks, in halves (64-row tiles, K9's choice there) and on the
+    whole block (128-row tiles): every (image, head, query row) in exactly
+    one tile, each group holds at most one tile, and the tiles sit on the
+    grid's first blocks, one a block at most in the first group."""
+    sp = 208
+    walk = k9_attention_tiles(b, heads, sp, groups)
+    seen = {}
+    for (i, g), tiles in walk.items():
+        assert len(tiles) <= 1
+        for img, h, q0, rows in tiles:
+            for r in range(q0, min(q0 + rows, sp)):
+                seen[img, h, r] = seen.get((img, h, r), 0) + 1
+    assert len(seen) == b * heads * sp and set(seen.values()) == {1}
+    qt = 128 // groups
+    tiles = b * heads * -(-sp // qt)
+    busy = [key for key, t in walk.items() if t]
+    assert len(busy) == tiles
+    assert sorted(busy) == [(i % K9_GRID, i // K9_GRID) for i in range(tiles)]
+    assert groups == 1 or attention_groups(sp, 64) == 2
+
+
+def _stack_geometries():
+    """Every (sp, d, heads) the stack gates admit in bf16 (``ops.
+    stack_plan``, which ``stack_q_plan`` and ``stack_fused_plan`` narrow):
+    D = 768 (MLP 3072) with any head count that divides it, at every sp
+    ``attn_plan`` takes, and L/16 at 208 tokens."""
+    bf = torch.bfloat16
+    out = [(208, 1024, 16)] if ops.stack_plan(1, 208, 1024, 4096, 16, bf) \
+        else []
+    for heads in (h for h in range(1, 769) if 768 % h == 0):
+        for sp in range(1, 1025):
+            if ops.stack_plan(1, sp, 768, 3072, heads, bf):
+                out.append((sp, 768, heads))
+    return out
+
+
+def test_k9_attention_regions_fit_every_admitted_geometry():
+    """At every geometry the gates admit, the tensor-core core takes the
+    head (its regions, each :func:`attention_region_bytes`, fit the
+    block's 227 KB: two halves or the whole block) wherever the FFMA
+    tile's budget, which the gates read, admits it. At B/16 and L/16's 208
+    tokens both halves run, and their regions end before the bf16 ring's
+    barriers (``Layout<bf16>::kBars`` past the 1024-aligned base); past
+    them the barriers would be overwritten, and ``wgmma_phase`` sets its
+    barriers up at its start and invalidates them at its end, so the
+    attention phase may take every byte."""
+    geos = _stack_geometries()
+    assert (208, 768, 12) in geos and (208, 1024, 16) in geos
+    assert len({sp for sp, d, h in geos if h == 12}) > 400
+    for sp, d, heads in geos:
+        hd = d // heads
+        assert attention_smem_bytes(sp, hd, 2) <= MAX_SMEM
+        groups = attention_groups(sp, hd)
+        assert groups >= 1, (sp, d, heads)
+        assert groups * attention_region_bytes(sp, hd) <= MAX_SMEM
+    stage = 3 * BOX
+    stages = min(K9_STAGES, (SMEM_MAX - 1024 - K9_BAR) // stage)
+    bars = stages * stage
+    for hd in (64,):
+        assert attention_groups(208, hd) == 2
+        assert 2 * attention_region_bytes(208, hd) <= bars
+    phase = re.search(r"void wgmma_phase\(.*?\n}\n", K9, re.S).group(0)
+    init, inval = phase.find("mbar_init(full0"), phase.find("mbarrier.inval")
+    first_tma = phase.find("tma_load(")
+    assert 0 < init < first_tma < inval
+

@@ -3,11 +3,12 @@
 // packed (B*S, 3D) [q|k|v] buffer (head h at columns h*d of each third --
 // the layout vit_tpu/ops/pallas/block.py:_attn_core slices) and writing the
 // context into a (B*S, D) buffer at the head's columns. It serves K4's fp32
-// core (attention.cu; K4's bf16 core is attention_tile_mma in
-// attention_mma.cuh, on the tensor cores), K9's attention phase
-// (encoder_stack.cu, both dtypes) and the attention probe K23
-// (attn_core_probe.cu) in each of its modes, a template parameter whose
-// default, kAttnFull, is the core that K4's fp32 and K9 instantiate.
+// core (attention.cu), K9's fp32 attention phase (encoder_stack.cu), the
+// attention probe K23 (attn_core_probe.cu) in each of its modes, a
+// template parameter whose default, kAttnFull, is the core that K4's and
+// K9's fp32 instantiate, and K9's probe K24 (encstack_probe.cu). The bf16
+// core of K4 and K9 is attention_tile_mma (attention_mma.cuh), on the
+// tensor cores.
 //
 // Per query row, with _attn_core's rounding points:
 //   s = (q . k) * scale in fp32, keys at index >= seq_len set to -inf;
@@ -22,8 +23,7 @@
 // The math is plain FFMA over shared memory, which bounds it by
 // operations: 4*S*seq_len*d a head (in fp32 at B/16 bs=32, 4.0 GFLOP:
 // 0.060 ms at 67 TFLOP/s). The fp32 path may not use the tensor cores (the
-// Pallas fp32 dots run at HIGHEST: no TF32); moving K9's bf16 attention
-// phase onto attention_tile_mma is K9's own redesign.
+// Pallas fp32 dots run at HIGHEST: no TF32).
 
 #pragma once
 
@@ -60,8 +60,8 @@ inline size_t attention_smem(int s, int dh) {
 }
 
 // The modes of the attention probe K23 (csrc/attn_core_probe.cu), a
-// compile-time parameter of attention_tile. kAttnFull is K4's fp32 and
-// K9's core, and the only mode they instantiate; each other mode changes the
+// compile-time parameter of attention_tile. kAttnFull is K4's and K9's
+// fp32 core, and the only mode they instantiate; each other mode changes the
 // tile where tools/attn_core_probe.py's _core_kernel changes the core
 // (vit_tpu_torch/tools/attn_core_probe.py gives each mode's function).
 enum AttnMode : int {

@@ -1,13 +1,19 @@
-// K4's attention core in bf16 on the tensor cores: the work of
-// attention_tile<bf16> (attention_core.cuh) for one (image, head, 64-query
+// The bf16 attention core on the tensor cores, K4's (attention.cu) and
+// K9's attention phase (encoder_stack.cu): the work of
+// attention_tile<bf16> (attention_core.cuh) for one (image, head, query
 // tile), with both products on mma.sync (mma_frag.cuh) and _attn_core's
-// rounding points (vit_tpu/ops/pallas/block.py:675-692):
+// rounding points (vit_tpu/ops/pallas/block.py:675-692), which are also
+// _encoder_stack_kernel's (block.py:1953-1968):
 //   s = (q . k) * scale in fp32, keys at index >= seq_len at -inf;
 //   the max is the row max over all keys;
 //   p = exp(s - max) in fp32, l = the sum of the unrounded p;
 //   ctx = (p rounded to bf16) @ v in fp32, then / l, stored once in bf16.
 //
-// Four warps, 16 query rows each. The head's K and V rows (the keys below
+// A group of warps, 16 query rows each: K4's block of four warps (a
+// 64-row tile), or in K9 either half of the 256-thread block (two tiles of
+// 64 rows at once, each half in its own region of shared memory) or the
+// whole block (a 128-row tile) where two regions do not fit; a group
+// synchronises on its own named barrier. The head's K and V rows (the keys below
 // seq_len, zero-padded to a multiple of 16 keys and the head width to a
 // multiple of 16 columns) are staged in shared memory with cp.async, rows
 // padded by 16 bytes so that ldmatrix is conflict-free; K first, so that
@@ -85,7 +91,7 @@ __device__ __forceinline__ void attn_mma_scores(
     }
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
-      if (NK == kAttnMmaMaxK && c0 + 16 * kk >= dhp) break;
+      if (c0 + 16 * kk >= dhp) break;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         uint32_t bk[4];
@@ -109,16 +115,34 @@ __device__ __forceinline__ void attn_mma_groups(int groups, F&& f) {
   }
 }
 
-// Query rows q0 .. q0+63 of head h of image img, as attention_tile<bf16>
-// (attention_core.cuh) takes them; NK = min(dh' / 16, 8). Called by all
-// kAttnMmaThreads threads of the block; uses attention_mma_smem(s, dh)
-// bytes of smem.
+// f(std::integral_constant<int, NK>()) with NK the 16-column steps of q
+// held at once for a head of width dh: 2, 4 or 8, the least that holds
+// dh' (up to 8), so that K9 builds three forms of the core and not eight
+// (K4 builds the exact NK a launch).
+template <typename F>
+__device__ __forceinline__ void attn_mma_nk(int dh, F&& f) {
+  const int steps = attn_mma_dhp(dh) / 16;
+  if (steps <= 2)
+    f(std::integral_constant<int, 2>());
+  else if (steps <= 4)
+    f(std::integral_constant<int, 4>());
+  else
+    f(std::integral_constant<int, 8>());
+}
+
+// Query rows q0 .. q0 + threads/2 - 1 of head h of image img, as
+// attention_tile<bf16> (attention_core.cuh) takes them; NK, the 16-column
+// steps of q held at once, at least min(dh' / 16, 8) (steps past dh' are
+// skipped). Called by the `threads` threads of a group (tid 0 .. threads-1, whole
+// warps; warp w takes rows q0 + 16w ..), which synchronise on named
+// barrier `bar` (K4: the block's 128 threads, barrier 0); uses
+// attention_mma_smem(s, dh) bytes of smem. A caller that runs several
+// tiles in one region synchronises the group between them.
 template <int NK>
-__device__ __forceinline__ void attention_tile_mma(const bf16* qkv, bf16* out,
-                                                   int s, int d, int dh,
-                                                   float scale, int seq_len,
-                                                   int img, int h, int q0,
-                                                   unsigned char* smem) {
+__device__ __forceinline__ void attention_tile_mma(
+    const bf16* qkv, bf16* out, int s, int d, int dh, float scale,
+    int seq_len, int img, int h, int q0, unsigned char* smem, int tid,
+    int threads, int bar) {
   const int dhp = attn_mma_dhp(dh), ld = dhp + 8;
   const int kr = (s + 15) / 16 * 16;           // K's rows, V's offset
   const int kend = (seq_len + 15) / 16 * 16;   // keys walked
@@ -130,13 +154,15 @@ __device__ __forceinline__ void attention_tile_mma(const bf16* qkv, bf16* out,
   const bool vec = dh % 8 == 0 && d % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(qkv) % 16 == 0;
 
-  stage_rows(ks, ld, base + d, ldg, kend, seq_len, dh, dhp, vec);
+  stage_rows_by(ks, ld, base + d, ldg, kend, seq_len, dh, dhp, vec, tid,
+                threads);
   cp_async_commit();
-  stage_rows(vs, ld, base + 2 * d, ldg, kend, seq_len, dh, dhp, vec);
+  stage_rows_by(vs, ld, base + 2 * d, ldg, kend, seq_len, dh, dhp, vec, tid,
+                threads);
   cp_async_commit();
 
-  const int lane = threadIdx.x % 32, t = lane & 3;
-  const int r0 = q0 + 16 * (threadIdx.x / 32);  // the warp's first row
+  const int lane = tid % 32, t = lane & 3;
+  const int r0 = q0 + 16 * (tid / 32);  // the warp's first row
   const bool active = r0 < s;
   const bf16* q = base + static_cast<size_t>(r0) * ldg;
   const int qrows = s - r0;  // rows at or past S are zero
@@ -145,7 +171,8 @@ __device__ __forceinline__ void attention_tile_mma(const bf16* qkv, bf16* out,
   if (active && nb == 1) {
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk)
-      load_a_global(qf[kk], q, ldg, qrows, 16 * kk, dh, lane);
+      if (16 * kk < dhp)
+        load_a_global(qf[kk], q, ldg, qrows, 16 * kk, dh, lane);
   }
   // The lane's rows are r0 + lane/4 (index 0) and r0 + lane/4 + 8 (1); its
   // columns of a C tile j are keys (or context columns) 8j + 2t, + 1.
@@ -154,7 +181,7 @@ __device__ __forceinline__ void attention_tile_mma(const bf16* qkv, bf16* out,
   };
 
   cp_async_wait<1>();
-  __syncthreads();
+  group_sync(bar, threads);
   // Pass 1: the row max over all keys.
   float mx[2] = {-INFINITY, -INFINITY};
   if (active) {
@@ -179,7 +206,7 @@ __device__ __forceinline__ void attention_tile_mma(const bf16* qkv, bf16* out,
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], m));
   }
   cp_async_wait<0>();
-  __syncthreads();
+  group_sync(bar, threads);
   if (!active) return;
 
   // Pass 2, once for each block of 16 NK context columns: the scores
@@ -211,7 +238,7 @@ __device__ __forceinline__ void attention_tile_mma(const bf16* qkv, bf16* out,
           pack_a(pa, sc[2 * g], sc[2 * g + 1]);
 #pragma unroll
           for (int kk = 0; kk < NK; ++kk) {
-            if (NK == kAttnMmaMaxK && n0 + 16 * kk >= dhp) break;
+            if (n0 + 16 * kk >= dhp) break;
             uint32_t bv[4];
             ldmatrix_b_rowmajor(bv, vs + k0 * ld, ld, 16 * g, n0 + 16 * kk,
                                 lane);

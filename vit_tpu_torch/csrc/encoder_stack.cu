@@ -26,9 +26,13 @@
 //   1. LN1 + QKV (bf16: LN1 of every row once, into the context buffer,
 //      then the products read it; the Pallas kernel recomputed LN1 per
 //      chunk).
-//   2. Attention, one work item per (image, head, 64-query tile): the
-//      attention-core routine of K4 (attention_core.cuh), whose row-max
-//      softmax is _encoder_stack_kernel's (block.py:1953-1968).
+//   2. Attention, one work item per (image, head, query tile), with
+//      _encoder_stack_kernel's row-max softmax (block.py:1953-1968). bf16
+//      runs K4's tensor-core core (attention_mma.cuh, mma.sync): the
+//      block's two 128-thread halves take a 64-row tile each at once, each
+//      in its own region of shared memory (the whole block a 128-row tile
+//      where two regions do not fit). fp32 runs the FFMA tile
+//      (attention_core.cuh), 64 rows on the whole block.
 //   3. Out-projection + bout + residual, in place on the activation (bf16:
 //      split over K into the workspace, then the slices' sum with the
 //      epilogue after one more barrier).
@@ -74,11 +78,47 @@
 
 #include <cooperative_groups.h>
 
+#include "attention_mma.cuh"
 #include "stack_phase.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace vit {
+
+// The bf16 attention phase's groups: each runs attention_tile_mma on its
+// own tiles in its own region of shared memory (attention_mma_smem,
+// rounded up to 128 bytes), synchronised on named barrier kAttnBar + its
+// index. Two halves of 128 threads (64-row tiles) where two regions fit in
+// the block's 227 KB, else the whole block (128-row tiles), 0 where one
+// region does not fit (vit_tpu_torch/ops/cuda/stack.py:attention_groups
+// computes the same).
+constexpr int kAttnBar = 3;
+
+inline size_t stack_attn_region(int sp, int dh) {
+  return (attention_mma_smem(sp, dh) + 127) / 128 * 128;
+}
+
+inline int stack_attn_groups(int sp, int dh) {
+  const size_t r = stack_attn_region(sp, dh);
+  return 2 * r <= kStackMaxSmem ? 2 : r <= kStackMaxSmem ? 1 : 0;
+}
+
+// K9's dynamic shared memory: fp32 stack_smem_all (the FFMA tile beside
+// the GEMM tile); bf16 the wgmma phases' 227 KB, which hold FOLD's phase 0
+// and the attention groups, 0 where the phases or one attention region do
+// not take the geometry.
+template <typename T, typename W>
+inline size_t stack_smem_k9(int sp, int dh, int d) {
+  if constexpr (!std::is_same_v<T, bf16>) {
+    return stack_smem_all<T, W>(sp, dh, d);
+  } else {
+    if (d % 64 || d > sw::kMaxK || stack_attn_groups(sp, dh) == 0) return 0;
+    const size_t ph0 =
+        sizeof(typename Gemm<T>::Smem) + 2 * Gemm<T>::BM * sizeof(float);
+    const size_t ph = sw::Layout<W>::kSmem;
+    return ph > ph0 ? ph : ph0;
+  }
+}
 
 template <typename T, typename W = T>
 struct StackArgs {
@@ -109,6 +149,10 @@ struct StackArgs {
   // buffer, read as fp32).
   sw::Maps maps;
   float* ws;
+  // bf16: the attention phase's groups a block and bytes a group's region
+  // (stack_attn_groups, stack_attn_region).
+  int attn_groups;
+  size_t attn_region;
 };
 
 // (acc * ws[col]) + bias with int8 weights, acc + bias without.
@@ -191,12 +235,54 @@ __device__ __forceinline__ const float* layer_scales(const float* s,
   return s ? s + off : nullptr;
 }
 
+// The attention phase: every (image, head, query tile) once, strided over
+// the grid. bf16 on the tensor cores (attention_tile_mma), the tiles of a
+// block's groups at once: group g of block i takes tiles i + g * grid,
+// then steps by groups * grid, so at batch 1-2 each block holds at most one
+// tile of each group's and the tiles spread over the grid's first blocks.
+// fp32 on the FFMA tile (attention_tile<float>), 64 rows, the whole block.
+template <typename T, typename W>
+__device__ __forceinline__ void attention_phase(const StackArgs<T, W>& a,
+                                                unsigned char* smem) {
+  const int D = a.d, dh = D / a.heads;
+  if constexpr (std::is_same_v<T, bf16>) {
+    const int groups = a.attn_groups, threads = kMmThreads / groups;
+    const int g = threadIdx.x / threads, tid = threadIdx.x % threads;
+    const int qt = threads / 2;  // 16 query rows a warp
+    const int q_tiles = (a.sp + qt - 1) / qt;
+    const int tiles = a.b * a.heads * q_tiles, bar = kAttnBar + g;
+    unsigned char* region = smem + g * a.attn_region;
+    // The QKV phase's TMA writes to these bytes come before this phase's
+    // generic and cp.async writes.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    for (int t = blockIdx.x + g * gridDim.x; t < tiles;
+         t += groups * gridDim.x) {
+      group_sync(bar, threads);  // the group's last tile is done with region
+      const int img = t / (a.heads * q_tiles);
+      const int h = t / q_tiles % a.heads;
+      attn_mma_nk(dh, [&](auto nk) {
+        attention_tile_mma<decltype(nk)::value>(
+            a.qkv, a.ctx, a.sp, D, dh, a.scale, a.seq_len, img, h,
+            t % q_tiles * qt, region, tid, threads, bar);
+      });
+    }
+  } else {
+    const int q_tiles = (a.sp + kAttnQT - 1) / kAttnQT;
+    for (int t = blockIdx.x; t < a.b * a.heads * q_tiles; t += gridDim.x) {
+      const int img = t / (a.heads * q_tiles);
+      const int h = t / q_tiles % a.heads;
+      attention_tile<T>(a.qkv, a.ctx, a.sp, D, dh, a.scale, a.seq_len, img,
+                        h, t % q_tiles * kAttnQT, smem);
+    }
+  }
+}
+
 template <typename T, typename W, bool FOLD>
 __global__ void __launch_bounds__(kMmThreads, 1)
     encoder_stack_kernel(const __grid_constant__ StackArgs<T, W> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  const int D = a.d, m = a.b * a.sp, dh = D / a.heads;
+  const int D = a.d, m = a.b * a.sp;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const sw::Maps& mp = a.maps;
 
@@ -221,7 +307,6 @@ __global__ void __launch_bounds__(kMmThreads, 1)
     grid.sync();
   }
 
-  const int q_tiles = (a.sp + kAttnQT - 1) / kAttnQT;
   for (int l = 0; l < a.layers; ++l) {
     const size_t lv = static_cast<size_t>(l) * D;
     const size_t lm = static_cast<size_t>(l) * a.mlp;
@@ -233,12 +318,7 @@ __global__ void __launch_bounds__(kMmThreads, 1)
                       BiasAct<T>{a.bqkv + lv * 3, a.qkv, 3 * D, false,
                                  layer_scales(a.sqkv, lv * 3)});
     // 2. Attention.
-    for (int t = blockIdx.x; t < a.b * a.heads * q_tiles; t += gridDim.x) {
-      const int img = t / (a.heads * q_tiles);
-      const int h = t / q_tiles % a.heads;
-      attention_tile<T>(a.qkv, a.ctx, a.sp, D, dh, a.scale, a.seq_len, img,
-                        h, t % q_tiles * kAttnQT, smem);
-    }
+    attention_phase(a, smem);
     sw::fence_proxy_async();  // the context is read by TMA next
     grid.sync();
     // 3. Out-projection + bout + residual, in place (split over K into
@@ -279,9 +359,12 @@ __global__ void __launch_bounds__(kMmThreads, 1)
 template <typename T, typename W, bool FOLD>
 cudaError_t launch_stack(StackArgs<T, W> a, int device, cudaStream_t st) {
   auto kernel = encoder_stack_kernel<T, W, FOLD>;
-  const size_t smem = stack_smem_all<T, W>(a.sp, a.d / a.heads, a.d);
+  const int dh = a.d / a.heads;
+  const size_t smem = stack_smem_k9<T, W>(a.sp, dh, a.d);
   if (smem == 0) return cudaErrorInvalidValue;
   if constexpr (std::is_same_v<T, bf16>) {
+    a.attn_groups = stack_attn_groups(a.sp, dh);
+    a.attn_region = stack_attn_region(a.sp, dh);
     // The wgmma phases: D and mlp whole 64-column steps, the activation
     // 16-byte aligned (LN reads 16-byte chunks), every map encoded.
     const int m = a.b * a.sp, L = a.layers, d = a.d, mlp = a.mlp;

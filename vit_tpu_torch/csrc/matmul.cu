@@ -21,15 +21,22 @@
 //   ragged edges masked, not pipelined, one block a tile; its operands
 //   are contiguous.
 //
-// K6, fused_linear, is the same two kernels with an LN prologue
-// (template flag LN). Replaces vit_tpu/ops/pallas/matmul.py:fused_linear
-// (_fused_linear_kernel, _fused_linear_kernel_nk1): act(LN(x) @ W + b) +
+// K6, fused_linear, is the same two tiles with an LN prologue. Replaces
+// vit_tpu/ops/pallas/matmul.py:fused_linear (_fused_linear_kernel,
+// _fused_linear_kernel_nk1, its pallas_call at :388): act(LN(x) @ W + b) +
 // residual, with the row stats mu and rstd computed beforehand by K5
-// (csrc/layernorm.cu), as JAX computes them with layernorm_stats. Each
-// element of an A tile is normalised as it is staged into shared memory
-// (gemm_tile.cuh), so LN(x) never reaches device memory and costs no extra
-// pass over it. Without LN, the fused_linear wrapper launches K2, which has
-// the same residual epilogue.
+// (csrc/layernorm.cu), as JAX computes them with layernorm_stats; LN in
+// fp32, ((x - mu) * rstd) * gamma + beta, rounded to bf16 before the
+// product. LN(x) never reaches device memory. In bf16, where TMA can read
+// x and w (wgmma_takes, gemm_path's rule), on the wgmma tile: x's raw box
+// arrives by TMA, and each consumer warp reads its A fragments from it by
+// ldmatrix, normalises them in registers (its rows' mu and rstd held for
+// the tile, each step's gamma and beta from L1) and issues wgmma with A
+// from registers, while the previous step's group is in flight; columns
+// past K are exact zeros. Elsewhere, and in fp32, each element of an A
+// tile of gemm_tile.cuh is normalised as it is staged (template flag LN).
+// Without LN, the fused_linear wrapper launches K2, which has the same
+// residual epilogue.
 //
 // K11, matmul_i8: xq (M, K) int8 @ wq (K, N) int8 with exact int32 sums,
 // then in fp32 (acc * ax[row]) * wscale[col], + bias, GELU, + residual, one
@@ -172,12 +179,18 @@ int launch_gemm(const void* x, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
-// K2 on the wgmma tile (csrc/matmul_wgmma.cu, its own unit, so that the
-// kernels here compile as they did before it).
+// K2 and K6 on the wgmma tile (csrc/matmul_wgmma.cu, its own unit, so
+// that the kernels here compile as they did before it).
 cudaError_t launch_wgmma(const void* x, const void* w, const void* bias,
                          const void* residual, void* out, int m, int n, int k,
                          int gelu_act, int trans_a, int trans_b, int device,
                          cudaStream_t st);
+cudaError_t launch_wgmma_ln(const void* x, const void* w, const void* bias,
+                            const void* residual, const float* mu,
+                            const float* rstd, const void* gamma,
+                            const void* beta, void* out, int m, int n, int k,
+                            int gelu_act, int device, cudaStream_t st);
+bool wgmma_takes(const void* x, const void* w, int n, int k);
 
 }  // namespace vit
 
@@ -204,17 +217,35 @@ extern "C" int vit_matmul(const void* x, const void* w, const void* bias,
                       trans_b, device, static_cast<cudaStream_t>(stream));
 }
 
-// K6: K2 with the LN prologue; mu, rstd, gamma and beta must all be set.
+// The tile K6 runs (x, w) on: 1 the bf16 wgmma tile, 0 gemm_tile.cuh's
+// (bf16 wmma, fp32 FFMA). The tile is chosen from these alone, before the
+// launch; vit_fused_linear runs the one this returns.
+extern "C" int vit_fused_linear_tile(const void* x, const void* w, int n,
+                                     int k, int dtype) {
+  return dtype == vit::kBF16 && vit::wgmma_takes(x, w, n, k) ? 1 : 0;
+}
+
+// K6: K2 with the LN prologue, x (m, k) and w (k, n) contiguous; mu, rstd,
+// gamma and beta must all be set.
 extern "C" int vit_fused_linear(const void* x, const void* w,
                                 const void* bias, const void* residual,
                                 const void* mu, const void* rstd,
                                 const void* gamma, const void* beta,
                                 void* out, int m, int n, int k, int gelu_act,
                                 int dtype, int device, void* stream) {
-  return vit::launch_gemm<true>(x, w, bias, residual,
-                                static_cast<const float*>(mu),
-                                static_cast<const float*>(rstd), gamma, beta,
-                                out, m, n, k, gelu_act, dtype, device, stream);
+  using namespace vit;
+  auto* mu32 = static_cast<const float*>(mu);
+  auto* rs32 = static_cast<const float*>(rstd);
+  if (vit_fused_linear_tile(x, w, n, k, dtype) == 0)
+    return launch_gemm<true>(x, w, bias, residual, mu32, rs32, gamma, beta,
+                             out, m, n, k, gelu_act, dtype, device, stream);
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  if (m <= 0 || n <= 0 || k <= 0 || !(mu && rstd && gamma && beta))
+    return cudaErrorInvalidValue;
+  return launch_wgmma_ln(x, w, bias, residual, mu32, rs32, gamma, beta, out,
+                         m, n, k, gelu_act, device,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // K11: xq (m, k) int8, ax (m,) fp32, wq (k, n) int8, wscale (n,) fp32; bias

@@ -192,6 +192,9 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [*args, _I, _I, _P]
                 fn.restype = _I
+            # Not a launch: x, w, n, k, dtype -> K6's tile (matmul.cu).
+            lib.vit_fused_linear_tile.argtypes = [_P, _P, _I, _I, _I]
+            lib.vit_fused_linear_tile.restype = _I
             lib.vit_error_string.argtypes = [_I]
             lib.vit_error_string.restype = ctypes.c_char_p
             _lib = lib

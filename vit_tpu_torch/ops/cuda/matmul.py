@@ -9,7 +9,11 @@ alignment alone: the bf16 ``wgmma`` tile fed by TMA
 (``csrc/gemm_wgmma.cuh``), which reads an operand given as the transpose of
 a contiguous matrix where it lies, or ``gemm_tile.cuh``'s tile (bf16
 ``wmma``, true-fp32 FFMA), which reads contiguous operands only: the
-wrapper copies a transposed operand for it."""
+wrapper copies a transposed operand for it. K6 runs on the same two tiles,
+by the same rule on its contiguous operands (:func:`fused_linear_path`):
+on the ``wgmma`` tile x's raw box arrives by TMA and is normalised in
+registers on its way to ``wgmma``; on ``gemm_tile.cuh``'s as it is
+staged."""
 
 from __future__ import annotations
 
@@ -118,6 +122,26 @@ def matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     return out
 
 
+def fused_linear_path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The tile K6 runs ``LN(x) @ w`` on, x (m, k) and w (k, n) contiguous:
+    :func:`gemm_path`'s choice for K2 on the same operands."""
+    k, n = w.shape
+    return gemm_path(x.numel() // k, n, k, x.dtype, False, False,
+                     (x.data_ptr(), w.data_ptr()), ((k, 1), (n, 1)))
+
+
+def fused_linear_tile(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The tile ``vit_fused_linear`` picks for contiguous x and w before it
+    launches (``csrc/matmul.cu:vit_fused_linear_tile``): ``"wgmma"``, or
+    ``gemm_tile.cuh``'s (``"wmma"`` in bf16, ``"ffma"`` in fp32)."""
+    k, n = w.shape
+    tile = _build.library().vit_fused_linear_tile(
+        x.data_ptr(), w.data_ptr(), n, k, _build.DTYPE_CODES[x.dtype])
+    if tile:
+        return "wgmma"
+    return "ffma" if x.dtype == torch.float32 else "wmma"
+
+
 def fused_linear(x: torch.Tensor, w: torch.Tensor,
                  bias: torch.Tensor | None = None,
                  activation: str | None = None, *,
@@ -126,8 +150,8 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor,
                  residual: torch.Tensor | None = None) -> torch.Tensor:
     """``act(LN(x) @ w + bias) + residual`` on CUDA tensors. With
     ``ln_scale`` and ``ln_bias`` it is two launches, as in JAX: K5 for the
-    row stats, then K6 normalising x as it stages it; without them, one
-    launch of K2, whose epilogue is the same."""
+    row stats, then K6 on the tile :func:`fused_linear_path` names; without
+    them, one launch of K2, whose epilogue is the same."""
     m, n, k, out_shape = _check(x, w, bias, activation, residual)
     if (ln_scale is None) != (ln_bias is None):
         raise ValueError("ln_scale and ln_bias go together")

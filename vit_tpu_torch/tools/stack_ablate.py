@@ -1,4 +1,4 @@
-"""Where K9's and K17's time goes on the card, by ablation.
+"""Where K9's, K17's and K6's time goes on the card, by ablation.
 
 The machinery of ``tools/i8_ablate.py``: each variant is a copy of this
 checkout's package under ``build/stack_ablate/<name>/`` whose CUDA sources
@@ -9,6 +9,9 @@ than its own duration where it overlaps other work). The variants:
 
 - ``no_attention``: K9's attention phase computes nothing (its barrier
   stays);
+- ``attn_whole``: K9's bf16 attention phase on the whole 256-thread block,
+  one 128-row query tile at a time, where K9 runs the block's two halves
+  on a 64-row tile each (the second tile size);
 - ``no_gemm``: K9's bf16 GEMM phases do nothing (the LN passes, the
   barriers, the split-K reductions, FOLD's phase 0 and the final LN
   stay);
@@ -27,14 +30,25 @@ than its own duration where it overlaps other work). The variants:
 - ``no_convert``: K17's warpgroups convert nothing (they still take and
   release each raw box);
 - ``no_k17_fc2``: K17's fc2 ``wgmma`` are not issued (rings and waits
-  stay).
+  stay);
+- ``k6_ln_regs``: K6's other design on the wgmma tile, each warp reading
+  its A fragments from x's raw box by ``ldmatrix``, normalising them in
+  registers and issuing ``wgmma`` with A from registers, where K6
+  normalises each warpgroup's half of the box in place in shared memory
+  (then a proxy fence and a warpgroup barrier) for ``wgmma`` to read by
+  descriptor;
+- ``k6_no_ln``: K6 normalises nothing (``wgmma`` reads x's raw box; the
+  fence and the barrier stay): what LN on the A operand costs.
 
 Times (bf16, the mean of 30 calls queued back to back between two CUDA
 events, variants in turns with ``base`` first and last): K9 at B/16 bs=1
 and bs=2 (12 layers, 197 real tokens of 208; ``encoder_stack`` and
-``encoder_stack_q``), K17 at B/16 bs=32 (6656 x 768, mlp 3072) and its
-model=2 shard (mlp 1536, ``partial_out``). Prints one line a variant and a
-JSON line with the card::
+``encoder_stack_q``) and at L/16 bs=1 (24 layers, 16 heads), K17 at B/16
+bs=32 (6656 x 768, mlp 3072) and its model=2 shard (mlp 1536,
+``partial_out``), K6 (with K5, as ``fused_linear`` launches them) at
+L/16-384 bs=8's LN1 + QKV (4736 x 1024 @ 1024 x 3072) and at the B/16
+bs=32 train step's (6656 x 768 @ 768 x 2304). Prints one line a variant
+and a JSON line with the card::
 
     python -m vit_tpu_torch.tools.stack_ablate [--variants base no_gemm]
 """
@@ -52,8 +66,11 @@ OUT = HERE / "build" / "stack_ablate"
 #: name -> [(file glob under csrc, pattern, replacement)], re.MULTILINE.
 VARIANTS = {
     "base": [],
-    "no_attention": [("encoder_stack.cu", r"^(\s*)attention_tile<T>\(",
-                      r"\1if (a.b < 0) attention_tile<T>(")],
+    "no_attention": [("encoder_stack.cu", r"^(\s*)attention_phase\(a, smem\);",
+                      r"\1if (a.b < 0) attention_phase(a, smem);")],
+    "attn_whole": [("encoder_stack.cu",
+                    r"return 2 \* r <= kStackMaxSmem \? 2 :",
+                    "return 2 * r <= 0 ? 2 :")],
     "no_gemm": [("stack_phase.cuh", r"^(\s*)sw::wgmma_phase<W>\(",
                  r"\1if (m < 0) sw::wgmma_phase<W>(")],
     "no_mma": [("stack_wgmma.cuh", r"^(\s*)mw::wgmma_ss<64>\(acc,",
@@ -65,8 +82,8 @@ VARIANTS = {
     "no_fence": [("stack_wgmma.cuh", r'asm volatile\("fence\.proxy\.async;"',
                   'asm volatile(""')],
     "only_barriers": [
-        ("encoder_stack.cu", r"^(\s*)attention_tile<T>\(",
-         r"\1if (a.b < 0) attention_tile<T>("),
+        ("encoder_stack.cu", r"^(\s*)attention_phase\(a, smem\);",
+         r"\1if (a.b < 0) attention_phase(a, smem);"),
         ("stack_phase.cuh", r"^(\s*)sw::wgmma_phase<W>\(",
          r"\1if (m < 0) sw::wgmma_phase<W>("),
         ("stack_phase.cuh", r"^(\s*)sw::ln_pass\(",
@@ -79,6 +96,10 @@ VARIANTS = {
                     r"\1if (k < 0) qc::store_chunk(base +")],
     "no_k17_fc2": [("mlp_q_wgmma.cuh", r"^(\s*)wgmma_ss<64 \* NB>\(",
                     r"\1if (ks < 0) wgmma_ss<64 * NB>(")],
+    "k6_ln_regs": [("matmul_wgmma.cu", r"kK6Ln = wg::kLnSmem;",
+                    "kK6Ln = wg::kLnRegs;")],
+    "k6_no_ln": [("gemm_wgmma.cuh", r"^(\s*)ln_box\(sa,",
+                  r"\1if (kb < 0) ln_box(sa,")],
 }
 
 WORKER = r"""
@@ -126,6 +147,25 @@ with torch.inference_mode():
             x, enc, num_heads=12, seq_len=197))
         res[f"k9q_bs{b}"] = queued_ms(lambda: ops.encoder_stack_q(
             x, qenc, num_heads=12, seq_len=197))
+    # L/16 at bs=1: 24 layers of D = 1024, MLP 4096, 16 heads.
+    enc16 = {g: {"kernel": rnd(24, *s, std=0.03), "bias": rnd(24, s[1],
+                                                              std=0.02)}
+             for g, s in (("qkv", (1024, 3072)), ("out", (1024, 1024)),
+                          ("fc1", (1024, 4096)), ("fc2", (4096, 1024)))}
+    for g in ("ln1", "ln2"):
+        enc16[g] = {"scale": rnd(24, 1024, std=0.1, mean=1.0),
+                    "bias": rnd(24, 1024, std=0.05)}
+    x16 = rnd(1, sp, 1024)
+    res["k9_l16_bs1"] = queued_ms(lambda: ops.encoder_stack(
+        x16, enc16, num_heads=16, seq_len=197))
+    del enc16
+    for tag, m_, k_, n_ in (("k6_l16_384", 4736, 1024, 3072),
+                            ("k6_b16", 6656, 768, 2304)):
+        args6 = (rnd(m_, k_, std=1.5, mean=0.2), rnd(k_, n_, std=0.03),
+                 rnd(n_, std=0.02))
+        g6, b6 = rnd(k_, std=0.1, mean=1.0), rnd(k_, std=0.05)
+        res[tag] = queued_ms(lambda: ops.fused_linear(
+            *args6, ln_scale=g6, ln_bias=b6))
     for tag, mlp_, partial in (("k17_b16", 3072, False),
                                ("k17_shard", 1536, True)):
         w1 = quantize_weight(rnd(d, mlp_, std=0.03))

@@ -6,7 +6,8 @@ by name and label from this checkout's ``chip_smoke.py`` (its
 ``kernel_cases*`` builders, the same inputs for both trees): K2 at B/16
 bs=32 (the QKV 6656x768 @ 768x2304 + bias in bf16 and fp32, the backward's
 ``g @ w.t()`` and ``x.t() @ g``, each beside its ``torch`` call), K4's
-bf16 attention core, K6 (LN 4736x1024 @ 1024x3072), K7 (B/16 bs=32 and
+bf16 attention core, K6 (LN 4736x1024 @ 1024x3072 and the B/16 train
+step's LN 6656x768 @ 768x2304, each beside K1 -> K2), K7 (B/16 bs=32 and
 L/16-384 bs=8 on packed QKV views, each beside SDPA, and the int8 tier's
 fp32-output B/16 shape), K8 (``embed_fused``, L/16-384 bs=4), K9 (its
 three forms at B/16 bs=1, 12 layers; the fused one beside K24's ``dma``),
@@ -20,10 +21,12 @@ bs=32, L/16-384 bs=8 and the B/16 bs=32 shard over model=2, each beside
 the case's composed K1 -> K2 -> K2 chain), K17 (``mlp_block_q`` at B/16
 bs=32 and its shard over model=2, each beside K3 on the dequantized
 weights) and K18; then the B/16 bs=32 bf16 forward on the default route,
-on ``(flash, fused=False)`` and on ``(unfused, fused=False)``, the int8
-forward (``forward_quant``; also with ``int8_dot=False`` and at L/16-384
-bs=8), the B/16 bs=1 forwards in bf16 and int8 (the stack route, K9) and
-the B/16 bs=32 bf16 train step. A checkout whose K2 reads no
+on ``(flash, fused=False)``, ``(unfused, fused=False)`` and ``(unfused,
+fused=True)`` (K6), the int8 forward (``forward_quant``; also with
+``int8_dot=False`` and at L/16-384 bs=8), the B/16 bs=1 forwards in bf16
+and int8 and the L/16 bs=1 bf16 forward (the stack route, K9), the
+L/16-384 bs=8 bf16 forward (the composed route, K6) and the B/16 bs=32
+bf16 train step. A checkout whose K2 reads no
 transposed view (no ``ops.cuda.matmul.gemm_path``) gets contiguous copies
 first, as its backward made them. Trees run in turns (other, this, this,
 other), each in its own process that builds that checkout's kernels into
@@ -60,6 +63,8 @@ CASES = {
     "core": ("kernel_cases", "bfloat16", "attention", "qkv", False),
     "fused_linear_ln": ("kernel_cases_l16_384", "bfloat16", "fused_linear",
                         "LN ", False),
+    "fused_linear_b16": ("kernel_cases", "bfloat16", "fused_linear",
+                         "LN (6656", False),
     "embed_fused": ("kernel_cases_small_batch", "bfloat16", "embed_fused",
                     "(4,576,768)", False),
     "encoder_stack": ("kernel_cases_small_batch", "bfloat16",
@@ -227,6 +232,9 @@ with torch.inference_mode():
     res["forward_unfused_chain"] = times(
         lambda: forward(params, px, cfg, attention="unfused", fused=False),
         iters=20)
+    res["forward_unfused_fused"] = times(
+        lambda: forward(params, px, cfg, attention="unfused", fused=True),
+        iters=20)
     res["forward_int8"] = times(lambda: forward_quant(qparams, px, cfg),
                                 iters=20)
     # K17's route (int8_dot=False) at bs=32, and the stack route at bs=1
@@ -238,12 +246,25 @@ with torch.inference_mode():
     res["forward_int8_bs1"] = times(
         lambda: forward_quant(qparams, px[:1], cfg), iters=20)
 del qparams
-# The int8 forward at L/16-384 bs=8 (24 layers, D = 1024: K12 in two
+# L/16 at bs=1 in bf16 (the stack route, K9 with 16 heads).
+cfg_16 = VARIANTS["L/16"].replace(dtype=torch.bfloat16, num_classes=1000)
+p_16 = init_params(cfg_16, generator=gen, device="cuda")
+with torch.inference_mode():
+    res["forward_l16_bs1"] = times(lambda: forward(p_16, px[:1], cfg_16),
+                                   iters=20)
+del p_16
+# L/16-384 at bs=8: the bf16 forward (the composed route: K6 carries LN1 +
+# QKV and LN2 + fc1) and the int8 one (24 layers, D = 1024: K12 in two
 # passes).
 cfg_l = VARIANTS["L/16-384"].replace(dtype=torch.bfloat16, num_classes=1000)
-q_l = quantize_params(init_params(cfg_l, generator=gen, device="cuda"))
+p_l = init_params(cfg_l, generator=gen, device="cuda")
 px_l = torch.randn((8, 3, cfg_l.image_size, cfg_l.image_size),
                    generator=gen, device="cuda").to(torch.bfloat16)
+with torch.inference_mode():
+    res["forward_l16_384_bs8"] = times(lambda: forward(p_l, px_l, cfg_l),
+                                       iters=10)
+q_l = quantize_params(p_l)
+del p_l
 with torch.inference_mode():
     res["forward_int8_l16_384_bs8"] = times(
         lambda: forward_quant(q_l, px_l, cfg_l), iters=10)
