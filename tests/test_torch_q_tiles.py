@@ -1031,6 +1031,11 @@ def test_k9_attention_regions_fit_every_admitted_geometry():
     for hd in (64,):
         assert attention_groups(208, hd) == 2
         assert 2 * attention_region_bytes(208, hd) <= bars
+    # The kernel's own budget is the one modelled here.
+    k9 = (CSRC / "encoder_stack.cu").read_text()
+    assert "return (attention_mma_smem(sp, dh) + 127) / 128 * 128;" in k9
+    assert ("return 2 * r <= kStackMaxSmem ? 2 : r <= kStackMaxSmem ? 1 : 0;"
+            in k9)
     phase = re.search(r"void wgmma_phase\(.*?\n}\n", K9, re.S).group(0)
     init, inval = phase.find("mbar_init(full0"), phase.find("mbarrier.inval")
     first_tma = phase.find("tma_load(")

@@ -13,11 +13,11 @@
 // 64-row tile), or in K9 either half of the 256-thread block (two tiles of
 // 64 rows at once, each half in its own region of shared memory) or the
 // whole block (a 128-row tile) where two regions do not fit; a group
-// synchronises on its own named barrier. The head's K and V rows (the keys below
-// seq_len, zero-padded to a multiple of 16 keys and the head width to a
-// multiple of 16 columns) are staged in shared memory with cp.async, rows
-// padded by 16 bytes so that ldmatrix is conflict-free; K first, so that
-// the first pass runs while V arrives. A warp's q rows go straight into A
+// synchronises on its own named barrier. The head's K and V rows (the
+// keys below seq_len, zero-padded to a multiple of 16 keys and the head
+// width to a multiple of 16 columns) are staged in shared memory with
+// cp.async, rows padded by 16 bytes so that ldmatrix is conflict-free; K
+// first, so that the first pass runs while V arrives. A warp's q rows go straight into A
 // fragments in registers. Two passes over 64-key chunks:
 //   1. s = q k^T on mma.sync, keeping only the row max (each lane holds
 //      two rows' columns; a quad of lanes reduces with __shfl_xor_sync);
@@ -133,9 +133,10 @@ __device__ __forceinline__ void attn_mma_nk(int dh, F&& f) {
 // Query rows q0 .. q0 + threads/2 - 1 of head h of image img, as
 // attention_tile<bf16> (attention_core.cuh) takes them; NK, the 16-column
 // steps of q held at once, at least min(dh' / 16, 8) (steps past dh' are
-// skipped). Called by the `threads` threads of a group (tid 0 .. threads-1, whole
-// warps; warp w takes rows q0 + 16w ..), which synchronise on named
-// barrier `bar` (K4: the block's 128 threads, barrier 0); uses
+// skipped). Called by the `threads` threads of a group (tid 0 ..
+// threads-1, whole warps; warp w takes rows q0 + 16w ..), which
+// synchronise on named barrier `bar` (K4: the block's 128 threads,
+// barrier 0); uses
 // attention_mma_smem(s, dh) bytes of smem. A caller that runs several
 // tiles in one region synchronises the group between them.
 template <int NK>
