@@ -338,12 +338,12 @@ def test_backward_hands_k2_transposed_views(monkeypatch, fn):
 
 # ------------------------------------------------------------------ K6 --
 #
-# K6 ``fused_linear`` in bf16 on the same tile (``gemm_wgmma.cuh`` with
-# ``kLnSmem``): x's raw box arrives by TMA (zeros past M and K), each
-# consumer warpgroup normalises its 64 rows of it in place in fp32 with
-# the rows' mu and rstd (K5's) and the step's gamma and beta, rounded to
-# bf16, and ``wgmma`` reads it by descriptor as K2 reads x; columns past K
-# are exact zeros.
+# K6 ``fused_linear`` in bf16 on the same tile (``gemm_wgmma.cuh``, flag
+# LN): x's raw box arrives by TMA (zeros past M and K), the producer
+# warpgroup's three LN warps normalise it in place in fp32 with the rows'
+# mu and rstd (K5's) and the step's gamma and beta, rounded to bf16, and
+# the consumers' ``wgmma`` reads it by descriptor as K2 reads x; columns
+# past K are exact zeros.
 
 K6_KB = 64  # kBK: one K step, one 128-byte box row of bf16
 
@@ -462,39 +462,42 @@ def test_k6_columns_past_k_are_zeros():
         assert (a[:min(BM, 130 - m0), :8] != 0).any()
 
 
-def ln_box_chunks(t: int) -> list:
-    """The 16-byte chunks thread ``t`` of a consumer warpgroup normalises
-    in place in ``ln_box``: (row, chunk column, byte address in the
-    warpgroup's half of the A box) for rows t / 8 + 16i, i = 0..3, chunk
-    column c = t % 8, at ``row * 128 + ((c ^ (row % 8)) << 4)`` (TMA's
-    128-byte swizzle)."""
-    c = t % 8
+LN_THREADS = 96  # gemm_wgmma.cuh: kLnThreads, the producer's warps 1-3
+
+
+def ln_box_chunks(j: int) -> list:
+    """The 16-byte chunks LN thread ``j`` normalises in place in
+    ``ln_box``: (row, chunk column, byte address in the stage's 128-row A
+    box) for rows j / 8 + 12i below 128, chunk column c = j % 8, at ``row *
+    128 + ((c ^ (row % 8)) << 4)`` (TMA's 128-byte swizzle; rows 64-127
+    are the second 8 KB box, 64 * 128 bytes on)."""
+    c = j % 8
     return [(r, c, r * 128 + ((c ^ (r & 7)) << 4))
-            for r in (t // 8 + 16 * i for i in range(4))]
+            for r in range(j // 8, BM, LN_THREADS // 8)]
 
 
 def test_k6_ln_box_covers_the_box_once_without_bank_conflicts():
-    """Design kept (the in-place normalise pass): the warpgroup's 128
-    threads normalise every 16-byte chunk of its 64 x 64 half of x's box
-    exactly once; each address holds the chunk TMA wrote there (decoded
-    back through the swizzle: row ``addr // 128``, chunk ``((addr % 128)
-    >> 4) ^ (row % 8)``), so LN's row (the thread's mu[i], rs[i] of row
-    t / 8 + 16i) and columns (k0 + 8c ..) are that chunk's; each group of
-    eight neighbouring threads (a 16-byte access's phase) reads and writes
-    one row's eight chunks, 128 bytes on distinct banks."""
+    """The design kept (the producer warpgroup's LN warps normalise the box
+    in place): the 96 LN threads normalise every 16-byte chunk of a
+    stage's 128 x 64 A box exactly once; each address holds the chunk TMA
+    wrote there (decoded back through the swizzle: row ``addr // 128``,
+    chunk ``((addr % 128) >> 4) ^ (row % 8)``), so LN's row (its mu and
+    rstd) and columns (k0 + 8c ..) are that chunk's; each group of eight
+    neighbouring threads (a 16-byte access's phase) reads and writes one
+    row's eight chunks, 128 bytes on distinct banks, at every step of its
+    row loop."""
     seen = {}
-    for t in range(128):
-        for i, (r, c, addr) in enumerate(ln_box_chunks(t)):
+    for j in range(LN_THREADS):
+        for r, c, addr in ln_box_chunks(j):
             row = addr // 128
             assert (row, ((addr % 128) >> 4) ^ (row & 7)) == (r, c)
-            assert r == t // 8 + 16 * i  # the row of mu[i], rs[i]
             seen[r, c] = seen.get((r, c), 0) + 1
-    assert len(seen) == 64 * 8 and set(seen.values()) == {1}
-    for t0 in range(0, 128, 8):
-        for i in range(4):
-            offs = {ln_box_chunks(t)[i][2] % 128 for t in range(t0, t0 + 8)}
-            rows = {ln_box_chunks(t)[i][0] for t in range(t0, t0 + 8)}
-            assert offs == set(range(0, 128, 16)) and len(rows) == 1
+    assert len(seen) == BM * 8 and set(seen.values()) == {1}
+    for j0 in range(0, LN_THREADS, 8):
+        phases = [ln_box_chunks(j) for j in range(j0, j0 + 8)]
+        for step in zip(*phases):
+            assert {a % 128 for _, _, a in step} == set(range(0, 128, 16))
+            assert len({r for r, _, _ in step}) == 1
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))

@@ -17,8 +17,8 @@
 // keys below seq_len, zero-padded to a multiple of 16 keys and the head
 // width to a multiple of 16 columns) are staged in shared memory with
 // cp.async, rows padded by 16 bytes so that ldmatrix is conflict-free; K
-// first, so that the first pass runs while V arrives. A warp's q rows go straight into A
-// fragments in registers. Two passes over 64-key chunks:
+// first, so that the first pass runs while V arrives. A warp's q rows go
+// straight into A fragments in registers. Two passes over 64-key chunks:
 //   1. s = q k^T on mma.sync, keeping only the row max (each lane holds
 //      two rows' columns; a quad of lanes reduces with __shfl_xor_sync);
 //   2. s again, p = exp(s - max), l += p, p packed to bf16 where the C
@@ -73,7 +73,7 @@ inline size_t attention_mma_smem(int s, int dh) {
 // tiles of 16 x 8, unscaled) at kc, K's rows. qf holds q's A fragments
 // for columns [0, 16 NK) when nb == 1; for wider heads (nb blocks of 128
 // columns) it is loaded from q, the rows in device memory, block by block.
-template <int NK, int G>
+template <int NK, int G, bool ROUND>
 __device__ __forceinline__ void attn_mma_scores(
     float (&sc)[2 * G][4], uint32_t (&qf)[NK][4], const bf16* q, size_t ldg,
     int qrows, int dh, const bf16* kc, int ld, int dhp, int nb, int lane) {
@@ -91,7 +91,7 @@ __device__ __forceinline__ void attn_mma_scores(
     }
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
-      if (c0 + 16 * kk >= dhp) break;
+      if ((NK == kAttnMmaMaxK || ROUND) && c0 + 16 * kk >= dhp) break;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         uint32_t bk[4];
@@ -132,14 +132,14 @@ __device__ __forceinline__ void attn_mma_nk(int dh, F&& f) {
 
 // Query rows q0 .. q0 + threads/2 - 1 of head h of image img, as
 // attention_tile<bf16> (attention_core.cuh) takes them; NK, the 16-column
-// steps of q held at once, at least min(dh' / 16, 8) (steps past dh' are
-// skipped). Called by the `threads` threads of a group (tid 0 ..
-// threads-1, whole warps; warp w takes rows q0 + 16w ..), which
-// synchronise on named barrier `bar` (K4: the block's 128 threads,
-// barrier 0); uses
+// steps of q held at once: min(dh' / 16, 8), or with ROUND any larger
+// count up to 8 (K9's three forms), whose steps past dh' are skipped.
+// Called by the `threads` threads of a group (tid 0 .. threads-1, whole
+// warps; warp w takes rows q0 + 16w ..), which synchronise on named
+// barrier `bar` (K4: the block's 128 threads, barrier 0); uses
 // attention_mma_smem(s, dh) bytes of smem. A caller that runs several
 // tiles in one region synchronises the group between them.
-template <int NK>
+template <int NK, bool ROUND = false>
 __device__ __forceinline__ void attention_tile_mma(
     const bf16* qkv, bf16* out, int s, int d, int dh, float scale,
     int seq_len, int img, int h, int q0, unsigned char* smem, int tid,
@@ -172,7 +172,7 @@ __device__ __forceinline__ void attention_tile_mma(
   if (active && nb == 1) {
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk)
-      if (16 * kk < dhp)
+      if (!ROUND || 16 * kk < dhp)
         load_a_global(qf[kk], q, ldg, qrows, 16 * kk, dh, lane);
   }
   // The lane's rows are r0 + lane/4 (index 0) and r0 + lane/4 + 8 (1); its
@@ -190,8 +190,8 @@ __device__ __forceinline__ void attention_tile_mma(
       attn_mma_groups(min(kend - k0, kAttnMmaChunk) / 16, [&](auto groups) {
         constexpr int G = decltype(groups)::value;
         float sc[2 * G][4];
-        attn_mma_scores<NK, G>(sc, qf, q, ldg, qrows, dh, ks + k0 * ld, ld,
-                               dhp, nb, lane);
+        attn_mma_scores<NK, G, ROUND>(sc, qf, q, ldg, qrows, dh,
+                                      ks + k0 * ld, ld, dhp, nb, lane);
 #pragma unroll
         for (int j = 0; j < 2 * G; ++j)
 #pragma unroll
@@ -223,8 +223,8 @@ __device__ __forceinline__ void attention_tile_mma(
       attn_mma_groups(min(kend - k0, kAttnMmaChunk) / 16, [&](auto groups) {
         constexpr int G = decltype(groups)::value;
         float sc[2 * G][4];
-        attn_mma_scores<NK, G>(sc, qf, q, ldg, qrows, dh, ks + k0 * ld, ld,
-                               dhp, nb, lane);
+        attn_mma_scores<NK, G, ROUND>(sc, qf, q, ldg, qrows, dh,
+                                      ks + k0 * ld, ld, dhp, nb, lane);
 #pragma unroll
         for (int j = 0; j < 2 * G; ++j)
 #pragma unroll
@@ -239,7 +239,8 @@ __device__ __forceinline__ void attention_tile_mma(
           pack_a(pa, sc[2 * g], sc[2 * g + 1]);
 #pragma unroll
           for (int kk = 0; kk < NK; ++kk) {
-            if (n0 + 16 * kk >= dhp) break;
+            if ((NK == kAttnMmaMaxK || ROUND) && n0 + 16 * kk >= dhp)
+              break;
             uint32_t bv[4];
             ldmatrix_b_rowmajor(bv, vs + k0 * ld, ld, 16 * g, n0 + 16 * kk,
                                 lane);

@@ -261,7 +261,7 @@ __device__ __forceinline__ void attention_phase(const StackArgs<T, W>& a,
       const int img = t / (a.heads * q_tiles);
       const int h = t / q_tiles % a.heads;
       attn_mma_nk(dh, [&](auto nk) {
-        attention_tile_mma<decltype(nk)::value>(
+        attention_tile_mma<decltype(nk)::value, true>(
             a.qkv, a.ctx, a.sp, D, dh, a.scale, a.seq_len, img, h,
             t % q_tiles * qt, region, tid, threads, bar);
       });

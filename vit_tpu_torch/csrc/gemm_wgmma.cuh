@@ -40,6 +40,20 @@
 // operand (its transpose bits), so a transposed operand costs nothing: the
 // training backward's x.t() @ g and g @ w.t() read x and w where they lie.
 //
+// K6, fused_linear (vit_tpu/ops/pallas/matmul.py:fused_linear, its
+// pallas_call at :388), runs on this tile in bf16 (template flag LN,
+// matmul_wgmma.cu:launch_wgmma_ln) wherever gemm_path would give K2 the
+// wgmma tile on its (contiguous) x and w. x's raw box arrives by TMA on a
+// third barrier a stage, and the producer warpgroup's three idle warps
+// normalise it in place -- ((x - mu) * rstd) * gamma + beta in fp32 with
+// K5's row stats, rounded to bf16, zero past K -- fence it for the async
+// proxy and arrive on the stage's full barrier; the consumers then run
+// K2's loop unchanged. The pass runs up to the ring's depth ahead of the
+// products. Two designs that put the pass on the consumers were slower
+// (PERF.md section 6, PR 16): A fragments read by ldmatrix and normalised
+// in registers for wgmma with A from registers, and each consumer
+// warpgroup normalising its half of the box in place before its wgmma.
+//
 // Ragged edges: TMA fills every element of a box outside the tensor with
 // zeros and still counts the whole box's bytes, so sums past M, N or K are
 // zeros; the epilogue masks rows and columns past M and N. The sum of an
@@ -86,8 +100,18 @@ constexpr int kStageBytes = kABytes + kBN * kBK * 2;
 constexpr int kLdc = kBN + 8;  // staging row in bf16: no bank conflicts
 constexpr int kCOff = kStages * kStageBytes;
 constexpr int kBarOff = kCOff + 2 * 64 * kLdc * 2;
-// + 1024 so that the base can be aligned to a swizzle atom: 199,760 bytes.
-constexpr int kSmem = kBarOff + 2 * kStages * 8 + 1024;
+// Three barriers a stage (K2 uses two), + 1024 so that the base can be
+// aligned to a swizzle atom: 199,800 bytes.
+constexpr int kSmem = kBarOff + 3 * kStages * 8 + 1024;
+
+// K6 (LN): the producer warpgroup's warps 1-3 normalise each stage's x box
+// in place between its TMA and the consumers; they need registers the
+// consumers give up.
+constexpr int kLnThreads = 96;  // threads 288-383
+constexpr int kLnProducerRegs = 64;
+constexpr int kLnConsumerRegs = 216;
+static_assert(256 * kLnConsumerRegs + 128 * kLnProducerRegs <= kPoolRegs,
+              "K6's split fits K2's pool");
 
 // K6's LN prologue on the A operand: the row stats mu and rstd (M,) from
 // K5, gamma and beta (K,); vec: gamma and beta 16-byte aligned.
@@ -99,13 +123,6 @@ struct WgLn {
   int k;
   bool vec;
 };
-
-// How the LN'd A operand reaches wgmma (the kernel's template parameter
-// LN): none (K2), from registers (kLnRegs: each warp's A fragments read
-// from the raw x box by ldmatrix, normalised and packed in registers), or
-// through shared memory (kLnSmem: each warpgroup normalises its half of
-// the raw box in place, then wgmma reads it by descriptor).
-constexpr int kLnNone = 0, kLnRegs = 1, kLnSmem = 2;
 
 // The epilogue's operands: bias (N,) and residual (M, N) may be null.
 struct WgEpilogue {
@@ -238,31 +255,6 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "n"(1), "n"(TA), "n"(TB));
 }
 
-// d += A (64 x 16, this warp's 16 rows in a[], the mma.sync A fragment
-// layout: a[0] = (g, 2t..), a[1] = (g + 8, 2t..), a[2] = (g, 2t + 8..),
-// a[3] = (g + 8, 2t + 8..), g = lane / 4, t = lane % 4, warp w of the
-// warpgroup rows 16w..) @ B (16 x 128) by descriptor; TB the transpose bit.
-template <int TB>
-__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : VIT_F64(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1),
-        "n"(TB));
-}
-
 #undef VIT_F64
 #undef VIT_F8
 
@@ -281,68 +273,9 @@ __device__ __forceinline__ float bf_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-// gamma and beta at columns c, c + 1 (c even, inside K).
-__device__ __forceinline__ void ln_pair(const WgLn& ln, int c, float (&g)[2],
-                                        float (&b)[2]) {
-  if (ln.vec) {
-    const uint32_t gw = __ldg(reinterpret_cast<const unsigned int*>(
-        ln.gamma + c));
-    const uint32_t bw = __ldg(reinterpret_cast<const unsigned int*>(
-        ln.beta + c));
-    g[0] = bf_lo(gw);
-    g[1] = bf_hi(gw);
-    b[0] = bf_lo(bw);
-    b[1] = bf_hi(bw);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      g[i] = to_f32(ln.gamma[c + i]);
-      b[i] = to_f32(ln.beta[c + i]);
-    }
-  }
-}
-
-// kLnRegs: the A fragment of k16 step kk of this warp's 16 rows, read from
-// the warpgroup's raw x box at sa (64 rows of 128 bytes, 128-byte swizzle:
-// 16-byte chunk j of row r at chunk j ^ (r % 8)) by ldmatrix.x4 (lanes
-// 0-15 rows 16w + lane at chunk 2kk, lanes 16-31 the same rows at 2kk + 1),
-// then normalised: rows g and g + 8 with (mu[0], rs[0]) and (mu[1],
-// rs[1]), columns k0 + 16kk + 2t + {0, 1} (a[0], a[1]) and + 8 (a[2],
-// a[3]); zero at columns >= K (K is a multiple of 8 on this tile).
-__device__ __forceinline__ void ln_a_frag(uint32_t (&a)[4], uint32_t sa,
-                                          int kk, int k0, const WgLn& ln,
-                                          const float (&mu)[2],
-                                          const float (&rs)[2], int warp,
-                                          int lane) {
-  const int row = 16 * warp + (lane & 15);
-  const int chunk = 2 * kk + (lane >> 4);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(sa + row * 128 + ((chunk ^ (row & 7)) << 4)));
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = k0 + 16 * kk + 8 * h + 2 * (lane & 3);
-    if (c >= ln.k) {
-      a[2 * h] = a[2 * h + 1] = 0u;
-      continue;
-    }
-    float g[2], b[2];
-    ln_pair(ln, c, g, b);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const uint32_t w = a[2 * h + r];
-      const __nv_bfloat162 y = __floats2bfloat162_rn(
-          ln_elem(bf_lo(w), mu[r], rs[r], g[0], b[0]),
-          ln_elem(bf_hi(w), mu[r], rs[r], g[1], b[1]));
-      a[2 * h + r] = *reinterpret_cast<const uint32_t*>(&y);
-    }
-  }
-}
-
-// kLnSmem: gamma and beta of thread t's chunk column c = t % 8 of a K
-// step, columns col .. col + 7 (col = k0 + 8c; none read past K). They do
-// not depend on x, so each step's are loaded during the step before.
+// K6: gamma and beta of LN thread j's chunk column c = j % 8 of a K step,
+// columns col .. col + 7 (col = k0 + 8c; none read past K). They do not
+// depend on x, so each step's are loaded before its box arrives.
 __device__ __forceinline__ void ln_gb(const WgLn& ln, int col, float (&g)[8],
                                       float (&b)[8]) {
   if (col >= ln.k) return;
@@ -367,48 +300,57 @@ __device__ __forceinline__ void ln_gb(const WgLn& ln, int col, float (&g)[8],
   }
 }
 
-// kLnSmem: normalise, in place, the warpgroup's 64 rows x 64 columns of
-// the raw x box at sa: thread t takes chunk column c = t % 8 (columns col
-// = k0 + 8c ..) of rows t / 8 + 16i, i = 0..3, with the rows' (mu[i],
-// rs[i]) and the chunk's gamma and beta (ln_gb); chunks at columns >= K
-// become zeros. Eight neighbouring threads cover one row's 128 bytes: no
-// bank conflict. The four loads go out before any store. The caller
-// fences the writes for the async proxy and synchronises the warpgroup.
-__device__ __forceinline__ void ln_box(uint32_t sa, int col, const WgLn& ln,
-                                       const float (&mu)[4],
-                                       const float (&rs)[4],
-                                       const float (&g)[8],
-                                       const float (&b)[8], int t) {
-  const int c = t % 8;
+// K6: normalise, in place, the 128 x 64 raw x box of a stage at sa (rows
+// m0 .., columns k0 ..), by LN thread j (0 .. kLnThreads - 1): chunk
+// column c = j % 8 (columns col = k0 + 8c ..) of rows j / 8 + 12i, each
+// with its row's mu and rstd (0 past M, where TMA read zeros and nothing
+// is stored) and the chunk's gamma and beta (ln_gb); chunks at columns
+// >= K become zeros. Eight neighbouring threads cover one row's 128
+// bytes: no bank conflict. The caller fences the writes for the async
+// proxy before it tells the consumers.
+__device__ __forceinline__ void ln_box(uint32_t sa, int m0, int m, int col,
+                                       const WgLn& ln, const float (&g)[8],
+                                       const float (&b)[8], int j) {
+  constexpr int kStep = kLnThreads / 8;  // rows between a thread's rows
+  const int c = j % 8;
   const bool in = col < ln.k;
-  uint32_t addr[4], v[4][4];
+  // Four rows at a time: their loads go out before any store.
+  for (int r0 = j / 8; r0 < kBM; r0 += 4 * kStep) {
+    uint32_t addr[4], v[4][4];
+    float mu[4], rs[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = t / 8 + 16 * i;
-    addr[i] = sa + r * 128 + ((c ^ (r & 7)) << 4);
-    v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0u;
-    if (in)
-      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
-                   : "=r"(v[i][0]), "=r"(v[i][1]), "=r"(v[i][2]),
-                     "=r"(v[i][3])
-                   : "r"(addr[i]));
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!in) break;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const __nv_bfloat162 y = __floats2bfloat162_rn(
-          ln_elem(bf_lo(v[i][e]), mu[i], rs[i], g[2 * e], b[2 * e]),
-          ln_elem(bf_hi(v[i][e]), mu[i], rs[i], g[2 * e + 1], b[2 * e + 1]));
-      v[i][e] = *reinterpret_cast<const uint32_t*>(&y);
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + i * kStep, row = m0 + r;
+      addr[i] = sa + r * 128 + ((c ^ (r & 7)) << 4);
+      v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0u;
+      mu[i] = row < m ? ln.mu[row] : 0.f;
+      rs[i] = row < m ? ln.rstd[row] : 0.f;
+      if (in && r < kBM)
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(v[i][0]), "=r"(v[i][1]), "=r"(v[i][2]),
+                       "=r"(v[i][3])
+                     : "r"(addr[i]));
     }
-  }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr[i]),
-                 "r"(v[i][0]), "r"(v[i][1]), "r"(v[i][2]), "r"(v[i][3])
-                 : "memory");
+    for (int i = 0; i < 4; ++i) {
+      if (!in) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 y = __floats2bfloat162_rn(
+            ln_elem(bf_lo(v[i][e]), mu[i], rs[i], g[2 * e], b[2 * e]),
+            ln_elem(bf_hi(v[i][e]), mu[i], rs[i], g[2 * e + 1],
+                    b[2 * e + 1]));
+        v[i][e] = *reinterpret_cast<const uint32_t*>(&y);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (r0 + i * kStep < kBM)
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
+                         addr[i]),
+                     "r"(v[i][0]), "r"(v[i][1]), "r"(v[i][2]), "r"(v[i][3])
+                     : "memory");
+  }
 }
 
 __device__ __forceinline__ void named_sync(int id) {
@@ -494,28 +436,34 @@ __device__ __forceinline__ void mma_step_ss(float (&d)[64], uint32_t sa,
 
 // (m, k) @ (k, n): A through map_a, B through map_b (see the header
 // comment for their boxes); TA: A is the view of a (k, m) matrix; TB: B is
-// the view of an (n, k) matrix. LN (K6, A and B as they lie): A is x,
-// normalised with `ln` on its way to wgmma (kLnRegs or kLnSmem).
-template <int TA, int TB, int LN = kLnNone>
+// the view of an (n, k) matrix. LN (K6, A and B as they lie): the
+// producer warpgroup's warps 1-3 normalise each stage's x box with `ln`
+// in place between its TMA and the consumers' wgmma.
+template <int TA, int TB, bool LN = false>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_bf16_wgmma(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b,
                     WgEpilogue ep, int k, WgLn ln) {
-  static_assert(LN == kLnNone || (TA == 0 && TB == 0),
-                "K6 reads x and w as they lie");
+  static_assert(!LN || (TA == 0 && TB == 0), "K6 reads x and w as they lie");
   extern __shared__ uint8_t wg_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
   const uint32_t base = smem_u32(smem);
+  // full: the stage holds A and B for the consumers; empty: both consumer
+  // warpgroups are done with it; LN: raw, TMA's bytes have arrived, and
+  // full is the LN threads' arrivals after their pass.
   const uint32_t full0 = base + kBarOff, empty0 = full0 + 8 * kStages;
+  const uint32_t raw0 = empty0 + 8 * kStages;
   const int tiles_m = (ep.m + kBM - 1) / kBM;
   const int tiles = tiles_m * ((ep.n + kBN - 1) / kBN);
   const int nk = (k + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);   // the producer's arrive + the bytes
+      // The producer's arrive + the bytes; with LN, the LN threads'.
+      mbar_init(full0 + 8 * s, LN ? kLnThreads : 1);
       mbar_init(empty0 + 8 * s, 2);  // one arrive a consumer warpgroup
+      if (LN) mbar_init(raw0 + 8 * s, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -524,7 +472,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wgi = threadIdx.x / 128;
   if (wgi == 2) {
     // ---- producer ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        LN ? kLnProducerRegs : kProducerRegs));
     if (threadIdx.x == 256) {
       int s = 0;
       uint32_t ph = 0;
@@ -533,7 +482,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kb = 0; kb < nk; ++kb) {
           const int k0 = kb * kBK;
           mbar_wait(empty0 + 8 * s, ph ^ 1);
-          const uint32_t full = full0 + 8 * s;
+          const uint32_t full = (LN ? raw0 : full0) + 8 * s;
           mbar_expect_tx(full, kStageBytes);
           const uint32_t sa = base + s * kStageBytes, sb = sa + kABytes;
           if (TA) {
@@ -554,90 +503,64 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
+    } else if (LN && threadIdx.x >= 384 - kLnThreads) {
+      // The LN threads: each stage's x box, normalised in place, in the
+      // ring's order; the stage is the consumers' once every LN thread
+      // has fenced its writes and arrived.
+      const int j = threadIdx.x - (384 - kLnThreads);
+      int s = 0;
+      uint32_t ph = 0;
+      float g[8], b[8];
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % tiles_m) * kBM;
+        for (int kb = 0; kb < nk; ++kb) {
+          const int col = kb * kBK + 8 * (j % 8);
+          ln_gb(ln, col, g, b);
+          mbar_wait(raw0 + 8 * s, ph);
+          ln_box(base + s * kStageBytes, m0, ep.m, col, ln, g, b, j);
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_arrive(full0 + 8 * s);
+          if (++s == kStages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
     }
   } else {
     // ---- consumers ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
-    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+        LN ? kLnConsumerRegs : kConsumerRegs));
     float d[64];
     bf16* cs = reinterpret_cast<bf16*>(smem + kCOff) + wgi * 64 * kLdc;
     int s = 0;
     uint32_t ph = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile % tiles_m) * kBM, n0 = (tile / tiles_m) * kBN;
-      // LN: the stats of this thread's rows of the tile (rows past M, TMA
-      // zeros, take 0 and are not stored), kLnRegs rows 16 warp + lane/4
-      // (+ 8), kLnSmem rows t/8 + 16i of the warpgroup's 64.
-      constexpr int NR = LN == kLnSmem ? 4 : 2;
-      float mu[NR], rs[NR];
-      if constexpr (LN != kLnNone) {
-#pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          const int r = m0 + 64 * wgi +
-                        (LN == kLnSmem ? t / 8 + 16 * i
-                                       : 16 * warp + lane / 4 + 8 * i);
-          mu[i] = r < ep.m ? ln.mu[r] : 0.f;
-          rs[i] = r < ep.m ? ln.rstd[r] : 0.f;
-        }
-      }
 #pragma unroll
       for (int i = 0; i < 64; ++i) d[i] = 0.f;
       fence_acc(d);
       int prev = -1;
-      // One K step on stage s: wait for it, issue its wgmma group, wait
-      // for the previous step's group and release that step's stage. With
-      // kLnRegs, af holds the step's A fragments: the previous group reads
-      // the other buffer until the wait.
-      // kLnSmem: this thread's gamma and beta of the step at hand, loaded
-      // a step ahead (the first step's here).
-      float g[8], b[8];
-      if constexpr (LN == kLnSmem) ln_gb(ln, 8 * (t % 8), g, b);
-      auto step = [&](int kb, uint32_t (&af)[kBK / 16][4]) {
+      for (int kb = 0; kb < nk; ++kb) {
         mbar_wait(full0 + 8 * s, ph);
         const uint32_t sa = base + s * kStageBytes + wgi * kAtom;
         const uint32_t sb = base + s * kStageBytes + kABytes;
-        if constexpr (LN == kLnRegs) {
-#pragma unroll
-          for (int kk = 0; kk < kBK / 16; ++kk)
-            ln_a_frag(af[kk], sa, kk, kb * kBK, ln, mu, rs, warp, lane);
-        } else if constexpr (LN == kLnSmem) {
-          ln_box(sa, kb * kBK + 8 * (t % 8), ln, mu, rs, g, b, t);
-          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          named_sync(1 + wgi);  // the warpgroup's half is normalised
-        }
         wgmma_fence();
-        if constexpr (LN == kLnRegs) {
-#pragma unroll
-          for (int kk = 0; kk < kBK / 16; ++kk)
-            wgmma_bf16_rs<1>(d, af[kk], sw128_desc(sb + kk * 2048, kAtom,
-                                                   1024));
-        } else {
-          mma_step_ss<TA, TB>(d, sa, sb);
-        }
+        mma_step_ss<TA, TB>(d, sa, sb);
         wgmma_commit();
-        if constexpr (LN == kLnSmem)  // the next step's (or next tile's)
-          ln_gb(ln, (kb + 1) % nk * kBK + 8 * (t % 8), g, b);
         wgmma_wait<1>();  // the previous step's products are done
         fence_acc(d);
-        if (prev >= 0 && t == 0) mbar_arrive(empty0 + 8 * prev);
+        if (prev >= 0 && threadIdx.x % 128 == 0)
+          mbar_arrive(empty0 + 8 * prev);
         prev = s;
         if (++s == kStages) {
           s = 0;
           ph ^= 1;
         }
-      };
-      uint32_t a0[kBK / 16][4], a1[kBK / 16][4];
-      int kb = 0;
-      if constexpr (LN == kLnRegs) {
-        for (; kb + 1 < nk; kb += 2) {
-          step(kb, a0);
-          step(kb + 1, a1);
-        }
       }
-      for (; kb < nk; ++kb) step(kb, a0);
       wgmma_wait<0>();
       fence_acc(d);
-      if (t == 0) mbar_arrive(empty0 + 8 * prev);
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty0 + 8 * prev);
       epilogue(d, ep, m0 + 64 * wgi, n0, cs, wgi);
     }
   }

@@ -29,14 +29,13 @@
 // fp32, ((x - mu) * rstd) * gamma + beta, rounded to bf16 before the
 // product. LN(x) never reaches device memory. In bf16, where TMA can read
 // x and w (wgmma_takes, gemm_path's rule), on the wgmma tile: x's raw box
-// arrives by TMA, and each consumer warp reads its A fragments from it by
-// ldmatrix, normalises them in registers (its rows' mu and rstd held for
-// the tile, each step's gamma and beta from L1) and issues wgmma with A
-// from registers, while the previous step's group is in flight; columns
-// past K are exact zeros. Elsewhere, and in fp32, each element of an A
-// tile of gemm_tile.cuh is normalised as it is staged (template flag LN).
-// Without LN, the fused_linear wrapper launches K2, which has the same
-// residual epilogue.
+// arrives by TMA and the producer warpgroup's idle warps normalise it in
+// shared memory (K5's row stats, each step's gamma and beta loaded before
+// its box arrives, columns past K exact zeros) before the consumers'
+// wgmma reads it (gemm_wgmma.cuh). Elsewhere, and in fp32, each element
+// of an A tile of gemm_tile.cuh is normalised as it is staged (template
+// flag LN). Without LN, the fused_linear wrapper launches K2, which has
+// the same residual epilogue.
 //
 // K11, matmul_i8: xq (M, K) int8 @ wq (K, N) int8 with exact int32 sums,
 // then in fp32 (acc * ax[row]) * wscale[col], + bias, GELU, + residual, one

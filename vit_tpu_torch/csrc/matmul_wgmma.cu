@@ -1,7 +1,8 @@
-// K2's bf16 launch on the wgmma tile of gemm_wgmma.cuh (see there and
-// matmul.cu): the tensor maps of both operands, encoded on the host, and
-// one persistent block an SM. It is its own unit so that matmul.cu's
-// kernels (K2's other tiles, K6, K11) compile as they did without it.
+// K2's and K6's bf16 launches on the wgmma tile of gemm_wgmma.cuh (see
+// there and matmul.cu): the tensor maps of both operands, encoded on the
+// host, and one persistent block an SM. It is its own unit so that
+// matmul.cu's kernels (K2's and K6's other tiles, K11) compile as they did
+// without it.
 
 #include "gemm_tile.cuh"
 #include "gemm_wgmma.cuh"
@@ -83,11 +84,11 @@ bool tensor_map_i8_dense(CUtensorMap* map, const void* p, int rows, int cols,
 // (set once: the host cost of a launch counts at K2's smaller shapes).
 constexpr int kMaxDevices = 64;
 
-template <int TA, int TB>
+template <int TA, int TB, bool LN = false>
 cudaError_t launch_wgmma_tile(const CUtensorMap& ma, const CUtensorMap& mb,
                               const wg::WgEpilogue& ep, int k, int device,
-                              cudaStream_t st) {
-  auto kernel = wg::gemm_bf16_wgmma<TA, TB>;
+                              cudaStream_t st, const wg::WgLn& ln = {}) {
+  auto kernel = wg::gemm_bf16_wgmma<TA, TB, LN>;
   static int sm_count[kMaxDevices];  // 0 until the device's first launch
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   int& sms = sm_count[device];
@@ -112,8 +113,19 @@ cudaError_t launch_wgmma_tile(const CUtensorMap& ma, const CUtensorMap& mb,
       static_cast<long long>((ep.m + wg::kBM - 1) / wg::kBM) *
       ((ep.n + wg::kBN - 1) / wg::kBN);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  kernel<<<grid, wg::kThreads, wg::kSmem, st>>>(ma, mb, ep, k);
+  kernel<<<grid, wg::kThreads, wg::kSmem, st>>>(ma, mb, ep, k, ln);
   return cudaGetLastError();
+}
+
+// The epilogue of K2 and K6 on this tile.
+static wg::WgEpilogue wg_epilogue(const void* bias, const void* residual,
+                                  void* out, int m, int n, int gelu_act) {
+  return wg::WgEpilogue{
+      static_cast<const bf16*>(bias), static_cast<const bf16*>(residual),
+      static_cast<bf16*>(out), m, n, gelu_act,
+      residual != nullptr && reinterpret_cast<uintptr_t>(residual) % 4 == 0 &&
+          n % 2 == 0,
+      aligned16(out) && n % 8 == 0};
 }
 
 // K2 on the wgmma tile.
@@ -129,17 +141,40 @@ cudaError_t launch_wgmma(const void* x, const void* w, const void* bias,
   const bool ok_b = trans_b ? tensor_map(&mb, w, n, k, k, 64, wg::kBN)
                             : tensor_map(&mb, w, k, n, n, 64, 64);
   if (!ok_a || !ok_b) return cudaErrorInvalidValue;
-  const wg::WgEpilogue ep{
-      static_cast<const bf16*>(bias), static_cast<const bf16*>(residual),
-      static_cast<bf16*>(out), m, n, gelu_act,
-      residual != nullptr && reinterpret_cast<uintptr_t>(residual) % 4 == 0 &&
-          n % 2 == 0,
-      aligned16(out) && n % 8 == 0};
+  const wg::WgEpilogue ep =
+      wg_epilogue(bias, residual, out, m, n, gelu_act);
   if (trans_a)
     return trans_b ? launch_wgmma_tile<1, 1>(ma, mb, ep, k, device, st)
                    : launch_wgmma_tile<1, 0>(ma, mb, ep, k, device, st);
   return trans_b ? launch_wgmma_tile<0, 1>(ma, mb, ep, k, device, st)
                  : launch_wgmma_tile<0, 0>(ma, mb, ep, k, device, st);
+}
+
+// Whether K6 (and K2 on the same contiguous operands) runs on this tile:
+// TMA reads x (m, k) and w (k, n) where both bases are 16-byte aligned and
+// both row strides a multiple of 8 elements
+// (vit_tpu_torch/ops/cuda/matmul.py:gemm_path's rule).
+bool wgmma_takes(const void* x, const void* w, int n, int k) {
+  return aligned16(x) && aligned16(w) && k % 8 == 0 && n % 8 == 0;
+}
+
+// K6 on the wgmma tile: act(LN(x) @ w + bias) + residual, x (m, k) and w
+// (k, n) contiguous, LN with K5's mu and rstd.
+cudaError_t launch_wgmma_ln(const void* x, const void* w, const void* bias,
+                            const void* residual, const float* mu,
+                            const float* rstd, const void* gamma,
+                            const void* beta, void* out, int m, int n, int k,
+                            int gelu_act, int device, cudaStream_t st) {
+  CUtensorMap ma, mb;
+  if (!tensor_map(&ma, x, m, k, k, 64, wg::kBM) ||
+      !tensor_map(&mb, w, k, n, n, 64, 64))
+    return cudaErrorInvalidValue;
+  const wg::WgLn ln{mu, rstd, static_cast<const bf16*>(gamma),
+                    static_cast<const bf16*>(beta), k,
+                    aligned16(gamma) && aligned16(beta)};
+  return launch_wgmma_tile<0, 0, true>(
+      ma, mb, wg_epilogue(bias, residual, out, m, n, gelu_act), k, device,
+      st, ln);
 }
 
 }  // namespace vit

@@ -31,14 +31,9 @@ than its own duration where it overlaps other work). The variants:
   release each raw box);
 - ``no_k17_fc2``: K17's fc2 ``wgmma`` are not issued (rings and waits
   stay);
-- ``k6_ln_regs``: K6's other design on the wgmma tile, each warp reading
-  its A fragments from x's raw box by ``ldmatrix``, normalising them in
-  registers and issuing ``wgmma`` with A from registers, where K6
-  normalises each warpgroup's half of the box in place in shared memory
-  (then a proxy fence and a warpgroup barrier) for ``wgmma`` to read by
-  descriptor;
-- ``k6_no_ln``: K6 normalises nothing (``wgmma`` reads x's raw box; the
-  fence and the barrier stay): what LN on the A operand costs.
+- ``k6_no_ln``: K6's LN threads normalise nothing (they still wait for
+  each box, fence and hand it on; ``wgmma`` reads x's raw box): what LN
+  on the A operand costs.
 
 Times (bf16, the mean of 30 calls queued back to back between two CUDA
 events, variants in turns with ``base`` first and last): K9 at B/16 bs=1
@@ -96,10 +91,8 @@ VARIANTS = {
                     r"\1if (k < 0) qc::store_chunk(base +")],
     "no_k17_fc2": [("mlp_q_wgmma.cuh", r"^(\s*)wgmma_ss<64 \* NB>\(",
                     r"\1if (ks < 0) wgmma_ss<64 * NB>(")],
-    "k6_ln_regs": [("matmul_wgmma.cu", r"kK6Ln = wg::kLnSmem;",
-                    "kK6Ln = wg::kLnRegs;")],
-    "k6_no_ln": [("gemm_wgmma.cuh", r"^(\s*)ln_box\(sa,",
-                  r"\1if (kb < 0) ln_box(sa,")],
+    "k6_no_ln": [("gemm_wgmma.cuh", r"^(\s*)ln_box\(base \+",
+                  r"\1if (kb < 0) ln_box(base +")],
 }
 
 WORKER = r"""
