@@ -108,8 +108,10 @@ constexpr int kSmem = kBarOff + 3 * kStages * 8 + 1024;
 // in place between its TMA and the consumers; they need registers the
 // consumers give up.
 constexpr int kLnThreads = 96;  // threads 288-383
-constexpr int kLnProducerRegs = 64;
-constexpr int kLnConsumerRegs = 216;
+constexpr int kLnStep = kLnThreads / 8;  // rows between an LN thread's rows
+constexpr int kLnRows = (kBM + kLnStep - 1) / kLnStep;  // rows a thread
+constexpr int kLnProducerRegs = 88;
+constexpr int kLnConsumerRegs = 208;
 static_assert(256 * kLnConsumerRegs + 128 * kLnProducerRegs <= kPoolRegs,
               "K6's split fits K2's pool");
 
@@ -300,55 +302,69 @@ __device__ __forceinline__ void ln_gb(const WgLn& ln, int col, float (&g)[8],
   }
 }
 
-// K6: normalise, in place, the 128 x 64 raw x box of a stage at sa (rows
-// m0 .., columns k0 ..), by LN thread j (0 .. kLnThreads - 1): chunk
-// column c = j % 8 (columns col = k0 + 8c ..) of rows j / 8 + 12i, each
-// with its row's mu and rstd (0 past M, where TMA read zeros and nothing
-// is stored) and the chunk's gamma and beta (ln_gb); chunks at columns
-// >= K become zeros. Eight neighbouring threads cover one row's 128
-// bytes: no bank conflict. The caller fences the writes for the async
-// proxy before it tells the consumers.
-__device__ __forceinline__ void ln_box(uint32_t sa, int m0, int m, int col,
-                                       const WgLn& ln, const float (&g)[8],
+// K6: the stats of LN thread j's rows of the tile at m0, rows j / 8 +
+// kLnStep * i (0 past M, where TMA reads zeros and nothing is stored),
+// held for the tile's K steps.
+__device__ __forceinline__ void ln_stats(const WgLn& ln, int m0, int m,
+                                         int j, float (&mu)[kLnRows],
+                                         float (&rs)[kLnRows]) {
+#pragma unroll
+  for (int i = 0; i < kLnRows; ++i) {
+    const int row = m0 + j / 8 + kLnStep * i;
+    const bool live = j / 8 + kLnStep * i < kBM && row < m;
+    mu[i] = live ? ln.mu[row] : 0.f;
+    rs[i] = live ? ln.rstd[row] : 0.f;
+  }
+}
+
+// K6: normalise, in place, the 128 x 64 raw x box of a stage at sa
+// (columns k0 ..), by LN thread j (0 .. kLnThreads - 1): chunk column
+// c = j % 8 (columns col = k0 + 8c ..) of its rows (ln_stats), with the
+// chunk's gamma and beta (ln_gb); chunks at columns >= K become zeros.
+// Eight neighbouring threads cover one row's 128 bytes: no bank
+// conflict. Four rows at a time, their loads before any store. The
+// caller fences the writes for the async proxy before it tells the
+// consumers.
+__device__ __forceinline__ void ln_box(uint32_t sa, int col, const WgLn& ln,
+                                       const float (&mu)[kLnRows],
+                                       const float (&rs)[kLnRows],
+                                       const float (&g)[8],
                                        const float (&b)[8], int j) {
-  constexpr int kStep = kLnThreads / 8;  // rows between a thread's rows
   const int c = j % 8;
   const bool in = col < ln.k;
-  // Four rows at a time: their loads go out before any store.
-  for (int r0 = j / 8; r0 < kBM; r0 += 4 * kStep) {
-    uint32_t addr[4], v[4][4];
-    float mu[4], rs[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + i * kStep, row = m0 + r;
-      addr[i] = sa + r * 128 + ((c ^ (r & 7)) << 4);
-      v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0u;
-      mu[i] = row < m ? ln.mu[row] : 0.f;
-      rs[i] = row < m ? ln.rstd[row] : 0.f;
-      if (in && r < kBM)
+  for (int i0 = 0; i0 < kLnRows; i0 += 4) {
+    uint32_t addr[4], v[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = j / 8 + kLnStep * (i0 + u);
+      addr[u] = sa + r * 128 + ((c ^ (r & 7)) << 4);
+      v[u][0] = v[u][1] = v[u][2] = v[u][3] = 0u;
+      if (in && i0 + u < kLnRows && r < kBM)
         asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
-                     : "=r"(v[i][0]), "=r"(v[i][1]), "=r"(v[i][2]),
-                       "=r"(v[i][3])
-                     : "r"(addr[i]));
+                     : "=r"(v[u][0]), "=r"(v[u][1]), "=r"(v[u][2]),
+                       "=r"(v[u][3])
+                     : "r"(addr[u]));
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (!in) break;
+    for (int u = 0; u < 4; ++u) {
+      if (!in || i0 + u >= kLnRows) break;
+      const int i = i0 + u < kLnRows ? i0 + u : 0;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const __nv_bfloat162 y = __floats2bfloat162_rn(
-            ln_elem(bf_lo(v[i][e]), mu[i], rs[i], g[2 * e], b[2 * e]),
-            ln_elem(bf_hi(v[i][e]), mu[i], rs[i], g[2 * e + 1],
+            ln_elem(bf_lo(v[u][e]), mu[i], rs[i], g[2 * e], b[2 * e]),
+            ln_elem(bf_hi(v[u][e]), mu[i], rs[i], g[2 * e + 1],
                     b[2 * e + 1]));
-        v[i][e] = *reinterpret_cast<const uint32_t*>(&y);
+        v[u][e] = *reinterpret_cast<const uint32_t*>(&y);
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (r0 + i * kStep < kBM)
+    for (int u = 0; u < 4; ++u)
+      if (i0 + u < kLnRows && j / 8 + kLnStep * (i0 + u) < kBM)
         asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
-                         addr[i]),
-                     "r"(v[i][0]), "r"(v[i][1]), "r"(v[i][2]), "r"(v[i][3])
+                         addr[u]),
+                     "r"(v[u][0]), "r"(v[u][1]), "r"(v[u][2]), "r"(v[u][3])
                      : "memory");
   }
 }
@@ -460,8 +476,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      // The producer's arrive + the bytes; with LN, the LN threads'.
-      mbar_init(full0 + 8 * s, LN ? kLnThreads : 1);
+      // The producer's arrive + the bytes; with LN, one a warp of LN
+      // threads.
+      mbar_init(full0 + 8 * s, LN ? kLnThreads / 32 : 1);
       mbar_init(empty0 + 8 * s, 2);  // one arrive a consumer warpgroup
       if (LN) mbar_init(raw0 + 8 * s, 1);
     }
@@ -506,20 +523,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     } else if (LN && threadIdx.x >= 384 - kLnThreads) {
       // The LN threads: each stage's x box, normalised in place, in the
       // ring's order; the stage is the consumers' once every LN thread
-      // has fenced its writes and arrived.
+      // has fenced its writes and each warp has arrived.
       const int j = threadIdx.x - (384 - kLnThreads);
       int s = 0;
       uint32_t ph = 0;
-      float g[8], b[8];
+      float g[8], b[8], mu[kLnRows], rs[kLnRows];
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile % tiles_m) * kBM;
+        ln_stats(ln, (tile % tiles_m) * kBM, ep.m, j, mu, rs);
         for (int kb = 0; kb < nk; ++kb) {
           const int col = kb * kBK + 8 * (j % 8);
           ln_gb(ln, col, g, b);
           mbar_wait(raw0 + 8 * s, ph);
-          ln_box(base + s * kStageBytes, m0, ep.m, col, ln, g, b, j);
+          ln_box(base + s * kStageBytes, col, ln, mu, rs, g, b, j);
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          mbar_arrive(full0 + 8 * s);
+          __syncwarp();
+          if (j % 32 == 0) mbar_arrive(full0 + 8 * s);
           if (++s == kStages) {
             s = 0;
             ph ^= 1;
