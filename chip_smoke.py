@@ -24,13 +24,14 @@ without printing the final ``ok`` line:
    K17 ``mlp_block_q`` there and, in bf16, at L/16-384 bs=8 and H/14
    bs=2; K2 also at the training backward's two products of the QKV, on
    the views it passes (``g @ w.t()``, ``x.t() @ g``); K7 also at B/16
-   bs=32 on packed QKV views. The bars of K2's backward cases, of K7's
-   three cases, of K16's scores and context, of K3's, K12's and K17's
-   cases (B/16 bs=32, L/16-384 bs=8, H/14 bs=2, every shard form) are
-   each held to two planted faults (``gemm_faults``, ``flash_faults``,
-   ``mlp_faults``, ``mlp_q_faults``), and each of K9's three forms to a
-   zeroed K slice of one layer's fc2 (``stack_faults``), which they must
-   refuse;
+   bs=32 on packed QKV views. The bars of K2's backward cases, of K6's
+   LN cases (each timed beside K1 -> K2), of K7's three cases, of K16's
+   scores and context, of K3's, K12's and K17's cases (B/16 bs=32,
+   L/16-384 bs=8, H/14 bs=2, every shard form) are each held to two
+   planted faults (``gemm_faults``, ``flash_faults``, ``mlp_faults``,
+   ``mlp_q_faults``), and each of K9's three forms to a zeroed K slice of
+   one layer's fc2 and to a query tile's context written one tile off
+   (``stack_faults``), which they must refuse;
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
    exact per-forward launch counts; the same weights through

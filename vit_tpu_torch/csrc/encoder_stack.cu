@@ -69,12 +69,13 @@
 //
 // Bound on the card: at bs <= 2 the weight stream. B/16 bf16 reads
 // 12 x 14.16 MB = 170 MB of weights, a floor of about 51 us at 3.35 TB/s.
-// On an NVIDIA H100 80GB HBM3 at 700 W this kernel takes 1.86 ms at B/16
-// bs=1 in bf16 on the card (1.93 with FOLD, 1.90 on int8 weights; times
-// of queued calls, tools/turns.py), some 36 times the floor: 55% is the
-// attention phase (the FFMA core, tools/stack_ablate.py), most of the
-// rest the GEMM phases' reads of each weight slab from L2 once per
-// 64-row tile, their split-K reductions and the LN passes.
+// On an NVIDIA H100 80GB HBM3 at 700 W this kernel takes 1.08 ms at B/16
+// bs=1 in bf16 on the card (1.23 with FOLD, 1.12 on int8 weights; device
+// times in tools/turns.py), some 21 times the floor: the attention phase
+// about 0.20 ms of it (tools/stack_ablate.py; 1.05 on the FFMA core), most
+// of the rest the GEMM phases' reads of each weight slab from L2 once per
+// 64-row tile, their split-K reductions and the LN passes. The 128-row
+// tiles on the whole block ran no faster at bs=1 and slower at L/16.
 
 #include <cooperative_groups.h>
 

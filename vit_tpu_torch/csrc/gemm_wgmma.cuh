@@ -46,9 +46,10 @@
 // wgmma tile on its (contiguous) x and w. x's raw box arrives by TMA on a
 // third barrier a stage, and the producer warpgroup's three idle warps
 // normalise it in place -- ((x - mu) * rstd) * gamma + beta in fp32 with
-// K5's row stats, rounded to bf16, zero past K -- fence it for the async
-// proxy and arrive on the stage's full barrier; the consumers then run
-// K2's loop unchanged. The pass runs up to the ring's depth ahead of the
+// K5's row stats (held in registers for the tile), rounded to bf16, zero
+// past K -- fence it for the async proxy and arrive on the stage's full
+// barrier, one arrival a warp; the consumers then run K2's loop
+// unchanged. The pass runs up to the ring's depth ahead of the
 // products. Two designs that put the pass on the consumers were slower
 // (PERF.md section 6, PR 16): A fragments read by ldmatrix and normalised
 // in registers for wgmma with A from registers, and each consumer
@@ -61,7 +62,11 @@
 // gives the same bits, and a row's result does not depend on M.
 //
 // Bound on the card: at B/16 bs=32's QKV (6656 x 768 @ 768 x 2304, 23.6
-// GFLOP) the tensor cores, 0.0238 ms at 989 TFLOP/s. What this tile still
+// GFLOP) the tensor cores, 0.0238 ms at 989 TFLOP/s; K6 at L/16-384's
+// LN + QKV (4736 x 1024 @ 1024 x 3072) 0.0301 ms. On an NVIDIA H100 80GB
+// HBM3 at 700 W K6 takes about 0.126 ms there on the card
+// (tools/turns.py), 1.4 times K1 -> K2 on the same operands, its LN pass
+// about 0.034 ms of it (tools/stack_ablate.py k6_no_ln). What this tile still
 // leaves: the epilogue is not overlapped with the next tile's products
 // (both warpgroups store at once), and a shape with fewer tiles than SMs
 // (a weight gradient with N = 768) leaves SMs idle: split-K, as a
