@@ -438,23 +438,6 @@ __device__ __forceinline__ void epilogue(const float (&d)[64],
   }
 }
 
-// The wgmma steps of one K step of a consumer warpgroup: four m64n128k16
-// on the stage's A (at sa, this warpgroup's rows) and B (at sb) boxes.
-template <int TA, int TB>
-__device__ __forceinline__ void mma_step_ss(float (&d)[64], uint32_t sa,
-                                            uint32_t sb) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    // The transpose bit is 1 for an MN-major operand: A when TA, B when
-    // not TB.
-    const uint64_t da = TA ? sw128_desc(sa + kk * 2048, kAtom, 1024)
-                           : sw128_desc(sa + kk * 32, 16, 1024);
-    const uint64_t db = TB ? sw128_desc(sb + kk * 32, 16, 1024)
-                           : sw128_desc(sb + kk * 2048, kAtom, 1024);
-    wgmma_bf16<TA, 1 - TB>(d, da, db);
-  }
-}
-
 // (m, k) @ (k, n): A through map_a, B through map_b (see the header
 // comment for their boxes); TA: A is the view of a (k, m) matrix; TB: B is
 // the view of an (n, k) matrix. LN (K6, A and B as they lie): the
@@ -569,7 +552,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t sa = base + s * kStageBytes + wgi * kAtom;
         const uint32_t sb = base + s * kStageBytes + kABytes;
         wgmma_fence();
-        mma_step_ss<TA, TB>(d, sa, sb);
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          // The transpose bit is 1 for an MN-major operand: A when TA, B
+          // when not TB.
+          const uint64_t da = TA ? sw128_desc(sa + kk * 2048, kAtom, 1024)
+                                 : sw128_desc(sa + kk * 32, 16, 1024);
+          const uint64_t db = TB ? sw128_desc(sb + kk * 32, 16, 1024)
+                                 : sw128_desc(sb + kk * 2048, kAtom, 1024);
+          wgmma_bf16<TA, 1 - TB>(d, da, db);
+        }
         wgmma_commit();
         wgmma_wait<1>();  // the previous step's products are done
         fence_acc(d);
