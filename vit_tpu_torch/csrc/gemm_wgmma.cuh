@@ -51,7 +51,7 @@
 // barrier, one arrival a warp; the consumers then run K2's loop
 // unchanged. The pass runs up to the ring's depth ahead of the
 // products. Two designs that put the pass on the consumers were slower
-// (PERF.md section 6, PR 16): A fragments read by ldmatrix and normalised
+// (PERF.md, section 6): A fragments read by ldmatrix and normalised
 // in registers for wgmma with A from registers, and each consumer
 // warpgroup normalising its half of the box in place before its wgmma.
 //
