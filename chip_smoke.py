@@ -30,8 +30,12 @@ without printing the final ``ok`` line:
    L/16-384 bs=8, H/14 bs=2, every shard form) are each held to two
    planted faults (``gemm_faults``, ``flash_faults``, ``mlp_faults``,
    ``mlp_q_faults``), and each of K9's three forms to a zeroed K slice of
-   one layer's fc2 and to a query tile's context written one tile off
-   (``stack_faults``), which they must refuse;
+   one layer's fc2 and to context rows written from others in every head
+   and layer (``stack_faults``), which they must refuse; K9's three forms
+   also on one layer that passes the attention phase's context to the
+   output, at the kernel bar, each refusing one head's 32-row query tile
+   written from the next (``kernel_cases_stack_tile``, B/16 bs=1 and 2,
+   L/16 bs=1);
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
    exact per-forward launch counts; the same weights through
@@ -539,11 +543,12 @@ def stack_faults(torch, run, enc, *, layer: int = 5, start: int = 1536,
     must refuse: the K slice ``start`` .. ``start + width - 1`` of layer
     ``layer``'s fc2 weight zeroed (``q``'s codes for int8), one slice of
     fc2's split over K at B/16 bs=1, through the kernel; and an attention
-    phase that writes one query tile's context one tile off: rows 64-127
-    of every head's context taking rows 128-191's, in every layer,
-    planted in the plain version's ``reference.attention_core`` (the
-    kernel's phase cannot be reached from outside). One head's tile in
-    one layer moves the output less than the model bar at these weights."""
+    phase that writes context rows 64-127 of every head from rows 128-191,
+    in every layer, planted in the plain version's
+    ``reference.attention_core`` (the kernel's phase cannot be reached
+    from outside). One head's tile in one layer moves the output less than
+    the model bar at these weights: ``kernel_cases_stack_tile`` holds the
+    phase to the kernel bar tile by tile."""
     def cut():
         fc2 = dict(enc["fc2"])
         if quantized:
@@ -572,8 +577,8 @@ def stack_faults(torch, run, enc, *, layer: int = 5, start: int = 1536,
         finally:
             reference.attention_core = core
     return {f"layer {layer} fc2 K {start}-{start + width - 1} zeroed": cut,
-            "query tile 1's context written from tile 2, every layer":
-                shifted}
+            "rows 64-127's context written from rows 128-191, every head "
+            "and layer": shifted}
 
 
 def stack_dma(torch, enc, b: int, dtype):
@@ -1097,6 +1102,98 @@ def kernel_cases_small_batch(torch, dtype):
              ops_ + 2 * b * 196 * 768 * 768, kind), primary=b == 1,
             faults=stack_faults(torch, fused, p["encoder"]),
             composed=dma))
+    return cases
+
+
+def stack_tile_fault(torch, run, *, head: int, rows: int) -> dict:
+    """A planted fault of a one-layer K9 case whose plain version is
+    ``run("torch")``: head ``head``'s context on query rows ``rows`` ..
+    2 rows - 1 (the attention phase's second tile) taken from the next
+    tile's rows, planted in the plain version's ``reference.
+    attention_core``: one tile of one head, which the kernel bar must
+    refuse."""
+    def shifted():
+        from vit_tpu_torch.ops import reference
+        core = reference.attention_core
+
+        def faulty(qkv, *, batch, num_heads, scale, seq_len):
+            out = core(qkv, batch=batch, num_heads=num_heads, scale=scale,
+                       seq_len=seq_len)
+            dh = out.shape[1] // num_heads
+            o = out.view(batch, qkv.shape[0] // batch, -1)
+            cols = slice(head * dh, (head + 1) * dh)
+            o[:, rows:2 * rows, cols] = o[:, 2 * rows:3 * rows, cols].clone()
+            return out
+        reference.attention_core = faulty
+        try:
+            return run("torch")
+        finally:
+            reference.attention_core = core
+    return {f"head {head}'s query rows {rows}-{2 * rows - 1} written from "
+            f"the next tile": shifted}
+
+
+def kernel_cases_stack_tile(torch, dtype):
+    """K9's attention phase held tile by tile: each form (``encoder_stack``,
+    ``_fused``, ``_q``) on one layer whose out-projection is the identity
+    (bias 0) and whose MLP is zero, so that the output is x plus the
+    attention phase's context (with FOLD, the final LN of it), against the
+    plain version at the kernel bar (the whole-encoder cases hold twelve
+    layers to the model bar, under which one tile of one head stays);
+    B/16 at bs=1 and 2 and L/16 at bs=1, 197 of 208 tokens, x (and FOLD's
+    embedding) small beside the context, QKV weights of std 0.04 (score
+    spread about 1.2). Each refuses one head's 32-row query tile written
+    from the next tile."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.config import VARIANTS
+    from vit_tpu_torch.quant import quantize_params
+
+    rnd = _rnd_fn(torch, dtype, 12)
+    e, kind = dtype.itemsize, _kind(torch, dtype)
+
+    def zero(*shape):
+        return torch.zeros(shape, dtype=dtype, device="cuda")
+    cases = []
+    for variant, b in (("B/16", 1), ("B/16", 2), ("L/16", 1)):
+        cfg = VARIANTS[variant]
+        d, heads, mlp = cfg.hidden_dim, cfg.num_heads, cfg.mlp_dim
+        enc = {"ln1": {"scale": rnd(1, d, std=0.1, mean=1.0),
+                       "bias": rnd(1, d, std=0.05)},
+               "qkv": {"kernel": rnd(1, d, 3 * d, std=0.04),
+                       "bias": rnd(1, 3 * d, std=0.02)},
+               "out": {"kernel": torch.eye(d, dtype=dtype,
+                                           device="cuda")[None],
+                       "bias": zero(1, d)},
+               "ln2": {"scale": rnd(1, d, std=0.1, mean=1.0),
+                       "bias": rnd(1, d, std=0.05)},
+               "fc1": {"kernel": zero(1, d, mlp), "bias": zero(1, mlp)},
+               "fc2": {"kernel": zero(1, mlp, d), "bias": zero(1, d)}}
+        qenc = quantize_params({"encoder": {
+            k: {n: t.float() if n == "kernel" else t for n, t in v.items()}
+            for k, v in enc.items()}})["encoder"]
+        x = rnd(b, 208, d, std=0.01)
+        x[:, 197:] = 0
+        patches = rnd(b, 196, 768)
+        wemb, base = rnd(768, d, std=0.0004), rnd(208, d, std=0.01)
+        lnf = {"scale": rnd(d, std=0.1, mean=1.0), "bias": rnd(d, std=0.05)}
+        kw = dict(num_heads=heads, scale=cfg.head_dim ** -0.5, seq_len=197,
+                  eps=1e-12)
+        tag = f"{variant} one layer b={b}, context passed through"
+        work = _stack_work(b, 208, 197, d, mlp, heads, 1, e, kind)
+        runs = {
+            "encoder_stack": lambda impl, x=x, enc=enc, kw=kw:
+                ops.encoder_stack(x, enc, impl=impl, **kw),
+            "encoder_stack_fused": lambda impl, enc=enc, kw=kw,
+                pt=patches, wemb=wemb, base=base, lnf=lnf:
+                ops.encoder_stack_fused(pt, enc, wemb, base, lnf, sp=208,
+                                        impl=impl, **kw),
+            "encoder_stack_q": lambda impl, x=x, qenc=qenc, kw=kw:
+                ops.encoder_stack_q(x, qenc, impl=impl, **kw)}
+        for name, run in runs.items():
+            cases.append(case(
+                name, tag, run, work, check=compare, primary=False,
+                faults=stack_tile_fault(torch, run, head=heads // 2,
+                                        rows=32)))
     return cases
 
 
@@ -3086,8 +3183,8 @@ def main() -> int:
     errors: dict[str, float] = {}
     timing_cases = []
     for cases in (kernel_cases, kernel_cases_l16_384,
-                  kernel_cases_small_batch, kernel_cases_int8,
-                  kernel_cases_stack_q, kernel_cases_train,
+                  kernel_cases_small_batch, kernel_cases_stack_tile,
+                  kernel_cases_int8, kernel_cases_stack_q, kernel_cases_train,
                   kernel_cases_chain, kernel_cases_tp, kernel_cases_layer,
                   kernel_cases_probes):
         for dtype in (torch.float32, torch.bfloat16):

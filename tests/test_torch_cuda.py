@@ -294,7 +294,10 @@ def test_torch_cuda_fused_linear_ragged(gen, dtype, m, k, n):
     r = _rnd(gen, dtype, m, n)
     tile = K6_TILES[m, k, n] if dtype == torch.bfloat16 else "ffma"
     assert cuda_matmul.fused_linear_tile(x, w) == tile
-    assert cuda_matmul.fused_linear_path(x, w) == tile
+    k2_path = cuda_matmul.gemm_path(m, n, k, dtype, False, False,
+                                    (x.data_ptr(), w.data_ptr()),
+                                    ((k, 1), (n, 1)))
+    assert k2_path == tile
     for bias, act, ln, res in ((None, None, False, None),
                                (b, None, True, None), (b, "gelu", True, None),
                                (b, None, False, r), (b, "gelu", True, r),
@@ -525,21 +528,19 @@ def test_torch_cuda_encoder_stack(gen, dtype, b):
 
 
 @pytest.mark.parametrize("heads,sp,seq_len", [
-    (12, 416, 401),  # two 60 KB regions do not fit: 128-row tiles
+    (12, 416, 401),  # 26 key steps: parts of 6, 7, 6 and 7
     (24, 208, 197),  # head width 32: the core's two-step form
     (8, 208, 197),   # 96: the eight-step form, two steps skipped
     (6, 208, 197)])  # 128: the eight-step form
 def test_torch_cuda_encoder_stack_attention_geometries(gen, heads, sp,
                                                        seq_len):
     """K9's bf16 attention phase (``attention_phase`` on the tensor-core
-    core) at D = 768 beyond B/16's geometry, two layers, b = 1: the whole
-    block on 128-row tiles where two halves' regions do not fit, and the
-    2-, 4- and 8-step forms of the core; against the plain version at the
+    core, 32-row tiles with the keys in four parts) at D = 768 beyond
+    B/16's geometry, two layers, b = 1: twice B/16's tokens, and the 2-,
+    4- and 8-step forms of the core; against the plain version at the
     model bar, two calls bit for bit."""
     from vit_tpu_torch import ops
-    from vit_tpu_torch.ops.cuda.stack import attention_groups
 
-    assert attention_groups(sp, 768 // heads) == (1 if sp == 416 else 2)
     enc, x = _stack_inputs(gen, torch.bfloat16, 1, d=768, heads=heads,
                            mlp=3072, layers=2, n=sp - 1, k=768, sp=sp,
                            wstd=(128 / 768) ** 0.5)[:2]

@@ -500,6 +500,18 @@ def test_k6_ln_box_covers_the_box_once_without_bank_conflicts():
             assert len({r for r, _, _ in step}) == 1
 
 
+def k6_path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The tile ``vit_fused_linear`` runs K6 on for contiguous x (m, k) and
+    w (k, n): ``gemm_path``'s choice for K2 on the same operands
+    (``csrc/matmul_wgmma.cu:wgmma_takes`` applies it in the kernel library;
+    the gpu test ``test_torch_cuda_fused_linear_ragged`` holds the two
+    together)."""
+    k, n = w.shape
+    return cuda_matmul.gemm_path(x.numel() // k, n, k, x.dtype, False, False,
+                                 (x.data_ptr(), w.data_ptr()),
+                                 ((k, 1), (n, 1)))
+
+
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_k6_takes_wgmma_on_every_composed_route_call(variant):
     """Every K6 call of the composed route (LN1 + QKV, LN2 + fc1 + GELU,
@@ -513,9 +525,8 @@ def test_k6_takes_wgmma_on_every_composed_route_call(variant):
         for n in (3 * d, mlp):
             x = torch.empty((b * sp, d), dtype=torch.bfloat16, device="meta")
             w = torch.empty((d, n), dtype=torch.bfloat16, device="meta")
-            assert cuda_matmul.fused_linear_path(x, w) == "wgmma"
-            assert cuda_matmul.fused_linear_path(x.float(),
-                                                 w.float()) == "ffma"
+            assert k6_path(x, w) == "wgmma"
+            assert k6_path(x.float(), w.float()) == "ffma"
 
 
 @pytest.mark.parametrize("offset,k,n,path", [
@@ -527,4 +538,4 @@ def test_fused_linear_path_by_alignment(offset, k, n, path):
     buf = torch.zeros(37 * k + 8, dtype=torch.bfloat16)
     x = buf[offset // 2:offset // 2 + 37 * k].view(37, k)
     w = torch.zeros((k, n), dtype=torch.bfloat16)
-    assert cuda_matmul.fused_linear_path(x, w) == path
+    assert k6_path(x, w) == path

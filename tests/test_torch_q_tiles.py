@@ -24,15 +24,17 @@ file (not in the package), byte for byte where it is layout:
 - K9's tiling (items of 64 rows x 128 columns, the split of K in the
   out-projection and fc2, slices added in a fixed order) and its bf16
   attention phase (``csrc/encoder_stack.cu:attention_phase`` on K4's
-  tensor-core core, ``csrc/attention_mma.cuh``: the query tiles of a
-  block's two 128-thread halves, each tile's two passes over 64-key
-  chunks in the core's sum order) against ``reference.encoder_stack`` /
-  ``encoder_stack_q`` and JAX's Pallas kernels at two layers; the split
-  counts at the B/16 and L/16 stack shapes; the attention tiles' cover of
-  every (image, head, query row);
+  tensor-core core, ``csrc/attention_mma.cuh``: 32-row query tiles on
+  the whole block, the keys in four parts summed in order, each part's
+  two passes over 64-key chunks in the core's sum order) against
+  ``reference.encoder_stack`` / ``encoder_stack_q`` and JAX's Pallas
+  kernels at two layers; the split counts at the B/16 and L/16 stack
+  shapes; the attention tiles' cover of every (image, head, query row)
+  and of every key;
 - the shared-memory budgets: K17 at every width ``ops.mlp_q_plan`` admits
-  (D up to 1280), K9's ring, and K9's attention regions beside the ring's
-  barriers at every geometry the stack gates admit.
+  (D up to 1280), K9's ring, and K9's attention phase (K and V and the
+  key parts' exchange) beside the ring's barriers at every geometry the
+  stack gates admit.
 """
 
 import re
@@ -49,14 +51,16 @@ from vit_tpu_torch import ops
 from vit_tpu_torch.ops import reference
 from vit_tpu_torch.ops.cuda.block import MAX_SMEM, attention_smem_bytes
 from vit_tpu_torch.ops.cuda.quant import MLP_I8_MAX_D
-from vit_tpu_torch.ops.cuda.stack import (MAX_SPLITS, attention_groups,
-                                          attention_region_bytes)
+from vit_tpu_torch.ops.cuda.block import attention_mma_smem_bytes
+from vit_tpu_torch.ops.cuda.stack import MAX_SPLITS
 from vit_tpu_torch.quant import quantize_params, quantize_weight
 
 CSRC = Path(__file__).resolve().parents[1] / "vit_tpu_torch" / "csrc"
 CONVERT = (CSRC / "q_convert.cuh").read_text()
 K17 = (CSRC / "mlp_q_wgmma.cuh").read_text()
 K9 = (CSRC / "stack_wgmma.cuh").read_text()
+K9_CU = (CSRC / "encoder_stack.cu").read_text()
+ATTN_MMA = (CSRC / "attention_mma.cuh").read_text()
 EPS = 1e-12
 K16 = 16  # the wgmma depth
 
@@ -74,6 +78,7 @@ K9_BM, K9_BN, K9_BK = (_const(K9, n) for n in ("kBM", "kBN", "kBK"))
 K9_STAGES, K9_SPLITS = _const(K9, "kMaxStages"), _const(K9, "kMaxSplits")
 assert "kBarBytes = 2 * kMaxStages * 8;" in K9
 K9_BAR = 2 * K9_STAGES * 8
+K9_ATTN_PARTS = _const(K9_CU, "kStackAttnParts")
 
 # cvt4's constants and prmt selectors, read from the source.
 _CVT4 = re.search(r"void cvt4.*?\n}", CONVERT, re.S).group(0)
@@ -741,32 +746,43 @@ def _split_matmul(a, w, split: bool, grid: int):
 
 
 K9_GRID = 132  # one persistent block an SM at K9's 227 KB
+K9_WARPS = 8  # K9's 256 threads
 ATTN_CHUNK = 64  # keys a chunk of the core's two passes
 
 
-def k9_attention_tiles(b: int, heads: int, sp: int, groups: int,
+def k9_attention_tiles(b: int, heads: int, sp: int, parts: int = K9_ATTN_PARTS,
                        grid: int = K9_GRID) -> dict:
-    """``attention_phase``'s walk: (block, group) -> its tiles (image,
-    head, first row, rows). A group of 256 / groups threads takes tiles of
-    16 rows a warp; group g of block i takes tiles i + g * grid, then steps
-    by groups * grid."""
-    qt = 256 // groups // 2
+    """``attention_phase``'s walk: block -> its tiles (image, head, first
+    row, rows). A tile is 16 rows a row warp, 8 / parts row warps; block i
+    takes tiles i, i + grid, ..."""
+    qt = 16 * (K9_WARPS // parts)
     q_tiles = -(-sp // qt)
     tiles = b * heads * q_tiles
-    return {(i, g): [(t // (heads * q_tiles), t // q_tiles % heads,
-                      t % q_tiles * qt, qt)
-                     for t in range(i + g * grid, tiles, groups * grid)]
-            for i in range(grid) for g in range(groups)}
+    return {i: [(t // (heads * q_tiles), t // q_tiles % heads,
+                 t % q_tiles * qt, qt) for t in range(i, tiles, grid)]
+            for i in range(grid)}
 
 
-def mma_core_rows(qkv, img, h, q0, rows, *, sp, d, dh, scale, seq_len):
+def k9_key_parts(seq_len: int, parts: int) -> list:
+    """The keys [kb, ke) of each part in ``attention_tile_mma``: part j of
+    kend / 16 steps of 16 keys takes steps j * steps / parts .. (j + 1) *
+    steps / parts (integer division)."""
+    steps = -(-seq_len // 16)
+    return [(16 * (j * steps // parts), 16 * ((j + 1) * steps // parts))
+            for j in range(parts)]
+
+
+def mma_core_rows(qkv, img, h, q0, rows, *, sp, d, dh, scale, seq_len,
+                  parts=1):
     """``attention_tile_mma`` on rows q0 .. q0 + rows - 1 (those below sp)
-    of head h of image img of the packed bf16 (b*sp, 3d) qkv: s = (q . k)
-    * scale in fp32, keys >= seq_len at -inf, the row max over all keys;
-    then per 64-key chunk and 16-key group p = exp(s - max), each lane's
-    share of l (keys 8j + 2t, + 1 of lane t of a quad) in order, the
-    context += (p in bf16) @ v in fp32; l = (l0 + l1) + (l2 + l3) across
-    the quad; the context / l rounded to bf16."""
+    of head h of image img of the packed bf16 (b*sp, 3d) qkv, the keys in
+    ``parts`` parts (:func:`k9_key_parts`): s = (q . k) * scale in fp32,
+    keys >= seq_len at -inf, the row max over all keys; then in each part,
+    per 64-key chunk and 16-key group, p = exp(s - max), each lane's share
+    of l (keys 8j + 2t, + 1 of lane t of a quad) in order, the context +=
+    (p in bf16) @ v in fp32; a part's l = (l0 + l1) + (l2 + l3) across the
+    quad; l and the context summed over the parts in order; the context / l
+    rounded to bf16."""
     r1 = min(q0 + rows, sp)
     base = img * sp
     q = qkv[base + q0:base + r1, h * dh:(h + 1) * dh].float()
@@ -778,35 +794,40 @@ def mma_core_rows(qkv, img, h, q0, rows, *, sp, d, dh, scale, seq_len):
     s = (q @ k.t()) * scale
     s[:, seq_len:] = float("-inf")
     mx = s.amax(-1, keepdim=True)
-    lanes = torch.zeros((r1 - q0, 4))
+    l = torch.zeros(r1 - q0)
     ctx = torch.zeros((r1 - q0, dh))
-    for k0 in range(0, kend, ATTN_CHUNK):
-        for g0 in range(k0, min(k0 + ATTN_CHUNK, kend), 16):
-            p = torch.exp(s[:, g0:g0 + 16] - mx)
-            for j in range(2):
-                for e in range(2):
-                    for t in range(4):
-                        lanes[:, t] += p[:, 8 * j + 2 * t + e]
-            ctx += p.to(torch.bfloat16).float() @ v[g0:g0 + 16]
-    l = (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
+    for kb, ke in k9_key_parts(seq_len, parts):
+        lanes = torch.zeros((r1 - q0, 4))
+        part = torch.zeros((r1 - q0, dh))
+        for k0 in range(kb, ke, ATTN_CHUNK):
+            for g0 in range(k0, min(k0 + ATTN_CHUNK, ke), 16):
+                p = torch.exp(s[:, g0:g0 + 16] - mx)
+                for j in range(2):
+                    for e in range(2):
+                        for t in range(4):
+                            lanes[:, t] += p[:, 8 * j + 2 * t + e]
+                part += p.to(torch.bfloat16).float() @ v[g0:g0 + 16]
+        l += (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
+        ctx += part
     return (ctx / l[:, None]).to(torch.bfloat16)
 
 
 def k9_attention(qkv, *, batch, num_heads, scale, seq_len):
     """K9's bf16 attention phase on the packed (b*sp, 3d) qkv: every tile
-    of :func:`k9_attention_tiles` through :func:`mma_core_rows`, each
-    context row written once; returns (b*sp, d)."""
+    of :func:`k9_attention_tiles` through :func:`mma_core_rows` with the
+    keys in ``kStackAttnParts`` parts, each context row written once;
+    returns (b*sp, d)."""
     m, d = qkv.shape[0], qkv.shape[1] // 3
     sp, dh = m // batch, d // num_heads
-    groups = attention_groups(sp, dh)
     out = torch.empty((m, d), dtype=torch.bfloat16)
     written = torch.zeros((m, num_heads), dtype=torch.int32)
-    for tiles in k9_attention_tiles(batch, num_heads, sp, groups).values():
+    for tiles in k9_attention_tiles(batch, num_heads, sp).values():
         for img, h, q0, rows in tiles:
             r1 = min(q0 + rows, sp)
             out[img * sp + q0:img * sp + r1, h * dh:(h + 1) * dh] = \
                 mma_core_rows(qkv, img, h, q0, rows, sp=sp, d=d, dh=dh,
-                              scale=scale, seq_len=seq_len)
+                              scale=scale, seq_len=seq_len,
+                              parts=K9_ATTN_PARTS)
             written[img * sp + q0:img * sp + r1, h] += 1
     assert (written == 1).all()
     return out
@@ -967,28 +988,45 @@ def test_k9_budgets_fit(i8):
 
 
 @pytest.mark.parametrize("heads,b", [(12, 1), (12, 2), (16, 1), (16, 2)])
-@pytest.mark.parametrize("groups", [2, 1])
-def test_k9_attention_tiles_cover_every_row_once(heads, b, groups):
+@pytest.mark.parametrize("seq_len", [197, 50])
+def test_k9_attention_tiles_cover_every_row_once(heads, b, seq_len):
     """B/16 (12 heads) and L/16 (16 heads) at 208 tokens, b = 1 and 2, on
-    132 blocks, in halves (64-row tiles, K9's choice there) and on the
-    whole block (128-row tiles): every (image, head, query row) in exactly
-    one tile, each group holds at most one tile, and the tiles sit on the
-    grid's first blocks, one a block at most in the first group."""
-    sp = 208
-    walk = k9_attention_tiles(b, heads, sp, groups)
+    132 blocks: every (image, head, query row) in exactly one tile; the
+    tiles on the grid's first blocks, at most two a block; each tile's key
+    parts cover [0, kend) once, in whole 16-key steps, every part with
+    keys, so that all eight warps of a busy block work (at seq_len 50 one
+    step a part)."""
+    sp, parts = 208, K9_ATTN_PARTS
+    walk = k9_attention_tiles(b, heads, sp)
     seen = {}
-    for (i, g), tiles in walk.items():
-        assert len(tiles) <= 1
+    for i, tiles in walk.items():
+        assert len(tiles) <= 2
         for img, h, q0, rows in tiles:
+            assert rows == 16 * (K9_WARPS // parts)
             for r in range(q0, min(q0 + rows, sp)):
                 seen[img, h, r] = seen.get((img, h, r), 0) + 1
     assert len(seen) == b * heads * sp and set(seen.values()) == {1}
-    qt = 128 // groups
-    tiles = b * heads * -(-sp // qt)
-    busy = [key for key, t in walk.items() if t]
-    assert len(busy) == tiles
-    assert sorted(busy) == [(i % K9_GRID, i // K9_GRID) for i in range(tiles)]
-    assert groups == 1 or attention_groups(sp, 64) == 2
+    tiles = b * heads * -(-sp // (16 * (K9_WARPS // parts)))
+    busy = [i for i, t in walk.items() if t]
+    assert busy == list(range(min(tiles, K9_GRID)))
+    assert sum(len(t) for t in walk.values()) == tiles
+    keys = k9_key_parts(seq_len, parts)
+    kend = -(-seq_len // 16) * 16
+    assert keys[0][0] == 0 and keys[-1][1] == kend
+    for (kb, ke), (nb, _) in zip(keys, keys[1:] + [(kend, None)]):
+        assert ke == nb and kb % 16 == 0 and ke > kb
+
+
+def k9_attention_bytes(sp: int, dh: int, parts: int = K9_ATTN_PARTS) -> int:
+    """``stack_attn_smem``: K and V (``attention_mma_smem``), then the
+    parts' exchange (``attn_mma_xbytes``: one fp32 slot a lane for each
+    warp's two row maxima, and for each warp of parts 1 .. P-1 two row sums
+    and 8 NK context values, NK = ``attn_mma_nk_of(dh)``)."""
+    steps = -(-dh // 16)
+    nk = 2 if steps <= 2 else 4 if steps <= 4 else 8
+    others = K9_WARPS // parts * (parts - 1)
+    x = 4 * 32 * (2 * K9_WARPS + others * (2 + 8 * nk)) if parts > 1 else 0
+    return attention_mma_smem_bytes(sp, dh) + x
 
 
 def _stack_geometries():
@@ -1008,34 +1046,36 @@ def _stack_geometries():
 
 def test_k9_attention_regions_fit_every_admitted_geometry():
     """At every geometry the gates admit, the tensor-core core takes the
-    head (its regions, each :func:`attention_region_bytes`, fit the
-    block's 227 KB: two halves or the whole block) wherever the FFMA
+    head in K9 (K and V and the key parts' exchange,
+    :func:`k9_attention_bytes`, fit the block's 227 KB) wherever the FFMA
     tile's budget, which the gates read, admits it. At B/16 and L/16's 208
-    tokens both halves run, and their regions end before the bf16 ring's
-    barriers (``Layout<bf16>::kBars`` past the 1024-aligned base); past
-    them the barriers would be overwritten, and ``wgmma_phase`` sets its
-    barriers up at its start and invalidates them at its end, so the
-    attention phase may take every byte."""
+    tokens the phase's bytes end before the bf16 ring's barriers
+    (``Layout<bf16>::kBars`` past the 1024-aligned base); past them the
+    barriers would be overwritten, and ``wgmma_phase`` sets its barriers up
+    at its start and invalidates them at its end, so the attention phase
+    may take every byte."""
     geos = _stack_geometries()
     assert (208, 768, 12) in geos and (208, 1024, 16) in geos
     assert len({sp for sp, d, h in geos if h == 12}) > 400
     for sp, d, heads in geos:
         hd = d // heads
         assert attention_smem_bytes(sp, hd, 2) <= MAX_SMEM
-        groups = attention_groups(sp, hd)
-        assert groups >= 1, (sp, d, heads)
-        assert groups * attention_region_bytes(sp, hd) <= MAX_SMEM
+        assert k9_attention_bytes(sp, hd) <= MAX_SMEM, (sp, d, heads)
     stage = 3 * BOX
     stages = min(K9_STAGES, (SMEM_MAX - 1024 - K9_BAR) // stage)
     bars = stages * stage
-    for hd in (64,):
-        assert attention_groups(208, hd) == 2
-        assert 2 * attention_region_bytes(208, hd) <= bars
+    assert k9_attention_bytes(208, 64) == 59904 + 28160
+    assert k9_attention_bytes(208, 64) <= bars
     # The kernel's own budget is the one modelled here.
-    k9 = (CSRC / "encoder_stack.cu").read_text()
-    assert "return (attention_mma_smem(sp, dh) + 127) / 128 * 128;" in k9
-    assert ("return 2 * r <= kStackMaxSmem ? 2 : r <= kStackMaxSmem ? 1 : 0;"
-            in k9)
+    assert ("return attention_mma_smem(sp, dh) +\n"
+            "         attn_mma_xbytes(kMmThreads / 32, kStackAttnParts,\n"
+            "                         attn_mma_nk_of(dh));") in K9_CU
+    assert "stack_attn_smem(sp, dh) > kStackMaxSmem" in K9_CU
+    assert ("const int others = warps / parts * (parts - 1);\n"
+            "  return 4 * 32 * (2 * static_cast<size_t>(warps) +\n"
+            "                   static_cast<size_t>(others) * (2 + 8 * nk));"
+            ) in ATTN_MMA
+    assert "return steps <= 2 ? 2 : steps <= 4 ? 4 : 8;" in ATTN_MMA
     phase = re.search(r"void wgmma_phase\(.*?\n}\n", K9, re.S).group(0)
     init, inval = phase.find("mbar_init(full0"), phase.find("mbarrier.inval")
     first_tma = phase.find("tma_load(")

@@ -40,8 +40,7 @@ __global__ void __launch_bounds__(NK > 0 ? kAttnMmaThreads : kAttnThreads)
   extern __shared__ __align__(16) unsigned char smem[];
   if constexpr (NK > 0)
     attention_tile_mma<NK>(qkv, out, s, d, dh, scale, seq_len, blockIdx.x,
-                           blockIdx.y, blockIdx.z * kAttnQT, smem,
-                           threadIdx.x, kAttnMmaThreads, 0);
+                           blockIdx.y, blockIdx.z * kAttnQT, smem);
   else
     attention_tile<T>(qkv, out, s, d, dh, scale, seq_len, blockIdx.x,
                       blockIdx.y, blockIdx.z * kAttnQT, smem);

@@ -9,16 +9,18 @@
 //   p = exp(s - max) in fp32, l = the sum of the unrounded p;
 //   ctx = (p rounded to bf16) @ v in fp32, then / l, stored once in bf16.
 //
-// A group of warps, 16 query rows each: K4's block of four warps (a
-// 64-row tile), or in K9 either half of the 256-thread block (two tiles of
-// 64 rows at once, each half in its own region of shared memory) or the
-// whole block (a 128-row tile) where two regions do not fit; a group
-// synchronises on its own named barrier. The head's K and V rows (the
-// keys below seq_len, zero-padded to a multiple of 16 keys and the head
-// width to a multiple of 16 columns) are staged in shared memory with
-// cp.async, rows padded by 16 bytes so that ldmatrix is conflict-free; K
-// first, so that the first pass runs while V arrives. A warp's q rows go
-// straight into A fragments in registers. Two passes over 64-key chunks:
+// K4: a block of four warps, 16 query rows each (a 64-row tile). K9: the
+// whole 256-thread block on a tile of 16 (8 / P) rows with the keys split
+// into P parts, warp w taking rows 16 (w % (8 / P)) .. of the tile against
+// part w / (8 / P) of the keys; the parts' row maxima, sums and contexts
+// meet in shared memory (fp32, summed in the parts' order by part 0's
+// warps), so that each warp walks a P-th of the keys. The head's K and V
+// rows (the keys below seq_len, zero-padded to a multiple of 16 keys and
+// the head width to a multiple of 16 columns) are staged in shared memory
+// with cp.async, rows padded by 16 bytes so that ldmatrix is
+// conflict-free; K first, so that the first pass runs while V arrives. A
+// warp's q rows go straight into A fragments in registers. Two passes over
+// 64-key chunks:
 //   1. s = q k^T on mma.sync, keeping only the row max (each lane holds
 //      two rows' columns; a quad of lanes reduces with __shfl_xor_sync);
 //   2. s again, p = exp(s - max), l += p, p packed to bf16 where the C
@@ -35,7 +37,8 @@
 // three products (two q k^T, one p v) are 7.8 GFLOP, 0.008 ms at the bf16
 // peak. Each block reads its head's K and V once from L2 (the four query
 // tiles of a head share them); shared memory 2 * ceil16(S) * (dh' + 8) * 2
-// bytes (60 KB at S=208, d=64: three blocks an SM).
+// bytes (60 KB at S=208, d=64: three blocks an SM), and in K9 the parts'
+// exchange beside it (attn_mma_xbytes: 28 KB at d=64, P=4).
 
 #pragma once
 
@@ -64,7 +67,7 @@ __host__ __device__ inline int attn_mma_ld(int dh) {
 // Dynamic shared memory of one bf16 tile (vit_tpu_torch/ops/cuda/block.py:
 // attention_mma_smem_bytes computes the same): K and V, S rows rounded up
 // to 16.
-inline size_t attention_mma_smem(int s, int dh) {
+__host__ __device__ inline size_t attention_mma_smem(int s, int dh) {
   return 2 * static_cast<size_t>((s + 15) / 16 * 16) * attn_mma_ld(dh) *
          sizeof(bf16);
 }
@@ -115,35 +118,53 @@ __device__ __forceinline__ void attn_mma_groups(int groups, F&& f) {
   }
 }
 
-// f(std::integral_constant<int, NK>()) with NK the 16-column steps of q
-// held at once for a head of width dh: 2, 4 or 8, the least that holds
-// dh' (up to 8), so that K9 builds three forms of the core and not eight
-// (K4 builds the exact NK a launch).
+// The 16-column steps of q K9 holds at once for a head of width dh: 2, 4
+// or 8, the least that holds dh' (up to 8), so that K9 builds three forms
+// of the core and not eight (K4 builds the exact NK a launch).
+__host__ __device__ inline int attn_mma_nk_of(int dh) {
+  const int steps = attn_mma_dhp(dh) / 16;
+  return steps <= 2 ? 2 : steps <= 4 ? 4 : 8;
+}
+
+// f(std::integral_constant<int, NK>()) with NK = attn_mma_nk_of(dh).
 template <typename F>
 __device__ __forceinline__ void attn_mma_nk(int dh, F&& f) {
-  const int steps = attn_mma_dhp(dh) / 16;
-  if (steps <= 2)
+  const int nk = attn_mma_nk_of(dh);
+  if (nk == 2)
     f(std::integral_constant<int, 2>());
-  else if (steps <= 4)
+  else if (nk == 4)
     f(std::integral_constant<int, 4>());
   else
     f(std::integral_constant<int, 8>());
 }
 
-// Query rows q0 .. q0 + threads/2 - 1 of head h of image img, as
-// attention_tile<bf16> (attention_core.cuh) takes them; NK, the 16-column
-// steps of q held at once: min(dh' / 16, 8), or with ROUND any larger
-// count up to 8 (K9's three forms), whose steps past dh' are skipped.
-// Called by the `threads` threads of a group (tid 0 .. threads-1, whole
-// warps; warp w takes rows q0 + 16w ..), which synchronise on named
-// barrier `bar` (K4: the block's 128 threads, barrier 0); uses
-// attention_mma_smem(s, dh) bytes of smem. A caller that runs several
-// tiles in one region synchronises the group between them.
-template <int NK, bool ROUND = false>
-__device__ __forceinline__ void attention_tile_mma(
-    const bf16* qkv, bf16* out, int s, int d, int dh, float scale,
-    int seq_len, int img, int h, int q0, unsigned char* smem, int tid,
-    int threads, int bar) {
+// Bytes of the key-split exchange (P > 1) past K and V, fp32, one slot a
+// lane: every warp's two row maxima, then parts 1 .. P-1's two row sums
+// and 8 NK context values (a block of 16 NK columns) a lane.
+__host__ __device__ inline size_t attn_mma_xbytes(int warps, int parts,
+                                                  int nk) {
+  if (parts == 1) return 0;
+  const int others = warps / parts * (parts - 1);
+  return 4 * 32 * (2 * static_cast<size_t>(warps) +
+                   static_cast<size_t>(others) * (2 + 8 * nk));
+}
+
+// Query rows q0 .. q0 + 16 (THREADS / 32 / P) - 1 of head h of image img,
+// as attention_tile<bf16> (attention_core.cuh) takes them, on the block's
+// THREADS threads: K4's 128 with P = 1, NK = min(dh' / 16, 8); K9's 256
+// with the keys in P parts (1, 2, 4 or 8) and NK = attn_mma_nk_of(dh),
+// whose steps past dh' are skipped. Uses attention_mma_smem(s, dh) +
+// attn_mma_xbytes(THREADS / 32, P, NK) bytes of smem; a caller that runs
+// several tiles synchronises the block between them.
+template <int NK, int P = 1, int THREADS = kAttnMmaThreads>
+__device__ __forceinline__ void attention_tile_mma(const bf16* qkv, bf16* out,
+                                                   int s, int d, int dh,
+                                                   float scale, int seq_len,
+                                                   int img, int h, int q0,
+                                                   unsigned char* smem) {
+  constexpr bool kRound = P > 1;  // K9: NK may pass dh' / 16
+  constexpr int kWarps = THREADS / 32, kRowWarps = kWarps / P;
+  static_assert(kRowWarps * P == kWarps, "P divides the block's warps");
   const int dhp = attn_mma_dhp(dh), ld = dhp + 8;
   const int kr = (s + 15) / 16 * 16;           // K's rows, V's offset
   const int kend = (seq_len + 15) / 16 * 16;   // keys walked
@@ -155,15 +176,17 @@ __device__ __forceinline__ void attention_tile_mma(
   const bool vec = dh % 8 == 0 && d % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(qkv) % 16 == 0;
 
-  stage_rows_by(ks, ld, base + d, ldg, kend, seq_len, dh, dhp, vec, tid,
-                threads);
+  stage_rows(ks, ld, base + d, ldg, kend, seq_len, dh, dhp, vec);
   cp_async_commit();
-  stage_rows_by(vs, ld, base + 2 * d, ldg, kend, seq_len, dh, dhp, vec, tid,
-                threads);
+  stage_rows(vs, ld, base + 2 * d, ldg, kend, seq_len, dh, dhp, vec);
   cp_async_commit();
 
-  const int lane = tid % 32, t = lane & 3;
-  const int r0 = q0 + 16 * (tid / 32);  // the warp's first row
+  const int lane = threadIdx.x % 32, t = lane & 3, warp = threadIdx.x / 32;
+  const int r0 = q0 + 16 * (warp % kRowWarps);  // the warp's first row
+  // The warp's keys [kb, ke): part warp / kRowWarps of kend / 16 steps.
+  const int part = P == 1 ? 0 : warp / kRowWarps, steps = kend / 16;
+  const int kb = P == 1 ? 0 : 16 * (part * steps / P);
+  const int ke = P == 1 ? kend : 16 * ((part + 1) * steps / P);
   const bool active = r0 < s;
   const bf16* q = base + static_cast<size_t>(r0) * ldg;
   const int qrows = s - r0;  // rows at or past S are zero
@@ -172,7 +195,7 @@ __device__ __forceinline__ void attention_tile_mma(
   if (active && nb == 1) {
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk)
-      if (!ROUND || 16 * kk < dhp)
+      if (!kRound || 16 * kk < dhp)
         load_a_global(qf[kk], q, ldg, qrows, 16 * kk, dh, lane);
   }
   // The lane's rows are r0 + lane/4 (index 0) and r0 + lane/4 + 8 (1); its
@@ -180,18 +203,24 @@ __device__ __forceinline__ void attention_tile_mma(
   auto scaled = [&](float raw, int key) {
     return key < seq_len ? __fmul_rn(raw, scale) : -INFINITY;
   };
+  // The key-split exchange (P > 1): value v of warp slot w at
+  // (w * values + v) * 32 + lane; parts 1 .. P-1 hold sum and context
+  // slots warp - kRowWarps.
+  float* xmax = reinterpret_cast<float*>(smem + attention_mma_smem(s, dh));
+  float* xsum = xmax + 2 * 32 * kWarps;
+  float* xctx = xsum + 2 * 32 * (kWarps - kRowWarps);
 
   cp_async_wait<1>();
-  group_sync(bar, threads);
-  // Pass 1: the row max over all keys.
+  __syncthreads();
+  // Pass 1: the row max over the warp's keys.
   float mx[2] = {-INFINITY, -INFINITY};
   if (active) {
-    for (int k0 = 0; k0 < kend; k0 += kAttnMmaChunk) {
-      attn_mma_groups(min(kend - k0, kAttnMmaChunk) / 16, [&](auto groups) {
+    for (int k0 = kb; k0 < ke; k0 += kAttnMmaChunk) {
+      attn_mma_groups(min(ke - k0, kAttnMmaChunk) / 16, [&](auto groups) {
         constexpr int G = decltype(groups)::value;
         float sc[2 * G][4];
-        attn_mma_scores<NK, G, ROUND>(sc, qf, q, ldg, qrows, dh,
-                                      ks + k0 * ld, ld, dhp, nb, lane);
+        attn_mma_scores<NK, G, kRound>(sc, qf, q, ldg, qrows, dh,
+                                       ks + k0 * ld, ld, dhp, nb, lane);
 #pragma unroll
         for (int j = 0; j < 2 * G; ++j)
 #pragma unroll
@@ -206,9 +235,22 @@ __device__ __forceinline__ void attention_tile_mma(
       for (int r = 0; r < 2; ++r)
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], m));
   }
+  if constexpr (P > 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) xmax[(warp * 2 + r) * 32 + lane] = mx[r];
+  }
   cp_async_wait<0>();
-  group_sync(bar, threads);
-  if (!active) return;
+  __syncthreads();
+  if constexpr (P == 1) {
+    if (!active) return;
+  } else {  // the max over every part's keys
+    for (int j = 0; j < P; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        mx[r] = fmaxf(
+            mx[r], xmax[((j * kRowWarps + warp % kRowWarps) * 2 + r) * 32 +
+                        lane]);
+  }
 
   // Pass 2, once for each block of 16 NK context columns: the scores
   // again, p = exp(s - max) summed into l unrounded, and o += (p in bf16) v
@@ -219,12 +261,12 @@ __device__ __forceinline__ void attention_tile_mma(
     for (int j = 0; j < 2 * NK; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-    for (int k0 = 0; k0 < kend; k0 += kAttnMmaChunk) {
-      attn_mma_groups(min(kend - k0, kAttnMmaChunk) / 16, [&](auto groups) {
+    for (int k0 = kb; active && k0 < ke; k0 += kAttnMmaChunk) {
+      attn_mma_groups(min(ke - k0, kAttnMmaChunk) / 16, [&](auto groups) {
         constexpr int G = decltype(groups)::value;
         float sc[2 * G][4];
-        attn_mma_scores<NK, G, ROUND>(sc, qf, q, ldg, qrows, dh,
-                                      ks + k0 * ld, ld, dhp, nb, lane);
+        attn_mma_scores<NK, G, kRound>(sc, qf, q, ldg, qrows, dh,
+                                       ks + k0 * ld, ld, dhp, nb, lane);
 #pragma unroll
         for (int j = 0; j < 2 * G; ++j)
 #pragma unroll
@@ -239,7 +281,7 @@ __device__ __forceinline__ void attention_tile_mma(
           pack_a(pa, sc[2 * g], sc[2 * g + 1]);
 #pragma unroll
           for (int kk = 0; kk < NK; ++kk) {
-            if ((NK == kAttnMmaMaxK || ROUND) && n0 + 16 * kk >= dhp)
+            if ((NK == kAttnMmaMaxK || kRound) && n0 + 16 * kk >= dhp)
               break;
             uint32_t bv[4];
             ldmatrix_b_rowmajor(bv, vs + k0 * ld, ld, 16 * g, n0 + 16 * kk,
@@ -255,6 +297,33 @@ __device__ __forceinline__ void attention_tile_mma(
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], m);
+    if constexpr (P > 1) {
+      // Parts 1 .. P-1 hand their sums and context to part 0's warps,
+      // which add them in the parts' order.
+      __syncthreads();  // part 0 is done with the last block's
+      if (part > 0) {
+        const int w = warp - kRowWarps;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) xsum[(w * 2 + r) * 32 + lane] = l[r];
+#pragma unroll
+        for (int j = 0; j < 2 * NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            xctx[(w * 8 * NK + j * 4 + e) * 32 + lane] = o[j][e];
+      }
+      __syncthreads();
+      if (part > 0 || !active) continue;
+      for (int j = 1; j < P; ++j) {
+        const int w = (j - 1) * kRowWarps + warp;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] += xsum[(w * 2 + r) * 32 + lane];
+#pragma unroll
+        for (int c = 0; c < 2 * NK; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[c][e] += xctx[(w * 8 * NK + c * 4 + e) * 32 + lane];
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + lane / 4 + 8 * r;

@@ -28,11 +28,10 @@
 //      chunk).
 //   2. Attention, one work item per (image, head, query tile), with
 //      _encoder_stack_kernel's row-max softmax (block.py:1953-1968). bf16
-//      runs K4's tensor-core core (attention_mma.cuh, mma.sync): the
-//      block's two 128-thread halves take a 64-row tile each at once, each
-//      in its own region of shared memory (the whole block a 128-row tile
-//      where two regions do not fit). fp32 runs the FFMA tile
-//      (attention_core.cuh), 64 rows on the whole block.
+//      runs K4's tensor-core core (attention_mma.cuh, mma.sync) on the
+//      whole block: a 32-row tile, its keys in four parts, every warp 16
+//      rows against one part (84 items at B/16 bs=1). fp32 runs the FFMA
+//      tile (attention_core.cuh), 64 rows on the whole block.
 //   3. Out-projection + bout + residual, in place on the activation (bf16:
 //      split over K into the workspace, then the slices' sum with the
 //      epilogue after one more barrier).
@@ -86,34 +85,29 @@ namespace cg = cooperative_groups;
 
 namespace vit {
 
-// The bf16 attention phase's groups: each runs attention_tile_mma on its
-// own tiles in its own region of shared memory (attention_mma_smem,
-// rounded up to 128 bytes), synchronised on named barrier kAttnBar + its
-// index. Two halves of 128 threads (64-row tiles) where two regions fit in
-// the block's 227 KB, else the whole block (128-row tiles), 0 where one
-// region does not fit (vit_tpu_torch/ops/cuda/stack.py:attention_groups
-// computes the same).
-constexpr int kAttnBar = 3;
+// The bf16 attention phase's key parts (attention_tile_mma's P): a tile
+// of 16 * 8 / P query rows on the block's eight warps.
+constexpr int kStackAttnParts = 4;
 
-inline size_t stack_attn_region(int sp, int dh) {
-  return (attention_mma_smem(sp, dh) + 127) / 128 * 128;
-}
-
-inline int stack_attn_groups(int sp, int dh) {
-  const size_t r = stack_attn_region(sp, dh);
-  return 2 * r <= kStackMaxSmem ? 2 : r <= kStackMaxSmem ? 1 : 0;
+// Shared memory of the bf16 attention phase: K and V, and the parts'
+// exchange.
+inline size_t stack_attn_smem(int sp, int dh) {
+  return attention_mma_smem(sp, dh) +
+         attn_mma_xbytes(kMmThreads / 32, kStackAttnParts,
+                         attn_mma_nk_of(dh));
 }
 
 // K9's dynamic shared memory: fp32 stack_smem_all (the FFMA tile beside
 // the GEMM tile); bf16 the wgmma phases' 227 KB, which hold FOLD's phase 0
-// and the attention groups, 0 where the phases or one attention region do
+// and the attention phase, 0 where the phases or the attention phase do
 // not take the geometry.
 template <typename T, typename W>
 inline size_t stack_smem_k9(int sp, int dh, int d) {
   if constexpr (!std::is_same_v<T, bf16>) {
     return stack_smem_all<T, W>(sp, dh, d);
   } else {
-    if (d % 64 || d > sw::kMaxK || stack_attn_groups(sp, dh) == 0) return 0;
+    if (d % 64 || d > sw::kMaxK || stack_attn_smem(sp, dh) > kStackMaxSmem)
+      return 0;
     const size_t ph0 =
         sizeof(typename Gemm<T>::Smem) + 2 * Gemm<T>::BM * sizeof(float);
     const size_t ph = sw::Layout<W>::kSmem;
@@ -150,10 +144,6 @@ struct StackArgs {
   // buffer, read as fp32).
   sw::Maps maps;
   float* ws;
-  // bf16: the attention phase's groups a block and bytes a group's region
-  // (stack_attn_groups, stack_attn_region).
-  int attn_groups;
-  size_t attn_region;
 };
 
 // (acc * ws[col]) + bias with int8 weights, acc + bias without.
@@ -237,34 +227,27 @@ __device__ __forceinline__ const float* layer_scales(const float* s,
 }
 
 // The attention phase: every (image, head, query tile) once, strided over
-// the grid. bf16 on the tensor cores (attention_tile_mma), the tiles of a
-// block's groups at once: group g of block i takes tiles i + g * grid,
-// then steps by groups * grid, so at batch 1-2 each block holds at most one
-// tile of each group's and the tiles spread over the grid's first blocks.
-// fp32 on the FFMA tile (attention_tile<float>), 64 rows, the whole block.
+// the grid, on the whole block. bf16 on the tensor cores
+// (attention_tile_mma), 32-row tiles with the keys in kStackAttnParts
+// parts; fp32 on the FFMA tile (attention_tile<float>), 64 rows.
 template <typename T, typename W>
 __device__ __forceinline__ void attention_phase(const StackArgs<T, W>& a,
                                                 unsigned char* smem) {
   const int D = a.d, dh = D / a.heads;
   if constexpr (std::is_same_v<T, bf16>) {
-    const int groups = a.attn_groups, threads = kMmThreads / groups;
-    const int g = threadIdx.x / threads, tid = threadIdx.x % threads;
-    const int qt = threads / 2;  // 16 query rows a warp
+    constexpr int qt = 16 * (kMmThreads / 32 / kStackAttnParts);
     const int q_tiles = (a.sp + qt - 1) / qt;
-    const int tiles = a.b * a.heads * q_tiles, bar = kAttnBar + g;
-    unsigned char* region = smem + g * a.attn_region;
     // The QKV phase's TMA writes to these bytes come before this phase's
     // generic and cp.async writes.
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    for (int t = blockIdx.x + g * gridDim.x; t < tiles;
-         t += groups * gridDim.x) {
-      group_sync(bar, threads);  // the group's last tile is done with region
+    for (int t = blockIdx.x; t < a.b * a.heads * q_tiles; t += gridDim.x) {
+      __syncthreads();  // the block's last tile is done with the smem
       const int img = t / (a.heads * q_tiles);
       const int h = t / q_tiles % a.heads;
       attn_mma_nk(dh, [&](auto nk) {
-        attention_tile_mma<decltype(nk)::value, true>(
+        attention_tile_mma<decltype(nk)::value, kStackAttnParts, kMmThreads>(
             a.qkv, a.ctx, a.sp, D, dh, a.scale, a.seq_len, img, h,
-            t % q_tiles * qt, region, tid, threads, bar);
+            t % q_tiles * qt, smem);
       });
     }
   } else {
@@ -364,8 +347,6 @@ cudaError_t launch_stack(StackArgs<T, W> a, int device, cudaStream_t st) {
   const size_t smem = stack_smem_k9<T, W>(a.sp, dh, a.d);
   if (smem == 0) return cudaErrorInvalidValue;
   if constexpr (std::is_same_v<T, bf16>) {
-    a.attn_groups = stack_attn_groups(a.sp, dh);
-    a.attn_region = stack_attn_region(a.sp, dh);
     // The wgmma phases: D and mlp whole 64-column steps, the activation
     // 16-byte aligned (LN reads 16-byte chunks), every map encoded.
     const int m = a.b * a.sp, L = a.layers, d = a.d, mlp = a.mlp;

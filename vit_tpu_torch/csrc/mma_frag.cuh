@@ -153,19 +153,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 
 // Rows [0, rows) of a bf16 tile in shared memory (row stride ld, 16-byte
-// aligned rows), staged by `threads` threads (tid 0 .. threads-1; the
-// block's, in stage_rows): row r < nvalid is src row r (row stride ldg)
-// with its columns >= cols zero, up to padded columns; every row >= nvalid
-// is zero. vec: cols and the source rows allow 16-byte copies (cp.async,
-// to be committed and waited for by the caller); otherwise element copies.
-__device__ __forceinline__ void stage_rows_by(__nv_bfloat16* dst, int ld,
-                                              const __nv_bfloat16* src,
-                                              size_t ldg, int rows,
-                                              int nvalid, int cols,
-                                              int padded, bool vec, int tid,
-                                              int threads) {
+// aligned rows), staged by the block's threads: row r < nvalid is src row
+// r (row stride ldg) with its columns >= cols zero, up to padded columns;
+// every row >= nvalid is zero. vec: cols and the source rows allow 16-byte
+// copies (cp.async, to be committed and waited for by the caller);
+// otherwise element copies.
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld,
+                                           const __nv_bfloat16* src,
+                                           size_t ldg, int rows, int nvalid,
+                                           int cols, int padded, bool vec) {
   const int chunks = padded / 8;
-  for (int e = tid; e < rows * chunks; e += threads) {
+  for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
     const int r = e / chunks, c = (e % chunks) * 8;
     __nv_bfloat16* dp = dst + r * ld + c;
     if (r < nvalid && c < cols) {
@@ -181,20 +179,6 @@ __device__ __forceinline__ void stage_rows_by(__nv_bfloat16* dst, int ld,
       *reinterpret_cast<uint4*>(dp) = make_uint4(0, 0, 0, 0);
     }
   }
-}
-
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld,
-                                           const __nv_bfloat16* src,
-                                           size_t ldg, int rows, int nvalid,
-                                           int cols, int padded, bool vec) {
-  stage_rows_by(dst, ld, src, ldg, rows, nvalid, cols, padded, vec,
-                threadIdx.x, blockDim.x);
-}
-
-// Named barrier `id` over `threads` threads (whole warps) of the block;
-// id 0 over the whole block is __syncthreads().
-__device__ __forceinline__ void group_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Close the group of this thread's cp.async copies issued since the last

@@ -10,10 +10,12 @@ alignment alone: the bf16 ``wgmma`` tile fed by TMA
 a contiguous matrix where it lies, or ``gemm_tile.cuh``'s tile (bf16
 ``wmma``, true-fp32 FFMA), which reads contiguous operands only: the
 wrapper copies a transposed operand for it. K6 runs on the same two tiles,
-by the same rule on its contiguous operands (:func:`fused_linear_path`):
-on the ``wgmma`` tile x's raw box arrives by TMA and is normalised in
-registers on its way to ``wgmma``; on ``gemm_tile.cuh``'s as it is
-staged."""
+by the same rule on its contiguous operands, which ``vit_fused_linear``
+applies itself before the launch (:func:`fused_linear_tile` asks it): on
+the ``wgmma`` tile x's raw box arrives by TMA and the producer warpgroup's
+three idle warps normalise it in place in shared memory before the
+consumers' ``wgmma`` reads it; on ``gemm_tile.cuh``'s each element is
+normalised as it is staged."""
 
 from __future__ import annotations
 
@@ -122,18 +124,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     return out
 
 
-def fused_linear_path(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The tile K6 runs ``LN(x) @ w`` on, x (m, k) and w (k, n) contiguous:
-    :func:`gemm_path`'s choice for K2 on the same operands."""
-    k, n = w.shape
-    return gemm_path(x.numel() // k, n, k, x.dtype, False, False,
-                     (x.data_ptr(), w.data_ptr()), ((k, 1), (n, 1)))
-
-
 def fused_linear_tile(x: torch.Tensor, w: torch.Tensor) -> str:
     """The tile ``vit_fused_linear`` picks for contiguous x and w before it
     launches (``csrc/matmul.cu:vit_fused_linear_tile``): ``"wgmma"``, or
-    ``gemm_tile.cuh``'s (``"wmma"`` in bf16, ``"ffma"`` in fp32)."""
+    ``gemm_tile.cuh``'s (``"wmma"`` in bf16, ``"ffma"`` in fp32). The rule
+    is :func:`gemm_path`'s for K2 on the same contiguous operands."""
     k, n = w.shape
     tile = _build.library().vit_fused_linear_tile(
         x.data_ptr(), w.data_ptr(), n, k, _build.DTYPE_CODES[x.dtype])
@@ -150,7 +145,7 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor,
                  residual: torch.Tensor | None = None) -> torch.Tensor:
     """``act(LN(x) @ w + bias) + residual`` on CUDA tensors. With
     ``ln_scale`` and ``ln_bias`` it is two launches, as in JAX: K5 for the
-    row stats, then K6 on the tile :func:`fused_linear_path` names; without
+    row stats, then K6 on the tile :func:`fused_linear_tile` names; without
     them, one launch of K2, whose epilogue is the same."""
     m, n, k, out_shape = _check(x, w, bias, activation, residual)
     if (ln_scale is None) != (ln_bias is None):

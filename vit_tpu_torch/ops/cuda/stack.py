@@ -21,8 +21,7 @@ from __future__ import annotations
 import torch
 
 from vit_tpu_torch.ops.cuda import _build, count_launch
-from vit_tpu_torch.ops.cuda.block import (MAX_SMEM, attention_mma_smem_bytes,
-                                          attention_smem_bytes)
+from vit_tpu_torch.ops.cuda.block import MAX_SMEM, attention_smem_bytes
 
 #: The stacked encoder tensors in the kernel's argument order, with each
 #: one's shape after the leading num_layers axis (D model width, M MLP).
@@ -74,8 +73,8 @@ def _check_attention(sp: int, d: int, num_heads: int,
     """Raise unless the attention phase takes ``num_heads`` heads of D at
     ``sp`` tokens; returns the head width. The budget is the FFMA tile's
     in both dtypes, as ``ops.attn_plan``'s is: bf16 runs the tensor-core
-    core, which needs less (:func:`attention_groups` is at least 1
-    wherever this admits)."""
+    core, which needs less wherever this admits
+    (``csrc/encoder_stack.cu:stack_attn_smem``)."""
     if num_heads <= 0 or d % num_heads:
         raise ValueError(f"D={d} not divisible by {num_heads} heads")
     hd = d // num_heads
@@ -85,22 +84,6 @@ def _check_attention(sp: int, d: int, num_heads: int,
                          f"at {sp} tokens: {smem} B of shared memory, more "
                          f"than {MAX_SMEM}")
     return hd
-
-
-def attention_region_bytes(sp: int, hd: int) -> int:
-    """Shared memory of one group of K9's bf16 attention phase: the bf16
-    core's K and V (:func:`attention_mma_smem_bytes`), rounded up to 128
-    bytes (``csrc/encoder_stack.cu:stack_attn_region``)."""
-    return -(-attention_mma_smem_bytes(sp, hd) // 128) * 128
-
-
-def attention_groups(sp: int, hd: int) -> int:
-    """How many query tiles a block of K9's bf16 attention phase runs at
-    once (``csrc/encoder_stack.cu:stack_attn_groups``): 2, one a 128-thread
-    half of 64 rows, where two regions fit in the block's shared memory;
-    1, the whole block on 128 rows, where one fits; 0 where none does."""
-    r = attention_region_bytes(sp, hd)
-    return 2 if 2 * r <= MAX_SMEM else 1 if r <= MAX_SMEM else 0
 
 
 #: Slices of K the bf16 kernel may split the out-projection and fc2 into
