@@ -33,8 +33,8 @@ without printing the final ``ok`` line:
    one layer's fc2 and to context rows written from others in every head
    and layer (``stack_faults``), which they must refuse; K9's three forms
    also on one layer that passes the attention phase's context to the
-   output, at the kernel bar, each refusing one head's 32-row query tile
-   written from the next (``kernel_cases_stack_tile``, B/16 bs=1 and 2,
+   output, at the kernel bar, each refusing one head's query rows 32-63
+   written from rows 64-95 (``kernel_cases_stack_tile``, B/16 bs=1 and 2,
    L/16 bs=1);
 4. golden: synthetic B/16 weights in fp32 through the kernels, held to the
    ``transformers`` recording ``tests/fixtures/golden_b16.npz``, with the
@@ -1108,10 +1108,9 @@ def kernel_cases_small_batch(torch, dtype):
 def stack_tile_fault(torch, run, *, head: int, rows: int) -> dict:
     """A planted fault of a one-layer K9 case whose plain version is
     ``run("torch")``: head ``head``'s context on query rows ``rows`` ..
-    2 rows - 1 (the attention phase's second tile) taken from the next
-    tile's rows, planted in the plain version's ``reference.
-    attention_core``: one tile of one head, which the kernel bar must
-    refuse."""
+    2 rows - 1 taken from the next ``rows`` rows, planted in the plain
+    version's ``reference.attention_core``: one 32-row tile of one head at
+    ``rows`` = 32, which the kernel bar must refuse."""
     def shifted():
         from vit_tpu_torch.ops import reference
         core = reference.attention_core
@@ -1130,7 +1129,7 @@ def stack_tile_fault(torch, run, *, head: int, rows: int) -> dict:
         finally:
             reference.attention_core = core
     return {f"head {head}'s query rows {rows}-{2 * rows - 1} written from "
-            f"the next tile": shifted}
+            f"rows {2 * rows}-{3 * rows - 1}": shifted}
 
 
 def kernel_cases_stack_tile(torch, dtype):
@@ -1142,8 +1141,9 @@ def kernel_cases_stack_tile(torch, dtype):
     layers to the model bar, under which one tile of one head stays);
     B/16 at bs=1 and 2 and L/16 at bs=1, 197 of 208 tokens, x (and FOLD's
     embedding) small beside the context, QKV weights of std 0.04 (score
-    spread about 1.2). Each refuses one head's 32-row query tile written
-    from the next tile."""
+    spread about 1.2; the phase's 32-row tiles at bs=1, 64-row ones at
+    bs=2). Each refuses one head's query rows 32-63 written from rows
+    64-95."""
     from vit_tpu_torch import ops
     from vit_tpu_torch.config import VARIANTS
     from vit_tpu_torch.quant import quantize_params

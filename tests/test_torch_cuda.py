@@ -528,16 +528,17 @@ def test_torch_cuda_encoder_stack(gen, dtype, b):
 
 
 @pytest.mark.parametrize("heads,sp,seq_len", [
-    (12, 416, 401),  # 26 key steps: parts of 6, 7, 6 and 7
+    (12, 416, 401),  # 156 32-row tiles: 84 of 64 rows, 13 key steps a part
     (24, 208, 197),  # head width 32: the core's two-step form
     (8, 208, 197),   # 96: the eight-step form, two steps skipped
     (6, 208, 197)])  # 128: the eight-step form
 def test_torch_cuda_encoder_stack_attention_geometries(gen, heads, sp,
                                                        seq_len):
     """K9's bf16 attention phase (``attention_phase`` on the tensor-core
-    core, 32-row tiles with the keys in four parts) at D = 768 beyond
-    B/16's geometry, two layers, b = 1: twice B/16's tokens, and the 2-,
-    4- and 8-step forms of the core; against the plain version at the
+    core, 32-row tiles with the keys in four parts where they fit the
+    grid in one round, else 64-row tiles in two) at D = 768 beyond B/16's
+    geometry, two layers, b = 1: twice B/16's tokens (two parts), and the
+    2-, 4- and 8-step forms of the core; against the plain version at the
     model bar, two calls bit for bit."""
     from vit_tpu_torch import ops
 

@@ -750,17 +750,27 @@ K9_WARPS = 8  # K9's 256 threads
 ATTN_CHUNK = 64  # keys a chunk of the core's two passes
 
 
-def k9_attention_tiles(b: int, heads: int, sp: int, parts: int = K9_ATTN_PARTS,
-                       grid: int = K9_GRID) -> dict:
-    """``attention_phase``'s walk: block -> its tiles (image, head, first
-    row, rows). A tile is 16 rows a row warp, 8 / parts row warps; block i
+def k9_attn_parts(b: int, heads: int, sp: int, grid: int = K9_GRID) -> int:
+    """``attention_phase``'s key parts: ``kStackAttnParts`` where its
+    tiles (16 rows a row warp, 8 / parts row warps) fit the grid in one
+    round, else half as many."""
+    qt = 16 * (K9_WARPS // K9_ATTN_PARTS)
+    return K9_ATTN_PARTS if b * heads * -(-sp // qt) <= grid \
+        else K9_ATTN_PARTS // 2
+
+
+def k9_attention_tiles(b: int, heads: int, sp: int, grid: int = K9_GRID):
+    """``attention_tiles_mma``'s walk at :func:`k9_attn_parts` parts:
+    (parts, block -> its tiles (image, head, first row, rows)); block i
     takes tiles i, i + grid, ..."""
+    parts = k9_attn_parts(b, heads, sp, grid)
     qt = 16 * (K9_WARPS // parts)
     q_tiles = -(-sp // qt)
     tiles = b * heads * q_tiles
-    return {i: [(t // (heads * q_tiles), t // q_tiles % heads,
-                 t % q_tiles * qt, qt) for t in range(i, tiles, grid)]
-            for i in range(grid)}
+    return parts, {i: [(t // (heads * q_tiles), t // q_tiles % heads,
+                        t % q_tiles * qt, qt)
+                       for t in range(i, tiles, grid)]
+                   for i in range(grid)}
 
 
 def k9_key_parts(seq_len: int, parts: int) -> list:
@@ -812,22 +822,22 @@ def mma_core_rows(qkv, img, h, q0, rows, *, sp, d, dh, scale, seq_len,
     return (ctx / l[:, None]).to(torch.bfloat16)
 
 
-def k9_attention(qkv, *, batch, num_heads, scale, seq_len):
+def k9_attention(qkv, *, batch, num_heads, scale, seq_len, grid=K9_GRID):
     """K9's bf16 attention phase on the packed (b*sp, 3d) qkv: every tile
     of :func:`k9_attention_tiles` through :func:`mma_core_rows` with the
-    keys in ``kStackAttnParts`` parts, each context row written once;
+    keys in :func:`k9_attn_parts` parts, each context row written once;
     returns (b*sp, d)."""
     m, d = qkv.shape[0], qkv.shape[1] // 3
     sp, dh = m // batch, d // num_heads
     out = torch.empty((m, d), dtype=torch.bfloat16)
     written = torch.zeros((m, num_heads), dtype=torch.int32)
-    for tiles in k9_attention_tiles(batch, num_heads, sp).values():
+    parts, walk = k9_attention_tiles(batch, num_heads, sp, grid)
+    for tiles in walk.values():
         for img, h, q0, rows in tiles:
             r1 = min(q0 + rows, sp)
             out[img * sp + q0:img * sp + r1, h * dh:(h + 1) * dh] = \
                 mma_core_rows(qkv, img, h, q0, rows, sp=sp, d=d, dh=dh,
-                              scale=scale, seq_len=seq_len,
-                              parts=K9_ATTN_PARTS)
+                              scale=scale, seq_len=seq_len, parts=parts)
             written[img * sp + q0:img * sp + r1, h] += 1
     assert (written == 1).all()
     return out
@@ -858,10 +868,12 @@ def k9_model(x, enc, *, num_heads, scale, seq_len, grid=132, quantized=False):
         xn = reference.layernorm(xf, enc["ln1"]["scale"][i],
                                  enc["ln1"]["bias"][i], eps=EPS)
         qkv = scaled(_split_matmul(xn, wq, False, grid), sq, bq).to(dt)
-        attention = (k9_attention if dt == torch.bfloat16
-                     else reference.attention_core)
-        ctx = attention(qkv, batch=b, num_heads=num_heads, scale=scale,
-                        seq_len=seq_len)
+        if dt == torch.bfloat16:
+            ctx = k9_attention(qkv, batch=b, num_heads=num_heads,
+                               scale=scale, seq_len=seq_len, grid=grid)
+        else:
+            ctx = reference.attention_core(qkv, batch=b, num_heads=num_heads,
+                                           scale=scale, seq_len=seq_len)
         wo, so, bo = w("out", i)
         xf = (scaled(_split_matmul(ctx, wo, True, grid), so, bo)
               + xf.float()).to(dt)
@@ -915,11 +927,13 @@ def _close_model(got, want, dtype) -> None:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,grid", [(1, 132), (2, 132), (3, 7)])
+@pytest.mark.parametrize("b,grid", [(1, 132), (2, 132), (3, 7), (3, 5)])
 def test_k9_phases_match_reference(dtype, b, grid):
     """Two layers at D = 128, mlp 256, 17 real tokens of 32, against
     ``reference.encoder_stack``: split 2 and 4 ways at b = 1, 2 on 132
-    blocks, 2 and 4 ways on 7 blocks at b = 3 (two row tiles)."""
+    blocks, 2 and 4 ways on 7 blocks at b = 3 (two row tiles); on 5 blocks
+    the attention's six 32-row tiles would take two rounds, so it runs
+    three 64-row tiles in two key parts."""
     enc, x = _k9_inputs(dtype, b)
     kw = dict(num_heads=2, scale=64 ** -0.5, seq_len=17)
     _close_model(k9_model(x, enc, grid=grid, **kw),
@@ -991,25 +1005,29 @@ def test_k9_budgets_fit(i8):
 @pytest.mark.parametrize("seq_len", [197, 50])
 def test_k9_attention_tiles_cover_every_row_once(heads, b, seq_len):
     """B/16 (12 heads) and L/16 (16 heads) at 208 tokens, b = 1 and 2, on
-    132 blocks: every (image, head, query row) in exactly one tile; the
-    tiles on the grid's first blocks, at most two a block; each tile's key
-    parts cover [0, kend) once, in whole 16-key steps, every part with
-    keys, so that all eight warps of a busy block work (at seq_len 50 one
-    step a part)."""
-    sp, parts = 208, K9_ATTN_PARTS
-    walk = k9_attention_tiles(b, heads, sp)
+    132 blocks: four key parts on 32-row tiles at b = 1 (84 and 112
+    tiles), two on 64-row tiles at b = 2 (96 and 128), one round each;
+    every (image, head, query row) in exactly one tile; the tiles on the
+    grid's first blocks, one a block; each tile's key parts cover [0,
+    kend) once, in whole 16-key steps, every part with keys, so that all
+    eight warps of a busy block work (at seq_len 50 one or two steps a
+    part)."""
+    sp = 208
+    parts, walk = k9_attention_tiles(b, heads, sp)
+    assert parts == (K9_ATTN_PARTS if b == 1 else K9_ATTN_PARTS // 2)
     seen = {}
     for i, tiles in walk.items():
-        assert len(tiles) <= 2
+        assert len(tiles) <= 1
         for img, h, q0, rows in tiles:
             assert rows == 16 * (K9_WARPS // parts)
             for r in range(q0, min(q0 + rows, sp)):
                 seen[img, h, r] = seen.get((img, h, r), 0) + 1
     assert len(seen) == b * heads * sp and set(seen.values()) == {1}
     tiles = b * heads * -(-sp // (16 * (K9_WARPS // parts)))
+    assert tiles == {(12, 1): 84, (12, 2): 96, (16, 1): 112,
+                     (16, 2): 128}[heads, b]
     busy = [i for i, t in walk.items() if t]
-    assert busy == list(range(min(tiles, K9_GRID)))
-    assert sum(len(t) for t in walk.values()) == tiles
+    assert busy == list(range(tiles))
     keys = k9_key_parts(seq_len, parts)
     kend = -(-seq_len // 16) * 16
     assert keys[0][0] == 0 and keys[-1][1] == kend
@@ -1019,7 +1037,8 @@ def test_k9_attention_tiles_cover_every_row_once(heads, b, seq_len):
 
 def k9_attention_bytes(sp: int, dh: int, parts: int = K9_ATTN_PARTS) -> int:
     """``stack_attn_smem``: K and V (``attention_mma_smem``), then the
-    parts' exchange (``attn_mma_xbytes``: one fp32 slot a lane for each
+    parts' exchange at ``kStackAttnParts`` parts (at half as many it is
+    smaller) (``attn_mma_xbytes``: one fp32 slot a lane for each
     warp's two row maxima, and for each warp of parts 1 .. P-1 two row sums
     and 8 NK context values, NK = ``attn_mma_nk_of(dh)``)."""
     steps = -(-dh // 16)
@@ -1061,6 +1080,8 @@ def test_k9_attention_regions_fit_every_admitted_geometry():
         hd = d // heads
         assert attention_smem_bytes(sp, hd, 2) <= MAX_SMEM
         assert k9_attention_bytes(sp, hd) <= MAX_SMEM, (sp, d, heads)
+        assert (k9_attention_bytes(sp, hd, K9_ATTN_PARTS // 2)
+                <= k9_attention_bytes(sp, hd))
     stage = 3 * BOX
     stages = min(K9_STAGES, (SMEM_MAX - 1024 - K9_BAR) // stage)
     bars = stages * stage

@@ -30,8 +30,10 @@
 //      _encoder_stack_kernel's row-max softmax (block.py:1953-1968). bf16
 //      runs K4's tensor-core core (attention_mma.cuh, mma.sync) on the
 //      whole block: a 32-row tile, its keys in four parts, every warp 16
-//      rows against one part (84 items at B/16 bs=1). fp32 runs the FFMA
-//      tile (attention_core.cuh), 64 rows on the whole block.
+//      rows against one part (84 items at B/16 bs=1); where those tiles
+//      would take the grid two rounds, a 64-row tile in two parts (96
+//      items at bs=2). fp32 runs the FFMA tile (attention_core.cuh), 64
+//      rows on the whole block.
 //   3. Out-projection + bout + residual, in place on the activation (bf16:
 //      split over K into the workspace, then the slices' sum with the
 //      epilogue after one more barrier).
@@ -68,13 +70,15 @@
 //
 // Bound on the card: at bs <= 2 the weight stream. B/16 bf16 reads
 // 12 x 14.16 MB = 170 MB of weights, a floor of about 51 us at 3.35 TB/s.
-// On an NVIDIA H100 80GB HBM3 at 700 W this kernel takes 1.08 ms at B/16
-// bs=1 in bf16 on the card (1.23 with FOLD, 1.12 on int8 weights; device
-// times in tools/turns.py), some 21 times the floor: the attention phase
-// about 0.20 ms of it (tools/stack_ablate.py; 1.05 on the FFMA core), most
-// of the rest the GEMM phases' reads of each weight slab from L2 once per
-// 64-row tile, their split-K reductions and the LN passes. The 128-row
-// tiles on the whole block ran no faster at bs=1 and slower at L/16.
+// On an NVIDIA H100 80GB HBM3 at 700 W this kernel takes about 1.04 ms
+// at B/16 bs=1 in bf16 (1.11 on int8 weights; queued calls,
+// tools/stack_ablate.py), some 20 times the floor: the attention phase
+// 0.18 ms of it (1.05 on the FFMA core), most of the rest the GEMM
+// phases' reads of each weight slab from L2 once per 64-row tile, their
+// split-K reductions and the LN passes. The phase's time a tile barely
+// follows the keys a warp walks: 64-row tiles in two parts took 0.20 ms
+// at bs=1 and 16-row tiles in eight 0.25, while at bs=2 two parts (one
+// round of 96 tiles) beat four (168 tiles, two rounds) by 0.05 ms.
 
 #include <cooperative_groups.h>
 
@@ -86,11 +90,14 @@ namespace cg = cooperative_groups;
 namespace vit {
 
 // The bf16 attention phase's key parts (attention_tile_mma's P): a tile
-// of 16 * 8 / P query rows on the block's eight warps.
+// of 16 * 8 / P query rows on the block's eight warps. kStackAttnParts
+// where its tiles fit the grid in one round, else half as many parts on
+// tiles twice as tall (B/16 on 132 blocks: 84 tiles in four parts at
+// bs=1, 96 in two at bs=2).
 constexpr int kStackAttnParts = 4;
 
 // Shared memory of the bf16 attention phase: K and V, and the parts'
-// exchange.
+// exchange (the larger at kStackAttnParts parts).
 inline size_t stack_attn_smem(int sp, int dh) {
   return attention_mma_smem(sp, dh) +
          attn_mma_xbytes(kMmThreads / 32, kStackAttnParts,
@@ -226,31 +233,43 @@ __device__ __forceinline__ const float* layer_scales(const float* s,
   return s ? s + off : nullptr;
 }
 
-// The attention phase: every (image, head, query tile) once, strided over
-// the grid, on the whole block. bf16 on the tensor cores
-// (attention_tile_mma), 32-row tiles with the keys in kStackAttnParts
-// parts; fp32 on the FFMA tile (attention_tile<float>), 64 rows.
+// Every (image, head, 16 * 8 / P-row query tile) once on the tensor cores
+// (attention_tile_mma, the keys in P parts), strided over the grid, on
+// the whole block.
+template <int P, typename T, typename W>
+__device__ __forceinline__ void attention_tiles_mma(const StackArgs<T, W>& a,
+                                                    unsigned char* smem) {
+  constexpr int qt = 16 * (kMmThreads / 32 / P);
+  const int D = a.d, dh = D / a.heads, q_tiles = (a.sp + qt - 1) / qt;
+  for (int t = blockIdx.x; t < a.b * a.heads * q_tiles; t += gridDim.x) {
+    __syncthreads();  // the block's last tile is done with the smem
+    const int img = t / (a.heads * q_tiles);
+    const int h = t / q_tiles % a.heads;
+    attn_mma_nk(dh, [&](auto nk) {
+      attention_tile_mma<decltype(nk)::value, P, kMmThreads>(
+          a.qkv, a.ctx, a.sp, D, dh, a.scale, a.seq_len, img, h,
+          t % q_tiles * qt, smem);
+    });
+  }
+}
+
+// The attention phase: bf16 on the tensor cores, kStackAttnParts parts
+// where their tiles fit the grid in one round, else half as many; fp32 on
+// the FFMA tile (attention_tile<float>), 64 rows on the whole block.
 template <typename T, typename W>
 __device__ __forceinline__ void attention_phase(const StackArgs<T, W>& a,
                                                 unsigned char* smem) {
-  const int D = a.d, dh = D / a.heads;
   if constexpr (std::is_same_v<T, bf16>) {
     constexpr int qt = 16 * (kMmThreads / 32 / kStackAttnParts);
-    const int q_tiles = (a.sp + qt - 1) / qt;
     // The QKV phase's TMA writes to these bytes come before this phase's
     // generic and cp.async writes.
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    for (int t = blockIdx.x; t < a.b * a.heads * q_tiles; t += gridDim.x) {
-      __syncthreads();  // the block's last tile is done with the smem
-      const int img = t / (a.heads * q_tiles);
-      const int h = t / q_tiles % a.heads;
-      attn_mma_nk(dh, [&](auto nk) {
-        attention_tile_mma<decltype(nk)::value, kStackAttnParts, kMmThreads>(
-            a.qkv, a.ctx, a.sp, D, dh, a.scale, a.seq_len, img, h,
-            t % q_tiles * qt, smem);
-      });
-    }
+    if (a.b * a.heads * ((a.sp + qt - 1) / qt) <= static_cast<int>(gridDim.x))
+      attention_tiles_mma<kStackAttnParts>(a, smem);
+    else
+      attention_tiles_mma<kStackAttnParts / 2>(a, smem);
   } else {
+    const int D = a.d, dh = D / a.heads;
     const int q_tiles = (a.sp + kAttnQT - 1) / kAttnQT;
     for (int t = blockIdx.x; t < a.b * a.heads * q_tiles; t += gridDim.x) {
       const int img = t / (a.heads * q_tiles);

@@ -9,10 +9,11 @@ than its own duration where it overlaps other work). The variants:
 
 - ``no_attention``: K9's attention phase computes nothing (its barrier
   stays);
-- ``attn_parts2``, ``attn_parts8``: K9's bf16 attention phase on 64-row
-  query tiles with the keys in two parts, or on 16-row tiles with the keys
-  in eight, where K9 runs 32-row tiles with the keys in four (the other
-  tile sizes: each keeps all eight warps at work);
+- ``attn_four_parts``, ``attn_two_parts``: K9's bf16 attention phase on
+  32-row query tiles with the keys in four parts, or on 64-row tiles with
+  the keys in two, at every batch, where K9 takes four parts if their
+  tiles fit the grid in one round and two if not (each keeps all eight
+  warps at work);
 - ``no_gemm``: K9's bf16 GEMM phases do nothing (the LN passes, the
   barriers, the split-K reductions, FOLD's phase 0 and the final LN
   stay);
@@ -64,10 +65,11 @@ VARIANTS = {
     "base": [],
     "no_attention": [("encoder_stack.cu", r"^(\s*)attention_phase\(a, smem\);",
                       r"\1if (a.b < 0) attention_phase(a, smem);")],
-    "attn_parts2": [("encoder_stack.cu", r"kStackAttnParts = 4;",
-                     "kStackAttnParts = 2;")],
-    "attn_parts8": [("encoder_stack.cu", r"kStackAttnParts = 4;",
-                     "kStackAttnParts = 8;")],
+    "attn_four_parts": [("encoder_stack.cu",
+                         r"<= static_cast<int>\(gridDim\.x\)\)",
+                         "<= 1 << 30)")],
+    "attn_two_parts": [("encoder_stack.cu",
+                        r"<= static_cast<int>\(gridDim\.x\)\)", "< 0)")],
     "no_gemm": [("stack_phase.cuh", r"^(\s*)sw::wgmma_phase<W>\(",
                  r"\1if (m < 0) sw::wgmma_phase<W>(")],
     "no_mma": [("stack_wgmma.cuh", r"^(\s*)mw::wgmma_ss<64>\(acc,",
