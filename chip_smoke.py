@@ -11,7 +11,11 @@ without printing the final ``ok`` line:
 3. each kernel against its plain PyTorch version, in fp32 and bf16, at the
    ViT-B/16 path's shapes (bs=32), at the ViT-L/16-384 path's shapes
    (bs=8: 8 x 592 = 4736 rows, D=1024, 16 heads of 64), ``embed_fused`` at
-   B/16 (bs=4), H/14 (bs=2, K=588) and L/16-384 (bs=4, phase 7's bucket),
+   B/16 (bs=4 and 1), H/14 (bs=2, K=588) and L/16-384 (bs=4, phase 7's
+   bucket), in bf16 on the ``wgmma`` tile bit for bit with K2 -> cast ->
+   ``+ pos`` (``k8_check``; H/14 on ``gemm_tile.cuh``), each timed beside
+   K2 on the same operands; K18 ``layer_tail`` at B/16 bs=32, L/16 bs=8
+   and ragged M (1, 65) at D = 128-1024, two calls bit for bit,
    both forms of ``encoder_stack`` as whole 12-layer B/16 encoders at bs=1
    and bs=2 (197 of 208 tokens); the int8 kernels at B/16 bs=32, L/16-384
    bs=8 (K7's fp32 output at 592 tokens) and H/14 bs=2 (D=1280, MLP 5120),
@@ -27,9 +31,11 @@ without printing the final ``ok`` line:
    bs=32 on packed QKV views. The bars of K2's backward cases, of K6's
    LN cases (each timed beside K1 -> K2), of K7's three cases, of K16's
    scores and context, of K3's, K12's and K17's cases (B/16 bs=32,
-   L/16-384 bs=8, H/14 bs=2, every shard form) are each held to two
-   planted faults (``gemm_faults``, ``flash_faults``, ``mlp_faults``,
-   ``mlp_q_faults``), and each of K9's three forms to a zeroed K slice of
+   L/16-384 bs=8, H/14 bs=2, every shard form) and of K8's cases are each
+   held to two planted faults (``gemm_faults``, ``flash_faults``,
+   ``mlp_faults``, ``mlp_q_faults``), K18's to three (``layer_faults``: a
+   64-deep K step of Wout, a 64-column hidden chunk, the output x 0.85),
+   and each of K9's three forms to a zeroed K slice of
    one layer's fc2 and to context rows written from others in every head
    and layer (``stack_faults``), which they must refuse; K9's three forms
    also on one layer that passes the attention phase's context to the
@@ -76,10 +82,11 @@ without printing the final ``ok`` line:
     calls); K4's core, K13 and every case of K1, K2, K3, K7, K11, K14,
     K15 and K16 (``PIPELINED``) also pipelined, calls queued back to back
     (the device time where the host keeps ahead), and those of K1, K2,
-    K3, K7, K11, K14, K15 and K16 on the card (``DEVICE_TIMED``: the
-    profiler's device time), beside the library
+    K3, K5, K7, K8, K10, K11, K14, K15, K16 and K18 on the card
+    (``DEVICE_TIMED``: the profiler's device time), beside the library
     call timed the same way (fp32 ``addmm`` without TF32) and, for K3,
-    beside the same MLP as K1 -> K2 -> K2 (``composed_ms``; K12 beside
+    beside the same MLP as K1 -> K2 -> K2 (``composed_ms``; K8 beside K2
+    on the same operands, K12 beside
     K10 -> K11 -> K10 -> K11, K17 beside K3 on the dequantized weights,
     K9 at bs=1 beside K24's ``dma``, its weight stream alone); the
     bf16 forwards of B/16 at bs=32 and L/16-384 at bs=8
@@ -219,14 +226,17 @@ PER_FORWARD_Q_STACK = {"embed_fused": 1, "encoder_stack_q": 1,
 #: way; every case of those in DEVICE_TIMED.
 PIPELINED = ("attention", "flash_attention_bwd", "matmul", "flash_attention",
              "matmul3", "mlp_block", "mlp_block_partial", "layernorm",
-             "softmax", "add", "matmul_i8")
+             "softmax", "add", "matmul_i8", "layernorm_stats",
+             "quantize_rows", "embed_fused", "layer_block")
 #: Kernels each of whose cases phase 11 also times on the card (the
 #: profiler's device time), beside the library call: their wrappers' host
 #: time can exceed the kernel, and then pipelined calls wait on the host.
-#: K1, K15, K14 and K11 are here for their library calls' card times.
+#: K1, K15, K14 and K11 are here for their library calls' card times; K5,
+#: K10, K8 and K18 for their own.
 DEVICE_TIMED = ("matmul", "flash_attention", "matmul3", "mlp_block",
                 "mlp_block_partial", "layernorm", "softmax", "add",
-                "matmul_i8")
+                "matmul_i8", "layernorm_stats", "quantize_rows",
+                "embed_fused", "layer_block")
 #: Where each kernel's source is and which TPU kernel it replaces.
 KERNEL_SOURCES = {
     "layernorm": ("vit_tpu_torch/csrc/layernorm.cu",
@@ -245,7 +255,9 @@ KERNEL_SOURCES = {
                      "vit_tpu/ops/pallas/matmul.py:388"),
     "flash_attention": ("vit_tpu_torch/csrc/flash_attention.cu",
                         "vit_tpu/ops/pallas/attention.py:311"),
-    "embed_fused": ("vit_tpu_torch/csrc/embed.cu",
+    # K8's bf16 kernel (the kernels line's case) is K2's wgmma tile with
+    # its EMB epilogue; embed.cu launches it, and gemm_tile.cuh's form.
+    "embed_fused": ("vit_tpu_torch/csrc/gemm_wgmma.cuh",
                     "vit_tpu/ops/pallas/patch_embed.py:96"),
     "encoder_stack": ("vit_tpu_torch/csrc/encoder_stack.cu",
                       "vit_tpu/ops/pallas/block.py:2203"),
@@ -283,8 +295,10 @@ KERNEL_SOURCES = {
     "mlp_block_q_partial": ("vit_tpu_torch/csrc/mlp_q_wgmma.cuh",
                             "vit_tpu/ops/pallas/block.py:416"),
     # K18 is the last of layer_block's four launches (K1, K2 and the
-    # attention core count theirs), as K4's core is of attn_block's.
-    "layer_block": ("vit_tpu_torch/csrc/layer_block.cu",
+    # attention core count theirs), as K4's core is of attn_block's. Its
+    # bf16 kernel is K3's cluster tile with the K18 flag; layer_block.cu
+    # launches it, and the fp32 form.
+    "layer_block": ("vit_tpu_torch/csrc/mlp_wgmma.cuh",
                     "vit_tpu/ops/pallas/block.py:1805"),
     "patchify": ("vit_tpu_torch/csrc/patching.cu",
                  "vit_tpu/ops/pallas/patching.py:67"),
@@ -1056,6 +1070,7 @@ def kernel_cases_small_batch(torch, dtype):
     e, kind = dtype.itemsize, _kind(torch, dtype)
     cases = []
     for b, n, k, d, sp in ((4, 196, 768, 768, 208), (2, 256, 588, 1280, 272),
+                           (1, 196, 768, 768, 208),
                            (4, 576, 768, 1024, 592)):
         args = (rnd(b, n, k), rnd(k, d, std=0.03), rnd(d, std=0.1), rnd(d),
                 rnd(n, d))
@@ -1063,7 +1078,12 @@ def kernel_cases_small_batch(torch, dtype):
             "embed_fused", f"({b},{n},{k})@({k},{d}) -> ({b},{sp},{d})",
             lambda impl, a=args, sp=sp: ops.embed_fused(*a, sp, impl=impl),
             ((b * n * k + k * d + n * d + 2 * d + b * sp * d) * e,
-             2 * b * n * k * d, kind)))
+             2 * b * n * k * d, kind), check=k8_check(torch, args, sp),
+            faults=gemm_faults(torch, lambda pt, a=args, sp=sp:
+                               ops.embed_fused(pt, *a[1:], sp), args[0], 2,
+                               start=256),
+            composed=lambda a=args, m=b * n: ops.matmul(
+                a[0].reshape(m, a[0].shape[2]), a[1], a[2])))
     cfg = VARIANTS["B/16"].replace(dtype=dtype)
     p = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(
         6))
@@ -1103,6 +1123,35 @@ def kernel_cases_small_batch(torch, dtype):
             faults=stack_faults(torch, fused, p["encoder"]),
             composed=dma))
     return cases
+
+
+def k8_check(torch, args, sp: int):
+    """K8's bar: the kernel bar against the plain version and, in bf16 on
+    the ``wgmma`` tile (``ops.cuda.embed.embed_tile``), every token row
+    bit for bit with K2 on the same operands, cast, then ``+ pos`` in bf16
+    (row 0 ``cls_row``, the pad rows zero)."""
+    from vit_tpu_torch import ops
+
+    def check(torch, got, want, dtype):
+        # Imported here: tools/turns.py builds these cases against older
+        # checkouts too, which have no embed_tile.
+        from vit_tpu_torch.ops.cuda.embed import embed_tile
+
+        res = compare(torch, got, want, dtype)
+        if dtype == torch.bfloat16 and embed_tile(args[0], args[1]) == \
+                "wgmma":
+            b, n, k = args[0].shape
+            chain = torch.zeros_like(got)
+            chain[:, 0] = args[3]
+            chain[:, 1:n + 1] = ops.matmul(
+                args[0].reshape(b * n, k), args[1], args[2]).reshape(
+                    b, n, -1) + args[4]
+            if not torch.equal(got, chain):
+                raise AssertionError("not bit for bit with K2 -> cast -> "
+                                     "+ pos")
+            res["k2_chain_bit_for_bit"] = True
+        return res
+    return check
 
 
 def stack_tile_fault(torch, run, *, head: int, rows: int) -> dict:
@@ -1586,11 +1635,16 @@ def kernel_cases_layer(torch, dtype):
     rnd = _rnd_fn(torch, dtype, 15)
     e, kind = dtype.itemsize, _kind(torch, dtype)
     cases = []
-    shapes = [("B/16 bs=32", 32, 768, 3072, 12)]
+    shapes = [("B/16 bs=32", 32 * 208, 768, 3072)]
     if dtype == torch.bfloat16:
-        shapes.append(("L/16 bs=8", 8, 1024, 4096, 16))
-    for tag, b, d, mlp, heads in shapes:
-        m = b * 208
+        # L/16 bs=8 (two passes over the hidden at D = 1024), then ragged
+        # M (one row, a cluster and one row) at D = 128 (the second
+        # warpgroup owns no columns), 384 (two boxes and one), 768, 1024.
+        shapes += [("L/16 bs=8", 8 * 208, 1024, 4096), ("M=1", 1, 128, 128),
+                   ("M=65", 65, 128, 3072), ("M=65", 65, 384, 128),
+                   ("M=1", 1, 384, 3072), ("M=65", 65, 768, 128),
+                   ("M=1", 1, 1024, 3072), ("M=65", 65, 1024, 128)]
+    for tag, m, d, mlp in shapes:
         tail = (rnd(m, d), rnd(m, d, std=1.5), rnd(d, d, std=0.03),
                 rnd(d, std=0.02), rnd(d, std=0.1, mean=1.0),
                 rnd(d, std=0.05), rnd(d, mlp, std=0.03), rnd(mlp, std=0.02),
@@ -1603,7 +1657,10 @@ def kernel_cases_layer(torch, dtype):
         cases.append(case(
             "layer_block", f"K18 {tag} ({m},{d}) mlp {mlp}", run,
             ((3 * m * d + d * d + 2 * d * mlp + mlp + 5 * d) * e,
-             2 * m * d * (d + 2 * mlp), kind), primary=tag == "B/16 bs=32"))
+             2 * m * d * (d + 2 * mlp), kind), primary=tag == "B/16 bs=32",
+            check=twice_bit_for_bit(lambda a=tail: cuda_block.layer_tail(*a)),
+            faults=layer_faults(lambda a: cuda_block.layer_tail(*a), tail),
+            composed=k18_chain(ops, tail) if m > 1000 else None))
     b, sp, s, d, mlp, heads = 32, 208, 197, 768, 3072, 12
     m = b * sp
     layer = (rnd(b, sp, d, std=1.5), rnd(d, std=0.1, mean=1.0),
@@ -1642,6 +1699,43 @@ def kernel_cases_layer(torch, dtype):
         ((256 * 384 + 384 * 512 + 256 * 512) * e, 2 * 256 * 384 * 512,
          kind), library=lambda: torch.matmul(x, w)))
     return cases
+
+
+def layer_faults(run, a) -> dict:
+    """K18's three planted faults for the case ``run(a)`` (``a``: ctx, x,
+    wout, bout, LN2's scale and bias, w1, b1, w2, b2): one 64-deep K step
+    of the out-projection skipped (rows D/2 .. D/2 + 63 of wout zeroed),
+    one 64-column hidden chunk skipped (rows mlp/2 .. mlp/2 + 63 of w2
+    zeroed, ``mlp_faults``' way) and the output scaled by 0.85."""
+    def zeroed(i):
+        cut = a[i].clone()
+        k0 = cut.shape[0] // 2
+        cut[k0:k0 + 64].zero_()
+        return run((*a[:i], cut, *a[i + 1:]))
+    d, mlp = a[2].shape[0], a[8].shape[0]
+    return {"output * 0.85": lambda: run(a) * 0.85,
+            f"Wout K {d // 2}-{d // 2 + 63} skipped": lambda: zeroed(2),
+            f"hidden {mlp // 2}-{mlp // 2 + 63} skipped": lambda: zeroed(8)}
+
+
+def k18_chain(ops, a):
+    """K18's yardstick on the same operands: K2 (``ctx @ wout + bout + x``,
+    y rounded to the dtype) -> K3. Not the same function: it rounds y."""
+    ctx, x, wout, bout, g2, bn2, w1, b1, w2, b2 = a
+    return lambda: ops.mlp_block(ops.matmul(ctx, wout, bout, residual=x),
+                                 g2, bn2, w1, b1, w2, b2)
+
+
+def twice_bit_for_bit(run):
+    """A case's bar (``compare``) that also calls the kernel ``run()`` a
+    second time and raises unless the two calls give the same bits."""
+    def check(torch, got, want, dtype):
+        res = compare(torch, got, want, dtype)
+        if not torch.equal(got, run()):
+            raise AssertionError("two calls differ")
+        res["two_calls_bit_for_bit"] = True
+        return res
+    return check
 
 
 def device_ms(torch, fn, iters: int = 20) -> tuple[float, dict]:

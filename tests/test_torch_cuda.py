@@ -1421,6 +1421,99 @@ def test_torch_cuda_layer_block_keeps_y_in_fp32(gen):
     assert d_got <= 3e-3 < d_pair, (d_got, d_pair)
 
 
+def _tail_args(gen, m, d, mlp):
+    """K18's operands alone (``layer_tail``): ctx, x, then the ten
+    weights of the out-projection and the MLP half, in bf16."""
+    b = torch.bfloat16
+    return (_rnd(gen, b, m, d), _rnd(gen, b, m, d, std=1.5),
+            _rnd(gen, b, d, d, std=0.03), _rnd(gen, b, d, std=0.02),
+            _rnd(gen, b, d, std=0.1, mean=1.0), _rnd(gen, b, d, std=0.05),
+            _rnd(gen, b, d, mlp, std=0.03), _rnd(gen, b, mlp, std=0.02),
+            _rnd(gen, b, mlp, d, std=0.03), _rnd(gen, b, d, std=0.02))
+
+
+@pytest.mark.parametrize("m,d,mlp", [
+    (1, 128, 128), (65, 128, 3072), (65, 384, 128), (1, 384, 3072),
+    (6656, 768, 3072), (1, 768, 128), (65, 1024, 128), (1, 1024, 3072),
+    (130, 896, 256), (1664, 1024, 4096)])
+def test_torch_cuda_layer_tail_bf16_tiles(gen, m, d, mlp):
+    """K18's bf16 ``wgmma`` cluster tile (``csrc/mlp_wgmma.cuh`` with its
+    K18 flag) at ragged M (1, 65, 130 and B/16 bs=32's 6656, L/16 bs=8's
+    1664), D from 128 (the second warpgroup owns no columns) to 1024 (two
+    passes, the second pass's y kept in the output's bytes) and mlp 128 to
+    4096: the kernel bar against ``reference.layer_tail`` with mean <=
+    3e-3; two calls bit for bit; rows 0-32 (or the one row) the same bits
+    in a shorter call; and three planted faults refused: one 64-deep K
+    step of Wout skipped (its rows zeroed), one 64-column hidden chunk
+    skipped (rows mlp/2 .. + 63 of w2 zeroed) and the output scaled by
+    0.85."""
+    from vit_tpu_torch.ops import reference
+    from vit_tpu_torch.ops.cuda import block
+
+    args = _tail_args(gen, m, d, mlp)
+    got = block.layer_tail(*args)
+    want = reference.layer_tail(*args)
+    _close_bf16_bars(got, want)
+    again = block.layer_tail(*args)
+    head = min(m, 33)
+    part = block.layer_tail(args[0][:head], args[1][:head], *args[2:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(part, got[:head])
+    k0, h0 = d // 2, mlp // 2
+    wout, w2 = args[2].clone(), args[8].clone()
+    wout[k0:k0 + 64] = 0
+    w2[h0:h0 + 64] = 0
+    faults = {"Wout K step": block.layer_tail(*args[:2], wout, *args[3:]),
+              "hidden chunk": block.layer_tail(*args[:8], w2, args[9]),
+              "output * 0.85": (got.float() * 0.85).to(got.dtype)}
+    for what, bad in faults.items():
+        with pytest.raises(AssertionError):
+            _close_bf16_bars(bad, want)
+
+
+@pytest.mark.parametrize("b,n,k,d,sp", [
+    (1, 196, 768, 768, 208), (4, 196, 768, 768, 208),
+    (4, 576, 768, 1024, 592), (3, 49, 3072, 768, 64),
+    (2, 256, 588, 1280, 272)])
+def test_torch_cuda_embed_fused_bf16_tiles(gen, b, n, k, d, sp):
+    """K8 in bf16 on the tile ``embed_tile`` names (``gemm_path``'s for K2
+    on the same operands, which the kernel library's rule, read through
+    ``vit_fused_linear_tile``, matches): the ``wgmma`` form at B/16 bs=1
+    and 4, L/16-384 bs=4 and B/32 bs=3, ``gemm_tile.cuh`` at H/14's K =
+    588. Every row bit for bit with K2 on the same operands, cast, then
+    ``+ pos`` in bf16, with row 0 ``cls_row`` and the pad rows zero; two
+    calls bit for bit; the kernel bar against the plain version; one
+    launch."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import _build, launch_counts
+    from vit_tpu_torch.ops.cuda import reset_launch_counts
+    from vit_tpu_torch.ops.cuda.embed import embed_tile
+
+    bf = torch.bfloat16
+    args = (_rnd(gen, bf, b, n, k), _rnd(gen, bf, k, d, std=0.03),
+            _rnd(gen, bf, d, std=0.1), _rnd(gen, bf, d),
+            _rnd(gen, bf, n, d))
+    tile = embed_tile(args[0], args[1])
+    assert tile == ("wmma" if k % 8 else "wgmma")
+    assert bool(_build.library().vit_fused_linear_tile(
+        args[0].data_ptr(), args[1].data_ptr(), d, k,
+        _build.DTYPE_CODES[bf])) == (tile == "wgmma")
+    reset_launch_counts()
+    got = ops.embed_fused(*args, sp, impl="cuda")
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(embed_fused=1)
+    again = ops.embed_fused(*args, sp, impl="cuda")
+    chain = torch.zeros_like(got)
+    chain[:, 0] = args[3]
+    chain[:, 1:n + 1] = ops.matmul(args[0].reshape(b * n, k), args[1],
+                                   args[2]).reshape(b, n, d) + args[4]
+    torch.cuda.synchronize()
+    assert torch.equal(got, chain)
+    assert torch.equal(got, again)
+    _close_bf16_bars(got, ops.embed_fused(*args, sp, impl="torch"))
+
+
 def test_torch_cuda_layer_block_checks_inputs(gen):
     """Shapes K18 does not take raise before any launch."""
     from vit_tpu_torch import ops

@@ -6,24 +6,40 @@
 // VMEM so that the unpadded embedding never exists in HBM. Here the same
 // holds for device memory: the output is written once, already padded.
 //
-// It is K2's GEMM (gemm_tile.cuh) over the B*N patch rows with an embed
-// epilogue: patch row g*N + i becomes output row g*sp + 1 + i, with
-// _embed_kernel's rounding -- z = acc + bias in fp32, cast to the tensor's
-// type, then z + pos[i] in that type (one more rounding), the composed
-// route's numbers exactly. The blocks of the first row of tiles also write,
-// in their columns, each image's row 0 (cls_row, which already holds
-// pos[0]) and its pad rows N+1 .. sp-1 (zeros): the rows that
-// _embed_kernel takes from `base`. K is ragged (H/14's patch is 588 long,
-// B/32's 3072); tiles past the edges are zero-filled as in K2.
+// bf16, wherever K2 would get the wgmma tile on the same contiguous
+// (B*N, K) patches and (K, D) weight (wgmma_takes, gemm_path's rule: both
+// bases 16-byte aligned, K and D multiples of 8): K2's persistent wgmma
+// tile with the EMB epilogue (gemm_wgmma.cuh, matmul_wgmma.cu:
+// launch_wgmma_embed), K2's sum order, so its rows are bit for bit K2 ->
+// cast -> + pos. Elsewhere (fp32, and H/14's K = 588, not whole 16-byte
+// chunks) gemm_tile.cuh's loop with the epilogue below. Either way patch
+// row g*N + i becomes output row g*sp + 1 + i, with _embed_kernel's
+// rounding -- z = acc + bias in fp32, cast to the tensor's type, then z +
+// pos[i] in that type (one more rounding), the composed route's numbers
+// exactly -- and each image's row 0 (cls_row, which already holds pos[0])
+// and pad rows N+1 .. sp-1 (zeros), the rows that _embed_kernel takes
+// from `base`, are written once: on the wgmma tile by the block that walks
+// the column tile's first row tile, on gemm_tile.cuh's by the first row of
+// blocks. Tiles past the edges are zero-filled as in K2.
 //
 // Bound on the card: at bs <= 4 the (K, D) weight (1.2 MB at B/16 bf16)
 // and the patches are read once; a few microseconds at 3.35 TB/s, so the
-// kernel is latency-bound: 6 x 13 tiles at B/16 bs=4 on 132 SMs, each a
-// serial loop over K.
+// kernel is latency-bound: 12 tiles of 128 x 128 at B/16 bs=1, 42 at bs=4,
+// 144 at L/16-384 bs=4 on 132 SMs, each a serial walk over K's 64-deep
+// steps. What the wgmma form still leaves: at bs <= 4 most SMs idle (a
+// 64-row tile or a deterministic split over K would fill more of them).
 
 #include "gemm_tile.cuh"
 
 namespace vit {
+
+// Defined in matmul_wgmma.cu.
+bool wgmma_takes(const void* x, const void* w, int n, int k);
+cudaError_t launch_wgmma_embed(const void* patches, const void* w,
+                               const void* bias, const void* cls_row,
+                               const void* pos, void* out, int b, int n_tok,
+                               int k, int d, int sp, int device,
+                               cudaStream_t st);
 
 template <typename T>
 struct EmbedEpilogue {
@@ -98,8 +114,12 @@ extern "C" int vit_embed_fused(const void* patches, const void* w,
   if (dtype == kF32)
     return launch_embed<float>(patches, w, bias, cls_row, pos, out, b, n, k,
                                d, sp, st);
-  if (dtype == kBF16)
+  if (dtype == kBF16) {
+    if (wgmma_takes(patches, w, d, k))
+      return launch_wgmma_embed(patches, w, bias, cls_row, pos, out, b, n, k,
+                                d, sp, device, st);
     return launch_embed<bf16>(patches, w, bias, cls_row, pos, out, b, n, k, d,
                               sp, st);
+  }
   return cudaErrorInvalidValue;
 }

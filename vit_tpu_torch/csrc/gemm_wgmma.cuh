@@ -20,12 +20,10 @@
 //   (Epilogue::store's order, matmul.cu), into a padded staging tile in
 //   shared memory; the warpgroup then writes its rows with 16-byte stores.
 //
-// Why this shape (timed on an NVIDIA H100 80GB HBM3 against a 128 x 256
-// tile and a ping-pong form, whose warpgroups own whole tiles in turn;
-// PERF.md section 6): 128 x 256 was slower at three of the four B/16
-// shapes timed (it halves the tiles: 54 for the QKV weight gradient on
-// 132 SMs), and the ping-pong form, faster at the QKV, lost where a block
-// has one or two tiles to share between its warpgroups.
+// Why 128 x 128 with both warpgroups on one tile (PERF.md section 6): a
+// wider tile halves the tiles (54 for the QKV weight gradient on 132
+// SMs), and warpgroups owning whole tiles in turn leave one idle where a
+// block has one or two tiles.
 //
 // Layouts. Every operand arrives through a 2-D tensor map with 128-byte
 // swizzle, so one box row is 64 bf16 and 8 box rows form a 1024-byte
@@ -50,10 +48,18 @@
 // past K -- fence it for the async proxy and arrive on the stage's full
 // barrier, one arrival a warp; the consumers then run K2's loop
 // unchanged. The pass runs up to the ring's depth ahead of the
-// products. Two designs that put the pass on the consumers were slower
-// (PERF.md, section 6): A fragments read by ldmatrix and normalised
-// in registers for wgmma with A from registers, and each consumer
-// warpgroup normalising its half of the box in place before its wgmma.
+// products, off the consumers' path (PERF.md, section 6).
+//
+// K8, embed_fused (vit_tpu/ops/pallas/patch_embed.py:_embed_kernel, its
+// pallas_call at :96), runs on this tile in bf16 (template flag EMB,
+// matmul_wgmma.cu:launch_wgmma_embed) wherever gemm_path would give K2 the
+// wgmma tile on the contiguous (B*N, K) patches and (K, D) weight: K2's
+// loop and sum order unchanged, its epilogue with _embed_kernel's rounding
+// -- z = acc + bias in fp32, cast to bf16, then z + pos[i] in bf16 -- and
+// patch row g*N + i stored as token row g*sp + 1 + i. Each image's row 0
+// (cls_row) and pad rows N+1 .. sp-1 (zeros) are written, in a column
+// tile's 128 columns, by the block that walks that column's first row tile
+// (m0 = 0), after its epilogue: one tile a column, so once each.
 //
 // Ragged edges: TMA fills every element of a box outside the tensor with
 // zeros and still counts the whole box's bytes, so sums past M, N or K are
@@ -66,11 +72,15 @@
 // LN + QKV (4736 x 1024 @ 1024 x 3072) 0.0301 ms. On an NVIDIA H100 80GB
 // HBM3 at 700 W K6 takes about 0.126 ms there on the card
 // (tools/turns.py), 1.4 times K1 -> K2 on the same operands, its LN pass
-// about 0.034 ms of it (tools/stack_ablate.py k6_no_ln). What this tile still
+// about 0.034 ms of it (tools/stack_ablate.py k6_no_ln); K8 at L/16-384
+// bs=4 (2304 x 768 @ 768 x 1024, 3.6 GFLOP: 0.0037 ms) about 0.020 ms,
+// 1.04 times K2 on the same operands, B/16 bs=1 and 4 within 1.03 times.
+// What this tile still
 // leaves: the epilogue is not overlapped with the next tile's products
 // (both warpgroups store at once), and a shape with fewer tiles than SMs
-// (a weight gradient with N = 768) leaves SMs idle: split-K, as a
-// deterministic two-pass sum, would fill them.
+// (a weight gradient with N = 768, K8 at bs <= 4: 12 and 42 tiles at B/16
+// bs=1 and 4) leaves SMs idle: split-K, as a deterministic two-pass sum,
+// or a 64-row tile would fill them.
 
 #pragma once
 
@@ -131,7 +141,9 @@ struct WgLn {
   bool vec;
 };
 
-// The epilogue's operands: bias (N,) and residual (M, N) may be null.
+// The epilogue's operands: bias (N,) and residual (M, N) may be null. K8
+// (EMB): M = batch * n_tok patch rows into (batch, sp, N) tokens, pos
+// (n_tok, N), cls (N,).
 struct WgEpilogue {
   const bf16* bias;
   const bf16* residual;
@@ -139,6 +151,10 @@ struct WgEpilogue {
   int m, n, gelu_act;
   bool vec_res;  // residual pairs are 4-byte aligned (n even, base aligned)
   bool vec_out;  // out rows are 16-byte aligned (n % 8 == 0, base aligned)
+  const bf16* pos;
+  const bf16* cls;
+  int n_tok, sp, batch;
+  bool vec_pos;  // pos pairs are 4-byte aligned (n even, base aligned)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -378,12 +394,47 @@ __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
 }
 
+// K8: the pos pairs (bf16 x 2 in a word) of the thread's accumulator
+// values in the warpgroup's 64 rows of the tile at (m0, n0): pv[j][h]
+// belongs to row 16 * warp + lane / 4 + 8h, columns 8j + 2 (lane % 4) and
+// + 1 (zeros past M and N). Loaded when the tile starts, so that the K
+// loop hides their latency: the compiler does not move loads in the
+// epilogue past its staging stores, so there each would wait in turn
+// (PERF.md, section 6).
+__device__ __forceinline__ void embed_pos(const WgEpilogue& ep, int m0,
+                                          int n0, uint32_t (&pv)[kBN / 8][2]) {
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = m0 + 16 * warp + lane / 4 + 8 * h;
+    const bf16* pr =
+        ep.pos + static_cast<size_t>(gr < ep.m ? gr % ep.n_tok : 0) * ep.n;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int gc = n0 + 8 * j + 2 * (lane % 4);
+      pv[j][h] = 0u;
+      if (gr < ep.m && gc + 1 < ep.n && ep.vec_pos) {
+        pv[j][h] = __ldg(reinterpret_cast<const unsigned int*>(pr + gc));
+      } else if (gr < ep.m && gc < ep.n) {
+        const bf16 lo = pr[gc];
+        const bf16 hi = gc + 1 < ep.n ? pr[gc + 1] : __float2bfloat16_rn(0.f);
+        pv[j][h] = static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+                   (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+      }
+    }
+  }
+}
+
 // One consumer warpgroup's epilogue: its 64 rows of the tile at (m0, n0),
 // sums in the wgmma accumulator layout (value 4j + i of a thread is row
 // 16 * warp + lane / 4 + 8 * (i / 2), column 8j + 2 * (lane % 4) + i % 2).
+// EMB: K8's rounding (pv from embed_pos) and row map instead of GELU and
+// the residual.
+template <bool EMB>
 __device__ __forceinline__ void epilogue(const float (&d)[64],
                                          const WgEpilogue& ep, int m0, int n0,
-                                         bf16* cs, int wgi) {
+                                         bf16* cs, int wgi,
+                                         const uint32_t (&pv)[kBN / 8][2]) {
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   named_sync(1 + wgi);  // this warpgroup's readers of cs are done
 #pragma unroll
@@ -402,11 +453,15 @@ __device__ __forceinline__ void epilogue(const float (&d)[64],
         v0 += b0;
         v1 += b1;
       }
-      if (ep.gelu_act) {
+      if constexpr (EMB) {
+        // z = bf16(acc + bias), then z + pos[i] rounded once more (below).
+        v0 = __bfloat162float(__float2bfloat16_rn(v0)) + bf_lo(pv[j][h]);
+        v1 = __bfloat162float(__float2bfloat16_rn(v1)) + bf_hi(pv[j][h]);
+      } else if (ep.gelu_act) {
         v0 = gelu(v0);
         v1 = gelu(v1);
       }
-      if (ep.residual && gr < ep.m) {
+      if (!EMB && ep.residual && gr < ep.m) {
         const bf16* rp = ep.residual + static_cast<size_t>(gr) * ep.n + gc;
         if (ep.vec_res && gc + 1 < ep.n) {
           const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(rp);
@@ -428,7 +483,10 @@ __device__ __forceinline__ void epilogue(const float (&d)[64],
     const int r = ch / CPR, c = (ch % CPR) * 8;
     const int gr = m0 + r, gc = n0 + c;
     if (gr >= ep.m || gc >= ep.n) continue;
-    bf16* o = ep.out + static_cast<size_t>(gr) * ep.n + gc;
+    // EMB: patch row g*n_tok + i is token row g*sp + 1 + i.
+    const int orow =
+        EMB ? gr / ep.n_tok * ep.sp + 1 + gr % ep.n_tok : gr;
+    bf16* o = ep.out + static_cast<size_t>(orow) * ep.n + gc;
     const bf16* s = cs + r * kLdc + c;
     if (ep.vec_out && gc + 8 <= ep.n) {
       *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(s);
@@ -438,17 +496,47 @@ __device__ __forceinline__ void epilogue(const float (&d)[64],
   }
 }
 
+// K8: each image's row 0 (cls) and pad rows n_tok+1 .. sp-1 (zeros) in the
+// column tile at n0, by the block's 256 consumer threads, 16 bytes a
+// store (N is a multiple of 8 on this tile; cls and out 16-byte aligned
+// where vec_out, else element by element).
+__device__ __forceinline__ void embed_fixed_rows(const WgEpilogue& ep,
+                                                 int n0) {
+  const int extra = ep.sp - ep.n_tok;  // row 0, rows n_tok+1 .. sp-1
+  const int cols = min(kBN, ep.n - n0);
+  constexpr int CPR = kBN / 8;  // 16-byte chunks a row
+  const bool vec = ep.vec_out && reinterpret_cast<uintptr_t>(ep.cls) % 16 == 0;
+  for (int e = threadIdx.x; e < ep.batch * extra * CPR; e += 256) {
+    const int c = (e % CPR) * 8, r = e / CPR;
+    if (c >= cols) continue;
+    const int g = r / extra, j = r % extra;
+    const int row = j == 0 ? 0 : ep.n_tok + j;
+    bf16* o = ep.out + (static_cast<size_t>(g) * ep.sp + row) * ep.n + n0 + c;
+    if (vec && c + 8 <= cols) {
+      *reinterpret_cast<uint4*>(o) =
+          j == 0 ? *reinterpret_cast<const uint4*>(ep.cls + n0 + c)
+                 : make_uint4(0, 0, 0, 0);
+    } else {
+      for (int u = 0; u < 8 && c + u < cols; ++u)
+        o[u] = j == 0 ? ep.cls[n0 + c + u] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
 // (m, k) @ (k, n): A through map_a, B through map_b (see the header
 // comment for their boxes); TA: A is the view of a (k, m) matrix; TB: B is
 // the view of an (n, k) matrix. LN (K6, A and B as they lie): the
 // producer warpgroup's warps 1-3 normalise each stage's x box with `ln`
-// in place between its TMA and the consumers' wgmma.
-template <int TA, int TB, bool LN = false>
+// in place between its TMA and the consumers' wgmma. EMB (K8, A and B as
+// they lie): the embedding epilogue, and the column's fixed rows from the
+// block that walks its first row tile.
+template <int TA, int TB, bool LN = false, bool EMB = false>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_bf16_wgmma(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b,
                     WgEpilogue ep, int k, WgLn ln) {
   static_assert(!LN || (TA == 0 && TB == 0), "K6 reads x and w as they lie");
+  static_assert(!EMB || (TA == 0 && TB == 0 && !LN), "K8: x and w as they lie");
   extern __shared__ uint8_t wg_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
@@ -538,11 +626,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
         LN ? kLnConsumerRegs : kConsumerRegs));
     float d[64];
+    uint32_t pv[kBN / 8][2];  // K8's pos pairs (embed_pos)
     bf16* cs = reinterpret_cast<bf16*>(smem + kCOff) + wgi * 64 * kLdc;
     int s = 0;
     uint32_t ph = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile % tiles_m) * kBM, n0 = (tile / tiles_m) * kBN;
+      if constexpr (EMB) embed_pos(ep, m0 + 64 * wgi, n0, pv);
 #pragma unroll
       for (int i = 0; i < 64; ++i) d[i] = 0.f;
       fence_acc(d);
@@ -576,7 +666,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();
       fence_acc(d);
       if (threadIdx.x % 128 == 0) mbar_arrive(empty0 + 8 * prev);
-      epilogue(d, ep, m0 + 64 * wgi, n0, cs, wgi);
+      epilogue<EMB>(d, ep, m0 + 64 * wgi, n0, cs, wgi, pv);
+      if (EMB && m0 == 0) embed_fixed_rows(ep, n0);
     }
   }
 }

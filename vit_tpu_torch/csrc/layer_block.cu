@@ -12,27 +12,24 @@
 // (M, D) context. What sets the layer apart from attn_block + mlp_block is
 // that y32 stays fp32 between the halves: LN2 reads it unrounded and the MLP
 // accumulator starts at y32 + b2 (block.py:1709-1710), where the pair rounds
-// y to the tensor's type in device memory. This kernel keeps y in shared
-// memory and in the accumulator, so it never rounds and never leaves the SM.
+// y to the tensor's type in device memory.
 //
-// A block owns a tile of rows. It stages its ctx rows in shared memory,
-// computes the out-projection into the fp32 accumulator, writes it to
-// shared memory and adds bout, then x, in JAX's order; each warp then
-// normalises whole rows of y into xn in the tensor's type (LN2, block.py:
-// 1709) and adds b2 to the row; the accumulator is reloaded from y + b2 and
-// K3's chunk loop (mlp_tile.cuh) runs on it.
+// bf16: K3's wgmma cluster tile with its K18 flag (mlp_wgmma.cuh, where the
+// phases are set out): a cluster of two blocks a 64-row tile, ctx's rows
+// and Wout's boxes by TMA, y in the fc2 accumulators (each block its half
+// of the columns), LN2's statistics exchanged across the cluster, the
+// LN2(y) boxes copied to the other block, then K3's chunk loop. At D >= 896
+// the tile takes two passes over the hidden as K3 does, the second pass's
+// y kept unrounded in the output's bytes in between: at L/16 bs=8 about
+// 3.9 times faster on the card than the wmma tile it replaced, and level
+// with K2 -> K3 on the same operands (PERF.md). D and mlp multiples
+// of 128, D at most 1024; rows are masked. ctx, Wout, W1 and W2 are read
+// through TMA tensor maps: 16-byte aligned bases (the wrapper checks ctx's
+// 16 and the weights' 32).
 //
 // Bound on the card: operations, 2*M*D*(D + 2*mlp) (70.7 GFLOP at B/16
-// bs=32, 0.0715 ms in bf16). Like K3 it reads every weight from L2 straight
-// into fragments, unstaged and unpipelined; TMA staging and wgmma are the
-// later work, shared with K3.
-//
-// bf16: 32 rows a block, eight warps, the accumulator in wmma fragments as
-// in K3 (warp w owns columns [w*D/8, (w+1)*D/8)). Shared memory: y (32 x D
-// fp32; the chunk buffers overlay it once the accumulator is loaded, and the
-// output tile after the last chunk) and xn (32 x D bf16: first the ctx rows,
-// then LN2(y)): 144 KB at D=768, 192 KB at D=1024. D and mlp multiples of
-// 128, D at most 1024; rows are masked.
+// bs=32, 0.0715 ms in bf16). What the tile leaves is K3's: every cluster
+// reads the weights from L2, and at D >= 896 fc1 runs in each pass.
 //
 // fp32: true fp32 FFMA (no TF32), 16 rows a block, thread t owning output
 // columns t, t+256, ... in registers, as K3. Shared memory: the ctx rows,
@@ -40,139 +37,55 @@
 // D=1536, the limit. Rows, D and mlp are masked.
 
 #include "mlp_tile.cuh"
+#include "mlp_wgmma.cuh"
 
 namespace vit {
 
 // ---------------------------------------------------------------- bf16 --
 
-// The y region: 32 x D fp32, at least the chunk buffers that overlay it.
-__host__ __device__ constexpr size_t layer_bf16_y_bytes(int d) {
-  return static_cast<size_t>(kMlpBM) * d * sizeof(float) > kMlpChunkBytes
-             ? static_cast<size_t>(kMlpBM) * d * sizeof(float)
-             : kMlpChunkBytes;
-}
+// Defined in matmul_wgmma.cu: a bf16 tensor map with 128-byte swizzle over
+// a rows x cols row-major matrix, boxes of box_cols x box_rows.
+bool tensor_map(CUtensorMap* map, const void* p, int rows, int cols, int ld,
+                int box_cols, int box_rows);
 
-inline size_t layer_bf16_smem(int d) {
-  return layer_bf16_y_bytes(d) + static_cast<size_t>(kMlpBM) * d * sizeof(bf16);
-}
+constexpr int kLayerMaxDevices = 64;
 
-template <int NT>  // D = NT * 128: each warp owns NT 16-wide column tiles
-__global__ void __launch_bounds__(kMlpThreads, 1)
-    layer_bf16_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ x,
-                      const bf16* __restrict__ wout,
-                      const bf16* __restrict__ bout,
-                      const bf16* __restrict__ g2, const bf16* __restrict__ bn2,
-                      const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-                      const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-                      bf16* __restrict__ out, int m, int mlp, float eps) {
-  constexpr int D = NT * 128;
-  constexpr int V = D / 8;  // 16-byte chunks of a bf16 row
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* y = reinterpret_cast<float*>(smem);
-  bf16* xn = reinterpret_cast<bf16*>(smem + layer_bf16_y_bytes(D));
-  float* hpre = y;  // the chunk buffers overlay y once acc holds it
-  bf16* hb = reinterpret_cast<bf16*>(hpre + kMlpBM * kMlpCT);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = blockIdx.x * kMlpBM;
-
-  // The block's ctx rows, zero past m.
-  for (int e = threadIdx.x; e < kMlpBM * V; e += kMlpThreads) {
-    const int r = e / V;
-    reinterpret_cast<uint4*>(xn)[e] =
-        m0 + r < m ? reinterpret_cast<const uint4*>(
-                         ctx + static_cast<size_t>(m0 + r) * D)[e % V]
-                   : make_uint4(0, 0, 0, 0);
-  }
-  __syncthreads();
-
-  // The out-projection: acc = ctx @ Wout in fp32.
-  MlpFrag acc[2][NT];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-#pragma unroll 2
-  for (int k = 0; k < D; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(a[i], xn + i * 16 * D + k, D);
-    const bf16* wr = wout + static_cast<size_t>(k) * D;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> wb;
-      wmma::load_matrix_sync(wb, wr + (warp * NT + j) * 16, D);
-      wmma::mma_sync(acc[0][j], a[0], wb, acc[0][j]);
-      wmma::mma_sync(acc[1][j], a[1], wb, acc[1][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      wmma::store_matrix_sync(y + i * 16 * D + (warp * NT + j) * 16,
-                              acc[i][j], D, wmma::mem_row_major);
-  __syncthreads();  // y's products complete; every read of the ctx rows done
-
-  // Row by row, one warp a row: y = (y + bout) + x, xn = LN2(y) rounded,
-  // then y += b2, the accumulator's seed.
-  for (int r = warp; r < kMlpBM; r += kMlpWarps) {
-    float* yr = y + r * D;
-    bf16* xr = xn + r * D;
-    if (m0 + r < m) {
-      const bf16* x0 = x + static_cast<size_t>(m0 + r) * D;
-      for (int i = lane; i < D; i += 32)
-        yr[i] = (yr[i] + to_f32(bout[i])) + to_f32(x0[i]);
-      __syncwarp();
-      layernorm_row<float, bf16, bf16>(yr, g2, bn2, xr, D, eps, lane);
-      for (int i = lane; i < D; i += 32) yr[i] += to_f32(b2[i]);
-    } else {
-      for (int i = lane; i < D; i += 32) {
-        yr[i] = 0.f;
-        xr[i] = __float2bfloat16_rn(0.f);
-      }
-    }
-  }
-  __syncthreads();  // y + b2 and xn complete
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      wmma::load_matrix_sync(acc[i][j], y + i * 16 * D + (warp * NT + j) * 16,
-                             D, wmma::mem_row_major);
-  __syncthreads();  // every warp holds its seed: the chunk buffers take y
-
-  mlp_chunks_bf16<NT>(xn, hpre, hb, w1, b1, w2, mlp, acc);
-  __syncthreads();  // the last chunk's reads of hb done: y takes the output
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      wmma::store_matrix_sync(y + i * 16 * D + (warp * NT + j) * 16,
-                              acc[i][j], D, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kMlpBM * D; e += kMlpThreads) {
-    const int r = e / D;
-    if (m0 + r < m)
-      out[static_cast<size_t>(m0) * D + e] = from_f32<bf16>(y[e]);
-  }
-}
-
-template <int NT>
+template <int T>  // D = 128 T
 cudaError_t launch_layer_bf16(const bf16* ctx, const bf16* x, const bf16* wout,
                               const bf16* bout, const bf16* g2,
                               const bf16* bn2, const bf16* w1, const bf16* b1,
                               const bf16* w2, const bf16* b2, bf16* out, int m,
-                              int mlp, float eps, cudaStream_t st) {
-  const size_t smem = layer_bf16_smem(NT * 128);
-  cudaError_t err = cudaFuncSetAttribute(
-      layer_bf16_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((m + kMlpBM - 1) / kMlpBM);
-  layer_bf16_kernel<NT><<<grid, kMlpThreads, smem, st>>>(
-      ctx, x, wout, bout, g2, bn2, w1, b1, w2, b2, out, m, mlp, eps);
+                              int mlp, float eps, int device,
+                              cudaStream_t st) {
+  using C = mw::Cfg<T>;
+  auto kernel = mw::mlp_bf16_wgmma<T, true>;
+  // Per device, once: the shared-memory limit, and whether the kernel got
+  // the registers its setmaxnreg split needs (as K3's launcher).
+  static bool ready[kLayerMaxDevices];
+  if (device < 0 || device >= kLayerMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr{};
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * mw::kThreads < mw::kPoolRegs)
+      return cudaErrorLaunchOutOfResources;
+    ready[device] = true;
+  }
+  CUtensorMap m1, m2, mc, mo;
+  // W1 (D, mlp) in boxes of 64 MLP columns x 64 rows; W2 (mlp, D) and Wout
+  // (D, D) in boxes of 64 output columns x KS2 rows; ctx (m, D) in 64 x 64
+  // boxes.
+  if (!tensor_map(&m1, w1, C::D, mlp, mlp, 64, 64) ||
+      !tensor_map(&m2, w2, mlp, C::D, C::D, 64, C::KS2) ||
+      !tensor_map(&mc, ctx, m, C::D, C::D, 64, 64) ||
+      !tensor_map(&mo, wout, C::D, C::D, C::D, 64, C::KS2))
+    return cudaErrorInvalidValue;
+  const mw::MlpArgs args{x, g2, bn2, b1, b2, out, m, mlp, eps, 0, 0, bout};
+  const dim3 grid(2 * ((m + mw::kBM - 1) / mw::kBM));
+  kernel<<<grid, mw::kThreads, C::kSmem, st>>>(m1, m2, mc, mo, args);
   return cudaGetLastError();
 }
 
@@ -311,7 +224,7 @@ extern "C" int vit_layer_block(const void* ctx, const void* x,
         static_cast<const bf16*>(g2), static_cast<const bf16*>(bn2),         \
         static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),          \
         static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),          \
-        static_cast<bf16*>(out), m, mlp, eps, st);
+        static_cast<bf16*>(out), m, mlp, eps, device, st);
     switch (d / 128) {
       VIT_LAYER_BF16(1)
       VIT_LAYER_BF16(2)

@@ -84,11 +84,11 @@ bool tensor_map_i8_dense(CUtensorMap* map, const void* p, int rows, int cols,
 // (set once: the host cost of a launch counts at K2's smaller shapes).
 constexpr int kMaxDevices = 64;
 
-template <int TA, int TB, bool LN = false>
+template <int TA, int TB, bool LN = false, bool EMB = false>
 cudaError_t launch_wgmma_tile(const CUtensorMap& ma, const CUtensorMap& mb,
                               const wg::WgEpilogue& ep, int k, int device,
                               cudaStream_t st, const wg::WgLn& ln = {}) {
-  auto kernel = wg::gemm_bf16_wgmma<TA, TB, LN>;
+  auto kernel = wg::gemm_bf16_wgmma<TA, TB, LN, EMB>;
   static int sm_count[kMaxDevices];  // 0 until the device's first launch
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   int& sms = sm_count[device];
@@ -175,6 +175,29 @@ cudaError_t launch_wgmma_ln(const void* x, const void* w, const void* bias,
   return launch_wgmma_tile<0, 0, true>(
       ma, mb, wg_epilogue(bias, residual, out, m, n, gelu_act), k, device,
       st, ln);
+}
+
+// K8 on the wgmma tile: patches (b * n_tok, k) @ w (k, d) + bias, cast,
+// + pos, into token rows of out (b, sp, d), with each image's cls row and
+// zero pad rows; patches and w contiguous (wgmma_takes).
+cudaError_t launch_wgmma_embed(const void* patches, const void* w,
+                               const void* bias, const void* cls_row,
+                               const void* pos, void* out, int b, int n_tok,
+                               int k, int d, int sp, int device,
+                               cudaStream_t st) {
+  const int m = b * n_tok;
+  CUtensorMap ma, mb;
+  if (!tensor_map(&ma, patches, m, k, k, 64, wg::kBM) ||
+      !tensor_map(&mb, w, k, d, d, 64, 64))
+    return cudaErrorInvalidValue;
+  wg::WgEpilogue ep = wg_epilogue(bias, nullptr, out, m, d, 0);
+  ep.pos = static_cast<const bf16*>(pos);
+  ep.cls = static_cast<const bf16*>(cls_row);
+  ep.n_tok = n_tok;
+  ep.sp = sp;
+  ep.batch = b;
+  ep.vec_pos = reinterpret_cast<uintptr_t>(pos) % 4 == 0 && d % 2 == 0;
+  return launch_wgmma_tile<0, 0, false, true>(ma, mb, ep, k, device, st);
 }
 
 }  // namespace vit

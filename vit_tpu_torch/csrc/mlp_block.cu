@@ -76,10 +76,12 @@ cudaError_t launch_mlp_bf16(const bf16* x, const bf16* g, const bf16* b,
   auto a16 = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  const mw::MlpArgs args{x, g, b, b1, b2, out, m, mlp, eps, partial,
-                         a16(x) && a16(g) && a16(b)};
+  const mw::MlpArgs args{x,       g,   b,   b1,      b2,
+                         out,     m,   mlp, eps,     partial,
+                         a16(x) && a16(g) && a16(b), nullptr};
   const dim3 grid(2 * ((m + mw::kBM - 1) / mw::kBM));
-  kernel<<<grid, mw::kThreads, C::kSmem, st>>>(m1, m2, args);
+  // K3 reads no ctx and no Wout: their map arguments repeat W1's and W2's.
+  kernel<<<grid, mw::kThreads, C::kSmem, st>>>(m1, m2, m1, m2, args);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // K3's bf16 tile for Hopper (vit_tpu/ops/pallas/block.py:mlp_block, its
 // pallas_call at :218, kernel _mlp_kernel at :49-93; mlp_block.cu launches
 // it): out = x + fc2(gelu(fc1(LN(x)))) for 64 rows at a time on wgmma fed
-// by TMA, with the (rows, mlp) hidden kept on chip.
+// by TMA, with the (rows, mlp) hidden kept on chip. With the template flag
+// L the same kernel is K18's bf16 form (layer_block.cu; below).
 //
 // Shape. A cluster of two blocks owns 64 rows; block r (its rank in the
 // cluster) owns output columns [r*D/2, (r+1)*D/2) and keeps their fp32
@@ -30,12 +31,43 @@
 // D >= 896 do). Rows are 64 a block because LN(x) for 64 rows is already
 // 96 KB of shared memory at D = 768 (128 KB at D = 1024).
 //
+// K18 (L: vit_tpu/ops/pallas/block.py:_layer_kernel, :1687-1720, its
+// pallas_call :1805): out = y + b2 + fc2(gelu(fc1(LN2(y)))) with y = ctx @
+// Wout + bout + x kept in fp32, never rounded. y is exactly the seed of
+// the fc2 sums (acc = y32 + b2, block.py:1710), so it lives in those
+// registers, split between the blocks by columns like them. In front of
+// the MLP: (1) ctx's 64 x D rows arrive by TMA as K-major A boxes into
+// the region that later holds LN2(y); (2) acc = ctx @ Wout[:, the
+// warpgroup's columns], Wout's KS2-row stages of the block's D/2 columns
+// streamed through the W2 ring (an fc2 stage with K = D, Wout N-major
+// where it lies); (3) acc = (acc + bout) + x in fp32; (4) LN2's
+// statistics over the whole row, in _ln32's two passes (block.py:638-644:
+// the mean, then the mean of the squared centred values): each thread's
+// columns in order, the quad by shuffles, the two consumer warpgroups in
+// shared memory, then the two blocks, whose 64 partials a round cross the
+// cluster by distributed shared memory and a remote barrier arrival, summed
+// in rank order so both blocks hold the same bits; (5) LN2(y) of the
+// block's columns, (y - mean) * rstd * g2 + bn2 in fp32, rounded to bf16,
+// into the block's A boxes, and one bulk copy of those boxes into the
+// other block's (the statistics exchange shows that both blocks are done
+// reading ctx there), fenced for the async proxy; (6) acc += b2 and K3's
+// chunk loop unchanged, then one cast. At D >= 896 (two passes) the second
+// pass's y is computed with the first's, for the statistics, and kept
+// unrounded in fp32 in the output's own bytes (the warpgroup's 64 rows x
+// its columns of both passes hold exactly its second-pass sums), read
+// back before the first pass's stores overwrite them: fc1 stays computed
+// once a pass, as in K3, with no second read of ctx. The statistics'
+// order and the shared-memory maps are modelled on the CPU by
+// tests/test_torch_layer_tiles.py.
+//
 // Pipeline. The producer warpgroup (threads 256-383) gives its registers
 // up (setmaxnreg.dec). Thread 256 streams W1 tiles (64 D-rows x the
 // block's 64 chunk columns, 8 KB) and thread 288 W2 tiles (KS2 hidden rows
 // x the block's D/2 columns) through two TMA rings, each as far ahead as
 // its ring allows; thread 320 copies the block's h slices to the other
-// block. The two consumer warpgroups (threads 0-255, setmaxnreg.inc) walk
+// block. (K18: thread 256 first loads the ctx boxes, thread 288 first
+// streams Wout's stages, thread 320 first copies the LN2 boxes.) The two
+// consumer warpgroups (threads 0-255, setmaxnreg.inc) walk
 // c = 0..C: fc1(c)'s K-steps two at a time, each pair followed by the
 // fc2(c-1) stages due by then, so that both rings drain at a steady rate
 // (h(c-1) is waited for just before its first stage); then the GELU of
@@ -51,7 +83,8 @@
 // hfull[b] completes when this block's 256 consumer threads have written
 // their slice (after a proxy fence: wgmma and the copy read h through the
 // async proxy) and the other block's copy has landed (its arrival with
-// the bytes, then the bytes).
+// the bytes, then the bytes). K18's LN2 boxes go the same way (lnready,
+// lnfull), and its statistics slots lie in h buffer 1, unused until then.
 //
 // Layouts (128-byte swizzle throughout: a 64-wide bf16 row is 128 bytes,
 // 8 rows form a 1024-byte atom, and 16-byte chunk j of row i sits at
@@ -62,17 +95,26 @@
 // 64-column halves), written from the fc1 accumulator fragments: value
 // 4j + i of thread (warp w, lane l) of warpgroup g is row 16w + l/4 +
 // 8(i/2), column 32g + 8j + 2(l%4) + i%2, so a pair (i, i+1) is 4 bytes at
-// row*128 + (((4g + j) ^ (l/4)) * 16) + 4(l%4). W1 and W2 tiles are
+// row*128 + (((4g + j) ^ (l/4)) * 16) + 4(l%4). K18's LN2 pairs go the
+// same way from the fc2 fragments: column c of the block's half lands in
+// box c/64 at chunk ((c%64)/8) ^ (row%8). W1 and W2 tiles are
 // N-major B operands, loaded in boxes of 64 N columns: a k16 step moves
 // the descriptor 16 rows (2 KB), the stride between 8-row groups is 1024
 // bytes and between 64-column boxes one box; the second warpgroup's fc1
 // descriptor starts 64 bytes into the W1 box (its 32 columns).
 //
 // Bound on the card: the tensor cores, 4*M*D*mlp operations (0.0635 ms at
-// B/16 bs=32 at 989 TFLOP/s). What this tile still leaves: each cluster
-// reads all of W1 and W2 from L2 (104 row blocks x 9.4 MB at B/16 bs=32);
-// TMA multicast to clusters that share the weights would divide that. 104
-// clusters of two blocks on 132 SMs leave a partial second wave.
+// B/16 bs=32 at 989 TFLOP/s); K18 2*M*D*(D + 2*mlp) (0.0715 ms). On an
+// NVIDIA H100 80GB HBM3 at 700 W (tools/turns.py) K3 takes about 0.24 ms
+// there on the card and K18 about 0.29, 0.97 times K2 -> K3 on the same
+// operands; K18 at L/16 bs=8 (1664 x 1024, mlp 4096) about 0.39. What
+// this tile still leaves: each cluster reads all of W1 and W2 (and for
+// K18 Wout) from L2 (104 row blocks x 9.4 MB at B/16 bs=32); TMA
+// multicast to clusters that share the weights would divide that. 104
+// clusters of two blocks on 132 SMs leave a partial second wave. At
+// D >= 896 fc1 is computed in each pass. K18's out-projection streams
+// Wout through the two-stage W2 ring, one stage in flight, and ptxas
+// spills a few hundred bytes in its D >= 640 forms.
 
 #pragma once
 
@@ -100,7 +142,7 @@ constexpr int kHC = kCT / 2;   // a block's share of a chunk
 constexpr int kThreads = 384;  // consumers 0-255, producer 256-383
 constexpr int kBox = 8192;     // 64 x 64 bf16
 constexpr int kSmemMax = 232448;
-constexpr int kBarBytes = 256;
+constexpr int kBarBytes = 320;
 // setmaxnreg as in gemm_wgmma.cuh: the launcher refuses a build whose
 // kernel got fewer than kPoolRegs / kThreads registers a thread.
 constexpr int kProducerRegs = 40;
@@ -152,7 +194,11 @@ struct Cfg {
   static constexpr int kLdc0 = 64 * NB + 8;
   static_assert(kS1 >= 4, "four W1 stages at least");
   static_assert(kSmem <= kSmemMax, "227 KB a block");
-  static_assert((2 * kS1 + 2 * kS2 + 8) * 8 <= kBarBytes, "barriers");
+  // K3's barriers, then K18's five (ctx, the two statistics rounds,
+  // lnfull, lnready).
+  static_assert((2 * kS1 + 2 * kS2 + 8 + 5) * 8 <= kBarBytes, "barriers");
+  // K18's statistics slots (Stats) fit h buffer 1.
+  static_assert(2 * 2 * kBM * 4 + 2 * kBM * 4 <= 2 * kBox, "stat slots");
 };
 
 // The operands of one launch.
@@ -167,6 +213,8 @@ struct MlpArgs {
   float eps;
   int partial;
   int vec;  // x, g and b are 16-byte aligned
+  const bf16* bout;  // K18: the out-projection's bias (x is the residual,
+                     // g and b LN2's); null for K3
 };
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -422,10 +470,13 @@ __device__ __forceinline__ void ln_rows(const MlpArgs& a, uint8_t* xn,
 
 // Shared-memory addresses of a block's barriers: the W1 ring (full,
 // empty), the W2 ring (full, empty), then hfull[2], hempty[2], hready[2]
-// and hdone[2].
+// and hdone[2]; K18's ctx (the ctx boxes have landed), st[2] (the other
+// block's 64 partials of statistics round 0, 1), lnfull and lnready (as
+// hfull and hready, for the LN2 boxes).
 template <int T>
 struct Bars {
   uint32_t w1f, w1e, w2f, w2e, hfull, hempty, hready, hdone;
+  uint32_t ctx, st, lnfull, lnready;
   __device__ explicit Bars(uint32_t base) {
     using C = Cfg<T>;
     w1f = base + C::kBarOff;
@@ -436,31 +487,76 @@ struct Bars {
     hempty = hfull + 16;
     hready = hempty + 16;
     hdone = hready + 16;
+    ctx = hdone + 16;
+    st = ctx + 8;
+    lnfull = st + 16;
+    lnready = lnfull + 8;
   }
 };
 
+// K18's statistics slots, in h buffer 1 (written first by chunk 1's h,
+// after both blocks are past the statistics): each consumer warpgroup's
+// partial of each row (part[round][wg][row]) and the other block's sum of
+// its two (peer[round][row], written by that block).
+struct Stats {
+  float part[2][2][kBM];
+  float peer[2][kBM];
+};
+
+// K18: store v to a distributed shared-memory address (mapa's).
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+// Both consumer warpgroups of the block (threads 0-255).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 3, 256;" ::: "memory");
+}
+
+// K18 at two passes: where the fp32 pair (row r, columns cc, cc + 1) of a
+// warpgroup's second-pass y waits in the output's bytes. Its 64 rows of
+// its first-pass columns (col_a, 64 real_a bf16 a row), then of its
+// second-pass ones (col_b), hold 2 bf16 slots a float: at least the
+// 64 real_b floats a row of its second pass, since real_b <= real_a.
+__device__ __forceinline__ float2* y_stash(bf16* out, int d, int r, int cc,
+                                           int col_a, int col_b,
+                                           int real_a) {
+  const int slot = 2 * cc;
+  bf16* row = out + static_cast<size_t>(r) * d;
+  return reinterpret_cast<float2*>(slot < 64 * real_a
+                                       ? row + col_a + slot
+                                       : row + col_b + slot - 64 * real_a);
+}
+
 // One consumer warpgroup `wgi` (0 or 1): in pass q, boxes
 // [q BP + wgi NB, + NB) of the block's 64-column boxes, of which
-// boxes(q, wgi) are inside the block's columns.
-template <int T>
+// boxes(q, wgi) are inside the block's columns. L: K18's phases first.
+template <int T, bool L>
 __device__ __forceinline__ void consumer(const MlpArgs& a, uint32_t base,
                                          uint8_t* smem, uint32_t rank,
                                          int m0, int wgi) {
   using C = Cfg<T>;
-  constexpr int D = C::D, NB = C::NB;
+  constexpr int D = C::D, NB = C::NB, NA = 32 * NB;
   static_assert(64 * (C::kLdc0 + 64 * C::boxes(C::NP - 1, 1) + 8) * 2 <=
                     C::kXn,
                 "the last pass's output staging fits the LN(x) region");
   const Bars<T> bar(base);
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
-  float acc[32 * NB];
+  float acc[NA];
   float h1[16];
+  // K18 at two passes: the second pass's y.
+  float ya[L && C::NP == 2 ? NA : 1];
 
   const uint32_t w2s = base + C::kW2Off + NB * wgi * C::kBox2;
   int s1 = 0, s2 = 0;
   uint32_t p1 = 0, p2 = 0;
   const int nchunks = a.mlp / kCT;
   constexpr int NKB = D / 64, NKS = kCT / C::KS2;
+  // The warpgroup's first column in pass q.
+  auto col_of = [&](int q) {
+    return static_cast<int>(rank) * (D / 2) + 64 * (q * C::BP + NB * wgi);
+  };
 
   // fc1 K-steps kb and kb+1 of chunk c (one wgmma group over two W1
   // stages): h1 (+)= LN(x)[:, 128 columns] @ W1[those rows, the
@@ -494,9 +590,9 @@ __device__ __forceinline__ void consumer(const MlpArgs& a, uint32_t base,
       mbar_arrive(bar.w1e + 8 * st[1]);
     }
   };
-  // fc2 stage ks of the chunk in the h buffer at ha: acc += h[:, KS2
-  // rows] @ W2[those rows, the warpgroup's columns].
-  auto fc2_step = [&](int ks, uint32_t ha) {
+  // W2 stage ks, K rows [ks KS2, + KS2) of the A boxes at ha: d += A[:,
+  // those rows] @ W2 (or K18's Wout)[those rows, the warpgroup's columns].
+  auto fc2_step = [&](auto& d, int ks, uint32_t ha) {
     mbar_wait(bar.w2f + 8 * s2, p2);
     const uint32_t wb = w2s + s2 * C::kStage2;
     wgmma_fence();
@@ -504,12 +600,12 @@ __device__ __forceinline__ void consumer(const MlpArgs& a, uint32_t base,
     for (int kk = 0; kk < C::KS2 / 16; ++kk) {
       const int kg = ks * (C::KS2 / 16) + kk;
       wgmma_ss<64 * NB>(
-          acc, sw128_desc(ha + (kg / 4) * kBox + (kg % 4) * 32, 16, 1024),
+          d, sw128_desc(ha + (kg / 4) * kBox + (kg % 4) * 32, 16, 1024),
           sw128_desc(wb + kk * 2048, C::kBox2, 1024));
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(acc);
+    fence_acc(d);
     if (t == 0) mbar_arrive(bar.w2e + 8 * s2);
     if (++s2 == C::kS2) {
       s2 = 0;
@@ -517,24 +613,171 @@ __device__ __forceinline__ void consumer(const MlpArgs& a, uint32_t base,
     }
   };
 
+  if constexpr (L) {
+    // (1)-(2) y = ctx @ Wout for each pass's columns, K = D: the ctx boxes
+    // in the LN(x) region are the A operand, Wout's stages come through
+    // the W2 ring. The sums of value 4j + i sit as fc2's (below).
+    mbar_wait(bar.ctx, 0);
+    auto out_proj = [&](auto& d) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) d[i] = 0.f;
+      fence_acc(d);
+      for (int ks = 0; ks < D / C::KS2; ++ks) fc2_step(d, ks, base);
+    };
+    // (3) y = (y + bout) + x in fp32 (layer_block.cu's order); zero past
+    // the block's columns and past m.
+    auto residual = [&](auto& d, int q) {
+      const int real = C::boxes(q, wgi), col0 = col_of(q);
+#pragma unroll
+      for (int j = 0; j < 8 * NB; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = m0 + 16 * warp + lane / 4 + 8 * (i / 2);
+          const int c = col0 + 8 * j + 2 * (lane % 4) + i % 2;
+          d[4 * j + i] =
+              j < 8 * real && r < a.m
+                  ? (d[4 * j + i] + to_f32(a.bout[c])) +
+                        to_f32(a.x[static_cast<size_t>(r) * D + c])
+                  : 0.f;
+        }
+    };
+    out_proj(acc);
+    residual(acc, 0);
+    if constexpr (C::NP == 2) {
+      out_proj(ya);
+      residual(ya, 1);
+    }
+
+    // (4) LN2's statistics of the thread's two rows (16 warp + lane/4 and
+    // + 8). Each round sums the thread's values pass by pass, j by j, the
+    // pair in order, then the quad (shuffles), the two warpgroups (Stats
+    // part), then the two blocks: threads 0-63 store their row's block sum
+    // into the other block's Stats peer and arrive on its st barrier.
+    // Two-term fp32 sums are commutative, so both blocks get the same bits.
+    Stats* stats = reinterpret_cast<Stats*>(smem + C::kXn + 2 * kBox);
+    const uint32_t peer = rank ^ 1;
+    auto row_total = [&](int rd, float (&s)[2]) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], 1);
+        s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], 2);
+        if (lane % 4 == 0)
+          stats->part[rd][wgi][16 * warp + lane / 4 + 8 * hh] = s[hh];
+      }
+      consumers_sync();  // both warpgroups' partials (and reads of ctx)
+      if (threadIdx.x < kBM) {
+        const int r = threadIdx.x;
+        st_cluster(mapa(smem_u32(&stats->peer[rd][r]), peer),
+                   stats->part[rd][0][r] + stats->part[rd][1][r]);
+        arrive_cluster(mapa(bar.st + 8 * rd, peer));
+      }
+      wait_cluster(bar.st + 8 * rd, 0);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 16 * warp + lane / 4 + 8 * hh;
+        s[hh] = (stats->part[rd][0][r] + stats->part[rd][1][r]) +
+                stats->peer[rd][r];
+      }
+    };
+    auto sum_y = [&](auto& d, int q, float (&s)[2]) {
+      const int real = C::boxes(q, wgi);
+#pragma unroll
+      for (int j = 0; j < 8 * NB; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (j < 8 * real) s[i / 2] += d[4 * j + i];
+    };
+    auto sum_sq = [&](auto& d, int q, float (&s)[2], const float (&mu)[2]) {
+      const int real = C::boxes(q, wgi);
+#pragma unroll
+      for (int j = 0; j < 8 * NB; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (j < 8 * real) {
+            const float c = d[4 * j + i] - mu[i / 2];
+            s[i / 2] += c * c;
+          }
+    };
+    float s[2] = {0.f, 0.f};
+    sum_y(acc, 0, s);
+    if constexpr (C::NP == 2) sum_y(ya, 1, s);
+    row_total(0, s);
+    const float mean[2] = {s[0] / D, s[1] / D};
+    float ss[2] = {0.f, 0.f};
+    sum_sq(acc, 0, ss, mean);
+    if constexpr (C::NP == 2) sum_sq(ya, 1, ss, mean);
+    row_total(1, ss);
+    const float rstd[2] = {rsqrtf(ss[0] / D + a.eps),
+                           rsqrtf(ss[1] / D + a.eps)};
+
+    // (5) LN2(y) of the warpgroup's columns into the block's A boxes (zeros
+    // past m); its pair (2hh, 2hh + 1) of box j is 4 bytes in row r at
+    // chunk (j % 8) ^ (r % 8).
+    auto ln2_store = [&](auto& d, int q) {
+      const int real = C::boxes(q, wgi), box0 = col_of(q) / 64;
+#pragma unroll
+      for (int j = 0; j < 8 * NB; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = 16 * warp + lane / 4 + 8 * hh;
+          const int c = 64 * box0 + 8 * j + 2 * (lane % 4);
+          if (j >= 8 * real) continue;
+          __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
+          if (m0 + r < a.m)
+            v = __floats2bfloat162_rn(
+                (d[4 * j + 2 * hh] - mean[hh]) * rstd[hh] * to_f32(a.g[c]) +
+                    to_f32(a.b[c]),
+                (d[4 * j + 2 * hh + 1] - mean[hh]) * rstd[hh] *
+                        to_f32(a.g[c + 1]) +
+                    to_f32(a.b[c + 1]));
+          *reinterpret_cast<__nv_bfloat162*>(
+              smem + (box0 + j / 8) * kBox + r * 128 +
+              (((j % 8) ^ (lane / 4)) * 16) + 4 * (lane % 4)) = v;
+        }
+    };
+    ln2_store(acc, 0);
+    if constexpr (C::NP == 2) {
+      ln2_store(ya, 1);
+      // The second pass's y, unrounded, into the output's bytes.
+      const int real_a = C::boxes(0, wgi), real_b = C::boxes(1, wgi);
+#pragma unroll
+      for (int j = 0; j < 8 * NB; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = m0 + 16 * warp + lane / 4 + 8 * hh;
+          if (j < 8 * real_b && r < a.m)
+            *y_stash(a.out, D, r, 8 * j + 2 * (lane % 4), col_of(0),
+                     col_of(1), real_a) =
+                make_float2(ya[4 * j + 2 * hh], ya[4 * j + 2 * hh + 1]);
+        }
+    }
+    // wgmma and the copy to the other block read the boxes through the
+    // async proxy; lnfull also waits for the other block's copy.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive(bar.lnfull);
+    mbar_arrive(bar.lnready);
+    wait_cluster(bar.lnfull, 0);
+  }
+
   for (int q = 0; q < C::NP; ++q) {
     const int real = C::boxes(q, wgi);
     // The warpgroup's columns in this pass.
-    const int col0 = rank * (D / 2) + 64 * (q * C::BP + NB * wgi);
+    const int col0 = col_of(q);
     // acc[4j + i]: row 16*warp + lane/4 + 8(i/2), column col0 + 8j +
-    // 2(lane%4) + i%2, seeded with x + b2 (zero for the partial form and
-    // past the block's columns).
+    // 2(lane%4) + i%2, seeded with x + b2 (K18: y + b2; zero for the
+    // partial form and past the block's columns).
 #pragma unroll
     for (int j = 0; j < 8 * NB; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = m0 + 16 * warp + lane / 4 + 8 * (i / 2);
         const int c = col0 + 8 * j + 2 * (lane % 4) + i % 2;
-        acc[4 * j + i] =
-            j < 8 * real && r < a.m && !a.partial
-                ? to_f32(a.x[static_cast<size_t>(r) * D + c]) +
-                      to_f32(a.b2[c])
-                : 0.f;
+        float seed = 0.f;
+        if (j < 8 * real && r < a.m && !a.partial)
+          seed = (L ? acc[4 * j + i]
+                    : to_f32(a.x[static_cast<size_t>(r) * D + c])) +
+                 to_f32(a.b2[c]);
+        acc[4 * j + i] = seed;
       }
 
     for (int c = 0; c <= nchunks; ++c) {
@@ -551,7 +794,7 @@ __device__ __forceinline__ void consumer(const MlpArgs& a, uint32_t base,
       auto fc2_upto = [&](int n) {
         if (ks < n && ks == 0)
           wait_cluster(bar.hfull + 8 * hb2, ((g - 1) >> 1) & 1);
-        for (; ks < n; ++ks) fc2_step(ks, ha);
+        for (; ks < n; ++ks) fc2_step(acc, ks, ha);
       };
       if (c < nchunks) {
         // One fc1 group late, so that h(c-1) has landed before it is
@@ -604,6 +847,24 @@ __device__ __forceinline__ void consumer(const MlpArgs& a, uint32_t base,
     }
 
     if (q + 1 < C::NP) {
+      // K18: the second pass's y comes back from the output's bytes
+      // before any thread of the warpgroup stores over them.
+      if constexpr (L && C::NP == 2) {
+        const int real_a = C::boxes(0, wgi), real_b = C::boxes(1, wgi);
+#pragma unroll
+        for (int j = 0; j < 8 * NB; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = m0 + 16 * warp + lane / 4 + 8 * hh;
+            float2 v = make_float2(0.f, 0.f);
+            if (j < 8 * real_b && r < a.m)
+              v = *y_stash(a.out, D, r, 8 * j + 2 * (lane % 4), col_of(0),
+                           col_of(1), real_a);
+            ya[4 * j + 2 * hh] = v.x;
+            ya[4 * j + 2 * hh + 1] = v.y;
+          }
+        named_sync(1 + wgi);
+      }
       // Not the last pass: LN(x) is read again, so each thread stores its
       // pairs from the registers.
 #pragma unroll
@@ -618,6 +879,10 @@ __device__ __forceinline__ void consumer(const MlpArgs& a, uint32_t base,
                 __floats2bfloat162_rn(acc[4 * j + 2 * hh],
                                       acc[4 * j + 2 * hh + 1]);
         }
+      if constexpr (L && C::NP == 2) {
+#pragma unroll
+        for (int i = 0; i < NA; ++i) acc[i] = ya[i];
+      }
       continue;
     }
     // The last pass: every fc1 of the block is done (the last one's
@@ -649,10 +914,14 @@ __device__ __forceinline__ void consumer(const MlpArgs& a, uint32_t base,
   }
 }
 
-template <int T>
+// K3, or with L K18 (map_ctx over ctx (M, D) in 64 x 64 boxes, map_wout
+// over Wout (D, D) in boxes of 64 columns x KS2 rows; K3 reads neither).
+template <int T, bool L = false>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     mlp_bf16_wgmma(const __grid_constant__ CUtensorMap map_w1,
-                   const __grid_constant__ CUtensorMap map_w2, MlpArgs a) {
+                   const __grid_constant__ CUtensorMap map_w2,
+                   const __grid_constant__ CUtensorMap map_ctx,
+                   const __grid_constant__ CUtensorMap map_wout, MlpArgs a) {
   using C = Cfg<T>;
   extern __shared__ uint8_t mw_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -679,9 +948,16 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       mbar_init(bar.hready + 8 * b, 256);  // this block's consumers
       mbar_init(bar.hdone + 8 * b, 2);     // this block's warpgroups
     }
+    if (L) {
+      mbar_init(bar.ctx, 1);  // the producer's arrive + the bytes
+      mbar_init(bar.st, kBM);  // the other block's threads 0-63
+      mbar_init(bar.st + 8, kBM);
+      mbar_init(bar.lnfull, 256 + 1);  // as hfull
+      mbar_init(bar.lnready, 256);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  ln_rows<T>(a, smem, m0);
+  if (!L) ln_rows<T>(a, smem, m0);
   // wgmma reads LN(x) through the async proxy; the cluster barrier also
   // makes both blocks' barriers initialised before either arrives on the
   // other's.
@@ -697,6 +973,13 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     // The walk is NP passes over the chunks; g counts chunks over all.
     const int nwalk = C::NP * nchunks;
     if (threadIdx.x == 256) {
+      if (L) {
+        // K18: the 64 ctx rows, D/64 K-major boxes into the LN(x) region
+        // (zeros past M).
+        mbar_expect_tx(bar.ctx, C::D / 64 * kBox);
+        for (int kb = 0; kb < C::D / 64; ++kb)
+          tma_load(base + kb * kBox, &map_ctx, bar.ctx, kb * 64, m0);
+      }
       int s1 = 0;
       uint32_t p1 = 0;
       for (int g = 0; g < nwalk; ++g) {
@@ -713,12 +996,23 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
         }
       }
     } else if (threadIdx.x == 320) {
+      const uint32_t peer = rank ^ 1;
+      if (L) {
+        // K18: once this block's consumers have written LN2(y) of its
+        // columns (and so are past the statistics, which show the other
+        // block done with its ctx boxes), copy those boxes into the other
+        // block's, the bytes counted on its lnfull.
+        mbar_wait(bar.lnready, 0);
+        const uint32_t src = base + rank * T * kBox;
+        const uint32_t full = mapa(bar.lnfull, peer);
+        arrive_expect_cluster(full, T * kBox);
+        copy_to_cluster(mapa(src, peer), src, T * kBox, full);
+      }
       // The h exchange, in the consumers' order: once both warpgroups are
       // done with h(c-1) (hdone), free its buffer in both blocks (hempty);
       // once this block's slice of h(c) is written (hready), copy it into
       // the other block's buffer, its bytes counted on that block's hfull
       // (that block's consumers are done with the buffer: hempty).
-      const uint32_t peer = rank ^ 1;
       for (int g = 0; g <= nwalk; ++g) {
         if (g >= 1) {
           const int hb = (g - 1) & 1;
@@ -739,10 +1033,34 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     } else if (threadIdx.x == 288) {
       int s2 = 0;
       uint32_t p2 = 0;
+      // Pass q's boxes of the block's columns; a padding box stays.
+      auto pass_boxes = [](int q) {
+        return T - q * C::BP < C::BP ? T - q * C::BP : C::BP;
+      };
+      if (L) {
+        // K18: Wout's stages first, KS2 of its D rows x pass q's boxes of
+        // the block's columns, pass by pass.
+        for (int q = 0; q < C::NP; ++q) {
+          const int nbox = pass_boxes(q);
+          for (int ks = 0; ks < C::D / C::KS2; ++ks) {
+            mbar_wait(bar.w2e + 8 * s2, p2 ^ 1);
+            const uint32_t full = bar.w2f + 8 * s2;
+            mbar_expect_tx(full, nbox * C::kBox2);
+            for (int p = 0; p < nbox; ++p)
+              tma_load(base + C::kW2Off + s2 * C::kStage2 + p * C::kBox2,
+                       &map_wout, full,
+                       rank * (C::D / 2) + 64 * (q * C::BP + p),
+                       ks * C::KS2);
+            if (++s2 == C::kS2) {
+              s2 = 0;
+              p2 ^= 1;
+            }
+          }
+        }
+      }
       for (int g = 0; g < nwalk; ++g) {
-        // Pass q's boxes of the block's columns; a padding box stays.
         const int q = g / nchunks, c = g % nchunks;
-        const int nbox = T - q * C::BP < C::BP ? T - q * C::BP : C::BP;
+        const int nbox = pass_boxes(q);
         for (int ks = 0; ks < kCT / C::KS2; ++ks) {
           mbar_wait(bar.w2e + 8 * s2, p2 ^ 1);
           const uint32_t full = bar.w2f + 8 * s2;
@@ -763,7 +1081,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     cluster_sync();
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
-    consumer<T>(a, base, smem, rank, m0, wgi);
+    consumer<T, L>(a, base, smem, rank, m0, wgi);
     cluster_sync();
   }
 }

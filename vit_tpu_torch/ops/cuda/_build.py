@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -145,7 +146,8 @@ def build() -> Path:
     """Compile the library unless a build of these sources exists; returns
     its path. Every source compiles in its own ``nvcc`` process, all at
     once; the compiler's output (``-Xptxas=-v``: registers, shared memory
-    and spills of each kernel) is kept beside the library as ``.log``."""
+    and spills of each kernel) and each source's compile seconds are kept
+    beside the library as ``.log``."""
     out = library_path()
     if out.exists():
         return out
@@ -153,19 +155,30 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
+        t0 = time.perf_counter()
         for src in sorted(CSRC.glob("*.cu")):
             obj = Path(tmp) / f"{src.stem}.o"
             objs.append(str(obj))
-            procs.append((src.name, subprocess.Popen(
+            text = open(Path(tmp) / f"{src.stem}.txt", "w+")
+            procs.append((src.name, text, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
                  str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                stdout=text, stderr=subprocess.STDOUT)))
+        # Each source's seconds from the common start to its exit.
+        seconds = {}
+        while len(seconds) < len(procs):
+            for name, _, proc in procs:
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.perf_counter() - t0
+            time.sleep(0.05)
         log, failed = [], []
-        for name, proc in procs:
-            text = proc.communicate()[0]
-            log.append(f"== {name}\n{text}")
+        for name, text, proc in procs:
+            text.seek(0)
+            body = text.read()
+            text.close()
+            log.append(f"== {name} ({seconds[name]:.1f} s)\n{body}")
             if proc.returncode != 0:
-                failed.append(f"{name} ({proc.returncode}):\n{text[-4000:]}")
+                failed.append(f"{name} ({proc.returncode}):\n{body[-4000:]}")
         lib = Path(tmp) / out.name
         if not failed:
             link = subprocess.run(

@@ -27,9 +27,14 @@ own: each of its kernels counts its launch.
 
 ``layer_block`` (B18, ``block.py:1687-1832``) is ``attn_block``'s first
 three launches, then K18 on the context: the out-projection, LN2 and the
-MLP with the sum between the halves kept in fp32 in shared memory, where
-the pair ``attn_block`` -> ``mlp_block`` rounds it to the dtype in device
-memory. K18 counts as ``layer_block``.
+MLP with the sum between the halves kept in fp32 on chip, where the pair
+``attn_block`` -> ``mlp_block`` rounds it to the dtype in device memory. In
+bf16 K18 is K3's ``wgmma`` cluster tile with the out-projection in front
+(``csrc/mlp_wgmma.cuh``): y lives in the fc2 accumulators' registers, split
+between the cluster's two blocks by columns, and seeds them (``y + b2``);
+at D >= 896 the second pass's y waits unrounded in the output's own bytes.
+In fp32 y sits in registers and shared memory (``csrc/layer_block.cu``).
+K18 counts as ``layer_block``.
 """
 
 from __future__ import annotations
@@ -240,7 +245,7 @@ def _check_tail(x: torch.Tensor, wout, bout, ln2_scale, ln2_bias, w1, b1,
                 w2, b2) -> int:
     """Check K18's operands for the input rows ``x`` (..., D); return
     mlp."""
-    # K18's width limits are K3's: its bf16 fragments are K3's, and in fp32
+    # K18's width limits are K3's: in bf16 it is K3's tile, and in fp32
     # its ctx, y and chunk rows fill 208 KB of shared memory at D=1536.
     mlp = _check_mlp(x, ln2_scale, ln2_bias, w1, b1, w2, b2, "layer_block",
                      ln="ln2")
@@ -264,7 +269,7 @@ def layer_tail(ctx: torch.Tensor, x: torch.Tensor, wout, bout, ln2_scale,
         raise ValueError(f"x shape {tuple(x.shape)} is not (M, D)")
     _build.check_tensor(ctx, "ctx", x, tuple(x.shape))
     if x.dtype == torch.bfloat16 and ctx.data_ptr() % 16:
-        raise ValueError("ctx must be 16-byte aligned for the row loads")
+        raise ValueError("ctx must be 16-byte aligned for its TMA boxes")
     mlp = _check_tail(x, wout, bout, ln2_scale, ln2_bias, w1, b1, w2, b2)
     m, d = x.shape
     if m == 0:

@@ -1,12 +1,31 @@
 """Fused embedding kernel K8 (``csrc/embed.cu``), the counterpart of
 ``vit_tpu/ops/pallas/patch_embed.py:embed_fused``: K2's GEMM over the patch
-rows with an epilogue that writes the padded token matrix directly."""
+rows with an epilogue that writes the padded token matrix directly. In bf16
+it runs on K2's ``wgmma`` tile (``csrc/gemm_wgmma.cuh``, the epilogue's
+``EMB`` form: bias, cast, ``+ pos`` and the token row map in K2's
+epilogue, the CLS and pad rows from the block that walks each column
+tile's first row tile) wherever :func:`embed_tile` says K2 would; elsewhere
+on ``gemm_tile.cuh``'s tile with the same epilogue."""
 
 from __future__ import annotations
 
 import torch
 
 from vit_tpu_torch.ops.cuda import _build, count_launch
+from vit_tpu_torch.ops.cuda.matmul import gemm_path
+
+
+def embed_tile(patches: torch.Tensor, w: torch.Tensor) -> str:
+    """The tile ``vit_embed_fused`` runs the contiguous ``(B, N, K)``
+    patches and ``(K, D)`` weight on: :func:`gemm_path`'s choice for K2 on
+    the same ``(B*N, K) @ (K, D)`` operands -- ``"wgmma"`` (K8's ``EMB``
+    form), ``"wmma"`` (bf16 where TMA cannot read them, as H/14's K = 588)
+    or ``"ffma"`` (fp32). ``csrc/matmul_wgmma.cu:wgmma_takes`` applies the
+    same rule in the kernel library."""
+    b, n, k = patches.shape
+    d = w.shape[1]
+    return gemm_path(b * n, d, k, patches.dtype, False, False,
+                     (patches.data_ptr(), w.data_ptr()), ((k, 1), (d, 1)))
 
 
 def embed_fused(patches: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,

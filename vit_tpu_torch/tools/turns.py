@@ -9,7 +9,8 @@ bs=32 (the QKV 6656x768 @ 768x2304 + bias in bf16 and fp32, the backward's
 bf16 attention core, K6 (LN 4736x1024 @ 1024x3072 and the B/16 train
 step's LN 6656x768 @ 768x2304, each beside K1 -> K2), K7 (B/16 bs=32 and
 L/16-384 bs=8 on packed QKV views, each beside SDPA, and the int8 tier's
-fp32-output B/16 shape), K8 (``embed_fused``, L/16-384 bs=4), K9 (its
+fp32-output B/16 shape), K8 (``embed_fused`` at L/16-384 bs=4 and
+B/16 bs=4 and 1, each beside K2 on the same operands), K9 (its
 three forms at B/16 bs=1, 12 layers; the fused one beside K24's ``dma``),
 K11 (``matmul_i8``, the
 QKV), K12 (``mlp_block_i8dot`` at B/16 bs=32 and H/14 bs=2, each beside
@@ -20,7 +21,9 @@ beside ``baddbmm``), K22 (``int8_probe.dot``, int8 and bf16), K3 (B/16
 bs=32, L/16-384 bs=8 and the B/16 bs=32 shard over model=2, each beside
 the case's composed K1 -> K2 -> K2 chain), K17 (``mlp_block_q`` at B/16
 bs=32 and its shard over model=2, each beside K3 on the dequantized
-weights) and K18; then the B/16 bs=32 bf16 forward on the default route,
+weights) and K18 (B/16 bs=32 and L/16 bs=8, each beside K2 -> K3 on
+the same operands, which rounds y); then the B/16 bs=32 bf16 forward on
+the default route, on the full-layer route (``layer_block=True``),
 on ``(flash, fused=False)``, ``(unfused, fused=False)`` and ``(unfused,
 fused=True)`` (K6), the int8 forward (``forward_quant``; also with
 ``int8_dot=False`` and at L/16-384 bs=8), the B/16 bs=1 forwards in bf16
@@ -40,6 +43,10 @@ and a JSON line::
 
     git archive <parent> | tar -x -C build/parent    # a listed directory
     python -m vit_tpu_torch.tools.turns --other build/parent
+
+``--cases k1,k2`` times only those keys of ``CASES`` and ``--no-forwards``
+leaves out the forwards and the train step, for a quick A/B of one
+kernel.
 """
 
 from __future__ import annotations
@@ -67,6 +74,10 @@ CASES = {
                          "LN (6656", False),
     "embed_fused": ("kernel_cases_small_batch", "bfloat16", "embed_fused",
                     "(4,576,768)", False),
+    "embed_fused_b16_bs4": ("kernel_cases_small_batch", "bfloat16",
+                            "embed_fused", "(4,196,768)", False),
+    "embed_fused_b16_bs1": ("kernel_cases_small_batch", "bfloat16",
+                            "embed_fused", "(1,196,768)", False),
     "encoder_stack": ("kernel_cases_small_batch", "bfloat16",
                       "encoder_stack", "(1,208,768)", False),
     "matmul_i8": ("kernel_cases_int8", "bfloat16", "matmul_i8",
@@ -93,7 +104,7 @@ CASES = {
                               "flash_attention_bwd", "B/16", False),
     # K3 in bf16 at B/16 bs=32 and L/16-384 bs=8, and its shard form at
     # B/16 bs=32 over model=2, each beside the same MLP as K1 -> K2 -> K2
-    # (the case's composed chain); K18, which shares K3's old chunk loop.
+    # (the case's composed chain); K18 on K3's tile, beside K2 -> K3.
     "mlp_b16": ("kernel_cases", "bfloat16", "mlp_block", "(6656,768)",
                 False),
     "mlp_l16_384": ("kernel_cases_l16_384", "bfloat16", "mlp_block",
@@ -102,6 +113,8 @@ CASES = {
                         "B/16 bs=32 model=2", False),
     "layer_block_k18": ("kernel_cases_layer", "bfloat16", "layer_block",
                         "K18 B/16", False),
+    "layer_block_k18_l16": ("kernel_cases_layer", "bfloat16", "layer_block",
+                            "K18 L/16", False),
     # K12 at B/16 bs=32 and H/14 bs=2 (D = 1280), each beside the same MLP
     # as K10 -> K11 -> K10 -> K11 (the case's composed chain).
     "mlp_i8_b16": ("kernel_cases_int8", "bfloat16", "mlp_block_i8dot",
@@ -124,8 +137,9 @@ CASES = {
 }
 
 #: Run in a fresh process with the checkout's root, this checkout's
-#: ``chip_smoke.py`` and ``CASES`` as arguments; prints one JSON line. It
-#: uses only what every checkout of the port has.
+#: ``chip_smoke.py``, the cases (``CASES``' form) and whether to time the
+#: forwards (1 or 0) as arguments; prints one JSON line. It uses only what
+#: every checkout of the port has.
 WORKER = r"""
 import hashlib, importlib.util, json, sys
 sys.path.insert(0, sys.argv[1])
@@ -219,6 +233,9 @@ with torch.inference_mode():
                 res[key + "_composed"] = times(c["composed"])
         del cases
         torch.cuda.empty_cache()
+if sys.argv[4] == "0":
+    print(json.dumps(res))
+    sys.exit(0)
 gen = torch.Generator(device="cuda").manual_seed(0)
 cfg = VARIANTS["B/16"].replace(dtype=torch.bfloat16, num_classes=1000)
 params = init_params(cfg, generator=gen, device="cuda")
@@ -227,6 +244,8 @@ px = torch.randn((32, 3, 224, 224), generator=gen,
 qparams = quantize_params(params)
 with torch.inference_mode():
     res["forward"] = times(lambda: forward(params, px, cfg), iters=20)
+    res["forward_layer"] = times(
+        lambda: forward(params, px, cfg, layer_block=True), iters=20)
     res["forward_flash_chain"] = times(
         lambda: forward(params, px, cfg, fused=False), iters=20)
     res["forward_unfused_chain"] = times(
@@ -281,10 +300,12 @@ print(json.dumps(res))
 HERE = Path(__file__).resolve().parents[2]
 
 
-def run_tree(root: Path, timeout: int) -> dict:
+def run_tree(root: Path, timeout: int, cases: dict = CASES,
+             forwards: bool = True) -> dict:
     """The worker's timings for the checkout at ``root``."""
     proc = subprocess.run([sys.executable, "-c", WORKER, str(root),
-                           str(HERE / "chip_smoke.py"), json.dumps(CASES)],
+                           str(HERE / "chip_smoke.py"), json.dumps(cases),
+                           str(int(forwards))],
                           cwd=root, capture_output=True, text=True,
                           timeout=timeout,
                           env={**os.environ, "PYTHONPATH": str(root)})
@@ -299,14 +320,24 @@ def main(argv: list[str] | None = None) -> int:
                     help="root of the other checkout (e.g. the parent "
                          "commit unpacked under build/)")
     ap.add_argument("--timeout", type=int, default=900)
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated keys of CASES (default: all)")
+    ap.add_argument("--no-forwards", action="store_true",
+                    help="time the kernel cases only")
     args = ap.parse_args(argv)
+    cases = CASES
+    if args.cases:
+        unknown = set(args.cases.split(",")) - set(CASES)
+        if unknown:
+            raise SystemExit(f"unknown cases {sorted(unknown)}")
+        cases = {k: CASES[k] for k in args.cases.split(",")}
     other = Path(args.other).resolve()
     if not (other / "vit_tpu_torch").is_dir():
         raise SystemExit(f"{other} holds no vit_tpu_torch/")
     runs = []
     for tag, root in (("other", other), ("this", HERE), ("this", HERE),
                       ("other", other)):
-        got = run_tree(root, args.timeout)
+        got = run_tree(root, args.timeout, cases, not args.no_forwards)
         runs.append({"tree": tag, **got})
         print(f"{tag:5s} " + "  ".join(
             f"{k} {v['ms']:.4f} ms (device {v['device_ms']})"
