@@ -153,13 +153,15 @@ without printing the final ``ok`` line:
     core and the block in every mode at B/16 bs=32, bf16 and the fp32 modes
     that fit; K24's ``dma`` over 12 B/16 layers at bs=1, the other variants
     cut to 2 layers). Here, through the probes' entry points with exact
-    launch counts: the int8 probe's ``run``; the attention block in every
-    mode at B/16 bs=32 bf16 against its plain version, then each mode's
-    event ms and the core launch's device ms; K4's bf16 core (on the
-    tensor cores) against K23's ``full`` core (the FFMA tile) at the bf16
-    kernel bar, then the two in turns; every encoder variant at the JAX
-    probe's four cases (2 layers) against its plain version, then each
-    timed at 12 layers for b = 1, 2, 3.
+    launch counts: the int8 probe's ``run`` (K22 on K11's s8 ``wgmma``
+    tile and K2's bf16 one); the attention block in every mode at B/16
+    bs=32 bf16 against its plain version (K23's core on K4's tensor-core
+    tile, its GEMMs on K2's ``wgmma`` tile), each mode's planted faults
+    refused and wide's rounding point held on its core, then each mode's
+    event ms and the core launch's device ms; K4's bf16 core against K23's
+    ``full`` core bit for bit, then the two in turns; every encoder
+    variant at the JAX probe's four cases (2 layers) against its plain
+    version, then each timed at 12 layers for b = 1, 2, 3.
 
 The last three lines of standard output are the kernels JSON line (each
 kernel's launches on the main paths, error vs the plain version, kernel,
@@ -227,7 +229,8 @@ PER_FORWARD_Q_STACK = {"embed_fused": 1, "encoder_stack_q": 1,
 PIPELINED = ("attention", "flash_attention_bwd", "matmul", "flash_attention",
              "matmul3", "mlp_block", "mlp_block_partial", "layernorm",
              "softmax", "add", "matmul_i8", "layernorm_stats",
-             "quantize_rows", "embed_fused", "layer_block")
+             "quantize_rows", "embed_fused", "layer_block", "dot_probe",
+             "attn_core_probe")
 #: Kernels each of whose cases phase 11 also times on the card (the
 #: profiler's device time), beside the library call: their wrappers' host
 #: time can exceed the kernel, and then pipelined calls wait on the host.
@@ -306,11 +309,15 @@ KERNEL_SOURCES = {
     "print_if": ("vit_tpu_torch/csrc/debug.cu", "tests/test_ops_pallas.py:248"),
     "minimal_matmul": ("vit_tpu_torch/csrc/minimal_matmul.cu",
                        "examples/minimal_pallas_matmul.py:50"),
-    # The probes' kernels (phase 16). K23 also replaces _probe_t's two
-    # pallas_calls (tools/attn_core_probe.py:432, :447): tcore and xcore.
-    "dot_probe": ("vit_tpu_torch/csrc/dot_probe.cu",
+    # The probes' kernels (phase 16). K22's int8 dot (the kernels line's
+    # case) is K11's s8 wgmma tile with its raw epilogue, which
+    # dot_probe.cu launches. K23's bf16 core (the kernels line's case:
+    # full) is K4's tensor-core tile, which attn_core_probe_masked.cu
+    # launches; K23 also replaces _probe_t's two pallas_calls
+    # (tools/attn_core_probe.py:432, :447): tcore and xcore.
+    "dot_probe": ("vit_tpu_torch/csrc/matmul_i8_wgmma.cu",
                   "tools/int8_probe.py:43"),
-    "attn_core_probe": ("vit_tpu_torch/csrc/attn_core_probe.cu",
+    "attn_core_probe": ("vit_tpu_torch/csrc/attention_mma.cuh",
                         "tools/attn_core_probe.py:389"),
     "encstack_probe": ("vit_tpu_torch/csrc/encstack_probe.cu",
                        "tools/encstack_minrepro.py:216"),
@@ -2623,6 +2630,60 @@ def compare_norm(torch, got, want, dtype) -> dict:
     return res
 
 
+#: K23's planted faults: for each mode, the modes whose kernel output its
+#: bar must refuse, each differing from it in one ingredient (the masked
+#: modes also refuse their plain version with the last 16 real keys
+#: dropped, a key fragment short). At B/16 bs=2 on the CPU the mask
+#: faults come out 1.3-1.5 times their bars, the others 4-2800 times.
+PROBE_FAULTS = {
+    "full": {"the mask dropped": "divonly", "not divided by l": "maskonly"},
+    "maskonly": {"the mask dropped": "nosm"},
+    "nosm": {"the mask applied": "maskonly"},
+    "mxu": {"max and exp applied": "nosm"},
+    "divonly": {"the mask applied": "full"},
+    "recip": {"the mask applied": "addmask"},
+    "sumonly": {"divided by l": "divonly"},
+    "bf16div": {"not divided by l": "nosm"},
+    "alldiv": {"the mask applied": "addmask"},
+    "mxudiv": {"the mask applied": "addmask"},
+    "addmask": {"the mask dropped": "recip"},
+    "vsum": {"the mask dropped": "divonly"},
+    "qcore": {"int8 codes left out": "full"},
+    "wide": {"heads not paired": "divonly"},
+    "kt": {"the mask dropped": "divonly"},
+    "tcore": {"the mask dropped": "recip"},
+    "xcore": {"the mask dropped": "recip"},
+    "projonly": {"the core run": "full"},
+}
+#: wide's rounding point on the core alone: the share of its bf16 context
+#: equal to the plain core's (sum orders may flip a rounding) must reach
+#: this, and p rounded before the division by l (full's point on paired
+#: heads) must fall below it (tests/test_torch_probe_tiles.py: 1.0 and
+#: 0.55 on the CPU).
+WIDE_EQUAL_SHARE = 0.9
+
+
+def wide_core_plain(torch, qkv, *, b, sp, d, heads, seq_len, early=False):
+    """wide's plain core on the packed QKV, (B*S, D) in its dtype; early:
+    with p rounded before the division by l (a planted fault)."""
+    from vit_tpu_torch.tools import attn_core_probe as acp
+    q, k, v = (acp._heads(qkv[:, i * d:(i + 1) * d], b, sp, heads)
+               for i in range(3))
+    scale = (d // heads) ** -0.5
+    if early:
+        qp, kp, vp = (acp._pairs(t).float() for t in (q, k, v))
+        s = qp @ kp.transpose(-1, -2) * scale
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        ctx = ((p.to(qkv.dtype).float() @ vp) / p.sum(-1, keepdim=True)
+               ).to(qkv.dtype)
+        ctx = ctx.transpose(1, 2).reshape(b, sp, heads, d // heads) \
+            .transpose(1, 2)
+    else:
+        ctx = acp._core_plain("wide", q, k, v, scale=scale, seq_len=seq_len,
+                              dt=qkv.dtype)
+    return ctx.transpose(1, 2).reshape(b * sp, d)
+
+
 def probe_check(mode: str, step: float):
     """The bar of K23's block in ``mode``."""
     from vit_tpu_torch.tools import attn_core_probe as acp
@@ -2656,11 +2717,12 @@ def compare_qcore(step: float):
 def kernel_cases_probes(torch, dtype):
     """The probes' kernels alone. K22 ``dot_probe`` at the int8 probe's
     (1664, 768) @ (768, 3072): int8 bit for bit against the plain version
-    (the case the kernels line reports; yardstick ``torch._int_mm``), bf16
-    and fp32 to fp32 (yardstick ``torch.matmul``, which returns the input
+    (the case the kernels line reports, on K11's s8 ``wgmma`` tile;
+    yardstick ``torch._int_mm``), bf16 (K2's ``wgmma`` tile) and fp32
+    (FFMA) to fp32 (yardstick ``torch.matmul``, which returns the input
     type). K23: the ``full`` core alone on B/16 bs=32's packed QKV (the case
-    the kernels line reports: the FFMA tile, K4's fp32 core and its bf16
-    core before the tensor cores; yardstick SDPA),
+    the kernels line reports: in bf16 K4's tensor-core core, its very
+    instantiation; in fp32 the FFMA tile; yardstick SDPA),
     then the whole block in every mode in bf16 and in every mode that fits
     in fp32 (not wide). K24: ``dma`` over B/16's 12 layers at bs=1 (the
     case the kernels line reports: the weight stream; x back bit for bit,
@@ -2773,9 +2835,11 @@ def probe_phase(torch, main_counts: dict) -> dict:
     every mode at B/16 bs=32 bf16, each held to its plain version, then
     timed (event and pipelined ms of the block and of the core alone,
     nominal-FLOP rate, the core launch's profiler ms; the probe's rounds
-    over the modes in turn, medians); K4's core (bf16 on the tensor cores)
-    against K23's ``full`` core (the FFMA tile K4 ran before) at the bf16
-    kernel bar, the two in turns; every variant of the encoder probe at the
+    over the modes in turn, medians); each mode's planted faults
+    (``PROBE_FAULTS``) refused by its bar, and wide's rounding point on its
+    core (``WIDE_EQUAL_SHARE``); K4's core against K23's ``full`` core (the
+    same tensor-core instantiation) bit for bit, the two in turns; every
+    variant of the encoder probe at the
     JAX probe's four cases (b = 2, 2, 3, 1; (cq, mt) change no launch), at
     12 layers (nosm and core at ATTN_CHECK_LAYERS) and held to its plain
     version (``dma``: x bit for bit and its weight sums), nosm and core by
@@ -2822,14 +2886,49 @@ def probe_phase(torch, main_counts: dict) -> dict:
                               weights_t=wt, **kw) for m in acp.MODES},
         add_counts(*(expect_counts(zero, acp.launches(m))
                      for m in acp.MODES)))
-    errs = {}
+    errs, refused = {}, {}
     for mode, out in outs.items():
-        want = acp.probe_plain(mode, xt if mode == "xcore" else x, *w, **kw)
-        errs[mode] = probe_check(mode, step)(
-            torch, out, want, torch.bfloat16)["max_abs_err"]
+        xin = xt if mode == "xcore" else x
+        want = acp.probe_plain(mode, xin, *w, **kw)
+        check = probe_check(mode, step)
+        errs[mode] = check(torch, out, want, torch.bfloat16)["max_abs_err"]
+        # The planted faults: other modes' kernel outputs (in xcore's
+        # layout for xcore), and for the masked modes the plain version a
+        # key fragment short.
+        faults = {what: (outs[other].reshape(b * sp, d).t() if mode == "xcore"
+                         else outs[other])
+                  for what, other in PROBE_FAULTS[mode].items()}
+        if mode in acp.MASKED:
+            faults["last 16 real keys dropped"] = acp.probe_plain(
+                mode, xin, *w, **dict(kw, seq_len=s - 16))
+        for what, fault in faults.items():
+            try:
+                passed = check(torch, fault, want, torch.bfloat16)
+            except AssertionError as err:
+                refused[f"{mode}: {what}"] = str(err)
+                continue
+            raise AssertionError(f"K23 {mode}: the bar passed a planted "
+                                 f"fault ({what}): {passed}")
     del outs
     log(f"[probes] attention block vs plain, bf16 B/16 bs=32, max|diff| by "
         f"mode: {errs}")
+    log(f"[probes] K23 planted faults refused: {refused}")
+    res["attention_faults_refused"] = sorted(refused)
+    # wide's rounding point (p / l rounded), on the core alone.
+    call = acp.core_only("wide", x, *w, weights_t=wt, **kw)
+    qkv = call.args[1]  # the packed QKV the block handed its core
+    geo = dict(b=b, sp=sp, d=d, heads=heads, seq_len=s)
+    plain = wide_core_plain(torch, qkv, **geo)
+    shares = {tag: float((got == plain).float().mean()) for tag, got in (
+        ("kernel", call()),
+        ("p rounded before / l", wide_core_plain(torch, qkv, early=True,
+                                                 **geo)))}
+    log(f"[probes] wide's core: share of elements equal to the plain core "
+        f"{shares} (bar {WIDE_EQUAL_SHARE})")
+    if not (shares["kernel"] >= WIDE_EQUAL_SHARE
+            > shares["p rounded before / l"]):
+        raise AssertionError(f"wide's rounding point: {shares}")
+    res["wide_core_equal_share"] = shares
     timed = acp.run(tuple(acp.MODES), dtype=torch.bfloat16, warmup=3,
                     reps=20, **a)
     res["attention_modes_bf16_b16_bs32"] = timed["modes"]
@@ -2854,9 +2953,9 @@ def probe_phase(torch, main_counts: dict) -> dict:
                 "k23": lambda: acp.core_launch(
                     "full", qkv, None, out, b=b, sp=sp, d=d, heads=heads,
                     seq_len=s, scale=core["scale"])}
-        # The two sum in different orders: the bf16 kernel bar.
-        core_errs[tag] = compare(torch, runs["k4"](), runs["k23"](),
-                                 torch.bfloat16)
+        # K23's full is K4's instantiation: bit for bit.
+        core_errs[tag] = compare_exact(torch, runs["k4"](), runs["k23"](),
+                                       torch.bfloat16)
         names = {"k4": "attention_kernel", "k23": "attn_probe_kernel"}
         turns[tag] = [(k, time_ms(torch, runs[k]), pipelined_ms(runs[k]),
                        launch_ms(runs[k], names[k]))

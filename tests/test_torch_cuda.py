@@ -1646,9 +1646,13 @@ def test_torch_cuda_minimal_matmul(gen, dtype, m, k, n):
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (37, 200, 72),
-                                   (1664, 768, 3072)])
+                                   (1664, 768, 3072), (33, 100, 70)])
 def test_torch_cuda_dot_probe(gen, dtype, m, k, n):
-    """K22: int8 sums exact (bit for bit); bf16 and fp32 in fp32."""
+    """K22: int8 sums exact (bit for bit); bf16 and fp32 in fp32. int8 on
+    K11's s8 wgmma tile at the TMA-readable shapes, on gemm_tile.cuh's
+    loop at (37, 200, 72) and (33, 100, 70); bf16 on K2's wgmma tile but at
+    (33, 100, 70); the library picks the tile ``dot_tile`` names."""
+    from vit_tpu_torch.ops.cuda import _build
     from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from vit_tpu_torch.tools import int8_probe
 
@@ -1659,6 +1663,14 @@ def test_torch_cuda_dot_probe(gen, dtype, m, k, n):
                           dtype=torch.int8)
     else:
         x, w = _rnd(gen, dtype, m, k), _rnd(gen, dtype, k, n, std=0.05)
+    tile = int8_probe.dot_tile(m, n, k, dtype, (x.data_ptr(), w.data_ptr()))
+    codes = {torch.int8: 2, torch.bfloat16: 1, torch.float32: 0}
+    assert tile == {1: "wgmma", 0: "ffma" if dtype == torch.float32
+                    else "wmma"}[_build.library().vit_dot_probe_tile(
+                        x.data_ptr(), w.data_ptr(), n, k, codes[dtype])]
+    assert (tile == "wgmma") == (dtype != torch.float32 and (
+        (m, k, n) != (33, 100, 70) and (dtype == torch.bfloat16
+                                         or k % 16 == 0)))
     reset_launch_counts()
     got = int8_probe.dot(x, w)
     torch.cuda.synchronize()
@@ -1713,6 +1725,86 @@ def test_torch_cuda_attn_core_probe(gen, dtype, mode):
     if mode == "qcore":
         step = acp.qcore_step(x, *w[:5], num_heads=heads)
     _probe_bar(got, acp.probe_plain(mode, x, *w, **kw), dtype, step)
+
+
+@pytest.mark.parametrize("mode", [
+    "full", "maskonly", "nosm", "mxu", "divonly", "recip", "sumonly",
+    "bf16div", "alldiv", "mxudiv", "addmask", "vsum", "qcore", "wide", "kt",
+    "projonly", "tcore", "xcore"])
+def test_torch_cuda_attn_core_probe_b16_width(gen, mode):
+    """K23 in every mode at B/16's width (bs=2, 208 tokens of which 197
+    real, 12 heads of 64; wide's pairs 128) in bf16 against the plain
+    version, with the mode's exact launches: the core's NK forms 4 and 8
+    and the GEMMs on K2's wgmma tile (``gemm_tile``)."""
+    from vit_tpu_torch.ops.cuda import _build
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.tools import attn_core_probe as acp
+
+    b, sp, seq, d, heads = 2, 208, 197, 768, 12
+    x, *w = acp.make_inputs(b, sp, d, seq, torch.bfloat16, "cuda", seed=7)
+    if mode == "xcore":
+        x = x.reshape(b * sp, d).t().contiguous()
+    kw = dict(num_heads=heads, seq_len=seq, group=2, shape=(b, sp, d))
+    wt = w[2].t().contiguous()
+    for n, k, ptrs in ((3 * d, d, (x.data_ptr(), w[2].data_ptr())),
+                       (b * sp, d, (wt.data_ptr(), x.data_ptr()))):
+        assert acp.gemm_tile(1, n, k, torch.bfloat16, ptrs) == "wgmma"
+        assert _build.library().vit_attn_probe_gemm_tile(*ptrs, n, k, 1) == 1
+    reset_launch_counts()
+    got = acp.probe(mode, x, *w, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(**acp.launches(mode))
+    step = 0.0
+    if mode == "qcore":
+        step = acp.qcore_step(x, *w[:5], num_heads=heads)
+    want = acp.probe_plain(mode, x, *w, **kw)
+    if mode in acp.UNNORMALIZED:  # chip_smoke.py's compare_norm
+        g, wt = got.float(), want.float()
+        assert torch.isfinite(g).all()
+        assert (g - wt).norm() / wt.norm() <= 2e-2
+    else:
+        _probe_bar(got, want, torch.bfloat16, step)
+
+
+@pytest.mark.parametrize("b,sp,seq,d,heads", [
+    (2, 208, 197, 768, 12), (3, 40, 33, 128, 4), (2, 50, 50, 48, 3),
+    (1, 80, 71, 240, 3), (1, 96, 90, 256, 1)])
+def test_torch_cuda_attn_core_probe_full_is_k4(gen, b, sp, seq, d, heads):
+    """K23's bf16 ``full`` core is K4's instantiation: bit for bit with K4's
+    core on the same packed QKV, at head widths 64, 32, 16, 80 and 256
+    (two blocks of 128 columns)."""
+    from vit_tpu_torch.ops.cuda import block as cuda_block
+    from vit_tpu_torch.tools import attn_core_probe as acp
+
+    qkv = _rnd(gen, torch.bfloat16, b * sp, 3 * d)
+    hd = d // heads
+    want = cuda_block.attention_core(qkv, batch=b, num_heads=heads,
+                                     scale=hd ** -0.5, seq_len=seq)
+    got = acp.core_launch("full", qkv, None, torch.empty_like(want), b=b,
+                          sp=sp, d=d, heads=heads, seq_len=seq,
+                          scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_torch_cuda_attn_core_probe_refuses_wide_heads(gen):
+    """The bf16 qcore and head-major cores hold q's columns whole: heads
+    past 128 columns are refused; the other modes walk them in blocks."""
+    from vit_tpu_torch.tools import attn_core_probe as acp
+
+    b, sp, d, heads = 1, 48, 256, 1
+    qkv = _rnd(gen, torch.bfloat16, b * sp, 3 * d)
+    core = dict(b=b, sp=sp, d=d, heads=heads, seq_len=40, scale=0.0625)
+    for mode in ("qcore", "tcore"):
+        tbuf = qkv.t().contiguous()
+        with pytest.raises(ValueError, match="128"):
+            acp.core_launch(mode, None if mode == "tcore" else qkv,
+                            tbuf if mode == "tcore" else None,
+                            torch.empty((b * sp, d), dtype=qkv.dtype,
+                                        device="cuda"), **core)
+    out = acp.core_launch("nosm", qkv, None, torch.empty(
+        (b * sp, d), dtype=qkv.dtype, device="cuda"), **core)
+    assert torch.isfinite(out.float()).all()
 
 
 def test_torch_cuda_attn_core_probe_refuses_fp32_wide_at_208(gen):

@@ -4,11 +4,11 @@
 // the layout vit_tpu/ops/pallas/block.py:_attn_core slices) and writing the
 // context into a (B*S, D) buffer at the head's columns. It serves K4's fp32
 // core (attention.cu), K9's fp32 attention phase (encoder_stack.cu), the
-// attention probe K23 (attn_core_probe.cu) in each of its modes, a
-// template parameter whose default, kAttnFull, is the core that K4's and
-// K9's fp32 instantiate, and K9's probe K24 (encstack_probe.cu). The bf16
-// core of K4 and K9 is attention_tile_mma (attention_mma.cuh), on the
-// tensor cores.
+// attention probe K23's fp32 core (attn_core_probe.cu) in each of its
+// modes, a template parameter whose default, kAttnFull, is the core that
+// K4's and K9's fp32 instantiate, and K9's probe K24 (encstack_probe.cu).
+// The bf16 core of K4, K9 and K23 is attention_tile_mma
+// (attention_mma.cuh), on the tensor cores.
 //
 // Per query row, with _attn_core's rounding points:
 //   s = (q . k) * scale in fp32, keys at index >= seq_len set to -inf;
@@ -60,9 +60,10 @@ inline size_t attention_smem(int s, int dh) {
 }
 
 // The modes of the attention probe K23 (csrc/attn_core_probe.cu), a
-// compile-time parameter of attention_tile. kAttnFull is K4's and K9's
-// fp32 core, and the only mode they instantiate; each other mode changes the
-// tile where tools/attn_core_probe.py's _core_kernel changes the core
+// compile-time parameter of attention_tile (fp32) and attention_tile_mma
+// (bf16, attention_mma.cuh). kAttnFull is K4's and K9's core, and the only
+// mode they instantiate; each other mode changes the tile where
+// tools/attn_core_probe.py's _core_kernel changes the core
 // (vit_tpu_torch/tools/attn_core_probe.py gives each mode's function).
 enum AttnMode : int {
   kAttnFull = 0,

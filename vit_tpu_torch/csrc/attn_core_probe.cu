@@ -7,14 +7,19 @@
 // and _probe_t (_tcore_kernel :432, _xcore_kernel :447). The TPU kernel is
 // the whole block in one grid step per `group` images; on Hopper the block
 // is K4's four launches (vit_tpu_torch/ops/cuda/block.py: an image's QKV
-// does not fit one SM), and the core is attention_tile
-// (attention_core.cuh) with the mode as a template parameter: kAttnFull is
-// the FFMA tile of K4's fp32 core and K9's attention phase instruction for
-// instruction (K4's bf16 core runs on the tensor cores, attention_mma.cuh,
-// with the same rounding points), the other modes change only what
-// the mode names (vit_tpu_torch/tools/attn_core_probe.py has each mode's
-// function and launches). A work item is (image, head, 64 queries),
-// whatever the TPU's `group`.
+// does not fit one SM), and the core takes the mode as a template
+// parameter, on the tile each dtype's path runs:
+// - bf16: K4's tensor-core tile (attention_mma.cuh, mma.sync) on K4's
+//   block, built in attn_core_probe_masked.cu and
+//   attn_core_probe_all_keys.cu (attn_core_probe.cuh): kAttnFull is K4's
+//   bf16 core, its very instantiation, and K9's attention phase's
+//   arithmetic; qcore runs its int8 codes on mma.sync m16n8k32;
+// - fp32: the FFMA tile (attention_core.cuh), K4's fp32 core and K9's
+//   fp32 attention phase instruction for instruction (no TF32).
+// The other modes change only what the mode names
+// (vit_tpu_torch/tools/attn_core_probe.py has each mode's function and
+// launches). A work item is (image, head, 64 queries), whatever the TPU's
+// `group`.
 //
 // What the layout modes need beyond K4, each in this file:
 // - kt: the K projection written transposed, (D, B*S) -- the QKV GEMM's
@@ -30,24 +35,29 @@
 //   head-major core, and WoutT @ ctxT + bout + x per row (kEpOutX);
 // - projonly: the QKV GEMM stores q apart, contiguous (kEpSplitQ), for the
 //   out-projection to read as the context: no core launch.
-// Each GEMM is K2's tile loop (gemm_tile.cuh) with an epilogue of its own.
+// Each GEMM runs K2's tile in bf16 where TMA reads both operands
+// (wgmma_takes, ops/cuda/matmul.py:gemm_path's rule): gemm_wgmma.cuh's
+// wgmma tile with the epilogue form of its XEP parameter (WgXep, ProbeEp's
+// code + 1), the operands read as they lie (WqkvT, xnT and ctxT are
+// contiguous row-major matrices there), transposed stores through the
+// staging tile written transposed; else, and in fp32, K2's tile loop
+// (gemm_tile.cuh) with ProbeEpilogue.
 //
-// Bound on the card, as the FFMA tile: neither memory nor the tensor cores.
-// The core is plain FFMA over shared memory, 4*B*H*S*S*d operations, 4.3
-// GFLOP at B/16 bs=32 (64 us at fp32's 67 TFLOP/s); the block adds K1 and
-// two K2 GEMMs (21.3 GFLOP of bf16 products). The probe exists to show
-// which of the core's ingredients costs the time; it showed the two dot
-// loops, which K4's bf16 core now runs on mma.sync.
+// Bound on the card at B/16 bs=32: the core's is K4's, bytes, 0.0122 ms in
+// bf16 (4*B*H*S*seq_len*d = 4.0 GFLOP of products, 0.004 ms at 989
+// TFLOP/s; fp32 FFMA 0.060 ms at 67 TFLOP/s); each of the block's two
+// GEMMs is K2's (the QKV 23.6 GFLOP, 0.0238 ms; the out-projection 7.9,
+// 0.0080). The probe exists to show which of the core's ingredients costs
+// the time, on the tiles the port runs.
 
 #include "attention_core.cuh"
+#include "attn_core_probe.cuh"
 #include "gemm_tile.cuh"
 
 namespace vit {
 
-constexpr size_t kProbeMaxSmem = 232448;  // 227 KB a block on Hopper
-
-// Shared memory of one core tile in the probe: K4's, and one float a query
-// row more for kAttnQcore's scales.
+// Shared memory of one fp32 core tile in the probe: K4's, and one float a
+// query row more for kAttnQcore's scales.
 template <typename T>
 inline size_t probe_smem(int s, int dh) {
   return attention_smem<T>(s, dh) + kAttnQT * sizeof(float);
@@ -180,6 +190,14 @@ cudaError_t launch_probe_gemm(const T* x, const T* w, const T* bias,
   return cudaGetLastError();
 }
 
+// K23's GEMMs on the wgmma tile (matmul_wgmma.cu): the epilogue form
+// xep = ProbeEp + 1 (gemm_wgmma.cuh's WgXep).
+cudaError_t launch_wgmma_probe(int xep, const void* x, const void* w,
+                               const void* bias, const void* res, void* out,
+                               void* alt, int m, int n, int k, int d,
+                               int device, cudaStream_t st);
+bool wgmma_takes(const void* x, const void* w, int n, int k);
+
 template <typename T>
 cudaError_t launch_probe_gemm_ep(int ep, const T* x, const T* w,
                                  const T* bias, const T* res, T* out, T* alt,
@@ -258,7 +276,8 @@ __global__ void __launch_bounds__(kColLnCols * kColLnRows)
 // The core in mode `mode` (AttnMode): qkv the packed (B*S, 3D) buffer (all
 // modes but kAttnHeadMajor), tbuf kT (D, ldt) for kAttnKt or [qT|kT|vT]
 // (3D, ldt) for kAttnHeadMajor, out (B*S, D) or, head-major, (D, ldt).
-// heads is the number of work-item heads (kAttnWide: pairs of heads).
+// heads is the number of work-item heads (kAttnWide: pairs of heads). bf16
+// runs the tensor-core tile (attn_core_probe.cuh), fp32 the FFMA tile.
 extern "C" int vit_attn_probe_core(const void* qkv, const void* tbuf,
                                    void* out, int batch, int s, int d,
                                    int heads, int seq_len, int ldt,
@@ -277,16 +296,22 @@ extern "C" int vit_attn_probe_core(const void* qkv, const void* tbuf,
     return launch_probe_core_mode<float>(
         mode, static_cast<const float*>(qkv), static_cast<const float*>(tbuf),
         static_cast<float*>(out), batch, s, d, heads, seq_len, ldt, scale, st);
-  if (dtype == kBF16)
-    return launch_probe_core_mode<bf16>(
-        mode, static_cast<const bf16*>(qkv), static_cast<const bf16*>(tbuf),
-        static_cast<bf16*>(out), batch, s, d, heads, seq_len, ldt, scale, st);
+  if (dtype == kBF16) {
+    auto* q = static_cast<const bf16*>(qkv);
+    auto* tb = static_cast<const bf16*>(tbuf);
+    auto* o = static_cast<bf16*>(out);
+    return attn_masked(mode)
+               ? launch_probe_core_masked(mode, q, tb, o, batch, s, d, heads,
+                                          seq_len, ldt, scale, st)
+               : launch_probe_core_all_keys(mode, q, tb, o, batch, s, d,
+                                            heads, seq_len, ldt, scale, st);
+  }
   return cudaErrorInvalidValue;
 }
 
 // x (m, k) @ w (k, n) with epilogue `ep` (ProbeEp): bias (n,) or, per row,
 // (m,); res the residual of kEpOutX / kEpOutT; alt the split buffer of
-// kEpSplitQ / kEpSplitKT; d the model width.
+// kEpSplitQ / kEpSplitKT; d the model width. x and w contiguous.
 extern "C" int vit_attn_probe_gemm(const void* x, const void* w,
                                    const void* bias, const void* res,
                                    void* out, void* alt, int m, int n, int k,
@@ -305,12 +330,25 @@ extern "C" int vit_attn_probe_gemm(const void* x, const void* w,
         ep, static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<const float*>(bias), static_cast<const float*>(res),
         static_cast<float*>(out), static_cast<float*>(alt), m, n, k, d, st);
-  if (dtype == kBF16)
+  if (dtype == kBF16) {
+    if (wgmma_takes(x, w, n, k))
+      return launch_wgmma_probe(ep + 1, x, w, bias, res, out, alt, m, n, k, d,
+                                device, st);
     return launch_probe_gemm_ep<bf16>(
         ep, static_cast<const bf16*>(x), static_cast<const bf16*>(w),
         static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
         static_cast<bf16*>(out), static_cast<bf16*>(alt), m, n, k, d, st);
+  }
   return cudaErrorInvalidValue;
+}
+
+// The tile vit_attn_probe_gemm runs x (m, k) @ w (k, n) on, without
+// launching: 1 the wgmma tile (bf16 where TMA reads both operands), 0
+// gemm_tile.cuh's (vit_tpu_torch/tools/attn_core_probe.py:gemm_tile asks
+// it).
+extern "C" int vit_attn_probe_gemm_tile(const void* x, const void* w, int n,
+                                        int k, int dtype) {
+  return dtype == vit::kBF16 && vit::wgmma_takes(x, w, n, k) ? 1 : 0;
 }
 
 // xcore's column LN: x and out (d, m), g and b (d,).

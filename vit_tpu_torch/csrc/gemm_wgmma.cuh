@@ -141,9 +141,29 @@ struct WgLn {
   bool vec;
 };
 
+// The epilogue forms of the tile beyond K2's (template parameter XEP):
+// K23's probe GEMMs (attn_core_probe.cu's ProbeEp, each code + 1) and
+// K22's raw fp32 sums.
+enum WgXep : int {
+  kXepNone = 0,     // K2's (K6's; K8's with EMB)
+  kXepSplitQ = 1,   // + bias[col]; the q third into alt (M, d), the rest
+                    // into out (M, N)
+  kXepSplitKT = 2,  // + bias[col]; the k third transposed into alt (d, M),
+                    // q and v into out (M, N)
+  kXepAllT = 3,     // + bias[col], transposed into out (N, M)
+  kXepRowBias = 4,  // + bias[row] into out (M, N)
+  kXepOutX = 5,     // (acc + bias[row]) + residual (M, N) into out (M, N)
+  kXepOutT = 6,     // (round(acc) + bias[row]) + residual (N, M), into out
+                    // (N, M)
+  kXepRawF32 = 7,   // the fp32 sums as they stand into out_f32 (M, N)
+};
+
 // The epilogue's operands: bias (N,) and residual (M, N) may be null. K8
 // (EMB): M = batch * n_tok patch rows into (batch, sp, N) tokens, pos
-// (n_tok, N), cls (N,).
+// (n_tok, N), cls (N,). K23 (XEP): bias (N,) or, per row, (M,), residual
+// (M, N) or, for kXepOutT, (N, M); alt the split buffer; d the model
+// width. K22 (kXepRawF32): out_f32 (M, N), vec_out its pairs 8-byte
+// aligned (n even, base aligned).
 struct WgEpilogue {
   const bf16* bias;
   const bf16* residual;
@@ -155,6 +175,13 @@ struct WgEpilogue {
   const bf16* cls;
   int n_tok, sp, batch;
   bool vec_pos;  // pos pairs are 4-byte aligned (n even, base aligned)
+  bf16* alt;
+  int d;
+  bool vec_alt;  // alt's rows are 16-byte aligned (d % 8 == 0 for kXepSplitQ,
+                 // m % 8 == 0 for kXepSplitKT; base aligned)
+  bool vec_t;    // the transposed rows (m long) of out, residual and the
+                 // row bias are 16-byte aligned (m % 8 == 0, bases aligned)
+  float* out_f32;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -523,20 +550,202 @@ __device__ __forceinline__ void embed_fixed_rows(const WgEpilogue& ep,
   }
 }
 
+// K23's probe GEMMs (XEP from kXepSplitQ to kXepOutT): one consumer
+// warpgroup's 64 rows of the tile at (m0, n0), in up to two rounds
+// through its staging tile: first the columns stored row-major (into out,
+// or alt for kXepSplitQ's q third), then those stored transposed
+// (kXepSplitKT's k third into alt (d, M); every column of kXepAllT and
+// kXepOutT into out (N, M)). For the second the staging tile is written
+// transposed: column c of the tile is a row of 64 bf16 (the warpgroup's
+// rows) whose 16-byte chunks are XOR-swizzled by c % 8, so that neither
+// the accumulators' 2-byte writes nor the 16-byte reads conflict on a
+// bank, and every device store is 16 contiguous bytes where the rows are
+// aligned. The order of each element's operations is ProbeEpilogue's
+// (attn_core_probe.cu); kXepOutT stages round(acc) and adds the row bias
+// and the residual, 8 contiguous elements at a time, as it stores.
+template <int XEP>
+__device__ __forceinline__ void probe_epilogue(const float (&d)[64],
+                                               const WgEpilogue& ep, int m0,
+                                               int n0, bf16* cs, int wgi) {
+  constexpr bool kAllT = XEP == kXepAllT || XEP == kXepOutT;
+  constexpr bool kColBias =
+      XEP == kXepSplitQ || XEP == kXepSplitKT || XEP == kXepAllT;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  auto trans = [&](int gc) {
+    return kAllT || (XEP == kXepSplitKT && gc >= ep.d && gc < 2 * ep.d);
+  };
+  // The element (row r, column c) of the transposed staging tile.
+  auto tidx = [](int c, int r) {
+    return c * 64 + ((((r >> 3) ^ (c & 7))) << 3) + (r & 7);
+  };
+  const int c_hi = min(n0 + kBN, ep.n);
+  const bool any_t = kAllT || (XEP == kXepSplitKT && n0 < 2 * ep.d &&
+                               c_hi > ep.d);
+  const bool any_r = !kAllT && (XEP != kXepSplitKT || n0 < ep.d ||
+                                c_hi > 2 * ep.d);
+  for (int round = 0; round < 2; ++round) {
+    const bool tr = round == 1;
+    if (tr ? !any_t : !any_r) continue;
+    named_sync(1 + wgi);  // this warpgroup's readers of cs are done
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4), gc = n0 + c;
+      float b0 = 0.f, b1 = 0.f;
+      if (kColBias) {
+        if (gc < ep.n) b0 = to_f32(ep.bias[gc]);
+        if (gc + 1 < ep.n) b1 = to_f32(ep.bias[gc + 1]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + lane / 4 + 8 * h, gr = m0 + r;
+        float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+        if constexpr (kColBias) {
+          v0 += b0;
+          v1 += b1;
+        } else if constexpr (XEP == kXepRowBias || XEP == kXepOutX) {
+          const float br = gr < ep.m ? to_f32(ep.bias[gr]) : 0.f;
+          v0 += br;
+          v1 += br;
+          if (XEP == kXepOutX && gr < ep.m) {
+            const bf16* rp = ep.residual + static_cast<size_t>(gr) * ep.n + gc;
+            if (ep.vec_res && gc + 1 < ep.n) {
+              const __nv_bfloat162 rv =
+                  *reinterpret_cast<const __nv_bfloat162*>(rp);
+              v0 += __low2float(rv);
+              v1 += __high2float(rv);
+            } else {
+              if (gc < ep.n) v0 += to_f32(rp[0]);
+              if (gc + 1 < ep.n) v1 += to_f32(rp[1]);
+            }
+          }
+        }
+        if (tr) {
+          cs[tidx(c, r)] = __float2bfloat16_rn(v0);
+          cs[tidx(c + 1, r)] = __float2bfloat16_rn(v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(cs + r * kLdc + c) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+    named_sync(1 + wgi);
+    if (!tr) {
+      constexpr int CPR = kBN / 8;  // 16-byte chunks a row
+      for (int ch = t; ch < 64 * CPR; ch += 128) {
+        const int r = ch / CPR, c = (ch % CPR) * 8;
+        const int gr = m0 + r, gc = n0 + c;
+        if (gr >= ep.m || gc >= ep.n) continue;
+        const bf16* s = cs + r * kLdc + c;
+        // kXepSplitQ's q third goes to alt (M, d).
+        const bool to_alt = XEP == kXepSplitQ && gc < ep.d;
+        if (to_alt ? ep.vec_alt && gc + 8 <= ep.d
+                   : ep.vec_out && gc + 8 <= ep.n &&
+                         (XEP != kXepSplitQ || gc >= ep.d) &&
+                         (XEP != kXepSplitKT ||
+                          gc + 8 <= ep.d || gc >= 2 * ep.d)) {
+          bf16* o = to_alt ? ep.alt + static_cast<size_t>(gr) * ep.d + gc
+                           : ep.out + static_cast<size_t>(gr) * ep.n + gc;
+          *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(s);
+          continue;
+        }
+        for (int e = 0; e < 8 && gc + e < ep.n; ++e) {
+          const int col = gc + e;
+          if (trans(col)) continue;
+          if (XEP == kXepSplitQ && col < ep.d)
+            ep.alt[static_cast<size_t>(gr) * ep.d + col] = s[e];
+          else
+            ep.out[static_cast<size_t>(gr) * ep.n + col] = s[e];
+        }
+      }
+    } else {
+      // Column c of the tile, rows 8 rc .. 8 rc + 7 of the warpgroup's.
+      for (int ch = t; ch < kBN * 8; ch += 128) {
+        const int c = ch / 8, rc = ch % 8;
+        const int gc = n0 + c, gr = m0 + 8 * rc;
+        if (gc >= ep.n || gr >= ep.m || !trans(gc)) continue;
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(cs + tidx(c, 8 * rc));
+        const bf16* s = reinterpret_cast<const bf16*>(&raw);
+        const size_t at = (XEP == kXepSplitKT
+                               ? static_cast<size_t>(gc - ep.d)
+                               : static_cast<size_t>(gc)) *
+                              ep.m + gr;
+        bf16* o = (XEP == kXepSplitKT ? ep.alt : ep.out) + at;
+        const bool vec = (XEP == kXepSplitKT ? ep.vec_alt : ep.vec_t) &&
+                         gr + 8 <= ep.m;
+        if constexpr (XEP == kXepOutT) {
+          __align__(16) bf16 v[8];
+          if (vec) {
+            const uint4 bw = *reinterpret_cast<const uint4*>(ep.bias + gr);
+            const uint4 rw = *reinterpret_cast<const uint4*>(ep.residual + at);
+            const bf16* bb = reinterpret_cast<const bf16*>(&bw);
+            const bf16* rr = reinterpret_cast<const bf16*>(&rw);
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              v[e] = __float2bfloat16_rn((to_f32(s[e]) + to_f32(bb[e])) +
+                                         to_f32(rr[e]));
+            *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
+          } else {
+            for (int e = 0; e < 8 && gr + e < ep.m; ++e)
+              o[e] = __float2bfloat16_rn(
+                  (to_f32(s[e]) + to_f32(ep.bias[gr + e])) +
+                  to_f32(ep.residual[at + e]));
+          }
+        } else if (vec) {
+          *reinterpret_cast<uint4*>(o) = raw;
+        } else {
+          for (int e = 0; e < 8 && gr + e < ep.m; ++e) o[e] = s[e];
+        }
+      }
+    }
+  }
+}
+
+// K22's bf16 dot (kXepRawF32): one consumer warpgroup's rows of the tile
+// at (m0, n0), the fp32 sums stored as they stand, a pair at a time from
+// the accumulator fragments (no bias, no cast).
+__device__ __forceinline__ void raw_epilogue(const float (&d)[64],
+                                             const WgEpilogue& ep, int m0,
+                                             int n0) {
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int gc = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = m0 + 16 * warp + lane / 4 + 8 * h;
+      if (gr >= ep.m || gc >= ep.n) continue;
+      float* o = ep.out_f32 + static_cast<size_t>(gr) * ep.n + gc;
+      const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      if (ep.vec_out && gc + 1 < ep.n) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = v0;
+        if (gc + 1 < ep.n) o[1] = v1;
+      }
+    }
+  }
+}
+
 // (m, k) @ (k, n): A through map_a, B through map_b (see the header
 // comment for their boxes); TA: A is the view of a (k, m) matrix; TB: B is
 // the view of an (n, k) matrix. LN (K6, A and B as they lie): the
 // producer warpgroup's warps 1-3 normalise each stage's x box with `ln`
 // in place between its TMA and the consumers' wgmma. EMB (K8, A and B as
 // they lie): the embedding epilogue, and the column's fixed rows from the
-// block that walks its first row tile.
-template <int TA, int TB, bool LN = false, bool EMB = false>
+// block that walks its first row tile. XEP (K23's probe GEMMs, K22's bf16
+// dot; A and B as they lie): the epilogue form WgXep names, K2's loop and
+// sum order unchanged.
+template <int TA, int TB, bool LN = false, bool EMB = false,
+          int XEP = kXepNone>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_bf16_wgmma(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b,
                     WgEpilogue ep, int k, WgLn ln) {
   static_assert(!LN || (TA == 0 && TB == 0), "K6 reads x and w as they lie");
   static_assert(!EMB || (TA == 0 && TB == 0 && !LN), "K8: x and w as they lie");
+  static_assert(XEP == kXepNone || (TA == 0 && TB == 0 && !LN && !EMB),
+                "K22, K23: x and w as they lie");
   extern __shared__ uint8_t wg_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
@@ -666,8 +875,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();
       fence_acc(d);
       if (threadIdx.x % 128 == 0) mbar_arrive(empty0 + 8 * prev);
-      epilogue<EMB>(d, ep, m0 + 64 * wgi, n0, cs, wgi, pv);
-      if (EMB && m0 == 0) embed_fixed_rows(ep, n0);
+      if constexpr (XEP == kXepRawF32) {
+        raw_epilogue(d, ep, m0 + 64 * wgi, n0);
+      } else if constexpr (XEP != kXepNone) {
+        probe_epilogue<XEP>(d, ep, m0 + 64 * wgi, n0, cs, wgi);
+      } else {
+        epilogue<EMB>(d, ep, m0 + 64 * wgi, n0, cs, wgi, pv);
+        if (EMB && m0 == 0) embed_fixed_rows(ep, n0);
+      }
     }
   }
 }

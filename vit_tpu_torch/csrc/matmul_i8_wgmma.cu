@@ -43,6 +43,8 @@
 // memory's bandwidth with wgmma where the panel streams (PERF.md: the
 // epilogue and the transposition's shares, by ablation).
 
+#include <type_traits>
+
 #include "i8_wgmma.cuh"
 
 namespace vit {
@@ -61,6 +63,8 @@ constexpr int kSmem = kBarOff + kBarBytes + 1024;
 static_assert(kSmem <= 232448, "227 KB a block");
 static_assert(2 * (kSA + kSR + kSB) * 8 <= kBarBytes, "barriers");
 
+// The epilogue's operands; O = int is K22's raw form (the int32 sums as
+// they stand: ax, wscale, bias and residual null).
 template <typename O>
 struct Ep {
   const float* ax;
@@ -155,6 +159,32 @@ __device__ __forceinline__ void epilogue(const int (&d)[64], const Ep<O>& ep,
           o[0] = from_f32<O>(v[0]);
           if (two) o[1] = from_f32<O>(v[1]);
         }
+      }
+    }
+  }
+}
+
+// K22's int8 dot (Ep<int>: no scales, bias or residual): one consumer
+// warpgroup's rows of the tile at (m0, n0), the int32 sums stored as they
+// stand, a pair at a time.
+__device__ __forceinline__ void raw_epilogue(const int (&d)[64],
+                                             const Ep<int>& ep, int m0,
+                                             int n0) {
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int c = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + 16 * warp + lane / 4 + 8 * h;
+      if (r >= ep.m || c >= ep.n) continue;
+      int* o = ep.out + static_cast<size_t>(r) * ep.n + c;
+      if (ep.vec && c + 1 < ep.n) {
+        *reinterpret_cast<int2*>(o) = make_int2(d[4 * j + 2 * h],
+                                                d[4 * j + 2 * h + 1]);
+      } else {
+        o[0] = d[4 * j + 2 * h];
+        if (c + 1 < ep.n) o[1] = d[4 * j + 2 * h + 1];
       }
     }
   }
@@ -303,7 +333,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_arrive(aempty + 8 * prev_a);
         if (rel) mbar_arrive(bempty + 8 * prev_b);
       }
-      epilogue<O, GELU, RES>(d, ep, m0 + 64 * wgi, n0);
+      if constexpr (std::is_same<O, int>::value)
+        raw_epilogue(d, ep, m0 + 64 * wgi, n0);
+      else
+        epilogue<O, GELU, RES>(d, ep, m0 + 64 * wgi, n0);
     }
   }
 }
@@ -355,6 +388,16 @@ cudaError_t launch(const void* xq, const float* ax, const void* wq,
 }
 
 }  // namespace mi
+
+// K22's int8 dot on this tile (dot_probe.cu, where TMA reads both
+// operands: i8_path's rule): xq (m, k) @ wq (k, n) int8, the int32 sums
+// into out (m, n) as they stand -- K11's walk with Ep<int>'s raw epilogue.
+cudaError_t launch_i8_raw(const void* xq, const void* wq, int* out, int m,
+                          int n, int k, int device, cudaStream_t st) {
+  return mi::launch<int, false, false>(xq, nullptr, wq, nullptr, nullptr,
+                                       nullptr, out, m, n, k, device, st);
+}
+
 }  // namespace vit
 
 // K11 on the wgmma tile: the arguments of vit_matmul_i8 (matmul.cu), which

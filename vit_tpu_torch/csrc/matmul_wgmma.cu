@@ -84,11 +84,12 @@ bool tensor_map_i8_dense(CUtensorMap* map, const void* p, int rows, int cols,
 // (set once: the host cost of a launch counts at K2's smaller shapes).
 constexpr int kMaxDevices = 64;
 
-template <int TA, int TB, bool LN = false, bool EMB = false>
+template <int TA, int TB, bool LN = false, bool EMB = false,
+          int XEP = wg::kXepNone>
 cudaError_t launch_wgmma_tile(const CUtensorMap& ma, const CUtensorMap& mb,
                               const wg::WgEpilogue& ep, int k, int device,
                               cudaStream_t st, const wg::WgLn& ln = {}) {
-  auto kernel = wg::gemm_bf16_wgmma<TA, TB, LN, EMB>;
+  auto kernel = wg::gemm_bf16_wgmma<TA, TB, LN, EMB, XEP>;
   static int sm_count[kMaxDevices];  // 0 until the device's first launch
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   int& sms = sm_count[device];
@@ -198,6 +199,63 @@ cudaError_t launch_wgmma_embed(const void* patches, const void* w,
   ep.batch = b;
   ep.vec_pos = reinterpret_cast<uintptr_t>(pos) % 4 == 0 && d % 2 == 0;
   return launch_wgmma_tile<0, 0, false, true>(ma, mb, ep, k, device, st);
+}
+
+// K23's probe GEMMs on the wgmma tile (attn_core_probe.cu, where
+// wgmma_takes(x, w, n, k)): x (m, k) @ w (k, n), both contiguous and read
+// as they lie, with the epilogue form xep (wg::WgXep, kXepSplitQ ..
+// kXepOutT); bias, res, alt and d as vit_attn_probe_gemm takes them.
+cudaError_t launch_wgmma_probe(int xep, const void* x, const void* w,
+                               const void* bias, const void* res, void* out,
+                               void* alt, int m, int n, int k, int d,
+                               int device, cudaStream_t st) {
+  CUtensorMap ma, mb;
+  if (!tensor_map(&ma, x, m, k, k, 64, wg::kBM) ||
+      !tensor_map(&mb, w, k, n, n, 64, 64))
+    return cudaErrorInvalidValue;
+  const bool trans_out = xep == wg::kXepAllT || xep == wg::kXepOutT;
+  // kXepOutX's residual is (m, n) as K2's; kXepOutT's (n, m) is read in
+  // the transposed rows (vec_t).
+  wg::WgEpilogue ep =
+      wg_epilogue(bias, xep == wg::kXepOutX ? res : nullptr, out, m, n, 0);
+  ep.residual = static_cast<const bf16*>(res);
+  ep.alt = static_cast<bf16*>(alt);
+  ep.d = d;
+  ep.vec_alt = aligned16(alt) &&
+               (xep == wg::kXepSplitQ ? d % 8 == 0 : m % 8 == 0);
+  ep.vec_t = trans_out && m % 8 == 0 && aligned16(out) &&
+             (xep != wg::kXepOutT || (aligned16(res) && aligned16(bias)));
+#define VIT_PROBE_XEP(X)                                                   \
+  case X:                                                                  \
+    return launch_wgmma_tile<0, 0, false, false, X>(ma, mb, ep, k, device, \
+                                                    st);
+  switch (xep) {
+    VIT_PROBE_XEP(wg::kXepSplitQ)
+    VIT_PROBE_XEP(wg::kXepSplitKT)
+    VIT_PROBE_XEP(wg::kXepAllT)
+    VIT_PROBE_XEP(wg::kXepRowBias)
+    VIT_PROBE_XEP(wg::kXepOutX)
+    VIT_PROBE_XEP(wg::kXepOutT)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef VIT_PROBE_XEP
+}
+
+// K22's bf16 dot on the wgmma tile (dot_probe.cu, where wgmma_takes(x, w,
+// n, k)): x (m, k) @ w (k, n), both contiguous, the fp32 sums into out
+// (m, n) as they stand.
+cudaError_t launch_wgmma_raw(const void* x, const void* w, float* out, int m,
+                             int n, int k, int device, cudaStream_t st) {
+  CUtensorMap ma, mb;
+  if (!tensor_map(&ma, x, m, k, k, 64, wg::kBM) ||
+      !tensor_map(&mb, w, k, n, n, 64, 64))
+    return cudaErrorInvalidValue;
+  wg::WgEpilogue ep = wg_epilogue(nullptr, nullptr, nullptr, m, n, 0);
+  ep.out_f32 = out;
+  ep.vec_out = n % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  return launch_wgmma_tile<0, 0, false, false, wg::kXepRawF32>(ma, mb, ep, k,
+                                                              device, st);
 }
 
 }  // namespace vit

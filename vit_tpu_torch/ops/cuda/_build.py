@@ -205,9 +205,12 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [*args, _I, _I, _P]
                 fn.restype = _I
-            # Not a launch: x, w, n, k, dtype -> K6's tile (matmul.cu).
-            lib.vit_fused_linear_tile.argtypes = [_P, _P, _I, _I, _I]
-            lib.vit_fused_linear_tile.restype = _I
+            # Not launches: x, w, n, k, dtype -> the tile K6 (matmul.cu),
+            # K22 (dot_probe.cu) and K23's GEMMs (attn_core_probe.cu) run.
+            for tile in ("vit_fused_linear_tile", "vit_dot_probe_tile",
+                         "vit_attn_probe_gemm_tile"):
+                getattr(lib, tile).argtypes = [_P, _P, _I, _I, _I]
+                getattr(lib, tile).restype = _I
             lib.vit_error_string.argtypes = [_I]
             lib.vit_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -3,16 +3,20 @@
 
 The block is the port's ``attn_block``: K1 (LN1), K2 into the packed
 ``(B*S, 3D)`` QKV buffer, the core, K2 with ``bout`` and the residual. The
-core is K23 ``attn_core_probe`` (``vit_tpu_torch/csrc/attn_core_probe.cu``):
-``attention_core.cuh``'s FFMA tile with the mode as a template
-parameter, so ``full`` is K4's fp32 core (and K9's attention phase)
-instruction for instruction; K4's bf16 core runs on the tensor cores
-(``attention_mma.cuh``) with the same rounding points, and
-``chip_smoke.py`` holds it to ``full`` at the bf16 kernel bar. Each mode
-switches one ingredient off, or lays the data out another way, as the JAX
-probe's
-``_core_kernel`` (``tools/attn_core_probe.py:67-290``) and ``_tcore_body``
-(``:293-331``) do:
+core is K23 ``attn_core_probe`` (``vit_tpu_torch/csrc/attn_core_probe.cu``)
+with the mode as a template parameter, on the tile each dtype's path runs:
+in bf16 K4's tensor-core tile (``attention_mma.cuh``, ``mma.sync`` on
+K4's block of 128 threads), so ``full`` is K4's bf16 core bit for bit
+(its very instantiation) and ``qcore`` runs its int8 codes on ``mma.sync``
+m16n8k32; in fp32 ``attention_core.cuh``'s FFMA tile, K4's fp32 core
+instruction for instruction. The layout modes' GEMMs (kt, projonly,
+tcore, xcore) are K23's too: K2's bf16 ``wgmma`` tile
+(``gemm_wgmma.cuh``) with an epilogue form each, where TMA reads the
+operands (:func:`gemm_tile`), else K2's tile loop (``gemm_tile.cuh``).
+The core's bound is K4's: bytes, 0.0122 ms at B/16 bs=32 in bf16. Each
+mode switches one ingredient off, or lays the data out another way, as
+the JAX probe's ``_core_kernel`` (``tools/attn_core_probe.py:67-290``) and
+``_tcore_body`` (``:293-331``) do:
 
 =========  ===============================================================
 full       masked ``s*scale``, max, exp, ``l = sum p``; ``round(p) @ v / l``
@@ -47,7 +51,8 @@ launches are :func:`launches`; every launch from K23's source counts as
 work item here is (image, head, 64 queries) whatever the group, which is
 kept for its check (the batch must be a multiple of it). In fp32 a core
 tile at 208 tokens fits shared memory at head width 64, not at ``wide``'s
-128: fp32 ``wide`` runs only at a length that fits.
+128: fp32 ``wide`` runs only at a length that fits. In bf16, qcore and
+the head-major core take heads up to 128 columns.
 
 For each mode it prints the block's time by CUDA events around each call
 (median, :func:`vit_tpu_torch.utils.timing.do_bench`, host launch cost
@@ -103,8 +108,12 @@ RECIPROCAL = ("recip", "alldiv", "mxudiv", "addmask", "tcore", "xcore")
 UNNORMALIZED = ("maskonly", "nosm", "mxu", "sumonly")
 #: The probe GEMM's epilogues (``csrc/attn_core_probe.cu:ProbeEp``).
 EP_SPLIT_Q, EP_SPLIT_KT, EP_ALL_T, EP_ROW_BIAS, EP_OUT_X, EP_OUT_T = range(6)
-#: Extra shared memory of a probe core tile over K4's: the qcore scales.
+#: Extra shared memory of an fp32 probe core tile over K4's: the qcore
+#: scales.
 PROBE_SMEM_EXTRA = 64 * 4
+#: Widest head (columns) of the bf16 qcore and head-major cores, whose q
+#: fragments are held whole.
+MMA_MAX_HEAD = 128
 
 
 def launches(mode: str) -> dict[str, int]:
@@ -282,10 +291,43 @@ def qcore_step(x, g1, be1, wqkv, bqkv, wout, *, num_heads: int,
                for h in range(num_heads))
 
 
-def core_smem_bytes(sp: int, head_dim: int, itemsize: int) -> int:
-    """Shared memory of one K23 core tile: K4's and the qcore scales."""
-    from vit_tpu_torch.ops.cuda.block import attention_smem_bytes
-    return attention_smem_bytes(sp, head_dim, itemsize) + PROBE_SMEM_EXTRA
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def core_smem_bytes(sp: int, head_dim: int, itemsize: int,
+                    mode: str = "full") -> int:
+    """Shared memory of one K23 core tile: in fp32 the FFMA tile's (K4's
+    and the qcore scales); in bf16 the tensor-core tile's in ``mode``
+    (``csrc/attention_mma.cuh:attn_mma_probe_smem``): K4's (K and V rows),
+    kt's (K's feature-major slab beside V's rows), the head-major modes'
+    (K's, V's and q's slabs) or qcore's (K and V, then their int8 codes)."""
+    from vit_tpu_torch.ops.cuda.block import (attention_mma_smem_bytes,
+                                              attention_smem_bytes)
+    if itemsize != 2:
+        return attention_smem_bytes(sp, head_dim, itemsize) + PROBE_SMEM_EXTRA
+    kr, dhp = _ceil(sp, 16), _ceil(head_dim, 16)
+    if mode == "kt":
+        return (dhp * (kr + 8) + kr * (dhp + 8)) * 2
+    if mode in ("tcore", "xcore"):
+        return (2 * dhp * (kr + 8) + dhp * (64 + 8)) * 2
+    if mode == "qcore":
+        kr, dhq = _ceil(sp, 32), _ceil(head_dim, 32)
+        return (2 * kr * (dhp + 8) * 2 + kr * (dhq + 16) + dhq * (kr + 16)
+                + 8 * 4)
+    return attention_mma_smem_bytes(sp, head_dim)
+
+
+def gemm_tile(m: int, n: int, k: int, dtype: torch.dtype,
+              ptrs: tuple[int, int]) -> str:
+    """The tile a K23 GEMM ``(m, k) @ (k, n)`` of contiguous operands runs
+    on, from shape and alignment alone (``ptrs`` the bases, bytes): K2's
+    rule (:func:`vit_tpu_torch.ops.cuda.matmul.gemm_path`), ``"wgmma"``
+    where TMA reads both operands, else ``"wmma"``; ``"ffma"`` in fp32.
+    ``csrc/attn_core_probe.cu:vit_attn_probe_gemm_tile`` applies the same
+    rule."""
+    from vit_tpu_torch.ops.cuda.matmul import gemm_path
+    return gemm_path(m, n, k, dtype, False, False, ptrs, ((k, 1), (n, 1)))
 
 
 def core_launch(mode: str, qkv, tbuf, out, *, b, sp, d, heads, seq_len,
@@ -298,7 +340,12 @@ def core_launch(mode: str, qkv, tbuf, out, *, b, sp, d, heads, seq_len,
 
     like = qkv if qkv is not None else tbuf
     work_heads = heads // 2 if mode == "wide" else heads
-    smem = core_smem_bytes(sp, d // work_heads, like.element_size())
+    hd = d // work_heads
+    if (like.dtype == torch.bfloat16 and mode in ("qcore", "tcore", "xcore")
+            and hd > MMA_MAX_HEAD):
+        raise ValueError(f"{mode}: the bf16 core holds q's {hd} columns "
+                         f"whole; at most {MMA_MAX_HEAD}")
+    smem = core_smem_bytes(sp, hd, like.element_size(), mode)
     if smem > MAX_SMEM:
         raise ValueError(f"{mode}: a core tile needs {smem} B of shared "
                          f"memory at {sp} tokens, head width "

@@ -2,10 +2,17 @@
 (counterpart of ``tools/int8_probe.py``)
 
 The JAX probe asked the TPU's matrix unit; this one asks the port's own
-tile loop, K22 ``dot_probe`` (``vit_tpu_torch/csrc/dot_probe.cu``: the
-whole product x @ w written out raw, int8 -> int32 exact, bf16 or fp32 ->
-fp32), which is K2's tile loop on int8 or bf16 wmma fragments -- the loop
-that K11 and K12 run. It checks, in order:
+tiles, K22 ``dot_probe`` (``vit_tpu_torch/csrc/dot_probe.cu``: the whole
+product x @ w written out raw, int8 -> int32 exact, bf16 or fp32 -> fp32).
+Each dot runs on the tile the port's path runs it on (:func:`dot_tile`,
+by shape and alignment alone): int8 on K11's s8 ``wgmma`` tile fed by TMA
+(``csrc/matmul_i8_wgmma.cu`` with its raw epilogue) where
+``ops.cuda.quant.i8_path`` gives K11 that tile, bf16 on K2's ``wgmma``
+tile (``csrc/gemm_wgmma.cuh``, the fp32 sums stored unrounded) where
+``ops.cuda.matmul.gemm_path`` gives K2 that tile, every other shape and
+fp32 on ``gemm_tile.cuh``'s loop (s8 or bf16 ``wmma``, fp32 FFMA). Its
+bound at the timed shape is bytes: the 20.4 MB fp32 or int32 product,
+0.0072 ms in int8 and 0.0083 in bf16 at 3.35 TB/s. It checks, in order:
 
 1. a 128 x 128 int8 dot, bit for bit against numpy;
 2. K12 ``mlp_block_i8dot`` at a tiny shape (d=128, m=16). JAX compile-
@@ -52,6 +59,23 @@ def dot_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.int8:
         return torch.matmul(x.double(), w.double()).to(torch.int32)
     return torch.matmul(x.float(), w.float())
+
+
+def dot_tile(m: int, n: int, k: int, dtype: torch.dtype,
+             ptrs: tuple[int, int]) -> str:
+    """The tile K22 runs ``(m, k) @ (k, n)`` of contiguous operands on,
+    from shape and alignment alone (``ptrs`` the bases, bytes):
+    ``"wgmma"`` where TMA reads both operands by K11's rule in int8
+    (:func:`vit_tpu_torch.ops.cuda.quant.i8_path`) or K2's in bf16
+    (:func:`vit_tpu_torch.ops.cuda.matmul.gemm_path`), else ``"wmma"``
+    (``gemm_tile.cuh``'s loop); ``"ffma"`` in fp32.
+    ``csrc/dot_probe.cu:vit_dot_probe_tile`` applies the same rule."""
+    from vit_tpu_torch.ops.cuda.matmul import gemm_path
+    from vit_tpu_torch.ops.cuda.quant import i8_path
+
+    if dtype == torch.int8:
+        return i8_path(m, n, k, ptrs)
+    return gemm_path(m, n, k, dtype, False, False, ptrs, ((k, 1), (n, 1)))
 
 
 def dot(x: torch.Tensor, w: torch.Tensor, *,

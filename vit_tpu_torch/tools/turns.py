@@ -17,7 +17,9 @@ QKV), K12 (``mlp_block_i8dot`` at B/16 bs=32 and H/14 bs=2, each beside
 its composed K10 -> K11 -> K10 -> K11 chain), K13
 (``ops.flash_attention_bwd``, B/16 bs=32 in bf16 and fp32), K16
 (``matmul3``, the scores, the context and the scores at 200 tokens, each
-beside ``baddbmm``), K22 (``int8_probe.dot``, int8 and bf16), K3 (B/16
+beside ``baddbmm``), K22 (``int8_probe.dot``, int8 and bf16), K23 (the
+``full`` core alone on B/16 bs=32's packed QKV, beside SDPA -- K4's core
+is ``core`` -- and the ``tcore`` block, whose GEMMs are K23's), K3 (B/16
 bs=32, L/16-384 bs=8 and the B/16 bs=32 shard over model=2, each beside
 the case's composed K1 -> K2 -> K2 chain), K17 (``mlp_block_q`` at B/16
 bs=32 and its shard over model=2, each beside K3 on the dequantized
@@ -98,6 +100,10 @@ CASES = {
                        "int8", False),
     "dot_probe_bf16": ("kernel_cases_probes", "bfloat16", "dot_probe",
                        "bfloat16", False),
+    "attn_core_probe_full": ("kernel_cases_probes", "bfloat16",
+                             "attn_core_probe", "core full", True),
+    "attn_core_probe_tcore": ("kernel_cases_probes", "bfloat16",
+                              "attn_core_probe", "block tcore", False),
     "attention_bwd_bfloat16": ("kernel_cases_train", "bfloat16",
                                "flash_attention_bwd", "B/16", False),
     "attention_bwd_float32": ("kernel_cases_train", "float32",
