@@ -166,7 +166,9 @@ without printing the final ``ok`` line:
 The last three lines of standard output are the kernels JSON line (each
 kernel's launches on the main paths, error vs the plain version, kernel,
 plain and library times, and its bound: the larger of its bytes over the
-memory rate and its operations over the peak rate of their type), the
+memory rate and its operations over the peak rate of their type; under
+``fp32`` the same numbers of the kernel's fp32 form, where it has one:
+K2's and K13's on the tensor cores in three TF32 passes), the
 card's ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy and the port.
 """
@@ -326,9 +328,12 @@ KERNEL_SOURCES = {
 WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused", "encoder_stack_q")
 #: Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense): device
 #: memory bytes/s, and operations/s by the type the work runs in (bf16 and
-#: int8 on the tensor cores, fp32 on the FFMA units, no TF32).
+#: int8 on the tensor cores, fp32 on the FFMA units; "tf32x3" the fp32
+#: products of K2's and K13's tiles, three TF32 passes each on the tensor
+#: cores at 495 TFLOP/s: ``csrc/tf32_split.cuh``).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
+                  "tf32x3": 495e12 / 3}
 FP32_BAR = 1e-4       # max|diff|: only the fp32 sum order differs
 BF16_REL_BAR = 2e-2   # |diff| <= bar * (1 + |ref|): about two bf16 ulps
 BF16_MEAN_BAR = 3e-3  # mean|diff|
@@ -831,6 +836,12 @@ def _kind(torch, dtype) -> str:
     return "bf16" if dtype == torch.bfloat16 else "fp32"
 
 
+def _split_kind(torch, dtype) -> str:
+    """The peak-rate type of K2's and K13's products in ``dtype``: fp32
+    runs them as three TF32 passes on the tensor cores."""
+    return "bf16" if dtype == torch.bfloat16 else "tf32x3"
+
+
 def _sdpa(torch, q, k, v, scale, seq_len):
     """One PyTorch call of masked attention (keys >= seq_len masked): the
     yardstick of K4's core and K7, used nowhere in the port."""
@@ -885,7 +896,7 @@ def kernel_cases_train(torch, dtype):
             lambda impl, a=args: ops.flash_attention_bwd(
                 *a[:4], scale=a[4], seq_len=a[5], impl=impl),
             (7 * b * h * s * hd * dtype.itemsize,
-             10 * b * h * s * seq_len * hd, _kind(torch, dtype)),
+             10 * b * h * s * seq_len * hd, _split_kind(torch, dtype)),
             library=_sdpa_bwd(torch, *args), primary=tag == "B/16"))
     return cases
 
@@ -901,6 +912,7 @@ def kernel_cases(torch, dtype):
 
     rnd = _rnd_fn(torch, dtype, 0)
     e, kind = dtype.itemsize, _kind(torch, dtype)
+    k2kind = _split_kind(torch, dtype)
     b, sp, s, d, mlp, heads = 32, 208, 197, 768, 3072, 12
     m, hd = b * sp, d // heads
     x = rnd(m, d)
@@ -936,31 +948,31 @@ def kernel_cases(torch, dtype):
              library=lambda: F.layer_norm(x, (d,), g, beta, 1e-12)),
         case("matmul", f"({32 * 196},{d})@({d},{d})+bias",
              lambda impl: ops.matmul(patches, w_dd, b_d, impl=impl),
-             gemm_work(32 * 196, d, d, e, kind),
+             gemm_work(32 * 196, d, d, e, k2kind),
              library=lambda: torch.addmm(b_d, patches, w_dd), primary=False),
         case("matmul", f"({m},{d})@({d},{mlp})+bias+gelu",
              lambda impl: ops.matmul(x, w_dm, b_m, "gelu", impl=impl),
-             gemm_work(m, d, mlp, e, kind), primary=False),
+             gemm_work(m, d, mlp, e, k2kind), primary=False),
         case("matmul", f"({m},{d})@({d},{d})+bias+residual",
              lambda impl: ops.matmul(x, w_dd, b_d, residual=x, impl=impl),
-             gemm_work(m, d, d, e, kind, residual=True), primary=False),
+             gemm_work(m, d, d, e, k2kind, residual=True), primary=False),
         # The training backward's two products of the QKV, on the views
         # it hands K2 (the wgmma tile reads them where they lie).
         case("matmul", f"g ({m},{3 * d}) @ w.t() ({3 * d},{d})",
              lambda impl: ops.matmul(gu, wqkv.t(), impl=impl),
-             gemm_work(m, 3 * d, d, e, kind, bias=False),
+             gemm_work(m, 3 * d, d, e, k2kind, bias=False),
              library=lambda: torch.matmul(gu, wqkv.t()), primary=False,
              faults=gemm_faults(torch, lambda a: ops.matmul(a, wqkv.t()),
                                 gu, 1)),
         case("matmul", f"x.t() ({d},{m}) @ g ({m},{3 * d})",
              lambda impl: ops.matmul(x.t(), gf, impl=impl),
-             gemm_work(d, m, 3 * d, e, kind, bias=False),
+             gemm_work(d, m, 3 * d, e, k2kind, bias=False),
              library=lambda: torch.matmul(x.t(), gf), primary=False,
              faults=gemm_faults(torch, lambda a: ops.matmul(a.t(), gf),
                                 x, 0)),
         case("matmul", f"({m},{d})@({d},{3 * d})+bias",
              lambda impl: ops.matmul(x, wqkv, bqkv, impl=impl),
-             gemm_work(m, d, 3 * d, e, kind),
+             gemm_work(m, d, 3 * d, e, k2kind),
              library=lambda: torch.addmm(bqkv, x, wqkv)),
         # K6 at the B/16 train step's LN1 + QKV (its forward and remat),
         # beside K1 -> K2 on the same operands.
@@ -1024,7 +1036,8 @@ def kernel_cases_l16_384(torch, dtype):
         case("fused_linear", f"({m},{d})@({d},{d})+bias+residual",
              lambda impl: ops.fused_linear(x, w_dd, b_d, residual=x,
                                            impl=impl),
-             gemm_work(m, d, d, e, kind, residual=True), primary=False),
+             gemm_work(m, d, d, e, _split_kind(torch, dtype), residual=True),
+             primary=False),
         k6_case(torch, ops, x, wqkv, bqkv, g, beta, e, kind),
         case("flash_attention", f"packed qkv B={b} H={heads} S={sp} "
              f"seq_len {s} d={hd}",
@@ -1090,7 +1103,11 @@ def kernel_cases_small_batch(torch, dtype):
                                ops.embed_fused(pt, *a[1:], sp), args[0], 2,
                                start=256),
             composed=lambda a=args, m=b * n: ops.matmul(
-                a[0].reshape(m, a[0].shape[2]), a[1], a[2])))
+                a[0].reshape(m, a[0].shape[2]), a[1], a[2]),
+            # fp32: its GEMM as one PyTorch call (PERF.md's fp32 rows).
+            library=None if dtype == torch.bfloat16 else (
+                lambda a=args, m=b * n: torch.addmm(
+                    a[2], a[0].reshape(m, a[0].shape[2]), a[1]))))
     cfg = VARIANTS["B/16"].replace(dtype=dtype)
     p = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(
         6))
@@ -3875,6 +3892,16 @@ def main() -> int:
         if "composed_ms" in t:
             kernels[-1].update(composed_ms=t["composed_ms"],
                                composed_device_ms=t["composed_device_ms"])
+        # The fp32 form's last primary case, where the kernel has one.
+        t32 = next((t for t in reversed(timings) if t["kernel"] == name
+                    and t["dtype"] == "float32" and t["primary"]), None)
+        if t32 is not None:
+            kernels[-1]["fp32"] = {
+                key: t32.get(key) for key in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "pipelined_ms", "library_pipelined_ms",
+                    "device_ms", "library_device_ms", "composed_ms",
+                    "composed_device_ms")}
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel was not launched by a main path: "
                              f"{kernels}")

@@ -136,14 +136,100 @@ def test_torch_cuda_matmul_bf16_batched_input(gen, shape, n):
 
 
 def test_torch_cuda_matmul_fp32_transposed_views(gen):
-    """fp32 runs on the FFMA tile, which reads contiguous operands: the
-    wrapper copies a .t() view for it."""
+    """fp32 .t() views of contiguous matrices whose rows TMA reads (16-byte
+    aligned, strides a multiple of 4 floats) go to the tf32 wgmma tile as
+    they lie; a view whose storage rows are not go to the FFMA tile, which
+    the wrapper copies it for."""
     from vit_tpu_torch import ops
 
-    x = _k2_operand(gen, torch.float32, 96, 200, True)
-    w = _k2_operand(gen, torch.float32, 200, 72, True, std=0.05)
-    assert _k2_path(x, w) == "ffma"
-    _close(ops.matmul(x, w, impl="cuda"), ops.matmul(x, w, impl="torch"))
+    for m, k, n in ((96, 200, 72), (4, 768, 96), (37, 64, 40), (96, 200, 9)):
+        for ta, tb in ((True, True), (True, False), (False, True)):
+            x = _k2_operand(gen, torch.float32, m, k, ta)
+            w = _k2_operand(gen, torch.float32, k, n, tb, std=0.05)
+            lda, ldb = m if ta else k, k if tb else n
+            want = "wgmma" if lda % 4 == 0 and ldb % 4 == 0 else "ffma"
+            assert _k2_path(x, w) == want, (m, k, n, ta, tb)
+            _close(ops.matmul(x, w, impl="cuda"),
+                   ops.matmul(x, w, impl="torch"))
+
+
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+@pytest.mark.parametrize("m,k,n", [(200, 72, 136), (1, 24, 1000),
+                                   (768, 6656, 768), (332, 100, 260),
+                                   (64, 4, 8)])
+def test_torch_cuda_matmul_fp32_tiles(gen, trans_a, trans_b, m, k, n):
+    """K2 in fp32 on the tf32 wgmma tile (three-pass split, a fresh
+    accumulator each 32-deep K step): M, N and K ragged against 128 x 128
+    tiles and K steps of 32, every operand layout read where it lies,
+    every epilogue, at the fp32 bar; two calls bit for bit; the first rows
+    of an M = 33 call equal those of the whole call."""
+    from vit_tpu_torch import ops
+
+    dt = torch.float32
+    x = _k2_operand(gen, dt, m, k, trans_a)
+    w = _k2_operand(gen, dt, k, n, trans_b, std=0.05)
+    assert _k2_path(x, w) == "wgmma"
+    b = _rnd(gen, dt, n, std=0.1)
+    r = _rnd(gen, dt, m, n)
+    for bias, act, res in ((None, None, None), (b, None, None),
+                           (b, "gelu", None), (b, None, r),
+                           (None, "gelu", r)):
+        got = ops.matmul(x, w, bias, act, residual=res, impl="cuda")
+        _close(got, ops.matmul(x, w, bias, act, residual=res, impl="torch"))
+        again = ops.matmul(x, w, bias, act, residual=res, impl="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+    if m > 33 and not trans_a:
+        part = ops.matmul(x[:33], w, b, impl="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(part, ops.matmul(x, w, b, impl="cuda")[:33])
+
+
+def test_torch_cuda_matmul_fp32_k6656_refuses_faults(gen):
+    """The training backward's ``x.t() @ g`` at B/16 bs=32 (K = 6656, g at
+    std 0.01 as ``chip_smoke.py:kernel_cases`` sets it) on the tf32 tile
+    within 1e-4 of plain fp32, and ``g @ w.t()`` (K = 2304); the bar
+    refuses the output scaled by 0.85 and one 32-deep K step left out."""
+    from vit_tpu_torch import ops
+
+    dt = torch.float32
+    x = _rnd(gen, dt, 6656, 768)
+    gf = _rnd(gen, dt, 6656, 2304, std=0.01)
+    assert _k2_path(x.t(), gf) == "wgmma"
+    got = ops.matmul(x.t(), gf, impl="cuda")
+    want = ops.matmul(x.t(), gf, impl="torch")
+    _close(got, want)
+    cut = x.clone()
+    cut[1024:1056] = 0
+    for fault in (got * 0.85, ops.matmul(cut.t(), gf, impl="cuda")):
+        torch.cuda.synchronize()
+        assert (fault - want).abs().max() > 1e-4
+    gu = _rnd(gen, dt, 6656, 2304)
+    w = _rnd(gen, dt, 768, 2304, std=0.04)
+    _close(ops.matmul(gu, w.t(), impl="cuda"),
+           ops.matmul(gu, w.t(), impl="torch"))
+
+
+def test_torch_cuda_tf32_split_probe(gen):
+    """The split's numerics probe (``tools/tf32_probe.py``): on both paths
+    the three passes hold 1e-4 against plain fp32 at small K and one pass
+    does not; on the wgmma path at K = 2304 the split with a fresh
+    accumulator each 32-deep step holds it."""
+    from vit_tpu_torch.tools import tf32_probe
+
+    a = _rnd(gen, torch.float32, 64, 128)
+    b = _rnd(gen, torch.float32, 128, 136)
+    plain = a @ b
+    for path in ("wgmma", "mma"):
+        got = tf32_probe.probe(a, b, path, "split")
+        assert (got - plain).abs().max() <= 1e-4
+        one = tf32_probe.probe(a, b, path, "tf32")
+        assert (one - plain).abs().max() > 1e-3
+    a = _rnd(gen, torch.float32, 128, 2304)
+    b = _rnd(gen, torch.float32, 2304, 128, std=0.04)
+    got = tf32_probe.probe(a, b, "wgmma", "split_promoted")
+    assert (got - a @ b).abs().max() <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -282,7 +368,8 @@ def test_torch_cuda_fused_linear_ragged(gen, dtype, m, k, n):
     """Every flag combination; K=200 and 520 with LN are the zero-fill
     trap (K ends inside a 64-deep step). bf16 runs on both tiles: each
     case asserts the one ``vit_fused_linear`` picks, which is
-    ``gemm_path``'s; with LN two calls agree bit for bit."""
+    ``gemm_path``'s in bf16 (fp32 K6 stays on the FFMA tile, where K2 has
+    its tf32 tile); with LN two calls agree bit for bit."""
     from vit_tpu_torch import ops
     from vit_tpu_torch.ops.cuda import matmul as cuda_matmul
 
@@ -297,7 +384,8 @@ def test_torch_cuda_fused_linear_ragged(gen, dtype, m, k, n):
     k2_path = cuda_matmul.gemm_path(m, n, k, dtype, False, False,
                                     (x.data_ptr(), w.data_ptr()),
                                     ((k, 1), (n, 1)))
-    assert k2_path == tile
+    assert k2_path == (tile if dtype == torch.bfloat16 else
+                       "wgmma" if k % 4 == 0 and n % 4 == 0 else "ffma")
     for bias, act, ln, res in ((None, None, False, None),
                                (b, None, True, None), (b, "gelu", True, None),
                                (b, None, False, r), (b, "gelu", True, r),
@@ -937,6 +1025,33 @@ def test_torch_cuda_flash_attention_bwd(gen, dtype, b, heads, s, seq_len, hd):
     qkv = _rnd(gen, dtype, b * s, 3 * heads * hd)
     q, k, v = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
     g = _rnd(gen, dtype, b, s, heads, hd).transpose(1, 2)
+    got = ops.flash_attention_bwd(q, k, v, g, impl="cuda", **kw)
+    _close(got, ops.flash_attention_bwd(q, k, v, g, impl="torch", **kw))
+    again = ops.flash_attention_bwd(q, k, v, g, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _, dk, dv = reference.split_qkv(got)
+    assert not dk[:, :, seq_len:].any() and not dv[:, :, seq_len:].any()
+
+
+@pytest.mark.parametrize("b,heads,s,seq_len,hd", [
+    (2, 3, 100, 71, 16), (2, 4, 208, 197, 64), (1, 4, 272, 257, 80),
+    (1, 2, 208, 197, 128), (1, 2, 130, 64, 64), (2, 16, 272, 257, 80)])
+def test_torch_cuda_flash_attention_bwd_fp32_tiles(gen, b, heads, s, seq_len,
+                                                   hd):
+    """K13's fp32 form on mma.sync tf32 in three passes at head widths 16,
+    64, 80 and 128, ragged seq_len, a key tile past seq_len (130 tokens, 64
+    real) and H/14's 257 of 272 tokens, on packed QKV views: within 1e-4
+    of its plain version, two calls bit for bit, zero dk and dv on the
+    masked keys, query rows past S unwritten."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops import reference
+
+    dt = torch.float32
+    kw = dict(scale=hd ** -0.5, seq_len=seq_len)
+    qkv = _rnd(gen, dt, b * s, 3 * heads * hd)
+    q, k, v = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    g = _rnd(gen, dt, b, s, heads, hd).transpose(1, 2)
     got = ops.flash_attention_bwd(q, k, v, g, impl="cuda", **kw)
     _close(got, ops.flash_attention_bwd(q, k, v, g, impl="torch", **kw))
     again = ops.flash_attention_bwd(q, k, v, g, impl="cuda", **kw)

@@ -185,7 +185,8 @@ def test_gemm_path_takes_wgmma_on_every_main_path_call(variant):
     multiple of 8 (TMA needs 16-byte row strides): those take wmma, with
     the transposed operand copied by the wrapper. Its input gradient
     ``g @ w.t()`` reads w's 588 rows of 1280 and takes wgmma; only its
-    output is 588 wide. fp32 takes the FFMA tile."""
+    output is 588 wide. fp32 takes its tf32 wgmma tile on every call, H/14's
+    patch projection included: rows of 588 floats are 16-byte multiples."""
     cfg = VARIANTS[variant]
     for b in BATCHES:
         for patches, x, w in k2_calls(cfg, b):
@@ -195,7 +196,7 @@ def test_gemm_path_takes_wgmma_on_every_main_path_call(variant):
             assert path == ("wmma" if unaligned else "wgmma"), (
                 variant, b, tuple(x.shape), tuple(w.shape))
             *_, path = cuda_matmul.k2_operands(x.float(), w.float(), m, k)
-            assert path == "ffma"
+            assert path == "wgmma"
 
 
 def test_one_row_x_transposed_takes_wgmma():
@@ -505,7 +506,9 @@ def k6_path(x: torch.Tensor, w: torch.Tensor) -> str:
     w (k, n): ``gemm_path``'s choice for K2 on the same operands
     (``csrc/matmul_wgmma.cu:wgmma_takes`` applies it in the kernel library;
     the gpu test ``test_torch_cuda_fused_linear_ragged`` holds the two
-    together)."""
+    together); fp32 the FFMA tile, where K2 has its tf32 tile."""
+    if x.dtype == torch.float32:
+        return "ffma"
     k, n = w.shape
     return cuda_matmul.gemm_path(x.numel() // k, n, k, x.dtype, False, False,
                                  (x.data_ptr(), w.data_ptr()),

@@ -61,7 +61,7 @@
 // about 25 us at 3.35 TB/s, half of the float kernel's (its bf16 products
 // on the tensor cores take 37 us at peak).
 //
-// fp32 multiplies in true fp32 (FFMA, no TF32), as K2. Every sum is taken
+// fp32 multiplies in true fp32 (FFMA, no TF32). Every sum is taken
 // in a fixed order -- bf16's split-K adds its slices in ascending order, no
 // atomics -- so two calls agree bit for bit. The kernel reads its inputs
 // and writes only the scratch and output buffers that the wrapper

@@ -44,20 +44,28 @@
 // d, 140 registers at d=64 (three blocks an SM) and 250 at d=128, so both
 // accumulators stay in registers there too.
 //
-// fp32: products on FFMA in full fp32 (no TF32: the Pallas dots run at
-// HIGHEST), 256 threads with a 4 x N/16 register block each, the tiles and
-// accumulators in shared memory; launch (a) streams the key tiles three
-// times (the stats, delta = rowsum(dp * p), then ds and dq).
+// fp32: the same two launches, 64-row tiles, walks and delta, each product
+// in three TF32 passes of the split (tf32_split.cuh: x = hi + lo, lo_a
+// hi_b + hi_a lo_b + hi_a hi_b), JAX's HIGHEST counterpart, every
+// accumulator in registers. At head widths 32 and 64 (B/16's, L/16's) on
+// wgmma m64nNk8 tf32, two warpgroups a block, the streamed tiles split once
+// a block into K-major operands; at the other widths on mma.sync m16n8k8
+// tf32, four warps, operands split as their fragments load (both in
+// flash_attention_bwd_tf32.cu, a unit of their own). Measured on the card
+// (tools/tf32_probe.py), one accumulator over these products' K of 64-208
+// stays within 6.1e-5 of plain fp32 at scores near 51 and 2.2e-5 at the
+// outputs' products: no promotion is needed here.
 //
 // Bound on the card: 10*B*H*S*seq_len*d operations (JAX's cost estimate,
 // vjp.py:414-417, over the real keys), the four inputs read and three
 // outputs written once (7*B*H*S*d elements). At B/16 bs=32 (384 heads, 197
 // of 208 tokens, d=64) it is bytes-bound in bf16 (71.6 MB, 21.4 us at
 // 3.35 TB/s; the 1.0e10 operations take 10.2 us at the bf16 peak) and
-// operations-bound in fp32 (150.3 us at 67 TFLOP/s). In bf16 the tiles
-// are re-read from L2 (each key tile once a query tile and pass), so the
-// fragments' shared-memory traffic and the two launches' serial tails
-// set the time, not device memory.
+// operations-bound in fp32 (1.0e10 operations in three TF32 passes, 60.9
+// us at 495 TFLOP/s; the 143 MB 42.8 us). The tiles are re-read from L2
+// (each key tile once a query tile and pass), so the fragments'
+// shared-memory traffic and the two launches' serial tails set the time,
+// not device memory.
 //
 // head_dim: any multiple of 16 up to 128. Query rows past S are loaded as
 // zeros and not stored.
@@ -66,33 +74,11 @@
 
 #include <initializer_list>
 
+#include "flash_bwd.cuh"
 #include "flash_tiles.cuh"
 #include "mma_frag.cuh"
 
 namespace vit {
-
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* g;
-  void* dq;
-  void* dk;
-  void* dv;
-  FaStrides sq, sk, sv, sg, sdq, sdk, sdv;
-  float* stats;  // (3, B*H, S): m, l, delta of each query row
-  int bh, heads, s, seq_len;
-  float scale;
-  bool vec;  // bf16 rows of q, k, v and g may be copied in 16-byte chunks
-};
-
-// p of one score: exp(s * scale - m) / l, 0 where the key is masked (or
-// the query row is past S). The product is rounded before the subtraction,
-// as in JAX (s = dot * scale, then s - max).
-__device__ __forceinline__ float prob(float raw, bool keep, float scale,
-                                      float m, float l) {
-  return keep ? expf(__fmul_rn(raw, scale) - m) / l : 0.f;
-}
 
 // =================================================== bf16 on mma.sync ==
 
@@ -442,292 +428,17 @@ __global__ void __launch_bounds__(kBwdMmaThreads)
   }
 }
 
-// ======================================================= fp32 on FFMA ==
-
-constexpr int kBwdF32Threads = 256;
-constexpr int kBwdF32Lds = kFaBK + 1;  // odd strides: conflict-free columns
-
-template <int HD>
-constexpr size_t bwd_f32_smem(bool dkv) {
-  const int acc = dkv ? 2 : 1;
-  return 4 * kFaBQ * (HD + 1) * sizeof(float)        // q, g, k, v
-         + 2 * kFaBQ * kBwdF32Lds * sizeof(float)    // scores, dp
-         + acc * kFaBQ * (HD + 1) * sizeof(float)    // accumulators
-         + 3 * kFaBQ * sizeof(float);                // m, l, delta
-}
-
-static_assert(bwd_f32_smem<kFaMaxHd>(true) <= 232448,
-              "K13 (b) in fp32 at head_dim 128 must fit one block");
-
-// C (64 x N, row stride ldc) = [C +] A (64 x K) B (K x N) with every
-// operand in shared memory: A(r, k) at A[r * lda + k], or at A[k * lda + r]
-// with ACOL; B(k, n) at B[k * ldb + n], or at B[n * ldb + k] with BCOL.
-// Each of 256 threads computes rows ty + 16i (i < 4) and columns tx + 16j
-// (j < N/16) in registers, on FFMA.
-template <int N, int K, bool ACOL, bool BCOL>
-__device__ __forceinline__ void tile_mm(const float* A, int lda,
-                                        const float* B, int ldb, float* C,
-                                        int ldc, bool accumulate) {
-  constexpr int NJ = N / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float c[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      c[i][j] = accumulate ? C[(ty + 16 * i) * ldc + tx + 16 * j] : 0.f;
-  for (int k = 0; k < K; ++k) {
-    float a[4], b[NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = ACOL ? A[k * lda + ty + 16 * i] : A[(ty + 16 * i) * lda + k];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      b[j] = BCOL ? B[(tx + 16 * j) * ldb + k] : B[k * ldb + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      C[(ty + 16 * i) * ldc + tx + 16 * j] = c[i][j];
-}
-
-// Rows [r0, r0 + 64) of a (S, HD) fp32 matrix, rows at or past s zero.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, int ldd,
-                                          const float* src, long long ld,
-                                          int r0, int s) {
-  for (int e = threadIdx.x; e < kFaBQ * HD; e += blockDim.x) {
-    const int r = e / HD, c = e % HD;
-    dst[r * ldd + c] = r0 + r < s ? src[(r0 + r) * ld + c] : 0.f;
-  }
-}
-
-// The shared-memory tiles of one fp32 block, carved in bwd_f32_smem's
-// order; p and ds overwrite the scores and dp.
-template <int HD>
-struct BwdSmemF32 {
-  static constexpr int LDX = HD + 1;
-  float *x0, *x1, *x2, *x3;  // (a): q, g, k, v; (b): k, v, q, g
-  float *ss, *dps, *acc0, *acc1, *ms, *ls, *dls;
-
-  __device__ BwdSmemF32(unsigned char* base, bool dkv) {
-    x0 = reinterpret_cast<float*>(base);
-    x1 = x0 + kFaBQ * LDX;
-    x2 = x1 + kFaBQ * LDX;
-    x3 = x2 + kFaBQ * LDX;
-    ss = x3 + kFaBQ * LDX;
-    dps = ss + kFaBQ * kBwdF32Lds;
-    acc0 = dps + kFaBQ * kBwdF32Lds;
-    acc1 = dkv ? acc0 + kFaBQ * LDX : nullptr;
-    ms = acc0 + (dkv ? 2 : 1) * kFaBQ * LDX;
-    ls = ms + kFaBQ;
-    dls = ls + kFaBQ;
-  }
-};
-
-// (a) query-major: three passes over the key tiles.
-template <int HD>
-__global__ void __launch_bounds__(kBwdF32Threads)
-    fa_bwd_dq_f32(BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using Sm = BwdSmemF32<HD>;
-  constexpr int LDX = Sm::LDX, LDS = kBwdF32Lds;
-  Sm sm(smem, false);
-  float *qs = sm.x0, *gs = sm.x1, *ks = sm.x2, *vs = sm.x3;
-  float* dqa = sm.acc0;
-
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int nw = blockDim.x / 32;
-  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
-  const int q0 = blockIdx.y * kFaBQ;
-  const float* qg = head_ptr<float>(a.q, a.sq, b, h);
-  const float* kg = head_ptr<float>(a.k, a.sk, b, h);
-  const float* vg = head_ptr<float>(a.v, a.sv, b, h);
-  const float* gg = head_ptr<float>(a.g, a.sg, b, h);
-
-  load_tile<HD>(qs, LDX, qg, a.sq.s, q0, a.s);
-  load_tile<HD>(gs, LDX, gg, a.sg.s, q0, a.s);
-  for (int e = t; e < kFaBQ * LDX; e += blockDim.x) dqa[e] = 0.f;
-  if (t < kFaBQ) {
-    sm.ms[t] = -INFINITY;
-    sm.ls[t] = 0.f;
-    sm.dls[t] = 0.f;
-  }
-  const int n_tiles = (a.seq_len + kFaBK - 1) / kFaBK;
-
-  // Pass 1: the row max m and sum l, K7's online recurrence.
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kFaBK;
-    __syncthreads();
-    load_tile<HD>(ks, LDX, kg, a.sk.s, k0, a.s);
-    __syncthreads();
-    tile_mm<kFaBK, HD, false, true>(qs, LDX, ks, LDX, sm.ss, LDS, false);
-    __syncthreads();
-    for (int r = warp; r < kFaBQ; r += nw)
-      softmax_row<float>(sm.ss + r * LDS, sm.ss + r * LDS, k0, a.seq_len,
-                         a.scale, sm.ms + r, sm.ls + r, lane);
-  }
-
-  // Pass 2: delta = rowsum(dp * p). Pass 3: ds, and dq += ds k.
-  for (int pass = 2; pass <= 3; ++pass) {
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int k0 = kt * kFaBK;
-      __syncthreads();
-      load_tile<HD>(ks, LDX, kg, a.sk.s, k0, a.s);
-      load_tile<HD>(vs, LDX, vg, a.sv.s, k0, a.s);
-      __syncthreads();
-      tile_mm<kFaBK, HD, false, true>(qs, LDX, ks, LDX, sm.ss, LDS, false);
-      tile_mm<kFaBK, HD, false, true>(gs, LDX, vs, LDX, sm.dps, LDS, false);
-      __syncthreads();
-      for (int r = warp; r < kFaBQ; r += nw) {
-        const float m = sm.ms[r], l = sm.ls[r];
-        const float* srow = sm.ss + r * LDS;
-        float* drow = sm.dps + r * LDS;
-        if (pass == 2) {
-          float acc = 0.f;
-          for (int c = lane; c < kFaBK; c += 32)
-            acc += drow[c] *
-                   prob(srow[c], k0 + c < a.seq_len, a.scale, m, l);
-          acc = warp_sum(acc);
-          if (lane == 0) sm.dls[r] += acc;
-        } else {
-          const float dl = sm.dls[r];
-          for (int c = lane; c < kFaBK; c += 32) {
-            const float p = prob(srow[c], k0 + c < a.seq_len, a.scale, m, l);
-            drow[c] = p * (drow[c] - dl);
-          }
-        }
-      }
-      if (pass == 3) {
-        __syncthreads();
-        tile_mm<HD, kFaBK, false, false>(sm.dps, LDS, ks, LDX, dqa, LDX,
-                                         true);
-      }
-    }
-  }
-  __syncthreads();
-
-  float* dqg = static_cast<float*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
-  for (int e = t; e < kFaBQ * HD; e += blockDim.x) {
-    const int r = e / HD, c = e % HD, row = q0 + r;
-    if (row < a.s) dqg[row * a.sdq.s + c] = dqa[r * LDX + c] * a.scale;
-  }
-  if (t < kFaBQ && q0 + t < a.s) {
-    const long long at = static_cast<long long>(bh) * a.s + q0 + t;
-    const long long plane = static_cast<long long>(a.bh) * a.s;
-    a.stats[at] = sm.ms[t];
-    a.stats[plane + at] = sm.ls[t];
-    a.stats[2 * plane + at] = sm.dls[t];
-  }
-}
-
-// (b) key-major: dv += p^T g and dk += ds^T q over every query tile.
-template <int HD>
-__global__ void __launch_bounds__(kBwdF32Threads)
-    fa_bwd_dkv_f32(BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using Sm = BwdSmemF32<HD>;
-  constexpr int LDX = Sm::LDX, LDS = kBwdF32Lds;
-  Sm sm(smem, true);
-  float *ks = sm.x0, *vs = sm.x1, *qs = sm.x2, *gs = sm.x3;
-  float *dka = sm.acc0, *dva = sm.acc1;
-
-  const int t = threadIdx.x;
-  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
-  const int k0 = blockIdx.y * kFaBK;
-  float* dkg = static_cast<float*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
-  float* dvg = static_cast<float*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
-
-  if (k0 >= a.seq_len) {  // only masked keys: p = 0, so dk = dv = 0
-    for (int e = t; e < kFaBK * HD; e += blockDim.x) {
-      const int r = e / HD, c = e % HD, row = k0 + r;
-      if (row < a.s) {
-        dkg[row * a.sdk.s + c] = 0.f;
-        dvg[row * a.sdv.s + c] = 0.f;
-      }
-    }
-    return;
-  }
-  const float* qg = head_ptr<float>(a.q, a.sq, b, h);
-  const float* kg = head_ptr<float>(a.k, a.sk, b, h);
-  const float* vg = head_ptr<float>(a.v, a.sv, b, h);
-  const float* gg = head_ptr<float>(a.g, a.sg, b, h);
-  load_tile<HD>(ks, LDX, kg, a.sk.s, k0, a.s);
-  load_tile<HD>(vs, LDX, vg, a.sv.s, k0, a.s);
-  for (int e = t; e < kFaBK * LDX; e += blockDim.x) dka[e] = dva[e] = 0.f;
-  const long long plane = static_cast<long long>(a.bh) * a.s;
-  const float* st = a.stats + static_cast<long long>(bh) * a.s;
-
-  for (int q0 = 0; q0 < a.s; q0 += kFaBQ) {
-    __syncthreads();
-    load_tile<HD>(qs, LDX, qg, a.sq.s, q0, a.s);
-    load_tile<HD>(gs, LDX, gg, a.sg.s, q0, a.s);
-    if (t < kFaBQ) {
-      const bool in = q0 + t < a.s;
-      sm.ms[t] = in ? st[q0 + t] : 0.f;
-      sm.ls[t] = in ? st[plane + q0 + t] : 1.f;
-      sm.dls[t] = in ? st[2 * plane + q0 + t] : 0.f;
-    }
-    __syncthreads();
-    tile_mm<kFaBK, HD, false, true>(qs, LDX, ks, LDX, sm.ss, LDS, false);
-    tile_mm<kFaBK, HD, false, true>(gs, LDX, vs, LDX, sm.dps, LDS, false);
-    __syncthreads();
-    for (int e = t; e < kFaBQ * kFaBK; e += blockDim.x) {
-      const int r = e / kFaBK, c = e % kFaBK;
-      const float p = prob(sm.ss[r * LDS + c],
-                           q0 + r < a.s && k0 + c < a.seq_len, a.scale,
-                           sm.ms[r], sm.ls[r]);
-      sm.dps[r * LDS + c] = p * (sm.dps[r * LDS + c] - sm.dls[r]);
-      sm.ss[r * LDS + c] = p;
-    }
-    __syncthreads();
-    tile_mm<HD, kFaBQ, true, false>(sm.ss, LDS, gs, LDX, dva, LDX, true);
-    tile_mm<HD, kFaBQ, true, false>(sm.dps, LDS, qs, LDX, dka, LDX, true);
-  }
-  __syncthreads();
-
-  for (int e = t; e < kFaBK * HD; e += blockDim.x) {
-    const int r = e / HD, c = e % HD, row = k0 + r;
-    if (row < a.s) {
-      dkg[row * a.sdk.s + c] = dka[r * LDX + c] * a.scale;
-      dvg[row * a.sdv.s + c] = dva[r * LDX + c];
-    }
-  }
-}
-
 // ---------------------------------------------------------------- launch --
 
-template <typename K>
-cudaError_t launch_bwd_kernel(K kernel, size_t smem, int threads, dim3 grid,
-                              const BwdArgs& a, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
 template <int HD>
-cudaError_t launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   const dim3 grid(a.bh, (a.s + kFaBQ - 1) / kFaBQ);
-  cudaError_t err =
-      dtype == kF32
-          ? launch_bwd_kernel(fa_bwd_dq_f32<HD>, bwd_f32_smem<HD>(false),
-                              kBwdF32Threads, grid, a, st)
-          : launch_bwd_kernel(fa_bwd_dq_mma<HD>, bwd_mma_smem<HD>(false),
-                              kBwdMmaThreads, grid, a, st);
+  cudaError_t err = launch_bwd_kernel(fa_bwd_dq_mma<HD>,
+                                      bwd_mma_smem<HD>(false),
+                                      kBwdMmaThreads, grid, a, st);
   if (err != cudaSuccess) return err;
-  return dtype == kF32
-             ? launch_bwd_kernel(fa_bwd_dkv_f32<HD>, bwd_f32_smem<HD>(true),
-                                 kBwdF32Threads, grid, a, st)
-             : launch_bwd_kernel(fa_bwd_dkv_mma<HD>, bwd_mma_smem<HD>(true),
-                                 kBwdMmaThreads, grid, a, st);
+  return launch_bwd_kernel(fa_bwd_dkv_mma<HD>, bwd_mma_smem<HD>(true),
+                           kBwdMmaThreads, grid, a, st);
 }
 
 }  // namespace vit
@@ -761,20 +472,23 @@ extern "C" int vit_flash_attention_bwd(
     for (const void* p : {dq, dk, dv})
       if (reinterpret_cast<uintptr_t>(p) % 4) return cudaErrorInvalidValue;
   }
-  a.vec = dtype == kBF16 && aligned16_ptr(q) && aligned16_ptr(k) &&
-          aligned16_ptr(v) && aligned16_ptr(g) && aligned16_strides(a.sq, 2) &&
-          aligned16_strides(a.sk, 2) && aligned16_strides(a.sv, 2) &&
-          aligned16_strides(a.sg, 2);
+  // The rows of q, k, v and g may be copied in 16-byte chunks (cp.async).
+  const int item = dtype == kBF16 ? 2 : 4;
+  a.vec = aligned16_ptr(q) && aligned16_ptr(k) && aligned16_ptr(v) &&
+          aligned16_ptr(g) && aligned16_strides(a.sq, item) &&
+          aligned16_strides(a.sk, item) && aligned16_strides(a.sv, item) &&
+          aligned16_strides(a.sg, item);
   auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) return launch_bwd_f32(a, hd, st);
   switch (hd / 16) {
-    case 1: return launch_bwd<16>(a, dtype, st);
-    case 2: return launch_bwd<32>(a, dtype, st);
-    case 3: return launch_bwd<48>(a, dtype, st);
-    case 4: return launch_bwd<64>(a, dtype, st);
-    case 5: return launch_bwd<80>(a, dtype, st);
-    case 6: return launch_bwd<96>(a, dtype, st);
-    case 7: return launch_bwd<112>(a, dtype, st);
-    case 8: return launch_bwd<128>(a, dtype, st);
+    case 1: return launch_bwd<16>(a, st);
+    case 2: return launch_bwd<32>(a, st);
+    case 3: return launch_bwd<48>(a, st);
+    case 4: return launch_bwd<64>(a, st);
+    case 5: return launch_bwd<80>(a, st);
+    case 6: return launch_bwd<96>(a, st);
+    case 7: return launch_bwd<112>(a, st);
+    case 8: return launch_bwd<128>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -13,10 +13,13 @@
 // __int2float_rn. Weights may arrive as int8 for a bf16 or fp32 tile (K9
 // on int8 weights): they are converted, exactly, as they are staged. fp32
 // multiplies in true fp32 -- the JAX kernels run fp32
-// at Precision.HIGHEST (vit_tpu/ops/pallas/matmul.py:37-45), and TF32 would
-// break the golden bar -- as a register-blocked FFMA loop (64x64 tile, 4x4
-// outputs a thread). Neither is pipelined (no cp.async, TMA or wgmma yet):
-// loads and math alternate.
+// at Precision.HIGHEST (vit_tpu/ops/pallas/matmul.py:37-45), and one TF32
+// pass would break the golden bar -- as a register-blocked FFMA loop (64x64
+// tile, 4x4 outputs a thread). Neither is pipelined (no cp.async, TMA or
+// wgmma): loads and math alternate. K2's fp32 form runs here only where
+// TMA cannot read its operands; elsewhere it has its own tile,
+// gemm_tf32.cuh's three-pass TF32 split on wgmma. K6's, K8's, K9's and
+// K16's fp32 forms and the probes' fp32 GEMMs still run here.
 //
 // Ragged M, N and K are masked: tiles are zero-filled past the edges in
 // shared memory. K is not padded in device memory.

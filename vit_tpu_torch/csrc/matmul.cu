@@ -10,12 +10,15 @@
 // Bound on the card: at the slice's shapes (M = 6656, K and N of 768 to
 // 3072) the products are compute-bound. Two tiles, chosen by the wrapper
 // (ops/cuda/matmul.py:gemm_path) from shape and alignment alone:
-// - bf16 where TMA can read both operands (16-byte-aligned bases, row
-//   strides a multiple of 8 elements): the persistent 128 x 128 wgmma
-//   tile fed by TMA of gemm_wgmma.cuh, launched by matmul_wgmma.cu, which
-//   also reads an operand given as the transpose of a contiguous matrix
-//   (trans_a: x is the view of a (k, m) matrix; trans_b: w is the view of
-//   an (n, k) one);
+// - where TMA can read both operands (16-byte-aligned bases, row strides
+//   a multiple of 16 bytes) a persistent 128 x 128 wgmma tile fed by TMA,
+//   which also reads an operand given as the transpose of a contiguous
+//   matrix (trans_a: x is the view of a (k, m) matrix; trans_b: w is the
+//   view of an (n, k) one): in bf16 gemm_wgmma.cuh's, launched by
+//   matmul_wgmma.cu; in fp32 gemm_tf32.cuh's, launched by matmul_tf32.cu,
+//   each product three TF32 passes on the tensor cores (tf32_split.cuh),
+//   the counterpart of JAX's Precision.HIGHEST (0.143 ms of them at the
+//   QKV at 495 TFLOP/s);
 // - otherwise the device routine of gemm_tile.cuh, which K6, K8, K9 and
 //   K11 share: wmma bf16 64x128 tiles or true-fp32 FFMA 64x64 tiles,
 //   ragged edges masked, not pipelined, one block a tile; its operands
@@ -190,11 +193,17 @@ cudaError_t launch_wgmma_ln(const void* x, const void* w, const void* bias,
                             const void* beta, void* out, int m, int n, int k,
                             int gelu_act, int device, cudaStream_t st);
 bool wgmma_takes(const void* x, const void* w, int n, int k);
+// K2 in fp32 on the tf32 wgmma tile (csrc/matmul_tf32.cu).
+cudaError_t launch_tf32(const void* x, const void* w, const void* bias,
+                        const void* residual, void* out, int m, int n, int k,
+                        int gelu_act, int trans_a, int trans_b, int device,
+                        cudaStream_t st);
 
 }  // namespace vit
 
 // K2. tile 0: gemm_tile.cuh's tile (bf16 wmma or fp32 FFMA; no transposed
-// operand); tile 1: the bf16 wgmma tile, with trans_a (x is the view of a
+// operand); tile 1: the wgmma tile of the dtype (bf16: gemm_wgmma.cuh; fp32:
+// gemm_tf32.cuh's three-pass TF32 split), with trans_a (x is the view of a
 // contiguous (k, m) matrix) and trans_b (w is the view of a contiguous
 // (n, k) matrix).
 extern "C" int vit_matmul(const void* x, const void* w, const void* bias,
@@ -208,10 +217,14 @@ extern "C" int vit_matmul(const void* x, const void* w, const void* bias,
                               nullptr, out, m, n, k, gelu_act, dtype, device,
                               stream);
   }
-  if (tile != 1 || dtype != kBF16) return cudaErrorInvalidValue;
+  if (tile != 1 || (dtype != kBF16 && dtype != kF32))
+    return cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   if (m <= 0 || n <= 0 || k <= 0) return cudaErrorInvalidValue;
+  if (dtype == kF32)
+    return launch_tf32(x, w, bias, residual, out, m, n, k, gelu_act, trans_a,
+                       trans_b, device, static_cast<cudaStream_t>(stream));
   return launch_wgmma(x, w, bias, residual, out, m, n, k, gelu_act, trans_a,
                       trans_b, device, static_cast<cudaStream_t>(stream));
 }

@@ -114,6 +114,9 @@ _SIGNATURES = {
     # zeros, b, sp, d, mlp, heads, layers, scale, eps, variant
     "vit_encstack_probe": (*(_P,) * 6, _I, *(_P,) * 6, *(_I,) * 6, _F, _F,
                            _I),
+    # a, b, out, m, n, k, path (0 wgmma, 1 mma.sync), mode (0 the split, 1
+    # the split with each K step summed apart, 2 one pass)
+    "vit_tf32_split_probe": (_P, _P, _P, *(_I,) * 5),
 }
 
 _lock = threading.Lock()

@@ -20,8 +20,11 @@ def embed_tile(patches: torch.Tensor, w: torch.Tensor) -> str:
     patches and ``(K, D)`` weight on: :func:`gemm_path`'s choice for K2 on
     the same ``(B*N, K) @ (K, D)`` operands -- ``"wgmma"`` (K8's ``EMB``
     form), ``"wmma"`` (bf16 where TMA cannot read them, as H/14's K = 588)
-    or ``"ffma"`` (fp32). ``csrc/matmul_wgmma.cu:wgmma_takes`` applies the
-    same rule in the kernel library."""
+    or ``"ffma"`` (fp32: K8 stays on ``gemm_tile.cuh``, where K2 has a tf32
+    tile). ``csrc/matmul_wgmma.cu:wgmma_takes`` applies the same rule in the
+    kernel library."""
+    if patches.dtype == torch.float32:
+        return "ffma"
     b, n, k = patches.shape
     d = w.shape[1]
     return gemm_path(b * n, d, k, patches.dtype, False, False,

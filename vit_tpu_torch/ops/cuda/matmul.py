@@ -5,17 +5,19 @@ before the single cast, which the split ``attn_block`` needs to keep
 ``_attn_core``'s rounding.
 
 K2 runs on one of two tiles, which :func:`gemm_path` picks from shape and
-alignment alone: the bf16 ``wgmma`` tile fed by TMA
-(``csrc/gemm_wgmma.cuh``), which reads an operand given as the transpose of
-a contiguous matrix where it lies, or ``gemm_tile.cuh``'s tile (bf16
-``wmma``, true-fp32 FFMA), which reads contiguous operands only: the
-wrapper copies a transposed operand for it. K6 runs on the same two tiles,
-by the same rule on its contiguous operands, which ``vit_fused_linear``
-applies itself before the launch (:func:`fused_linear_tile` asks it): on
-the ``wgmma`` tile x's raw box arrives by TMA and the producer warpgroup's
-three idle warps normalise it in place in shared memory before the
-consumers' ``wgmma`` reads it; on ``gemm_tile.cuh``'s each element is
-normalised as it is staged."""
+alignment alone: a ``wgmma`` tile fed by TMA, which reads an operand given
+as the transpose of a contiguous matrix where it lies -- in bf16
+``csrc/gemm_wgmma.cuh``'s, in fp32 ``csrc/gemm_tf32.cuh``'s (the three-pass
+TF32 split of ``csrc/tf32_split.cuh``, JAX's ``Precision.HIGHEST``
+counterpart) -- or ``gemm_tile.cuh``'s tile (bf16 ``wmma``, true-fp32
+FFMA), which reads contiguous operands only: the wrapper copies a
+transposed operand for it. K6 runs on the bf16 ``wgmma`` tile or
+``gemm_tile.cuh``'s (fp32 always there), by the same rule on its
+contiguous operands, which ``vit_fused_linear`` applies itself before the
+launch (:func:`fused_linear_tile` asks it): on the ``wgmma`` tile x's raw
+box arrives by TMA and the producer warpgroup's three idle warps normalise
+it in place in shared memory before the consumers' ``wgmma`` reads it; on
+``gemm_tile.cuh``'s each element is normalised as it is staged."""
 
 from __future__ import annotations
 
@@ -31,25 +33,27 @@ TILES = {"ffma": 0, "wmma": 0, "wgmma": 1}
 def gemm_path(m: int, n: int, k: int, dtype: torch.dtype, trans_a: bool,
               trans_b: bool, ptrs: tuple[int, int],
               strides: tuple[tuple[int, ...], tuple[int, ...]]) -> str:
-    """The tile K2 runs ``(m, k) @ (k, n)`` on: ``"ffma"`` in fp32 (true
-    fp32, as JAX's ``Precision.HIGHEST``); in bf16 ``"wgmma"`` where TMA
-    can read both operands -- each base (``ptrs``, bytes) 16-byte aligned,
-    each operand's row stride in its storage a multiple of 8 elements --
-    else ``"wmma"``. ``strides`` are the two 2-D operands' strides as
-    given; with ``trans_a`` x is the view of a contiguous (k, m) matrix,
-    whose rows are ``strides[0][1]`` apart, with ``trans_b`` w that of an
-    (n, k) one."""
-    if dtype == torch.float32:
-        return "ffma"
-    if dtype != torch.bfloat16:
+    """The tile K2 runs ``(m, k) @ (k, n)`` on: ``"wgmma"`` where TMA can
+    read both operands -- each base (``ptrs``, bytes) 16-byte aligned,
+    each operand's row stride in its storage a multiple of 16 bytes (8
+    bf16, 4 fp32 elements) -- else ``"wmma"`` in bf16, ``"ffma"`` in fp32
+    (true fp32). The fp32 ``wgmma`` tile runs the three-pass TF32 split
+    (``csrc/gemm_tf32.cuh``), which holds the fp32 bars as JAX's
+    ``Precision.HIGHEST`` does. ``strides`` are the two 2-D operands'
+    strides as given; with ``trans_a`` x is the view of a contiguous (k, m)
+    matrix, whose rows are ``strides[0][1]`` apart, with ``trans_b`` w that
+    of an (n, k) one: the ``wgmma`` tiles read both views where they lie."""
+    if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"K2 takes float32 or bfloat16, not {dtype}")
     if min(m, n, k) <= 0:
         raise ValueError(f"matmul of an empty operand ({m}, {k}) @ ({k}, {n})")
+    per_16b = 16 // dtype.itemsize
     lda = strides[0][1] if trans_a else strides[0][0]
     ldb = strides[1][1] if trans_b else strides[1][0]
-    if all(p % 16 == 0 for p in ptrs) and lda % 8 == 0 and ldb % 8 == 0:
+    if all(p % 16 == 0 for p in ptrs) and lda % per_16b == 0 \
+            and ldb % per_16b == 0:
         return "wgmma"
-    return "wmma"
+    return "ffma" if dtype == torch.float32 else "wmma"
 
 
 def _transposed(t: torch.Tensor) -> bool:

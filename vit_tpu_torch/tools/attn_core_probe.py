@@ -325,8 +325,10 @@ def gemm_tile(m: int, n: int, k: int, dtype: torch.dtype,
     rule (:func:`vit_tpu_torch.ops.cuda.matmul.gemm_path`), ``"wgmma"``
     where TMA reads both operands, else ``"wmma"``; ``"ffma"`` in fp32.
     ``csrc/attn_core_probe.cu:vit_attn_probe_gemm_tile`` applies the same
-    rule."""
+    rule (fp32 stays on ``gemm_tile.cuh``, where K2 has a tf32 tile)."""
     from vit_tpu_torch.ops.cuda.matmul import gemm_path
+    if dtype == torch.float32:
+        return "ffma"
     return gemm_path(m, n, k, dtype, False, False, ptrs, ((k, 1), (n, 1)))
 
 

@@ -75,6 +75,8 @@ def dot_tile(m: int, n: int, k: int, dtype: torch.dtype,
 
     if dtype == torch.int8:
         return i8_path(m, n, k, ptrs)
+    if dtype == torch.float32:  # gemm_tile.cuh, where K2 has a tf32 tile
+        return "ffma"
     return gemm_path(m, n, k, dtype, False, False, ptrs, ((k, 1), (n, 1)))
 
 

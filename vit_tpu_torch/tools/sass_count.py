@@ -7,9 +7,11 @@ by function; for each kernel whose demangled name holds one of
 (``mma.sync`` in bf16), ``IMMA`` (``mma.sync`` in int8), ``HGMMA`` and
 ``IGMMA`` (``wgmma`` in bf16 and int8). With ``--other`` (another build
 of the library, such as the parent's under ``build/parent/``), it also
-lists the kernels present in both whose instructions differ, addresses
-and the constant-bank offsets of kernel parameters aside, or, with
-``--exact``, byte for byte as printed. One JSON line::
+lists the kernels present in both (by demangled name, every copy) whose
+instructions differ, addresses, column padding, encodings and the
+constant-bank offsets of kernel parameters aside, or, with ``--exact``,
+instruction for instruction with their encodings (addresses and padding
+aside). One JSON line::
 
     python -m vit_tpu_torch.tools.sass_count --match attn_probe dot_probe
     python -m vit_tpu_torch.tools.sass_count --match attention_kernel \\
@@ -29,6 +31,7 @@ OPCODES = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 _PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
+_ENC = re.compile(r"/\* 0x[0-9a-f]+ \*/")
 
 
 def _cuobjdump() -> str:
@@ -36,18 +39,38 @@ def _cuobjdump() -> str:
     return found or "/usr/local/cuda/bin/cuobjdump"
 
 
-def functions(lib: str) -> dict[str, list[str]]:
-    """The SASS lines of each function (mangled name) of ``lib``."""
+def copies(lib: str) -> dict[str, list[list[str]]]:
+    """The SASS lines of each copy of each function (mangled name) of
+    ``lib``: a kernel instantiated in several units has a copy in each."""
     out = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
                          text=True, check=True).stdout
     funcs, cur = {}, None
     for line in out.splitlines():
         m = _FUNC.match(line)
         if m:
-            cur = funcs.setdefault(m.group(1), [])
+            cur = []
+            funcs.setdefault(m.group(1), []).append(cur)
         elif cur is not None and line.strip().startswith("/*"):
             cur.append(line.strip())
     return funcs
+
+
+def functions(lib: str) -> dict[str, list[str]]:
+    """The SASS lines of each function (mangled name) of ``lib``, its
+    first copy."""
+    return {m: c[0] for m, c in copies(lib).items()}
+
+
+def by_name(lib: str) -> dict[str, list[list[str]]]:
+    """Every copy of each function of ``lib`` under its demangled name:
+    a kernel of internal linkage is mangled with a hash of its unit's
+    path, so two builds in two directories name it differently."""
+    funcs = copies(lib)
+    names = demangle(list(funcs))
+    out: dict[str, list[list[str]]] = {}
+    for m, c in funcs.items():
+        out.setdefault(names[m], []).extend(c)
+    return out
 
 
 def demangle(names: list[str]) -> dict[str, str]:
@@ -76,8 +99,15 @@ def counts(lines: list[str]) -> dict[str, int]:
 
 
 def _norm(lines: list[str], exact: bool) -> list[str]:
-    text = [_ADDR.sub("", ln).strip() for ln in lines]
-    return text if exact else [_PARAM.sub("c[param]", ln) for ln in text]
+    """A function's SASS lines without their addresses and with runs of
+    blanks as one (cuobjdump pads each unit's columns to its widest line,
+    so a kernel's text moves when another kernel of its unit changes);
+    unless ``exact``, also without the instruction encodings and with the
+    constant-bank offsets of kernel parameters masked."""
+    text = [" ".join(_ADDR.sub("", ln).split()) for ln in lines]
+    if exact:
+        return text
+    return [_PARAM.sub("c[param]", _ENC.sub("", ln)).strip() for ln in text]
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -101,13 +131,16 @@ def main(argv: list[str] | None = None) -> int:
     res = {"lib": lib, "kernels": {names[m]: counts(funcs[m])
                                    for m in sorted(picked)}}
     if args.other:
-        other = functions(args.other)
-        both = [m for m in picked if m in other]
+        here, other = by_name(lib), by_name(args.other)
+        mine = sorted(set(picked.values()))
+        both = [n for n in mine if n in other]
+
+        def text(cs):
+            return sorted(tuple(_norm(c, args.exact)) for c in cs)
         res["compared"] = len(both)
-        res["differ"] = sorted(
-            names[m] for m in both
-            if _norm(funcs[m], args.exact) != _norm(other[m], args.exact))
-        res["only_here"] = sorted(names[m] for m in picked if m not in other)
+        res["differ"] = [n for n in both
+                         if text(here[n]) != text(other[n])]
+        res["only_here"] = [n for n in mine if n not in other]
     print(json.dumps(res))
     return 0
 

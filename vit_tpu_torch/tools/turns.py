@@ -30,8 +30,10 @@ on ``(flash, fused=False)``, ``(unfused, fused=False)`` and ``(unfused,
 fused=True)`` (K6), the int8 forward (``forward_quant``; also with
 ``int8_dot=False`` and at L/16-384 bs=8), the B/16 bs=1 forwards in bf16
 and int8 and the L/16 bs=1 bf16 forward (the stack route, K9), the
-L/16-384 bs=8 bf16 forward (the composed route, K6) and the B/16 bs=32
-bf16 train step. A checkout whose K2 reads no
+L/16-384 bs=8 bf16 forward (the composed route, K6), the B/16 bs=32
+bf16 train step, and the B/16 bs=32 fp32 forward and train step (K2's
+and K13's fp32 forms; K2's fp32 ``g @ w.t()`` and ``x.t() @ g`` are
+kernel cases too). A checkout whose K2 reads no
 transposed view (no ``ops.cuda.matmul.gemm_path``) gets contiguous copies
 first, as its backward made them. Trees run in turns (other, this, this,
 other), each in its own process that builds that checkout's kernels into
@@ -69,6 +71,9 @@ CASES = {
                        "(6656,768)@(768,2304)+bias", True),
     "k2_g_wt": ("kernel_cases", "bfloat16", "matmul", "@ w.t()", True),
     "k2_xt_g": ("kernel_cases", "bfloat16", "matmul", "x.t() (", True),
+    "k2_g_wt_float32": ("kernel_cases", "float32", "matmul", "@ w.t()", True),
+    "k2_xt_g_float32": ("kernel_cases", "float32", "matmul", "x.t() (",
+                        True),
     "core": ("kernel_cases", "bfloat16", "attention", "qkv", False),
     "fused_linear_ln": ("kernel_cases_l16_384", "bfloat16", "fused_linear",
                         "LN ", False),
@@ -300,6 +305,18 @@ init_fn, step_fn = make_train_step(cfg, make_optimizer(1e-4, 0.05))
 opt = init_fn(params)
 res["train_step"] = times(lambda: step_fn(params, opt, px, labels),
                           iters=10, warmup=2)
+del params, opt
+torch.cuda.empty_cache()
+# The fp32 B/16 bs=32 forward and train step (K2's and K13's fp32 forms).
+cfg32 = VARIANTS["B/16"].replace(dtype=torch.float32, num_classes=1000)
+p32 = init_params(cfg32, generator=gen, device="cuda")
+px32 = px.float()
+with torch.inference_mode():
+    res["forward_fp32"] = times(lambda: forward(p32, px32, cfg32), iters=10)
+init_fn, step_fn = make_train_step(cfg32, make_optimizer(1e-4, 0.05))
+opt = init_fn(p32)
+res["train_step_fp32"] = times(lambda: step_fn(p32, opt, px32, labels),
+                               iters=5, warmup=2)
 print(json.dumps(res))
 """
 
