@@ -29,7 +29,8 @@ without printing the final ``ok`` line:
    bs=2; K2 also at the training backward's two products of the QKV, on
    the views it passes (``g @ w.t()``, ``x.t() @ g``); K7 also at B/16
    bs=32 on packed QKV views. The bars of K2's backward cases, of K6's
-   LN cases (each timed beside K1 -> K2), of K7's three cases, of K16's
+   LN cases (each timed beside K1 -> K2), of K4's core and K7's three
+   cases (the core and K7's float cases also two calls bit for bit), of K16's
    scores and context, of K3's, K12's and K17's cases (B/16 bs=32,
    L/16-384 bs=8, H/14 bs=2, every shard form) and of K8's cases are each
    held to two planted faults (``gemm_faults``, ``flash_faults``,
@@ -660,7 +661,8 @@ def int_mm_layouts(torch, xq, wq) -> dict:
 
 
 def flash_faults(run, seq_len: int) -> dict:
-    """Two planted faults of a K7 case whose kernel is ``run(seq_len)``:
+    """Two planted faults of a K7 or K4-core case whose kernel is
+    ``run(seq_len)``:
     the output scaled by 0.85, and the last 16 real keys masked (one
     16-key fragment of a key tile dropped)."""
     return {"output * 0.85": lambda: run(seq_len) * 0.85,
@@ -837,8 +839,8 @@ def _kind(torch, dtype) -> str:
 
 
 def _split_kind(torch, dtype) -> str:
-    """The peak-rate type of K2's and K13's products in ``dtype``: fp32
-    runs them as three TF32 passes on the tensor cores."""
+    """The peak-rate type of K2's, K4's core's, K7's and K13's products in
+    ``dtype``: fp32 runs them as three TF32 passes on the tensor cores."""
     return "bf16" if dtype == torch.bfloat16 else "tf32x3"
 
 
@@ -933,12 +935,15 @@ def kernel_cases(torch, dtype):
     scale = hd ** -0.5
     q, k, v = qkv.view(b, sp, 3, heads, hd).permute(2, 0, 3, 1, 4)
 
-    def attn_core(impl):
+    def attn_core(impl, seq_len=s):
         if impl == "torch":
             return reference.attention_core(qkv, batch=b, num_heads=heads,
-                                            scale=scale, seq_len=s)
+                                            scale=scale, seq_len=seq_len)
         return cuda_block.attention_core(qkv, batch=b, num_heads=heads,
-                                         scale=scale, seq_len=s)
+                                         scale=scale, seq_len=seq_len)
+
+    def flash(n=s):
+        return ops.flash_attention(q, k, v, scale=scale, seq_len=n)
 
     att_ops = attention_ops(b, heads, sp, s, hd)
     return [
@@ -989,19 +994,22 @@ def kernel_cases(torch, dtype):
                  partial=False),
              composed=lambda: mlp_chain(ops, x, g, beta, w_dm, b_m, w_md,
                                         b_d)),
+        # K4's core and K7 (fp32: three TF32 passes) refuse two planted
+        # faults each, and give the same bits on two calls.
         case("attention", f"qkv ({m},{3 * d}) heads {heads} seq_len {s}",
-             attn_core, (4 * m * d * e, att_ops, kind),
-             library=lambda: _sdpa(torch, q, k, v, scale, s)),
+             attn_core, (4 * m * d * e, att_ops, k2kind),
+             library=lambda: _sdpa(torch, q, k, v, scale, s),
+             check=twice_bit_for_bit(lambda: attn_core("cuda")),
+             faults=flash_faults(lambda n: attn_core("cuda", n), s)),
         # K7 at the (flash, fused=False) route's shape: the heads of the
         # packed QKV buffer as views.
         case("flash_attention", f"packed qkv B={b} H={heads} S={sp} "
              f"seq_len {s} d={hd}",
              lambda impl: ops.flash_attention(q, k, v, scale=scale,
                                               seq_len=s, impl=impl),
-             (4 * m * d * e, att_ops, kind),
+             (4 * m * d * e, att_ops, k2kind),
              library=lambda: _sdpa(torch, q, k, v, scale, s), primary=False,
-             faults=flash_faults(lambda n: ops.flash_attention(
-                 q, k, v, scale=scale, seq_len=n), s)),
+             check=twice_bit_for_bit(flash), faults=flash_faults(flash, s)),
         case("attn_block", f"({b},{sp},{d}) seq_len {s}",
              lambda impl: ops.attn_block(x3, g, beta, wqkv, bqkv, w_dd, b_d,
                                          num_heads=heads, seq_len=s,
@@ -1043,8 +1051,11 @@ def kernel_cases_l16_384(torch, dtype):
              f"seq_len {s} d={hd}",
              lambda impl: ops.flash_attention(q, k, v, scale=hd ** -0.5,
                                               seq_len=s, impl=impl),
-             (4 * m * d * e, attention_ops(b, heads, sp, s, hd), kind),
+             (4 * m * d * e, attention_ops(b, heads, sp, s, hd),
+              _split_kind(torch, dtype)),
              library=lambda: _sdpa(torch, q, k, v, hd ** -0.5, s),
+             check=twice_bit_for_bit(lambda: ops.flash_attention(
+                 q, k, v, scale=hd ** -0.5, seq_len=s)),
              faults=flash_faults(lambda n: ops.flash_attention(
                  q, k, v, scale=hd ** -0.5, seq_len=n), s)),
         case("mlp_block", f"({m},{d}) mlp {mlp}",

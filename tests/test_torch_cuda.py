@@ -340,6 +340,31 @@ def test_torch_cuda_attention_core_bf16_vs_ffma_core(gen):
     _close(block.attention_core(qkv, **kw), ffma)
 
 
+@pytest.mark.parametrize("b,s,heads,hd,seq_len", [
+    (1, 279, 2, 64, 270), (2, 16, 3, 64, 16), (2, 80, 2, 20, 71),
+    (1, 64, 1, 272, 50), (1, 16, 1, 592, 13), (3, 208, 2, 64, 197)])
+def test_torch_cuda_attention_core_fp32_tiles(gen, b, s, heads, hd, seq_len):
+    """K4's fp32 core on mma.sync tf32 (three passes) at the geometries
+    ``ops.attn_plan`` admits in fp32 that its tile must meet: S = 279 (the
+    longest at d = 64), S = 16, a head width that is not a multiple of 8
+    (20: element copies), heads wider than 64 columns (272 at S = 64 and
+    592 at S = 16: q and the context in blocks of 64 columns) and B/16's
+    208 tokens with 197 real; within 1e-4 of the plain version, two calls
+    bit for bit, its shared memory at most the FFMA tile's."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops import reference
+    from vit_tpu_torch.ops.cuda import block
+
+    assert ops.attn_plan(b, s, heads * hd, heads, torch.float32)
+    assert block.attention_tf32_smem_bytes(s, hd) <= \
+        block.attention_smem_bytes(s, hd, 4)
+    qkv = _rnd(gen, torch.float32, b * s, 3 * heads * hd)
+    kw = dict(batch=b, num_heads=heads, scale=hd ** -0.5, seq_len=seq_len)
+    got = block.attention_core(qkv, **kw)
+    _close(got, reference.attention_core(qkv, **kw))
+    assert torch.equal(got, block.attention_core(qkv, **kw))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,d", [(37, 200), (9, 1024), (1, 1280)])
 def test_torch_cuda_layernorm_stats(gen, dtype, rows, d):
@@ -446,6 +471,32 @@ def test_torch_cuda_flash_attention_bf16_tiles(gen, out_f32, hd, b, heads,
         again = ops.flash_attention(q, k, v, impl="cuda", **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("b,heads,s,seq_len", [
+    (2, 3, 150, 141),   # S not a multiple of 64; seq_len inside a C tile
+    (1, 2, 208, 197),   # B/16: the last tile holds one 8-key C tile
+    (1, 2, 592, 577),   # L/16-384
+    (3, 1, 70, 70)])
+def test_torch_cuda_flash_attention_fp32_tiles(gen, hd, b, heads, s,
+                                               seq_len):
+    """K7's fp32 form on the tensor cores (three TF32 passes; ``wgmma`` at
+    d = 32 and 64, ``mma.sync`` at the others): packed QKV views (cp.async
+    or 16-byte loads) and the same views one element off 16-byte alignment
+    (element copies), within 1e-4 of the plain version; two calls bit for
+    bit."""
+    from vit_tpu_torch import ops
+
+    kw = dict(scale=hd ** -0.5, seq_len=seq_len)
+    flat = _rnd(gen, torch.float32, b * s * 3 * heads * hd + 1)
+    for off in (0, 1):  # off 1: every row 4 bytes past a 16-byte boundary
+        qkv = flat[off:off + b * s * 3 * heads * hd]
+        q, k, v = qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        got = ops.flash_attention(q, k, v, impl="cuda", **kw)
+        _close(got, ops.flash_attention(q, k, v, impl="torch", **kw))
+        assert torch.equal(got, ops.flash_attention(q, k, v, impl="cuda",
+                                                    **kw))
 
 
 @pytest.mark.parametrize("b,m,k,n", [

@@ -243,22 +243,30 @@ def test_k16_tiles_match_the_plain_version_at_197_tokens(dtype):
 def test_new_tiles_fit_shared_memory_at_every_admitted_width():
     """K7's bf16 tile (a ring of three [k | v] buffers of 64-row tiles with
     rows of hd + 8, the query tile staged once in the last) and its fp32
-    tile (qᵀ and kᵀ with rows of 65, v, the 64 x 65 scores and three
-    64-row statistics) fit a block's 227 KB at every head width the
-    wrapper admits; K16's bf16 tile (two buffers of the 64 x 64 x and y
-    tiles, rows of 72) is static shared memory, under 48 KB. The sizes are
-    the kernels' own (``csrc/flash_attention.cu``, ``csrc/matmul3.cu``)."""
+    tiles on the tensor cores (``mma.sync``: the query tile and two [k |
+    v] buffers, rows of hd + 4 floats; ``wgmma`` at d = 32 and 64: two
+    query tiles and four 64 x hd split operand boxes past 1 KB of
+    alignment) fit a block's 227 KB at every head width the wrapper
+    admits; K16's bf16 tile (two buffers of the 64 x 64 x and y tiles,
+    rows of 72) is static shared memory, under 48 KB. The sizes are the
+    kernels' own (``csrc/flash_attention.cu``,
+    ``csrc/flash_attention_tf32.cu``, ``csrc/matmul3.cu``)."""
     from vit_tpu_torch.ops.cuda.attention import MAX_HEAD_DIM
     from vit_tpu_torch.ops.cuda.block import MAX_SMEM
 
     fa = (CSRC / "flash_attention.cu").read_text()
     assert "kFaStages = 3;" in fa
     assert "return 2 * kFaStages * kFaBK * (HD + 8) * sizeof(bf16);" in fa
-    assert "return (2 * HD * kFaLdt" in fa and "kFaLdt = kFaBQ + 1;" in fa
+    f32 = (CSRC / "flash_attention_tf32.cu").read_text()
+    assert "return 5 * kFaBQ * (HD + 4) * sizeof(float);" in f32
+    assert ("return 1024 + 2 * kFaBQ * (HD + 4) * sizeof(float) + "
+            "4 * kWgBox<HD>;") in f32
     for hd in range(16, MAX_HEAD_DIM + 1, 16):
         bf16 = 2 * 3 * TILE * (hd + 8) * 2
-        fp32 = (2 * hd * (TILE + 1) + TILE * hd + TILE * (TILE + 1)
-                + 3 * TILE) * 4
+        fp32 = 5 * TILE * (hd + 4) * 4
+        if hd in (32, 64):
+            fp32 = max(fp32, 1024 + 2 * TILE * (hd + 4) * 4
+                       + 4 * TILE * hd * 4)
         assert max(bf16, fp32) <= MAX_SMEM, hd
     m3 = (CSRC / "matmul3.cu").read_text()
     assert "bf16 x[2][kM3Elems];\n  bf16 y[2][kM3Elems];" in m3

@@ -14,17 +14,19 @@
 // bf16 runs attention_tile_mma (attention_mma.cuh): both products on
 // mma.sync tensor-core fragments, two passes over 64-key chunks so that p
 // is rounded relative to the row max as _attn_core rounds it, four warps
-// of 16 query rows. fp32 runs attention_tile<float> (attention_core.cuh),
-// FFMA over shared memory with 256 threads: the Pallas fp32 dots run at
-// HIGHEST, so the tensor cores' TF32 is not allowed there.
+// of 16 query rows. fp32 runs attention_tf32.cu's core, a unit of its
+// own: both products on mma.sync tf32 in three passes (tf32_split.cuh),
+// the counterpart of the Pallas fp32 dots at Precision.HIGHEST.
 //
 // Bound on the card at B/16 bs=32 (384 heads, 197 of 208 keys, d=64):
 // bytes in bf16, 0.0122 ms for q, k, v in and the context out at
 // 3.35 TB/s, against about 0.008 ms for the three bf16 products at the
-// tensor-core peak; in fp32 operations, 4*B*H*S*seq_len*d = 4.0 GFLOP,
-// 0.060 ms at 67 TFLOP/s. The bf16 tile reads each head's K and V from L2
-// once a query tile and keeps the scores in registers, so what it moves
-// is the inputs, the fragments' shared-memory traffic and the output.
+// tensor-core peak; in fp32 operations, 4*B*H*S*seq_len*d = 4.03 GFLOP,
+// 0.0244 ms in three TF32 passes at 495 TFLOP/s (as long as the fp32
+// bytes, 81.8 MB at 3.35 TB/s). The bf16 tile reads each head's K and V
+// from L2 once a query tile and keeps the scores in registers, so what it
+// moves is the inputs, the fragments' shared-memory traffic and the
+// output.
 #include "attention_core.cuh"
 #include "attention_mma.cuh"
 
@@ -32,18 +34,14 @@ namespace vit {
 
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block on Hopper
 
-// NK > 0: the bf16 tile on mma.sync (attention_mma.cuh); 0: the FFMA tile.
-template <typename T, int NK = 0>
-__global__ void __launch_bounds__(NK > 0 ? kAttnMmaThreads : kAttnThreads)
+// The bf16 tile on mma.sync (attention_mma.cuh), NK 16-column steps of q.
+template <typename T, int NK>
+__global__ void __launch_bounds__(kAttnMmaThreads)
     attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int s,
                      int d, int dh, float scale, int seq_len) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (NK > 0)
-    attention_tile_mma<NK>(qkv, out, s, d, dh, scale, seq_len, blockIdx.x,
-                           blockIdx.y, blockIdx.z * kAttnQT, smem);
-  else
-    attention_tile<T>(qkv, out, s, d, dh, scale, seq_len, blockIdx.x,
-                      blockIdx.y, blockIdx.z * kAttnQT, smem);
+  attention_tile_mma<NK>(qkv, out, s, d, dh, scale, seq_len, blockIdx.x,
+                         blockIdx.y, blockIdx.z * kAttnQT, smem);
 }
 
 template <typename T, int NK>
@@ -51,17 +49,15 @@ cudaError_t launch_attention(const T* qkv, T* out, int batch, int s, int d,
                              int heads, int seq_len, float scale,
                              cudaStream_t st) {
   const int dh = d / heads;
-  const size_t smem =
-      NK > 0 ? attention_mma_smem(s, dh) : attention_smem<T>(s, dh);
-  const int threads = NK > 0 ? kAttnMmaThreads : kAttnThreads;
+  const size_t smem = attention_mma_smem(s, dh);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<T, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(batch, heads, (s + kAttnQT - 1) / kAttnQT);
-  attention_kernel<T, NK><<<grid, threads, smem, st>>>(qkv, out, s, d, dh,
-                                                       scale, seq_len);
+  attention_kernel<T, NK><<<grid, kAttnMmaThreads, smem, st>>>(
+      qkv, out, s, d, dh, scale, seq_len);
   return cudaGetLastError();
 }
 
@@ -102,9 +98,9 @@ extern "C" int vit_attention(const void* qkv, void* out, int batch, int s,
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch_attention<float, 0>(static_cast<const float*>(qkv),
-                                      static_cast<float*>(out), batch, s, d,
-                                      heads, seq_len, scale, st);
+    return launch_attention_tf32(static_cast<const float*>(qkv),
+                                 static_cast<float*>(out), batch, s, d,
+                                 heads, seq_len, scale, st);
   if (dtype == kBF16)
     return launch_attention_bf16(static_cast<const bf16*>(qkv),
                                  static_cast<bf16*>(out), batch, s, d, heads,

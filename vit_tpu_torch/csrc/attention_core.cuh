@@ -2,13 +2,14 @@
 // one (image, head, 64-query tile), reading q, k and v straight from a
 // packed (B*S, 3D) [q|k|v] buffer (head h at columns h*d of each third --
 // the layout vit_tpu/ops/pallas/block.py:_attn_core slices) and writing the
-// context into a (B*S, D) buffer at the head's columns. It serves K4's fp32
-// core (attention.cu), K9's fp32 attention phase (encoder_stack.cu), the
-// attention probe K23's fp32 core (attn_core_probe.cu) in each of its
-// modes, a template parameter whose default, kAttnFull, is the core that
-// K4's and K9's fp32 instantiate, and K9's probe K24 (encstack_probe.cu).
-// The bf16 core of K4, K9 and K23 is attention_tile_mma
-// (attention_mma.cuh), on the tensor cores.
+// context into a (B*S, D) buffer at the head's columns. It serves K9's
+// fp32 attention phase (encoder_stack.cu), the attention probe K23's fp32
+// core (attn_core_probe.cu) in each of its modes, a template parameter
+// whose default, kAttnFull, is the core that K9's fp32 instantiates, and
+// K9's probe K24 (encstack_probe.cu). The bf16 core of K4, K9 and K23 is
+// attention_tile_mma (attention_mma.cuh), on the tensor cores. K4's fp32
+// core no longer uses this tile: it runs attention_tf32.cu's, on the
+// tensor cores in three TF32 passes.
 //
 // Per query row, with _attn_core's rounding points:
 //   s = (q . k) * scale in fp32, keys at index >= seq_len set to -inf;
@@ -22,8 +23,7 @@
 // and Q in shared memory: 113 KB at S=208, d=64 in bf16, 173 KB in fp32.
 // The math is plain FFMA over shared memory, which bounds it by
 // operations: 4*S*seq_len*d a head (in fp32 at B/16 bs=32, 4.0 GFLOP:
-// 0.060 ms at 67 TFLOP/s). The fp32 path may not use the tensor cores (the
-// Pallas fp32 dots run at HIGHEST: no TF32).
+// 0.060 ms at 67 TFLOP/s).
 
 #pragma once
 
@@ -58,6 +58,21 @@ inline size_t attention_smem(int s, int dh) {
   return attn_t_bytes<T>(s, dh) +
          (static_cast<size_t>(kAttnQT) * s + kAttnQT) * sizeof(float);
 }
+
+// K4's fp32 core on the tensor cores (attention_tf32.cu): the head width
+// zero-padded to 8 columns, its dynamic shared memory (K and V, S rows
+// rounded up to 8, rows of dh' + 4 floats; vit_tpu_torch/ops/cuda/block.py:
+// attention_tf32_smem_bytes computes the same), and its launch.
+__host__ __device__ inline int attn_tf32_dhp(int dh) {
+  return (dh + 7) / 8 * 8;
+}
+inline size_t attention_tf32_smem(int s, int dh) {
+  return 2 * static_cast<size_t>((s + 7) / 8 * 8) * (attn_tf32_dhp(dh) + 4) *
+         sizeof(float);
+}
+cudaError_t launch_attention_tf32(const float* qkv, float* out, int batch,
+                                  int s, int d, int heads, int seq_len,
+                                  float scale, cudaStream_t st);
 
 // The modes of the attention probe K23 (csrc/attn_core_probe.cu), a
 // compile-time parameter of attention_tile (fp32) and attention_tile_mma

@@ -14,8 +14,8 @@
 //   attn_core_probe_all_keys.cu (attn_core_probe.cuh): kAttnFull is K4's
 //   bf16 core, its very instantiation, and K9's attention phase's
 //   arithmetic; qcore runs its int8 codes on mma.sync m16n8k32;
-// - fp32: the FFMA tile (attention_core.cuh), K4's fp32 core and K9's
-//   fp32 attention phase instruction for instruction (no TF32).
+// - fp32: the FFMA tile (attention_core.cuh), K9's fp32 attention phase
+//   instruction for instruction (no TF32; not K4's fp32 core's tile).
 // The other modes change only what the mode names
 // (vit_tpu_torch/tools/attn_core_probe.py has each mode's function and
 // launches). A work item is (image, head, 64 queries), whatever the TPU's

@@ -12,10 +12,10 @@
 // L/16-384's 592 tokens, over the 232,448 B a block may use.
 //
 // Design: grid (B*H, ceil(S/rows)); a block owns a query tile of one (image,
-// head) (rows: 128 in bf16, 64 in fp32) and streams K and V through shared
-// memory in 64-key tiles, so its shared memory does not grow with S. Scores,
-// the running max m and the running sum l are fp32, with the online-softmax
-// recurrence of _flash_kernel (attention.py:68-77):
+// head) (rows: 128 in bf16, 128 or 64 in fp32) and streams K and V through
+// shared memory in 64-key tiles, so its shared memory does not grow with S.
+// Scores, the running max m and the running sum l are fp32, with the
+// online-softmax recurrence of _flash_kernel (attention.py:68-77):
 //   m' = max(m, rowmax(s));  alpha = exp(m - m');  p = exp(s - m');
 //   l' = l * alpha + rowsum(p);  acc' = acc * alpha + (p in T) @ v;
 // and ctx = acc / l is cast to T once at the end. s = (q . k) * scale is
@@ -33,8 +33,10 @@
 // against 4*B*H*S*seq_len*d operations over the real keys: at L/16-384
 // bs=8, 38.8 MB (11.6 us at 3.35 TB/s) against 11.2 GFLOP (11.3 us at the
 // bf16 peak); at B/16 bs=32 (197 of 208 keys), 40.9 MB (12.2 us) against
-// 4.0 GFLOP. Each block reads its head's K and V once per query tile,
-// from L2.
+// 4.0 GFLOP. In fp32, operations: three TF32 passes at 495 TFLOP/s, 0.0678
+// ms at L/16-384 bs=8 and 0.0244 ms at B/16 bs=32 (beside 0.0232 and
+// 0.0244 ms for the fp32 bytes). Each block reads its head's K and V once
+// per query tile, from L2.
 //
 // bf16: FlashAttention-2's shape on mma.sync (mma_frag.cuh), the walk of
 // K13's launch (a) pass 1 (flash_attention_bwd.cu) with p rounded once. Eight
@@ -51,9 +53,10 @@
 // registers, two columns a store. 16-key groups past seq_len in the last tile
 // are not multiplied (B/16's 197 keys: 3 of its 16 groups). Operands that
 // fail 16-byte alignment (vec false) are staged by element copies in the same
-// kernel. fp32 multiplies in true fp32 on FFMA (no TF32; the JAX kernel runs
-// fp32 at Precision.HIGHEST), 256 threads, each with a 4x4 block of the 64x64
-// score tile and 1/256 of the 64 x d accumulator in registers, not pipelined.
+// kernel. fp32 runs flash_attention_tf32.cu's kernels, a unit of their own:
+// the same walk with both products on the tensor cores in three TF32 passes
+// (tf32_split.cuh), the counterpart of the JAX kernel's fp32 dots at
+// Precision.HIGHEST.
 //
 // The output is the input's type, or fp32 (out_f32): the int8 tier's
 // attention keeps its context in fp32 for the quantization that follows
@@ -71,17 +74,6 @@
 #include "flash_tiles.cuh"
 
 namespace vit {
-
-struct FaArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  FaStrides sq, sk, sv, so;
-  int heads, s, seq_len;
-  float scale;
-  bool vec;  // q, k and v rows may be copied in 16-byte chunks
-};
 
 // ---------------------------------------------------------------- bf16 --
 
@@ -249,127 +241,6 @@ __global__ void __launch_bounds__(kFaThreadsBf16)
   }
 }
 
-// ---------------------------------------------------------------- fp32 --
-
-constexpr int kFaThreadsF32 = 256;
-constexpr int kFaLdt = kFaBQ + 1;  // transposed q/k rows: conflict-free stores
-
-template <int HD>
-constexpr size_t fa_f32_smem() {
-  return (2 * HD * kFaLdt           // q^T, k^T
-          + kFaBK * HD              // v
-          + kFaBQ * (kFaBK + 1)     // scores, then p
-          + 3 * kFaBQ)              // m, l, alpha
-         * sizeof(float);
-}
-
-// Copy rows [r0, r0 + 64) of a (S, HD) fp32 matrix into shared memory
-// transposed, dst[c * kFaLdt + r]; rows at or past s are zero.
-template <int HD>
-__device__ __forceinline__ void load_rows_t_f32(float* __restrict__ dst,
-                                                const float* __restrict__ src,
-                                                long long ld, int r0, int s) {
-  for (int e = threadIdx.x; e < kFaBQ * HD; e += blockDim.x) {
-    const int r = e / HD, c = e % HD;
-    dst[c * kFaLdt + r] = r0 + r < s ? src[(r0 + r) * ld + c] : 0.f;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kFaThreadsF32)
-    flash_f32_kernel(FaArgs a) {
-  constexpr int LDS = kFaBK + 1, NO = HD / 4;
-  extern __shared__ __align__(16) float smf[];
-  float* qt = smf;                   // HD x kFaLdt
-  float* kt = qt + HD * kFaLdt;      // HD x kFaLdt
-  float* vs = kt + HD * kFaLdt;      // kFaBK x HD
-  float* ss = vs + kFaBK * HD;       // kFaBQ x LDS
-  float* ms = ss + kFaBQ * LDS;
-  float* ls = ms + kFaBQ;
-  float* as = ls + kFaBQ;
-
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int q0 = blockIdx.y * kFaBQ;
-  const float* qg = head_ptr<float>(a.q, a.sq, b, h);
-  const float* kg = head_ptr<float>(a.k, a.sk, b, h);
-  const float* vg = head_ptr<float>(a.v, a.sv, b, h);
-
-  load_rows_t_f32<HD>(qt, qg, a.sq.s, q0, a.s);
-  if (t < kFaBQ) {
-    ms[t] = -INFINITY;
-    ls[t] = 0.f;
-  }
-
-  // Scores: rows ty + 16i, keys tx + 16j. Accumulator: row t / 4, columns
-  // t % 4 + 4c.
-  const int ty = t / 16, tx = t % 16;
-  const int orow = t / 4, ocol = t % 4;
-  float o[NO];
-#pragma unroll
-  for (int c = 0; c < NO; ++c) o[c] = 0.f;
-
-  const int n_tiles = (a.seq_len + kFaBK - 1) / kFaBK;
-  for (int tt = 0; tt < n_tiles; ++tt) {
-    const int k0 = tt * kFaBK;
-    __syncthreads();  // the previous tile's k, v and p are no longer read
-    load_rows_t_f32<HD>(kt, kg, a.sk.s, k0, a.s);
-    for (int e = t; e < kFaBK * HD; e += kFaThreadsF32) {
-      const int r = e / HD;
-      vs[e] = k0 + r < a.s ? vg[(k0 + r) * a.sv.s + e % HD] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][4] = {};
-    for (int c = 0; c < HD; ++c) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = qt[c * kFaLdt + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = kt[c * kFaLdt + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ss[(ty + 16 * i) * LDS + tx + 16 * j] = sc[i][j];
-    __syncthreads();
-
-    // One warp a row: p replaces the scores in place.
-    for (int r = warp; r < kFaBQ; r += kFaThreadsF32 / 32) {
-      float* row = ss + r * LDS;
-      const float alpha = softmax_row(row, row, k0, a.seq_len, a.scale,
-                                      ms + r, ls + r, lane);
-      if (lane == 0) as[r] = alpha;
-    }
-    __syncthreads();
-
-    const float alpha = as[orow];
-#pragma unroll
-    for (int c = 0; c < NO; ++c) o[c] *= alpha;
-    const float* prow = ss + orow * LDS;
-    for (int j = 0; j < kFaBK; ++j) {
-      const float p = prow[j];
-      const float* vr = vs + j * HD + ocol;
-#pragma unroll
-      for (int c = 0; c < NO; ++c) o[c] = fmaf(p, vr[4 * c], o[c]);
-    }
-  }
-
-  const int row = q0 + orow;
-  if (row < a.s) {
-    float* og = static_cast<float*>(a.out) + b * a.so.b + h * a.so.h +
-                row * a.so.s + ocol;
-    const float l = ls[orow];
-#pragma unroll
-    for (int c = 0; c < NO; ++c) og[4 * c] = o[c] / l;
-  }
-}
-
 // ---------------------------------------------------------------- launch --
 
 template <typename K>
@@ -387,9 +258,7 @@ cudaError_t launch_fa(K kernel, size_t smem, int threads, int rows, int bh,
 template <int HD>
 cudaError_t launch_flash(const FaArgs& a, int bh, int dtype, bool out_f32,
                          cudaStream_t st) {
-  if (dtype == kF32)
-    return launch_fa(flash_f32_kernel<HD>, fa_f32_smem<HD>(), kFaThreadsF32,
-                     kFaBQ, bh, a, st);
+  if (dtype == kF32) return launch_flash_f32(a, bh, HD, st);
   if (out_f32)
     return launch_fa(flash_bf16_kernel<HD, float>, fa_bf16_smem<HD>(),
                      kFaThreadsBf16, kFaBQBf16, bh, a, st);

@@ -22,39 +22,28 @@ struct FaStrides {
   long long b, h, s;
 };
 
+// K7's launch arguments (flash_attention.cu; its fp32 kernels,
+// flash_attention_tf32.cu).
+struct FaArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  FaStrides sq, sk, sv, so;
+  int heads, s, seq_len;
+  float scale;
+  bool vec;  // q, k and v rows may be copied in 16-byte chunks
+};
+
+// K7's fp32 form at head width hd over bh (image, head) pairs
+// (flash_attention_tf32.cu).
+cudaError_t launch_flash_f32(const FaArgs& a, int bh, int hd,
+                             cudaStream_t st);
+
 template <typename T>
 __device__ __forceinline__ const T* head_ptr(const void* p, FaStrides st,
                                              int b, int h) {
   return static_cast<const T*>(p) + b * st.b + h * st.h;
-}
-
-// Online-softmax update of one score row of kFaBK values held by a warp
-// (lane owns columns lane and lane + 32 of `row`): masks keys >= seq_len,
-// updates m and l in place, and returns the row's alpha; writes p rounded
-// to P into prow. Every lane returns the same alpha.
-template <typename P>
-__device__ __forceinline__ float softmax_row(const float* row, P* prow,
-                                             int k0, int seq_len, float scale,
-                                             float* m, float* l, int lane) {
-  float s0 = row[lane] * scale, s1 = row[lane + 32] * scale;
-  if (k0 + lane >= seq_len) s0 = -INFINITY;
-  if (k0 + lane + 32 >= seq_len) s1 = -INFINITY;
-  const float m_old = *m;
-  const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-  // m_new is -inf only while every key so far is masked; exp(-inf - -inf)
-  // would be NaN, so such a row subtracts 0 and gets p = alpha = 0.
-  const float base = m_new == -INFINITY ? 0.f : m_new;
-  const float alpha = expf(m_old - base);
-  const float p0 = expf(s0 - base), p1 = expf(s1 - base);
-  const float sum = warp_sum(p0 + p1);
-  prow[lane] = from_f32<P>(p0);
-  prow[lane + 32] = from_f32<P>(p1);
-  __syncwarp();
-  if (lane == 0) {
-    *m = m_new;
-    *l = *l * alpha + sum;
-  }
-  return alpha;
 }
 
 // Rows [r0, r0 + 64) of a (S, HD) bf16 matrix (row stride ld) into a tile

@@ -111,8 +111,8 @@ def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
 
 
 def attention_smem_bytes(seq: int, head_dim: int, itemsize: int) -> int:
-    """Dynamic shared memory of one FFMA attention-core tile (the fp32
-    core, K9's attention phase, K23): K (rows padded by one 4-byte word),
+    """Dynamic shared memory of one FFMA attention-core tile (K9's fp32
+    attention phase, K23's fp32 core, K24): K (rows padded by one 4-byte word),
     V and the query tile in the input dtype, then the fp32 scores and row
     sums (``csrc/attention_core.cuh:attention_smem``). The gate
     :func:`vit_tpu_torch.ops.attn_plan` reads it in both dtypes."""
@@ -133,6 +133,17 @@ def attention_mma_smem_bytes(seq: int, head_dim: int) -> int:
     return 2 * rows * (-(-head_dim // 16) * 16 + 8) * 2
 
 
+def attention_tf32_smem_bytes(seq: int, head_dim: int) -> int:
+    """Dynamic shared memory of one fp32 attention-core block on the
+    tensor cores: K and V, ``seq`` rounded up to 8 rows, each row the head
+    width rounded up to 8 columns plus 4 of padding, in fp32
+    (``csrc/attention_core.cuh:attention_tf32_smem``). It is at most
+    :func:`attention_smem_bytes` at every geometry that
+    :func:`vit_tpu_torch.ops.attn_plan` admits in fp32."""
+    rows = -(-seq // 8) * 8
+    return 2 * rows * (-(-head_dim // 8) * 8 + 4) * 4
+
+
 def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
                    scale: float, seq_len: int) -> torch.Tensor:
     """Masked softmax attention over the packed ``(B*S, 3D)`` ``[q|k|v]``
@@ -150,7 +161,7 @@ def attention_core(qkv: torch.Tensor, *, batch: int, num_heads: int,
         raise ValueError(f"seq_len {seq_len} outside (0, {s}]")
     hd = d // num_heads
     smem = (attention_mma_smem_bytes(s, hd) if qkv.dtype == torch.bfloat16
-            else attention_smem_bytes(s, hd, qkv.element_size()))
+            else attention_tf32_smem_bytes(s, hd))
     if smem > MAX_SMEM:
         raise ValueError(f"attention core needs {smem} B of shared memory "
                          f"at S={s}, more than {MAX_SMEM}")

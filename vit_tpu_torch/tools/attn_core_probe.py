@@ -8,8 +8,8 @@ with the mode as a template parameter, on the tile each dtype's path runs:
 in bf16 K4's tensor-core tile (``attention_mma.cuh``, ``mma.sync`` on
 K4's block of 128 threads), so ``full`` is K4's bf16 core bit for bit
 (its very instantiation) and ``qcore`` runs its int8 codes on ``mma.sync``
-m16n8k32; in fp32 ``attention_core.cuh``'s FFMA tile, K4's fp32 core
-instruction for instruction. The layout modes' GEMMs (kt, projonly,
+m16n8k32; in fp32 ``attention_core.cuh``'s FFMA tile, K9's fp32
+attention phase instruction for instruction. The layout modes' GEMMs (kt, projonly,
 tcore, xcore) are K23's too: K2's bf16 ``wgmma`` tile
 (``gemm_wgmma.cuh``) with an epilogue form each, where TMA reads the
 operands (:func:`gemm_tile`), else K2's tile loop (``gemm_tile.cuh``).
@@ -297,7 +297,7 @@ def _ceil(n: int, m: int) -> int:
 
 def core_smem_bytes(sp: int, head_dim: int, itemsize: int,
                     mode: str = "full") -> int:
-    """Shared memory of one K23 core tile: in fp32 the FFMA tile's (K4's
+    """Shared memory of one K23 core tile: in fp32 the FFMA tile's (K9's
     and the qcore scales); in bf16 the tensor-core tile's in ``mode``
     (``csrc/attention_mma.cuh:attn_mma_probe_smem``): K4's (K and V rows),
     kt's (K's feature-major slab beside V's rows), the head-major modes'

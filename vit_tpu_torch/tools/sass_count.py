@@ -4,8 +4,10 @@ and say which kernels compile to other code than in a second build.
 ``cuobjdump -sass`` of the kernel library (``ops.cuda._build``) is split
 by function; for each kernel whose demangled name holds one of
 ``--match`` it prints the count of each tensor-core opcode: ``HMMA``
-(``mma.sync`` in bf16), ``IMMA`` (``mma.sync`` in int8), ``HGMMA`` and
-``IGMMA`` (``wgmma`` in bf16 and int8). With ``--other`` (another build
+(``mma.sync`` in bf16 and tf32), ``IMMA`` (``mma.sync`` in int8), ``HGMMA``
+and ``IGMMA`` (``wgmma`` in bf16 and tf32, and in int8); and of ``FFMA``,
+the fp32 multiply-adds of the FMA units (static counts: a loop counts
+once). With ``--other`` (another build
 of the library, such as the parent's under ``build/parent/``), it also
 lists the kernels present in both (by demangled name, every copy) whose
 instructions differ, addresses, column padding, encodings and the
@@ -27,7 +29,7 @@ import shutil
 import subprocess
 import sys
 
-OPCODES = ("HMMA", "IMMA", "HGMMA", "IGMMA")
+OPCODES = ("HMMA", "IMMA", "HGMMA", "IGMMA", "FFMA")
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 _PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
@@ -85,7 +87,7 @@ def demangle(names: list[str]) -> dict[str, str]:
 
 
 def counts(lines: list[str]) -> dict[str, int]:
-    """Tensor-core opcodes in a function's SASS."""
+    """Tensor-core opcodes and FFMA in a function's SASS."""
     got = dict.fromkeys(OPCODES, 0)
     for line in lines:
         body = _ADDR.sub("", line).strip()

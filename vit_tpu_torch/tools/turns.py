@@ -6,13 +6,13 @@ by name and label from this checkout's ``chip_smoke.py`` (its
 ``kernel_cases*`` builders, the same inputs for both trees): K2 at B/16
 bs=32 (the QKV 6656x768 @ 768x2304 + bias in bf16 and fp32, the backward's
 ``g @ w.t()`` and ``x.t() @ g``, each beside its ``torch`` call), K4's
-bf16 attention core, K6 (LN 4736x1024 @ 1024x3072 and the B/16 train
-step's LN 6656x768 @ 768x2304, each beside K1 -> K2), K7 (B/16 bs=32 and
-L/16-384 bs=8 on packed QKV views, each beside SDPA, and the int8 tier's
-fp32-output B/16 shape), K8 (``embed_fused`` at L/16-384 bs=4 and
-B/16 bs=4 and 1, each beside K2 on the same operands), K9 (its
-three forms at B/16 bs=1, 12 layers; the fused one beside K24's ``dma``),
-K11 (``matmul_i8``, the
+attention core (bf16; fp32 beside SDPA), K6 (LN 4736x1024 @ 1024x3072 and
+the B/16 train step's LN 6656x768 @ 768x2304, each beside K1 -> K2), K7
+(B/16 bs=32 and L/16-384 bs=8 on packed QKV views, each beside SDPA, and
+the int8 tier's fp32-output B/16 shape; fp32 at B/16 bs=32 and L/16-384
+bs=8, beside SDPA), K8 (``embed_fused`` at L/16-384 bs=4 and B/16 bs=4 and
+1, each beside K2 on the same operands), K9 (its three forms at B/16 bs=1,
+12 layers; the fused one beside K24's ``dma``), K11 (``matmul_i8``, the
 QKV), K12 (``mlp_block_i8dot`` at B/16 bs=32 and H/14 bs=2, each beside
 its composed K10 -> K11 -> K10 -> K11 chain), K13
 (``ops.flash_attention_bwd``, B/16 bs=32 in bf16 and fp32), K16
@@ -23,27 +23,27 @@ is ``core`` -- and the ``tcore`` block, whose GEMMs are K23's), K3 (B/16
 bs=32, L/16-384 bs=8 and the B/16 bs=32 shard over model=2, each beside
 the case's composed K1 -> K2 -> K2 chain), K17 (``mlp_block_q`` at B/16
 bs=32 and its shard over model=2, each beside K3 on the dequantized
-weights) and K18 (B/16 bs=32 and L/16 bs=8, each beside K2 -> K3 on
-the same operands, which rounds y); then the B/16 bs=32 bf16 forward on
-the default route, on the full-layer route (``layer_block=True``),
-on ``(flash, fused=False)``, ``(unfused, fused=False)`` and ``(unfused,
+weights) and K18 (B/16 bs=32 and L/16 bs=8, each beside K2 -> K3 on the
+same operands, which rounds y); then the B/16 bs=32 bf16 forward on the
+default route, on the full-layer route (``layer_block=True``), on
+``(flash, fused=False)``, ``(unfused, fused=False)`` and ``(unfused,
 fused=True)`` (K6), the int8 forward (``forward_quant``; also with
 ``int8_dot=False`` and at L/16-384 bs=8), the B/16 bs=1 forwards in bf16
 and int8 and the L/16 bs=1 bf16 forward (the stack route, K9), the
-L/16-384 bs=8 bf16 forward (the composed route, K6), the B/16 bs=32
-bf16 train step, and the B/16 bs=32 fp32 forward and train step (K2's
-and K13's fp32 forms; K2's fp32 ``g @ w.t()`` and ``x.t() @ g`` are
-kernel cases too). A checkout whose K2 reads no
-transposed view (no ``ops.cuda.matmul.gemm_path``) gets contiguous copies
-first, as its backward made them. Trees run in turns (other, this, this,
-other), each in its own process that builds that checkout's kernels into
-the checkout's own ``build/``. Each time is the median of CUDA-event times
-of single calls after warm-up, beside the pipelined time (calls queued
-back to back between two events: the device time where the host keeps
-ahead) and the profiler's device time (each launch's time over the records
-kept). Each kernel case's output is hashed too, and the last lines say
-which cases gave the same bits in both trees. It prints one line a run
-and a JSON line::
+L/16-384 bs=8 bf16 forward (the composed route, K6), the B/16 bs=32 bf16
+train step, and the B/16 bs=32 fp32 forward and train step (K2's and K13's
+fp32 forms; K2's fp32 ``g @ w.t()`` and ``x.t() @ g`` are kernel cases
+too). A checkout whose K2 reads no transposed view (no
+``ops.cuda.matmul.gemm_path``) gets contiguous copies first, as its
+backward made them. Trees run in turns (other, this, this, other), each in
+its own process that builds that checkout's kernels into the checkout's
+own ``build/``. Each time is the median of CUDA-event times of single
+calls after warm-up, beside the pipelined time (calls queued back to back
+between two events: the device time where the host keeps ahead) and the
+profiler's device time (each launch's time over the records kept). Each
+kernel case's output is hashed too, and the last lines say which cases
+gave the same bits in both trees. It prints one line a run and a JSON
+line::
 
     git archive <parent> | tar -x -C build/parent    # a listed directory
     python -m vit_tpu_torch.tools.turns --other build/parent
@@ -75,6 +75,14 @@ CASES = {
     "k2_xt_g_float32": ("kernel_cases", "float32", "matmul", "x.t() (",
                         True),
     "core": ("kernel_cases", "bfloat16", "attention", "qkv", False),
+    # K4's fp32 core and K7's fp32 form (three TF32 passes), each beside
+    # SDPA in fp32.
+    "k4_core_float32": ("kernel_cases", "float32", "attention", "qkv",
+                        True),
+    "k7_b16_float32": ("kernel_cases", "float32", "flash_attention",
+                       "S=208", True),
+    "k7_l16_384_float32": ("kernel_cases_l16_384", "float32",
+                           "flash_attention", "S=592", True),
     "fused_linear_ln": ("kernel_cases_l16_384", "bfloat16", "fused_linear",
                         "LN ", False),
     "fused_linear_b16": ("kernel_cases", "bfloat16", "fused_linear",
