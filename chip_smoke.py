@@ -24,7 +24,9 @@ without printing the final ``ok`` line:
    both dtypes, L/16-384 bs=2 (592 tokens) in bf16 and H/14 bs=2 (d=80)
    in fp32; the reference op chain at B/16 bs=32's unfused shapes: K14
    ``add`` bit for bit, K15 ``softmax``, K16 ``matmul3`` (scores,
-   context, and the scores at 200 tokens, whose rows are aligned), and
+   context, and the scores at 200 tokens, whose rows are aligned; in fp32
+   also K = 2304 in 36 runs, ragged M and N; the float cases two calls
+   bit for bit), and
    K17 ``mlp_block_q`` there and, in bf16, at L/16-384 bs=8 and H/14
    bs=2; K2 also at the training backward's two products of the QKV, on
    the views it passes (``g @ w.t()``, ``x.t() @ g``); K7 also at B/16
@@ -32,7 +34,9 @@ without printing the final ``ok`` line:
    LN cases (each timed beside K1 -> K2), of K4's core and K7's three
    cases (the core and K7's float cases also two calls bit for bit), of K16's
    scores and context, of K3's, K12's and K17's cases (B/16 bs=32,
-   L/16-384 bs=8, H/14 bs=2, every shard form) and of K8's cases are each
+   L/16-384 bs=8, H/14 bs=2 -- K3 there in fp32 only -- every shard form,
+   K3's fp32 shard also at B/16 bs=32 over model=2; K3's cases also two
+   calls bit for bit) and of K8's cases are each
    held to two planted faults (``gemm_faults``, ``flash_faults``,
    ``mlp_faults``, ``mlp_q_faults``), K18's to three (``layer_faults``: a
    64-deep K step of Wout, a 64-column hidden chunk, the output x 0.85),
@@ -632,6 +636,43 @@ def mlp_chain(ops, x, g, beta, w1, b1, w2, b2, *, partial: bool = False):
     return ops.matmul(h, w2, b2, residual=x)
 
 
+def k3_case(torch, ops, name, label, args, dtype, *, partial=False,
+            primary=True) -> dict:
+    """A K3 case on ``args`` (x, g, beta, w1, b1, w2, b2): bound at the
+    products' type (fp32: three TF32 passes), its bar held to two planted
+    faults (the output x 0.85; 32 hidden columns, one K step of the fp32
+    tile's fc2, or one 64-column chunk of the bf16 tile's, left out) and
+    to two calls giving the same bits, timed beside the same MLP as K1 ->
+    K2 -> K2."""
+    x, g, beta, w1, b1, w2, b2 = args
+    m, d = x.shape
+    mlp = w1.shape[1]
+    e = dtype.itemsize
+
+    def run(w=w2, p=partial):
+        return ops.mlp_block(x, g, beta, w1, b1, w, b2, partial_out=p)
+    return case(
+        name, label,
+        lambda impl: ops.mlp_block(*args, partial_out=partial, impl=impl),
+        ((2 * m * d + 2 * d * mlp + mlp + (2 if partial else 3) * d) * e,
+         4 * m * d * mlp, _split_kind(torch, dtype)),
+        check=twice_bit_for_bit(run), primary=primary,
+        faults=mlp_faults(torch, run, x, b2, w2, partial=partial,
+                          width=64 if dtype == torch.bfloat16 else 32),
+        composed=lambda: mlp_chain(ops, *args, partial=partial))
+
+
+def k3_h14_case(torch, ops, rnd) -> dict:
+    """K3 in fp32 at H/14 bs=2 (544 x 1280, MLP 5120): the tf32 tile's
+    16-row form (bf16 K3 stops at D = 1024)."""
+    m, d, mlp = 2 * 272, 1280, 5120
+    args = (rnd(m, d, std=1.5, mean=0.2), rnd(d, std=0.1, mean=1.0),
+            rnd(d, std=0.05), rnd(d, mlp, std=0.03), rnd(mlp, std=0.02),
+            rnd(mlp, d, std=0.02), rnd(d, std=0.02))
+    return k3_case(torch, ops, "mlp_block", f"H/14 bs=2 ({m},{d}) mlp {mlp}",
+                   args, torch.float32, primary=False)
+
+
 def mlp_chain_i8(ops, x, g, beta, w1q, s1, b1, w2q, s2, b2, *,
                  partial: bool = False):
     """K12's work as four of the port's kernels: K10 with LN, K11 with bias
@@ -982,18 +1023,17 @@ def kernel_cases(torch, dtype):
         # K6 at the B/16 train step's LN1 + QKV (its forward and remat),
         # beside K1 -> K2 on the same operands.
         k6_case(torch, ops, x, wqkv, bqkv, g, beta, e, kind, primary=False),
-        # K3's bar refuses two planted faults; its second yardstick is the
-        # same MLP as K1 -> K2 -> K2.
-        case("mlp_block", f"({m},{d}) mlp {mlp}",
-             lambda impl: ops.mlp_block(x, g, beta, w_dm, b_m, w_md, b_d,
-                                        impl=impl),
-             ((2 * m * d + 2 * d * mlp + mlp + 3 * d) * e, 4 * m * d * mlp,
-              kind),
-             faults=mlp_faults(torch, lambda w, p: ops.mlp_block(
-                 x, g, beta, w_dm, b_m, w, b_d, partial_out=p), x, b_d, w_md,
-                 partial=False),
-             composed=lambda: mlp_chain(ops, x, g, beta, w_dm, b_m, w_md,
-                                        b_d)),
+        # K3's bar refuses two planted faults and two calls give the same
+        # bits; its second yardstick is the same MLP as K1 -> K2 -> K2. In
+        # fp32 also the shard form over model=2 (the kernels line's fp32
+        # figures for mlp_block_partial).
+        k3_case(torch, ops, "mlp_block", f"({m},{d}) mlp {mlp}",
+                (x, g, beta, w_dm, b_m, w_md, b_d), dtype),
+        *([] if dtype == torch.bfloat16 else [k3_case(
+            torch, ops, "mlp_block_partial",
+            f"B/16 bs=32 model=2 shard ({m},{d}) mlp {mlp // 2}",
+            (x, g, beta, w_dm[:, :mlp // 2].contiguous(), b_m[:mlp // 2],
+             w_md[:mlp // 2].contiguous(), b_d), dtype, partial=True)]),
         # K4's core and K7 (fp32: three TF32 passes) refuse two planted
         # faults each, and give the same bits on two calls.
         case("attention", f"qkv ({m},{3 * d}) heads {heads} seq_len {s}",
@@ -1058,17 +1098,9 @@ def kernel_cases_l16_384(torch, dtype):
                  q, k, v, scale=hd ** -0.5, seq_len=s)),
              faults=flash_faults(lambda n: ops.flash_attention(
                  q, k, v, scale=hd ** -0.5, seq_len=n), s)),
-        case("mlp_block", f"({m},{d}) mlp {mlp}",
-             lambda impl: ops.mlp_block(x, g, beta, w_dm, b_m, w_md, b_d,
-                                        impl=impl),
-             ((2 * m * d + 2 * d * mlp + mlp + 3 * d) * e, 4 * m * d * mlp,
-              kind), primary=False,
-             faults=mlp_faults(torch, lambda w, p: ops.mlp_block(
-                 x, g, beta, w_dm, b_m, w, b_d, partial_out=p), x, b_d, w_md,
-                 partial=False),
-             composed=lambda: mlp_chain(ops, x, g, beta, w_dm, b_m, w_md,
-                                        b_d)),
-    ]
+        k3_case(torch, ops, "mlp_block", f"({m},{d}) mlp {mlp}",
+                (x, g, beta, w_dm, b_m, w_md, b_d), dtype, primary=False),
+    ] + ([] if dtype == torch.bfloat16 else [k3_h14_case(torch, ops, rnd)])
 
 
 def _stack_work(b, sp, s, d, mlp, heads, layers, e, kind, w_e=None):
@@ -1480,7 +1512,7 @@ def kernel_cases_chain(torch, dtype):
 
     def bmm_work(b, mm, k, n):
         return ((b * mm * k + b * k * n + b * mm * n) * e, 2 * b * mm * n * k,
-                kind)
+                _split_kind(torch, dtype))
 
     def baddbmm(a, b, scale):
         out = a.new_empty((a.shape[0], a.shape[1], b.shape[2]))
@@ -1500,11 +1532,15 @@ def kernel_cases_chain(torch, dtype):
         case("matmul3", f"context ({bh},{s},{s})@({bh},{s},{hd})",
              lambda impl: ops.matmul3(probs, v, impl=impl),
              bmm_work(bh, s, s, hd), library=baddbmm(probs, v, 1.0),
-             primary=False, faults=gemm_faults(
+             primary=False, check=twice_bit_for_bit(
+                 lambda: ops.matmul3(probs, v)),
+             faults=gemm_faults(
                  torch, lambda a: ops.matmul3(a, v), probs, 2, 64, 64)),
         case("matmul3", f"scores ({bh},{s},{hd})@({bh},{hd},{s})*0.125",
              lambda impl: ops.matmul3(q, kt, scale=0.125, impl=impl),
              bmm_work(bh, s, hd, s), library=baddbmm(q, kt, 0.125),
+             check=twice_bit_for_bit(
+                 lambda: ops.matmul3(q, kt, scale=0.125)),
              faults=gemm_faults(torch, lambda a: ops.matmul3(
                  a, kt, scale=0.125), q, 2, 16, 16)),
         # The same product at 200 tokens, where every row of k^T and of
@@ -1514,6 +1550,20 @@ def kernel_cases_chain(torch, dtype):
              bmm_work(bh, 200, hd, 200), library=baddbmm(q200, kt200, 0.125),
              primary=False),
     ]
+    if dtype == torch.float32:
+        # The fp32 form past the depth one accumulator holds: K = 2304 in
+        # 36 runs of 64, ragged M and N; one run left out is refused.
+        # y at std 0.02 keeps the sums near 1 (as K2's x.t() @ g case
+        # scales g): at unit scale fp32 sum orders alone differ by ~1e-4.
+        xd, yd = rnd(4, s, 2304), rnd(4, 2304, 131, std=0.02)
+        cases.append(case(
+            "matmul3", f"deep (4,{s},2304)@(4,2304,131)",
+            lambda impl: ops.matmul3(xd, yd, impl=impl),
+            bmm_work(4, s, 2304, 131), library=baddbmm(xd, yd, 1.0),
+            primary=False, check=twice_bit_for_bit(
+                lambda: ops.matmul3(xd, yd)),
+            faults=gemm_faults(torch, lambda a: ops.matmul3(a, yd), xd, 2,
+                               1024, 64)))
     shapes = [("H/14 bs=2", 544, 1280, 5120),
               ("L/16-384 bs=8", 4736, 1024, 4096)] if dtype == torch.bfloat16 \
         else []
@@ -1609,7 +1659,7 @@ def kernel_cases_tp(torch, dtype):
                     "mlp_block_partial", f"{lbl} ({m_rows},{d}) mlp {ml}",
                     lambda impl, a=a: ops.mlp_block(*a, partial_out=True,
                                                     impl=impl),
-                    (*mlp_work, kind), primary=main,
+                    (*mlp_work, _split_kind(torch, dtype)), primary=main,
                     faults=mlp_faults(
                         torch, lambda w, p, a=a: ops.mlp_block(
                             *a[:5], w, a[6], partial_out=p), x, b_d, w2,

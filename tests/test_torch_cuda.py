@@ -286,6 +286,91 @@ def test_torch_cuda_mlp_block_bf16_tiles(gen, m, d, mlp, partial):
     assert torch.equal(head, got[:33])
 
 
+@pytest.mark.parametrize("m,d,mlp,partial", [
+    (200, 768, 3072, False), (70, 1024, 4096, False),
+    (70, 1280, 5120, False), (40, 1536, 512, False),
+    (70, 768, 1536, True), (33, 200, 300, False), (65, 128, 256, True)])
+def test_torch_cuda_mlp_block_tf32_tiles(gen, m, d, mlp, partial):
+    """K3's fp32 tile on the tensor cores (``csrc/mlp_tf32.cuh``, three
+    TF32 passes) at every ``VARIANTS`` width, 1536 (``mlp_plan``'s fp32
+    limit, 16-row form), the B/16 shard over model=2 and narrow ragged
+    widths: the form ``mlp_f32_form`` gives, within 1e-4 of the plain
+    version, two calls bit for bit, rows 0-32 of an M = 33 call the same
+    bits as in the M-row call."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import block
+
+    args = (_rnd(gen, torch.float32, m, d, std=1.5, mean=0.2),
+            _rnd(gen, torch.float32, d, std=0.1, mean=1.0),
+            _rnd(gen, torch.float32, d, std=0.05),
+            _rnd(gen, torch.float32, d, mlp, std=0.03),
+            _rnd(gen, torch.float32, mlp, std=0.02),
+            _rnd(gen, torch.float32, mlp, d, std=0.03),
+            _rnd(gen, torch.float32, d, std=0.02))
+    assert block.mlp_f32_form(d, mlp, (args[0].data_ptr(),
+                                       args[3].data_ptr(),
+                                       args[5].data_ptr())) == "tf32"
+    got = ops.mlp_block(*args, partial_out=partial, impl="cuda")
+    _close(got, ops.mlp_block(*args, partial_out=partial, impl="torch"))
+    again = ops.mlp_block(*args, partial_out=partial, impl="cuda")
+    head = ops.mlp_block(args[0][:33], *args[1:], partial_out=partial,
+                         impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(head, got[:33])
+
+
+def test_torch_cuda_mlp_block_fp32_ffma_form(gen):
+    """Where TMA cannot read x (a base 4 bytes past 16-byte alignment) K3
+    keeps ``mlp_tile.cuh``'s FFMA form, within 1e-4 of the plain
+    version."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import block
+
+    m, d, mlp = 40, 256, 512
+    x = torch.empty(m * d + 1, device="cuda")[1:].view(m, d)
+    x.copy_(_rnd(gen, torch.float32, m, d))
+    args = (x, _rnd(gen, torch.float32, d, std=0.1, mean=1.0),
+            _rnd(gen, torch.float32, d, std=0.05),
+            _rnd(gen, torch.float32, d, mlp, std=0.03),
+            _rnd(gen, torch.float32, mlp, std=0.02),
+            _rnd(gen, torch.float32, mlp, d, std=0.03),
+            _rnd(gen, torch.float32, d, std=0.02))
+    assert block.mlp_f32_form(d, mlp, (x.data_ptr(), args[3].data_ptr(),
+                                       args[5].data_ptr())) == "ffma"
+    _close(ops.mlp_block(*args, impl="cuda"),
+           ops.mlp_block(*args, impl="torch"))
+
+
+@pytest.mark.parametrize("b,m,k,n", [
+    (3, 37, 16, 37),     # odd M and N: rows and batches unaligned
+    (5, 37, 37, 16),     # odd K: x rows 148 bytes
+    (2, 197, 197, 64),   # the context
+    (2, 197, 64, 197),   # the scores
+    (2, 200, 64, 200),   # every row 16-byte aligned
+    (3, 129, 5, 67),     # K < 8
+    (2, 197, 2304, 131)])  # 36 runs of 64, ragged M and N
+@pytest.mark.parametrize("scale", [None, 1.0, 0.125])
+def test_torch_cuda_matmul3_tf32_tiles(gen, b, m, k, n, scale):
+    """K16's fp32 form on ``mma.sync`` tf32 (three passes, each operand
+    split once as it is staged, 64-deep runs summed apart) within 1e-4 of
+    the plain version; ``scale=1`` equals no scale bit for bit; two calls
+    equal bit for bit."""
+    from vit_tpu_torch import ops
+
+    # At K = 2304 y at std 0.02 keeps the sums near 1, where fp32 sum
+    # orders differ by far less than the absolute bar.
+    x = _rnd(gen, torch.float32, b, m, k)
+    y = _rnd(gen, torch.float32, b, k, n, std=0.3 if k < 1000 else 0.02)
+    got = ops.matmul3(x, y, scale=scale, impl="cuda")
+    _close(got, ops.matmul3(x, y, scale=scale, impl="torch"))
+    again = ops.matmul3(x, y, scale=scale, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if scale == 1.0:
+        assert torch.equal(got, ops.matmul3(x, y, impl="cuda"))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,heads,hd,seq_len", [
     (2, 32, 2, 64, 17), (3, 80, 4, 16, 80), (2, 48, 3, 80, 40),

@@ -19,8 +19,9 @@ EncodeTiledFn encode_tiled();
 
 // A 2-D fp32 tensor map over the rows x cols row-major matrix at p with
 // leading dimension ld (elements), boxes of 32 columns (128 bytes) x
-// box_rows, 128-byte swizzle, zeros outside the matrix.
-static bool tensor_map_f32(CUtensorMap* map, const void* p, int rows,
+// box_rows, 128-byte swizzle, zeros outside the matrix (K3's fp32 tile,
+// mlp_block_tf32.cu, encodes its maps with it too).
+bool tensor_map_f32(CUtensorMap* map, const void* p, int rows,
                            int cols, int ld, int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;

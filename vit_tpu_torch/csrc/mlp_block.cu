@@ -25,9 +25,18 @@
 // aligned (the wrapper checks 32). Bound on the card: the tensor cores,
 // 4*M*D*mlp operations.
 //
-// fp32: true fp32 FFMA (no TF32), the chunk loop of mlp_tile.cuh (shared
-// with K18), 16 rows a block; xn (16 x D fp32) and the chunk (16 x 256) sit
-// in shared memory. D at most 1536; rows, D and mlp are masked.
+// fp32, two forms, chosen by geometry alone before the launch
+// (ops/cuda/block.py:mlp_f32_form, the entry point's `form`; neither
+// stands in for the other when a build or a launch fails):
+// - "tf32" (form 1): the tensor cores in the three-pass TF32 split,
+//   mlp_tf32.cuh's tile, launched by mlp_block_tf32.cu (see there for its
+//   design, bound and times), wherever TMA can read x, W1 and W2 (16-byte
+//   aligned bases, D and mlp multiples of 4): every VARIANTS width, the
+//   tensor-parallel shards and the tests' widths.
+// - "ffma" (form 0): true fp32 FFMA, the chunk loop of mlp_tile.cuh
+//   (shared with K18), 16 rows a block; xn (16 x D fp32) and the chunk
+//   (16 x 256) sit in shared memory. Rows, D and mlp are masked.
+// D at most 1536 in both.
 
 #include "mlp_tile.cuh"
 #include "mlp_wgmma.cuh"
@@ -86,6 +95,13 @@ cudaError_t launch_mlp_bf16(const bf16* x, const bf16* g, const bf16* b,
 }
 
 // ---------------------------------------------------------------- fp32 --
+
+// mlp_block_tf32.cu: the tensor-core form (mlp_tf32.cuh).
+cudaError_t launch_mlp_tf32(const float* x, const float* g, const float* b,
+                            const float* w1, const float* b1, const float* w2,
+                            const float* b2, float* out, int m, int d,
+                            int mlp, float eps, int partial, int device,
+                            cudaStream_t st);
 
 inline size_t mlp_f32_smem(int d) {
   return (static_cast<size_t>(kMlpFBM) * d + kMlpFBM * kMlpFCT) * sizeof(float);
@@ -157,8 +173,8 @@ cudaError_t launch_mlp_f32(const float* x, const float* g, const float* b,
 extern "C" int vit_mlp_block(const void* x, const void* g, const void* b,
                              const void* w1, const void* b1, const void* w2,
                              const void* b2, void* out, int m, int d, int mlp,
-                             float eps, int partial, int dtype, int device,
-                             void* stream) {
+                             float eps, int partial, int form, int dtype,
+                             int device, void* stream) {
   using namespace vit;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
@@ -188,7 +204,14 @@ extern "C" int vit_mlp_block(const void* x, const void* g, const void* b,
     }
 #undef VIT_MLP_BF16
   }
-  if (dtype == kF32) {
+  if (dtype == kF32 && form == 1)
+    return launch_mlp_tf32(
+        static_cast<const float*>(x), static_cast<const float*>(g),
+        static_cast<const float*>(b), static_cast<const float*>(w1),
+        static_cast<const float*>(b1), static_cast<const float*>(w2),
+        static_cast<const float*>(b2), static_cast<float*>(out), m, d, mlp,
+        eps, partial, device, st);
+  if (dtype == kF32 && form == 0) {
 #define VIT_MLP_F32(NJ)                                                     \
   case NJ:                                                                  \
     return launch_mlp_f32<NJ>(                                              \

@@ -1,11 +1,14 @@
-// The fp32 MLP chunk loop of K3 and K18 as device routines: for a block's
-// tile of rows, already normalised into shared memory, acc += gelu(xn @ W1
-// + b1) @ W2 over every MLP column, a chunk at a time, so that the (rows,
-// mlp) hidden never reaches device memory. K3 (mlp_block.cu) seeds acc
-// with x + b2 (or zero) and K18 (layer_block.cu) with the fp32 y + b2 of
-// its out-projection; both then call this loop (vit_tpu/ops/pallas/
-// block.py:_mlp_kernel, block.py:79-90, and _layer_kernel,
-// block.py:1711-1719). Their bf16 forms run on mlp_wgmma.cuh's tile.
+// The fp32 MLP chunk loop of K18 and of K3's FFMA form as device routines:
+// for a block's tile of rows, already normalised into shared memory, acc
+// += gelu(xn @ W1 + b1) @ W2 over every MLP column, a chunk at a time, so
+// that the (rows, mlp) hidden never reaches device memory. K18
+// (layer_block.cu) seeds acc with the fp32 y + b2 of its out-projection,
+// K3 (mlp_block.cu) with x + b2 (or zero); both then call this loop
+// (vit_tpu/ops/pallas/block.py:_layer_kernel, block.py:1711-1719, and
+// _mlp_kernel, block.py:79-90). K3 runs it only where TMA cannot read its
+// operands (rows not a multiple of 4 floats, bases not 16-byte aligned);
+// elsewhere its fp32 form is mlp_tf32.cuh's tensor-core tile, and both
+// bf16 forms run on mlp_wgmma.cuh's. K18's fp32 form runs it everywhere.
 //
 // True fp32 FFMA (no TF32), 16 rows a block. Thread t computes hidden
 // column c0+t of each 256-wide chunk and owns output columns t, t+256, ...

@@ -53,8 +53,10 @@ _SIGNATURES = {
     "vit_matmul": (_P, _P, _P, _P, _P, *(_I,) * 7),
     # x, w, bias, residual, mu, rstd, gamma, beta, out, m, n, k, gelu
     "vit_fused_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
-    # x, ln_scale, ln_bias, w1, b1, w2, b2, out, m, d, mlp, eps, partial
-    "vit_mlp_block": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I),
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, out, m, d, mlp, eps, partial,
+    # form (fp32: 0 mlp_tile.cuh's FFMA, 1 mlp_tf32.cuh's tensor-core tile)
+    "vit_mlp_block": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                      _I),
     # qkv, out, batch, seq, d, heads, seq_len, scale
     "vit_attention": (_P, _P, _I, _I, _I, _I, _I, _F),
     # q, k, v, out, (b, h, s) element strides of q, k, v and out, batch,

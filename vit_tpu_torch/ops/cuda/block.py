@@ -56,6 +56,24 @@ ATTN_QT = 64
 MLP_BF16_MAX_D = 1024
 #: Largest hidden width of the fp32 ``mlp_block`` kernel.
 MLP_F32_MAX_D = 1536
+#: The fp32 forms of ``mlp_block`` (the C entry point's ``form``).
+MLP_F32_FORMS = {"ffma": 0, "tf32": 1}
+
+
+def mlp_f32_form(d: int, mlp: int, ptrs: tuple[int, ...]) -> str:
+    """The form K3 runs an fp32 MLP of width ``d`` and hidden ``mlp`` in:
+    ``"tf32"`` (``csrc/mlp_tf32.cuh``: the tensor cores, three TF32
+    passes) where TMA can read x, w1 and w2 -- their bases (``ptrs``,
+    bytes) and the output's 16-byte aligned, rows of ``d`` and ``mlp``
+    floats multiples of 16 bytes -- else ``"ffma"`` (``csrc/mlp_tile.cuh``,
+    true fp32). Geometry alone decides, before the launch; neither form
+    stands in for the other when a build or a launch fails."""
+    if not 0 < d <= MLP_F32_MAX_D or mlp <= 0:
+        raise ValueError(f"fp32 mlp_block takes 0 < D <= {MLP_F32_MAX_D} "
+                         f"and mlp > 0, got D={d}, mlp={mlp}")
+    if d % 4 == 0 and mlp % 4 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "tf32"
+    return "ffma"
 
 
 def _check_mlp(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -104,8 +122,11 @@ def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
     if m == 0:
         raise ValueError(f"mlp_block of an empty tensor {tuple(x.shape)}")
     out = torch.empty_like(x)
+    form = 0 if x.dtype == torch.bfloat16 else MLP_F32_FORMS[mlp_f32_form(
+        d, mlp, (x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                 out.data_ptr()))]
     _build.launch("vit_mlp_block", x, ln_scale, ln_bias, w1, b1, w2, b2, out,
-                  m, d, mlp, float(eps), int(partial_out), like=x)
+                  m, d, mlp, float(eps), int(partial_out), form, like=x)
     count_launch("mlp_block_partial" if partial_out else "mlp_block")
     return out
 

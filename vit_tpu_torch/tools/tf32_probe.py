@@ -17,7 +17,8 @@ with TF32 off, the kernels' bar: 1e-4) and against float64, at:
 
 - K2's B/16 bs=32 shapes, with ``chip_smoke.py:kernel_cases``' scales: the
   QKV ``x @ w`` (K = 768), ``g @ w.t()`` (K = 2304) and ``x.t() @ g`` (K =
-  6656, g at std 0.01), on the ``wgmma`` form;
+  6656, g at std 0.01), on the ``wgmma`` form; and K3's fc1 at K = D =
+  768, 1024, 1280 and 1536;
 - K13's five products over one head of 208 tokens (197 real) at d = 64
   and 128 -- ``q k^T``, ``g v^T`` (K = d), ``p^T g``, ``ds^T q`` and ``ds
   k`` (K = 208) -- on the ``mma.sync`` form.
@@ -122,9 +123,16 @@ def gemm_cases(device: str, gen: torch.Generator) -> list:
         return torch.randn(shape, generator=gen, device=device) * std
     x, w = rnd(m, d), rnd(d, 3 * d, std=0.04)
     gu, gf = rnd(m, 3 * d), rnd(m, 3 * d, std=0.01)
-    return [("qkv x @ w (K=768)", x, w),
-            ("g @ w.t() (K=2304)", gu, w.t()),
-            ("x.t() @ g (K=6656, g std 0.01)", x.t(), gf)]
+    cases = [("qkv x @ w (K=768)", x, w),
+             ("g @ w.t() (K=2304)", gu, w.t()),
+             ("x.t() @ g (K=6656, g std 0.01)", x.t(), gf)]
+    # K3's fc1, LN(x) @ W1 with K = D, at every VARIANTS width and 1536
+    # (mlp_plan's fp32 limit): 1024 unit rows, W1 at std 0.03 (the scale
+    # of chip_smoke.py's K3 cases), 512 of its columns.
+    for k in (768, 1024, 1280, 1536):
+        cases.append((f"K3 fc1 LN(x) @ W1 (K={k})", rnd(1024, k),
+                      rnd(k, 512, std=0.03)))
+    return cases
 
 
 def attention_cases(device: str, gen: torch.Generator, hd: int) -> list:

@@ -17,11 +17,13 @@ QKV), K12 (``mlp_block_i8dot`` at B/16 bs=32 and H/14 bs=2, each beside
 its composed K10 -> K11 -> K10 -> K11 chain), K13
 (``ops.flash_attention_bwd``, B/16 bs=32 in bf16 and fp32), K16
 (``matmul3``, the scores, the context and the scores at 200 tokens, each
-beside ``baddbmm``), K22 (``int8_probe.dot``, int8 and bf16), K23 (the
+beside ``baddbmm``; in fp32 also at K = 2304), K22
+(``int8_probe.dot``, int8 and bf16), K23 (the
 ``full`` core alone on B/16 bs=32's packed QKV, beside SDPA -- K4's core
 is ``core`` -- and the ``tcore`` block, whose GEMMs are K23's), K3 (B/16
-bs=32, L/16-384 bs=8 and the B/16 bs=32 shard over model=2, each beside
-the case's composed K1 -> K2 -> K2 chain), K17 (``mlp_block_q`` at B/16
+bs=32, L/16-384 bs=8 and the B/16 bs=32 shard over model=2, and in fp32
+also at H/14 bs=2, each beside the case's composed K1 -> K2 -> K2 chain),
+K17 (``mlp_block_q`` at B/16
 bs=32 and its shard over model=2, each beside K3 on the dequantized
 weights) and K18 (B/16 bs=32 and L/16 bs=8, each beside K2 -> K3 on the
 same operands, which rounds y); then the B/16 bs=32 bf16 forward on the
@@ -130,6 +132,27 @@ CASES = {
                     "(4736,1024)", False),
     "mlp_partial_b16": ("kernel_cases_tp", "bfloat16", "mlp_block_partial",
                         "B/16 bs=32 model=2", False),
+    # K3's fp32 form (three TF32 passes) at B/16 bs=32, L/16-384 bs=8,
+    # H/14 bs=2 and the B/16 bs=32 shard over model=2, each beside its
+    # composed K1 -> K2 -> K2 chain; K16's fp32 form at the scores, the
+    # context, the scores at 200 tokens and K = 2304, beside baddbmm.
+    "mlp_b16_float32": ("kernel_cases", "float32", "mlp_block",
+                        "(6656,768)", False),
+    "mlp_l16_384_float32": ("kernel_cases_l16_384", "float32", "mlp_block",
+                            "(4736,1024)", False),
+    "mlp_h14_float32": ("kernel_cases_l16_384", "float32", "mlp_block",
+                        "H/14 bs=2", False),
+    "mlp_partial_b16_float32": ("kernel_cases", "float32",
+                                "mlp_block_partial", "B/16 bs=32 model=2",
+                                False),
+    "matmul3_scores_float32": ("kernel_cases_chain", "float32", "matmul3",
+                               "scores", True),
+    "matmul3_context_float32": ("kernel_cases_chain", "float32", "matmul3",
+                                "context", True),
+    "matmul3_aligned_float32": ("kernel_cases_chain", "float32", "matmul3",
+                                "aligned", True),
+    "matmul3_deep_float32": ("kernel_cases_chain", "float32", "matmul3",
+                             "deep", True),
     "layer_block_k18": ("kernel_cases_layer", "bfloat16", "layer_block",
                         "K18 B/16", False),
     "layer_block_k18_l16": ("kernel_cases_layer", "bfloat16", "layer_block",
