@@ -15,7 +15,9 @@ without printing the final ``ok`` line:
    bucket), in bf16 on the ``wgmma`` tile bit for bit with K2 -> cast ->
    ``+ pos`` (``k8_check``; H/14 on ``gemm_tile.cuh``), each timed beside
    K2 on the same operands; K18 ``layer_tail`` at B/16 bs=32, L/16 bs=8
-   and ragged M (1, 65) at D = 128-1024, two calls bit for bit,
+   and, in bf16, ragged M (1, 65) at D = 128-1024, in fp32 H/14 bs=2 (D =
+   1280) on the tensor-core form and B/16 bs=1 on the FFMA form (a ctx 4
+   bytes past alignment), two calls bit for bit,
    both forms of ``encoder_stack`` as whole 12-layer B/16 encoders at bs=1
    and bs=2 (197 of 208 tokens); the int8 kernels at B/16 bs=32, L/16-384
    bs=8 (K7's fp32 output at 592 tokens) and H/14 bs=2 (D=1280, MLP 5120),
@@ -31,7 +33,9 @@ without printing the final ``ok`` line:
    bs=2; K2 also at the training backward's two products of the QKV, on
    the views it passes (``g @ w.t()``, ``x.t() @ g``); K7 also at B/16
    bs=32 on packed QKV views. The bars of K2's backward cases, of K6's
-   LN cases (each timed beside K1 -> K2), of K4's core and K7's three
+   LN cases (each timed beside K1 -> K2, two calls bit for bit; in fp32
+   also the B/16 fc1 + GELU and, on the FFMA tile, an x 4 bytes past
+   alignment), of K4's core and K7's three
    cases (the core and K7's float cases also two calls bit for bit), of K16's
    scores and context, of K3's, K12's and K17's cases (B/16 bs=32,
    L/16-384 bs=8, H/14 bs=2 -- K3 there in fp32 only -- every shard form,
@@ -307,7 +311,8 @@ KERNEL_SOURCES = {
     # K18 is the last of layer_block's four launches (K1, K2 and the
     # attention core count theirs), as K4's core is of attn_block's. Its
     # bf16 kernel is K3's cluster tile with the K18 flag; layer_block.cu
-    # launches it, and the fp32 form.
+    # launches it, and the fp32 forms (K3's tf32 tile with its LAYER flag
+    # through layer_block_tf32.cu, the FFMA form).
     "layer_block": ("vit_tpu_torch/csrc/mlp_wgmma.cuh",
                     "vit_tpu/ops/pallas/block.py:1805"),
     "patchify": ("vit_tpu_torch/csrc/patching.cu",
@@ -501,21 +506,32 @@ def gemm_faults(torch, run, a, k_axis: int, start: int = 1024,
 
 
 def k6_case(torch, ops, x, w, bias, g, beta, e, kind, *,
-            primary: bool = True) -> dict:
-    """K6 with LN, ``act(LN(x) @ w + bias)``: its bar holds to
-    ``gemm_faults`` (one 64-deep K step skipped by zeroing rows 512-575 of
-    w, where the LN stats stay as they are), and it is timed beside the
-    same function as K1 -> K2, two of the port's kernels."""
+            primary: bool = True, act: str | None = None,
+            tag: str = "") -> dict:
+    """K6 with LN, ``act(LN(x) @ w + bias)``: bound at the products' type
+    on the tile it runs (fp32 on the tf32 tile: three TF32 passes), its bar
+    held to ``gemm_faults`` (one 64-deep K step skipped by zeroing rows
+    512-575 of w, where the LN stats stay as they are) and to two calls
+    giving the same bits, and it is timed beside the same function as K1
+    -> K2, two of the port's kernels."""
+    from vit_tpu_torch.ops.cuda.matmul import fused_linear_tile
+
     m, k = x.shape
     n = w.shape[1]
+    if x.dtype == torch.float32 and fused_linear_tile(x, w) == "wgmma":
+        kind = "tf32x3"
+
+    def run(wt=w):
+        return ops.fused_linear(x, wt, bias, act, ln_scale=g, ln_bias=beta)
     return case(
-        "fused_linear", f"LN ({m},{k})@({k},{n})+bias",
-        lambda impl: ops.fused_linear(x, w, bias, ln_scale=g, ln_bias=beta,
-                                      impl=impl),
+        "fused_linear",
+        f"{tag}LN ({m},{k})@({k},{n})+bias{'+' + act if act else ''}",
+        lambda impl: ops.fused_linear(x, w, bias, act, ln_scale=g,
+                                      ln_bias=beta, impl=impl),
         gemm_work(m, k, n, e, kind), primary=primary,
-        faults=gemm_faults(torch, lambda wt: ops.fused_linear(
-            x, wt, bias, ln_scale=g, ln_bias=beta), w, 0, start=512),
-        composed=lambda: ops.matmul(ops.layernorm(x, g, beta), w, bias))
+        check=twice_bit_for_bit(run),
+        faults=gemm_faults(torch, run, w, 0, start=512),
+        composed=lambda: ops.matmul(ops.layernorm(x, g, beta), w, bias, act))
 
 
 def mlp_faults(torch, run, x, b2, w2, *, partial: bool,
@@ -624,6 +640,16 @@ def stack_dma(torch, enc, b: int, dtype):
     x = torch.zeros((b * 208, d), dtype=dtype, device="cuda")
     ws = [enc[n]["kernel"] for n in ("qkv", "out", "fc1", "fc2")]
     return lambda: fn(x, *ws)
+
+
+def _misaligned(torch, t):
+    """A copy of ``t`` whose base lies one element past its allocation's
+    (16-byte aligned) start: TMA cannot read it, so the kernels that take
+    it run their FFMA forms."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def mlp_chain(ops, x, g, beta, w1, b1, w2, b2, *, partial: bool = False):
@@ -1021,8 +1047,15 @@ def kernel_cases(torch, dtype):
              gemm_work(m, d, 3 * d, e, k2kind),
              library=lambda: torch.addmm(bqkv, x, wqkv)),
         # K6 at the B/16 train step's LN1 + QKV (its forward and remat),
-        # beside K1 -> K2 on the same operands.
+        # beside K1 -> K2 on the same operands; in fp32 also its LN2 + fc1
+        # + GELU, and the FFMA tile on an x whose base is 4 bytes past
+        # 16-byte alignment (where TMA cannot read it).
         k6_case(torch, ops, x, wqkv, bqkv, g, beta, e, kind, primary=False),
+        *([] if dtype == torch.bfloat16 else [
+            k6_case(torch, ops, x, w_dm, b_m, g, beta, e, kind,
+                    primary=False, act="gelu"),
+            k6_case(torch, ops, _misaligned(torch, x[:208]), wqkv, bqkv, g,
+                    beta, e, kind, primary=False, tag="misaligned x ")]),
         # K3's bar refuses two planted faults and two calls give the same
         # bits; its second yardstick is the same MLP as K1 -> K2 -> K2. In
         # fp32 also the shard form over model=2 (the kernels line's fp32
@@ -1700,11 +1733,12 @@ def kernel_cases_tp(torch, dtype):
 def kernel_cases_layer(torch, dtype):
     """Phase 15's kernels alone. K18 (``layer_tail``: the out-projection,
     LN2 and the MLP from the attention context, y kept in fp32) at B/16
-    bs=32 (6656 x 768, MLP 3072), the case the kernels line reports, and in
-    bf16 at L/16 bs=8 (1664 x 1024, 4096); the whole ``layer_block`` (K1,
-    K2, the core, K18) at B/16 bs=32, held to the model bars (the MLP half
-    carries the attention half's rounding flips), timed as a block like
-    K4. K19 ``patchify`` bit for bit at B/16 bs=32, H/14 bs=2 (P=14) and
+    bs=32 (6656 x 768, MLP 3072), the case the kernels line reports, and
+    at L/16 bs=8 (1664 x 1024, 4096); in bf16 at ragged M, in fp32 at H/14
+    bs=2 (544 x 1280, 5120) and on the FFMA form; the whole
+    ``layer_block`` (K1, K2, the core, K18) at B/16 bs=32, held to the
+    model bars (the MLP half carries the attention half's rounding flips),
+    timed as a block like K4. K19 ``patchify`` bit for bit at B/16 bs=32, H/14 bs=2 (P=14) and
     L/16-384 bs=8, against ``F.unfold`` (the port never calls it). K20 at
     the JAX test's (16, 128) over a grid of 2 with a condition no block
     meets, so that nothing prints while it is timed (phase 15 checks the
@@ -1720,20 +1754,32 @@ def kernel_cases_layer(torch, dtype):
     rnd = _rnd_fn(torch, dtype, 15)
     e, kind = dtype.itemsize, _kind(torch, dtype)
     cases = []
-    shapes = [("B/16 bs=32", 32 * 208, 768, 3072)]
+    shapes = [("B/16 bs=32", 32 * 208, 768, 3072),
+              ("L/16 bs=8", 8 * 208, 1024, 4096)]
     if dtype == torch.bfloat16:
-        # L/16 bs=8 (two passes over the hidden at D = 1024), then ragged
-        # M (one row, a cluster and one row) at D = 128 (the second
-        # warpgroup owns no columns), 384 (two boxes and one), 768, 1024.
-        shapes += [("L/16 bs=8", 8 * 208, 1024, 4096), ("M=1", 1, 128, 128),
+        # Ragged M (one row, a cluster and one row) at D = 128 (the second
+        # warpgroup owns no columns), 384 (two boxes and one), 768, 1024;
+        # L/16 bs=8 takes two passes over the hidden at D = 1024.
+        shapes += [("M=1", 1, 128, 128),
                    ("M=65", 65, 128, 3072), ("M=65", 65, 384, 128),
                    ("M=1", 1, 384, 3072), ("M=65", 65, 768, 128),
                    ("M=1", 1, 1024, 3072), ("M=65", 65, 1024, 128)]
+    else:
+        # The tf32 form at H/14's width (16 rows a block, the sums split
+        # past K = 1024), and the FFMA form on a ctx whose base is 4 bytes
+        # past 16-byte alignment, at B/16 bs=1.
+        shapes += [("H/14 bs=2", 2 * 272, 1280, 5120),
+                   ("misaligned ctx B/16 bs=1", 208, 768, 3072)]
     for tag, m, d, mlp in shapes:
         tail = (rnd(m, d), rnd(m, d, std=1.5), rnd(d, d, std=0.03),
                 rnd(d, std=0.02), rnd(d, std=0.1, mean=1.0),
                 rnd(d, std=0.05), rnd(d, mlp, std=0.03), rnd(mlp, std=0.02),
                 rnd(mlp, d, std=0.03), rnd(d, std=0.02))
+        if tag.startswith("misaligned"):
+            tail = (_misaligned(torch, tail[0]), *tail[1:])
+        # fp32: the products' type of the form K18 runs (mlp_f32_form).
+        form = "tf32" if dtype == torch.bfloat16 else cuda_block.mlp_f32_form(
+            d, mlp, tuple(tail[i].data_ptr() for i in (0, 1, 2, 6, 8)) + (0,))
 
         def run(impl, a=tail):
             fn = reference.layer_tail if impl == "torch" \
@@ -1742,7 +1788,9 @@ def kernel_cases_layer(torch, dtype):
         cases.append(case(
             "layer_block", f"K18 {tag} ({m},{d}) mlp {mlp}", run,
             ((3 * m * d + d * d + 2 * d * mlp + mlp + 5 * d) * e,
-             2 * m * d * (d + 2 * mlp), kind), primary=tag == "B/16 bs=32",
+             2 * m * d * (d + 2 * mlp),
+             _split_kind(torch, dtype) if form == "tf32" else kind),
+            primary=tag == "B/16 bs=32",
             check=twice_bit_for_bit(lambda a=tail: cuda_block.layer_tail(*a)),
             faults=layer_faults(lambda a: cuda_block.layer_tail(*a), tail),
             composed=k18_chain(ops, tail) if m > 1000 else None))

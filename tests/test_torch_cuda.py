@@ -476,10 +476,11 @@ K6_TILES = {(37, 200, 100): "wmma", (130, 1024, 3072): "wgmma",
                                    (5, 24, 9), (300, 520, 264)])
 def test_torch_cuda_fused_linear_ragged(gen, dtype, m, k, n):
     """Every flag combination; K=200 and 520 with LN are the zero-fill
-    trap (K ends inside a 64-deep step). bf16 runs on both tiles: each
-    case asserts the one ``vit_fused_linear`` picks, which is
-    ``gemm_path``'s in bf16 (fp32 K6 stays on the FFMA tile, where K2 has
-    its tf32 tile); with LN two calls agree bit for bit."""
+    trap (K ends inside a step). Both dtypes run on both tiles: each case
+    asserts the one ``vit_fused_linear`` picks, which is ``gemm_path``'s
+    for K2 on the same operands (fp32: the tf32 tile where K and N are
+    multiples of 4, else the FFMA tile); with LN two calls agree bit for
+    bit."""
     from vit_tpu_torch import ops
     from vit_tpu_torch.ops.cuda import matmul as cuda_matmul
 
@@ -489,13 +490,13 @@ def test_torch_cuda_fused_linear_ragged(gen, dtype, m, k, n):
     g = _rnd(gen, dtype, k, std=0.1, mean=1.0)
     beta = _rnd(gen, dtype, k, std=0.2)
     r = _rnd(gen, dtype, m, n)
-    tile = K6_TILES[m, k, n] if dtype == torch.bfloat16 else "ffma"
+    tile = K6_TILES[m, k, n] if dtype == torch.bfloat16 else \
+        "wgmma" if k % 4 == 0 and n % 4 == 0 else "ffma"
     assert cuda_matmul.fused_linear_tile(x, w) == tile
     k2_path = cuda_matmul.gemm_path(m, n, k, dtype, False, False,
                                     (x.data_ptr(), w.data_ptr()),
                                     ((k, 1), (n, 1)))
-    assert k2_path == (tile if dtype == torch.bfloat16 else
-                       "wgmma" if k % 4 == 0 and n % 4 == 0 else "ffma")
+    assert k2_path == tile
     for bias, act, ln, res in ((None, None, False, None),
                                (b, None, True, None), (b, "gelu", True, None),
                                (b, None, False, r), (b, "gelu", True, r),
@@ -1721,6 +1722,97 @@ def test_torch_cuda_layer_tail_bf16_tiles(gen, m, d, mlp):
     for what, bad in faults.items():
         with pytest.raises(AssertionError):
             _close_bf16_bars(bad, want)
+
+
+@pytest.mark.parametrize("m", [1, 65])
+@pytest.mark.parametrize("d,mlp", [(128, 256), (384, 3072), (768, 3072),
+                                   (1024, 4096), (1280, 5120)])
+def test_torch_cuda_layer_tail_fp32_tiles(gen, m, d, mlp):
+    """K18 in fp32 on both forms (``mlp_f32_form``): the tensor-core form
+    (``csrc/mlp_tf32.cuh`` with its LAYER flag) at ragged M (1, 65) and D
+    from 128 to H/14's 1280 (16 rows a block, the sums split past D =
+    1024), within 1e-4 of ``reference.layer_tail``, two calls bit for bit,
+    the first row the same bits in a one-row call, and three planted faults
+    refused (one 64-deep K step of Wout and one 64-row hidden chunk of w2
+    zeroed, the output scaled by 0.85); then the FFMA form on a ctx whose
+    base is 4 bytes past 16-byte alignment, within 1e-4 too."""
+    from vit_tpu_torch.ops import reference
+    from vit_tpu_torch.ops.cuda import block
+
+    f = torch.float32
+    args = (_rnd(gen, f, m, d), _rnd(gen, f, m, d, std=1.5),
+            _rnd(gen, f, d, d, std=0.03), _rnd(gen, f, d, std=0.02),
+            _rnd(gen, f, d, std=0.1, mean=1.0), _rnd(gen, f, d, std=0.05),
+            _rnd(gen, f, d, mlp, std=0.03), _rnd(gen, f, mlp, std=0.02),
+            _rnd(gen, f, mlp, d, std=0.03), _rnd(gen, f, d, std=0.02))
+    ptrs = tuple(args[i].data_ptr() for i in (0, 1, 2, 6, 8)) + (0,)
+    assert block.mlp_f32_form(d, mlp, ptrs) == "tf32"
+    got = block.layer_tail(*args)
+    want = reference.layer_tail(*args)
+    _close(got, want)
+    again = block.layer_tail(*args)
+    one = block.layer_tail(args[0][:1], args[1][:1], *args[2:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(one, got[:1])
+    k0, h0 = d // 2, mlp // 2
+    wout, w2 = args[2].clone(), args[8].clone()
+    wout[k0:k0 + 64] = 0
+    w2[h0:h0 + 64] = 0
+    faults = {"Wout K step": block.layer_tail(*args[:2], wout, *args[3:]),
+              "hidden chunk": block.layer_tail(*args[:8], w2, args[9]),
+              "output * 0.85": got * 0.85}
+    for what, bad in faults.items():
+        with pytest.raises(AssertionError):
+            _close(bad, want)
+    ctx = torch.empty(m * d + 1, device="cuda")[1:].view(m, d)
+    ctx.copy_(args[0])
+    assert block.mlp_f32_form(d, mlp, (ctx.data_ptr(),) + ptrs[1:]) == "ffma"
+    _close(block.layer_tail(ctx, *args[1:]), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 768, 2304), (65, 200, 136),
+                                   (6656, 768, 3072), (130, 1280, 520)])
+def test_torch_cuda_fused_linear_fp32_tiles(gen, m, k, n):
+    """K6 in fp32 on the tf32 tile (``csrc/gemm_tf32.cuh``'s LN prologue)
+    at ragged M, N and K (K = 200 ends inside a 32-deep step) and the B/16
+    fc1 shape, with GELU and a residual: within 1e-4 of the plain version,
+    two calls bit for bit, a row's bits independent of M, one 64-deep K
+    step of w (rows k/2 .. + 63 zeroed) and the output x 0.85 refused;
+    then the FFMA tile on an x 4 bytes past alignment, within 1e-4."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import matmul as cuda_matmul
+
+    f = torch.float32
+    x = _rnd(gen, f, m, k, std=1.5, mean=0.3)
+    w = _rnd(gen, f, k, n, std=0.05)
+    b = _rnd(gen, f, n, std=0.1)
+    g = _rnd(gen, f, k, std=0.1, mean=1.0)
+    beta = _rnd(gen, f, k, std=0.2)
+    r = _rnd(gen, f, m, n)
+    assert cuda_matmul.fused_linear_tile(x, w) == "wgmma"
+
+    def run(xx, ww):
+        return ops.fused_linear(xx, ww, b, "gelu", ln_scale=g, ln_bias=beta,
+                                residual=r[:xx.shape[0]], impl="cuda")
+    got = run(x, w)
+    want = ops.fused_linear(x, w, b, "gelu", ln_scale=g, ln_bias=beta,
+                            residual=r, impl="torch")
+    _close(got, want)
+    again = run(x, w)
+    head = run(x[:1], w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(head, got[:1])
+    cut = w.clone()
+    cut[k // 2:k // 2 + 64] = 0
+    for bad in (run(x, cut), got * 0.85):
+        with pytest.raises(AssertionError):
+            _close(bad, want)
+    xs = torch.empty(m * k + 1, device="cuda")[1:].view(m, k)
+    xs.copy_(x)
+    assert cuda_matmul.fused_linear_tile(xs, w) == "ffma"
+    _close(run(xs, w), want)
 
 
 @pytest.mark.parametrize("b,n,k,d,sp", [

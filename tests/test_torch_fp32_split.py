@@ -367,9 +367,9 @@ def test_unaligned_fp32_views_are_copied_for_the_ffma_tile():
 
 
 def test_the_other_fp32_forms_stay_on_gemm_tile():
-    """K6, K8 and the probes' fp32 GEMMs keep ``gemm_tile.cuh``'s FFMA
-    tile in this form of the port; their tile helpers say so where K2's
-    rule would give K2 the tf32 tile."""
+    """K8 and the probes' fp32 GEMMs keep ``gemm_tile.cuh``'s FFMA tile in
+    this form of the port; their tile helpers say so where K2's rule would
+    give K2 the tf32 tile."""
     p = torch.zeros((2, 196, 768))
     w = torch.zeros((768, 768))
     assert embed_tile(p, w) == "ffma"

@@ -504,11 +504,10 @@ def test_k6_ln_box_covers_the_box_once_without_bank_conflicts():
 def k6_path(x: torch.Tensor, w: torch.Tensor) -> str:
     """The tile ``vit_fused_linear`` runs K6 on for contiguous x (m, k) and
     w (k, n): ``gemm_path``'s choice for K2 on the same operands
-    (``csrc/matmul_wgmma.cu:wgmma_takes`` applies it in the kernel library;
-    the gpu test ``test_torch_cuda_fused_linear_ragged`` holds the two
-    together); fp32 the FFMA tile, where K2 has its tf32 tile."""
-    if x.dtype == torch.float32:
-        return "ffma"
+    (``csrc/matmul_wgmma.cu:wgmma_takes`` in bf16 and
+    ``csrc/matmul_tf32.cu:tf32_takes`` in fp32 apply it in the kernel
+    library; the gpu test ``test_torch_cuda_fused_linear_ragged`` holds the
+    two together)."""
     k, n = w.shape
     return cuda_matmul.gemm_path(x.numel() // k, n, k, x.dtype, False, False,
                                  (x.data_ptr(), w.data_ptr()),
@@ -519,8 +518,8 @@ def k6_path(x: torch.Tensor, w: torch.Tensor) -> str:
 def test_k6_takes_wgmma_on_every_composed_route_call(variant):
     """Every K6 call of the composed route (LN1 + QKV, LN2 + fc1 + GELU,
     contiguous whole allocations) at batches 1-256 takes the wgmma tile,
-    the tile ``gemm_path`` gives K2 on the same operands; fp32 the FFMA
-    tile."""
+    the tile ``gemm_path`` gives K2 on the same operands, in bf16 and in
+    fp32 (its tf32 tile)."""
     cfg = VARIANTS[variant]
     d, mlp = cfg.hidden_dim, cfg.mlp_dim
     sp = -(-cfg.seq_len // 16) * 16
@@ -529,7 +528,7 @@ def test_k6_takes_wgmma_on_every_composed_route_call(variant):
             x = torch.empty((b * sp, d), dtype=torch.bfloat16, device="meta")
             w = torch.empty((d, n), dtype=torch.bfloat16, device="meta")
             assert k6_path(x, w) == "wgmma"
-            assert k6_path(x.float(), w.float()) == "ffma"
+            assert k6_path(x.float(), w.float()) == "wgmma"
 
 
 @pytest.mark.parametrize("offset,k,n,path", [

@@ -50,6 +50,20 @@
 // Bound on the card: at B/16 bs=32's QKV (6656 x 768 @ 768 x 2304, 23.6
 // GFLOP) the three passes at the TF32 rate, 23.6 GFLOP x 3 / 495 TFLOP/s
 // = 0.143 ms (chip_smoke.py: PEAK_OPS_PER_S["tf32x3"]).
+//
+// K6's fp32 form (matmul.cu's fused_linear; gemm_tf32_ln_wgmma in
+// matmul_tf32.cu) is the same walk with an LN prologue in the A fragments:
+// x (m, k) and w (k, n) contiguous, mu and rstd from K5. A consumer thread
+// loads its A fragments from x's raw box as K2 does and normalises each
+// element before the split, ((x - mu) * rstd) * gamma + beta in fp32
+// (gemm_tile.cuh:LnPrologue's order): its two rows' mu and rstd once a
+// tile, its eight columns' gamma and beta each K step (from L1, as each
+// slice is loaded), columns past K exact zeros (TMA's zero x would give
+// beta there, and gamma and beta are not read past K). The helper warps,
+// which K6's bf16 form has normalise x in shared memory, already turn and
+// split B here; the consumers read every A element once in either place,
+// so LN costs them three FFMA-unit operations an element and no
+// shared-memory pass.
 
 #pragma once
 
@@ -85,6 +99,15 @@ constexpr int kProducerRegs = 56;
 constexpr int kConsumerRegs = 224;
 constexpr int kPoolRegs = 256 * kConsumerRegs + 128 * kProducerRegs;
 static_assert(kPoolRegs <= 65536, "one block an SM: 64K registers");
+
+// K6's LN prologue (null in K2's kernels): K5's row statistics mu and rstd
+// (M,), gamma and beta (K,).
+struct Tf32Ln {
+  const float* mu;
+  const float* rstd;
+  const float* gamma;
+  const float* beta;
+};
 
 // The epilogue's operands, Epilogue<float>'s (matmul.cu): bias (N,) and
 // residual (M, N) may be null; vec: out's and the residual's pairs are
@@ -184,6 +207,36 @@ __device__ __forceinline__ void load_a(uint32_t sa, int wgi,
     }
 }
 
+// K6's form of load_a (x as it lies): each element normalised before the
+// split with st[h] = (mu, rstd) of the thread's row g + 8 h and its
+// column's gamma and beta (column k0 + 8 s + q + 4 u of the step at k0,
+// read from L1 as the slice is loaded: the registers hold the tile's sums
+// twice and the fragments); zero where the column is past K.
+__device__ __forceinline__ void load_a_ln(uint32_t sa, int wgi,
+                                          const float2 (&st)[2],
+                                          const Tf32Ln& ln, int k0, int k,
+                                          uint32_t (&ah)[4][4],
+                                          uint32_t (&al)[4][4]) {
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int s = 0; s < kBK / 8; ++s)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = 8 * s + q + 4 * u;
+      const bool in_k = k0 + c < k;
+      const float ga = in_k ? __ldg(ln.gamma + k0 + c) : 0.f;
+      const float be = in_k ? __ldg(ln.beta + k0 + c) : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 64 * wgi + 16 * warp + g + 8 * h;
+        const float v = ld_shared_f32(sa + sw128_f32(r, c));
+        split_tf32(in_k ? (v - st[h].x) * st[h].y * ga + be : 0.f,
+                   ah[s][2 * u + h], al[s][2 * u + h]);
+      }
+    }
+}
+
 // One consumer warpgroup's epilogue: its 64 rows of the tile at (m0, n0).
 __device__ __forceinline__ void epilogue(const float (&d)[64],
                                          const Tf32Epilogue& ep, int m0,
@@ -235,12 +288,15 @@ __device__ __forceinline__ void epilogue(const float (&d)[64],
 // (m, k) @ (k, n) in fp32: A through map_a, B through map_b. TA: A is the
 // view of a (k, m) matrix (four 32 x 32 boxes a step); TB: B is the view of
 // an (n, k) matrix (one 32 x 128 box); else A is one 32 x 128 box of x and
-// B four 32 x 32 boxes of w.
-template <int TA, int TB>
-__global__ void __launch_bounds__(kThreads, 1)
-    gemm_tf32_wgmma(const __grid_constant__ CUtensorMap map_a,
-                    const __grid_constant__ CUtensorMap map_b,
-                    Tf32Epilogue ep, int k) {
+// B four 32 x 32 boxes of w. LN (K6, TA and TB 0): A's elements normalised
+// with ln's statistics and parameters as they are loaded. ep and ln come
+// by value: so K2's kernels compile to the code they had before K6's form
+// shared this walk (tools/sass_count.py --exact).
+template <int TA, int TB, bool LN>
+__device__ __forceinline__ void gemm_tf32_walk(const CUtensorMap& map_a,
+                                               const CUtensorMap& map_b,
+                                               Tf32Epilogue ep, int k,
+                                               Tf32Ln ln) {
   extern __shared__ uint8_t tf_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(tf_smem) + 1023) & ~uintptr_t(1023));
@@ -329,6 +385,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t ph = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile % tiles_m) * kBM, n0 = (tile / tiles_m) * kBN;
+      // LN: this thread's two rows' statistics (zero past M).
+      float2 st[2];
+      if constexpr (LN) {
+        const int r0 = m0 + 64 * wgi + 16 * ((threadIdx.x % 128) / 32) +
+                       (threadIdx.x % 32) / 4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          st[h] = r0 + 8 * h < ep.m
+                      ? make_float2(ln.mu[r0 + 8 * h], ln.rstd[r0 + 8 * h])
+                      : make_float2(0.f, 0.f);
+      }
 #pragma unroll
       for (int i = 0; i < 64; ++i) d[i] = 0.f;
       for (int kb = 0; kb < nk; ++kb) {
@@ -337,7 +404,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t sa = base + s * kStageBytes;
         const uint32_t bhi = sa + 2 * kBox, blo = sa + 3 * kBox;
         uint32_t ah[kBK / 8][4], al[kBK / 8][4];
-        load_a<TA>(sa, wgi, ah, al);
+        if constexpr (LN)
+          load_a_ln(sa, wgi, st, ln, kb * kBK, k, ah, al);
+        else
+          load_a<TA>(sa, wgi, ah, al);
         wg::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBK / 8; ++kk) {
@@ -361,6 +431,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       epilogue(d, ep, m0 + 64 * wgi, n0);
     }
   }
+}
+
+template <int TA, int TB>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_tf32_wgmma(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    Tf32Epilogue ep, int k) {
+  gemm_tf32_walk<TA, TB, false>(map_a, map_b, ep, k, Tf32Ln{});
 }
 
 }  // namespace tf

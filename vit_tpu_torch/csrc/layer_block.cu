@@ -31,10 +31,22 @@
 // bs=32, 0.0715 ms in bf16). What the tile leaves is K3's: every cluster
 // reads the weights from L2, and at D >= 896 fc1 runs in each pass.
 //
-// fp32: true fp32 FFMA (no TF32), 16 rows a block, thread t owning output
-// columns t, t+256, ... in registers, as K3. Shared memory: the ctx rows,
-// then LN2(y), (16 x D), y (16 x D) and the chunk (16 x 256): 208 KB at
-// D=1536, the limit. Rows, D and mlp are masked.
+// fp32, two forms, chosen by geometry alone before the launch
+// (ops/cuda/block.py:mlp_f32_form over ctx, x, out and the weights, the
+// entry point's `form`; neither stands in for the other when a build or a
+// launch fails):
+// - "tf32" (form 1): K3's fp32 tile on the tensor cores with its LAYER flag
+//   (mlp_tf32.cuh, launched by layer_block_tf32.cu), every product three
+//   TF32 passes: the out-projection transposed on the same tile into the
+//   fc2 totals, y written unrounded into the block's rows of out and read
+//   back by TMA for LN2, then K3's chunk loop. Bound: 2*M*D*(D + 2*mlp) in
+//   three TF32 passes, 0.428 ms at B/16 bs=32. Where TMA can read the
+//   operands: 16-byte aligned bases, D and mlp multiples of 4.
+// - "ffma" (form 0): true fp32 FFMA (no TF32), 16 rows a block, thread t
+//   owning output columns t, t+256, ... in registers, as K3's FFMA form.
+//   Shared memory: the ctx rows, then LN2(y), (16 x D), y (16 x D) and the
+//   chunk (16 x 256): 208 KB at D=1536, the limit. Rows, D and mlp are
+//   masked.
 
 #include "mlp_tile.cuh"
 #include "mlp_wgmma.cuh"
@@ -182,6 +194,15 @@ __global__ void __launch_bounds__(kMlpThreads, NJ <= 3 ? 2 : 1)
     }
 }
 
+// layer_block_tf32.cu: the tensor-core form (mlp_tf32.cuh).
+cudaError_t launch_layer_tf32(const float* ctx, const float* x,
+                              const float* wout, const float* bout,
+                              const float* g2, const float* bn2,
+                              const float* w1, const float* b1,
+                              const float* w2, const float* b2, float* out,
+                              int m, int d, int mlp, float eps, int device,
+                              cudaStream_t st);
+
 template <int NJ>
 cudaError_t launch_layer_f32(const float* ctx, const float* x,
                              const float* wout, const float* bout,
@@ -207,8 +228,8 @@ extern "C" int vit_layer_block(const void* ctx, const void* x,
                                const void* g2, const void* bn2,
                                const void* w1, const void* b1, const void* w2,
                                const void* b2, void* out, int m, int d,
-                               int mlp, float eps, int dtype, int device,
-                               void* stream) {
+                               int mlp, float eps, int form, int dtype,
+                               int device, void* stream) {
   using namespace vit;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
@@ -239,7 +260,15 @@ extern "C" int vit_layer_block(const void* ctx, const void* x,
     }
 #undef VIT_LAYER_BF16
   }
-  if (dtype == kF32) {
+  if (dtype == kF32 && form == 1)
+    return launch_layer_tf32(
+        static_cast<const float*>(ctx), static_cast<const float*>(x),
+        static_cast<const float*>(wout), static_cast<const float*>(bout),
+        static_cast<const float*>(g2), static_cast<const float*>(bn2),
+        static_cast<const float*>(w1), static_cast<const float*>(b1),
+        static_cast<const float*>(w2), static_cast<const float*>(b2),
+        static_cast<float*>(out), m, d, mlp, eps, device, st);
+  if (dtype == kF32 && form == 0) {
 #define VIT_LAYER_F32(NJ)                                                     \
   case NJ:                                                                    \
     return launch_layer_f32<NJ>(                                              \

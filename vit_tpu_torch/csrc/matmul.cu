@@ -29,16 +29,20 @@
 // _fused_linear_kernel_nk1, its pallas_call at :388): act(LN(x) @ W + b) +
 // residual, with the row stats mu and rstd computed beforehand by K5
 // (csrc/layernorm.cu), as JAX computes them with layernorm_stats; LN in
-// fp32, ((x - mu) * rstd) * gamma + beta, rounded to bf16 before the
-// product. LN(x) never reaches device memory. In bf16, where TMA can read
-// x and w (wgmma_takes, gemm_path's rule), on the wgmma tile: x's raw box
-// arrives by TMA and the producer warpgroup's idle warps normalise it in
-// shared memory (K5's row stats, each step's gamma and beta loaded before
-// its box arrives, columns past K exact zeros) before the consumers'
-// wgmma reads it (gemm_wgmma.cuh). Elsewhere, and in fp32, each element
-// of an A tile of gemm_tile.cuh is normalised as it is staged (template
-// flag LN). Without LN, the fused_linear wrapper launches K2, which has
-// the same residual epilogue.
+// fp32, ((x - mu) * rstd) * gamma + beta, rounded to the dtype before the
+// product (bf16; fp32 is not rounded). LN(x) never reaches device memory.
+// Where TMA can read x and w (gemm_path's rule on the contiguous operands:
+// wgmma_takes in bf16, tf32_takes in fp32) K6 runs on the dtype's wgmma
+// tile: in bf16 x's raw box arrives by TMA and the producer warpgroup's
+// idle warps normalise it in shared memory (K5's row stats, each step's
+// gamma and beta loaded before its box arrives, columns past K exact
+// zeros) before the consumers' wgmma reads it (gemm_wgmma.cuh); in fp32
+// each consumer thread normalises its A fragments as it loads them from
+// the raw box, before the three-pass split (gemm_tf32.cuh, launched by
+// matmul_tf32.cu; columns past K exact zeros). Elsewhere each element of
+// an A tile of gemm_tile.cuh is normalised as it is staged (template flag
+// LN). Without LN, the fused_linear wrapper launches K2, which has the
+// same residual epilogue.
 //
 // K11, matmul_i8: xq (M, K) int8 @ wq (K, N) int8 with exact int32 sums,
 // then in fp32 (acc * ax[row]) * wscale[col], + bias, GELU, + residual, one
@@ -193,11 +197,17 @@ cudaError_t launch_wgmma_ln(const void* x, const void* w, const void* bias,
                             const void* beta, void* out, int m, int n, int k,
                             int gelu_act, int device, cudaStream_t st);
 bool wgmma_takes(const void* x, const void* w, int n, int k);
-// K2 in fp32 on the tf32 wgmma tile (csrc/matmul_tf32.cu).
+// K2 and K6 in fp32 on the tf32 wgmma tile (csrc/matmul_tf32.cu).
 cudaError_t launch_tf32(const void* x, const void* w, const void* bias,
                         const void* residual, void* out, int m, int n, int k,
                         int gelu_act, int trans_a, int trans_b, int device,
                         cudaStream_t st);
+cudaError_t launch_tf32_ln(const void* x, const void* w, const void* bias,
+                           const void* residual, const float* mu,
+                           const float* rstd, const void* gamma,
+                           const void* beta, void* out, int m, int n, int k,
+                           int gelu_act, int device, cudaStream_t st);
+bool tf32_takes(const void* x, const void* w, int n, int k);
 
 }  // namespace vit
 
@@ -229,12 +239,15 @@ extern "C" int vit_matmul(const void* x, const void* w, const void* bias,
                       trans_b, device, static_cast<cudaStream_t>(stream));
 }
 
-// The tile K6 runs (x, w) on: 1 the bf16 wgmma tile, 0 gemm_tile.cuh's
-// (bf16 wmma, fp32 FFMA). The tile is chosen from these alone, before the
-// launch; vit_fused_linear runs the one this returns.
+// The tile K6 runs (x, w) on: 1 the dtype's wgmma tile (bf16
+// gemm_wgmma.cuh's, fp32 gemm_tf32.cuh's), 0 gemm_tile.cuh's (bf16 wmma,
+// fp32 FFMA). The tile is chosen from these alone, before the launch;
+// vit_fused_linear runs the one this returns.
 extern "C" int vit_fused_linear_tile(const void* x, const void* w, int n,
                                      int k, int dtype) {
-  return dtype == vit::kBF16 && vit::wgmma_takes(x, w, n, k) ? 1 : 0;
+  if (dtype == vit::kBF16) return vit::wgmma_takes(x, w, n, k) ? 1 : 0;
+  if (dtype == vit::kF32) return vit::tf32_takes(x, w, n, k) ? 1 : 0;
+  return 0;
 }
 
 // K6: K2 with the LN prologue, x (m, k) and w (k, n) contiguous; mu, rstd,
@@ -255,9 +268,12 @@ extern "C" int vit_fused_linear(const void* x, const void* w,
   if (err != cudaSuccess) return err;
   if (m <= 0 || n <= 0 || k <= 0 || !(mu && rstd && gamma && beta))
     return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_tf32_ln(x, w, bias, residual, mu32, rs32, gamma, beta, out,
+                          m, n, k, gelu_act, device, st);
   return launch_wgmma_ln(x, w, bias, residual, mu32, rs32, gamma, beta, out,
-                         m, n, k, gelu_act, device,
-                         static_cast<cudaStream_t>(stream));
+                         m, n, k, gelu_act, device, st);
 }
 
 // K11: xq (m, k) int8, ax (m,) fp32, wq (k, n) int8, wscale (n,) fp32; bias

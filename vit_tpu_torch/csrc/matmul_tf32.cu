@@ -1,7 +1,7 @@
-// K2's fp32 launch on the tf32 wgmma tile of gemm_tf32.cuh (see there and
-// matmul.cu): the fp32 tensor maps of both operands, encoded on the host,
-// and one persistent block an SM. It is its own unit so that the other
-// kernels compile as they did without it.
+// K2's and K6's fp32 launches on the tf32 wgmma tile of gemm_tf32.cuh (see
+// there and matmul.cu): the fp32 tensor maps of both operands, encoded on
+// the host, and one persistent block an SM. It is its own unit so that the
+// other kernels compile as they did without it.
 
 #include "gemm_tf32.cuh"
 #include "gemm_tile.cuh"
@@ -19,10 +19,11 @@ EncodeTiledFn encode_tiled();
 
 // A 2-D fp32 tensor map over the rows x cols row-major matrix at p with
 // leading dimension ld (elements), boxes of 32 columns (128 bytes) x
-// box_rows, 128-byte swizzle, zeros outside the matrix (K3's fp32 tile,
-// mlp_block_tf32.cu, encodes its maps with it too).
-bool tensor_map_f32(CUtensorMap* map, const void* p, int rows,
-                           int cols, int ld, int box_rows) {
+// box_rows, 128-byte swizzle, zeros outside the matrix (K3's and K18's fp32
+// tile, mlp_block_tf32.cu and layer_block_tf32.cu, encode their maps with
+// it too).
+bool tensor_map_f32(CUtensorMap* map, const void* p, int rows, int cols,
+                    int ld, int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
@@ -37,13 +38,32 @@ bool tensor_map_f32(CUtensorMap* map, const void* p, int rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+namespace tf {
+
+// K6 in fp32: LN(x) (m, k) @ w (k, n), both contiguous, k = the LN width.
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_tf32_ln_wgmma(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_b,
+                       Tf32Epilogue ep, int k, Tf32Ln ln) {
+  gemm_tf32_walk<0, 0, true>(map_a, map_b, ep, k, ln);
+}
+
+}  // namespace tf
+
 constexpr int kMaxDevices = 64;
 
-template <int TA, int TB>
-cudaError_t launch_tf32_tile(const CUtensorMap& ma, const CUtensorMap& mb,
-                             const tf::Tf32Epilogue& ep, int k, int device,
-                             cudaStream_t st) {
-  auto kernel = tf::gemm_tf32_wgmma<TA, TB>;
+// One launch of a kernel of the tile, K2's (gemm_tf32_wgmma<TA, TB>) or,
+// with LN, K6's: per device, once, the shared-memory limit and the register
+// check; one persistent block an SM, at most one a tile.
+template <int TA, int TB, bool LN, typename... Args>
+cudaError_t launch_tf32_tile(int m, int n, int device, cudaStream_t st,
+                             const Args&... args) {
+  auto kernel = [] {
+    if constexpr (LN)
+      return tf::gemm_tf32_ln_wgmma;
+    else
+      return tf::gemm_tf32_wgmma<TA, TB>;
+  }();
   static int sm_count[kMaxDevices];  // 0 until the device's first launch
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   int& sms = sm_count[device];
@@ -64,12 +84,23 @@ cudaError_t launch_tf32_tile(const CUtensorMap& ma, const CUtensorMap& mb,
     if (err != cudaSuccess) return err;
     sms = count;
   }
-  const long long tiles =
-      static_cast<long long>((ep.m + tf::kBM - 1) / tf::kBM) *
-      ((ep.n + tf::kBN - 1) / tf::kBN);
+  const long long tiles = static_cast<long long>((m + tf::kBM - 1) / tf::kBM) *
+                          ((n + tf::kBN - 1) / tf::kBN);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  kernel<<<grid, tf::kThreads, tf::kSmem, st>>>(ma, mb, ep, k);
+  kernel<<<grid, tf::kThreads, tf::kSmem, st>>>(args...);
   return cudaGetLastError();
+}
+
+// The epilogue of out (m, n): pairs stored as 8 bytes where n, out and the
+// residual allow it.
+tf::Tf32Epilogue tf32_epilogue(const void* bias, const void* residual,
+                               void* out, int m, int n, int gelu_act) {
+  const bool vec =
+      n % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0 &&
+      (!residual || reinterpret_cast<uintptr_t>(residual) % 8 == 0);
+  return tf::Tf32Epilogue{static_cast<const float*>(bias),
+                          static_cast<const float*>(residual),
+                          static_cast<float*>(out), m, n, gelu_act, vec};
 }
 
 // K2 in fp32 on the tf32 tile: x (m, k), or with trans_a the view x.t() of
@@ -86,17 +117,42 @@ cudaError_t launch_tf32(const void* x, const void* w, const void* bias,
   const bool ok_b = trans_b ? tensor_map_f32(&mb, w, n, k, k, tf::kBN)
                             : tensor_map_f32(&mb, w, k, n, n, 32);
   if (!ok_a || !ok_b) return cudaErrorInvalidValue;
-  const bool vec =
-      n % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0 &&
-      (!residual || reinterpret_cast<uintptr_t>(residual) % 8 == 0);
-  const tf::Tf32Epilogue ep{static_cast<const float*>(bias),
-                            static_cast<const float*>(residual),
-                            static_cast<float*>(out), m, n, gelu_act, vec};
+  const tf::Tf32Epilogue ep =
+      tf32_epilogue(bias, residual, out, m, n, gelu_act);
   if (trans_a)
-    return trans_b ? launch_tf32_tile<1, 1>(ma, mb, ep, k, device, st)
-                   : launch_tf32_tile<1, 0>(ma, mb, ep, k, device, st);
-  return trans_b ? launch_tf32_tile<0, 1>(ma, mb, ep, k, device, st)
-                 : launch_tf32_tile<0, 0>(ma, mb, ep, k, device, st);
+    return trans_b ? launch_tf32_tile<1, 1, false>(m, n, device, st, ma, mb,
+                                                   ep, k)
+                   : launch_tf32_tile<1, 0, false>(m, n, device, st, ma, mb,
+                                                   ep, k);
+  return trans_b ? launch_tf32_tile<0, 1, false>(m, n, device, st, ma, mb, ep,
+                                                 k)
+                 : launch_tf32_tile<0, 0, false>(m, n, device, st, ma, mb, ep,
+                                                 k);
+}
+
+// Whether K6 in fp32 takes the tf32 tile (matmul.cu:vit_fused_linear_tile):
+// TMA reads the contiguous x (m, k) and w (k, n) -- 16-byte-aligned bases,
+// k and n multiples of 4 floats, gemm_path's fp32 rule.
+bool tf32_takes(const void* x, const void* w, int n, int k) {
+  return aligned16(x) && aligned16(w) && k % 4 == 0 && n % 4 == 0;
+}
+
+// K6 in fp32 on the tf32 tile (tf32_takes): act(LN(x) @ w + bias) +
+// residual with K5's mu and rstd.
+cudaError_t launch_tf32_ln(const void* x, const void* w, const void* bias,
+                           const void* residual, const float* mu,
+                           const float* rstd, const void* gamma,
+                           const void* beta, void* out, int m, int n, int k,
+                           int gelu_act, int device, cudaStream_t st) {
+  CUtensorMap ma, mb;
+  if (!tensor_map_f32(&ma, x, m, k, k, tf::kBM) ||
+      !tensor_map_f32(&mb, w, k, n, n, 32))
+    return cudaErrorInvalidValue;
+  const tf::Tf32Ln ln{mu, rstd, static_cast<const float*>(gamma),
+                      static_cast<const float*>(beta)};
+  return launch_tf32_tile<0, 0, true>(
+      m, n, device, st, ma, mb,
+      tf32_epilogue(bias, residual, out, m, n, gelu_act), k, ln);
 }
 
 }  // namespace vit

@@ -101,9 +101,34 @@
 // work a step; and at H/14 bs=2 (544 rows) 34 blocks leave most of the
 // card idle.
 //
-// K18 (layer_block.cu) keeps mlp_tile.cuh's FFMA form in fp32; the chunk
-// loop here (run_chunks) takes its fc2 totals seeded by the caller, so a
-// K18 flag can seed them with y + b2 and normalise LN2(y) in place of x.
+// K18's fp32 form (layer_block.cu; layer_block_tf32.cu launches it) is
+// this tile with its LAYER flag (layer_tf32_kernel): y = ctx @ Wout + bout
+// + x, then out = y + b2 + fc2(gelu(fc1(LN2 y))), y never rounded.
+// - The out-projection runs on the same tile, transposed as the MLP's
+//   products: y^T = Wout^T @ ctx^T, Wout's 32 x 128 boxes the A operand
+//   through the weight ring (load_w, as W2's), ctx's BM x 32 boxes the B
+//   operand through the x ring, which the helper warps split with their
+//   K slots permuted and no LN (normalize_box<BM, false>).
+// - Group by group (the walk's order): each 128-column output group's sums
+//   over K = D go into its fc2 totals tot[q] (one wgmma accumulator up to
+//   D = 1024; past it accumulators of K = 128 added on the FFMA units, as
+//   fc1), and ctx's boxes are read again from L2 for each group, as x's
+//   are for each chunk. The other order (K outer, every group's sums
+//   accumulating at once) would read ctx once but needs G accumulators
+//   beside the totals past D = 1024, which the registers do not hold.
+// - Then tot = (tot + bout) + x in fp32, the plain version's order. y, BM x
+//   D fp32, does not fit shared memory beside the rings (no more than
+//   LN(x) does), so it is written unrounded into the block's own rows of
+//   out, which no other block reads; the writes are fenced for the async
+//   proxy, the consumers meet, and their warps compute LN2's row
+//   statistics from out (through L2: the generic loads must see the other
+//   threads' stores) and arrive on the ydone barrier. The producer and the
+//   helpers wait on it; then run_chunks runs unchanged, x's boxes read
+//   from out by TMA, with the totals seeded tot = y + b2 (JAX's acc = y32 +
+//   b2), and the final store overwrites out.
+// Nothing else differs from K3's walk. Bound: operations, 2*M*D*(D +
+// 2*mlp) in three TF32 passes (70.7 GFLOP at B/16 bs=32: 0.428 ms at
+// 495/3 TFLOP/s).
 
 #pragma once
 
@@ -174,7 +199,7 @@ struct Cfg {
   static constexpr int kSmem = kBarOff + kBarBytes + 1024;
   static_assert(kSW >= 4, "four weight stages at least");
   static_assert(kSmem <= kSmemMax, "227 KB a block");
-  static_assert((2 * kSW + 3 * kSX) * 8 <= kBarBytes, "barriers");
+  static_assert((2 * kSW + 3 * kSX + 1) * 8 <= kBarBytes, "barriers");
 };
 
 // The operands of one launch.
@@ -345,8 +370,10 @@ __device__ __forceinline__ void step(float (&acc)[BM / 2],
 // rows x D columns col0 .. col0 + 31): LN(x) in fp32, each 8-column slice's
 // K slots permuted, split into the hi and lo boxes behind it. Unit u is
 // row u / 4, slice u % 4: two 16-byte chunks read, two of hi and two of lo
-// written; eight lanes of a phase hit eight distinct chunks.
-template <int BM>
+// written; eight lanes of a phase hit eight distinct chunks. LN false (K18's
+// ctx boxes): the same copy and split without LN (TMA's zeros past D stay
+// zeros).
+template <int BM, bool LN = true>
 __device__ __forceinline__ void normalize_box(uint32_t raw, const float* gs,
                                               const float* bs,
                                               const float* mean,
@@ -358,6 +385,11 @@ __device__ __forceinline__ void normalize_box(uint32_t raw, const float* gs,
     const float4 v0 = tf::ld_shared_v4(raw + sw128_f32(n, 8 * s));
     const float4 v1 = tf::ld_shared_v4(raw + sw128_f32(n, 8 * s + 4));
     const float e[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    if constexpr (!LN) {
+      tf::st_split4(hi, lo, sw128_f32(n, 8 * s), e[0], e[2], e[4], e[6]);
+      tf::st_split4(hi, lo, sw128_f32(n, 8 * s + 4), e[1], e[3], e[5], e[7]);
+      continue;
+    }
     const float mu = mean[n], rs = rstd[n];
     // D % 4 == 0: each four columns are all inside D or all past it.
     float gv[8] = {}, bv[8] = {};
@@ -409,6 +441,8 @@ struct Smem {
   __device__ __forceinline__ uint32_t xempty(int s) const {
     return xraw(2 * kSX + s);
   }
+  // K18: y and LN2's statistics are in place (the consumer warps arrive).
+  __device__ __forceinline__ uint32_t ydone() const { return xraw(3 * kSX); }
 };
 
 // A ring position: stage s of S, the parity of its current phase.
@@ -467,11 +501,15 @@ __device__ __forceinline__ void run_acc(const Smem<BM>& sm, int wgi,
 // tot on the FFMA units. fc1 sums K = D in one accumulator up to D = 1024
 // (G <= 8; one accumulator held the bar at K = 768-1536 on the card,
 // tools/tf32_probe.py), in accumulators of K = 128 added on the FFMA
-// units beyond (G = 12, where the registers allow it).
+// units beyond (G = 12, where the registers allow it). w and xr: the
+// rings' positions where the chunks start (K18's out-projection runs
+// through both rings first).
 template <int BM, int G>
 __device__ __forceinline__ void run_chunks(const Smem<BM>& sm,
                                            const MlpTf32Args& a, int wgi,
-                                           float (&tot)[G][BM / 2]) {
+                                           float (&tot)[G][BM / 2],
+                                           Ring<Cfg<BM>::kSW>& w,
+                                           Ring<kSX>& xr) {
   constexpr int NV = BM / 2;
   constexpr bool kSplitFc1 = G > 8;
   constexpr int kFc1Steps = kCT / kBK;  // K = 128 an accumulator
@@ -479,8 +517,6 @@ __device__ __forceinline__ void run_chunks(const Smem<BM>& sm,
   const int g = lane / 4, q = lane % 4;
   const int nkd = (a.d + kBK - 1) / kBK, nc = (a.mlp + kCT - 1) / kCT;
   const int ng = (a.d + 127) / 128;
-  Ring<Cfg<BM>::kSW> w;
-  Ring<kSX> xr;
   float part[NV], hacc[NV];
   for (int c = 0; c < nc; ++c) {
     // fc1: h^T = W1[:, chunk]^T @ LN(x)^T, K = D.
@@ -532,12 +568,46 @@ __device__ __forceinline__ void run_chunks(const Smem<BM>& sm,
   }
 }
 
+// K3's chunk loop: both rings from their first stage.
 template <int BM, int G>
-__global__ void __launch_bounds__(kThreads, 1)
-    mlp_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
-                    const __grid_constant__ CUtensorMap map_w1,
-                    const __grid_constant__ CUtensorMap map_w2,
-                    MlpTf32Args a) {
+__device__ __forceinline__ void run_chunks(const Smem<BM>& sm,
+                                           const MlpTf32Args& a, int wgi,
+                                           float (&tot)[G][BM / 2]) {
+  Ring<Cfg<BM>::kSW> w;
+  Ring<kSX> xr;
+  run_chunks<BM, G>(sm, a, wgi, tot, w, xr);
+}
+
+// LN2's statistics of one row of y, K18's, from out, where the block's
+// consumers have just stored it: layernorm_row's arithmetic (row_stats),
+// its loads through L2 (ld.global.cg), which sees the other threads'
+// stores; the read-only path need not.
+__device__ __forceinline__ float2 y_stats(const float* y, int d, float eps,
+                                          int lane) {
+  float s = 0.f;
+  for (int i = lane; i < d; i += 32) s += __ldcg(y + i);
+  const float mean = warp_sum(s) / d;
+  float ss = 0.f;
+  for (int i = lane; i < d; i += 32) {
+    const float c = __ldcg(y + i) - mean;
+    ss += c * c;
+  }
+  return make_float2(mean, rsqrtf(warp_sum(ss) / d + eps));
+}
+
+// The walk of one block, K3's (LAYER false: map_c, map_o and bout unused)
+// or K18's (LAYER: map_x reads y from out, map_c ctx, map_o Wout; a.x is
+// the layer's input rows, a.g and a.b LN2's scale and bias). a comes by
+// value: so K3's kernel compiles to the code it had before K18's form
+// shared this walk (tools/sass_count.py --exact).
+template <int BM, int G, bool LAYER>
+__device__ __forceinline__ void mlp_tf32_walk(const CUtensorMap& map_x,
+                                              const CUtensorMap& map_w1,
+                                              const CUtensorMap& map_w2,
+                                              const CUtensorMap& map_c,
+                                              const CUtensorMap& map_o,
+                                              MlpTf32Args a,
+                                              const float* bout) {
   extern __shared__ uint8_t mt_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(mt_smem) + 1023) & ~uintptr_t(1023));
@@ -549,19 +619,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int m0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // LN's parameters and the BM rows' statistics, by every thread.
+  // LN's parameters and the BM rows' statistics, by every thread (K18's
+  // statistics wait for y).
   for (int i = threadIdx.x; i < a.d; i += kThreads) {
     gs[i] = a.g[i];
     bs[i] = a.b[i];
   }
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    float2 st = make_float2(0.f, 0.f);
-    if (m0 + r < a.m)
-      st = row_stats(a.x + static_cast<size_t>(m0 + r) * a.d, a.d, a.eps,
-                     lane);
-    if (lane == 0) {
-      mean[r] = st.x;
-      rstd[r] = st.y;
+  if constexpr (!LAYER) {
+    for (int r = warp; r < BM; r += kThreads / 32) {
+      float2 st = make_float2(0.f, 0.f);
+      if (m0 + r < a.m)
+        st = row_stats(a.x + static_cast<size_t>(m0 + r) * a.d, a.d, a.eps,
+                       lane);
+      if (lane == 0) {
+        mean[r] = st.x;
+        rstd[r] = st.y;
+      }
     }
   }
   if (threadIdx.x == 0) {
@@ -574,6 +647,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(sm.xfull(s), kHelpThreads / 32);
       mbar_init(sm.xempty(s), 2);
     }
+    if (LAYER) mbar_init(sm.ydone(), 256 / 32);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -597,6 +671,20 @@ __global__ void __launch_bounds__(kThreads, 1)
                    c0 + 32 * j, r0);
         w.next();
       };
+      if constexpr (LAYER) {
+        // The out-projection, group by group: ctx's box, Wout's stage.
+        for (int qg = 0; qg < ng; ++qg)
+          for (int kb = 0; kb < nkd; ++kb) {
+            mbar_wait(sm.xempty(xr.s), xr.ph ^ 1);
+            mbar_expect_tx(sm.xraw(xr.s), Cfg<BM>::kXBox);
+            tma_load(sm.xstage(xr.s), &map_c, sm.xraw(xr.s), kBK * kb, m0);
+            xr.next();
+            load_w_stage(&map_o, 128 * qg, kBK * kb);
+          }
+        // y is in out, written by the consumers' generic stores.
+        mbar_wait(sm.ydone(), 0);
+        asm volatile("fence.proxy.async.global;" ::: "memory");
+      }
       for (int c = 0; c < nc; ++c) {
         for (int kb = 0; kb < nkd; ++kb) {
           mbar_wait(sm.xempty(xr.s), xr.ph ^ 1);
@@ -610,9 +698,23 @@ __global__ void __launch_bounds__(kThreads, 1)
             load_w_stage(&map_w2, 128 * qg, kCT * c + kBK * st);
       }
     } else if (threadIdx.x >= kHelp0) {
-      // ---- LN(x) of each x box, split ----
       const int j = threadIdx.x - kHelp0;
       Ring<kSX> xr;
+      if constexpr (LAYER) {
+        // ---- ctx's boxes, split ----
+        for (int qg = 0; qg < ng; ++qg)
+          for (int kb = 0; kb < nkd; ++kb) {
+            mbar_wait(sm.xraw(xr.s), xr.ph);
+            normalize_box<BM, false>(sm.xstage(xr.s), gs, bs, mean, rstd,
+                                     kBK * kb, a.d, j);
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            __syncwarp();
+            if (j % 32 == 0) mbar_arrive(sm.xfull(xr.s));
+            xr.next();
+          }
+        mbar_wait(sm.ydone(), 0);  // LN2's statistics
+      }
+      // ---- LN(x) of each x box, split ----
       for (int c = 0; c < nc; ++c)
         for (int kb = 0; kb < nkd; ++kb) {
           mbar_wait(sm.xraw(xr.s), xr.ph);
@@ -628,29 +730,96 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
     const int t = threadIdx.x % 128, cw = t / 32, cl = t % 32;
     const int g = cl / 4, q = cl % 4;
+    Ring<Cfg<BM>::kSW> w;
+    Ring<kSX> xr;
     // Group q's value 4 j + 2 i2 + i1 is row 8 j + 2 q + i1, column
     // 128 q + 64 wgi + 16 cw + 2 g + i2: pairs (i2 = 0, 1) are adjacent
     // columns of one row, read and stored as 8 bytes (D % 4 == 0).
     float tot[G][BM / 2];
+    if constexpr (LAYER) {
+      // y^T = Wout^T @ ctx^T, group by group, K = D: one accumulator up to
+      // D = 1024, accumulators of K = 128 added on the FFMA units beyond.
+      constexpr int NV = BM / 2;
+      constexpr int kSteps = kCT / kBK;
 #pragma unroll
-    for (int qg = 0; qg < G; ++qg)
+      for (int qg = 0; qg < G; ++qg) {
+        if (qg < ng) {
+          if constexpr (G > 8) {
+            float part[NV];
+            for (int k0 = 0; k0 < nkd; k0 += kSteps) {
+              run_acc<BM, true>(sm, wgi, w, xr, min(kSteps, nkd - k0), 0,
+                                part, true);
 #pragma unroll
-      for (int j = 0; j < BM / 8; ++j)
-#pragma unroll
-        for (int i1 = 0; i1 < 2; ++i1) {
-          const int col = 128 * qg + 64 * wgi + 16 * cw + 2 * g;
-          const int row = m0 + 8 * j + 2 * q + i1;
-          float2 v = make_float2(0.f, 0.f);
-          if (!a.partial && qg < ng && col < a.d && row < a.m) {
-            v = *reinterpret_cast<const float2*>(
-                a.x + static_cast<size_t>(row) * a.d + col);
-            v.x += a.b2[col];
-            v.y += a.b2[col + 1];
+              for (int i = 0; i < NV; ++i)
+                tot[qg][i] = k0 ? tot[qg][i] + part[i] : part[i];
+            }
+          } else {
+            run_acc<BM, true>(sm, wgi, w, xr, nkd, 0, tot[qg], true);
           }
-          tot[qg][4 * j + i1] = v.x;
-          tot[qg][4 * j + 2 + i1] = v.y;
         }
-    run_chunks<BM, G>(sm, a, wgi, tot);
+      }
+      // y = (ctx @ Wout + bout) + x into the block's rows of out; the
+      // totals become y + b2.
+#pragma unroll
+      for (int qg = 0; qg < G; ++qg)
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+          for (int i1 = 0; i1 < 2; ++i1) {
+            const int col = 128 * qg + 64 * wgi + 16 * cw + 2 * g;
+            const int row = m0 + 8 * j + 2 * q + i1;
+            float2 v = make_float2(0.f, 0.f);
+            if (qg < ng && col < a.d && row < a.m) {
+              const size_t idx = static_cast<size_t>(row) * a.d + col;
+              const float2 xv = *reinterpret_cast<const float2*>(a.x + idx);
+              v.x = (tot[qg][4 * j + i1] + bout[col]) + xv.x;
+              v.y = (tot[qg][4 * j + 2 + i1] + bout[col + 1]) + xv.y;
+              *reinterpret_cast<float2*>(a.out + idx) = v;
+              v.x += a.b2[col];
+              v.y += a.b2[col + 1];
+            }
+            tot[qg][4 * j + i1] = v.x;
+            tot[qg][4 * j + 2 + i1] = v.y;
+          }
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+      consumer_sync();
+      // LN2's statistics: consumer warp cwg takes rows cwg, cwg + 8, ...
+      for (int r = warp; r < BM; r += 256 / 32) {
+        float2 st = make_float2(0.f, 0.f);
+        if (m0 + r < a.m)
+          st = y_stats(a.out + static_cast<size_t>(m0 + r) * a.d, a.d, a.eps,
+                       lane);
+        if (lane == 0) {
+          mean[r] = st.x;
+          rstd[r] = st.y;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.ydone());
+    } else {
+#pragma unroll
+      for (int qg = 0; qg < G; ++qg)
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+          for (int i1 = 0; i1 < 2; ++i1) {
+            const int col = 128 * qg + 64 * wgi + 16 * cw + 2 * g;
+            const int row = m0 + 8 * j + 2 * q + i1;
+            float2 v = make_float2(0.f, 0.f);
+            if (!a.partial && qg < ng && col < a.d && row < a.m) {
+              v = *reinterpret_cast<const float2*>(
+                  a.x + static_cast<size_t>(row) * a.d + col);
+              v.x += a.b2[col];
+              v.y += a.b2[col + 1];
+            }
+            tot[qg][4 * j + i1] = v.x;
+            tot[qg][4 * j + 2 + i1] = v.y;
+          }
+    }
+    if constexpr (LAYER)
+      run_chunks<BM, G>(sm, a, wgi, tot, w, xr);
+    else
+      run_chunks<BM, G>(sm, a, wgi, tot);
 #pragma unroll
     for (int qg = 0; qg < G; ++qg)
 #pragma unroll
@@ -665,6 +834,29 @@ __global__ void __launch_bounds__(kThreads, 1)
                 make_float2(tot[qg][4 * j + i1], tot[qg][4 * j + 2 + i1]);
         }
   }
+}
+
+template <int BM, int G>
+__global__ void __launch_bounds__(kThreads, 1)
+    mlp_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w1,
+                    const __grid_constant__ CUtensorMap map_w2,
+                    MlpTf32Args a) {
+  mlp_tf32_walk<BM, G, false>(map_x, map_w1, map_w2, map_x, map_x, a,
+                              nullptr);
+}
+
+// K18's fp32 form: map_y reads y back from out (m, d), map_c ctx (m, d),
+// map_o Wout (d, d) in 32 x 32 boxes; bout (d,).
+template <int BM, int G>
+__global__ void __launch_bounds__(kThreads, 1)
+    layer_tf32_kernel(const __grid_constant__ CUtensorMap map_y,
+                      const __grid_constant__ CUtensorMap map_w1,
+                      const __grid_constant__ CUtensorMap map_w2,
+                      const __grid_constant__ CUtensorMap map_c,
+                      const __grid_constant__ CUtensorMap map_o,
+                      MlpTf32Args a, const float* bout) {
+  mlp_tf32_walk<BM, G, true>(map_y, map_w1, map_w2, map_c, map_o, a, bout);
 }
 
 }  // namespace mt

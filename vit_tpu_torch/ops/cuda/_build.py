@@ -96,8 +96,9 @@ _SIGNATURES = {
     # partial
     "vit_mlp_block_q": (*(_P,) * 10, _I, _I, _I, _F, _I),
     # ctx, x, wout, bout, ln2 scale, ln2 bias, w1, b1, w2, b2, out, m, d,
-    # mlp, eps
-    "vit_layer_block": (*(_P,) * 11, _I, _I, _I, _F),
+    # mlp, eps, form (fp32: 0 layer_block.cu's FFMA form, 1 mlp_tf32.cuh's
+    # tensor-core tile with its LAYER flag)
+    "vit_layer_block": (*(_P,) * 11, _I, _I, _I, _F, _I),
     # x, out, b, c, h, w, p
     "vit_patchify": (_P, _P, _I, _I, _I, _I, _I),
     # x, out, rows, cols, grid x, grid y, then (op, rhs) for axes 0, 1, 2

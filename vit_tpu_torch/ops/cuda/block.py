@@ -33,8 +33,12 @@ bf16 K18 is K3's ``wgmma`` cluster tile with the out-projection in front
 (``csrc/mlp_wgmma.cuh``): y lives in the fc2 accumulators' registers, split
 between the cluster's two blocks by columns, and seeds them (``y + b2``);
 at D >= 896 the second pass's y waits unrounded in the output's own bytes.
-In fp32 y sits in registers and shared memory (``csrc/layer_block.cu``).
-K18 counts as ``layer_block``.
+In fp32 K18 takes the form :func:`mlp_f32_form` gives for ctx, x, out and
+the weights: where TMA can read them K3's fp32 tile on the tensor cores
+with its K18 flag (``csrc/mlp_tf32.cuh``: the out-projection into the fc2
+totals, y written unrounded into the output's own rows and read back for
+LN2, three TF32 passes a product), else the FFMA form, y in registers and
+shared memory (``csrc/layer_block.cu``). K18 counts as ``layer_block``.
 """
 
 from __future__ import annotations
@@ -61,13 +65,15 @@ MLP_F32_FORMS = {"ffma": 0, "tf32": 1}
 
 
 def mlp_f32_form(d: int, mlp: int, ptrs: tuple[int, ...]) -> str:
-    """The form K3 runs an fp32 MLP of width ``d`` and hidden ``mlp`` in:
-    ``"tf32"`` (``csrc/mlp_tf32.cuh``: the tensor cores, three TF32
-    passes) where TMA can read x, w1 and w2 -- their bases (``ptrs``,
-    bytes) and the output's 16-byte aligned, rows of ``d`` and ``mlp``
+    """The form K3 runs an fp32 MLP of width ``d`` and hidden ``mlp`` in,
+    and K18 its fp32 layer tail: ``"tf32"`` (``csrc/mlp_tf32.cuh``: the
+    tensor cores, three TF32 passes) where TMA can read the operands --
+    their bases (``ptrs``, bytes: K3's x, w1, w2 and output; K18's ctx, x,
+    output, wout, w1 and w2) 16-byte aligned, rows of ``d`` and ``mlp``
     floats multiples of 16 bytes -- else ``"ffma"`` (``csrc/mlp_tile.cuh``,
-    true fp32). Geometry alone decides, before the launch; neither form
-    stands in for the other when a build or a launch fails."""
+    ``csrc/layer_block.cu``: true fp32). Geometry alone decides, before the
+    launch; neither form stands in for the other when a build or a launch
+    fails."""
     if not 0 < d <= MLP_F32_MAX_D or mlp <= 0:
         raise ValueError(f"fp32 mlp_block takes 0 < D <= {MLP_F32_MAX_D} "
                          f"and mlp > 0, got D={d}, mlp={mlp}")
@@ -277,8 +283,9 @@ def _check_tail(x: torch.Tensor, wout, bout, ln2_scale, ln2_bias, w1, b1,
                 w2, b2) -> int:
     """Check K18's operands for the input rows ``x`` (..., D); return
     mlp."""
-    # K18's width limits are K3's: in bf16 it is K3's tile, and in fp32
-    # its ctx, y and chunk rows fill 208 KB of shared memory at D=1536.
+    # K18's width limits are K3's: it is K3's tile in bf16 and in fp32's
+    # tf32 form, and the fp32 FFMA form's ctx, y and chunk rows fill 208 KB
+    # of shared memory at D=1536.
     mlp = _check_mlp(x, ln2_scale, ln2_bias, w1, b1, w2, b2, "layer_block",
                      ln="ln2")
     d = x.shape[-1]
@@ -307,8 +314,10 @@ def layer_tail(ctx: torch.Tensor, x: torch.Tensor, wout, bout, ln2_scale,
     if m == 0:
         raise ValueError("layer_block of an empty tensor")
     out = torch.empty_like(x)
+    form = 0 if x.dtype == torch.bfloat16 else MLP_F32_FORMS[mlp_f32_form(
+        d, mlp, tuple(t.data_ptr() for t in (ctx, x, out, wout, w1, w2)))]
     _build.launch("vit_layer_block", ctx, x, wout, bout, ln2_scale, ln2_bias,
-                  w1, b1, w2, b2, out, m, d, mlp, float(eps), like=x)
+                  w1, b1, w2, b2, out, m, d, mlp, float(eps), form, like=x)
     count_launch("layer_block")
     return out
 

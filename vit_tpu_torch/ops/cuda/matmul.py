@@ -11,13 +11,15 @@ as the transpose of a contiguous matrix where it lies -- in bf16
 TF32 split of ``csrc/tf32_split.cuh``, JAX's ``Precision.HIGHEST``
 counterpart) -- or ``gemm_tile.cuh``'s tile (bf16 ``wmma``, true-fp32
 FFMA), which reads contiguous operands only: the wrapper copies a
-transposed operand for it. K6 runs on the bf16 ``wgmma`` tile or
-``gemm_tile.cuh``'s (fp32 always there), by the same rule on its
-contiguous operands, which ``vit_fused_linear`` applies itself before the
-launch (:func:`fused_linear_tile` asks it): on the ``wgmma`` tile x's raw
-box arrives by TMA and the producer warpgroup's three idle warps normalise
-it in place in shared memory before the consumers' ``wgmma`` reads it; on
-``gemm_tile.cuh``'s each element is normalised as it is staged."""
+transposed operand for it. K6 runs on the dtype's ``wgmma`` tile or on
+``gemm_tile.cuh``'s, by the same rule on its contiguous operands, which
+``vit_fused_linear`` applies itself before the launch
+(:func:`fused_linear_tile` asks it): on the bf16 ``wgmma`` tile x's raw box
+arrives by TMA and the producer warpgroup's three idle warps normalise it
+in place in shared memory before the consumers' ``wgmma`` reads it; on the
+fp32 one (``csrc/gemm_tf32.cuh``) each consumer thread normalises its A
+fragments as it loads them from the raw box, before the three-pass split;
+on ``gemm_tile.cuh``'s each element is normalised as it is staged."""
 
 from __future__ import annotations
 
@@ -130,9 +132,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
 
 def fused_linear_tile(x: torch.Tensor, w: torch.Tensor) -> str:
     """The tile ``vit_fused_linear`` picks for contiguous x and w before it
-    launches (``csrc/matmul.cu:vit_fused_linear_tile``): ``"wgmma"``, or
-    ``gemm_tile.cuh``'s (``"wmma"`` in bf16, ``"ffma"`` in fp32). The rule
-    is :func:`gemm_path`'s for K2 on the same contiguous operands."""
+    launches (``csrc/matmul.cu:vit_fused_linear_tile``): ``"wgmma"`` (the
+    dtype's: bf16 ``gemm_wgmma.cuh``'s, fp32 ``gemm_tf32.cuh``'s three-pass
+    TF32 split), or ``gemm_tile.cuh``'s (``"wmma"`` in bf16, ``"ffma"`` in
+    fp32). The rule is :func:`gemm_path`'s for K2 on the same contiguous
+    operands."""
     k, n = w.shape
     tile = _build.library().vit_fused_linear_tile(
         x.data_ptr(), w.data_ptr(), n, k, _build.DTYPE_CODES[x.dtype])

@@ -33,9 +33,11 @@ fused=True)`` (K6), the int8 forward (``forward_quant``; also with
 ``int8_dot=False`` and at L/16-384 bs=8), the B/16 bs=1 forwards in bf16
 and int8 and the L/16 bs=1 bf16 forward (the stack route, K9), the
 L/16-384 bs=8 bf16 forward (the composed route, K6), the B/16 bs=32 bf16
-train step, and the B/16 bs=32 fp32 forward and train step (K2's and K13's
-fp32 forms; K2's fp32 ``g @ w.t()`` and ``x.t() @ g`` are kernel cases
-too). A checkout whose K2 reads no transposed view (no
+train step, and the B/16 bs=32 fp32 forward (default route and
+``layer_block=True``, K18's fp32 form) and train step (K2's, K6's and
+K13's fp32 forms; K2's fp32 ``g @ w.t()`` and ``x.t() @ g`` are kernel
+cases too, and so are K18's fp32 form at B/16 bs=32 and L/16 bs=8 beside
+K2 -> K3 and K6's at L/16-384 and the B/16 QKV beside K1 -> K2). A checkout whose K2 reads no transposed view (no
 ``ops.cuda.matmul.gemm_path``) gets contiguous copies first, as its
 backward made them. Trees run in turns (other, this, this, other), each in
 its own process that builds that checkout's kernels into the checkout's
@@ -157,6 +159,17 @@ CASES = {
                         "K18 B/16", False),
     "layer_block_k18_l16": ("kernel_cases_layer", "bfloat16", "layer_block",
                             "K18 L/16", False),
+    # K18's and K6's fp32 forms (three TF32 passes on K3's and K2's tiles):
+    # K18 at B/16 bs=32 and L/16 bs=8, each beside K2 -> K3; K6 at
+    # L/16-384's LN + QKV and the B/16 train step's, each beside K1 -> K2.
+    "layer_block_k18_float32": ("kernel_cases_layer", "float32",
+                                "layer_block", "K18 B/16", False),
+    "layer_block_k18_l16_float32": ("kernel_cases_layer", "float32",
+                                    "layer_block", "K18 L/16", False),
+    "fused_linear_ln_float32": ("kernel_cases_l16_384", "float32",
+                                "fused_linear", "LN ", False),
+    "fused_linear_b16_float32": ("kernel_cases", "float32", "fused_linear",
+                                 "LN (6656,768)@(768,2304)", False),
     # K12 at B/16 bs=32 and H/14 bs=2 (D = 1280), each beside the same MLP
     # as K10 -> K11 -> K10 -> K11 (the case's composed chain).
     "mlp_i8_b16": ("kernel_cases_int8", "bfloat16", "mlp_block_i8dot",
@@ -344,6 +357,8 @@ p32 = init_params(cfg32, generator=gen, device="cuda")
 px32 = px.float()
 with torch.inference_mode():
     res["forward_fp32"] = times(lambda: forward(p32, px32, cfg32), iters=10)
+    res["forward_fp32_layer"] = times(
+        lambda: forward(p32, px32, cfg32, layer_block=True), iters=10)
 init_fn, step_fn = make_train_step(cfg32, make_optimizer(1e-4, 0.05))
 opt = init_fn(p32)
 res["train_step_fp32"] = times(lambda: step_fn(p32, opt, px32, labels),
