@@ -13,8 +13,14 @@ without printing the final ``ok`` line:
    (bs=8: 8 x 592 = 4736 rows, D=1024, 16 heads of 64), ``embed_fused`` at
    B/16 (bs=4 and 1), H/14 (bs=2, K=588) and L/16-384 (bs=4, phase 7's
    bucket), in bf16 on the ``wgmma`` tile bit for bit with K2 -> cast ->
-   ``+ pos`` (``k8_check``; H/14 on ``gemm_tile.cuh``), each timed beside
-   K2 on the same operands; K18 ``layer_tail`` at B/16 bs=32, L/16 bs=8
+   ``+ pos`` (``k8_check``; H/14 on ``gemm_tile.cuh``), in fp32 also at
+   H/14 bs=1 and at B/16 bs=1 on a misaligned base, on the tf32 tile (the
+   misaligned case on FFMA) bit for bit with K2's fp32 + ``pos`` and over
+   two calls, each timed beside K2 on the same operands (fp32 also beside
+   ``addmm``); K10 (``k10_case``) at B/16, L/16-384 and H/14 widths with
+   LN and on an fp32 context, and on B/16's model=4 context shard (D =
+   192, the scalar form), two calls bit for bit and, in the row form, bit
+   for bit with the scalar form; K18 ``layer_tail`` at B/16 bs=32, L/16 bs=8
    and, in bf16, ragged M (1, 65) at D = 128-1024, in fp32 H/14 bs=2 (D =
    1280) on the tensor-core form and B/16 bs=1 on the FFMA form (a ctx 4
    bytes past alignment), two calls bit for bit,
@@ -1152,10 +1158,11 @@ def _stack_work(b, sp, s, d, mlp, heads, layers, e, kind, w_e=None):
 
 def kernel_cases_small_batch(torch, dtype):
     """Kernel cases of the small-batch route: K8 at the B/16 embedding
-    (bs=4: 196 patches of 768 into 208 rows), the H/14 one (bs=2: 256
-    patches of 588 into 272 rows of 1280) and, last, the L/16-384 one of
-    phase 7's bucket 4 (576 patches of 768 into 592 rows of 1024), whose
-    bf16 time the kernels line reports; K9 in both forms as the whole
+    (bs=4 and 1: 196 patches of 768 into 208 rows), the H/14 one (bs=2:
+    256 patches of 588 into 272 rows of 1280; in fp32 also bs=1, and B/16
+    bs=1 on a misaligned base, K8's FFMA rule) and, last, the L/16-384 one
+    of phase 7's bucket 4 (576 patches of 768 into 592 rows of 1024),
+    whose time the kernels line reports; K9 in both forms as the whole
     12-layer B/16 encoder at bs=1 and bs=2, 197 of 208 tokens, with the
     random B/16 weights of ``init_params``."""
     from vit_tpu_torch import ops
@@ -1165,16 +1172,26 @@ def kernel_cases_small_batch(torch, dtype):
     rnd = _rnd_fn(torch, dtype, 5)
     e, kind = dtype.itemsize, _kind(torch, dtype)
     cases = []
-    for b, n, k, d, sp in ((4, 196, 768, 768, 208), (2, 256, 588, 1280, 272),
-                           (1, 196, 768, 768, 208),
-                           (4, 576, 768, 1024, 592)):
-        args = (rnd(b, n, k), rnd(k, d, std=0.03), rnd(d, std=0.1), rnd(d),
-                rnd(n, d))
+    shapes = [(4, 196, 768, 768, 208, False), (2, 256, 588, 1280, 272, False),
+              (1, 196, 768, 768, 208, False)]
+    if dtype == torch.float32:
+        # H/14 bs=1 on the tf32 tile (K = 588: its last 32-deep step
+        # ragged), and B/16 bs=1 with the patches one float past an
+        # aligned base, which TMA cannot read: the FFMA rule.
+        shapes += [(1, 256, 588, 1280, 272, False),
+                   (1, 196, 768, 768, 208, True)]
+    shapes.append((4, 576, 768, 1024, 592, False))
+    for b, n, k, d, sp, off in shapes:
+        pt = rnd(b, n, k)
+        args = (_misaligned(torch, pt) if off else pt, rnd(k, d, std=0.03),
+                rnd(d, std=0.1), rnd(d), rnd(n, d))
         cases.append(case(
-            "embed_fused", f"({b},{n},{k})@({k},{d}) -> ({b},{sp},{d})",
+            "embed_fused", f"({b},{n},{k}){' misaligned ' if off else ''}"
+            f"@({k},{d}) -> ({b},{sp},{d})",
             lambda impl, a=args, sp=sp: ops.embed_fused(*a, sp, impl=impl),
             ((b * n * k + k * d + n * d + 2 * d + b * sp * d) * e,
-             2 * b * n * k * d, kind), check=k8_check(torch, args, sp),
+             2 * b * n * k * d, kind if off else _split_kind(torch, dtype)),
+            check=k8_check(torch, args, sp, off),
             faults=gemm_faults(torch, lambda pt, a=args, sp=sp:
                                ops.embed_fused(pt, *a[1:], sp), args[0], 2,
                                start=256),
@@ -1225,11 +1242,14 @@ def kernel_cases_small_batch(torch, dtype):
     return cases
 
 
-def k8_check(torch, args, sp: int):
-    """K8's bar: the kernel bar against the plain version and, in bf16 on
-    the ``wgmma`` tile (``ops.cuda.embed.embed_tile``), every token row
-    bit for bit with K2 on the same operands, cast, then ``+ pos`` in bf16
-    (row 0 ``cls_row``, the pad rows zero)."""
+def k8_check(torch, args, sp: int, misaligned: bool = False):
+    """K8's bar: the kernel bar against the plain version and, on the
+    ``wgmma`` tiles (``ops.cuda.embed.embed_tile``; in fp32 also on the
+    FFMA tile of the misaligned case), every token row bit for bit with K2
+    on the same operands, cast, then ``+ pos`` in the dtype (row 0
+    ``cls_row``, the pad rows zero). In fp32 the tile is asserted (the
+    tf32 tile unless the patches are ``misaligned``) and two calls must
+    give the same bits."""
     from vit_tpu_torch import ops
 
     def check(torch, got, want, dtype):
@@ -1238,8 +1258,15 @@ def k8_check(torch, args, sp: int):
         from vit_tpu_torch.ops.cuda.embed import embed_tile
 
         res = compare(torch, got, want, dtype)
-        if dtype == torch.bfloat16 and embed_tile(args[0], args[1]) == \
-                "wgmma":
+        tile = embed_tile(args[0], args[1])
+        res["tile"] = tile
+        if dtype == torch.float32:
+            if tile != ("ffma" if misaligned else "wgmma"):
+                raise AssertionError(f"fp32 K8 on the {tile} tile")
+            if not torch.equal(got, ops.embed_fused(*args, sp)):
+                raise AssertionError("two calls differ")
+            res["two_calls_bit_for_bit"] = True
+        if dtype == torch.float32 or tile == "wgmma":
             b, n, k = args[0].shape
             chain = torch.zeros_like(got)
             chain[:, 0] = args[3]
@@ -1346,16 +1373,74 @@ def kernel_cases_stack_tile(torch, dtype):
     return cases
 
 
+def k10_scalar_form(torch, x, ln=None):
+    """K10's scalar form (``common.cuh:quantize_row``, K12's prologue) on
+    the rows of ``x``, launched through the C entry point whatever
+    ``quantize_rows_form`` gives: the yardstick of the row form's bits."""
+    from vit_tpu_torch.ops.cuda import _build
+    from vit_tpu_torch.ops.cuda.quant import QUANTIZE_ROWS_FORMS
+
+    m, d = x.shape
+    q = torch.empty((m, d), dtype=torch.int8, device=x.device)
+    a = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    _build.launch("vit_quantize_rows", x, *(ln or (None, None)), q, a, m, d,
+                  1e-12, QUANTIZE_ROWS_FORMS["scalar"], like=x)
+    return q, a
+
+
+def k10_case(ops, label: str, x, ln=None, *, primary: bool = False):
+    """A K10 case on the rows of ``x`` (M, D), with LN (``ln`` = (gamma,
+    beta)) or without: bit for bit with the plain version without LN, the
+    flip bar with it (:func:`compare_codes`), and in both two calls bit for
+    bit and, where ``quantize_rows_form`` gives the row form, bit for bit
+    with the scalar form (``common.cuh:quantize_row``, K12's prologue)."""
+    m, d = x.shape
+    e = x.element_size()
+    kw = {} if ln is None else {"ln_scale": ln[0], "ln_bias": ln[1]}
+
+    def check(torch, got, want, dtype):
+        # Imported here: tools/turns.py builds these cases against older
+        # checkouts too, whose K10 has one form.
+        from vit_tpu_torch.ops.cuda import quant as cuda_quant
+
+        res = (compare_codes if ln else compare_exact)(torch, got, want,
+                                                       dtype)
+        if not all(torch.equal(a, b)
+                   for a, b in zip(got, ops.quantize_rows(x, **kw))):
+            raise AssertionError("two calls differ")
+        res["two_calls_bit_for_bit"] = True
+        res["form"] = cuda_quant.quantize_rows_form(d)
+        if res["form"] == "row":
+            scalar = k10_scalar_form(torch, x, ln)
+            if not all(torch.equal(a, b) for a, b in zip(got, scalar)):
+                raise AssertionError("not bit for bit with the scalar form")
+            res["scalar_form_bit_for_bit"] = True
+        return res
+
+    work = ((m * d * (e + 1) + 4 * m + 2 * d * e, 10 * m * d, "fp32") if ln
+            else (m * d * (e + 1) + 4 * m, 3 * m * d, "fp32"))
+    return case("quantize_rows", label,
+                lambda impl: ops.quantize_rows(x, impl=impl, **kw), work,
+                check=check, primary=primary)
+
+
 def kernel_cases_int8(torch, dtype):
     """The int8 kernels at the main paths' shapes: B/16 bs=32 (M=6656,
     D=768, MLP 3072; K11's QKV case is the one the kernels line reports,
     with ``torch._int_mm`` as its yardstick), L/16-384 bs=8 (attention at
     592 tokens through K7 with an fp32 output) and H/14 bs=2 (D=1280, MLP
-    5120, fc2's K=5120); ``attn_block_q`` whole at B/16 and L/16-384."""
+    5120, fc2's K=5120); K10 (:func:`k10_case`) with LN and on an fp32
+    context at each of the three widths (row form), and on B/16's model=4
+    context shard (D = 192, scalar form); ``attn_block_q`` whole at B/16
+    and L/16-384."""
     from vit_tpu_torch import ops
     from vit_tpu_torch.quant import quantize_weight
 
     rnd = _rnd_fn(torch, dtype, 9)
+    # The fp32 context and hidden rows from a generator of their own, so
+    # that a process draws the same ones wherever it builds these cases
+    # (tools/turns.py compares their outputs' bits across checkouts).
+    gen32 = torch.Generator(device="cuda").manual_seed(10)
     e = dtype.itemsize
     cases = []
 
@@ -1375,9 +1460,10 @@ def kernel_cases_int8(torch, dtype):
         w1, w2 = qw(d, mlp, std=0.03), qw(mlp, d, std=0.03)
         bqkv, b_d, b_m = rnd(3 * d, std=0.02), rnd(d, std=0.02), rnd(mlp)
         xq, ax = ops.quantize_rows(x, ln_scale=g, ln_bias=beta, impl="torch")
-        ctx = torch.randn((m, d), device="cuda")
+        ctx = torch.randn((m, d), generator=gen32, device="cuda")
         cq, ac = ops.quantize_rows(ctx, impl="torch")
-        hq, ah = ops.quantize_rows(torch.randn((m, mlp), device="cuda"),
+        hq, ah = ops.quantize_rows(torch.randn((m, mlp), generator=gen32,
+                                               device="cuda"),
                                    impl="torch")
         qkv = rnd(m, 3 * d)
         q, k, v = qkv.view(b, sp, 3, heads, hd).permute(2, 0, 3, 1, 4)
@@ -1385,15 +1471,9 @@ def kernel_cases_int8(torch, dtype):
         att_ops = attention_ops(b, heads, sp, s, hd)
         if tag != "L/16-384":
             cases += [
-                case("quantize_rows", f"{tag} LN ({m},{d})",
-                     lambda impl, x=x, g=g, beta=beta: ops.quantize_rows(
-                         x, ln_scale=g, ln_bias=beta, impl=impl),
-                     (m * d * (e + 1) + 4 * m + 2 * d * e, 10 * m * d,
-                      "fp32"), check=compare_codes, primary=main),
-                case("quantize_rows", f"{tag} fp32 context ({m},{d})",
-                     lambda impl, c=ctx: ops.quantize_rows(c, impl=impl),
-                     (m * d * 5 + 4 * m, 3 * m * d, "fp32"),
-                     check=compare_exact, primary=False),
+                k10_case(ops, f"{tag} LN ({m},{d})", x, (g, beta),
+                         primary=main),
+                k10_case(ops, f"{tag} fp32 context ({m},{d})", ctx),
                 case("matmul_i8", f"{tag} ({m},{mlp})@({mlp},{d})"
                      "+bias+residual",
                      lambda impl, a=(hq, ah, w2, b_d, x): ops.matmul_i8(
@@ -1438,6 +1518,15 @@ def kernel_cases_int8(torch, dtype):
                                   a[3]["scale"], a[4], a[5]["q"],
                                   a[5]["scale"], a[6])),
             ]
+        if tag == "L/16-384":
+            cases += [k10_case(ops, f"{tag} LN ({m},{d})", x, (g, beta)),
+                      k10_case(ops, f"{tag} fp32 context ({m},{d})", ctx)]
+        if main:
+            # The context rows of a model=4 shard (dl = 192): the scalar
+            # form.
+            cases.append(k10_case(
+                ops, f"{tag} model=4 context shard ({m},192)",
+                ctx[:, :192].contiguous()))
         if tag != "H/14":
             cases += [
                 case("flash_attention", f"{tag} fp32 output, packed qkv "

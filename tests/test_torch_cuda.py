@@ -1857,6 +1857,105 @@ def test_torch_cuda_embed_fused_bf16_tiles(gen, b, n, k, d, sp):
     _close_bf16_bars(got, ops.embed_fused(*args, sp, impl="torch"))
 
 
+@pytest.mark.parametrize("b,n,k,d,sp,off", [
+    (1, 196, 768, 768, 208, 0), (4, 196, 768, 768, 208, 0),
+    (4, 576, 768, 1024, 592, 0), (1, 256, 588, 1280, 272, 0),
+    (3, 50, 72, 256, 64, 0), (1, 196, 768, 768, 208, 1),
+    (2, 20, 36, 128, 32, 1)])
+def test_torch_cuda_embed_fused_fp32_tiles(gen, b, n, k, d, sp, off):
+    """K8 in fp32 on the tile ``embed_tile`` names, held to the library's
+    rule (``tf32_takes``, read through ``vit_fused_linear_tile``): the
+    tf32 tile at B/16 bs=1 and 4, L/16-384 bs=4, H/14 bs=1 (K = 588, its
+    last 32-deep step ragged) and a ragged (M, K, D); ``gemm_tile.cuh``'s
+    FFMA form where the patches lie ``off`` floats past an aligned base.
+    Every row bit for bit with K2 on the same operands + ``pos`` (row 0
+    ``cls_row``, the pad rows zero), two calls bit for bit, 1e-4 against
+    the plain version, one launch."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import _build, launch_counts
+    from vit_tpu_torch.ops.cuda import reset_launch_counts
+    from vit_tpu_torch.ops.cuda.embed import embed_tile
+
+    f32 = torch.float32
+    pt = _rnd(gen, f32, b, n, k)
+    if off:
+        buf = torch.empty(pt.numel() + off, device="cuda")
+        pt = buf[off:].view(b, n, k).copy_(pt)
+    args = (pt, _rnd(gen, f32, k, d, std=0.03), _rnd(gen, f32, d, std=0.1),
+            _rnd(gen, f32, d), _rnd(gen, f32, n, d))
+    tile = embed_tile(args[0], args[1])
+    assert tile == ("ffma" if off else "wgmma")
+    assert bool(_build.library().vit_fused_linear_tile(
+        args[0].data_ptr(), args[1].data_ptr(), d, k,
+        _build.DTYPE_CODES[f32])) == (tile == "wgmma")
+    reset_launch_counts()
+    got = ops.embed_fused(*args, sp, impl="cuda")
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(embed_fused=1)
+    again = ops.embed_fused(*args, sp, impl="cuda")
+    chain = torch.zeros_like(got)
+    chain[:, 0] = args[3]
+    chain[:, 1:n + 1] = ops.matmul(args[0].reshape(b * n, k), args[1],
+                                   args[2]).reshape(b, n, d) + args[4]
+    torch.cuda.synchronize()
+    assert torch.equal(got, chain)
+    assert torch.equal(got, again)
+    _close(got, ops.embed_fused(*args, sp, impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d,form", [
+    (5000, 768, "row"), (2000, 1024, "row"), (3000, 1280, "row"),
+    (4097, 384, "row"), (33, 128, "row"), (3000, 192, "scalar"),
+    (37, 776, "scalar"), (5, 1408, "scalar")])
+@pytest.mark.parametrize("ln", [False, True])
+def test_torch_cuda_quantize_rows_forms(gen, dtype, rows, d, form, ln):
+    """K10's two forms: ``quantize_rows_form`` as the library takes it
+    (the row form refused where the rule does not give it), and what the
+    wrapper runs bit for bit with the scalar form (``common.cuh:
+    quantize_row``, K12's prologue, launched at any D) with and without
+    LN, at more rows than the card holds warps (grid-strided); two calls
+    bit for bit; the plain version's bits without LN, its flip bar with
+    it."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import _build
+    from vit_tpu_torch.ops.cuda import quant as cuda_quant
+
+    assert cuda_quant.quantize_rows_form(d) == form
+    x = _rnd(gen, dtype, rows, d, std=2.0, mean=0.5)
+    x[1] = 0
+    kw = {}
+    if ln:
+        kw = dict(ln_scale=_rnd(gen, dtype, d, std=0.1, mean=1.0),
+                  ln_bias=_rnd(gen, dtype, d, std=0.05))
+    got = cuda_quant.quantize_rows(x, **kw)
+    again = cuda_quant.quantize_rows(x, **kw)
+
+    def launch(form):
+        q = torch.empty((rows, d), dtype=torch.int8, device="cuda")
+        a = torch.empty((rows, 1), device="cuda")
+        _build.launch("vit_quantize_rows", x, kw.get("ln_scale"),
+                      kw.get("ln_bias"), q, a, rows, d, 1e-12,
+                      cuda_quant.QUANTIZE_ROWS_FORMS[form], like=x)
+        return q, a
+    scalar = launch("scalar")
+    (qw, aw) = ops.quantize_rows(x, impl="torch", **kw)
+    torch.cuda.synchronize()
+    for a, b_, c in zip(got, scalar, again):
+        assert torch.equal(a, b_) and torch.equal(a, c)
+    q, a = got
+    if not ln:
+        assert torch.equal(q, qw) and torch.equal(a, aw)
+    else:
+        assert ((a - aw).abs() <= 1e-5 * aw).all()
+        flips = (q.int() - qw.int()).abs()
+        assert flips.max() <= 1 and flips.float().mean() <= 1e-3
+    if form == "scalar":
+        # The library refuses the row form where the rule does.
+        with pytest.raises(RuntimeError, match="vit_quantize_rows"):
+            launch("row")
+
+
 def test_torch_cuda_layer_block_checks_inputs(gen):
     """Shapes K18 does not take raise before any launch."""
     from vit_tpu_torch import ops

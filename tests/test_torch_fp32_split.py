@@ -367,13 +367,16 @@ def test_unaligned_fp32_views_are_copied_for_the_ffma_tile():
 
 
 def test_the_other_fp32_forms_stay_on_gemm_tile():
-    """K8 and the probes' fp32 GEMMs keep ``gemm_tile.cuh``'s FFMA tile in
-    this form of the port; their tile helpers say so where K2's rule would
-    give K2 the tf32 tile."""
+    """The probes' fp32 GEMMs keep ``gemm_tile.cuh``'s FFMA tile in this
+    form of the port; their tile helpers say so where K2's rule would give
+    K2 the tf32 tile. K8's fp32 form left it: it takes K2's rule, the
+    tf32 tile on aligned operands, FFMA only on a misaligned base."""
     p = torch.zeros((2, 196, 768))
     w = torch.zeros((768, 768))
-    assert embed_tile(p, w) == "ffma"
+    assert embed_tile(p, w) == "wgmma"
     assert embed_tile(p.bfloat16(), w.bfloat16()) == "wgmma"
+    off = torch.zeros(2 * 196 * 768 + 1)[1:].view(2, 196, 768)
+    assert embed_tile(off, w) == "ffma"
     assert attn_core_probe.gemm_tile(6656, 2304, 768, torch.float32,
                                      (0, 0)) == "ffma"
     assert int8_probe.dot_tile(1664, 3072, 768, torch.float32,

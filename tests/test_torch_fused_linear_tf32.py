@@ -237,12 +237,12 @@ def test_k6_fp32_takes_the_tf32_tile_on_every_composed_route_call(variant):
     (0, 198, 100, "ffma"), (0, 768, 102, "ffma")])
 def test_k6_fp32_tile_by_alignment(offset, k, n, path):
     """The fp32 rule on contiguous x (at ``offset`` bytes into its storage)
-    and w: bases 16-byte aligned, K and N multiples of 4; K8 keeps the FFMA
-    tile in fp32 whatever K2's rule says."""
+    and w: bases 16-byte aligned, K and N multiples of 4; K8 takes the same
+    rule in fp32 (FFMA on the misaligned base, the ragged K and N)."""
     buf = torch.zeros(37 * k + 4)
     x = buf[offset // 4:offset // 4 + 37 * k].view(37, k)
     w = torch.zeros((k, n))
     assert cuda_matmul.gemm_path(37, n, k, torch.float32, False, False,
                                  (x.data_ptr(), w.data_ptr()),
                                  ((k, 1), (n, 1))) == path
-    assert embed_tile(x.view(1, 37, k), w) == "ffma"
+    assert embed_tile(x.view(1, 37, k), w) == path

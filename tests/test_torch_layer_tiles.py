@@ -787,7 +787,8 @@ def test_k8_tile_is_gemm_paths(variant, tile):
     """``embed_tile`` asks ``gemm_path`` itself for K2's tile on the same
     contiguous operands: the ``wgmma`` form wherever K is a multiple of 8
     (B/16's and L/16-384's 768, B/32's 3072); H/14's K = 588 keeps
-    ``gemm_tile.cuh`` (``wmma``); fp32 its FFMA tile."""
+    ``gemm_tile.cuh`` (``wmma``) in bf16; in fp32 every variant's K is a
+    multiple of 4, so all take the tf32 tile."""
     from vit_tpu_torch.config import VARIANTS
     cfg_v = VARIANTS[variant]
     p, ch = cfg_v.patch_size, 3
@@ -796,6 +797,6 @@ def test_k8_tile_is_gemm_paths(variant, tile):
     for dt in (torch.bfloat16, torch.float32):
         patches = torch.zeros((2, n, k), dtype=dt)
         w = torch.zeros((k, d), dtype=dt)
-        want = tile if dt == torch.bfloat16 else "ffma"
+        want = tile if dt == torch.bfloat16 else "wgmma"
         assert embed_tile(patches, w) == want
     assert (k % 8 == 0) == (tile == "wgmma")

@@ -11,23 +11,35 @@
 // bases 16-byte aligned, K and D multiples of 8): K2's persistent wgmma
 // tile with the EMB epilogue (gemm_wgmma.cuh, matmul_wgmma.cu:
 // launch_wgmma_embed), K2's sum order, so its rows are bit for bit K2 ->
-// cast -> + pos. Elsewhere (fp32, and H/14's K = 588, not whole 16-byte
-// chunks) gemm_tile.cuh's loop with the epilogue below. Either way patch
-// row g*N + i becomes output row g*sp + 1 + i, with _embed_kernel's
-// rounding -- z = acc + bias in fp32, cast to the tensor's type, then z +
-// pos[i] in that type (one more rounding), the composed route's numbers
-// exactly -- and each image's row 0 (cls_row, which already holds pos[0])
-// and pad rows N+1 .. sp-1 (zeros), the rows that _embed_kernel takes
-// from `base`, are written once: on the wgmma tile by the block that walks
-// the column tile's first row tile, on gemm_tile.cuh's by the first row of
-// blocks. Tiles past the edges are zero-filled as in K2.
+// cast -> + pos. fp32, wherever K2 would get the tf32 tile on them
+// (tf32_takes: both bases 16-byte aligned, K and D multiples of 4 floats;
+// H/14's K = 588 included, its last 32-deep step ragged and zero-filled by
+// TMA): K2's three-pass TF32 walk with the Tf32Embed epilogue
+// (gemm_tf32.cuh, matmul_tf32.cu:launch_tf32_embed), each 32-deep K step
+// summed apart, so its rows are bit for bit K2's fp32 rows + pos.
+// Elsewhere (bf16 where TMA cannot read the operands, as H/14's K = 588,
+// whose rows are not whole 16-byte chunks; fp32 on a misaligned base or a
+// K or D that is not a multiple of 4) gemm_tile.cuh's loop with the
+// epilogue below: a rule on the operands, decided before the launch, not
+// a fallback when a launch fails. Either way patch row g*N + i becomes
+// output row g*sp + 1 + i, with _embed_kernel's rounding -- z = acc + bias
+// in fp32, cast to the tensor's type, then z + pos[i] in that type (one
+// more rounding in bf16), the composed route's numbers exactly -- and each
+// image's row 0 (cls_row, which already holds pos[0]) and pad rows N+1 ..
+// sp-1 (zeros), the rows that _embed_kernel takes from `base`, are written
+// once: on the wgmma tiles by the block that walks the column tile's first
+// row tile, on gemm_tile.cuh's by the first row of blocks. Tiles past the
+// edges are zero-filled as in K2.
 //
 // Bound on the card: at bs <= 4 the (K, D) weight (1.2 MB at B/16 bf16)
 // and the patches are read once; a few microseconds at 3.35 TB/s, so the
-// kernel is latency-bound: 12 tiles of 128 x 128 at B/16 bs=1, 42 at bs=4,
-// 144 at L/16-384 bs=4 on 132 SMs, each a serial walk over K's 64-deep
-// steps. What the wgmma form still leaves: at bs <= 4 most SMs idle (a
-// 64-row tile or a deterministic split over K would fill more of them).
+// bf16 kernel is latency-bound: 12 tiles of 128 x 128 at B/16 bs=1, 42 at
+// bs=4, 144 at L/16-384 bs=4 on 132 SMs, each a serial walk over K's
+// 64-deep steps. In fp32 the three TF32 passes bound it (2 B N K D x 3 at
+// 495 TFLOP/s: 0.022 ms at L/16-384 bs=4), and the same tiles walk K in
+// 32-deep steps. What the wgmma forms still leave: at bs <= 4 most SMs
+// idle (a 64-row tile or a deterministic split over K would fill more of
+// them).
 
 #include "gemm_tile.cuh"
 
@@ -40,6 +52,13 @@ cudaError_t launch_wgmma_embed(const void* patches, const void* w,
                                const void* pos, void* out, int b, int n_tok,
                                int k, int d, int sp, int device,
                                cudaStream_t st);
+// Defined in matmul_tf32.cu.
+bool tf32_takes(const void* x, const void* w, int n, int k);
+cudaError_t launch_tf32_embed(const void* patches, const void* w,
+                              const void* bias, const void* cls_row,
+                              const void* pos, void* out, int b, int n_tok,
+                              int k, int d, int sp, int device,
+                              cudaStream_t st);
 
 template <typename T>
 struct EmbedEpilogue {
@@ -111,9 +130,13 @@ extern "C" int vit_embed_fused(const void* patches, const void* w,
   if (b <= 0 || n <= 0 || k <= 0 || d <= 0 || sp < n + 1)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
+  if (dtype == kF32) {
+    if (tf32_takes(patches, w, d, k))
+      return launch_tf32_embed(patches, w, bias, cls_row, pos, out, b, n, k,
+                               d, sp, device, st);
     return launch_embed<float>(patches, w, bias, cls_row, pos, out, b, n, k,
                                d, sp, st);
+  }
   if (dtype == kBF16) {
     if (wgmma_takes(patches, w, d, k))
       return launch_wgmma_embed(patches, w, bias, cls_row, pos, out, b, n, k,

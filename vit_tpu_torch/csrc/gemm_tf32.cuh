@@ -64,6 +64,18 @@
 // split B here; the consumers read every A element once in either place,
 // so LN costs them three FFMA-unit operations an element and no
 // shared-memory pass.
+//
+// K8's fp32 form (vit_tpu/ops/pallas/patch_embed.py:_embed_kernel, its
+// pallas_call at :96; gemm_tf32_embed_wgmma in matmul_tf32.cu) is K2's
+// walk on the contiguous (B*N, K) patches and (K, D) weight with the
+// epilogue of Tf32Embed, as gemm_wgmma.cuh's EMB flag is for bf16: z = acc
+// + bias, then z + pos[i], both in fp32 (_embed_kernel's rounding, the
+// cast a no-op), patch row g*N + i stored as token row g*sp + 1 + i. Each
+// image's row 0 (cls_row) and pad rows N+1 .. sp-1 (zeros) are written,
+// in a column tile's 128 columns, by the block that walks that column's
+// first row tile, after its epilogue: once each. K's steps are K2's, so a
+// token row is bit for bit K2's fp32 row on the same operands with the
+// bias, + pos.
 
 #pragma once
 
@@ -237,6 +249,19 @@ __device__ __forceinline__ void load_a_ln(uint32_t sa, int wgi,
     }
 }
 
+// K8's epilogue operands (the walk's EMB form): m = batch * n_tok patch
+// rows into out (batch, sp, n) tokens; bias (n,), pos (n_tok, n), cls
+// (n,). n is a multiple of 4 (tf32_takes). vec: out's and pos's pairs are
+// 8-byte aligned.
+struct Tf32Embed {
+  const float* bias;
+  const float* pos;
+  const float* cls;
+  float* out;
+  int m, n, n_tok, sp, batch;
+  bool vec;
+};
+
 // One consumer warpgroup's epilogue: its 64 rows of the tile at (m0, n0).
 __device__ __forceinline__ void epilogue(const float (&d)[64],
                                          const Tf32Epilogue& ep, int m0,
@@ -285,18 +310,93 @@ __device__ __forceinline__ void epilogue(const float (&d)[64],
   }
 }
 
+// K8's epilogue of one consumer warpgroup's 64 rows of the tile at (m0,
+// n0): (acc + bias) + pos[i] in fp32 into token row g*sp + 1 + i of patch
+// row g*n_tok + i.
+__device__ __forceinline__ void epilogue(const float (&d)[64],
+                                         const Tf32Embed& ep, int m0,
+                                         int n0) {
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  size_t orow[2], prow[2];
+  bool in_m[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = m0 + 16 * warp + lane / 4 + 8 * h;
+    in_m[h] = gr < ep.m;
+    const int g = gr / ep.n_tok, i = gr % ep.n_tok;
+    orow[h] = (static_cast<size_t>(g) * ep.sp + 1 + i) * ep.n;
+    prow[h] = static_cast<size_t>(i) * ep.n;
+  }
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int gc = n0 + 8 * j + 2 * (lane % 4);
+    if (gc >= ep.n) continue;  // n is even: gc + 1 < n too
+    const float b0 = ep.bias[gc], b1 = ep.bias[gc + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!in_m[h]) continue;
+      const float* p = ep.pos + prow[h] + gc;
+      float* o = ep.out + orow[h] + gc;
+      const float v0 = d[4 * j + 2 * h] + b0, v1 = d[4 * j + 2 * h + 1] + b1;
+      if (ep.vec) {
+        const float2 pv = __ldg(reinterpret_cast<const float2*>(p));
+        *reinterpret_cast<float2*>(o) = make_float2(v0 + pv.x, v1 + pv.y);
+      } else {
+        o[0] = v0 + __ldg(p);
+        o[1] = v1 + __ldg(p + 1);
+      }
+    }
+  }
+}
+
+// K8: each image's row 0 (cls) and pad rows n_tok+1 .. sp-1 (zeros) in the
+// column tile at n0, by the block's 256 consumer threads, four floats a
+// store (16 bytes where out and cls are 16-byte aligned; n is a multiple
+// of 4, so every row is).
+__device__ __forceinline__ void embed_fixed_rows(const Tf32Embed& ep,
+                                                 int n0) {
+  const int extra = ep.sp - ep.n_tok;  // row 0, rows n_tok+1 .. sp-1
+  const int cols = min(kBN, ep.n - n0);
+  constexpr int CPR = kBN / 4;  // four-float chunks a row
+  const bool vec = reinterpret_cast<uintptr_t>(ep.out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(ep.cls) % 16 == 0;
+  for (int e = threadIdx.x; e < ep.batch * extra * CPR; e += 256) {
+    const int c = (e % CPR) * 4, r = e / CPR;
+    if (c >= cols) continue;
+    const int g = r / extra, j = r % extra;
+    const int row = j == 0 ? 0 : ep.n_tok + j;
+    float* o = ep.out + (static_cast<size_t>(g) * ep.sp + row) * ep.n + n0 + c;
+    if (vec) {
+      *reinterpret_cast<float4*>(o) =
+          j == 0 ? *reinterpret_cast<const float4*>(ep.cls + n0 + c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      for (int u = 0; u < 4; ++u) o[u] = j == 0 ? ep.cls[n0 + c + u] : 0.f;
+    }
+  }
+}
+
+// What a consumer thread does after its warpgroup's epilogue of the tile
+// at (m0, n0): nothing for K2 and K6; for K8 in the first row tile its
+// share of the column tile's fixed rows (rows no epilogue writes).
+__device__ __forceinline__ void tile_done(const Tf32Epilogue&, int, int) {}
+__device__ __forceinline__ void tile_done(const Tf32Embed& ep, int m0,
+                                          int n0) {
+  if (m0 == 0) embed_fixed_rows(ep, n0);
+}
+
 // (m, k) @ (k, n) in fp32: A through map_a, B through map_b. TA: A is the
 // view of a (k, m) matrix (four 32 x 32 boxes a step); TB: B is the view of
 // an (n, k) matrix (one 32 x 128 box); else A is one 32 x 128 box of x and
 // B four 32 x 32 boxes of w. LN (K6, TA and TB 0): A's elements normalised
-// with ln's statistics and parameters as they are loaded. ep and ln come
-// by value: so K2's kernels compile to the code they had before K6's form
-// shared this walk (tools/sass_count.py --exact).
-template <int TA, int TB, bool LN>
+// with ln's statistics and parameters as they are loaded. Ep: the
+// epilogue, K2's Tf32Epilogue or K8's Tf32Embed (TA and TB 0, no LN). ep
+// and ln come by value: so K2's kernels compile to the code they had
+// before K6's form shared this walk (tools/sass_count.py --exact).
+template <int TA, int TB, bool LN, typename Ep = Tf32Epilogue>
 __device__ __forceinline__ void gemm_tf32_walk(const CUtensorMap& map_a,
                                                const CUtensorMap& map_b,
-                                               Tf32Epilogue ep, int k,
-                                               Tf32Ln ln) {
+                                               Ep ep, int k, Tf32Ln ln) {
   extern __shared__ uint8_t tf_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(tf_smem) + 1023) & ~uintptr_t(1023));
@@ -429,6 +529,7 @@ __device__ __forceinline__ void gemm_tf32_walk(const CUtensorMap& map_a,
         }
       }
       epilogue(d, ep, m0 + 64 * wgi, n0);
+      tile_done(ep, m0, n0);
     }
   }
 }

@@ -18,9 +18,10 @@
 // tile, 4x4 outputs a thread). Neither is pipelined (no cp.async, TMA or
 // wgmma): loads and math alternate. K2's fp32 form runs here only where
 // TMA cannot read its operands; elsewhere it has its own tile,
-// gemm_tf32.cuh's three-pass TF32 split on wgmma, and so has K6's fp32
-// form (with its LN prologue). K8's and K9's fp32 forms and the probes'
-// fp32 GEMMs still run here.
+// gemm_tf32.cuh's three-pass TF32 split on wgmma, and so have K6's fp32
+// form (with its LN prologue) and K8's (with its embedding epilogue), each
+// by the same rule. K9's fp32 form and the probes' fp32 GEMMs still run
+// here.
 //
 // Ragged M, N and K are masked: tiles are zero-filled past the edges in
 // shared memory. K is not padded in device memory.

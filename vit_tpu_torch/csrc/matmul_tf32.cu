@@ -1,7 +1,8 @@
-// K2's and K6's fp32 launches on the tf32 wgmma tile of gemm_tf32.cuh (see
-// there and matmul.cu): the fp32 tensor maps of both operands, encoded on
-// the host, and one persistent block an SM. It is its own unit so that the
-// other kernels compile as they did without it.
+// K2's, K6's and K8's fp32 launches on the tf32 wgmma tile of
+// gemm_tf32.cuh (see there, matmul.cu and embed.cu): the fp32 tensor maps
+// of both operands, encoded on the host, and one persistent block an SM.
+// It is its own unit so that the other kernels compile as they did without
+// it.
 
 #include "gemm_tf32.cuh"
 #include "gemm_tile.cuh"
@@ -48,18 +49,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   gemm_tf32_walk<0, 0, true>(map_a, map_b, ep, k, ln);
 }
 
+// K8 in fp32: patches (m, k) @ w (k, n), both contiguous, into the token
+// rows of the embedding (Tf32Embed).
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_tf32_embed_wgmma(const __grid_constant__ CUtensorMap map_a,
+                          const __grid_constant__ CUtensorMap map_b,
+                          Tf32Embed ep, int k) {
+  gemm_tf32_walk<0, 0, false, Tf32Embed>(map_a, map_b, ep, k, Tf32Ln{});
+}
+
 }  // namespace tf
 
 constexpr int kMaxDevices = 64;
 
 // One launch of a kernel of the tile, K2's (gemm_tf32_wgmma<TA, TB>) or,
-// with LN, K6's: per device, once, the shared-memory limit and the register
-// check; one persistent block an SM, at most one a tile.
-template <int TA, int TB, bool LN, typename... Args>
+// with LN, K6's, or with EMB, K8's: per device, once, the shared-memory
+// limit and the register check; one persistent block an SM, at most one a
+// tile.
+template <int TA, int TB, bool LN, bool EMB = false, typename... Args>
 cudaError_t launch_tf32_tile(int m, int n, int device, cudaStream_t st,
                              const Args&... args) {
   auto kernel = [] {
-    if constexpr (LN)
+    if constexpr (EMB)
+      return tf::gemm_tf32_embed_wgmma;
+    else if constexpr (LN)
       return tf::gemm_tf32_ln_wgmma;
     else
       return tf::gemm_tf32_wgmma<TA, TB>;
@@ -153,6 +166,28 @@ cudaError_t launch_tf32_ln(const void* x, const void* w, const void* bias,
   return launch_tf32_tile<0, 0, true>(
       m, n, device, st, ma, mb,
       tf32_epilogue(bias, residual, out, m, n, gelu_act), k, ln);
+}
+
+// K8 in fp32 on the tf32 tile (tf32_takes(patches, w, d, k)): patches (b
+// * n_tok, k) @ w (k, d) + bias, + pos, into the token rows of out (b, sp,
+// d), with each image's cls row and zero pad rows.
+cudaError_t launch_tf32_embed(const void* patches, const void* w,
+                              const void* bias, const void* cls_row,
+                              const void* pos, void* out, int b, int n_tok,
+                              int k, int d, int sp, int device,
+                              cudaStream_t st) {
+  const int m = b * n_tok;
+  CUtensorMap ma, mb;
+  if (!tensor_map_f32(&ma, patches, m, k, k, tf::kBM) ||
+      !tensor_map_f32(&mb, w, k, d, d, 32))
+    return cudaErrorInvalidValue;
+  const bool vec = reinterpret_cast<uintptr_t>(out) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(pos) % 8 == 0;
+  const tf::Tf32Embed ep{static_cast<const float*>(bias),
+                         static_cast<const float*>(pos),
+                         static_cast<const float*>(cls_row),
+                         static_cast<float*>(out), m, d, n_tok, sp, b, vec};
+  return launch_tf32_tile<0, 0, false, true>(m, d, device, st, ma, mb, ep, k);
 }
 
 }  // namespace vit

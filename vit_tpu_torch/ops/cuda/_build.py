@@ -74,8 +74,9 @@ _SIGNATURES = {
     # wemb, base, final-LN scale and bias, b, sp, d, mlp, heads, layers,
     # seq_len, n_tok, pd, scale, eps, fold
     "vit_encoder_stack": (*(_P,) * 23, *(_I,) * 9, _F, _F, _I),
-    # x, ln scale, ln bias (or two nulls), q, ax, rows, d, eps
-    "vit_quantize_rows": (_P, _P, _P, _P, _P, _I, _I, _F),
+    # x, ln scale, ln bias (or two nulls), q, ax, rows, d, eps, form (0
+    # the scalar form, 1 the row form)
+    "vit_quantize_rows": (_P, _P, _P, _P, _P, _I, _I, _F, _I),
     # xq, ax, wq, wscale, bias, residual, out, m, n, k, gelu
     "vit_matmul_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     # the same on the s8 wgmma tile (matmul_i8_wgmma.cu)

@@ -1,11 +1,13 @@
 """Fused embedding kernel K8 (``csrc/embed.cu``), the counterpart of
 ``vit_tpu/ops/pallas/patch_embed.py:embed_fused``: K2's GEMM over the patch
-rows with an epilogue that writes the padded token matrix directly. In bf16
-it runs on K2's ``wgmma`` tile (``csrc/gemm_wgmma.cuh``, the epilogue's
-``EMB`` form: bias, cast, ``+ pos`` and the token row map in K2's
-epilogue, the CLS and pad rows from the block that walks each column
-tile's first row tile) wherever :func:`embed_tile` says K2 would; elsewhere
-on ``gemm_tile.cuh``'s tile with the same epilogue."""
+rows with an epilogue that writes the padded token matrix directly. It
+runs on K2's ``wgmma`` tile of its dtype wherever :func:`embed_tile` says
+K2 would: in bf16 ``csrc/gemm_wgmma.cuh``'s (the epilogue's ``EMB`` form:
+bias, cast, ``+ pos`` and the token row map in K2's epilogue, the CLS and
+pad rows from the block that walks each column tile's first row tile), in
+fp32 ``csrc/gemm_tf32.cuh``'s three-pass TF32 walk with the same epilogue
+(``Tf32Embed``); elsewhere on ``gemm_tile.cuh``'s tile with the same
+epilogue."""
 
 from __future__ import annotations
 
@@ -18,13 +20,13 @@ from vit_tpu_torch.ops.cuda.matmul import gemm_path
 def embed_tile(patches: torch.Tensor, w: torch.Tensor) -> str:
     """The tile ``vit_embed_fused`` runs the contiguous ``(B, N, K)``
     patches and ``(K, D)`` weight on: :func:`gemm_path`'s choice for K2 on
-    the same ``(B*N, K) @ (K, D)`` operands -- ``"wgmma"`` (K8's ``EMB``
-    form), ``"wmma"`` (bf16 where TMA cannot read them, as H/14's K = 588)
-    or ``"ffma"`` (fp32: K8 stays on ``gemm_tile.cuh``, where K2 has a tf32
-    tile). ``csrc/matmul_wgmma.cu:wgmma_takes`` applies the same rule in the
-    kernel library."""
-    if patches.dtype == torch.float32:
-        return "ffma"
+    the same ``(B*N, K) @ (K, D)`` operands -- ``"wgmma"`` (the dtype's
+    ``wgmma`` tile with K8's epilogue: bf16 ``EMB``, fp32 the three-pass
+    TF32 walk), ``"wmma"`` (bf16 where TMA cannot read them, as H/14's K =
+    588) or ``"ffma"`` (fp32 on a misaligned base or a K or D that is not
+    a multiple of 4). ``csrc/matmul_wgmma.cu:wgmma_takes`` and
+    ``csrc/matmul_tf32.cu:tf32_takes`` apply the same rule in the kernel
+    library."""
     b, n, k = patches.shape
     d = w.shape[1]
     return gemm_path(b * n, d, k, patches.dtype, False, False,

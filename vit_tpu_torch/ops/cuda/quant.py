@@ -1,4 +1,5 @@
-"""The int8 tier's kernels: K10 ``quantize_rows`` (``csrc/layernorm.cu``),
+"""The int8 tier's kernels: K10 ``quantize_rows`` (``csrc/layernorm.cu``,
+in the form :func:`quantize_rows_form` names),
 K11 ``matmul_i8`` (``csrc/matmul_i8_wgmma.cu``, or ``csrc/matmul.cu`` where
 :func:`i8_path` says), K12 ``mlp_block_i8dot`` (``csrc/mlp_block_i8.cu`` on
 ``csrc/mlp_i8_wgmma.cuh``), K17 ``mlp_block_q`` (``csrc/mlp_block_q.cu``)
@@ -41,11 +42,32 @@ MLP_I8_MAX_D = 1280
 _I8, _F32 = torch.int8, torch.float32
 
 
+#: The C interface's code of each :func:`quantize_rows_form` result.
+QUANTIZE_ROWS_FORMS = {"scalar": 0, "row": 1}
+#: The widest row K10's row form holds in registers (H/14).
+QUANTIZE_ROWS_MAX_D = 1280
+
+
+def quantize_rows_form(d: int) -> str:
+    """The form K10 quantizes rows of ``d`` values in
+    (``csrc/layernorm.cu``): ``"row"`` (each row read once into registers,
+    the codes stored four bytes a lane) where
+    ``d`` is a multiple of 128 up to :data:`QUANTIZE_ROWS_MAX_D` -- B/16's
+    768, L/16's 1024, H/14's 1280, the model=2 shard's 384 -- else
+    ``"scalar"`` (one warp a row, ``common.cuh:quantize_row``). The two
+    give the same bits: the row form keeps the scalar one's element
+    ownership and sum order. ``d`` alone decides, before the launch."""
+    if d <= 0:
+        raise ValueError(f"quantize_rows of rows of {d} values")
+    return "row" if d % 128 == 0 and d <= QUANTIZE_ROWS_MAX_D else "scalar"
+
+
 def quantize_rows(x: torch.Tensor, *, ln_scale: torch.Tensor | None = None,
                   ln_bias: torch.Tensor | None = None,
                   eps: float = 1e-12) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row int8 of a CUDA tensor ``x`` (..., D), optionally after an
-    fp32 LN: ``(xq (M, D) int8, ax (M, 1) fp32)``."""
+    fp32 LN: ``(xq (M, D) int8, ax (M, 1) fp32)``, in the form
+    :func:`quantize_rows_form` names."""
     _build.check_tensor(x, "x", x)
     d = x.shape[-1]
     rows = x.numel() // d if d else 0
@@ -59,7 +81,8 @@ def quantize_rows(x: torch.Tensor, *, ln_scale: torch.Tensor | None = None,
     xq = torch.empty((rows, d), dtype=_I8, device=x.device)
     ax = torch.empty((rows, 1), dtype=_F32, device=x.device)
     _build.launch("vit_quantize_rows", x, ln_scale, ln_bias, xq, ax, rows, d,
-                  float(eps), like=x)
+                  float(eps), QUANTIZE_ROWS_FORMS[quantize_rows_form(d)],
+                  like=x)
     count_launch("quantize_rows")
     return xq, ax
 

@@ -11,9 +11,10 @@ the B/16 train step's LN 6656x768 @ 768x2304, each beside K1 -> K2), K7
 (B/16 bs=32 and L/16-384 bs=8 on packed QKV views, each beside SDPA, and
 the int8 tier's fp32-output B/16 shape; fp32 at B/16 bs=32 and L/16-384
 bs=8, beside SDPA), K8 (``embed_fused`` at L/16-384 bs=4 and B/16 bs=4 and
-1, each beside K2 on the same operands), K9 (its three forms at B/16 bs=1,
-12 layers; the fused one beside K24's ``dma``), K11 (``matmul_i8``, the
-QKV), K12 (``mlp_block_i8dot`` at B/16 bs=32 and H/14 bs=2, each beside
+1, each beside K2 on the same operands; in fp32 also beside ``addmm``), K9
+(its three forms at B/16 bs=1, 12 layers; the fused one beside K24's
+``dma``), K10 (``quantize_rows`` at B/16 bs=32 with LN in bf16 and on the
+fp32 context), K11 (``matmul_i8``, the QKV), K12 (``mlp_block_i8dot`` at B/16 bs=32 and H/14 bs=2, each beside
 its composed K10 -> K11 -> K10 -> K11 chain), K13
 (``ops.flash_attention_bwd``, B/16 bs=32 in bf16 and fp32), K16
 (``matmul3``, the scores, the context and the scores at 200 tokens, each
@@ -97,6 +98,19 @@ CASES = {
                             "embed_fused", "(4,196,768)", False),
     "embed_fused_b16_bs1": ("kernel_cases_small_batch", "bfloat16",
                             "embed_fused", "(1,196,768)", False),
+    # K8's fp32 form (K2's three-pass TF32 tile) at L/16-384 bs=4, B/16
+    # bs=4 and 1, each beside addmm; K10 at B/16 bs=32 with LN (bf16) and
+    # on the fp32 context.
+    "embed_fused_float32": ("kernel_cases_small_batch", "float32",
+                            "embed_fused", "(4,576,768)@", True),
+    "embed_fused_b16_bs4_float32": ("kernel_cases_small_batch", "float32",
+                                    "embed_fused", "(4,196,768)@", True),
+    "embed_fused_b16_bs1_float32": ("kernel_cases_small_batch", "float32",
+                                    "embed_fused", "(1,196,768)@", True),
+    "quantize_rows_ln": ("kernel_cases_int8", "bfloat16", "quantize_rows",
+                         "B/16 LN", False),
+    "quantize_rows_context": ("kernel_cases_int8", "bfloat16",
+                              "quantize_rows", "B/16 fp32 context", False),
     "encoder_stack": ("kernel_cases_small_batch", "bfloat16",
                       "encoder_stack", "(1,208,768)", False),
     "matmul_i8": ("kernel_cases_int8", "bfloat16", "matmul_i8",
