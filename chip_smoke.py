@@ -35,8 +35,9 @@ without printing the final ``ok`` line:
    context, and the scores at 200 tokens, whose rows are aligned; in fp32
    also K = 2304 in 36 runs, ragged M and N; the float cases two calls
    bit for bit), and
-   K17 ``mlp_block_q`` there and, in bf16, at L/16-384 bs=8 and H/14
-   bs=2; K2 also at the training backward's two products of the QKV, on
+   K17 ``mlp_block_q`` there, at L/16-384 bs=8 and H/14 bs=2, in fp32
+   (K3's tf32 tile with its Q flag, two TF32 passes a product, two calls
+   bit for bit) also its shard at B/16 bs=32 over model=2; K2 also at the training backward's two products of the QKV, on
    the views it passes (``g @ w.t()``, ``x.t() @ g``); K7 also at B/16
    bs=32 on packed QKV views. The bars of K2's backward cases, of K6's
    LN cases (each timed beside K1 -> K2, two calls bit for bit; in fp32
@@ -48,7 +49,8 @@ without printing the final ``ok`` line:
    K3's fp32 shard also at B/16 bs=32 over model=2; K3's cases also two
    calls bit for bit) and of K8's cases are each
    held to two planted faults (``gemm_faults``, ``flash_faults``,
-   ``mlp_faults``, ``mlp_q_faults``), K18's to three (``layer_faults``: a
+   ``mlp_faults``, ``mlp_q_faults``; K17's fp32 cases to a third, one
+   32-row K step of fc2 left out), K18's to three (``layer_faults``: a
    64-deep K step of Wout, a 64-column hidden chunk, the output x 0.85),
    and each of K9's three forms to a zeroed K slice of
    one layer's fc2 and to context rows written from others in every head
@@ -164,7 +166,8 @@ without printing the final ``ok`` line:
 16. the probes (``probe_phase``; ``vit_tpu_torch/tools/``): K22
     ``dot_probe``, K23 ``attn_core_probe`` and K24 ``encstack_probe`` are
     checked in phase 3 and timed in phase 11 (``kernel_cases_probes``: K22
-    int8 bit for bit and bf16 at (1664, 768) @ (768, 3072); K23's ``full``
+    int8 bit for bit, bf16 and fp32 (K2's tf32 tile; two calls bit for
+    bit, two planted faults) at (1664, 768) @ (768, 3072); K23's ``full``
     core and the block in every mode at B/16 bs=32, bf16 and the fp32 modes
     that fit; K24's ``dma`` over 12 B/16 layers at bs=1, the other variants
     cut to 2 layers). Here, through the probes' entry points with exact
@@ -346,10 +349,12 @@ WHOLE_ENCODER = ("encoder_stack", "encoder_stack_fused", "encoder_stack_q")
 #: memory bytes/s, and operations/s by the type the work runs in (bf16 and
 #: int8 on the tensor cores, fp32 on the FFMA units; "tf32x3" the fp32
 #: products of K2's and K13's tiles, three TF32 passes each on the tensor
-#: cores at 495 TFLOP/s: ``csrc/tf32_split.cuh``).
+#: cores at 495 TFLOP/s: ``csrc/tf32_split.cuh``; "tf32x2" K17's fp32
+#: products, two passes each, the int8 codes exact in TF32:
+#: ``csrc/mlp_tf32.cuh``'s Q flag).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
-                  "tf32x3": 495e12 / 3}
+                  "tf32x3": 495e12 / 3, "tf32x2": 495e12 / 2}
 FP32_BAR = 1e-4       # max|diff|: only the fp32 sum order differs
 BF16_REL_BAR = 2e-2   # |diff| <= bar * (1 + |ref|): about two bf16 ulps
 BF16_MEAN_BAR = 3e-3  # mean|diff|
@@ -566,13 +571,36 @@ def mlp_faults(torch, run, x, b2, w2, *, partial: bool,
 
 
 def mlp_q_faults(torch, ops, args, *, partial: bool) -> dict:
-    """K17's two planted faults (``mlp_faults`` with one 512-column quant
-    group of ``w2q`` zeroed) for the case ``ops.mlp_block_q(*args)``."""
+    """K17's planted faults (``mlp_faults`` with one 512-column quant group
+    of ``w2q`` zeroed) for the case ``ops.mlp_block_q(*args)``; in fp32 a
+    third: one 32-row K step of the tf32 tile's fc2 left out (32 rows of
+    ``w2q`` zeroed), as ``k3_case`` plants for K3's fp32 tile."""
     x, b2, w2q = args[0], args[8], args[6]
-    return mlp_faults(
-        torch, lambda w, p, a=args: ops.mlp_block_q(
-            *a[:6], w, *a[7:], partial_out=p), x, b2, w2q, partial=partial,
-        width=ops.reference.MLP_GROUP)
+
+    def run(w, p, a=args):
+        return ops.mlp_block_q(*a[:6], w, *a[7:], partial_out=p)
+    out = mlp_faults(torch, run, x, b2, w2q, partial=partial,
+                     width=ops.reference.MLP_GROUP)
+    if x.dtype == torch.float32:
+        out.update(mlp_faults(torch, run, x, b2, w2q, partial=partial,
+                              width=32))
+    return out
+
+
+def _q_kind(torch, x, args) -> str:
+    """The peak-rate type of K17's products on ``x``: bf16, or in fp32 two
+    TF32 passes on the tensor-core form (``mlp_q_f32_form``), else fp32 on
+    the FFMA units."""
+    if x.dtype == torch.bfloat16:
+        return "bf16"
+    try:
+        from vit_tpu_torch.ops.cuda.quant import mlp_q_f32_form
+    except ImportError:  # an older checkout (tools/turns.py): FFMA only
+        return "fp32"
+    d, mlp = args[3].shape
+    form = mlp_q_f32_form(d, mlp, (x.data_ptr(), args[3].data_ptr(),
+                                   args[6].data_ptr()))
+    return "tf32x2" if form == "tf32" else "fp32"
 
 
 def mlp_q_beside_k3(torch, ops, args, *, partial: bool = False):
@@ -1615,8 +1643,12 @@ def kernel_cases_chain(torch, dtype):
     @ (384, 64, 197) * 1/8, the case the kernels line reports, the context
     (384, 197, 197) @ (384, 197, 64), and the scores at 200 tokens (rows
     16-byte aligned); K17 at the int8 per-layer route's B/16 bs=32 MLP
-    (6656 x 768, MLP 3072), and in bf16 at L/16-384 bs=8 (4736 x 1024,
-    4096) and H/14 bs=2 (544 x 1280, 5120).
+    (6656 x 768, MLP 3072), at L/16-384 bs=8 (4736 x 1024, 4096) and
+    H/14 bs=2 (544 x 1280, 5120), and in fp32 also its shard form at B/16
+    bs=32 over model=2 (MLP 1536): in fp32 on the tensor cores, two TF32
+    passes a product (bound at "tf32x2"), each case's bar holding a third
+    planted fault (one 32-row K step of fc2 left out); the B/16 bs=32
+    whole and shard forms are the cases the kernels line reports.
     Library yardsticks (the port calls none): ``torch.add``,
     ``torch.softmax``, ``torch.baddbmm`` with ``alpha=scale``; none for
     K17."""
@@ -1686,25 +1718,33 @@ def kernel_cases_chain(torch, dtype):
                 lambda: ops.matmul3(xd, yd)),
             faults=gemm_faults(torch, lambda a: ops.matmul3(a, yd), xd, 2,
                                1024, 64)))
-    shapes = [("H/14 bs=2", 544, 1280, 5120),
-              ("L/16-384 bs=8", 4736, 1024, 4096)] if dtype == torch.bfloat16 \
-        else []
-    for tag, mm, dd, mlp in shapes + [("B/16 bs=32", 6656, 768, 3072)]:
+    shapes = [("H/14 bs=2", 544, 1280, 5120, False),
+              ("L/16-384 bs=8", 4736, 1024, 4096, False)]
+    if dtype == torch.float32:
+        shapes.append(("B/16 bs=32 model=2 shard", 6656, 768, 1536, True))
+    for tag, mm, dd, mlp, partial in shapes + [
+            ("B/16 bs=32", 6656, 768, 3072, False)]:
         w1 = quantize_weight(rnd(dd, mlp, std=0.03))
         w2 = quantize_weight(rnd(mlp, dd, std=0.03))
         args = (rnd(mm, dd, std=1.5, mean=0.2), rnd(dd, std=0.1, mean=1.0),
                 rnd(dd, std=0.05), w1["q"], w1["scale"], rnd(mlp, std=0.02),
                 w2["q"], w2["scale"], rnd(dd, std=0.02))
-        # K17's bar refuses two planted faults; it is timed beside K3 on
-        # the dequantized weights where K3 takes the width.
+        # K17's bar refuses its planted faults (three in fp32); it is timed
+        # beside K3 on the dequantized weights where K3 takes the width.
         cases.append(case(
-            "mlp_block_q", f"{tag} ({mm},{dd}) mlp {mlp}",
-            lambda impl, a=args: ops.mlp_block_q(*a, impl=impl),
-            ((2 * mm * dd + mlp + 3 * dd) * e + 2 * dd * mlp
-             + 4 * (mlp + dd), 4 * mm * dd * mlp, kind),
-            primary=tag == "B/16 bs=32",
-            faults=mlp_q_faults(torch, ops, args, partial=False),
-            composed=mlp_q_beside_k3(torch, ops, args)))
+            "mlp_block_q_partial" if partial else "mlp_block_q",
+            f"{tag} ({mm},{dd}) mlp {mlp}",
+            lambda impl, a=args, p=partial: ops.mlp_block_q(
+                *a, partial_out=p, impl=impl),
+            ((2 * mm * dd + mlp + (2 if partial else 3) * dd) * e
+             + 2 * dd * mlp + 4 * (mlp + dd), 4 * mm * dd * mlp,
+             _q_kind(torch, args[0], args)),
+            primary=tag.startswith("B/16 bs=32"),
+            check=twice_bit_for_bit(
+                lambda a=args, p=partial: ops.mlp_block_q(*a, partial_out=p))
+            if dtype == torch.float32 else None,
+            faults=mlp_q_faults(torch, ops, args, partial=partial),
+            composed=mlp_q_beside_k3(torch, ops, args, partial=partial)))
     return cases
 
 
@@ -2934,8 +2974,11 @@ def kernel_cases_probes(torch, dtype):
     (1664, 768) @ (768, 3072): int8 bit for bit against the plain version
     (the case the kernels line reports, on K11's s8 ``wgmma`` tile;
     yardstick ``torch._int_mm``), bf16 (K2's ``wgmma`` tile) and fp32
-    (FFMA) to fp32 (yardstick ``torch.matmul``, which returns the input
-    type). K23: the ``full`` core alone on B/16 bs=32's packed QKV (the case
+    (K2's tf32 tile, three TF32 passes: the fp32 form the kernels line
+    reports) to fp32 (yardstick ``torch.matmul``, which returns the input
+    type), each bound at its products' type, two calls bit for bit, its
+    bar held to ``gemm_faults`` (the output x 0.85, K 512-575 of x
+    zeroed). K23: the ``full`` core alone on B/16 bs=32's packed QKV (the case
     the kernels line reports: in bf16 K4's tensor-core core, its very
     instantiation; in fp32 the FFMA tile; yardstick SDPA),
     then the whole block in every mode in bf16 and in every mode that fits
@@ -2965,11 +3008,17 @@ def kernel_cases_probes(torch, dtype):
             ((m * k + k * n) + 4 * m * n, 2 * m * k * n, "int8"),
             library=lambda: torch._int_mm(xq, wq), check=compare_exact))
     xf, wf = rnd(m, k), rnd(k, n, std=0.05)
+
+    def dot_f(a=xf):
+        return int8_probe.dot(a, wf)
     cases.append(case(
         "dot_probe", f"{dtype} ({m},{k})@({k},{n}) -> fp32",
         lambda impl: int8_probe.dot(xf, wf, impl=impl),
-        ((m * k + k * n) * e + 4 * m * n, 2 * m * k * n, kind),
-        library=lambda: torch.matmul(xf, wf), primary=False))
+        ((m * k + k * n) * e + 4 * m * n, 2 * m * k * n,
+         _split_kind(torch, dtype)),
+        library=lambda: torch.matmul(xf, wf),
+        primary=dtype == torch.float32, check=twice_bit_for_bit(dot_f),
+        faults=gemm_faults(torch, dot_f, xf, 1, start=512)))
 
     a = PROBE_ATTN
     b, sp, s, d, heads = a["batch"], a["sp"], a["seq_len"], a["d"], a["heads"]

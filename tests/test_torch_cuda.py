@@ -1355,6 +1355,71 @@ def test_torch_cuda_mlp_block_q_bf16_tiles(gen, m, d, mlp, partial):
     assert torch.equal(head, got[:33])
 
 
+def _q_mlp_args(gen, m, d, mlp, x=None):
+    w1, w2 = _quant_weight(gen, d, mlp, std=0.03), _quant_weight(
+        gen, mlp, d, std=0.03)
+    x = _rnd(gen, torch.float32, m, d, std=1.5, mean=0.2) if x is None else x
+    return (x, _rnd(gen, torch.float32, d, std=0.1, mean=1.0),
+            _rnd(gen, torch.float32, d, std=0.05), w1["q"], w1["scale"],
+            _rnd(gen, torch.float32, mlp, std=0.02), w2["q"], w2["scale"],
+            _rnd(gen, torch.float32, d, std=0.02))
+
+
+@pytest.mark.parametrize("m,d,mlp,partial", [
+    (37, 128, 512, False), (65, 128, 1024, True), (200, 768, 3072, False),
+    (70, 768, 1536, True), (70, 1024, 4096, False), (33, 1024, 512, True),
+    (70, 1280, 5120, False), (33, 1280, 1024, True)])
+def test_torch_cuda_mlp_block_q_tf32_tiles(gen, m, d, mlp, partial):
+    """K17's fp32 form on the tensor cores (``csrc/mlp_tf32.cuh``'s Q
+    flag: the int8 codes exact as TF32 A operands, two passes a product)
+    at ragged M, D 128 (the 32-row form of two groups), 768 (B/16's; its
+    shard over model=2), 1024 (the 16-row form) and 1280 (H/14's, fc1 in
+    K = 128 parts), whole and partial: the form ``mlp_q_f32_form`` gives,
+    within 1e-4 of the plain version, two calls bit for bit, rows 0-32 of
+    an M = 33 call the same bits as in the M-row call, one launch."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from vit_tpu_torch.ops.cuda import quant
+
+    args = _q_mlp_args(gen, m, d, mlp)
+    assert quant.mlp_q_f32_form(d, mlp, (args[0].data_ptr(),
+                                         args[3].data_ptr(),
+                                         args[6].data_ptr())) == "tf32"
+    reset_launch_counts()
+    got = ops.mlp_block_q(*args, partial_out=partial, impl="cuda")
+    torch.cuda.synchronize()
+    name = "mlp_block_q_partial" if partial else "mlp_block_q"
+    assert launch_counts() == _counts(**{name: 1})
+    _close(got, ops.mlp_block_q(*args, partial_out=partial, impl="torch"))
+    again = ops.mlp_block_q(*args, partial_out=partial, impl="cuda")
+    head = ops.mlp_block_q(args[0][:33], *args[1:], partial_out=partial,
+                           impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(head, got[:33])
+
+
+def test_torch_cuda_mlp_block_q_fp32_ffma_form(gen):
+    """Where TMA cannot read x (a base 4 bytes past 16-byte alignment) K17
+    keeps its FFMA form, within 1e-4 of the plain version; the library
+    refuses the tensor-core form there (no stand-in)."""
+    from vit_tpu_torch import ops
+    from vit_tpu_torch.ops.cuda import _build, quant
+
+    m, d, mlp = 40, 256, 512
+    x = torch.empty(m * d + 1, device="cuda")[1:].view(m, d)
+    x.copy_(_rnd(gen, torch.float32, m, d))
+    args = _q_mlp_args(gen, m, d, mlp, x=x)
+    assert quant.mlp_q_f32_form(d, mlp, (x.data_ptr(), args[3].data_ptr(),
+                                         args[6].data_ptr())) == "ffma"
+    _close(ops.mlp_block_q(*args, impl="cuda"),
+           ops.mlp_block_q(*args, impl="torch"))
+    out = torch.empty_like(x)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("vit_mlp_block_q", *args, out, m, d, mlp, 1e-12, 0, 1,
+                      like=x)
+
+
 @pytest.mark.parametrize("b", [1, 2])
 def test_torch_cuda_encoder_stack_bf16_wgmma(gen, b):
     """K9's three forms on the bf16 ``wgmma`` phases (``csrc/
@@ -2092,8 +2157,10 @@ def test_torch_cuda_minimal_matmul(gen, dtype, m, k, n):
 def test_torch_cuda_dot_probe(gen, dtype, m, k, n):
     """K22: int8 sums exact (bit for bit); bf16 and fp32 in fp32. int8 on
     K11's s8 wgmma tile at the TMA-readable shapes, on gemm_tile.cuh's
-    loop at (37, 200, 72) and (33, 100, 70); bf16 on K2's wgmma tile but at
-    (33, 100, 70); the library picks the tile ``dot_tile`` names."""
+    loop at (37, 200, 72) and (33, 100, 70); bf16 on K2's wgmma tile and
+    fp32 on K2's tf32 tile but at (33, 100, 70), where both take
+    gemm_tile.cuh's loop; the library picks the tile ``dot_tile`` names;
+    in fp32 two calls give the same bits."""
     from vit_tpu_torch.ops.cuda import _build
     from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from vit_tpu_torch.tools import int8_probe
@@ -2107,12 +2174,13 @@ def test_torch_cuda_dot_probe(gen, dtype, m, k, n):
         x, w = _rnd(gen, dtype, m, k), _rnd(gen, dtype, k, n, std=0.05)
     tile = int8_probe.dot_tile(m, n, k, dtype, (x.data_ptr(), w.data_ptr()))
     codes = {torch.int8: 2, torch.bfloat16: 1, torch.float32: 0}
-    assert tile == {1: "wgmma", 0: "ffma" if dtype == torch.float32
-                    else "wmma"}[_build.library().vit_dot_probe_tile(
-                        x.data_ptr(), w.data_ptr(), n, k, codes[dtype])]
-    assert (tile == "wgmma") == (dtype != torch.float32 and (
-        (m, k, n) != (33, 100, 70) and (dtype == torch.bfloat16
-                                         or k % 16 == 0)))
+    f32 = dtype == torch.float32
+    assert tile == {1: "tf32" if f32 else "wgmma",
+                    0: "ffma" if f32 else "wmma"}[
+        _build.library().vit_dot_probe_tile(x.data_ptr(), w.data_ptr(), n,
+                                            k, codes[dtype])]
+    assert (tile in ("wgmma", "tf32")) == (
+        (m, k, n) != (33, 100, 70) and (dtype != torch.int8 or k % 16 == 0))
     reset_launch_counts()
     got = int8_probe.dot(x, w)
     torch.cuda.synchronize()
@@ -2122,6 +2190,9 @@ def test_torch_cuda_dot_probe(gen, dtype, m, k, n):
         assert got.dtype == torch.int32 and torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    if f32:
+        _close(got, want)
+        assert torch.equal(got, int8_probe.dot(x, w))
 
 
 def test_torch_cuda_int8_probe_main(gen):

@@ -367,9 +367,9 @@ def test_unaligned_fp32_views_are_copied_for_the_ffma_tile():
 
 
 def test_the_other_fp32_forms_stay_on_gemm_tile():
-    """The probes' fp32 GEMMs keep ``gemm_tile.cuh``'s FFMA tile in this
-    form of the port; their tile helpers say so where K2's rule would give
-    K2 the tf32 tile. K8's fp32 form left it: it takes K2's rule, the
+    """K23's fp32 GEMMs keep ``gemm_tile.cuh``'s FFMA tile in this form of
+    the port; its tile helper says so where K2's rule would give K2 the
+    tf32 tile. K8's and K22's fp32 forms left it: they take K2's rule, the
     tf32 tile on aligned operands, FFMA only on a misaligned base."""
     p = torch.zeros((2, 196, 768))
     w = torch.zeros((768, 768))
@@ -380,7 +380,9 @@ def test_the_other_fp32_forms_stay_on_gemm_tile():
     assert attn_core_probe.gemm_tile(6656, 2304, 768, torch.float32,
                                      (0, 0)) == "ffma"
     assert int8_probe.dot_tile(1664, 3072, 768, torch.float32,
-                               (0, 0)) == "ffma"
+                               (0, 0)) == "tf32"
+    assert int8_probe.dot_tile(1664, 3072, 768, torch.float32,
+                               (0, 4)) == "ffma"
     assert cuda_matmul.gemm_path(1664, 3072, 768, torch.float32, False,
                                  False, (0, 0), ((768, 1), (3072, 1))) \
         == "wgmma"

@@ -480,10 +480,31 @@ def test_k23_probe_gemm_transposed_staging():
     (1664, 3072, 768, torch.bfloat16, (0, 4096), "wgmma"),
     (37, 72, 200, torch.bfloat16, (0, 0), "wgmma"),  # multiples of 8
     (33, 70, 100, torch.bfloat16, (0, 0), "wmma"),
-    (128, 128, 128, torch.float32, (0, 0), "ffma"),
+    (128, 128, 128, torch.float32, (0, 0), "tf32"),
+    (1664, 3072, 768, torch.float32, (0, 4096), "tf32"),
+    (37, 72, 200, torch.float32, (0, 0), "tf32"),     # multiples of 4
+    (33, 70, 100, torch.float32, (0, 0), "ffma"),     # N not a multiple of 4
+    (33, 72, 102, torch.float32, (0, 0), "ffma"),     # K not a multiple of 4
+    (1664, 3072, 768, torch.float32, (0, 8), "ffma"),  # w 8-byte aligned
 ])
 def test_k22_dot_tile(m, n, k, dtype, ptrs, want):
     assert int8_probe.dot_tile(m, n, k, dtype, ptrs) == want
+
+
+@pytest.mark.parametrize("m,n,k,ptrs", [
+    (1664, 3072, 768, (0, 4096)), (37, 72, 200, (16, 0)),
+    (33, 70, 100, (0, 0)), (33, 72, 102, (0, 0)), (128, 128, 128, (4, 0)),
+])
+def test_k22_fp32_dot_takes_k2s_fp32_rule(m, n, k, ptrs):
+    """K22's fp32 dot runs on K2's tf32 tile exactly where ``gemm_path``
+    gives K2 in fp32 its ``wgmma`` (tf32) tile for the same contiguous
+    operands, and on ``gemm_tile.cuh``'s FFMA loop where it gives
+    ``"ffma"``."""
+    from vit_tpu_torch.ops.cuda.matmul import gemm_path
+    k2 = gemm_path(m, n, k, torch.float32, False, False, ptrs,
+                   ((k, 1), (n, 1)))
+    assert int8_probe.dot_tile(m, n, k, torch.float32, ptrs) == \
+        {"wgmma": "tf32", "ffma": "ffma"}[k2]
 
 
 @pytest.mark.parametrize("m,n,k,ptrs,want", [

@@ -14,8 +14,12 @@
 // - bf16 on K2's wgmma tile (gemm_wgmma.cuh, kXepRawF32: the fp32 sums
 //   stored unrounded) where TMA reads both (16-byte aligned bases, K and N
 //   multiples of 8: ops/cuda/matmul.py:gemm_path's rule);
-// - every other shape, and fp32, on K2's tile loop (gemm_tile.cuh): s8 or
-//   bf16 wmma fragments, or the true-fp32 FFMA tile;
+// - fp32 on K2's tf32 wgmma tile (matmul_tf32.cu, gemm_tf32.cuh: the
+//   three-pass TF32 split, its epilogue without bias or residual storing
+//   the sums raw) where TMA reads both (16-byte aligned bases, K and N
+//   multiples of 4: gemm_path's fp32 rule, tf32_takes);
+// - every other shape on K2's tile loop (gemm_tile.cuh): s8 or bf16 wmma
+//   fragments, or the true-fp32 FFMA tile;
 // decided by shape and alignment alone. The int8 result is the exact
 // integer product on every tile, bit for bit.
 //
@@ -24,7 +28,8 @@
 // bytes (int8 3.6 MB in and a 20.4 MB int32 product out, 7.2 us at 3.35
 // TB/s; bf16 7.3 MB in, 20.4 MB out, 8.3 us) set the bound: 0.0072 and
 // 0.0083 ms. So the probe's question, whether int8 pays, is answered on
-// the tiles the int8 tier (K11) and K2 run.
+// the tiles the int8 tier (K11) and K2 run. In fp32 the operations bound
+// it: 7.84 GFLOP in three TF32 passes at 495/3 TFLOP/s, 0.0476 ms.
 
 #include "gemm_tile.cuh"
 
@@ -36,6 +41,12 @@ cudaError_t launch_i8_raw(const void* xq, const void* wq, int* out, int m,
 cudaError_t launch_wgmma_raw(const void* x, const void* w, float* out, int m,
                              int n, int k, int device, cudaStream_t st);
 bool wgmma_takes(const void* x, const void* w, int n, int k);
+// matmul_tf32.cu: K2's fp32 launch on the tf32 tile, and its rule.
+cudaError_t launch_tf32(const void* x, const void* w, const void* bias,
+                        const void* residual, void* out, int m, int n, int k,
+                        int gelu_act, int trans_a, int trans_b, int device,
+                        cudaStream_t st);
+bool tf32_takes(const void* x, const void* w, int n, int k);
 
 template <typename Acc>
 struct StoreAcc {
@@ -100,17 +111,21 @@ extern "C" int vit_dot_probe(const void* x, const void* w, void* out, int m,
                                   device, st)
                : launch_dot_probe<bf16, float>(x, w, out, m, n, k, st);
   if (dtype == kF32)
-    return launch_dot_probe<float, float>(x, w, out, m, n, k, st);
+    return tf32_takes(x, w, n, k)
+               ? launch_tf32(x, w, nullptr, nullptr, out, m, n, k, 0, 0, 0,
+                             device, st)
+               : launch_dot_probe<float, float>(x, w, out, m, n, k, st);
   return cudaErrorInvalidValue;
 }
 
 // The tile vit_dot_probe runs x (m, k) @ w (k, n) on, without launching:
-// 1 the wgmma tile (K11's in int8, K2's in bf16), 0 gemm_tile.cuh's
-// (vit_tpu_torch/tools/int8_probe.py:dot_tile asks it).
+// 1 the wgmma tile (K11's in int8, K2's in bf16, K2's tf32 tile in fp32),
+// 0 gemm_tile.cuh's (vit_tpu_torch/tools/int8_probe.py:dot_tile asks it).
 extern "C" int vit_dot_probe_tile(const void* x, const void* w, int n, int k,
                                   int dtype) {
   using namespace vit;
   if (dtype == kI8) return i8_wgmma_takes(x, w, n, k) ? 1 : 0;
   if (dtype == kBF16) return wgmma_takes(x, w, n, k) ? 1 : 0;
+  if (dtype == kF32) return tf32_takes(x, w, n, k) ? 1 : 0;
   return 0;
 }

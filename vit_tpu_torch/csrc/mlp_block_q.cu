@@ -24,15 +24,23 @@
 // masked. W1 and W2 are read through TMA tensor maps: bases 16-byte
 // aligned (the wrapper checks).
 //
-// fp32: true fp32 FFMA (no TF32: the JAX kernel runs fp32 at
-// Precision.HIGHEST), 16 rows a block of 256 threads. Thread t computes
-// hidden columns t and t + 256 of the chunk for the 16 rows, reading its
-// int8 weights straight from device memory, then output columns t + 256j
-// of fc2; acc, xn and the chunk's hidden (16 x 512) sit in shared memory:
-// 192 KB at D=1280.
+// fp32, two forms, chosen by geometry alone before the launch
+// (ops/cuda/quant.py:mlp_q_f32_form, the entry point's `form`; neither
+// stands in for the other when a build or a launch fails):
+// - "tf32" (form 1): K3's fp32 tile with its Q flag (mlp_tf32.cuh,
+//   launched by mlp_block_q_tf32.cu) on the tensor cores, the int8 codes
+//   exact as TF32 A operands and LN(x) and h split, two TF32 passes a
+//   product, where TMA reads x, W1, W2 and out (16-byte-aligned bases);
+// - "ffma" (form 0): true fp32 FFMA (the JAX kernel runs fp32 at
+//   Precision.HIGHEST), 16 rows a block of 256 threads. Thread t computes
+//   hidden columns t and t + 256 of the chunk for the 16 rows, reading its
+//   int8 weights straight from device memory, then output columns t + 256j
+//   of fc2; acc, xn and the chunk's hidden (16 x 512) sit in shared
+//   memory: 192 KB at D=1280.
 //
 // Bound on the card: compute, 4*M*D*mlp operations (62.8 GFLOP at B/16
-// bs=32, 63.5 us at 989 TFLOP/s in bf16), on half of K3's weight bytes.
+// bs=32, 63.5 us at 989 TFLOP/s in bf16, 0.254 ms in fp32's two TF32
+// passes at 495/2 TFLOP/s), on half of K3's weight bytes.
 
 #include "mlp_q_wgmma.cuh"
 
@@ -91,6 +99,14 @@ cudaError_t launch_mlp_q_bf16(const void* x, const void* g, const void* b,
 }
 
 // ---------------------------------------------------------------- fp32 --
+
+// mlp_block_q_tf32.cu: the tensor-core form (mlp_tf32.cuh's Q flag).
+cudaError_t launch_mlp_q_tf32(const float* x, const float* g, const float* b,
+                              const signed char* w1, const float* s1,
+                              const float* b1, const signed char* w2,
+                              const float* s2, const float* b2, float* out,
+                              int m, int d, int mlp, float eps, int partial,
+                              int device, cudaStream_t st);
 
 inline size_t mlp_q_f32_smem(int d) {
   return (2 * static_cast<size_t>(kQBM) * d + kQBM * kQCT) * sizeof(float);
@@ -215,12 +231,14 @@ cudaError_t launch_mlp_q_f32(const void* x, const void* g, const void* b,
 // x (m, d), LN scale and bias (d,), b1 (mlp,), b2 (d,) and out (m, d) in the
 // dtype; w1 (d, mlp) and w2 (mlp, d) int8, 16-byte aligned; s1 (mlp,) and
 // s2 (d,) fp32. d a multiple of 128 up to 1280, mlp a multiple of 512.
-// partial != 0: the accumulator starts at zero and b2 is not read.
+// partial != 0: the accumulator starts at zero and b2 is not read. form
+// (fp32 only): 1 the tensor-core form, which needs x, w1, w2 and out
+// 16-byte aligned (refused otherwise), 0 the FFMA form.
 extern "C" int vit_mlp_block_q(const void* x, const void* g, const void* b,
                                const void* w1, const void* s1, const void* b1,
                                const void* w2, const void* s2, const void* b2,
                                void* out, int m, int d, int mlp, float eps,
-                               int partial, int dtype, int device,
+                               int partial, int form, int dtype, int device,
                                void* stream) {
   using namespace vit;
   cudaError_t err = use_device(device);
@@ -250,7 +268,15 @@ extern "C" int vit_mlp_block_q(const void* x, const void* g, const void* b,
         return cudaErrorInvalidValue;
     }
   }
-  if (dtype == kF32) {
+  if (dtype == kF32 && form == 1)
+    return launch_mlp_q_tf32(
+        static_cast<const float*>(x), static_cast<const float*>(g),
+        static_cast<const float*>(b), static_cast<const signed char*>(w1),
+        static_cast<const float*>(s1), static_cast<const float*>(b1),
+        static_cast<const signed char*>(w2), static_cast<const float*>(s2),
+        static_cast<const float*>(b2), static_cast<float*>(out), m, d, mlp,
+        eps, partial, device, st);
+  if (dtype == kF32 && form == 0) {
     switch ((d + kQThreads - 1) / kQThreads) {
 #define VIT_MLP_Q_F32(NJ)                                                     \
   case NJ:                                                                    \

@@ -129,6 +129,50 @@
 // Nothing else differs from K3's walk. Bound: operations, 2*M*D*(D +
 // 2*mlp) in three TF32 passes (70.7 GFLOP at B/16 bs=32: 0.428 ms at
 // 495/3 TFLOP/s).
+//
+// K17's fp32 form (mlp_block_q.cu; mlp_block_q_tf32.cu launches it) is
+// this tile with its Q flag (mlp_q_tf32_kernel): the same MLP on int8
+// weights with fp32 per-column scales s1 (mlp,) and s2 (D,),
+// vit_tpu/ops/pallas/block.py:_mlp_q_kernel at Precision.HIGHEST.
+// - Every int8 code is exact in TF32 (|q| <= 128 needs 8 significant
+//   bits; TF32 keeps 11), so the weights, wgmma's A operand, need no
+//   split: each product is A B_lo + A B_hi, two passes a k8 slice where
+//   K3 takes three, from one A fragment where K3 holds two.
+// - TMA stages each 32-row x 128-column weight step as it lies, one
+//   int8 box of 4 KB with the 128-byte swizzle (K3's fp32 stage is 16
+//   KB): the ring's eight stages take 32 KB (sixteen ran no faster).
+//   load_wq reads a thread's codes straight from the box, two bytes
+//   (columns col and col + 1 of one K row) a load, eight loads a step;
+//   the four rows of a half-warp phase (8 s + 2 t, or + 1) fall on four
+//   distinct 16-byte chunks of the swizzle, so a load is one wavefront
+//   (K3's fp32 loads are two). Each code becomes its fp32 value exactly
+//   in registers: its byte, sign bit flipped, is put into the mantissa of
+//   2^23 by prmt, and 2^23 + 128 is subtracted (no I2F).
+// - The scales: fc1's sums are multiplied by s1 per hidden column, then
+//   b1 is added and the erf GELU applied in fp32 (h unrounded); each
+//   chunk's fc2 sums are multiplied by s2 per output column before they
+//   are added to the totals, chunk after chunk in order. JAX scales fc2
+//   once per chunk of its plan's ct (block.py:368-378) and the plain
+//   version once per 512-column group: only the fp32 sum order moves.
+// - The consumers load and convert each step's fragments while the
+//   previous step's wgmma run, into a second buffer (run_acc_qp; two
+//   buffers of 16 registers are K3's split pair's count, and ptxas
+//   serialises no wgmma); loading them after the wait was 2-10% slower.
+//   The other place to convert, the helper warps writing an fp32 box
+//   beside each int8 stage for the consumers to read as K3's load_w does,
+//   was 1.7-1.9 times as slow: three warps convert a stage slower than the
+//   consumers use it. tools/mlp_tf32_ablate.py carries both (q_nopipe,
+//   q_box).
+// LN(x), h, the rings, the accumulator-depth rule and the epilogue are
+// K3's. Bound: operations, 4*M*D*mlp in two TF32 passes (62.8 GOP at
+// B/16 bs=32: 0.254 ms at 495/2 TFLOP/s, chip_smoke.py's "tf32x2"); in
+// three bf16 passes (the codes exact in bf16, B in three parts) the card
+// could take 0.191. On an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/mlp_tf32_ablate.py, the mean of 20 queued calls): B/16 bs=32
+// 1.15 ms (K3's tile on the same MLP 1.24), its shard over model=2 0.58,
+// L/16-384 bs=8 2.36, H/14 bs=2 1.17; at B/16 0.68 without its wgmma,
+// 1.05 without converting its codes, 0.97 without LN's boxes: what is
+// left is K3's, the waits a step (PERF.md section 6).
 
 #pragma once
 
@@ -158,6 +202,7 @@ constexpr int kCT = 128;         // hidden columns a chunk, 64 a warpgroup
 constexpr int kBK = 32;          // a K step: one 128-byte row of fp32
 constexpr int kSub = 4096;       // a 32 x 32 fp32 box
 constexpr int kWStage = 4 * kSub;  // 32 rows x 128 columns of W1 or W2
+constexpr int kWStageQ = 4096;   // the same of int8 codes (K17)
 constexpr int kHelp0 = 288;      // the normalising threads: 288-383
 constexpr int kHelpThreads = 96;
 constexpr int kMaxD = 1536;
@@ -180,17 +225,18 @@ __host__ __device__ constexpr int slot8(int k) {
   return (k >> 1) | ((k & 1) << 2);
 }
 
-// The geometry of BM rows a block.
-template <int BM>
+// The geometry of BM rows a block (Q: K17's int8 weight stages).
+template <int BM, bool Q = false>
 struct Cfg {
   static constexpr int kXBox = BM * 128;      // BM rows x 32 floats
   static constexpr int kXStage = 3 * kXBox;   // raw, hi, lo
   static constexpr int kHBuf = 8 * kXBox;     // hi then lo, 4 boxes each
   static constexpr int kFixed = kSX * kXStage + 2 * kHBuf +
                                 2 * kMaxD * 4 + 2 * BM * 4 + kBarBytes;
-  static constexpr int kSWraw = (kSmemMax - 1024 - kFixed) / kWStage;
+  static constexpr int kWSt = Q ? kWStageQ : kWStage;  // a weight stage
+  static constexpr int kSWraw = (kSmemMax - 1024 - kFixed) / kWSt;
   static constexpr int kSW = kSWraw < 8 ? kSWraw : 8;  // weight stages
-  static constexpr int kXOff = kSW * kWStage;
+  static constexpr int kXOff = kSW * kWSt;
   static constexpr int kHOff = kXOff + kSX * kXStage;
   static constexpr int kGOff = kHOff + 2 * kHBuf;      // g, then b
   static constexpr int kStOff = kGOff + 2 * kMaxD * 4;  // mean, rstd
@@ -329,6 +375,54 @@ __device__ __forceinline__ void load_w(uint32_t stage, int wgi,
   }
 }
 
+__device__ __forceinline__ uint32_t ld_shared_u16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+// Two int8 codes (bytes 0 and 1 of v) as their fp32 values, exactly: each
+// byte with its sign bit flipped (q + 128, unsigned) is put by prmt into
+// the mantissa of 2^23, which then holds 2^23 + q + 128, and 2^23 + 128 is
+// subtracted.
+__device__ __forceinline__ void codes_f32(uint32_t v, uint32_t& c0,
+                                          uint32_t& c1) {
+  const uint32_t u = v ^ 0x8080u;
+  uint32_t p0, p1;
+  asm("prmt.b32 %0, %1, %2, %3;"
+      : "=r"(p0)
+      : "r"(u), "r"(0x4B000000u), "r"(0x7540u));
+  asm("prmt.b32 %0, %1, %2, %3;"
+      : "=r"(p1)
+      : "r"(u), "r"(0x4B000000u), "r"(0x7541u));
+  c0 = __float_as_uint(__fsub_rn(__uint_as_float(p0), 8388736.f));
+  c1 = __float_as_uint(__fsub_rn(__uint_as_float(p1), 8388736.f));
+}
+
+// K17: a consumer's A fragments of one K step from the int8 weight stage
+// at `stage` (32 rows k x 128 columns i, one box, 128-byte swizzle: row k
+// at 128 k, its 16-byte chunk c at (c ^ k % 8)), as load_w's map gives
+// them -- row g of warp w is column 64 wgi + 16 w + 2 g, row g + 8 the
+// next one, slot u of slice s row k = 8 s + perm8(u) -- each code its
+// exact fp32 value, unsplit. Columns 2 g and 2 g + 1 of the warp's chunk
+// are one 2-byte load a K row.
+__device__ __forceinline__ void load_wq(uint32_t stage, int wgi,
+                                        uint32_t (&a)[4][4]) {
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int chunk = 4 * wgi + warp;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int k0 = 8 * s + perm8(q), k1 = 8 * s + perm8(q + 4);
+    const uint32_t v0 = ld_shared_u16(stage + k0 * 128 +
+                                      ((chunk ^ (k0 & 7)) << 4) + 2 * g);
+    const uint32_t v1 = ld_shared_u16(stage + k1 * 128 +
+                                      ((chunk ^ (k1 & 7)) << 4) + 2 * g);
+    codes_f32(v0, a[s][0], a[s][1]);
+    codes_f32(v1, a[s][2], a[s][3]);
+  }
+}
+
 // Keep the compiler from moving the fragments' splits past the wgmma
 // fence (ptxas then injects a fence of its own before the wgmma).
 __device__ __forceinline__ void fence_frag(uint32_t (&f)[4][4]) {
@@ -414,26 +508,26 @@ __device__ __forceinline__ void normalize_box(uint32_t raw, const float* gs,
 }
 
 // The shared-memory addresses of a launch.
-template <int BM>
+template <int BM, bool Q = false>
 struct Smem {
   uint32_t base;
   __device__ __forceinline__ uint32_t wstage(int s) const {
-    return base + s * kWStage;
+    return base + s * Cfg<BM, Q>::kWSt;
   }
   __device__ __forceinline__ uint32_t xstage(int s) const {
-    return base + Cfg<BM>::kXOff + s * Cfg<BM>::kXStage;
+    return base + Cfg<BM, Q>::kXOff + s * Cfg<BM, Q>::kXStage;
   }
   __device__ __forceinline__ uint32_t hbuf(int c) const {
-    return base + Cfg<BM>::kHOff + (c & 1) * Cfg<BM>::kHBuf;
+    return base + Cfg<BM, Q>::kHOff + (c & 1) * Cfg<BM, Q>::kHBuf;
   }
   __device__ __forceinline__ uint32_t wfull(int s) const {
-    return base + Cfg<BM>::kBarOff + 8 * s;
+    return base + Cfg<BM, Q>::kBarOff + 8 * s;
   }
   __device__ __forceinline__ uint32_t wempty(int s) const {
-    return wfull(Cfg<BM>::kSW + s);
+    return wfull(Cfg<BM, Q>::kSW + s);
   }
   __device__ __forceinline__ uint32_t xraw(int s) const {
-    return wfull(2 * Cfg<BM>::kSW + s);
+    return wfull(2 * Cfg<BM, Q>::kSW + s);
   }
   __device__ __forceinline__ uint32_t xfull(int s) const {
     return xraw(kSX + s);
@@ -458,18 +552,101 @@ struct Ring {
   }
 };
 
+// K17's K step started: the two passes of each k8 slice (a b_lo, a b_hi)
+// with the exact int8 A fragments against the B boxes at bhi, blo, and
+// committed, not waited for; fresh: its first product starts acc.
+template <int BM>
+__device__ __forceinline__ void mma_q(float (&acc)[BM / 2],
+                                        uint32_t (&a)[4][4], uint32_t bhi,
+                                        uint32_t blo, bool fresh) {
+  fence_frag(a);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint64_t dh = sw128_desc(bhi + 32 * s, 16, 1024);
+    const uint64_t dl = sw128_desc(blo + 32 * s, 16, 1024);
+    if (s == 0 && fresh)
+      wgmma_n_fresh<BM>(acc, a[s], dl);
+    else
+      wgmma_n<BM>(acc, a[s], dl);
+    wgmma_n<BM>(acc, a[s], dh);
+  }
+  wgmma_commit();
+}
+
+// One step of K17's run_acc_qp: its products started from cur; while they
+// run, the next step's fragments loaded and converted into nxt; then the
+// products waited for and the stages released.
+template <int BM, bool FC1>
+__device__ __forceinline__ void step_qp(const Smem<BM, true>& sm, int wgi,
+                                        Ring<Cfg<BM, true>::kSW>& w,
+                                        Ring<kSX>& xr, int st, int steps,
+                                        uint32_t hb, float (&acc)[BM / 2],
+                                        bool fresh, uint32_t (&cur)[4][4],
+                                        uint32_t (&nxt)[4][4]) {
+  const int t = threadIdx.x % 128;
+  uint32_t bhi;
+  if (FC1) {
+    mbar_wait(sm.xfull(xr.s), xr.ph);
+    bhi = sm.xstage(xr.s) + Cfg<BM>::kXBox;
+  } else {
+    bhi = hb + st * Cfg<BM>::kXBox;
+  }
+  const uint32_t blo = bhi + (FC1 ? 1 : 4) * Cfg<BM>::kXBox;
+  mma_q<BM>(acc, cur, bhi, blo, fresh && st == 0);
+  if (st + 1 < steps) {
+    Ring<Cfg<BM, true>::kSW> n = w;
+    n.next();
+    mbar_wait(sm.wfull(n.s), n.ph);
+    load_wq(sm.wstage(n.s), wgi, nxt);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_frag(cur);  // the products read cur until here
+  if (t == 0) mbar_arrive(sm.wempty(w.s));
+  w.next();
+  if (FC1) {
+    if (t == 0) mbar_arrive(sm.xempty(xr.s));
+    xr.next();
+  }
+}
+
+// K17's run_acc: its steps over two fragment buffers of 16 registers (the
+// count of K3's split pair), in pairs so that each buffer is named at
+// compile time.
+template <int BM, bool FC1>
+__device__ __forceinline__ void run_acc_qp(const Smem<BM, true>& sm, int wgi,
+                                           Ring<Cfg<BM, true>::kSW>& w,
+                                           Ring<kSX>& xr, int steps,
+                                           uint32_t hb, float (&acc)[BM / 2],
+                                           bool fresh) {
+  uint32_t a0[4][4], a1[4][4];
+  mbar_wait(sm.wfull(w.s), w.ph);
+  load_wq(sm.wstage(w.s), wgi, a0);
+  for (int st = 0; st < steps; st += 2) {
+    step_qp<BM, FC1>(sm, wgi, w, xr, st, steps, hb, acc, fresh, a0, a1);
+    if (st + 1 < steps)
+      step_qp<BM, FC1>(sm, wgi, w, xr, st + 1, steps, hb, acc, fresh, a1,
+                       a0);
+  }
+}
+
 // One accumulator's walk over `steps` K steps of 32, each loaded, issued
 // and waited for in turn (the next step loads its fragments into the same
 // registers), its weight stage and fc1's x stage released once it is done
 // (every warp of the warpgroup has then loaded its fragments). FC1: B is
 // x's stage ring; else the chunk's h boxes from hb. fresh: the first
-// product starts acc.
-template <int BM, bool FC1>
-__device__ __forceinline__ void run_acc(const Smem<BM>& sm, int wgi,
-                                        Ring<Cfg<BM>::kSW>& w,
+// product starts acc. Q: K17's, run_acc_qp.
+template <int BM, bool FC1, bool Q = false>
+__device__ __forceinline__ void run_acc(const Smem<BM, Q>& sm, int wgi,
+                                        Ring<Cfg<BM, Q>::kSW>& w,
                                         Ring<kSX>& xr, int steps,
                                         uint32_t hb, float (&acc)[BM / 2],
                                         bool fresh) {
+  if constexpr (Q) {
+    run_acc_qp<BM, FC1>(sm, wgi, w, xr, steps, hb, acc, fresh);
+    return;
+  }
   const int t = threadIdx.x % 128;
   uint32_t ah[4][4], al[4][4];
   for (int st = 0; st < steps; ++st) {
@@ -503,13 +680,17 @@ __device__ __forceinline__ void run_acc(const Smem<BM>& sm, int wgi,
 // tools/tf32_probe.py), in accumulators of K = 128 added on the FFMA
 // units beyond (G = 12, where the registers allow it). w and xr: the
 // rings' positions where the chunks start (K18's out-projection runs
-// through both rings first).
-template <int BM, int G>
-__device__ __forceinline__ void run_chunks(const Smem<BM>& sm,
+// through both rings first). Q: K17's, fc1's sums scaled by s1 per hidden
+// column before b1, each chunk's fc2 sums by s2 per output column before
+// they are added to tot.
+template <int BM, int G, bool Q = false>
+__device__ __forceinline__ void run_chunks(const Smem<BM, Q>& sm,
                                            const MlpTf32Args& a, int wgi,
                                            float (&tot)[G][BM / 2],
-                                           Ring<Cfg<BM>::kSW>& w,
-                                           Ring<kSX>& xr) {
+                                           Ring<Cfg<BM, Q>::kSW>& w,
+                                           Ring<kSX>& xr,
+                                           const float* s1 = nullptr,
+                                           const float* s2 = nullptr) {
   constexpr int NV = BM / 2;
   constexpr bool kSplitFc1 = G > 8;
   constexpr int kFc1Steps = kCT / kBK;  // K = 128 an accumulator
@@ -523,13 +704,13 @@ __device__ __forceinline__ void run_chunks(const Smem<BM>& sm,
     if constexpr (kSplitFc1) {
       for (int k0 = 0; k0 < nkd; k0 += kFc1Steps) {
         const int n = min(kFc1Steps, nkd - k0);
-        run_acc<BM, true>(sm, wgi, w, xr, n, 0, part, true);
+        run_acc<BM, true, Q>(sm, wgi, w, xr, n, 0, part, true);
 #pragma unroll
         for (int i = 0; i < NV; ++i)
           hacc[i] = k0 ? hacc[i] + part[i] : part[i];
       }
     } else {
-      run_acc<BM, true>(sm, wgi, w, xr, nkd, 0, hacc, true);
+      run_acc<BM, true, Q>(sm, wgi, w, xr, nkd, 0, hacc, true);
     }
     // h = gelu(fc1 + b1), split, at its permuted K slot in the chunk's
     // buffer: hidden column kh is box kh / 32, slot slot8 of its slice.
@@ -539,6 +720,8 @@ __device__ __forceinline__ void run_chunks(const Smem<BM>& sm,
       const int kh = 64 * wgi + 16 * warp + 2 * g + i2;
       const int hc = c * kCT + kh;
       const float bias = hc < a.mlp ? __ldg(a.b1 + hc) : 0.f;
+      float scale = 1.f;
+      if constexpr (Q) scale = hc < a.mlp ? __ldg(s1 + hc) : 0.f;
       const uint32_t box = hb + (kh >> 5) * Cfg<BM>::kXBox;
       const int p = (kh & 24) + slot8(kh & 7);
 #pragma unroll
@@ -546,8 +729,9 @@ __device__ __forceinline__ void run_chunks(const Smem<BM>& sm,
 #pragma unroll
         for (int i1 = 0; i1 < 2; ++i1) {
           const int n = 8 * j + 2 * q + i1;
-          const float v = hc < a.mlp ? gelu(hacc[4 * j + 2 * i2 + i1] + bias)
-                                     : 0.f;
+          float z = hacc[4 * j + 2 * i2 + i1];
+          if constexpr (Q) z = __fmul_rn(z, scale);
+          const float v = hc < a.mlp ? gelu(z + bias) : 0.f;
           uint32_t hi, lo;
           split_tf32(v, hi, lo);
           st_shared_u32(box + sw128_f32(n, p), hi);
@@ -560,22 +744,40 @@ __device__ __forceinline__ void run_chunks(const Smem<BM>& sm,
 #pragma unroll
     for (int qg = 0; qg < G; ++qg) {
       if (qg < ng) {
-        run_acc<BM, false>(sm, wgi, w, xr, kCT / kBK, hb, part, true);
+        run_acc<BM, false, Q>(sm, wgi, w, xr, kCT / kBK, hb, part, true);
+        if constexpr (Q) {
+          // Value 4 j + 2 i2 + i1 is column 128 qg + 64 wgi + 16 warp +
+          // 2 g + i2 (D % 128 == 0: every column of a real group is).
+          const int col = 128 * qg + 64 * wgi + 16 * warp + 2 * g;
+          const float c0 = __ldg(s2 + col), c1 = __ldg(s2 + col + 1);
 #pragma unroll
-        for (int i = 0; i < NV; ++i) tot[qg][i] += part[i];
+          for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+            for (int i1 = 0; i1 < 2; ++i1) {
+              float& t0 = tot[qg][4 * j + i1];
+              float& t1 = tot[qg][4 * j + 2 + i1];
+              t0 = __fadd_rn(t0, __fmul_rn(part[4 * j + i1], c0));
+              t1 = __fadd_rn(t1, __fmul_rn(part[4 * j + 2 + i1], c1));
+            }
+        } else {
+#pragma unroll
+          for (int i = 0; i < NV; ++i) tot[qg][i] += part[i];
+        }
       }
     }
   }
 }
 
-// K3's chunk loop: both rings from their first stage.
-template <int BM, int G>
-__device__ __forceinline__ void run_chunks(const Smem<BM>& sm,
+// K3's chunk loop (K17's with Q): both rings from their first stage.
+template <int BM, int G, bool Q = false>
+__device__ __forceinline__ void run_chunks(const Smem<BM, Q>& sm,
                                            const MlpTf32Args& a, int wgi,
-                                           float (&tot)[G][BM / 2]) {
-  Ring<Cfg<BM>::kSW> w;
+                                           float (&tot)[G][BM / 2],
+                                           const float* s1 = nullptr,
+                                           const float* s2 = nullptr) {
+  Ring<Cfg<BM, Q>::kSW> w;
   Ring<kSX> xr;
-  run_chunks<BM, G>(sm, a, wgi, tot, w, xr);
+  run_chunks<BM, G, Q>(sm, a, wgi, tot, w, xr, s1, s2);
 }
 
 // LN2's statistics of one row of y, K18's, from out, where the block's
@@ -597,24 +799,27 @@ __device__ __forceinline__ float2 y_stats(const float* y, int d, float eps,
 
 // The walk of one block, K3's (LAYER false: map_c, map_o and bout unused)
 // or K18's (LAYER: map_x reads y from out, map_c ctx, map_o Wout; a.x is
-// the layer's input rows, a.g and a.b LN2's scale and bias). a comes by
-// value: so K3's kernel compiles to the code it had before K18's form
-// shared this walk (tools/sass_count.py --exact).
-template <int BM, int G, bool LAYER>
+// the layer's input rows, a.g and a.b LN2's scale and bias), or with Q
+// K17's (map_w1 and map_w2 the int8 codes' maps, s1 and s2 their scales).
+// a comes by value: so K3's kernel compiles to the code it had before
+// K18's form shared this walk (tools/sass_count.py --exact).
+template <int BM, int G, bool LAYER, bool Q = false>
 __device__ __forceinline__ void mlp_tf32_walk(const CUtensorMap& map_x,
                                               const CUtensorMap& map_w1,
                                               const CUtensorMap& map_w2,
                                               const CUtensorMap& map_c,
                                               const CUtensorMap& map_o,
                                               MlpTf32Args a,
-                                              const float* bout) {
+                                              const float* bout,
+                                              const float* s1 = nullptr,
+                                              const float* s2 = nullptr) {
   extern __shared__ uint8_t mt_smem[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(mt_smem) + 1023) & ~uintptr_t(1023));
-  const Smem<BM> sm{wg::smem_u32(smem)};
-  float* gs = reinterpret_cast<float*>(smem + Cfg<BM>::kGOff);
+  const Smem<BM, Q> sm{wg::smem_u32(smem)};
+  float* gs = reinterpret_cast<float*>(smem + Cfg<BM, Q>::kGOff);
   float* bs = gs + kMaxD;
-  float* mean = reinterpret_cast<float*>(smem + Cfg<BM>::kStOff);
+  float* mean = reinterpret_cast<float*>(smem + Cfg<BM, Q>::kStOff);
   float* rstd = mean + BM;
   const int m0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -638,7 +843,7 @@ __device__ __forceinline__ void mlp_tf32_walk(const CUtensorMap& map_x,
     }
   }
   if (threadIdx.x == 0) {
-    for (int s = 0; s < Cfg<BM>::kSW; ++s) {
+    for (int s = 0; s < Cfg<BM, Q>::kSW; ++s) {
       mbar_init(sm.wfull(s), 1);
       mbar_init(sm.wempty(s), 2);
     }
@@ -659,16 +864,22 @@ __device__ __forceinline__ void mlp_tf32_walk(const CUtensorMap& map_x,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (threadIdx.x == 256) {
       // ---- the loads, in the consumers' order ----
-      Ring<Cfg<BM>::kSW> w;
+      Ring<Cfg<BM, Q>::kSW> w;
       Ring<kSX> xr;
-      // Weight stage w.s: W's 32 rows from r0 x 128 columns from c0.
+      // Weight stage w.s: W's 32 rows from r0 x 128 columns from c0 (Q:
+      // one int8 box).
       auto load_w_stage = [&](const CUtensorMap* map, int c0, int r0) {
         mbar_wait(sm.wempty(w.s), w.ph ^ 1);
-        mbar_expect_tx(sm.wfull(w.s), kWStage);
+        if constexpr (Q) {
+          mbar_expect_tx(sm.wfull(w.s), kWStageQ);
+          tma_load(sm.wstage(w.s), map, sm.wfull(w.s), c0, r0);
+        } else {
+          mbar_expect_tx(sm.wfull(w.s), kWStage);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          tma_load(sm.wstage(w.s) + j * kSub, map, sm.wfull(w.s),
-                   c0 + 32 * j, r0);
+          for (int j = 0; j < 4; ++j)
+            tma_load(sm.wstage(w.s) + j * kSub, map, sm.wfull(w.s),
+                     c0 + 32 * j, r0);
+        }
         w.next();
       };
       if constexpr (LAYER) {
@@ -730,7 +941,7 @@ __device__ __forceinline__ void mlp_tf32_walk(const CUtensorMap& map_x,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
     const int t = threadIdx.x % 128, cw = t / 32, cl = t % 32;
     const int g = cl / 4, q = cl % 4;
-    Ring<Cfg<BM>::kSW> w;
+    Ring<Cfg<BM, Q>::kSW> w;
     Ring<kSX> xr;
     // Group q's value 4 j + 2 i2 + i1 is row 8 j + 2 q + i1, column
     // 128 q + 64 wgi + 16 cw + 2 g + i2: pairs (i2 = 0, 1) are adjacent
@@ -819,7 +1030,7 @@ __device__ __forceinline__ void mlp_tf32_walk(const CUtensorMap& map_x,
     if constexpr (LAYER)
       run_chunks<BM, G>(sm, a, wgi, tot, w, xr);
     else
-      run_chunks<BM, G>(sm, a, wgi, tot);
+      run_chunks<BM, G, Q>(sm, a, wgi, tot, s1, s2);
 #pragma unroll
     for (int qg = 0; qg < G; ++qg)
 #pragma unroll
@@ -857,6 +1068,19 @@ __global__ void __launch_bounds__(kThreads, 1)
                       const __grid_constant__ CUtensorMap map_o,
                       MlpTf32Args a, const float* bout) {
   mlp_tf32_walk<BM, G, true>(map_y, map_w1, map_w2, map_c, map_o, a, bout);
+}
+
+// K17's fp32 form: map_x reads x (m, d) in BM x 32 fp32 boxes, map_w1 and
+// map_w2 the int8 codes of W1 (d, mlp) and W2 (mlp, d) in 128-column x
+// 32-row boxes; s1 (mlp,) and s2 (d,) their fp32 scales.
+template <int BM, int G>
+__global__ void __launch_bounds__(kThreads, 1)
+    mlp_q_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_w1,
+                      const __grid_constant__ CUtensorMap map_w2,
+                      MlpTf32Args a, const float* s1, const float* s2) {
+  mlp_tf32_walk<BM, G, false, true>(map_x, map_w1, map_w2, map_x, map_x, a,
+                                    nullptr, s1, s2);
 }
 
 }  // namespace mt

@@ -94,8 +94,9 @@ _SIGNATURES = {
     # x, y, out, b, m, n, k, scale
     "vit_matmul3": (_P, _P, _P, _I, _I, _I, _I, _F),
     # x, ln scale, ln bias, w1, s1, b1, w2, s2, b2, out, m, d, mlp, eps,
-    # partial
-    "vit_mlp_block_q": (*(_P,) * 10, _I, _I, _I, _F, _I),
+    # partial, form (fp32: 0 the FFMA form, 1 mlp_tf32.cuh's tensor-core
+    # tile with its Q flag)
+    "vit_mlp_block_q": (*(_P,) * 10, _I, _I, _I, _F, _I, _I),
     # ctx, x, wout, bout, ln2 scale, ln2 bias, w1, b1, w2, b2, out, m, d,
     # mlp, eps, form (fp32: 0 layer_block.cu's FFMA form, 1 mlp_tf32.cuh's
     # tensor-core tile with its LAYER flag)

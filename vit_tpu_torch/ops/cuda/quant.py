@@ -2,8 +2,8 @@
 in the form :func:`quantize_rows_form` names),
 K11 ``matmul_i8`` (``csrc/matmul_i8_wgmma.cu``, or ``csrc/matmul.cu`` where
 :func:`i8_path` says), K12 ``mlp_block_i8dot`` (``csrc/mlp_block_i8.cu`` on
-``csrc/mlp_i8_wgmma.cuh``), K17 ``mlp_block_q`` (``csrc/mlp_block_q.cu``)
-and ``attn_block_q`` as five launches (counterparts of
+``csrc/mlp_i8_wgmma.cuh``), K17 ``mlp_block_q`` (``csrc/mlp_block_q.cu``;
+in fp32 in the form :func:`mlp_q_f32_form` names) and ``attn_block_q`` as five launches (counterparts of
 ``vit_tpu/ops/pallas/block.py:attn_block_q``, ``mlp_block_i8dot`` and
 ``mlp_block_q``); and their tensor-parallel shard forms: K12 and K17 with
 ``partial_out=True``, and B17 ``attn_block_q_partial``
@@ -40,6 +40,29 @@ from vit_tpu_torch.ops.reference import MLP_GROUP
 MLP_I8_MAX_D = 1280
 
 _I8, _F32 = torch.int8, torch.float32
+
+
+#: The fp32 forms of K17 (the C entry point's ``form``).
+MLP_Q_F32_FORMS = {"ffma": 0, "tf32": 1}
+
+
+def mlp_q_f32_form(d: int, mlp: int, ptrs: tuple[int, ...]) -> str:
+    """The form K17 runs an fp32 MLP of width ``d`` and hidden ``mlp`` on
+    int8 weights in: ``"tf32"`` (``csrc/mlp_tf32.cuh`` with its Q flag: K3's
+    tile on the tensor cores, the int8 codes exact as TF32 operands, two
+    passes a product) where TMA can read every operand -- the bases
+    (``ptrs``, bytes: x, w1q and w2q; the output is the wrapper's own
+    allocation, 512-byte aligned) 16-byte aligned -- else ``"ffma"``
+    (``csrc/mlp_block_q.cu:mlp_q_f32_kernel``, true fp32). ``d`` and
+    ``mlp`` must be a geometry ``ops.mlp_q_plan`` admits (D a multiple of
+    128 up to 1280, whole 512-column groups: rows of 16-byte multiples).
+    Geometry alone decides, before the launch; neither form stands in for
+    the other when a build or a launch fails."""
+    if not mlp_q_plan(d, mlp):
+        raise ValueError(f"fp32 mlp_block_q takes D a multiple of 128 up to "
+                         f"{MLP_I8_MAX_D} and mlp a multiple of "
+                         f"{MLP_GROUP}, got D={d}, mlp={mlp}")
+    return "tf32" if all(p % 16 == 0 for p in ptrs) else "ffma"
 
 
 #: The C interface's code of each :func:`quantize_rows_form` result.
@@ -203,11 +226,12 @@ def attn_block_q_partial(x: torch.Tensor, ln_scale, ln_bias, wqkv_q, sqkv,
 
 
 def _int8_mlp(kernel: str, entry: str, x: torch.Tensor, ln_scale, ln_bias,
-              w1q, s1, b1, w2q, s2, b2, eps: float,
-              partial_out: bool) -> torch.Tensor:
+              w1q, s1, b1, w2q, s2, b2, eps: float, partial_out: bool,
+              form=None) -> torch.Tensor:
     """Check the operands of an int8-weight MLP kernel (K12 or K17), launch
-    C entry point ``entry`` and count a launch of ``kernel`` (of
-    ``kernel + "_partial"`` with ``partial_out``)."""
+    C entry point ``entry`` and count a launch of ``kernel`` (of ``kernel +
+    "_partial"`` with ``partial_out``). ``form``: a function of the checked
+    (D, mlp) giving the entry point's last argument (K17's form)."""
     _build.check_tensor(x, "x", x)
     d = x.shape[-1]
     if w1q.dim() != 2 or w1q.shape[0] != d:
@@ -229,9 +253,10 @@ def _int8_mlp(kernel: str, entry: str, x: torch.Tensor, ln_scale, ln_bias,
     m = x.numel() // d
     if m == 0:
         raise ValueError(f"{kernel} of an empty tensor {tuple(x.shape)}")
+    tail = () if form is None else (form(d, mlp),)
     out = torch.empty_like(x)
     _build.launch(entry, x, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2, out,
-                  m, d, mlp, float(eps), int(partial_out), like=x)
+                  m, d, mlp, float(eps), int(partial_out), *tail, like=x)
     count_launch(kernel + "_partial" if partial_out else kernel)
     return out
 
@@ -254,7 +279,14 @@ def mlp_block_q(x: torch.Tensor, ln_scale, ln_bias, w1q, s1, b1, w2q, s2, b2,
     """``x + fc2(gelu(fc1(LN(x))))`` on weight-only int8 weights for a CUDA
     tensor ``x`` (..., D), one kernel (K17, ``csrc/mlp_block_q.cu``): the
     activations stay in ``x``'s dtype, the weights are converted to it as
-    they are staged. The operands and limits of :func:`mlp_block_i8dot`
-    (mlp a multiple of 512: K17's chunk); ``partial_out`` as there."""
+    they are staged (in fp32 on the tensor cores where
+    :func:`mlp_q_f32_form` says, the codes exact in TF32). The operands and
+    limits of :func:`mlp_block_i8dot` (mlp a multiple of 512: K17's
+    chunk); ``partial_out`` as there."""
+    def form(d: int, mlp: int) -> int:
+        if x.dtype == torch.bfloat16:
+            return 0
+        return MLP_Q_F32_FORMS[mlp_q_f32_form(
+            d, mlp, (x.data_ptr(), w1q.data_ptr(), w2q.data_ptr()))]
     return _int8_mlp("mlp_block_q", "vit_mlp_block_q", x, ln_scale, ln_bias,
-                     w1q, s1, b1, w2q, s2, b2, eps, partial_out)
+                     w1q, s1, b1, w2q, s2, b2, eps, partial_out, form)

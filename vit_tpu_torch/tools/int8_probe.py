@@ -8,11 +8,13 @@ Each dot runs on the tile the port's path runs it on (:func:`dot_tile`,
 by shape and alignment alone): int8 on K11's s8 ``wgmma`` tile fed by TMA
 (``csrc/matmul_i8_wgmma.cu`` with its raw epilogue) where
 ``ops.cuda.quant.i8_path`` gives K11 that tile, bf16 on K2's ``wgmma``
-tile (``csrc/gemm_wgmma.cuh``, the fp32 sums stored unrounded) where
-``ops.cuda.matmul.gemm_path`` gives K2 that tile, every other shape and
-fp32 on ``gemm_tile.cuh``'s loop (s8 or bf16 ``wmma``, fp32 FFMA). Its
-bound at the timed shape is bytes: the 20.4 MB fp32 or int32 product,
-0.0072 ms in int8 and 0.0083 in bf16 at 3.35 TB/s. It checks, in order:
+tile (``csrc/gemm_wgmma.cuh``, the fp32 sums stored unrounded) and fp32 on
+K2's tf32 tile (``csrc/gemm_tf32.cuh``, three TF32 passes, the sums
+stored raw) where ``ops.cuda.matmul.gemm_path`` gives K2 that tile, every
+other shape on ``gemm_tile.cuh``'s loop (s8 or bf16 ``wmma``, fp32 FFMA).
+Its bound at the timed shape is bytes in int8 and bf16: the 20.4 MB fp32
+or int32 product, 0.0072 ms in int8 and 0.0083 in bf16 at 3.35 TB/s; in
+fp32 operations, 0.0476 ms in three TF32 passes. It checks, in order:
 
 1. a 128 x 128 int8 dot, bit for bit against numpy;
 2. K12 ``mlp_block_i8dot`` at a tiny shape (d=128, m=16). JAX compile-
@@ -68,16 +70,18 @@ def dot_tile(m: int, n: int, k: int, dtype: torch.dtype,
     ``"wgmma"`` where TMA reads both operands by K11's rule in int8
     (:func:`vit_tpu_torch.ops.cuda.quant.i8_path`) or K2's in bf16
     (:func:`vit_tpu_torch.ops.cuda.matmul.gemm_path`), else ``"wmma"``
-    (``gemm_tile.cuh``'s loop); ``"ffma"`` in fp32.
+    (``gemm_tile.cuh``'s loop); in fp32 ``"tf32"`` (K2's tf32 tile) where
+    K2's fp32 rule gives K2 that tile, else ``"ffma"``.
     ``csrc/dot_probe.cu:vit_dot_probe_tile`` applies the same rule."""
     from vit_tpu_torch.ops.cuda.matmul import gemm_path
     from vit_tpu_torch.ops.cuda.quant import i8_path
 
     if dtype == torch.int8:
         return i8_path(m, n, k, ptrs)
-    if dtype == torch.float32:  # gemm_tile.cuh, where K2 has a tf32 tile
-        return "ffma"
-    return gemm_path(m, n, k, dtype, False, False, ptrs, ((k, 1), (n, 1)))
+    path = gemm_path(m, n, k, dtype, False, False, ptrs, ((k, 1), (n, 1)))
+    if dtype == torch.float32:
+        return "tf32" if path == "wgmma" else "ffma"
+    return path
 
 
 def dot(x: torch.Tensor, w: torch.Tensor, *,

@@ -26,7 +26,8 @@ bs=32, L/16-384 bs=8 and the B/16 bs=32 shard over model=2, and in fp32
 also at H/14 bs=2, each beside the case's composed K1 -> K2 -> K2 chain),
 K17 (``mlp_block_q`` at B/16
 bs=32 and its shard over model=2, each beside K3 on the dequantized
-weights) and K18 (B/16 bs=32 and L/16 bs=8, each beside K2 -> K3 on the
+weights; in fp32 also at L/16-384 bs=8 and H/14 bs=2), K22's fp32 dot
+beside ``torch.matmul``, and K18 (B/16 bs=32 and L/16 bs=8, each beside K2 -> K3 on the
 same operands, which rounds y); then the B/16 bs=32 bf16 forward on the
 default route, on the full-layer route (``layer_block=True``), on
 ``(flash, fused=False)``, ``(unfused, fused=False)`` and ``(unfused,
@@ -35,7 +36,8 @@ fused=True)`` (K6), the int8 forward (``forward_quant``; also with
 and int8 and the L/16 bs=1 bf16 forward (the stack route, K9), the
 L/16-384 bs=8 bf16 forward (the composed route, K6), the B/16 bs=32 bf16
 train step, and the B/16 bs=32 fp32 forward (default route and
-``layer_block=True``, K18's fp32 form) and train step (K2's, K6's and
+``layer_block=True``, K18's fp32 form; and the int8 forward with
+``int8_dot=False``, K17's fp32 form) and train step (K2's, K6's and
 K13's fp32 forms; K2's fp32 ``g @ w.t()`` and ``x.t() @ g`` are kernel
 cases too, and so are K18's fp32 form at B/16 bs=32 and L/16 bs=8 beside
 K2 -> K3 and K6's at L/16-384 and the B/16 QKV beside K1 -> K2). A checkout whose K2 reads no transposed view (no
@@ -199,6 +201,21 @@ CASES = {
     "mlp_q_partial_b16": ("kernel_cases_tp", "bfloat16",
                           "mlp_block_q_partial", "B/16 bs=32 model=2",
                           False),
+    # K17's fp32 form (K3's tf32 tile with its Q flag, two TF32 passes) at
+    # B/16 bs=32, its shard over model=2, L/16-384 bs=8 and H/14 bs=2,
+    # each beside K3's fp32 tile on the dequantized weights; K22's fp32
+    # dot (K2's tf32 tile) beside torch.matmul.
+    "mlp_q_b16_float32": ("kernel_cases_chain", "float32", "mlp_block_q",
+                          "B/16 bs=32", False),
+    "mlp_q_partial_b16_float32": ("kernel_cases_chain", "float32",
+                                  "mlp_block_q_partial",
+                                  "B/16 bs=32 model=2", False),
+    "mlp_q_l16_384_float32": ("kernel_cases_chain", "float32",
+                              "mlp_block_q", "L/16-384 bs=8", False),
+    "mlp_q_h14_float32": ("kernel_cases_chain", "float32", "mlp_block_q",
+                          "H/14 bs=2", False),
+    "dot_probe_float32": ("kernel_cases_probes", "float32", "dot_probe",
+                          "float32", True),
     "encoder_stack_fused": ("kernel_cases_small_batch", "bfloat16",
                             "encoder_stack_fused", "(1,196,768)", False),
     "encoder_stack_q": ("kernel_cases_stack_q", "bfloat16",
@@ -369,10 +386,15 @@ torch.cuda.empty_cache()
 cfg32 = VARIANTS["B/16"].replace(dtype=torch.float32, num_classes=1000)
 p32 = init_params(cfg32, generator=gen, device="cuda")
 px32 = px.float()
+q32 = quantize_params(p32)
 with torch.inference_mode():
     res["forward_fp32"] = times(lambda: forward(p32, px32, cfg32), iters=10)
     res["forward_fp32_layer"] = times(
         lambda: forward(p32, px32, cfg32, layer_block=True), iters=10)
+    # The fp32 int8 forward with K17 in its MLP halves (int8_dot=False).
+    res["forward_fp32_int8_nodot"] = times(
+        lambda: forward_quant(q32, px32, cfg32, int8_dot=False), iters=10)
+del q32
 init_fn, step_fn = make_train_step(cfg32, make_optimizer(1e-4, 0.05))
 opt = init_fn(p32)
 res["train_step_fp32"] = times(lambda: step_fn(p32, opt, px32, labels),
