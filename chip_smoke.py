@@ -168,16 +168,19 @@ without printing the final ``ok`` line:
     checked in phase 3 and timed in phase 11 (``kernel_cases_probes``: K22
     int8 bit for bit, bf16 and fp32 (K2's tf32 tile; two calls bit for
     bit, two planted faults) at (1664, 768) @ (768, 3072); K23's ``full``
-    core and the block in every mode at B/16 bs=32, bf16 and the fp32 modes
-    that fit; K24's ``dma`` over 12 B/16 layers at bs=1, the other variants
-    cut to 2 layers). Here, through the probes' entry points with exact
-    launch counts: the int8 probe's ``run`` (K22 on K11's s8 ``wgmma``
-    tile and K2's bf16 one); the attention block in every mode at B/16
-    bs=32 bf16 against its plain version (K23's core on K4's tensor-core
-    tile, its GEMMs on K2's ``wgmma`` tile), each mode's planted faults
-    refused and wide's rounding point held on its core, then each mode's
-    event ms and the core launch's device ms; K4's bf16 core against K23's
-    ``full`` core bit for bit, then the two in turns; every encoder
+    core (also on the card) and the block in every mode at B/16 bs=32 in
+    both dtypes (fp32 blocks two calls bit for bit), and its fp32 kt QKV
+    GEMM (two planted faults); K24's ``dma`` over 12 B/16 layers at bs=1,
+    the other variants cut to 2 layers). Here, through the probes' entry
+    points with exact launch counts: the int8 probe's ``run`` (K22 on
+    K11's s8 ``wgmma`` tile and K2's bf16 one); the attention block in
+    every mode at B/16 bs=32 bf16 against its plain version (K23's core on
+    K4's tensor-core tile, its GEMMs on K2's ``wgmma`` tile), each mode's
+    planted faults refused and wide's rounding point held on its core, the
+    fp32 GEMMs' tile (K2's tf32 walk), then each mode's event ms and the
+    core launch's device ms in each dtype; K4's core against
+    K23's ``full`` core bit for bit in both dtypes, then the two in turns;
+    every encoder
     variant at the JAX probe's four cases (2 layers) against its plain
     version, then each timed at 12 layers for b = 1, 2, 3.
 
@@ -250,7 +253,7 @@ PIPELINED = ("attention", "flash_attention_bwd", "matmul", "flash_attention",
              "matmul3", "mlp_block", "mlp_block_partial", "layernorm",
              "softmax", "add", "matmul_i8", "layernorm_stats",
              "quantize_rows", "embed_fused", "layer_block", "dot_probe",
-             "attn_core_probe")
+             "attn_core_probe", "minimal_matmul")
 #: Kernels each of whose cases phase 11 also times on the card (the
 #: profiler's device time), beside the library call: their wrappers' host
 #: time can exceed the kernel, and then pipelined calls wait on the host.
@@ -334,8 +337,11 @@ KERNEL_SOURCES = {
     # case) is K11's s8 wgmma tile with its raw epilogue, which
     # dot_probe.cu launches. K23's bf16 core (the kernels line's case:
     # full) is K4's tensor-core tile, which attn_core_probe_masked.cu
-    # launches; K23 also replaces _probe_t's two pallas_calls
-    # (tools/attn_core_probe.py:432, :447): tcore and xcore.
+    # launches; its fp32 core K4's fp32 tile (attention_tf32.cuh, launched
+    # by attn_core_probe_tf32_masked.cu and _all_keys.cu), its fp32 GEMMs
+    # K2's tf32 walk (gemm_tf32.cuh, from attn_core_probe.cu). K23 also
+    # replaces _probe_t's two pallas_calls (tools/attn_core_probe.py:432,
+    # :447): tcore and xcore.
     "dot_probe": ("vit_tpu_torch/csrc/matmul_i8_wgmma.cu",
                   "tools/int8_probe.py:43"),
     "attn_core_probe": ("vit_tpu_torch/csrc/attention_mma.cuh",
@@ -486,7 +492,7 @@ def compare_bf16(torch, got, want, dtype) -> dict:
 
 def case(name: str, label: str, run, work: tuple, *, library=None,
          check=None, primary: bool = True, faults=None,
-         composed=None) -> dict:
+         composed=None, device: bool = False) -> dict:
     """A kernel case: ``run(impl)``; ``work`` = (bytes, operations, type)
     for its bound; ``library`` one PyTorch call of the same function, timed
     as a yardstick only; ``check(torch, got, want, dtype)`` its bar;
@@ -494,12 +500,14 @@ def case(name: str, label: str, run, work: tuple, *, library=None,
     faults, ``{what: fn}`` with ``fn()`` a wrong kernel output that the bar
     must refuse against the plain version; ``composed`` the same function
     as a chain of the port's other kernels, timed beside it as a second
-    yardstick."""
+    yardstick; ``device`` whether phase 11 also times it pipelined and on
+    the card (the profiler), beside its library call, as it times every
+    case of a kernel in ``DEVICE_TIMED``."""
     if check is None:
         check = compare_model if name in WHOLE_ENCODER else compare
     return {"name": name, "label": label, "run": run, "work": work,
             "library": library, "check": check, "primary": primary,
-            "faults": faults or {}, "composed": composed}
+            "faults": faults or {}, "composed": composed, "device": device}
 
 
 def gemm_faults(torch, run, a, k_axis: int, start: int = 1024,
@@ -1871,8 +1879,10 @@ def kernel_cases_layer(torch, dtype):
     L/16-384 bs=8, against ``F.unfold`` (the port never calls it). K20 at
     the JAX test's (16, 128) over a grid of 2 with a condition no block
     meets, so that nothing prints while it is timed (phase 15 checks the
-    printing). K21 at the example's (256, 384) @ (384, 512), against
-    ``torch.matmul``. No PyTorch call computes K18, K20 or the layer."""
+    printing). K21 at the example's (256, 384) @ (384, 512) on
+    ``mma.sync`` (fp32 in three TF32 passes), two calls bit for bit,
+    against ``torch.matmul`` (also on the card). No PyTorch call computes
+    K18, K20 or the layer."""
     import torch.nn.functional as F
 
     from vit_tpu_torch import ops
@@ -1959,7 +1969,9 @@ def kernel_cases_layer(torch, dtype):
         "minimal_matmul", "(256,384)@(384,512)",
         lambda impl: minimal_matmul.matmul(x, w, impl=impl),
         ((256 * 384 + 384 * 512 + 256 * 512) * e, 2 * 256 * 384 * 512,
-         kind), library=lambda: torch.matmul(x, w)))
+         _split_kind(torch, dtype)), library=lambda: torch.matmul(x, w),
+        check=twice_bit_for_bit(lambda: minimal_matmul.matmul(x, w)),
+        device=True))
     return cases
 
 
@@ -1988,11 +2000,12 @@ def k18_chain(ops, a):
                                  g2, bn2, w1, b1, w2, b2)
 
 
-def twice_bit_for_bit(run):
-    """A case's bar (``compare``) that also calls the kernel ``run()`` a
-    second time and raises unless the two calls give the same bits."""
+def twice_bit_for_bit(run, bar=None):
+    """A case's bar (``bar``, by default ``compare``) that also calls the
+    kernel ``run()`` a second time and raises unless the two calls give the
+    same bits."""
     def check(torch, got, want, dtype):
-        res = compare(torch, got, want, dtype)
+        res = (bar or compare)(torch, got, want, dtype)
         if not torch.equal(got, run()):
             raise AssertionError("two calls differ")
         res["two_calls_bit_for_bit"] = True
@@ -2979,10 +2992,13 @@ def kernel_cases_probes(torch, dtype):
     type), each bound at its products' type, two calls bit for bit, its
     bar held to ``gemm_faults`` (the output x 0.85, K 512-575 of x
     zeroed). K23: the ``full`` core alone on B/16 bs=32's packed QKV (the case
-    the kernels line reports: in bf16 K4's tensor-core core, its very
-    instantiation; in fp32 the FFMA tile; yardstick SDPA),
-    then the whole block in every mode in bf16 and in every mode that fits
-    in fp32 (not wide). K24: ``dma`` over B/16's 12 layers at bs=1 (the
+    the kernels line reports: K4's tensor-core core, its very
+    instantiation, in bf16 and in fp32, three TF32 passes; yardstick SDPA;
+    also timed on the card), then the whole block in every mode (in fp32
+    also two calls bit for bit), and in fp32 the kt QKV GEMM alone (K2's
+    tf32 walk with the split-kT epilogue; yardstick ``addmm``), two calls
+    bit for bit, its bar held to ``gemm_faults`` (the output x 0.85, K
+    512-575 of x zeroed). K24: ``dma`` over B/16's 12 layers at bs=1 (the
     case the kernels line reports: the weight stream; x back bit for bit,
     the weight sums it streamed held to the plain sums), each other
     variant at bs=1 and the depth of :func:`probe_check_layers`. Each
@@ -3036,24 +3052,48 @@ def kernel_cases_probes(torch, dtype):
                          heads=heads, seq_len=s, scale=hd ** -0.5)
     cases.append(case(
         "attn_core_probe", f"core full, qkv ({bm},{3 * d}) heads {heads} "
-        f"seq_len {s}", core_full, (4 * bm * d * e, att_ops, kind),
-        library=lambda: _sdpa(torch, q, kk, v, hd ** -0.5, s)))
+        f"seq_len {s}", core_full,
+        (4 * bm * d * e, att_ops, _split_kind(torch, dtype)),
+        library=lambda: _sdpa(torch, q, kk, v, hd ** -0.5, s), device=True))
     x, *w = acp.make_inputs(b, sp, d, s, dtype, "cuda", seed=16)
     wt = (w[2].t().contiguous(), w[4].t().contiguous())
     xt = x.reshape(bm, d).t().contiguous()
     step = acp.qcore_step(x, *w[:5], num_heads=heads)
     block_work = ((2 * bm * d + 4 * d * d + 6 * d) * e,
-                  2 * bm * d * 4 * d + att_ops, kind)
+                  2 * bm * d * 4 * d + att_ops, _split_kind(torch, dtype))
     for mode in acp.MODES:
-        if dtype == torch.float32 and mode == "wide":
-            continue  # a wide fp32 core tile does not fit at 208 tokens
         xin = xt if mode == "xcore" else x
+
+        def block(impl=None, mode=mode, xin=xin):
+            return acp.probe(mode, xin, *w, num_heads=heads, seq_len=s,
+                             group=a["group"], shape=(b, sp, d),
+                             weights_t=wt, impl=impl)
+        bar = probe_check(mode, step)
         cases.append(case(
-            "attn_core_probe", f"block {mode} ({b},{sp},{d})",
-            lambda impl, mode=mode, xin=xin: acp.probe(
-                mode, xin, *w, num_heads=heads, seq_len=s, group=a["group"],
-                shape=(b, sp, d), weights_t=wt, impl=impl),
-            block_work, primary=False, check=probe_check(mode, step)))
+            "attn_core_probe", f"block {mode} ({b},{sp},{d})", block,
+            block_work, primary=False,
+            check=(twice_bit_for_bit(block, bar)
+                   if dtype == torch.float32 else bar)))
+    if dtype == torch.float32:
+        # kt's QKV GEMM alone: x @ Wqkv + b with the k third stored
+        # transposed, read back into one (M, 3D) result.
+        xg, wg, bg = rnd(bm, d), rnd(d, 3 * d, std=0.05), rnd(3 * d)
+
+        def gemm_kt(xa=xg, impl=None):
+            if impl == "torch":
+                return reference.matmul(xa, wg, bg)
+            k_t = torch.empty((d, bm), dtype=dtype, device="cuda")
+            out = acp._gemm(xa, wg, bg, acp.EP_SPLIT_KT,
+                            out_shape=(bm, 3 * d), alt=k_t, d=d)
+            return torch.cat([out[:, :d], k_t.t(), out[:, 2 * d:]], 1)
+        cases.append(case(
+            "attn_core_probe", f"gemm kt ({bm},{d})@({d},{3 * d})+bias",
+            lambda impl: gemm_kt(impl=impl),
+            gemm_work(bm, d, 3 * d, e, _split_kind(torch, dtype)),
+            library=lambda: torch.addmm(bg, xg, wg), primary=False,
+            check=twice_bit_for_bit(gemm_kt),
+            faults=gemm_faults(torch, gemm_kt, xg, 1, start=512),
+            device=True))
 
     d, mlp, sp = 768, 3072, 208
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -3096,13 +3136,15 @@ def probe_phase(torch, main_counts: dict) -> dict:
     (``vit_tpu_torch/tools/``), each with exact launch counts: the int8
     probe's ``run`` (K22 on the 128 x 128 int8 dot, bit for bit, K12 at
     d=128, mlp=512, the int8 and bf16 dots timed); the attention block in
-    every mode at B/16 bs=32 bf16, each held to its plain version, then
-    timed (event and pipelined ms of the block and of the core alone,
-    nominal-FLOP rate, the core launch's profiler ms; the probe's rounds
-    over the modes in turn, medians); each mode's planted faults
-    (``PROBE_FAULTS``) refused by its bar, and wide's rounding point on its
-    core (``WIDE_EQUAL_SHARE``); K4's core against K23's ``full`` core (the
-    same tensor-core instantiation) bit for bit, the two in turns; every
+    every mode at B/16 bs=32 bf16, each held to its plain version and each
+    mode's planted faults (``PROBE_FAULTS``) refused by its bar; wide's
+    rounding point on its core (``WIDE_EQUAL_SHARE``); in fp32 the GEMMs'
+    tile (K2's tf32 walk; phase 3 held each fp32 block to its plain
+    version); every mode timed in each dtype (event and pipelined ms of
+    the block and of the core alone, nominal-FLOP rate, the core launch's
+    profiler ms; the probe's rounds over the modes in turn, medians); K4's
+    core against K23's ``full`` core (the same tensor-core instantiation)
+    bit for bit in bf16 and in fp32, the two in turns; every
     variant of the encoder probe at the
     JAX probe's four cases (b = 2, 2, 3, 1; (cq, mt) change no launch), at
     12 layers (nosm and core at ATTN_CHECK_LAYERS) and held to its plain
@@ -3110,7 +3152,7 @@ def probe_phase(torch, main_counts: dict) -> dict:
     depth,
     then each timed at 12 layers for b = 1, 2, 3 (the probe's rounds;
     ``@flat`` is the same launch and is not timed twice)."""
-    from vit_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+    from vit_tpu_torch.ops.cuda import (KERNELS, _build, launch_counts,
                                         reset_launch_counts)
     from vit_tpu_torch.tools import attn_core_probe as acp
     from vit_tpu_torch.tools import encstack_minrepro as em
@@ -3196,34 +3238,60 @@ def probe_phase(torch, main_counts: dict) -> dict:
     timed = acp.run(tuple(acp.MODES), dtype=torch.bfloat16, warmup=3,
                     reps=20, **a)
     res["attention_modes_bf16_b16_bs32"] = timed["modes"]
+    # fp32: K23's GEMMs take K2's tf32 walk where K2's rule gives K2 its
+    # tf32 tile (every GEMM of the block at B/16), then every mode timed
+    # (phase 3 held each fp32 block to its plain version).
+    x32 = x.float()
+    w32 = [t.float() for t in w]
+    wt32 = (w32[2].t().contiguous(), w32[4].t().contiguous())
+    xt32 = x32.reshape(b * sp, d).t().contiguous()
+    lib = _build.library()
+    for xa, wa, n, k in ((x32, w32[2], 3 * d, d), (wt32[0], xt32, b * sp, d),
+                         (wt32[1], xt32, b * sp, d)):
+        ptrs = (xa.data_ptr(), wa.data_ptr())
+        if (acp.gemm_tile(1, n, k, torch.float32, ptrs) != "tf32"
+                or lib.vit_attn_probe_gemm_tile(*ptrs, n, k, 0) != 1):
+            raise AssertionError(f"K23's fp32 GEMM ({k}, {n}) is not on the "
+                                 "tf32 walk")
+    del x32, w32, wt32, xt32
+    timed = acp.run(tuple(acp.MODES), dtype=torch.float32, warmup=3,
+                    reps=20, **a)
+    res["attention_modes_fp32_b16_bs32"] = timed["modes"]
     # K23's full core against K4's on the same packed QKV, in turns (K4,
     # K23, K23, K4): event ms, pipelined ms and the profiler's ms a
-    # launch, on the probe's (its K2 output) and on N(0, 1) values.
+    # launch, on the probe's (its K2 output) and on N(0, 1) values, in
+    # bf16 and in fp32.
     from vit_tpu_torch.utils.profiling import launch_ms
     from vit_tpu_torch.utils.timing import pipelined_ms
     from vit_tpu_torch.ops import reference
     from vit_tpu_torch.ops.cuda import block as cuda_block
-    xn = reference.layernorm(x.reshape(b * sp, d), w[0], w[1])
-    qkvs = {"probe": reference.matmul(xn, w[2], w[3]),
-            "normal": torch.randn((b * sp, 3 * d), generator=torch.Generator(
-                device="cuda").manual_seed(19), device="cuda").to(
-                    torch.bfloat16)}
     turns, core_errs = {}, {}
-    for tag, qkv in qkvs.items():
-        out = torch.empty((b * sp, d), dtype=torch.bfloat16, device="cuda")
-        core = dict(batch=b, num_heads=heads, scale=(d // heads) ** -0.5,
-                    seq_len=s)
-        runs = {"k4": lambda: cuda_block.attention_core(qkv, **core),
-                "k23": lambda: acp.core_launch(
-                    "full", qkv, None, out, b=b, sp=sp, d=d, heads=heads,
-                    seq_len=s, scale=core["scale"])}
-        # K23's full is K4's instantiation: bit for bit.
-        core_errs[tag] = compare_exact(torch, runs["k4"](), runs["k23"](),
-                                       torch.bfloat16)
-        names = {"k4": "attention_kernel", "k23": "attn_probe_kernel"}
-        turns[tag] = [(k, time_ms(torch, runs[k]), pipelined_ms(runs[k]),
-                       launch_ms(runs[k], names[k]))
-                      for k in ("k4", "k23", "k23", "k4")]
+    names = {torch.bfloat16: {"k4": "attention_kernel",
+                              "k23": "attn_probe_kernel_mma"},
+             torch.float32: {"k4": "attention_tf32_kernel",
+                             "k23": "attn_probe_kernel_tf32"}}
+    for dt in (torch.bfloat16, torch.float32):
+        xd, wd = x.to(dt), [t.to(dt) for t in w]
+        xn = reference.layernorm(xd.reshape(b * sp, d), wd[0], wd[1])
+        qkvs = {"probe": reference.matmul(xn, wd[2], wd[3]),
+                "normal": torch.randn(
+                    (b * sp, 3 * d), generator=torch.Generator(
+                        device="cuda").manual_seed(19), device="cuda").to(dt)}
+        for tag, qkv in qkvs.items():
+            tag = f"{tag} {str(dt).replace('torch.', '')}"
+            out = torch.empty((b * sp, d), dtype=dt, device="cuda")
+            core = dict(batch=b, num_heads=heads, scale=(d // heads) ** -0.5,
+                        seq_len=s)
+            runs = {"k4": lambda: cuda_block.attention_core(qkv, **core),
+                    "k23": lambda: acp.core_launch(
+                        "full", qkv, None, out, b=b, sp=sp, d=d, heads=heads,
+                        seq_len=s, scale=core["scale"])}
+            # K23's full is K4's instantiation: bit for bit.
+            core_errs[tag] = compare_exact(torch, runs["k4"](), runs["k23"](),
+                                           dt)
+            turns[tag] = [(k, time_ms(torch, runs[k]), pipelined_ms(runs[k]),
+                           launch_ms(runs[k], names[dt][k]))
+                          for k in ("k4", "k23", "k23", "k4")]
     res["core_k4_vs_k23_ms_pipelined_device"] = turns
     res["core_k4_vs_k23_full_err"] = core_errs
     log(f"[probes] K4 core vs K23 full core: {core_errs}; (event ms, "
@@ -4009,15 +4077,15 @@ def main() -> int:
             timings[-1]["composed_ms"] = time_ms(torch, c["composed"])
             timings[-1]["composed_device_ms"] = (
                 device_ms(torch, c["composed"])[0] or None)
-        if c["name"] in PIPELINED and (c["primary"]
-                                       or c["name"] in DEVICE_TIMED):
+        on_card = c["name"] in DEVICE_TIMED or c["device"]
+        if c["name"] in PIPELINED and (c["primary"] or on_card):
             # The device time of back-to-back calls, kernel and library
             # call alike.
             timings[-1]["pipelined_ms"] = pipelined_ms(
                 lambda: c["run"]("cuda"))
             timings[-1]["library_pipelined_ms"] = (
                 None if library is None else pipelined_ms(lib_fn))
-            if c["name"] in DEVICE_TIMED:
+            if on_card:
                 # K2's wrapper takes longer on the host than its kernel on
                 # the card at most of these shapes, so pipelined calls
                 # wait on the host: the profiler's device time too.
@@ -4133,7 +4201,7 @@ def main() -> int:
         if name in PIPELINED:
             kernels[-1].update(pipelined_ms=t["pipelined_ms"],
                                library_pipelined_ms=t["library_pipelined_ms"])
-        if name in DEVICE_TIMED:
+        if "device_ms" in t:
             kernels[-1].update(device_ms=t["device_ms"],
                                library_device_ms=t["library_device_ms"])
         if "composed_ms" in t:

@@ -2240,29 +2240,33 @@ def test_torch_cuda_attn_core_probe(gen, dtype, mode):
     _probe_bar(got, acp.probe_plain(mode, x, *w, **kw), dtype, step)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mode", [
     "full", "maskonly", "nosm", "mxu", "divonly", "recip", "sumonly",
     "bf16div", "alldiv", "mxudiv", "addmask", "vsum", "qcore", "wide", "kt",
     "projonly", "tcore", "xcore"])
-def test_torch_cuda_attn_core_probe_b16_width(gen, mode):
+def test_torch_cuda_attn_core_probe_b16_width(gen, dtype, mode):
     """K23 in every mode at B/16's width (bs=2, 208 tokens of which 197
-    real, 12 heads of 64; wide's pairs 128) in bf16 against the plain
-    version, with the mode's exact launches: the core's NK forms 4 and 8
-    and the GEMMs on K2's wgmma tile (``gemm_tile``)."""
+    real, 12 heads of 64; wide's pairs 128, in fp32 too) against the plain
+    version, with the mode's exact launches: the core on K4's tile (bf16
+    NK forms 4 and 8) and the GEMMs on K2's TMA tile (``gemm_tile``: bf16
+    ``wgmma``, fp32 the tf32 walk)."""
     from vit_tpu_torch.ops.cuda import _build
     from vit_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from vit_tpu_torch.tools import attn_core_probe as acp
 
     b, sp, seq, d, heads = 2, 208, 197, 768, 12
-    x, *w = acp.make_inputs(b, sp, d, seq, torch.bfloat16, "cuda", seed=7)
+    x, *w = acp.make_inputs(b, sp, d, seq, dtype, "cuda", seed=7)
     if mode == "xcore":
         x = x.reshape(b * sp, d).t().contiguous()
     kw = dict(num_heads=heads, seq_len=seq, group=2, shape=(b, sp, d))
     wt = w[2].t().contiguous()
+    tile, code = ("tf32", 0) if dtype == torch.float32 else ("wgmma", 1)
     for n, k, ptrs in ((3 * d, d, (x.data_ptr(), w[2].data_ptr())),
                        (b * sp, d, (wt.data_ptr(), x.data_ptr()))):
-        assert acp.gemm_tile(1, n, k, torch.bfloat16, ptrs) == "wgmma"
-        assert _build.library().vit_attn_probe_gemm_tile(*ptrs, n, k, 1) == 1
+        assert acp.gemm_tile(1, n, k, dtype, ptrs) == tile
+        assert _build.library().vit_attn_probe_gemm_tile(
+            *ptrs, n, k, code) == 1
     reset_launch_counts()
     got = acp.probe(mode, x, *w, **kw)
     torch.cuda.synchronize()
@@ -2274,22 +2278,25 @@ def test_torch_cuda_attn_core_probe_b16_width(gen, mode):
     if mode in acp.UNNORMALIZED:  # chip_smoke.py's compare_norm
         g, wt = got.float(), want.float()
         assert torch.isfinite(g).all()
-        assert (g - wt).norm() / wt.norm() <= 2e-2
+        bar = 1e-5 if dtype == torch.float32 else 2e-2
+        assert (g - wt).norm() / wt.norm() <= bar
     else:
-        _probe_bar(got, want, torch.bfloat16, step)
+        _probe_bar(got, want, dtype, step)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,sp,seq,d,heads", [
     (2, 208, 197, 768, 12), (3, 40, 33, 128, 4), (2, 50, 50, 48, 3),
     (1, 80, 71, 240, 3), (1, 96, 90, 256, 1)])
-def test_torch_cuda_attn_core_probe_full_is_k4(gen, b, sp, seq, d, heads):
-    """K23's bf16 ``full`` core is K4's instantiation: bit for bit with K4's
-    core on the same packed QKV, at head widths 64, 32, 16, 80 and 256
-    (two blocks of 128 columns)."""
+def test_torch_cuda_attn_core_probe_full_is_k4(gen, dtype, b, sp, seq, d,
+                                               heads):
+    """K23's ``full`` core is K4's instantiation in both dtypes: bit for bit
+    with K4's core on the same packed QKV, at head widths 64, 32, 16, 80
+    and 256 (bf16: two blocks of 128 columns; fp32: four of 64)."""
     from vit_tpu_torch.ops.cuda import block as cuda_block
     from vit_tpu_torch.tools import attn_core_probe as acp
 
-    qkv = _rnd(gen, torch.bfloat16, b * sp, 3 * d)
+    qkv = _rnd(gen, dtype, b * sp, 3 * d)
     hd = d // heads
     want = cuda_block.attention_core(qkv, batch=b, num_heads=heads,
                                      scale=hd ** -0.5, seq_len=seq)
@@ -2320,10 +2327,16 @@ def test_torch_cuda_attn_core_probe_refuses_wide_heads(gen):
     assert torch.isfinite(out.float()).all()
 
 
-def test_torch_cuda_attn_core_probe_refuses_fp32_wide_at_208(gen):
+def test_torch_cuda_attn_core_probe_fp32_wide_fits_208(gen):
+    """fp32 wide's core (heads of 128) fits shared memory at 208 tokens and
+    is refused past it (224)."""
     from vit_tpu_torch.tools import attn_core_probe as acp
 
     x, *w = acp.make_inputs(1, 208, 768, 197, torch.float32, "cuda")
+    got = acp.probe("wide", x, *w, num_heads=12, seq_len=197)
+    _probe_bar(got, acp.probe_plain("wide", x, *w, num_heads=12,
+                                    seq_len=197), torch.float32)
+    x, *w = acp.make_inputs(1, 224, 768, 197, torch.float32, "cuda")
     with pytest.raises(ValueError, match="shared"):
         acp.probe("wide", x, *w, num_heads=12, seq_len=197)
 

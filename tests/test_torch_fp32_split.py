@@ -367,10 +367,9 @@ def test_unaligned_fp32_views_are_copied_for_the_ffma_tile():
 
 
 def test_the_other_fp32_forms_stay_on_gemm_tile():
-    """K23's fp32 GEMMs keep ``gemm_tile.cuh``'s FFMA tile in this form of
-    the port; its tile helper says so where K2's rule would give K2 the
-    tf32 tile. K8's and K22's fp32 forms left it: they take K2's rule, the
-    tf32 tile on aligned operands, FFMA only on a misaligned base."""
+    """The fp32 forms of K8, K22 and K23's GEMMs take K2's rule: the tf32
+    tile on aligned operands, ``gemm_tile.cuh``'s FFMA loop only on a
+    misaligned base."""
     p = torch.zeros((2, 196, 768))
     w = torch.zeros((768, 768))
     assert embed_tile(p, w) == "wgmma"
@@ -378,7 +377,9 @@ def test_the_other_fp32_forms_stay_on_gemm_tile():
     off = torch.zeros(2 * 196 * 768 + 1)[1:].view(2, 196, 768)
     assert embed_tile(off, w) == "ffma"
     assert attn_core_probe.gemm_tile(6656, 2304, 768, torch.float32,
-                                     (0, 0)) == "ffma"
+                                     (0, 0)) == "tf32"
+    assert attn_core_probe.gemm_tile(6656, 2304, 768, torch.float32,
+                                     (0, 8)) == "ffma"
     assert int8_probe.dot_tile(1664, 3072, 768, torch.float32,
                                (0, 0)) == "tf32"
     assert int8_probe.dot_tile(1664, 3072, 768, torch.float32,

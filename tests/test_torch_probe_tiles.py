@@ -507,18 +507,40 @@ def test_k22_fp32_dot_takes_k2s_fp32_rule(m, n, k, ptrs):
         {"wgmma": "tf32", "ffma": "ffma"}[k2]
 
 
-@pytest.mark.parametrize("m,n,k,ptrs,want", [
-    (6656, 2304, 768, (0, 0), "wgmma"),   # B/16 bs=32's QKV, kt, projonly
-    (2304, 6656, 768, (0, 0), "wgmma"),   # xcore's WqkvT @ xnT
-    (768, 6656, 768, (0, 0), "wgmma"),    # tcore's, xcore's WoutT @ ctxT
-    (192, 120, 64, (0, 0), "wgmma"),      # D=64 at 3 x 40 tokens
-    (192, 54, 64, (0, 0), "wmma"),        # 2 x 27 tokens
-    (300, 100, 100, (0, 0), "wmma"),      # D=100
-    (6656, 2304, 768, (0, 2), "wmma"),    # w not 16-byte aligned
+@pytest.mark.parametrize("m,n,k,ptrs,want,want32", [
+    (6656, 2304, 768, (0, 0), "wgmma", "tf32"),  # B/16 bs=32's QKV, kt
+    (2304, 6656, 768, (0, 0), "wgmma", "tf32"),  # xcore's WqkvT @ xnT
+    (768, 6656, 768, (0, 0), "wgmma", "tf32"),   # WoutT @ ctxT
+    (192, 120, 64, (0, 0), "wgmma", "tf32"),     # D=64 at 3 x 40 tokens
+    (192, 54, 64, (0, 0), "wmma", "ffma"),       # 2 x 27: N not 4k
+    (192, 60, 64, (0, 0), "wmma", "tf32"),       # N a multiple of 4, not 8
+    (300, 100, 100, (0, 0), "wmma", "tf32"),     # D=100: multiples of 4
+    (300, 102, 102, (0, 0), "wmma", "ffma"),     # D=102: neither
+    (6656, 2304, 768, (0, 2), "wmma", "ffma"),   # w 2 bytes past alignment
+    (6656, 2304, 768, (0, 8), "wmma", "ffma"),   # w 8-byte aligned only
 ])
-def test_k23_gemm_tile(m, n, k, ptrs, want):
+def test_k23_gemm_tile(m, n, k, ptrs, want, want32):
+    """K23's GEMMs take K2's rule: where TMA reads both operands the bf16
+    ``wgmma`` tile and, in fp32, K2's tf32 walk (16-byte bases, rows a
+    multiple of 16 bytes: 8 bf16 or 4 fp32 elements), else ``gemm_tile.cuh``
+    (``wmma``, FFMA)."""
     assert acp.gemm_tile(m, n, k, torch.bfloat16, ptrs) == want
-    assert acp.gemm_tile(m, n, k, torch.float32, ptrs) == "ffma"
+    assert acp.gemm_tile(m, n, k, torch.float32, ptrs) == want32
+
+
+@pytest.mark.parametrize("m,n,k,ptrs", [
+    (6656, 2304, 768, (0, 4096)), (37, 72, 200, (16, 0)),
+    (33, 70, 100, (0, 0)), (33, 72, 102, (0, 0)), (128, 128, 128, (4, 0)),
+])
+def test_k23_fp32_gemm_takes_k2s_fp32_rule(m, n, k, ptrs):
+    """K23's fp32 GEMMs run on K2's tf32 walk exactly where ``gemm_path``
+    gives K2 in fp32 its tf32 tile for the same contiguous operands, as
+    K22's fp32 dot does."""
+    from vit_tpu_torch.ops.cuda.matmul import gemm_path
+    k2 = gemm_path(m, n, k, torch.float32, False, False, ptrs,
+                   ((k, 1), (n, 1)))
+    assert acp.gemm_tile(m, n, k, torch.float32, ptrs) == \
+        {"wgmma": "tf32", "ffma": "ffma"}[k2]
 
 
 def test_k23_core_shapes():

@@ -3,13 +3,12 @@
 // packed (B*S, 3D) [q|k|v] buffer (head h at columns h*d of each third --
 // the layout vit_tpu/ops/pallas/block.py:_attn_core slices) and writing the
 // context into a (B*S, D) buffer at the head's columns. It serves K9's
-// fp32 attention phase (encoder_stack.cu), the attention probe K23's fp32
-// core (attn_core_probe.cu) in each of its modes, a template parameter
-// whose default, kAttnFull, is the core that K9's fp32 instantiates, and
-// K9's probe K24 (encstack_probe.cu). The bf16 core of K4, K9 and K23 is
-// attention_tile_mma (attention_mma.cuh), on the tensor cores. K4's fp32
-// core no longer uses this tile: it runs attention_tf32.cu's, on the
-// tensor cores in three TF32 passes.
+// fp32 attention phase (encoder_stack.cu) and K9's probe K24
+// (encstack_probe.cu: kAttnFull and, for its nosm variant, kAttnMxu). The
+// other cores run on the tensor cores: the bf16 core of K4, K9 and K23 is
+// attention_tile_mma (attention_mma.cuh), the fp32 core of K4 and K23
+// attention_tile_tf32 (attention_tf32.cuh, three TF32 passes), each with
+// K23's modes (AttnMode below) as a template parameter.
 //
 // Per query row, with _attn_core's rounding points:
 //   s = (q . k) * scale in fp32, keys at index >= seq_len set to -inf;
@@ -74,10 +73,16 @@ cudaError_t launch_attention_tf32(const float* qkv, float* out, int batch,
                                   int s, int d, int heads, int seq_len,
                                   float scale, cudaStream_t st);
 
+// Shared memory a block can use on Hopper (227 KB): K23's cores refuse a
+// tile past it.
+constexpr size_t kProbeMaxSmem = 232448;
+
 // The modes of the attention probe K23 (csrc/attn_core_probe.cu), a
-// compile-time parameter of attention_tile (fp32) and attention_tile_mma
-// (bf16, attention_mma.cuh). kAttnFull is K4's and K9's core, and the only
-// mode they instantiate; each other mode changes the tile where
+// compile-time parameter of attention_tile_tf32 (fp32, attention_tf32.cuh),
+// attention_tile_mma (bf16, attention_mma.cuh) and attention_tile (the
+// FFMA tile, which K24 runs in kAttnFull and kAttnMxu). kAttnFull is K4's
+// and K9's core, and the only mode they instantiate; each other mode
+// changes the tile where
 // tools/attn_core_probe.py's _core_kernel changes the core
 // (vit_tpu_torch/tools/attn_core_probe.py gives each mode's function).
 enum AttnMode : int {
@@ -140,112 +145,36 @@ __device__ __forceinline__ float attn_combine(float acc, float l,
 // Query rows q0 .. q0+63 of head h of image img; s is the padded sequence,
 // d the model width, dh the head width. Called by all kAttnThreads threads
 // of the block; it synchronises the block and uses attention_smem<T>(s, dh)
-// bytes of `smem` (K23's modes kAttnQcore and later: kAttnQT floats more).
-// tbuf and ldt serve kAttnKt (kT, (D, ldt)) and kAttnHeadMajor ([qT|kT|vT],
-// (3D, ldt), out (D, ldt)): ldt is the buffer's token count, B*S.
+// bytes of `smem`. MODE is kAttnFull or, K24's nosm variant, kAttnMxu.
 template <typename T, int MODE = kAttnFull>
 __device__ __forceinline__ void attention_tile(const T* qkv, T* out, int s,
                                                int d, int dh, float scale,
                                                int seq_len, int img, int h,
-                                               int q0, unsigned char* smem,
-                                               const T* tbuf = nullptr,
-                                               int ldt = 0) {
+                                               int q0, unsigned char* smem) {
+  static_assert(MODE == kAttnFull || MODE == kAttnMxu,
+                "K23's other modes run on the tensor-core tiles");
   const int ldk = attn_ldk<T>(dh);
   T* ks = reinterpret_cast<T*>(smem);         // s x ldk
   T* vs = ks + static_cast<size_t>(s) * ldk;  // s x dh
   T* qs = vs + static_cast<size_t>(s) * dh;   // kAttnQT x dh
   float* sc = reinterpret_cast<float*>(smem + attn_t_bytes<T>(s, dh));
   float* lsum = sc + static_cast<size_t>(kAttnQT) * s;
-  float* aux = lsum + kAttnQT;  // kAttnQcore: the rows' q, then p, scales
 
   const size_t ld = 3 * static_cast<size_t>(d);
   const T* base = qkv + static_cast<size_t>(img) * s * ld +
                   static_cast<size_t>(h) * dh;
 
   __syncthreads();  // the previous tile's readers of smem are done
-  if constexpr (MODE == kAttnHeadMajor) {
-    // Feature-major rows, tokens contiguous: neighbouring threads read
-    // neighbouring tokens.
-    const T* col0 = tbuf + static_cast<size_t>(h) * dh * ldt +
-                    static_cast<size_t>(img) * s;
-    for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
-      const int c = e / s, j = e % s;
-      const T* col = col0 + static_cast<size_t>(c) * ldt + j;
-      ks[j * ldk + c] = col[static_cast<size_t>(d) * ldt];
-      vs[j * dh + c] = col[2 * static_cast<size_t>(d) * ldt];
-    }
-    for (int e = threadIdx.x; e < kAttnQT * dh; e += kAttnThreads) {
-      const int c = e / kAttnQT, i = e % kAttnQT;
-      qs[i * dh + c] = q0 + i < s
-                           ? col0[static_cast<size_t>(c) * ldt + q0 + i]
-                           : from_f32<T>(0.f);
-    }
-  } else {
-    for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
-      const int j = e / dh, c = e % dh;
-      if constexpr (MODE != kAttnKt) ks[j * ldk + c] = base[j * ld + d + c];
-      vs[e] = base[j * ld + 2 * d + c];
-    }
-    if constexpr (MODE == kAttnKt) {
-      const T* col0 = tbuf + static_cast<size_t>(h) * dh * ldt +
-                      static_cast<size_t>(img) * s;
-      for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
-        const int c = e / s, j = e % s;
-        ks[j * ldk + c] = col0[static_cast<size_t>(c) * ldt + j];
-      }
-    }
-    for (int e = threadIdx.x; e < kAttnQT * dh; e += kAttnThreads) {
-      const int i = e / dh, c = e % dh;
-      qs[e] = q0 + i < s ? base[(q0 + i) * ld + c] : from_f32<T>(0.f);
-    }
+  for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
+    const int j = e / dh, c = e % dh;
+    ks[j * ldk + c] = base[j * ld + d + c];
+    vs[e] = base[j * ld + 2 * d + c];
+  }
+  for (int e = threadIdx.x; e < kAttnQT * dh; e += kAttnThreads) {
+    const int i = e / dh, c = e % dh;
+    qs[e] = q0 + i < s ? base[(q0 + i) * ld + c] : from_f32<T>(0.f);
   }
   __syncthreads();
-
-  // kAttnQcore: k and v to codes with one scale a head over all s rows, q
-  // with one a row (tools/attn_core_probe.py:170-176), each code stored in
-  // place, exactly, as a value of T. The dots below then sum products of
-  // integers below 2^24 in fp32: the int32 sums, exactly.
-  float av = 0.f, qk_scale = scale;
-  if constexpr (MODE == kAttnQcore) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    constexpr int kWarps = kAttnThreads / 32;
-    float mk = 0.f, mv = 0.f;
-    for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
-      mk = fmaxf(mk, fabsf(to_f32(ks[(e / dh) * ldk + e % dh])));
-      mv = fmaxf(mv, fabsf(to_f32(vs[e])));
-    }
-    mk = warp_max(mk);
-    mv = warp_max(mv);
-    if (lane == 0) {
-      sc[warp] = mk;
-      sc[kWarps + warp] = mv;
-    }
-    __syncthreads();
-    mk = 0.f;
-    mv = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      mk = fmaxf(mk, sc[w]);
-      mv = fmaxf(mv, sc[kWarps + w]);
-    }
-    const float ak = quant_scale(mk);
-    av = quant_scale(mv);
-    qk_scale = __fmul_rn(ak, scale);
-    for (int i = warp; i < kAttnQT; i += kWarps) {
-      T* qi = qs + i * dh;
-      float m = 0.f;
-      for (int c = lane; c < dh; c += 32) m = fmaxf(m, fabsf(to_f32(qi[c])));
-      const float a = quant_scale(warp_max(m));
-      for (int c = lane; c < dh; c += 32)
-        qi[c] = from_f32<T>(static_cast<float>(quant_code(to_f32(qi[c]), a)));
-      if (lane == 0) aux[i] = a;
-    }
-    for (int e = threadIdx.x; e < s * dh; e += kAttnThreads) {
-      T* k = ks + (e / dh) * ldk + e % dh;
-      *k = from_f32<T>(static_cast<float>(quant_code(to_f32(*k), ak)));
-      vs[e] = from_f32<T>(static_cast<float>(quant_code(to_f32(vs[e]), av)));
-    }
-    __syncthreads();
-  }
 
   // Scores, fp32, masked keys at -inf.
   for (int e = threadIdx.x; e < kAttnQT * s; e += kAttnThreads) {
@@ -256,19 +185,14 @@ __device__ __forceinline__ void attention_tile(const T* qkv, T* out, int s,
       const T* kj = ks + j * ldk;
       float acc = 0.f;
       for (int c = 0; c < dh; ++c) acc = fmaf(to_f32(qi[c]), to_f32(kj[c]), acc);
-      if constexpr (MODE == kAttnQcore)
-        v = __fmul_rn(acc, __fmul_rn(aux[i], qk_scale));
-      else
-        v = acc * scale;
-      if constexpr (MODE == kAttnAddMask)
-        v = v + (j < seq_len ? 0.f : -INFINITY);
+      v = acc * scale;
     }
     sc[e] = v;
   }
   __syncthreads();
 
   // Softmax numerators, one warp a row: p = exp(s - max) rounded to T in
-  // place, l = sum of the unrounded p.
+  // place, l = sum of the unrounded p (mxu: p = s rounded, l = 1).
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i = warp; i < kAttnQT; i += kAttnThreads / 32) {
     float* row = sc + static_cast<size_t>(i) * s;
@@ -283,48 +207,24 @@ __device__ __forceinline__ void attention_tile(const T* qkv, T* out, int s,
     float sum = 0.f;
     for (int j = lane; j < s; j += 32) {
       const float p = expf(row[j] - mx);
-      if constexpr (MODE == kAttnVsum)
-        sum += to_f32(from_f32<T>(p));
-      else
-        sum += p;
-      if constexpr (MODE == kAttnWide || MODE == kAttnQcore)
-        row[j] = p;
-      else
-        row[j] = to_f32(from_f32<T>(p));
+      sum += p;
+      row[j] = to_f32(from_f32<T>(p));
     }
     sum = warp_sum(sum);
-    if constexpr (MODE == kAttnWide) {
-      for (int j = lane; j < s; j += 32)
-        row[j] = to_f32(from_f32<T>(row[j] / sum));
-    }
-    if constexpr (MODE == kAttnQcore) {
-      float pm = 0.f;
-      for (int j = lane; j < s; j += 32) pm = fmaxf(pm, row[j]);
-      const float ap = quant_scale(warp_max(pm));
-      for (int j = lane; j < s; j += 32)
-        row[j] = static_cast<float>(quant_code(row[j], ap));
-      if (lane == 0) aux[i] = ap;
-    }
-    if (lane == 0) lsum[i] = attn_unit_sum(MODE) ? 1.f : sum;
+    if (lane == 0) lsum[i] = sum;
   }
   __syncthreads();
 
   // Context: (p @ v) / l; masked keys have p == 0 and are skipped.
   for (int e = threadIdx.x; e < kAttnQT * dh; e += kAttnThreads) {
-    const int i = MODE == kAttnHeadMajor ? e % kAttnQT : e / dh;
-    const int c = MODE == kAttnHeadMajor ? e / kAttnQT : e % dh;
+    const int i = e / dh, c = e % dh;
     if (q0 + i >= s) continue;
     const float* p = sc + static_cast<size_t>(i) * s;
     float acc = 0.f;
     for (int j = 0; j < (attn_masked(MODE) ? seq_len : s); ++j)
       acc = fmaf(p[j], to_f32(vs[j * dh + c]), acc);
-    const T v = from_f32<T>(attn_combine<T, MODE>(acc, lsum[i], aux + i, av));
-    if constexpr (MODE == kAttnHeadMajor)
-      out[(static_cast<size_t>(h) * dh + c) * ldt +
-          static_cast<size_t>(img) * s + q0 + i] = v;
-    else
-      out[(static_cast<size_t>(img) * s + q0 + i) * d +
-          static_cast<size_t>(h) * dh + c] = v;
+    out[(static_cast<size_t>(img) * s + q0 + i) * d +
+        static_cast<size_t>(h) * dh + c] = from_f32<T>(acc / lsum[i]);
   }
 }
 

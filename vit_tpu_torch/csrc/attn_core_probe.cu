@@ -8,14 +8,17 @@
 // the whole block in one grid step per `group` images; on Hopper the block
 // is K4's four launches (vit_tpu_torch/ops/cuda/block.py: an image's QKV
 // does not fit one SM), and the core takes the mode as a template
-// parameter, on the tile each dtype's path runs:
-// - bf16: K4's tensor-core tile (attention_mma.cuh, mma.sync) on K4's
-//   block, built in attn_core_probe_masked.cu and
-//   attn_core_probe_all_keys.cu (attn_core_probe.cuh): kAttnFull is K4's
-//   bf16 core, its very instantiation, and K9's attention phase's
-//   arithmetic; qcore runs its int8 codes on mma.sync m16n8k32;
-// - fp32: the FFMA tile (attention_core.cuh), K9's fp32 attention phase
-//   instruction for instruction (no TF32; not K4's fp32 core's tile).
+// parameter, on the tensor-core tile of K4's core in each dtype:
+// - bf16: K4's tile (attention_mma.cuh, mma.sync) on K4's block, built in
+//   attn_core_probe_masked.cu and attn_core_probe_all_keys.cu
+//   (attn_core_probe.cuh): kAttnFull is K4's bf16 core, its very
+//   instantiation, and K9's attention phase's arithmetic; qcore runs its
+//   int8 codes on mma.sync m16n8k32;
+// - fp32: K4's fp32 tile (attention_tf32.cuh, mma.sync tf32 in three
+//   passes, a running max) on K4's block, built in
+//   attn_core_probe_tf32_masked.cu and attn_core_probe_tf32_all_keys.cu
+//   (attn_core_probe_tf32.cuh): kAttnFull is K4's fp32 core, its very
+//   instantiation; qcore runs its int8 codes, exact in TF32, in one pass.
 // The other modes change only what the mode names
 // (vit_tpu_torch/tools/attn_core_probe.py has each mode's function and
 // launches). A work item is (image, head, 64 queries), whatever the TPU's
@@ -35,92 +38,30 @@
 //   head-major core, and WoutT @ ctxT + bout + x per row (kEpOutX);
 // - projonly: the QKV GEMM stores q apart, contiguous (kEpSplitQ), for the
 //   out-projection to read as the context: no core launch.
-// Each GEMM runs K2's tile in bf16 where TMA reads both operands
-// (wgmma_takes, ops/cuda/matmul.py:gemm_path's rule): gemm_wgmma.cuh's
-// wgmma tile with the epilogue form of its XEP parameter (WgXep, ProbeEp's
-// code + 1), the operands read as they lie (WqkvT, xnT and ctxT are
-// contiguous row-major matrices there), transposed stores through the
-// staging tile written transposed; else, and in fp32, K2's tile loop
+// Each GEMM runs K2's tile where TMA reads both operands (K2's rule,
+// ops/cuda/matmul.py:gemm_path): in bf16 gemm_wgmma.cuh's wgmma tile with
+// the epilogue form of its XEP parameter (WgXep, ProbeEp's code + 1;
+// wgmma_takes), transposed stores through the staging tile written
+// transposed; in fp32 gemm_tf32.cuh's tf32 walk (three passes, K2's fp32
+// tile; tf32_takes) with ProbeEpilogue's stores as its epilogue
+// (Tf32Probe); the operands read as they lie (WqkvT, xnT and ctxT are
+// contiguous row-major matrices there). Elsewhere K2's tile loop
 // (gemm_tile.cuh) with ProbeEpilogue.
 //
 // Bound on the card at B/16 bs=32: the core's is K4's, bytes, 0.0122 ms in
-// bf16 (4*B*H*S*seq_len*d = 4.0 GFLOP of products, 0.004 ms at 989
-// TFLOP/s; fp32 FFMA 0.060 ms at 67 TFLOP/s); each of the block's two
-// GEMMs is K2's (the QKV 23.6 GFLOP, 0.0238 ms; the out-projection 7.9,
-// 0.0080). The probe exists to show which of the core's ingredients costs
-// the time, on the tiles the port runs.
+// bf16, and in fp32 0.0244 ms (bytes; 4*B*H*S*seq_len*d = 4.0 GFLOP of
+// products in three TF32 passes takes as long); each of the block's two
+// GEMMs is K2's (the QKV 23.6 GFLOP, 0.0238 ms in bf16, 0.143 ms in
+// fp32's three passes; the out-projection a third of that). The probe
+// exists to show which of the core's ingredients costs the time, on the
+// tiles the port runs.
 
-#include "attention_core.cuh"
 #include "attn_core_probe.cuh"
+#include "attn_core_probe_tf32.cuh"
+#include "gemm_tf32.cuh"
 #include "gemm_tile.cuh"
 
 namespace vit {
-
-// Shared memory of one fp32 core tile in the probe: K4's, and one float a
-// query row more for kAttnQcore's scales.
-template <typename T>
-inline size_t probe_smem(int s, int dh) {
-  return attention_smem<T>(s, dh) + kAttnQT * sizeof(float);
-}
-
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kAttnThreads)
-    attn_probe_kernel(const T* __restrict__ qkv, const T* __restrict__ tbuf,
-                      T* __restrict__ out, int s, int d, int dh, float scale,
-                      int seq_len, int ldt) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  attention_tile<T, MODE>(qkv, out, s, d, dh, scale, seq_len, blockIdx.x,
-                          blockIdx.y, blockIdx.z * kAttnQT, smem, tbuf, ldt);
-}
-
-template <typename T, int MODE>
-cudaError_t launch_probe_core(const T* qkv, const T* tbuf, T* out, int batch,
-                              int s, int d, int heads, int seq_len, int ldt,
-                              float scale, cudaStream_t st) {
-  const int dh = d / heads;
-  const size_t smem = probe_smem<T>(s, dh);
-  if (smem > kProbeMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_probe_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(batch, heads, (s + kAttnQT - 1) / kAttnQT);
-  attn_probe_kernel<T, MODE><<<grid, kAttnThreads, smem, st>>>(
-      qkv, tbuf, out, s, d, dh, scale, seq_len, ldt);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_probe_core_mode(int mode, const T* qkv, const T* tbuf,
-                                   T* out, int batch, int s, int d, int heads,
-                                   int seq_len, int ldt, float scale,
-                                   cudaStream_t st) {
-#define VIT_PROBE_MODE(M)                                                   \
-  case M:                                                                   \
-    return launch_probe_core<T, M>(qkv, tbuf, out, batch, s, d, heads,      \
-                                   seq_len, ldt, scale, st);
-  switch (mode) {
-    VIT_PROBE_MODE(kAttnFull)
-    VIT_PROBE_MODE(kAttnMaskOnly)
-    VIT_PROBE_MODE(kAttnNoSm)
-    VIT_PROBE_MODE(kAttnMxu)
-    VIT_PROBE_MODE(kAttnDivOnly)
-    VIT_PROBE_MODE(kAttnRecip)
-    VIT_PROBE_MODE(kAttnSumOnly)
-    VIT_PROBE_MODE(kAttnBf16Div)
-    VIT_PROBE_MODE(kAttnAllDiv)
-    VIT_PROBE_MODE(kAttnMxuDiv)
-    VIT_PROBE_MODE(kAttnAddMask)
-    VIT_PROBE_MODE(kAttnVsum)
-    VIT_PROBE_MODE(kAttnQcore)
-    VIT_PROBE_MODE(kAttnWide)
-    VIT_PROBE_MODE(kAttnKt)
-    VIT_PROBE_MODE(kAttnHeadMajor)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef VIT_PROBE_MODE
-}
 
 // The probe's GEMM epilogues; m, n are the GEMM's rows and columns, d the
 // model width.
@@ -198,33 +139,83 @@ cudaError_t launch_wgmma_probe(int xep, const void* x, const void* w,
                                int device, cudaStream_t st);
 bool wgmma_takes(const void* x, const void* w, int n, int k);
 
-template <typename T>
-cudaError_t launch_probe_gemm_ep(int ep, const T* x, const T* w,
-                                 const T* bias, const T* res, T* out, T* alt,
-                                 int m, int n, int k, int d,
-                                 cudaStream_t st) {
+// f(std::integral_constant<int, EP>()) for the probe epilogue ep.
+template <typename F>
+cudaError_t with_probe_ep(int ep, F&& f) {
   switch (ep) {
-    case kEpSplitQ:
-      return launch_probe_gemm<T, kEpSplitQ>(x, w, bias, res, out, alt, m, n,
-                                             k, d, st);
-    case kEpSplitKT:
-      return launch_probe_gemm<T, kEpSplitKT>(x, w, bias, res, out, alt, m,
-                                              n, k, d, st);
-    case kEpAllT:
-      return launch_probe_gemm<T, kEpAllT>(x, w, bias, res, out, alt, m, n,
-                                           k, d, st);
-    case kEpRowBias:
-      return launch_probe_gemm<T, kEpRowBias>(x, w, bias, res, out, alt, m,
-                                              n, k, d, st);
-    case kEpOutX:
-      return launch_probe_gemm<T, kEpOutX>(x, w, bias, res, out, alt, m, n,
-                                           k, d, st);
-    case kEpOutT:
-      return launch_probe_gemm<T, kEpOutT>(x, w, bias, res, out, alt, m, n,
-                                           k, d, st);
-    default:
-      return cudaErrorInvalidValue;
+    case kEpSplitQ: return f(std::integral_constant<int, kEpSplitQ>());
+    case kEpSplitKT: return f(std::integral_constant<int, kEpSplitKT>());
+    case kEpAllT: return f(std::integral_constant<int, kEpAllT>());
+    case kEpRowBias: return f(std::integral_constant<int, kEpRowBias>());
+    case kEpOutX: return f(std::integral_constant<int, kEpOutX>());
+    case kEpOutT: return f(std::integral_constant<int, kEpOutT>());
+    default: return cudaErrorInvalidValue;
   }
+}
+
+namespace tf {
+
+// K23's fp32 GEMMs on K2's tf32 walk (gemm_tf32.cuh): ProbeEpilogue<float,
+// EP> as the walk's epilogue, passed by value as K2's, K6's and K8's are,
+// so that their kernels compile as before. Each thread stores its
+// accumulator fragment's elements in ProbeEpilogue::store's order: a row's
+// pair of columns, or, transposed, eight rows of a column in 32 contiguous
+// bytes a group of eight lanes.
+template <int EP>
+struct Tf32Probe : ProbeEpilogue<float, EP> {};
+
+template <int EP>
+__device__ __forceinline__ void epilogue(const float (&d)[64],
+                                         const Tf32Probe<EP>& ep, int m0,
+                                         int n0) {
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gr = m0 + 16 * warp + lane / 4 + 8 * (i >> 1);
+      const int gc = n0 + 8 * j + 2 * (lane % 4) + (i & 1);
+      if (gr < ep.m && gc < ep.n) ep.store(gr, gc, d[4 * j + i]);
+    }
+}
+
+template <int EP>
+__device__ __forceinline__ void tile_done(const Tf32Probe<EP>&, int, int) {}
+
+template <int EP>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_tf32_probe(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    Tf32Probe<EP> ep, int k) {
+  gemm_tf32_walk<0, 0, false, Tf32Probe<EP>>(map_a, map_b, ep, k,
+                                             Tf32Ln{});
+}
+
+}  // namespace tf
+
+// matmul_tf32.cu's fp32 tensor maps and K2's fp32 tile rule.
+bool tensor_map_f32(CUtensorMap* map, const void* p, int rows, int cols,
+                    int ld, int box_rows);
+bool tf32_takes(const void* x, const void* w, int n, int k);
+
+// x (m, k) @ w (k, n), contiguous (tf32_takes), on the tf32 walk with
+// epilogue EP.
+template <int EP>
+cudaError_t launch_tf32_probe(const float* x, const float* w,
+                              const float* bias, const float* res,
+                              float* out, float* alt, int m, int n, int k,
+                              int d, int device, cudaStream_t st) {
+  CUtensorMap ma, mb;
+  if (!tensor_map_f32(&ma, x, m, k, k, tf::kBM) ||
+      !tensor_map_f32(&mb, w, k, n, n, 32))
+    return cudaErrorInvalidValue;
+  static int sm_count[tf::kMaxDevices];  // 0 until the first launch
+  if (device < 0 || device >= tf::kMaxDevices)
+    return cudaErrorInvalidDevice;
+  return tf::launch_walk(tf::gemm_tf32_probe<EP>, sm_count[device], m, n,
+                         device, st, ma, mb,
+                         tf::Tf32Probe<EP>{{bias, res, out, alt, m, n, d}},
+                         k);
 }
 
 // xcore's LN over the columns of x (d, m): 32 columns a block, 8 warps
@@ -276,8 +267,9 @@ __global__ void __launch_bounds__(kColLnCols * kColLnRows)
 // The core in mode `mode` (AttnMode): qkv the packed (B*S, 3D) buffer (all
 // modes but kAttnHeadMajor), tbuf kT (D, ldt) for kAttnKt or [qT|kT|vT]
 // (3D, ldt) for kAttnHeadMajor, out (B*S, D) or, head-major, (D, ldt).
-// heads is the number of work-item heads (kAttnWide: pairs of heads). bf16
-// runs the tensor-core tile (attn_core_probe.cuh), fp32 the FFMA tile.
+// heads is the number of work-item heads (kAttnWide: pairs of heads). Each
+// dtype runs K4's tensor-core tile (attn_core_probe.cuh,
+// attn_core_probe_tf32.cuh).
 extern "C" int vit_attn_probe_core(const void* qkv, const void* tbuf,
                                    void* out, int batch, int s, int d,
                                    int heads, int seq_len, int ldt,
@@ -292,10 +284,17 @@ extern "C" int vit_attn_probe_core(const void* qkv, const void* tbuf,
       (mode != kAttnHeadMajor && !qkv))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch_probe_core_mode<float>(
-        mode, static_cast<const float*>(qkv), static_cast<const float*>(tbuf),
-        static_cast<float*>(out), batch, s, d, heads, seq_len, ldt, scale, st);
+  if (dtype == kF32) {
+    auto* q = static_cast<const float*>(qkv);
+    auto* tb = static_cast<const float*>(tbuf);
+    auto* o = static_cast<float*>(out);
+    return attn_masked(mode)
+               ? launch_probe_core_tf32_masked(mode, q, tb, o, batch, s, d,
+                                               heads, seq_len, ldt, scale, st)
+               : launch_probe_core_tf32_all_keys(mode, q, tb, o, batch, s, d,
+                                                 heads, seq_len, ldt, scale,
+                                                 st);
+  }
   if (dtype == kBF16) {
     auto* q = static_cast<const bf16*>(qkv);
     auto* tb = static_cast<const bf16*>(tbuf);
@@ -325,30 +324,46 @@ extern "C" int vit_attn_probe_gemm(const void* x, const void* w,
       ((ep == kEpOutX || ep == kEpOutT) && !res))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch_probe_gemm_ep<float>(
-        ep, static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<const float*>(res),
-        static_cast<float*>(out), static_cast<float*>(alt), m, n, k, d, st);
+  if (dtype == kF32) {
+    auto* xf = static_cast<const float*>(x);
+    auto* wf = static_cast<const float*>(w);
+    auto* bf = static_cast<const float*>(bias);
+    auto* rf = static_cast<const float*>(res);
+    auto* of = static_cast<float*>(out);
+    auto* af = static_cast<float*>(alt);
+    const bool tf32 = tf32_takes(x, w, n, k);
+    return with_probe_ep(ep, [&](auto e) {
+      constexpr int EP = decltype(e)::value;
+      return tf32 ? launch_tf32_probe<EP>(xf, wf, bf, rf, of, af, m, n, k, d,
+                                          device, st)
+                  : launch_probe_gemm<float, EP>(xf, wf, bf, rf, of, af, m, n,
+                                                 k, d, st);
+    });
+  }
   if (dtype == kBF16) {
     if (wgmma_takes(x, w, n, k))
       return launch_wgmma_probe(ep + 1, x, w, bias, res, out, alt, m, n, k, d,
                                 device, st);
-    return launch_probe_gemm_ep<bf16>(
-        ep, static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
-        static_cast<bf16*>(out), static_cast<bf16*>(alt), m, n, k, d, st);
+    return with_probe_ep(ep, [&](auto e) {
+      return launch_probe_gemm<bf16, decltype(e)::value>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+          static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
+          static_cast<bf16*>(out), static_cast<bf16*>(alt), m, n, k, d, st);
+    });
   }
   return cudaErrorInvalidValue;
 }
 
 // The tile vit_attn_probe_gemm runs x (m, k) @ w (k, n) on, without
-// launching: 1 the wgmma tile (bf16 where TMA reads both operands), 0
-// gemm_tile.cuh's (vit_tpu_torch/tools/attn_core_probe.py:gemm_tile asks
-// it).
+// launching: 1 K2's TMA tile (bf16 wgmma where wgmma_takes, fp32 tf32 where
+// tf32_takes: K2's rule), 0 gemm_tile.cuh's
+// (vit_tpu_torch/tools/attn_core_probe.py:gemm_tile asks it).
 extern "C" int vit_attn_probe_gemm_tile(const void* x, const void* w, int n,
                                         int k, int dtype) {
-  return dtype == vit::kBF16 && vit::wgmma_takes(x, w, n, k) ? 1 : 0;
+  return (dtype == vit::kBF16 && vit::wgmma_takes(x, w, n, k)) ||
+                 (dtype == vit::kF32 && vit::tf32_takes(x, w, n, k))
+             ? 1
+             : 0;
 }
 
 // xcore's column LN: x and out (d, m), g and b (d,).

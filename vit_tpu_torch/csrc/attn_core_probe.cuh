@@ -15,8 +15,6 @@
 
 namespace vit {
 
-constexpr size_t kProbeMaxSmem = 232448;  // 227 KB a block on Hopper
-
 template <int NK, int MODE>
 __global__ void __launch_bounds__(kAttnMmaThreads)
     attn_probe_kernel_mma(const bf16* __restrict__ qkv,

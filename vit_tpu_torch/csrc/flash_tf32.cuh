@@ -404,8 +404,10 @@ __device__ __forceinline__ void tf32_a_global(uint32_t (&hi)[4],
 // c[n] += q b^T for the C tiles n < nt (8 keys each, keys 8n .. of the
 // row-major fp32 tile b, stride ld) over the 8-deep slices kk < ks of KS:
 // a(kk, hi, lo) gives q's split A fragment of slice kk; three passes, pass
-// by pass over the tiles.
-template <int KS, int N, typename AF>
+// by pass over the tiles. KT: b is K^T, a feature-major slab (features
+// along the rows of stride ld, keys contiguous: K23's kt and head-major
+// cores), which is the B operand as it lies.
+template <int KS, int N, bool KT = false, typename AF>
 __device__ __forceinline__ void tf32_qkt(float (&c)[N / 8][4], AF&& a,
                                          const float* b, int ld, int nt,
                                          int ks, int lane) {
@@ -417,9 +419,15 @@ __device__ __forceinline__ void tf32_qkt(float (&c)[N / 8][4], AF&& a,
 #pragma unroll
     for (int n = 0; n < N / 8; ++n)
       if (n < nt) {
-        const float* p = b + (8 * n + lane / 4) * ld + 8 * kk + lane % 4;
-        split_tf32(p[0], bh[n][0], bl[n][0]);
-        split_tf32(p[4], bh[n][1], bl[n][1]);
+        if constexpr (KT) {
+          const float* p = b + (8 * kk + lane % 4) * ld + 8 * n + lane / 4;
+          split_tf32(p[0], bh[n][0], bl[n][0]);
+          split_tf32(p[4 * ld], bh[n][1], bl[n][1]);
+        } else {
+          const float* p = b + (8 * n + lane / 4) * ld + 8 * kk + lane % 4;
+          split_tf32(p[0], bh[n][0], bl[n][0]);
+          split_tf32(p[4], bh[n][1], bl[n][1]);
+        }
       }
 #pragma unroll
     for (int n = 0; n < N / 8; ++n)
@@ -437,15 +445,18 @@ __device__ __forceinline__ void tf32_qkt(float (&c)[N / 8][4], AF&& a,
 // p's split A fragment of a C chunk in the permuted order (tf32_a_of_c),
 // b a row-major fp32 tile (stride ld) whose rows k0 + 2t and k0 + 2t + 1
 // take k positions t and t + 4; C tiles at or past nc are skipped. Eight
-// tiles' B fragments at a time.
-template <int NT>
+// tiles' B fragments at a time. VT: b is V^T, a feature-major slab
+// (features along the rows of stride ld, keys contiguous: K23's head-major
+// core), whose keys k0 + 2t and + 1 are one 8-byte load.
+template <int NT, bool VT = false>
 __device__ __forceinline__ void tf32_pv(float (&c)[NT][4],
                                         const uint32_t (&ah)[4],
                                         const uint32_t (&al)[4],
                                         const float* b, int k0, int ld,
                                         int nc, int lane) {
   constexpr int NC = NT < 8 ? NT : 8;
-  const float* p = b + (k0 + 2 * (lane % 4)) * ld + lane / 4;
+  const float* p = VT ? b + (lane / 4) * ld + k0 + 2 * (lane % 4)
+                      : b + (k0 + 2 * (lane % 4)) * ld + lane / 4;
 #pragma unroll
   for (int c0 = 0; c0 < NT; c0 += NC) {
     uint32_t bh[NC][2], bl[NC][2];
@@ -454,8 +465,15 @@ __device__ __forceinline__ void tf32_pv(float (&c)[NT][4],
 #pragma unroll
     for (int n = 0; n < NC; ++n)
       if (on(n)) {
-        split_tf32(p[8 * (c0 + n)], bh[n][0], bl[n][0]);
-        split_tf32(p[ld + 8 * (c0 + n)], bh[n][1], bl[n][1]);
+        if constexpr (VT) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(p + 8 * (c0 + n) * ld);
+          split_tf32(v.x, bh[n][0], bl[n][0]);
+          split_tf32(v.y, bh[n][1], bl[n][1]);
+        } else {
+          split_tf32(p[8 * (c0 + n)], bh[n][0], bl[n][0]);
+          split_tf32(p[ld + 8 * (c0 + n)], bh[n][1], bl[n][1]);
+        }
       }
 #pragma unroll
     for (int n = 0; n < NC; ++n)
@@ -473,9 +491,10 @@ __device__ __forceinline__ void tf32_pv(float (&c)[NT][4],
 // rows lane / 4 and + 8) over the 64-key tile's raw scores sc: s2 = raw *
 // scale2, keys at or past kend (the tile's real keys) at -inf; m2' =
 // max(m2, rowmax(s2)); the context o rescaled by alpha = 2^(m2 - m2');
-// sc becomes p = 2^(s2 - m2'), summed into l (the lane's partial sums).
-// The first tile of a row holds key 0, so m2' is finite there.
-template <int NO>
+// sc becomes p = 2^(s2 - m2'), summed into l (the lane's partial sums)
+// unless SUM is false (K23's vsum sums p as the products read it). The
+// first tile of a row holds key 0, so m2' is finite there.
+template <int NO, bool SUM = true>
 __device__ __forceinline__ void online_step(float (&sc)[8][4],
                                             float (&o)[NO][4], float (&m2)[2],
                                             float (&l)[2], float scale2,
@@ -507,7 +526,7 @@ __device__ __forceinline__ void online_step(float (&sc)[8][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       sc[j][e] = ex2(sc[j][e] - m2[e >> 1]);
-      l[e >> 1] += sc[j][e];
+      if constexpr (SUM) l[e >> 1] += sc[j][e];
     }
 }
 

@@ -534,6 +534,40 @@ __device__ __forceinline__ void gemm_tf32_walk(const CUtensorMap& map_a,
   }
 }
 
+constexpr int kMaxDevices = 64;  // launch_walk's callers' counts of SMs
+
+// One launch of `kernel`, a kernel of this walk (kThreads threads, kSmem
+// bytes): on the device's first launch (sms, the caller's count of the
+// device's SMs for this kernel, still 0) the shared-memory limit and the
+// register check; one persistent block an SM, at most one a tile of the
+// (m, n) output.
+template <typename Kernel, typename... Args>
+cudaError_t launch_walk(Kernel kernel, int& sms, int m, int n, int device,
+                        cudaStream_t st, const Args&... args) {
+  if (sms == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr{};
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    // Fewer registers than the split needs: setmaxnreg.inc would wait
+    // forever, so refuse the launch.
+    if (attr.numRegs * kThreads < kPoolRegs)
+      return cudaErrorLaunchOutOfResources;
+    int count = 0;
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    sms = count;
+  }
+  const long long tiles = static_cast<long long>((m + kBM - 1) / kBM) *
+                          ((n + kBN - 1) / kBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  kernel<<<grid, kThreads, kSmem, st>>>(args...);
+  return cudaGetLastError();
+}
+
 template <int TA, int TB>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_tf32_wgmma(const __grid_constant__ CUtensorMap map_a,

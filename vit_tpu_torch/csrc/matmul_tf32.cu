@@ -60,12 +60,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace tf
 
-constexpr int kMaxDevices = 64;
-
 // One launch of a kernel of the tile, K2's (gemm_tf32_wgmma<TA, TB>) or,
-// with LN, K6's, or with EMB, K8's: per device, once, the shared-memory
-// limit and the register check; one persistent block an SM, at most one a
-// tile.
+// with LN, K6's, or with EMB, K8's (tf::launch_walk, a count of SMs a
+// device for each kernel).
 template <int TA, int TB, bool LN, bool EMB = false, typename... Args>
 cudaError_t launch_tf32_tile(int m, int n, int device, cudaStream_t st,
                              const Args&... args) {
@@ -77,31 +74,11 @@ cudaError_t launch_tf32_tile(int m, int n, int device, cudaStream_t st,
     else
       return tf::gemm_tf32_wgmma<TA, TB>;
   }();
-  static int sm_count[kMaxDevices];  // 0 until the device's first launch
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int& sms = sm_count[device];
-  if (sms == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tf::kSmem);
-    if (err != cudaSuccess) return err;
-    cudaFuncAttributes attr{};
-    err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return err;
-    // Fewer registers than the split needs: setmaxnreg.inc would wait
-    // forever, so refuse the launch.
-    if (attr.numRegs * tf::kThreads < tf::kPoolRegs)
-      return cudaErrorLaunchOutOfResources;
-    int count = 0;
-    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return err;
-    sms = count;
-  }
-  const long long tiles = static_cast<long long>((m + tf::kBM - 1) / tf::kBM) *
-                          ((n + tf::kBN - 1) / tf::kBN);
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  kernel<<<grid, tf::kThreads, tf::kSmem, st>>>(args...);
-  return cudaGetLastError();
+  static int sm_count[tf::kMaxDevices];  // 0 until the first launch
+  if (device < 0 || device >= tf::kMaxDevices)
+    return cudaErrorInvalidDevice;
+  return tf::launch_walk(kernel, sm_count[device], m, n, device, st,
+                         args...);
 }
 
 // The epilogue of out (m, n): pairs stored as 8 bytes where n, out and the

@@ -1,14 +1,18 @@
 """Minimal matmul on the card: the teaching companion of the port's kernels
 (counterpart of ``examples/minimal_pallas_matmul.py``).
 
-It shows the bare essentials of a kernel of this package, with none of the
-production machinery of K2 (``csrc/matmul.cu``: no tensor cores, no
-epilogues, no ragged edges):
+It shows the bare essentials of a kernel of this package and how it
+reaches the tensor cores, with none of the production machinery of K2
+(``csrc/matmul.cu``: no TMA, no ``wgmma``, no epilogues, no ragged edges):
 
 - the kernel, K21 (``vit_tpu_torch/csrc/minimal_matmul.cu``), is CUDA C++
   behind a plain ``extern "C"`` function; ``nvcc`` compiles it with every
   other source into the package's one shared library at first use
-  (``vit_tpu_torch/ops/cuda/_build.py``), which ``ctypes`` loads;
+  (``vit_tpu_torch/ops/cuda/_build.py``), which ``ctypes`` loads. It walks
+  K in steps of 32, two stages of ``cp.async`` copies deep, on 64 x 64
+  output tiles of four warps, each warp's sums on ``mma.sync``: m16n8k16
+  from ``ldmatrix`` fragments in bf16, m16n8k8 tf32 in three passes (the
+  split of ``csrc/tf32_split.cuh``) in fp32;
 - ``ctypes`` passes what it is told: ``_build._SIGNATURES`` declares each
   pointer ``c_void_p`` and each size ``c_int`` (an undeclared pointer would
   be cut to 32 bits), and :func:`~vit_tpu_torch.ops.cuda._build.launch`
@@ -18,7 +22,8 @@ epilogues, no ragged edges):
 - the wrapper checks what the kernel cannot (device, dtype, shapes -- every
   dimension a multiple of 128, the Pallas example's assert -- and
   contiguity) and allocates the output with ``torch.empty``; the kernel
-  allocates nothing and does not synchronise;
+  allocates nothing and does not synchronise (its C function refuses a
+  base that is not 16-byte aligned, which ``cp.async`` needs);
 - a plain PyTorch version of the same function sits beside it, for CPU
   tensors and to check the kernel against.
 
@@ -39,7 +44,7 @@ from vit_tpu_torch.ops.cuda import _build, count_launch
 from vit_tpu_torch.ops.dispatch import resolve_impl
 
 #: Every dimension must be a multiple of this, as in the Pallas example
-#: (one MXU tile there; the CUDA kernel's own tile is 32).
+#: (one MXU tile there; the CUDA kernel's own tile is 64).
 TILE = 128
 
 

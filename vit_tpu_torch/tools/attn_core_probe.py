@@ -4,16 +4,18 @@
 The block is the port's ``attn_block``: K1 (LN1), K2 into the packed
 ``(B*S, 3D)`` QKV buffer, the core, K2 with ``bout`` and the residual. The
 core is K23 ``attn_core_probe`` (``vit_tpu_torch/csrc/attn_core_probe.cu``)
-with the mode as a template parameter, on the tile each dtype's path runs:
-in bf16 K4's tensor-core tile (``attention_mma.cuh``, ``mma.sync`` on
-K4's block of 128 threads), so ``full`` is K4's bf16 core bit for bit
-(its very instantiation) and ``qcore`` runs its int8 codes on ``mma.sync``
-m16n8k32; in fp32 ``attention_core.cuh``'s FFMA tile, K9's fp32
-attention phase instruction for instruction. The layout modes' GEMMs (kt, projonly,
-tcore, xcore) are K23's too: K2's bf16 ``wgmma`` tile
-(``gemm_wgmma.cuh``) with an epilogue form each, where TMA reads the
-operands (:func:`gemm_tile`), else K2's tile loop (``gemm_tile.cuh``).
-The core's bound is K4's: bytes, 0.0122 ms at B/16 bs=32 in bf16. Each
+with the mode as a template parameter, on K4's tensor-core tile in each
+dtype, ``mma.sync`` on K4's block of 128 threads: in bf16
+``attention_mma.cuh``'s, where ``qcore`` runs its int8 codes on
+``mma.sync`` m16n8k32; in fp32 ``attention_tf32.cuh``'s (three TF32
+passes, a running max), where ``qcore``'s codes, exact in TF32, take one
+pass a product. So ``full`` is K4's core bit for bit in both (its very
+instantiation). The layout modes' GEMMs (kt, projonly, tcore, xcore) are
+K23's too: K2's TMA tile with an epilogue form each, where TMA reads the
+operands (:func:`gemm_tile`: bf16 ``gemm_wgmma.cuh``'s ``wgmma`` tile,
+fp32 ``gemm_tf32.cuh``'s tf32 walk), else K2's tile loop
+(``gemm_tile.cuh``). The core's bound is K4's: bytes, 0.0122 ms at B/16
+bs=32 in bf16, 0.0244 in fp32. Each
 mode switches one ingredient off, or lays the data out another way, as
 the JAX probe's ``_core_kernel`` (``tools/attn_core_probe.py:67-290``) and
 ``_tcore_body`` (``:293-331``) do:
@@ -49,10 +51,10 @@ Only full, kt, addmask, vsum, tcore and xcore compute the block's function
 launches are :func:`launches`; every launch from K23's source counts as
 ``attn_core_probe``. The JAX kernel runs ``group`` images a grid step; a
 work item here is (image, head, 64 queries) whatever the group, which is
-kept for its check (the batch must be a multiple of it). In fp32 a core
-tile at 208 tokens fits shared memory at head width 64, not at ``wide``'s
-128: fp32 ``wide`` runs only at a length that fits. In bf16, qcore and
-the head-major core take heads up to 128 columns.
+kept for its check (the batch must be a multiple of it). Every mode's
+core fits shared memory at 208 tokens, fp32 ``wide``'s heads of 128 too
+(:func:`core_smem_bytes`). In bf16, qcore and the head-major core take
+heads up to 128 columns.
 
 For each mode it prints the block's time by CUDA events around each call
 (median, :func:`vit_tpu_torch.utils.timing.do_bench`, host launch cost
@@ -108,9 +110,6 @@ RECIPROCAL = ("recip", "alldiv", "mxudiv", "addmask", "tcore", "xcore")
 UNNORMALIZED = ("maskonly", "nosm", "mxu", "sumonly")
 #: The probe GEMM's epilogues (``csrc/attn_core_probe.cu:ProbeEp``).
 EP_SPLIT_Q, EP_SPLIT_KT, EP_ALL_T, EP_ROW_BIAS, EP_OUT_X, EP_OUT_T = range(6)
-#: Extra shared memory of an fp32 probe core tile over K4's: the qcore
-#: scales.
-PROBE_SMEM_EXTRA = 64 * 4
 #: Widest head (columns) of the bf16 qcore and head-major cores, whose q
 #: fragments are held whole.
 MMA_MAX_HEAD = 128
@@ -297,15 +296,21 @@ def _ceil(n: int, m: int) -> int:
 
 def core_smem_bytes(sp: int, head_dim: int, itemsize: int,
                     mode: str = "full") -> int:
-    """Shared memory of one K23 core tile: in fp32 the FFMA tile's (K9's
-    and the qcore scales); in bf16 the tensor-core tile's in ``mode``
-    (``csrc/attention_mma.cuh:attn_mma_probe_smem``): K4's (K and V rows),
+    """Shared memory of one K23 core tile in ``mode``: K4's (K and V rows),
     kt's (K's feature-major slab beside V's rows), the head-major modes'
-    (K's, V's and q's slabs) or qcore's (K and V, then their int8 codes)."""
-    from vit_tpu_torch.ops.cuda.block import (attention_mma_smem_bytes,
-                                              attention_smem_bytes)
+    (K's and V's slabs, and in bf16 q's) or qcore's. In fp32
+    ``csrc/attention_tf32.cuh:attn_tf32_probe_smem`` (K and V fp32, rows
+    of ceil8(S) keys and dh' + 4 floats, slabs of ceil16(S) + 8; qcore's 8
+    floats more for its scales), in bf16 ``csrc/attention_mma.cuh:
+    attn_mma_probe_smem`` (qcore's K and V, then their int8 codes)."""
+    from vit_tpu_torch.ops.cuda.block import attention_mma_smem_bytes
     if itemsize != 2:
-        return attention_smem_bytes(sp, head_dim, itemsize) + PROBE_SMEM_EXTRA
+        kr, dhp, ldsl = _ceil(sp, 8), _ceil(head_dim, 8), _ceil(sp, 16) + 8
+        floats = {"kt": dhp * ldsl + kr * (dhp + 4),
+                  "tcore": 2 * dhp * ldsl, "xcore": 2 * dhp * ldsl,
+                  "qcore": 2 * kr * (dhp + 4) + 8}.get(
+                      mode, 2 * kr * (dhp + 4))
+        return floats * 4
     kr, dhp = _ceil(sp, 16), _ceil(head_dim, 16)
     if mode == "kt":
         return (dhp * (kr + 8) + kr * (dhp + 8)) * 2
@@ -322,14 +327,16 @@ def gemm_tile(m: int, n: int, k: int, dtype: torch.dtype,
               ptrs: tuple[int, int]) -> str:
     """The tile a K23 GEMM ``(m, k) @ (k, n)`` of contiguous operands runs
     on, from shape and alignment alone (``ptrs`` the bases, bytes): K2's
-    rule (:func:`vit_tpu_torch.ops.cuda.matmul.gemm_path`), ``"wgmma"``
-    where TMA reads both operands, else ``"wmma"``; ``"ffma"`` in fp32.
+    rule (:func:`vit_tpu_torch.ops.cuda.matmul.gemm_path`), where TMA reads
+    both operands ``"wgmma"`` in bf16 and ``"tf32"`` (K2's tf32 walk) in
+    fp32, else ``"wmma"`` in bf16 and ``"ffma"`` in fp32.
     ``csrc/attn_core_probe.cu:vit_attn_probe_gemm_tile`` applies the same
-    rule (fp32 stays on ``gemm_tile.cuh``, where K2 has a tf32 tile)."""
+    rule."""
     from vit_tpu_torch.ops.cuda.matmul import gemm_path
+    path = gemm_path(m, n, k, dtype, False, False, ptrs, ((k, 1), (n, 1)))
     if dtype == torch.float32:
-        return "ffma"
-    return gemm_path(m, n, k, dtype, False, False, ptrs, ((k, 1), (n, 1)))
+        return "tf32" if path == "wgmma" else "ffma"
+    return path
 
 
 def core_launch(mode: str, qkv, tbuf, out, *, b, sp, d, heads, seq_len,

@@ -27,7 +27,9 @@ also at H/14 bs=2, each beside the case's composed K1 -> K2 -> K2 chain),
 K17 (``mlp_block_q`` at B/16
 bs=32 and its shard over model=2, each beside K3 on the dequantized
 weights; in fp32 also at L/16-384 bs=8 and H/14 bs=2), K22's fp32 dot
-beside ``torch.matmul``, and K18 (B/16 bs=32 and L/16 bs=8, each beside K2 -> K3 on the
+beside ``torch.matmul``, K23 in fp32 (the ``full`` core beside SDPA, the
+block in every mode but ``wide``, the kt QKV GEMM beside ``addmm``), K21
+(the example's matmul in both dtypes, beside ``torch.matmul``), and K18 (B/16 bs=32 and L/16 bs=8, each beside K2 -> K3 on the
 same operands, which rounds y); then the B/16 bs=32 bf16 forward on the
 default route, on the full-layer route (``layer_block=True``), on
 ``(flash, fused=False)``, ``(unfused, fused=False)`` and ``(unfused,
@@ -216,6 +218,26 @@ CASES = {
                           "H/14 bs=2", False),
     "dot_probe_float32": ("kernel_cases_probes", "float32", "dot_probe",
                           "float32", True),
+    # K23's fp32 full core (beside SDPA), its fp32 block in every mode
+    # but wide (whose fp32 core did not fit at 208 tokens before it ran on
+    # K4's tf32 tile) and its fp32 kt QKV GEMM alone (beside addmm); K21 in
+    # both dtypes beside torch.matmul.
+    "attn_core_probe_full_float32": ("kernel_cases_probes", "float32",
+                                     "attn_core_probe", "core full", True),
+    **{f"attn_core_probe_block_{mode}_float32": (
+        "kernel_cases_probes", "float32", "attn_core_probe",
+        f"block {mode} (", False)
+       for mode in ("full", "maskonly", "nosm", "mxu", "divonly", "recip",
+                    "sumonly", "bf16div", "alldiv", "mxudiv", "addmask",
+                    "vsum", "qcore", "kt", "projonly", "tcore", "xcore")},
+    "attn_core_probe_gemm_kt_float32": ("kernel_cases_probes", "float32",
+                                        "attn_core_probe", "gemm kt", True),
+    "minimal_matmul_bfloat16": ("kernel_cases_layer", "bfloat16",
+                                "minimal_matmul", "(256,384)@(384,512)",
+                                True),
+    "minimal_matmul_float32": ("kernel_cases_layer", "float32",
+                               "minimal_matmul", "(256,384)@(384,512)",
+                               True),
     "encoder_stack_fused": ("kernel_cases_small_batch", "bfloat16",
                             "encoder_stack_fused", "(1,196,768)", False),
     "encoder_stack_q": ("kernel_cases_stack_q", "bfloat16",
